@@ -1,0 +1,17 @@
+"""paddle1_tpu_torch — the PyTorch/CUDA port of paddle1_tpu.
+
+A second package beside the JAX reference (``paddle1_tpu``), ported
+slice by slice. It imports ``torch`` and numpy only — never ``jax`` and
+nothing of ``paddle1_tpu`` — and its entry points run on CUDA unless the
+caller passes ``device="cpu"``. Hand-written CUDA kernels are built from
+``ops/cuda/*.cu`` the first time a CUDA tensor reaches them.
+
+Slice 1 is generative serving: ``serving.GenerationServer`` over
+``serving.CausalLM`` with a paged KV cache, on the paged-attention and
+LayerNorm kernels.
+"""
+
+from . import serving  # noqa: F401
+from .core.device import resolve_device  # noqa: F401
+
+__all__ = ["serving", "resolve_device"]

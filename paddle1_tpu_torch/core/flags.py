@@ -1,0 +1,195 @@
+"""Global flag registry (port of ``paddle1_tpu/core/flags.py``).
+
+A single process-wide registry of typed flags, set programmatically
+(``set_flags`` / ``flags_guard``) or through ``FLAGS_<name>`` environment
+variables read when the flag is defined (gflags-compatible behaviour).
+
+Only the flags this package reads are defined, under the JAX package's
+names and defaults. ``auto|always|never`` kernel flags resolve against
+the tensor's device (:func:`flag_active`): ``auto`` means "the tensor
+lies on a CUDA device", where the JAX package keys on the TPU backend.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional
+
+from .errors import InvalidArgumentError
+
+__all__ = ["define_flag", "get_flags", "set_flags", "flag", "flags_guard",
+           "flag_active"]
+
+
+@dataclass
+class _FlagDef:
+    name: str
+    default: Any
+    help: str
+    type: type
+    value: Any
+    validator: Optional[Callable[[Any], bool]] = None
+
+
+_registry: Dict[str, _FlagDef] = {}
+_lock = threading.RLock()
+
+
+def _coerce(raw: Any, ty: type) -> Any:
+    if ty is bool:
+        if isinstance(raw, bool):
+            return raw
+        if isinstance(raw, str):
+            return raw.lower() in ("1", "true", "yes", "on")
+        return bool(raw)
+    return ty(raw)
+
+
+def define_flag(name: str, default: Any, help: str = "",
+                validator: Optional[Callable[[Any], bool]] = None) -> None:
+    """Register a flag. Environment variable ``FLAGS_<name>`` overrides the
+    default at definition time (gflags-compatible behavior)."""
+    with _lock:
+        ty = type(default)
+        value = default
+        env = os.environ.get("FLAGS_" + name)
+        if env is not None:
+            value = _coerce(env, ty)
+        if validator is not None and not validator(value):
+            raise InvalidArgumentError(
+                f"Invalid value {value!r} for flag {name}")
+        _registry[name] = _FlagDef(name, default, help, ty, value, validator)
+
+
+def flag(name: str) -> Any:
+    """Fast single-flag read used by runtime internals."""
+    try:
+        return _registry[name].value
+    except KeyError:
+        raise InvalidArgumentError(
+            f"Flag '{name}' has not been defined. Known flags: "
+            f"{sorted(_registry)}") from None
+
+
+def get_flags(flags) -> Dict[str, Any]:
+    """Query flag values. ``flags`` may be a name or list of names."""
+    if isinstance(flags, str):
+        flags = [flags]
+    return {name: flag(name) for name in flags}
+
+
+def set_flags(flags: Dict[str, Any]) -> None:
+    """Set flag values from a dict, with type coercion and validation."""
+    if not isinstance(flags, dict):
+        raise InvalidArgumentError("set_flags expects a dict of {name: value}")
+    with _lock:
+        for name, value in flags.items():
+            if name not in _registry:
+                raise InvalidArgumentError(f"Flag '{name}' is not defined")
+            d = _registry[name]
+            value = _coerce(value, d.type)
+            if d.validator is not None and not d.validator(value):
+                raise InvalidArgumentError(
+                    f"Invalid value {value!r} for flag {name}")
+            d.value = value
+
+
+def flag_active(name: str, device) -> bool:
+    """Resolve an ``auto|always|never`` kernel flag for a tensor on
+    ``device`` (a ``torch.device``): ``always`` → True, ``auto`` → the
+    device is CUDA, ``never`` → False."""
+    v = flag(name)
+    if v == "always":
+        return True
+    if v == "auto":
+        return getattr(device, "type", device) == "cuda"
+    return False
+
+
+class flags_guard:
+    """Context manager that temporarily overrides flags (test helper)."""
+
+    def __init__(self, overrides: Optional[Dict[str, Any]] = None, **kw):
+        self._overrides = {**(overrides or {}), **kw}
+        self._saved: Dict[str, Any] = {}
+
+    def __enter__(self):
+        self._saved = get_flags(list(self._overrides))
+        set_flags(self._overrides)
+        return self
+
+    def __exit__(self, *exc):
+        set_flags(self._saved)
+        return False
+
+
+def _tri(v) -> bool:
+    return v in ("auto", "always", "never")
+
+
+def _define_builtin_flags() -> None:
+    # kernel routing (JAX package: core/flags.py pallas_paged_attention,
+    # fused_layer_norm)
+    define_flag("pallas_paged_attention", "auto",
+                "Hand-written CUDA paged-attention kernel for the paged "
+                "decode path (the name is kept from the JAX package): "
+                "auto (CUDA tensors only), always (the plain version on "
+                "CPU tensors), never (plain PyTorch gather composition).",
+                validator=_tri)
+    define_flag("fused_layer_norm", "auto",
+                "Hand-written CUDA LayerNorm forward kernel: auto (CUDA "
+                "tensors only), always, never (plain composition).",
+                validator=_tri)
+    # generic serving knobs the GenerationServer reads
+    define_flag("serve_queue_depth", 256,
+                "Bound on queued (admitted, not yet prefilled) generation "
+                "requests; submissions beyond it are shed with "
+                "ServerOverloaded.",
+                validator=lambda v: v >= 1)
+    define_flag("serve_deadline_ms", 0.0,
+                "Default per-request wall deadline in ms (0 disables; "
+                "submit() can override per request).",
+                validator=lambda v: v >= 0)
+    # generative serving (serving/generate.py)
+    define_flag("serve_gen_slots", 16,
+                "Decode slots in the GenerationEngine: the continuous-"
+                "batching degree. Decode state is pinned at [slots] so "
+                "every step runs the same shapes.",
+                validator=lambda v: v >= 1)
+    define_flag("serve_gen_max_seq", 256,
+                "KV-cache sequence capacity per slot (prompt + generated "
+                "tokens).",
+                validator=lambda v: v >= 2)
+    define_flag("serve_gen_prefill_buckets", "",
+                "Comma-separated prompt-length buckets prompts pad up to "
+                "(e.g. '16,64,256'). Empty = powers of two up to "
+                "serve_gen_max_seq.")
+    define_flag("serve_gen_token_budget", 128,
+                "Server-side cap on generated tokens per request: a stream "
+                "cut short by it fails mid-stream with DeadlineExceeded.",
+                validator=lambda v: v >= 1)
+    define_flag("serve_gen_stream_buffer", 64,
+                "Bounded per-stream token buffer: a client not consuming "
+                "its TokenStream parks its slot until the buffer drains.",
+                validator=lambda v: v >= 1)
+    define_flag("serve_gen_paged", False,
+                "Block-paged KV cache: K/V live in a global [pages, "
+                "page_size, heads, dim] pool per layer with a per-slot "
+                "page table. Off = the dense [slots, max_seq] slot cache.")
+    define_flag("serve_gen_kv_page_size", 16,
+                "Tokens per KV page under serve_gen_paged.",
+                validator=lambda v: v >= 1)
+    define_flag("serve_gen_kv_pages", 0,
+                "Page-pool capacity under serve_gen_paged; 0 = the dense "
+                "equivalent (slots * ceil(max_seq/page_size) + 1 parking "
+                "page).",
+                validator=lambda v: v >= 0)
+    define_flag("serve_gen_prefix_cache", 64,
+                "Prefix-registry entries for prompt-page sharing under "
+                "serve_gen_paged (0 disables sharing).",
+                validator=lambda v: v >= 0)
+
+
+_define_builtin_flags()

@@ -1,0 +1,219 @@
+"""Transformer layers (port of the serving subset of
+``paddle1_tpu/nn/layer_transformer.py``).
+
+``MultiHeadAttention`` keeps the JAX package's two serving caches:
+
+* ``GenCache(k, v, pos)`` — dense ``[slots, max_seq, heads, dim]`` K/V
+  written at a per-slot cursor ``pos`` ([slots] int32).
+* ``PagedCache(k, v, table, pos)`` — global ``[pages, page_size, heads,
+  dim]`` pools shared by every slot, a ``[slots, max_pages_per_slot]``
+  page table and the same cursor. Table rows point at the parking page 0
+  beyond a slot's allocation, so free slots only write parking garbage.
+
+Unlike the JAX package, whose arrays are immutable (the engine donates
+them through every step), the port writes new K/V rows into the cache
+tensors IN PLACE and returns the same tensors in the advanced cache:
+no per-step copy of the pools. Shapes never change, so a later PR can
+capture the decode step in a CUDA graph.
+"""
+
+from __future__ import annotations
+
+import collections
+import copy
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..core.device import resolve_device
+from ..core.errors import InvalidArgumentError
+from . import functional as F
+from .layer_common import Linear
+from .layer_norm_act import LayerNorm
+
+__all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
+           "TransformerEncoder"]
+
+
+def _paged_rows(table, pos, window, page_size):
+    """Where slot s's new window lands in the pools: logical position i
+    lives at page ``table[s, i // ps]``, offset ``i % ps``. Positions past
+    capacity clamp to the last mapped row (the JAX package's
+    ``min(idx, table.shape[1] * ps - 1)``). Returns ``(pages, offsets)``,
+    both [S, W], shared by the K and the V write."""
+    idx = pos.long()[:, None] + torch.arange(window, device=pos.device)
+    idx = idx.clamp(max=table.shape[1] * page_size - 1)
+    return torch.gather(table.long(), 1, idx // page_size), idx % page_size
+
+
+def _slot_write(cache, new, pos):
+    """Per-slot write: row s gets its new [L, H, D] block at cursor
+    ``pos[s]``, the start clamped so the block stays inside the row (the
+    clamp ``dynamic_update_slice`` applies in the JAX package)."""
+    n, cap = new.shape[1], cache.shape[1]
+    start = pos.long().clamp(0, cap - n)
+    rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
+    cols = start[:, None] + torch.arange(n, device=cache.device)
+    cache[rows, cols] = new.to(cache.dtype)
+
+
+class MultiHeadAttention(nn.Module):
+    GenCache = collections.namedtuple("GenCache", ["k", "v", "pos"])
+    PagedCache = collections.namedtuple("PagedCache",
+                                        ["k", "v", "table", "pos"])
+
+    def __init__(self, embed_dim: int, num_heads: int, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if embed_dim % num_heads != 0:
+            raise InvalidArgumentError(
+                "embed_dim must be divisible by num_heads")
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        dev = resolve_device(device)
+        self.q_proj = Linear(embed_dim, embed_dim, device=dev,
+                             generator=generator)
+        self.k_proj = Linear(embed_dim, embed_dim, device=dev,
+                             generator=generator)
+        self.v_proj = Linear(embed_dim, embed_dim, device=dev,
+                             generator=generator)
+        self.out_proj = Linear(embed_dim, embed_dim, device=dev,
+                               generator=generator)
+
+    def _split_heads(self, x):
+        b, n = x.shape[0], x.shape[1]
+        return x.reshape(b, n, self.num_heads, self.head_dim)
+
+    def _prepare_qkv(self, query, key, value, cache=None):
+        q = self._split_heads(self.q_proj(query))
+        k = self._split_heads(self.k_proj(key))
+        v = self._split_heads(self.v_proj(value))
+        new_tokens = query.shape[1]
+        if isinstance(cache, self.PagedCache):
+            pg, off = _paged_rows(cache.table, cache.pos, new_tokens,
+                                  cache.k.shape[1])
+            cache.k[pg, off] = k.to(cache.k.dtype)
+            cache.v[pg, off] = v.to(cache.v.dtype)
+            cache = self.PagedCache(cache.k, cache.v, cache.table,
+                                    cache.pos + new_tokens)
+            k, v = cache.k, cache.v
+        elif isinstance(cache, self.GenCache):
+            _slot_write(cache.k, k, cache.pos)
+            _slot_write(cache.v, v, cache.pos)
+            cache = self.GenCache(cache.k, cache.v, cache.pos + new_tokens)
+            k, v = cache.k, cache.v
+        elif cache is not None:
+            raise InvalidArgumentError(
+                f"unsupported cache type {type(cache).__name__}: the port "
+                "serves GenCache and PagedCache")
+        return q, k, v, cache
+
+    def _device(self):
+        return self.q_proj.weight.device
+
+    def gen_slot_cache(self, slots, max_seq, dtype=torch.float32):
+        """Dense serving decode cache: ``slots`` sequences, each owning a
+        ``[max_seq, heads, dim]`` K/V row written at its own cursor."""
+        shape = (int(slots), int(max_seq), self.num_heads, self.head_dim)
+        dev = self._device()
+        return self.GenCache(torch.zeros(shape, dtype=dtype, device=dev),
+                             torch.zeros(shape, dtype=dtype, device=dev),
+                             torch.zeros(int(slots), dtype=torch.int32,
+                                         device=dev))
+
+    def gen_paged_cache(self, pages, page_size, dtype=torch.float32):
+        """Block-paged serving decode cache: global K/V pools of ``pages``
+        pages. ``table``/``pos`` are 1-element placeholders — the engine
+        owns the real page table and cursors."""
+        shape = (int(pages), int(page_size), self.num_heads, self.head_dim)
+        dev = self._device()
+        return self.PagedCache(torch.zeros(shape, dtype=dtype, device=dev),
+                               torch.zeros(shape, dtype=dtype, device=dev),
+                               torch.zeros((1, 1), dtype=torch.int32,
+                                           device=dev),
+                               torch.zeros(1, dtype=torch.int32, device=dev))
+
+    def forward(self, query, key=None, value=None, attn_mask=None,
+                cache=None):
+        key = query if key is None else key
+        value = key if value is None else value
+        q, k, v, cache = self._prepare_qkv(query, key, value, cache)
+        if isinstance(cache, self.PagedCache):
+            # masking is positional (keys <= cursor); attn_mask is
+            # ignored by contract — the paged engine passes None
+            out = F.paged_attention(q, cache.k, cache.v, cache.table,
+                                    cache.pos)
+        else:
+            out = F.scaled_dot_product_attention(q, k, v,
+                                                 attn_mask=attn_mask)
+        b, n = out.shape[0], out.shape[1]
+        out = self.out_proj(out.reshape(b, n, self.embed_dim))
+        return out if cache is None else (out, cache)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-norm encoder block (``normalize_before=False``, relu, no
+    dropout at inference): ``x = norm1(x + attn(x))``,
+    ``x = norm2(x + linear2(relu(linear1(x))))``."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.self_attn = MultiHeadAttention(d_model, nhead, device=dev,
+                                            generator=generator)
+        self.linear1 = Linear(d_model, dim_feedforward, device=dev,
+                              generator=generator)
+        self.linear2 = Linear(dim_feedforward, d_model, device=dev,
+                              generator=generator)
+        self.norm1 = LayerNorm(d_model, device=dev)
+        self.norm2 = LayerNorm(d_model, device=dev)
+
+    def forward(self, src, src_mask=None, cache=None):
+        if cache is None:
+            attn = self.self_attn(src, src, src, src_mask)
+        else:
+            attn, cache = self.self_attn(src, src, src, src_mask, cache)
+        src = self.norm1(src + attn)
+        src = self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+        return src if cache is None else (src, cache)
+
+    def gen_slot_cache(self, slots, max_seq, dtype=torch.float32):
+        return self.self_attn.gen_slot_cache(slots, max_seq, dtype)
+
+    def gen_paged_cache(self, pages, page_size, dtype=torch.float32):
+        return self.self_attn.gen_paged_cache(pages, page_size, dtype)
+
+
+class TransformerEncoder(nn.Module):
+    """``num_layers`` deep copies of ``encoder_layer`` (Paddle's
+    construction: every layer starts from the same weights)."""
+
+    def __init__(self, encoder_layer: TransformerEncoderLayer,
+                 num_layers: int):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            [encoder_layer] +
+            [copy.deepcopy(encoder_layer) for _ in range(num_layers - 1)])
+        self.num_layers = num_layers
+
+    def forward(self, src, src_mask=None, cache=None):
+        output = src
+        new_caches = []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, src_mask)
+            else:
+                output, c = mod(output, src_mask, cache[i])
+                new_caches.append(c)
+        return output if cache is None else (output, new_caches)
+
+    def gen_slot_cache(self, slots, max_seq, dtype=torch.float32):
+        return [layer.gen_slot_cache(slots, max_seq, dtype)
+                for layer in self.layers]
+
+    def gen_paged_cache(self, pages, page_size, dtype=torch.float32):
+        return [layer.gen_paged_cache(pages, page_size, dtype)
+                for layer in self.layers]

@@ -1,0 +1,116 @@
+"""LayerNorm forward: the hand-written CUDA kernel and its plain version.
+
+Port of ``paddle1_tpu/ops/pallas/layer_norm.py`` (``_ln_fwd_kernel``).
+The kernel lives in ``ops/cuda/layer_norm.cu``; :func:`layer_norm_ref`
+is the plain PyTorch version of the same function, used by the CPU tests
+and held against the kernel by ``chip_smoke.py`` on the card.
+
+:func:`fused_layer_norm` launches the kernel for a CUDA tensor and runs
+the plain version only for a CPU tensor. There is no fallback: a build
+or launch failure raises. Serving needs no backward, so none is defined
+(the training slice adds it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.errors import InvalidArgumentError, KernelLaunchError
+
+__all__ = ["fused_layer_norm", "layer_norm_ref", "supported"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_fn = None
+
+
+def supported(shape, dtype=torch.float32) -> bool:
+    """The last axis normalized, over at least a [rows, H] tensor in a
+    dtype the kernel stores. Any H works on the GPU: a row is one CTA's
+    strided loop (the TPU gate was H % 128 == 0 for its lane tiling)."""
+    if len(shape) < 2 or dtype not in _DTYPES:
+        return False
+    rows = 1
+    for s in shape[:-1]:
+        rows *= int(s)
+    return rows >= 1 and int(shape[-1]) >= 1
+
+
+def layer_norm_ref(x: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor, epsilon: float = 1e-5
+                   ) -> torch.Tensor:
+    """Plain version: f32 mean, two-pass variance, rstd, then
+    ``y * w + b``, cast to ``x.dtype`` at the edge."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    y = xc * torch.rsqrt(var + epsilon)
+    y = y * weight.float() + bias.float()
+    return y.to(x.dtype)
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        from .cuda import build
+        fn = build.load("layer_norm").p1t_layer_norm_fwd
+        fn.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _threads(h: int) -> int:
+    # ~4 elements per thread, whole warps, at most 1024 threads
+    quarter = -(-h // 4)
+    return min(1024, max(32, -(-quarter // 32) * 32))
+
+
+def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, epsilon: float = 1e-5
+                     ) -> torch.Tensor:
+    """LayerNorm over the last axis. x: [..., H]; weight/bias: [H].
+    CUDA tensors launch the kernel; CPU tensors run
+    :func:`layer_norm_ref`. Anything else, or inputs outside the kernel's
+    contract, raise InvalidArgumentError."""
+    if x.device.type == "cpu":
+        return layer_norm_ref(x, weight, bias, epsilon)
+    h = int(x.shape[-1])
+    if not supported(x.shape, x.dtype):
+        raise InvalidArgumentError(
+            f"fused_layer_norm: shape {tuple(x.shape)} dtype {x.dtype} is "
+            "outside the kernel's contract (see supported())")
+    for name, t in (("weight", weight), ("bias", bias)):
+        if t.device != x.device or t.dtype != x.dtype or \
+                tuple(t.shape) != (h,):
+            raise InvalidArgumentError(
+                f"fused_layer_norm: {name} must be [{h}] {x.dtype} on "
+                f"{x.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if x.device.type != "cuda":
+        raise InvalidArgumentError(f"fused_layer_norm: unsupported device "
+                                   f"{x.device}")
+    x2 = x.reshape(-1, h).contiguous()
+    w = weight.contiguous()
+    b = bias.contiguous()
+    y = torch.empty_like(x2)
+    fn = _kernel()
+    with torch.cuda.device(x.device):
+        rc = fn(x2.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                x2.shape[0], h, float(epsilon), _threads(h),
+                _DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        from .cuda import build
+        msg = build.load("layer_norm").p1t_layer_norm_error_string
+        msg.restype = ctypes.c_char_p
+        raise KernelLaunchError(
+            f"layer_norm kernel launch failed: CUDA error {rc} "
+            f"({msg(rc).decode()}) at rows={x2.shape[0]} H={h}")
+    fused_layer_norm.launches += 1
+    return y.reshape(x.shape)
+
+
+fused_layer_norm.launches = 0  # kernel launches; reset by chip_smoke.py

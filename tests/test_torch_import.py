@@ -1,0 +1,87 @@
+"""Import hygiene and device rules of the PyTorch port.
+
+The port imports torch and numpy only: never ``jax`` and nothing of the
+JAX package (``paddle1_tpu/__init__.py`` pulls in jax and the whole
+tree). Its entry points run on CUDA unless the caller passes
+``device="cpu"``; without a card that is a typed error.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import paddle1_tpu_torch
+from paddle1_tpu_torch.core.device import resolve_device
+from paddle1_tpu_torch.core.errors import (DeviceUnavailableError,
+                                           InvalidArgumentError)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(paddle1_tpu_torch.__file__)
+
+
+def test_import_leaves_jax_and_the_jax_package_out():
+    code = ("import sys, paddle1_tpu_torch, paddle1_tpu_torch.convert, "
+            "paddle1_tpu_torch.ops.cuda.build\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'paddle1_tpu.')) or "
+            "m == 'paddle1_tpu')\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(
+    os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
+    if f.endswith(".py")) + [os.path.join(ROOT, "chip_smoke.py")])
+def test_no_source_file_imports_jax_or_the_jax_package(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "paddle1_tpu"), (path, mod)
+
+
+def test_resolve_device_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(DeviceUnavailableError):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cpu")).type == "cpu"
+    with pytest.raises(InvalidArgumentError):
+        resolve_device("tpu")
+
+
+def test_entry_points_never_run_quietly_on_the_cpu(monkeypatch):
+    from paddle1_tpu_torch.serving import CausalLM
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceUnavailableError):
+        CausalLM(16, d_model=8, nhead=2, num_layers=1, max_seq=8)
+    lm = CausalLM(16, d_model=8, nhead=2, num_layers=1, max_seq=8,
+                  device="cpu")
+    assert all(p.device.type == "cpu" for p in lm.parameters())
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                       env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout

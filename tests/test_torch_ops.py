@@ -1,0 +1,308 @@
+"""Kernel modules of the PyTorch port against the JAX package, on the CPU.
+
+Each port kernel module holds a hand-written CUDA kernel and its plain
+PyTorch version; on the CPU the wrappers run the plain version (CUDA
+kernels are checked on the card by ``chip_smoke.py``). The JAX side
+runs its Pallas kernels in interpret mode, as its own tests do.
+Inputs come from numpy with a seed; everything is float32.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from paddle1_tpu.core.flags import flags_guard as jax_flags_guard
+from paddle1_tpu.nn import functional as jF
+from paddle1_tpu.ops.pallas import layer_norm as jln
+from paddle1_tpu.ops.pallas import paged_attention as jpa
+from paddle1_tpu_torch.core import flags as tflags
+from paddle1_tpu_torch.core.errors import (InvalidArgumentError,
+                                           KernelBuildError)
+from paddle1_tpu_torch.nn import functional as tF
+from paddle1_tpu_torch.ops import layer_norm as tln
+from paddle1_tpu_torch.ops import paged_attention as tpa
+from paddle1_tpu_torch.ops.cuda import build
+
+LN_TOL = dict(atol=1e-5, rtol=1e-5)
+PA_TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a).copy())
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm
+
+
+@pytest.mark.parametrize("rows,h", [(16, 128), (64, 256), (8, 512),
+                                    (24, 384)])
+def test_layer_norm_ref_matches_pallas_kernel(rows, h):
+    rng = np.random.default_rng(rows * 1000 + h)
+    x = (rng.standard_normal((rows, h)) * 3 + 0.5).astype(np.float32)
+    w = rng.standard_normal(h).astype(np.float32)
+    b = rng.standard_normal(h).astype(np.float32)
+    want = np.asarray(jln.fused_layer_norm(x, w, b, 1e-5))
+    got = tln.layer_norm_ref(_t(x), _t(w), _t(b), 1e-5).numpy()
+    np.testing.assert_allclose(got, want, **LN_TOL)
+
+
+def test_layer_norm_wrapper_runs_plain_version_on_cpu():
+    rng = np.random.default_rng(3)
+    x = _t(rng.standard_normal((2, 5, 96)).astype(np.float32))
+    w = _t(rng.standard_normal(96).astype(np.float32))
+    b = _t(rng.standard_normal(96).astype(np.float32))
+    before = tln.fused_layer_norm.launches
+    got = tln.fused_layer_norm(x, w, b)
+    assert tln.fused_layer_norm.launches == before  # no kernel on CPU
+    np.testing.assert_array_equal(got.numpy(),
+                                  tln.layer_norm_ref(x, w, b).numpy())
+
+
+@pytest.mark.parametrize("mode", ["auto", "always", "never"])
+def test_functional_layer_norm_matches_jax(mode):
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((3, 8, 128)).astype(np.float32)
+    w = rng.standard_normal(128).astype(np.float32)
+    b = rng.standard_normal(128).astype(np.float32)
+    want = np.asarray(jF.layer_norm(x, 128, w, b).numpy())
+    with tflags.flags_guard(fused_layer_norm=mode):
+        got = tF.layer_norm(_t(x), 128, _t(w), _t(b)).numpy()
+    np.testing.assert_allclose(got, want, **LN_TOL)
+
+
+def test_layer_norm_gate_is_rederived_for_the_gpu():
+    # any width works on the GPU (the TPU needed H % 128 == 0)
+    assert tln.supported((16, 512))
+    assert tln.supported((7, 100))
+    assert tln.supported((2, 3, 33), torch.bfloat16)
+    assert not tln.supported((512,))
+    assert not tln.supported((16, 512), torch.float64)
+
+
+# ---------------------------------------------------------------------------
+# paged attention
+
+
+def _paged_case(seed, S=4, W=1, H=2, D=16, NP=12, ps=8, mpps=3):
+    """Pools, a table whose rows include parked (page 0) entries past
+    each slot's chain and one fully parked slot, and per-slot bases."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((S, W, H, D)).astype(np.float32)
+    kp = rng.standard_normal((NP, ps, H, D)).astype(np.float32)
+    vp = rng.standard_normal((NP, ps, H, D)).astype(np.float32)
+    table = np.zeros((S, mpps), np.int32)
+    base = np.zeros(S, np.int32)
+    free = list(rng.permutation(np.arange(1, NP)))
+    for s in range(S - 1):
+        live = int(rng.integers(1, mpps * ps - W + 1))
+        base[s] = live - 1
+        n = -(-(base[s] + W) // ps)
+        table[s, :n] = [free.pop() for _ in range(n)]
+    # slot S-1 is parked: whole row on page 0, cursor 0
+    return q, kp, vp, table, base
+
+
+@pytest.mark.parametrize("seed,w", [(0, 1), (1, 1), (2, 4), (3, 2)])
+def test_paged_attention_ref_matches_pallas_and_jax_ref(seed, w):
+    q, kp, vp, table, base = _paged_case(seed, W=w)
+    assert jpa.supported(q.shape, kp.shape)
+    want_kernel = np.asarray(jpa.paged_attention(q, kp, vp, table, base))
+    want_ref = np.asarray(jpa.paged_attention_ref(q, kp, vp, table, base))
+    got = tpa.paged_attention_ref(_t(q), _t(kp), _t(vp), _t(table),
+                                  _t(base)).numpy()
+    np.testing.assert_allclose(got, want_ref, **PA_TOL)
+    # the Pallas kernel agrees with both refs on every live slot (a
+    # parked slot still sees key 0, so every row here is live)
+    np.testing.assert_allclose(got, want_kernel, **PA_TOL)
+
+
+def test_paged_attention_row_with_no_visible_key():
+    # base + W <= 0: the kernel contract is 0; the JAX Pallas kernel
+    # agrees, the plain versions average uniformly (never read live)
+    q, kp, vp, table, base = _paged_case(5, S=2, W=1)
+    base = np.array([-1, 3], np.int32)
+    want = np.asarray(jpa.paged_attention(q, kp, vp, table, base))
+    np.testing.assert_array_equal(want[0], 0.0)
+    got = tpa.paged_attention_ref(_t(q), _t(kp), _t(vp), _t(table),
+                                  _t(base)).numpy()
+    np.testing.assert_allclose(got[1], want[1], **PA_TOL)
+
+
+@pytest.mark.parametrize("mode", ["auto", "always", "never"])
+def test_functional_paged_attention_matches_jax(mode):
+    q, kp, vp, table, base = _paged_case(7, W=2)
+    pos = base + q.shape[1]
+    with jax_flags_guard(pallas_paged_attention="always"):
+        want = np.asarray(jF.paged_attention(q, kp, vp, table, pos).numpy())
+    with tflags.flags_guard(pallas_paged_attention=mode):
+        got = tF.paged_attention(_t(q), _t(kp), _t(vp), _t(table),
+                                 _t(pos)).numpy()
+    np.testing.assert_allclose(got, want, **PA_TOL)
+
+
+def test_paged_attention_wrapper_runs_plain_version_on_cpu():
+    q, kp, vp, table, base = _paged_case(9, W=3)
+    before = tpa.paged_attention.launches
+    got = tpa.paged_attention(_t(q), _t(kp), _t(vp), _t(table), _t(base))
+    assert tpa.paged_attention.launches == before
+    np.testing.assert_array_equal(
+        got.numpy(), tpa.paged_attention_ref(_t(q), _t(kp), _t(vp),
+                                             _t(table), _t(base)).numpy())
+
+
+def test_paged_attention_gate_is_the_shared_memory_budget():
+    # serving shapes, odd page sizes and widths the TPU tiling refused
+    assert tpa.supported((16, 1, 8, 64), (513, 16, 8, 64))
+    assert tpa.supported((4, 4, 2, 12), (9, 5, 2, 12))
+    assert tpa.supported((2, 80, 2, 64), (9, 16, 2, 64))
+    assert tpa.smem_bytes(1, 64, 16) == 4 * (64 + 4 * (2080 + 16 + 64 + 2))
+    # too much shared memory for one CTA
+    assert not tpa.supported((1, 64, 1, 256), (4, 256, 1, 256))
+    assert not tpa.supported((16, 1, 8, 64), (513, 16, 4, 64))  # heads
+    assert not tpa.supported((16, 1, 8, 64), (513, 16, 8, 64),
+                             torch.float16)
+
+
+def test_functional_layer_norm_over_trailing_axes_matches_jax():
+    # two normalized axes are flattened into the one the kernel reduces
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((3, 4, 8, 16)).astype(np.float32)
+    w = rng.standard_normal((8, 16)).astype(np.float32)
+    b = rng.standard_normal((8, 16)).astype(np.float32)
+    want = np.asarray(jF.layer_norm(x, [8, 16], w, b).numpy())
+    got = tF.layer_norm(_t(x), [8, 16], _t(w), _t(b)).numpy()
+    np.testing.assert_allclose(got, want, **LN_TOL)
+    with pytest.raises(InvalidArgumentError, match="trailing shape"):
+        tF.layer_norm(_t(x), [4, 16], _t(w), _t(b))
+
+
+def test_paged_attention_f32_query_over_bf16_pools_matches_pallas():
+    # a bf16 KV cache under an f32 model: q, K and V each read as f32
+    import jax.numpy as jnp
+    q, kp, vp, table, base = _paged_case(17, W=2)
+    want = np.asarray(jpa.paged_attention(
+        q, jnp.asarray(kp, jnp.bfloat16), jnp.asarray(vp, jnp.bfloat16),
+        table, base))
+    assert want.dtype == np.float32
+    got = tpa.paged_attention_ref(_t(q), _t(kp).to(torch.bfloat16),
+                                  _t(vp).to(torch.bfloat16), _t(table),
+                                  _t(base))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **PA_TOL)
+    assert tpa.supported(q.shape, kp.shape, torch.float32, torch.bfloat16)
+    assert not tpa.supported(q.shape, kp.shape, torch.float32,
+                             torch.float16)
+
+
+def _meta(shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _route_layer_norm(dtype):
+    x, w, b = _meta((4, 512), dtype), _meta(512, dtype), _meta(512, dtype)
+    with tflags.flags_guard(fused_layer_norm="always"):
+        tF.layer_norm(x, 512, w, b)
+
+
+def _route_paged(q_shape, kp_shape, dtype=torch.float32, kv_dtype=None):
+    kv_dtype = dtype if kv_dtype is None else kv_dtype
+    q = _meta(q_shape, dtype)
+    kp, vp = _meta(kp_shape, kv_dtype), _meta(kp_shape, kv_dtype)
+    table = _meta((q_shape[0], 4), torch.int32)
+    pos = _meta(q_shape[0], torch.int32)
+    with tflags.flags_guard(pallas_paged_attention="always"):
+        tF.paged_attention(q, kp, vp, table, pos)
+
+
+@pytest.mark.parametrize("case,route,match", [
+    ("layer_norm f16", lambda: _route_layer_norm(torch.float16),
+     "contract"),
+    ("paged f16", lambda: _route_paged((2, 1, 2, 16), (9, 8, 2, 16),
+                                       torch.float16), "contract"),
+    ("paged f16 pools", lambda: _route_paged((2, 1, 2, 16), (9, 8, 2, 16),
+                                             torch.float32, torch.float16),
+     "contract"),
+    ("paged window past smem", lambda: _route_paged((2, 128, 8, 64),
+                                                    (9, 16, 8, 64)),
+     "contract"),
+    ("paged heads", lambda: _route_paged((2, 1, 8, 64), (9, 16, 4, 64)),
+     "contract"),
+    # inside the contract, but no CUDA tensor: still no plain version
+    ("layer_norm meta", lambda: _route_layer_norm(torch.float32),
+     "unsupported device"),
+    ("paged meta", lambda: _route_paged((2, 1, 2, 16), (9, 8, 2, 16),
+                                        torch.float32, torch.bfloat16),
+     "unsupported device"),
+])
+def test_kernel_route_raises_instead_of_running_the_plain_version(
+        case, route, match):
+    # with the flag active on a non-CPU tensor the functionals always go
+    # through the kernel's wrapper, which raises on inputs outside its
+    # contract; the plain version is never a silent substitute
+    with pytest.raises(InvalidArgumentError, match=match):
+        route()
+
+
+# ---------------------------------------------------------------------------
+# flags and the kernel builder
+
+
+def test_flag_active_resolves_against_the_device():
+    cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
+    with tflags.flags_guard(fused_layer_norm="auto"):
+        assert not tflags.flag_active("fused_layer_norm", cpu)
+        assert tflags.flag_active("fused_layer_norm", cuda)
+    with tflags.flags_guard(fused_layer_norm="always"):
+        assert tflags.flag_active("fused_layer_norm", cpu)
+    with tflags.flags_guard(fused_layer_norm="never"):
+        assert not tflags.flag_active("fused_layer_norm", cuda)
+    with pytest.raises(InvalidArgumentError):
+        tflags.set_flags({"fused_layer_norm": "sometimes"})
+    with pytest.raises(InvalidArgumentError):
+        tflags.flag("serve_gen_spec_tokens")  # not part of this slice
+
+
+def test_flag_env_override(monkeypatch):
+    monkeypatch.setenv("FLAGS_p1t_test_flag", "7")
+    tflags.define_flag("p1t_test_flag", 3)
+    try:
+        assert tflags.flag("p1t_test_flag") == 7
+    finally:
+        tflags._registry.pop("p1t_test_flag")
+
+
+def test_serving_flags_keep_the_jax_names_and_defaults():
+    from paddle1_tpu.core import flags as jflags
+    for name in ("serve_gen_slots", "serve_gen_max_seq",
+                 "serve_gen_prefill_buckets", "serve_gen_token_budget",
+                 "serve_gen_stream_buffer", "serve_gen_paged",
+                 "serve_gen_kv_page_size", "serve_gen_kv_pages",
+                 "serve_gen_prefix_cache", "serve_queue_depth",
+                 "serve_deadline_ms", "pallas_paged_attention",
+                 "fused_layer_norm"):
+        assert tflags._registry[name].default == \
+            jflags._registry[name].default, name
+
+
+def test_kernel_sources_and_build_flags():
+    for name in build.SOURCES:
+        src = os.path.join(os.path.dirname(build.__file__), f"{name}.cu")
+        text = open(src).read()
+        assert 'extern "C"' in text
+        assert "paddle1_tpu/ops/pallas/" in text  # names what it replaces
+    flags = " ".join(build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-shared" in flags and "-fPIC" in flags
+    assert build.build_dir().name == "_build"
+
+
+def test_missing_nvcc_is_a_typed_build_error(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build, "_target",
+                        lambda name: tmp_path / f"lib{name}-absent.so")
+    with pytest.raises(KernelBuildError, match="nvcc not found"):
+        build.build_all()
