@@ -29,6 +29,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
    agree to 1e-3 abs. A short dense-cache (``paged=False``) run at depth 2
    checks the other cache discipline.
 
+5. **Training kernels.** The flash-attention forward, its dK/dV and dQ
+   passes and the fused AdamW kernel against their plain versions at the
+   BERT-base shapes (q/k/v ``[128, 128, 12, 64]``, BERT-base's ~200
+   parameter tensors), in f32 and bf16, with one fully padded batch row;
+   timed beside their plain versions, the PyTorch library calls
+   (``F.scaled_dot_product_attention`` forward and forward+backward,
+   ``torch.optim.AdamW(fused=True)``) and their bounds.
+6. **Training (the second main path).** ``ParallelEngine`` over
+   ``BertForPretraining(bert_base())`` + AdamW in bf16 at batch 128,
+   seq 128 (``bench.py``'s configuration and batch, seeded weights): a
+   warm-up step, then ``bench.py``'s slope+readback timing over 3 x (2 + 8)
+   steps on the repeated batch. The counters are zeroed just before and
+   read just after: 12 flash forward, 12 dK/dV, 12 dQ and 1 AdamW launch
+   per step and 26 LayerNorm launches per forward. The loss must be finite
+   and falling. Prints step ms, samples/s and MFU (``bench.py``'s FLOPs
+   over the 989 TFLOP/s bf16 peak).
+7. **Training reference check.** BERT at full width and depth 2 in f32:
+   three steps on the kernel path against three on the plain path (every
+   kernel flag ``never``) from identical weights.
+
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. It imports nothing of
 JAX or of the JAX package.
@@ -50,6 +70,23 @@ SLOTS, PAGE = 16, 16
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (published peak)
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
 PA_TOL, LN_TOL, LOGIT_TOL = 2e-5, 1e-5, 1e-3
+# BERT-base pretraining (bench.py:186-282)
+BERT_VOCAB, BERT_HIDDEN, BERT_LAYERS, BERT_HEADS = 30522, 768, 12, 12
+BATCH, SEQ, LR = 128, 128, 1e-4
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores (published)
+# f32 flash against its plain version: the same products summed in
+# another order (64-term dots, 128-key softmax sums); backward adds two
+# chained products
+FLASH_TOL, FLASH_BWD_TOL = 1e-5, 1e-4
+# bf16 flash: one bf16 rounding step of the value plus the f32 difference
+FLASH_BF16_ABS = 1e-4
+# Adam: the JAX package's tolerance for its kernel (rtol 1e-6, atol 1e-7)
+ADAM_RTOL, ADAM_ATOL = 1e-6, 1e-7
+# training reference check (f32, depth 2, 3 steps): the losses and the
+# params of the kernel path and the plain path agree to REF_TOL; the
+# attention key bias is held to STEPS * lr instead (its gradient is 0 in
+# exact arithmetic, so Adam moves it by rounding noise over eps)
+REF_TOL, REF_STEPS = 1e-4, 3
 # bf16 outputs: kernel and plain version both round an f32 result to bf16,
 # so they may differ by one rounding step, at most 2^-7 of the value
 BF16_REL, BF16_ABS = 2.0 ** -7, 1e-5
@@ -449,6 +486,474 @@ def dense_check(lm_state, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the training kernels against their plain versions
+
+
+def event_time_ms(fn, reps=20):
+    """Mean time of one eager call between CUDA events (for library calls
+    that do not capture into a graph, such as an autograd backward or an
+    optimizer step); warmed up first."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bf16_excess(got, want):
+    """How far |got - want| exceeds one bf16 rounding step of want."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() - BF16_REL * want.abs()).max())
+
+
+def bound(bytes_, flops, flops_per_s):
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / flops_per_s
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_bounds(q, keep):
+    """Bounds of the three flash kernels on these inputs: each reads its
+    inputs once and writes its outputs once; the work counts only the
+    (query, key) pairs the keep-mask leaves visible: 4 D flops per pair
+    forward (QK^T, PV), 8 D for dK/dV (S, dP, dV, dK), 6 D for dQ."""
+    b, n, h, d = q.shape
+    el = q.element_size()
+    pairs = float(keep.sum().item()) * n * h     # per batch row: Nq * kept
+    mask_b = keep.numel()
+    rows_f32 = b * h * n * 4                      # one f32 per query row
+    t = q.numel() * el
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    return {
+        "fwd": bound(4 * t + rows_f32 + mask_b, 4.0 * d * pairs, peak),
+        "dkv": bound(6 * t + 2 * rows_f32 + mask_b, 8.0 * d * pairs, peak),
+        "dq": bound(5 * t + 2 * rows_f32 + mask_b, 6.0 * d * pairs, peak),
+    }
+
+
+def flash_case(dev, dtype, seed, n_sets=1):
+    """``n_sets`` independent (q, k, v, dout) sets at the BERT-base
+    attention shape, a keep-mask with ragged tails and batch row 0 fully
+    padded, and the all-keep mask the main path's batch gives."""
+    hd = BERT_HIDDEN // BERT_HEADS
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sets = [[torch.randn(BATCH, SEQ, BERT_HEADS, hd, device=dev,
+                         generator=g).to(dtype) for _ in range(4)]
+            for _ in range(n_sets)]
+    lens = np.random.default_rng(seed).integers(32, SEQ + 1, BATCH)
+    lens[0] = 0
+    keep = torch.from_numpy(np.arange(SEQ)[None, :] < lens[:, None]).to(dev)
+    return sets, keep, torch.ones(BATCH, SEQ, dtype=torch.bool, device=dev)
+
+
+def flash_check(dev):
+    """Hold the three flash kernels to their plain versions in f32 and
+    bf16 (padded tails, one fully padded row; causal too in f32)."""
+    from paddle1_tpu_torch.ops import flash_attention as fa
+    from paddle1_tpu_torch.ops import flash_attention_bwd as fb
+    errs = {"fwd": [], "dkv": [], "dq": []}
+    scale = 1.0 / (BERT_HIDDEN // BERT_HEADS) ** 0.5
+    for dtype, causal in ((torch.float32, False), (torch.float32, True),
+                          (torch.bfloat16, False)):
+        sets, keep, _ = flash_case(dev, dtype, SEED + 3)
+        q, k, v, do = sets[0]
+        out, lse = fa.flash_fwd(q, k, v, scale, causal, keep)
+        ro, rl = fa.flash_attention_ref(q, k, v, scale, causal, keep)
+        delta = (do.float() * ro.float()).sum(-1).transpose(1, 2)
+        dk, dv = fb.flash_bwd_dkv(q, k, v, do, rl, delta, scale, causal,
+                                  keep)
+        dq = fb.flash_bwd_dq(q, k, v, do, rl, delta, scale, causal, keep)
+        rq, rk, rv = fa.flash_bwd_ref(q, k, v, ro, rl, do, scale, causal,
+                                      keep)
+        torch.cuda.synchronize()
+        tag = f"{str(dtype).split('.')[-1]} causal={causal}"
+        check(out.dtype == dtype and bool(torch.isfinite(out).all()),
+              f"flash fwd {tag}: non-finite output or wrong dtype")
+        check(float(out[0].abs().max()) == 0.0 and
+              float(rl[0].max()) <= -1e29 and float(lse[0].max()) <= -1e29,
+              f"flash fwd {tag}: the fully padded row is not O=0, LSE=-1e30")
+        for g_ in (dq, dk, dv):
+            check(float(g_[0].abs().max()) == 0.0,
+                  f"flash bwd {tag}: the fully padded row has gradient")
+        live = rl > -1e29
+        lse_err = float((lse - rl)[live].abs().max())
+        check(lse_err <= FLASH_TOL, f"flash fwd {tag}: LSE err {lse_err}")
+        pairs = {"fwd": [(out, ro)], "dkv": [(dk, rk), (dv, rv)],
+                 "dq": [(dq, rq)]}
+        for name, ps in pairs.items():
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in ps)
+            if dtype == torch.float32:
+                tol = FLASH_TOL if name == "fwd" else FLASH_BWD_TOL
+                check(err <= tol, f"flash {name} {tag}: max abs err {err} "
+                      f"> {tol}")
+            else:
+                exc = max(bf16_excess(a, b) for a, b in ps)
+                check(exc <= FLASH_BF16_ABS, f"flash {name} {tag}: exceeds "
+                      f"one bf16 rounding step by {exc}")
+            errs[name].append({"dtype": str(dtype), "causal": causal,
+                               "max_abs_err": err})
+            log(f"flash {name} {tag}: max_abs_err={err:.3e}")
+    return errs
+
+
+def flash_timing(dev):
+    """Time the three kernels at the main path's inputs (bf16, all keys
+    kept), over 4 input sets in turn so no call finds its inputs in L2."""
+    from paddle1_tpu_torch.ops import flash_attention as fa
+    from paddle1_tpu_torch.ops import flash_attention_bwd as fb
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sets, _, keep = flash_case(dev, torch.bfloat16, SEED + 4, n_sets=4)
+    scale = 1.0 / (BERT_HIDDEN // BERT_HEADS) ** 0.5
+    fwd = [fa.flash_fwd(q, k, v, scale, False, keep) for q, k, v, _ in sets]
+    deltas = [(do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+              for (_, _, _, do), (o, _) in zip(sets, fwd)]
+    t = {}
+    t["fwd"] = graph_time_ms([lambda s=s: fa.flash_fwd(
+        s[0], s[1], s[2], scale, False, keep) for s in sets])
+    t["fwd_plain"] = graph_time_ms([lambda s=s: fa.flash_attention_ref(
+        s[0], s[1], s[2], scale, False, keep) for s in sets])
+    t["dkv"] = graph_time_ms([lambda s=s, f=f, dl=dl: fb.flash_bwd_dkv(
+        s[0], s[1], s[2], s[3], f[1], dl, scale, False, keep)
+        for s, f, dl in zip(sets, fwd, deltas)])
+    t["dq"] = graph_time_ms([lambda s=s, f=f, dl=dl: fb.flash_bwd_dq(
+        s[0], s[1], s[2], s[3], f[1], dl, scale, False, keep)
+        for s, f, dl in zip(sets, fwd, deltas)])
+    t["bwd_plain"] = graph_time_ms([lambda s=s, f=f: fa.flash_bwd_ref(
+        s[0], s[1], s[2], f[0], f[1], s[3], scale, False, keep)
+        for s, f in zip(sets, fwd)])
+    # the library: [B, H, N, D] copies, the same keep-mask
+    lib = [[x.transpose(1, 2).contiguous() for x in s] for s in sets]
+    m4 = keep[:, None, None, :]
+    t["fwd_library"] = graph_time_ms([lambda s=s: sdpa(
+        s[0], s[1], s[2], attn_mask=m4) for s in lib])
+    leaves = [[x.clone().requires_grad_() for x in s[:3]] for s in lib]
+    turn = [0]
+
+    def lib_fwd_bwd():
+        i = turn[0] = (turn[0] + 1) % len(lib)
+        q, k, v = leaves[i]
+        out = sdpa(q, k, v, attn_mask=m4)
+        torch.autograd.grad(out, (q, k, v), lib[i][3])
+    t["fwd_bwd_library"] = event_time_ms(lib_fwd_bwd)
+    bounds = flash_bounds(sets[0][0], keep)
+    log(f"flash timing (bf16 {list(sets[0][0].shape)}): fwd {t['fwd']:.5f} "
+        f"ms (plain {t['fwd_plain']:.5f}, library {t['fwd_library']:.5f}, "
+        f"bound {bounds['fwd'][0]:.5f}); dkv {t['dkv']:.5f} ms, dq "
+        f"{t['dq']:.5f} ms (plain backward {t['bwd_plain']:.5f}, library "
+        f"fwd+bwd {t['fwd_bwd_library']:.5f}; bounds "
+        f"{bounds['dkv'][0]:.5f}, {bounds['dq'][0]:.5f})")
+    return t, bounds, [list(sets[0][0].shape), "bf16", "all keys kept"]
+
+
+def bert_shapes():
+    """BERT-base's parameter shapes as ``BertForPretraining.parameters()``
+    lists them (the tied decoder weight once)."""
+    h, f, v = BERT_HIDDEN, 3072, BERT_VOCAB
+    emb = [(v, h), (512, h), (2, h), (h,), (h,)]
+    layer = [(h, h), (h,)] * 4 + [(h, f), (f,), (f, h), (h,)] + [(h,)] * 4
+    heads = [(h, h), (h,), (h, h), (h,), (h,), (h,), (v,), (h, 2), (2,)]
+    return emb + layer * BERT_LAYERS + heads
+
+
+def adam_phase(dev):
+    """Hold the fused AdamW kernel to its plain version over BERT-base's
+    parameter list (f32 masters, as the main path; bf16 params too) and
+    time it against the plain per-tensor update and the library's fused
+    AdamW."""
+    from paddle1_tpu_torch.ops import fused_adam as fad
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    shapes = bert_shapes()
+    n_el = sum(int(np.prod(s)) for s in shapes)
+    sc = torch.tensor([LR, 1 - 0.9 ** 3, 1 - 0.999 ** 3], device=dev)
+    decays = [0.01] * len(shapes)
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def make(dtype):
+        ps = [torch.randn(s, device=dev, generator=g).to(dtype)
+              for s in shapes]
+        gs = [torch.randn(s, device=dev, generator=g).to(dtype)
+              for s in shapes]
+        m1 = [torch.randn(s, device=dev, generator=g) * 0.01 for s in shapes]
+        m2 = [torch.rand(s, device=dev, generator=g) * 0.01 for s in shapes]
+        return ps, gs, m1, m2
+
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        ps, gs, m1, m2 = make(dtype)
+        want = [fad.fused_adam_ref(p, q, a, b, sc[0], sc[1], sc[2], 0.01,
+                                   b1, b2, eps)
+                for p, q, a, b in zip(ps, gs, m1, m2)]
+        fad.fused_adam_(ps, gs, m1, m2, sc, decays, b1, b2, eps)
+        torch.cuda.synchronize()
+        err = 0.0
+        for got, w in zip(zip(ps, m1, m2), want):
+            for a, b in zip(got, w):
+                a, b = a.float(), b.float()
+                err = max(err, float((a - b).abs().max()))
+                check(bool(torch.isclose(a, b, rtol=ADAM_RTOL,
+                                         atol=ADAM_ATOL).all()),
+                      f"fused_adam {dtype}: outside rtol {ADAM_RTOL} atol "
+                      f"{ADAM_ATOL} of the plain version")
+        errs.append({"dtype": str(dtype), "max_abs_err": err})
+        log(f"fused_adam {dtype} over {len(shapes)} tensors ({n_el} "
+            f"elements): max_abs_err={err:.3e}")
+        del ps, gs, m1, m2, want
+
+    ps, gs, m1, m2 = make(torch.float32)
+    ms = graph_time_ms([lambda: fad.fused_adam_(ps, gs, m1, m2, sc, decays,
+                                                b1, b2, eps)])
+
+    def plain():
+        for p, q, a, b in zip(ps, gs, m1, m2):
+            np_, na, nb = fad.fused_adam_ref(p, q, a, b, sc[0], sc[1], sc[2],
+                                             0.01, b1, b2, eps)
+            p.copy_(np_)
+            a.copy_(na)
+            b.copy_(nb)
+    plain_ms = graph_time_ms([plain], reps=5)
+    lib_ps = [torch.nn.Parameter(p.detach().clone()) for p in ps]
+    for p, q in zip(lib_ps, gs):
+        p.grad = q
+    lib_opt = torch.optim.AdamW(lib_ps, lr=LR, weight_decay=0.01,
+                                fused=True)
+    lib_ms = event_time_ms(lib_opt.step)
+    bytes_ = 28.0 * n_el                  # p, g, m1, m2 in; p, m1, m2 out
+    b_ms, by = bound(bytes_, 12.0 * n_el, F32_FLOPS_PER_S)
+    log(f"fused_adam timing (f32, {n_el} elements, 1 launch): {ms:.5f} ms "
+        f"(plain {plain_ms:.5f}, library {lib_ms:.5f}, bound {b_ms:.5f} "
+        f"{by})")
+    return {"cases": errs, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": by,
+            "tensors": len(shapes), "elements": n_el}
+
+
+def train_layer_norm_case(dev):
+    """The LayerNorm kernel at the training path's shape: bf16
+    [BATCH * SEQ, 768]."""
+    from paddle1_tpu_torch.ops import layer_norm as ln
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    rows, h = BATCH * SEQ, BERT_HIDDEN
+    xs = [torch.randn(rows, h, device=dev, generator=g).to(torch.bfloat16)
+          for _ in range(4)]
+    w_ = torch.randn(h, device=dev, generator=g).to(torch.bfloat16)
+    b_ = torch.randn(h, device=dev, generator=g).to(torch.bfloat16)
+    got, want = ln.fused_layer_norm(xs[0], w_, b_), ln.layer_norm_ref(
+        xs[0], w_, b_)
+    torch.cuda.synchronize()
+    exc = bf16_excess(got, want)
+    check(exc <= BF16_ABS, f"layer_norm bf16 [{rows}, {h}]: exceeds one "
+          f"bf16 rounding step by {exc}")
+    ms = graph_time_ms([lambda x=x: ln.fused_layer_norm(x, w_, b_)
+                        for x in xs])
+    plain = graph_time_ms([lambda x=x: ln.layer_norm_ref(x, w_, b_)
+                           for x in xs])
+    lib = graph_time_ms([lambda x=x: torch.nn.functional.layer_norm(
+        x, (h,), w_, b_, 1e-5) for x in xs])
+    b_ms, by = bound(2 * rows * h * 2 + 2 * h * 2, 8.0 * rows * h,
+                     F32_FLOPS_PER_S)
+    err = float((got.float() - want.float()).abs().max())
+    log(f"layer_norm bf16 [{rows}, {h}]: max_abs_err={err:.3e} kernel="
+        f"{ms:.5f}ms plain={plain:.5f}ms library={lib:.5f}ms bound="
+        f"{b_ms:.5f}ms ({by})")
+    return dict(shape=f"x[{rows}, {h}] bf16", max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=lib)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: BERT-base pretraining (the second main path)
+
+
+def train_counters():
+    from paddle1_tpu_torch.ops import flash_attention as fa
+    from paddle1_tpu_torch.ops import flash_attention_bwd as fb
+    from paddle1_tpu_torch.ops import fused_adam as fad
+    from paddle1_tpu_torch.ops import layer_norm as ln
+    return {"flash_attention": fa.flash_fwd,
+            "flash_attention_bwd_dkv": fb.flash_bwd_dkv,
+            "flash_attention_bwd_dq": fb.flash_bwd_dq,
+            "fused_adam": fad.fused_adam_,
+            "layer_norm": ln.fused_layer_norm}
+
+
+def bert_loss_fn(crit):
+    def loss_fn(m, b):
+        scores, rel = m(b["ids"])
+        return crit(scores, rel, b["mlm"], b["nsp"])
+    return loss_fn
+
+
+def timed_steps(step_fn, n_steps):
+    """bench.py's slope+readback protocol (bench.py:105-138): wall-time
+    windows of lo and n_steps chained steps, each ending in a readback of
+    the loss, three trials; the slope (T_hi - T_lo) / (n_steps - lo) is
+    the per-step time with the readback's fixed cost cancelled."""
+    lo = max(1, n_steps // 4)
+    slopes, out, steps = [], None, 0
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(lo):
+            out = step_fn()
+        float(out)
+        t_lo = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            out = step_fn()
+        float(out)
+        t_hi = time.perf_counter() - t0
+        steps += lo + n_steps
+        if t_hi > t_lo:
+            slopes.append((t_hi - t_lo) / (n_steps - lo))
+    check(slopes, "slope timing rejected every trial")
+    return slopes, out, steps
+
+
+def train_phase(dev):
+    from paddle1_tpu_torch.distributed import ParallelEngine
+    from paddle1_tpu_torch.optimizer import AdamW
+    from paddle1_tpu_torch.text.models import (BertForPretraining,
+                                               BertPretrainingCriterion,
+                                               bert_base)
+    gen = torch.Generator().manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = BertForPretraining(bert_base(hidden_dropout_prob=0.0,
+                                         attention_probs_dropout_prob=0.0,
+                                         generator=gen), generator=gen)
+    check(all(p.device.type == "cuda" for p in model.parameters()),
+          "BertForPretraining did not default to the card")
+    crit = BertPretrainingCriterion(model.bert.vocab_size)
+    eng = ParallelEngine(model, AdamW(learning_rate=LR,
+                                      parameters=model.parameters()),
+                         bert_loss_fn(crit), amp_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    v = model.bert.vocab_size
+    batch = {"ids": rng.integers(1, v, (BATCH, SEQ)).astype(np.int32),
+             "mlm": rng.integers(0, v, (BATCH, SEQ)).astype(np.int32),
+             "nsp": rng.integers(0, 2, (BATCH,)).astype(np.int32)}
+    torch.cuda.reset_peak_memory_stats()
+    loss0 = float(eng.step(batch))          # warm-up: builds, allocates
+    setup_s = time.perf_counter() - t0
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    slopes, last, steps = timed_steps(lambda: eng.step(batch), 8)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    loss_end = float(last)
+    check(np.isfinite(loss0) and np.isfinite(loss_end),
+          f"non-finite loss {loss0} / {loss_end}")
+    check(loss_end < loss0, f"loss did not fall: {loss0} -> {loss_end}")
+    want = {"flash_attention": BERT_LAYERS * steps,
+            "flash_attention_bwd_dkv": BERT_LAYERS * steps,
+            "flash_attention_bwd_dq": BERT_LAYERS * steps,
+            "fused_adam": steps, "layer_norm": (2 * BERT_LAYERS + 2) * steps}
+    for k, n in want.items():
+        check(launches[k] == n, f"{k} launched {launches[k]} times in "
+              f"{steps} steps, want {n}")
+    dt = float(np.median(slopes))
+    n_params = sum(p.numel() for p in model.parameters())
+    emb = model.bert.embeddings
+    lookup_only = (emb.position_embeddings.weight.numel() +
+                   emb.token_type_embeddings.weight.numel())
+    flops = (6 * (n_params - lookup_only) * BATCH * SEQ +
+             12 * BERT_LAYERS * BATCH * SEQ * SEQ * BERT_HIDDEN)
+    summary = {
+        "train": "bert_base_pretraining", "amp": "bfloat16",
+        "batch": BATCH, "seq_len": SEQ, "params": n_params,
+        "setup_s": setup_s, "steps": steps, "timing": "slope+readback",
+        "step_ms_median": dt * 1e3, "step_ms_min": min(slopes) * 1e3,
+        "step_ms_max": max(slopes) * 1e3,
+        "samples_per_s": BATCH / dt, "flops_per_step": flops,
+        "mfu": flops / dt / BF16_FLOPS_PER_S,
+        "loss_first": loss0, "loss_last": loss_end,
+        "dispatches": eng.dispatch_count,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+        "launches_per_step": {k: n / steps for k, n in launches.items()},
+    }
+    log(json.dumps(summary))
+    del eng, model
+    return summary
+
+
+def train_reference_check(dev):
+    """BERT at full width, depth 2, f32: REF_STEPS steps on the kernel path
+    against REF_STEPS on the plain path (every kernel flag ``never``) from
+    identical weights, on a batch with ragged padded tails."""
+    import copy
+    from paddle1_tpu_torch.core.flags import flags_guard
+    from paddle1_tpu_torch.distributed import ParallelEngine
+    from paddle1_tpu_torch.optimizer import AdamW
+    from paddle1_tpu_torch.text.models import (BertForPretraining,
+                                               BertModel,
+                                               BertPretrainingCriterion)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    m_kernel = BertForPretraining(BertModel(
+        num_hidden_layers=2, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0, generator=gen), generator=gen)
+    m_plain = copy.deepcopy(m_kernel)
+    check(m_plain.cls.decoder_weight is
+          m_plain.bert.embeddings.word_embeddings.weight,
+          "deepcopy untied the decoder weight")
+    crit = BertPretrainingCriterion(BERT_VOCAB)
+    rng = np.random.default_rng(SEED + 7)
+    b = 16
+    ids = rng.integers(1, BERT_VOCAB, (b, SEQ)).astype(np.int32)
+    lens = rng.integers(40, SEQ + 1, b)
+    ids[np.arange(SEQ)[None, :] >= lens[:, None]] = 0
+    mlm = rng.integers(0, BERT_VOCAB, (b, SEQ)).astype(np.int32)
+    mlm[ids == 0] = -1
+    batch = {"ids": ids, "mlm": mlm,
+             "nsp": rng.integers(0, 2, (b,)).astype(np.int32)}
+    counters = train_counters()
+
+    def run(model):
+        eng = ParallelEngine(model, AdamW(learning_rate=LR,
+                                          parameters=model.parameters()),
+                             bert_loss_fn(crit))
+        return [float(eng.step(batch)) for _ in range(REF_STEPS)]
+    before = {k: fn.launches for k, fn in counters.items()}
+    lk = run(m_kernel)
+    mid = {k: fn.launches for k, fn in counters.items()}
+    with flags_guard(flash_attention="never", flash_backward="never",
+                     fused_adam="never", fused_layer_norm="never"):
+        lp = run(m_plain)
+    after = {k: fn.launches for k, fn in counters.items()}
+    check(all(mid[k] > before[k] for k in counters),
+          "the kernel path skipped a kernel")
+    check(after == mid, "the plain path launched a kernel")
+    loss_err = max(abs(a - c) for a, c in zip(lk, lp))
+    check(loss_err <= REF_TOL, f"losses differ by {loss_err}: {lk} vs {lp}")
+    sk, sp = m_kernel.state_dict(), m_plain.state_dict()
+    param_err, key_bias_err = 0.0, 0.0
+    for k in sk:
+        e = float((sk[k] - sp[k]).abs().max())
+        if k.endswith("k_proj.bias"):
+            key_bias_err = max(key_bias_err, e)
+        else:
+            param_err = max(param_err, e)
+    check(param_err <= REF_TOL, f"params differ by {param_err}")
+    check(key_bias_err <= REF_STEPS * LR, f"key biases differ by "
+          f"{key_bias_err} > {REF_STEPS * LR}")
+    for k in counters:
+        counters[k].launches = before[k]
+    out = {"train_reference": {"depth": 2, "dtype": "float32", "batch": b,
+                               "steps": REF_STEPS, "losses_kernel": lk,
+                               "losses_plain": lp,
+                               "max_loss_err": loss_err,
+                               "max_param_err": param_err,
+                               "max_key_bias_err": key_bias_err}}
+    log(json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -486,27 +991,74 @@ def main() -> int:
     state = {k: v for k, v in lm.state_dict().items()}
     del eng
     log(json.dumps(dense_check(state, dev)))
+    del lm, state
+    torch.cuda.empty_cache()
 
-    per_step = {"paged_attention": LAYERS, "layer_norm": 2 * LAYERS}
-    replaces = {"paged_attention": "paddle1_tpu/ops/pallas/paged_attention.py:89",
-                "layer_norm": "paddle1_tpu/ops/pallas/layer_norm.py:42"}
+    flash_errs = flash_check(dev)
+    flash_t, flash_b, flash_shape = flash_timing(dev)
+    adam = adam_phase(dev)
+    kernels["layer_norm"].append(train_layer_norm_case(dev))
+    torch.cuda.empty_cache()
+    train = train_phase(dev)
+    torch.cuda.empty_cache()
+    train_reference_check(dev)
+
+    src = "paddle1_tpu_torch/ops/cuda/"
+    pallas = "paddle1_tpu/ops/pallas/"
+    tl = train["launches"]
     line = []
     for name in ("paged_attention", "layer_norm"):
         main_case = kernels[name][0]     # the decode step's shape
         err = max(c["max_abs_err"] for c in kernels[name])
+        by_path = {"serving": launches[name], "train": tl.get(name, 0)}
         line.append({
-            "name": name, "route": "cuda",
-            "source": f"paddle1_tpu_torch/ops/cuda/{name}.cu",
-            "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": err, "max_err": err,
-            "ms": main_case["ms"], "us": main_case["ms"] * 1e3,
+            "name": name, "route": "cuda", "source": f"{src}{name}.cu",
+            "replaces": {"paged_attention": pallas + "paged_attention.py:89",
+                         "layer_norm": pallas + "layer_norm.py:42"}[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": err, "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
-            "launches_per_decode_step": per_step[name],
+            "launches_per_decode_step": {"paged_attention": LAYERS,
+                                         "layer_norm": 2 * LAYERS}[name],
             "decode_steps": steps, "cases": kernels[name],
             "bf16_check": kernels[name + "_bf16"]})
+    flash_rows = (
+        ("flash_attention", "flash_attention.cu",
+         pallas + "flash_attention.py:59", "fwd", "fwd_plain",
+         "fwd_library"),
+        ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+         pallas + "flash_attention_bwd.py:74", "dkv", "bwd_plain",
+         "fwd_bwd_library"),
+        ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
+         pallas + "flash_attention_bwd.py:125", "dq", "bwd_plain",
+         "fwd_bwd_library"))
+    for name, cu, rep, key, plain_key, lib_key in flash_rows:
+        line.append({
+            "name": name, "route": "cuda", "source": src + cu,
+            "replaces": rep, "launches": tl[name],
+            "launches_by_path": {"train": tl[name]},
+            "max_abs_err": max(c["max_abs_err"] for c in flash_errs[key]),
+            "ms": flash_t[key], "plain_ms": flash_t[plain_key],
+            "bound_ms": flash_b[key][0], "bound_by": flash_b[key][1],
+            "library_ms": flash_t[lib_key], "shape": flash_shape,
+            "plain_covers": "one call" if key == "fwd" else
+            "dq, dk and dv together",
+            "library_covers": "sdpa forward" if key == "fwd" else
+            "sdpa forward + backward (dq, dk, dv)",
+            "cases": flash_errs[key]})
+    line.append({
+        "name": "fused_adam", "route": "cuda", "source": src + "fused_adam.cu",
+        "replaces": pallas + "fused_adam.py:39",
+        "launches": tl["fused_adam"],
+        "launches_by_path": {"train": tl["fused_adam"]},
+        "max_abs_err": max(c["max_abs_err"] for c in adam["cases"]),
+        "ms": adam["ms"], "plain_ms": adam["plain_ms"],
+        "bound_ms": adam["bound_ms"], "bound_by": adam["bound_by"],
+        "library_ms": adam["library_ms"], "tensors": adam["tensors"],
+        "elements": adam["elements"], "cases": adam["cases"]})
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

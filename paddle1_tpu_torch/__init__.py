@@ -8,10 +8,14 @@ caller passes ``device="cpu"``. Hand-written CUDA kernels are built from
 
 Slice 1 is generative serving: ``serving.GenerationServer`` over
 ``serving.CausalLM`` with a paged KV cache, on the paged-attention and
-LayerNorm kernels.
+LayerNorm kernels. Slice 2 is BERT pretraining:
+``distributed.ParallelEngine`` over ``text.models.BertForPretraining`` and
+``optimizer.AdamW`` (bf16 with f32 masters), on the flash-attention
+forward and backward kernels, the fused AdamW kernel and the LayerNorm
+kernel under autograd.
 """
 
-from . import serving  # noqa: F401
+from . import distributed, optimizer, serving, text  # noqa: F401
 from .core.device import resolve_device  # noqa: F401
 
-__all__ = ["serving", "resolve_device"]
+__all__ = ["distributed", "optimizer", "serving", "text", "resolve_device"]

@@ -142,6 +142,32 @@ def _define_builtin_flags() -> None:
                 "Hand-written CUDA LayerNorm forward kernel: auto (CUDA "
                 "tensors only), always, never (plain composition).",
                 validator=_tri)
+    # training kernels (JAX package: flash_attention, flash_backward,
+    # fused_adam). Same names and grammar, other defaults: the JAX
+    # package keeps flash attention off below flash_auto_score_mb and
+    # fused_adam at never, from TPU v5 lite sweeps that say nothing of
+    # the H100. Here "auto" puts the kernels on every CUDA tensor they
+    # support, so the card's own measurements (PERF.md) can decide the
+    # defaults later. flash_auto_score_mb is not ported: its basis is a
+    # TPU sweep.
+    define_flag("flash_attention", "auto",
+                "Hand-written CUDA flash-attention forward for "
+                "scaled_dot_product_attention: auto (CUDA tensors only, "
+                "dropout 0, no mask or a pure padding mask, supported "
+                "shapes), always (the plain version on CPU tensors), "
+                "never (dense composition).",
+                validator=_tri)
+    define_flag("flash_backward", "auto",
+                "Hand-written CUDA flash-attention backward (dK/dV and dQ "
+                "passes): auto (CUDA tensors only), always, never (plain "
+                "recompute backward). Only read when the forward ran "
+                "flash attention.",
+                validator=_tri)
+    define_flag("fused_adam", "auto",
+                "Hand-written CUDA fused Adam/AdamW update, one launch "
+                "over the whole parameter list: auto (CUDA parameters "
+                "only), always, never (plain PyTorch update).",
+                validator=_tri)
     # generic serving knobs the GenerationServer reads
     define_flag("serve_queue_depth", 256,
                 "Bound on queued (admitted, not yet prefilled) generation "

@@ -19,8 +19,9 @@ def layer_norm(x: torch.Tensor, normalized_shape, weight: torch.Tensor,
     """Affine LayerNorm over the trailing ``normalized_shape`` axes, which
     are flattened into one (``weight``/``bias`` likewise). Under
     ``fused_layer_norm`` (``auto`` = CUDA tensors) the kernel's wrapper
-    runs, and raises on inputs outside the kernel's contract; otherwise
-    the plain version runs."""
+    runs under an autograd function whose backward is the plain formula,
+    and raises on inputs outside the kernel's contract; otherwise the
+    plain version runs under PyTorch's autograd."""
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
     shape = tuple(int(s) for s in normalized_shape)
@@ -29,7 +30,7 @@ def layer_norm(x: torch.Tensor, normalized_shape, weight: torch.Tensor,
         raise InvalidArgumentError(
             f"layer_norm: normalized_shape {list(shape)} is not the "
             f"trailing shape of x {tuple(x.shape)}")
-    fn = ln.fused_layer_norm if flag_active("fused_layer_norm", x.device) \
+    fn = ln.layer_norm if flag_active("fused_layer_norm", x.device) \
         else ln.layer_norm_ref
     n = math.prod(shape)
     y = fn(x.reshape(*lead, n), weight.reshape(n), bias.reshape(n), epsilon)

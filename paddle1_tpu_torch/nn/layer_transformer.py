@@ -1,5 +1,12 @@
-"""Transformer layers (port of the serving subset of
+"""Transformer layers (port of the serving and training subset of
 ``paddle1_tpu/nn/layer_transformer.py``).
+
+``MultiHeadAttention`` takes the JAX package's attention ``dropout``
+(applied in training mode only) and keeps boolean or integer masks
+boolean, so ``scaled_dot_product_attention`` can prove a padding mask and
+route the flash kernels. ``TransformerEncoderLayer`` has the JAX
+constructor (dropout 0.1 by default, activation, attn/act dropout,
+pre- or post-norm); the serving ``CausalLM`` builds it with dropout 0.
 
 ``MultiHeadAttention`` keeps the JAX package's two serving caches:
 
@@ -29,7 +36,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..core.errors import InvalidArgumentError
 from . import functional as F
-from .layer_common import Linear
+from .layer_common import Dropout, Linear
 from .layer_norm_act import LayerNorm
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
@@ -63,12 +70,13 @@ class MultiHeadAttention(nn.Module):
     PagedCache = collections.namedtuple("PagedCache",
                                         ["k", "v", "table", "pos"])
 
-    def __init__(self, embed_dim: int, num_heads: int, device=None,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         if embed_dim % num_heads != 0:
             raise InvalidArgumentError(
                 "embed_dim must be divisible by num_heads")
+        self.dropout = float(dropout)
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
@@ -146,38 +154,65 @@ class MultiHeadAttention(nn.Module):
             out = F.paged_attention(q, cache.k, cache.v, cache.table,
                                     cache.pos)
         else:
-            out = F.scaled_dot_product_attention(q, k, v,
-                                                 attn_mask=attn_mask)
+            if attn_mask is not None and not attn_mask.is_floating_point():
+                attn_mask = attn_mask.to(torch.bool)   # int keep-mask
+            out = F.scaled_dot_product_attention(
+                q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
+                training=self.training)
         b, n = out.shape[0], out.shape[1]
         out = self.out_proj(out.reshape(b, n, self.embed_dim))
         return out if cache is None else (out, cache)
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Post-norm encoder block (``normalize_before=False``, relu, no
-    dropout at inference): ``x = norm1(x + attn(x))``,
-    ``x = norm2(x + linear2(relu(linear1(x))))``."""
+    """Encoder block with the JAX forward (``layer_transformer.py:256-296``):
+    ``x = x + dropout1(attn(norm1?(x)))``, then
+    ``x = x + dropout2(linear2(dropout(act(linear1(norm2?(x))))))``, the
+    norms applied before (``normalize_before``) or after each residual.
+    ``attn_dropout`` and ``act_dropout`` default to ``dropout``."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 dropout: float = 0.1, activation: str = "relu",
+                 attn_dropout: Optional[float] = None,
+                 act_dropout: Optional[float] = None,
+                 normalize_before: bool = False, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
-        self.self_attn = MultiHeadAttention(d_model, nhead, device=dev,
-                                            generator=generator)
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = bool(normalize_before)
+        self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                            device=dev, generator=generator)
         self.linear1 = Linear(d_model, dim_feedforward, device=dev,
                               generator=generator)
+        self.dropout = Dropout(act_dropout)
         self.linear2 = Linear(dim_feedforward, d_model, device=dev,
                               generator=generator)
         self.norm1 = LayerNorm(d_model, device=dev)
         self.norm2 = LayerNorm(d_model, device=dev)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.activation = getattr(F, activation)
 
     def forward(self, src, src_mask=None, cache=None):
+        residual = src
+        if self.normalize_before:
+            src = self.norm1(src)
         if cache is None:
-            attn = self.self_attn(src, src, src, src_mask)
+            src = self.self_attn(src, src, src, src_mask)
         else:
-            attn, cache = self.self_attn(src, src, src, src_mask, cache)
-        src = self.norm1(src + attn)
-        src = self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+            src, cache = self.self_attn(src, src, src, src_mask, cache)
+        src = residual + self.dropout1(src)
+        if not self.normalize_before:
+            src = self.norm1(src)
+        residual = src
+        if self.normalize_before:
+            src = self.norm2(src)
+        src = self.linear2(self.dropout(self.activation(self.linear1(src))))
+        src = residual + self.dropout2(src)
+        if not self.normalize_before:
+            src = self.norm2(src)
         return src if cache is None else (src, cache)
 
     def gen_slot_cache(self, slots, max_seq, dtype=torch.float32):

@@ -27,10 +27,12 @@ from typing import Dict, List, Optional
 
 from ...core.errors import KernelBuildError
 
-__all__ = ["SOURCES", "build_all", "load", "build_dir", "build_log"]
+__all__ = ["SOURCES", "build_all", "load", "build_dir", "build_log",
+           "function", "error_string"]
 
 _SRC_DIR = Path(__file__).resolve().parent
-SOURCES = ("layer_norm", "paged_attention")
+SOURCES = ("layer_norm", "paged_attention", "flash_attention",
+           "flash_attention_bwd", "fused_adam")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -120,3 +122,20 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """``symbol`` of kernel source ``name`` with its ``argtypes`` set and
+    an ``int`` (cudaError_t) result."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def error_string(name: str, code: int) -> str:
+    """CUDA's text for error ``code``, from source ``name``'s
+    ``p1t_<name>_error_string``."""
+    fn = getattr(load(name), f"p1t_{name}_error_string")
+    fn.restype = ctypes.c_char_p
+    return fn(int(code)).decode()

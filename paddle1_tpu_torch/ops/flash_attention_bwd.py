@@ -1,0 +1,127 @@
+"""Flash-attention backward: the two hand-written CUDA passes.
+
+Port of ``paddle1_tpu/ops/pallas/flash_attention_bwd.py`` (``_dkv_kernel``
+and ``_dq_kernel``, the FlashAttention-2 split), in
+``ops/cuda/flash_attention_bwd.cu``:
+
+* :func:`flash_bwd_dkv` — dK and dV, one CTA per (batch*head, key tile),
+  walking the query tiles (under causal masking from the first that can
+  see the key tile);
+* :func:`flash_bwd_dq` — dQ, one CTA per (batch*head, query tile),
+  walking the key tiles.
+
+Both take the forward's LSE and ``delta = rowsum(dout * out)``, which
+:func:`flash_attention_bwd` computes with PyTorch ops, as the JAX package
+computes it outside Pallas. The kernels remap the sentinel LSE to +inf.
+The plain version is ``flash_attention.flash_bwd_ref``; CPU tensors run
+it, CUDA tensors launch the kernels or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.errors import KernelLaunchError
+from .flash_attention import _DTYPES, _check, flash_bwd_ref, supported
+
+__all__ = ["flash_attention_bwd", "flash_bwd_dkv", "flash_bwd_dq",
+           "supported"]
+
+_fns = {}
+
+
+def _kernel(symbol):
+    fn = _fns.get(symbol)
+    if fn is None:
+        from .cuda import build
+        n_ptr = 9 if symbol == "p1t_flash_bwd_dkv" else 8
+        fn = build.function(
+            "flash_attention_bwd", symbol,
+            [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 +
+            [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        _fns[symbol] = fn
+    return fn
+
+
+def _launch(symbol, ptrs, q, k, scale, causal):
+    b, nq, h, d = (int(s) for s in q.shape)
+    fn = _kernel(symbol)
+    with torch.cuda.device(q.device):
+        rc = fn(*ptrs, b, h, nq, int(k.shape[1]), d, float(scale),
+                int(bool(causal)), _DTYPES[q.dtype],
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        from .cuda import build
+        raise KernelLaunchError(
+            f"{symbol} launch failed: CUDA error {rc} "
+            f"({build.error_string('flash_attention_bwd', rc)}) at "
+            f"q={tuple(q.shape)} k={tuple(k.shape)}")
+
+
+def _rows(lse, delta, q):
+    """lse and delta as contiguous f32 [B, H, Nq] on q's device."""
+    b, nq, h, _ = q.shape
+    out = []
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (b, h, nq) or t.device != q.device:
+            from ..core.errors import InvalidArgumentError
+            raise InvalidArgumentError(
+                f"flash backward: {name} must be [{b}, {h}, {nq}] on "
+                f"{q.device}, got {tuple(t.shape)} on {t.device}")
+        out.append(t.float().contiguous())
+    return out
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal=False,
+                  padding_mask=None):
+    """(dk, dv) from the kernel; CUDA tensors only (inputs outside the
+    kernel's contract raise InvalidArgumentError)."""
+    q, k, v, keep = _check("flash_bwd_dkv", q, k, v, causal, padding_mask)
+    dout = dout.to(q.dtype).contiguous()
+    lse, delta = _rows(lse, delta, q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("p1t_flash_bwd_dkv",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(),
+             keep.data_ptr() if keep is not None else None,
+             dk.data_ptr(), dv.data_ptr()), q, k, scale, causal)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal=False,
+                 padding_mask=None):
+    """dq from the kernel; CUDA tensors only."""
+    q, k, v, keep = _check("flash_bwd_dq", q, k, v, causal, padding_mask)
+    dout = dout.to(q.dtype).contiguous()
+    lse, delta = _rows(lse, delta, q)
+    dq = torch.empty_like(q)
+    _launch("p1t_flash_bwd_dq",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(),
+             keep.data_ptr() if keep is not None else None,
+             dq.data_ptr()), q, k, scale, causal)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dkv.launches = 0  # kernel launches; reset by chip_smoke.py
+flash_bwd_dq.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, scale, causal=False,
+                        padding_mask=None):
+    """``(dq, dk, dv)`` in the ``[B, N, H, D]`` layout, drop-in for
+    :func:`flash_bwd_ref`. CPU tensors run the plain version; CUDA tensors
+    compute ``delta`` with PyTorch ops and launch both passes."""
+    if q.device.type == "cpu":
+        return flash_bwd_ref(q, k, v, out, lse, dout, scale, causal,
+                             padding_mask)
+    delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal,
+                           padding_mask)
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal,
+                      padding_mask)
+    return dq, dk, dv

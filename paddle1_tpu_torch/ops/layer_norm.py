@@ -7,8 +7,11 @@ and held against the kernel by ``chip_smoke.py`` on the card.
 
 :func:`fused_layer_norm` launches the kernel for a CUDA tensor and runs
 the plain version only for a CPU tensor. There is no fallback: a build
-or launch failure raises. Serving needs no backward, so none is defined
-(the training slice adds it).
+or launch failure raises. :func:`layer_norm` is the differentiable entry
+(``torch.autograd.Function``): forward through :func:`fused_layer_norm`,
+backward by :func:`layer_norm_bwd_ref`, the plain formula of the JAX
+package's ``_ln_vjp_bwd``, which the JAX package computes outside Pallas
+too (so there is no backward kernel to port).
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 
 from ..core.errors import InvalidArgumentError, KernelLaunchError
 
-__all__ = ["fused_layer_norm", "layer_norm_ref", "supported"]
+__all__ = ["fused_layer_norm", "layer_norm", "layer_norm_bwd_ref",
+           "layer_norm_ref", "supported"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
@@ -55,12 +59,11 @@ def _kernel():
     global _fn
     if _fn is None:
         from .cuda import build
-        fn = build.load("layer_norm").p1t_layer_norm_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        _fn = build.function("layer_norm", "p1t_layer_norm_fwd",
+                             [ctypes.c_void_p] * 4 + [
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                 ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p])
     return _fn
 
 
@@ -104,13 +107,57 @@ def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor,
                 _DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         from .cuda import build
-        msg = build.load("layer_norm").p1t_layer_norm_error_string
-        msg.restype = ctypes.c_char_p
         raise KernelLaunchError(
             f"layer_norm kernel launch failed: CUDA error {rc} "
-            f"({msg(rc).decode()}) at rows={x2.shape[0]} H={h}")
+            f"({build.error_string('layer_norm', rc)}) at "
+            f"rows={x2.shape[0]} H={h}")
     fused_layer_norm.launches += 1
     return y.reshape(x.shape)
 
 
 fused_layer_norm.launches = 0  # kernel launches; reset by chip_smoke.py
+
+
+def layer_norm_bwd_ref(x: torch.Tensor, weight: torch.Tensor,
+                       dy: torch.Tensor, epsilon: float = 1e-5):
+    """Backward of LayerNorm over the last axis of ``x`` [rows, H]
+    (``_ln_vjp_bwd``): recompute the f32 row stats, then
+    ``dx = rstd * (dyw - mean(dyw) - xhat * mean(dyw * xhat))``,
+    ``dw = sum(dy * xhat)``, ``db = sum(dy)``; each cast to its input's
+    dtype. Returns ``(dx, dw, db)``."""
+    xf, dyf = x.float(), dy.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + epsilon)
+    xhat = xc * rstd
+    dyw = dyf * weight.float()
+    dx = rstd * (dyw - dyw.mean(dim=-1, keepdim=True)
+                 - xhat * (dyw * xhat).mean(dim=-1, keepdim=True))
+    dw = (dyf * xhat).sum(dim=0)
+    db = dyf.sum(dim=0)
+    return dx.to(x.dtype), dw.to(weight.dtype), db.to(weight.dtype)
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, weight, bias, epsilon):
+        ctx.save_for_backward(x2, weight)
+        ctx.epsilon = epsilon
+        return fused_layer_norm(x2, weight, bias, epsilon)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, weight = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd_ref(x2, weight, dy, ctx.epsilon)
+        return dx, dw, db, None
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               epsilon: float = 1e-5) -> torch.Tensor:
+    """Differentiable LayerNorm over the last axis of ``x`` [..., H]:
+    the kernel (CUDA) or the plain version (CPU) forward, the plain
+    formula backward."""
+    h = int(x.shape[-1])
+    y = _LayerNorm.apply(x.reshape(-1, h), weight, bias, float(epsilon))
+    return y.reshape(x.shape)

@@ -97,11 +97,10 @@ def _kernel():
     global _fn
     if _fn is None:
         from .cuda import build
-        fn = build.load("paged_attention").p1t_paged_attention
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        _fn = build.function(
+            "paged_attention", "p1t_paged_attention",
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 +
+            [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     return _fn
 
 
@@ -148,11 +147,10 @@ def paged_attention(q, kp, vp, table, base,
                 _DTYPES[kp.dtype], torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         from .cuda import build
-        msg = build.load("paged_attention").p1t_paged_attention_error_string
-        msg.restype = ctypes.c_char_p
         raise KernelLaunchError(
             f"paged_attention kernel launch failed: CUDA error {rc} "
-            f"({msg(rc).decode()}) at q={tuple(q.shape)} "
+            f"({build.error_string('paged_attention', rc)}) at "
+            f"q={tuple(q.shape)} "
             f"pool={tuple(kp.shape)} mpps={int(tb.shape[1])}")
     paged_attention.launches += 1
     return out

@@ -1,0 +1,222 @@
+"""Optimizers (port of ``Optimizer``, ``Adam`` and ``AdamW`` from
+``paddle1_tpu/optimizer/optimizer.py``).
+
+The Paddle constructor (``learning_rate``, ``parameters``,
+``weight_decay``, ``grad_clip``) over torch parameters. Moments are f32
+whatever the parameter's dtype, kept per parameter and updated IN PLACE
+together with the parameter (the JAX package returns new arrays).
+
+:meth:`Optimizer.apply` is the one update routine: the eager
+:meth:`Optimizer.step` calls it with each parameter's ``.grad`` and
+``distributed.ParallelEngine`` with its own gradients. ``Adam``/``AdamW``
+follow ``AdamW._update`` (``optimizer.py:445-463``); under the
+``fused_adam`` flag (``auto`` = CUDA parameters) every parameter goes
+through ONE launch of the fused kernel per dtype group
+(``ops/fused_adam.py``), otherwise the plain per-tensor update runs. The
+bias corrections ``1 - beta^step`` are computed on the parameters' device
+from a device step counter, so no step count is baked into a launch.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..core.flags import flag_active
+from ..ops import fused_adam as fadam
+
+__all__ = ["Optimizer", "Adam", "AdamW"]
+
+
+class Optimizer:
+    """Base optimizer over ``parameters`` (a tensor listed twice, a tied
+    weight, is kept once). Names default to ``param_<i>``; they key the
+    moments in :meth:`state_dict` and feed ``apply_decay_param_fun``.
+    ``ParallelEngine`` renames them to the model's parameter names
+    (:meth:`rename`)."""
+
+    _slot_names: Tuple[str, ...] = ()
+
+    def __init__(self, learning_rate: float = 0.001, parameters=None,
+                 weight_decay: Optional[float] = None,
+                 grad_clip: Optional[Callable] = None):
+        self._params: List[torch.Tensor] = []
+        self._names: List[str] = []
+        if parameters is not None:
+            seen = set()
+            for p in parameters:
+                if id(p) in seen:
+                    continue
+                seen.add(id(p))
+                self._params.append(p)
+                self._names.append(f"param_{len(self._names)}")
+        self._learning_rate = float(learning_rate)
+        self._weight_decay = 0.0 if weight_decay is None else \
+            float(getattr(weight_decay, "coeff", weight_decay))
+        self._grad_clip = grad_clip
+        self._slots: Dict[int, Dict[str, torch.Tensor]] = {}
+        self._step_count = 0
+        self._step_t: Optional[torch.Tensor] = None   # device step counter
+
+    # -- learning rate ------------------------------------------------------
+
+    def get_lr(self) -> float:
+        return self._learning_rate
+
+    # -- parameters ---------------------------------------------------------
+
+    def rename(self, names: Dict[int, str]) -> None:
+        """Name parameters by identity (``{id(param): name}``)."""
+        self._names = [names.get(id(p), n)
+                       for p, n in zip(self._params, self._names)]
+
+    def _slots_for(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+        s = self._slots.get(id(p))
+        if s is None:
+            s = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                device=p.device) for n in self._slot_names}
+            self._slots[id(p)] = s
+        return s
+
+    # -- steps --------------------------------------------------------------
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """One update of every parameter that has a ``.grad``."""
+        pg = [(p, p.grad) for p in self._params if p.grad is not None]
+        self.apply([p for p, _ in pg], [g for _, g in pg])
+
+    @torch.no_grad()
+    def apply(self, params: Sequence[torch.Tensor],
+              grads: Sequence[torch.Tensor],
+              lr: Optional[float] = None) -> None:
+        """Update ``params`` in place from ``grads`` (one per parameter,
+        any float dtype)."""
+        if self._grad_clip is not None:
+            pairs = self._grad_clip(list(zip(params, grads)))
+            params, grads = [p for p, _ in pairs], [g for _, g in pairs]
+        self._step_count += 1
+        self._update(list(params), list(grads),
+                     self.get_lr() if lr is None else float(lr))
+
+    def _update(self, params, grads, lr):
+        raise NotImplementedError
+
+    def clear_grad(self, set_to_zero: bool = False) -> None:
+        for p in self._params:
+            if p.grad is None:
+                continue
+            if set_to_zero:
+                p.grad.zero_()
+            else:
+                p.grad = None
+
+    # -- state dict ---------------------------------------------------------
+
+    def state_dict(self) -> Dict[str, object]:
+        """``{"step": n, "<name>__<slot>": tensor}`` (moments, copied)."""
+        out: Dict[str, object] = {"step": self._step_count}
+        for p, name in zip(self._params, self._names):
+            s = self._slots.get(id(p))
+            for slot, t in (s or {}).items():
+                out[f"{name}__{slot}"] = t.detach().clone()
+        return out
+
+    def set_state_dict(self, state: Dict[str, object]) -> None:
+        self._step_count = int(state.get("step", 0))
+        self._step_t = None
+        for p, name in zip(self._params, self._names):
+            for slot in self._slot_names:
+                v = state.get(f"{name}__{slot}")
+                if v is not None:
+                    self._slots_for(p)[slot].copy_(
+                        torch.as_tensor(v).to(torch.float32))
+
+
+class Adam(Optimizer):
+    """Adam, bias-corrected, f32 moments even for bf16 parameters;
+    ``weight_decay`` is an L2 term added to the gradient."""
+
+    _slot_names = ("moment1", "moment2")
+
+    def __init__(self, learning_rate: float = 0.001, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-8,
+                 parameters=None, weight_decay: Optional[float] = None,
+                 grad_clip: Optional[Callable] = None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._beta1 = float(beta1)
+        self._beta2 = float(beta2)
+        self._epsilon = float(epsilon)
+
+    def _decay(self, name: str) -> float:
+        """The decoupled decay coefficient of one parameter (0 for Adam)."""
+        return 0.0
+
+    def _scalars(self, device, lr: float) -> torch.Tensor:
+        """``[lr, 1 - beta1^step, 1 - beta2^step]`` (f32) on ``device``,
+        from a step counter that lives there."""
+        if self._step_t is None or self._step_t.device != device:
+            self._step_t = torch.full((), float(self._step_count - 1),
+                                      dtype=torch.float32, device=device)
+        self._step_t += 1.0
+        bc1 = 1.0 - torch.pow(self._beta1, self._step_t)
+        bc2 = 1.0 - torch.pow(self._beta2, self._step_t)
+        lr_t = torch.full((), lr, dtype=torch.float32, device=device)
+        return torch.stack([lr_t, bc1, bc2])
+
+    def _update(self, params, grads, lr):
+        names = {id(p): n for p, n in zip(self._params, self._names)}
+        groups: Dict[Tuple[torch.device, torch.dtype], list] = {}
+        for p, g in zip(params, grads):
+            groups.setdefault((p.device, p.dtype), []).append((p, g))
+        scalars = {}
+        for (dev, _), pgs in groups.items():
+            if dev not in scalars:
+                scalars[dev] = self._scalars(dev, lr)
+            ps, gs, m1s, m2s, decays = [], [], [], [], []
+            for p, g in pgs:
+                s = self._slots_for(p)
+                g = g.to(p.dtype)
+                if self._weight_decay:   # L2 into the gradient (Adam)
+                    g = g + self._weight_decay * p
+                ps.append(p)
+                gs.append(g.contiguous())
+                m1s.append(s["moment1"])
+                m2s.append(s["moment2"])
+                decays.append(self._decay(names.get(id(p), "")))
+            if flag_active("fused_adam", dev):
+                fadam.fused_adam_(ps, gs, m1s, m2s, scalars[dev], decays,
+                                  self._beta1, self._beta2, self._epsilon)
+                continue
+            lr_t, bc1, bc2 = scalars[dev][0], scalars[dev][1], scalars[dev][2]
+            for p, g, a, b, d in zip(ps, gs, m1s, m2s, decays):
+                new_p, new_a, new_b = fadam.fused_adam_ref(
+                    p, g, a, b, lr_t, bc1, bc2, d, self._beta1, self._beta2,
+                    self._epsilon)
+                p.copy_(new_p)
+                a.copy_(new_a)
+                b.copy_(new_b)
+
+
+class AdamW(Adam):
+    """Adam with decoupled weight decay: the parameter is scaled by
+    ``1 - lr * weight_decay`` before the Adam step; parameters whose name
+    ``apply_decay_param_fun`` rejects are not decayed."""
+
+    def __init__(self, learning_rate: float = 0.001, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-8,
+                 parameters=None, weight_decay: float = 0.01,
+                 grad_clip: Optional[Callable] = None,
+                 apply_decay_param_fun: Optional[Callable[[str], bool]]
+                 = None):
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         None, grad_clip)
+        self._coeff = float(getattr(weight_decay, "coeff", weight_decay))
+        self._apply_decay_fn = apply_decay_param_fun
+
+    def _decay(self, name: str) -> float:
+        if self._apply_decay_fn is not None and \
+                not self._apply_decay_fn(name):
+            return 0.0
+        return self._coeff

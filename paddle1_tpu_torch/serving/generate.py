@@ -104,7 +104,8 @@ class CausalLM(nn.Module):
         self.pos_embed = Embedding(self.max_seq, d_model, device=dev,
                                    generator=generator)
         layer = TransformerEncoderLayer(d_model, nhead, dim_feedforward,
-                                        device=dev, generator=generator)
+                                        dropout=0.0, device=dev,
+                                        generator=generator)
         self.encoder = TransformerEncoder(layer, num_layers)
         self.head = Linear(d_model, self.vocab_size, device=dev,
                            generator=generator)

@@ -9,7 +9,9 @@ left out)::
 They hold that on CUDA tensors the functionals always go through the
 kernels' wrappers: inputs outside a kernel's contract raise instead of
 running the plain version, and a bf16 KV pool under f32 queries runs the
-kernel and agrees with the plain version.
+kernel and agrees with the plain version. For the training kernels
+(flash forward, its dK/dV and dQ passes, fused AdamW) they hold the same,
+and that a tiny BERT step on the card launches each of them.
 """
 
 import numpy as np
@@ -18,6 +20,9 @@ import torch
 
 from paddle1_tpu_torch.core.errors import InvalidArgumentError
 from paddle1_tpu_torch.nn import functional as F
+from paddle1_tpu_torch.ops import flash_attention as fa
+from paddle1_tpu_torch.ops import flash_attention_bwd as fb
+from paddle1_tpu_torch.ops import fused_adam as fad
 from paddle1_tpu_torch.ops import layer_norm as ln
 from paddle1_tpu_torch.ops import paged_attention as pa
 
@@ -85,3 +90,111 @@ def test_layer_norm_on_the_card_runs_the_kernel(dev):
     assert ln.fused_layer_norm.launches == before + 1
     want = torch.nn.functional.layer_norm(x, (8, 16), w, b, 1e-5)
     assert float((got - want).abs().max()) <= 1e-5
+
+
+def _qkv(dev, shape=(2, 128, 2, 64), dtype=torch.float32, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, device=dev, generator=g).to(dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 128, 2, 64), torch.float16),
+    ((2, 96, 2, 64), torch.float32),     # ragged N
+    ((2, 128, 2, 60), torch.float32),    # d % 8
+])
+def test_flash_outside_the_contract_raises_on_the_card(dev, shape, dtype):
+    q, k, v = _qkv(dev, shape, dtype)
+    with pytest.raises(InvalidArgumentError, match="contract"):
+        fa.flash_fwd(q, k, v, 0.125)
+
+
+def test_sdpa_padding_mask_runs_the_flash_kernels_forward_and_back(dev):
+    q, k, v = (t.requires_grad_() for t in _qkv(dev))
+    keep = torch.ones(2, 128, dtype=torch.bool, device=dev)
+    keep[0, 100:] = False
+    keep[1] = False                       # a fully padded batch row
+    before = (fa.flash_fwd.launches, fb.flash_bwd_dkv.launches,
+              fb.flash_bwd_dq.launches)
+    out = F.scaled_dot_product_attention(q, k, v,
+                                         attn_mask=keep[:, None, None, :])
+    dout = torch.randn_like(out)
+    (out * dout).sum().backward()
+    assert (fa.flash_fwd.launches, fb.flash_bwd_dkv.launches,
+            fb.flash_bwd_dq.launches) == tuple(b + 1 for b in before)
+    ref_o, ref_l = fa.flash_attention_ref(q.detach(), k.detach(),
+                                          v.detach(), 0.125, False, keep)
+    ref_g = fa.flash_bwd_ref(q.detach(), k.detach(), v.detach(), ref_o,
+                             ref_l, dout, 0.125, False, keep)
+    assert float((out.detach() - ref_o).abs().max()) <= 1e-5
+    for got, want in zip((q.grad, k.grad, v.grad), ref_g):
+        assert float((got - want).abs().max()) <= 1e-4
+        assert float(got[1].abs().max()) == 0.0   # the padded row
+
+
+def test_fused_adam_outside_the_contract_raises_on_the_card(dev):
+    p = torch.zeros(10, device=dev, dtype=torch.float16)
+    m = torch.zeros(10, device=dev)
+    sc = torch.zeros(3, device=dev)
+    with pytest.raises(InvalidArgumentError, match="contract"):
+        fad.fused_adam_([p], [p], [m], [m], sc, [0.0], 0.9, 0.999, 1e-8)
+    p32 = torch.zeros(10, device=dev)
+    with pytest.raises(InvalidArgumentError, match="contiguous"):
+        fad.fused_adam_([p32], [p32.to(torch.bfloat16)], [m], [m], sc,
+                        [0.0], 0.9, 0.999, 1e-8)
+
+
+def test_adamw_step_is_one_launch_and_matches_the_plain_update(dev):
+    from paddle1_tpu_torch.core.flags import flags_guard
+    from paddle1_tpu_torch.optimizer import AdamW
+
+    def run(mode):
+        g = torch.Generator(device=dev).manual_seed(3)
+        ps = [torch.nn.Parameter(torch.randn(s, device=dev, generator=g))
+              for s in ((300, 70), (70,), (5, 5, 5))]
+        opt = AdamW(learning_rate=1e-2, parameters=ps)
+        with flags_guard(fused_adam=mode):
+            for _ in range(3):
+                for p in ps:
+                    p.grad = torch.randn(p.shape, device=dev, generator=g)
+                opt.step()
+        return ps
+    before = fad.fused_adam_.launches
+    fused = run("auto")
+    assert fad.fused_adam_.launches == before + 3   # one per step
+    plain = run("never")
+    assert fad.fused_adam_.launches == before + 3
+    for a, b in zip(fused, plain):
+        assert float((a - b).detach().abs().max()) <= 1e-6
+
+
+def test_tiny_bert_step_on_the_card_launches_every_kernel(dev):
+    from paddle1_tpu_torch.distributed import ParallelEngine
+    from paddle1_tpu_torch.optimizer import AdamW
+    from paddle1_tpu_torch.text.models import (BertForPretraining,
+                                               BertModel,
+                                               BertPretrainingCriterion)
+    torch.manual_seed(0)
+    m = BertForPretraining(BertModel(
+        vocab_size=512, hidden_size=64, num_hidden_layers=2,
+        num_attention_heads=2, intermediate_size=128,
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0))
+    crit = BertPretrainingCriterion(512)
+    eng = ParallelEngine(m, AdamW(learning_rate=1e-3, parameters=m.parameters()),
+                         lambda mm, b: crit(*mm(b["ids"]), b["mlm"], b["nsp"]),
+                         amp_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, 512, (2, 128)).astype(np.int32)
+    ids[1, 90:] = 0
+    batch = {"ids": ids, "mlm": rng.integers(0, 512, (2, 128)),
+             "nsp": rng.integers(0, 2, (2,))}
+    counts = lambda: (fa.flash_fwd.launches, fb.flash_bwd_dkv.launches,
+                      fb.flash_bwd_dq.launches, fad.fused_adam_.launches,
+                      ln.fused_layer_norm.launches)
+    before = counts()
+    losses = [float(eng.step(batch)) for _ in range(3)]
+    got = [a - b for a, b in zip(counts(), before)]
+    # 2 layers: 2 flash fwd/dkv/dq per step; 1 Adam launch per step;
+    # 2 LayerNorms per layer + embeddings + MLM head per forward
+    assert got == [6, 6, 6, 3, 3 * 6]
+    assert losses[-1] < losses[0] and all(np.isfinite(losses))

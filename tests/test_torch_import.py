@@ -25,7 +25,13 @@ PKG = os.path.dirname(paddle1_tpu_torch.__file__)
 
 def test_import_leaves_jax_and_the_jax_package_out():
     code = ("import sys, paddle1_tpu_torch, paddle1_tpu_torch.convert, "
-            "paddle1_tpu_torch.ops.cuda.build\n"
+            "paddle1_tpu_torch.ops.cuda.build, "
+            "paddle1_tpu_torch.ops.flash_attention_bwd, "
+            "paddle1_tpu_torch.ops.fused_adam, "
+            "paddle1_tpu_torch.text.models.bert, "
+            "paddle1_tpu_torch.optimizer.optimizer, "
+            "paddle1_tpu_torch.distributed.parallel_engine, "
+            "paddle1_tpu_torch.core.async_loss\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'paddle1_tpu.')) or "
             "m == 'paddle1_tpu')\n"
@@ -75,6 +81,13 @@ def test_entry_points_never_run_quietly_on_the_cpu(monkeypatch):
     lm = CausalLM(16, d_model=8, nhead=2, num_layers=1, max_seq=8,
                   device="cpu")
     assert all(p.device.type == "cpu" for p in lm.parameters())
+    from paddle1_tpu_torch.text.models import BertModel
+    small = dict(vocab_size=16, hidden_size=8, num_hidden_layers=1,
+                 num_attention_heads=2, intermediate_size=16)
+    with pytest.raises(DeviceUnavailableError):
+        BertModel(**small)
+    bert = BertModel(device="cpu", **small)
+    assert all(p.device.type == "cpu" for p in bert.parameters())
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -306,3 +306,80 @@ def test_missing_nvcc_is_a_typed_build_error(monkeypatch, tmp_path):
                         lambda name: tmp_path / f"lib{name}-absent.so")
     with pytest.raises(KernelBuildError, match="nvcc not found"):
         build.build_all()
+
+
+# ---------------------------------------------------------------------------
+# training kernels (flash forward/backward, fused Adam): gates and routes
+
+
+def test_flash_gate_keeps_the_semantic_gates_and_drops_vmem():
+    from paddle1_tpu_torch.ops import flash_attention as tfa
+    assert tfa.supported((128, 128, 12, 64), (128, 128, 12, 64))
+    assert tfa.supported((2, 128, 2, 256), (2, 384, 2, 256), causal=True)
+    # the TPU's VMEM gate refused K+V rows past 8 MiB; one CTA holds one
+    # key tile here whatever N
+    assert tfa.supported((1, 16384, 1, 64), (1, 16384, 1, 64))
+    assert not tfa.supported((2, 256, 2, 64), (2, 128, 2, 64), causal=True)
+    assert not tfa.supported((2, 120, 2, 64), (2, 128, 2, 64))  # ragged
+    assert not tfa.supported((2, 128, 2, 60), (2, 128, 2, 60))  # d % 8
+    assert not tfa.supported((2, 128, 2, 264), (2, 128, 2, 264))
+    assert not tfa.supported((2, 128, 64), (2, 128, 64))
+
+
+def _route_flash(dtype=torch.float32, shape=(2, 128, 2, 32), mask=True):
+    q, k, v = (_meta(shape, dtype) for _ in range(3))
+    pm = _meta((shape[0], shape[1]), torch.bool) if mask else None
+    from paddle1_tpu_torch.ops import flash_attention as tfa
+    tfa.flash_fwd(q, k, v, 0.125, False, pm)
+
+
+def _route_flash_bwd(which):
+    from paddle1_tpu_torch.ops import flash_attention_bwd as tfb
+    q, k, v, do = (_meta((2, 128, 2, 32)) for _ in range(4))
+    lse, delta = _meta((2, 2, 128)), _meta((2, 2, 128))
+    getattr(tfb, which)(q, k, v, do, lse, delta, 0.125)
+
+
+def _route_adam(dtype=torch.float32):
+    from paddle1_tpu_torch.ops import fused_adam as tad
+    p, g = _meta(10, dtype), _meta(10, dtype)
+    m1, m2 = _meta(10), _meta(10)
+    tad.fused_adam_([p], [g], [m1], [m2], _meta(3), [0.0], 0.9, 0.999, 1e-8)
+
+
+@pytest.mark.parametrize("case,route,match", [
+    ("flash f16", lambda: _route_flash(torch.float16), "contract"),
+    ("flash ragged", lambda: _route_flash(shape=(2, 100, 2, 32)),
+     "contract"),
+    ("flash meta", lambda: _route_flash(), "unsupported device"),
+    ("flash no mask meta", lambda: _route_flash(mask=False),
+     "unsupported device"),
+    ("dkv meta", lambda: _route_flash_bwd("flash_bwd_dkv"),
+     "unsupported device"),
+    ("dq meta", lambda: _route_flash_bwd("flash_bwd_dq"),
+     "unsupported device"),
+    ("adam f16", lambda: _route_adam(torch.float16), "contract"),
+    ("adam meta", lambda: _route_adam(), "unsupported device"),
+])
+def test_training_kernel_routes_raise_instead_of_the_plain_version(
+        case, route, match):
+    with pytest.raises(InvalidArgumentError, match=match):
+        route()
+
+
+def test_flash_and_adam_wrappers_count_no_launch_on_cpu():
+    from paddle1_tpu_torch.ops import flash_attention as tfa
+    from paddle1_tpu_torch.ops import flash_attention_bwd as tfb
+    from paddle1_tpu_torch.ops import fused_adam as tad
+    rng = np.random.default_rng(1)
+    q, k, v, do = (_t(rng.standard_normal((1, 128, 2, 16)).astype(
+        np.float32)) for _ in range(4))
+    before = (tfa.flash_fwd.launches, tfb.flash_bwd_dkv.launches,
+              tfb.flash_bwd_dq.launches, tad.fused_adam_.launches)
+    out, lse = tfa.flash_fwd(q, k, v, 0.25)
+    tfb.flash_attention_bwd(q, k, v, out, lse, do, 0.25)
+    tad.fused_adam_([q], [k], [torch.zeros_like(q)], [torch.zeros_like(q)],
+                    torch.tensor([1e-3, 0.1, 0.001]), [0.0], 0.9, 0.999,
+                    1e-8)
+    assert (tfa.flash_fwd.launches, tfb.flash_bwd_dkv.launches,
+            tfb.flash_bwd_dq.launches, tad.fused_adam_.launches) == before

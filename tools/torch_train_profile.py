@@ -1,0 +1,155 @@
+#!/usr/bin/env python3
+"""Where a BERT-base pretraining step of the PyTorch port spends its time,
+on one card.
+
+Builds the training path of ``chip_smoke.py`` (``ParallelEngine`` over
+``BertForPretraining(bert_base())`` + AdamW, bf16 with f32 masters, batch
+``--batch`` x seq ``--seq``, seeded random weights, ``bench.py``'s batch),
+runs ``--warmup`` steps, then:
+
+* times ``--steps`` steps on the host clock, ending in one loss readback
+  (step ms = the window over the steps);
+* profiles ``--profile-steps`` more with ``torch.profiler`` (CPU + CUDA
+  activities) and reports the device's busy time per step (sum of kernel
+  times), its idle share, the time per step of the port's own kernels, of
+  the library's matrix products and of everything else, and the kernels
+  by total device time.
+
+Prints one JSON object.
+
+    python3 tools/torch_train_profile.py [--steps 10] [--profile-steps 3]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+OUR_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+               "flash_bwd_dq_kernel", "adam_kernel", "layer_norm_fwd_kernel")
+
+
+def _is_gemm(name: str) -> bool:
+    """cuBLAS/CUTLASS matrix-product kernels (``nvjet`` is cuBLAS's
+    Hopper family)."""
+    low = name.lower()
+    return any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass"))
+
+
+def _kernel_times(prof):
+    """``{kernel name: (total us, calls)}`` over the device-side kernel
+    events of a profile (op rows, which also carry their kernels' device
+    time, are left out so nothing is counted twice)."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us, n = out.get(e.name, (0.0, 0))
+        out[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--profile-steps", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=1234)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_train_profile: no CUDA card", file=sys.stderr)
+        return 2
+    from paddle1_tpu_torch.distributed import ParallelEngine
+    from paddle1_tpu_torch.optimizer import AdamW
+    from paddle1_tpu_torch.text.models import (BertForPretraining,
+                                               BertPretrainingCriterion,
+                                               bert_base)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(args.seed)
+    model = BertForPretraining(bert_base(hidden_dropout_prob=0.0,
+                                         attention_probs_dropout_prob=0.0,
+                                         generator=gen), generator=gen)
+    crit = BertPretrainingCriterion(model.bert.vocab_size)
+
+    def loss_fn(m, b):
+        scores, rel = m(b["ids"])
+        return crit(scores, rel, b["mlm"], b["nsp"])
+    eng = ParallelEngine(model, AdamW(learning_rate=1e-4,
+                                      parameters=model.parameters()),
+                         loss_fn, amp_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    v = model.bert.vocab_size
+    batch = {"ids": rng.integers(1, v, (args.batch, args.seq)).astype(
+                 np.int32),
+             "mlm": rng.integers(0, v, (args.batch, args.seq)).astype(
+                 np.int32),
+             "nsp": rng.integers(0, 2, (args.batch,)).astype(np.int32)}
+    for _ in range(args.warmup):
+        float(eng.step(batch))
+
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        loss = eng.step(batch)
+    float(loss)
+    step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.profile_steps):
+            loss = eng.step(batch)
+        float(loss)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((name, us, n) for name, (us, n)
+                      in _kernel_times(prof).items()), key=lambda k: -k[1])
+    n = args.profile_steps
+    busy_ms = sum(k[1] for k in kernels) / 1e3 / n if kernels else None
+    prof_step_ms = prof_wall_ms / n
+    ours = {name: sum(k[1] for k in kernels if name in k[0]) / 1e3 / n
+            for name in OUR_KERNELS}
+    gemm = sum(k[1] for k in kernels if _is_gemm(k[0])) / 1e3 / n
+    result = {
+        "card": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0],
+        "batch": args.batch, "seq_len": args.seq, "amp": "bfloat16",
+        "step_ms": step_ms, "samples_per_s": args.batch / step_ms * 1e3,
+        "loss": float(loss),
+        "profiled_step_ms": prof_step_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": (None if busy_ms is None
+                              else 1.0 - busy_ms / prof_step_ms),
+        # the profiler slows the host; against the untraced step
+        "device_idle_share_untraced": (None if busy_ms is None
+                                       else 1.0 - busy_ms / step_ms),
+        "kernel_launches_per_step": (sum(k[2] for k in kernels) / n
+                                     if kernels else None),
+        "gemm_ms_per_step": gemm,
+        "our_kernels_ms_per_step": ours,
+        "other_ms_per_step": (None if busy_ms is None
+                              else busy_ms - gemm - sum(ours.values())),
+        "top_kernels": [{"name": k[0][:120], "ms_per_step": k[1] / 1e3 / n,
+                         "calls_per_step": k[2] / n} for k in kernels[:25]],
+    }
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
