@@ -48,6 +48,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
 7. **Training reference check.** BERT at full width and depth 2 in f32:
    three steps on the kernel path against three on the plain path (every
    kernel flag ``never``) from identical weights.
+8. **Batch-norm kernels.** The fused batch-norm training forward, the
+   given-statistics forward and their two backward passes against their
+   plain versions at three ResNet-50 shapes (``[401408, 64]``,
+   ``[25088, 512]``, ``[1568, 2048]``: the stem, layer 2 and layer 4 at
+   batch 32), in f32 and bf16, over activation {identity, relu} x
+   residual {none, given}; timed (bf16, identity, the main path's case)
+   beside their plain versions, ``F.batch_norm`` (cuDNN) on a
+   channels-last input and their bounds.
+9. **ResNet-50 (the third main path).** ``ParallelEngine`` over
+   ``resnet50()`` + ``Momentum(1e-3, 0.9)`` in bf16 at batch 32 x 3 x
+   224 x 224 (``benches.py:91-162``, seeded weights, two batches staged
+   on the card and cycled): two warm-up steps, then slope+readback timing
+   (53 ``fused_bn_train`` + 53 ``train_bwd`` launches per step); then an
+   eval forward (53 ``fused_bn_norm``) and one frozen-statistics step
+   (every BatchNorm2D ``use_global_stats=True``: 53 ``fused_bn_norm`` + 53
+   ``norm_bwd``), the counters zeroed just before and read just after
+   each. The loss must be finite and falling. Prints step ms, samples/s,
+   MFU (``benches.py:153``'s FLOPs) and peak memory.
+10. **ResNet-50 reference check.** Full width, f32, batch 8 x 3 x 64 x 64:
+    three steps on the kernel path and three on the plain path (the
+    batch-norm flags ``never``) from identical weights, each held to a
+    float64 run of the plain path: the first losses agree to 1e-4, and
+    after three steps the kernel path's parameters and running statistics
+    are no farther from the float64 ones than twice the plain path's.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -90,6 +114,22 @@ REF_TOL, REF_STEPS = 1e-4, 3
 # bf16 outputs: kernel and plain version both round an f32 result to bf16,
 # so they may differ by one rounding step, at most 2^-7 of the value
 BF16_REL, BF16_ABS = 2.0 ** -7, 1e-5
+# ResNet-50 (benches.py:91-162): per-device batch 32 at 224 x 224,
+# Momentum(1e-3, 0.9); 53 batch norms; 4.1e9 x 3 FLOPs per sample
+RN_BATCH, RN_IMG, RN_LR, RN_BNS = 32, 224, 1e-3, 53
+RN_FLOPS_PER_SAMPLE = 4.1e9 * 3.0
+BN_SHAPES = ((401408, 64), (25088, 512), (1568, 2048))
+# batch-norm kernels against their plain versions: y and dx differ by the
+# statistics' rounding (sums in another order) times |xhat * gamma|, so
+# an abs tolerance in f32, and one bf16 rounding step beyond it in bf16;
+# the statistics and dgamma/dbeta are sums over up to 4e5 rows in
+# another order: relative 1e-4, with an absolute floor of 1e-5 * sqrt(rows)
+# for sums that cancel to near zero
+BN_ABS, BN_STAT_RTOL, BN_STAT_FLOOR = 5e-5, 1e-4, 1e-5
+# ResNet-50 reference check (f32, 3 steps, against a float64 run): the
+# kernel path may be at most this many times farther from float64 than
+# the plain path (see resnet_reference_check)
+RN_REF_FACTOR = 2.0
 
 
 class SmokeFailure(RuntimeError):
@@ -954,6 +994,438 @@ def train_reference_check(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the batch-norm kernels against their plain versions
+
+
+def bn_counters():
+    from paddle1_tpu_torch.ops import fused_bn as fbn
+    from paddle1_tpu_torch.ops import fused_bn_bwd as fbb
+    return {"fused_bn_train": fbn.fused_bn_train,
+            "fused_bn_norm": fbn.fused_bn_norm,
+            "fused_bn_train_bwd": fbb.train_bwd,
+            "fused_bn_norm_bwd": fbb.norm_bwd}
+
+
+def bn_inputs(dev, rows, c, dtype, seed, n_sets=1):
+    """``n_sets`` sets of (x, gamma, beta, residual, mean, var, dy) for one
+    batch norm: x ~ 1.5 N(0, 1) + 0.3, statistics like a trained layer's."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, device=dev, generator=g)  # noqa: E731
+    out = []
+    for _ in range(n_sets):
+        x = (rnd(rows, c) * 1.5 + 0.3).to(dtype)
+        out.append((x, rnd(c).to(dtype), rnd(c).to(dtype),
+                    rnd(rows, c).to(dtype), rnd(c) * 0.2,
+                    rnd(c).abs() + 0.5, rnd(rows, c).to(dtype)))
+    return out
+
+
+def stat_excess(got, want, rows):
+    """How far |got - want| exceeds the statistics' tolerance."""
+    got, want = got.float(), want.float()
+    tol = BN_STAT_RTOL * want.abs() + BN_STAT_FLOOR * rows ** 0.5
+    return float(((got - want).abs() - tol).max())
+
+
+def row_excess(got, want):
+    """How far |got - want| exceeds BN_ABS (f32) or one bf16 rounding
+    step plus BN_ABS (bf16)."""
+    got_f, want_f = got.float(), want.float()
+    rel = BF16_REL if got.dtype == torch.bfloat16 else 0.0
+    return float(((got_f - want_f).abs() - rel * want_f.abs()).max()) \
+        - BN_ABS
+
+
+def bn_check(dev):
+    """Every kernel of the family against its plain version at the three
+    shapes, f32 and bf16, act x residual; returns the max abs errors."""
+    from paddle1_tpu_torch.ops import fused_bn as fbn
+    from paddle1_tpu_torch.ops import fused_bn_bwd as fbb
+    errs = {k: [] for k in bn_counters()}
+    eps = 1e-5
+    for rows, c in BN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            (x, g, b, res, m, v, dy), = bn_inputs(dev, rows, c, dtype,
+                                                  SEED + rows + c)
+            for act in ("identity", "relu"):
+                for use_res in (False, True):
+                    r = res if use_res else None
+                    tag = (f"[{rows}, {c}] {str(dtype).split('.')[-1]} "
+                           f"act={act} res={use_res}")
+                    y, mean, var = fbn._train_fwd(x, g, b, r, eps, act)
+                    ry, rm, rv = fbn.fused_bn_train_ref(x, g, b, eps, act,
+                                                        r)
+                    tb = fbb.train_bwd(x, g, mean, var, y, dy, eps, act,
+                                       use_res)
+                    rtb = fbb.train_bwd_ref(x, g, mean, var, y, dy, eps,
+                                            act, use_res)
+                    yn = fbn._norm_fwd(x, m, v, g, b, r, eps, act)
+                    ryn = fbn.fused_bn_norm_ref(x, m, v, g, b, eps, act, r)
+                    nb = fbb.norm_bwd(x, g, m, v, yn, dy, eps, act, use_res)
+                    rnb = fbb.norm_bwd_ref(x, g, m, v, yn, dy, eps, act,
+                                           use_res)
+                    torch.cuda.synchronize()
+                    checks = {
+                        "fused_bn_train": ([(y, ry)], [(mean, rm),
+                                                       (var, rv)]),
+                        "fused_bn_norm": ([(yn, ryn)], []),
+                        "fused_bn_train_bwd": (
+                            [(tb[0], rtb[0])] + ([(tb[3], rtb[3])]
+                                                 if use_res else []),
+                            [(tb[1], rtb[1]), (tb[2], rtb[2])]),
+                        "fused_bn_norm_bwd": (
+                            [(nb[0], rnb[0])] + ([(nb[3], rnb[3])]
+                                                 if use_res else []),
+                            [(nb[1], rnb[1]), (nb[2], rnb[2])])}
+                    for name, (rows_pairs, stat_pairs) in checks.items():
+                        for a, w in rows_pairs:
+                            check(a.dtype == dtype and
+                                  bool(torch.isfinite(a).all()),
+                                  f"{name} {tag}: non-finite output or "
+                                  f"dtype {a.dtype}")
+                        exc = max(row_excess(a, w) for a, w in rows_pairs)
+                        check(exc <= 0.0, f"{name} {tag}: rows differ "
+                              f"from the plain version by {exc} beyond "
+                              "the tolerance")
+                        for a, w in stat_pairs:
+                            sx = stat_excess(a, w, rows)
+                            check(sx <= 0.0, f"{name} {tag}: statistics "
+                                  f"differ by {sx} beyond the tolerance")
+                        err = max(float((a.float() - w.float()).abs().max())
+                                  for a, w in rows_pairs + stat_pairs)
+                        errs[name].append({"shape": [rows, c],
+                                           "dtype": str(dtype), "act": act,
+                                           "residual": use_res,
+                                           "max_abs_err": err})
+                    # deterministic reductions: a repeat is bit-identical
+                    again = fbn._train_fwd(x, g, b, r, eps, act)
+                    check(torch.equal(again[1], mean) and
+                          torch.equal(again[2], var) and
+                          torch.equal(again[0], y),
+                          f"fused_bn_train {tag}: a repeat differs")
+            log(f"batch norm kernels [{rows}, {c}]: f32 and bf16 x act x "
+                "residual within tolerance, repeats bit-identical")
+            del x, g, b, res, m, v, dy
+    return errs
+
+
+def bn_bytes(kind, rows, c, itemsize):
+    """(compulsory bytes, bytes this design moves) of one call at the
+    main path's case (identity, no residual): each input read once and
+    each output written once, against the passes the kernels make."""
+    n = rows * c * itemsize
+    ch = c * itemsize * 2 + c * 4 * 2     # gamma, beta; f32 mean/var
+    return {"fused_bn_train": (2 * n + ch, 3 * n + ch),     # x read twice
+            "fused_bn_norm": (2 * n + ch, 2 * n + ch),
+            "fused_bn_train_bwd": (3 * n + ch, 5 * n + ch),  # x, dy twice
+            "fused_bn_norm_bwd": (3 * n + ch, 3 * n + ch)}[kind]
+
+
+BN_FLOPS = {"fused_bn_train": 7.0, "fused_bn_norm": 4.0,
+            "fused_bn_train_bwd": 10.0, "fused_bn_norm_bwd": 7.0}
+
+
+def bn_timing(dev):
+    """Time the four kernels at the three shapes in bf16 (identity, no
+    residual: every batch norm of the main path), over 4 input sets in
+    turn, beside their plain versions, F.batch_norm (cuDNN) on the same
+    data as a channels-last [N, C, H, W] tensor, and their bounds."""
+    from paddle1_tpu_torch.ops import fused_bn as fbn
+    from paddle1_tpu_torch.ops import fused_bn_bwd as fbb
+    tbf = torch.nn.functional.batch_norm
+    out = {k: [] for k in bn_counters()}
+    eps = 1e-5
+    for rows, c in BN_SHAPES:
+        sets = bn_inputs(dev, rows, c, torch.bfloat16, SEED + 9, n_sets=4)
+        fwd = [fbn._train_fwd(s[0], s[1], s[2], None, eps, "identity")
+               for s in sets]
+        t = {}
+        t["fused_bn_train"] = graph_time_ms([lambda s=s: fbn._train_fwd(
+            s[0], s[1], s[2], None, eps, "identity") for s in sets])
+        t["fused_bn_train_plain"] = graph_time_ms([
+            lambda s=s: fbn.fused_bn_train_ref(s[0], s[1], s[2], eps)
+            for s in sets])
+        t["fused_bn_norm"] = graph_time_ms([lambda s=s: fbn._norm_fwd(
+            s[0], s[4], s[5], s[1], s[2], None, eps, "identity")
+            for s in sets])
+        t["fused_bn_norm_plain"] = graph_time_ms([
+            lambda s=s: fbn.fused_bn_norm_ref(s[0], s[4], s[5], s[1], s[2],
+                                              eps) for s in sets])
+        t["fused_bn_train_bwd"] = graph_time_ms([
+            lambda s=s, f=f: fbb.train_bwd(s[0], s[1], f[1], f[2], None,
+                                           s[6], eps, "identity")
+            for s, f in zip(sets, fwd)])
+        t["fused_bn_train_bwd_plain"] = graph_time_ms([
+            lambda s=s, f=f: fbb.train_bwd_ref(s[0], s[1], f[1], f[2], None,
+                                               s[6], eps, "identity")
+            for s, f in zip(sets, fwd)])
+        t["fused_bn_norm_bwd"] = graph_time_ms([
+            lambda s=s: fbb.norm_bwd(s[0], s[1], s[4], s[5], None, s[6],
+                                     eps, "identity") for s in sets])
+        t["fused_bn_norm_bwd_plain"] = graph_time_ms([
+            lambda s=s: fbb.norm_bwd_ref(s[0], s[1], s[4], s[5], None, s[6],
+                                         eps, "identity") for s in sets])
+        # the library: the same rows as [N, C, H, W] channels-last (N = 32
+        # images, H = W), f32 affine and running statistics as cuDNN wants
+        hw = rows // RN_BATCH
+        side = int(round(hw ** 0.5))
+        check(side * side * RN_BATCH == rows, f"{rows} rows are not "
+              f"{RN_BATCH} square images")
+        lib = [(s[0].view(RN_BATCH, side, side, c).permute(0, 3, 1, 2),
+                s[1].float(), s[2].float(), s[4].clone(), s[5].clone(),
+                s[6].view(RN_BATCH, side, side, c).permute(0, 3, 1, 2))
+               for s in sets]
+        check(lib[0][0].is_contiguous(memory_format=torch.channels_last),
+              "library input is not channels-last")
+        t["library_train_fwd"] = graph_time_ms([
+            lambda s=s: tbf(s[0], s[3], s[4], s[1], s[2], True, 0.1, eps)
+            for s in lib])
+        t["library_eval_fwd"] = graph_time_ms([
+            lambda s=s: tbf(s[0], s[3], s[4], s[1], s[2], False, 0.1, eps)
+            for s in lib])
+        leaves = [(s[0].detach().clone().requires_grad_(),
+                   s[1].clone().requires_grad_(),
+                   s[2].clone().requires_grad_()) for s in lib]
+        turn = [0]
+
+        def lib_fwd_bwd(training):
+            i = turn[0] = (turn[0] + 1) % len(lib)
+            xl, gl, bl = leaves[i]
+            y = tbf(xl, lib[i][3], lib[i][4], gl, bl, training, 0.1, eps)
+            torch.autograd.grad(y, (xl, gl, bl), lib[i][5])
+        t["library_train_fwd_bwd"] = event_time_ms(lambda: lib_fwd_bwd(True))
+        t["library_eval_fwd_bwd"] = event_time_ms(
+            lambda: lib_fwd_bwd(False))
+        lib_for = {"fused_bn_train": ("library_train_fwd", "F.batch_norm "
+                                      "training forward"),
+                   "fused_bn_norm": ("library_eval_fwd", "F.batch_norm "
+                                     "eval forward"),
+                   "fused_bn_train_bwd": ("library_train_fwd_bwd",
+                                          "F.batch_norm training forward"
+                                          " + backward"),
+                   "fused_bn_norm_bwd": ("library_eval_fwd_bwd",
+                                         "F.batch_norm eval forward + "
+                                         "backward")}
+        for name in out:
+            need, moved = bn_bytes(name, rows, c, 2)
+            b_ms, by = bound(need, BN_FLOPS[name] * rows * c,
+                             F32_FLOPS_PER_S)
+            lk, cover = lib_for[name]
+            out[name].append({
+                "shape": [rows, c], "dtype": "bf16", "act": "identity",
+                "residual": False, "ms": t[name],
+                "plain_ms": t[name + "_plain"], "library_ms": t[lk],
+                "library_covers": cover, "bound_ms": b_ms, "bound_by": by,
+                "bound_bytes": need, "design_bytes": moved,
+                "design_bytes_ms_at_peak": 1e3 * moved / HBM_BYTES_PER_S})
+            log(f"{name} bf16 [{rows}, {c}]: kernel {t[name]:.5f} ms, plain "
+                f"{t[name + '_plain']:.5f} ms, library ({cover}) "
+                f"{t[lk]:.5f} ms, bound {b_ms:.5f} ms ({by}; the design "
+                f"moves {moved / need:.2f}x the compulsory bytes)")
+        del sets, fwd, lib, leaves
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: ResNet-50 training, eval and frozen-statistics fine-tuning
+
+
+def rn_loss_fn(m, b):
+    from paddle1_tpu_torch.nn import functional as F
+    return F.cross_entropy(m(b["x"]), b["y"])
+
+
+def bn_launches(counters):
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def zero(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def resnet_phase(dev):
+    from paddle1_tpu_torch.distributed import ParallelEngine
+    from paddle1_tpu_torch.nn import BatchNorm2D
+    from paddle1_tpu_torch.optimizer import Momentum
+    from paddle1_tpu_torch.vision.models import resnet50
+    gen = torch.Generator().manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = resnet50(generator=gen)
+    check(all(t.device.type == "cuda" for t in model.state_dict().values()),
+          "resnet50 did not default to the card")
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2D)]
+    check(len(bns) == RN_BNS, f"resnet50 has {len(bns)} batch norms")
+    eng = ParallelEngine(model, Momentum(learning_rate=RN_LR, momentum=0.9,
+                                         parameters=model.parameters()),
+                         rn_loss_fn, amp_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    staged = [{"x": torch.from_numpy(rng.standard_normal(
+                   (RN_BATCH, 3, RN_IMG, RN_IMG)).astype(np.float32)).to(dev),
+               "y": torch.from_numpy(rng.integers(
+                   0, 1000, (RN_BATCH,)).astype(np.int64)).to(dev)}
+              for _ in range(2)]
+    it = [0]
+
+    def step():
+        it[0] += 1
+        return eng.step(staged[it[0] % 2])
+    torch.cuda.reset_peak_memory_stats()
+    first = [float(eng.step(staged[0])), float(eng.step(staged[1]))]
+    setup_s = time.perf_counter() - t0
+    counters = bn_counters()
+    zero(counters)
+    it[0] = 1
+    slopes, _, steps = timed_steps(step, 10)
+    torch.cuda.synchronize()
+    train = bn_launches(counters)
+    want = {"fused_bn_train": RN_BNS * steps, "fused_bn_norm": 0,
+            "fused_bn_train_bwd": RN_BNS * steps, "fused_bn_norm_bwd": 0}
+    check(train == want, f"training launches {train}, want {want} "
+          f"({steps} steps)")
+    last = [float(eng.step(staged[0])), float(eng.step(staged[1]))]
+    check(all(np.isfinite(first + last)), f"non-finite loss {first} "
+          f"{last}")
+    check(sum(last) < sum(first), f"loss did not fall over the cycled "
+          f"batches: {first} -> {last}")
+    dt = float(np.median(slopes))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    model.eval()
+    zero(counters)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        logits = model(staged[0]["x"])
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t1) * 1e3
+    evals = bn_launches(counters)
+    want = {"fused_bn_train": 0, "fused_bn_norm": RN_BNS,
+            "fused_bn_train_bwd": 0, "fused_bn_norm_bwd": 0}
+    check(evals == want, f"eval launches {evals}, want {want}")
+    check(tuple(logits.shape) == (RN_BATCH, 1000) and
+          bool(torch.isfinite(logits).all()), "eval logits not finite "
+          f"[{RN_BATCH}, 1000]")
+
+    model.train()
+    for bn in bns:
+        bn._use_global_stats = True
+    before = {n: b.detach().clone() for n, b in model.named_buffers()}
+    zero(counters)
+    frozen_loss = float(eng.step(staged[0]))
+    torch.cuda.synchronize()
+    frozen = bn_launches(counters)
+    want = {"fused_bn_train": 0, "fused_bn_norm": RN_BNS,
+            "fused_bn_train_bwd": 0, "fused_bn_norm_bwd": RN_BNS}
+    check(frozen == want, f"frozen-statistics launches {frozen}, want "
+          f"{want}")
+    check(np.isfinite(frozen_loss), f"non-finite frozen loss {frozen_loss}")
+    # no batch statistics were blended: the buffers move only by the
+    # optimizer, as the JAX engine moves them (lr 1e-3: a small step)
+    drift = max(float((b - before[n]).abs().max())
+                for n, b in model.named_buffers())
+    summary = {
+        "train": "resnet50", "amp": "bfloat16", "batch": RN_BATCH,
+        "img": RN_IMG, "params": sum(p.numel() for p in model.parameters()),
+        "batch_norms": RN_BNS, "setup_s": setup_s, "steps": steps,
+        "timing": "slope+readback", "step_ms_median": dt * 1e3,
+        "step_ms_min": min(slopes) * 1e3, "step_ms_max": max(slopes) * 1e3,
+        "samples_per_s": RN_BATCH / dt,
+        "flops_per_step": RN_FLOPS_PER_SAMPLE * RN_BATCH,
+        "mfu": RN_FLOPS_PER_SAMPLE * RN_BATCH / dt / BF16_FLOPS_PER_S,
+        "loss_first": first, "loss_last": last,
+        "peak_mem_gb": peak, "launches_train": train,
+        "launches_per_step": {k: n / steps for k, n in train.items()},
+        "eval_ms_f32": eval_ms, "launches_eval": evals,
+        "frozen_loss": frozen_loss, "launches_frozen": frozen,
+        "frozen_buffer_max_move": drift,
+    }
+    log(json.dumps(summary))
+    del eng, model, staged
+    return summary
+
+
+def resnet_reference_check(dev):
+    """ResNet-50 at full width in f32, batch 8 x 3 x 64 x 64: REF_STEPS
+    Momentum steps on the kernel path against REF_STEPS on the plain path
+    (``fused_bn``/``fused_bn_bwd`` never: the plain batch-norm arm) from
+    identical weights, both held to a float64 run of the plain path.
+
+    A ResNet-50 step from this random init is ill-conditioned: the
+    first step's gradients of either f32 arm differ from float64 by
+    percents, and the next steps' losses swing with them (all three runs
+    print theirs). So the first loss, a forward from identical weights,
+    is held to REF_TOL, and after three steps the kernel path's distance
+    to the float64 parameters and running statistics (global norms) must
+    be within RN_REF_FACTOR times the plain path's: the kernel path is as
+    close to exact arithmetic as the plain path is."""
+    import copy
+    from paddle1_tpu_torch.core.flags import flags_guard
+    from paddle1_tpu_torch.distributed import ParallelEngine
+    from paddle1_tpu_torch.optimizer import Momentum
+    from paddle1_tpu_torch.vision.models import resnet50
+    gen = torch.Generator().manual_seed(SEED + 8)
+    m_kernel = resnet50(generator=gen)
+    m_plain = copy.deepcopy(m_kernel)
+    m_exact = copy.deepcopy(m_kernel).double()
+    rng = np.random.default_rng(SEED + 8)
+    x = torch.from_numpy(rng.standard_normal((8, 3, 64, 64))).to(dev)
+    y = torch.from_numpy(rng.integers(0, 1000, (8,))).to(dev)
+    counters = bn_counters()
+
+    def run(model, dtype, loss_fn):
+        eng = ParallelEngine(model, Momentum(learning_rate=RN_LR,
+                                             momentum=0.9,
+                                             parameters=model.parameters()),
+                             loss_fn)
+        batch = {"x": x.to(dtype), "y": y}
+        return [float(eng.step(batch)) for _ in range(REF_STEPS)]
+    before = bn_launches(counters)
+    lk = run(m_kernel, torch.float32, rn_loss_fn)
+    mid = bn_launches(counters)
+    with flags_guard(fused_bn="never", fused_bn_bwd="never"):
+        lp = run(m_plain, torch.float32, rn_loss_fn)
+        with flags_guard(conv_nhwc="never"):
+            # plain PyTorch float64 throughout, the loss included
+            le = run(m_exact, torch.float64, lambda m, b: (
+                torch.nn.functional.cross_entropy(m(b["x"]), b["y"])))
+    after = bn_launches(counters)
+    for k in ("fused_bn_train", "fused_bn_train_bwd"):
+        check(mid[k] - before[k] == RN_BNS * REF_STEPS,
+              f"the kernel path launched {k} {mid[k] - before[k]} times")
+    check(after == mid, "the plain paths launched a kernel")
+    first_err = abs(lk[0] - lp[0])
+    check(first_err <= REF_TOL and abs(lk[0] - le[0]) <= REF_TOL,
+          f"first losses differ: kernel {lk[0]}, plain {lp[0]}, float64 "
+          f"{le[0]}")
+    sk, sp, se = (m.state_dict() for m in (m_kernel, m_plain, m_exact))
+    dist = {}
+    for kind in ("param", "running_stat"):
+        keys = [k for k in se if k.endswith(("_mean", "_variance"))
+                == (kind == "running_stat")]
+        norm = lambda a, b: float(sum(  # noqa: E731
+            float((a[k].double() - b[k].double()).norm()) ** 2
+            for k in keys)) ** 0.5
+        dist[kind] = {"kernel_to_f64": norm(sk, se),
+                      "plain_to_f64": norm(sp, se),
+                      "kernel_to_plain": norm(sk, sp)}
+        d = dist[kind]
+        check(d["kernel_to_f64"] <= RN_REF_FACTOR * d["plain_to_f64"],
+              f"{kind}s: the kernel path is {d['kernel_to_f64']} from "
+              f"float64, the plain path {d['plain_to_f64']}")
+    zero(counters)
+    out = {"resnet_reference": {"dtype": "float32 vs float64", "batch": 8,
+                                "img": 64, "steps": REF_STEPS,
+                                "losses_kernel": lk, "losses_plain": lp,
+                                "losses_f64": le,
+                                "first_loss_err": first_err,
+                                "distances": dist}}
+    log(json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1002,6 +1474,13 @@ def main() -> int:
     train = train_phase(dev)
     torch.cuda.empty_cache()
     train_reference_check(dev)
+    torch.cuda.empty_cache()
+
+    bn_errs = bn_check(dev)
+    bn_times = bn_timing(dev)
+    rn = resnet_phase(dev)
+    torch.cuda.empty_cache()
+    resnet_reference_check(dev)
 
     src = "paddle1_tpu_torch/ops/cuda/"
     pallas = "paddle1_tpu/ops/pallas/"
@@ -1059,6 +1538,29 @@ def main() -> int:
         "bound_ms": adam["bound_ms"], "bound_by": adam["bound_by"],
         "library_ms": adam["library_ms"], "tensors": adam["tensors"],
         "elements": adam["elements"], "cases": adam["cases"]})
+    bn_rows = (("fused_bn_train", "fused_bn.cu", "fused_bn.py:90"),
+               ("fused_bn_norm", "fused_bn.cu", "fused_bn.py:245"),
+               ("fused_bn_train_bwd", "fused_bn_bwd.cu",
+                "fused_bn_bwd.py:54"),
+               ("fused_bn_norm_bwd", "fused_bn_bwd.cu",
+                "fused_bn_bwd.py:158"))
+    for name, cu, rep in bn_rows:
+        by_path = {"resnet_train": rn["launches_train"][name],
+                   "resnet_eval": rn["launches_eval"][name],
+                   "resnet_frozen": rn["launches_frozen"][name]}
+        main_case = bn_times[name][0]     # the stem's [401408, 64]
+        line.append({
+            "name": name, "route": "cuda", "source": src + cu,
+            "replaces": pallas + rep, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(c["max_abs_err"] for c in bn_errs[name]),
+            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"],
+            "library_covers": main_case["library_covers"],
+            "shape": [main_case["shape"], "bf16", "identity, no residual"],
+            "timing_cases": bn_times[name], "cases": bn_errs[name]})
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

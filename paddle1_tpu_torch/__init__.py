@@ -12,10 +12,14 @@ LayerNorm kernels. Slice 2 is BERT pretraining:
 ``distributed.ParallelEngine`` over ``text.models.BertForPretraining`` and
 ``optimizer.AdamW`` (bf16 with f32 masters), on the flash-attention
 forward and backward kernels, the fused AdamW kernel and the LayerNorm
-kernel under autograd.
+kernel under autograd. Slice 3 is ResNet training and evaluation:
+``vision.models.resnet50`` through the same engine with
+``optimizer.Momentum``, on the fused batch-norm forward and backward
+kernels (training, given statistics) over channels-last activations.
 """
 
-from . import distributed, optimizer, serving, text  # noqa: F401
+from . import distributed, optimizer, serving, text, vision  # noqa: F401
 from .core.device import resolve_device  # noqa: F401
 
-__all__ = ["distributed", "optimizer", "serving", "text", "resolve_device"]
+__all__ = ["distributed", "optimizer", "serving", "text", "vision",
+           "resolve_device"]

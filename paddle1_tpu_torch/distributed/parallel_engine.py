@@ -18,6 +18,18 @@ batch)``, then ``optimizer.apply``. It returns a :class:`LossFuture`
   parameters) from the gradients cast to f32.
 * Gradients land in persistent buffers in the masters' dtype, so the
   fused optimizer's table of pointers is built once.
+* Floating buffers (batch norm's ``_mean``/``_variance``) are leaves of
+  the step like the parameters, as the JAX engine threads its whole
+  state through the step (``parallel_engine.py:425-431``): under
+  ``amp_dtype`` they are cast with the parameters, so a given-statistics
+  forward normalizes with bf16-rounded running statistics; they are
+  differentiated and handed to the optimizer with the parameters (so
+  frozen statistics, ``use_global_stats=True``, move with their
+  gradient, as the JAX engine's ``functional_update`` moves them). Batch
+  norms in training mode record their f32 batch statistics
+  (``nn.functional.norm.collect_stat_updates``), and after the optimizer
+  update each recorded buffer becomes ``m * old + (1 - m) * batch`` from
+  its value before the step (``parallel_engine.py:328-343``).
 
 Meshes, ZeRO, ``grad_accum``, ``step_many``/``step_stream`` and
 ``check_finite`` are later slices (ROADMAP.md).
@@ -33,6 +45,7 @@ from torch import nn
 
 from ..core.async_loss import LossFuture
 from ..core.errors import InvalidArgumentError
+from ..nn.functional.norm import collect_stat_updates
 
 __all__ = ["ParallelEngine"]
 
@@ -88,6 +101,12 @@ class ParallelEngine:
         self._train = [p for p in self.params if p.requires_grad and
                        p.is_floating_point()]
         self._grads = [torch.zeros_like(p) for p in self._train]
+        bufs = [(n, b) for n, b in model.named_buffers()
+                if b.is_floating_point()]
+        self.buffer_names: List[str] = [n for n, _ in bufs]
+        self.buffers: List[torch.Tensor] = [b for _, b in bufs]
+        self._buf_grads = [torch.zeros_like(b) for b in self.buffers]
+        self._param_ids = {id(p) for p in self.params}
         self._wrapper = _LossModule(model, loss_fn)
         self.dispatch_count = 0
 
@@ -106,15 +125,17 @@ class ParallelEngine:
         return place(batch)
 
     def _leaves(self) -> Dict[str, torch.Tensor]:
-        """The step's parameter leaves: the masters' storage (f32) or a
-        cast copy (amp), requiring grad where the master does."""
+        """The step's leaves: the masters' storage (f32) or a cast copy
+        (amp) of every parameter and floating buffer, requiring grad
+        where the master is trained and on every buffer."""
         train = {id(p) for p in self._train}
         out = {}
-        for n, p in zip(self.names, self.params):
+        for n, p in zip(self.names + self.buffer_names,
+                        self.params + self.buffers):
             leaf = p.detach()
             if self.amp_dtype is not None and leaf.is_floating_point():
                 leaf = leaf.to(self.amp_dtype)
-            if id(p) in train:
+            if id(p) in train or id(p) not in self._param_ids:
                 leaf.requires_grad_(True)
             out["m." + n] = leaf
         return out
@@ -124,20 +145,45 @@ class ParallelEngine:
         optimizer's learning rate for this step."""
         feed = self._feed(batch)
         leaves = self._leaves()
-        with torch.enable_grad():
+        with torch.enable_grad(), collect_stat_updates() as stats:
             loss = torch.func.functional_call(self._wrapper, leaves,
                                               (feed,))
             loss = loss.float()
             train = {id(p) for p in self._train}
             diff = [leaves["m." + n] for n, p in zip(self.names, self.params)
                     if id(p) in train]
+            diff += [leaves["m." + n] for n in self.buffer_names]
             grads = torch.autograd.grad(loss, diff, allow_unused=True)
         with torch.no_grad():
-            for buf, g in zip(self._grads, grads):
+            for buf, g in zip(self._grads + self._buf_grads, grads):
                 if g is None:
                     buf.zero_()
                 else:
                     buf.copy_(g)
-        self.optimizer.apply(self._train, self._grads, lr)
+            blends = self._stat_blends(leaves, stats)
+        self.optimizer.apply(self._train + self.buffers,
+                             self._grads + self._buf_grads, lr)
+        with torch.no_grad():
+            for buf, old, stat, m in blends:
+                buf.copy_((m * old + (1 - m) * stat).to(buf.dtype))
         self.dispatch_count += 1
         return LossFuture(loss)
+
+    def _stat_blends(self, leaves, stats):
+        """``(buffer, its value before the step, batch statistic,
+        momentum)`` for each running statistic a batch norm recorded, the
+        two values in f32 (or the buffer's dtype, where that is wider)."""
+        by_leaf = {id(leaves["m." + n]): b
+                   for n, b in zip(self.buffer_names, self.buffers)}
+        out = []
+        for u in stats:
+            for leaf, stat in ((u.old_mean, u.mean), (u.old_var, u.var)):
+                buf = by_leaf.get(id(leaf))
+                if buf is None:
+                    raise InvalidArgumentError(
+                        "ParallelEngine: a batch norm updated running "
+                        "statistics that are not the model's buffers")
+                wide = torch.promote_types(buf.dtype, torch.float32)
+                out.append((buf, buf.to(wide, copy=True), stat.to(wide),
+                            u.momentum))
+        return out

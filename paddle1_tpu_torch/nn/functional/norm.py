@@ -1,17 +1,23 @@
-"""Normalization functionals (port of ``layer_norm`` from
+"""Normalization functionals (port of ``layer_norm``, ``batch_norm``,
+``fused_batch_norm_act`` and the running-statistics capture from
 ``paddle1_tpu/nn/functional/norm.py``)."""
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 
 from ...core.errors import InvalidArgumentError
-from ...core.flags import flag_active
+from ...core.flags import flag, flag_active
+from ...ops import fused_bn as fbn
 from ...ops import layer_norm as ln
+from ._layout import channels_last_region
 
-__all__ = ["layer_norm"]
+__all__ = ["layer_norm", "batch_norm", "fused_batch_norm_act",
+           "collect_stat_updates", "fused_bn_active"]
 
 
 def layer_norm(x: torch.Tensor, normalized_shape, weight: torch.Tensor,
@@ -35,3 +41,190 @@ def layer_norm(x: torch.Tensor, normalized_shape, weight: torch.Tensor,
     n = math.prod(shape)
     y = fn(x.reshape(*lead, n), weight.reshape(n), bias.reshape(n), epsilon)
     return y.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# running statistics
+#
+# Eager calls blend the batch statistics into the running buffers in
+# place. A framework-owned step (distributed.ParallelEngine) opens a
+# collector around its forward instead: each batch norm then RECORDS its
+# update (the buffer it was handed, the batch statistics, the momentum),
+# and the engine blends once per step into its f32 buffers after the
+# optimizer update, as the JAX engine folds them into the step's output.
+
+_stat_sink = threading.local()
+
+
+class StatUpdate:
+    """One recorded running-statistics update: the buffers the layer was
+    handed (identity keys into the step's leaves), the detached batch
+    statistics and the layer's momentum."""
+
+    __slots__ = ("old_mean", "old_var", "mean", "var", "momentum")
+
+    def __init__(self, old_mean, old_var, mean, var, momentum):
+        self.old_mean = old_mean
+        self.old_var = old_var
+        self.mean = mean
+        self.var = var
+        self.momentum = momentum
+
+
+@contextlib.contextmanager
+def collect_stat_updates():
+    """Arm the running-statistics capture for this thread; yields the
+    list of :class:`StatUpdate` the step consumes."""
+    prev = getattr(_stat_sink, "sink", None)
+    sink: list = []
+    _stat_sink.sink = sink
+    try:
+        yield sink
+    finally:
+        _stat_sink.sink = prev
+
+
+def _update_running_stats(running_mean, running_var, mean, var, momentum):
+    """Paddle's convention: ``new = m * old + (1 - m) * batch`` with the
+    biased batch variance (``torch.nn.BatchNorm2d`` inverts the momentum
+    and keeps the unbiased variance)."""
+    if running_mean is None:
+        return
+    mean, var = mean.detach(), var.detach()
+    sink = getattr(_stat_sink, "sink", None)
+    if sink is not None:
+        sink.append(StatUpdate(running_mean, running_var, mean, var,
+                               float(momentum)))
+        return
+    with torch.no_grad():
+        for buf, stat in ((running_mean, mean), (running_var, var)):
+            buf.copy_(momentum * buf + (1 - momentum) * stat)
+
+
+def fused_bn_active(shape, dtype, device) -> bool:
+    """Resolve the ``fused_bn`` flag against a channels-LAST input:
+    ``always``/``never`` are absolute (``always`` reaches the wrapper,
+    which runs the plain version on a CPU tensor), ``auto`` needs a CUDA
+    tensor of at least ``fused_bn_auto_mb`` MiB; all need a shape and
+    dtype the kernels take (``ops.fused_bn.supported``)."""
+    if not flag_active("fused_bn", device):
+        return False
+    if not fbn.supported(shape, dtype):
+        return False
+    if flag("fused_bn") == "auto":
+        n = math.prod(int(s) for s in shape)
+        itemsize = torch.finfo(dtype).bits // 8
+        if n * itemsize < flag("fused_bn_auto_mb") * 1024 * 1024:
+            return False
+    return True
+
+
+def _apply_act(y, act):
+    return torch.relu(y) if act == "relu" else y
+
+
+def _batch_norm_impl(x, running_mean, running_var, weight, bias, training,
+                     momentum, epsilon, data_format, use_global_stats, act,
+                     residual):
+    channel_last = data_format in ("NHWC", "NLC", "NDHWC")
+    # an NCHW batch norm computes on channels-last memory inside the
+    # region (_layout.py), which is what gives the kernels their
+    # [rows, C] view
+    nhwc_internal, to_internal, from_internal = channels_last_region(
+        x.dim(), channel_last, x.device)
+    eff_last = channel_last or nhwc_internal
+    use_stats = (not training) if use_global_stats is None \
+        else use_global_stats
+    has_wb = weight is not None
+    xi = to_internal(x)
+    res = None if residual is None else to_internal(residual)
+    nd = xi.dim()
+    ch_axis = nd - 1 if eff_last else 1
+
+    def bshape(v):
+        shape = [1] * nd
+        shape[ch_axis] = -1
+        return v.reshape(shape)
+
+    fused = has_wb and eff_last and fused_bn_active(xi.shape, xi.dtype,
+                                                    xi.device)
+    if fused:
+        c = int(xi.shape[-1])
+        x2 = xi.reshape(-1, c)
+        res2 = None if res is None else res.reshape(-1, c)
+
+    if use_stats:
+        if fused:
+            y2 = fbn.fused_bn_norm(x2, running_mean, running_var, weight,
+                                   bias, epsilon, act, residual=res2)
+            return from_internal(y2.reshape(xi.shape))
+        y = (xi - bshape(running_mean)) * torch.rsqrt(
+            bshape(running_var) + epsilon)
+        if has_wb:
+            y = y * bshape(weight) + bshape(bias)
+        if res is not None:
+            y = y + res
+        return from_internal(_apply_act(y, act))
+
+    if fused:
+        y2, mean, var = fbn.fused_bn_train(x2, weight, bias, epsilon, act,
+                                           residual=res2)
+        y = from_internal(y2.reshape(xi.shape))
+    else:
+        # the JAX package's own formula for this arm: f32 sums for 16-bit
+        # inputs, the two-pass variance, the statistics cast to x.dtype
+        reduce_axes = tuple(i for i in range(nd) if i != ch_axis)
+        n = math.prod(int(xi.shape[i]) for i in reduce_axes)
+        inv = 1.0 / n
+        half = xi.element_size() == 2
+        xf = xi.float() if half else xi
+        mean = (xf.sum(dim=reduce_axes) * inv).to(xi.dtype)
+        xc = xi - bshape(mean)
+        xcf = xc.float() if half else xc
+        var = ((xcf * xcf).sum(dim=reduce_axes) * inv).to(xi.dtype)
+        y = xc * torch.rsqrt(bshape(var) + epsilon)
+        if has_wb:
+            y = y * bshape(weight) + bshape(bias)
+        if res is not None:
+            y = y + res
+        y = from_internal(_apply_act(y, act))
+    _update_running_stats(running_mean, running_var, mean, var, momentum)
+    return y
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-05,
+               data_format="NCHW", use_global_stats=None):
+    """Batch norm with the running-statistics update (Paddle's
+    ``batch_norm``): training mode normalizes with the batch statistics
+    and blends them into ``running_mean``/``running_var``; eval (or
+    ``use_global_stats=True``) normalizes with the running statistics.
+    Under ``fused_bn`` a channels-last affine batch norm runs the
+    hand-written kernels (``ops/fused_bn.py``)."""
+    return _batch_norm_impl(x, running_mean, running_var, weight, bias,
+                            training, momentum, epsilon, data_format,
+                            use_global_stats, "identity", None)
+
+
+def fused_batch_norm_act(x, running_mean, running_var, weight, bias,
+                         training=False, momentum=0.9, epsilon=1e-05,
+                         data_format="NCHW", act="relu", residual=None,
+                         use_global_stats=None):
+    """``y = act(batch_norm(x) + residual)`` as one op (Paddle's
+    ``fused_bn_activation_op`` / ``fused_bn_add_activation_op``); the
+    same semantics as :func:`batch_norm` otherwise."""
+    if act not in fbn.ACTS:
+        raise InvalidArgumentError(
+            f"fused_batch_norm_act: act must be one of {fbn.ACTS}, got "
+            f"{act!r}")
+    if weight is None or bias is None:
+        raise InvalidArgumentError(
+            "fused_batch_norm_act requires affine weight and bias; use "
+            "batch_norm for the affine-less form")
+    if residual is not None and tuple(residual.shape) != tuple(x.shape):
+        raise InvalidArgumentError(
+            f"fused_batch_norm_act: residual shape {list(residual.shape)} "
+            f"must match x shape {list(x.shape)}")
+    return _batch_norm_impl(x, running_mean, running_var, weight, bias,
+                            training, momentum, epsilon, data_format,
+                            use_global_stats, act, residual)

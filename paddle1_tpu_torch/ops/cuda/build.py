@@ -5,8 +5,9 @@ Each ``*.cu`` file in this directory is compiled on its own by a plain
 library with a plain C interface, loaded with :mod:`ctypes`. No PyTorch
 headers are included, so a build takes seconds, and no ``ninja`` is
 needed. Libraries land in ``paddle1_tpu_torch/_build/`` (gitignored),
-named by a hash of their source and flags, so an edited source is never
-served by a stale library. Sources are compiled in parallel, one
+named by a hash of their source, the directory's shared ``*.cuh`` headers
+and the flags, so an edited source or header is never served by a stale
+library. Sources are compiled in parallel, one
 ``nvcc`` per file, all started together.
 
 A failed build raises :class:`KernelBuildError` carrying nvcc's stderr.
@@ -32,7 +33,7 @@ __all__ = ["SOURCES", "build_all", "load", "build_dir", "build_log",
 
 _SRC_DIR = Path(__file__).resolve().parent
 SOURCES = ("layer_norm", "paged_attention", "flash_attention",
-           "flash_attention_bwd", "fused_adam")
+           "flash_attention_bwd", "fused_adam", "fused_bn", "fused_bn_bwd")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
@@ -57,7 +58,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (_SRC_DIR / f"{name}.cu").read_bytes()
+    src = (_SRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(_SRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 

@@ -1,0 +1,198 @@
+// Fused batch norm, forward: batch statistics + normalize + affine
+// (+ residual) + activation over a channels-last [rows, C] tensor.
+//
+// Replaces paddle1_tpu/ops/pallas/fused_bn.py::_bn_train_kernel (training
+// mode: statistics from the batch) and ::_bn_norm_kernel (given
+// statistics: eval, use_global_stats). Same numerics contract: f32 sums
+// of x and x^2, mean = s / rows and var = max(ss / rows - mean^2, 0) with
+// the exact count as a host constant, f32 statistics out, then
+// y = act((x - mean) * rsqrt(var + eps) * gamma + beta [+ res]) cast to
+// the storage type at the edge. act is identity or relu.
+//
+// Bound on an H100: memory. Per element the work is a handful of flops
+// against 2-4 bytes moved in bf16, far below the card's balance point.
+// The compulsory traffic is x read once and y written once (plus the
+// residual); this design reads x twice in training mode:
+//   1. stats pass: per-chunk f32 partial sums [chunks, C]
+//      (fused_bn_common.cuh, no atomics, so repeats are bit-identical);
+//   2. finalize: one warp per channel reduces the partials -> mean, var;
+//   3. normalize pass: y from x (and res), the statistics held in
+//      registers for the thread's 8 channels.
+// The Pallas kernel's single sequential (2, row_blocks) grid keeps the
+// running sums in VMEM; on the GPU the blocks run in no order, so the
+// sum across blocks is the second stage above. Given-statistics mode is
+// pass 3 alone.
+//
+// Loads are 16 B (8 bf16) or 32 B (8 f32) per thread, neighbouring
+// threads on neighbouring channels; rows are strided across the block's
+// warps. Built by paddle1_tpu_torch/ops/cuda/build.py with nvcc for
+// sm_90a into a shared library with a plain C interface (ctypes).
+
+#include "fused_bn_common.cuh"
+
+namespace {
+
+using namespace p1t_bn;
+
+template <typename T>
+__global__ void stats_partial_kernel(const T* __restrict__ x,
+                                     long long rows, int c,
+                                     long long rows_per_chunk,
+                                     float* __restrict__ ps,
+                                     float* __restrict__ pss) {
+  const int cv = c / kVec;
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  const long long r0 = static_cast<long long>(blockIdx.y) * rows_per_chunk;
+  long long r1 = r0 + rows_per_chunk;
+  if (r1 > rows) r1 = rows;
+  float s[kVec] = {}, ss[kVec] = {};
+  if (v < cv) {
+    for (long long r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
+      float xv[kVec];
+      load8(x + r * c + static_cast<long long>(v) * kVec, xv);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        s[i] += xv[i];
+        ss[i] += xv[i] * xv[i];
+      }
+    }
+  }
+  block_column_sums(s, ss, ps, pss, c);
+}
+
+template <typename T, typename P>
+__global__ void normalize_kernel(const T* __restrict__ x,
+                                 const float* __restrict__ mean,
+                                 const float* __restrict__ var,
+                                 const P* __restrict__ gamma,
+                                 const P* __restrict__ beta,
+                                 const T* __restrict__ res,
+                                 T* __restrict__ y, long long rows, int c,
+                                 float eps, int relu) {
+  const int cv = c / kVec;
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= cv) return;
+  float mu[kVec], rs[kVec], g[kVec], b[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    const int ch = v * kVec + i;
+    mu[i] = mean[ch];
+    rs[i] = rsqrtf(var[ch] + eps);
+    g[i] = to_f32(gamma[ch]);
+    b[i] = to_f32(beta[ch]);
+  }
+  const long long step = static_cast<long long>(gridDim.y) * blockDim.y;
+  for (long long r = static_cast<long long>(blockIdx.y) * blockDim.y +
+                     threadIdx.y;
+       r < rows; r += step) {
+    const long long off = r * c + static_cast<long long>(v) * kVec;
+    float xv[kVec], rv[kVec] = {}, out[kVec];
+    load8(x + off, xv);
+    if (res != nullptr) load8(res + off, rv);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      float t = (xv[i] - mu[i]) * rs[i];
+      t = t * g[i] + b[i];
+      if (res != nullptr) t += rv[i];
+      out[i] = relu ? fmaxf(t, 0.f) : t;
+    }
+    store8(y + off, out);
+  }
+}
+
+template <typename T, typename P>
+int train_fwd(const void* x, const void* g, const void* b, const void* res,
+              void* y, float* mean, float* var, float* ps, float* pss,
+              long long rows, int c, int tx, int chunks,
+              long long rows_per_chunk, int grid_y, float eps, int relu,
+              cudaStream_t stream) {
+  dim3 block;
+  int tiles;
+  if (rows <= 0 || chunks < 1 || grid_y < 1 || grid_y > 65535 ||
+      chunks > 65535 || !block_shape(c, tx, &block, &tiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  stats_partial_kernel<T><<<dim3(tiles, chunks), block, 0, stream>>>(
+      static_cast<const T*>(x), rows, c, rows_per_chunk, ps, pss);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  rc = launch_finalize(ps, pss, chunks, c,
+                       static_cast<float>(1.0 / static_cast<double>(rows)),
+                       0, mean, var, stream);
+  if (rc != 0) return rc;
+  normalize_kernel<T, P><<<dim3(tiles, grid_y), block, 0, stream>>>(
+      static_cast<const T*>(x), mean, var, static_cast<const P*>(g),
+      static_cast<const P*>(b), static_cast<const T*>(res),
+      static_cast<T*>(y), rows, c, eps, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename P>
+int norm_fwd(const void* x, const float* mean, const float* var,
+             const void* g, const void* b, const void* res, void* y,
+             long long rows, int c, int tx, int grid_y, float eps, int relu,
+             cudaStream_t stream) {
+  dim3 block;
+  int tiles;
+  if (rows <= 0 || grid_y < 1 || grid_y > 65535 ||
+      !block_shape(c, tx, &block, &tiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  normalize_kernel<T, P><<<dim3(tiles, grid_y), block, 0, stream>>>(
+      static_cast<const T*>(x), mean, var, static_cast<const P*>(g),
+      static_cast<const P*>(b), static_cast<const T*>(res),
+      static_cast<T*>(y), rows, c, eps, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype (x, res, y) and pdtype (gamma, beta): 0 = float32, 1 = bfloat16.
+// res may be null. mean/var: f32 [C] outputs; ps/pss: f32 [chunks, C]
+// scratch. Returns a cudaError_t (0 = success).
+int p1t_fused_bn_train_fwd(const void* x, const void* g, const void* b,
+                           const void* res, void* y, void* mean, void* var,
+                           void* ps, void* pss, long long rows, int c,
+                           int tx, int chunks, long long rows_per_chunk,
+                           int grid_y, float eps, int relu, int dtype,
+                           int pdtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto m = static_cast<float*>(mean);
+  auto v = static_cast<float*>(var);
+  auto a = static_cast<float*>(ps);
+  auto q = static_cast<float*>(pss);
+#define P1T_TRAIN(T, P)                                                    \
+  return train_fwd<T, P>(x, g, b, res, y, m, v, a, q, rows, c, tx, chunks, \
+                         rows_per_chunk, grid_y, eps, relu, s)
+  if (dtype == 0 && pdtype == 0) P1T_TRAIN(float, float);
+  if (dtype == 0 && pdtype == 1) P1T_TRAIN(float, __nv_bfloat16);
+  if (dtype == 1 && pdtype == 0) P1T_TRAIN(__nv_bfloat16, float);
+  if (dtype == 1 && pdtype == 1) P1T_TRAIN(__nv_bfloat16, __nv_bfloat16);
+#undef P1T_TRAIN
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Given statistics: mean/var f32 [C]; otherwise as above.
+int p1t_fused_bn_norm_fwd(const void* x, const void* mean, const void* var,
+                          const void* g, const void* b, const void* res,
+                          void* y, long long rows, int c, int tx, int grid_y,
+                          float eps, int relu, int dtype, int pdtype,
+                          void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto m = static_cast<const float*>(mean);
+  auto v = static_cast<const float*>(var);
+#define P1T_NORM(T, P) \
+  return norm_fwd<T, P>(x, m, v, g, b, res, y, rows, c, tx, grid_y, eps, relu, s)
+  if (dtype == 0 && pdtype == 0) P1T_NORM(float, float);
+  if (dtype == 0 && pdtype == 1) P1T_NORM(float, __nv_bfloat16);
+  if (dtype == 1 && pdtype == 0) P1T_NORM(__nv_bfloat16, float);
+  if (dtype == 1 && pdtype == 1) P1T_NORM(__nv_bfloat16, __nv_bfloat16);
+#undef P1T_NORM
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+const char* p1t_fused_bn_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,376 @@
+"""Fused batch norm, forward: the hand-written CUDA kernels and their
+plain versions.
+
+Port of ``paddle1_tpu/ops/pallas/fused_bn.py`` (``_bn_train_kernel``,
+``_bn_norm_kernel``, ``supported``, ``ACTS`` and the four custom VJPs).
+The kernels live in ``ops/cuda/fused_bn.cu``; the backward kernels in
+``ops/cuda/fused_bn_bwd.cu`` (``ops/fused_bn_bwd.py``).
+
+* :func:`fused_bn_train` — training mode over channels-last
+  ``x2: [rows, C]``: ``(y, batch_mean, batch_var)`` with f32 statistics,
+  ``y = act((x - mean) * rsqrt(var + eps) * gamma + beta [+ residual])``.
+* :func:`fused_bn_norm` — the same normalize from GIVEN statistics (eval,
+  ``use_global_stats``); ``mean``/``var`` stay differentiable.
+
+Both are ``torch.autograd.Function``s whose backward is
+``fused_bn_bwd.train_bwd`` / ``norm_bwd``. A CUDA tensor launches the
+kernel or raises (no fallback); a CPU tensor runs the plain version
+(:func:`fused_bn_train_ref`, :func:`fused_bn_norm_ref`), which computes
+what the kernel computes: f32 sums, ``var = max(E[x^2] - mean^2, 0)``
+with the exact count as a host constant, f32 statistics, the cast at the
+edge.
+
+``fused_bn_train.launches`` and ``fused_bn_norm.launches`` count calls
+that launched the kernel: ONE per call, although a training call is
+three CUDA launches inside (partial sums, finalize, normalize).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..core.errors import InvalidArgumentError, KernelLaunchError
+
+__all__ = ["ACTS", "supported", "fused_bn_train", "fused_bn_norm",
+           "fused_bn_train_ref", "fused_bn_norm_ref"]
+
+ACTS = ("identity", "relu")
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_THREADS = 256          # fused_bn_common.cuh kThreads
+_VEC = 8                # channels per thread
+_ALIGN = 16             # bytes: one vector load
+_fns = {}
+
+
+def _check_act(act: str) -> None:
+    if act not in ACTS:
+        raise InvalidArgumentError(
+            f"fused_bn activation must be one of {ACTS}, got {act!r}")
+
+
+def supported(shape, dtype=None) -> bool:
+    """Channels-last ``[..., C]`` with at least 2 dims, at least one row,
+    ``C % 8 == 0`` (one 8-channel vector per thread) and, when given, a
+    dtype the kernels store (f32, bf16). The TPU's row-block gate
+    (``_common.block_rows``, its VMEM ladder) does not apply: rows are a
+    strided loop on the GPU."""
+    if len(shape) < 2:
+        return False
+    c = int(shape[-1])
+    rows = 1
+    for s in shape[:-1]:
+        rows *= int(s)
+    if c <= 0 or c % _VEC or rows < 1:
+        return False
+    return dtype is None or dtype in _DTYPES
+
+
+def _act(y: torch.Tensor, act: str) -> torch.Tensor:
+    return torch.relu(y) if act == "relu" else y
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+
+
+def fused_bn_train_ref(x2, gamma, beta, epsilon, act="identity",
+                       residual=None):
+    """Plain version of the training kernel: ``(y, mean, var)``."""
+    rows = int(x2.shape[0])
+    inv = 1.0 / rows
+    xf = x2.float()
+    mean = xf.sum(dim=0) * inv
+    var = torch.clamp((xf * xf).sum(dim=0) * inv - mean * mean, min=0.0)
+    y = fused_bn_norm_ref(x2, mean, var, gamma, beta, epsilon, act,
+                          residual)
+    return y, mean, var
+
+
+def fused_bn_norm_ref(x2, mean, var, gamma, beta, epsilon, act="identity",
+                      residual=None):
+    """Plain version of the given-statistics kernel: the statistics in
+    f32, ``y = act((x - mean) * rsqrt(var + eps) * gamma + beta [+ res])``
+    in f32, cast to ``x2.dtype``."""
+    y = (x2.float() - mean.float()) * torch.rsqrt(var.float() + epsilon)
+    y = y * gamma.float() + beta.float()
+    if residual is not None:
+        y = y + residual.float()
+    return _act(y, act).to(x2.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the launch plan and the contract, shared with fused_bn_bwd
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan(rows: int, c: int, device):
+    """Block and grid of the kernel family for ``[rows, C]``:
+    ``(tx, chunks, rows_per_chunk, grid_y)``. A block is ``tx = min(C/8,
+    32)`` channel vectors wide and ``256 // tx`` rows tall; a reduction
+    pass cuts the rows into ``chunks`` chunks (about 4 blocks per SM in
+    all), an elementwise pass strides over them with ``grid_y`` block
+    rows (about 8 blocks per SM). Depends on the shape and the card
+    only, so the sums' order does too."""
+    cv = c // _VEC
+    tx = min(cv, 32)
+    ty = _THREADS // tx
+    tiles = -(-cv // tx)
+    sms = _sm_count(device.index if device.index is not None
+                    else torch.cuda.current_device())
+    row_groups = -(-rows // ty)
+    chunks = max(1, min(row_groups, -(-4 * sms // tiles), 65535))
+    rows_per_chunk = -(-rows // chunks)
+    chunks = -(-rows // rows_per_chunk)
+    grid_y = max(1, min(row_groups, -(-8 * sms // tiles), 65535))
+    return tx, chunks, rows_per_chunk, grid_y
+
+
+def check_rows(name, x2, *others):
+    """The kernels' contract on the row tensors: ``x2`` a 2-D ``[rows, C]``
+    CUDA tensor in f32/bf16 with ``C % 8 == 0``, contiguous and 16-byte
+    aligned; each of ``others`` (None skipped) the same shape, dtype and
+    device, contiguous and aligned. Never copies: an input outside the
+    contract raises."""
+    if x2.dim() != 2 or not supported(x2.shape, x2.dtype):
+        raise InvalidArgumentError(
+            f"{name}: x {tuple(x2.shape)} {x2.dtype} is outside the "
+            "kernel's contract (see supported(): [rows, C], C % 8 == 0, "
+            "f32 or bf16)")
+    for t in (x2,) + others:
+        if t is None:
+            continue
+        if t.shape != x2.shape or t.dtype != x2.dtype or \
+                t.device != x2.device:
+            raise InvalidArgumentError(
+                f"{name}: a row tensor {tuple(t.shape)} {t.dtype} on "
+                f"{t.device} does not match x {tuple(x2.shape)} "
+                f"{x2.dtype} on {x2.device} (outside the kernel's "
+                "contract)")
+        if not t.is_contiguous() or t.data_ptr() % _ALIGN:
+            raise InvalidArgumentError(
+                f"{name}: a row tensor {tuple(t.shape)} is not contiguous "
+                "channels-last [rows, C] memory with 16-byte alignment "
+                "(outside the kernel's contract; the caller's layout, "
+                "e.g. torch.channels_last, must give a free view)")
+
+
+def check_channels(name, c, device, *vs):
+    """``gamma``/``beta``: ``[C]`` contiguous vectors of ONE dtype in
+    f32/bf16 on ``device``; returns that dtype's code."""
+    dt = vs[0].dtype
+    for v in vs:
+        if tuple(v.shape) != (c,) or v.dtype != dt or dt not in _DTYPES \
+                or v.device != device or not v.is_contiguous():
+            raise InvalidArgumentError(
+                f"{name}: gamma/beta must be contiguous [{c}] vectors of "
+                f"one dtype (f32 or bf16) on {device}, got "
+                f"{tuple(v.shape)} {v.dtype} on {v.device} (outside the "
+                "kernel's contract)")
+    return _DTYPES[dt]
+
+
+def stats_f32(v: torch.Tensor) -> torch.Tensor:
+    """Given statistics as the kernels read them: f32 and contiguous (the
+    JAX kernels cast ``mean``/``var`` to f32 the same way; a [C] vector)."""
+    return v.detach().to(torch.float32).contiguous()
+
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_ARGTYPES = {
+    # x, g, b, res, y, mean, var, ps, pss; rows; c, tx, chunks;
+    # rows_per_chunk; grid_y; eps; relu, dtype, pdtype; stream
+    "p1t_fused_bn_train_fwd": [_P] * 9 + [_L, _I, _I, _I, _L, _I, _F,
+                                          _I, _I, _I, _P],
+    # x, mean, var, g, b, res, y; rows; c, tx, grid_y; eps; relu, dtype,
+    # pdtype; stream
+    "p1t_fused_bn_norm_fwd": [_P] * 7 + [_L, _I, _I, _I, _F, _I, _I, _I,
+                                         _P],
+}
+
+
+def _kernel(symbol):
+    fn = _fns.get(symbol)
+    if fn is None:
+        from .cuda import build
+        fn = build.function("fused_bn", symbol, _ARGTYPES[symbol])
+        _fns[symbol] = fn
+    return fn
+
+
+def _raise(symbol, rc, x2):
+    from .cuda import build
+    raise KernelLaunchError(
+        f"{symbol} launch failed: CUDA error {rc} "
+        f"({build.error_string('fused_bn', rc)}) at x={tuple(x2.shape)} "
+        f"{x2.dtype}")
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# launch wrappers (no autograd)
+
+
+def _train_fwd(x2, g, b, res, eps, act):
+    if x2.device.type == "cpu":
+        return fused_bn_train_ref(x2, g, b, eps, act, res)
+    check_rows("fused_bn_train", x2, res)
+    rows, c = (int(s) for s in x2.shape)
+    pdt = check_channels("fused_bn_train", c, x2.device, g, b)
+    tx, chunks, rpc, grid_y = plan(rows, c, x2.device)
+    y = torch.empty_like(x2)
+    mean = torch.empty(c, dtype=torch.float32, device=x2.device)
+    var = torch.empty_like(mean)
+    part = torch.empty(2, chunks, c, dtype=torch.float32, device=x2.device)
+    fn = _kernel("p1t_fused_bn_train_fwd")
+    with torch.cuda.device(x2.device):
+        rc = fn(x2.data_ptr(), g.data_ptr(), b.data_ptr(), _ptr(res),
+                y.data_ptr(), mean.data_ptr(), var.data_ptr(),
+                part[0].data_ptr(), part[1].data_ptr(), rows, c, tx, chunks,
+                rpc, grid_y, float(eps), int(act == "relu"),
+                _DTYPES[x2.dtype], pdt,
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        _raise("p1t_fused_bn_train_fwd", rc, x2)
+    fused_bn_train.launches += 1
+    return y, mean, var
+
+
+def _norm_fwd(x2, m, v, g, b, res, eps, act):
+    if x2.device.type == "cpu":
+        return fused_bn_norm_ref(x2, m, v, g, b, eps, act, res)
+    check_rows("fused_bn_norm", x2, res)
+    rows, c = (int(s) for s in x2.shape)
+    pdt = check_channels("fused_bn_norm", c, x2.device, g, b)
+    m32, v32 = stats_f32(m), stats_f32(v)
+    check_channels("fused_bn_norm", c, x2.device, m32, v32)
+    tx, _, _, grid_y = plan(rows, c, x2.device)
+    y = torch.empty_like(x2)
+    fn = _kernel("p1t_fused_bn_norm_fwd")
+    with torch.cuda.device(x2.device):
+        rc = fn(x2.data_ptr(), m32.data_ptr(), v32.data_ptr(), g.data_ptr(),
+                b.data_ptr(), _ptr(res), y.data_ptr(), rows, c, tx, grid_y,
+                float(eps), int(act == "relu"), _DTYPES[x2.dtype], pdt,
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        _raise("p1t_fused_bn_norm_fwd", rc, x2)
+    fused_bn_norm.launches += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# differentiable entries (the four custom VJPs of the JAX package, with
+# the residual optional in one Function each)
+
+
+def _stat_cotangent_terms(x2, mean, dmean, dvar, inv_count):
+    """Cotangents flowing INTO the batch-stat outputs, folded back into
+    dx: mean = sum(x)/n, var = sum(x^2)/n - mean^2. Running-stat
+    consumers detach the statistics, so on the training path autograd
+    hands None for both and this is skipped."""
+    xf = x2.float()
+    extra = torch.zeros_like(xf)
+    if dmean is not None:
+        extra = extra + dmean.float()[None, :]
+    if dvar is not None:
+        extra = extra + 2.0 * dvar.float()[None, :] * (xf - mean[None, :])
+    return extra * inv_count
+
+
+def _norm_stat_grads(g, var, dg, db, eps):
+    """Channel-sized cotangents of the given statistics: y depends on
+    mean only through the shift and on var only through rstd."""
+    gf = g.float()
+    rstd = torch.rsqrt(var.float() + eps)
+    dm = -gf * rstd * db
+    dv = -0.5 * gf * rstd * rstd * rstd * (dg / rstd)
+    return dm, dv
+
+
+class _BNTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, g, b, res, eps, act):
+        y, mean, var = _train_fwd(x2, g, b, res, eps, act)
+        # y feeds only the relu mask: identity never reads it
+        ctx.save_for_backward(x2, g, mean, var,
+                              y if act == "relu" else None)
+        ctx.eps, ctx.act = eps, act
+        ctx.res_dtype = None if res is None else res.dtype
+        ctx.set_materialize_grads(False)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, dmean, dvar):
+        from .fused_bn_bwd import train_bwd
+        x2, g, mean, var, y = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x2)
+        with_res = ctx.res_dtype is not None
+        outs = train_bwd(x2, g, mean, var, y, dy, ctx.eps, ctx.act,
+                         with_res=with_res)
+        dx, dg, db = outs[:3]
+        if dmean is not None or dvar is not None:
+            extra = _stat_cotangent_terms(x2, mean, dmean, dvar,
+                                          1.0 / x2.shape[0])
+            dx = (dx.float() + extra).to(x2.dtype)
+        dres = outs[3].to(ctx.res_dtype) if with_res else None
+        return dx, dg.to(g.dtype), db.to(g.dtype), dres, None, None
+
+
+class _BNNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, m, v, g, b, res, eps, act):
+        y = _norm_fwd(x2, m, v, g, b, res, eps, act)
+        ctx.save_for_backward(x2, m, v, g, y if act == "relu" else None)
+        ctx.eps, ctx.act = eps, act
+        ctx.res_dtype = None if res is None else res.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        from .fused_bn_bwd import norm_bwd
+        x2, m, v, g, y = ctx.saved_tensors
+        with_res = ctx.res_dtype is not None
+        outs = norm_bwd(x2, g, m, v, y, dy, ctx.eps, ctx.act,
+                        with_res=with_res)
+        dx, dg, db = outs[:3]
+        dm = dv = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dm, dv = _norm_stat_grads(g, v, dg, db, ctx.eps)
+            dm, dv = dm.to(m.dtype), dv.to(v.dtype)
+        dres = outs[3].to(ctx.res_dtype) if with_res else None
+        return (dx, dm, dv, dg.to(g.dtype), db.to(g.dtype), dres, None,
+                None)
+
+
+def fused_bn_train(x2, gamma, beta, epsilon, act="identity", residual=None):
+    """Training-mode fused batch norm over channels-last ``x2: [rows, C]``
+    (``residual`` the same shape, or None). Returns ``(y, batch_mean,
+    batch_var)``, the statistics f32 ``[C]``; differentiable in ``x2``,
+    ``gamma``, ``beta``, ``residual`` and through the statistics."""
+    _check_act(act)
+    return _BNTrain.apply(x2, gamma, beta, residual, float(epsilon), act)
+
+
+def fused_bn_norm(x2, mean, var, gamma, beta, epsilon, act="identity",
+                  residual=None):
+    """Normalize ``x2: [rows, C]`` with GIVEN per-channel statistics —
+    eval mode and ``use_global_stats``. ``mean``/``var`` stay
+    differentiable."""
+    _check_act(act)
+    return _BNNorm.apply(x2, mean, var, gamma, beta, residual,
+                         float(epsilon), act)
+
+
+fused_bn_train.launches = 0   # kernel launches; reset by chip_smoke.py
+fused_bn_norm.launches = 0

@@ -1,0 +1,160 @@
+"""Fused batch norm, backward: the hand-written CUDA kernels and their
+plain versions.
+
+Port of ``paddle1_tpu/ops/pallas/fused_bn_bwd.py`` (``_train_bwd_kernel``,
+``_norm_bwd_kernel``), in ``ops/cuda/fused_bn_bwd.cu``:
+
+* :func:`train_bwd` — batch statistics: dgamma = sum(dy * xhat),
+  dbeta = sum(dy), dx = gamma * rstd * (dy - dbeta/n - xhat * dgamma/n);
+* :func:`norm_bwd` — given statistics: the same sums and
+  dx = dy * gamma * rstd;
+
+each with the relu mask (dy where the forward output y > 0) and the
+residual's gradient (the masked dy) when asked. The ``fused_bn_bwd``
+flag picks the kernel (``auto``: CUDA tensors) or the plain version
+(:func:`train_bwd_ref`, :func:`norm_bwd_ref`: the JAX package's
+``*_xla`` arms); a CPU tensor always runs the plain version, a CUDA
+tensor under the flag launches the kernel or raises.
+
+``train_bwd.launches`` and ``norm_bwd.launches`` count calls that
+launched the kernel: ONE per call (a training call is three CUDA
+launches inside: partial sums, finalize, dx; a given-statistics call
+two: dx with partial sums, finalize).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.errors import KernelLaunchError
+from ..core.flags import flag_active
+from .fused_bn import (_DTYPES, check_channels, check_rows, plan,
+                       stats_f32, supported)
+
+__all__ = ["train_bwd", "norm_bwd", "train_bwd_ref", "norm_bwd_ref",
+           "supported"]
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_ARGTYPES = {
+    # x, g, mean, var, y, dy, dx, dres, dg, db, psg, psb; rows; c, tx,
+    # chunks; rows_per_chunk; grid_y; eps; relu, dtype, pdtype; stream
+    "p1t_fused_bn_bwd_train": [_P] * 12 + [_L, _I, _I, _I, _L, _I, _F,
+                                           _I, _I, _I, _P],
+    # as above without grid_y
+    "p1t_fused_bn_bwd_norm": [_P] * 12 + [_L, _I, _I, _I, _L, _F, _I, _I,
+                                          _I, _P],
+}
+_fns = {}
+
+
+def _masked(dy2, y2, act):
+    dy = dy2.float()
+    if act == "relu":
+        dy = dy * (y2 > 0).float()
+    return dy
+
+
+def train_bwd_ref(x2, g, mean, var, y2, dy2, eps, act, with_res=False):
+    """Plain training-mode backward (``train_bwd_xla``): ``(dx, dgamma,
+    dbeta[, dres])``, the sums f32."""
+    n = x2.shape[0]
+    dy = _masked(dy2, y2, act)
+    rstd = torch.rsqrt(var.float() + eps)
+    xhat = (x2.float() - mean.float()[None, :]) * rstd[None, :]
+    dg = (dy * xhat).sum(dim=0)
+    db = dy.sum(dim=0)
+    dx = (g.float() * rstd)[None, :] * (
+        dy - db[None, :] / n - xhat * dg[None, :] / n)
+    dx = dx.to(x2.dtype)
+    if with_res:
+        return dx, dg, db, dy.to(dy2.dtype)
+    return dx, dg, db
+
+
+def norm_bwd_ref(x2, g, mean, var, y2, dy2, eps, act, with_res=False):
+    """Plain given-statistics backward (``norm_bwd_xla``)."""
+    dy = _masked(dy2, y2, act)
+    rstd = torch.rsqrt(var.float() + eps)
+    xhat = (x2.float() - mean.float()[None, :]) * rstd[None, :]
+    dg = (dy * xhat).sum(dim=0)
+    db = dy.sum(dim=0)
+    dx = (dy * (g.float() * rstd)[None, :]).to(x2.dtype)
+    if with_res:
+        return dx, dg, db, dy.to(dy2.dtype)
+    return dx, dg, db
+
+
+def _kernel(symbol):
+    fn = _fns.get(symbol)
+    if fn is None:
+        from .cuda import build
+        fn = build.function("fused_bn_bwd", symbol, _ARGTYPES[symbol])
+        _fns[symbol] = fn
+    return fn
+
+
+def _launch(symbol, x2, g, mean, var, y2, dy2, eps, act, with_res):
+    """Check the contract, allocate the outputs and scratch, launch."""
+    relu = act == "relu"
+    check_rows(symbol, x2, dy2, y2 if relu else None)
+    rows, c = (int(s) for s in x2.shape)
+    pdt = check_channels(symbol, c, x2.device, g)
+    m32, v32 = stats_f32(mean), stats_f32(var)
+    check_channels(symbol, c, x2.device, m32, v32)
+    tx, chunks, rpc, grid_y = plan(rows, c, x2.device)
+    dx = torch.empty_like(x2)
+    dres = torch.empty_like(dy2) if with_res else None
+    sums = torch.empty(2, c, dtype=torch.float32, device=x2.device)
+    part = torch.empty(2, chunks, c, dtype=torch.float32, device=x2.device)
+    ptrs = (x2.data_ptr(), g.data_ptr(), m32.data_ptr(), v32.data_ptr(),
+            y2.data_ptr() if relu else 0, dy2.data_ptr(), dx.data_ptr(),
+            0 if dres is None else dres.data_ptr(), sums[0].data_ptr(),
+            sums[1].data_ptr(), part[0].data_ptr(), part[1].data_ptr())
+    grid = (grid_y,) if symbol == "p1t_fused_bn_bwd_train" else ()
+    fn = _kernel(symbol)
+    with torch.cuda.device(x2.device):
+        rc = fn(*ptrs, rows, c, tx, chunks, rpc, *grid, float(eps),
+                int(relu), _DTYPES[x2.dtype], pdt,
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        from .cuda import build
+        raise KernelLaunchError(
+            f"{symbol} launch failed: CUDA error {rc} "
+            f"({build.error_string('fused_bn_bwd', rc)}) at "
+            f"x={tuple(x2.shape)} {x2.dtype}")
+    outs = (dx, sums[0], sums[1])
+    return outs + (dres,) if with_res else outs
+
+
+def train_bwd(x2, g, mean, var, y2, dy2, eps, act, with_res=False):
+    """dx/dgamma/dbeta (+dresidual) of training-mode fused batch norm:
+    the kernel when ``fused_bn_bwd`` resolves active for a CUDA tensor,
+    else the plain version. ``y2`` is read only for ``act == "relu"``."""
+    if x2.device.type == "cpu" or not flag_active("fused_bn_bwd",
+                                                  x2.device):
+        return train_bwd_ref(x2, g, mean, var, y2, dy2, float(eps), act,
+                             with_res)
+    outs = _launch("p1t_fused_bn_bwd_train", x2, g, mean, var, y2, dy2,
+                   eps, act, with_res)
+    train_bwd.launches += 1
+    return outs
+
+
+def norm_bwd(x2, g, mean, var, y2, dy2, eps, act, with_res=False):
+    """dx/dgamma/dbeta (+dresidual) of given-statistics fused batch
+    norm; routed as :func:`train_bwd`."""
+    if x2.device.type == "cpu" or not flag_active("fused_bn_bwd",
+                                                  x2.device):
+        return norm_bwd_ref(x2, g, mean, var, y2, dy2, float(eps), act,
+                            with_res)
+    outs = _launch("p1t_fused_bn_bwd_norm", x2, g, mean, var, y2, dy2,
+                   eps, act, with_res)
+    norm_bwd.launches += 1
+    return outs
+
+
+train_bwd.launches = 0   # kernel launches; reset by chip_smoke.py
+norm_bwd.launches = 0

@@ -1,3 +1,3 @@
 """Optimizers of the port (``paddle1_tpu.optimizer`` subset)."""
 
-from .optimizer import Adam, AdamW, Optimizer  # noqa: F401
+from .optimizer import Adam, AdamW, Momentum, Optimizer  # noqa: F401

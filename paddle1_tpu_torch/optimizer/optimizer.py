@@ -1,5 +1,5 @@
-"""Optimizers (port of ``Optimizer``, ``Adam`` and ``AdamW`` from
-``paddle1_tpu/optimizer/optimizer.py``).
+"""Optimizers (port of ``Optimizer``, ``Momentum``, ``Adam`` and ``AdamW``
+from ``paddle1_tpu/optimizer/optimizer.py``).
 
 The Paddle constructor (``learning_rate``, ``parameters``,
 ``weight_decay``, ``grad_clip``) over torch parameters. Moments are f32
@@ -15,6 +15,9 @@ through ONE launch of the fused kernel per dtype group
 (``ops/fused_adam.py``), otherwise the plain per-tensor update runs. The
 bias corrections ``1 - beta^step`` are computed on the parameters' device
 from a device step counter, so no step count is baked into a launch.
+``Momentum`` follows ``Momentum._update`` (``optimizer.py:268-275``): the
+JAX package has no kernel for it, so it runs as PyTorch ``_foreach``
+ops, one group per device and dtype.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 from ..core.flags import flag_active
 from ..ops import fused_adam as fadam
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]
 
 
 class Optimizer:
@@ -132,6 +135,41 @@ class Optimizer:
                 if v is not None:
                     self._slots_for(p)[slot].copy_(
                         torch.as_tensor(v).to(torch.float32))
+
+
+class Momentum(Optimizer):
+    """Heavy-ball momentum: ``v = momentum * v + g``, then
+    ``p -= lr * v`` (or, with ``use_nesterov``, ``p -= lr * (g +
+    momentum * v)``); ``weight_decay`` is an L2 term added to the
+    gradient first. The velocity is f32."""
+
+    _slot_names = ("velocity",)
+
+    def __init__(self, learning_rate: float = 0.001, momentum: float = 0.9,
+                 parameters=None, use_nesterov: bool = False,
+                 weight_decay: Optional[float] = None,
+                 grad_clip: Optional[Callable] = None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._momentum = float(momentum)
+        self._nesterov = bool(use_nesterov)
+
+    def _update(self, params, grads, lr):
+        groups: Dict[Tuple[torch.device, torch.dtype], list] = {}
+        for p, g in zip(params, grads):
+            groups.setdefault((p.device, p.dtype), []).append((p, g))
+        for (_, dtype), pgs in groups.items():
+            ps = [p for p, _ in pgs]
+            gs = [g.to(dtype) for _, g in pgs]
+            if self._weight_decay:
+                gs = torch._foreach_add(gs, ps, alpha=self._weight_decay)
+            vs = [self._slots_for(p)["velocity"] for p in ps]
+            torch._foreach_mul_(vs, self._momentum)
+            torch._foreach_add_(vs, [g.float() for g in gs])
+            step = vs if dtype == torch.float32 else \
+                [v.to(dtype) for v in vs]
+            if self._nesterov:
+                step = torch._foreach_add(gs, step, alpha=self._momentum)
+            torch._foreach_add_(ps, step, alpha=-lr)
 
 
 class Adam(Optimizer):

@@ -1,0 +1,5 @@
+"""ResNet (``paddle1_tpu.vision.models`` subset)."""
+
+from .resnet import (BasicBlock, BottleneckBlock, ResNet,  # noqa: F401
+                     resnet18, resnet34, resnet50, resnet101, resnet152,
+                     wide_resnet50_2, wide_resnet101_2)

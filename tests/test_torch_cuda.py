@@ -11,7 +11,12 @@ kernels' wrappers: inputs outside a kernel's contract raise instead of
 running the plain version, and a bf16 KV pool under f32 queries runs the
 kernel and agrees with the plain version. For the training kernels
 (flash forward, its dK/dV and dQ passes, fused AdamW) they hold the same,
-and that a tiny BERT step on the card launches each of them.
+and that a tiny BERT step on the card launches each of them. For the
+fused batch-norm family (training and given-statistics forward, their
+backward passes) they hold each kernel to its plain version across the
+activation x residual matrix in f32 and bf16, that inputs outside the
+contract raise, and that tiny ResNet-18 train, eval and frozen-statistics
+steps launch the kernels once per batch norm.
 """
 
 import numpy as np
@@ -23,6 +28,8 @@ from paddle1_tpu_torch.nn import functional as F
 from paddle1_tpu_torch.ops import flash_attention as fa
 from paddle1_tpu_torch.ops import flash_attention_bwd as fb
 from paddle1_tpu_torch.ops import fused_adam as fad
+from paddle1_tpu_torch.ops import fused_bn as fbn
+from paddle1_tpu_torch.ops import fused_bn_bwd as fbb
 from paddle1_tpu_torch.ops import layer_norm as ln
 from paddle1_tpu_torch.ops import paged_attention as pa
 
@@ -198,3 +205,106 @@ def test_tiny_bert_step_on_the_card_launches_every_kernel(dev):
     # 2 LayerNorms per layer + embeddings + MLM head per forward
     assert got == [6, 6, 6, 3, 3 * 6]
     assert losses[-1] < losses[0] and all(np.isfinite(losses))
+
+
+# f32: sums over up to 4096 rows in another order; bf16: one rounding
+# step of the output (2^-7 relative) plus that
+BN_F32 = dict(atol=1e-4, rtol=1e-4)
+BN_BF16 = dict(atol=2e-2, rtol=2 ** -7)
+
+
+def _bn(dev, rows, c, dtype, seed=0):
+    g_ = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, device=dev, generator=g_)  # noqa
+    x = (rnd(rows, c) * 1.5 + 0.3).to(dtype)
+    return (x, rnd(c).to(dtype), rnd(c).to(dtype), rnd(rows, c).to(dtype),
+            rnd(c) * 0.2, rnd(c).abs() + 0.5, rnd(rows, c).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["identity", "relu"])
+@pytest.mark.parametrize("use_res", [False, True])
+@pytest.mark.parametrize("rows,c", [(4096, 64), (98, 2048)])
+def test_fused_bn_kernels_match_their_plain_versions(dev, dtype, act,
+                                                      use_res, rows, c):
+    x, g, b, res, m, v, dy = _bn(dev, rows, c, dtype)
+    r = res if use_res else None
+    tol = BN_F32 if dtype == torch.float32 else BN_BF16
+    close = lambda a, b_: torch.testing.assert_close(  # noqa: E731
+        a.float(), b_.float(), **tol)
+    before = (fbn.fused_bn_train.launches, fbn.fused_bn_norm.launches,
+              fbb.train_bwd.launches, fbb.norm_bwd.launches)
+    y, mean, var = fbn._train_fwd(x, g, b, r, 1e-5, act)
+    ry, rmean, rvar = fbn.fused_bn_train_ref(x, g, b, 1e-5, act, r)
+    close(y, ry)
+    torch.testing.assert_close(mean, rmean, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(var, rvar, atol=1e-5, rtol=1e-4)
+    got = fbb.train_bwd(x, g, mean, var, y, dy, 1e-5, act, use_res)
+    want = fbb.train_bwd_ref(x, g, mean, var, y, dy, 1e-5, act, use_res)
+    for a, b_ in zip(got, want):
+        close(a, b_)
+    yn = fbn._norm_fwd(x, m, v, g, b, r, 1e-5, act)
+    close(yn, fbn.fused_bn_norm_ref(x, m, v, g, b, 1e-5, act, r))
+    got = fbb.norm_bwd(x, g, m, v, yn, dy, 1e-5, act, use_res)
+    want = fbb.norm_bwd_ref(x, g, m, v, yn, dy, 1e-5, act, use_res)
+    for a, b_ in zip(got, want):
+        close(a, b_)
+    assert (fbn.fused_bn_train.launches, fbn.fused_bn_norm.launches,
+            fbb.train_bwd.launches, fbb.norm_bwd.launches) == tuple(
+                n + 1 for n in before)
+    # the reductions are deterministic: a repeat is bit-identical
+    assert torch.equal(fbn._train_fwd(x, g, b, r, 1e-5, act)[1], mean)
+
+
+@pytest.mark.parametrize("case", ["channels", "dtype", "strided",
+                                  "mixed_affine"])
+def test_fused_bn_outside_the_contract_raises_on_the_card(dev, case):
+    x, g, b, _, _, _, _ = _bn(dev, 64, 16, torch.float32)
+    if case == "channels":
+        x, g, b = x[:, :12].contiguous(), g[:12], b[:12]
+    elif case == "dtype":
+        x = x.half()
+    elif case == "strided":
+        x = torch.randn(16, 64, device=dev).t()      # [64, 16], not packed
+    else:
+        g = g.to(torch.bfloat16)
+    with pytest.raises(InvalidArgumentError, match="contract"):
+        fbn.fused_bn_train(x, g, b, 1e-5)
+
+
+def test_tiny_resnet_steps_launch_every_bn_kernel(dev):
+    from paddle1_tpu_torch.distributed import ParallelEngine
+    from paddle1_tpu_torch.optimizer import Momentum
+    from paddle1_tpu_torch.vision.models import resnet18
+    torch.manual_seed(0)
+    m = resnet18(num_classes=10)
+    eng = ParallelEngine(m, Momentum(learning_rate=1e-3,
+                                     parameters=m.parameters()),
+                         lambda mm, b: F.cross_entropy(mm(b["x"]), b["y"]),
+                         amp_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    batch = {"x": rng.standard_normal((4, 3, 32, 32)).astype(np.float32),
+             "y": rng.integers(0, 10, (4,))}
+    counts = lambda: np.array([fbn.fused_bn_train.launches,  # noqa: E731
+                               fbb.train_bwd.launches,
+                               fbn.fused_bn_norm.launches,
+                               fbb.norm_bwd.launches])
+    c0 = counts()
+    losses = [float(eng.step(batch)) for _ in range(3)]
+    c1 = counts()
+    m.eval()
+    with torch.no_grad():
+        out = m(torch.from_numpy(batch["x"]).to(dev))
+    c2 = counts()
+    m.train()
+    for mod in m.modules():
+        if hasattr(mod, "_use_global_stats"):
+            mod._use_global_stats = True
+    frozen = float(eng.step(batch))
+    c3 = counts()
+    # ResNet-18 has 20 batch norms
+    assert list(c1 - c0) == [60, 60, 0, 0]
+    assert list(c2 - c1) == [0, 0, 20, 0]
+    assert list(c3 - c2) == [0, 0, 20, 20]
+    assert all(np.isfinite(losses + [frozen])) and losses[-1] < losses[0]
+    assert out.shape == (4, 10) and bool(torch.isfinite(out).all())

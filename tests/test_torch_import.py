@@ -28,6 +28,10 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "paddle1_tpu_torch.ops.cuda.build, "
             "paddle1_tpu_torch.ops.flash_attention_bwd, "
             "paddle1_tpu_torch.ops.fused_adam, "
+            "paddle1_tpu_torch.ops.fused_bn, "
+            "paddle1_tpu_torch.ops.fused_bn_bwd, "
+            "paddle1_tpu_torch.vision.models.resnet, "
+            "paddle1_tpu_torch.nn.functional.pooling, "
             "paddle1_tpu_torch.text.models.bert, "
             "paddle1_tpu_torch.optimizer.optimizer, "
             "paddle1_tpu_torch.distributed.parallel_engine, "
@@ -98,3 +102,28 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                        timeout=120)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_conv_flags_default_to_the_card():
+    from paddle1_tpu_torch.core import flags
+    for name in ("fused_bn", "fused_bn_bwd", "conv_nhwc"):
+        assert flags.flag(name) == "auto"
+        assert flags.flag_active(name, torch.device("cuda", 0))
+        assert not flags.flag_active(name, torch.device("cpu"))
+    # the JAX package's 4 MiB crossover is a TPU measurement: on the
+    # card every supported shape takes the kernel
+    assert flags.flag("fused_bn_auto_mb") == 0.0
+    from paddle1_tpu_torch.nn.functional.norm import fused_bn_active
+    assert fused_bn_active((8, 16), torch.bfloat16, torch.device("cuda", 0))
+    assert not fused_bn_active((8, 16), torch.bfloat16, torch.device("cpu"))
+    assert not fused_bn_active((8, 12), torch.float32,
+                               torch.device("cuda", 0))   # C % 8
+
+
+def test_resnet_defaults_to_the_card(monkeypatch):
+    from paddle1_tpu_torch.vision.models import resnet18
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceUnavailableError):
+        resnet18(num_classes=10)
+    m = resnet18(num_classes=10, device="cpu")
+    assert all(t.device.type == "cpu" for t in m.state_dict().values())

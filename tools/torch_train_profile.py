@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
-"""Where a BERT-base pretraining step of the PyTorch port spends its time,
-on one card.
+"""Where a training step of the PyTorch port spends its time, on one card.
 
-Builds the training path of ``chip_smoke.py`` (``ParallelEngine`` over
+``--model bert`` (the default) builds the BERT training path of
+``chip_smoke.py`` (``ParallelEngine`` over
 ``BertForPretraining(bert_base())`` + AdamW, bf16 with f32 masters, batch
-``--batch`` x seq ``--seq``, seeded random weights, ``bench.py``'s batch),
-runs ``--warmup`` steps, then:
+``--batch`` x seq ``--seq``, seeded random weights, ``bench.py``'s batch);
+``--model resnet50`` its ResNet-50 path (``resnet50()`` + Momentum(1e-3,
+0.9), bf16, batch ``--batch`` (default 32) x 3 x 224 x 224 from
+``benches.py:91-162``, two seeded batches staged on the card and cycled).
+It runs ``--warmup`` steps, then:
 
 * times ``--steps`` steps on the host clock, ending in one loss readback
   (step ms = the window over the steps);
 * profiles ``--profile-steps`` more with ``torch.profiler`` (CPU + CUDA
   activities) and reports the device's busy time per step (sum of kernel
-  times), its idle share, the time per step of the port's own kernels, of
-  the library's matrix products and of everything else, and the kernels
-  by total device time.
+  times), its idle share, the time per step of the port's own kernels
+  (for ResNet-50, the fused batch-norm family and its share of the busy
+  time), of the library's matrix products and convolutions and of
+  everything else, and the kernels by total device time.
 
 Prints one JSON object.
 
-    python3 tools/torch_train_profile.py [--steps 10] [--profile-steps 3]
+    python3 tools/torch_train_profile.py [--model resnet50] [--steps 10]
 """
 
 from __future__ import annotations
@@ -35,49 +39,32 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-OUR_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
-               "flash_bwd_dq_kernel", "adam_kernel", "layer_norm_fwd_kernel")
+OUR_KERNELS = {
+    "bert": ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+             "flash_bwd_dq_kernel", "adam_kernel", "layer_norm_fwd_kernel"),
+    # ops/cuda/fused_bn.cu, fused_bn_bwd.cu (finalize_kernel serves both)
+    "resnet50": ("stats_partial_kernel", "normalize_kernel",
+                 "train_partial_kernel", "train_dx_kernel",
+                 "norm_bwd_kernel", "finalize_kernel"),
+}
 
 
 def _is_gemm(name: str) -> bool:
-    """cuBLAS/CUTLASS matrix-product kernels (``nvjet`` is cuBLAS's
-    Hopper family)."""
+    """cuBLAS/CUTLASS matrix-product and cuDNN convolution kernels
+    (``nvjet`` is cuBLAS's Hopper family; cuDNN's convolutions run as
+    implicit GEMMs: ``xmma``/``cutlass`` kernels named for their
+    ``fprop``/``dgrad``/``wgrad`` pass)."""
     low = name.lower()
-    return any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass"))
+    return any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass",
+                                  "fprop", "dgrad", "wgrad"))
 
 
-def _kernel_times(prof):
-    """``{kernel name: (total us, calls)}`` over the device-side kernel
-    events of a profile (op rows, which also carry their kernels' device
-    time, are left out so nothing is counted twice)."""
-    from torch.autograd import DeviceType
-    out = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us, n = out.get(e.name, (0.0, 0))
-        out[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    return out
-
-
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=128)
-    ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--warmup", type=int, default=2)
-    ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--profile-steps", type=int, default=3)
-    ap.add_argument("--seed", type=int, default=1234)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("torch_train_profile: no CUDA card", file=sys.stderr)
-        return 2
+def _bert(args, dev):
     from paddle1_tpu_torch.distributed import ParallelEngine
     from paddle1_tpu_torch.optimizer import AdamW
     from paddle1_tpu_torch.text.models import (BertForPretraining,
                                                BertPretrainingCriterion,
                                                bert_base)
-    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(args.seed)
     model = BertForPretraining(bert_base(hidden_dropout_prob=0.0,
                                          attention_probs_dropout_prob=0.0,
@@ -97,12 +84,71 @@ def main() -> int:
              "mlm": rng.integers(0, v, (args.batch, args.seq)).astype(
                  np.int32),
              "nsp": rng.integers(0, 2, (args.batch,)).astype(np.int32)}
+    return lambda: eng.step(batch), {"seq_len": args.seq}
+
+
+def _resnet50(args, dev):
+    from paddle1_tpu_torch.distributed import ParallelEngine
+    from paddle1_tpu_torch.nn import functional as F
+    from paddle1_tpu_torch.optimizer import Momentum
+    from paddle1_tpu_torch.vision.models import resnet50
+    model = resnet50(generator=torch.Generator().manual_seed(args.seed))
+    eng = ParallelEngine(model, Momentum(learning_rate=1e-3, momentum=0.9,
+                                         parameters=model.parameters()),
+                         lambda m, b: F.cross_entropy(m(b["x"]), b["y"]),
+                         amp_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    staged = [{"x": torch.from_numpy(rng.standard_normal(
+                   (args.batch, 3, 224, 224)).astype(np.float32)).to(dev),
+               "y": torch.from_numpy(rng.integers(
+                   0, 1000, (args.batch,))).to(dev)} for _ in range(2)]
+    turn = [0]
+
+    def step():
+        turn[0] += 1
+        return eng.step(staged[turn[0] % 2])
+    return step, {"img": 224}
+
+
+def _kernel_times(prof):
+    """``{kernel name: (total us, calls)}`` over the device-side kernel
+    events of a profile (op rows, which also carry their kernels' device
+    time, are left out so nothing is counted twice)."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us, n = out.get(e.name, (0.0, 0))
+        out[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
+    ap.add_argument("--model", choices=("bert", "resnet50"), default="bert")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default: 128 (bert), 32 (resnet50)")
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--profile-steps", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=1234)
+    args = ap.parse_args()
+    if args.batch is None:
+        args.batch = 128 if args.model == "bert" else 32
+    if not torch.cuda.is_available():
+        print("torch_train_profile: no CUDA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    step, shape = (_bert if args.model == "bert" else _resnet50)(args, dev)
     for _ in range(args.warmup):
-        float(eng.step(batch))
+        float(step())
 
     t0 = time.perf_counter()
     for _ in range(args.steps):
-        loss = eng.step(batch)
+        loss = step()
     float(loss)
     step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
@@ -111,7 +157,7 @@ def main() -> int:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.profile_steps):
-            loss = eng.step(batch)
+            loss = step()
         float(loss)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
@@ -121,14 +167,15 @@ def main() -> int:
     busy_ms = sum(k[1] for k in kernels) / 1e3 / n if kernels else None
     prof_step_ms = prof_wall_ms / n
     ours = {name: sum(k[1] for k in kernels if name in k[0]) / 1e3 / n
-            for name in OUR_KERNELS}
+            for name in OUR_KERNELS[args.model]}
     gemm = sum(k[1] for k in kernels if _is_gemm(k[0])) / 1e3 / n
     result = {
         "card": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60, check=True).stdout.strip().splitlines()[0],
-        "batch": args.batch, "seq_len": args.seq, "amp": "bfloat16",
+        "model": args.model, "batch": args.batch, **shape,
+        "amp": "bfloat16",
         "step_ms": step_ms, "samples_per_s": args.batch / step_ms * 1e3,
         "loss": float(loss),
         "profiled_step_ms": prof_step_ms,
@@ -140,8 +187,10 @@ def main() -> int:
                                        else 1.0 - busy_ms / step_ms),
         "kernel_launches_per_step": (sum(k[2] for k in kernels) / n
                                      if kernels else None),
-        "gemm_ms_per_step": gemm,
+        "gemm_and_conv_ms_per_step": gemm,
         "our_kernels_ms_per_step": ours,
+        "our_kernels_share_of_busy": (None if not busy_ms
+                                      else sum(ours.values()) / busy_ms),
         "other_ms_per_step": (None if busy_ms is None
                               else busy_ms - gemm - sum(ours.values())),
         "top_kernels": [{"name": k[0][:120], "ms_per_step": k[1] / 1e3 / n,
