@@ -54,8 +54,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``[25088, 512]``, ``[1568, 2048]``: the stem, layer 2 and layer 4 at
    batch 32), in f32 and bf16, over activation {identity, relu} x
    residual {none, given}; timed (bf16, identity, the main path's case)
-   beside their plain versions, ``F.batch_norm`` (cuDNN) on a
-   channels-last input and their bounds.
+   beside their plain versions, ``F.batch_norm`` on a channels-last
+   input (its forward, and its backward alone, whichever backend PyTorch
+   picks; printed) and their bounds.
 9. **ResNet-50 (the third main path).** ``ParallelEngine`` over
    ``resnet50()`` + ``Momentum(1e-3, 0.9)`` in bf16 at batch 32 x 3 x
    224 x 224 (``benches.py:91-162``, seeded weights, two batches staged
@@ -66,12 +67,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``norm_bwd``), the counters zeroed just before and read just after
    each. The loss must be finite and falling. Prints step ms, samples/s,
    MFU (``benches.py:153``'s FLOPs) and peak memory.
-10. **ResNet-50 reference check.** Full width, f32, batch 8 x 3 x 64 x 64:
-    three steps on the kernel path and three on the plain path (the
-    batch-norm flags ``never``) from identical weights, each held to a
-    float64 run of the plain path: the first losses agree to 1e-4, and
-    after three steps the kernel path's parameters and running statistics
-    are no farther from the float64 ones than twice the plain path's.
+10. **ResNet-50 reference check.** Full width, f32, the kernel path
+    against the plain path (the batch-norm flags ``never``) from identical
+    weights. At full depth, batch 8 x 3 x 224 x 224, the first step: the
+    losses agree to 1e-4 and the kernel path's gradients are no farther
+    from float64 than twice the plain path's (the f32 gradient at full
+    depth is ill-conditioned: the plain path's own is percents from
+    float64, printed). With the depth cut to one bottleneck per stage,
+    batch 32 x 3 x 64 x 64: the first-step gradients agree to 1e-3 of
+    each parameter's float64 gradient, and after three Momentum steps the
+    losses, parameters and running statistics agree to 1e-4.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -126,10 +131,15 @@ BN_SHAPES = ((401408, 64), (25088, 512), (1568, 2048))
 # another order: relative 1e-4, with an absolute floor of 1e-5 * sqrt(rows)
 # for sums that cancel to near zero
 BN_ABS, BN_STAT_RTOL, BN_STAT_FLOOR = 5e-5, 1e-4, 1e-5
-# ResNet-50 reference check (f32, 3 steps, against a float64 run): the
-# kernel path may be at most this many times farther from float64 than
-# the plain path (see resnet_reference_check)
-RN_REF_FACTOR = 2.0
+# ResNet-50 reference check (f32, kernel path against plain path; see
+# resnet_reference_check): full depth, first step, the kernel path's
+# gradients at most RN_F64_FACTOR times as far from float64 as the plain
+# path's; depth cut to one bottleneck per stage, first-step gradients
+# within RN_GRAD_TOL of each parameter's float64 gradient norm, and
+# REF_STEPS steps within REF_TOL
+RN_REF_FULL = {"batch": 8, "img": 224}
+RN_REF_CUT = {"batch": 32, "img": 64, "blocks": 1}
+RN_F64_FACTOR, RN_GRAD_TOL = 2.0, 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -1128,8 +1138,8 @@ BN_FLOPS = {"fused_bn_train": 7.0, "fused_bn_norm": 4.0,
 def bn_timing(dev):
     """Time the four kernels at the three shapes in bf16 (identity, no
     residual: every batch norm of the main path), over 4 input sets in
-    turn, beside their plain versions, F.batch_norm (cuDNN) on the same
-    data as a channels-last [N, C, H, W] tensor, and their bounds."""
+    turn, beside their plain versions, F.batch_norm on the same data as
+    a channels-last [N, C, H, W] tensor, and their bounds."""
     from paddle1_tpu_torch.ops import fused_bn as fbn
     from paddle1_tpu_torch.ops import fused_bn_bwd as fbb
     tbf = torch.nn.functional.batch_norm
@@ -1166,7 +1176,7 @@ def bn_timing(dev):
             lambda s=s: fbb.norm_bwd_ref(s[0], s[1], s[4], s[5], None, s[6],
                                          eps, "identity") for s in sets])
         # the library: the same rows as [N, C, H, W] channels-last (N = 32
-        # images, H = W), f32 affine and running statistics as cuDNN wants
+        # images, H = W), f32 affine and running statistics
         hw = rows // RN_BATCH
         side = int(round(hw ** 0.5))
         check(side * side * RN_BATCH == rows, f"{rows} rows are not "
@@ -1183,29 +1193,44 @@ def bn_timing(dev):
         t["library_eval_fwd"] = graph_time_ms([
             lambda s=s: tbf(s[0], s[3], s[4], s[1], s[2], False, 0.1, eps)
             for s in lib])
-        leaves = [(s[0].detach().clone().requires_grad_(),
-                   s[1].clone().requires_grad_(),
-                   s[2].clone().requires_grad_()) for s in lib]
-        turn = [0]
-
-        def lib_fwd_bwd(training):
-            i = turn[0] = (turn[0] + 1) % len(lib)
-            xl, gl, bl = leaves[i]
-            y = tbf(xl, lib[i][3], lib[i][4], gl, bl, training, 0.1, eps)
-            torch.autograd.grad(y, (xl, gl, bl), lib[i][5])
-        t["library_train_fwd_bwd"] = event_time_ms(lambda: lib_fwd_bwd(True))
-        t["library_eval_fwd_bwd"] = event_time_ms(
-            lambda: lib_fwd_bwd(False))
+        # the library's backward alone: the op F.batch_norm's autograd
+        # calls (_batch_norm_impl_index_backward, which dispatches to the
+        # backend the forward chose: 0 native, 1 cuDNN) on the saved
+        # outputs of its forward, checked against autograd once
+        aten = torch.ops.aten
+        backend = {}
+        for mode, training in (("train", True), ("eval", False)):
+            saved = [aten._batch_norm_impl_index(
+                s[0], s[1], s[2], s[3].clone(), s[4].clone(), training, 0.1,
+                eps, True) for s in lib]
+            bwd = [lambda s=s, f=f: aten._batch_norm_impl_index_backward(
+                f[4], s[0], s[5], s[1], s[3], s[4], f[1], f[2], training,
+                eps, [True, True, True], f[3]) for s, f in zip(lib, saved)]
+            xl, gl, bl = (v.detach().clone().requires_grad_()
+                          for v in lib[0][:3])
+            want = torch.autograd.grad(
+                tbf(xl, lib[0][3].clone(), lib[0][4].clone(), gl, bl,
+                    training, 0.1, eps), (xl, gl, bl), lib[0][5])
+            got = bwd[0]()
+            for a, w in zip(got, want):
+                check(torch.allclose(a.float(), w.float(), rtol=1e-2,
+                                     atol=1e-2),
+                      f"the library's {mode} backward differs from "
+                      "F.batch_norm's autograd")
+            backend[mode] = {0: "native", 1: "cuDNN"}.get(saved[0][4],
+                                                          str(saved[0][4]))
+            t[f"library_{mode}_bwd"] = graph_time_ms(bwd)
+            del saved, bwd, got, want, xl, gl, bl
         lib_for = {"fused_bn_train": ("library_train_fwd", "F.batch_norm "
                                       "training forward"),
                    "fused_bn_norm": ("library_eval_fwd", "F.batch_norm "
                                      "eval forward"),
-                   "fused_bn_train_bwd": ("library_train_fwd_bwd",
-                                          "F.batch_norm training forward"
-                                          " + backward"),
-                   "fused_bn_norm_bwd": ("library_eval_fwd_bwd",
-                                         "F.batch_norm eval forward + "
-                                         "backward")}
+                   "fused_bn_train_bwd": ("library_train_bwd",
+                                          "F.batch_norm's training backward"
+                                          f" alone ({backend['train']})"),
+                   "fused_bn_norm_bwd": ("library_eval_bwd",
+                                         "F.batch_norm's eval backward "
+                                         f"alone ({backend['eval']})")}
         for name in out:
             need, moved = bn_bytes(name, rows, c, 2)
             b_ms, by = bound(need, BN_FLOPS[name] * rows * c,
@@ -1222,7 +1247,7 @@ def bn_timing(dev):
                 f"{t[name + '_plain']:.5f} ms, library ({cover}) "
                 f"{t[lk]:.5f} ms, bound {b_ms:.5f} ms ({by}; the design "
                 f"moves {moved / need:.2f}x the compulsory bytes)")
-        del sets, fwd, lib, leaves
+        del sets, fwd, lib
         torch.cuda.empty_cache()
     return out
 
@@ -1346,83 +1371,176 @@ def resnet_phase(dev):
     return summary
 
 
-def resnet_reference_check(dev):
-    """ResNet-50 at full width in f32, batch 8 x 3 x 64 x 64: REF_STEPS
-    Momentum steps on the kernel path against REF_STEPS on the plain path
-    (``fused_bn``/``fused_bn_bwd`` never: the plain batch-norm arm) from
-    identical weights, both held to a float64 run of the plain path.
+def rn_f64_loss_fn(m, b):
+    # plain PyTorch float64 throughout, the loss included
+    return torch.nn.functional.cross_entropy(m(b["x"]), b["y"])
 
-    A ResNet-50 step from this random init is ill-conditioned: the
-    first step's gradients of either f32 arm differ from float64 by
-    percents, and the next steps' losses swing with them (all three runs
-    print theirs). So the first loss, a forward from identical weights,
-    is held to REF_TOL, and after three steps the kernel path's distance
-    to the float64 parameters and running statistics (global norms) must
-    be within RN_REF_FACTOR times the plain path's: the kernel path is as
-    close to exact arithmetic as the plain path is."""
+
+def rn_first_grads(model, batch, loss_fn):
+    """Loss and float64 copies of every parameter's gradient of one
+    eager training-mode forward and backward (the model's running
+    statistics move: callers pass a copy)."""
+    loss = loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return float(loss.detach()), [g.double() for g in grads]
+
+
+def rn_grad_gaps(model, batch):
+    """First-step gradients of ``model`` (f32) on the kernel path, on the
+    plain path twice and in float64 (the plain path): per parameter
+    ``|g_a - g_b| / |g_f64|``, the worst over the parameters of each
+    pair, and that parameter's name."""
     import copy
     from paddle1_tpu_torch.core.flags import flags_guard
+    names = [n for n, _ in model.named_parameters()]
+    runs = {"kernel": rn_first_grads(copy.deepcopy(model), batch,
+                                     rn_loss_fn)}
+    with flags_guard(fused_bn="never", fused_bn_bwd="never"):
+        for k in ("plain", "plain_again"):
+            runs[k] = rn_first_grads(copy.deepcopy(model), batch, rn_loss_fn)
+        with flags_guard(conv_nhwc="never"):
+            exact = {"x": batch["x"].double(), "y": batch["y"]}
+            runs["f64"] = rn_first_grads(copy.deepcopy(model).double(),
+                                         exact, rn_f64_loss_fn)
+    ref = runs["f64"][1]
+    gaps = {}
+    for a, b in (("kernel", "plain"), ("kernel", "f64"), ("plain", "f64"),
+                 ("plain", "plain_again")):
+        rel = [float((ga - gb).norm() / gr.norm().clamp_min(1e-30))
+               for ga, gb, gr in zip(runs[a][1], runs[b][1], ref)]
+        i = int(np.argmax(rel))
+        gaps[f"{a}_vs_{b}"] = {"max": rel[i], "param": names[i],
+                               "median": float(np.median(rel))}
+    return {"losses": {k: v[0] for k, v in runs.items()}, "gaps": gaps}
+
+
+def rn_engine_steps(model, batch, steps):
+    """``steps`` Momentum steps of ``model`` through ParallelEngine (f32,
+    no amp); returns the losses."""
     from paddle1_tpu_torch.distributed import ParallelEngine
     from paddle1_tpu_torch.optimizer import Momentum
-    from paddle1_tpu_torch.vision.models import resnet50
-    gen = torch.Generator().manual_seed(SEED + 8)
-    m_kernel = resnet50(generator=gen)
-    m_plain = copy.deepcopy(m_kernel)
-    m_exact = copy.deepcopy(m_kernel).double()
-    rng = np.random.default_rng(SEED + 8)
-    x = torch.from_numpy(rng.standard_normal((8, 3, 64, 64))).to(dev)
-    y = torch.from_numpy(rng.integers(0, 1000, (8,))).to(dev)
-    counters = bn_counters()
+    eng = ParallelEngine(model, Momentum(learning_rate=RN_LR, momentum=0.9,
+                                         parameters=model.parameters()),
+                         rn_loss_fn)
+    return [float(eng.step(batch)) for _ in range(steps)]
 
-    def run(model, dtype, loss_fn):
-        eng = ParallelEngine(model, Momentum(learning_rate=RN_LR,
-                                             momentum=0.9,
-                                             parameters=model.parameters()),
-                             loss_fn)
-        batch = {"x": x.to(dtype), "y": y}
-        return [float(eng.step(batch)) for _ in range(REF_STEPS)]
-    before = bn_launches(counters)
-    lk = run(m_kernel, torch.float32, rn_loss_fn)
-    mid = bn_launches(counters)
-    with flags_guard(fused_bn="never", fused_bn_bwd="never"):
-        lp = run(m_plain, torch.float32, rn_loss_fn)
-        with flags_guard(conv_nhwc="never"):
-            # plain PyTorch float64 throughout, the loss included
-            le = run(m_exact, torch.float64, lambda m, b: (
-                torch.nn.functional.cross_entropy(m(b["x"]), b["y"])))
-    after = bn_launches(counters)
-    for k in ("fused_bn_train", "fused_bn_train_bwd"):
-        check(mid[k] - before[k] == RN_BNS * REF_STEPS,
-              f"the kernel path launched {k} {mid[k] - before[k]} times")
-    check(after == mid, "the plain paths launched a kernel")
-    first_err = abs(lk[0] - lp[0])
-    check(first_err <= REF_TOL and abs(lk[0] - le[0]) <= REF_TOL,
-          f"first losses differ: kernel {lk[0]}, plain {lp[0]}, float64 "
-          f"{le[0]}")
-    sk, sp, se = (m.state_dict() for m in (m_kernel, m_plain, m_exact))
-    dist = {}
-    for kind in ("param", "running_stat"):
-        keys = [k for k in se if k.endswith(("_mean", "_variance"))
-                == (kind == "running_stat")]
-        norm = lambda a, b: float(sum(  # noqa: E731
-            float((a[k].double() - b[k].double()).norm()) ** 2
-            for k in keys)) ** 0.5
-        dist[kind] = {"kernel_to_f64": norm(sk, se),
-                      "plain_to_f64": norm(sp, se),
-                      "kernel_to_plain": norm(sk, sp)}
-        d = dist[kind]
-        check(d["kernel_to_f64"] <= RN_REF_FACTOR * d["plain_to_f64"],
-              f"{kind}s: the kernel path is {d['kernel_to_f64']} from "
-              f"float64, the plain path {d['plain_to_f64']}")
-    zero(counters)
-    out = {"resnet_reference": {"dtype": "float32 vs float64", "batch": 8,
-                                "img": 64, "steps": REF_STEPS,
-                                "losses_kernel": lk, "losses_plain": lp,
-                                "losses_f64": le,
-                                "first_loss_err": first_err,
-                                "distances": dist}}
-    log(json.dumps(out))
+
+def resnet_reference_readings(dev, batch, img, blocks=None, steps=0):
+    """ResNet-50 at full width in f32 (``blocks``: the depth cut to the
+    first blocks of each stage), batch ``batch`` x 3 x ``img`` x ``img``,
+    seeded weights and data, cuDNN deterministic:
+
+    * ``grads``: the first step's gradients on the kernel path, the plain
+      path (``fused_bn``/``fused_bn_bwd`` never: the plain batch-norm arm),
+      a repeat of the plain path and float64 (:func:`rn_grad_gaps`);
+    * with ``steps``: that many Momentum steps on the kernel path and on
+      the plain path from identical weights: the losses, and the largest
+      differences of the parameters and of the running statistics after
+      the last step, beside the largest move of a parameter;
+    * the kernel launches of the kernel path's steps and the plain path's."""
+    import copy
+    from paddle1_tpu_torch.core.flags import flags_guard
+    from paddle1_tpu_torch.vision.models import resnet50
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    counters = bn_counters()
+    try:
+        m_kernel = resnet50(device=dev,
+                            generator=torch.Generator().manual_seed(SEED + 8))
+        if blocks is not None:
+            for i in range(1, 5):
+                name = f"layer{i}"
+                setattr(m_kernel, name, getattr(m_kernel, name)[:blocks])
+        m_plain = copy.deepcopy(m_kernel)
+        init = {k: v.detach().clone()
+                for k, v in m_kernel.state_dict().items()}
+        rng = np.random.default_rng(SEED + 8)
+        data = {"x": torch.from_numpy(rng.standard_normal(
+                    (batch, 3, img, img)).astype(np.float32)).to(dev),
+                "y": torch.from_numpy(rng.integers(
+                    0, 1000, (batch,))).to(dev)}
+        out = {"dtype": "float32", "blocks_per_stage": blocks,
+               "batch_norms": sum(k.endswith("._mean") for k in init),
+               "batch": batch, "img": img, "steps": steps,
+               "grads": rn_grad_gaps(m_kernel, data)}
+        before = bn_launches(counters)
+        out["losses_kernel"] = rn_engine_steps(m_kernel, data, steps)
+        mid = bn_launches(counters)
+        with flags_guard(fused_bn="never", fused_bn_bwd="never"):
+            out["losses_plain"] = rn_engine_steps(m_plain, data, steps)
+        after = bn_launches(counters)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    out["launches_kernel"] = {k: mid[k] - before[k] for k in mid}
+    out["launches_plain"] = {k: after[k] - mid[k] for k in mid}
+    if steps:
+        sk, sp = m_kernel.state_dict(), m_plain.state_dict()
+        stats = [k for k in sk if k.endswith(("_mean", "_variance"))]
+        params = [k for k in sk if k not in stats]
+
+        def max_diff(a, b, keys):
+            return max(float((a[k].double() - b[k].double()).abs().max())
+                       for k in keys)
+        out.update(max_loss_err=max(abs(a - b) for a, b in zip(
+                       out["losses_kernel"], out["losses_plain"])),
+                   max_param_err=max_diff(sk, sp, params),
+                   max_running_stat_err=max_diff(sk, sp, stats),
+                   max_param_move=max_diff(sp, init, params))
     return out
+
+
+def resnet_reference_check(dev):
+    """The kernel path against the plain path in f32, in two parts.
+
+    1. Full depth (53 batch norms), batch 8 x 224 x 224, the first step:
+       the losses agree to REF_TOL, and the kernel path's gradients are
+       no farther from float64 than RN_F64_FACTOR times the plain path's
+       (worst parameter and median, each relative to the parameter's
+       float64 gradient). At full depth from this random init the
+       gradient is ill-conditioned: the plain path's own f32 gradients
+       differ from float64 by percents (printed), so the two f32 paths
+       cannot agree more closely than that, and steps taken on such
+       gradients part further.
+    2. Full width, depth cut to one bottleneck per stage (17 batch norms),
+       batch 32 x 64 x 64, where f32 gradients are well-conditioned: each
+       parameter's first-step gradient agrees to RN_GRAD_TOL of its
+       float64 norm, and after REF_STEPS Momentum steps through
+       ParallelEngine the losses, the parameters and the running
+       statistics agree to REF_TOL."""
+    full = resnet_reference_readings(dev, **RN_REF_FULL)
+    cut = resnet_reference_readings(dev, steps=REF_STEPS, **RN_REF_CUT)
+    log(json.dumps({"resnet_reference": {"full_depth": full,
+                                         "depth_cut": cut}}))
+    want = {"fused_bn_train": cut["batch_norms"] * REF_STEPS,
+            "fused_bn_norm": 0,
+            "fused_bn_train_bwd": cut["batch_norms"] * REF_STEPS,
+            "fused_bn_norm_bwd": 0}
+    check(cut["launches_kernel"] == want, f"the kernel path launched "
+          f"{cut['launches_kernel']}, want {want}")
+    for r in (full, cut):
+        check(not any(r["launches_plain"].values()),
+              f"the plain path launched {r['launches_plain']}")
+        check(r["grads"]["gaps"]["plain_vs_plain_again"]["max"] == 0.0,
+              "the plain path does not repeat bit for bit")
+    losses = full["grads"]["losses"]
+    check(abs(losses["kernel"] - losses["plain"]) <= REF_TOL,
+          f"full depth: first losses differ: {losses}")
+    gaps = full["grads"]["gaps"]
+    for stat in ("max", "median"):
+        k, p = gaps["kernel_vs_f64"][stat], gaps["plain_vs_f64"][stat]
+        check(k <= RN_F64_FACTOR * p, f"full depth: the kernel path's "
+              f"gradients are {k} ({stat}) from float64, the plain path's "
+              f"{p}")
+    gap = cut["grads"]["gaps"]["kernel_vs_plain"]
+    check(gap["max"] <= RN_GRAD_TOL, f"depth cut: first-step gradients "
+          f"differ by {gap['max']} of the float64 gradient at "
+          f"{gap['param']} (> {RN_GRAD_TOL})")
+    for key in ("max_loss_err", "max_param_err", "max_running_stat_err"):
+        check(cut[key] <= REF_TOL, f"depth cut: {key} {cut[key]} > "
+              f"{REF_TOL}")
+    return full, cut
 
 
 # ---------------------------------------------------------------------------

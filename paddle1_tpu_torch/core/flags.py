@@ -168,26 +168,21 @@ def _define_builtin_flags() -> None:
                 "over the whole parameter list: auto (CUDA parameters "
                 "only), always, never (plain PyTorch update).",
                 validator=_tri)
-    # conv-net kernels (JAX package: fused_bn, fused_bn_auto_mb,
-    # fused_bn_bwd, conv_nhwc). Same names and grammar; fused_bn_auto_mb
-    # defaults to 0 here: the JAX package's 4 MiB is a TPU v5 lite
-    # crossover and says nothing of the H100, so "auto" takes every
-    # supported shape until the card's own sweep sets a threshold.
+    # conv-net kernels (JAX package: fused_bn, fused_bn_bwd, conv_nhwc).
+    # Same names and grammar. The JAX package's fused_bn_auto_mb size
+    # crossover is a TPU measurement and has no counterpart here: under
+    # "auto" every batch norm on the card takes the kernel.
     define_flag("fused_bn", "auto",
                 "Hand-written CUDA fused batch norm forward (batch "
                 "statistics + normalize + affine + residual + activation "
                 "in one call; given-statistics normalize for eval and "
-                "use_global_stats): auto (CUDA tensors of at least "
-                "fused_bn_auto_mb), always (the plain version on CPU "
-                "tensors), never (plain composition). Needs a channels-"
-                "last input (NHWC data_format or the conv_nhwc region) "
-                "and affine weight and bias.",
+                "use_global_stats): auto (CUDA tensors), always (the "
+                "plain version on CPU tensors), never (plain "
+                "composition). On the card it needs a channels-last "
+                "input (NHWC data_format or the conv_nhwc region), "
+                "affine weight and bias, f32 or bf16 and C % 8 == 0, and "
+                "raises otherwise.",
                 validator=_tri)
-    define_flag("fused_bn_auto_mb", 0.0,
-                "MiB of the batch-norm input below which fused_bn=auto "
-                "keeps the plain composition (0: every supported shape "
-                "takes the kernel).",
-                validator=lambda v: v >= 0)
     define_flag("fused_bn_bwd", "auto",
                 "Hand-written CUDA fused batch norm backward (dx, dgamma, "
                 "dbeta, dresidual): auto (CUDA tensors only), always, "

@@ -11,7 +11,7 @@ import threading
 import torch
 
 from ...core.errors import InvalidArgumentError
-from ...core.flags import flag, flag_active
+from ...core.flags import flag_active
 from ...ops import fused_bn as fbn
 from ...ops import layer_norm as ln
 from ._layout import channels_last_region
@@ -102,25 +102,28 @@ def _update_running_stats(running_mean, running_var, mean, var, momentum):
 
 
 def fused_bn_active(shape, dtype, device) -> bool:
-    """Resolve the ``fused_bn`` flag against a channels-LAST input:
-    ``always``/``never`` are absolute (``always`` reaches the wrapper,
-    which runs the plain version on a CPU tensor), ``auto`` needs a CUDA
-    tensor of at least ``fused_bn_auto_mb`` MiB; all need a shape and
-    dtype the kernels take (``ops.fused_bn.supported``)."""
+    """Resolve the ``fused_bn`` flag (``auto``: CUDA tensors) for a
+    channels-LAST input. On a CUDA tensor the flag alone decides: the
+    wrapper then raises on an input outside the kernel's contract, and
+    never hands it to the plain version. On a CPU tensor (``always``: the
+    wrapper runs the plain version) the input must also be one the kernel
+    takes (``ops.fused_bn.supported``), the JAX package's rule."""
     if not flag_active("fused_bn", device):
         return False
-    if not fbn.supported(shape, dtype):
-        return False
-    if flag("fused_bn") == "auto":
-        n = math.prod(int(s) for s in shape)
-        itemsize = torch.finfo(dtype).bits // 8
-        if n * itemsize < flag("fused_bn_auto_mb") * 1024 * 1024:
-            return False
-    return True
+    return device.type != "cpu" or fbn.supported(shape, dtype)
 
 
 def _apply_act(y, act):
     return torch.relu(y) if act == "relu" else y
+
+
+def _rows(t, c):
+    """``t`` as the kernels' ``[rows, C]``: a free view of channels-last
+    memory. On the card a tensor with no such view is handed on as it is,
+    and the wrapper's contract check raises: no hidden copy."""
+    if t.is_contiguous() or t.device.type == "cpu":
+        return t.reshape(-1, c)
+    return t
 
 
 def _batch_norm_impl(x, running_mean, running_var, weight, bias, training,
@@ -132,7 +135,8 @@ def _batch_norm_impl(x, running_mean, running_var, weight, bias, training,
     # [rows, C] view
     nhwc_internal, to_internal, from_internal = channels_last_region(
         x.dim(), channel_last, x.device)
-    eff_last = channel_last or nhwc_internal
+    # a 2-D [N, C] input has its channels last in either format
+    eff_last = channel_last or nhwc_internal or x.dim() == 2
     use_stats = (not training) if use_global_stats is None \
         else use_global_stats
     has_wb = weight is not None
@@ -146,12 +150,21 @@ def _batch_norm_impl(x, running_mean, running_var, weight, bias, training,
         shape[ch_axis] = -1
         return v.reshape(shape)
 
-    fused = has_wb and eff_last and fused_bn_active(xi.shape, xi.dtype,
-                                                    xi.device)
+    fused = fused_bn_active(xi.shape, xi.dtype, xi.device)
+    if fused and not (has_wb and eff_last):
+        if xi.device.type == "cpu":
+            fused = False
+        else:
+            raise InvalidArgumentError(
+                "batch_norm: the fused_bn kernel needs affine weight and "
+                "bias and a channels-last input (data_format NHWC, or "
+                f"NCHW under conv_nhwc); got x {tuple(x.shape)} "
+                f"{data_format}, affine={has_wb} (outside the kernel's "
+                "contract; set fused_bn=never for the plain composition)")
     if fused:
         c = int(xi.shape[-1])
-        x2 = xi.reshape(-1, c)
-        res2 = None if res is None else res.reshape(-1, c)
+        x2 = _rows(xi, c)
+        res2 = None if res is None else _rows(res, c)
 
     if use_stats:
         if fused:

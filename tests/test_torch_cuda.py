@@ -272,6 +272,30 @@ def test_fused_bn_outside_the_contract_raises_on_the_card(dev, case):
         fbn.fused_bn_train(x, g, b, 1e-5)
 
 
+@pytest.mark.parametrize("case", ["f16", "channels", "affine_less",
+                                  "channels_first"])
+def test_batch_norm_outside_the_kernel_contract_raises_on_the_card(dev,
+                                                                   case):
+    from paddle1_tpu_torch.core.flags import flags_guard
+    c = 12 if case == "channels" else 16
+    x = torch.randn(4, c, 5, 5, device=dev,
+                    dtype=torch.float16 if case == "f16" else torch.float32)
+    w = None if case == "affine_less" else torch.ones(c, device=dev)
+    b = None if case == "affine_less" else torch.zeros(c, device=dev)
+    m, v = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+    nhwc = "never" if case == "channels_first" else "auto"
+    before = (fbn.fused_bn_train.launches, fbn.fused_bn_norm.launches)
+    with flags_guard(conv_nhwc=nhwc):
+        for training in (True, False):
+            with pytest.raises(InvalidArgumentError, match="contract"):
+                F.batch_norm(x, m, v, w, b, training=training)
+        with flags_guard(fused_bn="never"):     # the plain composition
+            y = F.batch_norm(x, m, v, w, b, training=True)
+    assert y.shape == x.shape
+    assert (fbn.fused_bn_train.launches, fbn.fused_bn_norm.launches) == \
+        before
+
+
 def test_tiny_resnet_steps_launch_every_bn_kernel(dev):
     from paddle1_tpu_torch.distributed import ParallelEngine
     from paddle1_tpu_torch.optimizer import Momentum

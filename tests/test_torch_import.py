@@ -111,13 +111,20 @@ def test_conv_flags_default_to_the_card():
         assert flags.flag_active(name, torch.device("cuda", 0))
         assert not flags.flag_active(name, torch.device("cpu"))
     # the JAX package's 4 MiB crossover is a TPU measurement: on the
-    # card every supported shape takes the kernel
-    assert flags.flag("fused_bn_auto_mb") == 0.0
+    # card every batch norm takes the kernel's wrapper, which raises on
+    # an input outside the contract (C % 8, f16) instead of handing it
+    # to the plain version
+    with pytest.raises(InvalidArgumentError):
+        flags.flag("fused_bn_auto_mb")
     from paddle1_tpu_torch.nn.functional.norm import fused_bn_active
-    assert fused_bn_active((8, 16), torch.bfloat16, torch.device("cuda", 0))
-    assert not fused_bn_active((8, 16), torch.bfloat16, torch.device("cpu"))
-    assert not fused_bn_active((8, 12), torch.float32,
-                               torch.device("cuda", 0))   # C % 8
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+    assert fused_bn_active((8, 16), torch.bfloat16, cuda)
+    assert fused_bn_active((8, 12), torch.float32, cuda)     # C % 8
+    assert fused_bn_active((8, 16), torch.float16, cuda)
+    assert not fused_bn_active((8, 16), torch.bfloat16, cpu)
+    with flags.flags_guard(fused_bn="always"):
+        assert fused_bn_active((8, 16), torch.float32, cpu)
+        assert not fused_bn_active((8, 12), torch.float32, cpu)
 
 
 def test_resnet_defaults_to_the_card(monkeypatch):
