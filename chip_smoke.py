@@ -77,6 +77,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
     batch 32 x 3 x 64 x 64: the first-step gradients agree to 1e-3 of
     each parameter's float64 gradient, and after three Momentum steps the
     losses, parameters and running statistics agree to 1e-4.
+11. **The local-moments kernel.** The cross-rank batch norm's per-rank
+    statistics pass against its plain version at the three ResNet-50
+    shapes, f32 and bf16 (the statistics' tolerance; repeats
+    bit-identical); timed in bf16 beside its plain version,
+    ``torch.batch_norm_stats`` on the same data as a channels-last
+    ``[N, C, H, W]`` tensor, and its bound.
+12. **Data-parallel ResNet-50 (the fourth main path).**
+    ``init_parallel_env()`` (NCCL, world size 1), then ``ParallelEngine``
+    on ``build_mesh(dp=1)`` over ``resnet50()`` + ``Momentum(1e-3, 0.9)``
+    in bf16 at per-rank batch 32 x 224² (``benches.py:91-162``'s dp
+    path), two batches staged through ``shard_batch``: two warm-up steps,
+    then slope+readback timing. The counters are zeroed just before and
+    read just after: every step launches 53 ``local_moments``, 53
+    ``fused_bn_norm``, 53 ``norm_bwd`` and no training-mode batch-norm
+    kernel, and makes 2 x 53 + 1 all-reduces (one per batch norm each
+    way, one gradient bucket). The loss must be finite and falling.
+    Prints step ms, samples/s and MFU beside phase 9's single-device step.
+13. **Cross-rank check.** Two ranks spawned on the one card over gloo
+    (NCCL refuses two ranks on one device), f32, ResNet-50 at full width
+    cut to one bottleneck per stage, global batch 32 x 3 x 64 x 64 (16 per
+    rank): after three Momentum steps the losses, parameters and running
+    statistics agree to 1e-4 with the world-size-1 engine on the whole
+    batch, and the two ranks hold identical parameters. With two or more
+    cards the same check runs over NCCL, one rank per card. A failed rank
+    fails the run.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -140,6 +165,8 @@ BN_ABS, BN_STAT_RTOL, BN_STAT_FLOOR = 5e-5, 1e-4, 1e-5
 RN_REF_FULL = {"batch": 8, "img": 224}
 RN_REF_CUT = {"batch": 32, "img": 64, "blocks": 1}
 RN_F64_FACTOR, RN_GRAD_TOL = 2.0, 1e-3
+# data-parallel ResNet-50: ranks of the cross-rank check, its time limit
+DP_RANKS, DP_RANK_TIMEOUT_S = 2, 300
 
 
 class SmokeFailure(RuntimeError):
@@ -1544,6 +1571,316 @@ def resnet_reference_check(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the local-moments kernel against its plain version
+
+
+def moments_phase(dev):
+    """The moments kernel against its plain version at the three shapes,
+    f32 and bf16; then timed in bf16 over 4 input sets in turn beside its
+    plain version, ``torch.batch_norm_stats`` on the same rows as a
+    channels-last [N, C, H, W] tensor (its mean and invstd, checked
+    against the kernel's sums) and its bound: one read of x, two f32 [C]
+    written; 3 flops per element at the f32 rate."""
+    from paddle1_tpu_torch.ops import fused_bn as fbn
+    errs, times = [], []
+    eps = 1e-5
+    for rows, c in BN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = bn_inputs(dev, rows, c, dtype, SEED + 11 + rows + c)[0][0]
+            s, ss = fbn._moments_fwd(x)
+            rs, rss = fbn.local_moments_ref(x)
+            torch.cuda.synchronize()
+            tag = f"[{rows}, {c}] {str(dtype).split('.')[-1]}"
+            for a, w in ((s, rs), (ss, rss)):
+                check(a.dtype == torch.float32 and
+                      bool(torch.isfinite(a).all()),
+                      f"local_moments {tag}: non-finite or {a.dtype}")
+                sx = stat_excess(a, w, rows)
+                check(sx <= 0.0, f"local_moments {tag}: sums differ from "
+                      f"the plain version by {sx} beyond the tolerance")
+            again = fbn._moments_fwd(x)
+            check(torch.equal(again[0], s) and torch.equal(again[1], ss),
+                  f"local_moments {tag}: a repeat differs")
+            errs.append({"shape": [rows, c], "dtype": str(dtype),
+                         "max_abs_err": max(float((a - w).abs().max())
+                                            for a, w in ((s, rs),
+                                                         (ss, rss)))})
+            del x, s, ss, rs, rss, again
+        xs = [t[0] for t in bn_inputs(dev, rows, c, torch.bfloat16,
+                                      SEED + 12, n_sets=4)]
+        hw = rows // RN_BATCH
+        side = int(round(hw ** 0.5))
+        check(side * side * RN_BATCH == rows, f"{rows} rows are not "
+              f"{RN_BATCH} square images")
+        lib = [x.view(RN_BATCH, side, side, c).permute(0, 3, 1, 2)
+               for x in xs]
+        check(lib[0].is_contiguous(memory_format=torch.channels_last),
+              "library input is not channels-last")
+        mean, invstd = torch.batch_norm_stats(lib[0], eps)
+        s, ss = fbn._moments_fwd(xs[0])
+        var = ss / rows - (s / rows) ** 2
+        check(torch.allclose(mean.float(), s / rows, rtol=1e-3, atol=1e-3)
+              and torch.allclose(invstd.float(), torch.rsqrt(var + eps),
+                                 rtol=1e-3, atol=1e-3),
+              "torch.batch_norm_stats computes other moments")
+        t = {"ms": graph_time_ms([lambda x=x: fbn._moments_fwd(x)
+                                  for x in xs]),
+             "plain_ms": graph_time_ms([lambda x=x: fbn.local_moments_ref(x)
+                                        for x in xs]),
+             "library_ms": graph_time_ms([
+                 lambda x=x: torch.batch_norm_stats(x, eps) for x in lib])}
+        need = rows * c * 2 + 2 * c * 4
+        b_ms, by = bound(need, 3.0 * rows * c, F32_FLOPS_PER_S)
+        times.append({"shape": [rows, c], "dtype": "bf16", **t,
+                      "library_covers": "torch.batch_norm_stats (mean, "
+                                        "invstd) on channels-last NCHW",
+                      "bound_ms": b_ms, "bound_by": by,
+                      "bound_bytes": need})
+        log(f"local_moments bf16 [{rows}, {c}]: kernel {t['ms']:.5f} ms, "
+            f"plain {t['plain_ms']:.5f} ms, torch.batch_norm_stats "
+            f"{t['library_ms']:.5f} ms, bound {b_ms:.5f} ms ({by})")
+        del xs, lib
+        torch.cuda.empty_cache()
+    log("local_moments: f32 and bf16 within tolerance at "
+        f"{[list(s) for s in BN_SHAPES]}, repeats bit-identical")
+    return errs, times
+
+
+# ---------------------------------------------------------------------------
+# phase 12: data-parallel ResNet-50 at world size 1 over NCCL
+
+
+def dp_counters():
+    from paddle1_tpu_torch.ops import fused_bn as fbn
+    return {"fused_bn_moments": fbn.local_moments, **bn_counters()}
+
+
+class AllReduceCount:
+    """Counts ``torch.distributed.all_reduce`` calls inside the block (the
+    port's collectives call it through the module)."""
+
+    def __enter__(self):
+        import torch.distributed as tdist
+        self.n, self._orig = 0, tdist.all_reduce
+
+        def counted(*a, **kw):
+            self.n += 1
+            return self._orig(*a, **kw)
+        tdist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as tdist
+        tdist.all_reduce = self._orig
+        return False
+
+
+def resnet_dp_phase(dev, single):
+    """``benches.py``'s dp configuration at world size 1 on NCCL: every
+    batch norm on the cross-rank arm. ``single``: phase 9's summary."""
+    from paddle1_tpu_torch import distributed as pdist
+    from paddle1_tpu_torch.optimizer import Momentum
+    from paddle1_tpu_torch.vision.models import resnet50
+    t0 = time.perf_counter()
+    pdist.init_parallel_env()
+    try:
+        backend = torch.distributed.get_backend()
+        check(backend == "nccl", f"init_parallel_env chose {backend} on the "
+              "card")
+        model = resnet50(generator=torch.Generator().manual_seed(SEED))
+        eng = pdist.ParallelEngine(
+            model, Momentum(learning_rate=RN_LR, momentum=0.9,
+                            parameters=model.parameters()),
+            rn_loss_fn, mesh=pdist.build_mesh(dp=1), amp_dtype="bfloat16")
+        rng = np.random.default_rng(0)
+        staged = [eng.shard_batch({
+            "x": torch.from_numpy(rng.standard_normal(
+                (RN_BATCH, 3, RN_IMG, RN_IMG)).astype(np.float32)).to(dev),
+            "y": torch.from_numpy(rng.integers(
+                0, 1000, (RN_BATCH,)).astype(np.int64)).to(dev)})
+            for _ in range(2)]
+        it = [0]
+
+        def step():
+            it[0] += 1
+            return eng.step(staged[it[0] % 2])
+        first = [float(eng.step(staged[0])), float(eng.step(staged[1]))]
+        setup_s = time.perf_counter() - t0
+        counters = dp_counters()
+        zero(counters)
+        it[0] = 1
+        with AllReduceCount() as calls:
+            slopes, _, steps = timed_steps(step, 10)
+            torch.cuda.synchronize()
+        launches = bn_launches(counters)
+        want = {"fused_bn_moments": RN_BNS * steps,
+                "fused_bn_train": 0, "fused_bn_norm": RN_BNS * steps,
+                "fused_bn_train_bwd": 0, "fused_bn_norm_bwd": RN_BNS * steps}
+        check(launches == want, f"dp launches {launches}, want {want} "
+              f"({steps} steps)")
+        check(calls.n == (2 * RN_BNS + 1) * steps, f"{calls.n} all-reduces "
+              f"in {steps} steps, want {2 * RN_BNS + 1} per step")
+        last = [float(eng.step(staged[0])), float(eng.step(staged[1]))]
+        check(all(np.isfinite(first + last)), f"non-finite dp loss {first} "
+              f"{last}")
+        check(sum(last) < sum(first), f"dp loss did not fall over the "
+              f"cycled batches: {first} -> {last}")
+    finally:
+        pdist.destroy_process_group()
+    dt = float(np.median(slopes))
+    summary = {
+        "train": "resnet50_dp", "backend": backend, "world_size": 1,
+        "amp": "bfloat16", "batch_per_rank": RN_BATCH, "img": RN_IMG,
+        "setup_s": setup_s, "steps": steps, "timing": "slope+readback",
+        "step_ms_median": dt * 1e3, "step_ms_min": min(slopes) * 1e3,
+        "step_ms_max": max(slopes) * 1e3, "samples_per_s": RN_BATCH / dt,
+        "mfu": RN_FLOPS_PER_SAMPLE * RN_BATCH / dt / BF16_FLOPS_PER_S,
+        "single_device_step_ms_median": single["step_ms_median"],
+        "single_device_samples_per_s": single["samples_per_s"],
+        "single_device_mfu": single["mfu"],
+        "loss_first": first, "loss_last": last, "launches_train": launches,
+        "launches_per_step": {k: n / steps for k, n in launches.items()},
+        "all_reduces_per_step": calls.n / steps}
+    log(json.dumps(summary))
+    del eng, model, staged
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 13: two ranks against one
+
+
+def rn_cut_setup(dev):
+    """Phase 13's model and global batch: ResNet-50 at full width cut to
+    RN_REF_CUT's blocks per stage, seeded weights and data, f32, cuDNN
+    deterministic and no TF32."""
+    from paddle1_tpu_torch.vision.models import resnet50
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = resnet50(device=dev,
+                     generator=torch.Generator().manual_seed(SEED + 13))
+    for i in range(1, 5):
+        name = f"layer{i}"
+        setattr(model, name, getattr(model, name)[:RN_REF_CUT["blocks"]])
+    rng = np.random.default_rng(SEED + 13)
+    n, img = RN_REF_CUT["batch"], RN_REF_CUT["img"]
+    data = {"x": torch.from_numpy(rng.standard_normal(
+                (n, 3, img, img)).astype(np.float32)).to(dev),
+            "y": torch.from_numpy(rng.integers(0, 1000, (n,))).to(dev)}
+    return model, data
+
+
+def rn_dp_steps(model, data, mesh):
+    from paddle1_tpu_torch.distributed import ParallelEngine
+    from paddle1_tpu_torch.optimizer import Momentum
+    eng = ParallelEngine(model, Momentum(learning_rate=RN_LR, momentum=0.9,
+                                         parameters=model.parameters()),
+                         rn_loss_fn, mesh=mesh)
+    return [float(eng.step(data)) for _ in range(REF_STEPS)]
+
+
+def rank_worker(out_dir, init_file, backend, one_card):
+    """One rank of phase 13 (started by ``distributed.spawn``): join the
+    job, take REF_STEPS steps on the global batch, save the losses, the
+    state and the kernel launches."""
+    import os
+    from paddle1_tpu_torch import distributed as pdist
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    dev = torch.device("cuda", 0 if one_card else rank)
+    pdist.init_parallel_env(backend=backend, device=dev,
+                            init_method=f"file://{init_file}")
+    try:
+        model, data = rn_cut_setup(dev)
+        counters = dp_counters()
+        zero(counters)
+        losses = rn_dp_steps(model, data,
+                             pdist.build_mesh(dp=pdist.get_world_size()))
+        torch.cuda.synchronize()
+        torch.save({"losses": losses, "launches": bn_launches(counters),
+                    "backend": torch.distributed.get_backend(),
+                    "state": {k: v.detach().cpu()
+                              for k, v in model.state_dict().items()}},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        pdist.destroy_process_group()
+
+
+def cross_rank_check(dev, runs=None):
+    """Ranks of the dp engine against the world-size-1 engine on the whole
+    batch. ``runs``: ``(backend, one_card, ranks)`` triples; default
+    DP_RANKS ranks over gloo on the one card, and over NCCL one rank per
+    card where there are DP_RANKS cards."""
+    import os
+    import tempfile
+    from paddle1_tpu_torch import distributed as pdist
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    try:
+        model, data = rn_cut_setup(dev)
+        n_bns = sum(k.endswith("._mean") for k in model.state_dict())
+        ref_losses = rn_dp_steps(model, data, pdist.build_mesh(dp=1))
+        ref = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    del model, data
+    torch.cuda.empty_cache()
+    if runs is None:
+        runs = [("gloo", True, DP_RANKS)]
+        if torch.cuda.device_count() >= DP_RANKS:
+            runs.append(("nccl", False, DP_RANKS))
+    out = {"global_batch": RN_REF_CUT["batch"], "img": RN_REF_CUT["img"],
+           "batch_norms": n_bns, "steps": REF_STEPS,
+           "losses_world_size_1": ref_losses}
+    for backend, one_card, n_ranks in runs:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            pdist.spawn(rank_worker, args=(tmp, os.path.join(tmp, "store"),
+                                           backend, one_card),
+                        nprocs=n_ranks, timeout=DP_RANK_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            got = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                   for r in range(n_ranks)]
+        stats = [k for k in ref if k.endswith(("_mean", "_variance"))]
+        params = [k for k in ref if k not in stats]
+        r0 = got[0]["state"]
+
+        def max_diff(keys):
+            return max(float((r0[k].double() - ref[k].double()).abs().max())
+                       for k in keys)
+        res = {"backend": got[0]["backend"], "ranks": n_ranks,
+               "one_card": one_card, "wall_s": wall,
+               "losses": got[0]["losses"],
+               "max_loss_err": max(abs(a - b) for a, b in
+                                   zip(got[0]["losses"], ref_losses)),
+               "max_param_err": max_diff(params),
+               "max_running_stat_err": max_diff(stats),
+               "ranks_identical": all(
+                   torch.equal(g["state"][k], r0[k])
+                   for g in got[1:] for k in r0),
+               "launches_rank0": got[0]["launches"]}
+        out[f"{backend}_{n_ranks}_ranks"] = res
+    if all(r[0] != "nccl" for r in runs):
+        out["nccl"] = "skipped: one card (NCCL takes one card per rank)"
+    log(json.dumps({"cross_rank_check": out}))
+    want = n_bns * REF_STEPS
+    for backend, _, n_ranks in runs:
+        res = out[f"{backend}_{n_ranks}_ranks"]
+        check(res["backend"] == backend, f"ranks ran {res['backend']}")
+        check(res["ranks_identical"], f"{backend}: the ranks' parameters "
+              "differ")
+        check(res["launches_rank0"]["fused_bn_moments"] == want and
+              res["launches_rank0"]["fused_bn_train"] == 0,
+              f"{backend}: rank 0 launched {res['launches_rank0']}, want "
+              f"{want} moments and no training-mode kernel")
+        for key in ("max_loss_err", "max_param_err", "max_running_stat_err"):
+            check(res[key] <= REF_TOL, f"{backend}: {n_ranks} ranks against "
+                  f"world size 1: {key} {res[key]} > {REF_TOL}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1599,6 +1936,12 @@ def main() -> int:
     rn = resnet_phase(dev)
     torch.cuda.empty_cache()
     resnet_reference_check(dev)
+    torch.cuda.empty_cache()
+
+    mom_errs, mom_times = moments_phase(dev)
+    dp = resnet_dp_phase(dev, rn)
+    torch.cuda.empty_cache()
+    cross_rank_check(dev)
 
     src = "paddle1_tpu_torch/ops/cuda/"
     pallas = "paddle1_tpu/ops/pallas/"
@@ -1665,7 +2008,8 @@ def main() -> int:
     for name, cu, rep in bn_rows:
         by_path = {"resnet_train": rn["launches_train"][name],
                    "resnet_eval": rn["launches_eval"][name],
-                   "resnet_frozen": rn["launches_frozen"][name]}
+                   "resnet_frozen": rn["launches_frozen"][name],
+                   "resnet_dp": dp["launches_train"][name]}
         main_case = bn_times[name][0]     # the stem's [401408, 64]
         line.append({
             "name": name, "route": "cuda", "source": src + cu,
@@ -1679,6 +2023,19 @@ def main() -> int:
             "library_covers": main_case["library_covers"],
             "shape": [main_case["shape"], "bf16", "identity, no residual"],
             "timing_cases": bn_times[name], "cases": bn_errs[name]})
+    main_case = mom_times[0]     # the stem's [401408, 64]
+    n_mom = dp["launches_train"]["fused_bn_moments"]
+    line.append({
+        "name": "fused_bn_moments", "route": "cuda",
+        "source": src + "fused_bn.cu", "replaces": pallas + "fused_bn.py:357",
+        "launches": n_mom, "launches_by_path": {"resnet_dp": n_mom},
+        "max_abs_err": max(c["max_abs_err"] for c in mom_errs),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"],
+        "library_covers": main_case["library_covers"],
+        "shape": [main_case["shape"], "bf16"], "timing_cases": mom_times,
+        "cases": mom_errs})
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,11 @@ kernel under autograd. Slice 3 is ResNet training and evaluation:
 ``vision.models.resnet50`` through the same engine with
 ``optimizer.Momentum``, on the fused batch-norm forward and backward
 kernels (training, given statistics) over channels-last activations.
+Slice 4a is data-parallel training over ``torch.distributed``
+(``distributed.init_parallel_env``, ``spawn``, the collectives,
+``DataParallel``, ``nn.SyncBatchNorm``, and ``ParallelEngine`` on
+``distributed.build_mesh(dp=n)``), where every training batch norm takes
+the global batch's statistics through the local-moments kernel.
 """
 
 from . import distributed, optimizer, serving, text, vision  # noqa: F401

@@ -195,6 +195,15 @@ def _define_builtin_flags() -> None:
                 "batch-norm kernels see a free [rows, C] view: auto "
                 "(CUDA tensors only), always, never.",
                 validator=_tri)
+    # collectives (JAX package: the same flag, there the coordination
+    # service's initialization timeout)
+    define_flag("collective_timeout_s", 1800.0,
+                "Distributed rendezvous and collective bound, passed to "
+                "torch.distributed.init_process_group as its timeout by "
+                "init_parallel_env: a rank that cannot reach the others, "
+                "or waits on a collective they never make, fails after "
+                "this many seconds instead of hanging the job.",
+                validator=lambda v: v > 0)
     # generic serving knobs the GenerationServer reads
     define_flag("serve_queue_depth", 256,
                 "Bound on queued (admitted, not yet prefilled) generation "

@@ -1,5 +1,6 @@
-"""Single-device training engine (port of ``ParallelEngine`` from
-``paddle1_tpu/distributed/parallel_engine.py``, without the mesh).
+"""Training engine (port of ``ParallelEngine`` from
+``paddle1_tpu/distributed/parallel_engine.py``): one device, or
+data-parallel over a ``dp`` mesh.
 
 ``ParallelEngine(model, optimizer, loss_fn, amp_dtype=None).step(batch)``
 runs one optimizer step: forward and backward of ``loss_fn(model,
@@ -31,12 +32,35 @@ batch)``, then ``optimizer.apply``. It returns a :class:`LossFuture`
   update each recorded buffer becomes ``m * old + (1 - m) * batch`` from
   its value before the step (``parallel_engine.py:328-343``).
 
-Meshes, ZeRO, ``grad_accum``, ``step_many``/``step_stream`` and
-``check_finite`` are later slices (ROADMAP.md).
+With ``mesh=build_mesh(dp=n)`` (or ``degrees={"dp": n}``) each of the n
+ranks (processes, after ``init_parallel_env``) runs the step on its equal
+shard of the global batch, and the step computes what the JAX engine's
+computes on the batch sharded over its mesh
+(``parallel_engine.py:597-670, 768-809``):
+
+* at construction rank 0 broadcasts the parameters and floating buffers;
+* :meth:`shard_batch` cuts a global batch into this rank's shard (a batch
+  that does not divide over the ranks raises, as ``benches.py:106-108``);
+* the forward runs under the ``dp`` binding (``env.spmd_axes``), so every
+  training-mode batch norm normalizes with the global batch's statistics
+  (``nn/functional/norm.py``): one differentiable all-reduce per batch
+  norm each way. This holds at world size 1 too;
+* after ``autograd.grad`` the gradients and the loss are averaged over
+  the ranks in ONE all-reduce of a flat f32 buffer (the persistent
+  gradient buffers are views into it), before the optimizer: every rank
+  applies the same update, and the step returns the global-batch mean
+  loss;
+* the running statistics blend the global statistics, the same on every
+  rank.
+
+ZeRO, model/pipeline parallelism, ``grad_accum``,
+``step_many``/``step_stream`` and ``check_finite`` are later slices
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -46,10 +70,23 @@ from torch import nn
 from ..core.async_loss import LossFuture
 from ..core.errors import InvalidArgumentError
 from ..nn.functional.norm import collect_stat_updates
+from . import collective, env
+from .topology import Mesh, build_mesh
 
-__all__ = ["ParallelEngine"]
+__all__ = ["ParallelEngine", "ShardedBatch"]
 
 _AMP = {"bfloat16": torch.bfloat16}
+_ALIGN = 64          # elements: each gradient view starts 256 B aligned
+
+
+class ShardedBatch:
+    """A batch already cut to this rank's shard and placed on its device
+    (:meth:`ParallelEngine.shard_batch`); ``step`` feeds it as it is."""
+
+    __slots__ = ("data",)
+
+    def __init__(self, data):
+        self.data = data
 
 
 class _LossModule(nn.Module):
@@ -73,6 +110,8 @@ class ParallelEngine:
     arrays or tensors, moved to the parameters' device each step."""
 
     def __init__(self, model: nn.Module, optimizer, loss_fn: Callable,
+                 mesh: Optional[Mesh] = None,
+                 degrees: Optional[Dict[str, int]] = None,
                  amp_dtype: Optional[str] = None):
         if amp_dtype is not None and amp_dtype not in _AMP:
             raise InvalidArgumentError(
@@ -109,6 +148,66 @@ class ParallelEngine:
         self._param_ids = {id(p) for p in self.params}
         self._wrapper = _LossModule(model, loss_fn)
         self.dispatch_count = 0
+        if mesh is None and degrees is not None:
+            mesh = build_mesh(**degrees)
+        self.mesh = mesh
+        self._flat = None
+        if mesh is not None:
+            self._init_dp()
+
+    def _init_dp(self):
+        """Rank 0's parameters and floating buffers everywhere; the
+        gradient buffers become views into one flat f32 buffer whose last
+        element carries the loss."""
+        group = self.mesh.group
+        with torch.no_grad():
+            for t in self.params + self.buffers:
+                collective.broadcast(t.data, 0, group)
+        views = self._grads + self._buf_grads
+        bad = [t.dtype for t in views if t.dtype != torch.float32]
+        if bad:
+            raise InvalidArgumentError(
+                "ParallelEngine: the dp path averages gradients in one f32 "
+                f"buffer; the masters must be f32, got {sorted(set(bad))}")
+        offs, n = [], 0
+        for t in views:
+            offs.append(n)
+            n += -(-t.numel() // _ALIGN) * _ALIGN
+        self._flat = torch.zeros(n + 1, dtype=torch.float32,
+                                 device=self.device)
+        grads = [self._flat[o:o + t.numel()].view(t.shape)
+                 for o, t in zip(offs, views)]
+        self._grads = grads[:len(self._grads)]
+        self._buf_grads = grads[len(self._grads):]
+
+    def shard_batch(self, batch: Any) -> ShardedBatch:
+        """This rank's shard of a global ``batch`` (every leaf with a
+        leading dim is cut into equal parts along it; 0-d leaves are
+        kept), placed on the device and cast as :meth:`step` feeds it.
+        Without a mesh the shard is the whole batch. Raises when a leading
+        dim does not divide over the ranks."""
+        if self.mesh is None:
+            return ShardedBatch(self._feed(batch))
+        n, r = self.mesh.group.nranks, self.mesh.group.rank
+
+        def cut(a):
+            if not isinstance(a, torch.Tensor):
+                a = np.asarray(a)
+            if a.ndim == 0:
+                return a
+            if a.shape[0] % n:
+                raise InvalidArgumentError(
+                    f"ParallelEngine: a batch leaf of {a.shape[0]} rows "
+                    f"does not divide over {n} ranks")
+            k = a.shape[0] // n
+            return a[r * k:(r + 1) * k]
+        if isinstance(batch, dict):
+            local = {k: cut(v) for k, v in batch.items()}
+        elif isinstance(batch, (list, tuple)):
+            local = type(batch)(cut(v) for v in batch)
+        else:
+            local = cut(batch)
+        return ShardedBatch(self._feed(local))
 
     def _feed(self, batch):
         def place(a):
@@ -141,13 +240,19 @@ class ParallelEngine:
         return out
 
     def step(self, batch: Any, lr: Optional[float] = None) -> LossFuture:
-        """One optimizer step on ``batch``; ``lr`` overrides the
+        """One optimizer step on ``batch`` (on a mesh: the global batch,
+        or this rank's :class:`ShardedBatch`); ``lr`` overrides the
         optimizer's learning rate for this step."""
-        feed = self._feed(batch)
+        if not isinstance(batch, ShardedBatch):
+            batch = self.shard_batch(batch)
+        feed = batch.data
         leaves = self._leaves()
+        bind = contextlib.nullcontext() if self.mesh is None else \
+            env.spmd_axes(dp=self.mesh.group)
         with torch.enable_grad(), collect_stat_updates() as stats:
-            loss = torch.func.functional_call(self._wrapper, leaves,
-                                              (feed,))
+            with bind:
+                loss = torch.func.functional_call(self._wrapper, leaves,
+                                                  (feed,))
             loss = loss.float()
             train = {id(p) for p in self._train}
             diff = [leaves["m." + n] for n, p in zip(self.names, self.params)
@@ -160,6 +265,11 @@ class ParallelEngine:
                     buf.zero_()
                 else:
                     buf.copy_(g)
+            if self._flat is not None:
+                self._flat[-1:].copy_(loss.detach().reshape(1))
+                collective.all_reduce(self._flat, collective.ReduceOp.AVG,
+                                      self.mesh.group)
+                loss = self._flat[-1].clone()
             blends = self._stat_blends(leaves, stats)
         self.optimizer.apply(self._train + self.buffers,
                              self._grads + self._buf_grads, lr)

@@ -1,6 +1,15 @@
 """Normalization functionals (port of ``layer_norm``, ``batch_norm``,
 ``fused_batch_norm_act`` and the running-statistics capture from
-``paddle1_tpu/nn/functional/norm.py``)."""
+``paddle1_tpu/nn/functional/norm.py``, and of ``SyncBatchNorm``'s
+cross-replica statistics from ``paddle1_tpu/nn/layer_norm_act.py``).
+
+Under a ``dp`` binding (``distributed.env.spmd_axes(dp=group)``, which
+``ParallelEngine`` opens around its forward on a mesh) each rank holds
+one shard of a global batch, and a training-mode batch norm normalizes
+with the statistics of the WHOLE batch, as the JAX engine's batch norms
+do on a batch sharded over its mesh: per-rank f32 sums (the
+``local_moments`` kernel), one differentiable SUM all-reduce, then the
+given-statistics normalize (``fused_bn_norm``)."""
 
 from __future__ import annotations
 
@@ -12,6 +21,8 @@ import torch
 
 from ...core.errors import InvalidArgumentError
 from ...core.flags import flag_active
+from ...distributed.collective import differentiable_all_reduce
+from ...distributed.env import current_spmd_axis
 from ...ops import fused_bn as fbn
 from ...ops import layer_norm as ln
 from ._layout import channels_last_region
@@ -126,6 +137,56 @@ def _rows(t, c):
     return t
 
 
+# f32 holds every integer up to 2**24 exactly: the global row count's
+# check is exact below it, within f32 rounding above
+_F32_EXACT = float(2 ** 24)
+
+
+def _check_equal_shards(count, n_local, world):
+    """Every rank normalized the same number of rows: ``count`` (the
+    all-reduced per-rank counts, f32) is ``world * n_local``. On the CPU a
+    typed error; on the card an asynchronous device-side assert (no host
+    sync inside the step)."""
+    want = float(n_local * world)
+    tol = 0.5 if want < _F32_EXACT else want * world * 2.0 ** -24
+    msg = (f"cross-rank batch norm: the {world} ranks' shards hold unequal "
+           f"row counts (this rank {n_local}); equal shards are required")
+    count = count.detach()
+    if count.device.type == "cpu":
+        if abs(float(count) - want) > tol:
+            raise InvalidArgumentError(msg)
+    else:
+        torch._assert_async((count - want).abs() <= tol, msg)
+
+
+def _global_moments(xi, x2, ch_axis, group):
+    """``(mean, var)``, f32 ``[C]``, of the group's whole batch, each rank
+    holding an equal shard ``xi`` (``x2``: its ``[rows, C]`` view for the
+    moments kernel, or None for the plain sums). One all-reduce of
+    ``[sum, sum_sq, rows]`` each way; the count is the exact host integer
+    ``rows * world``, checked against the reduced rows; the one-pass
+    ``var = max(E[x^2] - mean^2, 0)`` of ``layer_norm_act.py:141-142``."""
+    if x2 is not None:
+        s, ss = fbn.local_moments(x2)
+        n_local = int(x2.shape[0])
+    else:
+        axes = tuple(i for i in range(xi.dim()) if i != ch_axis)
+        xf = xi.float()
+        s, ss = xf.sum(dim=axes), (xf * xf).sum(dim=axes)
+        n_local = math.prod(int(xi.shape[i]) for i in axes)
+    c, world = int(s.shape[0]), group.nranks
+    parts = [s, ss]
+    if world > 1:
+        parts.append(s.new_full((1,), float(n_local)))
+    g = differentiable_all_reduce(torch.cat(parts), group)
+    if world > 1:
+        _check_equal_shards(g[2 * c], n_local, world)
+    inv = 1.0 / (n_local * world)
+    mean = g[:c] * inv
+    var = torch.clamp(g[c:2 * c] * inv - mean * mean, min=0.0)
+    return mean, var
+
+
 def _batch_norm_impl(x, running_mean, running_var, weight, bias, training,
                      momentum, epsilon, data_format, use_global_stats, act,
                      residual):
@@ -165,6 +226,27 @@ def _batch_norm_impl(x, running_mean, running_var, weight, bias, training,
         c = int(xi.shape[-1])
         x2 = _rows(xi, c)
         res2 = None if res is None else _rows(res, c)
+
+    group = None if use_stats else current_spmd_axis("dp")
+    if group is not None:
+        # the cross-rank arm: the group's statistics, then the
+        # given-statistics normalize with the statistics differentiable
+        mean, var = _global_moments(xi, x2 if fused else None, ch_axis,
+                                    group)
+        if fused:
+            y2 = fbn.fused_bn_norm(x2, mean, var, weight, bias, epsilon, act,
+                                   residual=res2)
+            y = from_internal(y2.reshape(xi.shape))
+        else:
+            y = (xi.float() - bshape(mean)) * torch.rsqrt(bshape(var) +
+                                                          epsilon)
+            if has_wb:
+                y = y * bshape(weight.float()) + bshape(bias.float())
+            if res is not None:
+                y = y + res.float()
+            y = from_internal(_apply_act(y, act).to(xi.dtype))
+        _update_running_stats(running_mean, running_var, mean, var, momentum)
+        return y
 
     if use_stats:
         if fused:

@@ -1,6 +1,6 @@
-"""LayerNorm, batch norm, ReLU and Sequential (port of the subset of
-``paddle1_tpu/nn/layer_norm_act.py`` the serving, BERT and conv-net
-slices run)."""
+"""LayerNorm, batch norm, SyncBatchNorm, ReLU and Sequential (port of
+the subset of ``paddle1_tpu/nn/layer_norm_act.py`` the serving, BERT and
+conv-net slices run)."""
 
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ from ..core.device import resolve_device
 from ..core.errors import UnimplementedError
 from . import functional as F
 
-__all__ = ["LayerNorm", "BatchNorm", "BatchNorm2D", "ReLU", "Sequential"]
+__all__ = ["LayerNorm", "BatchNorm", "BatchNorm2D", "SyncBatchNorm", "ReLU",
+           "Sequential"]
 
 
 class LayerNorm(nn.Module):
@@ -89,6 +90,40 @@ class BatchNorm(_BatchNormBase):
 
 class BatchNorm2D(_BatchNormBase):
     pass
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """Cross-rank batch norm (Paddle's ``nn.SyncBatchNorm``). In training
+    mode under a ``dp`` binding (``distributed.env.spmd_axes(dp=group)``,
+    opened by ``ParallelEngine`` on a mesh, or by the caller around a
+    ``DataParallel`` forward) it normalizes with the statistics of the
+    group's whole batch: per-rank f32 sums (the ``local_moments`` kernel
+    on the card), one SUM all-reduce, the given-statistics normalize
+    (``nn/functional/norm.py``). With no binding, or in eval mode, it is
+    :class:`BatchNorm` (one rank's batch is the whole batch). Under a
+    binding every training-mode batch norm takes the cross-rank
+    statistics, as the JAX engine's batch norms do on a sharded batch;
+    this class names that layer and converts to it."""
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer: nn.Module) -> nn.Module:
+        """Replace every batch norm in ``layer`` (itself included) by a
+        SyncBatchNorm sharing its weight, bias and running statistics;
+        returns the converted layer."""
+        if isinstance(layer, _BatchNormBase) and not isinstance(layer, cls):
+            new = cls(layer._num_features, layer._momentum, layer._epsilon,
+                      weight_attr=False if layer.weight is None else None,
+                      bias_attr=False if layer.bias is None else None,
+                      data_format=layer._data_format,
+                      use_global_stats=layer._use_global_stats,
+                      device=layer._mean.device)
+            new.weight, new.bias = layer.weight, layer.bias
+            new._mean, new._variance = layer._mean, layer._variance
+            new.train(layer.training)
+            return new
+        for name, sub in list(layer.named_children()):
+            setattr(layer, name, cls.convert_sync_batchnorm(sub))
+        return layer
 
 
 class ReLU(nn.Module):

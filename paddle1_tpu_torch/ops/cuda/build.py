@@ -8,7 +8,9 @@ needed. Libraries land in ``paddle1_tpu_torch/_build/`` (gitignored),
 named by a hash of their source, the directory's shared ``*.cuh`` headers
 and the flags, so an edited source or header is never served by a stale
 library. Sources are compiled in parallel, one
-``nvcc`` per file, all started together.
+``nvcc`` per file, all started together. A file lock in the build
+directory serializes builds across processes (the ranks of a job start
+together), so a source is compiled once and the others load it.
 
 A failed build raises :class:`KernelBuildError` carrying nvcc's stderr.
 Nothing here runs at import time: this module imports neither CUDA nor
@@ -17,7 +19,9 @@ a compiler until :func:`load` or :func:`build_all` is called.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -64,15 +68,34 @@ def _target(name: str) -> Path:
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 
+@contextlib.contextmanager
+def _dir_lock(out_dir: Path):
+    """Exclusive lock on ``out_dir/.lock`` across processes."""
+    with open(out_dir / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def _compile(names: List[str]) -> None:
     """Compile every missing library in ``names``, one nvcc each, all in
-    flight together; raise on the first failure after all have ended."""
-    todo = [n for n in names if not _target(n).exists()]
+    flight together, under the build directory's lock; raise on the first
+    failure after all have ended."""
+    if all(_target(n).exists() for n in names):
+        return
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with _dir_lock(out_dir):
+        _compile_locked([n for n in names if not _target(n).exists()],
+                        out_dir)
+
+
+def _compile_locked(todo: List[str], out_dir: Path) -> None:
     if not todo:
         return
     nvcc = _nvcc()
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in todo:
         tmp = out_dir / f".{_target(name).name}.{os.getpid()}.tmp"

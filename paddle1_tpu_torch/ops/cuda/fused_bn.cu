@@ -23,6 +23,11 @@
 // sum across blocks is the second stage above. Given-statistics mode is
 // pass 3 alone.
 //
+// Local moments (replaces ::_moments_kernel, SyncBatchNorm's per-rank
+// statistics pass): passes 1 and 2 alone, the finalize writing the raw
+// f32 sums of x and x^2 per channel, which the caller all-reduces across
+// ranks before it normalizes. One read of x: the compulsory traffic.
+//
 // Loads are 16 B (8 bf16) or 32 B (8 f32) per thread, neighbouring
 // threads on neighbouring channels; rows are strided across the block's
 // warps. Built by paddle1_tpu_torch/ops/cuda/build.py with nvcc for
@@ -143,6 +148,22 @@ int norm_fwd(const void* x, const float* mean, const float* var,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int moments(const void* x, float* s, float* ss, float* ps, float* pss,
+            long long rows, int c, int tx, int chunks,
+            long long rows_per_chunk, cudaStream_t stream) {
+  dim3 block;
+  int tiles;
+  if (rows <= 0 || chunks < 1 || chunks > 65535 ||
+      !block_shape(c, tx, &block, &tiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  stats_partial_kernel<T><<<dim3(tiles, chunks), block, 0, stream>>>(
+      static_cast<const T*>(x), rows, c, rows_per_chunk, ps, pss);
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  return launch_finalize(ps, pss, chunks, c, 1.f, 1, s, ss, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -188,6 +209,26 @@ int p1t_fused_bn_norm_fwd(const void* x, const void* mean, const void* var,
   if (dtype == 1 && pdtype == 0) P1T_NORM(__nv_bfloat16, float);
   if (dtype == 1 && pdtype == 1) P1T_NORM(__nv_bfloat16, __nv_bfloat16);
 #undef P1T_NORM
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Per-channel f32 sum and sum of squares of x [rows, C]: s/ss f32 [C]
+// outputs; ps/pss f32 [chunks, C] scratch.
+int p1t_fused_bn_moments(const void* x, void* s, void* ss, void* ps,
+                         void* pss, long long rows, int c, int tx,
+                         int chunks, long long rows_per_chunk, int dtype,
+                         void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto a = static_cast<float*>(s);
+  auto b = static_cast<float*>(ss);
+  auto pa = static_cast<float*>(ps);
+  auto pb = static_cast<float*>(pss);
+  if (dtype == 0)
+    return moments<float>(x, a, b, pa, pb, rows, c, tx, chunks,
+                          rows_per_chunk, st);
+  if (dtype == 1)
+    return moments<__nv_bfloat16>(x, a, b, pa, pb, rows, c, tx, chunks,
+                                  rows_per_chunk, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -2,7 +2,8 @@
 plain versions.
 
 Port of ``paddle1_tpu/ops/pallas/fused_bn.py`` (``_bn_train_kernel``,
-``_bn_norm_kernel``, ``supported``, ``ACTS`` and the four custom VJPs).
+``_bn_norm_kernel``, ``_moments_kernel``, ``supported``, ``ACTS`` and the
+five custom VJPs).
 The kernels live in ``ops/cuda/fused_bn.cu``; the backward kernels in
 ``ops/cuda/fused_bn_bwd.cu`` (``ops/fused_bn_bwd.py``).
 
@@ -10,19 +11,25 @@ The kernels live in ``ops/cuda/fused_bn.cu``; the backward kernels in
   ``x2: [rows, C]``: ``(y, batch_mean, batch_var)`` with f32 statistics,
   ``y = act((x - mean) * rsqrt(var + eps) * gamma + beta [+ residual])``.
 * :func:`fused_bn_norm` — the same normalize from GIVEN statistics (eval,
-  ``use_global_stats``); ``mean``/``var`` stay differentiable.
+  ``use_global_stats``, and the cross-rank batch norm after its
+  all-reduce); ``mean``/``var`` stay differentiable.
+* :func:`local_moments` — per-channel f32 ``(sum, sum of squares)`` of
+  ``x2``: the per-rank half of the cross-rank batch norm's statistics.
 
-Both are ``torch.autograd.Function``s whose backward is
-``fused_bn_bwd.train_bwd`` / ``norm_bwd``. A CUDA tensor launches the
+The first two are ``torch.autograd.Function``s whose backward is
+``fused_bn_bwd.train_bwd`` / ``norm_bwd``; the moments' backward is the
+closed form ``dx = ds + 2 x dss`` in plain PyTorch, as the JAX package
+leaves it to XLA. A CUDA tensor launches the
 kernel or raises (no fallback); a CPU tensor runs the plain version
 (:func:`fused_bn_train_ref`, :func:`fused_bn_norm_ref`), which computes
 what the kernel computes: f32 sums, ``var = max(E[x^2] - mean^2, 0)``
 with the exact count as a host constant, f32 statistics, the cast at the
 edge.
 
-``fused_bn_train.launches`` and ``fused_bn_norm.launches`` count calls
-that launched the kernel: ONE per call, although a training call is
-three CUDA launches inside (partial sums, finalize, normalize).
+``fused_bn_train.launches``, ``fused_bn_norm.launches`` and
+``local_moments.launches`` count calls that launched the kernel: ONE per
+call, although a training call is three CUDA launches inside (partial
+sums, finalize, normalize) and a moments call two.
 """
 
 from __future__ import annotations
@@ -35,7 +42,8 @@ import torch
 from ..core.errors import InvalidArgumentError, KernelLaunchError
 
 __all__ = ["ACTS", "supported", "fused_bn_train", "fused_bn_norm",
-           "fused_bn_train_ref", "fused_bn_norm_ref"]
+           "local_moments", "fused_bn_train_ref", "fused_bn_norm_ref",
+           "local_moments_ref"]
 
 ACTS = ("identity", "relu")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -87,6 +95,13 @@ def fused_bn_train_ref(x2, gamma, beta, epsilon, act="identity",
     y = fused_bn_norm_ref(x2, mean, var, gamma, beta, epsilon, act,
                           residual)
     return y, mean, var
+
+
+def local_moments_ref(x2):
+    """Plain version of the moments kernel: per-channel f32 ``(sum,
+    sum of squares)`` of ``x2: [rows, C]``."""
+    xf = x2.float()
+    return xf.sum(dim=0), (xf * xf).sum(dim=0)
 
 
 def fused_bn_norm_ref(x2, mean, var, gamma, beta, epsilon, act="identity",
@@ -193,6 +208,8 @@ _ARGTYPES = {
     # pdtype; stream
     "p1t_fused_bn_norm_fwd": [_P] * 7 + [_L, _I, _I, _I, _F, _I, _I, _I,
                                          _P],
+    # x, s, ss, ps, pss; rows; c, tx, chunks; rows_per_chunk; dtype; stream
+    "p1t_fused_bn_moments": [_P] * 5 + [_L, _I, _I, _I, _L, _I, _P],
 }
 
 
@@ -266,6 +283,25 @@ def _norm_fwd(x2, m, v, g, b, res, eps, act):
         _raise("p1t_fused_bn_norm_fwd", rc, x2)
     fused_bn_norm.launches += 1
     return y
+
+
+def _moments_fwd(x2):
+    if x2.device.type == "cpu":
+        return local_moments_ref(x2)
+    check_rows("local_moments", x2)
+    rows, c = (int(s) for s in x2.shape)
+    tx, chunks, rpc, _ = plan(rows, c, x2.device)
+    out = torch.empty(2, c, dtype=torch.float32, device=x2.device)
+    part = torch.empty(2, chunks, c, dtype=torch.float32, device=x2.device)
+    fn = _kernel("p1t_fused_bn_moments")
+    with torch.cuda.device(x2.device):
+        rc = fn(x2.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                part[0].data_ptr(), part[1].data_ptr(), rows, c, tx, chunks,
+                rpc, _DTYPES[x2.dtype], torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        _raise("p1t_fused_bn_moments", rc, x2)
+    local_moments.launches += 1
+    return out[0], out[1]
 
 
 # ---------------------------------------------------------------------------
@@ -353,6 +389,21 @@ class _BNNorm(torch.autograd.Function):
                 None)
 
 
+class _LocalMoments(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2):
+        ctx.save_for_backward(x2)
+        return _moments_fwd(x2)
+
+    @staticmethod
+    def backward(ctx, ds, dss):
+        # the JAX rule (_lm_bwd_rule): dx = ds + 2 x dss in f32, cast to
+        # x.dtype; plain PyTorch, as the JAX package leaves it to XLA
+        x2, = ctx.saved_tensors
+        dx = ds.float()[None, :] + 2.0 * x2.float() * dss.float()[None, :]
+        return dx.to(x2.dtype)
+
+
 def fused_bn_train(x2, gamma, beta, epsilon, act="identity", residual=None):
     """Training-mode fused batch norm over channels-last ``x2: [rows, C]``
     (``residual`` the same shape, or None). Returns ``(y, batch_mean,
@@ -372,5 +423,13 @@ def fused_bn_norm(x2, mean, var, gamma, beta, epsilon, act="identity",
                          float(epsilon), act)
 
 
+def local_moments(x2):
+    """One f32 pass over ``x2: [rows, C]`` returning per-channel ``(sum,
+    sum_of_squares)``, each f32 ``[C]`` — the per-rank half of the
+    cross-rank batch norm's statistics; differentiable in ``x2``."""
+    return _LocalMoments.apply(x2)
+
+
 fused_bn_train.launches = 0   # kernel launches; reset by chip_smoke.py
 fused_bn_norm.launches = 0
+local_moments.launches = 0

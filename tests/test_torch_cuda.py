@@ -16,7 +16,11 @@ fused batch-norm family (training and given-statistics forward, their
 backward passes) they hold each kernel to its plain version across the
 activation x residual matrix in f32 and bf16, that inputs outside the
 contract raise, and that tiny ResNet-18 train, eval and frozen-statistics
-steps launch the kernels once per batch norm.
+steps launch the kernels once per batch norm. For the local-moments
+kernel (the cross-rank batch norm's per-rank statistics) they hold it to
+its plain version, its contract, and that a tiny ResNet-18 step of the
+data-parallel engine (one rank, no process group) launches it once per
+batch norm in place of the training kernels.
 """
 
 import numpy as np
@@ -332,3 +336,66 @@ def test_tiny_resnet_steps_launch_every_bn_kernel(dev):
     assert list(c3 - c2) == [0, 0, 20, 20]
     assert all(np.isfinite(losses + [frozen])) and losses[-1] < losses[0]
     assert out.shape == (4, 10) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c", [(4096, 64), (98, 2048), (401408, 64)])
+def test_local_moments_kernel_matches_its_plain_version(dev, dtype, rows, c):
+    x = _bn(dev, rows, c, dtype)[0]
+    before = fbn.local_moments.launches
+    s, ss = fbn._moments_fwd(x)
+    rs, rss = fbn.local_moments_ref(x)
+    assert fbn.local_moments.launches == before + 1
+    assert s.dtype == ss.dtype == torch.float32
+    # f32 sums over up to 4e5 rows in another order: relative 1e-4 with a
+    # floor of 1e-5 * sqrt(rows) for sums that cancel to near zero
+    floor = 1e-5 * rows ** 0.5
+    torch.testing.assert_close(s, rs, atol=floor, rtol=1e-4)
+    torch.testing.assert_close(ss, rss, atol=floor, rtol=1e-4)
+    again = fbn._moments_fwd(x)
+    assert torch.equal(again[0], s) and torch.equal(again[1], ss)
+    xg = x.detach().clone().requires_grad_()
+    ds = torch.randn(c, device=dev)
+    dss = torch.randn(c, device=dev)
+    dx, = torch.autograd.grad(fbn.local_moments(xg), xg, (ds, dss))
+    want = (ds[None] + 2.0 * x.float() * dss[None]).to(dtype)
+    assert dx.dtype == dtype and torch.equal(dx, want)
+
+
+@pytest.mark.parametrize("case", ["channels", "dtype", "strided"])
+def test_local_moments_outside_the_contract_raises_on_the_card(dev, case):
+    x = _bn(dev, 64, 16, torch.float32)[0]
+    if case == "channels":
+        x = x[:, :12].contiguous()
+    elif case == "dtype":
+        x = x.half()
+    else:
+        x = torch.randn(16, 64, device=dev).t()
+    with pytest.raises(InvalidArgumentError, match="contract"):
+        fbn.local_moments(x)
+
+
+def test_tiny_resnet_dp_step_launches_the_moments_kernel(dev):
+    from paddle1_tpu_torch.distributed import ParallelEngine, build_mesh
+    from paddle1_tpu_torch.optimizer import Momentum
+    from paddle1_tpu_torch.vision.models import resnet18
+    torch.manual_seed(0)
+    m = resnet18(num_classes=10)
+    eng = ParallelEngine(m, Momentum(learning_rate=1e-3,
+                                     parameters=m.parameters()),
+                         lambda mm, b: F.cross_entropy(mm(b["x"]), b["y"]),
+                         mesh=build_mesh(dp=1), amp_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    batch = eng.shard_batch({
+        "x": rng.standard_normal((4, 3, 32, 32)).astype(np.float32),
+        "y": rng.integers(0, 10, (4,))})
+    counts = lambda: np.array([fbn.local_moments.launches,  # noqa: E731
+                               fbn.fused_bn_norm.launches,
+                               fbb.norm_bwd.launches,
+                               fbn.fused_bn_train.launches,
+                               fbb.train_bwd.launches])
+    c0 = counts()
+    losses = [float(eng.step(batch)) for _ in range(3)]
+    # ResNet-18 has 20 batch norms, each on the cross-rank arm
+    assert list(counts() - c0) == [60, 60, 60, 0, 0]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

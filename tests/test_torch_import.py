@@ -46,6 +46,28 @@ def test_import_leaves_jax_and_the_jax_package_out():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_distributed_imports_neither_jax_nor_the_jax_package():
+    """The data-parallel slice: the process-group environment, the
+    collectives, DataParallel, spawn, the mesh and the engine."""
+    code = ("import sys\n"
+            "import paddle1_tpu_torch.distributed as d\n"
+            "import paddle1_tpu_torch.distributed.collective, "
+            "paddle1_tpu_torch.distributed.env, "
+            "paddle1_tpu_torch.distributed.parallel, "
+            "paddle1_tpu_torch.distributed.spawn, "
+            "paddle1_tpu_torch.distributed.topology\n"
+            "assert d.ParallelEngine and d.DataParallel and d.spawn\n"
+            "from paddle1_tpu_torch.nn import SyncBatchNorm\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'paddle1_tpu.')) or "
+            "m == 'paddle1_tpu')\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def _imported_modules(path):
     tree = ast.parse(open(path).read())
     for node in ast.walk(tree):

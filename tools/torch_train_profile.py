@@ -7,7 +7,11 @@
 ``--batch`` x seq ``--seq``, seeded random weights, ``bench.py``'s batch);
 ``--model resnet50`` its ResNet-50 path (``resnet50()`` + Momentum(1e-3,
 0.9), bf16, batch ``--batch`` (default 32) x 3 x 224 x 224 from
-``benches.py:91-162``, two seeded batches staged on the card and cycled).
+``benches.py:91-162``, two seeded batches staged on the card and cycled);
+``--model resnet50 --dp`` the same on its data-parallel path at world size
+1 (``init_parallel_env()``: NCCL; ``ParallelEngine`` on
+``build_mesh(dp=1)``, so every batch norm runs the local-moments kernel,
+an all-reduce each way and the given-statistics kernels).
 It runs ``--warmup`` steps, then:
 
 * times ``--steps`` steps on the host clock, ending in one loss readback
@@ -17,11 +21,13 @@ It runs ``--warmup`` steps, then:
   times), its idle share, the time per step of the port's own kernels
   (for ResNet-50, the fused batch-norm family and its share of the busy
   time), of the library's matrix products and convolutions and of
-  everything else, and the kernels by total device time.
+  everything else, and the kernels by total device time; with ``--dp``
+  also the device time per step of the all-reduces (NCCL) and of the
+  local moments' backward (plain PyTorch), which this tool labels.
 
 Prints one JSON object.
 
-    python3 tools/torch_train_profile.py [--model resnet50] [--steps 10]
+    python3 tools/torch_train_profile.py [--model resnet50 [--dp]] [--steps 10]
 """
 
 from __future__ import annotations
@@ -88,36 +94,74 @@ def _bert(args, dev):
 
 
 def _resnet50(args, dev):
-    from paddle1_tpu_torch.distributed import ParallelEngine
+    from paddle1_tpu_torch import distributed as pdist
     from paddle1_tpu_torch.nn import functional as F
     from paddle1_tpu_torch.optimizer import Momentum
     from paddle1_tpu_torch.vision.models import resnet50
+    mesh = None
+    if args.dp:
+        pdist.init_parallel_env()
+        mesh = pdist.build_mesh(dp=1)
     model = resnet50(generator=torch.Generator().manual_seed(args.seed))
-    eng = ParallelEngine(model, Momentum(learning_rate=1e-3, momentum=0.9,
-                                         parameters=model.parameters()),
-                         lambda m, b: F.cross_entropy(m(b["x"]), b["y"]),
-                         amp_dtype="bfloat16")
+    eng = pdist.ParallelEngine(
+        model, Momentum(learning_rate=1e-3, momentum=0.9,
+                        parameters=model.parameters()),
+        lambda m, b: F.cross_entropy(m(b["x"]), b["y"]), mesh=mesh,
+        amp_dtype="bfloat16")
     rng = np.random.default_rng(0)
-    staged = [{"x": torch.from_numpy(rng.standard_normal(
-                   (args.batch, 3, 224, 224)).astype(np.float32)).to(dev),
-               "y": torch.from_numpy(rng.integers(
-                   0, 1000, (args.batch,))).to(dev)} for _ in range(2)]
+    staged = [eng.shard_batch({
+        "x": torch.from_numpy(rng.standard_normal(
+            (args.batch, 3, 224, 224)).astype(np.float32)).to(dev),
+        "y": torch.from_numpy(rng.integers(0, 1000, (args.batch,))).to(dev)})
+        for _ in range(2)]
     turn = [0]
 
     def step():
         turn[0] += 1
         return eng.step(staged[turn[0] % 2])
-    return step, {"img": 224}
+    return step, {"img": 224, "dp_world_size": 1 if args.dp else None}
+
+
+def _label_dp_work():
+    """Run the local moments' backward and every all-reduce under profiler
+    labels, so the device work each launches can be summed (tool-side
+    only: the port calls ``torch.distributed.all_reduce`` through the
+    module)."""
+    import torch.distributed as tdist
+    from torch.profiler import record_function
+    from paddle1_tpu_torch.ops import fused_bn as fbn
+    orig_bwd, orig_ar = fbn._LocalMoments.backward, tdist.all_reduce
+
+    def backward(ctx, *grads):
+        with record_function("local_moments_backward"):
+            return orig_bwd(ctx, *grads)
+
+    def all_reduce(*a, **kw):
+        with record_function("all_reduce"):
+            return orig_ar(*a, **kw)
+    fbn._LocalMoments.backward = staticmethod(backward)
+    tdist.all_reduce = all_reduce
+
+
+def _label_ms(prof, name, n):
+    """Device ms per step of the kernels launched under label ``name``
+    (the host-side label's tree; its device-side span is left out)."""
+    from torch.autograd import DeviceType
+    return sum(e.device_time_total for e in prof.events()
+               if e.name == name and e.device_type == DeviceType.CPU) \
+        / 1e3 / n
 
 
 def _kernel_times(prof):
     """``{kernel name: (total us, calls)}`` over the device-side kernel
     events of a profile (op rows, which also carry their kernels' device
-    time, are left out so nothing is counted twice)."""
+    time, and the device-side spans of labels, which cover kernels, are
+    left out so nothing is counted twice)."""
     from torch.autograd import DeviceType
     out = {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
             continue
         us, n = out.get(e.name, (0.0, 0))
         out[e.name] = (us + e.time_range.elapsed_us(), n + 1)
@@ -134,7 +178,11 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--profile-steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=1234)
+    ap.add_argument("--dp", action="store_true",
+                    help="resnet50 on its data-parallel path, world size 1")
     args = ap.parse_args()
+    if args.dp and args.model != "resnet50":
+        ap.error("--dp needs --model resnet50")
     if args.batch is None:
         args.batch = 128 if args.model == "bert" else 32
     if not torch.cuda.is_available():
@@ -153,6 +201,8 @@ def main() -> int:
     step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
     from torch.profiler import ProfilerActivity, profile
+    if args.dp:
+        _label_dp_work()     # for the profiled steps only
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -196,6 +246,18 @@ def main() -> int:
         "top_kernels": [{"name": k[0][:120], "ms_per_step": k[1] / 1e3 / n,
                          "calls_per_step": k[2] / n} for k in kernels[:25]],
     }
+    if args.dp:
+        from torch.autograd import DeviceType
+        result["nccl_kernels_ms_per_step"] = sum(
+            k[1] for k in kernels if "nccl" in k[0].lower()) / 1e3 / n
+        result["all_reduce_ms_per_step"] = _label_ms(prof, "all_reduce", n)
+        result["all_reduces_per_step"] = sum(
+            1 for e in prof.events() if e.name == "all_reduce" and
+            e.device_type != DeviceType.CUDA) / n
+        result["moments_backward_ms_per_step"] = _label_ms(
+            prof, "local_moments_backward", n)
+        import torch.distributed as tdist
+        tdist.destroy_process_group()
     print(json.dumps(result))
     return 0
 
