@@ -8,7 +8,7 @@ Run from the repo root with no arguments::
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. **Card and build.** Print the card's name and power limit (nvidia-smi),
-   then build every CUDA kernel of the serving path from
+   then build every CUDA kernel of the port from
    ``paddle1_tpu_torch/ops/cuda/*.cu`` (one nvcc per source, in parallel).
 2. **Kernels.** Hold each kernel against its plain PyTorch version on the
    card at the serving path's shapes (paged attention also with f32
@@ -102,6 +102,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
     batch, and the two ranks hold identical parameters. With two or more
     cards the same check runs over NCCL, one rank per card. A failed rank
     fails the run.
+14. **The row-softmax kernel.** The eager slice's kernel against its
+    plain version at ``[64, 10]`` (LeNet's prediction), ``[32, 1000]``
+    (ResNet-50's head), ``[196608, 128]`` (BERT-base's attention scores
+    at batch 128), ``[2048, 32000]`` (the serving vocabulary) and the
+    ragged ``[1000, 1003]``, in f32 (1e-6 abs), bf16 and f16 (one
+    rounding step), half of one row masked to -inf, repeats bit-identical; its
+    autograd gradient against plain autograd (1e-6, f32); timed in bf16
+    beside its plain version, ``torch.softmax`` and its bound.
+15. **Eager LeNet (the fifth main path).** BASELINE config 1
+    (``benches.py:52-88``): ``LeNet()`` with seeded weights, ``Adam(1e-3)``,
+    two seeded batches of 64 x 1 x 28 x 28 staged with ``to_tensor`` as
+    Paddle tensors; ``model(x)``, ``F.cross_entropy``, ``loss.backward()``,
+    ``opt.step()``, ``opt.clear_grad()``: two warm-up steps, then
+    slope+readback timing over the bench's 20 steps with the counters
+    zeroed just before and read just after (one fused Adam launch a step,
+    no softmax). The loss must be finite and falling. The same loop on a
+    twin with plain torch parameters and inputs, in turns, gives the
+    facade's host cost. Then a prediction under ``no_grad``,
+    ``F.softmax(model(x))``: exactly one softmax launch, rows summing to
+    1 within 1e-5, the argmax of the logits. Then, in f32 from identical
+    weights, three steps and a prediction on the kernel path against the
+    plain path (``fused_softmax``/``fused_adam`` ``never``): losses and
+    parameters within 1e-5, probabilities within 1e-6; and a
+    ``save``/``load`` of the model and Adam state into a fresh LeNet and
+    Adam, whose next step equals the uninterrupted run's bit for bit.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -167,6 +192,17 @@ RN_REF_CUT = {"batch": 32, "img": 64, "blocks": 1}
 RN_F64_FACTOR, RN_GRAD_TOL = 2.0, 1e-3
 # data-parallel ResNet-50: ranks of the cross-rank check, its time limit
 DP_RANKS, DP_RANK_TIMEOUT_S = 2, 300
+# row softmax: LeNet's [64, 10], ResNet-50's head [32, 1000], BERT-base's
+# attention scores at batch 128 (128 * 12 * 128 rows of 128), the serving
+# vocabulary [2048, 32000] and a ragged width. f32: the same max, exps and
+# a sum in another order (the wide rows' online sum) agree to SM_TOL; bf16
+# and f16: one rounding step of the output (BF16_REL, F16_REL)
+SM_SHAPES = ((64, 10), (32, 1000), (196608, 128), (2048, 32000),
+             (1000, 1003))
+SM_TOL, F16_REL = 1e-6, 2.0 ** -10
+# eager LeNet (BASELINE config 1, benches.py:52-88): batch 64, Adam(1e-3),
+# the bench's 20 timed steps; f32 kernel-vs-plain check over 3 steps
+LENET_BATCH, LENET_STEPS, LENET_REF_STEPS, LENET_REF_TOL = 64, 20, 3, 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -1881,6 +1917,327 @@ def cross_rank_check(dev, runs=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the row-softmax kernel against its plain version
+
+
+def softmax_phase(dev):
+    """The softmax kernel against its plain version at SM_SHAPES, f32
+    (SM_TOL abs), bf16 and f16 (one rounding step), repeats bit-identical,
+    with
+    a masked (-inf) half row; the gradient through its autograd Function
+    against plain autograd in f32; then timed in bf16 over enough input
+    sets to leave the L2 cache, beside its plain version, ``torch.softmax``
+    (the library) and its bound: x read once and y written once,
+    ``2·rows·h·itemsize`` bytes, five f32 operations per element."""
+    from paddle1_tpu_torch.ops import softmax as psm
+    errs, times = [], []
+    for rows, h in SM_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            g = torch.Generator(device=dev).manual_seed(SEED + 14 + rows + h)
+            x = (torch.randn(rows, h, device=dev, generator=g) * 4).to(dtype)
+            x[0, : h // 2] = -float("inf")
+            y = psm.softmax_fwd(x)
+            want = psm.softmax_ref(x)
+            torch.cuda.synchronize()
+            tag = f"[{rows}, {h}] {str(dtype).split('.')[-1]}"
+            check(y.dtype == dtype and bool(torch.isfinite(y).all()),
+                  f"softmax {tag}: non-finite output or wrong dtype")
+            check(float(y[0, : h // 2].abs().max()) == 0.0,
+                  f"softmax {tag}: a -inf entry has probability")
+            err = float((y.float() - want.float()).abs().max())
+            if dtype == torch.float32:
+                check(err <= SM_TOL, f"softmax {tag}: err {err} > {SM_TOL}")
+            else:
+                rel = BF16_REL if dtype == torch.bfloat16 else F16_REL
+                ex = float(((y.float() - want.float()).abs() -
+                            rel * want.float().abs()).max())
+                check(ex <= BF16_ABS, f"softmax {tag}: {ex} beyond one "
+                      "rounding step")
+            check(torch.equal(psm.softmax_fwd(x), y),
+                  f"softmax {tag}: a repeat differs")
+            errs.append({"shape": [rows, h], "dtype": str(dtype),
+                         "max_abs_err": err})
+            del x, y, want
+        torch.cuda.empty_cache()
+    grad_err = 0.0
+    for rows, h in SM_SHAPES[:2]:
+        g = torch.Generator(device=dev).manual_seed(SEED + 15 + h)
+        x = torch.randn(rows, h, device=dev, generator=g)
+        dy = torch.randn(rows, h, device=dev, generator=g)
+        xk = x.clone().requires_grad_(True)
+        psm.fused_softmax(xk).backward(dy)
+        xr = x.clone().requires_grad_(True)
+        torch.softmax(xr, dim=-1).backward(dy)
+        grad_err = max(grad_err, float((xk.grad - xr.grad).abs().max()))
+    check(grad_err <= SM_TOL, f"softmax autograd: dx differs from plain "
+          f"autograd by {grad_err} > {SM_TOL}")
+    log(f"softmax: f32, bf16 and f16 within tolerance at "
+        f"{[list(s) for s in SM_SHAPES]}, repeats bit-identical; autograd "
+        f"dx within {grad_err:.3g} of plain autograd")
+    for rows, h in SM_SHAPES:
+        need = 2 * rows * h * 2
+        n_sets = max(1, min(4, -(-200_000_000 // need)))
+        g = torch.Generator(device=dev).manual_seed(SEED + 16)
+        xs = [torch.randn(rows, h, device=dev, generator=g).to(
+            torch.bfloat16) for _ in range(n_sets)]
+        t = {"ms": graph_time_ms([lambda x=x: psm.softmax_fwd(x)
+                                  for x in xs]),
+             "plain_ms": graph_time_ms([lambda x=x: psm.softmax_ref(x)
+                                        for x in xs]),
+             "library_ms": graph_time_ms([
+                 lambda x=x: torch.softmax(x, dim=-1) for x in xs])}
+        b_ms, by = bound(need, 5.0 * rows * h, F32_FLOPS_PER_S)
+        times.append({"shape": [rows, h], "dtype": "bf16", **t,
+                      "library_covers": "torch.softmax (last axis)",
+                      "bound_ms": b_ms, "bound_by": by, "bound_bytes": need,
+                      "input_sets": n_sets})
+        log(f"softmax bf16 [{rows}, {h}]: kernel {t['ms']:.5f} ms, plain "
+            f"{t['plain_ms']:.5f} ms, torch.softmax {t['library_ms']:.5f} "
+            f"ms, bound {b_ms:.5f} ms ({by})")
+        del xs
+        torch.cuda.empty_cache()
+    return errs, times, grad_err
+
+
+# ---------------------------------------------------------------------------
+# phase 15: eager LeNet (BASELINE config 1, the fifth main path)
+
+
+def lenet_batches(paddle, n=2, seed=0):
+    """``n`` seeded batches of LENET_BATCH x 1 x 28 x 28 images and labels
+    as Paddle tensors on the current place (benches.py:60-70)."""
+    rng = np.random.default_rng(seed)
+    return [(paddle.to_tensor(rng.standard_normal(
+        (LENET_BATCH, 1, 28, 28)).astype(np.float32)),
+        paddle.to_tensor(rng.integers(0, 10, (LENET_BATCH,)).astype(
+            np.int64))) for _ in range(n)]
+
+
+def lenet_step_fn(paddle, model, opt, batches):
+    """benches.py:72-78's eager step over the staged batches in turn."""
+    F = paddle.nn.functional
+    turn = [0]
+
+    def step():
+        x, y = batches[turn[0] % len(batches)]
+        turn[0] += 1
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return step
+
+
+def facade_op_us(dev, n=2000):
+    """Host µs per op of a small add on Paddle tensors and on plain
+    tensors (the re-wrapping's cost per op), each timed twice in turns."""
+    import paddle1_tpu_torch as paddle
+    a = paddle.to_tensor(np.ones(16, np.float32))
+    pa = a.as_subclass(torch.Tensor)
+    out = {"facade": [], "plain": []}
+    for kind in ("facade", "plain", "plain", "facade"):
+        x = a if kind == "facade" else pa
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            x + x
+        torch.cuda.synchronize()
+        out[kind].append((time.perf_counter() - t0) * 1e6 / n)
+    return {k: min(v) for k, v in out.items()}
+
+
+def plain_twin(model):
+    """A deep copy of ``model`` whose parameters are plain
+    ``torch.nn.Parameter``s (no Paddle facade, so no re-wrapping)."""
+    import copy
+    twin = copy.deepcopy(model)
+    for mod in twin.modules():
+        for name, p in list(mod._parameters.items()):
+            if p is not None:
+                mod._parameters[name] = torch.nn.Parameter(
+                    p.detach().as_subclass(torch.Tensor),
+                    requires_grad=p.requires_grad)
+    return twin
+
+
+def lenet_phase(dev):
+    """Eager LeNet on Paddle tensors: 2 warm-up steps, then slope+readback
+    timing over LENET_STEPS steps with the counters zeroed just before and
+    read just after (1 fused Adam launch a step, no softmax); the same loop
+    on a twin with plain torch parameters and inputs (the facade's host
+    cost), in turns; then a prediction under no_grad with exactly one
+    softmax launch."""
+    import paddle1_tpu_torch as paddle
+    from paddle1_tpu_torch.ops import fused_adam as fad
+    from paddle1_tpu_torch.ops import softmax as psm
+    from paddle1_tpu_torch.vision.models import LeNet
+    F = paddle.nn.functional
+    paddle.seed(SEED)
+    model = LeNet()
+    check(all(isinstance(p, paddle.Parameter) and p.device.type == "cuda"
+              and not p.stop_gradient for p in model.parameters()),
+          "LeNet's parameters are not Paddle Parameters on the card")
+    twin = plain_twin(model)
+    opt = paddle.optimizer.Adam(learning_rate=1e-3,
+                                parameters=model.parameters())
+    batches = lenet_batches(paddle)
+    check(batches[0][0].place == paddle.CUDAPlace(dev.index or 0) and
+          isinstance(batches[0][0], paddle.Tensor),
+          "to_tensor did not stage the batch on the card")
+    step = lenet_step_fn(paddle, model, opt, batches)
+    loss0 = float(step().numpy())
+    step()
+    counters = {"fused_adam": fad.fused_adam_,
+                "softmax": psm.fused_softmax}
+    for fn in counters.values():
+        fn.launches = 0
+    slopes, last, steps = timed_steps(step, LENET_STEPS)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(isinstance(last, paddle.Tensor), "the loss is not a Paddle Tensor")
+    loss_end = float(last.numpy())
+    check(np.isfinite(loss0) and np.isfinite(loss_end),
+          f"non-finite loss {loss0} / {loss_end}")
+    check(loss_end < loss0, f"loss did not fall: {loss0} -> {loss_end}")
+    check(launches == {"fused_adam": steps, "softmax": 0},
+          f"{steps} eager steps launched {launches}, want {steps} fused "
+          "Adam and no softmax")
+
+    topt = paddle.optimizer.Adam(learning_rate=1e-3,
+                                 parameters=twin.parameters())
+    plain_batches = [(x.as_subclass(torch.Tensor), y.as_subclass(
+        torch.Tensor)) for x, y in batches]
+    plain_step = lenet_step_fn(paddle, twin, topt, plain_batches)
+    check(type(plain_step()) is torch.Tensor, "the twin is not plain")
+    plain_step()
+    facade_ms, plain_ms = [float(np.median(slopes)) * 1e3], []
+    for fn, acc in ((plain_step, plain_ms), (plain_step, plain_ms),
+                    (step, facade_ms)):
+        acc.append(float(np.median(timed_steps(fn, LENET_STEPS)[0])) * 1e3)
+    per_op = facade_op_us(dev)
+
+    with paddle.no_grad():
+        for fn in counters.values():
+            fn.launches = 0
+        x = batches[0][0]
+        probs = F.softmax(model(x))
+        torch.cuda.synchronize()
+        pred_launches = {k: fn.launches for k, fn in counters.items()}
+        logits = model(x)
+    check(pred_launches == {"fused_adam": 0, "softmax": 1},
+          f"the prediction launched {pred_launches}, want one softmax")
+    p = probs.numpy()
+    check(isinstance(probs, paddle.Tensor) and probs.stop_gradient and
+          p.shape == (LENET_BATCH, 10), "prediction: not a [64, 10] Tensor "
+          "without gradient")
+    row_err = float(np.abs(p.sum(-1) - 1.0).max())
+    check(row_err <= 1e-5, f"prediction rows sum to 1 within {row_err}")
+    check(bool((p.argmax(-1) == logits.numpy().argmax(-1)).all()),
+          "prediction: argmax differs from the logits'")
+    dt = float(np.median(facade_ms)) / 1e3
+    summary = {
+        "train": "lenet_eager", "batch": LENET_BATCH, "dtype": "float32",
+        "params": sum(p.numel() for p in model.parameters()),
+        "steps": steps, "timing": "slope+readback",
+        "step_ms_median": dt * 1e3, "step_ms_min": min(slopes) * 1e3,
+        "step_ms_max": max(slopes) * 1e3, "samples_per_s": LENET_BATCH / dt,
+        "step_ms_facade_runs": facade_ms, "step_ms_plain_runs": plain_ms,
+        "facade_host_ms_per_step": float(np.median(facade_ms)) -
+        float(np.median(plain_ms)),
+        "op_host_us": per_op,
+        "loss_first": loss0, "loss_last": loss_end,
+        "launches": launches,
+        "launches_per_step": {k: n / steps for k, n in launches.items()},
+        "predict_launches": pred_launches, "predict_row_sum_err": row_err,
+    }
+    log(json.dumps(summary))
+    return summary
+
+
+def lenet_reference_check(dev):
+    """f32, from identical seeded weights: LENET_REF_STEPS eager steps and
+    a prediction on the kernel path against the plain path (the
+    ``fused_softmax`` and ``fused_adam`` flags ``never``); then save the
+    kernel path's model and Adam state, load both into a fresh LeNet and
+    Adam, and take one more step on each: bit-identical."""
+    import os
+    import tempfile
+    import paddle1_tpu_torch as paddle
+    from paddle1_tpu_torch.core.flags import flags_guard
+    from paddle1_tpu_torch.ops import fused_adam as fad
+    from paddle1_tpu_torch.ops import softmax as psm
+    from paddle1_tpu_torch.vision.models import LeNet
+    F = paddle.nn.functional
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        batches = lenet_batches(paddle, 1, seed=1)
+        runs = {}
+        for path, flags in (("kernel", {}),
+                            ("plain", {"fused_softmax": "never",
+                                       "fused_adam": "never"})):
+            with flags_guard(flags):
+                model = LeNet(generator=torch.Generator().manual_seed(SEED))
+                opt = paddle.optimizer.Adam(learning_rate=1e-3,
+                                            parameters=model.parameters())
+                step = lenet_step_fn(paddle, model, opt, batches)
+                n_adam, n_sm = fad.fused_adam_.launches, \
+                    psm.fused_softmax.launches
+                losses = [float(step().numpy())
+                          for _ in range(LENET_REF_STEPS)]
+                with paddle.no_grad():
+                    probs = F.softmax(model(batches[0][0]))
+                torch.cuda.synchronize()
+                runs[path] = {"losses": losses, "model": model, "opt": opt,
+                              "probs": probs, "launches": (
+                                  fad.fused_adam_.launches - n_adam,
+                                  psm.fused_softmax.launches - n_sm)}
+        k, p = runs["kernel"], runs["plain"]
+        check(k["launches"] == (LENET_REF_STEPS, 1) and
+              p["launches"] == (0, 0), f"reference check launches: kernel "
+              f"{k['launches']}, plain {p['launches']}")
+        loss_err = max(abs(a - b) for a, b in zip(k["losses"], p["losses"]))
+        param_err = max(float((a - b).abs().max()) for a, b in
+                        zip(k["model"].parameters(), p["model"].parameters()))
+        prob_err = float((k["probs"] - p["probs"]).abs().max())
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "lenet.pdckpt")
+            paddle.save({"model": k["model"].state_dict(),
+                         "opt": k["opt"].state_dict()}, path)
+            ck = paddle.load(path)
+        fresh = LeNet()
+        fresh.load_state_dict(ck["model"])
+        fopt = paddle.optimizer.Adam(learning_rate=1e-3,
+                                     parameters=fresh.parameters())
+        fopt.set_state_dict(ck["opt"])
+        on = float(lenet_step_fn(paddle, k["model"], k["opt"], batches)()
+                   .numpy())
+        resumed = float(lenet_step_fn(paddle, fresh, fopt, batches)()
+                        .numpy())
+        resume_equal = on == resumed and all(
+            torch.equal(a, b) for a, b in zip(k["model"].parameters(),
+                                              fresh.parameters()))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    out = {"steps": LENET_REF_STEPS, "losses_kernel": k["losses"],
+           "losses_plain": p["losses"], "max_loss_err": loss_err,
+           "max_param_err": param_err, "max_prob_err": prob_err,
+           "resume_loss": [on, resumed], "resume_bit_identical": resume_equal}
+    log(json.dumps({"lenet_reference_check": out}))
+    check(loss_err <= LENET_REF_TOL and param_err <= LENET_REF_TOL,
+          f"LeNet kernel path against plain path: loss {loss_err}, params "
+          f"{param_err} > {LENET_REF_TOL}")
+    check(prob_err <= SM_TOL, f"LeNet probabilities differ by {prob_err} > "
+          f"{SM_TOL}")
+    check(resume_equal, f"a step after save/load differs from the "
+          f"uninterrupted run: {on} vs {resumed}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1943,6 +2300,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     cross_rank_check(dev)
 
+    sm_errs, sm_times, sm_grad_err = softmax_phase(dev)
+    lenet = lenet_phase(dev)
+    lenet_reference_check(dev)
+
     src = "paddle1_tpu_torch/ops/cuda/"
     pallas = "paddle1_tpu/ops/pallas/"
     tl = train["launches"]
@@ -1989,11 +2350,12 @@ def main() -> int:
             "library_covers": "sdpa forward" if key == "fwd" else
             "sdpa forward + backward (dq, dk, dv)",
             "cases": flash_errs[key]})
+    by_path = {"train": tl["fused_adam"],
+               "lenet_train": lenet["launches"]["fused_adam"]}
     line.append({
         "name": "fused_adam", "route": "cuda", "source": src + "fused_adam.cu",
         "replaces": pallas + "fused_adam.py:39",
-        "launches": tl["fused_adam"],
-        "launches_by_path": {"train": tl["fused_adam"]},
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": max(c["max_abs_err"] for c in adam["cases"]),
         "ms": adam["ms"], "plain_ms": adam["plain_ms"],
         "bound_ms": adam["bound_ms"], "bound_by": adam["bound_by"],
@@ -2036,6 +2398,19 @@ def main() -> int:
         "library_covers": main_case["library_covers"],
         "shape": [main_case["shape"], "bf16"], "timing_cases": mom_times,
         "cases": mom_errs})
+    main_case = sm_times[0]     # LeNet's prediction, [64, 10]
+    n_sm = lenet["predict_launches"]["softmax"]
+    line.append({
+        "name": "softmax", "route": "cuda", "source": src + "softmax.cu",
+        "replaces": pallas + "softmax.py:40", "launches": n_sm,
+        "launches_by_path": {"lenet_predict": n_sm},
+        "max_abs_err": max(c["max_abs_err"] for c in sm_errs),
+        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"],
+        "library_covers": main_case["library_covers"],
+        "shape": [main_case["shape"], "bf16"], "timing_cases": sm_times,
+        "autograd_max_abs_err": sm_grad_err, "cases": sm_errs})
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

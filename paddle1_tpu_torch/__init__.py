@@ -21,10 +21,34 @@ Slice 4a is data-parallel training over ``torch.distributed``
 ``DataParallel``, ``nn.SyncBatchNorm``, and ``ParallelEngine`` on
 ``distributed.build_mesh(dp=n)``), where every training batch norm takes
 the global batch's statistics through the local-moments kernel.
+Slice 2b(i) is the eager dygraph API of BASELINE config 1 (MNIST LeNet):
+the Paddle ``Tensor``/``Parameter`` (a ``torch.Tensor`` subclass),
+``to_tensor``, places, seeds, ``autograd`` (``grad``, ``no_grad``,
+``PyLayer``), ``save``/``load`` and ``vision.models.LeNet``, with
+``nn.functional.softmax`` on the hand-written row-softmax kernel.
 """
 
-from . import distributed, optimizer, serving, text, vision  # noqa: F401
+from . import (autograd, distributed, framework, nn,  # noqa: F401
+               optimizer, serving, text, vision)
+from .autograd import (enable_grad, grad, is_grad_enabled,  # noqa: F401
+                       no_grad, set_grad_enabled)
 from .core.device import resolve_device  # noqa: F401
+from .core.dtype import (bfloat16, bool_, complex64,  # noqa: F401
+                         complex128, float16, float32, float64,
+                         get_default_dtype, int8, int16, int32, int64,
+                         set_default_dtype, uint8)
+from .core.generator import get_rng_state, seed, set_rng_state  # noqa: F401
+from .core.place import (CPUPlace, CUDAPlace, device_guard,  # noqa: F401
+                         get_device, set_device)
+from .core.tensor import Parameter, Tensor, to_tensor  # noqa: F401
+from .framework import load, save  # noqa: F401
 
-__all__ = ["distributed", "optimizer", "serving", "text", "vision",
-           "resolve_device"]
+__all__ = ["autograd", "distributed", "framework", "nn", "optimizer",
+           "serving", "text", "vision", "resolve_device", "to_tensor",
+           "Tensor", "Parameter", "seed", "get_rng_state", "set_rng_state",
+           "grad", "no_grad", "enable_grad", "set_grad_enabled",
+           "is_grad_enabled", "save", "load", "CPUPlace", "CUDAPlace",
+           "set_device", "get_device", "device_guard", "get_default_dtype",
+           "set_default_dtype", "float32", "float64", "float16", "bfloat16",
+           "int8", "int16", "int32", "int64", "uint8", "bool_", "complex64",
+           "complex128"]

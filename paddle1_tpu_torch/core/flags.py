@@ -195,6 +195,15 @@ def _define_builtin_flags() -> None:
                 "batch-norm kernels see a free [rows, C] view: auto "
                 "(CUDA tensors only), always, never.",
                 validator=_tri)
+    # eager softmax (JAX package: fused_softmax, auto = TPU only)
+    define_flag("fused_softmax", "auto",
+                "Hand-written CUDA row softmax for F.softmax over the last "
+                "axis: auto (CUDA tensors only), always (the plain version "
+                "on CPU tensors), never (torch.softmax, as the JAX "
+                "package's jax.nn.softmax). Shapes and axes outside "
+                "ops.softmax.supported() take the never arm; on the "
+                "kernel's arm a dtype other than f32, bf16 or f16 raises.",
+                validator=_tri)
     # collectives (JAX package: the same flag, there the coordination
     # service's initialization timeout)
     define_flag("collective_timeout_s", 1800.0,

@@ -1,12 +1,16 @@
 """Activation functionals (port of the subset of
-``paddle1_tpu/nn/functional/activation.py`` the serving and BERT slices
-run)."""
+``paddle1_tpu/nn/functional/activation.py`` the serving, BERT and eager
+LeNet slices run)."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["relu", "gelu", "tanh"]
+from ...core import dtype as dtypes
+from ...core.flags import flag_active
+from ...ops import softmax as psm
+
+__all__ = ["relu", "gelu", "tanh", "softmax", "softmax_", "log_softmax"]
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
@@ -21,3 +25,36 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.tanh(x)
+
+
+def softmax(x: torch.Tensor, axis: int = -1, dtype=None,
+            name=None) -> torch.Tensor:
+    """Softmax along ``axis``, routed as in the JAX package: cast to
+    ``dtype`` first; then the hand-written kernel (``ops/softmax.py``)
+    when the ``fused_softmax`` flag is active for the tensor's device and
+    ``supported(shape, axis)`` holds (the last axis); otherwise
+    ``torch.softmax``, the counterpart of the reference's
+    ``jax.nn.softmax``. The choice is made before any launch, on shape
+    and axis alone as in the reference: a CUDA tensor of a dtype the
+    kernel lacks (f32, bf16 and f16 are in) raises InvalidArgumentError
+    instead of leaving the kernel."""
+    if dtype is not None:
+        x = x.to(dtypes.convert_dtype(dtype))
+    if flag_active("fused_softmax", x.device) and \
+            psm.supported(x.shape, axis):
+        return psm.fused_softmax(x)
+    return torch.softmax(x, dim=axis)
+
+
+def softmax_(x: torch.Tensor, axis: int = -1, dtype=None,
+             name=None) -> torch.Tensor:
+    """:func:`softmax` written into ``x`` (which keeps its dtype)."""
+    y = softmax(x, axis, dtype)
+    return x.copy_(y)
+
+
+def log_softmax(x: torch.Tensor, axis: int = -1, dtype=None,
+                name=None) -> torch.Tensor:
+    if dtype is not None:
+        x = x.to(dtypes.convert_dtype(dtype))
+    return torch.log_softmax(x, dim=axis)

@@ -1,5 +1,5 @@
-"""Losses (port of ``cross_entropy`` with hard labels from
-``paddle1_tpu/nn/functional/loss.py``)."""
+"""Losses (port of ``cross_entropy`` and ``softmax_with_cross_entropy``
+from ``paddle1_tpu/nn/functional/loss.py``)."""
 
 from __future__ import annotations
 
@@ -7,33 +7,80 @@ import torch
 
 from ...core.errors import InvalidArgumentError
 
-__all__ = ["cross_entropy"]
+__all__ = ["cross_entropy", "softmax_with_cross_entropy"]
+
+
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
 
 
 def cross_entropy(input: torch.Tensor, label: torch.Tensor,
-                  ignore_index: int = -100, reduction: str = "mean"
+                  ignore_index: int = -100, reduction: str = "mean",
+                  soft_label: bool = False, axis: int = -1,
+                  use_softmax: bool = True, label_smoothing: float = 0.0
                   ) -> torch.Tensor:
-    """Softmax cross entropy against integer class labels along the last
-    axis (a label tensor with a trailing singleton axis is squeezed).
-    Labels equal to ``ignore_index`` contribute 0; ``mean`` divides the
-    sum by the count of valid labels (at least 1), ``none`` returns the
-    per-position losses, ``sum`` their sum.
+    """Cross entropy of ``input`` along ``axis``, the JAX package's arms:
 
-    The log-softmax is taken in f32 whatever the input's dtype (a bf16
-    logit tensor under ``amp_dtype`` included), and the loss is f32."""
+    - ``use_softmax`` (default): ``input`` are logits and the log-softmax
+      is taken in f32 whatever their dtype (a bf16 logit tensor under
+      ``amp_dtype`` included); ``use_softmax=False``: ``input`` are
+      probabilities, ``log(clip(input, 1e-15, 1))``.
+    - Soft labels (``soft_label``, or a label of the input's dtype and
+      shape): ``-sum(label * logp)``, reduced over every position.
+    - Integer class labels (a trailing singleton axis is squeezed):
+      ``-logp[label]``; labels equal to ``ignore_index`` contribute 0 and
+      ``mean`` divides by the count of the others (at least 1).
+    - ``label_smoothing`` ε mixes either label with the uniform
+      distribution: ``(1 - ε) * label + ε / classes``.
+
+    ``none`` returns the per-position losses, ``sum`` their sum. The loss
+    is f32 for logits, the input's dtype for probabilities."""
     if reduction not in ("mean", "sum", "none"):
         raise InvalidArgumentError(f"Unknown reduction {reduction!r}")
-    ax = input.dim() - 1
+    ax = axis % input.dim()
+    n = input.shape[ax]
+    logp = torch.log_softmax(input, dim=ax, dtype=torch.float32) \
+        if use_softmax else torch.log(input.clamp(1e-15, 1.0))
+    if soft_label or (label.dtype == input.dtype and
+                      label.shape == input.shape):
+        soft = label.to(logp.dtype)
+        if label_smoothing > 0:
+            soft = soft * (1 - label_smoothing) + label_smoothing / n
+        return _reduce(-(soft * logp).sum(dim=ax), reduction)
     y = label.long()
     if y.dim() == input.dim():
         y = y.squeeze(ax)
-    logp = torch.log_softmax(input, dim=ax, dtype=torch.float32)
     valid = y != ignore_index
     idx = torch.where(valid, y, torch.zeros_like(y)).unsqueeze(ax)
     loss = -torch.gather(logp, ax, idx).squeeze(ax)
+    if label_smoothing > 0:
+        loss = (1 - label_smoothing) * loss - \
+            label_smoothing / n * logp.sum(dim=ax)
     loss = torch.where(valid, loss, torch.zeros_like(loss))
     if reduction == "none":
         return loss
     if reduction == "sum":
         return loss.sum()
     return loss.sum() / valid.sum().clamp(min=1).to(loss.dtype)
+
+
+def softmax_with_cross_entropy(logits: torch.Tensor, label: torch.Tensor,
+                               soft_label: bool = False,
+                               ignore_index: int = -100,
+                               numeric_stable_mode: bool = True,
+                               return_softmax: bool = False, axis: int = -1):
+    """Per-position cross entropy with ``axis`` kept as a singleton
+    (``reduction="none"``); with ``return_softmax``, also
+    ``F.softmax(logits, axis)`` (the kernel's route, see
+    ``activation.softmax``)."""
+    loss = cross_entropy(logits, label, soft_label=soft_label,
+                         ignore_index=ignore_index, reduction="none",
+                         axis=axis).unsqueeze(axis)
+    if return_softmax:
+        from .activation import softmax
+        return loss, softmax(logits, axis=axis)
+    return loss

@@ -1,6 +1,6 @@
-"""LayerNorm, batch norm, SyncBatchNorm, ReLU and Sequential (port of
-the subset of ``paddle1_tpu/nn/layer_norm_act.py`` the serving, BERT and
-conv-net slices run)."""
+"""LayerNorm, batch norm, SyncBatchNorm, ReLU, Softmax, LogSoftmax and
+Sequential (port of the subset of ``paddle1_tpu/nn/layer_norm_act.py``
+the serving, BERT, conv-net and eager LeNet slices run)."""
 
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from ..core.errors import UnimplementedError
 from . import functional as F
 
 __all__ = ["LayerNorm", "BatchNorm", "BatchNorm2D", "SyncBatchNorm", "ReLU",
-           "Sequential"]
+           "Softmax", "LogSoftmax", "Sequential"]
 
 
 class LayerNorm(nn.Module):
@@ -129,6 +129,28 @@ class SyncBatchNorm(_BatchNormBase):
 class ReLU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(x)
+
+
+class Softmax(nn.Module):
+    """``F.softmax`` along ``axis`` (the kernel's route on the last
+    axis)."""
+
+    def __init__(self, axis: int = -1, name=None):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.softmax(x, axis=self.axis)
+
+    def extra_repr(self) -> str:
+        return f"axis={self.axis}"
+
+
+class LogSoftmax(Softmax):
+    """``F.log_softmax`` along ``axis``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.log_softmax(x, axis=self.axis)
 
 
 class Sequential(nn.Sequential):

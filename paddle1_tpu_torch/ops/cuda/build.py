@@ -37,7 +37,8 @@ __all__ = ["SOURCES", "build_all", "load", "build_dir", "build_log",
 
 _SRC_DIR = Path(__file__).resolve().parent
 SOURCES = ("layer_norm", "paged_attention", "flash_attention",
-           "flash_attention_bwd", "fused_adam", "fused_bn", "fused_bn_bwd")
+           "flash_attention_bwd", "fused_adam", "fused_bn", "fused_bn_bwd",
+           "softmax")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")

@@ -86,9 +86,13 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
-        """One update of every parameter that has a ``.grad``."""
-        pg = [(p, p.grad) for p in self._params if p.grad is not None]
-        self.apply([p for p, _ in pg], [g for _, g in pg])
+        """One update of every parameter that has a ``.grad``. Paddle
+        tensors (``core/tensor.py``, a ``torch.Tensor`` subclass) are read
+        as plain tensors here, so the update pays no re-wrapping per op or
+        attribute."""
+        with torch._C.DisableTorchFunctionSubclass():
+            pg = [(p, p.grad) for p in self._params if p.grad is not None]
+            self.apply([p for p, _ in pg], [g for _, g in pg])
 
     @torch.no_grad()
     def apply(self, params: Sequence[torch.Tensor],

@@ -1,5 +1,6 @@
-"""ResNet (``paddle1_tpu.vision.models`` subset)."""
+"""ResNet and LeNet (``paddle1_tpu.vision.models`` subset)."""
 
+from .lenet import LeNet  # noqa: F401
 from .resnet import (BasicBlock, BottleneckBlock, ResNet,  # noqa: F401
                      resnet18, resnet34, resnet50, resnet101, resnet152,
                      wide_resnet50_2, wide_resnet101_2)

@@ -20,7 +20,12 @@ steps launch the kernels once per batch norm. For the local-moments
 kernel (the cross-rank batch norm's per-rank statistics) they hold it to
 its plain version, its contract, and that a tiny ResNet-18 step of the
 data-parallel engine (one rank, no process group) launches it once per
-batch norm in place of the training kernels.
+batch norm in place of the training kernels. For the row-softmax kernel
+(the eager slice) they hold it to its plain version on the warp and block
+paths, with and without 16-byte vectors, in f32 and bf16, its contract
+and its launch counter; and that the eager LeNet runs on the card by
+default, on Paddle tensors whose ``.numpy()`` reads the card, with one
+fused Adam launch per step and one softmax launch per prediction.
 """
 
 import numpy as np
@@ -36,6 +41,7 @@ from paddle1_tpu_torch.ops import fused_bn as fbn
 from paddle1_tpu_torch.ops import fused_bn_bwd as fbb
 from paddle1_tpu_torch.ops import layer_norm as ln
 from paddle1_tpu_torch.ops import paged_attention as pa
+from paddle1_tpu_torch.ops import softmax as psm
 
 pytestmark = pytest.mark.cuda
 
@@ -399,3 +405,96 @@ def test_tiny_resnet_dp_step_launches_the_moments_kernel(dev):
     # ResNet-18 has 20 batch norms, each on the cross-rank arm
     assert list(counts() - c0) == [60, 60, 60, 0, 0]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows,h", [(64, 10), (32, 1000), (100, 1003),
+                                    (96, 128), (7, 1024), (16, 1025),
+                                    (8, 4096), (4, 32000), (3, 30522)])
+def test_softmax_kernel_matches_its_plain_version(dev, dtype, rows, h):
+    g = torch.Generator(device=dev).manual_seed(rows * h)
+    x = (torch.randn(rows, h, device=dev, generator=g) * 4).to(dtype)
+    x[0, : h // 2] = -float("inf")          # masked entries give 0
+    before = psm.fused_softmax.launches
+    y = psm.softmax_fwd(x)
+    want = psm.softmax_ref(x)
+    torch.cuda.synchronize()
+    assert psm.fused_softmax.launches == before + 1
+    assert y.dtype == dtype and torch.isfinite(y).all()
+    err = (y.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-6
+    else:   # one rounding step of the output dtype
+        rel = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+        assert float((err - rel * want.float().abs()).max()) <= 1e-5
+    assert torch.equal(psm.softmax_fwd(x), y)     # repeats bit-identical
+    assert float(y[0, : h // 2].abs().max()) == 0.0
+
+
+def test_softmax_kernel_gradient_matches_plain_autograd(dev):
+    x = torch.randn(64, 1000, device=dev, requires_grad=True)
+    dy = torch.randn(64, 1000, device=dev)
+    psm.fused_softmax(x).backward(dy)
+    xr = x.detach().clone().requires_grad_(True)
+    psm.softmax_ref(xr).backward(dy)
+    assert float((x.grad - xr.grad).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("case", ["int32", "f64", "1-d"])
+def test_softmax_outside_the_contract_raises_on_the_card(dev, case):
+    x = {"int32": torch.ones(4, 8, device=dev, dtype=torch.int32),
+         "f64": torch.randn(4, 8, device=dev, dtype=torch.float64),
+         "1-d": torch.randn(8, device=dev)}[case]
+    with pytest.raises(InvalidArgumentError, match="contract"):
+        psm.fused_softmax(x)
+
+
+def test_functional_softmax_on_the_card_launches_the_kernel(dev):
+    x = torch.randn(64, 10, device=dev)
+    before = psm.fused_softmax.launches
+    y = F.softmax(x)
+    assert psm.fused_softmax.launches == before + 1
+    F.softmax(x, axis=0)                           # not the last axis
+    assert psm.fused_softmax.launches == before + 1
+    assert float((y.sum(-1) - 1).abs().max()) <= 1e-6
+    # routed by shape and axis alone, as the JAX package: f16 launches the
+    # kernel, and a dtype the kernel lacks raises instead of leaving it
+    assert F.softmax(x.half()).dtype == torch.float16
+    assert psm.fused_softmax.launches == before + 2
+    with pytest.raises(InvalidArgumentError, match="contract"):
+        F.softmax(x.double())
+
+
+def test_eager_lenet_runs_on_the_card(dev):
+    import paddle1_tpu_torch as paddle
+    from paddle1_tpu_torch.vision.models import LeNet
+    paddle.seed(0)
+    m = LeNet()
+    assert all(p.device.type == "cuda" and isinstance(p, paddle.Parameter)
+               for p in m.parameters())
+    opt = paddle.optimizer.Adam(learning_rate=1e-3,
+                                parameters=m.parameters())
+    rng = np.random.default_rng(0)
+    x = paddle.to_tensor(rng.standard_normal((16, 1, 28, 28)).astype(
+        np.float32))
+    y = paddle.to_tensor(rng.integers(0, 10, (16,)))
+    assert x.place == paddle.CUDAPlace(dev.index or 0)
+    before = fad.fused_adam_.launches
+    losses = []
+    for _ in range(3):
+        loss = F.cross_entropy(m(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.numpy()))
+    assert fad.fused_adam_.launches == before + 3
+    assert losses[-1] < losses[0]
+    with paddle.no_grad():
+        sm = psm.fused_softmax.launches
+        probs = F.softmax(m(x))
+        assert psm.fused_softmax.launches == sm + 1
+    p = probs.numpy()
+    assert isinstance(probs, paddle.Tensor) and p.shape == (16, 10)
+    np.testing.assert_allclose(p.sum(-1), 1.0, atol=1e-5)

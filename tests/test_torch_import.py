@@ -156,3 +156,44 @@ def test_resnet_defaults_to_the_card(monkeypatch):
         resnet18(num_classes=10)
     m = resnet18(num_classes=10, device="cpu")
     assert all(t.device.type == "cpu" for t in m.state_dict().values())
+
+
+def test_eager_slice_imports_neither_jax_nor_the_jax_package():
+    """The eager dygraph slice: the facade, autograd, save/load, LeNet and
+    the softmax kernel's module."""
+    code = ("import sys\n"
+            "import paddle1_tpu_torch as p\n"
+            "import paddle1_tpu_torch.core.tensor, "
+            "paddle1_tpu_torch.core.dtype, paddle1_tpu_torch.core.place, "
+            "paddle1_tpu_torch.core.generator, "
+            "paddle1_tpu_torch.autograd.engine, "
+            "paddle1_tpu_torch.autograd.py_layer, "
+            "paddle1_tpu_torch.framework.io, "
+            "paddle1_tpu_torch.ops.manip_ops, paddle1_tpu_torch.ops.softmax, "
+            "paddle1_tpu_torch.vision.models.lenet\n"
+            "assert p.to_tensor and p.Tensor and p.nn.functional.softmax\n"
+            "assert p.vision.models.LeNet and p.autograd.PyLayer\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'paddle1_tpu.')) or "
+            "m == 'paddle1_tpu')\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_lenet_and_to_tensor_default_to_the_card(monkeypatch):
+    import paddle1_tpu_torch as p
+    from paddle1_tpu_torch.vision.models import LeNet
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceUnavailableError):
+        LeNet()
+    with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
+        p.to_tensor([1.0])
+    with pytest.raises(DeviceUnavailableError):
+        p.set_device("gpu")
+    m = LeNet(device="cpu")
+    assert all(t.device.type == "cpu" for t in m.state_dict().values())
+    t = p.to_tensor([1.0], place=p.CPUPlace())
+    assert t.place == p.CPUPlace() and isinstance(t, p.Tensor)

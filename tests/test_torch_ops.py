@@ -383,3 +383,102 @@ def test_flash_and_adam_wrappers_count_no_launch_on_cpu():
                     1e-8)
     assert (tfa.flash_fwd.launches, tfb.flash_bwd_dkv.launches,
             tfb.flash_bwd_dq.launches, tad.fused_adam_.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# row softmax (the eager slice's kernel)
+
+SM_TOL = dict(atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("rows,h", [(16, 128), (8, 256)])
+def test_softmax_ref_and_function_match_pallas_kernel(rows, h):
+    import jax
+    from paddle1_tpu.ops.pallas import softmax as jsm
+    from paddle1_tpu_torch.ops import softmax as tsm
+    rng = np.random.default_rng(rows + h)
+    x = (rng.standard_normal((rows, h)) * 4).astype(np.float32)
+    dy = rng.standard_normal((rows, h)).astype(np.float32)
+    assert jsm.supported((rows, h), -1)
+    with jax_flags_guard({"fused_softmax": "always"}):
+        want, vjp = jax.vjp(jsm.fused_softmax, x)
+        want_dx, = vjp(dy)
+        grad = jax.grad(lambda a: (jsm.fused_softmax(a) * dy).sum())(x)
+    np.testing.assert_allclose(np.asarray(want_dx), np.asarray(grad),
+                               **SM_TOL)
+    np.testing.assert_allclose(tsm.softmax_ref(_t(x)).numpy(),
+                               np.asarray(want), **SM_TOL)
+    xt = _t(x).requires_grad_(True)
+    y = tsm.fused_softmax(xt)
+    y.backward(_t(dy))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want),
+                               **SM_TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(grad), **SM_TOL)
+    p = tsm.softmax_ref(_t(x))
+    np.testing.assert_allclose(tsm.softmax_bwd_ref(p, _t(dy)).numpy(),
+                               np.asarray(want_dx), **SM_TOL)
+
+
+def test_softmax_wrapper_runs_plain_version_on_cpu():
+    from paddle1_tpu_torch.ops import softmax as tsm
+    rng = np.random.default_rng(4)
+    x = _t(rng.standard_normal((3, 5, 1003)).astype(np.float32))
+    before = tsm.fused_softmax.launches
+    got = tsm.fused_softmax(x)
+    assert tsm.fused_softmax.launches == before   # no kernel on the CPU
+    np.testing.assert_array_equal(got.numpy(), tsm.softmax_ref(x).numpy())
+    xb = x.to(torch.bfloat16)
+    assert tsm.softmax_fwd(xb).dtype == torch.bfloat16
+    # an all -inf row is NaN, a row with a -inf entry puts 0 there
+    row = torch.tensor([[-float("inf")] * 3, [-float("inf"), 0.0, 0.0]])
+    y = tsm.softmax_ref(row)
+    assert torch.isnan(y[0]).all()
+    assert y[1].tolist() == [0.0, 0.5, 0.5]
+
+
+def test_softmax_gate_keeps_the_semantic_gates_and_drops_the_layout():
+    from paddle1_tpu.ops.pallas import softmax as jsm
+    from paddle1_tpu_torch.ops import softmax as tsm
+    # the TPU refused h % 128 and row counts off its block ladder
+    for shape in ((64, 10), (32, 1000), (1000, 1003), (2048, 32000),
+                  (2, 3, 30522), (196608, 128)):
+        assert tsm.supported(shape, -1)
+        assert tsm.supported(shape, len(shape) - 1)
+    assert not jsm.supported((64, 10), -1)
+    for shape, axis in (((10,), -1), ((4, 8), 0), ((0, 8), -1),
+                        ((4, 0), -1), ((2, 4, 8), 1)):
+        assert not tsm.supported(shape, axis)
+        assert not jsm.supported(shape, axis)
+    # the gate is on shape and axis alone, as the JAX package's: the
+    # wrapper, not the gate, refuses a dtype the kernel lacks
+    assert set(tsm._DTYPES) == {torch.float32, torch.bfloat16,
+                                torch.float16}
+    assert not tsm.supported((2 ** 31, 8), -1)
+
+
+def _route_softmax(dtype=torch.float32, shape=(4, 8)):
+    from paddle1_tpu_torch.ops import softmax as tsm
+    tsm.fused_softmax(_meta(shape, dtype))
+
+
+@pytest.mark.parametrize("case,route,match", [
+    # f16 is a kernel dtype: only the meta device is refused
+    ("softmax f16", lambda: _route_softmax(torch.float16),
+     "unsupported device"),
+    ("softmax f64", lambda: _route_softmax(torch.float64), "contract"),
+    ("softmax 1-d", lambda: _route_softmax(shape=(8,)), "contract"),
+    ("softmax meta", lambda: _route_softmax(), "unsupported device"),
+])
+def test_softmax_kernel_route_raises_instead_of_the_plain_version(
+        case, route, match):
+    with pytest.raises(InvalidArgumentError, match=match):
+        route()
+
+
+def test_softmax_flag_keeps_the_jax_name_and_defaults_to_the_card():
+    from paddle1_tpu.core import flags as jflags
+    assert tflags.flag("fused_softmax") == "auto" == \
+        jflags._registry["fused_softmax"].default
+    assert tflags.flag_active("fused_softmax", torch.device("cuda", 0))
+    assert not tflags.flag_active("fused_softmax", torch.device("cpu"))
+    assert "softmax" in build.SOURCES

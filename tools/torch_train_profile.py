@@ -11,7 +11,15 @@
 ``--model resnet50 --dp`` the same on its data-parallel path at world size
 1 (``init_parallel_env()``: NCCL; ``ParallelEngine`` on
 ``build_mesh(dp=1)``, so every batch norm runs the local-moments kernel,
-an all-reduce each way and the given-statistics kernels).
+an all-reduce each way and the given-statistics kernels);
+``--model lenet`` the eager LeNet path (BASELINE config 1,
+``benches.py:52-88``: ``LeNet()`` + ``Adam(1e-3)``, f32, batch ``--batch``
+(default 64) x 1 x 28 x 28, two seeded batches staged with ``to_tensor``
+as Paddle tensors, forward, cross entropy, ``backward()``, ``step()``,
+``clear_grad()``), and also counts the calls that go through the Paddle
+facade's ``Tensor.__torch_function__`` (each re-wraps its results) in
+one step. The facade's host cost in time is ``chip_smoke.py`` phase 15's
+(the same loop on plain torch parameters and inputs, in turns).
 It runs ``--warmup`` steps, then:
 
 * times ``--steps`` steps on the host clock, ending in one loss readback
@@ -27,7 +35,8 @@ It runs ``--warmup`` steps, then:
 
 Prints one JSON object.
 
-    python3 tools/torch_train_profile.py [--model resnet50 [--dp]] [--steps 10]
+    python3 tools/torch_train_profile.py [--model resnet50 [--dp] | lenet]
+        [--steps 10]
 """
 
 from __future__ import annotations
@@ -52,6 +61,7 @@ OUR_KERNELS = {
     "resnet50": ("stats_partial_kernel", "normalize_kernel",
                  "train_partial_kernel", "train_dx_kernel",
                  "norm_bwd_kernel", "finalize_kernel"),
+    "lenet": ("adam_kernel",),
 }
 
 
@@ -122,6 +132,50 @@ def _resnet50(args, dev):
     return step, {"img": 224, "dp_world_size": 1 if args.dp else None}
 
 
+def _lenet(args, dev):
+    import paddle1_tpu_torch as paddle
+    from paddle1_tpu_torch.vision.models import LeNet
+    F = paddle.nn.functional
+    paddle.seed(args.seed)
+    model = LeNet()
+    opt = paddle.optimizer.Adam(learning_rate=1e-3,
+                                parameters=model.parameters())
+    rng = np.random.default_rng(0)
+    staged = [(paddle.to_tensor(rng.standard_normal(
+        (args.batch, 1, 28, 28)).astype(np.float32)),
+        paddle.to_tensor(rng.integers(0, 10, (args.batch,))))
+        for _ in range(2)]
+    turn = [0]
+
+    def step():
+        turn[0] += 1
+        x, y = staged[turn[0] % 2]
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return step, {"img": 28, "amp": None}
+
+
+def _facade_calls(step):
+    """Calls through the Paddle ``Tensor.__torch_function__`` in one step
+    and its loss readback."""
+    from paddle1_tpu_torch.core.tensor import Tensor
+    orig = Tensor.__torch_function__.__func__
+    calls = [0]
+
+    def counting(cls, func, types, args=(), kwargs=None):
+        calls[0] += 1
+        return orig(cls, func, types, args, kwargs)
+    Tensor.__torch_function__ = classmethod(counting)
+    try:
+        float(step())
+    finally:
+        Tensor.__torch_function__ = classmethod(orig)
+    return calls[0]
+
+
 def _label_dp_work():
     """Run the local moments' backward and every all-reduce under profiler
     labels, so the device work each launches can be summed (tool-side
@@ -170,9 +224,10 @@ def _kernel_times(prof):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
-    ap.add_argument("--model", choices=("bert", "resnet50"), default="bert")
+    ap.add_argument("--model", choices=("bert", "resnet50", "lenet"),
+                    default="bert")
     ap.add_argument("--batch", type=int, default=None,
-                    help="default: 128 (bert), 32 (resnet50)")
+                    help="default: 128 (bert), 32 (resnet50), 64 (lenet)")
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--steps", type=int, default=10)
@@ -184,15 +239,18 @@ def main() -> int:
     if args.dp and args.model != "resnet50":
         ap.error("--dp needs --model resnet50")
     if args.batch is None:
-        args.batch = 128 if args.model == "bert" else 32
+        args.batch = {"bert": 128, "resnet50": 32, "lenet": 64}[args.model]
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA card", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False   # as chip_smoke.py:
+    torch.backends.cudnn.allow_tf32 = False         # f32 stays f32
     dev = torch.device("cuda", torch.cuda.current_device())
-    step, shape = (_bert if args.model == "bert" else _resnet50)(args, dev)
+    build = {"bert": _bert, "resnet50": _resnet50, "lenet": _lenet}
+    step, shape = build[args.model](args, dev)
     for _ in range(args.warmup):
         float(step())
+    calls = _facade_calls(step) if args.model == "lenet" else None
 
     t0 = time.perf_counter()
     for _ in range(args.steps):
@@ -224,8 +282,8 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60, check=True).stdout.strip().splitlines()[0],
-        "model": args.model, "batch": args.batch, **shape,
-        "amp": "bfloat16",
+        "model": args.model, "batch": args.batch, "amp": "bfloat16",
+        **shape,
         "step_ms": step_ms, "samples_per_s": args.batch / step_ms * 1e3,
         "loss": float(loss),
         "profiled_step_ms": prof_step_ms,
@@ -246,6 +304,8 @@ def main() -> int:
         "top_kernels": [{"name": k[0][:120], "ms_per_step": k[1] / 1e3 / n,
                          "calls_per_step": k[2] / n} for k in kernels[:25]],
     }
+    if calls is not None:
+        result["facade_calls_per_step"] = calls
     if args.dp:
         from torch.autograd import DeviceType
         result["nccl_kernels_ms_per_step"] = sum(
