@@ -9,7 +9,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. **Card and build.** Print the card's name and power limit (nvidia-smi),
    then build every CUDA kernel of the port from
-   ``paddle1_tpu_torch/ops/cuda/*.cu`` (one nvcc per source, in parallel).
+   ``paddle1_tpu_torch/ops/cuda/*.cu`` (one nvcc per source, in parallel);
+   print ptxas's registers and spills, and count the tensor-core
+   instructions (``HMMA``) in the SASS of the two tensor-core flash
+   kernels (``cuobjdump --dump-sass``): none fails the run.
 2. **Kernels.** Hold each kernel against its plain PyTorch version on the
    card at the serving path's shapes (paged attention also with f32
    queries over bf16 pools), and time kernel, plain version and
@@ -32,9 +35,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
 5. **Training kernels.** The flash-attention forward, its dK/dV and dQ
    passes and the fused AdamW kernel against their plain versions at the
    BERT-base shapes (q/k/v ``[128, 128, 12, 64]``, BERT-base's ~200
-   parameter tensors), in f32 and bf16, with one fully padded batch row;
-   timed beside their plain versions, the PyTorch library calls
-   (``F.scaled_dot_product_attention`` forward and forward+backward,
+   parameter tensors), in f32 and bf16 (flash: causal in both, and bf16
+   at ERNIE-1.5B's ``[4, 512, 16, 128]``, repeated bit for bit), with one
+   fully padded batch row; timed beside their plain versions, the
+   PyTorch library calls (``F.scaled_dot_product_attention`` forward, its
+   backward alone as graph-replayed forward + backward less the forward,
+   with the backend it picks named, and forward + backward eagerly;
    ``torch.optim.AdamW(fused=True)``) and their bounds.
 6. **Training (the second main path).** ``ParallelEngine`` over
    ``BertForPretraining(bert_base())`` + AdamW in bf16 at batch 128,
@@ -254,6 +260,63 @@ def graph_time_ms(calls, reps=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (reps * len(calls))
+
+
+# the tensor-core flash kernels, by library and by a piece of their names
+TC_KERNELS = {"flash_attention": ("flash_fwd_tc_kernel",),
+              "flash_attention_bwd": ("flash_bwd_dkv_tc_kernel",)}
+
+
+def ptxas_usage(report, piece):
+    """{instantiation: {"registers": n, "spill_bytes": n}} of the kernels
+    whose mangled name holds ``piece``, from nvcc's ``-Xptxas -v``."""
+    out, fn = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if piece in line else None
+        elif fn and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out.setdefault(fn, {})["spill_bytes"] = nums[1] + nums[2]
+        elif fn and "Used" in line and "registers" in line:
+            out.setdefault(fn, {})["registers"] = int(
+                line.split("Used")[1].split()[0])
+    return out
+
+
+def tensor_core_report(build, libs):
+    """HMMA instructions in the SASS of each tensor-core flash kernel
+    (``cuobjdump --dump-sass`` of the built library) and its registers and
+    spills; fails the run when one holds no HMMA."""
+    import os
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    report = {}
+    for lib, pieces in TC_KERNELS.items():
+        sass = subprocess.run([cuobjdump, "--dump-sass", str(libs[lib])],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        for piece in pieces:
+            counts, fn = {}, None
+            for line in sass.splitlines():
+                if "Function :" in line:
+                    fn = line.split("Function :")[1].strip()
+                    if piece not in fn:
+                        fn = None
+                    elif fn not in counts:
+                        counts[fn] = 0
+                elif fn and "HMMA" in line:
+                    counts[fn] += 1
+            check(counts and all(counts.values()),
+                  f"{piece}: no HMMA in its SASS ({counts})")
+            usage = ptxas_usage(build.build_log(lib) or "", piece)
+            report[piece] = [{"function": f, "hmma": n, **usage.get(f, {})}
+                             for f, n in sorted(counts.items())]
+            log(f"sass {piece}: " + "; ".join(
+                f"{r['function'][:60]} HMMA={r['hmma']} registers="
+                f"{r.get('registers')} spill_bytes={r.get('spill_bytes')}"
+                for r in report[piece]))
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -650,31 +713,42 @@ def flash_bounds(q, keep):
     }
 
 
-def flash_case(dev, dtype, seed, n_sets=1):
-    """``n_sets`` independent (q, k, v, dout) sets at the BERT-base
-    attention shape, a keep-mask with ragged tails and batch row 0 fully
-    padded, and the all-keep mask the main path's batch gives."""
-    hd = BERT_HIDDEN // BERT_HEADS
+BERT_ATTN = (BATCH, SEQ, BERT_HEADS, BERT_HIDDEN // BERT_HEADS)
+# ERNIE-1.5B (BASELINE config 4, benches.py:195-218): batch 4, seq 512,
+# 16 heads of 128
+ERNIE_ATTN = (4, 512, 16, 128)
+
+
+def flash_case(dev, dtype, seed, n_sets=1, shape=BERT_ATTN):
+    """``n_sets`` independent (q, k, v, dout) sets at ``shape`` (the
+    BERT-base attention shape by default), a keep-mask with ragged tails
+    and batch row 0 fully padded, and the all-keep mask the main path's
+    batch gives."""
+    b, n = shape[:2]
     g = torch.Generator(device=dev).manual_seed(seed)
-    sets = [[torch.randn(BATCH, SEQ, BERT_HEADS, hd, device=dev,
-                         generator=g).to(dtype) for _ in range(4)]
-            for _ in range(n_sets)]
-    lens = np.random.default_rng(seed).integers(32, SEQ + 1, BATCH)
+    sets = [[torch.randn(*shape, device=dev, generator=g).to(dtype)
+             for _ in range(4)] for _ in range(n_sets)]
+    lens = np.random.default_rng(seed).integers(32, n + 1, b)
     lens[0] = 0
-    keep = torch.from_numpy(np.arange(SEQ)[None, :] < lens[:, None]).to(dev)
-    return sets, keep, torch.ones(BATCH, SEQ, dtype=torch.bool, device=dev)
+    keep = torch.from_numpy(np.arange(n)[None, :] < lens[:, None]).to(dev)
+    return sets, keep, torch.ones(b, n, dtype=torch.bool, device=dev)
 
 
 def flash_check(dev):
     """Hold the three flash kernels to their plain versions in f32 and
-    bf16 (padded tails, one fully padded row; causal too in f32)."""
+    bf16 (padded tails, one fully padded row; causal in both; bf16 also at
+    ERNIE-1.5B's D = 128). The bf16 cases, which run the tensor-core
+    forward and dK/dV pass, must repeat bit for bit."""
     from paddle1_tpu_torch.ops import flash_attention as fa
     from paddle1_tpu_torch.ops import flash_attention_bwd as fb
     errs = {"fwd": [], "dkv": [], "dq": []}
-    scale = 1.0 / (BERT_HIDDEN // BERT_HEADS) ** 0.5
-    for dtype, causal in ((torch.float32, False), (torch.float32, True),
-                          (torch.bfloat16, False)):
-        sets, keep, _ = flash_case(dev, dtype, SEED + 3)
+    for dtype, causal, shape in ((torch.float32, False, BERT_ATTN),
+                                 (torch.float32, True, BERT_ATTN),
+                                 (torch.bfloat16, False, BERT_ATTN),
+                                 (torch.bfloat16, True, BERT_ATTN),
+                                 (torch.bfloat16, False, ERNIE_ATTN)):
+        scale = 1.0 / shape[-1] ** 0.5
+        sets, keep, _ = flash_case(dev, dtype, SEED + 3, shape=shape)
         q, k, v, do = sets[0]
         out, lse = fa.flash_fwd(q, k, v, scale, causal, keep)
         ro, rl = fa.flash_attention_ref(q, k, v, scale, causal, keep)
@@ -685,7 +759,14 @@ def flash_check(dev):
         rq, rk, rv = fa.flash_bwd_ref(q, k, v, ro, rl, do, scale, causal,
                                       keep)
         torch.cuda.synchronize()
-        tag = f"{str(dtype).split('.')[-1]} causal={causal}"
+        tag = f"{str(dtype).split('.')[-1]} causal={causal} {list(shape)}"
+        if dtype == torch.bfloat16:
+            again = (*fa.flash_fwd(q, k, v, scale, causal, keep),
+                     *fb.flash_bwd_dkv(q, k, v, do, rl, delta, scale, causal,
+                                       keep))
+            check(all(torch.equal(a, b_)
+                      for a, b_ in zip(again, (out, lse, dk, dv))),
+                  f"flash {tag}: a repeat is not bit-identical")
         check(out.dtype == dtype and bool(torch.isfinite(out).all()),
               f"flash fwd {tag}: non-finite output or wrong dtype")
         check(float(out[0].abs().max()) == 0.0 and
@@ -711,7 +792,7 @@ def flash_check(dev):
                 check(exc <= FLASH_BF16_ABS, f"flash {name} {tag}: exceeds "
                       f"one bf16 rounding step by {exc}")
             errs[name].append({"dtype": str(dtype), "causal": causal,
-                               "max_abs_err": err})
+                               "shape": list(shape), "max_abs_err": err})
             log(f"flash {name} {tag}: max_abs_err={err:.3e}")
     return errs
 
@@ -749,19 +830,34 @@ def flash_timing(dev):
     leaves = [[x.clone().requires_grad_() for x in s[:3]] for s in lib]
     turn = [0]
 
-    def lib_fwd_bwd():
-        i = turn[0] = (turn[0] + 1) % len(lib)
+    def lib_fwd_bwd(i=None):
+        if i is None:
+            i = turn[0] = (turn[0] + 1) % len(lib)
         q, k, v = leaves[i]
         out = sdpa(q, k, v, attn_mask=m4)
         torch.autograd.grad(out, (q, k, v), lib[i][3])
-    t["fwd_bwd_library"] = event_time_ms(lib_fwd_bwd)
+    t["fwd_bwd_library_eager"] = event_time_ms(lib_fwd_bwd)
+    # the library's backward alone: forward + backward captured in a graph
+    # and replayed, less the graph-replayed forward
+    t["fwd_bwd_library"] = graph_time_ms([lambda i=i: lib_fwd_bwd(i)
+                                          for i in range(len(lib))])
+    t["bwd_library"] = t["fwd_bwd_library"] - t["fwd_library"]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        lib_fwd_bwd(0)
+    t["library_backend"] = sorted({e.name for e in prof.events()
+                                   if "_attention" in e.name and
+                                   e.name.startswith("aten::_")})
     bounds = flash_bounds(sets[0][0], keep)
     log(f"flash timing (bf16 {list(sets[0][0].shape)}): fwd {t['fwd']:.5f} "
         f"ms (plain {t['fwd_plain']:.5f}, library {t['fwd_library']:.5f}, "
         f"bound {bounds['fwd'][0]:.5f}); dkv {t['dkv']:.5f} ms, dq "
         f"{t['dq']:.5f} ms (plain backward {t['bwd_plain']:.5f}, library "
-        f"fwd+bwd {t['fwd_bwd_library']:.5f}; bounds "
-        f"{bounds['dkv'][0]:.5f}, {bounds['dq'][0]:.5f})")
+        f"backward {t['bwd_library']:.5f} by graph replay, fwd+bwd "
+        f"{t['fwd_bwd_library']:.5f} replayed, "
+        f"{t['fwd_bwd_library_eager']:.5f} eager; library ops "
+        f"{t['library_backend']}; bounds {bounds['dkv'][0]:.5f}, "
+        f"{bounds['dq'][0]:.5f})")
     return t, bounds, [list(sets[0][0].shape), "bf16", "all keys kept"]
 
 
@@ -2262,6 +2358,7 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    tc_report = tensor_core_report(build, libs)
 
     kernels = kernel_phase(dev)
     lm, eng, reqs, outs, launches, steps = serving_phase(dev)
@@ -2329,14 +2426,26 @@ def main() -> int:
     flash_rows = (
         ("flash_attention", "flash_attention.cu",
          pallas + "flash_attention.py:59", "fwd", "fwd_plain",
-         "fwd_library"),
+         "fwd_library", "flash_fwd_tc_kernel"),
         ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
          pallas + "flash_attention_bwd.py:74", "dkv", "bwd_plain",
-         "fwd_bwd_library"),
+         "bwd_library", "flash_bwd_dkv_tc_kernel"),
         ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
          pallas + "flash_attention_bwd.py:125", "dq", "bwd_plain",
-         "fwd_bwd_library"))
-    for name, cu, rep, key, plain_key, lib_key in flash_rows:
+         "bwd_library", None))
+    designs = {
+        "fwd": "bf16: mma.sync m16n8k16 on the tensor cores, 4 warps x 16 "
+               "query rows per CTA, Q in registers, K/V 64-key tiles "
+               "double-buffered by cp.async, online softmax in registers, "
+               "P V from the S accumulators with P split bf16 hi + lo; f32: "
+               "CUDA-core kernel",
+        "dkv": "bf16: mma.sync m16n8k16 on the tensor cores, 4 warps x 16 "
+               "keys per CTA, K/V A fragments resident, Q/dO 64-query tiles "
+               "double-buffered by cp.async, S^T/dP^T/P^T/dS^T in "
+               "registers per 32-query sub-tile, P^T and dS^T split bf16 "
+               "hi + lo; f32: CUDA-core kernel",
+        "dq": "CUDA-core kernel (f32 FMAs), unchanged"}
+    for name, cu, rep, key, plain_key, lib_key, tc in flash_rows:
         line.append({
             "name": name, "route": "cuda", "source": src + cu,
             "replaces": rep, "launches": tl[name],
@@ -2347,8 +2456,13 @@ def main() -> int:
             "library_ms": flash_t[lib_key], "shape": flash_shape,
             "plain_covers": "one call" if key == "fwd" else
             "dq, dk and dv together",
-            "library_covers": "sdpa forward" if key == "fwd" else
-            "sdpa forward + backward (dq, dk, dv)",
+            "library_covers": "sdpa forward (graph replay)" if key == "fwd"
+            else "sdpa backward alone (dq, dk, dv): forward + backward less "
+                 "forward, both by graph replay",
+            "library_ops": flash_t["library_backend"],
+            "library_fwd_bwd_eager_ms": flash_t["fwd_bwd_library_eager"],
+            "design": designs[key],
+            "sass": tc_report.get(tc) if tc else None,
             "cases": flash_errs[key]})
     by_path = {"train": tl["fused_adam"],
                "lenet_train": lenet["launches"]["fused_adam"]}

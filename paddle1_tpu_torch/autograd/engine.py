@@ -22,7 +22,7 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from ..core.errors import InvalidArgumentError, PreconditionNotMetError
-from ..core.tensor import _wrap
+from ..core.tensor import _wrap, leaf_hooks_per_edge
 
 __all__ = ["run_backward", "grad", "no_grad", "enable_grad",
            "is_grad_enabled", "set_grad_enabled",
@@ -89,8 +89,9 @@ def run_backward(tensors: Sequence[torch.Tensor],
     tensors = list(tensors)
     grads = _check_roots(tensors, grad_tensors)
     try:
-        torch.autograd.backward(tensors, grads,
-                                retain_graph=bool(retain_graph))
+        with leaf_hooks_per_edge(tensors):
+            torch.autograd.backward(tensors, grads,
+                                    retain_graph=bool(retain_graph))
     except RuntimeError as e:
         if _freed(e):
             raise PreconditionNotMetError(
@@ -121,10 +122,11 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
     grads = _check_roots(outputs, grad_outputs)
     retain = create_graph if retain_graph is None else bool(retain_graph)
     try:
-        res = torch.autograd.grad(outputs, inputs, grads,
-                                  retain_graph=retain,
-                                  create_graph=create_graph,
-                                  allow_unused=True)
+        with leaf_hooks_per_edge(outputs):
+            res = torch.autograd.grad(outputs, inputs, grads,
+                                      retain_graph=retain,
+                                      create_graph=create_graph,
+                                      allow_unused=True)
     except RuntimeError as e:
         if _freed(e):
             raise PreconditionNotMetError(

@@ -21,7 +21,14 @@ Paddle's semantics on top of torch's:
   is always a copy (later in-place updates do not show in it, as with the
   JAX package's immutable arrays); a bf16 tensor comes back as float32
   (numpy has no bf16), value for value.
-- ``register_hook`` raises on a tensor with ``stop_gradient=True``.
+- ``register_hook`` raises on a tensor with ``stop_gradient=True``. A
+  leaf's hooks fire on each incoming edge's gradient before it is
+  accumulated, as the JAX package's engine fires them
+  (:func:`leaf_hooks_per_edge`); an op output's hooks fire on its summed
+  gradient (torch's tensor hooks), as there.
+- An in-place functional that changes the value or dtype
+  (``F.softmax_``) replaces the tensor by the op's output
+  (:meth:`Tensor._replace_impl`), gradients included.
 - ``.place`` is a :class:`~.place.Place`; ``.shape`` is torch's
   ``torch.Size`` (a tuple: it indexes, iterates and converts with
   ``list()`` like Paddle's list), and ``.size()`` stays torch's method
@@ -34,20 +41,37 @@ turns a module's ``torch.nn.Parameter``s into it in place.
 
 from __future__ import annotations
 
+import contextlib
+import weakref
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.autograd.graph import get_gradient_edge
 from torch.overrides import get_default_nowrap_functions
 
 from . import dtype as dtypes
 from .errors import InvalidArgumentError, PreconditionNotMetError
 from .place import Place, _parse, get_device, place_of
 
-__all__ = ["Tensor", "Parameter", "to_tensor", "as_paddle_parameters"]
+__all__ = ["Tensor", "Parameter", "to_tensor", "as_paddle_parameters",
+           "leaf_hooks_per_edge"]
 
 _NOWRAP = get_default_nowrap_functions()
 _plain = torch._C.DisableTorchFunctionSubclass
+# leaves with Paddle hooks, and tensors replaced by an in-place op's output
+# (``id -> tensor``); while both are empty, an op and a backward pay for
+# neither but one truth test
+_hooked: "weakref.WeakValueDictionary[int, Tensor]" = \
+    weakref.WeakValueDictionary()
+_replaced: "weakref.WeakValueDictionary[int, Tensor]" = \
+    weakref.WeakValueDictionary()
+# methods that write into their first argument, or read an attribute: the
+# replaced tensor itself, not its stand-in, is what they mean
+_IN_PLACE_DUNDERS = frozenset(
+    f"__{op}__" for op in ("get", "set", "setitem", "iadd", "isub", "imul",
+                           "itruediv", "ifloordiv", "imod", "ipow", "iand",
+                           "ior", "ixor", "ilshift", "irshift", "imatmul"))
 
 
 def _wrap(ret):
@@ -59,13 +83,113 @@ def _wrap(ret):
     return ret
 
 
+def _stand_in(a):
+    """What an op under grad mode is handed for ``a``: the output that
+    replaced it (:meth:`Tensor._replace_impl`) while ``a`` is unchanged
+    since, else ``a``."""
+    if a is None or _replaced.get(id(a)) is not a:
+        return a
+    out, version = a._replacement
+    with _plain():
+        if a._version == version:
+            return out
+    del _replaced[id(a)]
+    return a
+
+
+def _stand_ins(func, args, kwargs):
+    name = getattr(func, "__name__", "")
+    if name in _IN_PLACE_DUNDERS or (name.endswith("_") and
+                                     not name.endswith("__")):
+        return args, kwargs
+    sub = lambda a: (type(a)(_stand_in(x) for x in a)  # noqa: E731
+                     if isinstance(a, (list, tuple)) else _stand_in(a))
+    return (tuple(sub(a) for a in args),
+            {k: v if k == "out" else sub(v) for k, v in kwargs.items()})
+
+
+def _fire(hooks, g):
+    """A leaf's Paddle hooks in order on one edge's gradient; a hook's
+    result, if not None, replaces the gradient."""
+    for entry in list(hooks):
+        if entry[0] is not None:
+            res = entry[0](_wrap(g))
+            if res is not None:
+                g = res
+    return g
+
+
+def leaf_hooks_per_edge(roots):
+    """Context for one backward pass from ``roots``: fire the Paddle hooks
+    of every leaf under them on each incoming edge's gradient, before
+    accumulation, through a post-hook on each graph node that has an edge
+    to a hooked leaf (``paddle1_tpu/autograd/engine.py:438-449`` fires them
+    per edge; torch's own leaf hook would see their sum). While no leaf has
+    a Paddle hook it does nothing."""
+    return _per_edge(roots) if _hooked else contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _per_edge(roots):
+    accs = {}
+    for t in list(_hooked.values()):
+        with _plain():
+            if t.requires_grad and t.grad_fn is None:
+                accs[get_gradient_edge(t).node] = t._paddle_hooks
+    handles = []
+    try:
+        if accs:
+            seen = set()
+            todo = [r.grad_fn for r in roots
+                    if isinstance(r, torch.Tensor) and r.grad_fn is not None]
+            while todo:
+                node = todo.pop()
+                if node in seen:
+                    continue
+                seen.add(node)
+                edges = []
+                for i, (nxt, _) in enumerate(node.next_functions):
+                    if nxt is None:
+                        continue
+                    if nxt in accs:
+                        edges.append((i, accs[nxt]))
+                    else:
+                        todo.append(nxt)
+                if edges:
+                    def post(grad_inputs, _, edges=edges):
+                        gi = list(grad_inputs)
+                        for i, hooks in edges:
+                            if gi[i] is not None:
+                                gi[i] = _fire(hooks, gi[i])
+                        return tuple(gi)
+                    handles.append(node.register_hook(post))
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+class _HookHandle:
+    def __init__(self, tensor, entry):
+        self._tensor, self._entry = weakref.ref(tensor), entry
+
+    def remove(self) -> None:
+        self._entry[0] = None
+        t = self._tensor()
+        if t is not None and all(e[0] is None for e in t._paddle_hooks):
+            _hooked.pop(id(t), None)
+
+
 class Tensor(torch.Tensor):
     """Eager tensor with Paddle's autograd semantics (see the module)."""
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if _replaced and torch.is_grad_enabled():
+            args, kwargs = _stand_ins(func, args, kwargs)
         with _plain():
-            ret = func(*args, **(kwargs or {}))
+            ret = func(*args, **kwargs)
         return ret if func in _NOWRAP else _wrap(ret)
 
     # -- autograd flags -------------------------------------------------------
@@ -133,15 +257,45 @@ class Tensor(torch.Tensor):
 
     def register_hook(self, hook):
         """Call ``hook(grad)`` on this tensor's gradient during backward
-        (its return value, if not None, replaces the gradient). Returns a
-        handle with ``remove()``."""
+        (its return value, if not None, replaces the gradient): on a leaf,
+        once per incoming edge before accumulation (fired by
+        :func:`leaf_hooks_per_edge` around each backward); on an op's
+        output, once on the summed gradient. Returns a handle with
+        ``remove()``."""
         if self.stop_gradient:
             raise PreconditionNotMetError(
                 "Cannot register hook on a tensor with stop_gradient=True")
+        with _plain():
+            leaf = self.grad_fn is None
+        if not leaf:
+            def call(g):
+                return hook(_wrap(g))
+            return super().register_hook(call)
+        entry = [hook]
+        if "_paddle_hooks" not in self.__dict__:
+            self._paddle_hooks = []
+        self._paddle_hooks.append(entry)
+        _hooked[id(self)] = self
+        return _HookHandle(self, entry)
 
-        def call(g):
-            return hook(_wrap(g))
-        return super().register_hook(call)
+    def _replace_impl(self, other: torch.Tensor) -> None:
+        """Paddle's in-place contract (``paddle1_tpu/core/tensor.py``
+        ``_replace_impl``): this tensor takes ``other``'s value and dtype,
+        and, where ``other`` carries a graph, ops under grad mode are
+        handed ``other`` in its place until this tensor changes, so
+        gradients flow through the op that made it, into this tensor's
+        ``.grad`` when it is a leaf. torch allows no in-place write into
+        a leaf that requires grad; the data is rebound instead."""
+        with _plain():
+            graph = other.requires_grad
+            # a copy when a stand-in is kept: in-place updates of this
+            # tensor must not reach the values ``other``'s graph saved
+            self.data = other.detach().clone() if graph else other.detach()
+            if graph:
+                self._replacement = (other, self._version)
+                _replaced[id(self)] = self
+            else:
+                _replaced.pop(id(self), None)
 
 
 class Parameter(Tensor, torch.nn.Parameter):

@@ -172,7 +172,10 @@ class DataParallel(nn.Module):
         self._grad_sync_enabled = True
         self._comm_dtype = None if comm_dtype is None else \
             _DTYPES[str(comm_dtype).replace("torch.", "")]
-        self._hook_handles = [p.register_hook(self._sync_grad)
+        # torch's own hook, on the accumulated gradient, also for Paddle
+        # parameters (whose register_hook fires per incoming edge): one
+        # all-reduce per parameter, whichever backward API runs
+        self._hook_handles = [torch.Tensor.register_hook(p, self._sync_grad)
                               for p in layers.parameters() if p.requires_grad]
 
     def _sync_grad(self, grad: torch.Tensor) -> torch.Tensor:

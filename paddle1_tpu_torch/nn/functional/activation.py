@@ -8,6 +8,7 @@ import torch
 
 from ...core import dtype as dtypes
 from ...core.flags import flag_active
+from ...core.tensor import Tensor
 from ...ops import softmax as psm
 
 __all__ = ["relu", "gelu", "tanh", "softmax", "softmax_", "log_softmax"]
@@ -48,9 +49,16 @@ def softmax(x: torch.Tensor, axis: int = -1, dtype=None,
 
 def softmax_(x: torch.Tensor, axis: int = -1, dtype=None,
              name=None) -> torch.Tensor:
-    """:func:`softmax` written into ``x`` (which keeps its dtype)."""
+    """:func:`softmax` in place, as the JAX package's ``_inplace``: a
+    Paddle tensor is replaced by the result (its value, its dtype when
+    ``dtype`` is given, and its gradient path: ``Tensor._replace_impl``)
+    and returned; a plain torch tensor gets the result out of place, as
+    the reference's raw arrays do."""
     y = softmax(x, axis, dtype)
-    return x.copy_(y)
+    if isinstance(x, Tensor):
+        x._replace_impl(y)
+        return x
+    return y
 
 
 def log_softmax(x: torch.Tensor, axis: int = -1, dtype=None,

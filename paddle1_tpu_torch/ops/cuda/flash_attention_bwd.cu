@@ -17,12 +17,34 @@
 //     stay resident while the CTA walks the key tiles (under causal
 //     masking up to the last visible one): dQ += dS K.
 //
-// Bound on an H100: like the forward, ~2.5x its bytes and flops; this
-// first version computes in f32 on the CUDA cores (no mma/wgmma), so it
-// is bound by its FMAs. The layout of the tiles is the forward's: f32
+// Bound on an H100: at the BERT shape the dkv pass moves q, k, v, dout
+// in and dk, dv out (6 x 25 MB, 0.046 ms at 3.35 TB/s) for 8*D flops per
+// visible (query, key) pair (0.013 ms at 989 TFLOP/s): bytes.
+//
+// dkv pass in bf16 (the training path): flash_bwd_dkv_tc_kernel, on the
+// tensor cores. One CTA per (batch*head, key tile); each warp owns 16 keys
+// (8 warps and 128 keys at D = 64, so that at N = 128 each Q/dO tile is
+// fetched once per head; 4 warps and 64 keys above), its K and V rows
+// resident in shared memory and read as m16n8k16 A fragments by ldmatrix
+// (held in registers instead, they cost the occupancy that hides the
+// loads). Q and dO tiles of 64 queries arrive in bf16, double-buffered by
+// cp.async, rows padded by 8 bf16 for conflict-free ldmatrix, columns past
+// D zero. Per 32-query sub-tile, all in registers, nothing written to
+// shared memory: S^T = K Q^T and dP^T = V dO^T by mma.sync bf16 -> f32
+// (exact products); P^T = exp(S^T scale - lse) masked; dS^T / scale =
+// P^T (dP^T - delta); dV += P^T dO and dK += dS^T Q (the scale applied
+// once at the end), the f32 left operands taken
+// from the accumulators as A fragments split into bf16 hi + lo (both
+// products issued, ~2^-17 relative), Q and dO as B fragments through
+// ldmatrix.trans. At D = 256 two warps share a key row block, each
+// accumulating half of the columns (S^T and dP^T computed by both).
+// dK and dV are staged in bf16 through shared memory for 16-byte stores.
+//
+// f32 dkv pass, and the dq pass in both types: the first port's kernels on
+// the CUDA cores. The layout of their tiles is the forward's f32 one: f32
 // rows padded to D + 1 floats, 256 threads as 16 x 16, each thread owning
-// BM/16 rows (ty + 16 i) and BM/16 columns (tx + 16 j) of a score tile
-// and DMAX/16 of the D output columns (tx + 16 c).
+// BM/16 rows (ty + 16 i) and BM/16 columns (tx + 16 j) of a score tile and
+// DMAX/16 of the D output columns (tx + 16 c).
 //
 // Built by paddle1_tpu_torch/ops/cuda/build.py with nvcc for sm_90a into
 // a shared library with a plain C interface, loaded through ctypes.
@@ -31,7 +53,11 @@
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 
@@ -204,6 +230,244 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// the dkv pass in bf16 on the tensor cores
+
+constexpr int kTcQueries = 64;  // queries of a tile
+constexpr int kTcSub = 32;      // queries of a sub-tile, in registers
+constexpr float kLog2e = 1.4426950408889634f;
+
+// KEYS keys per CTA, in 16-key row blocks
+template <int DP, int KEYS>
+constexpr size_t dkv_tc_smem_bytes() {
+  // K, V [KEYS][DP + 8] resident; Q and dO x 2 stages [64][DP + 8] bf16;
+  // lse, delta x 2
+  return sizeof(bf16) * (2 * KEYS + 4 * kTcQueries) * (DP + 8) +
+         sizeof(float) * 4 * kTcQueries;
+}
+
+// DSPLIT: warps that share one 16-key row block, each accumulating
+// DP / DSPLIT columns of dK and dV; MINB: CTAs an SM should hold, a floor
+// on occupancy that caps registers; CAUSAL: compiled in, so the unmasked
+// main path pays no compare
+template <int DP, int KEYS, int DSPLIT, int MINB, bool CAUSAL>
+__global__ void __launch_bounds__(2 * KEYS * DSPLIT, MINB)
+    flash_bwd_dkv_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const unsigned char* __restrict__ keep, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int H, int Nq, int Nk, int D, float scale) {
+  using namespace p1t_mma;
+  constexpr int NKB = KEYS / 16;    // key row blocks
+  constexpr int LD = DP + 8;        // row pitch, elements
+  constexpr int KT = DP / 16;       // k16 steps over D
+  constexpr int DC = DP / DSPLIT;   // this warp's dK/dV columns
+  constexpr int CT = DC / 8;        // n8 tiles of them
+  constexpr int ST = kTcSub / 8;    // n8 tiles of a sub-tile's queries
+  constexpr int NT = 32 * NKB * DSPLIT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [KEYS][LD] resident
+  bf16* Vs = Ks + KEYS * LD;                     // [KEYS][LD] resident
+  bf16* Qs = Vs + KEYS * LD;                     // [2][64][LD]
+  bf16* Os = Qs + 2 * kTcQueries * LD;           // [2][64][LD] dout
+  float* ls = reinterpret_cast<float*>(Os + 2 * kTcQueries * LD);  // [2][64]
+  float* dl = ls + 2 * kTcQueries;                                 // [2][64]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, row
+  const int kw = (warp % NKB) * 16;         // the warp's first key row
+  const int dc0 = (warp / NKB) * DC;        // its first dK/dV column
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * KEYS;
+  const long rs = static_cast<long>(H) * D;
+  const long qoff = (static_cast<long>(b) * Nq * H + h) * D;
+  const long koff = (static_cast<long>(b) * Nk * H + h) * D;
+  const int off = Nk - Nq;
+  const int cpr = D >> 3;  // 16-byte chunks of a row
+
+  // columns [D, DP) of all six tiles stay zero
+  if (D < DP) {
+    const int pc = (DP - D) >> 3;
+    for (int i = tid; i < (2 * KEYS + 4 * kTcQueries) * pc; i += NT) {
+      const int r = i / pc;
+      *reinterpret_cast<uint4*>(Ks + r * LD + (cpr + i - r * pc) * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  auto load_rows = [&](bf16* dst, const bf16* src, int rows) {
+    for (int i = tid; i < rows * cpr; i += NT) {
+      const int r = i / cpr;
+      const int c = i - r * cpr;
+      cp_async16(dst + r * LD + c * 8, src + r * rs + c * 8);
+    }
+  };
+  auto load_q = [&](int tile, int stage) {
+    const long at = static_cast<long>(tile) * kTcQueries * rs;
+    load_rows(Qs + stage * kTcQueries * LD, q + qoff + at, kTcQueries);
+    load_rows(Os + stage * kTcQueries * LD, dout + qoff + at, kTcQueries);
+    const long row = static_cast<long>(bh) * Nq + tile * kTcQueries;
+    if (tid < kTcQueries / 4)
+      cp_async16(ls + stage * kTcQueries + tid * 4, lse + row + tid * 4);
+    else if (tid < kTcQueries / 2)
+      cp_async16(dl + stage * kTcQueries + (tid - 16) * 4,
+                 delta + row + (tid - 16) * 4);
+  };
+
+  int lo = 0;
+  if (CAUSAL) lo = max((k0 - off) / kTcQueries, 0);
+  const int hi = Nq / kTcQueries;
+  load_rows(Ks, k + koff + k0 * rs, KEYS);
+  load_rows(Vs, v + koff + k0 * rs, KEYS);
+  if (lo < hi) load_q(lo, 0);
+  cp_async_commit();
+
+  // this lane's two keys (rows g and g + 8 of the warp's block)
+  const int kr[2] = {k0 + kw + g, k0 + kw + g + 8};
+  bool kept[2] = {true, true};
+  if (keep) {
+    kept[0] = keep[static_cast<long>(b) * Nk + kr[0]] != 0;
+    kept[1] = keep[static_cast<long>(b) * Nk + kr[1]] != 0;
+  }
+  const float sl = scale * kLog2e;
+  float gk[CT][4], gv[CT][4];
+#pragma unroll
+  for (int j = 0; j < CT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[j][e] = gv[j][e] = 0.f;
+
+  for (int t = lo; t < hi; ++t) {
+    const int st = (t - lo) & 1;
+    if (t + 1 < hi) {
+      load_q(t + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Qt = Qs + st * kTcQueries * LD;
+    const bf16* Ot = Os + st * kTcQueries * LD;
+    float* lt = ls + st * kTcQueries;
+    const float* dt = dl + st * kTcQueries;
+    const int q0 = t * kTcQueries;
+    // the tile's LSE as the exp2 offset -lse log2(e), the sentinel as -inf
+    // (p = 0: a row that saw no key gets no gradient)
+    if (tid < kTcQueries) {
+      const float l = lt[tid];
+      lt[tid] = l <= -1e29f ? -INFINITY : -l * kLog2e;
+    }
+    __syncthreads();
+
+#pragma unroll 1
+    for (int qs0 = 0; qs0 < kTcQueries; qs0 += kTcSub) {
+      // under causal masking a sub-tile whose last query sees none of the
+      // warp's keys adds nothing
+      if (CAUSAL && k0 + kw > q0 + qs0 + kTcSub - 1 + off) continue;
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries
+      float s[ST][4], dp[ST][4];
+#pragma unroll
+      for (int j = 0; j < ST; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t ak[4], av[4];
+        const int at = (kw + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
+        ldsm_x4(ak, Ks + at);
+        ldsm_x4(av, Vs + at);
+#pragma unroll
+        for (int np = 0; np < ST / 2; ++np) {
+          const int at = (qs0 + np * 16 + mr + ((mi >> 1) << 3)) * LD +
+                         kk * 16 + ((mi & 1) << 3);
+          uint32_t bq[4], bo[4];
+          ldsm_x4(bq, Qt + at);
+          ldsm_x4(bo, Ot + at);
+          mma(s[2 * np], ak, bq[0], bq[1]);
+          mma(s[2 * np + 1], ak, bq[2], bq[3]);
+          mma(dp[2 * np], av, bo[0], bo[1]);
+          mma(dp[2 * np + 1], av, bo[2], bo[3]);
+        }
+      }
+      // P^T and dS^T / scale at (key kr[e / 2], query qs0 + 8 j + 2 t4 +
+      // e % 2); the scale is applied to dK once, in the epilogue
+#pragma unroll
+      for (int j = 0; j < ST; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = qs0 + j * 8 + 2 * t4 + (e & 1);
+          bool ok = kept[e >> 1];
+          if (CAUSAL) ok = ok && kr[e >> 1] <= q0 + qc + off;
+          const float p = ok ? exp2f(fmaf(s[j][e], sl, lt[qc])) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dt[qc]);
+        }
+      // dV += P^T dO, dK += dS^T Q over the sub-tile's queries
+#pragma unroll
+      for (int kb2 = 0; kb2 < ST / 2; ++kb2) {
+        uint32_t ph[4], pl[4], sh[4], sm[4];
+        c_to_a(s[2 * kb2], s[2 * kb2 + 1], ph, pl);
+        c_to_a(dp[2 * kb2], dp[2 * kb2 + 1], sh, sm);
+        // the hi products of every tile, then the lo ones, so that no
+        // product waits on the one before it
+#pragma unroll
+        for (int cp = 0; cp < CT / 2; ++cp) {
+          const int at = (qs0 + kb2 * 16 + mr + ((mi & 1) << 3)) * LD + dc0 +
+                         cp * 16 + ((mi >> 1) << 3);
+          uint32_t bo[4], bq[4];
+          ldsm_x4_t(bo, Ot + at);
+          ldsm_x4_t(bq, Qt + at);
+          mma(gv[2 * cp], ph, bo[0], bo[1]);
+          mma(gv[2 * cp + 1], ph, bo[2], bo[3]);
+          mma(gk[2 * cp], sh, bq[0], bq[1]);
+          mma(gk[2 * cp + 1], sh, bq[2], bq[3]);
+          mma(gv[2 * cp], pl, bo[0], bo[1]);
+          mma(gv[2 * cp + 1], pl, bo[2], bo[3]);
+          mma(gk[2 * cp], sm, bq[0], bq[1]);
+          mma(gk[2 * cp + 1], sm, bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before its refill
+  }
+
+  // epilogue: dK and dV staged in bf16 through the Q and dO tiles
+  cp_async_wait<0>();
+  __syncthreads();
+  bf16* dKs = Qs;
+  bf16* dVs = Os;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = kw + g + 8 * r;
+#pragma unroll
+    for (int j = 0; j < CT; ++j) {
+      const int c = dc0 + j * 8 + 2 * t4;
+      *reinterpret_cast<__nv_bfloat162*>(dKs + row * LD + c) =
+          __floats2bfloat162_rn(gk[j][2 * r] * scale,
+                                gk[j][2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dVs + row * LD + c) =
+          __floats2bfloat162_rn(gv[j][2 * r], gv[j][2 * r + 1]);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < KEYS * cpr; i += NT) {
+    const int r = i / cpr;
+    const int c = i - r * cpr;
+    const long at = koff + (k0 + r) * rs + c * 8;
+    *reinterpret_cast<uint4*>(dk + at) =
+        *reinterpret_cast<const uint4*>(dKs + r * LD + c * 8);
+    *reinterpret_cast<uint4*>(dv + at) =
+        *reinterpret_cast<const uint4*>(dVs + r * LD + c * 8);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the f32 dkv pass and the dq pass on the CUDA cores
 
 template <typename T, int BM, int DC>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
@@ -382,23 +646,60 @@ int launch_dq(const Args& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// which: 0 = the dK/dV pass, 1 = the dQ pass
-template <typename T>
-int dispatch(const Args& a, int which, cudaStream_t s) {
-  if (a.D <= 64)
-    return which == 0 ? launch_dkv<T, 64, 4>(a, s) : launch_dq<T, 64, 4>(a, s);
-  if (a.D <= 128)
-    return which == 0 ? launch_dkv<T, 64, 8>(a, s) : launch_dq<T, 64, 8>(a, s);
-  return which == 0 ? launch_dkv<T, 32, 16>(a, s) : launch_dq<T, 32, 16>(a, s);
+template <int DP, int KEYS, int DSPLIT, int MINB, bool CAUSAL>
+int launch_dkv_tc(const Args& a, cudaStream_t s) {
+  if (a.Nq % kTcQueries || a.Nk % KEYS || a.D > DP)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_bwd_dkv_tc_kernel<DP, KEYS, DSPLIT, MINB, CAUSAL>;
+  constexpr size_t smem = dkv_tc_smem_bytes<DP, KEYS>();
+  // allow the bucket's footprint once, outside any graph capture
+  static cudaError_t attr = allow_smem(kern, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kern<<<dim3(a.B * a.H, a.Nk / KEYS), 2 * KEYS * DSPLIT, smem, s>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<const unsigned char*>(a.keep), static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.H, a.Nq, a.Nk, a.D, a.scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
+// the buckets: at D = 64, 8 warps (128 keys, so each Q/dO tile is fetched
+// once per head at N = 128) with registers capped at 128 for 2 CTAs an SM;
+// at 128, 4 warps; at 256, two warps share a key row block
+template <bool CAUSAL>
+int dispatch_dkv_tc(const Args& a, cudaStream_t s) {
+  if (a.D <= 64) return launch_dkv_tc<64, 128, 1, 2, CAUSAL>(a, s);
+  if (a.D <= 128) return launch_dkv_tc<128, 64, 1, 1, CAUSAL>(a, s);
+  return launch_dkv_tc<256, 64, 2, 1, CAUSAL>(a, s);
+}
+
+// the f32 dkv pass on the CUDA cores
+int dispatch_dkv_f32(const Args& a, cudaStream_t s) {
+  if (a.D <= 64) return launch_dkv<float, 64, 4>(a, s);
+  if (a.D <= 128) return launch_dkv<float, 64, 8>(a, s);
+  return launch_dkv<float, 32, 16>(a, s);
+}
+
+template <typename T>
+int dispatch_dq(const Args& a, cudaStream_t s) {
+  if (a.D <= 64) return launch_dq<T, 64, 4>(a, s);
+  if (a.D <= 128) return launch_dq<T, 64, 8>(a, s);
+  return launch_dq<T, 32, 16>(a, s);
+}
+
+// which: 0 = the dK/dV pass, 1 = the dQ pass
 int run(const Args& a, int which, int dtype, void* stream) {
   if (a.B <= 0 || a.H <= 0 || a.Nq <= 0 || a.Nk <= 0 || a.D <= 0 ||
       a.D > 256 || a.D % 8 || (a.causal && a.Nq > a.Nk))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(a, which, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(a, which, s);
+  if (dtype == 0)
+    return which == 0 ? dispatch_dkv_f32(a, s) : dispatch_dq<float>(a, s);
+  if (dtype == 1)
+    return which == 1 ? dispatch_dq<bf16>(a, s)
+           : a.causal ? dispatch_dkv_tc<true>(a, s)
+                      : dispatch_dkv_tc<false>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -408,7 +709,8 @@ extern "C" {
 
 // q/dout: [B, Nq, H, D], k/v: [B, Nk, H, D], contiguous in `dtype`
 // (0 = float32, 1 = bfloat16); lse/delta: [B, H, Nq] f32; keep: [B, Nk]
-// bytes or NULL; dk/dv like k. Returns a cudaError_t (0 = success).
+// bytes or NULL; lse and delta 16-byte aligned for bfloat16; dk/dv like k.
+// Returns a cudaError_t (0 = success).
 int p1t_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       const void* keep, void* dk, void* dv, int B, int H,

@@ -13,6 +13,9 @@ keep-mask. A row that sees no key gives O = 0 and LSE = -1e30.
   sentinel LSE remapped to +inf so such rows get zero gradient).
 * :func:`flash_fwd` — launches ``ops/cuda/flash_attention.cu`` for CUDA
   tensors and runs the plain version only for CPU tensors; no fallback.
+* :func:`flash_fwd_tc_emulation` — the bf16 tensor-core kernel's
+  arithmetic in plain PyTorch (64-key tiles, the online softmax, P split
+  into bf16 hi + lo, f32 accumulation), for the CPU tests only.
 * :func:`flash_attention` — the differentiable entry
   (``torch.autograd.Function``): forward through :func:`flash_fwd`,
   backward through the kernels of ``flash_attention_bwd`` under the
@@ -30,11 +33,12 @@ from ..core.errors import InvalidArgumentError, KernelLaunchError
 from ..core.flags import flag_active
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_bwd_ref",
-           "flash_fwd", "supported"]
+           "flash_fwd", "flash_fwd_tc_emulation", "supported"]
 
 BLOCK = 128
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TC_TILE = 64   # keys of a tile (forward) and queries of a tile (dK/dV)
 _fn = None
 
 
@@ -112,9 +116,84 @@ def flash_bwd_ref(q, k, v, out, lse, dout, scale: float,
     return back(dq, q), back(dk, k), back(dv, v)
 
 
+def split_bf16(x):
+    """``x`` (f32) as bf16 ``hi + lo``, both returned in f32: what the
+    tensor-core kernels feed the product in place of an f32 operand."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _heads(*ts):
+    """bf16 operands, as the tensor cores read them, in f32 [B, H, N, D]."""
+    return [t.to(torch.bfloat16).float().transpose(1, 2) for t in ts]
+
+
+def _visible(b, nq, k0, nk_tile, nk, causal, padding_mask, device):
+    """[B, 1, Nq, tile] bool: (query, key) pairs of keys [k0, k0 + tile)
+    that the masks leave visible."""
+    vis = torch.ones(b, 1, nq, nk_tile, dtype=torch.bool, device=device)
+    if padding_mask is not None:
+        vis = vis & padding_mask.to(torch.bool)[:, None, None,
+                                                k0:k0 + nk_tile]
+    if causal:
+        qi = torch.arange(nq, device=device)[:, None]
+        kj = torch.arange(k0, k0 + nk_tile, device=device)[None, :]
+        vis = vis & (kj <= qi + nk - nq)
+    return vis
+
+
+def flash_fwd_tc_emulation(q, k, v, scale: float, causal: bool = False,
+                           padding_mask=None):
+    """The bf16 tensor-core forward's numerics in plain PyTorch (CPU tests
+    only): operands rounded to bf16, S = Q K^T exact products summed in
+    f32, the online softmax over 64-key tiles (the raw-score max, p =
+    exp((s - m) scale)), O += P_hi V + P_lo V in f32. Returns ``(out,
+    lse)`` in f32, before the kernel's store rounds ``out`` to bf16; rows
+    with no visible key give 0 and -1e30."""
+    b, nq, h, d = q.shape
+    nk = k.shape[1]
+    qh, kh, vh = _heads(q, k, v)
+    m = torch.full((b, h, nq), float("-inf"), device=q.device)
+    l = torch.zeros(b, h, nq, device=q.device)
+    acc = torch.zeros(b, h, nq, d, device=q.device)
+    for k0 in range(0, nk, TC_TILE):
+        s = torch.matmul(qh, kh[:, :, k0:k0 + TC_TILE].transpose(-1, -2))
+        vis = _visible(b, nq, k0, s.shape[-1], nk, causal, padding_mask,
+                       q.device)
+        s = s.masked_fill(~vis, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        mu = torch.where(m_new == float("-inf"), torch.zeros_like(m_new),
+                         m_new)
+        alpha = torch.where(m_new == float("-inf"), torch.ones_like(m),
+                            torch.exp((m - mu) * scale))
+        p = torch.exp((s - mu[..., None]) * scale)
+        hi, lo = split_bf16(p)
+        vt = vh[:, :, k0:k0 + TC_TILE]
+        acc = acc * alpha[..., None] + (torch.matmul(hi, vt) +
+                                        torch.matmul(lo, vt))
+        l = l * alpha + p.sum(-1)
+        m = m_new
+    seen = l > 0
+    l_safe = torch.where(seen, l, torch.ones_like(l))
+    out = torch.where(seen[..., None], acc / l_safe[..., None],
+                      torch.zeros((), device=q.device))
+    lse = torch.where(seen, m * scale + torch.log(l_safe),
+                      torch.full((), _NEG_INF, device=q.device))
+    return out.transpose(1, 2), lse
+
+
+def _aligned(t):
+    """``t`` contiguous with a 16-byte aligned start (the bf16 kernels copy
+    rows, the keep-mask, LSE and delta with 16-byte ``cp.async``); a view
+    that starts elsewhere is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _check(name, q, k, v, causal, padding_mask):
     """Validate CUDA inputs against the kernels' contract; return the
-    contiguous tensors and the keep-mask as bytes (or None)."""
+    contiguous, 16-byte aligned tensors and the keep-mask as bytes (or
+    None)."""
     if not supported(q.shape, k.shape, causal) or q.dtype not in _DTYPES:
         raise InvalidArgumentError(
             f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} "
@@ -137,11 +216,10 @@ def _check(name, q, k, v, causal, padding_mask):
                 f"{name}: padding_mask must be [{b}, {nk}] on {q.device}, "
                 f"got {tuple(padding_mask.shape)} on "
                 f"{padding_mask.device}")
-        keep = (padding_mask.to(torch.bool) if padding_mask.dtype !=
-                torch.bool else padding_mask).contiguous()
+        keep = _aligned(padding_mask.to(torch.bool))
     if q.device.type != "cuda":
         raise InvalidArgumentError(f"{name}: unsupported device {q.device}")
-    return q.contiguous(), k.contiguous(), v.contiguous(), keep
+    return _aligned(q), _aligned(k), _aligned(v), keep
 
 
 def _kernel():

@@ -15,6 +15,8 @@ Both take the forward's LSE and ``delta = rowsum(dout * out)``, which
 computes it outside Pallas. The kernels remap the sentinel LSE to +inf.
 The plain version is ``flash_attention.flash_bwd_ref``; CPU tensors run
 it, CUDA tensors launch the kernels or raise.
+:func:`flash_bwd_dkv_tc_emulation` is the bf16 tensor-core dK/dV pass's
+arithmetic in plain PyTorch, for the CPU tests only.
 """
 
 from __future__ import annotations
@@ -24,10 +26,12 @@ import ctypes
 import torch
 
 from ..core.errors import KernelLaunchError
-from .flash_attention import _DTYPES, _check, flash_bwd_ref, supported
+from .flash_attention import (_DTYPES, _NEG_INF, TC_TILE, _aligned, _check,
+                              _heads, _visible, flash_bwd_ref, split_bf16,
+                              supported)
 
 __all__ = ["flash_attention_bwd", "flash_bwd_dkv", "flash_bwd_dq",
-           "supported"]
+           "flash_bwd_dkv_tc_emulation", "supported"]
 
 _fns = {}
 
@@ -70,7 +74,7 @@ def _rows(lse, delta, q):
             raise InvalidArgumentError(
                 f"flash backward: {name} must be [{b}, {h}, {nq}] on "
                 f"{q.device}, got {tuple(t.shape)} on {t.device}")
-        out.append(t.float().contiguous())
+        out.append(_aligned(t.float()))
     return out
 
 
@@ -79,7 +83,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, scale, causal=False,
     """(dk, dv) from the kernel; CUDA tensors only (inputs outside the
     kernel's contract raise InvalidArgumentError)."""
     q, k, v, keep = _check("flash_bwd_dkv", q, k, v, causal, padding_mask)
-    dout = dout.to(q.dtype).contiguous()
+    dout = _aligned(dout.to(q.dtype))
     lse, delta = _rows(lse, delta, q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("p1t_flash_bwd_dkv",
@@ -95,7 +99,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal=False,
                  padding_mask=None):
     """dq from the kernel; CUDA tensors only."""
     q, k, v, keep = _check("flash_bwd_dq", q, k, v, causal, padding_mask)
-    dout = dout.to(q.dtype).contiguous()
+    dout = _aligned(dout.to(q.dtype))
     lse, delta = _rows(lse, delta, q)
     dq = torch.empty_like(q)
     _launch("p1t_flash_bwd_dq",
@@ -105,6 +109,39 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal=False,
              dq.data_ptr()), q, k, scale, causal)
     flash_bwd_dq.launches += 1
     return dq
+
+
+def flash_bwd_dkv_tc_emulation(q, k, v, dout, lse, delta, scale,
+                               causal=False, padding_mask=None):
+    """The bf16 tensor-core dK/dV pass's numerics in plain PyTorch (CPU
+    tests only): operands rounded to bf16; per 64-query tile, S^T and
+    dP^T as exact products summed in f32, P^T = exp(S^T scale - lse)
+    masked (a sentinel LSE gives 0), dS^T / scale = P^T (dP^T - delta),
+    then dV += P^T_hi dO + P^T_lo dO and dK += (dS^T / scale)_hi Q +
+    (dS^T / scale)_lo Q in f32, dK times scale at the end. Returns
+    ``(dk, dv)`` in f32 ``[B, Nk, H, D]``, before the kernel's store rounds
+    them to bf16."""
+    b, nq, h, d = q.shape
+    nk = k.shape[1]
+    qh, kh, vh, doh = _heads(q, k, v, dout)
+    lse = torch.where(lse > _NEG_INF * 0.1, lse.float(),
+                      torch.full((), float("inf"), device=lse.device))
+    dk = torch.zeros(b, h, nk, d, device=q.device)
+    dv = torch.zeros(b, h, nk, d, device=q.device)
+    for q0 in range(0, nq, TC_TILE):
+        rows = slice(q0, q0 + TC_TILE)
+        st = torch.matmul(kh, qh[:, :, rows].transpose(-1, -2))
+        dpt = torch.matmul(vh, doh[:, :, rows].transpose(-1, -2))
+        vis = _visible(b, nq, 0, nk, nk, causal, padding_mask,
+                       q.device)[:, :, rows].transpose(-1, -2)
+        pt = torch.where(vis, torch.exp(st * scale - lse[:, :, None, rows]),
+                         torch.zeros((), device=q.device))
+        dst = pt * (dpt - delta[:, :, None, rows].float())
+        for acc, left, right in ((dv, pt, doh), (dk, dst, qh)):
+            hi, lo = split_bf16(left)
+            acc += torch.matmul(hi, right[:, :, rows]) + \
+                torch.matmul(lo, right[:, :, rows])
+    return (dk * scale).transpose(1, 2), dv.transpose(1, 2)
 
 
 flash_bwd_dkv.launches = 0  # kernel launches; reset by chip_smoke.py

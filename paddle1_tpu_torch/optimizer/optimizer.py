@@ -86,12 +86,15 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
-        """One update of every parameter that has a ``.grad``. Paddle
+        """One update of every parameter that has a ``.grad`` and does
+        not stop gradients (one frozen after its gradient landed keeps its
+        value, as in ``paddle1_tpu/optimizer/optimizer.py:140-141``). Paddle
         tensors (``core/tensor.py``, a ``torch.Tensor`` subclass) are read
         as plain tensors here, so the update pays no re-wrapping per op or
         attribute."""
         with torch._C.DisableTorchFunctionSubclass():
-            pg = [(p, p.grad) for p in self._params if p.grad is not None]
+            pg = [(p, p.grad) for p in self._params
+                  if p.grad is not None and p.requires_grad]
             self.apply([p for p, _ in pg], [g for _, g in pg])
 
     @torch.no_grad()

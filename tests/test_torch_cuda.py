@@ -11,7 +11,9 @@ kernels' wrappers: inputs outside a kernel's contract raise instead of
 running the plain version, and a bf16 KV pool under f32 queries runs the
 kernel and agrees with the plain version. For the training kernels
 (flash forward, its dK/dV and dQ passes, fused AdamW) they hold the same,
-and that a tiny BERT step on the card launches each of them. For the
+the bf16 tensor-core forward and dK/dV pass to their plain versions at
+every D bucket, causal and padded, and that a tiny BERT step on the card
+launches each of them. For the
 fused batch-norm family (training and given-statistics forward, their
 backward passes) they hold each kernel to its plain version across the
 activation x residual matrix in f32 and bf16, that inputs outside the
@@ -147,6 +149,68 @@ def test_sdpa_padding_mask_runs_the_flash_kernels_forward_and_back(dev):
     for got, want in zip((q.grad, k.grad, v.grad), ref_g):
         assert float((got - want).abs().max()) <= 1e-4
         assert float(got[1].abs().max()) == 0.0   # the padded row
+
+
+# bf16 flash against its plain version: one bf16 rounding step of the
+# value (2^-7 relative) plus the f32 difference (chip_smoke.py's
+# FLASH_BF16_ABS); LSE in f32 to 1e-5 (FLASH_TOL)
+FLASH_BF16_ABS, FLASH_TOL = 1e-4, 1e-5
+
+
+def _bf16_excess(got, want):
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() - 2.0 ** -7 * want.abs()).max())
+
+
+@pytest.mark.parametrize("nq,nk,d,causal", [
+    (256, 256, 64, False), (256, 256, 64, True), (128, 256, 64, True),
+    (256, 256, 128, False), (128, 256, 128, True), (256, 256, 256, False),
+    (128, 256, 256, True), (128, 128, 40, False), (128, 256, 96, True),
+])
+def test_bf16_tensor_core_flash_matches_its_plain_version(dev, nq, nk, d,
+                                                          causal):
+    """The tensor-core forward and dK/dV pass at each D bucket (64, 128,
+    256; 40 and 96 zero-padded in shared memory), causal and padded, one
+    batch row fully padded; both repeat bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(nq + nk + d)
+    q, do = (torch.randn(3, nq, 2, d, device=dev, generator=g).to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(3, nk, 2, d, device=dev, generator=g).to(
+        torch.bfloat16) for _ in range(2))
+    keep = torch.ones(3, nk, dtype=torch.bool, device=dev)
+    keep[0, nk // 2 + 3:] = False
+    keep[1] = False
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, scale, causal, keep)
+    ro, rl = fa.flash_attention_ref(q, k, v, scale, causal, keep)
+    assert _bf16_excess(out, ro) <= FLASH_BF16_ABS
+    live = rl > -1e29
+    assert torch.equal(lse > -1e29, live)
+    assert float((lse - rl)[live].abs().max()) <= FLASH_TOL
+    assert float(out[1].abs().max()) == 0.0
+    delta = (do.float() * ro.float()).sum(-1).transpose(1, 2)
+    dk, dv = fb.flash_bwd_dkv(q, k, v, do, rl, delta, scale, causal, keep)
+    _, rk, rv = fa.flash_bwd_ref(q, k, v, ro, rl, do, scale, causal, keep)
+    assert _bf16_excess(dk, rk) <= FLASH_BF16_ABS
+    assert _bf16_excess(dv, rv) <= FLASH_BF16_ABS
+    assert float(dk[1].abs().max()) == float(dv[1].abs().max()) == 0.0
+    out2, lse2 = fa.flash_fwd(q, k, v, scale, causal, keep)
+    dk2, dv2 = fb.flash_bwd_dkv(q, k, v, do, rl, delta, scale, causal, keep)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_bf16_flash_takes_unaligned_views(dev):
+    """A view that does not start on 16 bytes is copied by the wrapper
+    before the kernel's 16-byte copies see it."""
+    q, k, v = _qkv(dev, (2, 128, 2, 64), torch.bfloat16)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+    qv = flat[1:].view_as(q)
+    qv.copy_(q)
+    keep = torch.ones(4, 129, dtype=torch.bool, device=dev)[:2, 1:]
+    got, _ = fa.flash_fwd(qv, k, v, 0.125, False, keep)
+    want, _ = fa.flash_fwd(q, k, v, 0.125, False, keep.contiguous())
+    assert torch.equal(got, want)
 
 
 def test_fused_adam_outside_the_contract_raises_on_the_card(dev):

@@ -164,6 +164,45 @@ def test_hooks_match_the_jax_package():
     assert len(res[1]) == 2
 
 
+@pytest.mark.parametrize("expr", ["x*x", "exp+sin"])
+def test_leaf_hooks_fire_per_incoming_edge_as_the_jax_package(expr):
+    """A leaf used twice: the JAX engine fires its hook on each edge's
+    gradient before accumulating (``autograd/engine.py:438-449``), so a
+    squaring hook gives sum(g_i^2), not (sum g_i)^2."""
+    a = np.array([0.5, -2.0, 3.0], np.float32)
+    res = []
+    for pk in (jp, tp):
+        x = pk.to_tensor(a, stop_gradient=False)
+        calls = []
+        x.register_hook(lambda g: (calls.append(1), g * g)[1])
+        y = x * x if expr == "x*x" else x.exp() + x.sin()
+        y.sum().backward()
+        res.append((x.grad.numpy(), len(calls)))
+    (got, n_got), (want, n_want) = res[1], res[0]
+    np.testing.assert_allclose(got, want, **TOL)
+    assert n_got == n_want == 2
+    if expr == "x*x":
+        np.testing.assert_allclose(got, [0.5, 8.0, 18.0], **TOL)
+
+
+def test_leaf_hooks_per_edge_through_grad_and_after_remove():
+    """``paddle.grad`` sees the hooked edges too; a removed hook fires no
+    more and its leaf costs nothing again."""
+    from paddle1_tpu_torch.core import tensor as ptensor
+    a = np.array([0.5, -2.0, 3.0], np.float32)
+    res = []
+    for pk in (jp, tp):
+        x = pk.to_tensor(a, stop_gradient=False)
+        h = x.register_hook(lambda g: g * g)
+        gx, = pk.grad((x * x * 2.0).sum(), [x])
+        h.remove()
+        gy, = pk.grad((x * x).sum(), [x])
+        res.append((gx.numpy(), gy.numpy()))
+    for got, want in zip(res[1], res[0]):
+        np.testing.assert_allclose(got, want, **TOL)
+    assert not ptensor._hooked
+
+
 def test_grad_with_and_without_allow_unused():
     a, b = _x(6, (3,)), _x(7, (3,))
     res = []
@@ -285,6 +324,22 @@ def test_places_and_seeds():
     assert torch.equal(torch.rand(3), a)
 
 
+def test_optimizer_skips_a_parameter_frozen_after_its_grad_landed():
+    """``paddle1_tpu/optimizer/optimizer.py:140-141`` selects on the
+    gradient and ``not stop_gradient``."""
+    a = np.array([0.5, -2.0, 3.0], np.float32)
+    for pk in (jp, tp):
+        w = pk.Parameter(a)
+        opt = pk.optimizer.Adam(learning_rate=0.1, parameters=[w])
+        (w * w).sum().backward()
+        w.stop_gradient = True
+        opt.step()
+        np.testing.assert_array_equal(w.numpy(), a)
+        w.stop_gradient = False
+        opt.step()
+        assert np.abs(w.numpy() - a).max() > 0.05
+
+
 # ---------------------------------------------------------------------------
 # softmax functionals and layers
 
@@ -359,6 +414,34 @@ def test_softmax_in_place_and_log_softmax():
         tp.nn.functional.log_softmax(tp.to_tensor(a), axis=0).numpy(),
         jp.nn.functional.log_softmax(jp.to_tensor(a), axis=0).numpy(),
         atol=2e-6, rtol=1e-6)
+
+
+def test_softmax_in_place_takes_the_new_dtype_as_the_jax_package():
+    a = _x(27, (3, 5))
+    res = []
+    for pk in (jp, tp):
+        x = pk.to_tensor(a)
+        assert pk.nn.functional.softmax_(x, dtype="float16") is x
+        res.append((str(x.dtype).replace("torch.", "").replace(
+            "paddle.", ""), x.numpy().astype(np.float32)))
+    assert res[1][0] == res[0][0] == "float16"
+    np.testing.assert_allclose(res[1][1], res[0][1], atol=1e-3)
+
+
+def test_softmax_in_place_on_a_leaf_replaces_it_as_the_jax_package():
+    """The JAX package's ``_replace_impl`` rebinds x to the softmax's
+    output: x holds the probabilities and a later loss on x reaches
+    x.grad through the softmax's backward."""
+    a, g = _x(28, (4, 6), 2.0), _x(29, (4, 6))
+    res = []
+    for pk in (jp, tp):
+        x = pk.to_tensor(a, stop_gradient=False)
+        assert pk.nn.functional.softmax_(x) is x
+        assert not x.stop_gradient
+        (x * pk.to_tensor(g)).sum().backward()
+        res.append((x.numpy(), x.grad.numpy()))
+    for got, want in zip(res[1], res[0]):
+        np.testing.assert_allclose(got, want, **TOL)
 
 
 @pytest.mark.parametrize("soft", [False, True])

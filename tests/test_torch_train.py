@@ -34,6 +34,7 @@ from paddle1_tpu_torch.distributed import ParallelEngine
 from paddle1_tpu_torch.nn import TransformerEncoderLayer
 from paddle1_tpu_torch.nn import functional as tF
 from paddle1_tpu_torch.ops import flash_attention as tfa
+from paddle1_tpu_torch.ops import flash_attention_bwd as tfb
 from paddle1_tpu_torch.ops import fused_adam as tadam
 from paddle1_tpu_torch.optimizer import AdamW
 from paddle1_tpu_torch.text.models import (BertForPretraining, BertModel,
@@ -49,6 +50,13 @@ BWD_TOL = dict(atol=1e-4, rtol=1e-4)
 ADAM_TOL = dict(rtol=1e-6, atol=1e-7)
 LN_TOL = dict(atol=1e-5, rtol=1e-5)
 MOD_TOL = dict(atol=1e-4, rtol=1e-4)
+# the bf16 tensor-core kernels' arithmetic on bf16-valued inputs against
+# the JAX package's f32 flash: the products are exact in both, the sums run
+# in other orders, and P and dS enter their products as bf16 hi + lo (about
+# 2^-17 relative per term); the card holds the kernels to their plain
+# versions to the same 1e-4 (chip_smoke.py's FLASH_BF16_ABS, beyond one
+# bf16 rounding step of the stored value, which the emulation leaves out)
+FLASH_BF16_ABS = 1e-4
 ALWAYS = dict(flash_attention="always", flash_backward="always",
               fused_adam="always")
 
@@ -118,6 +126,53 @@ def test_flash_bwd_ref_matches_pallas_backward(nq, nk, h, d, causal):
                                    **BWD_TOL)
     # the fully padded batch row gets an exact zero gradient
     for g in got:
+        np.testing.assert_array_equal(g.numpy()[1], 0.0)
+
+
+TC_CASES = ATTN_CASES + [(128, 256, 2, 128, False)]   # + ERNIE's D = 128
+
+
+def _bf16_valued(*arrays):
+    return [np.asarray(torch.from_numpy(a).to(torch.bfloat16).float())
+            for a in arrays]
+
+
+@pytest.mark.parametrize("nq,nk,h,d,causal", TC_CASES)
+def test_tensor_core_forward_emulation_matches_pallas(nq, nk, h, d, causal):
+    q, k, v, pm, _ = _attn_case(3 * nq + d, nq, nk, h, d)
+    q, k, v = _bf16_valued(q, k, v)
+    scale = 1.0 / math.sqrt(d)
+    want_o, want_l = jfa._flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), scale, causal,
+                                    padding_mask=jnp.asarray(pm))
+    got_o, got_l = tfa.flash_fwd_tc_emulation(_t(q), _t(k), _t(v), scale,
+                                              causal, _t(pm) > 0.5)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), rtol=0,
+                               atol=FLASH_BF16_ABS)
+    np.testing.assert_array_equal(got_o.numpy()[1], 0.0)
+    live = np.asarray(want_l) > -1e29
+    np.testing.assert_array_equal(got_l.numpy() > -1e29, live)
+    assert float(got_l[1].max()) == pytest.approx(-1e30)
+    np.testing.assert_allclose(got_l.numpy()[live], np.asarray(want_l)[live],
+                               **FWD_TOL)
+
+
+@pytest.mark.parametrize("nq,nk,h,d,causal", TC_CASES)
+def test_tensor_core_dkv_emulation_matches_pallas(nq, nk, h, d, causal):
+    q, k, v, pm, dout = _attn_case(5 * nq + d, nq, nk, h, d)
+    q, k, v, dout = _bf16_valued(q, k, v, dout)
+    scale = 1.0 / math.sqrt(d)
+    jq, jk, jv, jpm = (jnp.asarray(a) for a in (q, k, v, pm))
+    out, lse = jfa._flash_fwd(jq, jk, jv, scale, causal, padding_mask=jpm)
+    _, want_k, want_v = j_flash_bwd(jq, jk, jv, out, lse, jnp.asarray(dout),
+                                    scale, causal, padding_mask=jpm)
+    delta = (dout * np.asarray(out)).sum(-1).transpose(0, 2, 1)
+    got_k, got_v = tfb.flash_bwd_dkv_tc_emulation(
+        _t(q), _t(k), _t(v), _t(dout), _t(np.asarray(lse)), _t(delta),
+        scale, causal, _t(pm) > 0.5)
+    for g, w, name in ((got_k, want_k, "dk"), (got_v, want_v, "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   rtol=0, atol=FLASH_BF16_ABS)
         np.testing.assert_array_equal(g.numpy()[1], 0.0)
 
 
