@@ -11,11 +11,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    then build every CUDA kernel of the port from
    ``paddle1_tpu_torch/ops/cuda/*.cu`` (one nvcc per source, in parallel);
    print ptxas's registers and spills, and count the tensor-core
-   instructions (``HMMA``) in the SASS of the two tensor-core flash
+   instructions (``HMMA``) in the SASS of the three tensor-core flash
    kernels (``cuobjdump --dump-sass``): none fails the run.
 2. **Kernels.** Hold each kernel against its plain PyTorch version on the
    card at the serving path's shapes (paged attention also with f32
-   queries over bf16 pools), and time kernel, plain version and
+   queries over bf16 pools; LayerNorm also at a width past the
+   warp-per-row path), and time kernel, plain version and
    (where one exists) the single PyTorch library call computing the same
    function. Times are device times from CUDA events around a replayed
    CUDA graph of many calls, so host launch overhead is not counted.
@@ -36,12 +37,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    passes and the fused AdamW kernel against their plain versions at the
    BERT-base shapes (q/k/v ``[128, 128, 12, 64]``, BERT-base's ~200
    parameter tensors), in f32 and bf16 (flash: causal in both, and bf16
-   at ERNIE-1.5B's ``[4, 512, 16, 128]``, repeated bit for bit), with one
-   fully padded batch row; timed beside their plain versions, the
+   at ERNIE-1.5B's ``[4, 512, 16, 128]``, all three passes repeated bit
+   for bit), with one fully padded batch row, and the LayerNorm kernel
+   at the training shape (bf16 ``[16384, 768]``); timed beside their
+   plain versions, the
    PyTorch library calls (``F.scaled_dot_product_attention`` forward, its
    backward alone as graph-replayed forward + backward less the forward,
    with the backend it picks named, and forward + backward eagerly;
-   ``torch.optim.AdamW(fused=True)``) and their bounds.
+   ``torch.optim.AdamW(fused=True)``, ``F.layer_norm``) and their bounds.
 6. **Training (the second main path).** ``ParallelEngine`` over
    ``BertForPretraining(bert_base())`` + AdamW in bf16 at batch 128,
    seq 128 (``bench.py``'s configuration and batch, seeded weights): a
@@ -264,7 +267,8 @@ def graph_time_ms(calls, reps=20):
 
 # the tensor-core flash kernels, by library and by a piece of their names
 TC_KERNELS = {"flash_attention": ("flash_fwd_tc_kernel",),
-              "flash_attention_bwd": ("flash_bwd_dkv_tc_kernel",)}
+              "flash_attention_bwd": ("flash_bwd_dkv_tc_kernel",
+                                      "flash_bwd_dq_tc_kernel")}
 
 
 def ptxas_usage(report, piece):
@@ -421,7 +425,10 @@ def kernel_phase(dev):
     out["paged_attention"] = cases
 
     cases = []
-    for rows, h in ((SLOTS, D_MODEL), (512, D_MODEL), (37, 1000)):
+    # the decode step, a prefill, a ragged width and one past the
+    # warp-per-row path (1024)
+    for rows, h in ((SLOTS, D_MODEL), (512, D_MODEL), (37, 1000),
+                    (64, 4096)):
         x = torch.from_numpy((rng.standard_normal((rows, h)) * 2 + 0.3)
                              .astype(np.float32)).to(dev)
         w_ = torch.from_numpy(rng.standard_normal(h).astype(np.float32)
@@ -738,7 +745,7 @@ def flash_check(dev):
     """Hold the three flash kernels to their plain versions in f32 and
     bf16 (padded tails, one fully padded row; causal in both; bf16 also at
     ERNIE-1.5B's D = 128). The bf16 cases, which run the tensor-core
-    forward and dK/dV pass, must repeat bit for bit."""
+    kernels, must repeat bit for bit."""
     from paddle1_tpu_torch.ops import flash_attention as fa
     from paddle1_tpu_torch.ops import flash_attention_bwd as fb
     errs = {"fwd": [], "dkv": [], "dq": []}
@@ -763,9 +770,11 @@ def flash_check(dev):
         if dtype == torch.bfloat16:
             again = (*fa.flash_fwd(q, k, v, scale, causal, keep),
                      *fb.flash_bwd_dkv(q, k, v, do, rl, delta, scale, causal,
-                                       keep))
+                                       keep),
+                     fb.flash_bwd_dq(q, k, v, do, rl, delta, scale, causal,
+                                     keep))
             check(all(torch.equal(a, b_)
-                      for a, b_ in zip(again, (out, lse, dk, dv))),
+                      for a, b_ in zip(again, (out, lse, dk, dv, dq))),
                   f"flash {tag}: a repeat is not bit-identical")
         check(out.dtype == dtype and bool(torch.isfinite(out).all()),
               f"flash fwd {tag}: non-finite output or wrong dtype")
@@ -2378,7 +2387,8 @@ def main() -> int:
     flash_errs = flash_check(dev)
     flash_t, flash_b, flash_shape = flash_timing(dev)
     adam = adam_phase(dev)
-    kernels["layer_norm"].append(train_layer_norm_case(dev))
+    ln_train = train_layer_norm_case(dev)
+    kernels["layer_norm"].append(ln_train)
     torch.cuda.empty_cache()
     train = train_phase(dev)
     torch.cuda.empty_cache()
@@ -2423,6 +2433,10 @@ def main() -> int:
                                          "layer_norm": 2 * LAYERS}[name],
             "decode_steps": steps, "cases": kernels[name],
             "bf16_check": kernels[name + "_bf16"]})
+    # the training path's shape (BERT-base, bf16 [16384, 768])
+    line[-1].update({f"train_shape_{k}": ln_train[k] for k in (
+        "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")})
+    line[-1]["train_shape"] = ln_train["shape"]
     flash_rows = (
         ("flash_attention", "flash_attention.cu",
          pallas + "flash_attention.py:59", "fwd", "fwd_plain",
@@ -2432,7 +2446,7 @@ def main() -> int:
          "bwd_library", "flash_bwd_dkv_tc_kernel"),
         ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
          pallas + "flash_attention_bwd.py:125", "dq", "bwd_plain",
-         "bwd_library", None))
+         "bwd_library", "flash_bwd_dq_tc_kernel"))
     designs = {
         "fwd": "bf16: mma.sync m16n8k16 on the tensor cores, 4 warps x 16 "
                "query rows per CTA, Q in registers, K/V 64-key tiles "
@@ -2444,7 +2458,11 @@ def main() -> int:
                "double-buffered by cp.async, S^T/dP^T/P^T/dS^T in "
                "registers per 32-query sub-tile, P^T and dS^T split bf16 "
                "hi + lo; f32: CUDA-core kernel",
-        "dq": "CUDA-core kernel (f32 FMAs), unchanged"}
+        "dq": "bf16: mma.sync m16n8k16 on the tensor cores, 8 warps x 16 "
+              "queries per CTA at D = 64, Q/dO rows resident in shared "
+              "memory, K/V 64-key tiles double-buffered by cp.async, "
+              "lse/delta in registers, S/dP/dS in registers per 64-key "
+              "tile, dS split bf16 hi + lo; f32: CUDA-core kernel"}
     for name, cu, rep, key, plain_key, lib_key, tc in flash_rows:
         line.append({
             "name": name, "route": "cuda", "source": src + cu,

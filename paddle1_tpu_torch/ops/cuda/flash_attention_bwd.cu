@@ -40,11 +40,30 @@
 // accumulating half of the columns (S^T and dP^T computed by both).
 // dK and dV are staged in bf16 through shared memory for 16-byte stores.
 //
-// f32 dkv pass, and the dq pass in both types: the first port's kernels on
-// the CUDA cores. The layout of their tiles is the forward's f32 one: f32
-// rows padded to D + 1 floats, 256 threads as 16 x 16, each thread owning
-// BM/16 rows (ty + 16 i) and BM/16 columns (tx + 16 j) of a score tile and
-// DMAX/16 of the D output columns (tx + 16 c).
+// dq pass in bf16: flash_bwd_dq_tc_kernel, the mirror of the dkv pass with
+// queries in place of keys. One CTA per (batch*head, query tile); each warp
+// owns 16 queries (8 warps and 128 queries at D = 64, so that at N = 128
+// each K/V tile is fetched once per head; 4 warps and 64 queries above),
+// its Q and dO rows resident in shared memory and read as A fragments by
+// ldmatrix. K and V tiles of 64 keys (and their keep flags) arrive in bf16,
+// double-buffered by cp.async, padded as above. A lane's two queries (rows
+// g and g + 8 of its warp's block) keep their exp2 LSE offset and delta in
+// registers. Per 64-key tile, all in registers (walked in 32-key halves,
+// as the dkv pass walks its queries, it timed 3-10 % slower): S = Q K^T
+// and dP = dO V^T by mma.sync, K and V as B fragments through ldmatrix;
+// P = exp(S scale - lse) masked; dS / scale = P (dP - delta); dQ += dS K
+// with dS split into bf16 hi + lo A fragments and K as B fragments
+// through ldmatrix.trans; dQ times scale once at the end, staged in bf16
+// through shared memory for 16-byte stores. At D = 256 two warps share a
+// query row block, each accumulating half of dQ's columns. Bound at the
+// BERT shape: q, k, v, dout in, dq out (5 x 25 MB, 0.038 ms at 3.35 TB/s)
+// against 6*D flops per visible pair: bytes.
+//
+// f32 (the reference checks, not the training path): the first port's
+// kernels on the CUDA cores. The layout of their tiles is the forward's
+// f32 one: rows padded to D + 1 floats, 256 threads as 16 x 16, each
+// thread owning BM/16 rows (ty + 16 i) and BM/16 columns (tx + 16 j) of a
+// score tile and DMAX/16 of the D output columns (tx + 16 c).
 //
 // Built by paddle1_tpu_torch/ops/cuda/build.py with nvcc for sm_90a into
 // a shared library with a plain C interface, loaded through ctypes.
@@ -61,22 +80,13 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-template <typename T, int BM>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          long rs, int d) {
+template <int BM>
+__device__ __forceinline__ void load_tile(float* dst, int ld,
+                                          const float* src, long rs, int d) {
   for (int i = threadIdx.x; i < BM * d; i += kThreads) {
     const int r = i / d;
     const int c = i - r * d;
-    dst[r * ld + c] = to_f32(src[r * rs + c]);
+    dst[r * ld + c] = src[r * rs + c];
   }
 }
 
@@ -99,13 +109,13 @@ __device__ __forceinline__ void load_keep(float* km, const unsigned char* keep,
     km[i] = keep ? (keep[at + i] ? 1.f : 0.f) : 1.f;
 }
 
-template <typename T, int BM, int DC>
+template <int BM, int DC>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const unsigned char* __restrict__ keep, T* __restrict__ dk,
-    T* __restrict__ dv, int H, int Nq, int Nk, int D, float scale,
+    const unsigned char* __restrict__ keep, float* __restrict__ dk,
+    float* __restrict__ dv, int H, int Nq, int Nk, int D, float scale,
     int causal) {
   constexpr int R = BM / 16;
   extern __shared__ float smem[];
@@ -132,8 +142,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const long koff = (static_cast<long>(b) * Nk * H + h) * D;
   const int off = Nk - Nq;
 
-  load_tile<T, BM>(Ks, ld, k + koff + k0 * rs, rs, D);
-  load_tile<T, BM>(Vs, ld, v + koff + k0 * rs, rs, D);
+  load_tile<BM>(Ks, ld, k + koff + k0 * rs, rs, D);
+  load_tile<BM>(Vs, ld, v + koff + k0 * rs, rs, D);
   load_keep<BM>(km, keep, static_cast<long>(b) * Nk + k0);
 
   float gk[R][DC], gv[R][DC];
@@ -147,8 +157,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   for (int t = lo; t < Nq / BM; ++t) {
     const int q0 = t * BM;
     __syncthreads();
-    load_tile<T, BM>(Qs, ld, q + qoff + q0 * rs, rs, D);
-    load_tile<T, BM>(Ds, ld, dout + qoff + q0 * rs, rs, D);
+    load_tile<BM>(Qs, ld, q + qoff + q0 * rs, rs, D);
+    load_tile<BM>(Ds, ld, dout + qoff + q0 * rs, rs, D);
     load_rows<BM>(ls, dl, lse + static_cast<long>(bh) * Nq + q0,
                   delta + static_cast<long>(bh) * Nq + q0);
     __syncthreads();
@@ -224,8 +234,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     for (int c = 0; c < DC; ++c) {
       const int dc = tx + 16 * c;
       if (dc < D) {
-        store(dk + row + dc, gk[i][c]);
-        store(dv + row + dc, gv[i][c]);
+        dk[row + dc] = gk[i][c];
+        dv[row + dc] = gv[i][c];
       }
     }
   }
@@ -467,14 +477,232 @@ __global__ void __launch_bounds__(2 * KEYS * DSPLIT, MINB)
 }
 
 // ---------------------------------------------------------------------------
-// the f32 dkv pass and the dq pass on the CUDA cores
+// the dq pass in bf16 on the tensor cores
 
-template <typename T, int BM, int DC>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
+constexpr int kTcKeys = 64;  // keys of a K/V tile, in registers
+
+// ROWS queries per CTA, in 16-query row blocks
+template <int DP, int ROWS>
+constexpr size_t dq_tc_smem_bytes() {
+  // Q, dO [ROWS][DP + 8] resident; K and V x 2 stages [64][DP + 8] bf16;
+  // keep flags x 2
+  return sizeof(bf16) * (2 * ROWS + 4 * kTcKeys) * (DP + 8) + 2 * kTcKeys;
+}
+
+// DSPLIT: warps that share one 16-query row block, each accumulating
+// DP / DSPLIT columns of dQ; MINB and CAUSAL as in the dkv pass
+template <int DP, int ROWS, int DSPLIT, int MINB, bool CAUSAL>
+__global__ void __launch_bounds__(2 * ROWS * DSPLIT, MINB)
+    flash_bwd_dq_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const unsigned char* __restrict__ keep, T* __restrict__ dq, int H,
+    const unsigned char* __restrict__ keep, bf16* __restrict__ dq, int H,
+    int Nq, int Nk, int D, float scale) {
+  using namespace p1t_mma;
+  constexpr int NRB = ROWS / 16;    // query row blocks
+  constexpr int LD = DP + 8;        // row pitch, elements
+  constexpr int KT = DP / 16;       // k16 steps over D
+  constexpr int DC = DP / DSPLIT;   // this warp's dQ columns
+  constexpr int CT = DC / 8;        // n8 tiles of them
+  constexpr int HT = kTcKeys / 8;   // n8 tiles of a tile's keys
+  constexpr int NT = 32 * NRB * DSPLIT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [ROWS][LD] resident
+  bf16* Os = Qs + ROWS * LD;                     // [ROWS][LD] resident dout
+  bf16* Ks = Os + ROWS * LD;                     // [2][64][LD]
+  bf16* Vs = Ks + 2 * kTcKeys * LD;              // [2][64][LD]
+  unsigned char* km =
+      reinterpret_cast<unsigned char*>(Vs + 2 * kTcKeys * LD);  // [2][64]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, row
+  const int wr = (warp % NRB) * 16;         // the warp's first query row
+  const int dc0 = (warp / NRB) * DC;        // its first dQ column
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.y * ROWS;
+  const long rs = static_cast<long>(H) * D;
+  const long qoff = (static_cast<long>(b) * Nq * H + h) * D;
+  const long koff = (static_cast<long>(b) * Nk * H + h) * D;
+  const unsigned char* keepb = keep ? keep + static_cast<long>(b) * Nk
+                                    : nullptr;
+  const int off = Nk - Nq;
+  const int cpr = D >> 3;  // 16-byte chunks of a row
+
+  // columns [D, DP) of all six tiles stay zero
+  if (D < DP) {
+    const int pc = (DP - D) >> 3;
+    for (int i = tid; i < (2 * ROWS + 4 * kTcKeys) * pc; i += NT) {
+      const int r = i / pc;
+      *reinterpret_cast<uint4*>(Qs + r * LD + (cpr + i - r * pc) * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  auto load_rows = [&](bf16* dst, const bf16* src, int rows) {
+    for (int i = tid; i < rows * cpr; i += NT) {
+      const int r = i / cpr;
+      const int c = i - r * cpr;
+      cp_async16(dst + r * LD + c * 8, src + r * rs + c * 8);
+    }
+  };
+  auto load_kv = [&](int tile, int stage) {
+    const long at = static_cast<long>(tile) * kTcKeys * rs;
+    load_rows(Ks + stage * kTcKeys * LD, k + koff + at, kTcKeys);
+    load_rows(Vs + stage * kTcKeys * LD, v + koff + at, kTcKeys);
+    if (keepb && tid < kTcKeys / 16)
+      cp_async16(km + stage * kTcKeys + tid * 16,
+                 keepb + tile * kTcKeys + tid * 16);
+  };
+
+  int n_tiles = Nk / kTcKeys;
+  if (CAUSAL)
+    n_tiles = min(n_tiles, (q0 + ROWS + off + kTcKeys - 1) / kTcKeys);
+  load_rows(Qs, q + qoff + q0 * rs, ROWS);
+  load_rows(Os, dout + qoff + q0 * rs, ROWS);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // this lane's two queries (rows g and g + 8 of the warp's block): the
+  // exp2 offset -lse log2(e), the sentinel as -inf (p = 0: a row that saw
+  // no key gets no gradient), and delta
+  const float sl = scale * kLog2e;
+  const int qr[2] = {q0 + wr + g, q0 + wr + g + 8};
+  float lo2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long at = static_cast<long>(bh) * Nq + qr[r];
+    const float l = lse[at];
+    lo2[r] = l <= -1e29f ? -INFINITY : -l * kLog2e;
+    dl[r] = delta[at];
+  }
+  float acc[CT][4];
+#pragma unroll
+  for (int j = 0; j < CT; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Kt = Ks + st * kTcKeys * LD;
+    const bf16* Vt = Vs + st * kTcKeys * LD;
+    const unsigned char* kmt = km + st * kTcKeys;
+    const int k0 = t * kTcKeys;
+
+    // under causal masking a tile whose first key none of the warp's
+    // queries sees adds nothing
+    if (!CAUSAL || k0 <= q0 + wr + 15 + off) {
+      // S = Q K^T and dP = dO V^T: 16 queries x 64 keys
+      float s[HT][4], dp[HT][4];
+#pragma unroll
+      for (int j = 0; j < HT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t aq[4], ao[4];
+        const int at = (wr + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
+        ldsm_x4(aq, Qs + at);
+        ldsm_x4(ao, Os + at);
+#pragma unroll
+        for (int np = 0; np < HT / 2; ++np) {
+          const int bt = (np * 16 + mr + ((mi >> 1) << 3)) * LD +
+                         kk * 16 + ((mi & 1) << 3);
+          uint32_t bk[4], bv[4];
+          ldsm_x4(bk, Kt + bt);
+          ldsm_x4(bv, Vt + bt);
+          mma(s[2 * np], aq, bk[0], bk[1]);
+          mma(s[2 * np + 1], aq, bk[2], bk[3]);
+          mma(dp[2 * np], ao, bv[0], bv[1]);
+          mma(dp[2 * np + 1], ao, bv[2], bv[3]);
+        }
+      }
+      // dS / scale = P (dP - delta) at (query qr[e / 2], key k0 + 8 j +
+      // 2 t4 + e % 2); a lane's two keys of an n8 tile are adjacent: one
+      // 2-byte flag load
+#pragma unroll
+      for (int j = 0; j < HT; ++j) {
+        const int kc = j * 8 + 2 * t4;
+        const unsigned short kept =
+            keepb ? *reinterpret_cast<const unsigned short*>(kmt + kc)
+                  : static_cast<unsigned short>(0x0101);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool ok = (kept >> (8 * (e & 1))) & 0xff;
+          if (CAUSAL) ok = ok && k0 + kc + (e & 1) <= qr[e >> 1] + off;
+          const float p =
+              ok ? exp2f(fmaf(s[j][e], sl, lo2[e >> 1])) : 0.f;
+          dp[j][e] = p * (dp[j][e] - dl[e >> 1]);
+        }
+      }
+      // dQ += dS K over the tile's keys: the hi products of every
+      // column tile, then the lo ones, so that no product waits on the one
+      // before it
+#pragma unroll
+      for (int kb2 = 0; kb2 < HT / 2; ++kb2) {
+        uint32_t sh[4], sm[4], bk[CT / 2][4];
+        c_to_a(dp[2 * kb2], dp[2 * kb2 + 1], sh, sm);
+#pragma unroll
+        for (int cp = 0; cp < CT / 2; ++cp)
+          ldsm_x4_t(bk[cp], Kt + (kb2 * 16 + mr + ((mi & 1) << 3)) * LD +
+                                dc0 + cp * 16 + ((mi >> 1) << 3));
+#pragma unroll
+        for (int cp = 0; cp < CT / 2; ++cp) {
+          mma(acc[2 * cp], sh, bk[cp][0], bk[cp][1]);
+          mma(acc[2 * cp + 1], sh, bk[cp][2], bk[cp][3]);
+        }
+#pragma unroll
+        for (int cp = 0; cp < CT / 2; ++cp) {
+          mma(acc[2 * cp], sm, bk[cp][0], bk[cp][1]);
+          mma(acc[2 * cp + 1], sm, bk[cp][2], bk[cp][3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before its refill
+  }
+
+  // epilogue: dQ times scale, staged in bf16 through the Q tile
+  cp_async_wait<0>();
+  __syncthreads();
+  bf16* dQs = Qs;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wr + g + 8 * r;
+#pragma unroll
+    for (int j = 0; j < CT; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dQs + row * LD + dc0 + j * 8 +
+                                         2 * t4) =
+          __floats2bfloat162_rn(acc[j][2 * r] * scale,
+                                acc[j][2 * r + 1] * scale);
+  }
+  __syncthreads();
+  for (int i = tid; i < ROWS * cpr; i += NT) {
+    const int r = i / cpr;
+    const int c = i - r * cpr;
+    *reinterpret_cast<uint4*>(dq + qoff + (q0 + r) * rs + c * 8) =
+        *reinterpret_cast<const uint4*>(dQs + r * LD + c * 8);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: the dkv and dq passes on the CUDA cores
+
+template <int BM, int DC>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const unsigned char* __restrict__ keep, float* __restrict__ dq, int H,
     int Nq, int Nk, int D, float scale, int causal) {
   constexpr int R = BM / 16;
   extern __shared__ float smem[];
@@ -500,8 +728,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const long koff = (static_cast<long>(b) * Nk * H + h) * D;
   const int off = Nk - Nq;
 
-  load_tile<T, BM>(Qs, ld, q + qoff + q0 * rs, rs, D);
-  load_tile<T, BM>(Ds, ld, dout + qoff + q0 * rs, rs, D);
+  load_tile<BM>(Qs, ld, q + qoff + q0 * rs, rs, D);
+  load_tile<BM>(Ds, ld, dout + qoff + q0 * rs, rs, D);
   load_rows<BM>(ls, dl, lse + static_cast<long>(bh) * Nq + q0,
                 delta + static_cast<long>(bh) * Nq + q0);
 
@@ -516,8 +744,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   for (int t = 0; t < hi; ++t) {
     const int k0 = t * BM;
     __syncthreads();
-    load_tile<T, BM>(Ks, ld, k + koff + k0 * rs, rs, D);
-    load_tile<T, BM>(Vs, ld, v + koff + k0 * rs, rs, D);
+    load_tile<BM>(Ks, ld, k + koff + k0 * rs, rs, D);
+    load_tile<BM>(Vs, ld, v + koff + k0 * rs, rs, D);
     load_keep<BM>(km, keep, static_cast<long>(b) * Nk + k0);
     __syncthreads();
 
@@ -583,7 +811,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int dc = tx + 16 * c;
-      if (dc < D) store(dq + row + dc, gq[i][c]);
+      if (dc < D) dq[row + dc] = gq[i][c];
     }
   }
 }
@@ -612,37 +840,37 @@ constexpr size_t smem_bytes(int d, int n_prob) {
                           n_prob * BM * (BM + 1) + 3 * BM);
 }
 
-template <typename T, int BM, int DC>
+template <int BM, int DC>
 int launch_dkv(const Args& a, cudaStream_t s) {
   if (a.Nq % BM || a.Nk % BM) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = flash_bwd_dkv_kernel<T, BM, DC>;
+  auto kern = flash_bwd_dkv_kernel<BM, DC>;
   // allow the bucket's largest footprint once, outside any graph capture
   static cudaError_t attr = allow_smem(kern, smem_bytes<BM>(DC * 16, 2));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const size_t smem = smem_bytes<BM>(a.D, 2);
   kern<<<dim3(a.B * a.H, a.Nk / BM), kThreads, smem, s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const unsigned char*>(a.keep), static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.H, a.Nq, a.Nk, a.D, a.scale, a.causal);
+      static_cast<const unsigned char*>(a.keep), static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.H, a.Nq, a.Nk, a.D, a.scale, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int BM, int DC>
+template <int BM, int DC>
 int launch_dq(const Args& a, cudaStream_t s) {
   if (a.Nq % BM || a.Nk % BM) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = flash_bwd_dq_kernel<T, BM, DC>;
+  auto kern = flash_bwd_dq_kernel<BM, DC>;
   // allow the bucket's largest footprint once, outside any graph capture
   static cudaError_t attr = allow_smem(kern, smem_bytes<BM>(DC * 16, 1));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const size_t smem = smem_bytes<BM>(a.D, 1);
   kern<<<dim3(a.B * a.H, a.Nq / BM), kThreads, smem, s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const unsigned char*>(a.keep), static_cast<T*>(a.dq), a.H,
-      a.Nq, a.Nk, a.D, a.scale, a.causal);
+      static_cast<const unsigned char*>(a.keep), static_cast<float*>(a.dq),
+      a.H, a.Nq, a.Nk, a.D, a.scale, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -664,6 +892,24 @@ int launch_dkv_tc(const Args& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DP, int ROWS, int DSPLIT, int MINB, bool CAUSAL>
+int launch_dq_tc(const Args& a, cudaStream_t s) {
+  if (a.Nq % ROWS || a.Nk % kTcKeys || a.D > DP)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = flash_bwd_dq_tc_kernel<DP, ROWS, DSPLIT, MINB, CAUSAL>;
+  constexpr size_t smem = dq_tc_smem_bytes<DP, ROWS>();
+  // allow the bucket's footprint once, outside any graph capture
+  static cudaError_t attr = allow_smem(kern, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kern<<<dim3(a.B * a.H, a.Nq / ROWS), 2 * ROWS * DSPLIT, smem, s>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<const unsigned char*>(a.keep), static_cast<bf16*>(a.dq),
+      a.H, a.Nq, a.Nk, a.D, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the buckets: at D = 64, 8 warps (128 keys, so each Q/dO tile is fetched
 // once per head at N = 128) with registers capped at 128 for 2 CTAs an SM;
 // at 128, 4 warps; at 256, two warps share a key row block
@@ -674,18 +920,24 @@ int dispatch_dkv_tc(const Args& a, cudaStream_t s) {
   return launch_dkv_tc<256, 64, 2, 1, CAUSAL>(a, s);
 }
 
-// the f32 dkv pass on the CUDA cores
-int dispatch_dkv_f32(const Args& a, cudaStream_t s) {
-  if (a.D <= 64) return launch_dkv<float, 64, 4>(a, s);
-  if (a.D <= 128) return launch_dkv<float, 64, 8>(a, s);
-  return launch_dkv<float, 32, 16>(a, s);
+// the same buckets over queries
+template <bool CAUSAL>
+int dispatch_dq_tc(const Args& a, cudaStream_t s) {
+  if (a.D <= 64) return launch_dq_tc<64, 128, 1, 2, CAUSAL>(a, s);
+  if (a.D <= 128) return launch_dq_tc<128, 64, 1, 2, CAUSAL>(a, s);
+  return launch_dq_tc<256, 64, 2, 1, CAUSAL>(a, s);
 }
 
-template <typename T>
-int dispatch_dq(const Args& a, cudaStream_t s) {
-  if (a.D <= 64) return launch_dq<T, 64, 4>(a, s);
-  if (a.D <= 128) return launch_dq<T, 64, 8>(a, s);
-  return launch_dq<T, 32, 16>(a, s);
+int dispatch_dkv_f32(const Args& a, cudaStream_t s) {
+  if (a.D <= 64) return launch_dkv<64, 4>(a, s);
+  if (a.D <= 128) return launch_dkv<64, 8>(a, s);
+  return launch_dkv<32, 16>(a, s);
+}
+
+int dispatch_dq_f32(const Args& a, cudaStream_t s) {
+  if (a.D <= 64) return launch_dq<64, 4>(a, s);
+  if (a.D <= 128) return launch_dq<64, 8>(a, s);
+  return launch_dq<32, 16>(a, s);
 }
 
 // which: 0 = the dK/dV pass, 1 = the dQ pass
@@ -695,11 +947,13 @@ int run(const Args& a, int which, int dtype, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return which == 0 ? dispatch_dkv_f32(a, s) : dispatch_dq<float>(a, s);
-  if (dtype == 1)
-    return which == 1 ? dispatch_dq<bf16>(a, s)
-           : a.causal ? dispatch_dkv_tc<true>(a, s)
+    return which == 0 ? dispatch_dkv_f32(a, s) : dispatch_dq_f32(a, s);
+  if (dtype == 1) {
+    if (which == 0)
+      return a.causal ? dispatch_dkv_tc<true>(a, s)
                       : dispatch_dkv_tc<false>(a, s);
+    return a.causal ? dispatch_dq_tc<true>(a, s) : dispatch_dq_tc<false>(a, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

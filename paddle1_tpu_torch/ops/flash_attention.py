@@ -38,7 +38,7 @@ __all__ = ["flash_attention", "flash_attention_ref", "flash_bwd_ref",
 BLOCK = 128
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TC_TILE = 64   # keys of a tile (forward) and queries of a tile (dK/dV)
+TC_TILE = 64   # keys of a tile (forward, dQ), queries of a tile (dK/dV)
 _fn = None
 
 

@@ -15,8 +15,9 @@ Both take the forward's LSE and ``delta = rowsum(dout * out)``, which
 computes it outside Pallas. The kernels remap the sentinel LSE to +inf.
 The plain version is ``flash_attention.flash_bwd_ref``; CPU tensors run
 it, CUDA tensors launch the kernels or raise.
-:func:`flash_bwd_dkv_tc_emulation` is the bf16 tensor-core dK/dV pass's
-arithmetic in plain PyTorch, for the CPU tests only.
+:func:`flash_bwd_dkv_tc_emulation` and :func:`flash_bwd_dq_tc_emulation`
+are the bf16 tensor-core passes' arithmetic in plain PyTorch, for the CPU
+tests only.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ from .flash_attention import (_DTYPES, _NEG_INF, TC_TILE, _aligned, _check,
                               supported)
 
 __all__ = ["flash_attention_bwd", "flash_bwd_dkv", "flash_bwd_dq",
-           "flash_bwd_dkv_tc_emulation", "supported"]
+           "flash_bwd_dkv_tc_emulation", "flash_bwd_dq_tc_emulation",
+           "supported"]
 
 _fns = {}
 
@@ -142,6 +144,35 @@ def flash_bwd_dkv_tc_emulation(q, k, v, dout, lse, delta, scale,
             acc += torch.matmul(hi, right[:, :, rows]) + \
                 torch.matmul(lo, right[:, :, rows])
     return (dk * scale).transpose(1, 2), dv.transpose(1, 2)
+
+
+def flash_bwd_dq_tc_emulation(q, k, v, dout, lse, delta, scale,
+                              causal=False, padding_mask=None):
+    """The bf16 tensor-core dQ pass's numerics in plain PyTorch (CPU tests
+    only), the mirror of :func:`flash_bwd_dkv_tc_emulation`: operands
+    rounded to bf16; per 64-key tile, S and dP as exact products summed in
+    f32, P = exp(S scale - lse) masked (a sentinel LSE gives 0), dS / scale
+    = P (dP - delta), then dQ += (dS / scale)_hi K + (dS / scale)_lo K in
+    f32, dQ times scale at the end. Returns dq in f32 ``[B, Nq, H, D]``,
+    before the kernel's store rounds it to bf16."""
+    b, nq, h, d = q.shape
+    nk = k.shape[1]
+    qh, kh, vh, doh = _heads(q, k, v, dout)
+    lse = torch.where(lse > _NEG_INF * 0.1, lse.float(),
+                      torch.full((), float("inf"), device=lse.device))
+    dq = torch.zeros(b, h, nq, d, device=q.device)
+    for k0 in range(0, nk, TC_TILE):
+        keys = slice(k0, k0 + TC_TILE)
+        s = torch.matmul(qh, kh[:, :, keys].transpose(-1, -2))
+        dp = torch.matmul(doh, vh[:, :, keys].transpose(-1, -2))
+        vis = _visible(b, nq, k0, s.shape[-1], nk, causal, padding_mask,
+                       q.device)
+        p = torch.where(vis, torch.exp(s * scale - lse[..., None]),
+                        torch.zeros((), device=q.device))
+        hi, lo = split_bf16(p * (dp - delta[..., None].float()))
+        kt = kh[:, :, keys]
+        dq += torch.matmul(hi, kt) + torch.matmul(lo, kt)
+    return (dq * scale).transpose(1, 2)
 
 
 flash_bwd_dkv.launches = 0  # kernel launches; reset by chip_smoke.py

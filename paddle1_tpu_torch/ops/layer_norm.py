@@ -31,8 +31,9 @@ _fn = None
 
 def supported(shape, dtype=torch.float32) -> bool:
     """The last axis normalized, over at least a [rows, H] tensor in a
-    dtype the kernel stores. Any H works on the GPU: a row is one CTA's
-    strided loop (the TPU gate was H % 128 == 0 for its lane tiling)."""
+    dtype the kernel stores. Any H works on the GPU: a warp holds a row
+    up to 1024 wide in registers, a CTA walks a wider one (the TPU gate
+    was H % 128 == 0 for its lane tiling)."""
     if len(shape) < 2 or dtype not in _DTYPES:
         return False
     rows = 1
@@ -62,15 +63,8 @@ def _kernel():
         _fn = build.function("layer_norm", "p1t_layer_norm_fwd",
                              [ctypes.c_void_p] * 4 + [
                                  ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                 ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_void_p])
+                                 ctypes.c_int, ctypes.c_void_p])
     return _fn
-
-
-def _threads(h: int) -> int:
-    # ~4 elements per thread, whole warps, at most 1024 threads
-    quarter = -(-h // 4)
-    return min(1024, max(32, -(-quarter // 32) * 32))
 
 
 def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -103,8 +97,8 @@ def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor,
     fn = _kernel()
     with torch.cuda.device(x.device):
         rc = fn(x2.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                x2.shape[0], h, float(epsilon), _threads(h),
-                _DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
+                x2.shape[0], h, float(epsilon), _DTYPES[x.dtype],
+                torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         from .cuda import build
         raise KernelLaunchError(

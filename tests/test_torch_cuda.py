@@ -11,9 +11,11 @@ kernels' wrappers: inputs outside a kernel's contract raise instead of
 running the plain version, and a bf16 KV pool under f32 queries runs the
 kernel and agrees with the plain version. For the training kernels
 (flash forward, its dK/dV and dQ passes, fused AdamW) they hold the same,
-the bf16 tensor-core forward and dK/dV pass to their plain versions at
-every D bucket, causal and padded, and that a tiny BERT step on the card
-launches each of them. For the
+the bf16 tensor-core forward, dK/dV and dQ passes to their plain versions
+at every D bucket, causal and padded, and that a tiny BERT step on the
+card launches each of them; the LayerNorm kernel to its plain version
+on the warp-per-row and block-per-row paths, with and without 16-byte
+vectors, in f32 and bf16. For the
 fused batch-norm family (training and given-statistics forward, their
 backward passes) they hold each kernel to its plain version across the
 activation x residual matrix in f32 and bf16, that inputs outside the
@@ -111,6 +113,49 @@ def test_layer_norm_on_the_card_runs_the_kernel(dev):
     assert float((got - want).abs().max()) <= 1e-5
 
 
+# LayerNorm kernel against its plain version: f32 to LN_TOL (the same
+# sums in another order), bf16 to one rounding step of the output
+LN_TOL = 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [64, 100, 512, 768, 1000, 1024, 1025, 4096])
+def test_layer_norm_kernel_matches_its_plain_version(dev, dtype, h):
+    """The warp-per-row path (H <= 1024, 16-byte vectors when H allows,
+    scalar loads at H = 100 in bf16) and the block-per-row path (1025:
+    scalar, 4096: vectors), over 1, 7 and 16384 rows."""
+    g = torch.Generator(device=dev).manual_seed(h)
+    w, b = (torch.randn(h, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    for rows in (1, 7, 16384):
+        x = (torch.randn(rows, h, device=dev, generator=g) * 2 + 0.3).to(
+            dtype)
+        before = ln.fused_layer_norm.launches
+        got = ln.fused_layer_norm(x, w, b)
+        assert ln.fused_layer_norm.launches == before + 1
+        want = ln.layer_norm_ref(x, w, b)
+        assert got.dtype == dtype and got.shape == x.shape
+        if dtype == torch.float32:
+            assert float((got - want).abs().max()) <= LN_TOL, rows
+        else:
+            assert _bf16_excess(got, want) <= 1e-5, rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_kernel_takes_an_unaligned_view(dev, dtype):
+    """A view whose start is off 16 bytes takes the scalar loads."""
+    h = 768
+    flat = torch.randn(7 * h + 1, device=dev).to(dtype)
+    x = flat[1:].view(7, h)
+    w, b = (torch.randn(h, device=dev).to(dtype) for _ in range(2))
+    got = ln.fused_layer_norm(x, w, b)
+    want = ln.layer_norm_ref(x, w, b)
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= LN_TOL
+    else:
+        assert _bf16_excess(got, want) <= 1e-5
+
+
 def _qkv(dev, shape=(2, 128, 2, 64), dtype=torch.float32, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     return [torch.randn(shape, device=dev, generator=g).to(dtype)
@@ -169,9 +214,9 @@ def _bf16_excess(got, want):
 ])
 def test_bf16_tensor_core_flash_matches_its_plain_version(dev, nq, nk, d,
                                                           causal):
-    """The tensor-core forward and dK/dV pass at each D bucket (64, 128,
-    256; 40 and 96 zero-padded in shared memory), causal and padded, one
-    batch row fully padded; both repeat bit for bit."""
+    """The tensor-core forward, dK/dV and dQ passes at each D bucket (64,
+    128, 256; 40 and 96 zero-padded in shared memory), causal and padded,
+    one batch row fully padded; all three repeat bit for bit."""
     g = torch.Generator(device=dev).manual_seed(nq + nk + d)
     q, do = (torch.randn(3, nq, 2, d, device=dev, generator=g).to(
         torch.bfloat16) for _ in range(2))
@@ -190,14 +235,19 @@ def test_bf16_tensor_core_flash_matches_its_plain_version(dev, nq, nk, d,
     assert float(out[1].abs().max()) == 0.0
     delta = (do.float() * ro.float()).sum(-1).transpose(1, 2)
     dk, dv = fb.flash_bwd_dkv(q, k, v, do, rl, delta, scale, causal, keep)
-    _, rk, rv = fa.flash_bwd_ref(q, k, v, ro, rl, do, scale, causal, keep)
+    dq = fb.flash_bwd_dq(q, k, v, do, rl, delta, scale, causal, keep)
+    rq, rk, rv = fa.flash_bwd_ref(q, k, v, ro, rl, do, scale, causal, keep)
     assert _bf16_excess(dk, rk) <= FLASH_BF16_ABS
     assert _bf16_excess(dv, rv) <= FLASH_BF16_ABS
+    assert _bf16_excess(dq, rq) <= FLASH_BF16_ABS
     assert float(dk[1].abs().max()) == float(dv[1].abs().max()) == 0.0
+    assert float(dq[1].abs().max()) == 0.0
     out2, lse2 = fa.flash_fwd(q, k, v, scale, causal, keep)
     dk2, dv2 = fb.flash_bwd_dkv(q, k, v, do, rl, delta, scale, causal, keep)
+    dq2 = fb.flash_bwd_dq(q, k, v, do, rl, delta, scale, causal, keep)
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(dq, dq2)
 
 
 def test_bf16_flash_takes_unaligned_views(dev):

@@ -176,6 +176,25 @@ def test_tensor_core_dkv_emulation_matches_pallas(nq, nk, h, d, causal):
         np.testing.assert_array_equal(g.numpy()[1], 0.0)
 
 
+@pytest.mark.parametrize("nq,nk,h,d,causal", TC_CASES)
+def test_tensor_core_dq_emulation_matches_pallas(nq, nk, h, d, causal):
+    q, k, v, pm, dout = _attn_case(9 * nq + d, nq, nk, h, d)
+    q, k, v, dout = _bf16_valued(q, k, v, dout)
+    scale = 1.0 / math.sqrt(d)
+    jq, jk, jv, jpm = (jnp.asarray(a) for a in (q, k, v, pm))
+    out, lse = jfa._flash_fwd(jq, jk, jv, scale, causal, padding_mask=jpm)
+    want_q, _, _ = j_flash_bwd(jq, jk, jv, out, lse, jnp.asarray(dout),
+                               scale, causal, padding_mask=jpm)
+    delta = (dout * np.asarray(out)).sum(-1).transpose(0, 2, 1)
+    got_q = tfb.flash_bwd_dq_tc_emulation(
+        _t(q), _t(k), _t(v), _t(dout), _t(np.asarray(lse)), _t(delta),
+        scale, causal, _t(pm) > 0.5)
+    np.testing.assert_allclose(got_q.numpy(), np.asarray(want_q), rtol=0,
+                               atol=FLASH_BF16_ABS)
+    # the fully padded batch row gets an exact zero gradient
+    np.testing.assert_array_equal(got_q.numpy()[1], 0.0)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_autograd_matches_autograd_of_attention_ref(causal):
     # the autograd function (plain forward + plain backward on the CPU)

@@ -8,7 +8,7 @@ to compare builds on one card, in turns)::
 
 Builds the kernels from this checkout's sources, prints the card, each
 tensor-core flash kernel's HMMA count, registers and spills, holds the
-bf16 forward and dK/dV pass to their plain versions (one bf16 rounding
+bf16 forward, dK/dV and dQ passes to their plain versions (one bf16 rounding
 step + 1e-4, ``chip_smoke.py``'s FLASH_BF16_ABS) on the inputs it times,
 then times the forward, dK/dV and dQ kernels by CUDA-graph replay over 4
 input sets in turn (all keys kept), beside their bounds. One JSON line on
@@ -61,10 +61,12 @@ def main() -> int:
     delta = (do.float() * ro.float()).sum(-1).transpose(1, 2)
     dk, dv = fb.flash_bwd_dkv(q, k, v, do, rl, delta, scale, args.causal,
                               keep)
-    _, rk, rv = fa.flash_bwd_ref(q, k, v, ro, rl, do, scale, args.causal,
-                                 keep)
+    dq = fb.flash_bwd_dq(q, k, v, do, rl, delta, scale, args.causal, keep)
+    rq, rk, rv = fa.flash_bwd_ref(q, k, v, ro, rl, do, scale, args.causal,
+                                  keep)
     excess = {"fwd": cs.bf16_excess(fwd[0][0], ro),
-              "dkv": max(cs.bf16_excess(dk, rk), cs.bf16_excess(dv, rv))}
+              "dkv": max(cs.bf16_excess(dk, rk), cs.bf16_excess(dv, rv)),
+              "dq": cs.bf16_excess(dq, rq)}
     ok = all(e <= cs.FLASH_BF16_ABS for e in excess.values())
     t = {"fwd": cs.graph_time_ms([lambda s=s: fa.flash_fwd(
         s[0], s[1], s[2], scale, args.causal, keep) for s in sets],

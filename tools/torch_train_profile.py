@@ -55,9 +55,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 OUR_KERNELS = {
-    # bf16: the flash forward and dK/dV pass on the tensor cores
+    # bf16: the three flash passes on the tensor cores
     "bert": ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
-             "flash_bwd_dq_kernel", "adam_kernel", "layer_norm_fwd_kernel"),
+             "flash_bwd_dq_tc_kernel", "adam_kernel",
+             "layer_norm_warp_kernel"),
     # ops/cuda/fused_bn.cu, fused_bn_bwd.cu (finalize_kernel serves both)
     "resnet50": ("stats_partial_kernel", "normalize_kernel",
                  "train_partial_kernel", "train_dx_kernel",
