@@ -12,7 +12,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``paddle1_tpu_torch/ops/cuda/*.cu`` (one nvcc per source, in parallel);
    print ptxas's registers and spills, and count the tensor-core
    instructions (``HMMA``) in the SASS of the three tensor-core flash
-   kernels (``cuobjdump --dump-sass``): none fails the run.
+   kernels (``cuobjdump --dump-sass``): none fails the run; print the
+   registers and spills of every batch-norm kernel instantiation.
 2. **Kernels.** Hold each kernel against its plain PyTorch version on the
    card at the serving path's shapes (paged attention also with f32
    queries over bf16 pools; LayerNorm also at a width past the
@@ -59,10 +60,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    kernel flag ``never``) from identical weights.
 8. **Batch-norm kernels.** The fused batch-norm training forward, the
    given-statistics forward and their two backward passes against their
-   plain versions at three ResNet-50 shapes (``[401408, 64]``,
-   ``[25088, 512]``, ``[1568, 2048]``: the stem, layer 2 and layer 4 at
-   batch 32), in f32 and bf16, over activation {identity, relu} x
-   residual {none, given}; timed (bf16, identity, the main path's case)
+   plain versions at four ResNet-50 shapes (``[401408, 64]``,
+   ``[25088, 512]``, ``[6272, 1024]``, ``[1568, 2048]``: the stem and
+   layers 2, 3 and 4 at batch 32), in f32 and bf16, over activation
+   {identity, relu} x residual {none, given}, each repeated bit for bit;
+   timed (bf16, identity, the main path's case)
    beside their plain versions, ``F.batch_norm`` on a channels-last
    input (its forward, and its backward alone, whichever backend PyTorch
    picks; printed) and their bounds.
@@ -87,7 +89,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
     each parameter's float64 gradient, and after three Momentum steps the
     losses, parameters and running statistics agree to 1e-4.
 11. **The local-moments kernel.** The cross-rank batch norm's per-rank
-    statistics pass against its plain version at the three ResNet-50
+    statistics pass against its plain version at the four ResNet-50
     shapes, f32 and bf16 (the statistics' tolerance; repeats
     bit-identical); timed in bf16 beside its plain version,
     ``torch.batch_norm_stats`` on the same data as a channels-last
@@ -182,7 +184,11 @@ BF16_REL, BF16_ABS = 2.0 ** -7, 1e-5
 # Momentum(1e-3, 0.9); 53 batch norms; 4.1e9 x 3 FLOPs per sample
 RN_BATCH, RN_IMG, RN_LR, RN_BNS = 32, 224, 1e-3, 53
 RN_FLOPS_PER_SAMPLE = 4.1e9 * 3.0
-BN_SHAPES = ((401408, 64), (25088, 512), (1568, 2048))
+# ResNet-50's stem, layer 2, layer 3 and layer 4 at 32 images a card
+# (6272 rows is the most frequent row count of a step: 19 of 53 batch
+# norms; 1568 the next, 9)
+BN_SHAPES = ((401408, 64), (25088, 512), (6272, 1024), (1568, 2048))
+BN_LAYER4 = [1568, 2048]
 # batch-norm kernels against their plain versions: y and dx differ by the
 # statistics' rounding (sums in another order) times |xhat * gamma|, so
 # an abs tolerance in f32, and one bf16 rounding step beyond it in bf16;
@@ -320,6 +326,31 @@ def tensor_core_report(build, libs):
                 f"{r['function'][:60]} HMMA={r['hmma']} registers="
                 f"{r.get('registers')} spill_bytes={r.get('spill_bytes')}"
                 for r in report[piece]))
+    return report
+
+
+# the batch-norm kernels, by library and by a piece of their names
+BN_KERNELS = {"fused_bn": ("stats_partial_kernel", "normalize_kernel",
+                           "finalize_kernel"),
+              "fused_bn_bwd": ("train_bwd_kernel", "norm_bwd_kernel",
+                               "finalize_kernel")}
+
+
+def bn_register_report(build):
+    """Registers and spill bytes of every batch-norm kernel instantiation
+    (nvcc's ``-Xptxas -v`` of this process's build), printed one line per
+    kernel; fails the run when a kernel has no report."""
+    report = {}
+    for lib, pieces in BN_KERNELS.items():
+        for piece in pieces:
+            usage = ptxas_usage(build.build_log(lib) or "", piece)
+            check(usage, f"{lib} {piece}: no ptxas report")
+            report[f"{lib}.{piece}"] = [{"function": f, **u} for f, u
+                                        in sorted(usage.items())]
+            log(f"ptxas_bn {lib}.{piece}: " + "; ".join(
+                f"{f[:70]} registers={u.get('registers')} "
+                f"spill_bytes={u.get('spill_bytes')}"
+                for f, u in sorted(usage.items())))
     return report
 
 
@@ -1215,8 +1246,10 @@ def row_excess(got, want):
 
 
 def bn_check(dev):
-    """Every kernel of the family against its plain version at the three
-    shapes, f32 and bf16, act x residual; returns the max abs errors."""
+    """Every kernel of the family against its plain version at the four
+    shapes, f32 and bf16, act x residual, the training forward, the
+    training backward and the given-statistics forward also repeated bit
+    for bit; returns the max abs errors."""
     from paddle1_tpu_torch.ops import fused_bn as fbn
     from paddle1_tpu_torch.ops import fused_bn_bwd as fbb
     errs = {k: [] for k in bn_counters()}
@@ -1281,39 +1314,66 @@ def bn_check(dev):
                           torch.equal(again[2], var) and
                           torch.equal(again[0], y),
                           f"fused_bn_train {tag}: a repeat differs")
+                    again = fbb.train_bwd(x, g, mean, var, y, dy, eps, act,
+                                          use_res)
+                    check(all(torch.equal(a, w) for a, w in zip(again, tb)),
+                          f"fused_bn_train_bwd {tag}: a repeat differs")
+                    check(torch.equal(fbn._norm_fwd(x, m, v, g, b, r, eps,
+                                                    act), yn),
+                          f"fused_bn_norm {tag}: a repeat differs")
             log(f"batch norm kernels [{rows}, {c}]: f32 and bf16 x act x "
                 "residual within tolerance, repeats bit-identical")
             del x, g, b, res, m, v, dy
     return errs
 
 
-def bn_bytes(kind, rows, c, itemsize):
+def bn_bytes(kind, rows, c, itemsize, reread=None):
     """(compulsory bytes, bytes this design moves) of one call at the
     main path's case (identity, no residual): each input read once and
-    each output written once, against the passes the kernels make."""
+    each output written once, against the passes the kernels make.
+    ``reread``: the rows of x and dy the training backward reads twice
+    (those its plan keeps out of shared memory); None for a tree whose
+    backward reads all of them twice."""
     n = rows * c * itemsize
     ch = c * itemsize * 2 + c * 4 * 2     # gamma, beta; f32 mean/var
+    again = 2 * n if reread is None else 2 * reread * c * itemsize
     return {"fused_bn_train": (2 * n + ch, 3 * n + ch),     # x read twice
             "fused_bn_norm": (2 * n + ch, 2 * n + ch),
-            "fused_bn_train_bwd": (3 * n + ch, 5 * n + ch),  # x, dy twice
+            "fused_bn_train_bwd": (3 * n + ch, 3 * n + ch + again),
             "fused_bn_norm_bwd": (3 * n + ch, 3 * n + ch)}[kind]
+
+
+def bn_reread_rows(rows, c):
+    """Rows of x and dy the training backward's plan leaves out of shared
+    memory at ``[rows, C]`` in bf16 on this card (read again in its last
+    phase), and the plan."""
+    from paddle1_tpu_torch.ops import fused_bn_bwd as fbb
+    x = torch.empty(rows, c, dtype=torch.bfloat16, device="cuda")
+    p = fbb.train_bwd_launch_plan(x, 1)
+    held = sum(min(p.resident, rows - k * p.rows_per_chunk)
+               for k in range(p.chunks))
+    return rows - held, p._asdict()
 
 
 BN_FLOPS = {"fused_bn_train": 7.0, "fused_bn_norm": 4.0,
             "fused_bn_train_bwd": 10.0, "fused_bn_norm_bwd": 7.0}
 
 
-def bn_timing(dev):
-    """Time the four kernels at the three shapes in bf16 (identity, no
+def bn_timing(dev, plans=True):
+    """Time the four kernels at BN_SHAPES in bf16 (identity, no
     residual: every batch norm of the main path), over 4 input sets in
     turn, beside their plain versions, F.batch_norm on the same data as
-    a channels-last [N, C, H, W] tensor, and their bounds."""
+    a channels-last [N, C, H, W] tensor, and their bounds. ``plans``:
+    read the training backward's launch plan (its resident rows) for the
+    bytes the design moves; False for a tree without one."""
     from paddle1_tpu_torch.ops import fused_bn as fbn
     from paddle1_tpu_torch.ops import fused_bn_bwd as fbb
     tbf = torch.nn.functional.batch_norm
     out = {k: [] for k in bn_counters()}
     eps = 1e-5
     for rows, c in BN_SHAPES:
+        reread, bwd_plan = bn_reread_rows(rows, c) if plans else (None,
+                                                                   None)
         sets = bn_inputs(dev, rows, c, torch.bfloat16, SEED + 9, n_sets=4)
         fwd = [fbn._train_fwd(s[0], s[1], s[2], None, eps, "identity")
                for s in sets]
@@ -1400,7 +1460,7 @@ def bn_timing(dev):
                                          "F.batch_norm's eval backward "
                                          f"alone ({backend['eval']})")}
         for name in out:
-            need, moved = bn_bytes(name, rows, c, 2)
+            need, moved = bn_bytes(name, rows, c, 2, reread)
             b_ms, by = bound(need, BN_FLOPS[name] * rows * c,
                              F32_FLOPS_PER_S)
             lk, cover = lib_for[name]
@@ -1411,6 +1471,8 @@ def bn_timing(dev):
                 "library_covers": cover, "bound_ms": b_ms, "bound_by": by,
                 "bound_bytes": need, "design_bytes": moved,
                 "design_bytes_ms_at_peak": 1e3 * moved / HBM_BYTES_PER_S})
+            if name == "fused_bn_train_bwd":
+                out[name][-1]["plan"] = bwd_plan
             log(f"{name} bf16 [{rows}, {c}]: kernel {t[name]:.5f} ms, plain "
                 f"{t[name + '_plain']:.5f} ms, library ({cover}) "
                 f"{t[lk]:.5f} ms, bound {b_ms:.5f} ms ({by}; the design "
@@ -1716,7 +1778,7 @@ def resnet_reference_check(dev):
 
 
 def moments_phase(dev):
-    """The moments kernel against its plain version at the three shapes,
+    """The moments kernel against its plain version at the four shapes,
     f32 and bf16; then timed in bf16 over 4 input sets in turn beside its
     plain version, ``torch.batch_norm_stats`` on the same rows as a
     channels-last [N, C, H, W] tensor (its mean and invstd, checked
@@ -2368,6 +2430,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
     tc_report = tensor_core_report(build, libs)
+    bn_regs = bn_register_report(build)
 
     kernels = kernel_phase(dev)
     lm, eng, reqs, outs, launches, steps = serving_phase(dev)
@@ -2493,13 +2556,23 @@ def main() -> int:
         "bound_ms": adam["bound_ms"], "bound_by": adam["bound_by"],
         "library_ms": adam["library_ms"], "tensors": adam["tensors"],
         "elements": adam["elements"], "cases": adam["cases"]})
-    bn_rows = (("fused_bn_train", "fused_bn.cu", "fused_bn.py:90"),
-               ("fused_bn_norm", "fused_bn.cu", "fused_bn.py:245"),
+    bn_rows = (("fused_bn_train", "fused_bn.cu", "fused_bn.py:90",
+                ("stats_partial_kernel", "finalize_kernel",
+                 "normalize_kernel")),
+               ("fused_bn_norm", "fused_bn.cu", "fused_bn.py:245",
+                ("normalize_kernel",)),
                ("fused_bn_train_bwd", "fused_bn_bwd.cu",
-                "fused_bn_bwd.py:54"),
+                "fused_bn_bwd.py:54", ("train_bwd_kernel",)),
                ("fused_bn_norm_bwd", "fused_bn_bwd.cu",
-                "fused_bn_bwd.py:158"))
-    for name, cu, rep in bn_rows:
+                "fused_bn_bwd.py:158", ("norm_bwd_kernel",
+                                        "finalize_kernel")))
+
+    def layer4(case):
+        """The layer-4 ([1568, 2048]) times of one timing list."""
+        c4, = [t for t in case if t["shape"] == BN_LAYER4]
+        return {f"layer4_{k}": c4[k] for k in ("ms", "plain_ms",
+                                               "library_ms", "bound_ms")}
+    for name, cu, rep, pieces in bn_rows:
         by_path = {"resnet_train": rn["launches_train"][name],
                    "resnet_eval": rn["launches_eval"][name],
                    "resnet_frozen": rn["launches_frozen"][name],
@@ -2516,6 +2589,8 @@ def main() -> int:
             "library_ms": main_case["library_ms"],
             "library_covers": main_case["library_covers"],
             "shape": [main_case["shape"], "bf16", "identity, no residual"],
+            **layer4(bn_times[name]),
+            "registers": {p: bn_regs[f"{cu[:-3]}.{p}"] for p in pieces},
             "timing_cases": bn_times[name], "cases": bn_errs[name]})
     main_case = mom_times[0]     # the stem's [401408, 64]
     n_mom = dp["launches_train"]["fused_bn_moments"]
@@ -2528,8 +2603,10 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "library_covers": main_case["library_covers"],
-        "shape": [main_case["shape"], "bf16"], "timing_cases": mom_times,
-        "cases": mom_errs})
+        "shape": [main_case["shape"], "bf16"], **layer4(mom_times),
+        "registers": {p: bn_regs[f"fused_bn.{p}"] for p in (
+            "stats_partial_kernel", "finalize_kernel")},
+        "timing_cases": mom_times, "cases": mom_errs})
     main_case = sm_times[0]     # LeNet's prediction, [64, 10]
     n_sm = lenet["predict_launches"]["softmax"]
     line.append({

@@ -112,6 +112,7 @@ def _compile_locked(todo: List[str], out_dir: Path) -> None:
                             f"\n{err.strip()}")
             tmp.unlink(missing_ok=True)
             continue
+        _log_path(name).write_text(_logs[name])
         os.replace(tmp, _target(name))  # atomic: readers never see half
     if failures:
         raise KernelBuildError("building the CUDA kernels failed:\n"
@@ -126,10 +127,18 @@ def build_all() -> Dict[str, Path]:
     return {n: _target(n) for n in SOURCES}
 
 
+def _log_path(name: str) -> Path:
+    return _target(name).with_suffix(".log")
+
+
 def build_log(name: str) -> Optional[str]:
-    """nvcc's output (``-Xptxas -v`` register/shared-memory report) from
-    this process's build of ``name``; None when it was already built."""
-    return _logs.get(name)
+    """nvcc's output (``-Xptxas -v`` register/shared-memory report) of the
+    build of ``name``: this process's, else the one kept beside the
+    library by the process that built it; None when there is neither."""
+    log = _logs.get(name)
+    if log is None and _log_path(name).exists():
+        log = _log_path(name).read_text()
+    return log
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -16,12 +16,17 @@
 //   1. stats pass: per-chunk f32 partial sums [chunks, C]
 //      (fused_bn_common.cuh, no atomics, so repeats are bit-identical);
 //   2. finalize: one warp per channel reduces the partials -> mean, var;
-//   3. normalize pass: y from x (and res), the statistics held in
-//      registers for the thread's 8 channels.
+//   3. normalize pass: y from x (and res).
 // The Pallas kernel's single sequential (2, row_blocks) grid keeps the
 // running sums in VMEM; on the GPU the blocks run in no order, so the
 // sum across blocks is the second stage above. Given-statistics mode is
-// pass 3 alone.
+// pass 3 alone. At ResNet-50's layer 4 ([1568, 2048] at 32 images) that
+// pass has about 1.5 rows a thread, so it is latency and set-up, not
+// bytes: the grid is one wave of resident CTAs (the launch plan sizes it
+// from the occupancy API), the CTA loads its tile's statistics and affine
+// once into shared memory, coalesced, with one rsqrt per channel, and each
+// thread has its first rows' 16-byte loads in flight before that set-up
+// and several rows in flight after it.
 //
 // Local moments (replaces ::_moments_kernel, SyncBatchNorm's per-rank
 // statistics pass): passes 1 and 2 alone, the finalize writing the raw
@@ -62,46 +67,91 @@ __global__ void stats_partial_kernel(const T* __restrict__ x,
       }
     }
   }
-  block_column_sums(s, ss, ps, pss, c);
+  __shared__ float buf[kThreads * kVec];
+  column_sums(buf, s, ps, c);
+  column_sums(buf, ss, pss, c);
 }
 
+// Rows a thread keeps in flight in the normalize pass: 64 bytes of x
+// (four bf16 or two f32 vectors), loaded before any is computed.
+template <typename T>
+struct NormRowsInFlight {
+  static constexpr int value = sizeof(T) == 2 ? 4 : 2;
+};
+
+// Given-statistics normalize, one wave of resident CTAs (the grid from
+// the occupancy API). A CTA is one channel tile of blockDim.x vectors
+// and walks rows with a stride of gridDim.y * blockDim.y. Each thread
+// first puts its first rows' loads in flight; meanwhile the CTA loads the
+// tile's mean, rstd = rsqrt(var + eps), gamma and beta ONCE, coalesced,
+// into shared memory, from which each thread takes its 8 channels with
+// 16-byte loads.
 template <typename T, typename P>
-__global__ void normalize_kernel(const T* __restrict__ x,
-                                 const float* __restrict__ mean,
-                                 const float* __restrict__ var,
-                                 const P* __restrict__ gamma,
-                                 const P* __restrict__ beta,
-                                 const T* __restrict__ res,
-                                 T* __restrict__ y, long long rows, int c,
-                                 float eps, int relu) {
-  const int cv = c / kVec;
+__global__ void __launch_bounds__(kThreads)
+normalize_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+                 const float* __restrict__ var, const P* __restrict__ gamma,
+                 const P* __restrict__ beta, const T* __restrict__ res,
+                 T* __restrict__ y, long long rows, int c, float eps,
+                 int relu) {
+  constexpr int U = NormRowsInFlight<T>::value;
+  __shared__ __align__(16) float coef[4][kTileMax];   // mean, rstd, g, b
+  const int tile_w = blockDim.x * kVec;
+  const int c0 = blockIdx.x * tile_w;
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= cv) return;
-  float mu[kVec], rs[kVec], g[kVec], b[kVec];
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) {
-    const int ch = v * kVec + i;
-    mu[i] = mean[ch];
-    rs[i] = rsqrtf(var[ch] + eps);
-    g[i] = to_f32(gamma[ch]);
-    b[i] = to_f32(beta[ch]);
-  }
+  const bool live = v < c / kVec;
+  const long long col = static_cast<long long>(v) * kVec;
   const long long step = static_cast<long long>(gridDim.y) * blockDim.y;
-  for (long long r = static_cast<long long>(blockIdx.y) * blockDim.y +
-                     threadIdx.y;
-       r < rows; r += step) {
-    const long long off = r * c + static_cast<long long>(v) * kVec;
-    float xv[kVec], rv[kVec] = {}, out[kVec];
-    load8(x + off, xv);
-    if (res != nullptr) load8(res + off, rv);
+  long long r = static_cast<long long>(blockIdx.y) * blockDim.y +
+                threadIdx.y;
+  Raw8<T> xr[U], rr[U];
+  auto issue = [&](long long first) {
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) {
-      float t = (xv[i] - mu[i]) * rs[i];
-      t = t * g[i] + b[i];
-      if (res != nullptr) t += rv[i];
-      out[i] = relu ? fmaxf(t, 0.f) : t;
+    for (int u = 0; u < U; ++u) {
+      const long long ru = first + u * step;
+      if (live && ru < rows) {
+        load_raw(x + ru * c + col, xr[u]);
+        if (res != nullptr) load_raw(res + ru * c + col, rr[u]);
+      }
     }
-    store8(y + off, out);
+  };
+  issue(r);
+  const int nt = blockDim.x * blockDim.y;
+  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < tile_w; i += nt) {
+    const int ch = c0 + i;
+    if (ch < c) {
+      coef[0][i] = mean[ch];
+      coef[1][i] = rsqrtf(var[ch] + eps);
+      coef[2][i] = to_f32(gamma[ch]);
+      coef[3][i] = to_f32(beta[ch]);
+    }
+  }
+  __syncthreads();
+  if (!live) return;
+  float mu[kVec], rs[kVec], g[kVec], b[kVec];
+  load8(&coef[0][threadIdx.x * kVec], mu);
+  load8(&coef[1][threadIdx.x * kVec], rs);
+  load8(&coef[2][threadIdx.x * kVec], g);
+  load8(&coef[3][threadIdx.x * kVec], b);
+  while (r < rows) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long ru = r + u * step;
+      if (ru < rows) {
+        float xv[kVec], rv[kVec], out[kVec];
+        widen(xr[u], xv);
+        if (res != nullptr) widen(rr[u], rv);
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) {
+          float t = (xv[i] - mu[i]) * rs[i];
+          t = t * g[i] + b[i];
+          if (res != nullptr) t += rv[i];
+          out[i] = relu ? fmaxf(t, 0.f) : t;
+        }
+        store8(y + ru * c + col, out);
+      }
+    }
+    r += U * step;
+    issue(r);
   }
 }
 
@@ -229,6 +279,20 @@ int p1t_fused_bn_moments(const void* x, void* s, void* ss, void* ps,
   if (dtype == 1)
     return moments<__nv_bfloat16>(x, a, b, pa, pb, rows, c, tx, chunks,
                                   rows_per_chunk, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// CTAs of the normalize kernel (256 threads) that one SM holds at once,
+// for the launch plan's one-wave grid. Returns a cudaError_t.
+int p1t_fused_bn_norm_occupancy(int dtype, int pdtype, int* blocks) {
+#define P1T_OCC(T, P)                                                  \
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor( \
+      blocks, normalize_kernel<T, P>, kThreads, 0))
+  if (dtype == 0 && pdtype == 0) P1T_OCC(float, float);
+  if (dtype == 0 && pdtype == 1) P1T_OCC(float, __nv_bfloat16);
+  if (dtype == 1 && pdtype == 0) P1T_OCC(__nv_bfloat16, float);
+  if (dtype == 1 && pdtype == 1) P1T_OCC(__nv_bfloat16, __nv_bfloat16);
+#undef P1T_OCC
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -14,17 +14,32 @@
 // Bound on an H100: memory (a few flops per element against 6-10 bytes
 // moved in bf16). Compulsory traffic: x and dy read once, dx written
 // once (plus y for relu and dres for a residual). Design:
-//   training: pass 1 reads x, dy and writes f32 per-chunk partials of
-//             the two sums; a finalize kernel (one warp per channel)
-//             reduces them in a fixed order (no atomics: repeats are
-//             bit-identical); pass 2 reads x and dy again and writes dx.
+//   training: ONE cooperative launch of a persistent grid (as many CTAs
+//             as the card holds at once, from the occupancy API). A CTA
+//             owns a channel tile and a chunk of consecutive rows.
+//             Phase A: it copies the first `resident` rows of x and dy
+//             into shared memory with cp.async, streams the rest through
+//             registers (several rows' 16-byte loads in flight), masks dy
+//             once (the masked dy is written back over the resident
+//             copy), and sums dy * xhat and dy per channel in f32 into
+//             one partial row [chunk, C]. Handoff: a grid barrier; one
+//             warp per channel sums the partial rows in a fixed order (no
+//             atomics: repeats are bit-identical) into dgamma, dbeta; a
+//             second grid barrier. Phase C: dx from the resident rows in
+//             shared memory, and from the rows that did not fit re-read
+//             in the reverse of phase A's order, so the last streamed come
+//             from L2. Where the whole chunk fits (ResNet-50 at 32 images
+//             from layer 3 on), x and dy cross HBM once. The per-channel
+//             coefficients are computed once per CTA into shared memory.
 //             The Pallas kernel's sequential (2, row_blocks) grid holds
-//             the sums in VMEM between its phases; here the phases are
-//             kernels.
+//             the sums in VMEM between its phases; here the grid barrier
+//             does, with the rows held in shared memory.
 //   given:    dx is row-local, so one pass writes dx and the partials,
 //             and the finalize kernel reduces the partials.
 // Built by paddle1_tpu_torch/ops/cuda/build.py with nvcc for sm_90a into
 // a shared library with a plain C interface (ctypes).
+
+#include <cooperative_groups.h>
 
 #include "fused_bn_common.cuh"
 
@@ -59,75 +74,209 @@ __device__ __forceinline__ void channel_stats(const float* __restrict__ mean,
   }
 }
 
-// training pass 1: partial sums of dy * xhat (-> dgamma) and dy (-> dbeta)
+// Rows a thread keeps in flight where it streams from global memory: 64
+// bytes of each tensor (four bf16 or two f32 vectors).
 template <typename T>
-__global__ void train_partial_kernel(const T* __restrict__ x,
-                                     const T* __restrict__ dy,
-                                     const T* __restrict__ y,
-                                     const float* __restrict__ mean,
-                                     const float* __restrict__ var,
-                                     long long rows, int c,
-                                     long long rows_per_chunk, float eps,
-                                     int relu, float* __restrict__ psg,
-                                     float* __restrict__ psb) {
-  const int cv = c / kVec;
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  const long long r0 = static_cast<long long>(blockIdx.y) * rows_per_chunk;
-  long long r1 = r0 + rows_per_chunk;
-  if (r1 > rows) r1 = rows;
-  float sg[kVec] = {}, sb[kVec] = {};
-  if (v < cv) {
-    float mu[kVec], rs[kVec];
-    channel_stats(mean, var, v, eps, mu, rs);
-    for (long long r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
-      const long long off = r * c + static_cast<long long>(v) * kVec;
-      float xv[kVec], d[kVec];
-      load8(x + off, xv);
-      masked_dy(dy, y, off, relu, d);
+struct BwdRowsInFlight {
+  static constexpr int value = sizeof(T) == 2 ? 4 : 2;
+};
+
+// Shared memory ahead of the resident rows: the column-sum scratch
+// (kThreads x 8 floats) and five per-channel coefficient rows (mean,
+// rstd, gamma * rstd, dbeta / n, dgamma) of the widest tile. The launch
+// plan (ops/fused_bn_bwd.py, train_bwd_plan) mirrors this constant.
+constexpr int kBwdFixedSmem = kThreads * kVec * 4 + 5 * kTileMax * 4;
+
+// one 8-channel vector, global -> shared, as 16-byte cp.async copies
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        const float xhat = (xv[i] - mu[i]) * rs[i];
-        sg[i] += d[i] * xhat;
-        sb[i] += d[i];
+  for (int k = 0; k < Raw8<T>::kWords; ++k)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     s + 16 * k),
+                 "l"(reinterpret_cast<const char*>(src) + 16 * k));
+}
+
+template <typename T>
+__device__ __forceinline__ void mask_relu(const Raw8<T>& yr,
+                                          float (&d)[kVec]) {
+  float yv[kVec];
+  widen(yr, yv);
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) d[i] = yv[i] > 0.f ? d[i] : 0.f;
+}
+
+// training mode, the whole backward in one cooperative launch (see the
+// note at the top). Grid (tiles, chunks), block (TX, TY); CTA (t, k) owns
+// channels [t * TX * 8, ...) of rows [k * rows_per_chunk, ...). A thread
+// owns one 8-channel vector of local rows ty, ty + TY, ...: its k-th row
+// is resident when k < kr.
+template <typename T, typename P>
+__global__ void __launch_bounds__(kThreads, 2)
+train_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                 const T* __restrict__ y, const P* __restrict__ gamma,
+                 const float* __restrict__ mean,
+                 const float* __restrict__ var, long long rows, int c,
+                 long long rows_per_chunk, int resident, float eps, int relu,
+                 float* psg, float* psb, float* dg, float* db,
+                 T* __restrict__ dx, T* __restrict__ dres) {
+  constexpr int U = BwdRowsInFlight<T>::value;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* scratch = reinterpret_cast<float*>(smem);
+  float* coef = scratch + kThreads * kVec;     // [5][kTileMax]
+  const int tile_w = blockDim.x * kVec;
+  T* xs = reinterpret_cast<T*>(smem + kBwdFixedSmem);   // [resident][tile_w]
+  T* ds = xs + static_cast<long long>(resident) * tile_w;
+  const int c0 = blockIdx.x * tile_w;
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = v < c / kVec;
+  const long long col = static_cast<long long>(v) * kVec;
+  const int lo = threadIdx.x * kVec;
+  const int ty = threadIdx.y, nty = blockDim.y;
+  const int tid = ty * blockDim.x + threadIdx.x;
+  const int nt = blockDim.x * nty;
+  const long long r0 = static_cast<long long>(blockIdx.y) * rows_per_chunk;
+  long long left = rows - r0;
+  const int n_local = static_cast<int>(
+      left < 0 ? 0 : (left < rows_per_chunk ? left : rows_per_chunk));
+  const int n_res = resident < n_local ? resident : n_local;
+  // this thread's rows: local ty + k * nty for k < kn; resident for k < kr
+  const int kn = live && ty < n_local ? (n_local - ty + nty - 1) / nty : 0;
+  const int kr = live && ty < n_res ? (n_res - ty + nty - 1) / nty : 0;
+  auto row_of = [&](int k) { return r0 + ty + static_cast<long long>(k) * nty; };
+  auto local_of = [&](int k) { return ty + k * nty; };
+
+  // phase A.1: the resident rows' copies go out first
+  for (int k = 0; k < kr; ++k) {
+    const long long off = row_of(k) * c + col;
+    copy_async(xs + static_cast<long long>(local_of(k)) * tile_w + lo, x + off);
+    copy_async(ds + static_cast<long long>(local_of(k)) * tile_w + lo, dy + off);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  // the tile's mean, rstd and gamma * rstd, once per CTA
+  for (int i = tid; i < tile_w; i += nt) {
+    if (c0 + i < c) {
+      const float r = rsqrtf(var[c0 + i] + eps);
+      coef[i] = mean[c0 + i];
+      coef[kTileMax + i] = r;
+      coef[2 * kTileMax + i] = to_f32(gamma[c0 + i]) * r;
+    }
+  }
+  __syncthreads();
+  float mu[kVec], rs[kVec], sg[kVec] = {}, sb[kVec] = {};
+  if (live) {
+    load8(coef + lo, mu);
+    load8(coef + kTileMax + lo, rs);
+  }
+  auto accumulate = [&](const float (&xv)[kVec], const float (&d)[kVec]) {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      const float xhat = (xv[i] - mu[i]) * rs[i];
+      sg[i] += d[i] * xhat;
+      sb[i] += d[i];
+    }
+  };
+  // phase A.2: the rows that do not fit, streamed through registers
+  for (int k = kr; k < kn; k += U) {
+    Raw8<T> xr[U], dr[U], yr[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k + u < kn) {
+        const long long off = row_of(k + u) * c + col;
+        load_raw(x + off, xr[u]);
+        load_raw(dy + off, dr[u]);
+        if (relu) load_raw(y + off, yr[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k + u < kn) {
+        float xv[kVec], d[kVec];
+        widen(xr[u], xv);
+        widen(dr[u], d);
+        if (relu) mask_relu(yr[u], d);
+        accumulate(xv, d);
       }
     }
   }
-  block_column_sums(sg, sb, psg, psb, c);
-}
-
-// training pass 2: dx (and dres) from the finished sums
-template <typename T, typename P>
-__global__ void train_dx_kernel(const T* __restrict__ x,
-                                const T* __restrict__ dy,
-                                const T* __restrict__ y,
-                                const P* __restrict__ gamma,
-                                const float* __restrict__ mean,
-                                const float* __restrict__ var,
-                                const float* __restrict__ dg,
-                                const float* __restrict__ db, long long rows,
-                                int c, float eps, int relu,
-                                T* __restrict__ dx, T* __restrict__ dres) {
-  const int cv = c / kVec;
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= cv) return;
-  const float n = static_cast<float>(rows);
-  float mu[kVec], rs[kVec], gr[kVec], c1[kVec], dgc[kVec];
-  channel_stats(mean, var, v, eps, mu, rs);
+  // phase A.3: the resident rows, from shared memory (each thread reads
+  // only the vectors it copied); relu masks dy once, in place
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  for (int k = 0; k < kr; k += U) {
+    Raw8<T> yr[U];
+    if (relu) {
 #pragma unroll
-  for (int i = 0; i < kVec; ++i) {
-    const int ch = v * kVec + i;
-    gr[i] = to_f32(gamma[ch]) * rs[i];
-    c1[i] = db[ch] / n;
-    dgc[i] = dg[ch];
+      for (int u = 0; u < U; ++u)
+        if (k + u < kr) load_raw(y + row_of(k + u) * c + col, yr[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k + u < kr) {
+        const long long so = static_cast<long long>(local_of(k + u)) * tile_w + lo;
+        Raw8<T> xr, dr;
+        load_raw(xs + so, xr);
+        load_raw(ds + so, dr);
+        float xv[kVec], d[kVec];
+        widen(xr, xv);
+        widen(dr, d);
+        if (relu) {
+          mask_relu(yr[u], d);
+          store8(ds + so, d);
+        }
+        accumulate(xv, d);
+      }
+    }
   }
-  const long long step = static_cast<long long>(gridDim.y) * blockDim.y;
-  for (long long r = static_cast<long long>(blockIdx.y) * blockDim.y +
-                     threadIdx.y;
-       r < rows; r += step) {
-    const long long off = r * c + static_cast<long long>(v) * kVec;
-    float xv[kVec], d[kVec], out[kVec];
-    load8(x + off, xv);
-    masked_dy(dy, y, off, relu, d);
+  column_sums(scratch, sg, psg, c);
+  column_sums(scratch, sb, psb, c);
+
+  // handoff: every partial row is out; one warp per channel sums them in
+  // chunk order, lanes strided then a fixed shuffle tree
+  cooperative_groups::this_grid().sync();
+  const int chunks = gridDim.y;
+  const int warps = nt / 32;     // whole warps only (TX * TY may be < 256)
+  const int lane = tid & 31;
+  if (tid / 32 < warps) {
+    const int cta = blockIdx.y * gridDim.x + blockIdx.x;
+    const int stride = gridDim.x * gridDim.y * warps;
+    for (int ch = cta * warps + tid / 32; ch < c; ch += stride) {
+      float a = 0.f, b = 0.f;
+      for (int k = lane; k < chunks; k += 32) {
+        a += __ldcg(psg + static_cast<long long>(k) * c + ch);
+        b += __ldcg(psb + static_cast<long long>(k) * c + ch);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, o);
+        b += __shfl_xor_sync(0xffffffffu, b, o);
+      }
+      if (lane == 0) {
+        dg[ch] = a;
+        db[ch] = b;
+      }
+    }
+  }
+  cooperative_groups::this_grid().sync();
+
+  // phase C: the tile's dx coefficients, once per CTA
+  const float n = static_cast<float>(rows);
+  for (int i = tid; i < tile_w; i += nt) {
+    const int ch = c0 + i;
+    if (ch < c) {
+      coef[3 * kTileMax + i] = __ldcg(db + ch) / n;
+      coef[4 * kTileMax + i] = __ldcg(dg + ch);
+    }
+  }
+  __syncthreads();
+  if (!live) return;
+  float gr[kVec], c1[kVec], dgc[kVec];
+  load8(coef + 2 * kTileMax + lo, gr);
+  load8(coef + 3 * kTileMax + lo, c1);
+  load8(coef + 4 * kTileMax + lo, dgc);
+  auto emit = [&](long long off, const float (&xv)[kVec],
+                  const float (&d)[kVec]) {
+    float out[kVec];
 #pragma unroll
     for (int i = 0; i < kVec; ++i) {
       const float xhat = (xv[i] - mu[i]) * rs[i];
@@ -135,6 +284,40 @@ __global__ void train_dx_kernel(const T* __restrict__ x,
     }
     store8(dx + off, out);
     if (dres != nullptr) store8(dres + off, d);
+  };
+  // the rows that did not fit, in the reverse of phase A's order
+  for (int k = kn - 1; k >= kr; k -= U) {
+    Raw8<T> xr[U], dr[U], yr[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k - u >= kr) {
+        const long long off = row_of(k - u) * c + col;
+        load_raw(x + off, xr[u]);
+        load_raw(dy + off, dr[u]);
+        if (relu) load_raw(y + off, yr[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k - u >= kr) {
+        float xv[kVec], d[kVec];
+        widen(xr[u], xv);
+        widen(dr[u], d);
+        if (relu) mask_relu(yr[u], d);
+        emit(row_of(k - u) * c + col, xv, d);
+      }
+    }
+  }
+  // the resident rows (dy already masked)
+  for (int k = 0; k < kr; ++k) {
+    const long long so = static_cast<long long>(local_of(k)) * tile_w + lo;
+    Raw8<T> xr, dr;
+    load_raw(xs + so, xr);
+    load_raw(ds + so, dr);
+    float xv[kVec], d[kVec];
+    widen(xr, xv);
+    widen(dr, d);
+    emit(row_of(k) * c + col, xv, d);
   }
 }
 
@@ -179,7 +362,9 @@ __global__ void norm_bwd_kernel(const T* __restrict__ x,
       if (dres != nullptr) store8(dres + off, d);
     }
   }
-  block_column_sums(sg, sb, psg, psb, c);
+  __shared__ float buf[kThreads * kVec];
+  column_sums(buf, sg, psg, c);
+  column_sums(buf, sb, psb, c);
 }
 
 template <typename T, typename P>
@@ -187,27 +372,56 @@ int train_bwd(const void* x, const void* g, const float* mean,
               const float* var, const void* y, const void* dy, void* dx,
               void* dres, float* dg, float* db, float* psg, float* psb,
               long long rows, int c, int tx, int chunks,
-              long long rows_per_chunk, int grid_y, float eps, int relu,
-              cudaStream_t stream) {
+              long long rows_per_chunk, int resident, int smem_bytes,
+              float eps, int relu, cudaStream_t stream) {
   dim3 block;
   int tiles;
-  if (rows <= 0 || chunks < 1 || chunks > 65535 || grid_y < 1 ||
-      grid_y > 65535 || !block_shape(c, tx, &block, &tiles) ||
-      (relu && y == nullptr))
+  const long long row_bytes = 2LL * tx * kVec * sizeof(T);
+  if (rows <= 0 || chunks < 1 || chunks > 65535 || rows_per_chunk < 1 ||
+      static_cast<long long>(chunks) * rows_per_chunk < rows ||
+      resident < 0 || resident > rows_per_chunk ||
+      !block_shape(c, tx, &block, &tiles) || (relu && y == nullptr) ||
+      smem_bytes < kBwdFixedSmem + resident * row_bytes)
     return static_cast<int>(cudaErrorInvalidValue);
-  train_partial_kernel<T><<<dim3(tiles, chunks), block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy),
-      static_cast<const T*>(y), mean, var, rows, c, rows_per_chunk, eps,
-      relu, psg, psb);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  rc = launch_finalize(psg, psb, chunks, c, 1.f, 1, dg, db, stream);
-  if (rc != 0) return rc;
-  train_dx_kernel<T, P><<<dim3(tiles, grid_y), block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy),
-      static_cast<const T*>(y), static_cast<const P*>(g), mean, var, dg, db,
-      rows, c, eps, relu, static_cast<T*>(dx), static_cast<T*>(dres));
-  return static_cast<int>(cudaGetLastError());
+  // A refused launch (more CTAs than the card holds at once, too much
+  // shared memory) returns its error; nothing falls back.
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
+  const T* yt = static_cast<const T*>(y);
+  const P* gt = static_cast<const P*>(g);
+  T* dxt = static_cast<T*>(dx);
+  T* drt = static_cast<T*>(dres);
+  void* args[] = {&xt, &dyt, &yt, &gt, &mean, &var, &rows, &c,
+                  &rows_per_chunk, &resident, &eps, &relu, &psg, &psb,
+                  &dg, &db, &dxt, &drt};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(&train_bwd_kernel<T, P>),
+      dim3(tiles, chunks), block, args, static_cast<size_t>(smem_bytes),
+      stream);
+  if (e != cudaSuccess) cudaGetLastError();   // not left for the next check
+  return static_cast<int>(e);
+}
+
+// Lift the kernel's dynamic shared-memory limit to the card's opt-in
+// maximum (once, outside any graph capture), then report how many of its
+// 256-thread CTAs with smem_bytes of shared memory one SM holds at once.
+template <typename T, typename P>
+int train_bwd_occupancy(int smem_bytes, int* blocks) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(&train_bwd_kernel<T, P>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, &train_bwd_kernel<T, P>, kThreads,
+        static_cast<size_t>(smem_bytes));
+  if (e != cudaSuccess) cudaGetLastError();
+  return static_cast<int>(e);
 }
 
 template <typename T, typename P>
@@ -239,14 +453,17 @@ extern "C" {
 // dtype (x, y, dy, dx, dres) and pdtype (gamma): 0 = float32,
 // 1 = bfloat16. mean/var: f32 [C]; dg/db: f32 [C] outputs; psg/psb: f32
 // [chunks, C] scratch. y may be null when relu == 0, dres when no
-// residual gradient is wanted. Returns a cudaError_t (0 = success).
+// residual gradient is wanted. The training call is one cooperative
+// launch of tiles x chunks CTAs, each keeping its first `resident` rows
+// in smem_bytes of dynamic shared memory (the plan of
+// ops/fused_bn_bwd.py). Returns a cudaError_t (0 = success).
 int p1t_fused_bn_bwd_train(const void* x, const void* g, const void* mean,
                            const void* var, const void* y, const void* dy,
                            void* dx, void* dres, void* dg, void* db,
                            void* psg, void* psb, long long rows, int c,
                            int tx, int chunks, long long rows_per_chunk,
-                           int grid_y, float eps, int relu, int dtype,
-                           int pdtype, void* stream) {
+                           int resident, int smem_bytes, float eps, int relu,
+                           int dtype, int pdtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto m = static_cast<const float*>(mean);
   auto v = static_cast<const float*>(var);
@@ -256,12 +473,50 @@ int p1t_fused_bn_bwd_train(const void* x, const void* g, const void* mean,
   auto pb = static_cast<float*>(psb);
 #define P1T_TRAIN(T, P)                                                     \
   return train_bwd<T, P>(x, g, m, v, y, dy, dx, dres, a, b, pa, pb, rows, c, \
-                         tx, chunks, rows_per_chunk, grid_y, eps, relu, s)
+                         tx, chunks, rows_per_chunk, resident, smem_bytes,   \
+                         eps, relu, s)
   if (dtype == 0 && pdtype == 0) P1T_TRAIN(float, float);
   if (dtype == 0 && pdtype == 1) P1T_TRAIN(float, __nv_bfloat16);
   if (dtype == 1 && pdtype == 0) P1T_TRAIN(__nv_bfloat16, float);
   if (dtype == 1 && pdtype == 1) P1T_TRAIN(__nv_bfloat16, __nv_bfloat16);
 #undef P1T_TRAIN
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The current card's SM count, shared memory per SM, the opt-in maximum
+// of one CTA and what the card reserves per CTA, in bytes.
+int p1t_fused_bn_bwd_device(int* sms, int* smem_per_sm, int* smem_optin,
+                            int* reserved) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(smem_per_sm,
+                               cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                               dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(smem_optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(reserved,
+                               cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  return static_cast<int>(e);
+}
+
+// CTAs of the training kernel with smem_bytes of dynamic shared memory
+// that one SM holds at once (see train_bwd_occupancy).
+int p1t_fused_bn_bwd_train_occupancy(int dtype, int pdtype, int smem_bytes,
+                                     int* blocks) {
+  if (dtype == 0 && pdtype == 0)
+    return train_bwd_occupancy<float, float>(smem_bytes, blocks);
+  if (dtype == 0 && pdtype == 1)
+    return train_bwd_occupancy<float, __nv_bfloat16>(smem_bytes, blocks);
+  if (dtype == 1 && pdtype == 0)
+    return train_bwd_occupancy<__nv_bfloat16, float>(smem_bytes, blocks);
+  if (dtype == 1 && pdtype == 1)
+    return train_bwd_occupancy<__nv_bfloat16, __nv_bfloat16>(smem_bytes,
+                                                             blocks);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

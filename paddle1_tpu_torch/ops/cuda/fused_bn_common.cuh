@@ -22,6 +22,7 @@ namespace p1t_bn {
 
 constexpr int kThreads = 256;      // TX * TY <= kThreads
 constexpr int kVec = 8;            // channels per thread
+constexpr int kTileMax = 32 * kVec;  // channels of the widest tile (TX = 32)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -61,36 +62,67 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p,
   *reinterpret_cast<uint4*>(p) = u;
 }
 
-// Stage 1 tail: every thread holds its own sums a[8], b[8] for channels
+// Eight channels as they lie in memory (16 B of bf16, 32 B of f32), for
+// loads issued ahead of their use: a thread keeps several rows in flight
+// as raw vectors and widens each to f32 only when it computes it.
+template <typename T>
+struct Raw8 {
+  static constexpr int kWords = kVec * sizeof(T) / 16;   // 16-byte words
+  uint4 w[kWords];
+};
+
+template <typename T>
+__device__ __forceinline__ void load_raw(const T* p, Raw8<T>& r) {
+#pragma unroll
+  for (int k = 0; k < Raw8<T>::kWords; ++k)
+    r.w[k] = reinterpret_cast<const uint4*>(p)[k];
+}
+
+template <typename T>
+__device__ __forceinline__ void store_raw(T* p, const Raw8<T>& r) {
+#pragma unroll
+  for (int k = 0; k < Raw8<T>::kWords; ++k)
+    reinterpret_cast<uint4*>(p)[k] = r.w[k];
+}
+
+__device__ __forceinline__ void widen(const Raw8<float>& r, float (&v)[kVec]) {
+  const float* f = reinterpret_cast<const float*>(r.w);
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) v[i] = f[i];
+}
+
+__device__ __forceinline__ void widen(const Raw8<__nv_bfloat16>& r,
+                                      float (&v)[kVec]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(r.w);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// Stage 1 tail: every thread holds its own sums a[8] for channels
 // [v * 8, v * 8 + 8); the block writes their column sums over threadIdx.y
-// (in order 0..TY-1) to pa/pb[blockIdx.y * C + channel].
-__device__ __forceinline__ void block_column_sums(const float (&a)[kVec],
-                                                  const float (&b)[kVec],
-                                                  float* __restrict__ pa,
-                                                  float* __restrict__ pb,
-                                                  int c) {
-  __shared__ float sa[kThreads * kVec];
-  __shared__ float sb[kThreads * kVec];
+// (in order 0..TY-1) to pa[blockIdx.y * C + channel]. buf: kThreads * 8
+// floats of shared memory, free again when this returns.
+__device__ __forceinline__ void column_sums(float* buf,
+                                            const float (&a)[kVec],
+                                            float* __restrict__ pa, int c) {
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int w = blockDim.x * kVec;          // channels of this block's tile
 #pragma unroll
-  for (int i = 0; i < kVec; ++i) {
-    sa[ty * w + tx * kVec + i] = a[i];
-    sb[ty * w + tx * kVec + i] = b[i];
-  }
+  for (int i = 0; i < kVec; ++i) buf[ty * w + tx * kVec + i] = a[i];
   __syncthreads();
   const int c0 = blockIdx.x * w;
   const int nt = blockDim.x * blockDim.y;
   for (int col = ty * blockDim.x + tx; col < w; col += nt) {
     if (c0 + col >= c) continue;
-    float s = 0.f, t = 0.f;
-    for (int k = 0; k < static_cast<int>(blockDim.y); ++k) {
-      s += sa[k * w + col];
-      t += sb[k * w + col];
-    }
+    float s = 0.f;
+    for (int k = 0; k < static_cast<int>(blockDim.y); ++k) s += buf[k * w + col];
     pa[static_cast<long long>(blockIdx.y) * c + c0 + col] = s;
-    pb[static_cast<long long>(blockIdx.y) * c + c0 + col] = t;
   }
+  __syncthreads();
 }
 
 // Stage 2: one warp per channel sums pa/pb[0..chunks) in a fixed order.

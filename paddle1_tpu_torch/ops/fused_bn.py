@@ -125,26 +125,68 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def plan(rows: int, c: int, device):
-    """Block and grid of the kernel family for ``[rows, C]``:
-    ``(tx, chunks, rows_per_chunk, grid_y)``. A block is ``tx = min(C/8,
-    32)`` channel vectors wide and ``256 // tx`` rows tall; a reduction
-    pass cuts the rows into ``chunks`` chunks (about 4 blocks per SM in
-    all), an elementwise pass strides over them with ``grid_y`` block
-    rows (about 8 blocks per SM). Depends on the shape and the card
-    only, so the sums' order does too."""
+def device_index(device) -> int:
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+def block_width(c: int):
+    """``(tx, ty, tiles)`` of the family's block for ``C`` channels: ``tx =
+    min(C/8, 32)`` channel vectors wide, ``ty = 256 // tx`` rows tall,
+    ``tiles`` channel tiles."""
     cv = c // _VEC
     tx = min(cv, 32)
-    ty = _THREADS // tx
-    tiles = -(-cv // tx)
-    sms = _sm_count(device.index if device.index is not None
-                    else torch.cuda.current_device())
+    return tx, _THREADS // tx, -(-cv // tx)
+
+
+def plan(rows: int, c: int, device):
+    """Block and chunks of the reduction passes (statistics, moments,
+    given-statistics backward) for ``[rows, C]``: ``(tx, chunks,
+    rows_per_chunk)``. The rows are cut into ``chunks`` chunks of
+    consecutive rows, about 4 blocks per SM in all. Depends on the shape
+    and the card only, so the sums' order does too."""
+    tx, ty, tiles = block_width(c)
+    sms = _sm_count(device_index(device))
     row_groups = -(-rows // ty)
     chunks = max(1, min(row_groups, -(-4 * sms // tiles), 65535))
     rows_per_chunk = -(-rows // chunks)
     chunks = -(-rows // rows_per_chunk)
-    grid_y = max(1, min(row_groups, -(-8 * sms // tiles), 65535))
-    return tx, chunks, rows_per_chunk, grid_y
+    return tx, chunks, rows_per_chunk
+
+
+def norm_plan(rows: int, c: int, sms: int, blocks_per_sm: int):
+    """Block and grid of the normalize pass for ``[rows, C]`` on a card of
+    ``sms`` SMs that holds ``blocks_per_sm`` of its CTAs at once (the
+    occupancy API's answer): ``(tx, grid_y)``. The grid is one wave,
+    ``tiles x grid_y <= sms * blocks_per_sm``, with no more row blocks than
+    rows need; a CTA strides over rows. A pure function of its
+    arguments."""
+    tx, ty, tiles = block_width(c)
+    wave = max(1, sms * blocks_per_sm // tiles)
+    return tx, max(1, min(-(-rows // ty), wave, 65535))
+
+
+@functools.lru_cache(maxsize=None)
+def _norm_blocks_per_sm(index: int, dtype: int, pdtype: int) -> int:
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = _kernel("p1t_fused_bn_norm_occupancy")(dtype, pdtype,
+                                                    ctypes.byref(blocks))
+    if rc != 0 or blocks.value < 1:
+        from .cuda import build
+        raise KernelLaunchError(
+            f"p1t_fused_bn_norm_occupancy: CUDA error {rc} "
+            f"({build.error_string('fused_bn', rc)}), {blocks.value} CTAs "
+            "an SM")
+    return blocks.value
+
+
+def norm_launch_plan(x2, pdtype: int):
+    """:func:`norm_plan` for ``x2`` on its card."""
+    rows, c = (int(s) for s in x2.shape)
+    index = device_index(x2.device)
+    return norm_plan(rows, c, _sm_count(index),
+                     _norm_blocks_per_sm(index, _DTYPES[x2.dtype], pdtype))
 
 
 def check_rows(name, x2, *others):
@@ -210,6 +252,8 @@ _ARGTYPES = {
                                          _P],
     # x, s, ss, ps, pss; rows; c, tx, chunks; rows_per_chunk; dtype; stream
     "p1t_fused_bn_moments": [_P] * 5 + [_L, _I, _I, _I, _L, _I, _P],
+    # dtype, pdtype, &blocks
+    "p1t_fused_bn_norm_occupancy": [_I, _I, _P],
 }
 
 
@@ -244,7 +288,8 @@ def _train_fwd(x2, g, b, res, eps, act):
     check_rows("fused_bn_train", x2, res)
     rows, c = (int(s) for s in x2.shape)
     pdt = check_channels("fused_bn_train", c, x2.device, g, b)
-    tx, chunks, rpc, grid_y = plan(rows, c, x2.device)
+    tx, chunks, rpc = plan(rows, c, x2.device)
+    _, grid_y = norm_launch_plan(x2, pdt)
     y = torch.empty_like(x2)
     mean = torch.empty(c, dtype=torch.float32, device=x2.device)
     var = torch.empty_like(mean)
@@ -271,7 +316,7 @@ def _norm_fwd(x2, m, v, g, b, res, eps, act):
     pdt = check_channels("fused_bn_norm", c, x2.device, g, b)
     m32, v32 = stats_f32(m), stats_f32(v)
     check_channels("fused_bn_norm", c, x2.device, m32, v32)
-    tx, _, _, grid_y = plan(rows, c, x2.device)
+    tx, grid_y = norm_launch_plan(x2, pdt)
     y = torch.empty_like(x2)
     fn = _kernel("p1t_fused_bn_norm_fwd")
     with torch.cuda.device(x2.device):
@@ -290,7 +335,7 @@ def _moments_fwd(x2):
         return local_moments_ref(x2)
     check_rows("local_moments", x2)
     rows, c = (int(s) for s in x2.shape)
-    tx, chunks, rpc, _ = plan(rows, c, x2.device)
+    tx, chunks, rpc = plan(rows, c, x2.device)
     out = torch.empty(2, c, dtype=torch.float32, device=x2.device)
     part = torch.empty(2, chunks, c, dtype=torch.float32, device=x2.device)
     fn = _kernel("p1t_fused_bn_moments")

@@ -16,38 +16,139 @@ flag picks the kernel (``auto``: CUDA tensors) or the plain version
 ``*_xla`` arms); a CPU tensor always runs the plain version, a CUDA
 tensor under the flag launches the kernel or raises.
 
+The training kernel is one cooperative launch of a persistent grid
+(:func:`train_bwd_plan`): every CTA holds its chunk of rows of x and the
+masked dy in shared memory across a grid barrier, so where the chunk
+fits, x and dy cross device memory once. A launch the card refuses (more
+CTAs than it holds at once, too much shared memory, a capture that does
+not take a cooperative launch) raises :class:`KernelLaunchError`; nothing
+falls back.
+
 ``train_bwd.launches`` and ``norm_bwd.launches`` count calls that
-launched the kernel: ONE per call (a training call is three CUDA
-launches inside: partial sums, finalize, dx; a given-statistics call
-two: dx with partial sums, finalize).
+launched the kernel: ONE per call (a given-statistics call is two CUDA
+launches inside: dx with partial sums, finalize).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
-from ..core.errors import KernelLaunchError
+from ..core.errors import InvalidArgumentError, KernelLaunchError
 from ..core.flags import flag_active
-from .fused_bn import (_DTYPES, check_channels, check_rows, plan,
-                       stats_f32, supported)
+from .fused_bn import (_DTYPES, block_width, check_channels, check_rows,
+                       device_index, plan, stats_f32, supported)
 
 __all__ = ["train_bwd", "norm_bwd", "train_bwd_ref", "norm_bwd_ref",
-           "supported"]
+           "supported", "TrainBwdPlan", "train_bwd_plan",
+           "train_bwd_launch_plan"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGTYPES = {
     # x, g, mean, var, y, dy, dx, dres, dg, db, psg, psb; rows; c, tx,
-    # chunks; rows_per_chunk; grid_y; eps; relu, dtype, pdtype; stream
-    "p1t_fused_bn_bwd_train": [_P] * 12 + [_L, _I, _I, _I, _L, _I, _F,
+    # chunks; rows_per_chunk; resident, smem_bytes; eps; relu, dtype,
+    # pdtype; stream
+    "p1t_fused_bn_bwd_train": [_P] * 12 + [_L, _I, _I, _I, _L, _I, _I, _F,
                                            _I, _I, _I, _P],
-    # as above without grid_y
+    # as above without resident, smem_bytes
     "p1t_fused_bn_bwd_norm": [_P] * 12 + [_L, _I, _I, _I, _L, _F, _I, _I,
                                           _I, _P],
+    # &sms, &smem_per_sm, &smem_optin, &reserved
+    "p1t_fused_bn_bwd_device": [_P] * 4,
+    # dtype, pdtype, smem_bytes, &blocks
+    "p1t_fused_bn_bwd_train_occupancy": [_I, _I, _I, _P],
 }
 _fns = {}
+
+# The training kernel's shared memory ahead of the resident rows
+# (fused_bn_bwd.cu kBwdFixedSmem: column-sum scratch and five
+# coefficient rows of the widest tile), and the CTAs it aims to put on one
+# SM (each gets 1 / _CTAS_PER_SM of the SM's shared memory).
+FIXED_SMEM = 256 * 8 * 4 + 5 * 256 * 4
+_CTAS_PER_SM = 2
+
+
+class TrainBwdPlan(NamedTuple):
+    """Launch plan of the training backward over ``[rows, C]``: a grid of
+    ``tiles x chunks`` CTAs of ``tx x ty`` threads; CTA ``(t, k)`` owns
+    channel tile ``t`` of rows ``[k * rows_per_chunk, ...)`` and keeps its
+    first ``resident`` rows of x and dy in ``smem_bytes`` of shared
+    memory."""
+    tx: int
+    ty: int
+    tiles: int
+    chunks: int
+    rows_per_chunk: int
+    resident: int
+    smem_bytes: int
+
+
+def train_bwd_plan(rows: int, c: int, itemsize: int, sms: int,
+                   blocks_per_sm: int, smem_per_cta: int) -> TrainBwdPlan:
+    """The persistent grid for ``[rows, C]`` of ``itemsize``-byte elements
+    on a card of ``sms`` SMs that holds ``blocks_per_sm`` CTAs of
+    ``smem_per_cta`` bytes of shared memory at once: as many chunks as the
+    co-resident CTAs allow (no more than the rows need), and as many rows
+    of each chunk resident as the shared memory holds. A pure function of
+    its arguments, so the sums' order depends on the shape and the card
+    only. Raises :class:`InvalidArgumentError` when one row of CTAs does
+    not fit the card (over 8 * 32 * sms * blocks_per_sm channels)."""
+    tx, ty, tiles = block_width(c)
+    capacity = sms * blocks_per_sm
+    if tiles > capacity:
+        raise InvalidArgumentError(
+            f"train_bwd: {c} channels need {tiles} co-resident CTAs, the "
+            f"card holds {capacity} (outside the kernel's contract)")
+    chunks = max(1, min(capacity // tiles, -(-rows // ty), 65535))
+    rows_per_chunk = -(-rows // chunks)
+    chunks = -(-rows // rows_per_chunk)
+    row_bytes = 2 * tx * 8 * itemsize            # x and the masked dy
+    fits = max(0, (smem_per_cta - FIXED_SMEM) // row_bytes)
+    resident = min(rows_per_chunk, fits)
+    return TrainBwdPlan(tx, ty, tiles, chunks, rows_per_chunk, resident,
+                        FIXED_SMEM + resident * row_bytes)
+
+
+def _c_ints(symbol, lib, *lead):
+    """Call ``symbol`` with ``lead`` and as many ``int*`` outputs as its
+    argtypes leave; return them, raising on a CUDA error."""
+    outs = [ctypes.c_int(0)
+            for _ in range(len(_ARGTYPES[symbol]) - len(lead))]
+    rc = _kernel(symbol)(*lead, *(ctypes.byref(o) for o in outs))
+    if rc != 0:
+        from .cuda import build
+        raise KernelLaunchError(f"{symbol}: CUDA error {rc} "
+                                f"({build.error_string(lib, rc)})")
+    return [o.value for o in outs]
+
+
+@functools.lru_cache(maxsize=None)
+def _train_limits(index: int, dtype: int, pdtype: int):
+    """``(sms, blocks_per_sm, smem_per_cta)`` of the training kernel on
+    card ``index``: each CTA gets its share of the SM's shared memory, and
+    the occupancy API says how many such CTAs one SM holds."""
+    with torch.cuda.device(index):
+        sms, per_sm, optin, reserved = _c_ints("p1t_fused_bn_bwd_device",
+                                               "fused_bn_bwd")
+        budget = min(optin, per_sm // _CTAS_PER_SM - reserved)
+        blocks, = _c_ints("p1t_fused_bn_bwd_train_occupancy",
+                          "fused_bn_bwd", dtype, pdtype, budget)
+    if blocks < 1:
+        raise KernelLaunchError(
+            f"p1t_fused_bn_bwd_train: no CTA with {budget} bytes of shared "
+            "memory fits an SM")
+    return sms, blocks, budget
+
+
+def train_bwd_launch_plan(x2, pdtype: int) -> TrainBwdPlan:
+    """:func:`train_bwd_plan` for ``x2`` on its card."""
+    rows, c = (int(s) for s in x2.shape)
+    return train_bwd_plan(rows, c, x2.element_size(), *_train_limits(
+        device_index(x2.device), _DTYPES[x2.dtype], pdtype))
 
 
 def _masked(dy2, y2, act):
@@ -104,7 +205,13 @@ def _launch(symbol, x2, g, mean, var, y2, dy2, eps, act, with_res):
     pdt = check_channels(symbol, c, x2.device, g)
     m32, v32 = stats_f32(mean), stats_f32(var)
     check_channels(symbol, c, x2.device, m32, v32)
-    tx, chunks, rpc, grid_y = plan(rows, c, x2.device)
+    if symbol == "p1t_fused_bn_bwd_train":
+        p = train_bwd_launch_plan(x2, pdt)
+        tx, chunks, rpc = p.tx, p.chunks, p.rows_per_chunk
+        extra = (p.resident, p.smem_bytes)
+    else:
+        tx, chunks, rpc = plan(rows, c, x2.device)
+        extra = ()
     dx = torch.empty_like(x2)
     dres = torch.empty_like(dy2) if with_res else None
     sums = torch.empty(2, c, dtype=torch.float32, device=x2.device)
@@ -113,10 +220,9 @@ def _launch(symbol, x2, g, mean, var, y2, dy2, eps, act, with_res):
             y2.data_ptr() if relu else 0, dy2.data_ptr(), dx.data_ptr(),
             0 if dres is None else dres.data_ptr(), sums[0].data_ptr(),
             sums[1].data_ptr(), part[0].data_ptr(), part[1].data_ptr())
-    grid = (grid_y,) if symbol == "p1t_fused_bn_bwd_train" else ()
     fn = _kernel(symbol)
     with torch.cuda.device(x2.device):
-        rc = fn(*ptrs, rows, c, tx, chunks, rpc, *grid, float(eps),
+        rc = fn(*ptrs, rows, c, tx, chunks, rpc, *extra, float(eps),
                 int(relu), _DTYPES[x2.dtype], pdt,
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:

@@ -1,0 +1,98 @@
+"""Launch plans of the port's batch-norm kernels, on the CPU.
+
+The training backward (``ops/fused_bn_bwd.py``, ``train_bwd_plan``) is one
+cooperative launch of a persistent grid that keeps each chunk's rows in
+shared memory; the given-statistics forward (``ops/fused_bn.py``,
+``norm_plan``) is one wave of resident CTAs. Both plans are pure
+functions of the shape and of what the card reports (SM count, CTAs an SM
+holds, shared memory a CTA may use), so they are checked here without a
+card, at every ResNet-50 batch-norm shape at 32 images a card and at odd
+ones: every row lies in exactly one chunk, the resident rows fit the
+shared-memory budget, the grid fits the co-resident capacity, and the
+plan depends on its arguments only.
+"""
+
+import pytest
+
+from paddle1_tpu_torch.core.errors import InvalidArgumentError
+from paddle1_tpu_torch.ops import fused_bn as fbn
+from paddle1_tpu_torch.ops import fused_bn_bwd as fbb
+
+# (rows, C) of ResNet-50's 53 batch norms at 32 images of 224 x 224 (the
+# stride on each stage's first 3 x 3 convolution), and odd shapes
+RESNET50_BN = [(401408, 64), (100352, 64), (100352, 256), (100352, 128),
+               (25088, 128), (25088, 512), (25088, 256), (6272, 256),
+               (6272, 1024), (6272, 512), (1568, 512), (1568, 2048)]
+ODD = [(98, 2048), (7, 64), (1, 8), (5, 24), (1000, 4096)]
+SHAPES = RESNET50_BN + ODD
+# (SMs, CTAs an SM holds, shared memory a CTA may use): an H100 SXM at
+# two CTAs an SM, one CTA an SM, and a small card
+CARDS = [(132, 2, 115712), (132, 1, 232448), (16, 2, 49152)]
+
+
+def _rows_of(p, rows):
+    """Each row's chunk under plan ``p``, row by row."""
+    owner = []
+    for k in range(p.chunks):
+        lo = k * p.rows_per_chunk
+        owner += [k] * max(0, min(rows, lo + p.rows_per_chunk) - lo)
+    return owner
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("sms,blocks,budget", CARDS)
+@pytest.mark.parametrize("rows,c", SHAPES)
+def test_train_bwd_plan_covers_rows_and_fits_the_card(rows, c, sms, blocks,
+                                                      budget, itemsize):
+    p = fbb.train_bwd_plan(rows, c, itemsize, sms, blocks, budget)
+    # every row lies in exactly one chunk, no chunk is empty
+    owner = _rows_of(p, rows)
+    assert len(owner) == rows
+    assert sorted(set(owner)) == list(range(p.chunks))
+    assert p.chunks * p.rows_per_chunk >= rows > (p.chunks - 1) * \
+        p.rows_per_chunk
+    # the block and its channel tiles cover C
+    assert p.tx * 8 * p.tiles >= c > (p.tiles - 1) * p.tx * 8
+    assert p.tx * p.ty <= 256 and p.tx <= 32
+    # the grid fits the CTAs the card holds at once
+    assert p.tiles * p.chunks <= sms * blocks and p.chunks <= 65535
+    # the resident rows fit the budget and are what the budget allows
+    row_bytes = 2 * p.tx * 8 * itemsize
+    assert 0 <= p.resident <= p.rows_per_chunk
+    assert p.smem_bytes == fbb.FIXED_SMEM + p.resident * row_bytes
+    assert p.smem_bytes <= budget
+    assert p.resident == p.rows_per_chunk or \
+        p.smem_bytes + row_bytes > budget
+    # a pure function of its arguments
+    assert fbb.train_bwd_plan(rows, c, itemsize, sms, blocks, budget) == p
+
+
+def test_train_bwd_plan_holds_resnet50_layers_3_and_4_whole_on_an_h100():
+    """At 32 images the chunks of layers 3 and 4 fit in shared memory, so
+    x and dy cross device memory once; the stem's do not."""
+    h100 = CARDS[0]
+    for rows, c in [(6272, 1024), (6272, 256), (1568, 2048), (1568, 512)]:
+        p = fbb.train_bwd_plan(rows, c, 2, *h100)
+        assert p.resident == p.rows_per_chunk, (rows, c, p)
+    stem = fbb.train_bwd_plan(401408, 64, 2, *h100)
+    assert 0 < stem.resident < stem.rows_per_chunk
+
+
+def test_train_bwd_plan_refuses_a_row_of_tiles_wider_than_the_card():
+    with pytest.raises(InvalidArgumentError, match="contract"):
+        fbb.train_bwd_plan(64, 8 * 32 * 33, 2, 16, 2, 49152)
+
+
+@pytest.mark.parametrize("sms,blocks,_budget", CARDS)
+@pytest.mark.parametrize("rows,c", SHAPES)
+def test_norm_plan_is_one_wave(rows, c, sms, blocks, _budget):
+    tx, grid_y = fbn.norm_plan(rows, c, sms, blocks)
+    _, ty, tiles = fbn.block_width(c)
+    assert tx == min(c // 8, 32) and tx * ty <= 256
+    # one wave: no more CTAs than the card holds at once (one row of
+    # tiles at least), no more row blocks than the rows need
+    assert tiles * grid_y <= max(tiles, sms * blocks)
+    assert 1 <= grid_y <= -(-rows // ty)
+    # the CTAs' row stride covers every row
+    assert grid_y * ty * ((rows + grid_y * ty - 1) // (grid_y * ty)) >= rows
+    assert fbn.norm_plan(rows, c, sms, blocks) == (tx, grid_y)

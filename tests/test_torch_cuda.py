@@ -20,7 +20,12 @@ fused batch-norm family (training and given-statistics forward, their
 backward passes) they hold each kernel to its plain version across the
 activation x residual matrix in f32 and bf16, that inputs outside the
 contract raise, and that tiny ResNet-18 train, eval and frozen-statistics
-steps launch the kernels once per batch norm. For the local-moments
+steps launch the kernels once per batch norm; and that the training
+backward (one cooperative launch holding its rows in shared memory) and
+the given-statistics forward hold to their plain versions at ResNet-50's
+layer-4 and layer-3 shapes and at a shape only partly resident, repeat bit
+for bit, replay inside a CUDA graph as they ran eagerly, and that a
+refused cooperative launch raises. For the local-moments
 kernel (the cross-rank batch norm's per-rank statistics) they hold it to
 its plain version, its contract, and that a tiny ResNet-18 step of the
 data-parallel engine (one rank, no process group) launches it once per
@@ -36,7 +41,8 @@ import numpy as np
 import pytest
 import torch
 
-from paddle1_tpu_torch.core.errors import InvalidArgumentError
+from paddle1_tpu_torch.core.errors import (InvalidArgumentError,
+                                           KernelLaunchError)
 from paddle1_tpu_torch.nn import functional as F
 from paddle1_tpu_torch.ops import flash_attention as fa
 from paddle1_tpu_torch.ops import flash_attention_bwd as fb
@@ -378,6 +384,86 @@ def test_fused_bn_kernels_match_their_plain_versions(dev, dtype, act,
                 n + 1 for n in before)
     # the reductions are deterministic: a repeat is bit-identical
     assert torch.equal(fbn._train_fwd(x, g, b, r, 1e-5, act)[1], mean)
+
+
+# ResNet-50's layer 4 and layer 3 at 32 images (whole chunks in shared
+# memory) and the stem's width at a row count whose chunks are only partly
+# resident
+BN_REDESIGNED = [(1568, 2048), (6272, 1024), (200000, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["identity", "relu"])
+@pytest.mark.parametrize("use_res", [False, True])
+@pytest.mark.parametrize("rows,c", BN_REDESIGNED)
+def test_bn_train_backward_and_norm_forward_match_and_repeat(dev, dtype, act,
+                                                             use_res, rows,
+                                                             c):
+    x, g, b, res, m, v, dy = _bn(dev, rows, c, dtype)
+    r = res if use_res else None
+    tol = BN_F32 if dtype == torch.float32 else BN_BF16
+    close = lambda a, b_: torch.testing.assert_close(  # noqa: E731
+        a.float(), b_.float(), **tol)
+    plan = fbb.train_bwd_launch_plan(x, 1 if dtype == torch.bfloat16 else 0)
+    if rows == 200000:
+        assert 0 < plan.resident < plan.rows_per_chunk
+    elif dtype == torch.bfloat16:   # the main path's: whole chunks held
+        assert plan.resident == plan.rows_per_chunk
+    y, mean, var = fbn.fused_bn_train_ref(x, g, b, 1e-5, act, r)
+    got = fbb.train_bwd(x, g, mean, var, y, dy, 1e-5, act, use_res)
+    want = fbb.train_bwd_ref(x, g, mean, var, y, dy, 1e-5, act, use_res)
+    for a, b_ in zip(got, want):
+        close(a, b_)
+    again = fbb.train_bwd(x, g, mean, var, y, dy, 1e-5, act, use_res)
+    assert all(torch.equal(a, b_) for a, b_ in zip(again, got))
+    yn = fbn._norm_fwd(x, m, v, g, b, r, 1e-5, act)
+    close(yn, fbn.fused_bn_norm_ref(x, m, v, g, b, 1e-5, act, r))
+    assert torch.equal(fbn._norm_fwd(x, m, v, g, b, r, 1e-5, act), yn)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_train_backward_and_norm_forward_replay_in_a_cuda_graph(dev,
+                                                                   dtype):
+    x, g, b, _, m, v, dy = _bn(dev, 1568, 2048, dtype)
+    run = lambda: (fbb.train_bwd(x, g, m, v, None, dy, 1e-5,  # noqa: E731
+                                 "identity", True),
+                   fbn._norm_fwd(x, m, v, g, b, None, 1e-5, "relu"))
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b_)
+                   for a, b_ in zip(captured[0], eager[0]))
+        assert torch.equal(captured[1], eager[1])
+
+
+def test_a_refused_cooperative_launch_raises(dev, monkeypatch):
+    x, g, _, _, m, v, dy = _bn(dev, 200000, 64, torch.bfloat16)
+    sms, blocks, budget = fbb._train_limits(0, 1, 1)
+    before = fbb.train_bwd.launches
+    # more CTAs than the card holds at once
+    monkeypatch.setattr(fbb, "_train_limits",
+                        lambda *a: (4 * sms, blocks, budget))
+    with pytest.raises(KernelLaunchError, match="p1t_fused_bn_bwd_train"):
+        fbb.train_bwd(x, g, m, v, None, dy, 1e-5, "identity")
+    # more shared memory a CTA than the card gives one
+    monkeypatch.setattr(fbb, "_train_limits",
+                        lambda *a: (sms, blocks, 300000))
+    with pytest.raises(KernelLaunchError, match="p1t_fused_bn_bwd_train"):
+        fbb.train_bwd(x, g, m, v, None, dy, 1e-5, "identity")
+    monkeypatch.undo()
+    assert fbb.train_bwd.launches == before
+    # nothing is left behind: the next launch and torch's own run
+    dx = fbb.train_bwd(x, g, m, v, None, dy, 1e-5, "identity")[0]
+    assert bool(torch.isfinite((dx.float() * 2).sum()))
 
 
 @pytest.mark.parametrize("case", ["channels", "dtype", "strided",

@@ -1,0 +1,69 @@
+#!/usr/bin/env python3
+"""Time the port's batch-norm kernels alone on one CUDA card.
+
+Run from the repo root::
+
+    python3 tools/torch_bn_bench.py [--root DIR]
+
+Builds the kernels from the sources of the tree it imports and times the
+five of the fused batch-norm family (the training forward, the
+given-statistics forward, their two backward passes and the local
+moments) at ResNet-50's batch-norm shapes at 32 images a card
+(``chip_smoke.py``'s ``BN_SHAPES``: the stem, layers 2, 3 and 4) in bf16,
+by CUDA-graph replay over 4 input sets in turn, beside their plain
+versions, ``F.batch_norm`` (``torch.batch_norm_stats`` for the moments)
+on the same rows as a channels-last ``[N, C, H, W]`` tensor, and their
+bounds; the moments kernel is also held to its plain version
+(``chip_smoke.py``'s ``bn_timing`` and ``moments_phase``). ``--root DIR``
+imports ``paddle1_tpu_torch`` from another copy of the repo (say an older
+commit unpacked under ``_archive/``), so that two builds can be timed in
+turns on one card. The last line of stdout is one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_bn_bench: no CUDA card", file=sys.stderr)
+        return 2
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
+    import paddle1_tpu_torch
+    dev = torch.device("cuda", 0)
+    try:
+        times = cs.bn_timing(dev, plans=args.root is None)
+        _, moments = cs.moments_phase(dev)
+    except cs.SmokeFailure as e:
+        print(f"torch_bn_bench: {e}", file=sys.stderr)
+        return 1
+    times["fused_bn_moments"] = moments
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    print(json.dumps({
+        "card": cs.card_line(),
+        "package": os.path.dirname(paddle1_tpu_torch.__file__),
+        "dtype": "bf16", "shapes": [list(s) for s in cs.BN_SHAPES],
+        "kernels": {name: [{"shape": t["shape"], **{k: t[k] for k in keys}}
+                           for t in cases]
+                    for name, cases in times.items()},
+        "detail": times}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -31,7 +31,9 @@ It runs ``--warmup`` steps, then:
   time), of the library's matrix products and convolutions and of
   everything else, and the kernels by total device time; with ``--dp``
   also the device time per step of the all-reduces (NCCL) and of the
-  local moments' backward (plain PyTorch), which this tool labels.
+  local moments' backward (plain PyTorch), which this tool labels. The
+  port's kernels are split by kernel, each with its device ms and its
+  launches per step (for ResNet-50, the batch-norm family's kernels).
 
 Prints one JSON object.
 
@@ -59,10 +61,13 @@ OUR_KERNELS = {
     "bert": ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
              "flash_bwd_dq_tc_kernel", "adam_kernel",
              "layer_norm_warp_kernel"),
-    # ops/cuda/fused_bn.cu, fused_bn_bwd.cu (finalize_kernel serves both)
-    "resnet50": ("stats_partial_kernel", "normalize_kernel",
-                 "train_partial_kernel", "train_dx_kernel",
-                 "norm_bwd_kernel", "finalize_kernel"),
+    # ops/cuda/fused_bn.cu, fused_bn_bwd.cu: the training forward's
+    # statistics pass, finalize (the forward's statistics; the
+    # given-statistics backward's sums) and the normalize pass (also the
+    # given-statistics forward); the training backward in one launch; the
+    # given-statistics backward
+    "resnet50": ("stats_partial_kernel", "finalize_kernel",
+                 "normalize_kernel", "train_bwd_kernel", "norm_bwd_kernel"),
     "lenet": ("adam_kernel",),
 }
 
@@ -278,6 +283,8 @@ def main() -> int:
     prof_step_ms = prof_wall_ms / n
     ours = {name: sum(k[1] for k in kernels if name in k[0]) / 1e3 / n
             for name in OUR_KERNELS[args.model]}
+    ours_calls = {name: sum(k[2] for k in kernels if name in k[0]) / n
+                  for name in OUR_KERNELS[args.model]}
     gemm = sum(k[1] for k in kernels if _is_gemm(k[0])) / 1e3 / n
     result = {
         "card": subprocess.run(
@@ -299,6 +306,7 @@ def main() -> int:
                                      if kernels else None),
         "gemm_and_conv_ms_per_step": gemm,
         "our_kernels_ms_per_step": ours,
+        "our_kernels_calls_per_step": ours_calls,
         "our_kernels_share_of_busy": (None if not busy_ms
                                       else sum(ours.values()) / busy_ms),
         "other_ms_per_step": (None if busy_ms is None
