@@ -16,8 +16,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    registers and spills of every batch-norm kernel instantiation.
 2. **Kernels.** Hold each kernel against its plain PyTorch version on the
    card at the serving path's shapes (paged attention also with f32
-   queries over bf16 pools; LayerNorm also at a width past the
-   warp-per-row path), and time kernel, plain version and
+   queries over bf16 pools, with one slot at 496 among 15 short ones and
+   with every slot long, each repeated bit for bit, and a CUDA graph of
+   the decode case replayed twice equal to the eager call; LayerNorm also
+   at a width past the warp-per-row path), and time kernel, plain
+   version and
    (where one exists) the single PyTorch library call computing the same
    function. Times are device times from CUDA events around a replayed
    CUDA graph of many calls, so host launch overhead is not counted.
@@ -63,8 +66,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plain versions at four ResNet-50 shapes (``[401408, 64]``,
    ``[25088, 512]``, ``[6272, 1024]``, ``[1568, 2048]``: the stem and
    layers 2, 3 and 4 at batch 32), in f32 and bf16, over activation
-   {identity, relu} x residual {none, given}, each repeated bit for bit;
-   timed (bf16, identity, the main path's case)
+   {identity, relu} x residual {none, given}, each repeated bit for bit,
+   the training forward (one cooperative launch) also replayed in a CUDA
+   graph equal to the eager call; timed (bf16, identity, the main path's
+   case)
    beside their plain versions, ``F.batch_norm`` on a channels-last
    input (its forward, and its backward alone, whichever backend PyTorch
    picks; printed) and their bounds.
@@ -271,6 +276,28 @@ def graph_time_ms(calls, reps=20):
     return start.elapsed_time(end) / (reps * len(calls))
 
 
+def graph_replay_equal(fn, eager, name):
+    """Capture ``fn()`` (a tensor or a tuple of them) into a CUDA graph,
+    replay it twice and check that each replay's outputs equal ``eager``,
+    the same call's eager outputs, bit for bit."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    as_tuple = lambda t: t if isinstance(t, tuple) else (t,)  # noqa: E731
+    for i in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(as_tuple(captured),
+                                                    as_tuple(eager))),
+              f"{name}: graph replay {i + 1} differs from the eager call")
+    del graph
+
+
 # the tensor-core flash kernels, by library and by a piece of their names
 TC_KERNELS = {"flash_attention": ("flash_fwd_tc_kernel",),
               "flash_attention_bwd": ("flash_bwd_dkv_tc_kernel",
@@ -330,8 +357,8 @@ def tensor_core_report(build, libs):
 
 
 # the batch-norm kernels, by library and by a piece of their names
-BN_KERNELS = {"fused_bn": ("stats_partial_kernel", "normalize_kernel",
-                           "finalize_kernel"),
+BN_KERNELS = {"fused_bn": ("train_fwd_kernel", "stats_partial_kernel",
+                           "normalize_kernel", "finalize_kernel"),
               "fused_bn_bwd": ("train_bwd_kernel", "norm_bwd_kernel",
                                "finalize_kernel")}
 
@@ -358,12 +385,27 @@ def bn_register_report(build):
 # phase 2: kernels against their plain versions
 
 
-def paged_case(rng, dev, w, n_pools):
+def paged_bases(rng, w, kind):
+    """Slot lengths before the window: ``random`` in 0..500 with two
+    parked slots (3 and 11: base 0, their rows on page 0); ``skewed``, one
+    slot at 496 and 15 shorter than one split of the kernel; ``long``,
+    every slot within 16 of the cache's end."""
+    if kind == "skewed":
+        base = rng.integers(0, 24, SLOTS)
+        base[5] = 496
+    elif kind == "long":
+        base = MAX_SEQ - w - rng.integers(0, 16, SLOTS)
+    else:
+        base = rng.integers(0, min(500, MAX_SEQ - w) + 1, SLOTS)
+        base[[3, 11]] = 0
+    return base.astype(np.int32)
+
+
+def paged_case(rng, dev, w, n_pools, kind="random"):
     """Serving-shaped paged attention inputs: ``n_pools`` K/V pool pairs
     [513, 16, 8, 64] (one per layer, so timing does not sit in L2), a
     [16, 32] table with each slot's chain drawn from a shuffled free list
-    and the rest parked on page 0, bases in 0..500 and two fully parked
-    slots (base 0, whole row on page 0)."""
+    and the rest parked on page 0, and the bases of ``paged_bases``."""
     hd = D_MODEL // HEADS
     mpps = MAX_SEQ // PAGE
     n_pages = SLOTS * mpps + 1
@@ -372,12 +414,11 @@ def paged_case(rng, dev, w, n_pools):
     pools = [(torch.randn(n_pages, PAGE, HEADS, hd, device=dev),
               torch.randn(n_pages, PAGE, HEADS, hd, device=dev))
              for _ in range(n_pools)]
-    base = rng.integers(0, min(500, MAX_SEQ - w) + 1, SLOTS).astype(np.int32)
-    base[[3, 11]] = 0
+    base = paged_bases(rng, w, kind)
     table = np.zeros((SLOTS, mpps), np.int32)
     free = list(rng.permutation(np.arange(1, n_pages)))
     for s in range(SLOTS):
-        if s in (3, 11):
+        if kind == "random" and s in (3, 11):
             continue  # parked slot: every entry stays on page 0
         n = -(-(int(base[s]) + w) // PAGE)
         table[s, :n] = [free.pop() for _ in range(n)]
@@ -413,21 +454,29 @@ def ln_bound_ms(rows, h):
                                        else "operations")
 
 
-def kernel_phase(dev):
-    from paddle1_tpu_torch.ops import layer_norm as ln
+def paged_phase(dev, rng):
+    """Paged attention against its plain version at the decode step's
+    shape, timed beside the plain version and its bound; one dict per
+    case, the decode step's first."""
     from paddle1_tpu_torch.ops import paged_attention as pa
-    rng = np.random.default_rng(SEED)
-    out = {}
-
     cases = []
-    # the decode step (the line's main case), a W=4 window, and f32 q
-    # over bf16 pools (a bf16 KV cache under an f32 model)
-    for w, kv_dtype in ((1, torch.float32), (4, torch.float32),
-                        (1, torch.bfloat16)):
-        q, pools, table, base = paged_case(rng, dev, w, n_pools=LAYERS)
+    # the decode step (the line's main case), a W=4 window, f32 q over
+    # bf16 pools (a bf16 KV cache under an f32 model), one long slot among
+    # short ones and every slot long; each repeated bit for bit, the main
+    # case also as a CUDA graph replayed twice
+    for w, kv_dtype, kind in ((1, torch.float32, "random"),
+                              (4, torch.float32, "random"),
+                              (1, torch.bfloat16, "random"),
+                              (1, torch.float32, "skewed"),
+                              (1, torch.float32, "long")):
+        # the new cases draw from their own stream, so the others' inputs
+        # stay those of earlier runs
+        q, pools, table, base = paged_case(
+            rng if kind == "random" else np.random.default_rng(
+                SEED + len(cases)), dev, w, n_pools=LAYERS, kind=kind)
         pools = [(kp.to(kv_dtype), vp.to(kv_dtype)) for kp, vp in pools]
         live = base >= 0
-        tag = f"W={w} kv={str(kv_dtype).split('.')[-1]}"
+        tag = f"W={w} kv={str(kv_dtype).split('.')[-1]} bases={kind}"
         errs = []
         for kp, vp in pools[:2]:
             got = pa.paged_attention(q, kp, vp, table, base)
@@ -437,6 +486,15 @@ def kernel_phase(dev):
             check(bool(torch.isfinite(got).all()) and got.dtype == q.dtype,
                   f"paged_attention {tag}: non-finite output or a dtype "
                   f"other than q's")
+            check(torch.equal(pa.paged_attention(q, kp, vp, table, base),
+                              got), f"paged_attention {tag}: a repeat "
+                  "differs")
+        if not cases:
+            kp, vp = pools[0]
+            graph_replay_equal(
+                lambda: pa.paged_attention(q, kp, vp, table, base),
+                pa.paged_attention(q, kp, vp, table, base),
+                f"paged_attention {tag}")
         err = max(errs)
         check(err <= PA_TOL, f"paged_attention {tag}: max abs err {err} > "
               f"{PA_TOL}")
@@ -447,13 +505,21 @@ def kernel_phase(dev):
         bound, by = paged_bound_ms(q, pools[0][0], base, w)
         cases.append(dict(shape=f"q{list(q.shape)} pool{list(pools[0][0].shape)}"
                           f" table{list(table.shape)}", window=w,
-                          kv_dtype=str(kv_dtype), max_abs_err=err, ms=ms,
+                          kv_dtype=str(kv_dtype), bases=kind,
+                          max_base=int(base.max()), max_abs_err=err, ms=ms,
                           plain_ms=plain, bound_ms=bound, bound_by=by,
                           library_ms=None))
         log(f"paged_attention {tag}: max_abs_err={err:.3e} kernel={ms:.5f}ms"
             f" plain={plain:.5f}ms bound={bound:.5f}ms ({by})")
         del pools
-    out["paged_attention"] = cases
+    return cases
+
+
+def kernel_phase(dev):
+    from paddle1_tpu_torch.ops import layer_norm as ln
+    from paddle1_tpu_torch.ops import paged_attention as pa
+    rng = np.random.default_rng(SEED)
+    out = {"paged_attention": paged_phase(dev, rng)}
 
     cases = []
     # the decode step, a prefill, a ragged width and one past the
@@ -1314,6 +1380,11 @@ def bn_check(dev):
                           torch.equal(again[2], var) and
                           torch.equal(again[0], y),
                           f"fused_bn_train {tag}: a repeat differs")
+                    if act == "relu" and use_res:
+                        # the cooperative launch inside a CUDA graph
+                        graph_replay_equal(
+                            lambda: fbn._train_fwd(x, g, b, r, eps, act),
+                            (y, mean, var), f"fused_bn_train {tag}")
                     again = fbb.train_bwd(x, g, mean, var, y, dy, eps, act,
                                           use_res)
                     check(all(torch.equal(a, w) for a, w in zip(again, tb)),
@@ -1331,49 +1402,60 @@ def bn_bytes(kind, rows, c, itemsize, reread=None):
     """(compulsory bytes, bytes this design moves) of one call at the
     main path's case (identity, no residual): each input read once and
     each output written once, against the passes the kernels make.
-    ``reread``: the rows of x and dy the training backward reads twice
-    (those its plan keeps out of shared memory); None for a tree whose
-    backward reads all of them twice."""
+    ``reread``: the rows of x (and dy) a cooperative training kernel reads
+    twice (those its plan keeps out of shared memory); None for a tree
+    whose kernel reads all of them twice."""
     n = rows * c * itemsize
     ch = c * itemsize * 2 + c * 4 * 2     # gamma, beta; f32 mean/var
-    again = 2 * n if reread is None else 2 * reread * c * itemsize
-    return {"fused_bn_train": (2 * n + ch, 3 * n + ch),     # x read twice
+    tensors = 2 if kind == "fused_bn_train_bwd" else 1    # x (and dy)
+    again = tensors * (n if reread is None else reread * c * itemsize)
+    return {"fused_bn_train": (2 * n + ch, 2 * n + ch + again),
             "fused_bn_norm": (2 * n + ch, 2 * n + ch),
             "fused_bn_train_bwd": (3 * n + ch, 3 * n + ch + again),
             "fused_bn_norm_bwd": (3 * n + ch, 3 * n + ch)}[kind]
 
 
 def bn_reread_rows(rows, c):
-    """Rows of x and dy the training backward's plan leaves out of shared
-    memory at ``[rows, C]`` in bf16 on this card (read again in its last
-    phase), and the plan."""
+    """``{kind: (rows, plan)}`` of the cooperative training kernels (the
+    forward and the backward) at ``[rows, C]`` in bf16 on this card: the
+    rows their plans leave out of shared memory (read again in the last
+    phase) and the plans; a kernel whose module has no plan (an older
+    tree) is left out."""
+    from paddle1_tpu_torch.ops import fused_bn as fbn
     from paddle1_tpu_torch.ops import fused_bn_bwd as fbb
     x = torch.empty(rows, c, dtype=torch.bfloat16, device="cuda")
-    p = fbb.train_bwd_launch_plan(x, 1)
-    held = sum(min(p.resident, rows - k * p.rows_per_chunk)
-               for k in range(p.chunks))
-    return rows - held, p._asdict()
+    out = {}
+    for kind, plan in (("fused_bn_train",
+                        getattr(fbn, "train_fwd_launch_plan", None)),
+                       ("fused_bn_train_bwd",
+                        getattr(fbb, "train_bwd_launch_plan", None))):
+        if plan is None:
+            continue
+        p = plan(x, 1)
+        held = sum(min(p.resident, rows - k * p.rows_per_chunk)
+                   for k in range(p.chunks))
+        out[kind] = (rows - held, p._asdict())
+    return out
 
 
 BN_FLOPS = {"fused_bn_train": 7.0, "fused_bn_norm": 4.0,
             "fused_bn_train_bwd": 10.0, "fused_bn_norm_bwd": 7.0}
 
 
-def bn_timing(dev, plans=True):
+def bn_timing(dev):
     """Time the four kernels at BN_SHAPES in bf16 (identity, no
     residual: every batch norm of the main path), over 4 input sets in
     turn, beside their plain versions, F.batch_norm on the same data as
-    a channels-last [N, C, H, W] tensor, and their bounds. ``plans``:
-    read the training backward's launch plan (its resident rows) for the
-    bytes the design moves; False for a tree without one."""
+    a channels-last [N, C, H, W] tensor, and their bounds; the bytes the
+    design moves from the cooperative kernels' plans (their resident
+    rows), where the imported tree has them."""
     from paddle1_tpu_torch.ops import fused_bn as fbn
     from paddle1_tpu_torch.ops import fused_bn_bwd as fbb
     tbf = torch.nn.functional.batch_norm
     out = {k: [] for k in bn_counters()}
     eps = 1e-5
     for rows, c in BN_SHAPES:
-        reread, bwd_plan = bn_reread_rows(rows, c) if plans else (None,
-                                                                   None)
+        plans = bn_reread_rows(rows, c)
         sets = bn_inputs(dev, rows, c, torch.bfloat16, SEED + 9, n_sets=4)
         fwd = [fbn._train_fwd(s[0], s[1], s[2], None, eps, "identity")
                for s in sets]
@@ -1460,6 +1542,7 @@ def bn_timing(dev, plans=True):
                                          "F.batch_norm's eval backward "
                                          f"alone ({backend['eval']})")}
         for name in out:
+            reread, plan = plans.get(name, (None, None))
             need, moved = bn_bytes(name, rows, c, 2, reread)
             b_ms, by = bound(need, BN_FLOPS[name] * rows * c,
                              F32_FLOPS_PER_S)
@@ -1471,8 +1554,8 @@ def bn_timing(dev, plans=True):
                 "library_covers": cover, "bound_ms": b_ms, "bound_by": by,
                 "bound_bytes": need, "design_bytes": moved,
                 "design_bytes_ms_at_peak": 1e3 * moved / HBM_BYTES_PER_S})
-            if name == "fused_bn_train_bwd":
-                out[name][-1]["plan"] = bwd_plan
+            if plan is not None:
+                out[name][-1]["plan"] = plan
             log(f"{name} bf16 [{rows}, {c}]: kernel {t[name]:.5f} ms, plain "
                 f"{t[name + '_plain']:.5f} ms, library ({cover}) "
                 f"{t[lk]:.5f} ms, bound {b_ms:.5f} ms ({by}; the design "
@@ -2557,8 +2640,7 @@ def main() -> int:
         "library_ms": adam["library_ms"], "tensors": adam["tensors"],
         "elements": adam["elements"], "cases": adam["cases"]})
     bn_rows = (("fused_bn_train", "fused_bn.cu", "fused_bn.py:90",
-                ("stats_partial_kernel", "finalize_kernel",
-                 "normalize_kernel")),
+                ("train_fwd_kernel",)),
                ("fused_bn_norm", "fused_bn.cu", "fused_bn.py:245",
                 ("normalize_kernel",)),
                ("fused_bn_train_bwd", "fused_bn_bwd.cu",

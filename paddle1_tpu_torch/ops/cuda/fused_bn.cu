@@ -7,36 +7,61 @@
 // of x and x^2, mean = s / rows and var = max(ss / rows - mean^2, 0) with
 // the exact count as a host constant, f32 statistics out, then
 // y = act((x - mean) * rsqrt(var + eps) * gamma + beta [+ res]) cast to
-// the storage type at the edge. act is identity or relu.
+// the storage type at the edge (not folded into one scale and shift; no
+// Welford, no two-pass variance). act is identity or relu.
 //
 // Bound on an H100: memory. Per element the work is a handful of flops
 // against 2-4 bytes moved in bf16, far below the card's balance point.
 // The compulsory traffic is x read once and y written once (plus the
-// residual); this design reads x twice in training mode:
-//   1. stats pass: per-chunk f32 partial sums [chunks, C]
-//      (fused_bn_common.cuh, no atomics, so repeats are bit-identical);
-//   2. finalize: one warp per channel reduces the partials -> mean, var;
-//   3. normalize pass: y from x (and res).
-// The Pallas kernel's single sequential (2, row_blocks) grid keeps the
-// running sums in VMEM; on the GPU the blocks run in no order, so the
-// sum across blocks is the second stage above. Given-statistics mode is
-// pass 3 alone. At ResNet-50's layer 4 ([1568, 2048] at 32 images) that
-// pass has about 1.5 rows a thread, so it is latency and set-up, not
-// bytes: the grid is one wave of resident CTAs (the launch plan sizes it
-// from the occupancy API), the CTA loads its tile's statistics and affine
-// once into shared memory, coalesced, with one rsqrt per channel, and each
-// thread has its first rows' 16-byte loads in flight before that set-up
-// and several rows in flight after it.
+// residual).
+//
+// Training mode is ONE cooperative launch of a persistent grid (as many
+// CTAs as the card holds at once, two 256-thread CTAs an SM, from the
+// occupancy API), the structure of the training backward in
+// fused_bn_bwd.cu. A CTA owns a channel tile and a chunk of consecutive
+// rows:
+//   A. it copies its chunk's last `resident` rows of x into shared memory
+//      with cp.async, streams the rest through registers (several rows'
+//      16-byte loads in flight, while the copies land), sums x and x^2
+//      per channel in f32 and writes one partial row of each per
+//      sub-chunk: the chunks of the reduction pass (stats_partial_kernel's)
+//      summed in its order, so the statistics are that pass's and the
+//      finalize's bit for bit (a ResNet-50's f32 gradients turn on their
+//      last bits: tools/torch_resnet_grad_gap.py);
+//   B. grid barrier; one warp per channel sums the partial rows in chunk
+//      order (no atomics: repeats are bit-identical) into mean and var;
+//      grid barrier;
+//   C. y from the resident rows in shared memory, and from the rows that
+//      did not fit re-read in the reverse of phase A's order, so the last
+//      streamed come from L2.
+// Where the whole chunk fits (ResNet-50 at 32 images from layer 2 on, in
+// bf16) x crosses device memory once. The Pallas kernel's sequential
+// (2, row_blocks) grid keeps the running sums in VMEM between its phases;
+// here the grid barrier hands them over, with the rows held on chip.
+//
+// Given-statistics mode is phase C alone (normalize_kernel). At
+// ResNet-50's layer 4 ([1568, 2048] at 32 images) that pass has about
+// 1.5 rows a thread, so it is latency and set-up, not bytes: the grid is
+// one wave of resident CTAs (the launch plan sizes it from the occupancy
+// API), the CTA loads its tile's statistics and affine once into shared
+// memory, coalesced, with one rsqrt per channel, and each thread has its
+// first rows' 16-byte loads in flight before that set-up and several rows
+// in flight after it.
 //
 // Local moments (replaces ::_moments_kernel, SyncBatchNorm's per-rank
-// statistics pass): passes 1 and 2 alone, the finalize writing the raw
-// f32 sums of x and x^2 per channel, which the caller all-reduces across
-// ranks before it normalizes. One read of x: the compulsory traffic.
+// statistics pass): a partial-sum pass ([chunks, C], fused_bn_common.cuh)
+// and the finalize kernel writing the raw f32 sums of x and x^2 per
+// channel, which the caller all-reduces across ranks before it
+// normalizes. One read of x: the compulsory traffic.
 //
 // Loads are 16 B (8 bf16) or 32 B (8 f32) per thread, neighbouring
 // threads on neighbouring channels; rows are strided across the block's
 // warps. Built by paddle1_tpu_torch/ops/cuda/build.py with nvcc for
 // sm_90a into a shared library with a plain C interface (ctypes).
+
+#include <cooperative_groups.h>
+
+#include <climits>
 
 #include "fused_bn_common.cuh"
 
@@ -155,30 +180,292 @@ normalize_kernel(const T* __restrict__ x, const float* __restrict__ mean,
   }
 }
 
+// Shared memory ahead of the resident rows of the training forward: the
+// column-sum scratch (kThreads x 8 floats) and four per-channel
+// coefficient rows (mean, rstd, gamma, beta) of the widest tile. The
+// launch plan (ops/fused_bn.py, train_fwd_plan) mirrors this constant.
+constexpr int kFwdFixedSmem = kThreads * kVec * 4 + 4 * kTileMax * 4;
+
+// training mode, the whole forward in one cooperative launch (see the
+// note at the top). Grid (tiles, chunks), block (TX, TY); CTA (t, k) owns
+// channels [t * TX * 8, ...) of rows [k * rows_per_chunk, ...), which it
+// sums as `subs` sub-chunks of sub_rows consecutive rows: the chunks of
+// the statistics pass (stats_partial_kernel, ops/fused_bn.py plan), each a
+// partial row of its own, with each thread on local rows sub_start + ty,
+// + TY, ... in order, so the statistics are the ones that pass and the
+// finalize kernel compute, bit for bit. The chunk's last `resident` rows
+// are held in shared memory: the rows streamed come first in that order,
+// so their loads overlap the copies.
+template <typename T, typename P>
+__global__ void __launch_bounds__(kThreads, 2)
+train_fwd_kernel(const T* __restrict__ x, const P* __restrict__ gamma,
+                 const P* __restrict__ beta, const T* __restrict__ res,
+                 long long rows, int c, long long rows_per_chunk,
+                 long long sub_rows, int subs, int sub_chunks, int resident,
+                 float inv_count, float eps, int relu, float* ps, float* pss,
+                 float* mean, float* var, T* __restrict__ y) {
+  constexpr int U = NormRowsInFlight<T>::value;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* scratch = reinterpret_cast<float*>(smem);
+  float* coef = scratch + kThreads * kVec;     // [4][kTileMax]
+  const int tile_w = blockDim.x * kVec;
+  T* xs = reinterpret_cast<T*>(smem + kFwdFixedSmem);  // [resident][tile_w]
+  const int c0 = blockIdx.x * tile_w;
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = v < c / kVec;
+  const long long col = static_cast<long long>(v) * kVec;
+  const int lo = threadIdx.x * kVec;
+  const int ty = threadIdx.y, nty = blockDim.y;
+  const int tid = ty * blockDim.x + threadIdx.x;
+  const int nt = blockDim.x * nty;
+  const long long r0 = static_cast<long long>(blockIdx.y) * rows_per_chunk;
+  const long long left = rows - r0;
+  const int n_local = static_cast<int>(
+      left < 0 ? 0 : (left < rows_per_chunk ? left : rows_per_chunk));
+  const int n_res = resident < n_local ? resident : n_local;
+  const int first_res = n_local - n_res;  // the chunk's last rows are held
+  const int sr = static_cast<int>(sub_rows);
+  // this thread's rows, sub-chunk by sub-chunk: local j * sr + ty + k * TY
+  // for k < rows_in(j), the first str_in(j) of them streamed, the rest
+  // resident (at slot local - first_res of shared memory)
+  auto rows_in = [&](int j) {
+    const int end = min((j + 1) * sr, n_local), first = j * sr + ty;
+    return live && first < end ? (end - first + nty - 1) / nty : 0;
+  };
+  auto local_of = [&](int j, int k) { return j * sr + ty + k * nty; };
+  auto str_in = [&](int j) {
+    const int first = j * sr + ty;
+    return first < first_res
+               ? min(rows_in(j), (first_res - first + nty - 1) / nty)
+               : 0;
+  };
+  auto smem_of = [&](int local) {
+    return static_cast<long long>(local - first_res) * tile_w + lo;
+  };
+
+  // phase A.1: the resident rows' copies go out first
+  for (int j = 0; j < subs; ++j)
+    for (int k = str_in(j), n = rows_in(j); k < n; ++k)
+      copy_async(xs + smem_of(local_of(j, k)),
+                 x + (r0 + local_of(j, k)) * c + col);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  // phase A.2: each sub-chunk's sums in row order: the streamed rows
+  // through registers (several in flight, while the copies land), then
+  // the resident ones from shared memory (each thread reads only the
+  // vectors it copied); then its partial row
+  for (int j = 0; j < subs; ++j) {
+    float s[kVec] = {}, ss[kVec] = {};
+    auto accumulate = [&](const float (&xv)[kVec]) {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        s[i] += xv[i];
+        ss[i] += xv[i] * xv[i];
+      }
+    };
+    const int n = rows_in(j), ks = str_in(j);
+    for (int k = 0; k < ks; k += U) {
+      Raw8<T> xr[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (k + u < ks)
+          load_raw(x + (r0 + local_of(j, k + u)) * c + col, xr[u]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (k + u < ks) {
+          float xv[kVec];
+          widen(xr[u], xv);
+          accumulate(xv);
+        }
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    for (int k = ks; k < n; ++k) {
+      Raw8<T> xr;
+      load_raw(xs + smem_of(local_of(j, k)), xr);
+      float xv[kVec];
+      widen(xr, xv);
+      accumulate(xv);
+    }
+    const long long row = static_cast<long long>(blockIdx.y) * subs + j;
+    if (row < sub_chunks) {   // uniform across the CTA
+      column_sums(scratch, s, ps, c, row);
+      column_sums(scratch, ss, pss, c, row);
+    }
+  }
+
+  // handoff: every partial row is out; one warp per channel sums them as
+  // finalize_kernel does, bit for bit: lane l over the rows k = l, l + 32,
+  // ... in order (four of its loads in flight), then the shuffle tree
+  cooperative_groups::this_grid().sync();
+  const int warps = nt / 32;     // whole warps only (TX * TY may be < 256)
+  const int lane = tid & 31;
+  if (tid / 32 < warps) {
+    const int cta = blockIdx.y * gridDim.x + blockIdx.x;
+    const int stride = gridDim.x * gridDim.y * warps;
+    for (int ch = cta * warps + tid / 32; ch < c; ch += stride) {
+      float a = 0.f, b = 0.f;
+      for (int k0 = lane; k0 < sub_chunks; k0 += 4 * 32) {
+        float pa[4], pb[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const long long k = k0 + 32 * u;
+          if (k < sub_chunks) {
+            pa[u] = __ldcg(ps + k * c + ch);
+            pb[u] = __ldcg(pss + k * c + ch);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (k0 + 32 * u < sub_chunks) {
+            a += pa[u];
+            b += pb[u];
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, o);
+        b += __shfl_xor_sync(0xffffffffu, b, o);
+      }
+      if (lane == 0) {
+        const float m = a * inv_count;
+        mean[ch] = m;
+        var[ch] = fmaxf(b * inv_count - m * m, 0.f);
+      }
+    }
+  }
+  cooperative_groups::this_grid().sync();
+
+  // phase C: the tile's mean, rstd, gamma and beta, once per CTA
+  for (int i = tid; i < tile_w; i += nt) {
+    const int ch = c0 + i;
+    if (ch < c) {
+      coef[i] = __ldcg(mean + ch);
+      coef[kTileMax + i] = rsqrtf(__ldcg(var + ch) + eps);
+      coef[2 * kTileMax + i] = to_f32(gamma[ch]);
+      coef[3 * kTileMax + i] = to_f32(beta[ch]);
+    }
+  }
+  __syncthreads();
+  if (!live) return;
+  float mu[kVec], rs[kVec], g[kVec], bt[kVec];
+  load8(coef + lo, mu);
+  load8(coef + kTileMax + lo, rs);
+  load8(coef + 2 * kTileMax + lo, g);
+  load8(coef + 3 * kTileMax + lo, bt);
+  auto emit = [&](long long off, const Raw8<T>& xr, const Raw8<T>& rr) {
+    float xv[kVec], rv[kVec], out[kVec];
+    widen(xr, xv);
+    if (res != nullptr) widen(rr, rv);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      float t = (xv[i] - mu[i]) * rs[i];
+      t = t * g[i] + bt[i];
+      if (res != nullptr) t += rv[i];
+      out[i] = relu ? fmaxf(t, 0.f) : t;
+    }
+    store8(y + off, out);
+  };
+  // the rows that did not fit, in the reverse of phase A's order
+  for (int j = subs - 1; j >= 0; --j) {
+    for (int k = str_in(j) - 1; k >= 0; k -= U) {
+      Raw8<T> xr[U], rr[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (k - u >= 0) {
+          const long long off = (r0 + local_of(j, k - u)) * c + col;
+          load_raw(x + off, xr[u]);
+          if (res != nullptr) load_raw(res + off, rr[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (k - u >= 0)
+          emit((r0 + local_of(j, k - u)) * c + col, xr[u], rr[u]);
+    }
+  }
+  // the resident rows (the residual's loads in flight ahead)
+  for (int j = 0; j < subs; ++j) {
+    const int n = rows_in(j);
+    for (int k = str_in(j); k < n; k += U) {
+      Raw8<T> rr[U];
+      if (res != nullptr) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (k + u < n)
+            load_raw(res + (r0 + local_of(j, k + u)) * c + col, rr[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (k + u < n) {
+          Raw8<T> xr;
+          load_raw(xs + smem_of(local_of(j, k + u)), xr);
+          emit((r0 + local_of(j, k + u)) * c + col, xr, rr[u]);
+        }
+      }
+    }
+  }
+}
+
 template <typename T, typename P>
 int train_fwd(const void* x, const void* g, const void* b, const void* res,
               void* y, float* mean, float* var, float* ps, float* pss,
               long long rows, int c, int tx, int chunks,
-              long long rows_per_chunk, int grid_y, float eps, int relu,
+              long long rows_per_chunk, long long sub_rows, int sub_chunks,
+              int resident, int smem_bytes, float eps, int relu,
               cudaStream_t stream) {
   dim3 block;
   int tiles;
-  if (rows <= 0 || chunks < 1 || grid_y < 1 || grid_y > 65535 ||
-      chunks > 65535 || !block_shape(c, tx, &block, &tiles))
+  const long long row_bytes = static_cast<long long>(tx) * kVec * sizeof(T);
+  int subs = sub_rows < 1 ? 0 : static_cast<int>(rows_per_chunk / sub_rows);
+  if (rows <= 0 || chunks < 1 || chunks > 65535 || sub_rows < 1 ||
+      sub_rows > INT_MAX || subs < 1 || subs * sub_rows != rows_per_chunk ||
+      static_cast<long long>(chunks) * rows_per_chunk < rows ||
+      (sub_chunks - 1) * sub_rows >= rows || sub_chunks * sub_rows < rows ||
+      resident < 0 || resident > rows_per_chunk ||
+      !block_shape(c, tx, &block, &tiles) ||
+      smem_bytes < kFwdFixedSmem + resident * row_bytes)
     return static_cast<int>(cudaErrorInvalidValue);
-  stats_partial_kernel<T><<<dim3(tiles, chunks), block, 0, stream>>>(
-      static_cast<const T*>(x), rows, c, rows_per_chunk, ps, pss);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  rc = launch_finalize(ps, pss, chunks, c,
-                       static_cast<float>(1.0 / static_cast<double>(rows)),
-                       0, mean, var, stream);
-  if (rc != 0) return rc;
-  normalize_kernel<T, P><<<dim3(tiles, grid_y), block, 0, stream>>>(
-      static_cast<const T*>(x), mean, var, static_cast<const P*>(g),
-      static_cast<const P*>(b), static_cast<const T*>(res),
-      static_cast<T*>(y), rows, c, eps, relu);
-  return static_cast<int>(cudaGetLastError());
+  // A refused launch (more CTAs than the card holds at once, too much
+  // shared memory) returns its error; nothing falls back.
+  const T* xt = static_cast<const T*>(x);
+  const P* gt = static_cast<const P*>(g);
+  const P* bt = static_cast<const P*>(b);
+  const T* rt = static_cast<const T*>(res);
+  T* yt = static_cast<T*>(y);
+  float inv = static_cast<float>(1.0 / static_cast<double>(rows));
+  void* args[] = {&xt, &gt, &bt, &rt, &rows, &c, &rows_per_chunk,
+                  &sub_rows, &subs, &sub_chunks, &resident, &inv, &eps,
+                  &relu, &ps, &pss, &mean, &var, &yt};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(&train_fwd_kernel<T, P>),
+      dim3(tiles, chunks), block, args, static_cast<size_t>(smem_bytes),
+      stream);
+  if (e != cudaSuccess) cudaGetLastError();   // not left for the next check
+  return static_cast<int>(e);
+}
+
+// Lift the training kernel's dynamic shared-memory limit to the card's
+// opt-in maximum (once, outside any graph capture), then report how many
+// of its 256-thread CTAs with smem_bytes of shared memory one SM holds at
+// once.
+template <typename T, typename P>
+int train_fwd_occupancy(int smem_bytes, int* blocks) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(&train_fwd_kernel<T, P>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, &train_fwd_kernel<T, P>, kThreads,
+        static_cast<size_t>(smem_bytes));
+  if (e != cudaSuccess) cudaGetLastError();
+  return static_cast<int>(e);
 }
 
 template <typename T, typename P>
@@ -219,13 +506,19 @@ int moments(const void* x, float* s, float* ss, float* ps, float* pss,
 extern "C" {
 
 // dtype (x, res, y) and pdtype (gamma, beta): 0 = float32, 1 = bfloat16.
-// res may be null. mean/var: f32 [C] outputs; ps/pss: f32 [chunks, C]
-// scratch. Returns a cudaError_t (0 = success).
+// res may be null. mean/var: f32 [C] outputs; ps/pss: f32
+// [sub_chunks, C] scratch. The training call is one cooperative launch of
+// tiles x chunks CTAs, each summing its rows_per_chunk rows as sub-chunks
+// of sub_rows rows and keeping its last `resident` rows of x in
+// smem_bytes of dynamic shared memory (the plan of ops/fused_bn.py,
+// train_fwd_plan).
+// Returns a cudaError_t (0 = success).
 int p1t_fused_bn_train_fwd(const void* x, const void* g, const void* b,
                            const void* res, void* y, void* mean, void* var,
                            void* ps, void* pss, long long rows, int c,
                            int tx, int chunks, long long rows_per_chunk,
-                           int grid_y, float eps, int relu, int dtype,
+                           long long sub_rows, int sub_chunks, int resident,
+                           int smem_bytes, float eps, int relu, int dtype,
                            int pdtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto m = static_cast<float*>(mean);
@@ -234,13 +527,52 @@ int p1t_fused_bn_train_fwd(const void* x, const void* g, const void* b,
   auto q = static_cast<float*>(pss);
 #define P1T_TRAIN(T, P)                                                    \
   return train_fwd<T, P>(x, g, b, res, y, m, v, a, q, rows, c, tx, chunks, \
-                         rows_per_chunk, grid_y, eps, relu, s)
+                         rows_per_chunk, sub_rows, sub_chunks, resident,    \
+                         smem_bytes, eps, relu, s)
   if (dtype == 0 && pdtype == 0) P1T_TRAIN(float, float);
   if (dtype == 0 && pdtype == 1) P1T_TRAIN(float, __nv_bfloat16);
   if (dtype == 1 && pdtype == 0) P1T_TRAIN(__nv_bfloat16, float);
   if (dtype == 1 && pdtype == 1) P1T_TRAIN(__nv_bfloat16, __nv_bfloat16);
 #undef P1T_TRAIN
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// CTAs of the training kernel with smem_bytes of dynamic shared memory
+// that one SM holds at once (see train_fwd_occupancy).
+int p1t_fused_bn_train_fwd_occupancy(int dtype, int pdtype, int smem_bytes,
+                                     int* blocks) {
+  if (dtype == 0 && pdtype == 0)
+    return train_fwd_occupancy<float, float>(smem_bytes, blocks);
+  if (dtype == 0 && pdtype == 1)
+    return train_fwd_occupancy<float, __nv_bfloat16>(smem_bytes, blocks);
+  if (dtype == 1 && pdtype == 0)
+    return train_fwd_occupancy<__nv_bfloat16, float>(smem_bytes, blocks);
+  if (dtype == 1 && pdtype == 1)
+    return train_fwd_occupancy<__nv_bfloat16, __nv_bfloat16>(smem_bytes,
+                                                             blocks);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The current card's SM count, shared memory per SM, the opt-in maximum
+// of one CTA and what the card reserves per CTA, in bytes (the
+// cooperative launches' plans, forward and backward, size from these).
+int p1t_fused_bn_device(int* sms, int* smem_per_sm, int* smem_optin,
+                        int* reserved) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(smem_per_sm,
+                               cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                               dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(smem_optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(reserved,
+                               cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  return static_cast<int>(e);
 }
 
 // Given statistics: mean/var f32 [C]; otherwise as above.

@@ -87,17 +87,6 @@ struct BwdRowsInFlight {
 // plan (ops/fused_bn_bwd.py, train_bwd_plan) mirrors this constant.
 constexpr int kBwdFixedSmem = kThreads * kVec * 4 + 5 * kTileMax * 4;
 
-// one 8-channel vector, global -> shared, as 16-byte cp.async copies
-template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, const T* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-#pragma unroll
-  for (int k = 0; k < Raw8<T>::kWords; ++k)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     s + 16 * k),
-                 "l"(reinterpret_cast<const char*>(src) + 16 * k));
-}
-
 template <typename T>
 __device__ __forceinline__ void mask_relu(const Raw8<T>& yr,
                                           float (&d)[kVec]) {
@@ -481,27 +470,6 @@ int p1t_fused_bn_bwd_train(const void* x, const void* g, const void* mean,
   if (dtype == 1 && pdtype == 1) P1T_TRAIN(__nv_bfloat16, __nv_bfloat16);
 #undef P1T_TRAIN
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The current card's SM count, shared memory per SM, the opt-in maximum
-// of one CTA and what the card reserves per CTA, in bytes.
-int p1t_fused_bn_bwd_device(int* sms, int* smem_per_sm, int* smem_optin,
-                            int* reserved) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(smem_per_sm,
-                               cudaDevAttrMaxSharedMemoryPerMultiprocessor,
-                               dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(smem_optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(reserved,
-                               cudaDevAttrReservedSharedMemoryPerBlock, dev);
-  return static_cast<int>(e);
 }
 
 // CTAs of the training kernel with smem_bytes of dynamic shared memory

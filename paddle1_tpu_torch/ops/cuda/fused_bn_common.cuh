@@ -85,6 +85,17 @@ __device__ __forceinline__ void store_raw(T* p, const Raw8<T>& r) {
     reinterpret_cast<uint4*>(p)[k] = r.w[k];
 }
 
+// one 8-channel vector, global -> shared, as 16-byte cp.async copies
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+#pragma unroll
+  for (int k = 0; k < Raw8<T>::kWords; ++k)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     s + 16 * k),
+                 "l"(reinterpret_cast<const char*>(src) + 16 * k));
+}
+
 __device__ __forceinline__ void widen(const Raw8<float>& r, float (&v)[kVec]) {
   const float* f = reinterpret_cast<const float*>(r.w);
 #pragma unroll
@@ -104,11 +115,14 @@ __device__ __forceinline__ void widen(const Raw8<__nv_bfloat16>& r,
 
 // Stage 1 tail: every thread holds its own sums a[8] for channels
 // [v * 8, v * 8 + 8); the block writes their column sums over threadIdx.y
-// (in order 0..TY-1) to pa[blockIdx.y * C + channel]. buf: kThreads * 8
-// floats of shared memory, free again when this returns.
+// (in order 0..TY-1) to partial row `row` (default: blockIdx.y),
+// pa[row * C + channel]. buf: kThreads * 8 floats of shared memory, free
+// again when this returns.
 __device__ __forceinline__ void column_sums(float* buf,
                                             const float (&a)[kVec],
-                                            float* __restrict__ pa, int c) {
+                                            float* __restrict__ pa, int c,
+                                            long long row = -1) {
+  if (row < 0) row = blockIdx.y;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int w = blockDim.x * kVec;          // channels of this block's tile
 #pragma unroll
@@ -120,7 +134,7 @@ __device__ __forceinline__ void column_sums(float* buf,
     if (c0 + col >= c) continue;
     float s = 0.f;
     for (int k = 0; k < static_cast<int>(blockDim.y); ++k) s += buf[k * w + col];
-    pa[static_cast<long long>(blockIdx.y) * c + c0 + col] = s;
+    pa[row * c + c0 + col] = s;
   }
   __syncthreads();
 }

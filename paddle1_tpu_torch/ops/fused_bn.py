@@ -26,16 +26,24 @@ what the kernel computes: f32 sums, ``var = max(E[x^2] - mean^2, 0)``
 with the exact count as a host constant, f32 statistics, the cast at the
 edge.
 
+The training forward is one cooperative launch of a persistent grid
+(:func:`train_fwd_plan`): every CTA holds its chunk of rows of x in
+shared memory across the grid barriers that hand the statistics over, so
+where the chunk fits, x crosses device memory once. A launch the card
+refuses (more CTAs than it holds at once, too much shared memory) raises
+:class:`KernelLaunchError`; nothing falls back.
+
 ``fused_bn_train.launches``, ``fused_bn_norm.launches`` and
 ``local_moments.launches`` count calls that launched the kernel: ONE per
-call, although a training call is three CUDA launches inside (partial
-sums, finalize, normalize) and a moments call two.
+call (a moments call is two CUDA launches inside: partial sums,
+finalize).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -43,7 +51,8 @@ from ..core.errors import InvalidArgumentError, KernelLaunchError
 
 __all__ = ["ACTS", "supported", "fused_bn_train", "fused_bn_norm",
            "local_moments", "fused_bn_train_ref", "fused_bn_norm_ref",
-           "local_moments_ref"]
+           "local_moments_ref", "TrainPlan", "train_fwd_plan",
+           "train_fwd_launch_plan"]
 
 ACTS = ("identity", "relu")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -139,19 +148,24 @@ def block_width(c: int):
     return tx, _THREADS // tx, -(-cv // tx)
 
 
-def plan(rows: int, c: int, device):
+def stats_plan(rows: int, c: int, sms: int):
     """Block and chunks of the reduction passes (statistics, moments,
-    given-statistics backward) for ``[rows, C]``: ``(tx, chunks,
-    rows_per_chunk)``. The rows are cut into ``chunks`` chunks of
-    consecutive rows, about 4 blocks per SM in all. Depends on the shape
-    and the card only, so the sums' order does too."""
+    given-statistics backward) for ``[rows, C]`` on a card of ``sms`` SMs:
+    ``(tx, chunks, rows_per_chunk)``. The rows are cut into ``chunks``
+    chunks of consecutive rows, about 4 blocks per SM in all. A pure
+    function of its arguments, so the sums' order depends on the shape and
+    the card only."""
     tx, ty, tiles = block_width(c)
-    sms = _sm_count(device_index(device))
     row_groups = -(-rows // ty)
     chunks = max(1, min(row_groups, -(-4 * sms // tiles), 65535))
     rows_per_chunk = -(-rows // chunks)
     chunks = -(-rows // rows_per_chunk)
     return tx, chunks, rows_per_chunk
+
+
+def plan(rows: int, c: int, device):
+    """:func:`stats_plan` for ``[rows, C]`` on ``device``'s card."""
+    return stats_plan(rows, c, _sm_count(device_index(device)))
 
 
 def norm_plan(rows: int, c: int, sms: int, blocks_per_sm: int):
@@ -166,19 +180,28 @@ def norm_plan(rows: int, c: int, sms: int, blocks_per_sm: int):
     return tx, max(1, min(-(-rows // ty), wave, 65535))
 
 
+def c_ints(fn, lib: str, n_out: int, *lead):
+    """Call the C function ``fn`` with ``lead`` and ``n_out`` ``int*``
+    outputs; return the outputs, raising on a CUDA error (``lib``: the
+    library that names it)."""
+    outs = [ctypes.c_int(0) for _ in range(n_out)]
+    rc = fn(*lead, *(ctypes.byref(o) for o in outs))
+    if rc != 0:
+        from .cuda import build
+        raise KernelLaunchError(f"{fn.__name__}: CUDA error {rc} "
+                                f"({build.error_string(lib, rc)})")
+    return [o.value for o in outs]
+
+
 @functools.lru_cache(maxsize=None)
 def _norm_blocks_per_sm(index: int, dtype: int, pdtype: int) -> int:
-    blocks = ctypes.c_int(0)
     with torch.cuda.device(index):
-        rc = _kernel("p1t_fused_bn_norm_occupancy")(dtype, pdtype,
-                                                    ctypes.byref(blocks))
-    if rc != 0 or blocks.value < 1:
-        from .cuda import build
+        blocks, = c_ints(_kernel("p1t_fused_bn_norm_occupancy"), "fused_bn",
+                         1, dtype, pdtype)
+    if blocks < 1:
         raise KernelLaunchError(
-            f"p1t_fused_bn_norm_occupancy: CUDA error {rc} "
-            f"({build.error_string('fused_bn', rc)}), {blocks.value} CTAs "
-            "an SM")
-    return blocks.value
+            f"p1t_fused_bn_norm_occupancy: {blocks} CTAs an SM")
+    return blocks
 
 
 def norm_launch_plan(x2, pdtype: int):
@@ -187,6 +210,116 @@ def norm_launch_plan(x2, pdtype: int):
     index = device_index(x2.device)
     return norm_plan(rows, c, _sm_count(index),
                      _norm_blocks_per_sm(index, _DTYPES[x2.dtype], pdtype))
+
+
+# The cooperative launches (the training forward here, the training
+# backward in fused_bn_bwd): the CTAs each aims to put on one SM (each
+# gets 1 / CTAS_PER_SM of the SM's shared memory), and the training
+# forward's shared memory ahead of its resident rows (fused_bn.cu
+# kFwdFixedSmem: column-sum scratch and four coefficient rows of the
+# widest tile).
+CTAS_PER_SM = 2
+FWD_FIXED_SMEM = 256 * 8 * 4 + 4 * 256 * 4
+
+
+class TrainPlan(NamedTuple):
+    """Launch plan of a cooperative training kernel over ``[rows, C]``: a
+    grid of ``tiles x chunks`` CTAs of ``tx x ty`` threads; CTA ``(t, k)``
+    owns channel tile ``t`` of rows ``[k * rows_per_chunk, ...)``, keeps
+    ``resident`` of them in ``smem_bytes`` of shared memory (the
+    backward its first, the forward its last) and sums them in sub-chunks
+    of ``sub_rows`` rows, ``sub_chunks`` partial rows in all."""
+    tx: int
+    ty: int
+    tiles: int
+    chunks: int
+    rows_per_chunk: int
+    resident: int
+    smem_bytes: int
+    sub_rows: int
+    sub_chunks: int
+
+
+def resident_plan(name: str, rows: int, c: int, tensors: int,
+                  itemsize: int, fixed: int, sms: int, blocks_per_sm: int,
+                  smem_per_cta: int, sub_rows=None) -> TrainPlan:
+    """The persistent grid for ``[rows, C]`` of ``itemsize``-byte elements
+    on a card of ``sms`` SMs that holds ``blocks_per_sm`` CTAs of
+    ``smem_per_cta`` bytes of shared memory at once: as few chunks as the
+    co-resident CTAs allow to cover the rows' sub-chunks of ``sub_rows``
+    rows (default: one sub-chunk a chunk, as many chunks as the CTAs
+    allow), and as many rows of each chunk resident as the shared memory
+    holds after ``fixed`` bytes, a resident row being ``tensors`` row
+    tiles. A pure function of its arguments, so the sums' order depends on
+    the shape and the card only. Raises :class:`InvalidArgumentError` when
+    one row of CTAs does not fit the card (over 8 * 32 * sms *
+    blocks_per_sm channels)."""
+    tx, ty, tiles = block_width(c)
+    capacity = sms * blocks_per_sm
+    if tiles > capacity:
+        raise InvalidArgumentError(
+            f"{name}: {c} channels need {tiles} co-resident CTAs, the card "
+            f"holds {capacity} (outside the kernel's contract)")
+    wave = min(capacity // tiles, 65535)
+    if sub_rows is None:
+        sub_rows = -(-rows // max(1, min(wave, -(-rows // ty))))
+    sub_chunks = -(-rows // sub_rows)
+    rows_per_chunk = -(-sub_chunks // wave) * sub_rows
+    chunks = -(-rows // rows_per_chunk)
+    row_bytes = tensors * tx * _VEC * itemsize
+    fits = max(0, (smem_per_cta - fixed) // row_bytes)
+    resident = min(rows_per_chunk, fits)
+    return TrainPlan(tx, ty, tiles, chunks, rows_per_chunk, resident,
+                     fixed + resident * row_bytes, sub_rows, sub_chunks)
+
+
+def train_fwd_plan(rows: int, c: int, itemsize: int, sms: int,
+                   blocks_per_sm: int, smem_per_cta: int) -> TrainPlan:
+    """:func:`resident_plan` of the training forward: x's rows resident,
+    summed in the chunks of :func:`stats_plan`, so that its statistics are
+    the reduction passes' (the local moments'), bit for bit."""
+    return resident_plan("fused_bn_train", rows, c, 1, itemsize,
+                         FWD_FIXED_SMEM, sms, blocks_per_sm, smem_per_cta,
+                         sub_rows=stats_plan(rows, c, sms)[2])
+
+
+@functools.lru_cache(maxsize=None)
+def cta_budget(index: int):
+    """``(sms, smem_per_cta)`` of card ``index``: each of CTAS_PER_SM CTAs
+    gets its share of the SM's shared memory, less what the card reserves
+    a CTA, and no more than one CTA may opt in to."""
+    with torch.cuda.device(index):
+        sms, per_sm, optin, reserved = c_ints(
+            _kernel("p1t_fused_bn_device"), "fused_bn", 4)
+    return sms, min(optin, per_sm // CTAS_PER_SM - reserved)
+
+
+def coop_limits(fn, lib: str, index: int, dtype: int, pdtype: int):
+    """``(sms, blocks_per_sm, smem_per_cta)`` of a cooperative kernel on
+    card ``index``, its occupancy function ``fn`` asked how many CTAs of
+    the budget's shared memory one SM holds."""
+    sms, budget = cta_budget(index)
+    with torch.cuda.device(index):
+        blocks, = c_ints(fn, lib, 1, dtype, pdtype, budget)
+    if blocks < 1:
+        raise KernelLaunchError(
+            f"{fn.__name__}: no CTA with {budget} bytes of shared memory "
+            "fits an SM")
+    return sms, blocks, budget
+
+
+@functools.lru_cache(maxsize=None)
+def _train_limits(index: int, dtype: int, pdtype: int):
+    """:func:`coop_limits` of the training forward."""
+    return coop_limits(_kernel("p1t_fused_bn_train_fwd_occupancy"),
+                       "fused_bn", index, dtype, pdtype)
+
+
+def train_fwd_launch_plan(x2, pdtype: int) -> TrainPlan:
+    """:func:`train_fwd_plan` for ``x2`` on its card."""
+    rows, c = (int(s) for s in x2.shape)
+    return train_fwd_plan(rows, c, x2.element_size(), *_train_limits(
+        device_index(x2.device), _DTYPES[x2.dtype], pdtype))
 
 
 def check_rows(name, x2, *others):
@@ -243,9 +376,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGTYPES = {
     # x, g, b, res, y, mean, var, ps, pss; rows; c, tx, chunks;
-    # rows_per_chunk; grid_y; eps; relu, dtype, pdtype; stream
-    "p1t_fused_bn_train_fwd": [_P] * 9 + [_L, _I, _I, _I, _L, _I, _F,
-                                          _I, _I, _I, _P],
+    # rows_per_chunk, sub_rows; sub_chunks, resident, smem_bytes; eps;
+    # relu, dtype, pdtype; stream
+    "p1t_fused_bn_train_fwd": [_P] * 9 + [_L, _I, _I, _I, _L, _L, _I, _I,
+                                          _I, _F, _I, _I, _I, _P],
     # x, mean, var, g, b, res, y; rows; c, tx, grid_y; eps; relu, dtype,
     # pdtype; stream
     "p1t_fused_bn_norm_fwd": [_P] * 7 + [_L, _I, _I, _I, _F, _I, _I, _I,
@@ -254,6 +388,10 @@ _ARGTYPES = {
     "p1t_fused_bn_moments": [_P] * 5 + [_L, _I, _I, _I, _L, _I, _P],
     # dtype, pdtype, &blocks
     "p1t_fused_bn_norm_occupancy": [_I, _I, _P],
+    # dtype, pdtype, smem_bytes, &blocks
+    "p1t_fused_bn_train_fwd_occupancy": [_I, _I, _I, _P],
+    # &sms, &smem_per_sm, &smem_optin, &reserved
+    "p1t_fused_bn_device": [_P] * 4,
 }
 
 
@@ -288,18 +426,19 @@ def _train_fwd(x2, g, b, res, eps, act):
     check_rows("fused_bn_train", x2, res)
     rows, c = (int(s) for s in x2.shape)
     pdt = check_channels("fused_bn_train", c, x2.device, g, b)
-    tx, chunks, rpc = plan(rows, c, x2.device)
-    _, grid_y = norm_launch_plan(x2, pdt)
+    p = train_fwd_launch_plan(x2, pdt)
     y = torch.empty_like(x2)
     mean = torch.empty(c, dtype=torch.float32, device=x2.device)
     var = torch.empty_like(mean)
-    part = torch.empty(2, chunks, c, dtype=torch.float32, device=x2.device)
+    part = torch.empty(2, p.sub_chunks, c, dtype=torch.float32,
+                       device=x2.device)
     fn = _kernel("p1t_fused_bn_train_fwd")
     with torch.cuda.device(x2.device):
         rc = fn(x2.data_ptr(), g.data_ptr(), b.data_ptr(), _ptr(res),
                 y.data_ptr(), mean.data_ptr(), var.data_ptr(),
-                part[0].data_ptr(), part[1].data_ptr(), rows, c, tx, chunks,
-                rpc, grid_y, float(eps), int(act == "relu"),
+                part[0].data_ptr(), part[1].data_ptr(), rows, c, p.tx,
+                p.chunks, p.rows_per_chunk, p.sub_rows, p.sub_chunks,
+                p.resident, p.smem_bytes, float(eps), int(act == "relu"),
                 _DTYPES[x2.dtype], pdt,
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:

@@ -33,14 +33,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
 
 import torch
 
-from ..core.errors import InvalidArgumentError, KernelLaunchError
+from ..core.errors import KernelLaunchError
 from ..core.flags import flag_active
-from .fused_bn import (_DTYPES, block_width, check_channels, check_rows,
-                       device_index, plan, stats_f32, supported)
+from .fused_bn import (_DTYPES, TrainPlan, check_channels, check_rows,
+                       coop_limits, device_index, plan, resident_plan,
+                       stats_f32, supported)
 
 __all__ = ["train_bwd", "norm_bwd", "train_bwd_ref", "norm_bwd_ref",
            "supported", "TrainBwdPlan", "train_bwd_plan",
@@ -57,94 +57,35 @@ _ARGTYPES = {
     # as above without resident, smem_bytes
     "p1t_fused_bn_bwd_norm": [_P] * 12 + [_L, _I, _I, _I, _L, _F, _I, _I,
                                           _I, _P],
-    # &sms, &smem_per_sm, &smem_optin, &reserved
-    "p1t_fused_bn_bwd_device": [_P] * 4,
     # dtype, pdtype, smem_bytes, &blocks
     "p1t_fused_bn_bwd_train_occupancy": [_I, _I, _I, _P],
 }
 _fns = {}
 
 # The training kernel's shared memory ahead of the resident rows
-# (fused_bn_bwd.cu kBwdFixedSmem: column-sum scratch and five
-# coefficient rows of the widest tile), and the CTAs it aims to put on one
-# SM (each gets 1 / _CTAS_PER_SM of the SM's shared memory).
+# (fused_bn_bwd.cu kBwdFixedSmem: column-sum scratch and five coefficient
+# rows of the widest tile).
 FIXED_SMEM = 256 * 8 * 4 + 5 * 256 * 4
-_CTAS_PER_SM = 2
-
-
-class TrainBwdPlan(NamedTuple):
-    """Launch plan of the training backward over ``[rows, C]``: a grid of
-    ``tiles x chunks`` CTAs of ``tx x ty`` threads; CTA ``(t, k)`` owns
-    channel tile ``t`` of rows ``[k * rows_per_chunk, ...)`` and keeps its
-    first ``resident`` rows of x and dy in ``smem_bytes`` of shared
-    memory."""
-    tx: int
-    ty: int
-    tiles: int
-    chunks: int
-    rows_per_chunk: int
-    resident: int
-    smem_bytes: int
+TrainBwdPlan = TrainPlan
 
 
 def train_bwd_plan(rows: int, c: int, itemsize: int, sms: int,
-                   blocks_per_sm: int, smem_per_cta: int) -> TrainBwdPlan:
-    """The persistent grid for ``[rows, C]`` of ``itemsize``-byte elements
-    on a card of ``sms`` SMs that holds ``blocks_per_sm`` CTAs of
-    ``smem_per_cta`` bytes of shared memory at once: as many chunks as the
-    co-resident CTAs allow (no more than the rows need), and as many rows
-    of each chunk resident as the shared memory holds. A pure function of
-    its arguments, so the sums' order depends on the shape and the card
-    only. Raises :class:`InvalidArgumentError` when one row of CTAs does
-    not fit the card (over 8 * 32 * sms * blocks_per_sm channels)."""
-    tx, ty, tiles = block_width(c)
-    capacity = sms * blocks_per_sm
-    if tiles > capacity:
-        raise InvalidArgumentError(
-            f"train_bwd: {c} channels need {tiles} co-resident CTAs, the "
-            f"card holds {capacity} (outside the kernel's contract)")
-    chunks = max(1, min(capacity // tiles, -(-rows // ty), 65535))
-    rows_per_chunk = -(-rows // chunks)
-    chunks = -(-rows // rows_per_chunk)
-    row_bytes = 2 * tx * 8 * itemsize            # x and the masked dy
-    fits = max(0, (smem_per_cta - FIXED_SMEM) // row_bytes)
-    resident = min(rows_per_chunk, fits)
-    return TrainBwdPlan(tx, ty, tiles, chunks, rows_per_chunk, resident,
-                        FIXED_SMEM + resident * row_bytes)
-
-
-def _c_ints(symbol, lib, *lead):
-    """Call ``symbol`` with ``lead`` and as many ``int*`` outputs as its
-    argtypes leave; return them, raising on a CUDA error."""
-    outs = [ctypes.c_int(0)
-            for _ in range(len(_ARGTYPES[symbol]) - len(lead))]
-    rc = _kernel(symbol)(*lead, *(ctypes.byref(o) for o in outs))
-    if rc != 0:
-        from .cuda import build
-        raise KernelLaunchError(f"{symbol}: CUDA error {rc} "
-                                f"({build.error_string(lib, rc)})")
-    return [o.value for o in outs]
+                   blocks_per_sm: int, smem_per_cta: int) -> TrainPlan:
+    """:func:`fused_bn.resident_plan` of the training backward: x's and the
+    masked dy's rows resident."""
+    return resident_plan("train_bwd", rows, c, 2, itemsize, FIXED_SMEM,
+                         sms, blocks_per_sm, smem_per_cta)
 
 
 @functools.lru_cache(maxsize=None)
 def _train_limits(index: int, dtype: int, pdtype: int):
     """``(sms, blocks_per_sm, smem_per_cta)`` of the training kernel on
-    card ``index``: each CTA gets its share of the SM's shared memory, and
-    the occupancy API says how many such CTAs one SM holds."""
-    with torch.cuda.device(index):
-        sms, per_sm, optin, reserved = _c_ints("p1t_fused_bn_bwd_device",
-                                               "fused_bn_bwd")
-        budget = min(optin, per_sm // _CTAS_PER_SM - reserved)
-        blocks, = _c_ints("p1t_fused_bn_bwd_train_occupancy",
-                          "fused_bn_bwd", dtype, pdtype, budget)
-    if blocks < 1:
-        raise KernelLaunchError(
-            f"p1t_fused_bn_bwd_train: no CTA with {budget} bytes of shared "
-            "memory fits an SM")
-    return sms, blocks, budget
+    card ``index`` (:func:`fused_bn.coop_limits`)."""
+    return coop_limits(_kernel("p1t_fused_bn_bwd_train_occupancy"),
+                       "fused_bn_bwd", index, dtype, pdtype)
 
 
-def train_bwd_launch_plan(x2, pdtype: int) -> TrainBwdPlan:
+def train_bwd_launch_plan(x2, pdtype: int) -> TrainPlan:
     """:func:`train_bwd_plan` for ``x2`` on its card."""
     rows, c = (int(s) for s in x2.shape)
     return train_bwd_plan(rows, c, x2.element_size(), *_train_limits(

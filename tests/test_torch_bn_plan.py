@@ -1,9 +1,10 @@
 """Launch plans of the port's batch-norm kernels, on the CPU.
 
-The training backward (``ops/fused_bn_bwd.py``, ``train_bwd_plan``) is one
-cooperative launch of a persistent grid that keeps each chunk's rows in
-shared memory; the given-statistics forward (``ops/fused_bn.py``,
-``norm_plan``) is one wave of resident CTAs. Both plans are pure
+The training forward (``ops/fused_bn.py``, ``train_fwd_plan``) and the
+training backward (``ops/fused_bn_bwd.py``, ``train_bwd_plan``) are each
+one cooperative launch of a persistent grid that keeps each chunk's rows
+in shared memory; the given-statistics forward (``ops/fused_bn.py``,
+``norm_plan``) is one wave of resident CTAs. The plans are pure
 functions of the shape and of what the card reports (SM count, CTAs an SM
 holds, shared memory a CTA may use), so they are checked here without a
 card, at every ResNet-50 batch-norm shape at 32 images a card and at odd
@@ -96,3 +97,67 @@ def test_norm_plan_is_one_wave(rows, c, sms, blocks, _budget):
     # the CTAs' row stride covers every row
     assert grid_y * ty * ((rows + grid_y * ty - 1) // (grid_y * ty)) >= rows
     assert fbn.norm_plan(rows, c, sms, blocks) == (tx, grid_y)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("sms,blocks,budget", CARDS)
+@pytest.mark.parametrize("rows,c", SHAPES)
+def test_train_fwd_plan_covers_rows_and_fits_the_card(rows, c, sms, blocks,
+                                                      budget, itemsize):
+    p = fbn.train_fwd_plan(rows, c, itemsize, sms, blocks, budget)
+    owner = _rows_of(p, rows)
+    assert len(owner) == rows
+    assert sorted(set(owner)) == list(range(p.chunks))
+    assert p.chunks * p.rows_per_chunk >= rows > (p.chunks - 1) * \
+        p.rows_per_chunk
+    assert p.tx * 8 * p.tiles >= c > (p.tiles - 1) * p.tx * 8
+    assert p.tx * p.ty <= 256 and p.tx <= 32
+    assert p.tiles * p.chunks <= sms * blocks and p.chunks <= 65535
+    # one row tile of x a resident row
+    row_bytes = p.tx * 8 * itemsize
+    assert 0 <= p.resident <= p.rows_per_chunk
+    assert p.smem_bytes == fbn.FWD_FIXED_SMEM + p.resident * row_bytes
+    assert p.smem_bytes <= budget
+    assert p.resident == p.rows_per_chunk or \
+        p.smem_bytes + row_bytes > budget
+    assert fbn.train_fwd_plan(rows, c, itemsize, sms, blocks, budget) == p
+    # its partial rows are the statistics pass's chunks: whole sub-chunks a
+    # CTA, every one summed once
+    tx, sub_chunks, sub_rows = fbn.stats_plan(rows, c, sms)
+    assert (p.tx, p.sub_rows, p.sub_chunks) == (tx, sub_rows, sub_chunks)
+    assert p.rows_per_chunk % p.sub_rows == 0
+    subs = p.rows_per_chunk // p.sub_rows
+    assert (p.chunks - 1) * subs < p.sub_chunks <= p.chunks * subs
+
+
+def test_train_fwd_plan_holds_resnet50_layers_2_to_4_whole_on_an_h100():
+    """At 32 images in bf16 every chunk of layers 2-4 fits in shared
+    memory, so x crosses device memory once; the stem's and layer 1's
+    widest (C = 256 at 56 x 56) about half."""
+    h100 = CARDS[0]
+    for rows, c in [(100352, 128), (25088, 128), (25088, 512),
+                    (25088, 256), (6272, 256), (6272, 1024), (6272, 512),
+                    (1568, 512), (1568, 2048)]:
+        p = fbn.train_fwd_plan(rows, c, 2, *h100)
+        assert p.resident == p.rows_per_chunk, (rows, c, p)
+    for rows, c in [(401408, 64), (100352, 256)]:
+        p = fbn.train_fwd_plan(rows, c, 2, *h100)
+        assert 0.4 < p.resident / p.rows_per_chunk < 0.6, (rows, c, p)
+
+
+def test_train_fwd_plan_refuses_a_row_of_tiles_wider_than_the_card():
+    with pytest.raises(InvalidArgumentError, match="contract"):
+        fbn.train_fwd_plan(64, 8 * 32 * 33, 2, 16, 2, 49152)
+
+
+def test_resnet50_bn_shapes_of_the_profile_tool():
+    """The step's 53 batch norms that the profile tool's per-step bound
+    sums over: 355.6 M elements at 32 images, at the shapes above."""
+    from tools import torch_train_profile as tp
+    shapes = tp.resnet50_bn_shapes(32)
+    assert len(shapes) == 53 and shapes[0] == (401408, 64)
+    assert set(shapes) == set(RESNET50_BN)
+    assert sum(r * c for r, c in shapes) == 355647488
+    bound = tp.bn_bound_ms_per_step(32)
+    assert bound["train_fwd"] == pytest.approx(
+        1e3 * 2 * 2 * 355647488 / 3.35e12)

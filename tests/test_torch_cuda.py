@@ -25,7 +25,15 @@ backward (one cooperative launch holding its rows in shared memory) and
 the given-statistics forward hold to their plain versions at ResNet-50's
 layer-4 and layer-3 shapes and at a shape only partly resident, repeat bit
 for bit, replay inside a CUDA graph as they ran eagerly, and that a
-refused cooperative launch raises. For the local-moments
+refused cooperative launch raises; the same of the training forward (one
+cooperative launch holding x in shared memory) at layers 4 and 2 and a
+partly resident shape. For paged attention (split across the cache, the
+splits merged by the last CTA of a slot and head) they hold the kernel to
+its plain version and to the emulation of its split arithmetic at the
+serving shape with one long slot among short ones, every slot long,
+slots ending on split boundaries and slots that see no key, and at a
+table of 64 pages; repeats bit for bit, a CUDA graph replayed twice, and
+that a first call inside a capture raises. For the local-moments
 kernel (the cross-rank batch norm's per-rank statistics) they hold it to
 its plain version, its contract, and that a tiny ResNet-18 step of the
 data-parallel engine (one rank, no process group) launches it once per
@@ -91,7 +99,7 @@ def test_layer_norm_outside_the_contract_raises_on_the_card(dev):
 @pytest.mark.parametrize("kw", [
     dict(q_dtype=torch.float16, kv_dtype=torch.float16),
     dict(kv_dtype=torch.float16),
-    dict(w=128, h=2, d=64, ps=16),   # past one CTA's shared memory
+    dict(w=600, h=2, d=64, ps=16),   # past one CTA's shared memory
 ])
 def test_paged_attention_outside_the_contract_raises_on_the_card(dev, kw):
     q, kp, vp, table, pos = _paged(dev, **kw)
@@ -107,6 +115,93 @@ def test_f32_query_over_bf16_pools_runs_the_kernel(dev):
     want = pa.paged_attention_ref(q, kp, vp, table, pos - 2)
     assert got.dtype == torch.float32
     assert float((got - want).abs().max()) <= PA_TOL
+
+
+def _serving_paged(dev, bases, kv_dtype=torch.float32, w=1, seed=0):
+    """The serving shape: 16 slots, 8 heads of 64, pages of 16, 32 pages a
+    slot, each slot's chain on its own pages of a 513-page pool."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((16, w, 8, 64)).astype(
+        np.float32)).to(dev)
+    kp, vp = (torch.randn(513, 16, 8, 64, device=dev).to(kv_dtype)
+              for _ in range(2))
+    table = torch.from_numpy(rng.permutation(np.arange(1, 513))
+                             .astype(np.int32).reshape(16, 32)).to(dev)
+    return q, kp, vp, table, torch.tensor(bases, dtype=torch.int32,
+                                          device=dev)
+
+
+# one slot at 496 among 15 shorter than one split, every slot long, a
+# slot ending on each split boundary, and slots that see no key
+PAGED_BASES = {
+    "skewed": [496] + [3 * i % 24 for i in range(15)],
+    "long": [511 - i for i in range(16)],
+    "boundaries": [16 * k - 1 for k in range(1, 17)],
+    "empty": [-1, 0, -5] + [100] * 13,
+}
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", list(PAGED_BASES))
+def test_paged_attention_splits_match_and_repeat(dev, kind, kv_dtype):
+    q, kp, vp, table, base = _serving_paged(dev, PAGED_BASES[kind],
+                                            kv_dtype)
+    got = pa.paged_attention(q, kp, vp, table, base)
+    seen = base >= 0                      # rows that see at least key 0
+    want = pa.paged_attention_ref(q, kp, vp, table, base)
+    assert float((got - want)[seen].abs().max()) <= PA_TOL
+    emu = pa.paged_attention_split_emulation(q, kp, vp, table, base)
+    assert float((got - emu).abs().max()) <= PA_TOL
+    assert bool((got[~seen] == 0).all())
+    assert torch.equal(pa.paged_attention(q, kp, vp, table, base), got)
+
+
+@pytest.mark.parametrize("w", [1, 4])
+def test_paged_attention_replays_in_a_cuda_graph(dev, w):
+    q, kp, vp, table, base = _serving_paged(dev, PAGED_BASES["skewed"],
+                                            w=w)
+    run = lambda: pa.paged_attention(q, kp, vp, table, base)  # noqa: E731
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+    # the counters the kernel resets: an eager call after the replays
+    assert torch.equal(run(), eager)
+
+
+def test_paged_attention_first_call_inside_a_capture_raises(dev):
+    # its partials and counters must exist before a graph captures it
+    q, kp, vp, table, base = _serving_paged(dev, PAGED_BASES["long"],
+                                            w=3)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(KernelLaunchError, match="outside CUDA-graph"):
+        with torch.cuda.graph(graph):
+            pa.paged_attention(q, kp, vp, table, base)
+
+
+def test_paged_attention_splits_a_wide_table(dev):
+    # 64 pages a slot: 16 splits of 4 pages, two query rows
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((4, 2, 2, 64)).astype(
+        np.float32)).to(dev)
+    kp, vp = (torch.randn(257, 16, 2, 64, device=dev) for _ in range(2))
+    table = torch.from_numpy(rng.permutation(np.arange(1, 257)).astype(
+        np.int32).reshape(4, 64)).to(dev)
+    base = torch.tensor([1000, 70, 1022, 300], dtype=torch.int32,
+                        device=dev)
+    got = pa.paged_attention(q, kp, vp, table, base)
+    want = pa.paged_attention_ref(q, kp, vp, table, base)
+    assert float((got - want).abs().max()) <= PA_TOL
+    assert torch.equal(pa.paged_attention(q, kp, vp, table, base), got)
 
 
 def test_layer_norm_on_the_card_runs_the_kernel(dev):
@@ -464,6 +559,93 @@ def test_a_refused_cooperative_launch_raises(dev, monkeypatch):
     # nothing is left behind: the next launch and torch's own run
     dx = fbb.train_bwd(x, g, m, v, None, dy, 1e-5, "identity")[0]
     assert bool(torch.isfinite((dx.float() * 2).sum()))
+
+
+# ResNet-50's layer 4 and layer 2 at 32 images (whole chunks in shared
+# memory in bf16) and the stem's width at a row count whose chunks are
+# only partly resident
+BN_FWD = [(1568, 2048), (25088, 512), (300000, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["identity", "relu"])
+@pytest.mark.parametrize("use_res", [False, True])
+@pytest.mark.parametrize("rows,c", BN_FWD)
+def test_bn_train_forward_matches_and_repeats(dev, dtype, act, use_res,
+                                              rows, c):
+    x, g, b, res, _, _, _ = _bn(dev, rows, c, dtype)
+    r = res if use_res else None
+    tol = BN_F32 if dtype == torch.float32 else BN_BF16
+    plan = fbn.train_fwd_launch_plan(x, 1 if dtype == torch.bfloat16 else 0)
+    if rows == 300000:
+        assert 0 < plan.resident < plan.rows_per_chunk
+    elif dtype == torch.bfloat16:   # the main path's: whole chunks held
+        assert plan.resident == plan.rows_per_chunk
+    before = fbn.fused_bn_train.launches
+    y, mean, var = fbn._train_fwd(x, g, b, r, 1e-5, act)
+    assert fbn.fused_bn_train.launches == before + 1
+    ry, rmean, rvar = fbn.fused_bn_train_ref(x, g, b, 1e-5, act, r)
+    torch.testing.assert_close(y.float(), ry.float(), **tol)
+    stat_tol = dict(atol=1e-5 * rows ** 0.5, rtol=1e-4)
+    torch.testing.assert_close(mean, rmean, **stat_tol)
+    torch.testing.assert_close(var, rvar, **stat_tol)
+    again = fbn._train_fwd(x, g, b, r, 1e-5, act)
+    assert all(torch.equal(a, b_) for a, b_ in zip(again, (y, mean, var)))
+
+
+@pytest.mark.parametrize("rows,c,dtype", [(401408, 64, torch.bfloat16),
+                                          (32768, 64, torch.float32),
+                                          (1568, 2048, torch.float32)])
+def test_bn_train_forward_sums_in_the_reduction_pass_order(dev, rows, c,
+                                                           dtype):
+    # the statistics are the local-moments pass's sums (the same chunks,
+    # in the same order), so the mean is its sum times 1 / rows, bit for
+    # bit
+    x, g, b, _, _, _, _ = _bn(dev, rows, c, dtype)
+    s, _ = fbn._moments_fwd(x)
+    _, mean, _ = fbn._train_fwd(x, g, b, None, 1e-5, "identity")
+    assert torch.equal(mean, s * torch.tensor(1.0 / rows,
+                                              dtype=torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_train_forward_replays_in_a_cuda_graph(dev, dtype):
+    x, g, b, res, _, _, _ = _bn(dev, 6272, 1024, dtype)
+    run = lambda: fbn._train_fwd(x, g, b, res, 1e-5, "relu")  # noqa: E731
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b_) for a, b_ in zip(captured, eager))
+
+
+def test_a_refused_cooperative_forward_launch_raises(dev, monkeypatch):
+    x, g, b, _, _, _, _ = _bn(dev, 300000, 64, torch.bfloat16)
+    sms, blocks, budget = fbn._train_limits(0, 1, 1)
+    before = fbn.fused_bn_train.launches
+    # more CTAs than the card holds at once
+    monkeypatch.setattr(fbn, "_train_limits",
+                        lambda *a: (4 * sms, blocks, budget))
+    with pytest.raises(KernelLaunchError, match="p1t_fused_bn_train_fwd"):
+        fbn._train_fwd(x, g, b, None, 1e-5, "identity")
+    # more shared memory a CTA than the card gives one
+    monkeypatch.setattr(fbn, "_train_limits",
+                        lambda *a: (sms, blocks, 300000))
+    with pytest.raises(KernelLaunchError, match="p1t_fused_bn_train_fwd"):
+        fbn._train_fwd(x, g, b, None, 1e-5, "identity")
+    monkeypatch.undo()
+    assert fbn.fused_bn_train.launches == before
+    # nothing is left behind: the next launch and torch's own run
+    y = fbn._train_fwd(x, g, b, None, 1e-5, "identity")[0]
+    assert bool(torch.isfinite((y.float() * 2).sum()))
 
 
 @pytest.mark.parametrize("case", ["channels", "dtype", "strided",

@@ -158,7 +158,19 @@ def test_paged_attention_gate_is_the_shared_memory_budget():
     assert tpa.supported((16, 1, 8, 64), (513, 16, 8, 64))
     assert tpa.supported((4, 4, 2, 12), (9, 5, 2, 12))
     assert tpa.supported((2, 80, 2, 64), (9, 16, 2, 64))
-    assert tpa.smem_bytes(1, 64, 16) == 4 * (64 + 4 * (2080 + 16 + 64 + 2))
+    # one split of 4 pages: K and V [64, 64] f32, q [1, 64], scores
+    # [1, 64], m and l
+    assert tpa.smem_bytes(1, 64, 16) == 2 * 64 * 64 * 4 + 4 * (64 + 64 + 2)
+    # every shape the first design's budget took (4 warps, each with a K
+    # and a V page of D + 1 f32 columns, scores, an accumulator, m and l)
+    # still fits
+    for w in (1, 4, 16, 64, 80, 127):
+        for d in (8, 12, 64, 128, 256):
+            for ps in (5, 8, 16, 64, 256):
+                old = 4 * (w * d + 4 * (2 * ps * (d + 1) + w * ps + w * d
+                                        + 2 * w))
+                if old <= 232448:
+                    assert tpa.supported((2, w, 2, d), (9, ps, 2, d))
     # too much shared memory for one CTA
     assert not tpa.supported((1, 64, 1, 256), (4, 256, 1, 256))
     assert not tpa.supported((16, 1, 8, 64), (513, 16, 4, 64))  # heads
@@ -225,7 +237,7 @@ def _route_paged(q_shape, kp_shape, dtype=torch.float32, kv_dtype=None):
     ("paged f16 pools", lambda: _route_paged((2, 1, 2, 16), (9, 8, 2, 16),
                                              torch.float32, torch.float16),
      "contract"),
-    ("paged window past smem", lambda: _route_paged((2, 128, 8, 64),
+    ("paged window past smem", lambda: _route_paged((2, 600, 8, 64),
                                                     (9, 16, 8, 64)),
      "contract"),
     ("paged heads", lambda: _route_paged((2, 1, 8, 64), (9, 16, 4, 64)),

@@ -6,15 +6,22 @@ Run from the repo root::
     python3 tools/torch_bn_bench.py [--root DIR]
 
 Builds the kernels from the sources of the tree it imports and times the
-five of the fused batch-norm family (the training forward, the
-given-statistics forward, their two backward passes and the local
-moments) at ResNet-50's batch-norm shapes at 32 images a card
+five of the fused batch-norm family (the training forward and the
+training backward, each one cooperative launch, the given-statistics
+forward and backward, and the local moments) at ResNet-50's batch-norm
+shapes at 32 images a card
 (``chip_smoke.py``'s ``BN_SHAPES``: the stem, layers 2, 3 and 4) in bf16,
 by CUDA-graph replay over 4 input sets in turn, beside their plain
 versions, ``F.batch_norm`` (``torch.batch_norm_stats`` for the moments)
 on the same rows as a channels-last ``[N, C, H, W]`` tensor, and their
 bounds; the moments kernel is also held to its plain version
-(``chip_smoke.py``'s ``bn_timing`` and ``moments_phase``). ``--root DIR``
+(``chip_smoke.py``'s ``bn_timing`` and ``moments_phase``). ``plans``
+gives the cooperative kernels' resident rows per chunk at each shape,
+where the imported tree has their plans. ``--step`` times the training
+forward alone instead at every distinct batch-norm shape of a ResNet-50
+step at 32 images (``tools/torch_train_profile.py``'s
+``resnet50_bn_shapes``: 12 shapes, 53 batch norms) and sums them by
+their counts: its device time a step by CUDA-graph replay. ``--root DIR``
 imports ``paddle1_tpu_torch`` from another copy of the repo (say an older
 commit unpacked under ``_archive/``), so that two builds can be timed in
 turns on one card. The last line of stdout is one JSON object.
@@ -33,11 +40,31 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import chip_smoke as cs  # noqa: E402
+from tools.torch_train_profile import resnet50_bn_shapes  # noqa: E402
+
+
+def step_timing(dev):
+    """{"step_ms": sum, "shapes": {"RxC": {"ms", "count"}}}: the training
+    forward (bf16, identity, no residual) at each distinct shape of a
+    ResNet-50 step, over 4 input sets in turn, by CUDA-graph replay."""
+    from paddle1_tpu_torch.ops import fused_bn as fbn
+    shapes = resnet50_bn_shapes(cs.RN_BATCH)
+    out = {}
+    for rows, c in sorted(set(shapes)):
+        sets = cs.bn_inputs(dev, rows, c, torch.bfloat16, cs.SEED + 9,
+                            n_sets=4)
+        ms = cs.graph_time_ms([lambda s=s: fbn._train_fwd(
+            s[0], s[1], s[2], None, 1e-5, "identity") for s in sets])
+        out[f"{rows}x{c}"] = {"ms": ms, "count": shapes.count((rows, c))}
+        del sets
+    return {"step_ms": sum(v["ms"] * v["count"] for v in out.values()),
+            "shapes": out}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=None)
+    ap.add_argument("--step", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_bn_bench: no CUDA card", file=sys.stderr)
@@ -46,8 +73,15 @@ def main() -> int:
         sys.path.insert(0, os.path.abspath(args.root))
     import paddle1_tpu_torch
     dev = torch.device("cuda", 0)
+    if args.step:
+        print(json.dumps({
+            "card": cs.card_line(),
+            "package": os.path.dirname(paddle1_tpu_torch.__file__),
+            "kernel": "fused_bn_train", "dtype": "bf16",
+            **step_timing(dev)}))
+        return 0
     try:
-        times = cs.bn_timing(dev, plans=args.root is None)
+        times = cs.bn_timing(dev)
         _, moments = cs.moments_phase(dev)
     except cs.SmokeFailure as e:
         print(f"torch_bn_bench: {e}", file=sys.stderr)
@@ -61,6 +95,10 @@ def main() -> int:
         "kernels": {name: [{"shape": t["shape"], **{k: t[k] for k in keys}}
                            for t in cases]
                     for name, cases in times.items()},
+        "plans": {name: [{"shape": t["shape"], **{
+            k: t["plan"][k] for k in ("chunks", "rows_per_chunk",
+                                      "resident")}} for t in cases]
+                  for name, cases in times.items() if "plan" in cases[0]},
         "detail": times}))
     return 0
 

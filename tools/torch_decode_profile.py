@@ -95,7 +95,7 @@ def main() -> int:
     per_step_busy_ms = busy_us / 1e3 / n if kernels else None
     step_ms = prof_wall_ms / n
     ours = {name: sum(k[1] for k in kernels if name in k[0]) / 1e3 / n
-            for name in ("paged_attention_kernel", "layer_norm_warp_kernel")}
+            for name in ("paged_attention", "layer_norm_warp_kernel")}
     result = {
         "card": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

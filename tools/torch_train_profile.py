@@ -61,15 +61,52 @@ OUR_KERNELS = {
     "bert": ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
              "flash_bwd_dq_tc_kernel", "adam_kernel",
              "layer_norm_warp_kernel"),
-    # ops/cuda/fused_bn.cu, fused_bn_bwd.cu: the training forward's
-    # statistics pass, finalize (the forward's statistics; the
-    # given-statistics backward's sums) and the normalize pass (also the
-    # given-statistics forward); the training backward in one launch; the
-    # given-statistics backward
-    "resnet50": ("stats_partial_kernel", "finalize_kernel",
-                 "normalize_kernel", "train_bwd_kernel", "norm_bwd_kernel"),
+    # ops/cuda/fused_bn.cu, fused_bn_bwd.cu: the training forward and the
+    # training backward, one launch each; the given-statistics forward
+    # (normalize); the given-statistics backward and its finalize; the
+    # local moments' partial sums (dp); and, for a tree before the
+    # one-launch forward, its statistics pass
+    "resnet50": ("train_fwd_kernel", "stats_partial_kernel",
+                 "finalize_kernel", "normalize_kernel", "train_bwd_kernel",
+                 "norm_bwd_kernel"),
     "lenet": ("adam_kernel",),
 }
+
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (published peak)
+
+
+def resnet50_bn_shapes(batch: int, img: int = 224):
+    """``(rows, C)`` of ResNet-50's 53 batch norms, in order, at ``batch``
+    images of ``img`` x ``img``: the stem at img / 2, then stages of 3, 4,
+    6 and 3 bottlenecks of widths 64-512 (x 4 out), the stride on each
+    later stage's first 3 x 3 convolution, a projection on each stage's
+    first block."""
+    side = img // 4                       # after the stem and the pool
+    out = [(batch * (img // 2) ** 2, 64)]
+    for stage, (blocks, width) in enumerate(((3, 64), (4, 128), (6, 256),
+                                             (3, 512))):
+        for blk in range(blocks):
+            first = (batch * side ** 2, width)
+            if stage and blk == 0:
+                side //= 2
+            rows = batch * side ** 2
+            out += [first, (rows, width), (rows, 4 * width)]
+            if blk == 0:
+                out.append((rows, 4 * width))     # the projection's
+    return out
+
+
+def bn_bound_ms_per_step(batch: int, itemsize: int = 2):
+    """The least device time a step's batch norms could take on an H100
+    SXM, per kernel of the family, summed over :func:`resnet50_bn_shapes`:
+    each kernel's inputs read once and outputs written once (x and y for
+    the forwards, x, dy and dx for the backwards, x alone for the
+    moments; the per-channel vectors are negligible) over 3.35 TB/s."""
+    n = sum(rows * c for rows, c in resnet50_bn_shapes(batch)) * itemsize
+    return {kind: 1e3 * k * n / HBM_BYTES_PER_S for kind, k in (
+        ("train_fwd", 2), ("norm_fwd", 2), ("train_bwd", 3),
+        ("norm_bwd", 3), ("moments", 1))}
 
 
 def _is_gemm(name: str) -> bool:
@@ -316,6 +353,8 @@ def main() -> int:
     }
     if calls is not None:
         result["facade_calls_per_step"] = calls
+    if args.model == "resnet50":
+        result["bn_bound_ms_per_step"] = bn_bound_ms_per_step(args.batch)
     if args.dp:
         from torch.autograd import DeviceType
         result["nccl_kernels_ms_per_step"] = sum(
