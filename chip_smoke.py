@@ -94,9 +94,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
     each parameter's float64 gradient, and after three Momentum steps the
     losses, parameters and running statistics agree to 1e-4.
 11. **The local-moments kernel.** The cross-rank batch norm's per-rank
-    statistics pass against its plain version at the four ResNet-50
-    shapes, f32 and bf16 (the statistics' tolerance; repeats
-    bit-identical); timed in bf16 beside its plain version,
+    statistics pass (one launch, like the given-statistics backward: the
+    last CTAs to arrive sum the partial rows) against its
+    plain version at the four ResNet-50 shapes, f32 and bf16 (the
+    statistics' tolerance; repeats bit-identical), the training forward's
+    mean equal to its sum x 1 / rows bit for bit (the two share one
+    summation order); 53 moments and given-statistics backward calls
+    alternating as in a dp step, replayed in a CUDA graph equal to the
+    eager calls; timed in bf16 beside its plain version,
     ``torch.batch_norm_stats`` on the same data as a channels-last
     ``[N, C, H, W]`` tensor, and its bound.
 12. **Data-parallel ResNet-50 (the fourth main path).**
@@ -108,7 +113,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
     read just after: every step launches 53 ``local_moments``, 53
     ``fused_bn_norm``, 53 ``norm_bwd`` and no training-mode batch-norm
     kernel, and makes 2 x 53 + 1 all-reduces (one per batch norm each
-    way, one gradient bucket). The loss must be finite and falling.
+    way, one gradient bucket). Two more steps under ``torch.profiler``
+    count the device's kernels a step (printed) and hold the moments and
+    the given-statistics backward to one CUDA launch a call (53 each).
+    The loss must be finite and falling.
     Prints step ms, samples/s and MFU beside phase 9's single-device step.
 13. **Cross-rank check.** Two ranks spawned on the one card over gloo
     (NCCL refuses two ranks on one device), f32, ResNet-50 at full width
@@ -357,10 +365,9 @@ def tensor_core_report(build, libs):
 
 
 # the batch-norm kernels, by library and by a piece of their names
-BN_KERNELS = {"fused_bn": ("train_fwd_kernel", "stats_partial_kernel",
-                           "normalize_kernel", "finalize_kernel"),
-              "fused_bn_bwd": ("train_bwd_kernel", "norm_bwd_kernel",
-                               "finalize_kernel")}
+BN_KERNELS = {"fused_bn": ("train_fwd_kernel", "moments_kernel",
+                           "normalize_kernel"),
+              "fused_bn_bwd": ("train_bwd_kernel", "norm_bwd_kernel")}
 
 
 def bn_register_report(build):
@@ -1887,6 +1894,13 @@ def moments_phase(dev):
             again = fbn._moments_fwd(x)
             check(torch.equal(again[0], s) and torch.equal(again[1], ss),
                   f"local_moments {tag}: a repeat differs")
+            # the training forward sums in the moments' chunks and order
+            c1 = torch.ones(c, dtype=dtype, device=dev)
+            mean = fbn._train_fwd(x, c1, c1, None, eps, "identity")[1]
+            check(torch.equal(mean, s * torch.tensor(
+                1.0 / rows, dtype=torch.float32)), f"local_moments {tag}: "
+                "the training forward's mean is not the moments' sum x "
+                "1 / rows bit for bit")
             errs.append({"shape": [rows, c], "dtype": str(dtype),
                          "max_abs_err": max(float((a - w).abs().max())
                                             for a, w in ((s, rs),
@@ -1927,9 +1941,33 @@ def moments_phase(dev):
             f"{t['library_ms']:.5f} ms, bound {b_ms:.5f} ms ({by})")
         del xs, lib
         torch.cuda.empty_cache()
+    dp_pattern_replay(dev)
     log("local_moments: f32 and bf16 within tolerance at "
-        f"{[list(s) for s in BN_SHAPES]}, repeats bit-identical")
+        f"{[list(s) for s in BN_SHAPES]}, repeats bit-identical, the "
+        "training forward's mean its sum / rows bit for bit")
     return errs, times
+
+
+def dp_pattern_replay(dev):
+    """53 calls alternating the moments and the given-statistics
+    backward on one stream over the four shapes (their ticket counters
+    shared, as in a dp step), replayed twice in one CUDA graph: each
+    replay equal to the eager calls bit for bit."""
+    from paddle1_tpu_torch.ops import fused_bn as fbn
+    from paddle1_tpu_torch.ops import fused_bn_bwd as fbb
+    sets = [bn_inputs(dev, rows, c, torch.bfloat16, SEED + 13 + i)[0]
+            for i, (rows, c) in enumerate(BN_SHAPES)]
+
+    def run():
+        out = []
+        for i in range(RN_BNS):
+            x, g, _, _, m, v, dy = sets[(i // 2) % len(sets)]
+            out += fbn._moments_fwd(x) if i % 2 == 0 else fbb.norm_bwd(
+                x, g, m, v, None, dy, 1e-5, "identity", True)
+        return tuple(out)
+    graph_replay_equal(run, run(), "moments / norm_bwd, 53 alternating")
+    del sets
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1959,6 +1997,34 @@ class AllReduceCount:
         import torch.distributed as tdist
         tdist.all_reduce = self._orig
         return False
+
+
+def device_kernels_per_step(step, n):
+    """What the device ran per step over ``n`` steps under
+    ``torch.profiler``: every device-side event but label spans (as
+    ``tools/torch_train_profile.py`` counts them), their summed time, and
+    the batch-norm kernels by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            loss = step()
+        float(loss)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    check(events, "the profiler saw no device work in the dp step")
+    bn = {}
+    for e in events:
+        for name in BN_KERNELS["fused_bn"] + BN_KERNELS["fused_bn_bwd"] + (
+                "finalize_kernel",):
+            if name in e.name:
+                bn[name] = bn.get(name, 0) + 1
+    return {"kernels_per_step": len(events) / n,
+            "device_busy_ms_per_step": sum(
+                e.time_range.elapsed_us() for e in events) / 1e3 / n,
+            "bn_kernels_per_step": {k: v / n for k, v in bn.items()}}
 
 
 def resnet_dp_phase(dev, single):
@@ -2006,6 +2072,11 @@ def resnet_dp_phase(dev, single):
               f"({steps} steps)")
         check(calls.n == (2 * RN_BNS + 1) * steps, f"{calls.n} all-reduces "
               f"in {steps} steps, want {2 * RN_BNS + 1} per step")
+        device = device_kernels_per_step(step, 2)
+        for name in ("moments_kernel", "norm_bwd_kernel"):
+            got = device["bn_kernels_per_step"].get(name, 0)
+            check(got == RN_BNS, f"dp step: {got} {name} launches a step on "
+                  f"the device, want {RN_BNS} (one CUDA launch a call)")
         last = [float(eng.step(staged[0])), float(eng.step(staged[1]))]
         check(all(np.isfinite(first + last)), f"non-finite dp loss {first} "
               f"{last}")
@@ -2026,7 +2097,7 @@ def resnet_dp_phase(dev, single):
         "single_device_mfu": single["mfu"],
         "loss_first": first, "loss_last": last, "launches_train": launches,
         "launches_per_step": {k: n / steps for k, n in launches.items()},
-        "all_reduces_per_step": calls.n / steps}
+        "all_reduces_per_step": calls.n / steps, **device}
     log(json.dumps(summary))
     del eng, model, staged
     return summary
@@ -2646,8 +2717,7 @@ def main() -> int:
                ("fused_bn_train_bwd", "fused_bn_bwd.cu",
                 "fused_bn_bwd.py:54", ("train_bwd_kernel",)),
                ("fused_bn_norm_bwd", "fused_bn_bwd.cu",
-                "fused_bn_bwd.py:158", ("norm_bwd_kernel",
-                                        "finalize_kernel")))
+                "fused_bn_bwd.py:158", ("norm_bwd_kernel",)))
 
     def layer4(case):
         """The layer-4 ([1568, 2048]) times of one timing list."""
@@ -2686,8 +2756,8 @@ def main() -> int:
         "library_ms": main_case["library_ms"],
         "library_covers": main_case["library_covers"],
         "shape": [main_case["shape"], "bf16"], **layer4(mom_times),
-        "registers": {p: bn_regs[f"fused_bn.{p}"] for p in (
-            "stats_partial_kernel", "finalize_kernel")},
+        "registers": {"moments_kernel":
+                      bn_regs["fused_bn.moments_kernel"]},
         "timing_cases": mom_times, "cases": mom_errs})
     main_case = sm_times[0]     # LeNet's prediction, [64, 10]
     n_sm = lenet["predict_launches"]["softmax"]

@@ -24,9 +24,9 @@
 //      with cp.async, streams the rest through registers (several rows'
 //      16-byte loads in flight, while the copies land), sums x and x^2
 //      per channel in f32 and writes one partial row of each per
-//      sub-chunk: the chunks of the reduction pass (stats_partial_kernel's)
-//      summed in its order, so the statistics are that pass's and the
-//      finalize's bit for bit (a ResNet-50's f32 gradients turn on their
+//      sub-chunk: the chunks of the local-moments pass (moments_kernel's)
+//      summed in its order, so the statistics are that pass's bit for
+//      bit (a ResNet-50's f32 gradients turn on their
 //      last bits: tools/torch_resnet_grad_gap.py);
 //   B. grid barrier; one warp per channel sums the partial rows in chunk
 //      order (no atomics: repeats are bit-identical) into mean and var;
@@ -49,10 +49,13 @@
 // in flight after it.
 //
 // Local moments (replaces ::_moments_kernel, SyncBatchNorm's per-rank
-// statistics pass): a partial-sum pass ([chunks, C], fused_bn_common.cuh)
-// and the finalize kernel writing the raw f32 sums of x and x^2 per
+// statistics pass): ONE launch writing the raw f32 sums of x and x^2 per
 // channel, which the caller all-reduces across ranks before it
-// normalizes. One read of x: the compulsory traffic.
+// normalizes. Each CTA sums its chunk of rows into a partial row
+// ([chunks, C], fused_bn_common.cuh), several rows' loads in flight a
+// thread; the last CTAs to arrive (int32 tickets, no grid barrier:
+// finish_tile) sum the partial rows in the fixed order, so no second
+// launch. One read of x: the compulsory traffic.
 //
 // Loads are 16 B (8 bf16) or 32 B (8 f32) per thread, neighbouring
 // threads on neighbouring channels; rows are strided across the block's
@@ -69,40 +72,53 @@ namespace {
 
 using namespace p1t_bn;
 
+// Local moments: grid (tiles, chunks) of stats_plan (ops/fused_bn.py),
+// block (TX, TY). Each thread sums its vector over its chunk's rows
+// r0 + ty, r0 + ty + TY, ... in order, with the loads of RowsInFlight of
+// them issued before any is added; the block writes one partial row of
+// each sum (column_sums), and the last blocks to arrive sum the partial
+// rows into s/ss (finish_tile). The training forward's statistics repeat
+// this order bit for bit. At 64 registers a thread, four CTAs fit an SM,
+// so stats_plan's grid of about four CTAs an SM is one wave.
 template <typename T>
-__global__ void stats_partial_kernel(const T* __restrict__ x,
-                                     long long rows, int c,
-                                     long long rows_per_chunk,
-                                     float* __restrict__ ps,
-                                     float* __restrict__ pss) {
-  const int cv = c / kVec;
+__global__ void __launch_bounds__(kThreads)
+moments_kernel(const T* __restrict__ x, long long rows, int c,
+               long long rows_per_chunk, float* ps, float* pss,
+               int* counters, float* __restrict__ s_out,
+               float* __restrict__ ss_out) {
+  constexpr int U = RowsInFlight<T>::value;
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   const long long r0 = static_cast<long long>(blockIdx.y) * rows_per_chunk;
   long long r1 = r0 + rows_per_chunk;
   if (r1 > rows) r1 = rows;
+  const long long step = blockDim.y;
   float s[kVec] = {}, ss[kVec] = {};
-  if (v < cv) {
-    for (long long r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
-      float xv[kVec];
-      load8(x + r * c + static_cast<long long>(v) * kVec, xv);
+  if (v < c / kVec) {
+    const long long col = static_cast<long long>(v) * kVec;
+    for (long long r = r0 + threadIdx.y; r < r1; r += U * step) {
+      Raw8<T> xr[U];
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        s[i] += xv[i];
-        ss[i] += xv[i] * xv[i];
+      for (int u = 0; u < U; ++u)
+        if (r + u * step < r1) load_raw(x + (r + u * step) * c + col, xr[u]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (r + u * step < r1) {
+          float xv[kVec];
+          widen(xr[u], xv);
+#pragma unroll
+          for (int i = 0; i < kVec; ++i) {
+            s[i] += xv[i];
+            ss[i] += xv[i] * xv[i];
+          }
+        }
       }
     }
   }
   __shared__ float buf[kThreads * kVec];
   column_sums(buf, s, ps, c);
   column_sums(buf, ss, pss, c);
+  finish_tile(ps, pss, c, counters, s_out, ss_out);
 }
-
-// Rows a thread keeps in flight in the normalize pass: 64 bytes of x
-// (four bf16 or two f32 vectors), loaded before any is computed.
-template <typename T>
-struct NormRowsInFlight {
-  static constexpr int value = sizeof(T) == 2 ? 4 : 2;
-};
 
 // Given-statistics normalize, one wave of resident CTAs (the grid from
 // the occupancy API). A CTA is one channel tile of blockDim.x vectors
@@ -118,7 +134,7 @@ normalize_kernel(const T* __restrict__ x, const float* __restrict__ mean,
                  const P* __restrict__ beta, const T* __restrict__ res,
                  T* __restrict__ y, long long rows, int c, float eps,
                  int relu) {
-  constexpr int U = NormRowsInFlight<T>::value;
+  constexpr int U = RowsInFlight<T>::value;
   __shared__ __align__(16) float coef[4][kTileMax];   // mean, rstd, g, b
   const int tile_w = blockDim.x * kVec;
   const int c0 = blockIdx.x * tile_w;
@@ -190,10 +206,10 @@ constexpr int kFwdFixedSmem = kThreads * kVec * 4 + 4 * kTileMax * 4;
 // note at the top). Grid (tiles, chunks), block (TX, TY); CTA (t, k) owns
 // channels [t * TX * 8, ...) of rows [k * rows_per_chunk, ...), which it
 // sums as `subs` sub-chunks of sub_rows consecutive rows: the chunks of
-// the statistics pass (stats_partial_kernel, ops/fused_bn.py plan), each a
-// partial row of its own, with each thread on local rows sub_start + ty,
-// + TY, ... in order, so the statistics are the ones that pass and the
-// finalize kernel compute, bit for bit. The chunk's last `resident` rows
+// the local-moments pass (moments_kernel, ops/fused_bn.py stats_plan),
+// each a partial row of its own, with each thread on local rows
+// sub_start + ty, + TY, ... in order, so the statistics are the ones that
+// pass computes, bit for bit. The chunk's last `resident` rows
 // are held in shared memory: the rows streamed come first in that order,
 // so their loads overlap the copies.
 template <typename T, typename P>
@@ -204,7 +220,7 @@ train_fwd_kernel(const T* __restrict__ x, const P* __restrict__ gamma,
                  long long sub_rows, int subs, int sub_chunks, int resident,
                  float inv_count, float eps, int relu, float* ps, float* pss,
                  float* mean, float* var, T* __restrict__ y) {
-  constexpr int U = NormRowsInFlight<T>::value;
+  constexpr int U = RowsInFlight<T>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   float* scratch = reinterpret_cast<float*>(smem);
   float* coef = scratch + kThreads * kVec;     // [4][kTileMax]
@@ -294,7 +310,7 @@ train_fwd_kernel(const T* __restrict__ x, const P* __restrict__ gamma,
   }
 
   // handoff: every partial row is out; one warp per channel sums them as
-  // finalize_kernel does, bit for bit: lane l over the rows k = l, l + 32,
+  // finish_tile does, bit for bit: lane l over the rows k = l, l + 32,
   // ... in order (four of its loads in flight), then the shuffle tree
   cooperative_groups::this_grid().sync();
   const int warps = nt / 32;     // whole warps only (TX * TY may be < 256)
@@ -487,18 +503,17 @@ int norm_fwd(const void* x, const float* mean, const float* var,
 
 template <typename T>
 int moments(const void* x, float* s, float* ss, float* ps, float* pss,
-            long long rows, int c, int tx, int chunks,
+            int* counters, long long rows, int c, int tx, int chunks,
             long long rows_per_chunk, cudaStream_t stream) {
   dim3 block;
   int tiles;
   if (rows <= 0 || chunks < 1 || chunks > 65535 ||
       !block_shape(c, tx, &block, &tiles))
     return static_cast<int>(cudaErrorInvalidValue);
-  stats_partial_kernel<T><<<dim3(tiles, chunks), block, 0, stream>>>(
-      static_cast<const T*>(x), rows, c, rows_per_chunk, ps, pss);
-  const int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  return launch_finalize(ps, pss, chunks, c, 1.f, 1, s, ss, stream);
+  moments_kernel<T><<<dim3(tiles, chunks), block, 0, stream>>>(
+      static_cast<const T*>(x), rows, c, rows_per_chunk, ps, pss, counters,
+      s, ss);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -595,21 +610,24 @@ int p1t_fused_bn_norm_fwd(const void* x, const void* mean, const void* var,
 }
 
 // Per-channel f32 sum and sum of squares of x [rows, C]: s/ss f32 [C]
-// outputs; ps/pss f32 [chunks, C] scratch.
+// outputs; ps/pss f32 [chunks, C] scratch; counters: int32
+// [tiles * kCountersPerTile], 0 before the launch and left 0 by it. One
+// launch.
 int p1t_fused_bn_moments(const void* x, void* s, void* ss, void* ps,
-                         void* pss, long long rows, int c, int tx,
-                         int chunks, long long rows_per_chunk, int dtype,
-                         void* stream) {
+                         void* pss, void* counters, long long rows, int c,
+                         int tx, int chunks, long long rows_per_chunk,
+                         int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto a = static_cast<float*>(s);
   auto b = static_cast<float*>(ss);
   auto pa = static_cast<float*>(ps);
   auto pb = static_cast<float*>(pss);
+  auto ct = static_cast<int*>(counters);
   if (dtype == 0)
-    return moments<float>(x, a, b, pa, pb, rows, c, tx, chunks,
+    return moments<float>(x, a, b, pa, pb, ct, rows, c, tx, chunks,
                           rows_per_chunk, st);
   if (dtype == 1)
-    return moments<__nv_bfloat16>(x, a, b, pa, pb, rows, c, tx, chunks,
+    return moments<__nv_bfloat16>(x, a, b, pa, pb, ct, rows, c, tx, chunks,
                                   rows_per_chunk, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

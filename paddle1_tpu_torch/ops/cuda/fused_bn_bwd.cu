@@ -34,8 +34,13 @@
 //             The Pallas kernel's sequential (2, row_blocks) grid holds
 //             the sums in VMEM between its phases; here the grid barrier
 //             does, with the rows held in shared memory.
-//   given:    dx is row-local, so one pass writes dx and the partials,
-//             and the finalize kernel reduces the partials.
+//   given:    dx is row-local, so ONE launch: each CTA streams its chunk
+//             of rows (several rows' 16-byte loads in flight a thread),
+//             writes dx row by row and one partial row of the sums, and
+//             the last CTAs to arrive (int32 tickets, no grid barrier:
+//             finish_tile, fused_bn_common.cuh) sum the partial rows in a
+//             fixed order (no float atomics). Its grid is one wave of
+//             resident CTAs (norm_bwd_plan).
 // Built by paddle1_tpu_torch/ops/cuda/build.py with nvcc for sm_90a into
 // a shared library with a plain C interface (ctypes).
 
@@ -46,21 +51,6 @@
 namespace {
 
 using namespace p1t_bn;
-
-// dy masked by the relu of the forward output
-template <typename T>
-__device__ __forceinline__ void masked_dy(const T* __restrict__ dy,
-                                          const T* __restrict__ y,
-                                          long long off, int relu,
-                                          float (&d)[kVec]) {
-  load8(dy + off, d);
-  if (relu) {
-    float yv[kVec];
-    load8(y + off, yv);
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) d[i] = yv[i] > 0.f ? d[i] : 0.f;
-  }
-}
 
 __device__ __forceinline__ void channel_stats(const float* __restrict__ mean,
                                               const float* __restrict__ var,
@@ -73,13 +63,6 @@ __device__ __forceinline__ void channel_stats(const float* __restrict__ mean,
     rs[i] = rsqrtf(var[v * kVec + i] + eps);
   }
 }
-
-// Rows a thread keeps in flight where it streams from global memory: 64
-// bytes of each tensor (four bf16 or two f32 vectors).
-template <typename T>
-struct BwdRowsInFlight {
-  static constexpr int value = sizeof(T) == 2 ? 4 : 2;
-};
 
 // Shared memory ahead of the resident rows: the column-sum scratch
 // (kThreads x 8 floats) and five per-channel coefficient rows (mean,
@@ -110,7 +93,7 @@ train_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                  long long rows_per_chunk, int resident, float eps, int relu,
                  float* psg, float* psb, float* dg, float* db,
                  T* __restrict__ dx, T* __restrict__ dres) {
-  constexpr int U = BwdRowsInFlight<T>::value;
+  constexpr int U = RowsInFlight<T>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   float* scratch = reinterpret_cast<float*>(smem);
   float* coef = scratch + kThreads * kVec;     // [5][kTileMax]
@@ -310,50 +293,73 @@ train_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
-// given statistics: dx, dres and the partial sums in one pass
+// given statistics, ONE launch: grid (tiles, chunks) of norm_bwd_plan
+// (ops/fused_bn_bwd.py: stats_plan's chunks cut to one wave of resident
+// CTAs), block (TX, TY). Each thread walks its chunk's rows
+// r0 + ty, r0 + ty + TY, ... with the loads of RowsInFlight of them (x,
+// dy, and y for relu) issued before any is used, writes dx (and dres) row
+// by row and sums dy * xhat and dy; the block writes one partial row of
+// each sum, and the last blocks to arrive sum the partial rows into
+// dgamma, dbeta (finish_tile).
 template <typename T, typename P>
-__global__ void norm_bwd_kernel(const T* __restrict__ x,
-                                const T* __restrict__ dy,
-                                const T* __restrict__ y,
-                                const P* __restrict__ gamma,
-                                const float* __restrict__ mean,
-                                const float* __restrict__ var,
-                                long long rows, int c,
-                                long long rows_per_chunk, float eps,
-                                int relu, T* __restrict__ dx,
-                                T* __restrict__ dres,
-                                float* __restrict__ psg,
-                                float* __restrict__ psb) {
-  const int cv = c / kVec;
+__global__ void __launch_bounds__(kThreads)
+norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                const T* __restrict__ y, const P* __restrict__ gamma,
+                const float* __restrict__ mean,
+                const float* __restrict__ var, long long rows, int c,
+                long long rows_per_chunk, float eps, int relu,
+                T* __restrict__ dx, T* __restrict__ dres, float* psg,
+                float* psb, int* counters, float* __restrict__ dg,
+                float* __restrict__ db) {
+  constexpr int U = RowsInFlight<T>::value;
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   const long long r0 = static_cast<long long>(blockIdx.y) * rows_per_chunk;
   long long r1 = r0 + rows_per_chunk;
   if (r1 > rows) r1 = rows;
+  const long long step = blockDim.y;
   float sg[kVec] = {}, sb[kVec] = {};
-  if (v < cv) {
+  if (v < c / kVec) {
+    const long long col = static_cast<long long>(v) * kVec;
     float mu[kVec], rs[kVec], gr[kVec];
     channel_stats(mean, var, v, eps, mu, rs);
 #pragma unroll
     for (int i = 0; i < kVec; ++i) gr[i] = to_f32(gamma[v * kVec + i]) * rs[i];
-    for (long long r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
-      const long long off = r * c + static_cast<long long>(v) * kVec;
-      float xv[kVec], d[kVec], out[kVec];
-      load8(x + off, xv);
-      masked_dy(dy, y, off, relu, d);
+    for (long long r = r0 + threadIdx.y; r < r1; r += U * step) {
+      Raw8<T> xr[U], dr[U], yr[U];
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        const float xhat = (xv[i] - mu[i]) * rs[i];
-        sg[i] += d[i] * xhat;
-        sb[i] += d[i];
-        out[i] = d[i] * gr[i];
+      for (int u = 0; u < U; ++u) {
+        if (r + u * step < r1) {
+          const long long off = (r + u * step) * c + col;
+          load_raw(x + off, xr[u]);
+          load_raw(dy + off, dr[u]);
+          if (relu) load_raw(y + off, yr[u]);
+        }
       }
-      store8(dx + off, out);
-      if (dres != nullptr) store8(dres + off, d);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (r + u * step < r1) {
+          const long long off = (r + u * step) * c + col;
+          float xv[kVec], d[kVec], out[kVec];
+          widen(xr[u], xv);
+          widen(dr[u], d);
+          if (relu) mask_relu(yr[u], d);
+#pragma unroll
+          for (int i = 0; i < kVec; ++i) {
+            const float xhat = (xv[i] - mu[i]) * rs[i];
+            sg[i] += d[i] * xhat;
+            sb[i] += d[i];
+            out[i] = d[i] * gr[i];
+          }
+          store8(dx + off, out);
+          if (dres != nullptr) store8(dres + off, d);
+        }
+      }
     }
   }
   __shared__ float buf[kThreads * kVec];
   column_sums(buf, sg, psg, c);
   column_sums(buf, sb, psb, c);
+  finish_tile(psg, psb, c, counters, dg, db);
 }
 
 template <typename T, typename P>
@@ -417,7 +423,7 @@ template <typename T, typename P>
 int norm_bwd(const void* x, const void* g, const float* mean,
              const float* var, const void* y, const void* dy, void* dx,
              void* dres, float* dg, float* db, float* psg, float* psb,
-             long long rows, int c, int tx, int chunks,
+             int* counters, long long rows, int c, int tx, int chunks,
              long long rows_per_chunk, float eps, int relu,
              cudaStream_t stream) {
   dim3 block;
@@ -429,10 +435,8 @@ int norm_bwd(const void* x, const void* g, const float* mean,
       static_cast<const T*>(x), static_cast<const T*>(dy),
       static_cast<const T*>(y), static_cast<const P*>(g), mean, var, rows, c,
       rows_per_chunk, eps, relu, static_cast<T*>(dx), static_cast<T*>(dres),
-      psg, psb);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  return launch_finalize(psg, psb, chunks, c, 1.f, 1, dg, db, stream);
+      psg, psb, counters, dg, db);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -488,12 +492,15 @@ int p1t_fused_bn_bwd_train_occupancy(int dtype, int pdtype, int smem_bytes,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Given statistics, one launch: as above, with counters: int32
+// [tiles * kCountersPerTile], 0 before the launch and left 0 by it.
 int p1t_fused_bn_bwd_norm(const void* x, const void* g, const void* mean,
                           const void* var, const void* y, const void* dy,
                           void* dx, void* dres, void* dg, void* db,
-                          void* psg, void* psb, long long rows, int c, int tx,
-                          int chunks, long long rows_per_chunk, float eps,
-                          int relu, int dtype, int pdtype, void* stream) {
+                          void* psg, void* psb, void* counters,
+                          long long rows, int c, int tx, int chunks,
+                          long long rows_per_chunk, float eps, int relu,
+                          int dtype, int pdtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto m = static_cast<const float*>(mean);
   auto v = static_cast<const float*>(var);
@@ -501,14 +508,29 @@ int p1t_fused_bn_bwd_norm(const void* x, const void* g, const void* mean,
   auto b = static_cast<float*>(db);
   auto pa = static_cast<float*>(psg);
   auto pb = static_cast<float*>(psb);
-#define P1T_NORM(T, P)                                                     \
-  return norm_bwd<T, P>(x, g, m, v, y, dy, dx, dres, a, b, pa, pb, rows, c, \
-                        tx, chunks, rows_per_chunk, eps, relu, s)
+  auto ct = static_cast<int*>(counters);
+#define P1T_NORM(T, P)                                                    \
+  return norm_bwd<T, P>(x, g, m, v, y, dy, dx, dres, a, b, pa, pb, ct,    \
+                        rows, c, tx, chunks, rows_per_chunk, eps, relu, s)
   if (dtype == 0 && pdtype == 0) P1T_NORM(float, float);
   if (dtype == 0 && pdtype == 1) P1T_NORM(float, __nv_bfloat16);
   if (dtype == 1 && pdtype == 0) P1T_NORM(__nv_bfloat16, float);
   if (dtype == 1 && pdtype == 1) P1T_NORM(__nv_bfloat16, __nv_bfloat16);
 #undef P1T_NORM
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// CTAs of the given-statistics kernel (256 threads) that one SM holds at
+// once, for the launch plan's one-wave grid. Returns a cudaError_t.
+int p1t_fused_bn_bwd_norm_occupancy(int dtype, int pdtype, int* blocks) {
+#define P1T_OCC(T, P)                                                  \
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor( \
+      blocks, norm_bwd_kernel<T, P>, kThreads, 0))
+  if (dtype == 0 && pdtype == 0) P1T_OCC(float, float);
+  if (dtype == 0 && pdtype == 1) P1T_OCC(float, __nv_bfloat16);
+  if (dtype == 1 && pdtype == 0) P1T_OCC(__nv_bfloat16, float);
+  if (dtype == 1 && pdtype == 1) P1T_OCC(__nv_bfloat16, __nv_bfloat16);
+#undef P1T_OCC
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

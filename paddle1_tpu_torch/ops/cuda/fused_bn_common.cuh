@@ -6,12 +6,13 @@
 // vector of 8 channels (16 B of bf16, 32 B of f32) and walks rows with a
 // stride; a block is TX vectors wide (blockDim.x) and TY rows tall
 // (blockDim.y), TX * TY <= 256. A reduction over rows runs in two stages
-// with no atomics, so repeats are bit-identical:
+// with no float atomics, so repeats are bit-identical:
 //   1. blockIdx.y is a chunk of consecutive rows; each block sums its
 //      chunk per channel (thread loops, then a fixed-order column sum in
 //      shared memory) and writes one f32 partial row [chunk, C];
-//   2. finalize_kernel: one warp per channel sums the partial rows in a
-//      fixed lane order and shuffle tree.
+//   2. in the same launch, the partial rows are summed per channel in a
+//      fixed lane order and shuffle tree by the last blocks to arrive
+//      (int32 tickets; finish_tile below).
 
 #pragma once
 
@@ -139,47 +140,160 @@ __device__ __forceinline__ void column_sums(float* buf,
   __syncthreads();
 }
 
-// Stage 2: one warp per channel sums pa/pb[0..chunks) in a fixed order.
-// mode 0: out1 = mean = s * inv_count,
-//         out2 = var = max(ss * inv_count - mean^2, 0)  (the exact count
-//         enters once, as a host constant);
-// mode 1: out1, out2 = the raw sums.
-__global__ void finalize_kernel(const float* __restrict__ pa,
-                                const float* __restrict__ pb, int chunks,
-                                int c, float inv_count, int mode,
-                                float* __restrict__ out1,
-                                float* __restrict__ out2) {
-  const int lane = threadIdx.x & 31;
-  const int ch = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (ch >= c) return;
-  float s = 0.f, t = 0.f;
-  for (int k = lane; k < chunks; k += 32) {
-    s += pa[static_cast<long long>(k) * c + ch];
-    t += pb[static_cast<long long>(k) * c + ch];
+// Rows a thread keeps in flight where it streams from global memory: 64
+// bytes of each tensor (four bf16 or two f32 vectors), loaded before any
+// is used.
+template <typename T>
+struct RowsInFlight {
+  static constexpr int value = sizeof(T) == 2 ? 4 : 2;
+};
+
+// Stage 2 runs in the same launch, in one fixed order per channel (that
+// of one warp per channel): lane l adds the partial rows l, l + 32,
+// l + 64, ... in turn from 0 (its "lane sum" S_l), then an xor tree 16,
+// 8, 4, 2, 1 over the 32 lane sums. The training forward's handoff
+// (fused_bn.cu) repeats that order bit for bit. The lane sums are spread
+// over the SMs: the partial rows of one class l (rows k = l mod 32) are
+// summed by the last CTA of that class to arrive, which writes S_l over
+// partial row l; the last of the classes to arrive then runs the xor
+// tree. So no CTA reads more than its class's rows and 32 rows of lane
+// sums. Arrivals are counted on int32 tickets (no float
+// atomics: repeats are bit-identical), kCountersPerTile a channel tile:
+// one per class, then one for the tile.
+constexpr int kLanes = 32;
+constexpr int kCountersPerTile = kLanes + 1;
+
+// fence.acq_rel at GPU scope (CUTLASS's inter-CTA barrier uses it): the
+// release of the stores the CTA barrier ordered before it, and the acquire
+// of those the other CTAs released.
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+}
+
+// The ticket: the block's threads meet, then one thread fences and counts
+// the block in on *counter. True, in every thread, in the last of
+// `expected` blocks to arrive, which sets the counter back to 0 for the
+// next launch or graph replay and fences again before its threads read
+// what the others wrote. Call it from all threads.
+__device__ __forceinline__ bool arrive_last(int* counter, int expected) {
+  __shared__ int last;
+  __syncthreads();
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    fence_acq_rel_gpu();
+    last = atomicAdd(counter, 1) == expected - 1;
+    if (last) {
+      *counter = 0;
+      fence_acq_rel_gpu();
+    }
   }
+  __syncthreads();
+  return last;
+}
+
+// The lane sum of class `cls` for the tile's channels, written over
+// partial row cls: one thread per 4 channels of one of the two tensors,
+// kFoldInFlight rows' 16-byte loads (through L2) in flight.
+__device__ __forceinline__ void class_fold(float* pa, float* pb, int cls,
+                                           int chunks, int c) {
+  constexpr int kFoldInFlight = 8;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int quads = blockDim.x * 2;                 // 4-channel groups
+  const int c0 = blockIdx.x * blockDim.x * kVec;
+  const int q = tid % quads;
+  if (tid >= 2 * quads || c0 + 4 * q >= c) return;
+  float* p = (tid < quads ? pa : pb) + c0 + 4 * q;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k0 = cls; k0 < chunks; k0 += kFoldInFlight * kLanes) {
+    float4 r[kFoldInFlight];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, o);
-    t += __shfl_xor_sync(0xffffffffu, t, o);
+    for (int u = 0; u < kFoldInFlight; ++u) {
+      const long long k = k0 + kLanes * u;
+      if (k < chunks) r[u] = __ldcg(reinterpret_cast<const float4*>(p + k * c));
+    }
+#pragma unroll
+    for (int u = 0; u < kFoldInFlight; ++u) {
+      if (k0 + kLanes * u < chunks) {
+        acc.x += r[u].x;
+        acc.y += r[u].y;
+        acc.z += r[u].z;
+        acc.w += r[u].w;
+      }
+    }
   }
-  if (lane != 0) return;
-  if (mode == 0) {
-    const float m = s * inv_count;
-    out1[ch] = m;
-    out2[ch] = fmaxf(t * inv_count - m * m, 0.f);
-  } else {
-    out1[ch] = s;
-    out2[ch] = t;
+  *reinterpret_cast<float4*>(p + static_cast<long long>(cls) * c) = acc;
+}
+
+// The xor tree over the lane sums S_0..S_(lanes - 1) held in partial rows
+// 0..lanes - 1 (S_l = 0 for l >= lanes), for one 4-channel column of one
+// tensor per group of 8 threads: the tree adds S_l + S_(l+16), then pairs
+// 8 apart, 4, 2, 1 (a + b == b + a in IEEE arithmetic, so only the pairing
+// matters). Thread j of the group loads S_j, S_(j+8), S_(j+16), S_(j+24)
+// and forms the first two levels, (S_j + S_(j+16)) + (S_(j+8) + S_(j+24));
+// xor shuffles 4, 2, 1 inside the group finish it, and thread 0 of the
+// group writes it. Two columns' loads in flight a thread.
+__device__ __forceinline__ void lane_tree(const float* pa, const float* pb,
+                                          int lanes, int c,
+                                          float* __restrict__ out1,
+                                          float* __restrict__ out2) {
+  constexpr int kGroup = 8, kCols = 2;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nt = blockDim.x * blockDim.y / 32 * 32;   // whole warps only
+  if (tid >= nt) return;
+  const int j = tid % kGroup, groups = nt / kGroup;
+  const int quads = blockDim.x * 2;                   // per tensor
+  const int c0 = blockIdx.x * blockDim.x * kVec;
+  const int cols = 2 * quads;
+  // every thread runs the same rounds: the shuffles need whole warps
+  for (int base = 0; base < cols; base += kCols * groups) {
+    float4 v[kCols][4];
+#pragma unroll
+    for (int h = 0; h < kCols; ++h) {
+      const int col = base + h * groups + tid / kGroup, q = col % quads;
+      const bool live = col < cols && c0 + 4 * q < c;
+      const float* p = (col < quads ? pa : pb) + c0 + 4 * q;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int l = j + kGroup * e;
+        v[h][e] = live && l < lanes
+                      ? __ldcg(reinterpret_cast<const float4*>(
+                            p + static_cast<long long>(l) * c))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < kCols; ++h) {
+      const int col = base + h * groups + tid / kGroup, q = col % quads;
+      float t[4] = {(v[h][0].x + v[h][2].x) + (v[h][1].x + v[h][3].x),
+                    (v[h][0].y + v[h][2].y) + (v[h][1].y + v[h][3].y),
+                    (v[h][0].z + v[h][2].z) + (v[h][1].z + v[h][3].z),
+                    (v[h][0].w + v[h][2].w) + (v[h][1].w + v[h][3].w)};
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) t[i] += __shfl_xor_sync(0xffffffffu, t[i], o);
+      if (j == 0 && col < cols && c0 + 4 * q < c)
+        *reinterpret_cast<float4*>((col < quads ? out1 : out2) + c0 + 4 * q) =
+            make_float4(t[0], t[1], t[2], t[3]);
+    }
   }
 }
 
-inline int launch_finalize(const float* pa, const float* pb, int chunks,
-                           int c, float inv_count, int mode, float* out1,
-                           float* out2, cudaStream_t stream) {
-  const int warps = kThreads / 32;
-  finalize_kernel<<<(c + warps - 1) / warps, kThreads, 0, stream>>>(
-      pa, pb, chunks, c, inv_count, mode, out1, out2);
-  return static_cast<int>(cudaGetLastError());
+// Stage 2 of the block of chunk blockIdx.y, after its partial rows are
+// written (column_sums): the fold of its class if it is the class's last,
+// then the xor tree if that makes it the tile's last. counters:
+// kCountersPerTile ints a channel tile, 0 before the launch and left 0.
+__device__ __forceinline__ void finish_tile(float* pa, float* pb, int c,
+                                            int* counters,
+                                            float* __restrict__ out1,
+                                            float* __restrict__ out2) {
+  const int chunks = gridDim.y;
+  const int cls = blockIdx.y % kLanes;
+  int* ct = counters + blockIdx.x * kCountersPerTile;
+  if (!arrive_last(ct + cls, (chunks - 1 - cls) / kLanes + 1)) return;
+  class_fold(pa, pb, cls, chunks, c);
+  const int lanes = min(chunks, kLanes);
+  if (!arrive_last(ct + kLanes, lanes)) return;
+  lane_tree(pa, pb, lanes, c, out1, out2);
 }
 
 // The block shape every kernel of the family uses: TX = min(C / 8, 32)

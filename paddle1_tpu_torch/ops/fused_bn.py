@@ -33,10 +33,16 @@ where the chunk fits, x crosses device memory once. A launch the card
 refuses (more CTAs than it holds at once, too much shared memory) raises
 :class:`KernelLaunchError`; nothing falls back.
 
+The local moments (and the given-statistics backward in
+``fused_bn_bwd``) are one launch each: every CTA writes a partial row of
+its chunk's sums, and the last CTAs to arrive sum them, counted in on
+int32 tickets (:func:`tile_counters`): the last of each lane class of
+chunks folds its class, the last class runs the shuffle tree;
+:func:`tile_finalize_emulation` is that sum's order in plain torch.
+
 ``fused_bn_train.launches``, ``fused_bn_norm.launches`` and
 ``local_moments.launches`` count calls that launched the kernel: ONE per
-call (a moments call is two CUDA launches inside: partial sums,
-finalize).
+call, and one CUDA launch each.
 """
 
 from __future__ import annotations
@@ -52,14 +58,18 @@ from ..core.errors import InvalidArgumentError, KernelLaunchError
 __all__ = ["ACTS", "supported", "fused_bn_train", "fused_bn_norm",
            "local_moments", "fused_bn_train_ref", "fused_bn_norm_ref",
            "local_moments_ref", "TrainPlan", "train_fwd_plan",
-           "train_fwd_launch_plan"]
+           "train_fwd_launch_plan", "tile_counters",
+           "tile_finalize_emulation"]
 
 ACTS = ("identity", "relu")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _THREADS = 256          # fused_bn_common.cuh kThreads
 _VEC = 8                # channels per thread
 _ALIGN = 16             # bytes: one vector load
+COUNTERS_PER_TILE = 33  # fused_bn_common.cuh kCountersPerTile: 32 lane
+                        # classes of chunks and the tile
 _fns = {}
+_counters = {}          # (device, tiles) -> int32 ticket counters
 
 
 def _check_act(act: str) -> None:
@@ -166,6 +176,49 @@ def stats_plan(rows: int, c: int, sms: int):
 def plan(rows: int, c: int, device):
     """:func:`stats_plan` for ``[rows, C]`` on ``device``'s card."""
     return stats_plan(rows, c, _sm_count(device_index(device)))
+
+
+def tile_counters(device, tiles: int) -> torch.Tensor:
+    """The int32 ticket counters of the one-launch reduction passes (the
+    local moments, the given-statistics backward), COUNTERS_PER_TILE per
+    channel tile: 0, and left 0 by every launch (the last CTA to arrive on
+    a counter sets it back). Allocated at the first call for ``tiles``
+    tiles on ``device`` and kept, so a CUDA graph that captured a launch
+    replays on the same memory; both kernels share them, so calls on one
+    card must not run concurrently on two streams. A first call inside a
+    CUDA-graph capture raises :class:`KernelLaunchError`."""
+    key = (device, tiles)
+    t = _counters.get(key)
+    if t is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise KernelLaunchError(
+                f"the batch-norm reductions' first call at {tiles} channel "
+                "tile(s) must run outside CUDA-graph capture (their ticket "
+                "counters are allocated then)")
+        t = torch.zeros(tiles * COUNTERS_PER_TILE, dtype=torch.int32,
+                        device=device)
+        _counters[key] = t
+    return t
+
+
+def tile_finalize_emulation(part: torch.Tensor) -> torch.Tensor:
+    """The sum of a ``[chunks, C]`` f32 partial-row tensor into ``[C]``
+    in the kernels' order (``fused_bn_common.cuh`` ``finish_tile``): the
+    lane sum ``S_l`` adds rows ``l, l + 32, ...`` in turn from 0 (on the
+    card the last CTA of that class of chunks, 4 channels a thread), then
+    an xor tree over the 32 lane sums (offsets 16, 8, 4, 2, 1; 8 threads
+    per 4 channels in the last class's CTA), lane 0's value out. Every
+    channel gets the order of one warp per channel; f32 adds, no FMA, so
+    plain torch on the CPU gives the card's bits."""
+    chunks, c = part.shape
+    lanes = torch.zeros(32, c, dtype=torch.float32, device=part.device)
+    for k0 in range(0, chunks, 32):
+        rows = part[k0:k0 + 32].float()
+        lanes[:rows.shape[0]] += rows
+    idx = torch.arange(32, device=part.device)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[idx ^ o]
+    return lanes[0]
 
 
 def norm_plan(rows: int, c: int, sms: int, blocks_per_sm: int):
@@ -384,8 +437,9 @@ _ARGTYPES = {
     # pdtype; stream
     "p1t_fused_bn_norm_fwd": [_P] * 7 + [_L, _I, _I, _I, _F, _I, _I, _I,
                                          _P],
-    # x, s, ss, ps, pss; rows; c, tx, chunks; rows_per_chunk; dtype; stream
-    "p1t_fused_bn_moments": [_P] * 5 + [_L, _I, _I, _I, _L, _I, _P],
+    # x, s, ss, ps, pss, counters; rows; c, tx, chunks; rows_per_chunk;
+    # dtype; stream
+    "p1t_fused_bn_moments": [_P] * 6 + [_L, _I, _I, _I, _L, _I, _P],
     # dtype, pdtype, &blocks
     "p1t_fused_bn_norm_occupancy": [_I, _I, _P],
     # dtype, pdtype, smem_bytes, &blocks
@@ -475,13 +529,15 @@ def _moments_fwd(x2):
     check_rows("local_moments", x2)
     rows, c = (int(s) for s in x2.shape)
     tx, chunks, rpc = plan(rows, c, x2.device)
+    counters = tile_counters(x2.device, block_width(c)[2])
     out = torch.empty(2, c, dtype=torch.float32, device=x2.device)
     part = torch.empty(2, chunks, c, dtype=torch.float32, device=x2.device)
     fn = _kernel("p1t_fused_bn_moments")
     with torch.cuda.device(x2.device):
         rc = fn(x2.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                part[0].data_ptr(), part[1].data_ptr(), rows, c, tx, chunks,
-                rpc, _DTYPES[x2.dtype], torch.cuda.current_stream().cuda_stream)
+                part[0].data_ptr(), part[1].data_ptr(), counters.data_ptr(),
+                rows, c, tx, chunks, rpc, _DTYPES[x2.dtype],
+                torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         _raise("p1t_fused_bn_moments", rc, x2)
     local_moments.launches += 1

@@ -24,9 +24,13 @@ CTAs than it holds at once, too much shared memory, a capture that does
 not take a cooperative launch) raises :class:`KernelLaunchError`; nothing
 falls back.
 
+The given-statistics kernel is one launch too (:func:`norm_bwd_plan`: one
+wave of co-resident CTAs): dx is row-local, so each CTA writes dx and a
+partial row of its chunk's sums, and the last CTAs to arrive (tickets on
+``fused_bn.tile_counters``) sum them in a fixed order.
+
 ``train_bwd.launches`` and ``norm_bwd.launches`` count calls that
-launched the kernel: ONE per call (a given-statistics call is two CUDA
-launches inside: dx with partial sums, finalize).
+launched the kernel: ONE per call, and one CUDA launch each.
 """
 
 from __future__ import annotations
@@ -38,13 +42,14 @@ import torch
 
 from ..core.errors import KernelLaunchError
 from ..core.flags import flag_active
-from .fused_bn import (_DTYPES, TrainPlan, check_channels, check_rows,
-                       coop_limits, device_index, plan, resident_plan,
-                       stats_f32, supported)
+from .fused_bn import (_DTYPES, TrainPlan, _sm_count, block_width,
+                       c_ints, check_channels, check_rows, coop_limits,
+                       device_index, resident_plan, stats_f32, stats_plan,
+                       supported, tile_counters)
 
 __all__ = ["train_bwd", "norm_bwd", "train_bwd_ref", "norm_bwd_ref",
            "supported", "TrainBwdPlan", "train_bwd_plan",
-           "train_bwd_launch_plan"]
+           "train_bwd_launch_plan", "norm_bwd_plan"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -54,11 +59,13 @@ _ARGTYPES = {
     # pdtype; stream
     "p1t_fused_bn_bwd_train": [_P] * 12 + [_L, _I, _I, _I, _L, _I, _I, _F,
                                            _I, _I, _I, _P],
-    # as above without resident, smem_bytes
-    "p1t_fused_bn_bwd_norm": [_P] * 12 + [_L, _I, _I, _I, _L, _F, _I, _I,
+    # as above with counters after psb, without resident, smem_bytes
+    "p1t_fused_bn_bwd_norm": [_P] * 13 + [_L, _I, _I, _I, _L, _F, _I, _I,
                                           _I, _P],
     # dtype, pdtype, smem_bytes, &blocks
     "p1t_fused_bn_bwd_train_occupancy": [_I, _I, _I, _P],
+    # dtype, pdtype, &blocks
+    "p1t_fused_bn_bwd_norm_occupancy": [_I, _I, _P],
 }
 _fns = {}
 
@@ -90,6 +97,42 @@ def train_bwd_launch_plan(x2, pdtype: int) -> TrainPlan:
     rows, c = (int(s) for s in x2.shape)
     return train_bwd_plan(rows, c, x2.element_size(), *_train_limits(
         device_index(x2.device), _DTYPES[x2.dtype], pdtype))
+
+
+def norm_bwd_plan(rows: int, c: int, sms: int, blocks_per_sm: int):
+    """Block and chunks of the given-statistics backward for ``[rows, C]``
+    on a card of ``sms`` SMs that holds ``blocks_per_sm`` of its CTAs at
+    once: ``(tx, chunks, rows_per_chunk)``. ``fused_bn.stats_plan``'s
+    chunks, cut to one wave of co-resident CTAs where there are more:
+    fewer and longer chunks, so fewer partial rows to sum and no second
+    wave. Its sums follow the kernels' order over these chunks (a fold per
+    lane class of chunks, then the tree); nothing else needs their bits. A
+    pure function of its arguments."""
+    tx, chunks, rpc = stats_plan(rows, c, sms)
+    cap = max(1, sms * blocks_per_sm // block_width(c)[2])
+    if chunks > cap:
+        rpc = -(-rows // cap)
+        chunks = -(-rows // rpc)
+    return tx, chunks, rpc
+
+
+@functools.lru_cache(maxsize=None)
+def _norm_blocks_per_sm(index: int, dtype: int, pdtype: int) -> int:
+    with torch.cuda.device(index):
+        blocks, = c_ints(_kernel("p1t_fused_bn_bwd_norm_occupancy"),
+                         "fused_bn_bwd", 1, dtype, pdtype)
+    if blocks < 1:
+        raise KernelLaunchError(
+            f"p1t_fused_bn_bwd_norm_occupancy: {blocks} CTAs an SM")
+    return blocks
+
+
+def norm_bwd_launch_plan(x2, pdtype: int):
+    """:func:`norm_bwd_plan` for ``x2`` on its card."""
+    rows, c = (int(s) for s in x2.shape)
+    index = device_index(x2.device)
+    return norm_bwd_plan(rows, c, _sm_count(index), _norm_blocks_per_sm(
+        index, _DTYPES[x2.dtype], pdtype))
 
 
 def _masked(dy2, y2, act):
@@ -149,9 +192,11 @@ def _launch(symbol, x2, g, mean, var, y2, dy2, eps, act, with_res):
     if symbol == "p1t_fused_bn_bwd_train":
         p = train_bwd_launch_plan(x2, pdt)
         tx, chunks, rpc = p.tx, p.chunks, p.rows_per_chunk
-        extra = (p.resident, p.smem_bytes)
+        counters, extra = (), (p.resident, p.smem_bytes)
     else:
-        tx, chunks, rpc = plan(rows, c, x2.device)
+        tx, chunks, rpc = norm_bwd_launch_plan(x2, pdt)
+        counters = (tile_counters(x2.device,
+                                  block_width(c)[2]).data_ptr(),)
         extra = ()
     dx = torch.empty_like(x2)
     dres = torch.empty_like(dy2) if with_res else None
@@ -160,7 +205,8 @@ def _launch(symbol, x2, g, mean, var, y2, dy2, eps, act, with_res):
     ptrs = (x2.data_ptr(), g.data_ptr(), m32.data_ptr(), v32.data_ptr(),
             y2.data_ptr() if relu else 0, dy2.data_ptr(), dx.data_ptr(),
             0 if dres is None else dres.data_ptr(), sums[0].data_ptr(),
-            sums[1].data_ptr(), part[0].data_ptr(), part[1].data_ptr())
+            sums[1].data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+            *counters)
     fn = _kernel(symbol)
     with torch.cuda.device(x2.device):
         rc = fn(*ptrs, rows, c, tx, chunks, rpc, *extra, float(eps),

@@ -10,10 +10,16 @@ holds, shared memory a CTA may use), so they are checked here without a
 card, at every ResNet-50 batch-norm shape at 32 images a card and at odd
 ones: every row lies in exactly one chunk, the resident rows fit the
 shared-memory budget, the grid fits the co-resident capacity, and the
-plan depends on its arguments only.
+plan depends on its arguments only. The one-launch reduction passes (the
+local moments, the given-statistics backward) keep ``stats_plan``'s grid,
+33 ticket counters per channel tile, and a finalize whose plain-torch
+model (``tile_finalize_emulation``) sums each channel in the order of one
+warp per channel, bit for bit.
 """
 
+import numpy as np
 import pytest
+import torch
 
 from paddle1_tpu_torch.core.errors import InvalidArgumentError
 from paddle1_tpu_torch.ops import fused_bn as fbn
@@ -161,3 +167,115 @@ def test_resnet50_bn_shapes_of_the_profile_tool():
     bound = tp.bn_bound_ms_per_step(32)
     assert bound["train_fwd"] == pytest.approx(
         1e3 * 2 * 2 * 355647488 / 3.35e12)
+
+
+# stats_plan (tx, chunks, rows_per_chunk) of the one-launch reduction
+# passes (local moments, given-statistics backward) at every shape above on
+# a 132-SM H100 and a 16-SM card: the training forward sums in these
+# chunks to keep the moments' bits, so the plan must not move
+STATS_PLAN = {
+    132: [(8, 528, 761), (8, 526, 191), (32, 526, 191), (16, 526, 191),
+          (16, 523, 48), (32, 262, 96), (32, 523, 48), (32, 523, 12),
+          (32, 131, 48), (32, 262, 24), (32, 196, 8), (32, 66, 24),
+          (32, 13, 8), (8, 1, 7), (1, 1, 1), (3, 1, 5), (32, 33, 31)],
+    16: [(8, 64, 6272), (8, 64, 1568), (32, 64, 1568), (16, 64, 1568),
+         (16, 64, 392), (32, 32, 784), (32, 64, 392), (32, 64, 98),
+         (32, 16, 392), (32, 32, 196), (32, 32, 49), (32, 8, 196),
+         (32, 8, 13), (8, 1, 7), (1, 1, 1), (3, 1, 5), (32, 4, 250)]}
+
+
+@pytest.mark.parametrize("sms", sorted(STATS_PLAN))
+@pytest.mark.parametrize("i", range(len(SHAPES)))
+def test_stats_plan_is_unchanged(sms, i):
+    rows, c = SHAPES[i]
+    assert fbn.stats_plan(rows, c, sms) == STATS_PLAN[sms][i]
+
+
+@pytest.mark.parametrize("sms,_blocks,_budget", CARDS)
+@pytest.mark.parametrize("rows,c", SHAPES)
+def test_tile_counters_cover_the_reduction_grid(rows, c, sms, _blocks,
+                                                _budget):
+    """33 int32 counters per channel tile of the grid (tiles, chunks),
+    zeroed, kept across calls: one per lane class of chunks (k mod 32),
+    counting that class's CTAs in, and one counting the classes in."""
+    tx, chunks, rpc = fbn.stats_plan(rows, c, sms)
+    _, _, tiles = fbn.block_width(c)
+    assert tx * 8 * tiles >= c > (tiles - 1) * tx * 8
+    assert 1 <= chunks <= 65535 and (chunks - 1) * rpc < rows <= \
+        chunks * rpc
+    cpu = torch.device("cpu")
+    t = fbn.tile_counters(cpu, tiles)
+    assert t.dtype == torch.int32 and tuple(t.shape) == (tiles * 33,)
+    assert fbn.COUNTERS_PER_TILE == 33
+    # the tickets each counter expects: every chunk in one class, every
+    # class with a chunk in the tile's count
+    per_class = [(chunks - 1 - k) // 32 + 1 for k in range(min(chunks, 32))]
+    assert sum(per_class) == chunks
+    assert per_class == [len(range(k, chunks, 32))
+                         for k in range(min(chunks, 32))]
+    assert int(t.abs().sum()) == 0
+    assert fbn.tile_counters(cpu, tiles) is t
+
+
+def _one_warp_a_channel(part):
+    """The reduction the kernels' finalize has always had, written out
+    for one channel at a time with numpy f32 scalars: lane l sums rows l,
+    l + 32, ... in turn from 0; then s_l += s_(l xor o) for o = 16, 8, 4,
+    2, 1 (every lane at once); lane 0's value."""
+    chunks, c = part.shape
+    out = np.zeros(c, np.float32)
+    for ch in range(c):
+        lane = [np.float32(0.0)] * 32
+        for l in range(32):
+            for k in range(l, chunks, 32):
+                lane[l] = np.float32(lane[l] + part[k, ch])
+        for o in (16, 8, 4, 2, 1):
+            lane = [np.float32(lane[l] + lane[l ^ o]) for l in range(32)]
+        out[ch] = lane[0]
+    return out
+
+
+@pytest.mark.parametrize("chunks", [528, 1, 31, 32, 33])
+def test_tile_finalize_keeps_the_order_of_one_warp_a_channel(chunks):
+    """The in-launch finalize folds each lane class in the CTA that
+    finishes it and runs the tree 8 channels a warp; each channel's sum
+    must still be the one-warp-a-channel order, bit for bit (the training
+    forward repeats it: the f32 ResNet-50 check turns on its last
+    bits)."""
+    rng = np.random.default_rng(chunks)
+    # wide magnitudes and signs, so another order would change the bits
+    part = (rng.standard_normal((chunks, 64)) *
+            10.0 ** rng.integers(-3, 4, (chunks, 64))).astype(np.float32)
+    got = fbn.tile_finalize_emulation(torch.from_numpy(part))
+    want = torch.from_numpy(_one_warp_a_channel(part))
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    # and another order does differ at 528 chunks: the check has teeth
+    if chunks == 528:
+        assert not torch.equal(torch.from_numpy(part).sum(dim=0), want)
+
+
+@pytest.mark.parametrize("sms,blocks,_budget", CARDS)
+@pytest.mark.parametrize("rows,c", SHAPES)
+def test_norm_bwd_plan_is_stats_plan_cut_to_one_wave(rows, c, sms, blocks,
+                                                     _budget):
+    tx, chunks, rpc = fbb.norm_bwd_plan(rows, c, sms, blocks)
+    s_tx, s_chunks, s_rpc = fbn.stats_plan(rows, c, sms)
+    _, _, tiles = fbn.block_width(c)
+    # the stats plan's block; every row in exactly one chunk, none empty
+    assert tx == s_tx
+    assert 1 <= chunks <= 65535 and (chunks - 1) * rpc < rows <= \
+        chunks * rpc
+    # no more chunks than the stats plan, and one wave of co-resident CTAs
+    # (one row of tiles at least); the stats plan where it fits
+    assert chunks <= s_chunks
+    assert tiles * chunks <= max(tiles, sms * blocks)
+    if tiles * s_chunks <= sms * blocks:
+        assert (chunks, rpc) == (s_chunks, s_rpc)
+    assert fbb.norm_bwd_plan(rows, c, sms, blocks) == (tx, chunks, rpc)
+
+
+def test_norm_bwd_plan_at_resnet50s_stem_on_an_h100():
+    """Two CTAs an SM: the stem's 528 chunks of 761 rows become 264 of
+    1521, layer 4's 66 of 24 rows 33 of 48."""
+    assert fbb.norm_bwd_plan(401408, 64, 132, 2) == (8, 264, 1521)
+    assert fbb.norm_bwd_plan(1568, 2048, 132, 2) == (32, 33, 48)

@@ -37,7 +37,13 @@ that a first call inside a capture raises. For the local-moments
 kernel (the cross-rank batch norm's per-rank statistics) they hold it to
 its plain version, its contract, and that a tiny ResNet-18 step of the
 data-parallel engine (one rank, no process group) launches it once per
-batch norm in place of the training kernels. For the row-softmax kernel
+batch norm in place of the training kernels. The local moments and the
+given-statistics backward are one launch each (the last CTA of each
+channel tile sums the partial rows): they hold both to their plain
+versions at ResNet-50's four shapes, at one chunk a tile and at a short
+ragged shape, repeats bit for bit, one kernel each in a profile, 53
+alternating calls replayed in a CUDA graph as they ran eagerly, and that a
+first call inside a capture raises. For the row-softmax kernel
 (the eager slice) they hold it to its plain version on the warp and block
 paths, with and without 16-byte vectors, in f32 and bf16, its contract
 and its launch counter; and that the eager LeNet runs on the card by
@@ -748,6 +754,123 @@ def test_local_moments_kernel_matches_its_plain_version(dev, dtype, rows, c):
     dx, = torch.autograd.grad(fbn.local_moments(xg), xg, (ds, dss))
     want = (ds[None] + 2.0 * x.float() * dss[None]).to(dtype)
     assert dx.dtype == dtype and torch.equal(dx, want)
+
+
+# the one-launch reductions: ResNet-50's stem and layers 2-4 at 32 images
+# (528, 262, 131 and 66 chunks a channel tile), one chunk a tile, and a
+# short ragged shape with 8 tiles
+BN_REDUCE = [(401408, 64), (25088, 512), (6272, 1024), (1568, 2048),
+             (7, 64), (98, 2048)]
+
+
+def _sum_tol(rows):
+    # f32 sums over `rows` rows in another order: relative 1e-4 with a
+    # floor of 1e-5 * sqrt(rows) for sums that cancel to near zero
+    return dict(atol=1e-5 * rows ** 0.5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c", BN_REDUCE)
+def test_local_moments_is_one_launch_that_matches_and_repeats(dev, dtype,
+                                                              rows, c):
+    x = _bn(dev, rows, c, dtype)[0]
+    before = fbn.local_moments.launches
+    s, ss = fbn._moments_fwd(x)
+    assert fbn.local_moments.launches == before + 1
+    rs, rss = fbn.local_moments_ref(x)
+    torch.testing.assert_close(s, rs, **_sum_tol(rows))
+    torch.testing.assert_close(ss, rss, **_sum_tol(rows))
+    for _ in range(2):
+        again = fbn._moments_fwd(x)
+        assert torch.equal(again[0], s) and torch.equal(again[1], ss)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c", BN_REDUCE)
+def test_norm_backward_is_one_launch_that_matches_and_repeats(dev, dtype,
+                                                              rows, c):
+    x, g, b, res, m, v, dy = _bn(dev, rows, c, dtype)
+    tol = BN_F32 if dtype == torch.float32 else BN_BF16
+    yn = fbn._norm_fwd(x, m, v, g, b, res, 1e-5, "relu")
+    for act in ("identity", "relu"):
+        for use_res in (False, True):
+            before = fbb.norm_bwd.launches
+            got = fbb.norm_bwd(x, g, m, v, yn, dy, 1e-5, act, use_res)
+            assert fbb.norm_bwd.launches == before + 1
+            want = fbb.norm_bwd_ref(x, g, m, v, yn, dy, 1e-5, act, use_res)
+            torch.testing.assert_close(got[0].float(), want[0].float(),
+                                       **tol)
+            if use_res:
+                assert torch.equal(got[3], want[3])   # the masked dy
+            for a, w in zip(got[1:3], want[1:3]):
+                torch.testing.assert_close(a, w, **_sum_tol(rows))
+            again = fbb.norm_bwd(x, g, m, v, yn, dy, 1e-5, act, use_res)
+            assert all(torch.equal(a, w) for a, w in zip(again, got))
+
+
+def test_one_launch_reductions_launch_one_kernel_each(dev):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x, g, _, _, m, v, dy = _bn(dev, 6272, 1024, torch.bfloat16)
+    calls = {"moments_kernel": lambda: fbn._moments_fwd(x),
+             "norm_bwd_kernel": lambda: fbb.norm_bwd(
+                 x, g, m, v, None, dy, 1e-5, "identity")}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and
+                   not getattr(e, "is_user_annotation", False)]
+        assert len(kernels) == 1 and name in kernels[0], kernels
+
+
+def test_one_launch_reductions_replay_in_a_cuda_graph(dev):
+    # the dp step's pattern: moments and given-statistics backward calls
+    # back to back on one stream, on the same counters (one channel tile
+    # at C = 256), 53 in all
+    sets = [_bn(dev, 6272, 256, torch.bfloat16, seed=i) for i in range(4)]
+
+    def run():
+        out = []
+        for i in range(53):
+            x, g, _, _, m, v, dy = sets[(i // 2) % 4]
+            out += fbn._moments_fwd(x) if i % 2 == 0 else fbb.norm_bwd(
+                x, g, m, v, None, dy, 1e-5, "identity", True)
+        return out
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, w) for a, w in zip(captured, eager))
+    # the counters are back at 0: an eager run after the replays
+    assert all(torch.equal(a, w) for a, w in zip(run(), eager))
+
+
+@pytest.mark.parametrize("which", ["moments", "norm_bwd"])
+def test_one_launch_reductions_first_call_inside_a_capture_raises(
+        dev, monkeypatch, which):
+    # their ticket counters must exist before a graph captures a launch
+    x, g, _, _, m, v, dy = _bn(dev, 1568, 512, torch.float32)
+    monkeypatch.setattr(fbn, "_counters", {})
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(KernelLaunchError, match="outside CUDA-graph"):
+        with torch.cuda.graph(graph):
+            if which == "moments":
+                fbn._moments_fwd(x)
+            else:
+                fbb.norm_bwd(x, g, m, v, None, dy, 1e-5, "identity")
 
 
 @pytest.mark.parametrize("case", ["channels", "dtype", "strided"])

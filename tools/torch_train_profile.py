@@ -63,12 +63,12 @@ OUR_KERNELS = {
              "layer_norm_warp_kernel"),
     # ops/cuda/fused_bn.cu, fused_bn_bwd.cu: the training forward and the
     # training backward, one launch each; the given-statistics forward
-    # (normalize); the given-statistics backward and its finalize; the
-    # local moments' partial sums (dp); and, for a tree before the
-    # one-launch forward, its statistics pass
-    "resnet50": ("train_fwd_kernel", "stats_partial_kernel",
-                 "finalize_kernel", "normalize_kernel", "train_bwd_kernel",
-                 "norm_bwd_kernel"),
+    # (normalize) and backward; the local moments (dp); and, for a tree
+    # before the one-launch moments and given-statistics backward, the
+    # partial-sum pass and the finalize
+    "resnet50": ("train_fwd_kernel", "moments_kernel",
+                 "stats_partial_kernel", "finalize_kernel",
+                 "normalize_kernel", "train_bwd_kernel", "norm_bwd_kernel"),
     "lenet": ("adam_kernel",),
 }
 
