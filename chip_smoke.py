@@ -151,6 +151,41 @@ Phases, each fatal on failure (non-zero exit, no result line):
     parameters within 1e-5, probabilities within 1e-6; and a
     ``save``/``load`` of the model and Adam state into a fresh LeNet and
     Adam, whose next step equals the uninterrupted run's bit for bit.
+16. **The given-statistics batch norm at YOLOv3's widths.** The
+    eval-mode kernel against its plain version at every ``[rows, C]``
+    YOLOv3's forward gives it at batch 8 (13 shapes, C from 32 at 416²
+    to 1024 at 13²), f32 and bf16, identity and relu, repeats
+    bit-identical; timed in f32 and bf16 at seven of them (one a
+    resolution, two at 208²) by graph replay beside its plain version,
+    ``F.batch_norm``'s eval forward on a channels-last ``[8, C, H, W]``
+    view of the same rows and its bytes bound.
+17. **YOLOv3 inference (the sixth main path).** BASELINE config 5
+    (``benches.py:257-310``): ``yolov3(num_classes=80)`` with seeded
+    weights, its 72 batch norms calibrated on one seeded batch (momentum
+    0 for one training-mode forward under ``no_grad``: the running
+    statistics become that batch's), then ``eval()``; a seeded
+    ``[8, 3, 416, 416]`` f32 batch staged on the card once; a warm-up
+    forward, then slope+readback timing over 20 forwards with the
+    counters zeroed just before and read just after: 72 ``fused_bn_norm``
+    launches a forward and no training-mode launch. Heads ``[8, 255, 13,
+    13]``, ``[8, 255, 26, 26]``, ``[8, 255, 52, 52]``, finite, each with a
+    standard deviation above 1e-2 (a vanishing forward fails). One
+    forward under ``torch.profiler`` (a quarter second of host idle at
+    each edge of the window; the window must hold all 72 batch-norm
+    kernels, and up to three are taken) sorts the device's kernels by kind
+    (convolutions, batch norms, leaky ReLU, adds, concat, upsample,
+    layout copies) and fails above 3 layout copies (the JAX package's
+    ``conv_nhwc`` gate). Then ``model.postprocess`` (``yolo_box`` on the
+    card, one copy to the host, ``multiclass_nms`` in numpy), a warm pass
+    and a timed one. Prints images/s, step ms, postprocess ms a batch,
+    detections in image 0, peak memory and the convolutions' FLOPs as a
+    share of the f32 peak (TF32 is off).
+18. **YOLOv3 reference check.** Full width and depth, f32, batch 2 x
+    416², from identical calibrated weights: the kernel path against the
+    plain path (``fused_bn="never"``). Each head within 1e-4 of its max
+    abs value; ``yolo_box``'s boxes (over the image size) and scores
+    within 1e-4; ``multiclass_nms`` run under the plain flags on the
+    kernel path's decoded arrays equal to the kernel path's postprocess.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -231,6 +266,26 @@ SM_TOL, F16_REL = 1e-6, 2.0 ** -10
 # eager LeNet (BASELINE config 1, benches.py:52-88): batch 64, Adam(1e-3),
 # the bench's 20 timed steps; f32 kernel-vs-plain check over 3 steps
 LENET_BATCH, LENET_STEPS, LENET_REF_STEPS, LENET_REF_TOL = 64, 20, 3, 1e-5
+# YOLOv3 inference (BASELINE config 5, benches.py:257-310): batch 8 x 3 x
+# 416², 80 classes, f32, the bench's 20 timed forwards; 72 batch norms
+YOLO_BATCH, YOLO_IMG, YOLO_CLASSES, YOLO_STEPS, YOLO_BNS = 8, 416, 80, 20, 72
+# every [rows, C] its batch norms get at batch 8 (416², 208², 104², 52²,
+# 26², 13²), and the seven timed (one or two widths a resolution)
+YOLO_BN_SHAPES = ((1384448, 32), (346112, 64), (346112, 32), (86528, 128),
+                  (86528, 64), (21632, 256), (21632, 128), (5408, 512),
+                  (5408, 256), (5408, 128), (1352, 1024), (1352, 512),
+                  (1352, 256))
+YOLO_BN_TIMED = ((1384448, 32), (346112, 64), (346112, 32), (86528, 128),
+                 (21632, 256), (5408, 512), (1352, 1024))
+# the JAX package's conv_nhwc layout gate: at most 3 boundary transposes;
+# a calibrated head's standard deviation is well above 0
+YOLO_MAX_COPIES, YOLO_MIN_STD = 3, 1e-2
+# the profiled forward: host idle at each edge of the profiler's window
+# (seconds), and the windows taken before one that misses kernels fails
+YOLO_PROFILE_GAP_S, YOLO_PROFILE_WINDOWS = 0.25, 3
+# kernel path against plain path (f32, batch 2): each head within 1e-4 of
+# its max abs value, decoded boxes (over the image size) and scores 1e-4
+YOLO_REF_BATCH, YOLO_REF_TOL = 2, 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -2559,6 +2614,432 @@ def lenet_reference_check(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the given-statistics batch norm at YOLOv3's widths
+
+
+def yolo_bn_phase(dev):
+    """Row 9 against its plain version at every [rows, C] that YOLOv3's
+    eval forward at batch 8 x 416² gives it (YOLO_BN_SHAPES; C from 32),
+    f32 and bf16, identity and relu, repeats bit-identical; then timed in
+    f32 and bf16 at the seven YOLO_BN_TIMED shapes over 4 input sets in
+    turn beside its plain version, ``F.batch_norm``'s eval forward on the
+    same rows as a channels-last [8, C, H, W] tensor, and its bound."""
+    from paddle1_tpu_torch.ops import fused_bn as fbn
+    errs, times = [], []
+    eps = 1e-5
+    for rows, c in YOLO_BN_SHAPES:
+        tx, ty, _ = fbn.block_width(c)
+        for dtype in (torch.float32, torch.bfloat16):
+            (x, g, b, _, m, v, _), = bn_inputs(dev, rows, c, dtype,
+                                               SEED + 16 + rows + c)
+            for act in ("identity", "relu"):
+                tag = (f"[{rows}, {c}] {str(dtype).split('.')[-1]} "
+                       f"act={act} (block {tx} x {ty})")
+                y = fbn._norm_fwd(x, m, v, g, b, None, eps, act)
+                want = fbn.fused_bn_norm_ref(x, m, v, g, b, eps, act)
+                torch.cuda.synchronize()
+                check(y.dtype == dtype and bool(torch.isfinite(y).all()),
+                      f"fused_bn_norm {tag}: non-finite output or dtype "
+                      f"{y.dtype}")
+                exc = row_excess(y, want)
+                check(exc <= 0.0, f"fused_bn_norm {tag}: rows differ from "
+                      f"the plain version by {exc} beyond the tolerance")
+                check(torch.equal(fbn._norm_fwd(x, m, v, g, b, None, eps,
+                                                act), y),
+                      f"fused_bn_norm {tag}: a repeat differs")
+                errs.append({"shape": [rows, c], "dtype": str(dtype),
+                             "act": act, "block": [tx, ty],
+                             "max_abs_err": float((y.float() -
+                                                   want.float()).abs().max())})
+            del x, g, b, m, v, y, want
+    log(f"fused_bn_norm at YOLOv3's {len(YOLO_BN_SHAPES)} shapes: f32 and "
+        "bf16 x identity/relu within tolerance, repeats bit-identical")
+    tbf = torch.nn.functional.batch_norm
+    for rows, c in YOLO_BN_TIMED:
+        side = int(round((rows // YOLO_BATCH) ** 0.5))
+        check(side * side * YOLO_BATCH == rows, f"{rows} rows are not "
+              f"{YOLO_BATCH} square images")
+        for dtype in (torch.float32, torch.bfloat16):
+            sets = bn_inputs(dev, rows, c, dtype, SEED + 17, n_sets=4)
+            lib = [(s[0].view(YOLO_BATCH, side, side, c).permute(0, 3, 1, 2),
+                    s[1].float(), s[2].float(), s[4], s[5]) for s in sets]
+            check(lib[0][0].is_contiguous(memory_format=torch.channels_last),
+                  "library input is not channels-last")
+            t = {"ms": graph_time_ms([lambda s=s: fbn._norm_fwd(
+                     s[0], s[4], s[5], s[1], s[2], None, eps, "identity")
+                     for s in sets]),
+                 "plain_ms": graph_time_ms([
+                     lambda s=s: fbn.fused_bn_norm_ref(s[0], s[4], s[5], s[1],
+                                                       s[2], eps)
+                     for s in sets]),
+                 "library_ms": graph_time_ms([
+                     lambda s=s: tbf(s[0], s[3], s[4], s[1], s[2], False,
+                                     0.1, eps) for s in lib])}
+            size = torch.finfo(dtype).bits // 8
+            need, _ = bn_bytes("fused_bn_norm", rows, c, size)
+            b_ms, by = bound(need, BN_FLOPS["fused_bn_norm"] * rows * c,
+                             F32_FLOPS_PER_S)
+            name = str(dtype).split(".")[-1]
+            times.append({"shape": [rows, c], "dtype": name,
+                          "act": "identity", "residual": False, **t,
+                          "library_covers": "F.batch_norm eval forward on "
+                                            "channels-last NCHW",
+                          "bound_ms": b_ms, "bound_by": by,
+                          "bound_bytes": need})
+            log(f"fused_bn_norm {name} [{rows}, {c}] ({side}²): kernel "
+                f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
+                f"F.batch_norm {t['library_ms']:.5f} ms, bound {b_ms:.5f} ms "
+                f"({by})")
+            del sets, lib
+        torch.cuda.empty_cache()
+    return errs, times
+
+
+# ---------------------------------------------------------------------------
+# phase 17: YOLOv3 inference (BASELINE config 5, the sixth main path)
+
+
+def yolo_model(dev, seed):
+    """``yolov3(num_classes=80)`` on the card with seeded weights, its 72
+    batch norms calibrated on one seeded batch of YOLO_BATCH x 416²
+    (momentum 0 for one training-mode forward under no_grad, so that the
+    running statistics become that batch's), then ``eval()``. Fresh
+    statistics make each batch norm nearly the identity, and 75 seeded
+    convolutions then shrink the heads towards 0."""
+    from paddle1_tpu_torch.nn import BatchNorm2D
+    from paddle1_tpu_torch.vision.models import yolov3
+    model = yolov3(num_classes=YOLO_CLASSES,
+                   generator=torch.Generator().manual_seed(seed))
+    check(all(t.device.type == "cuda" for t in model.state_dict().values()),
+          "yolov3 did not default to the card")
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2D)]
+    check(len(bns) == YOLO_BNS, f"yolov3 has {len(bns)} batch norms")
+    for bn in bns:
+        bn._momentum = 0.0
+    rng = np.random.default_rng(seed + 1)
+    calib = torch.from_numpy(rng.standard_normal(
+        (YOLO_BATCH, 3, YOLO_IMG, YOLO_IMG)).astype(np.float32)).to(dev)
+    model.train()
+    with torch.no_grad():
+        model(calib)
+    model.eval()
+    return model
+
+
+def conv_flops(model, x):
+    """Multiply-adds x 2 of every convolution of one forward of ``model``
+    on ``x``, from the shapes its Conv2D layers see (forward hooks)."""
+    from paddle1_tpu_torch.nn import Conv2D
+    total = [0]
+
+    def hook(mod, inp, out):
+        w = mod.weight
+        total[0] += 2 * out.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+    hs = [m.register_forward_hook(hook) for m in model.modules()
+          if isinstance(m, Conv2D)]
+    with torch.no_grad():
+        model(x)
+    for h in hs:
+        h.remove()
+    return total[0]
+
+
+def bn_input_shapes(model, x):
+    """The ``[rows, C]`` each batch norm of ``model`` gets in one forward
+    on ``x``."""
+    from paddle1_tpu_torch.nn import BatchNorm2D
+    seen = []
+
+    def hook(mod, inp):
+        n, c, h, w = inp[0].shape
+        seen.append((n * h * w, c))
+    hs = [m.register_forward_pre_hook(hook) for m in model.modules()
+          if isinstance(m, BatchNorm2D)]
+    with torch.no_grad():
+        model(x)
+    for h in hs:
+        h.remove()
+    return seen
+
+
+# device kernels of a YOLOv3 forward by what they do: a layout copy is a
+# copy kernel (contiguous, a memory-format conversion, a cast) or a
+# device-to-device memcpy; torch.cat's own kernel (CatArrayBatchedCopy) is
+# the concat, the index gathers the nearest upsample; "add" is the
+# DarkBlocks' residual sums and the heads' bias; cuDNN's f32 engines
+# transpose channels-last activations to channels-first and back inside
+# the convolution (its own kernels, counted apart from the program's
+# layout copies); the rest of cuDNN's kernels (implicit GEMM, FFT) are
+# the convolutions
+YOLO_KERNEL_KINDS = (("batch_norm", ("normalize_kernel",)),
+                     ("cudnn_transpose", ("nchwToNhwc", "nhwcToNchw")),
+                     ("leaky_relu", ("leaky_relu",)),
+                     ("concat", ("CatArray",)),
+                     ("upsample", ("index", "Index")),
+                     ("layout_copy", ("copy_kernel", "Memcpy DtoD",
+                                      "direct_copy")),
+                     ("add", ("AddFunctor", "add_kernel",
+                              "CUDAFunctor_add")),
+                     ("conv", ("conv", "Conv", "xmma", "gemm", "cudnn",
+                               "sm90", "sm80", "implicit", "winograd",
+                               "fft", "cutlass", "_complex")))
+
+
+def yolo_kernel_kind(name):
+    for kind, pieces in YOLO_KERNEL_KINDS:
+        if any(p in name for p in pieces):
+            return kind
+    return "other"
+
+
+def yolo_profile_window(model, x):
+    """The device events of one eval forward under ``torch.profiler``:
+    the third of three forwards (one skipped, one warming it up), with
+    YOLO_PROFILE_GAP_S of host idle between the window's edges and the
+    forward's first launch and last completion. The profiler drops every
+    kernel whose timestamp falls outside its window, and late in the
+    smoke's long process a window that opened on the forward itself has
+    lost the forward's first three kernels (the input's layout copy, the
+    first convolution and its batch norm)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1)) as prof:
+        for _ in range(3):
+            time.sleep(YOLO_PROFILE_GAP_S)
+            with torch.no_grad():
+                heads = model(x)
+            float(heads[2][0, 0, 0, 0])
+            torch.cuda.synchronize()
+            time.sleep(YOLO_PROFILE_GAP_S)
+            prof.step()
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def yolo_forward_profile(model, x):
+    """One eval forward's device kernels by kind (count and ms), the
+    layout copies by name, the busy time and the 12 longest kernels. The
+    window must hold the whole forward, its 72 batch-norm launches: up to
+    YOLO_PROFILE_WINDOWS windows are taken, the first whole one is read,
+    and the batch-norm count of each is kept."""
+    windows = []
+    for _ in range(YOLO_PROFILE_WINDOWS):
+        events = yolo_profile_window(model, x)
+        check(events, "the profiler saw no device work in the YOLOv3 "
+              "forward")
+        windows.append(sum("normalize_kernel" in e.name for e in events))
+        if windows[-1] == YOLO_BNS:
+            break
+    check(windows[-1] == YOLO_BNS, f"no profiled window held one forward's "
+          f"{YOLO_BNS} batch-norm kernels: {windows}")
+    kinds, copies, by_name = {}, {}, {}
+    for e in events:
+        kind = yolo_kernel_kind(e.name)
+        n, us = kinds.get(kind, (0, 0.0))
+        kinds[kind] = (n + 1, us + e.time_range.elapsed_us())
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        if kind == "layout_copy":
+            copies[e.name] = copies.get(e.name, 0) + 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return {"kernels": len(events), "window_batch_norms": windows,
+            "busy_ms": sum(e.time_range.elapsed_us() for e in events) / 1e3,
+            "by_kind": {k: {"count": n, "ms": us / 1e3}
+                        for k, (n, us) in sorted(kinds.items())},
+            "layout_copies": sum(copies.values()),
+            "layout_copy_kernels": copies,
+            "top_kernels": [{"name": k[:120], "count": n, "ms": us / 1e3}
+                            for k, (n, us) in top]}
+
+
+def yolo_phase(dev):
+    """YOLOv3 inference as ``benches.py:257-310`` drives it: the
+    calibrated model, a seeded batch staged on the card once, a warm-up
+    forward, slope+readback timing over YOLO_STEPS forwards with the
+    counters zeroed just before and read just after (72 given-statistics
+    launches a forward, no training-mode one); one profiled forward
+    (layout copies at most YOLO_MAX_COPIES); then the postprocess, a warm
+    pass and a timed one."""
+    t0 = time.perf_counter()
+    model = yolo_model(dev, SEED)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (YOLO_BATCH, 3, YOLO_IMG, YOLO_IMG)).astype(np.float32)).to(dev)
+    shapes = bn_input_shapes(model, x)
+    check(len(shapes) == YOLO_BNS and set(shapes) == set(YOLO_BN_SHAPES),
+          f"YOLOv3's batch norms get {sorted(set(shapes))}, phase 16 "
+          f"checks {sorted(YOLO_BN_SHAPES)}")
+    flops = conv_flops(model, x)
+    setup_s = time.perf_counter() - t0
+    counters = bn_counters()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        with torch.no_grad():
+            return model(x)[2][0, 0, 0, 0]
+    step()
+    zero(counters)
+    slopes, _, steps = timed_steps(step, YOLO_STEPS)
+    torch.cuda.synchronize()
+    launches = bn_launches(counters)
+    want = {"fused_bn_train": 0, "fused_bn_norm": YOLO_BNS * steps,
+            "fused_bn_train_bwd": 0, "fused_bn_norm_bwd": 0}
+    check(launches == want, f"{steps} YOLOv3 forwards launched {launches}, "
+          f"want {want}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        heads = model(x)
+    head_std = []
+    for h, stride in zip(heads, (32, 16, 8)):
+        side = YOLO_IMG // stride
+        check(tuple(h.shape) == (YOLO_BATCH, 3 * (5 + YOLO_CLASSES), side,
+                                 side) and bool(torch.isfinite(h).all()),
+              f"head {tuple(h.shape)} is not a finite [{YOLO_BATCH}, 255, "
+              f"{side}, {side}]")
+        head_std.append(float(h.std()))
+        check(head_std[-1] > YOLO_MIN_STD, f"head [{side}, {side}] vanished "
+              f"(std {head_std[-1]})")
+    prof = yolo_forward_profile(model, x)
+    log(json.dumps({"yolov3_forward_profile": prof}))
+    check(prof["layout_copies"] <= YOLO_MAX_COPIES,
+          f"{prof['layout_copies']} layout copies in one YOLOv3 forward, "
+          f"more than {YOLO_MAX_COPIES}: {prof['layout_copy_kernels']}")
+    img_size = np.tile([[YOLO_IMG, YOLO_IMG]], (YOLO_BATCH, 1)).astype(
+        np.int32)
+    model.postprocess(heads, img_size)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    results = model.postprocess(heads, img_size)
+    post_ms = (time.perf_counter() - t1) * 1e3
+    check(len(results) == YOLO_BATCH and all(
+        r.shape[1:] == (6,) and r.shape[0] <= 100 for r in results),
+        "postprocess: not one [M <= 100, 6] result per image")
+    dt = float(np.median(slopes))
+    summary = {
+        "infer": "yolov3", "dtype": "float32", "batch": YOLO_BATCH,
+        "img": YOLO_IMG, "classes": YOLO_CLASSES,
+        "params": sum(p.numel() for p in model.parameters()),
+        "batch_norms": YOLO_BNS, "setup_s": setup_s, "steps": steps,
+        "timing": "slope+readback", "step_ms_median": dt * 1e3,
+        "step_ms_min": min(slopes) * 1e3, "step_ms_max": max(slopes) * 1e3,
+        "images_per_s": YOLO_BATCH / dt,
+        "postprocess_ms_per_batch": post_ms,
+        "detections_img0": int(results[0].shape[0]),
+        "peak_mem_gb": peak, "conv_flops_per_forward": flops,
+        "f32_peak_share": flops / dt / F32_FLOPS_PER_S,
+        "head_std": head_std, "launches": launches,
+        "launches_per_forward": {k: n / steps for k, n in launches.items()},
+        "layout_copies": prof["layout_copies"],
+        "cudnn_transposes": prof["by_kind"].get(
+            "cudnn_transpose", {"count": 0})["count"],
+        "device_busy_ms": prof["busy_ms"],
+        "device_ms_by_kind": {k: v["ms"] for k, v in
+                              prof["by_kind"].items()},
+    }
+    log(json.dumps(summary))
+    del model, x, heads
+    torch.cuda.empty_cache()
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 18: YOLOv3 kernel path against plain path
+
+
+def yolo_reference_check(dev):
+    """Full width and depth, f32, from identical calibrated weights: the
+    kernel path against the plain path (``fused_bn="never"``) at
+    YOLO_REF_BATCH x 416². Each head within YOLO_REF_TOL of its max abs
+    value; ``yolo_box``'s boxes (over the image size) and scores within
+    YOLO_REF_TOL; the plain path's ``multiclass_nms`` on the kernel
+    path's decoded arrays equal to the kernel path's postprocess. The
+    batch norms' affine weights are moved off their init (gamma 1 + 0.1 N,
+    beta 0.1 N, seeded): at gamma 1 and beta 0 the kernel's fused
+    multiply-add and the plain path's two roundings agree bit for bit."""
+    from paddle1_tpu_torch.core.flags import flags_guard
+    from paddle1_tpu_torch.nn import BatchNorm2D
+    from paddle1_tpu_torch.vision import ops as V
+    from paddle1_tpu_torch.vision.models import yolov3
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        kernel = yolo_model(dev, SEED + 18)
+        gen = torch.Generator().manual_seed(SEED + 19)
+        with torch.no_grad():
+            for bn in kernel.modules():
+                if isinstance(bn, BatchNorm2D):
+                    c = bn.weight.shape[0]
+                    bn.weight.copy_(1.0 + 0.1 * torch.randn(c, generator=gen))
+                    bn.bias.copy_(0.1 * torch.randn(c, generator=gen))
+        plain = yolov3(num_classes=YOLO_CLASSES, device=dev)
+        plain.load_state_dict(kernel.state_dict())
+        plain.eval()
+        rng = np.random.default_rng(18)
+        x = torch.from_numpy(rng.standard_normal(
+            (YOLO_REF_BATCH, 3, YOLO_IMG, YOLO_IMG)).astype(
+                np.float32)).to(dev)
+        img = torch.tensor([[YOLO_IMG, YOLO_IMG]] * YOLO_REF_BATCH,
+                           dtype=torch.int32)
+        counters = bn_counters()
+        runs = {}
+        for path, flags, model in (("kernel", {}, kernel),
+                                   ("plain", {"fused_bn": "never"}, plain)):
+            zero(counters)
+            with flags_guard(flags), torch.no_grad():
+                heads = model(x)
+                dec = []
+                for h, mask, stride in zip(heads, model.anchor_masks,
+                                           (32, 16, 8)):
+                    sub = [a for m in mask
+                           for a in model.anchors[2 * m:2 * m + 2]]
+                    dec.append(V.yolo_box(h, img, sub, YOLO_CLASSES, 0.01,
+                                          stride))
+                boxes = torch.cat([b for b, _ in dec], 1)
+                scores = torch.cat([s for _, s in dec], 1)
+                post = model.postprocess(heads, img)
+            torch.cuda.synchronize()
+            runs[path] = {"heads": heads, "boxes": boxes, "scores": scores,
+                          "post": post, "launches": bn_launches(counters)}
+        k, p = runs["kernel"], runs["plain"]
+        check(k["launches"]["fused_bn_norm"] == YOLO_BNS and
+              p["launches"]["fused_bn_norm"] == 0,
+              f"reference check launches: kernel {k['launches']}, plain "
+              f"{p['launches']}")
+        head_err = []
+        for a, b in zip(k["heads"], p["heads"]):
+            head_err.append(float((a - b).abs().max() / b.abs().max()))
+            check(float(b.std()) > YOLO_MIN_STD, "a plain-path head vanished")
+        box_err = float((k["boxes"] - p["boxes"]).abs().max()) / YOLO_IMG
+        score_err = float((k["scores"] - p["scores"]).abs().max())
+        kb, ks = k["boxes"].cpu().numpy(), k["scores"].cpu().numpy()
+        with flags_guard({"fused_bn": "never"}):
+            nms = [V.multiclass_nms(kb[i], ks[i].T, score_threshold=0.01)
+                   for i in range(YOLO_REF_BATCH)]
+        nms_equal = all(torch.equal(a, b) for a, b in zip(nms, k["post"]))
+        detections = [int(r.shape[0]) for r in k["post"]]
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    out = {"batch": YOLO_REF_BATCH, "img": YOLO_IMG,
+           "head_err_over_max_abs": head_err, "box_err_over_img": box_err,
+           "score_err": score_err, "nms_identical": nms_equal,
+           "detections": detections}
+    log(json.dumps({"yolov3_reference_check": out}))
+    check(max(head_err) <= YOLO_REF_TOL, f"YOLOv3 heads: kernel path against "
+          f"plain path {head_err} > {YOLO_REF_TOL} of their max abs value")
+    check(box_err <= YOLO_REF_TOL and score_err <= YOLO_REF_TOL,
+          f"yolo_box: boxes {box_err} (over the image size), scores "
+          f"{score_err} > {YOLO_REF_TOL}")
+    check(nms_equal, "multiclass_nms on the kernel path's decoded arrays "
+          "differs from the kernel path's postprocess")
+    del kernel, plain, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2627,6 +3108,11 @@ def main() -> int:
     sm_errs, sm_times, sm_grad_err = softmax_phase(dev)
     lenet = lenet_phase(dev)
     lenet_reference_check(dev)
+    torch.cuda.empty_cache()
+
+    yolo_bn_errs, yolo_bn_times = yolo_bn_phase(dev)
+    yolo = yolo_phase(dev)
+    yolo_reference_check(dev)
 
     src = "paddle1_tpu_torch/ops/cuda/"
     pallas = "paddle1_tpu/ops/pallas/"
@@ -2728,7 +3214,8 @@ def main() -> int:
         by_path = {"resnet_train": rn["launches_train"][name],
                    "resnet_eval": rn["launches_eval"][name],
                    "resnet_frozen": rn["launches_frozen"][name],
-                   "resnet_dp": dp["launches_train"][name]}
+                   "resnet_dp": dp["launches_train"][name],
+                   "yolov3": yolo["launches"][name]}
         main_case = bn_times[name][0]     # the stem's [401408, 64]
         line.append({
             "name": name, "route": "cuda", "source": src + cu,
@@ -2744,6 +3231,14 @@ def main() -> int:
             **layer4(bn_times[name]),
             "registers": {p: bn_regs[f"{cu[:-3]}.{p}"] for p in pieces},
             "timing_cases": bn_times[name], "cases": bn_errs[name]})
+        if name == "fused_bn_norm":
+            line[-1].update({
+                "max_abs_err": max([line[-1]["max_abs_err"]] + [
+                    c["max_abs_err"] for c in yolo_bn_errs]),
+                "yolov3_launches_per_forward":
+                    yolo["launches_per_forward"][name],
+                "yolov3_timing_cases": yolo_bn_times,
+                "yolov3_cases": yolo_bn_errs})
     main_case = mom_times[0]     # the stem's [401408, 64]
     n_mom = dp["launches_train"]["fused_bn_moments"]
     line.append({

@@ -213,6 +213,20 @@ def _define_builtin_flags() -> None:
                 "or waits on a collective they never make, fails after "
                 "this many seconds instead of hanging the job.",
                 validator=lambda v: v > 0)
+    # the batch-size bucket policy of resolve_buckets (serving/engine.py;
+    # JAX package: core/flags.py serve_max_batch, serve_buckets)
+    define_flag("serve_max_batch", 16,
+                "Serving micro-batch ceiling: the Batcher dispatches as "
+                "soon as this many request rows are queued (or the "
+                "batch timeout fires). Must be covered by the largest "
+                "shape bucket.",
+                validator=lambda v: v >= 1)
+    define_flag("serve_buckets", "",
+                "Comma-separated batch-size buckets the InferenceEngine "
+                "compiles (e.g. '1,4,16'); micro-batches pad up to the "
+                "smallest covering bucket so the executable count stays "
+                "fixed (the serving-side retrace guard). Empty = powers "
+                "of two up to serve_max_batch.")
     # generic serving knobs the GenerationServer reads
     define_flag("serve_queue_depth", 256,
                 "Bound on queued (admitted, not yet prefilled) generation "

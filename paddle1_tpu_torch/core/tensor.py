@@ -29,10 +29,19 @@ Paddle's semantics on top of torch's:
 - An in-place functional that changes the value or dtype
   (``F.softmax_``) replaces the tensor by the op's output
   (:meth:`Tensor._replace_impl`), gradients included.
-- ``.place`` is a :class:`~.place.Place`; ``.shape`` is torch's
-  ``torch.Size`` (a tuple: it indexes, iterates and converts with
-  ``list()`` like Paddle's list), and ``.size()`` stays torch's method
-  (``numel()`` is Paddle's ``size``).
+- ``.place`` is a :class:`~.place.Place`.
+- ``.shape`` is a :class:`Shape`, a tuple that also compares equal to
+  the list the reference returns (``x.shape == [2, 3]``) and has
+  ``numel()``; ``torch.Size`` cannot be subclassed, and a tuple keeps
+  torch's own Python code, which indexes, unpacks and passes shapes on,
+  working. ``.size`` is the element count, an int as in the reference,
+  whose call ``x.size()`` / ``x.size(dim)`` is torch's method.
+- ``max``, ``min`` (``axis=None, keepdim=False``) and ``sort`` (``axis=-1,
+  descending=False``) are Paddle's: they return one Tensor (the reduced
+  values, the sorted values), where torch's return ``(values, indices)``.
+  Called with torch's ``dim=`` keyword (or ``stable=`` for ``sort``),
+  or ``max``/``min`` with another tensor, they keep torch's meaning.
+  Only the facade changes: a plain ``torch.Tensor`` keeps torch's.
 
 :class:`Parameter` is a :class:`Tensor` and a ``torch.nn.Parameter``, so
 modules register it like any parameter; :func:`as_paddle_parameters`
@@ -54,8 +63,8 @@ from . import dtype as dtypes
 from .errors import InvalidArgumentError, PreconditionNotMetError
 from .place import Place, _parse, get_device, place_of
 
-__all__ = ["Tensor", "Parameter", "to_tensor", "as_paddle_parameters",
-           "leaf_hooks_per_edge"]
+__all__ = ["Tensor", "Parameter", "Shape", "to_tensor",
+           "as_paddle_parameters", "leaf_hooks_per_edge"]
 
 _NOWRAP = get_default_nowrap_functions()
 _plain = torch._C.DisableTorchFunctionSubclass
@@ -180,6 +189,41 @@ class _HookHandle:
             _hooked.pop(id(t), None)
 
 
+class Shape(tuple):
+    """A tensor's shape on the facade: a tuple of ints that compares
+    equal to the list of the same ints too (the reference's ``shape`` is
+    a list), with ``torch.Size``'s ``numel()``."""
+
+    __slots__ = ()
+
+    def __eq__(self, other):
+        if isinstance(other, list):
+            other = tuple(other)
+        return tuple.__eq__(self, other)
+
+    def __ne__(self, other):
+        eq = self.__eq__(other)
+        return eq if eq is NotImplemented else not eq
+
+    __hash__ = tuple.__hash__
+
+    def numel(self) -> int:
+        n = 1
+        for s in self:
+            n *= s
+        return n
+
+
+class _Numel(int):
+    """``Tensor.size``: the element count (Paddle's ``size`` property),
+    and, called, torch's ``Tensor.size(dim=None)``."""
+
+    def __call__(self, dim=None):
+        t = self._tensor
+        return torch.Tensor.size(t) if dim is None else \
+            torch.Tensor.size(t, dim)
+
+
 class Tensor(torch.Tensor):
     """Eager tensor with Paddle's autograd semantics (see the module)."""
 
@@ -228,6 +272,40 @@ class Tensor(torch.Tensor):
 
     clear_gradient = clear_grad   # legacy alias
 
+    # -- Paddle's metadata and methods where torch's differ ----------------------
+
+    @property
+    def shape(self) -> Shape:
+        with _plain():
+            return Shape(torch.Tensor.shape.__get__(self))
+
+    @property
+    def size(self) -> int:
+        with _plain():
+            n = _Numel(torch.Tensor.numel(self))
+        n._tensor = self
+        return n
+
+    def max(self, axis=None, keepdim=False, name=None, **torch_kw):
+        """Paddle's ``max``: the maximum over ``axis`` (an int, a list, or
+        None for all), one Tensor. ``dim=`` or another tensor as ``axis``
+        keep torch's ``Tensor.max``."""
+        return _extremum(self, torch.Tensor.max, torch.Tensor.amax, axis,
+                         keepdim, torch_kw)
+
+    def min(self, axis=None, keepdim=False, name=None, **torch_kw):
+        """Paddle's ``min``; see :meth:`max`."""
+        return _extremum(self, torch.Tensor.min, torch.Tensor.amin, axis,
+                         keepdim, torch_kw)
+
+    def sort(self, axis=-1, descending=False, name=None, **torch_kw):
+        """Paddle's ``sort``: the values sorted along ``axis``, one Tensor.
+        ``dim=`` or ``stable=`` keep torch's ``Tensor.sort`` (values and
+        indices)."""
+        if torch_kw:
+            return torch.Tensor.sort(self, descending=descending, **torch_kw)
+        return torch.Tensor.sort(self, dim=axis, descending=descending)[0]
+
     # -- conversion -----------------------------------------------------------
 
     @property
@@ -241,6 +319,18 @@ class Tensor(torch.Tensor):
             if t.dtype == torch.bfloat16:
                 t = t.float()
             return torch.Tensor.numpy(t).copy()
+
+    def __deepcopy__(self, memo):
+        """A new leaf with a copy of the data (its memory format kept) and
+        the same ``stop_gradient``, as the reference's deepcopy."""
+        if id(self) not in memo:
+            with _plain():
+                data = self.detach().clone(
+                    memory_format=torch.preserve_format)
+            new = _wrap(data)
+            new.stop_gradient = self.stop_gradient
+            memo[id(self)] = new
+        return memo[id(self)]
 
     def __float__(self) -> float:
         """``float(loss)`` as in Paddle: the value, with no warning when
@@ -334,6 +424,25 @@ class Parameter(Tensor, torch.nn.Parameter):
             memo[id(self)] = type(self)(data, name=self.name,
                                         trainable=self.trainable)
         return memo[id(self)]
+
+
+def _extremum(x, torch_fn, paddle_fn, axis, keepdim, torch_kw):
+    """``Tensor.max``/``min`` on the facade: torch's ``torch_fn`` when
+    called with torch's keywords or another tensor, else Paddle's:
+    ``paddle_fn`` (``amax``/``amin``) over ``axis`` (None: every axis,
+    an int or a list)."""
+    if torch_kw or isinstance(axis, torch.Tensor):
+        args = () if axis is None else (axis,)
+        if "dim" in torch_kw:
+            torch_kw = dict(torch_kw, keepdim=keepdim)
+        return torch_fn(x, *args, **torch_kw)
+    if axis is None:
+        dims = ()
+    elif isinstance(axis, (list, tuple)):
+        dims = tuple(int(a) for a in axis)
+    else:
+        dims = int(axis)
+    return paddle_fn(x, dims, keepdim)
 
 
 def _as_torch(data, dtype=None) -> torch.Tensor:

@@ -1,15 +1,15 @@
-"""Neural-network layers of the serving, BERT, conv-net and eager LeNet
-slices (``paddle1_tpu.nn`` subset): Linear, Embedding, Dropout,
+"""Neural-network layers of the serving, BERT, conv-net, eager LeNet and
+YOLOv3 slices (``paddle1_tpu.nn`` subset): Linear, Embedding, Dropout,
 LayerNorm, MultiHeadAttention and the transformer encoder; Conv2D,
 MaxPool2D, AdaptiveAvgPool2D, BatchNorm/BatchNorm2D, SyncBatchNorm,
-ReLU, Softmax, LogSoftmax and Sequential."""
+ReLU, LeakyReLU, Softmax, LogSoftmax and Sequential."""
 
 from . import functional  # noqa: F401
 from .layer_common import Dropout, Embedding, Linear  # noqa: F401
 from .layer_conv_pool import (AdaptiveAvgPool2D, Conv2D,  # noqa: F401
                               MaxPool2D)
 from .layer_norm_act import (BatchNorm, BatchNorm2D, LayerNorm,  # noqa: F401
-                             LogSoftmax, ReLU, Sequential, Softmax,
-                             SyncBatchNorm)
+                             LeakyReLU, LogSoftmax, ReLU, Sequential,
+                             Softmax, SyncBatchNorm)
 from .layer_transformer import (MultiHeadAttention,  # noqa: F401
                                 TransformerEncoder, TransformerEncoderLayer)

@@ -23,7 +23,8 @@ import torch
 
 from ...core.flags import flag_active
 
-__all__ = ["channels_last_region", "to_channels_last_memory"]
+__all__ = ["channels_last_region", "to_channels_last_memory",
+           "channels_last_weights"]
 
 _identity = lambda t: t   # noqa: E731
 
@@ -66,3 +67,19 @@ def to_channels_last_memory(x):
     active, to_internal, from_internal = channels_last_region(
         x.dim(), False, x.device)
     return from_internal(to_internal(x)) if active else x
+
+
+def channels_last_weights(module: torch.nn.Module) -> torch.nn.Module:
+    """Give every 4-D parameter of ``module`` (conv weights) channels-last
+    memory where the region is active for its device, in place; returns
+    ``module``. cuDNN computes a channels-last convolution on a
+    channels-last weight: a ``[O, I, kh, kw]`` weight held channels-first
+    is converted on every call (a 1 x 1 weight is both), so an inference
+    model whose weights every forward reads keeps them in the region's
+    format. The logical shape, and so the state dict, is unchanged."""
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.dim() == 4 and channels_last_region(4, False,
+                                                     p.device)[0]:
+                p.data = p.data.contiguous(memory_format=torch.channels_last)
+    return module

@@ -1,6 +1,6 @@
 """Activation functionals (port of the subset of
-``paddle1_tpu/nn/functional/activation.py`` the serving, BERT and eager
-LeNet slices run)."""
+``paddle1_tpu/nn/functional/activation.py`` the serving, BERT, eager
+LeNet and YOLOv3 slices run)."""
 
 from __future__ import annotations
 
@@ -11,11 +11,20 @@ from ...core.flags import flag_active
 from ...core.tensor import Tensor
 from ...ops import softmax as psm
 
-__all__ = ["relu", "gelu", "tanh", "softmax", "softmax_", "log_softmax"]
+__all__ = ["relu", "leaky_relu", "gelu", "tanh", "softmax", "softmax_",
+           "log_softmax"]
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01,
+               name=None) -> torch.Tensor:
+    """``x`` where ``x >= 0``, ``negative_slope * x`` elsewhere (the
+    reference's ``jax.nn.leaky_relu``). An elementwise op: it keeps x's
+    memory format, channels-last included."""
+    return torch.nn.functional.leaky_relu(x, negative_slope)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ...core.errors import InvalidArgumentError
 from ...core.flags import flag_active
 from ...ops import flash_attention as fa
 from ...ops import paged_attention as pa
@@ -28,8 +29,9 @@ __all__ = ["attention_ref", "scaled_dot_product_attention",
            "paged_attention"]
 
 
-def attention_ref(q, k, v, mask=None, scale: Optional[float] = None,
-                  dropout_p: float = 0.0, is_causal: bool = False,
+def attention_ref(q, k, v, mask=None, dropout_p: float = 0.0,
+                  scale: Optional[float] = None, is_causal: bool = False,
+                  dropout_key=None, *,
                   generator: Optional[torch.Generator] = None
                   ) -> torch.Tensor:
     """Dense attention. q, k, v: [B, N, H, D]; ``mask`` broadcastable to
@@ -37,7 +39,12 @@ def attention_ref(q, k, v, mask=None, scale: Optional[float] = None,
     cache under an f32 model) compute in the promoted dtype, as jnp's
     einsum does; the probabilities are rounded to q's dtype first.
     ``is_causal`` keeps keys ``j <= i + Nk - Nq``; ``dropout_p > 0`` drops
-    probabilities with a mask drawn from ``generator``."""
+    probabilities with a mask drawn from ``generator``; the reference's
+    jax ``dropout_key`` has no torch meaning and raises when given."""
+    if dropout_key is not None:
+        raise InvalidArgumentError(
+            "attention_ref: dropout_key is a jax PRNG key; the port draws "
+            "its dropout mask from generator=")
     d = q.shape[-1]
     s = scale if scale is not None else 1.0 / float(d) ** 0.5
     ct = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ...core.errors import InvalidArgumentError
+from ...core.errors import InvalidArgumentError, UnimplementedError
 
 __all__ = ["cross_entropy", "softmax_with_cross_entropy"]
 
@@ -18,11 +18,11 @@ def _reduce(loss, reduction):
     return loss
 
 
-def cross_entropy(input: torch.Tensor, label: torch.Tensor,
+def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
                   ignore_index: int = -100, reduction: str = "mean",
                   soft_label: bool = False, axis: int = -1,
-                  use_softmax: bool = True, label_smoothing: float = 0.0
-                  ) -> torch.Tensor:
+                  use_softmax: bool = True, label_smoothing: float = 0.0,
+                  name=None) -> torch.Tensor:
     """Cross entropy of ``input`` along ``axis``, the JAX package's arms:
 
     - ``use_softmax`` (default): ``input`` are logits and the log-softmax
@@ -33,7 +33,11 @@ def cross_entropy(input: torch.Tensor, label: torch.Tensor,
       shape): ``-sum(label * logp)``, reduced over every position.
     - Integer class labels (a trailing singleton axis is squeezed):
       ``-logp[label]``; labels equal to ``ignore_index`` contribute 0 and
-      ``mean`` divides by the count of the others (at least 1).
+      ``mean`` divides by the count of the others (at least 1). With a
+      per-class ``weight`` ``[classes]``, each loss is scaled by its
+      label's weight and ``mean`` divides by the sum of those weights
+      (at least 1e-12), as the reference does; soft labels with a weight
+      raise (the reference drops the weight there).
     - ``label_smoothing`` ε mixes either label with the uniform
       distribution: ``(1 - ε) * label + ε / classes``.
 
@@ -47,6 +51,9 @@ def cross_entropy(input: torch.Tensor, label: torch.Tensor,
         if use_softmax else torch.log(input.clamp(1e-15, 1.0))
     if soft_label or (label.dtype == input.dtype and
                       label.shape == input.shape):
+        if weight is not None:
+            raise UnimplementedError(
+                "cross_entropy: weight with soft labels is not ported")
         soft = label.to(logp.dtype)
         if label_smoothing > 0:
             soft = soft * (1 - label_smoothing) + label_smoothing / n
@@ -61,6 +68,12 @@ def cross_entropy(input: torch.Tensor, label: torch.Tensor,
         loss = (1 - label_smoothing) * loss - \
             label_smoothing / n * logp.sum(dim=ax)
     loss = torch.where(valid, loss, torch.zeros_like(loss))
+    if weight is not None:
+        cw = torch.where(valid, weight.to(loss.dtype)[idx.squeeze(ax)],
+                         torch.zeros_like(loss))
+        loss = loss * cw
+        if reduction == "mean":
+            return loss.sum() / cw.sum().clamp(min=1e-12)
     if reduction == "none":
         return loss
     if reduction == "sum":

@@ -1,6 +1,7 @@
-"""LayerNorm, batch norm, SyncBatchNorm, ReLU, Softmax, LogSoftmax and
-Sequential (port of the subset of ``paddle1_tpu/nn/layer_norm_act.py``
-the serving, BERT, conv-net and eager LeNet slices run)."""
+"""LayerNorm, batch norm, SyncBatchNorm, ReLU, LeakyReLU, Softmax,
+LogSoftmax and Sequential (port of the subset of
+``paddle1_tpu/nn/layer_norm_act.py`` the serving, BERT, conv-net, eager
+LeNet and YOLOv3 slices run)."""
 
 from __future__ import annotations
 
@@ -14,16 +15,23 @@ from ..core.errors import UnimplementedError
 from . import functional as F
 
 __all__ = ["LayerNorm", "BatchNorm", "BatchNorm2D", "SyncBatchNorm", "ReLU",
-           "Softmax", "LogSoftmax", "Sequential"]
+           "LeakyReLU", "Softmax", "LogSoftmax", "Sequential"]
 
 
 class LayerNorm(nn.Module):
     """LayerNorm over the last ``normalized_shape`` axes with an affine
-    weight (ones) and bias (zeros); epsilon 1e-5 as in Paddle."""
+    weight (ones) and bias (zeros); epsilon 1e-5 as in Paddle. The
+    affine-less form and ``ParamAttr`` (``weight_attr``/``bias_attr``
+    other than None) are not ported and raise."""
 
     def __init__(self, normalized_shape, epsilon: float = 1e-05,
+                 weight_attr=None, bias_attr=None, name=None, *,
                  device=None):
         super().__init__()
+        if weight_attr is not None or bias_attr is not None:
+            raise UnimplementedError(
+                "LayerNorm: weight_attr/bias_attr other than None (no "
+                "affine, ParamAttr) are not ported")
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
@@ -129,6 +137,20 @@ class SyncBatchNorm(_BatchNormBase):
 class ReLU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(x)
+
+
+class LeakyReLU(nn.Module):
+    """``F.leaky_relu`` with ``negative_slope``."""
+
+    def __init__(self, negative_slope: float = 0.01, name=None):
+        super().__init__()
+        self.negative_slope = float(negative_slope)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(x, self.negative_slope)
+
+    def extra_repr(self) -> str:
+        return f"negative_slope={self.negative_slope}"
 
 
 class Softmax(nn.Module):

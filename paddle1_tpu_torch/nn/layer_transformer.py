@@ -34,7 +34,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from ..core.errors import InvalidArgumentError
+from ..core.errors import InvalidArgumentError, UnimplementedError
 from . import functional as F
 from .layer_common import Dropout, Linear
 from .layer_norm_act import LayerNorm
@@ -71,24 +71,30 @@ class MultiHeadAttention(nn.Module):
                                         ["k", "v", "table", "pos"])
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 kdim: Optional[int] = None, vdim: Optional[int] = None,
+                 need_weights: bool = False, weight_attr=None,
+                 bias_attr=None, fuse_qkv: bool = False, *, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         if embed_dim % num_heads != 0:
             raise InvalidArgumentError(
                 "embed_dim must be divisible by num_heads")
+        if need_weights or fuse_qkv:
+            raise UnimplementedError(
+                "MultiHeadAttention: need_weights and fuse_qkv are not "
+                "ported")
         self.dropout = float(dropout)
         self.embed_dim = embed_dim
+        self.kdim = kdim or embed_dim
+        self.vdim = vdim or embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
-        dev = resolve_device(device)
-        self.q_proj = Linear(embed_dim, embed_dim, device=dev,
-                             generator=generator)
-        self.k_proj = Linear(embed_dim, embed_dim, device=dev,
-                             generator=generator)
-        self.v_proj = Linear(embed_dim, embed_dim, device=dev,
-                             generator=generator)
-        self.out_proj = Linear(embed_dim, embed_dim, device=dev,
-                               generator=generator)
+        kw = dict(weight_attr=weight_attr, bias_attr=bias_attr,
+                  device=resolve_device(device), generator=generator)
+        self.q_proj = Linear(embed_dim, embed_dim, **kw)
+        self.k_proj = Linear(self.kdim, embed_dim, **kw)
+        self.v_proj = Linear(self.vdim, embed_dim, **kw)
+        self.out_proj = Linear(embed_dim, embed_dim, **kw)
 
     def _split_heads(self, x):
         b, n = x.shape[0], x.shape[1]
@@ -175,20 +181,21 @@ class TransformerEncoderLayer(nn.Module):
                  dropout: float = 0.1, activation: str = "relu",
                  attn_dropout: Optional[float] = None,
                  act_dropout: Optional[float] = None,
-                 normalize_before: bool = False, device=None,
+                 normalize_before: bool = False, weight_attr=None,
+                 bias_attr=None, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         self.normalize_before = bool(normalize_before)
+        kw = dict(weight_attr=weight_attr, bias_attr=bias_attr, device=dev,
+                  generator=generator)
         self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
-                                            device=dev, generator=generator)
-        self.linear1 = Linear(d_model, dim_feedforward, device=dev,
-                              generator=generator)
+                                            **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, **kw)
         self.dropout = Dropout(act_dropout)
-        self.linear2 = Linear(dim_feedforward, d_model, device=dev,
-                              generator=generator)
+        self.linear2 = Linear(dim_feedforward, d_model, **kw)
         self.norm1 = LayerNorm(d_model, device=dev)
         self.norm2 = LayerNorm(d_model, device=dev)
         self.dropout1 = Dropout(dropout)

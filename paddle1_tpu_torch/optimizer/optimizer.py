@@ -26,6 +26,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..core.errors import UnimplementedError
 from ..core.flags import flag_active
 from ..ops import fused_adam as fadam
 
@@ -180,15 +181,22 @@ class Momentum(Optimizer):
 
 
 class Adam(Optimizer):
-    """Adam, bias-corrected, f32 moments even for bf16 parameters;
-    ``weight_decay`` is an L2 term added to the gradient."""
+    """Adam, bias-corrected, f32 moments even for bf16 parameters (the
+    reference's multi-precision semantics whatever ``multi_precision``
+    says, as there); ``weight_decay`` is an L2 term added to the
+    gradient. ``lazy_mode`` (sparse rows) is not ported and raises."""
 
     _slot_names = ("moment1", "moment2")
 
     def __init__(self, learning_rate: float = 0.001, beta1: float = 0.9,
                  beta2: float = 0.999, epsilon: float = 1e-8,
                  parameters=None, weight_decay: Optional[float] = None,
-                 grad_clip: Optional[Callable] = None):
+                 grad_clip: Optional[Callable] = None,
+                 lazy_mode: bool = False, multi_precision: bool = False,
+                 name=None):
+        if lazy_mode:
+            raise UnimplementedError(
+                f"{type(self).__name__}: lazy_mode is not ported")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip)
         self._beta1 = float(beta1)
         self._beta2 = float(beta2)
@@ -247,16 +255,21 @@ class Adam(Optimizer):
 class AdamW(Adam):
     """Adam with decoupled weight decay: the parameter is scaled by
     ``1 - lr * weight_decay`` before the Adam step; parameters whose name
-    ``apply_decay_param_fun`` rejects are not decayed."""
+    ``apply_decay_param_fun`` rejects are not decayed. ``lr_ratio``
+    (per-parameter learning-rate scales) is not ported and raises."""
 
     def __init__(self, learning_rate: float = 0.001, beta1: float = 0.9,
                  beta2: float = 0.999, epsilon: float = 1e-8,
                  parameters=None, weight_decay: float = 0.01,
                  grad_clip: Optional[Callable] = None,
+                 lr_ratio: Optional[Callable] = None,
                  apply_decay_param_fun: Optional[Callable[[str], bool]]
-                 = None):
+                 = None, multi_precision: bool = False,
+                 lazy_mode: bool = False, name=None):
+        if lr_ratio is not None:
+            raise UnimplementedError("AdamW: lr_ratio is not ported")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         None, grad_clip)
+                         None, grad_clip, lazy_mode, multi_precision)
         self._coeff = float(getattr(weight_decay, "coeff", weight_decay))
         self._apply_decay_fn = apply_decay_param_fun
 

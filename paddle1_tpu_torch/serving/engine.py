@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 from ..core import flags as core_flags
 from ..core.errors import InvalidArgumentError
@@ -11,13 +11,19 @@ from ..core.errors import InvalidArgumentError
 __all__ = ["resolve_buckets"]
 
 
-def resolve_buckets(buckets, max_batch: int,
-                    spec_flag: str = "serve_gen_prefill_buckets"
-                    ) -> Tuple[int, ...]:
-    """Normalize a bucket list: explicit sequence > the ``spec_flag``
-    flag > powers of two up to ``max_batch``. Always sorted, deduped and
-    covering ``max_batch``. The generation engine passes the prompt
-    capacity as ``max_batch``: the buckets are prompt lengths."""
+def resolve_buckets(buckets=None, max_batch: Optional[int] = None,
+                    spec_flag: str = "serve_buckets") -> Tuple[int, ...]:
+    """Normalize the bucket list: explicit sequence > the ``spec_flag``
+    flag > powers of two up to ``max_batch`` (the ``serve_max_batch``
+    flag when None). Always sorted and deduped; an explicit ``max_batch``
+    is always covered. The generation engine reuses the same policy for
+    PROMPT-LENGTH buckets by passing ``spec_flag=
+    "serve_gen_prefill_buckets"`` and the prompt capacity as
+    ``max_batch`` (a different axis, so it never reads the batch-size
+    flag)."""
+    explicit_max = max_batch is not None
+    if max_batch is None:
+        max_batch = int(core_flags.flag("serve_max_batch"))
     if buckets is None:
         spec = core_flags.flag(spec_flag)
         if spec:
@@ -37,6 +43,6 @@ def resolve_buckets(buckets, max_batch: int,
     out = sorted({int(b) for b in buckets})
     if not out or out[0] < 1:
         raise InvalidArgumentError(f"buckets must be >= 1, got {out}")
-    if out[-1] < max_batch:
+    if explicit_max and out[-1] < max_batch:
         out.append(int(max_batch))  # the requested ceiling must dispatch
     return tuple(out)

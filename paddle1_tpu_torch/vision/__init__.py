@@ -1,3 +1,4 @@
-"""Vision models of the port (``paddle1_tpu.vision`` subset)."""
+"""Vision models and detection ops of the port (``paddle1_tpu.vision``
+subset)."""
 
-from . import models  # noqa: F401
+from . import models, ops  # noqa: F401

@@ -1,0 +1,430 @@
+"""Faults of the PyTorch port against the JAX package (ROADMAP Queue 3,
+F1-F4), each held by a test that runs both packages on the same call.
+
+F1: a ported layer or function takes the reference's arguments in the
+reference's positions (the port's own ``device``, ``generator`` and
+``normal_std`` are keyword-only after them). F2: ``F.dropout`` takes
+``axis`` and ``mode``. F3: the Paddle ``Tensor`` facade's ``max``, ``min``,
+``sort``, ``shape`` and ``size`` mean what the reference's mean. F4:
+``serving.engine.resolve_buckets`` has the reference's defaults and flags.
+
+Inputs and weights come from numpy with a seed; weights cross through
+``paddle1_tpu_torch.convert.state_from_jax``. Random masks differ by
+design (jax threefry against torch Philox), so dropout is compared by
+structure. Everything is float32; each tolerance is stated where used.
+"""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+import paddle1_tpu as jp
+import paddle1_tpu_torch as tp
+from paddle1_tpu.core.flags import flags_guard as jax_flags_guard
+from paddle1_tpu.core.tensor import to_tensor
+from paddle1_tpu.nn import functional as jF
+from paddle1_tpu_torch.convert import state_from_jax
+from paddle1_tpu_torch.core import flags as tflags
+from paddle1_tpu_torch.core.errors import (InvalidArgumentError,
+                                           UnimplementedError)
+from paddle1_tpu_torch.nn import functional as tF
+
+# one layer's products and sums in f32 in another order
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a).copy())
+
+
+def _np(t):
+    return np.asarray(t.numpy())
+
+
+def _state(layer):
+    return {k: np.asarray(v) for k, v in layer.functional_state().items()}
+
+
+def _carried(jlayer, tlayer):
+    tlayer.load_state_dict(state_from_jax(_state(jlayer), tlayer))
+    return tlayer
+
+
+def _x(shape, seed=0):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+# ---------------------------------------------------------------------------
+# F1: the reference's arguments in the reference's positions
+
+
+def _positional(fn):
+    """The names of ``fn``'s parameters that a caller may pass by position
+    (``self`` left out)."""
+    kinds = (inspect.Parameter.POSITIONAL_ONLY,
+             inspect.Parameter.POSITIONAL_OR_KEYWORD)
+    return [n for n, p in inspect.signature(fn).parameters.items()
+            if p.kind in kinds and n != "self"]
+
+
+F1_APIS = [
+    ("Linear", lambda m: m.nn.Linear.__init__),
+    ("Embedding", lambda m: m.nn.Embedding.__init__),
+    ("LayerNorm", lambda m: m.nn.LayerNorm.__init__),
+    ("MultiHeadAttention", lambda m: m.nn.MultiHeadAttention.__init__),
+    ("TransformerEncoderLayer",
+     lambda m: m.nn.TransformerEncoderLayer.__init__),
+    ("cross_entropy", lambda m: m.nn.functional.cross_entropy),
+    ("AdamW", lambda m: m.optimizer.AdamW.__init__),
+    ("attention_ref", lambda m: m.nn.functional.attention_ref),
+    ("dropout", lambda m: m.nn.functional.dropout),
+    ("Dropout", lambda m: m.nn.Dropout.__init__),
+]
+
+
+@pytest.mark.parametrize("name,get", F1_APIS, ids=[a[0] for a in F1_APIS])
+def test_positional_parameters_are_the_references(name, get):
+    """Every parameter a caller can pass by position is the reference's,
+    in the reference's order; the port's own come after, keyword-only."""
+    assert _positional(get(tp)) == _positional(get(jp))
+    extra = set(inspect.signature(get(tp)).parameters) - \
+        set(inspect.signature(get(jp)).parameters)
+    assert extra <= {"device", "generator", "normal_std"}
+
+
+@pytest.mark.parametrize("args,has_bias", [((None,), True),
+                                           ((None, None, "fc"), True),
+                                           ((None, False), False)])
+def test_linear_positional_bias_attr(args, has_bias):
+    # Linear(4, 8, None): weight_attr in both packages, so a bias stays
+    paddle_linear = jp.nn.Linear(4, 8, *args)
+    tl = tp.nn.Linear(4, 8, *args, device="cpu")
+    assert (tl.bias is not None) == has_bias == \
+        (paddle_linear.bias is not None)
+    _carried(paddle_linear, tl)
+    x = _x((3, 4), 1)
+    np.testing.assert_allclose(tl(_t(x)).detach().numpy(),
+                               _np(paddle_linear(to_tensor(x))), **TOL)
+
+
+def test_linear_param_attr_raises():
+    with pytest.raises(UnimplementedError):
+        tp.nn.Linear(4, 8, jp.ParamAttr(name="w"), device="cpu")
+
+
+@pytest.mark.parametrize("padding_idx", [0, -1, None])
+def test_embedding_positional_padding_idx(padding_idx):
+    # Embedding(10, 4, 0): padding_idx in both packages (the parent took
+    # it as the device)
+    je = jp.nn.Embedding(10, 4, padding_idx)
+    te = tp.nn.Embedding(10, 4, padding_idx, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    if padding_idx is not None:
+        row = padding_idx % 10
+        assert float(te.weight[row].abs().sum()) == 0.0
+        assert float(np.abs(_np(je.weight)[row]).sum()) == 0.0
+    _carried(je, te)
+    ids = np.array([[0, 3, 9], [9, 0, 5]], np.int64)
+    np.testing.assert_allclose(te(_t(ids)).detach().numpy(),
+                               _np(je(to_tensor(ids))), **TOL)
+    # the padding id's output is 0 whatever its row holds, as there
+    with torch.no_grad():
+        te.weight.fill_(1.0)
+    out = te(_t(ids)).detach().numpy()
+    if padding_idx is not None:
+        assert (out[ids == padding_idx % 10] == 0).all()
+    assert (out[ids != (padding_idx if padding_idx is not None else -1)
+                % 10] == 1).all()
+
+
+def test_embedding_sparse_raises():
+    with pytest.raises(UnimplementedError):
+        tp.nn.Embedding(10, 4, None, True, device="cpu")
+
+
+def test_layer_norm_positional_attrs():
+    jl = jp.nn.LayerNorm(8, 1e-5, None, None, "ln")
+    tl = _carried(jl, tp.nn.LayerNorm(8, 1e-5, None, None, "ln",
+                                      device="cpu"))
+    x = _x((4, 8), 2)
+    np.testing.assert_allclose(tl(_t(x)).detach().numpy(),
+                               _np(jl(to_tensor(x))), **TOL)
+    # the reference drops the affine weight; the port does not port it
+    assert jp.nn.LayerNorm(8, 1e-5, False).weight is None
+    with pytest.raises(UnimplementedError):
+        tp.nn.LayerNorm(8, 1e-5, False, device="cpu")
+
+
+def test_multi_head_attention_positional_kdim_vdim():
+    jm = jp.nn.MultiHeadAttention(16, 2, 0.0, 12, 10)
+    tm = _carried(jm, tp.nn.MultiHeadAttention(16, 2, 0.0, 12, 10,
+                                               device="cpu"))
+    assert tuple(tm.k_proj.weight.shape) == (12, 16)
+    assert tuple(tm.v_proj.weight.shape) == (10, 16)
+    q, k, v = _x((2, 3, 16), 3), _x((2, 5, 12), 4), _x((2, 5, 10), 5)
+    got = tm(_t(q), _t(k), _t(v)).detach().numpy()
+    want = _np(jm(to_tensor(q), to_tensor(k), to_tensor(v)))
+    np.testing.assert_allclose(got, want, **TOL)
+    for kw in (dict(need_weights=True), dict(fuse_qkv=True)):
+        with pytest.raises(UnimplementedError):
+            tp.nn.MultiHeadAttention(16, 2, device="cpu", **kw)
+
+
+def test_encoder_layer_positional_bias_attr():
+    # normalize_before, weight_attr, bias_attr by position: no biases
+    args = (16, 2, 32, 0.0, "relu", None, None, True, None, False)
+    jl = jp.nn.TransformerEncoderLayer(*args)
+    tl = _carried(jl, tp.nn.TransformerEncoderLayer(*args, device="cpu"))
+    assert tl.normalize_before and tl.linear1.bias is None and \
+        tl.self_attn.q_proj.bias is None
+    x = _x((2, 4, 16), 6)
+    np.testing.assert_allclose(tl(_t(x)).detach().numpy(),
+                               _np(jl(to_tensor(x))), **TOL)
+
+
+@pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+def test_cross_entropy_positional_weight(reduction):
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((6, 5)).astype(np.float32)
+    y = np.array([0, 4, 2, -100, 1, 4], np.int64)
+    w = rng.uniform(0.5, 2.0, 5).astype(np.float32)
+    want = _np(jF.cross_entropy(to_tensor(x), to_tensor(y), to_tensor(w),
+                                -100, reduction))
+    got = tF.cross_entropy(_t(x), _t(y), _t(w), -100, reduction).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_cross_entropy_weight_with_soft_labels_raises():
+    x = torch.randn(3, 4)
+    with pytest.raises(UnimplementedError):
+        tF.cross_entropy(x, torch.softmax(x, -1), torch.ones(4),
+                         soft_label=True)
+
+
+def test_adamw_positional_lr_ratio_then_decay_fn():
+    """The eighth argument is lr_ratio and the ninth
+    apply_decay_param_fun in both packages: a function that rejects every
+    name leaves AdamW undecayed, the reference's weight_decay=0.0 run."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(8)
+    w0 = rng.standard_normal((8, 4)).astype(np.float32)
+    grads = [rng.standard_normal((8, 4)).astype(np.float32)
+             for _ in range(3)]
+    jopt = jp.optimizer.AdamW(1e-2, 0.9, 0.999, 1e-8, None, 0.0)
+    params = {"w": jnp.asarray(w0)}
+    state = jopt.functional_init(params)
+    for g in grads:
+        params, state = jopt.functional_update(
+            params, {"w": jnp.asarray(g)}, state, jnp.float32(1e-2))
+    w = torch.nn.Parameter(_t(w0))
+    opt = tp.optimizer.AdamW(1e-2, 0.9, 0.999, 1e-8, [w], 0.01, None, None,
+                             lambda n: False)
+    with tflags.flags_guard(fused_adam="never"):
+        for g in grads:
+            w.grad = _t(g)
+            opt.step()
+    # the JAX package's tolerance for its Adam kernel
+    np.testing.assert_allclose(w.detach().numpy(), np.asarray(params["w"]),
+                               rtol=1e-6, atol=1e-7)
+    with pytest.raises(UnimplementedError):
+        tp.optimizer.AdamW(1e-2, parameters=[w], lr_ratio=lambda p: 0.5)
+    with pytest.raises(UnimplementedError):
+        tp.optimizer.AdamW(1e-2, parameters=[w], lazy_mode=True)
+
+
+def test_attention_ref_positional_dropout_then_scale():
+    from paddle1_tpu.nn.functional.attention import attention_ref as jref
+    q, k, v = (_x((2, 3, 2, 8), s) for s in (9, 10, 11))
+    want = np.asarray(jref(*(np.asarray(a) for a in (q, k, v)), None, 0.0,
+                           0.5))
+    got = tF.attention_ref(_t(q), _t(k), _t(v), None, 0.0, 0.5).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    with pytest.raises(InvalidArgumentError):
+        tF.attention_ref(_t(q), _t(k), _t(v), None, 0.1, None, False,
+                         object())
+
+
+# ---------------------------------------------------------------------------
+# F2: dropout(x, p, axis, training, mode)
+
+
+def _rows_whole(out, x, scale):
+    """Each row of ``out`` is all 0 or all ``x * scale``."""
+    dropped = (out == 0).all(axis=1)
+    kept = np.isclose(out, x * scale, rtol=1e-6, atol=0).all(axis=1)
+    return bool((dropped | kept).all()), int(dropped.sum())
+
+
+def test_dropout_positional_axis_drops_whole_rows():
+    x = np.ones((64, 6), np.float32) * 3.0
+    want = _np(jF.dropout(to_tensor(x), 0.5, 0))
+    got = tF.dropout(_t(x), 0.5, 0,
+                     generator=torch.Generator().manual_seed(1)).numpy()
+    for out in (want, got):
+        whole, dropped = _rows_whole(out, x, 2.0)
+        # 64 rows at p = 0.5: none or all dropped has probability 2^-63
+        assert whole and 0 < dropped < 64
+
+
+def test_dropout_axis_list_broadcasts_one_mask():
+    x = _x((8, 5, 6), 12)
+    got = tF.dropout(_t(x), 0.4, [0, 2], True,
+                     generator=torch.Generator().manual_seed(2)).numpy()
+    want = _np(jF.dropout(to_tensor(x), 0.4, [0, 2], True))
+    for out in (got, want):
+        keep = out != 0
+        # one mask of shape [8, 1, 6]: every (i, :, k) fibre kept whole
+        assert (keep == keep[:, :1, :]).all()
+        np.testing.assert_allclose(out[keep], (x / 0.6)[keep], rtol=1e-6)
+
+
+def test_dropout_downscale_in_infer_scales_exactly():
+    x = _x((4, 7), 13)
+    want = _np(jF.dropout(to_tensor(x), 0.3, None, False,
+                          "downscale_in_infer"))
+    got = tF.dropout(_t(x), 0.3, None, False, "downscale_in_infer").numpy()
+    np.testing.assert_array_equal(got, want)
+    # in training the kept elements are not scaled
+    d = tF.dropout(_t(x), 0.3, None, True, "downscale_in_infer",
+                   generator=torch.Generator().manual_seed(3)).numpy()
+    assert ((d == 0) | (d == x)).all() and (d == 0).any()
+
+
+@pytest.mark.parametrize("mode", ["upscale_in_train", "downscale_in_infer"])
+def test_dropout_p_zero_is_the_identity(mode):
+    t = torch.randn(5, 3)
+    assert tF.dropout(t, 0.0, None, True, mode) is t
+    jx = to_tensor(t.numpy())
+    assert jF.dropout(jx, 0.0, None, True, mode) is jx
+
+
+def test_dropout_layer_takes_axis_and_mode():
+    layer = tp.nn.Dropout(0.5, 0)
+    torch.manual_seed(4)
+    x = np.ones((64, 6), np.float32)
+    whole, dropped = _rows_whole(layer(_t(x)).numpy(), x, 2.0)
+    assert whole and 0 < dropped < 64
+    layer = tp.nn.Dropout(0.25, None, "downscale_in_infer").eval()
+    jlayer = jp.nn.Dropout(0.25, None, "downscale_in_infer")
+    jlayer.eval()
+    np.testing.assert_array_equal(layer(_t(x)).numpy(),
+                                  _np(jlayer(to_tensor(x))))
+    with pytest.raises(InvalidArgumentError):
+        tF.dropout(_t(x), 0.5, mode="scale")
+
+
+# ---------------------------------------------------------------------------
+# F3: the facade's max, min, sort, shape and size
+
+
+@pytest.fixture
+def cpu_place():
+    with tp.device_guard("cpu"):
+        yield
+
+
+F3_REDUCTIONS = [("max", dict(axis=1)), ("min", dict(axis=0)),
+                 ("max", dict()), ("min", dict(axis=[0, 1], keepdim=True)),
+                 ("max", dict(axis=-1, keepdim=True)),
+                 ("sort", dict(axis=1)), ("sort", dict()),
+                 ("sort", dict(axis=0, descending=True))]
+
+
+@pytest.mark.parametrize("method,kw", F3_REDUCTIONS,
+                         ids=[f"{m}-{sorted(k.items())}"
+                              for m, k in F3_REDUCTIONS])
+def test_facade_reductions_return_one_tensor(cpu_place, method, kw):
+    x = _x((3, 4), 14)
+    want = getattr(jp.to_tensor(x), method)(**kw)
+    got = getattr(tp.to_tensor(x), method)(**kw)
+    assert isinstance(got, tp.Tensor)
+    np.testing.assert_array_equal(got.numpy(), _np(want))
+    assert got.shape == want.shape
+
+
+def test_facade_max_gradient_matches_the_reference(cpu_place):
+    x = _x((3, 4), 15)
+    jx = jp.to_tensor(x, stop_gradient=False)
+    (jx.max(axis=1) * 2).sum().backward()
+    tx = tp.to_tensor(x, stop_gradient=False)
+    (tx.max(axis=1) * 2).sum().backward()
+    np.testing.assert_array_equal(tx.grad.numpy(), _np(jx.grad))
+
+
+def test_facade_keeps_torchs_meaning_for_torchs_arguments(cpu_place):
+    x = tp.to_tensor(_x((3, 4), 16))
+    values, idx = x.max(dim=1)
+    assert torch.equal(idx, torch.Tensor.argmax(x, 1))
+    assert isinstance(x.sort(dim=0), tuple) and \
+        isinstance(x.min(dim=0, keepdim=True), tuple)
+    other = tp.to_tensor(np.zeros((3, 4), np.float32))
+    assert torch.equal(x.max(other), torch.maximum(x, other))
+    # a plain torch tensor is untouched
+    assert isinstance(torch.ones(2, 3).max(1), tuple)
+
+
+def test_facade_shape_and_size_are_the_references(cpu_place):
+    x = _x((2, 3), 17)
+    jx, tx = jp.to_tensor(x), tp.to_tensor(x)
+    assert tx.shape == [2, 3] and jx.shape == [2, 3]
+    assert tx.shape == (2, 3) and tx.shape == torch.Size([2, 3])
+    assert tx.shape != [3, 2] and not (tx.shape != [2, 3])
+    assert list(tx.shape) == jx.shape and tx.shape.numel() == 6
+    assert tx.size == jx.size == 6 and isinstance(tx.size, int)
+    assert tp.to_tensor(1.5).size == jp.to_tensor(1.5).size == 1
+    # called, it is torch's method
+    assert tx.size() == torch.Size([2, 3]) and tx.size(1) == 3
+    # torch's own code on the facade: functionals, modules, repr
+    y = torch.nn.functional.max_pool2d(tp.to_tensor(_x((1, 2, 4, 4), 18)),
+                                       2)
+    assert y.shape == [1, 2, 2, 2] and "Tensor" in repr(tx)
+    lin = torch.nn.Linear(3, 2)
+    assert lin(tx).shape == [2, 2]
+
+
+def test_facade_deepcopy_is_a_new_leaf_like_the_references(cpu_place):
+    # found while porting YOLOv3: the port's deepcopy raised RuntimeError
+    import copy
+    x = _x((2, 3), 19)
+    for stop in (True, False):
+        jx, tx = jp.to_tensor(x, stop_gradient=stop), \
+            tp.to_tensor(x, stop_gradient=stop)
+        jy, ty = copy.deepcopy(jx), copy.deepcopy(tx)
+        assert isinstance(ty, tp.Tensor) and ty is not tx
+        assert ty.stop_gradient == jy.stop_gradient == stop
+        np.testing.assert_array_equal(ty.numpy(), _np(jy))
+        with torch.no_grad():
+            tx.add_(1.0)
+        np.testing.assert_array_equal(ty.numpy(), x)
+
+
+# ---------------------------------------------------------------------------
+# F4: resolve_buckets
+
+
+@pytest.mark.parametrize("flags,args", [
+    ({}, ()),
+    ({}, ([2, 4],)),
+    (dict(serve_max_batch=12), ()),
+    (dict(serve_buckets="1,3,8"), ()),
+    (dict(serve_buckets="1,3"), (None, 8)),
+    (dict(serve_gen_prefill_buckets="16,64"),
+     (None, 128, "serve_gen_prefill_buckets")),
+])
+def test_resolve_buckets_defaults_are_the_references(flags, args):
+    from paddle1_tpu.serving.engine import resolve_buckets as jrb
+    from paddle1_tpu_torch.serving.engine import resolve_buckets as trb
+    with jax_flags_guard(**flags):
+        want = jrb(*args)
+    with tflags.flags_guard(**flags):
+        got = trb(*args)
+    assert got == want
+
+
+def test_serving_batch_flags_are_the_references():
+    from paddle1_tpu.core import flags as jflags
+    for name in ("serve_max_batch", "serve_buckets"):
+        assert tflags.flag(name) == jflags.flag(name)

@@ -468,7 +468,8 @@ def test_gelu_tanh_and_dropout():
     np.testing.assert_allclose(tF.tanh(_t(x)).numpy(), np.tanh(x),
                                atol=1e-6)
     t = torch.ones(20000)
-    assert tF.dropout(t, 0.0) is t and tF.dropout(t, 0.5, False) is t
+    assert tF.dropout(t, 0.0) is t and \
+        tF.dropout(t, 0.5, training=False) is t
     d = tF.dropout(t, 0.3, generator=torch.Generator().manual_seed(1))
     kept = float((d > 0).float().mean())
     assert abs(kept - 0.7) < 0.02
