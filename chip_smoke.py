@@ -40,11 +40,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
 5. **Training kernels.** The flash-attention forward, its dK/dV and dQ
    passes and the fused AdamW kernel against their plain versions at the
    BERT-base shapes (q/k/v ``[128, 128, 12, 64]``, BERT-base's ~200
-   parameter tensors), in f32 and bf16 (flash: causal in both, and bf16
-   at ERNIE-1.5B's ``[4, 512, 16, 128]``, all three passes repeated bit
-   for bit), with one fully padded batch row, and the LayerNorm kernel
-   at the training shape (bf16 ``[16384, 768]``); timed beside their
-   plain versions, the
+   parameter tensors), in f32 and bf16 (flash: causal in both, and both
+   at ERNIE-1.5B's ``[4, 512, 18, 128]``; bf16 passes repeated bit for
+   bit), with one fully padded batch row, and the LayerNorm kernel at the
+   training shapes (bf16 ``[16384, 768]``; ERNIE-1.5B's ``[2048, 2304]``
+   in bf16 and f32, past the warp-per-row widths); flash timed at both
+   models' shapes; all timed beside their plain versions, the
    PyTorch library calls (``F.scaled_dot_product_attention`` forward, its
    backward alone as graph-replayed forward + backward less the forward,
    with the backend it picks named, and forward + backward eagerly;
@@ -186,6 +187,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
     abs value; ``yolo_box``'s boxes (over the image size) and scores
     within 1e-4; ``multiclass_nms`` run under the plain flags on the
     kernel path's decoded arrays equal to the kernel path's postprocess.
+19. **ERNIE-1.5B pretraining (the seventh main path).** First the fused
+    AdamW kernel over ERNIE-1.5B's 398 parameter tensors (1.64 B f32
+    elements) against its plain version, timed beside it,
+    ``torch.optim.AdamW(fused=True)`` and its bound, and the engine's
+    ``check_finite`` detection and keep-select timed at that scale (the
+    keep-select restoring every tensor bit for bit on a bad step). Then
+    BASELINE config 4 (``benches.py:195-223``) at full width and depth:
+    ``ErnieForPretraining(ernie_1p5b())`` (hidden 2304, 24 layers of 18
+    heads of 128, vocabulary 40000; seeded weights, the init timed) +
+    ``BertPretrainingCriterion`` + ``AdamW(1e-4)`` through
+    ``ParallelEngine(mesh=build_mesh(dp=1, sharding=1), zero_stage=2,
+    amp_dtype="bfloat16")`` at batch 4 x 512: a warm-up step, then
+    slope+readback timing on the repeated batch with the counters zeroed
+    just before and read just after: 24 flash forward, dK/dV and dQ
+    launches and 1 fused AdamW launch a step, 50 LayerNorm launches a
+    forward. The loss must be finite and falling. Two more steps under
+    ``torch.profiler`` give the device's busy time, idle share and top
+    kernels. Prints step ms, samples/s, tokens/s, MFU (``benches.py``'s
+    ``6 N B S + 12 L B S^2 H`` over 989 TFLOP/s) and peak memory.
+20. **ERNIE-1.5B reference check and the engine's controls.** Full width,
+    f32, config 4's engine. Depth 2 at batch 2 x 512 (ragged padding):
+    three steps on the kernel path within 1e-4 of three on the plain path
+    (losses and parameters; the key biases within 3 x lr), as phase 7.
+    Depth 4 with ``grad_accum=2`` (micro-batches of 2 x 512),
+    ``clip_global_norm=1.0``, ``check_finite=True`` and a
+    ``LinearWarmup(PolynomialDecay(...))`` schedule: ``step_many`` over 4
+    batches equals 4 ``step`` calls of a twin engine bit for bit (losses,
+    flags, parameters, moments, step counts, schedules), the clipped
+    gradient's norm is at most 1, and a batch whose second micro-batch
+    scales its loss by NaN comes back ``.bad`` with every parameter,
+    moment and the step count unchanged bit for bit; the next step trains.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -286,6 +318,17 @@ YOLO_PROFILE_GAP_S, YOLO_PROFILE_WINDOWS = 0.25, 3
 # kernel path against plain path (f32, batch 2): each head within 1e-4 of
 # its max abs value, decoded boxes (over the image size) and scores 1e-4
 YOLO_REF_BATCH, YOLO_REF_TOL = 2, 1e-4
+# ERNIE-1.5B pretraining (BASELINE config 4, benches.py:195-223):
+# ernie_1p5b() at full width and depth, AdamW(1e-4), bf16, batch 4 x seq
+# 512, ParallelEngine on build_mesh(dp=1, sharding=1) with zero_stage=2
+ERNIE_VOCAB, ERNIE_HIDDEN, ERNIE_LAYERS, ERNIE_HEADS = 40000, 2304, 24, 18
+ERNIE_FFN, ERNIE_POS = 9216, 2048
+ERNIE_BATCH, ERNIE_SEQ, ERNIE_LR = 4, 512, 1e-4
+# its f32 reference check: depth 2 at batch 2 x 512 (kernel path against
+# plain path, REF_TOL over REF_STEPS steps), then the engine's controls
+# at depth 4: grad_accum 2 x micro-batch 2, the global-norm clip, the
+# finite check and a warm-up over a polynomial decay
+ERNIE_REF_BATCH, ERNIE_CTRL_DEPTH, ERNIE_CTRL_K = 2, 4, 4
 
 
 class SmokeFailure(RuntimeError):
@@ -881,8 +924,9 @@ def flash_bounds(q, keep):
 
 BERT_ATTN = (BATCH, SEQ, BERT_HEADS, BERT_HIDDEN // BERT_HEADS)
 # ERNIE-1.5B (BASELINE config 4, benches.py:195-218): batch 4, seq 512,
-# 16 heads of 128
-ERNIE_ATTN = (4, 512, 16, 128)
+# 18 heads of 128 (hidden 2304)
+ERNIE_ATTN = (ERNIE_BATCH, ERNIE_SEQ, ERNIE_HEADS,
+              ERNIE_HIDDEN // ERNIE_HEADS)
 
 
 def flash_case(dev, dtype, seed, n_sets=1, shape=BERT_ATTN):
@@ -902,9 +946,9 @@ def flash_case(dev, dtype, seed, n_sets=1, shape=BERT_ATTN):
 
 def flash_check(dev):
     """Hold the three flash kernels to their plain versions in f32 and
-    bf16 (padded tails, one fully padded row; causal in both; bf16 also at
-    ERNIE-1.5B's D = 128). The bf16 cases, which run the tensor-core
-    kernels, must repeat bit for bit."""
+    bf16 (padded tails, one fully padded row; causal in both; both also
+    at ERNIE-1.5B's [4, 512, 18, 128]). The bf16 cases, which run the
+    tensor-core kernels, must repeat bit for bit."""
     from paddle1_tpu_torch.ops import flash_attention as fa
     from paddle1_tpu_torch.ops import flash_attention_bwd as fb
     errs = {"fwd": [], "dkv": [], "dq": []}
@@ -912,6 +956,7 @@ def flash_check(dev):
                                  (torch.float32, True, BERT_ATTN),
                                  (torch.bfloat16, False, BERT_ATTN),
                                  (torch.bfloat16, True, BERT_ATTN),
+                                 (torch.float32, False, ERNIE_ATTN),
                                  (torch.bfloat16, False, ERNIE_ATTN)):
         scale = 1.0 / shape[-1] ** 0.5
         sets, keep, _ = flash_case(dev, dtype, SEED + 3, shape=shape)
@@ -965,14 +1010,16 @@ def flash_check(dev):
     return errs
 
 
-def flash_timing(dev):
-    """Time the three kernels at the main path's inputs (bf16, all keys
-    kept), over 4 input sets in turn so no call finds its inputs in L2."""
+def flash_timing(dev, shape=BERT_ATTN):
+    """Time the three kernels at a main path's inputs (bf16, all keys
+    kept; BERT-base's by default, ERNIE-1.5B's ``ERNIE_ATTN``), over 4
+    input sets in turn so no call finds its inputs in L2."""
     from paddle1_tpu_torch.ops import flash_attention as fa
     from paddle1_tpu_torch.ops import flash_attention_bwd as fb
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    sets, _, keep = flash_case(dev, torch.bfloat16, SEED + 4, n_sets=4)
-    scale = 1.0 / (BERT_HIDDEN // BERT_HEADS) ** 0.5
+    sets, _, keep = flash_case(dev, torch.bfloat16, SEED + 4, n_sets=4,
+                               shape=shape)
+    scale = 1.0 / shape[-1] ** 0.5
     fwd = [fa.flash_fwd(q, k, v, scale, False, keep) for q, k, v, _ in sets]
     deltas = [(do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
               for (_, _, _, do), (o, _) in zip(sets, fwd)]
@@ -1029,14 +1076,20 @@ def flash_timing(dev):
     return t, bounds, [list(sets[0][0].shape), "bf16", "all keys kept"]
 
 
-def bert_shapes():
-    """BERT-base's parameter shapes as ``BertForPretraining.parameters()``
-    lists them (the tied decoder weight once)."""
-    h, f, v = BERT_HIDDEN, 3072, BERT_VOCAB
-    emb = [(v, h), (512, h), (2, h), (h,), (h,)]
+def bert_shapes(h=BERT_HIDDEN, f=3072, v=BERT_VOCAB, layers=BERT_LAYERS,
+                pos=512):
+    """A BERT's parameter shapes as ``BertForPretraining.parameters()``
+    lists them (the tied decoder weight once): BERT-base's by default."""
+    emb = [(v, h), (pos, h), (2, h), (h,), (h,)]
     layer = [(h, h), (h,)] * 4 + [(h, f), (f,), (f, h), (h,)] + [(h,)] * 4
     heads = [(h, h), (h,), (h, h), (h,), (h,), (h,), (v,), (h, 2), (2,)]
-    return emb + layer * BERT_LAYERS + heads
+    return emb + layer * layers + heads
+
+
+def ernie_shapes():
+    """ERNIE-1.5B's 398 parameter shapes (1,637,101,122 elements)."""
+    return bert_shapes(ERNIE_HIDDEN, ERNIE_FFN, ERNIE_VOCAB, ERNIE_LAYERS,
+                       ERNIE_POS)
 
 
 def adam_phase(dev):
@@ -1111,36 +1164,45 @@ def adam_phase(dev):
             "tensors": len(shapes), "elements": n_el}
 
 
-def train_layer_norm_case(dev):
-    """The LayerNorm kernel at the training path's shape: bf16
-    [BATCH * SEQ, 768]."""
+def train_layer_norm_case(dev, rows=BATCH * SEQ, h=BERT_HIDDEN,
+                          dtype=torch.bfloat16):
+    """The LayerNorm kernel at a training path's shape: BERT-base's bf16
+    ``[BATCH * SEQ, 768]`` by default; ERNIE-1.5B's ``[2048, 2304]``
+    (past the warp-per-row widths: the block-per-row kernel) in bf16 and
+    f32. f32 is held to LN_TOL, bf16 to one rounding step."""
     from paddle1_tpu_torch.ops import layer_norm as ln
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
-    rows, h = BATCH * SEQ, BERT_HIDDEN
-    xs = [torch.randn(rows, h, device=dev, generator=g).to(torch.bfloat16)
+    xs = [torch.randn(rows, h, device=dev, generator=g).to(dtype)
           for _ in range(4)]
-    w_ = torch.randn(h, device=dev, generator=g).to(torch.bfloat16)
-    b_ = torch.randn(h, device=dev, generator=g).to(torch.bfloat16)
+    w_ = torch.randn(h, device=dev, generator=g).to(dtype)
+    b_ = torch.randn(h, device=dev, generator=g).to(dtype)
     got, want = ln.fused_layer_norm(xs[0], w_, b_), ln.layer_norm_ref(
         xs[0], w_, b_)
     torch.cuda.synchronize()
-    exc = bf16_excess(got, want)
-    check(exc <= BF16_ABS, f"layer_norm bf16 [{rows}, {h}]: exceeds one "
-          f"bf16 rounding step by {exc}")
+    tag = f"layer_norm {str(dtype).split('.')[-1]} [{rows}, {h}]"
+    err = float((got.float() - want.float()).abs().max())
+    if dtype == torch.float32:
+        check(err <= LN_TOL, f"{tag}: max abs err {err} > {LN_TOL}")
+    else:
+        exc = bf16_excess(got, want)
+        check(exc <= BF16_ABS, f"{tag}: exceeds one bf16 rounding step by "
+              f"{exc}")
+    again = ln.fused_layer_norm(xs[0], w_, b_)
+    check(torch.equal(again, got), f"{tag}: a repeat is not bit-identical")
     ms = graph_time_ms([lambda x=x: ln.fused_layer_norm(x, w_, b_)
                         for x in xs])
     plain = graph_time_ms([lambda x=x: ln.layer_norm_ref(x, w_, b_)
                            for x in xs])
     lib = graph_time_ms([lambda x=x: torch.nn.functional.layer_norm(
         x, (h,), w_, b_, 1e-5) for x in xs])
-    b_ms, by = bound(2 * rows * h * 2 + 2 * h * 2, 8.0 * rows * h,
+    el = xs[0].element_size()
+    b_ms, by = bound(2 * rows * h * el + 2 * h * el, 8.0 * rows * h,
                      F32_FLOPS_PER_S)
-    err = float((got.float() - want.float()).abs().max())
-    log(f"layer_norm bf16 [{rows}, {h}]: max_abs_err={err:.3e} kernel="
-        f"{ms:.5f}ms plain={plain:.5f}ms library={lib:.5f}ms bound="
-        f"{b_ms:.5f}ms ({by})")
-    return dict(shape=f"x[{rows}, {h}] bf16", max_abs_err=err, ms=ms,
-                plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=lib)
+    log(f"{tag}: max_abs_err={err:.3e} kernel={ms:.5f}ms plain={plain:.5f}ms "
+        f"library={lib:.5f}ms bound={b_ms:.5f}ms ({by})")
+    return dict(shape=f"x[{rows}, {h}] {str(dtype).split('.')[-1]}",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=by, library_ms=lib)
 
 
 # ---------------------------------------------------------------------------
@@ -2054,32 +2116,45 @@ class AllReduceCount:
         return False
 
 
-def device_kernels_per_step(step, n):
+def device_kernels_per_step(step, n, top=12):
     """What the device ran per step over ``n`` steps under
-    ``torch.profiler``: every device-side event but label spans (as
-    ``tools/torch_train_profile.py`` counts them), their summed time, and
-    the batch-norm kernels by name."""
+    ``torch.profiler`` (CPU + CUDA activities): every device-side event
+    but label spans (as ``tools/torch_train_profile.py`` counts them),
+    their summed time, the wall ms a step of the profiled window (slowed
+    by the profiler's host work: an idle share is read against an
+    untraced step instead), the batch-norm kernels by name, and the
+    ``top`` kernels by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(n):
             loss = step()
         float(loss)
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
-    check(events, "the profiler saw no device work in the dp step")
-    bn = {}
+    check(events, "the profiler saw no device work in the step")
+    bn, kernels = {}, {}
     for e in events:
         for name in BN_KERNELS["fused_bn"] + BN_KERNELS["fused_bn_bwd"] + (
                 "finalize_kernel",):
             if name in e.name:
                 bn[name] = bn.get(name, 0) + 1
+        us, k = kernels.get(e.name, (0.0, 0))
+        kernels[e.name] = (us + e.time_range.elapsed_us(), k + 1)
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     return {"kernels_per_step": len(events) / n,
             "device_busy_ms_per_step": sum(
                 e.time_range.elapsed_us() for e in events) / 1e3 / n,
-            "bn_kernels_per_step": {k: v / n for k, v in bn.items()}}
+            "profiled_step_ms": wall_ms,
+            "bn_kernels_per_step": {k: v / n for k, v in bn.items()},
+            "top_kernels": [{"name": name[:100], "ms_per_step": us / 1e3 / n,
+                             "calls_per_step": k / n}
+                            for name, (us, k) in ranked[:top]]}
 
 
 def resnet_dp_phase(dev, single):
@@ -3040,6 +3115,387 @@ def yolo_reference_check(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 19: ERNIE-1.5B pretraining (BASELINE config 4, the seventh main path)
+
+
+def adam_ernie_phase(dev):
+    """The fused AdamW kernel over ERNIE-1.5B's 398 parameter tensors
+    (1.64 B f32 elements, int64 offsets): held to its plain version on
+    every tensor, timed beside the plain per-tensor update,
+    ``torch.optim.AdamW(fused=True)`` and its bound; then the engine's
+    ``check_finite`` work at the same scale: the detection (an L1 norm of
+    every gradient) and the keep-select (``snapshot_`` of parameters and
+    both moments, ``keep_where_`` back), each timed, the keep-select
+    restoring every tensor bit for bit when the step is bad."""
+    from paddle1_tpu_torch.distributed.parallel_engine import (keep_where_,
+                                                               snapshot_)
+    from paddle1_tpu_torch.ops import fused_adam as fad
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    shapes = ernie_shapes()
+    n_el = sum(int(np.prod(s)) for s in shapes)
+    sc = torch.tensor([ERNIE_LR, 1 - 0.9 ** 3, 1 - 0.999 ** 3], device=dev)
+    decays = [0.01] * len(shapes)
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    ps = [torch.randn(s, device=dev, generator=g) for s in shapes]
+    gs = [torch.randn(s, device=dev, generator=g) for s in shapes]
+    m1 = [torch.randn(s, device=dev, generator=g) * 0.01 for s in shapes]
+    m2 = [torch.rand(s, device=dev, generator=g) * 0.01 for s in shapes]
+    want = [fad.fused_adam_ref(p, q, a, b, sc[0], sc[1], sc[2], 0.01, b1, b2,
+                               eps) for p, q, a, b in zip(ps, gs, m1, m2)]
+    fad.fused_adam_(ps, gs, m1, m2, sc, decays, b1, b2, eps)
+    torch.cuda.synchronize()
+    err = 0.0
+    for got, w in zip(zip(ps, m1, m2), want):
+        for a, b in zip(got, w):
+            err = max(err, float((a - b).abs().max()))
+            check(bool(torch.isclose(a, b, rtol=ADAM_RTOL,
+                                     atol=ADAM_ATOL).all()),
+                  f"fused_adam at ERNIE's {n_el} elements: outside rtol "
+                  f"{ADAM_RTOL} atol {ADAM_ATOL} of the plain version")
+    del want
+    ms = graph_time_ms([lambda: fad.fused_adam_(ps, gs, m1, m2, sc, decays,
+                                                b1, b2, eps)], reps=10)
+
+    def plain():
+        for p, q, a, b in zip(ps, gs, m1, m2):
+            np_, na, nb = fad.fused_adam_ref(p, q, a, b, sc[0], sc[1], sc[2],
+                                             0.01, b1, b2, eps)
+            p.copy_(np_)
+            a.copy_(na)
+            b.copy_(nb)
+    plain_ms = graph_time_ms([plain], reps=3)
+    torch.cuda.empty_cache()
+    lib_ps = [torch.nn.Parameter(p.detach().clone()) for p in ps]
+    for p, q in zip(lib_ps, gs):
+        p.grad = q
+    lib_opt = torch.optim.AdamW(lib_ps, lr=ERNIE_LR, weight_decay=0.01,
+                                fused=True)
+    lib_ms = event_time_ms(lib_opt.step, reps=10)
+    del lib_ps, lib_opt
+    torch.cuda.empty_cache()
+    b_ms, by = bound(28.0 * n_el, 12.0 * n_el, F32_FLOPS_PER_S)
+    # check_finite: detection over the gradients, then the keep-select
+    # over parameters and moments (12 B a parameter)
+    state = ps + m1 + m2
+    backup = [torch.empty_like(t) for t in state]
+    bad = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def detect():
+        return torch.isfinite(torch.stack(torch._foreach_norm(gs, 1))).all()
+    detect_ms = graph_time_ms([detect], reps=10)
+    keep_ms = graph_time_ms([lambda: (snapshot_(backup, state),
+                                      keep_where_(state, backup, bad))],
+                            reps=5)
+    snapshot_(backup, state)
+    fad.fused_adam_(ps, gs, m1, m2, sc, decays, b1, b2, eps)
+    keep_where_(state, backup, bad)
+    torch.cuda.synchronize()
+    check(all(torch.equal(t, b) for t, b in zip(state, backup)),
+          "keep_where_ on a bad step did not restore every tensor")
+    # the function: a copy of the 12 B a parameter written once and read
+    # once, the state written once (the read that fills the copy can share
+    # the optimizer's own); as implemented (snapshot_, then keep_where_):
+    # copy 12 B in and out, select 24 B in and 12 B out
+    keep_bytes = 36.0 * n_el
+    keep_impl_bytes = 60.0 * n_el
+    keep_b_ms, _ = bound(keep_bytes, 0.0, F32_FLOPS_PER_S)
+    keep_impl_b_ms, _ = bound(keep_impl_bytes, 0.0, F32_FLOPS_PER_S)
+    detect_b_ms, _ = bound(4.0 * n_el, 2.0 * n_el, F32_FLOPS_PER_S)
+    out = {"tensors": len(shapes), "elements": n_el, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_covers": "torch.optim.AdamW(fused=True).step",
+           "bound_ms": b_ms, "bound_by": by,
+           "check_finite_detect_ms": detect_ms,
+           "check_finite_detect_bound_ms": detect_b_ms,
+           "check_finite_keep_select_ms": keep_ms,
+           "check_finite_keep_select_bound_ms": keep_b_ms,
+           "check_finite_keep_select_bytes": keep_bytes,
+           "check_finite_keep_select_impl_bound_ms": keep_impl_b_ms,
+           "check_finite_keep_select_impl_bytes": keep_impl_bytes}
+    log(f"fused_adam at ERNIE-1.5B ({len(shapes)} tensors, {n_el} f32 "
+        f"elements, 1 launch): max_abs_err={err:.3e} {ms:.5f} ms (plain "
+        f"{plain_ms:.5f}, AdamW(fused=True) {lib_ms:.5f}, bound {b_ms:.5f} "
+        f"{by}); check_finite detect {detect_ms:.5f} ms (bound "
+        f"{detect_b_ms:.5f}), keep-select {keep_ms:.5f} ms (bound "
+        f"{keep_b_ms:.5f} for {keep_bytes / 1e9:.1f} GB; the two passes' "
+        f"{keep_impl_bytes / 1e9:.1f} GB {keep_impl_b_ms:.5f})")
+    del ps, gs, m1, m2, state, backup
+    torch.cuda.empty_cache()
+    return out
+
+
+def ernie_batch(batch, seq, seed=0, accum=None, scale=None):
+    """``benches.py:219-223``'s seeded batch (ids, MLM labels and NSP
+    labels over ERNIE's vocabulary); with ``accum``, shaped ``[accum,
+    batch, ...]``; with ``scale``, a ``scale`` leaf (one per micro-batch)
+    the loss is multiplied by."""
+    rng = np.random.default_rng(seed)
+    lead = (batch,) if accum is None else (accum, batch)
+    v = ERNIE_VOCAB
+    out = {"ids": rng.integers(1, v, lead + (seq,)).astype(np.int32),
+           "mlm": rng.integers(0, v, lead + (seq,)).astype(np.int32),
+           "nsp": rng.integers(0, 2, lead).astype(np.int32)}
+    if scale is not None:
+        out["scale"] = np.asarray(scale, np.float32)
+    return out
+
+
+def ernie_loss_fn(crit, scaled=False):
+    def loss_fn(m, b):
+        scores, rel = m(b["ids"])
+        loss = crit(scores, rel, b["mlm"], b["nsp"])
+        return loss * b["scale"] if scaled else loss
+    return loss_fn
+
+
+def ernie_model(depth=ERNIE_LAYERS, seed=SEED):
+    from paddle1_tpu_torch.text.models import (ErnieForPretraining,
+                                               ernie_1p5b)
+    gen = torch.Generator().manual_seed(seed)
+    return ErnieForPretraining(ernie_1p5b(
+        num_hidden_layers=depth, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0, generator=gen), generator=gen)
+
+
+def ernie_engine(model, lr=ERNIE_LR, scaled=False, **kw):
+    """Config 4's engine: ``build_mesh(dp=1, sharding=1)``, ZeRO stage 2
+    (the identity at sharding 1), AdamW."""
+    from paddle1_tpu_torch.distributed import ParallelEngine, build_mesh
+    from paddle1_tpu_torch.optimizer import AdamW
+    from paddle1_tpu_torch.text.models import BertPretrainingCriterion
+    crit = BertPretrainingCriterion(model.bert.vocab_size)
+    return ParallelEngine(model, AdamW(learning_rate=lr,
+                                       parameters=model.parameters()),
+                          ernie_loss_fn(crit, scaled),
+                          mesh=build_mesh(dp=1, sharding=1), zero_stage=2,
+                          **kw)
+
+
+def ernie_phase(dev):
+    """BASELINE config 4 at full width and depth: ``ErnieForPretraining(
+    ernie_1p5b())`` + ``BertPretrainingCriterion`` + ``AdamW(1e-4)``
+    through ``ParallelEngine(mesh=build_mesh(dp=1, sharding=1),
+    zero_stage=2, amp_dtype="bfloat16")`` at batch 4 x 512: a warm-up
+    step, then slope+readback timing on the repeated batch with the
+    counters zeroed just before and read just after (24 flash forward,
+    dK/dV and dQ launches and one fused AdamW a step, 50 LayerNorm
+    launches a forward), a finite and falling loss; then two steps under
+    ``torch.profiler``."""
+    t0 = time.perf_counter()
+    model = ernie_model()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    enc = model.bert.encoder
+    attn = enc.layers[0].self_attn
+    check(len(enc.layers) == ERNIE_LAYERS and attn.num_heads == ERNIE_HEADS
+          and attn.head_dim == ERNIE_HIDDEN // ERNIE_HEADS and
+          model.bert.vocab_size == ERNIE_VOCAB,
+          "ernie_1p5b() is not hidden 2304, 24 layers, 18 heads of 128")
+    check(all(p.device.type == "cuda" for p in model.parameters()),
+          "ErnieForPretraining did not default to the card")
+    n_params = sum(p.numel() for p in model.parameters())
+    eng = ernie_engine(model, amp_dtype="bfloat16")
+    check(eng._flat is not None, "config 4's mesh did not take the dp arm")
+    batch = ernie_batch(ERNIE_BATCH, ERNIE_SEQ)
+    staged = eng.shard_batch(batch)
+    torch.cuda.reset_peak_memory_stats()
+    loss0 = float(eng.step(staged))          # warm-up: allocates
+    setup_s = time.perf_counter() - t0
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    slopes, last, steps = timed_steps(lambda: eng.step(staged), 8)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    loss_end = float(last)
+    check(np.isfinite(loss0) and np.isfinite(loss_end),
+          f"ERNIE: non-finite loss {loss0} / {loss_end}")
+    check(loss_end < loss0, f"ERNIE: loss did not fall: {loss0} -> "
+          f"{loss_end}")
+    want = {"flash_attention": ERNIE_LAYERS * steps,
+            "flash_attention_bwd_dkv": ERNIE_LAYERS * steps,
+            "flash_attention_bwd_dq": ERNIE_LAYERS * steps,
+            "fused_adam": steps,
+            "layer_norm": (2 * ERNIE_LAYERS + 2) * steps}
+    for k, n in want.items():
+        check(launches[k] == n, f"ERNIE: {k} launched {launches[k]} times "
+              f"in {steps} steps, want {n}")
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_kernels_per_step(lambda: eng.step(staged), 2)
+    dt = float(np.median(slopes))
+    busy = prof["device_busy_ms_per_step"]
+    flops = (6 * n_params * ERNIE_BATCH * ERNIE_SEQ +
+             12 * ERNIE_LAYERS * ERNIE_BATCH * ERNIE_SEQ ** 2 * ERNIE_HIDDEN)
+    summary = {
+        "train": "ernie_1p5b_pretraining", "amp": "bfloat16",
+        "mesh": {"dp": 1, "sharding": 1}, "zero_stage": 2,
+        "batch": ERNIE_BATCH, "seq_len": ERNIE_SEQ, "layers": ERNIE_LAYERS,
+        "params": n_params, "init_s": init_s, "setup_s": setup_s,
+        "steps": steps, "timing": "slope+readback",
+        "step_ms_median": dt * 1e3, "step_ms_min": min(slopes) * 1e3,
+        "step_ms_max": max(slopes) * 1e3,
+        "samples_per_s": ERNIE_BATCH / dt,
+        "tokens_per_s": ERNIE_BATCH * ERNIE_SEQ / dt,
+        "flops_per_step": flops, "mfu": flops / dt / BF16_FLOPS_PER_S,
+        "loss_first": loss0, "loss_last": loss_end,
+        "peak_mem_gb": peak / 1e9, "peak_mem_gib": peak / 2 ** 30,
+        "launches": launches,
+        "launches_per_step": {k: n / steps for k, n in launches.items()},
+        # the profiler's host work slows its window: the idle share is read
+        # against the untraced slope, the window's beside it
+        "device_idle_share": 1.0 - busy / (dt * 1e3),
+        "profiler_window_idle_share": 1.0 - busy / prof["profiled_step_ms"],
+        "profile": prof}
+    log(json.dumps({"ernie": summary}))
+    del eng, model, staged
+    torch.cuda.empty_cache()
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 20: ERNIE-1.5B f32 reference check and the engine's controls
+
+
+def ernie_reference_check(dev):
+    """Full width, f32. (a) Depth 2, batch 2 x 512 with ragged padded
+    tails: REF_STEPS steps on the kernel path against REF_STEPS on the
+    plain path (every kernel flag ``never``) from identical weights, as
+    phase 7 does for BERT. (b) Depth 4, ``grad_accum=2`` (micro-batches
+    of 2 x 512), ``clip_global_norm=1.0``, ``check_finite=True`` and
+    ``LinearWarmup(PolynomialDecay(...))``: ``step_many`` over 4 batches
+    equals 4 ``step`` calls of a twin engine bit for bit (losses,
+    parameters, moments, step counts, schedules); the clipped gradient's
+    norm is at most 1; a batch whose second micro-batch scales its loss by
+    NaN returns ``.bad`` and leaves every parameter and moment bit for bit,
+    and the step after it trains."""
+    import copy
+    from paddle1_tpu_torch.core.flags import flags_guard
+    from paddle1_tpu_torch.optimizer import lr as sched
+    counters = train_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    # (a) kernel path against plain path
+    m_kernel = ernie_model(depth=2, seed=SEED + 20)
+    m_plain = copy.deepcopy(m_kernel)
+    check(m_plain.cls.decoder_weight is
+          m_plain.bert.embeddings.word_embeddings.weight,
+          "deepcopy untied the decoder weight")
+    rng = np.random.default_rng(SEED + 20)
+    b = ERNIE_REF_BATCH
+    batch = ernie_batch(b, ERNIE_SEQ, seed=SEED + 20)
+    lens = rng.integers(128, ERNIE_SEQ + 1, b)
+    pad = np.arange(ERNIE_SEQ)[None, :] >= lens[:, None]
+    batch["ids"][pad] = 0
+    batch["mlm"][pad] = -1
+
+    def run(model):
+        eng = ernie_engine(model)
+        return [float(eng.step(batch)) for _ in range(REF_STEPS)]
+    lk = run(m_kernel)
+    mid = {k: fn.launches for k, fn in counters.items()}
+    with flags_guard(flash_attention="never", flash_backward="never",
+                     fused_adam="never", fused_layer_norm="never"):
+        lp = run(m_plain)
+    after = {k: fn.launches for k, fn in counters.items()}
+    check(all(mid[k] > before[k] for k in counters),
+          "ERNIE: the kernel path skipped a kernel")
+    check(after == mid, "ERNIE: the plain path launched a kernel")
+    loss_err = max(abs(a - c) for a, c in zip(lk, lp))
+    check(loss_err <= REF_TOL, f"ERNIE: losses differ by {loss_err}: {lk} "
+          f"vs {lp}")
+    sk, sp = m_kernel.state_dict(), m_plain.state_dict()
+    param_err, key_bias_err = 0.0, 0.0
+    for k in sk:
+        e = float((sk[k] - sp[k]).abs().max())
+        if k.endswith("k_proj.bias"):
+            key_bias_err = max(key_bias_err, e)
+        else:
+            param_err = max(param_err, e)
+    check(param_err <= REF_TOL, f"ERNIE: params differ by {param_err}")
+    check(key_bias_err <= REF_STEPS * ERNIE_LR, f"ERNIE: key biases differ "
+          f"by {key_bias_err} > {REF_STEPS * ERNIE_LR}")
+    del m_kernel, m_plain, sk, sp
+    torch.cuda.empty_cache()
+
+    # (b) the engine's controls
+    def schedule():
+        return sched.LinearWarmup(
+            sched.PolynomialDecay(ERNIE_LR, decay_steps=8, end_lr=1e-6),
+            warmup_steps=2, start_lr=ERNIE_LR / 10, end_lr=ERNIE_LR)
+    m_a = ernie_model(depth=ERNIE_CTRL_DEPTH, seed=SEED + 21)
+    m_b = copy.deepcopy(m_a)
+    ctrl = dict(scaled=True, grad_accum=2, clip_global_norm=1.0,
+                check_finite=True)
+    eng_a = ernie_engine(m_a, lr=schedule(), **ctrl)
+    eng_b = ernie_engine(m_b, lr=schedule(), **ctrl)
+    batches = [ernie_batch(ERNIE_REF_BATCH, ERNIE_SEQ, seed=SEED + 30 + i,
+                           accum=2, scale=[1.0, 1.0])
+               for i in range(ERNIE_CTRL_K)]
+    singles = [eng_a.step(bt) for bt in batches]
+    many = eng_b.step_many(batches)
+    torch.cuda.synchronize()
+    check(torch.equal(torch.stack([f.tensor for f in singles]), many.tensor),
+          f"ERNIE: step_many's [loss, bad] {many.tensor.tolist()} differ "
+          f"from {ERNIE_CTRL_K} step calls'")
+    check(not many.bad and all(np.isfinite(np.asarray(many))),
+          f"ERNIE: a control step was bad or non-finite: "
+          f"{many.tensor.tolist()}")
+    check(all(torch.equal(p, q) for p, q in zip(eng_a.params, eng_b.params)),
+          "ERNIE: step_many's parameters differ from the step calls'")
+    sa, sb = eng_a.optimizer.state_dict(), eng_b.optimizer.state_dict()
+    check(sa["step"] == sb["step"] == ERNIE_CTRL_K and
+          sa["LR_Scheduler"] == sb["LR_Scheduler"] and
+          all(torch.equal(sa[k], sb[k]) for k in sa
+              if k not in ("step", "LR_Scheduler")),
+          "ERNIE: step_many's moments, step count or schedule differ")
+    grad_norm = float(torch.sqrt(sum(torch.sum(g.double() ** 2)
+                                     for g in eng_a._grads)))
+    check(grad_norm <= 1.0 + 1e-5, f"ERNIE: the clipped gradient's norm is "
+          f"{grad_norm} > 1")
+    del eng_b, m_b, sb
+    torch.cuda.empty_cache()
+    keep = [p.detach().clone() for p in eng_a.params]
+    slots = {k: v for k, v in sa.items() if k not in ("step", "LR_Scheduler")}
+    lr_before = eng_a.optimizer.get_lr()
+    poisoned = ernie_batch(ERNIE_REF_BATCH, ERNIE_SEQ, seed=SEED + 40,
+                           accum=2, scale=[1.0, float("nan")])
+    fut = eng_a.step(poisoned)
+    check(fut.bad and fut.bad_count() == 1, "ERNIE: the poisoned step was "
+          f"not flagged: {fut.tensor.tolist()}")
+    check(all(torch.equal(p, q) for p, q in zip(keep, eng_a.params)),
+          "ERNIE: the poisoned step moved a parameter")
+    st = eng_a.optimizer.state_dict()
+    check(st["step"] == ERNIE_CTRL_K and
+          all(torch.equal(st[k], v) for k, v in slots.items()),
+          "ERNIE: the poisoned step moved a moment or the step count")
+    check(eng_a.optimizer.get_lr() != lr_before, "ERNIE: the schedule did "
+          "not advance over the poisoned step")
+    after_bad = eng_a.step(batches[0])
+    check(not after_bad.bad and np.isfinite(float(after_bad)) and
+          not all(torch.equal(p, q) for p, q in zip(keep, eng_a.params)),
+          "ERNIE: the step after the poisoned one did not train")
+    for k in counters:
+        counters[k].launches = before[k]
+    out = {"ernie_reference": {
+        "dtype": "float32", "depth": 2, "batch": b, "seq": ERNIE_SEQ,
+        "steps": REF_STEPS, "losses_kernel": lk, "losses_plain": lp,
+        "max_loss_err": loss_err, "max_param_err": param_err,
+        "max_key_bias_err": key_bias_err,
+        "controls": {"depth": ERNIE_CTRL_DEPTH, "grad_accum": 2,
+                     "micro_batch": ERNIE_REF_BATCH, "clip_global_norm": 1.0,
+                     "check_finite": True, "k": ERNIE_CTRL_K,
+                     "losses": np.asarray(many).tolist(),
+                     "step_many_bit_equal": True,
+                     "clipped_grad_norm": grad_norm,
+                     "poisoned_step_bad": True,
+                     "poisoned_step_bit_identical": True,
+                     "loss_after_poisoned": float(after_bad)}}}
+    log(json.dumps(out))
+    del eng_a, m_a, keep, slots
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3084,9 +3540,13 @@ def main() -> int:
 
     flash_errs = flash_check(dev)
     flash_t, flash_b, flash_shape = flash_timing(dev)
+    flash_te, flash_be, flash_shape_e = flash_timing(dev, ERNIE_ATTN)
     adam = adam_phase(dev)
     ln_train = train_layer_norm_case(dev)
-    kernels["layer_norm"].append(ln_train)
+    ln_ernie = [train_layer_norm_case(dev, ERNIE_BATCH * ERNIE_SEQ,
+                                      ERNIE_HIDDEN, dt)
+                for dt in (torch.bfloat16, torch.float32)]
+    kernels["layer_norm"] += [ln_train] + ln_ernie
     torch.cuda.empty_cache()
     train = train_phase(dev)
     torch.cuda.empty_cache()
@@ -3113,6 +3573,11 @@ def main() -> int:
     yolo_bn_errs, yolo_bn_times = yolo_bn_phase(dev)
     yolo = yolo_phase(dev)
     yolo_reference_check(dev)
+    torch.cuda.empty_cache()
+
+    adam_e = adam_ernie_phase(dev)
+    ernie = ernie_phase(dev)
+    ernie_reference_check(dev)
 
     src = "paddle1_tpu_torch/ops/cuda/"
     pallas = "paddle1_tpu/ops/pallas/"
@@ -3121,7 +3586,8 @@ def main() -> int:
     for name in ("paged_attention", "layer_norm"):
         main_case = kernels[name][0]     # the decode step's shape
         err = max(c["max_abs_err"] for c in kernels[name])
-        by_path = {"serving": launches[name], "train": tl.get(name, 0)}
+        by_path = {"serving": launches[name], "train": tl.get(name, 0),
+                   "ernie": ernie["launches"].get(name, 0)}
         line.append({
             "name": name, "route": "cuda", "source": f"{src}{name}.cu",
             "replaces": {"paged_attention": pallas + "paged_attention.py:89",
@@ -3140,6 +3606,14 @@ def main() -> int:
     line[-1].update({f"train_shape_{k}": ln_train[k] for k in (
         "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")})
     line[-1]["train_shape"] = ln_train["shape"]
+    # ERNIE-1.5B's (bf16 [2048, 2304], the block-per-row kernel; f32 in
+    # ernie_f32_case)
+    line[-1].update({f"ernie_shape_{k}": ln_ernie[0][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err")})
+    line[-1]["ernie_shape"] = ln_ernie[0]["shape"]
+    line[-1]["ernie_f32_case"] = ln_ernie[1]
+    line[-1]["launches_per_ernie_forward"] = 2 * ERNIE_LAYERS + 2
     flash_rows = (
         ("flash_attention", "flash_attention.cu",
          pallas + "flash_attention.py:59", "fwd", "fwd_plain",
@@ -3167,10 +3641,11 @@ def main() -> int:
               "lse/delta in registers, S/dP/dS in registers per 64-key "
               "tile, dS split bf16 hi + lo; f32: CUDA-core kernel"}
     for name, cu, rep, key, plain_key, lib_key, tc in flash_rows:
+        by_path = {"train": tl[name], "ernie": ernie["launches"][name]}
         line.append({
             "name": name, "route": "cuda", "source": src + cu,
-            "replaces": rep, "launches": tl[name],
-            "launches_by_path": {"train": tl[name]},
+            "replaces": rep, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(c["max_abs_err"] for c in flash_errs[key]),
             "ms": flash_t[key], "plain_ms": flash_t[plain_key],
             "bound_ms": flash_b[key][0], "bound_by": flash_b[key][1],
@@ -3184,18 +3659,27 @@ def main() -> int:
             "library_fwd_bwd_eager_ms": flash_t["fwd_bwd_library_eager"],
             "design": designs[key],
             "sass": tc_report.get(tc) if tc else None,
+            "ernie_shape": flash_shape_e, "ernie_shape_ms": flash_te[key],
+            "ernie_shape_plain_ms": flash_te[plain_key],
+            "ernie_shape_bound_ms": flash_be[key][0],
+            "ernie_shape_bound_by": flash_be[key][1],
+            "ernie_shape_library_ms": flash_te[lib_key],
+            "ernie_shape_library_ops": flash_te["library_backend"],
             "cases": flash_errs[key]})
     by_path = {"train": tl["fused_adam"],
-               "lenet_train": lenet["launches"]["fused_adam"]}
+               "lenet_train": lenet["launches"]["fused_adam"],
+               "ernie": ernie["launches"]["fused_adam"]}
     line.append({
         "name": "fused_adam", "route": "cuda", "source": src + "fused_adam.cu",
         "replaces": pallas + "fused_adam.py:39",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
-        "max_abs_err": max(c["max_abs_err"] for c in adam["cases"]),
+        "max_abs_err": max([c["max_abs_err"] for c in adam["cases"]] +
+                           [adam_e["max_abs_err"]]),
         "ms": adam["ms"], "plain_ms": adam["plain_ms"],
         "bound_ms": adam["bound_ms"], "bound_by": adam["bound_by"],
         "library_ms": adam["library_ms"], "tensors": adam["tensors"],
-        "elements": adam["elements"], "cases": adam["cases"]})
+        "elements": adam["elements"], "cases": adam["cases"],
+        "ernie_scale": adam_e})
     bn_rows = (("fused_bn_train", "fused_bn.cu", "fused_bn.py:90",
                 ("train_fwd_kernel",)),
                ("fused_bn_norm", "fused_bn.cu", "fused_bn.py:245",

@@ -1,9 +1,10 @@
 """Distributed training of the port (``paddle1_tpu.distributed`` subset):
 the process-group environment, the collectives over
 ``torch.distributed``, ``DataParallel``, ``spawn``, the data-parallel
-``build_mesh`` and ``ParallelEngine`` (one device, or data-parallel over
-a mesh)."""
+``build_mesh``, ``ParallelEngine`` (one device, or data-parallel over
+a mesh) and ``fleet.utils.recompute``."""
 
+from . import fleet  # noqa: F401
 from .collective import (Group, ReduceOp, all_gather,  # noqa: F401
                          all_reduce, barrier, broadcast,
                          destroy_process_group, differentiable_all_reduce,

@@ -2,9 +2,13 @@
 YOLOv3 slices (``paddle1_tpu.nn`` subset): Linear, Embedding, Dropout,
 LayerNorm, MultiHeadAttention and the transformer encoder; Conv2D,
 MaxPool2D, AdaptiveAvgPool2D, BatchNorm/BatchNorm2D, SyncBatchNorm,
-ReLU, LeakyReLU, Softmax, LogSoftmax and Sequential."""
+ReLU, LeakyReLU, Softmax, LogSoftmax and Sequential; and the gradient
+clips (``ClipGradByValue``, ``ClipGradByNorm``, ``ClipGradByGlobalNorm``,
+``clip_grad_norm_``, ``clip_grad_value_``)."""
 
 from . import functional  # noqa: F401
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
+                   ClipGradByValue, clip_grad_norm_, clip_grad_value_)
 from .layer_common import Dropout, Embedding, Linear  # noqa: F401
 from .layer_conv_pool import (AdaptiveAvgPool2D, Conv2D,  # noqa: F401
                               MaxPool2D)

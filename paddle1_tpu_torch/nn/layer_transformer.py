@@ -231,7 +231,13 @@ class TransformerEncoderLayer(nn.Module):
 
 class TransformerEncoder(nn.Module):
     """``num_layers`` deep copies of ``encoder_layer`` (Paddle's
-    construction: every layer starts from the same weights)."""
+    construction: every layer starts from the same weights).
+
+    ``enable_recompute = True`` (``ParallelEngine(recompute=True)`` sets
+    it) rematerializes per block in training mode: each layer runs under
+    ``fleet.utils.recompute``, so only the block inputs stay alive for
+    the backward (``layer_transformer.py:334-344`` of the JAX
+    package)."""
 
     def __init__(self, encoder_layer: TransformerEncoderLayer,
                  num_layers: int):
@@ -240,12 +246,17 @@ class TransformerEncoder(nn.Module):
             [encoder_layer] +
             [copy.deepcopy(encoder_layer) for _ in range(num_layers - 1)])
         self.num_layers = num_layers
+        self.enable_recompute = False
 
     def forward(self, src, src_mask=None, cache=None):
         output = src
         new_caches = []
+        remat = self.enable_recompute and self.training
         for i, mod in enumerate(self.layers):
-            if cache is None:
+            if cache is None and remat:
+                from ..distributed.fleet.utils.recompute import recompute
+                output = recompute(mod, output, src_mask)
+            elif cache is None:
                 output = mod(output, src_mask)
             else:
                 output, c = mod(output, src_mask, cache[i])

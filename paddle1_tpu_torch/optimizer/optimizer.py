@@ -2,7 +2,12 @@
 from ``paddle1_tpu/optimizer/optimizer.py``).
 
 The Paddle constructor (``learning_rate``, ``parameters``,
-``weight_decay``, ``grad_clip``) over torch parameters. Moments are f32
+``weight_decay``, ``grad_clip``) over torch parameters. ``learning_rate``
+is a float or an ``optimizer.lr.LRScheduler``: ``get_lr()`` reads the
+scheduler's current rate, the caller (or ``ParallelEngine``, once per
+step) steps it, and ``state_dict`` carries its state under
+``"LR_Scheduler"``. ``grad_clip`` is a callable on ``(param, grad)``
+pairs, such as ``nn.ClipGradByGlobalNorm``. Moments are f32
 whatever the parameter's dtype, kept per parameter and updated IN PLACE
 together with the parameter (the JAX package returns new arrays).
 
@@ -26,9 +31,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..core.errors import UnimplementedError
+from ..core.errors import InvalidArgumentError, UnimplementedError
 from ..core.flags import flag_active
 from ..ops import fused_adam as fadam
+from .lr import LRScheduler
 
 __all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]
 
@@ -42,7 +48,7 @@ class Optimizer:
 
     _slot_names: Tuple[str, ...] = ()
 
-    def __init__(self, learning_rate: float = 0.001, parameters=None,
+    def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay: Optional[float] = None,
                  grad_clip: Optional[Callable] = None):
         self._params: List[torch.Tensor] = []
@@ -55,7 +61,9 @@ class Optimizer:
                 seen.add(id(p))
                 self._params.append(p)
                 self._names.append(f"param_{len(self._names)}")
-        self._learning_rate = float(learning_rate)
+        self._learning_rate = learning_rate \
+            if isinstance(learning_rate, LRScheduler) else \
+            float(learning_rate)
         self._weight_decay = 0.0 if weight_decay is None else \
             float(getattr(weight_decay, "coeff", weight_decay))
         self._grad_clip = grad_clip
@@ -66,7 +74,15 @@ class Optimizer:
     # -- learning rate ------------------------------------------------------
 
     def get_lr(self) -> float:
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate())
         return self._learning_rate
+
+    def set_lr(self, value: float) -> None:
+        if isinstance(self._learning_rate, LRScheduler):
+            raise InvalidArgumentError(
+                "Cannot set_lr when using an LRScheduler")
+        self._learning_rate = float(value)
 
     # -- parameters ---------------------------------------------------------
 
@@ -126,17 +142,27 @@ class Optimizer:
     # -- state dict ---------------------------------------------------------
 
     def state_dict(self) -> Dict[str, object]:
-        """``{"step": n, "<name>__<slot>": tensor}`` (moments, copied)."""
-        out: Dict[str, object] = {"step": self._step_count}
+        """``{"step": n, "<name>__<slot>": tensor}`` (moments, copied),
+        plus ``"LR_Scheduler"``: the scheduler's state, when there is
+        one. ``n`` is the device step counter where there is one (a step
+        ``ParallelEngine(check_finite=True)`` skipped does not count)."""
+        step = self._step_count if self._step_t is None else \
+            int(self._step_t.item())
+        out: Dict[str, object] = {"step": step}
         for p, name in zip(self._params, self._names):
             s = self._slots.get(id(p))
             for slot, t in (s or {}).items():
                 out[f"{name}__{slot}"] = t.detach().clone()
+        if isinstance(self._learning_rate, LRScheduler):
+            out["LR_Scheduler"] = self._learning_rate.state_dict()
         return out
 
     def set_state_dict(self, state: Dict[str, object]) -> None:
         self._step_count = int(state.get("step", 0))
         self._step_t = None
+        if isinstance(self._learning_rate, LRScheduler) and \
+                "LR_Scheduler" in state:
+            self._learning_rate.set_state_dict(state["LR_Scheduler"])
         for p, name in zip(self._params, self._names):
             for slot in self._slot_names:
                 v = state.get(f"{name}__{slot}")
@@ -153,7 +179,7 @@ class Momentum(Optimizer):
 
     _slot_names = ("velocity",)
 
-    def __init__(self, learning_rate: float = 0.001, momentum: float = 0.9,
+    def __init__(self, learning_rate=0.001, momentum: float = 0.9,
                  parameters=None, use_nesterov: bool = False,
                  weight_decay: Optional[float] = None,
                  grad_clip: Optional[Callable] = None):
@@ -188,7 +214,7 @@ class Adam(Optimizer):
 
     _slot_names = ("moment1", "moment2")
 
-    def __init__(self, learning_rate: float = 0.001, beta1: float = 0.9,
+    def __init__(self, learning_rate=0.001, beta1: float = 0.9,
                  beta2: float = 0.999, epsilon: float = 1e-8,
                  parameters=None, weight_decay: Optional[float] = None,
                  grad_clip: Optional[Callable] = None,
@@ -258,7 +284,7 @@ class AdamW(Adam):
     ``apply_decay_param_fun`` rejects are not decayed. ``lr_ratio``
     (per-parameter learning-rate scales) is not ported and raises."""
 
-    def __init__(self, learning_rate: float = 0.001, beta1: float = 0.9,
+    def __init__(self, learning_rate=0.001, beta1: float = 0.9,
                  beta2: float = 0.999, epsilon: float = 1e-8,
                  parameters=None, weight_decay: float = 0.01,
                  grad_clip: Optional[Callable] = None,

@@ -1,5 +1,7 @@
-"""BERT (``paddle1_tpu.text.models`` subset)."""
+"""BERT and ERNIE (``paddle1_tpu.text.models`` subset)."""
 
 from .bert import (BertEmbeddings, BertForPretraining,  # noqa: F401
-                   BertLMPredictionHead, BertModel, BertPooler,
-                   BertPretrainingCriterion, bert_base, bert_large)
+                   BertForSequenceClassification, BertLMPredictionHead,
+                   BertModel, BertPooler, BertPretrainingCriterion,
+                   ErnieForPretraining, ErnieModel, bert_base, bert_large,
+                   ernie_1p5b)

@@ -12,6 +12,14 @@ The MLM decoder is tied: ``cls.decoder_weight`` IS
 ``named_parameters()`` lists it once and autograd sums both gradient
 paths into one gradient — one update, as the JAX engine's dedupe gives.
 ``state_dict()`` lists both names, as ``functional_state()`` does.
+
+ERNIE is the same encoder (``ErnieModel``/``ErnieForPretraining`` are
+aliases, as in the JAX package); ``ernie_1p5b`` pins BASELINE config 4's
+sizes: hidden 2304, 24 layers of 18 heads of 128, FFN 9216, vocabulary
+40000, 2048 positions, ≈ 1.64 B parameters. Only the embeddings, one
+encoder layer and the heads are drawn from ``generator`` (≈ 0.2 B values
+on the CPU): the other layers are copies of the first, made on the
+device, as Paddle's ``TransformerEncoder`` builds them.
 """
 
 from __future__ import annotations
@@ -30,7 +38,9 @@ from ...nn.layer_transformer import (TransformerEncoder,
 
 __all__ = ["BertEmbeddings", "BertPooler", "BertModel",
            "BertLMPredictionHead", "BertForPretraining",
-           "BertPretrainingCriterion", "bert_base", "bert_large"]
+           "BertPretrainingCriterion", "BertForSequenceClassification",
+           "ErnieModel", "ErnieForPretraining", "bert_base", "bert_large",
+           "ernie_1p5b"]
 
 
 class BertEmbeddings(nn.Module):
@@ -194,6 +204,32 @@ class BertPretrainingCriterion(nn.Module):
         return mlm + nsp
 
 
+class BertForSequenceClassification(nn.Module):
+    """Dropout and a linear classifier over the pooled output."""
+
+    def __init__(self, bert: BertModel, num_classes=2, dropout=None, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.bert = bert
+        self.dropout = Dropout(dropout if dropout is not None else 0.1)
+        self.classifier = Linear(
+            bert.hidden_size, num_classes,
+            device=bert.embeddings.word_embeddings.weight.device,
+            generator=generator)
+
+    def forward(self, input_ids, token_type_ids=None, position_ids=None,
+                attention_mask=None):
+        _, pooled = self.bert(input_ids, token_type_ids, position_ids,
+                              attention_mask)
+        return self.classifier(self.dropout(pooled))
+
+
+# ERNIE shares the BERT architecture at this scale (the JAX package's
+# aliases)
+ErnieModel = BertModel
+ErnieForPretraining = BertForPretraining
+
+
 def bert_base(**kw) -> BertModel:
     return BertModel(hidden_size=768, num_hidden_layers=12,
                      num_attention_heads=12, intermediate_size=3072, **kw)
@@ -202,3 +238,16 @@ def bert_base(**kw) -> BertModel:
 def bert_large(**kw) -> BertModel:
     return BertModel(hidden_size=1024, num_hidden_layers=24,
                      num_attention_heads=16, intermediate_size=4096, **kw)
+
+
+def ernie_1p5b(**kw) -> BertModel:
+    """ERNIE 1.5B-class encoder (BASELINE config 4): hidden 2304, 24
+    layers of 18 heads, FFN 9216, vocabulary 40000, 2048 positions; any
+    of them can be overridden by keyword."""
+    kw.setdefault("vocab_size", 40000)
+    kw.setdefault("max_position_embeddings", 2048)
+    kw.setdefault("hidden_size", 2304)
+    kw.setdefault("num_hidden_layers", 24)
+    kw.setdefault("num_attention_heads", 18)
+    kw.setdefault("intermediate_size", 9216)
+    return ErnieModel(**kw)

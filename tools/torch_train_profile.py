@@ -12,6 +12,13 @@
 1 (``init_parallel_env()``: NCCL; ``ParallelEngine`` on
 ``build_mesh(dp=1)``, so every batch norm runs the local-moments kernel,
 an all-reduce each way and the given-statistics kernels);
+``--model ernie`` BASELINE config 4 (``benches.py:195-223``):
+``ErnieForPretraining(ernie_1p5b())`` at full width and depth (1.64 B
+parameters) + AdamW(1e-4), bf16, batch ``--batch`` (default 4) x seq
+``--seq`` (default 512), through ``ParallelEngine`` on
+``build_mesh(dp=1, sharding=1)`` with ``zero_stage=2``, the batch staged
+on the card once; and it also sums the device time of the parameters'
+casts and the gradients' copies (copy kernels);
 ``--model lenet`` the eager LeNet path (BASELINE config 1,
 ``benches.py:52-88``: ``LeNet()`` + ``Adam(1e-3)``, f32, batch ``--batch``
 (default 64) x 1 x 28 x 28, two seeded batches staged with ``to_tensor``
@@ -37,8 +44,8 @@ It runs ``--warmup`` steps, then:
 
 Prints one JSON object.
 
-    python3 tools/torch_train_profile.py [--model resnet50 [--dp] | lenet]
-        [--steps 10]
+    python3 tools/torch_train_profile.py [--model resnet50 [--dp] | lenet |
+        ernie] [--steps 10]
 """
 
 from __future__ import annotations
@@ -70,6 +77,10 @@ OUR_KERNELS = {
                  "stats_partial_kernel", "finalize_kernel",
                  "normalize_kernel", "train_bwd_kernel", "norm_bwd_kernel"),
     "lenet": ("adam_kernel",),
+    # ERNIE's hidden 2304 is past the warp-per-row widths
+    "ernie": ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
+              "flash_bwd_dq_tc_kernel", "adam_kernel",
+              "layer_norm_block_kernel"),
 }
 
 
@@ -145,6 +156,36 @@ def _bert(args, dev):
                  np.int32),
              "nsp": rng.integers(0, 2, (args.batch,)).astype(np.int32)}
     return lambda: eng.step(batch), {"seq_len": args.seq}
+
+
+def _ernie(args, dev):
+    from paddle1_tpu_torch.distributed import ParallelEngine, build_mesh
+    from paddle1_tpu_torch.optimizer import AdamW
+    from paddle1_tpu_torch.text.models import (BertPretrainingCriterion,
+                                               ErnieForPretraining,
+                                               ernie_1p5b)
+    gen = torch.Generator().manual_seed(args.seed)
+    model = ErnieForPretraining(ernie_1p5b(
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+        generator=gen), generator=gen)
+    crit = BertPretrainingCriterion(model.bert.vocab_size)
+
+    def loss_fn(m, b):
+        scores, rel = m(b["ids"])
+        return crit(scores, rel, b["mlm"], b["nsp"])
+    eng = ParallelEngine(model, AdamW(learning_rate=1e-4,
+                                      parameters=model.parameters()),
+                         loss_fn, mesh=build_mesh(dp=1, sharding=1),
+                         zero_stage=2, amp_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    v = model.bert.vocab_size
+    staged = eng.shard_batch({
+        "ids": rng.integers(1, v, (args.batch, args.seq)).astype(np.int32),
+        "mlm": rng.integers(0, v, (args.batch, args.seq)).astype(np.int32),
+        "nsp": rng.integers(0, 2, (args.batch,)).astype(np.int32)})
+    n_params = sum(p.numel() for p in model.parameters())
+    return lambda: eng.step(staged), {"seq_len": args.seq,
+                                      "params": n_params}
 
 
 def _resnet50(args, dev):
@@ -268,11 +309,13 @@ def _kernel_times(prof):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
-    ap.add_argument("--model", choices=("bert", "resnet50", "lenet"),
-                    default="bert")
+    ap.add_argument("--model", choices=("bert", "resnet50", "lenet",
+                                        "ernie"), default="bert")
     ap.add_argument("--batch", type=int, default=None,
-                    help="default: 128 (bert), 32 (resnet50), 64 (lenet)")
-    ap.add_argument("--seq", type=int, default=128)
+                    help="default: 128 (bert), 32 (resnet50), 64 (lenet), "
+                         "4 (ernie)")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="default: 128 (bert), 512 (ernie)")
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--profile-steps", type=int, default=3)
@@ -283,14 +326,18 @@ def main() -> int:
     if args.dp and args.model != "resnet50":
         ap.error("--dp needs --model resnet50")
     if args.batch is None:
-        args.batch = {"bert": 128, "resnet50": 32, "lenet": 64}[args.model]
+        args.batch = {"bert": 128, "resnet50": 32, "lenet": 64,
+                      "ernie": 4}[args.model]
+    if args.seq is None:
+        args.seq = 512 if args.model == "ernie" else 128
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA card", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False   # as chip_smoke.py:
     torch.backends.cudnn.allow_tf32 = False         # f32 stays f32
     dev = torch.device("cuda", torch.cuda.current_device())
-    build = {"bert": _bert, "resnet50": _resnet50, "lenet": _lenet}
+    build = {"bert": _bert, "resnet50": _resnet50, "lenet": _lenet,
+             "ernie": _ernie}
     step, shape = build[args.model](args, dev)
     for _ in range(args.warmup):
         float(step())
@@ -353,6 +400,12 @@ def main() -> int:
     }
     if calls is not None:
         result["facade_calls_per_step"] = calls
+    if args.model == "ernie":
+        result["copy_kernels_ms_per_step"] = sum(
+            k[1] for k in kernels if "copy_kernel" in k[0]) / 1e3 / n
+        result["copy_kernels_per_step"] = sum(
+            k[2] for k in kernels if "copy_kernel" in k[0]) / n
+        result["tokens_per_s"] = args.batch * args.seq / step_ms * 1e3
     if args.model == "resnet50":
         result["bn_bound_ms_per_step"] = bn_bound_ms_per_step(args.batch)
     if args.dp:
