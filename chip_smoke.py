@@ -41,11 +41,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    passes and the fused AdamW kernel against their plain versions at the
    BERT-base shapes (q/k/v ``[128, 128, 12, 64]``, BERT-base's ~200
    parameter tensors), in f32 and bf16 (flash: causal in both, and both
-   at ERNIE-1.5B's ``[4, 512, 18, 128]``; bf16 passes repeated bit for
-   bit), with one fully padded batch row, and the LayerNorm kernel at the
-   training shapes (bf16 ``[16384, 768]``; ERNIE-1.5B's ``[2048, 2304]``
-   in bf16 and f32, past the warp-per-row widths); flash timed at both
-   models' shapes; all timed beside their plain versions, the
+   at ERNIE-1.5B's ``[4, 512, 18, 128]``, f32 at the fine-tuning path's
+   ``[32, 128, 12, 64]``; bf16 passes repeated bit for bit), with one
+   fully padded batch row; AdamW also with mixed per-tensor learning-rate
+   scales (0 included) and decays, and timed with them; the LayerNorm
+   kernel at the training shapes (bf16 ``[16384, 768]``; ERNIE-1.5B's
+   ``[2048, 2304]`` in bf16 and f32, past the warp-per-row widths; the
+   fine-tuning path's f32 ``[4096, 768]``); flash timed at the three
+   models' shapes (f32 with ragged padding at the fine-tuning one); all
+   timed beside their plain versions, the
    PyTorch library calls (``F.scaled_dot_product_attention`` forward, its
    backward alone as graph-replayed forward + backward less the forward,
    with the backend it picks named, and forward + backward eagerly;
@@ -219,6 +223,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
     scales its loss by NaN comes back ``.bad`` with every parameter,
     moment and the step count unchanged bit for bit; the next step trains.
 
+21. **BERT-base fine-tuning in eager dygraph (the eighth main path).**
+    BASELINE config 3's model at full width and depth, f32 (TF32 off),
+    the GLUE settings of Devlin et al. 2018 (batch 32 x 128 with ragged
+    padding, lr 2e-5): a seeded ``BertForPretraining`` saved with
+    ``paddle.save(model.state_dict())`` warm-starts
+    ``BertForSequenceClassification`` through ``set_state_dict(
+    paddle.load(path))`` (``missing`` exactly the classifier head's,
+    ``unexpected`` exactly the pretraining heads'); its head has
+    ``ParamAttr(learning_rate=10)``; ``AdamW`` over ``LinearWarmup(
+    PolynomialDecay(2e-5))`` with PaddleNLP's decay filter by parameter
+    name; hidden dropout 0.1, attention dropout 0 (the flash kernels
+    carry none). Each step is ``loss.backward(); opt.step(); sched.step();
+    opt.clear_grad()`` on Paddle tensors. Two warm-up steps, then
+    slope+readback timing over 30 with the counters zeroed just before
+    and read just after: 12 flash forward, dK/dV and dQ launches and one
+    fused AdamW a step, 25 LayerNorm launches a forward; the eval-mode
+    loss on the staged batches must fall. The same loop on plain tensors,
+    in turns, gives the facade's host ms a step; two steps under
+    ``torch.profiler`` the busy time and idle share. A ``save`` ->
+    ``load`` -> ``set_state_dict`` of model and optimizer into a fresh
+    classifier resumes bit for bit, and one step with decay against the
+    same step without leaves every parameter the filter excludes (biases
+    and norms) bit-equal. Prints step ms, samples/s, tokens/s, MFU over
+    the f32 peak and peak memory.
+22. **The fine-tuning reference check.** Depth 2, batch 8 x 128, f32,
+    dropout 0: three eager steps of phase 21's loop on the kernel path
+    within 1e-4 of the plain path (losses and parameters; the key biases
+    within 3 x lr, as phase 7).
+
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. It imports nothing of
 JAX or of the JAX package.
@@ -250,8 +283,10 @@ BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor cores (published)
 FLASH_TOL, FLASH_BWD_TOL = 1e-5, 1e-4
 # bf16 flash: one bf16 rounding step of the value plus the f32 difference
 FLASH_BF16_ABS = 1e-4
-# Adam: the JAX package's tolerance for its kernel (rtol 1e-6, atol 1e-7)
+# Adam: the JAX package's tolerance for its kernel (rtol 1e-6, atol 1e-7);
+# the per-tensor learning-rate scales the kernel check cycles through
 ADAM_RTOL, ADAM_ATOL = 1e-6, 1e-7
+ADAM_SCALES = (1.0, 0.5, 0.0, 2.0, 10.0)
 # training reference check (f32, depth 2, 3 steps): the losses and the
 # params of the kernel path and the plain path agree to REF_TOL; the
 # attention key bias is held to STEPS * lr instead (its gradient is 0 in
@@ -329,6 +364,17 @@ ERNIE_BATCH, ERNIE_SEQ, ERNIE_LR = 4, 512, 1e-4
 # at depth 4: grad_accum 2 x micro-batch 2, the global-norm clip, the
 # finite check and a warm-up over a polynomial decay
 ERNIE_REF_BATCH, ERNIE_CTRL_DEPTH, ERNIE_CTRL_K = 2, 4, 4
+# BERT-base fine-tuning in eager dygraph (BASELINE config 3's model at full
+# width and depth, f32; batch 32 x 128 and lr 2e-5 are the GLUE settings
+# of Devlin et al. 2018, appendix A.3): AdamW with PaddleNLP's decay
+# filter over a warm-up and a polynomial decay, the classifier's weight at
+# FT_HEAD_LR times the rate, hidden dropout 0.1 and attention dropout 0
+# (the flash kernels carry no dropout); FT_STEPS timed steps, the host
+# comparison over FT_HOST_STEPS; its reference check at depth 2, batch
+# 8 x 128, dropout 0
+FT_BATCH, FT_SEQ, FT_LR, FT_HEAD_LR, FT_CLASSES = 32, 128, 2e-5, 10.0, 2
+FT_STEPS, FT_HOST_STEPS, FT_DECAY_STEPS = 30, 10, 400
+FT_REF_DEPTH, FT_REF_BATCH = 2, 8
 
 
 class SmokeFailure(RuntimeError):
@@ -927,6 +973,8 @@ BERT_ATTN = (BATCH, SEQ, BERT_HEADS, BERT_HIDDEN // BERT_HEADS)
 # 18 heads of 128 (hidden 2304)
 ERNIE_ATTN = (ERNIE_BATCH, ERNIE_SEQ, ERNIE_HEADS,
               ERNIE_HIDDEN // ERNIE_HEADS)
+# BERT-base fine-tuning (phase 21): f32, batch 32, seq 128, ragged padding
+FT_ATTN = (FT_BATCH, FT_SEQ, BERT_HEADS, BERT_HIDDEN // BERT_HEADS)
 
 
 def flash_case(dev, dtype, seed, n_sets=1, shape=BERT_ATTN):
@@ -957,7 +1005,8 @@ def flash_check(dev):
                                  (torch.bfloat16, False, BERT_ATTN),
                                  (torch.bfloat16, True, BERT_ATTN),
                                  (torch.float32, False, ERNIE_ATTN),
-                                 (torch.bfloat16, False, ERNIE_ATTN)):
+                                 (torch.bfloat16, False, ERNIE_ATTN),
+                                 (torch.float32, False, FT_ATTN)):
         scale = 1.0 / shape[-1] ** 0.5
         sets, keep, _ = flash_case(dev, dtype, SEED + 3, shape=shape)
         q, k, v, do = sets[0]
@@ -1010,15 +1059,18 @@ def flash_check(dev):
     return errs
 
 
-def flash_timing(dev, shape=BERT_ATTN):
+def flash_timing(dev, shape=BERT_ATTN, dtype=torch.bfloat16, ragged=False):
     """Time the three kernels at a main path's inputs (bf16, all keys
-    kept; BERT-base's by default, ERNIE-1.5B's ``ERNIE_ATTN``), over 4
-    input sets in turn so no call finds its inputs in L2."""
+    kept; BERT-base's by default, ERNIE-1.5B's ``ERNIE_ATTN``; the
+    fine-tuning path's f32 ``FT_ATTN`` with ragged padding), over 4 input
+    sets in turn so no call finds its inputs in L2."""
     from paddle1_tpu_torch.ops import flash_attention as fa
     from paddle1_tpu_torch.ops import flash_attention_bwd as fb
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    sets, _, keep = flash_case(dev, torch.bfloat16, SEED + 4, n_sets=4,
-                               shape=shape)
+    sets, keep_ragged, keep = flash_case(dev, dtype, SEED + 4, n_sets=4,
+                                         shape=shape)
+    if ragged:
+        keep = keep_ragged
     scale = 1.0 / shape[-1] ** 0.5
     fwd = [fa.flash_fwd(q, k, v, scale, False, keep) for q, k, v, _ in sets]
     deltas = [(do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
@@ -1064,7 +1116,8 @@ def flash_timing(dev, shape=BERT_ATTN):
                                    if "_attention" in e.name and
                                    e.name.startswith("aten::_")})
     bounds = flash_bounds(sets[0][0], keep)
-    log(f"flash timing (bf16 {list(sets[0][0].shape)}): fwd {t['fwd']:.5f} "
+    tag = str(dtype).split(".")[-1]
+    log(f"flash timing ({tag} {list(sets[0][0].shape)}): fwd {t['fwd']:.5f} "
         f"ms (plain {t['fwd_plain']:.5f}, library {t['fwd_library']:.5f}, "
         f"bound {bounds['fwd'][0]:.5f}); dkv {t['dkv']:.5f} ms, dq "
         f"{t['dq']:.5f} ms (plain backward {t['bwd_plain']:.5f}, library "
@@ -1073,7 +1126,8 @@ def flash_timing(dev, shape=BERT_ATTN):
         f"{t['fwd_bwd_library_eager']:.5f} eager; library ops "
         f"{t['library_backend']}; bounds {bounds['dkv'][0]:.5f}, "
         f"{bounds['dq'][0]:.5f})")
-    return t, bounds, [list(sets[0][0].shape), "bf16", "all keys kept"]
+    return t, bounds, [list(sets[0][0].shape), tag,
+                       "ragged padding" if ragged else "all keys kept"]
 
 
 def bert_shapes(h=BERT_HIDDEN, f=3072, v=BERT_VOCAB, layers=BERT_LAYERS,
@@ -1114,13 +1168,22 @@ def adam_phase(dev):
         m2 = [torch.rand(s, device=dev, generator=g) * 0.01 for s in shapes]
         return ps, gs, m1, m2
 
+    # per-tensor learning-rate scales (ParamAttr(learning_rate=...)),
+    # 0 included, and decays mixed with the filter's 0
+    mixed = [ADAM_SCALES[i % len(ADAM_SCALES)] for i in range(len(shapes))]
+    mixed_dec = [(0.01, 0.0)[i % 2] for i in range(len(shapes))]
     errs = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, scales, decs in ((torch.float32, None, decays),
+                                (torch.bfloat16, None, decays),
+                                (torch.float32, mixed, mixed_dec),
+                                (torch.bfloat16, mixed, mixed_dec)):
         ps, gs, m1, m2 = make(dtype)
-        want = [fad.fused_adam_ref(p, q, a, b, sc[0], sc[1], sc[2], 0.01,
-                                   b1, b2, eps)
-                for p, q, a, b in zip(ps, gs, m1, m2)]
-        fad.fused_adam_(ps, gs, m1, m2, sc, decays, b1, b2, eps)
+        want = [fad.fused_adam_ref(p, q, a, b, sc[0], sc[1], sc[2], d,
+                                   b1, b2, eps, 1.0 if scales is None else
+                                   scales[i])
+                for i, (p, q, a, b, d) in enumerate(zip(ps, gs, m1, m2,
+                                                        decs))]
+        fad.fused_adam_(ps, gs, m1, m2, sc, decs, b1, b2, eps, scales)
         torch.cuda.synchronize()
         err = 0.0
         for got, w in zip(zip(ps, m1, m2), want):
@@ -1129,16 +1192,21 @@ def adam_phase(dev):
                 err = max(err, float((a - b).abs().max()))
                 check(bool(torch.isclose(a, b, rtol=ADAM_RTOL,
                                          atol=ADAM_ATOL).all()),
-                      f"fused_adam {dtype}: outside rtol {ADAM_RTOL} atol "
-                      f"{ADAM_ATOL} of the plain version")
-        errs.append({"dtype": str(dtype), "max_abs_err": err})
+                      f"fused_adam {dtype} (scales {scales is not None}): "
+                      f"outside rtol {ADAM_RTOL} atol {ADAM_ATOL} of the "
+                      "plain version")
+        errs.append({"dtype": str(dtype), "max_abs_err": err,
+                     "lr_scales": sorted(set(scales or [1.0]))})
         log(f"fused_adam {dtype} over {len(shapes)} tensors ({n_el} "
-            f"elements): max_abs_err={err:.3e}")
+            f"elements), lr scales {sorted(set(scales or [1.0]))}: "
+            f"max_abs_err={err:.3e}")
         del ps, gs, m1, m2, want
 
     ps, gs, m1, m2 = make(torch.float32)
     ms = graph_time_ms([lambda: fad.fused_adam_(ps, gs, m1, m2, sc, decays,
                                                 b1, b2, eps)])
+    ms_scaled = graph_time_ms([lambda: fad.fused_adam_(
+        ps, gs, m1, m2, sc, mixed_dec, b1, b2, eps, mixed)])
 
     def plain():
         for p, q, a, b in zip(ps, gs, m1, m2):
@@ -1157,9 +1225,10 @@ def adam_phase(dev):
     bytes_ = 28.0 * n_el                  # p, g, m1, m2 in; p, m1, m2 out
     b_ms, by = bound(bytes_, 12.0 * n_el, F32_FLOPS_PER_S)
     log(f"fused_adam timing (f32, {n_el} elements, 1 launch): {ms:.5f} ms "
-        f"(plain {plain_ms:.5f}, library {lib_ms:.5f}, bound {b_ms:.5f} "
-        f"{by})")
-    return {"cases": errs, "ms": ms, "plain_ms": plain_ms,
+        f"(mixed lr scales {ms_scaled:.5f}; plain {plain_ms:.5f}, library "
+        f"{lib_ms:.5f}, bound {b_ms:.5f} {by})")
+    return {"cases": errs, "ms": ms, "ms_mixed_lr_scales": ms_scaled,
+            "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": by,
             "tensors": len(shapes), "elements": n_el}
 
@@ -2630,7 +2699,11 @@ def lenet_reference_check(dev):
                             ("plain", {"fused_softmax": "never",
                                        "fused_adam": "never"})):
             with flags_guard(flags):
-                model = LeNet(generator=torch.Generator().manual_seed(SEED))
+                # each model in a fresh name space, as in its own process:
+                # the Adam state is keyed by parameter name
+                with paddle.utils.unique_name.guard():
+                    model = LeNet(
+                        generator=torch.Generator().manual_seed(SEED))
                 opt = paddle.optimizer.Adam(learning_rate=1e-3,
                                             parameters=model.parameters())
                 step = lenet_step_fn(paddle, model, opt, batches)
@@ -2658,7 +2731,8 @@ def lenet_reference_check(dev):
             paddle.save({"model": k["model"].state_dict(),
                          "opt": k["opt"].state_dict()}, path)
             ck = paddle.load(path)
-        fresh = LeNet()
+        with paddle.utils.unique_name.guard():
+            fresh = LeNet()
         fresh.load_state_dict(ck["model"])
         fopt = paddle.optimizer.Adam(learning_rate=1e-3,
                                      parameters=fresh.parameters())
@@ -3498,6 +3572,367 @@ def ernie_reference_check(dev):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 21: BERT-base fine-tuning in eager dygraph
+
+
+def ft_batches(paddle, batch, n=2, seed=0):
+    """``n`` seeded batches of ``batch`` x FT_SEQ token ids as Paddle
+    tensors on the current place, with ragged padding (each row keeps
+    between a quarter and all of its tokens, the first row all; the rest
+    are the pad id 0, so the ``[B, Nk]`` keep-mask reaches the flash
+    kernels), and labels the model can learn: whether the first token is
+    in the vocabulary's lower half."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(1, BERT_VOCAB, (batch, FT_SEQ))
+        lens = rng.integers(FT_SEQ // 4, FT_SEQ + 1, batch)
+        lens[0] = FT_SEQ
+        ids[np.arange(FT_SEQ)[None, :] >= lens[:, None]] = 0
+        labels = (ids[:, 0] < BERT_VOCAB // 2).astype(np.int64)
+        out.append((paddle.to_tensor(ids.astype(np.int64)),
+                    paddle.to_tensor(labels)))
+    return out
+
+
+def ft_classifier(paddle, depth, seed, dropout):
+    """``BertForSequenceClassification`` at BERT-base width and ``depth``
+    layers whose head is a ``Linear`` with ``ParamAttr(learning_rate=
+    FT_HEAD_LR)``, built in a fresh name space (as in its own process), so
+    every build carries the same parameter names."""
+    from paddle1_tpu_torch.text.models import (BertForSequenceClassification,
+                                               BertModel)
+    with paddle.utils.unique_name.guard():
+        clf = BertForSequenceClassification(
+            BertModel(num_hidden_layers=depth, hidden_dropout_prob=dropout,
+                      attention_probs_dropout_prob=0.0,
+                      generator=torch.Generator().manual_seed(seed)),
+            num_classes=FT_CLASSES, dropout=dropout)
+        clf.classifier = paddle.nn.Linear(
+            BERT_HIDDEN, FT_CLASSES,
+            weight_attr=paddle.ParamAttr(learning_rate=FT_HEAD_LR),
+            generator=torch.Generator().manual_seed(seed + 1))
+    return clf
+
+
+def ft_warm_start(paddle, depth=None, seed=SEED + 60, dropout=0.1):
+    """The user's warm start: a seeded ``BertForPretraining`` saved with
+    ``paddle.save(model.state_dict(), path)`` under a temporary directory,
+    loaded into a fresh classifier by ``set_state_dict(paddle.load(path))``.
+    Returns the classifier, ``(missing, unexpected)`` and the pretraining
+    model's keys."""
+    import os
+    import tempfile
+    from paddle1_tpu_torch.text.models import BertForPretraining, BertModel
+    depth = BERT_LAYERS if depth is None else depth
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bert_pretrained.pdparams")
+        with paddle.utils.unique_name.guard():
+            gen = torch.Generator().manual_seed(seed)
+            pre = BertForPretraining(BertModel(
+                num_hidden_layers=depth, generator=gen), generator=gen)
+        keys = list(pre.state_dict())
+        paddle.save(pre.state_dict(), path)
+        del pre
+        clf = ft_classifier(paddle, depth, seed + 2, dropout)
+        missing, unexpected = clf.set_state_dict(paddle.load(path))
+    return clf, missing, unexpected, keys
+
+
+def ft_optimizer(paddle, clf, lr=FT_LR, weight_decay=0.01, schedule=True):
+    """AdamW with PaddleNLP's fine-tuning idiom: ``decay_params`` are the
+    names of every parameter outside biases and norms, and
+    ``apply_decay_param_fun=lambda x: x in decay_params``; the rate is a
+    warm-up (a tenth of FT_DECAY_STEPS) over a polynomial decay, or
+    constant. Returns ``(optimizer, scheduler or None, decay_params)``."""
+    from paddle1_tpu_torch.optimizer import lr as sched
+    decay_params = [p.name for n, p in clf.named_parameters()
+                    if not any(nd in n for nd in ["bias", "norm"])]
+    rate = sched.LinearWarmup(
+        sched.PolynomialDecay(lr, decay_steps=FT_DECAY_STEPS),
+        warmup_steps=FT_DECAY_STEPS // 10, start_lr=0.0, end_lr=lr) \
+        if schedule else lr
+    opt = paddle.optimizer.AdamW(
+        learning_rate=rate, parameters=clf.parameters(),
+        weight_decay=weight_decay,
+        apply_decay_param_fun=lambda x: x in decay_params)
+    return opt, (rate if schedule else None), decay_params
+
+
+def ft_step_fn(paddle, clf, opt, sched, batches):
+    """One eager fine-tuning step over the staged batches in turn:
+    ``loss.backward(); opt.step(); sched.step(); opt.clear_grad()``."""
+    F = paddle.nn.functional
+    turn = [0]
+
+    def step():
+        x, y = batches[turn[0] % len(batches)]
+        turn[0] += 1
+        loss = F.cross_entropy(clf(x), y)
+        loss.backward()
+        opt.step()
+        if sched is not None:
+            sched.step()
+        opt.clear_grad()
+        return loss
+    return step
+
+
+def ft_one_step(paddle, clf, opt, batch, seed):
+    """One step with the dropout masks drawn from ``seed``; the loss."""
+    torch.manual_seed(seed)
+    step = ft_step_fn(paddle, clf, opt, None, [batch])
+    return float(step())
+
+
+def ft_eval_loss(paddle, clf, batches):
+    """The mean loss over ``batches`` in eval mode (no dropout), under
+    ``no_grad``; the model goes back to training mode."""
+    F = paddle.nn.functional
+    clf.eval()
+    with paddle.no_grad():
+        losses = [float(F.cross_entropy(clf(x), y)) for x, y in batches]
+    clf.train()
+    return float(np.mean(losses))
+
+
+def finetune_phase(dev):
+    """The eighth main path: eager BERT-base fine-tuning (see the module
+    docstring, phase 21)."""
+    import copy
+    import os
+    import tempfile
+    import paddle1_tpu_torch as paddle
+    paddle.seed(SEED)
+    t0 = time.perf_counter()
+    clf, missing, unexpected, pre_keys = ft_warm_start(paddle)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(missing == ["classifier.weight", "classifier.bias"],
+          f"fine-tuning warm start: missing {missing}, want exactly the "
+          "classifier head's parameters")
+    heads = sorted(k for k in pre_keys if not k.startswith("bert."))
+    check(sorted(unexpected) == heads, f"fine-tuning warm start: "
+          f"unexpected {sorted(unexpected)[:6]}..., want the pretraining "
+          f"heads' {heads[:6]}...")
+    enc = clf.bert.encoder
+    check(len(enc.layers) == BERT_LAYERS and clf.bert.hidden_size ==
+          BERT_HIDDEN and enc.layers[0].self_attn.num_heads == BERT_HEADS
+          and clf.bert.vocab_size == BERT_VOCAB and
+          enc.layers[0].linear1.weight.shape[1] == 3072,
+          "the classifier is not BERT-base (12 x 768, 12 heads, FFN 3072)")
+    check(all(p.device.type == "cuda" and p.dtype == torch.float32
+              for p in clf.parameters()), "the classifier is not f32 on "
+          "the card")
+    check(clf.classifier.weight.optimize_attr["learning_rate"] ==
+          FT_HEAD_LR, "the head's ParamAttr(learning_rate) was lost")
+    n_params = sum(p.numel() for p in clf.parameters())
+    opt, sched, decay_params = ft_optimizer(paddle, clf)
+    names = opt.param_names()
+    check(names[0] == "embedding_0.weight" and
+          not any(n.startswith("param_") for n in names),
+          f"the optimizer does not see Paddle names: {names[:3]}")
+    batches = ft_batches(paddle, FT_BATCH, seed=SEED + 61)
+    check(isinstance(batches[0][0], paddle.Tensor) and
+          batches[0][0].place == paddle.CUDAPlace(dev.index or 0),
+          "to_tensor did not stage the batch on the card")
+    eval0 = ft_eval_loss(paddle, clf, batches)
+    clf.train()
+    step = ft_step_fn(paddle, clf, opt, sched, batches)
+    torch.cuda.reset_peak_memory_stats()
+    loss0 = float(step().numpy())
+    step()
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    slopes, last, steps = timed_steps(step, FT_STEPS)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(isinstance(last, paddle.Tensor), "the loss is not a Paddle Tensor")
+    loss_end = float(last.numpy())
+    eval_end = ft_eval_loss(paddle, clf, batches)
+    check(np.isfinite(loss0) and np.isfinite(loss_end),
+          f"fine-tuning: non-finite loss {loss0} / {loss_end}")
+    # the loss over the staged batches in eval mode (no dropout noise)
+    check(eval_end < eval0, f"fine-tuning: loss did not fall: {eval0} -> "
+          f"{eval_end} (training losses {loss0} -> {loss_end})")
+    want = {"flash_attention": BERT_LAYERS * steps,
+            "flash_attention_bwd_dkv": BERT_LAYERS * steps,
+            "flash_attention_bwd_dq": BERT_LAYERS * steps,
+            "fused_adam": steps,
+            "layer_norm": (2 * BERT_LAYERS + 1) * steps}
+    for k, n in want.items():
+        check(launches[k] == n, f"fine-tuning: {k} launched {launches[k]} "
+              f"times in {steps} steps, want {n}")
+    peak = torch.cuda.max_memory_allocated()
+    dt = float(np.median(slopes))
+
+    # the facade's host cost: the same loop on plain tensors (the
+    # parameters are plain to every op already), in turns
+    plain_batches = [(x.as_subclass(torch.Tensor), y.as_subclass(
+        torch.Tensor)) for x, y in batches]
+    plain_step = ft_step_fn(paddle, clf, opt, sched, plain_batches)
+    check(type(plain_step()) is torch.Tensor, "the plain loop is not plain")
+    facade_ms, plain_ms = [], []
+    for fn, acc in ((step, facade_ms), (plain_step, plain_ms),
+                    (plain_step, plain_ms), (step, facade_ms)):
+        acc.append(float(np.median(timed_steps(fn, FT_HOST_STEPS)[0]))
+                   * 1e3)
+    prof = device_kernels_per_step(step, 2)
+    busy = prof["device_busy_ms_per_step"]
+    flops = (6 * n_params * FT_BATCH * FT_SEQ +
+             12 * BERT_LAYERS * FT_BATCH * FT_SEQ ** 2 * BERT_HIDDEN)
+
+    # a state_dict -> set_state_dict round trip resumes bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "finetune.pdckpt")
+        paddle.save({"model": clf.state_dict(), "opt": opt.state_dict()},
+                    path)
+        ck = paddle.load(path)
+    fresh = ft_classifier(paddle, BERT_LAYERS, SEED + 70, 0.1)
+    fmissing, funexpected = fresh.set_state_dict(ck["model"])
+    fopt, fsched, _ = ft_optimizer(paddle, fresh)
+    fopt.set_state_dict(ck["opt"])
+    del ck
+    check(fmissing == [] and funexpected == [] and
+          fsched.last_epoch == sched.last_epoch,
+          f"resume: missing {fmissing}, unexpected {funexpected}, "
+          f"schedule at {fsched.last_epoch} vs {sched.last_epoch}")
+    fresh.train()
+    on = ft_one_step(paddle, clf, opt, batches[0], SEED + 71)
+    resumed = ft_one_step(paddle, fresh, fopt, batches[0], SEED + 71)
+    resume_equal = on == resumed and all(
+        torch.equal(a, b) for a, b in zip(clf.parameters(),
+                                          fresh.parameters()))
+    check(resume_equal, f"fine-tuning: a step after save/load differs from "
+          f"the uninterrupted run: {on} vs {resumed}")
+    del fresh, fopt
+
+    # one step with decay against the same step without: the parameters
+    # the filter excludes (biases, norms) are equal bit for bit
+    twin = copy.deepcopy(clf)
+    d_opt, _, _ = ft_optimizer(paddle, clf, schedule=False)
+    n_opt, _, _ = ft_optimizer(paddle, twin, weight_decay=0.0,
+                               schedule=False)
+    ft_one_step(paddle, clf, d_opt, batches[1], SEED + 72)
+    ft_one_step(paddle, twin, n_opt, batches[1], SEED + 72)
+    excluded, moved = [], 0
+    for (n, p), q in zip(clf.named_parameters(), twin.parameters()):
+        if p.name in decay_params:
+            moved += not torch.equal(p, q)
+        else:
+            excluded.append((n, torch.equal(p, q)))
+    check(excluded and all(eq for _, eq in excluded),
+          f"fine-tuning: a parameter the filter excludes was decayed: "
+          f"{[n for n, eq in excluded if not eq][:4]}")
+    check(moved > 0, "fine-tuning: weight decay moved no parameter")
+    check(all(n.endswith(".bias") or "norm" in n for n, _ in excluded),
+          "fine-tuning: the filter excluded a weight")
+    del twin, d_opt, n_opt
+
+    summary = {
+        "train": "bert_base_finetune_eager", "dtype": "float32",
+        "tf32": False, "batch": FT_BATCH, "seq_len": FT_SEQ,
+        "layers": BERT_LAYERS, "params": n_params, "lr": FT_LR,
+        "head_lr_ratio": FT_HEAD_LR, "init_s": init_s,
+        "warm_start": {"missing": missing, "unexpected": len(unexpected)},
+        "decay_params": len(set(decay_params)),
+        "not_decayed": len(excluded), "decayed_moved": moved,
+        "steps": steps, "timing": "slope+readback",
+        "step_ms_median": dt * 1e3, "step_ms_min": min(slopes) * 1e3,
+        "step_ms_max": max(slopes) * 1e3,
+        "samples_per_s": FT_BATCH / dt, "tokens_per_s": FT_BATCH * FT_SEQ /
+        dt, "flops_per_step": flops,
+        # TF32 is off (main sets it): f32 products on the CUDA cores
+        "mfu": flops / dt / F32_FLOPS_PER_S, "mfu_peak": "f32 67 TFLOP/s",
+        "loss_first": loss0, "loss_last": loss_end,
+        "eval_loss_before": eval0, "eval_loss_after": eval_end,
+        "peak_mem_gb": peak / 1e9, "peak_mem_gib": peak / 2 ** 30,
+        "launches": launches,
+        "launches_per_step": {k: n / steps for k, n in launches.items()},
+        "step_ms_facade_runs": facade_ms, "step_ms_plain_runs": plain_ms,
+        "facade_host_ms_per_step": float(np.median(facade_ms)) -
+        float(np.median(plain_ms)),
+        "device_idle_share": 1.0 - busy / (dt * 1e3),
+        "profiler_window_idle_share": 1.0 - busy / prof["profiled_step_ms"],
+        "resume_loss": [on, resumed], "resume_bit_identical": resume_equal,
+        "profile": prof}
+    log(json.dumps({"bert_finetune": summary}))
+    del clf, opt, batches, plain_batches
+    torch.cuda.empty_cache()
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the fine-tuning reference check
+
+
+def finetune_reference_check(dev):
+    """Depth 2, batch FT_REF_BATCH x FT_SEQ (ragged padding), f32, dropout
+    0: REF_STEPS eager fine-tuning steps (warm start, decay filter, head
+    rate, schedule) on the kernel path against the plain path (every
+    kernel flag ``never``) from identical weights: losses and parameters
+    within REF_TOL, the attention key biases within REF_STEPS x lr (as
+    phase 7)."""
+    import paddle1_tpu_torch as paddle
+    from paddle1_tpu_torch.core.flags import flags_guard
+    batches = ft_batches(paddle, FT_REF_BATCH, n=1, seed=SEED + 80)
+    counters = train_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    runs = {}
+    for path, flags in (("kernel", {}),
+                        ("plain", dict(flash_attention="never",
+                                       flash_backward="never",
+                                       fused_adam="never",
+                                       fused_layer_norm="never"))):
+        with flags_guard(**flags):
+            clf, _, _, _ = ft_warm_start(paddle, FT_REF_DEPTH, SEED + 81,
+                                         0.0)
+            opt, sched, _ = ft_optimizer(paddle, clf)
+            for _ in range(FT_DECAY_STEPS // 10):   # past the warm-up
+                sched.step()
+            step = ft_step_fn(paddle, clf, opt, sched, batches)
+            mark = {k: fn.launches for k, fn in counters.items()}
+            losses = [float(step()) for _ in range(REF_STEPS)]
+            torch.cuda.synchronize()
+            runs[path] = (clf, losses, {k: fn.launches - mark[k]
+                                        for k, fn in counters.items()})
+    (mk, lk, nk), (mp, lp, np_) = runs["kernel"], runs["plain"]
+    check(all(n > 0 for n in nk.values()), f"the kernel path skipped a "
+          f"kernel: {nk}")
+    check(all(n == 0 for n in np_.values()), f"the plain path launched a "
+          f"kernel: {np_}")
+    loss_err = max(abs(a - c) for a, c in zip(lk, lp))
+    sk, sp = mk.state_dict(), mp.state_dict()
+    param_err, key_bias_err = 0.0, 0.0
+    for k in sk:
+        e = float((sk[k] - sp[k]).abs().max())
+        if k.endswith("k_proj.bias"):
+            key_bias_err = max(key_bias_err, e)
+        else:
+            param_err = max(param_err, e)
+    for k in counters:
+        counters[k].launches = before[k]
+    out = {"finetune_reference": {
+        "depth": FT_REF_DEPTH, "dtype": "float32", "batch": FT_REF_BATCH,
+        "seq_len": FT_SEQ, "steps": REF_STEPS, "losses_kernel": lk,
+        "losses_plain": lp, "max_loss_err": loss_err,
+        "max_param_err": param_err, "max_key_bias_err": key_bias_err,
+        "kernel_launches": nk}}
+    log(json.dumps(out))
+    check(lk[-1] < lk[0], f"fine-tuning reference: loss did not fall {lk}")
+    check(loss_err <= REF_TOL, f"fine-tuning reference: losses differ by "
+          f"{loss_err}: {lk} vs {lp}")
+    check(param_err <= REF_TOL, f"fine-tuning reference: params differ by "
+          f"{param_err}")
+    check(key_bias_err <= REF_STEPS * FT_LR, f"fine-tuning reference: key "
+          f"biases differ by {key_bias_err} > {REF_STEPS * FT_LR}")
+    del runs, mk, mp
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -3541,12 +3976,16 @@ def main() -> int:
     flash_errs = flash_check(dev)
     flash_t, flash_b, flash_shape = flash_timing(dev)
     flash_te, flash_be, flash_shape_e = flash_timing(dev, ERNIE_ATTN)
+    flash_tf, flash_bf, flash_shape_f = flash_timing(
+        dev, FT_ATTN, torch.float32, ragged=True)
     adam = adam_phase(dev)
     ln_train = train_layer_norm_case(dev)
     ln_ernie = [train_layer_norm_case(dev, ERNIE_BATCH * ERNIE_SEQ,
                                       ERNIE_HIDDEN, dt)
                 for dt in (torch.bfloat16, torch.float32)]
-    kernels["layer_norm"] += [ln_train] + ln_ernie
+    ln_ft = train_layer_norm_case(dev, FT_BATCH * FT_SEQ, BERT_HIDDEN,
+                                  torch.float32)
+    kernels["layer_norm"] += [ln_train] + ln_ernie + [ln_ft]
     torch.cuda.empty_cache()
     train = train_phase(dev)
     torch.cuda.empty_cache()
@@ -3578,6 +4017,10 @@ def main() -> int:
     adam_e = adam_ernie_phase(dev)
     ernie = ernie_phase(dev)
     ernie_reference_check(dev)
+    torch.cuda.empty_cache()
+
+    ft = finetune_phase(dev)
+    finetune_reference_check(dev)
 
     src = "paddle1_tpu_torch/ops/cuda/"
     pallas = "paddle1_tpu/ops/pallas/"
@@ -3587,7 +4030,8 @@ def main() -> int:
         main_case = kernels[name][0]     # the decode step's shape
         err = max(c["max_abs_err"] for c in kernels[name])
         by_path = {"serving": launches[name], "train": tl.get(name, 0),
-                   "ernie": ernie["launches"].get(name, 0)}
+                   "ernie": ernie["launches"].get(name, 0),
+                   "bert_finetune": ft["launches"].get(name, 0)}
         line.append({
             "name": name, "route": "cuda", "source": f"{src}{name}.cu",
             "replaces": {"paged_attention": pallas + "paged_attention.py:89",
@@ -3614,6 +4058,12 @@ def main() -> int:
     line[-1]["ernie_shape"] = ln_ernie[0]["shape"]
     line[-1]["ernie_f32_case"] = ln_ernie[1]
     line[-1]["launches_per_ernie_forward"] = 2 * ERNIE_LAYERS + 2
+    # the fine-tuning path's (f32 [4096, 768])
+    line[-1].update({f"bert_finetune_shape_{k}": ln_ft[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err")})
+    line[-1]["bert_finetune_shape"] = ln_ft["shape"]
+    line[-1]["launches_per_bert_finetune_forward"] = 2 * BERT_LAYERS + 1
     flash_rows = (
         ("flash_attention", "flash_attention.cu",
          pallas + "flash_attention.py:59", "fwd", "fwd_plain",
@@ -3641,7 +4091,8 @@ def main() -> int:
               "lse/delta in registers, S/dP/dS in registers per 64-key "
               "tile, dS split bf16 hi + lo; f32: CUDA-core kernel"}
     for name, cu, rep, key, plain_key, lib_key, tc in flash_rows:
-        by_path = {"train": tl[name], "ernie": ernie["launches"][name]}
+        by_path = {"train": tl[name], "ernie": ernie["launches"][name],
+                   "bert_finetune": ft["launches"][name]}
         line.append({
             "name": name, "route": "cuda", "source": src + cu,
             "replaces": rep, "launches": sum(by_path.values()),
@@ -3665,17 +4116,25 @@ def main() -> int:
             "ernie_shape_bound_by": flash_be[key][1],
             "ernie_shape_library_ms": flash_te[lib_key],
             "ernie_shape_library_ops": flash_te["library_backend"],
+            "bert_finetune_shape": flash_shape_f,
+            "bert_finetune_shape_ms": flash_tf[key],
+            "bert_finetune_shape_plain_ms": flash_tf[plain_key],
+            "bert_finetune_shape_bound_ms": flash_bf[key][0],
+            "bert_finetune_shape_bound_by": flash_bf[key][1],
+            "bert_finetune_shape_library_ms": flash_tf[lib_key],
             "cases": flash_errs[key]})
     by_path = {"train": tl["fused_adam"],
                "lenet_train": lenet["launches"]["fused_adam"],
-               "ernie": ernie["launches"]["fused_adam"]}
+               "ernie": ernie["launches"]["fused_adam"],
+               "bert_finetune": ft["launches"]["fused_adam"]}
     line.append({
         "name": "fused_adam", "route": "cuda", "source": src + "fused_adam.cu",
         "replaces": pallas + "fused_adam.py:39",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": max([c["max_abs_err"] for c in adam["cases"]] +
                            [adam_e["max_abs_err"]]),
-        "ms": adam["ms"], "plain_ms": adam["plain_ms"],
+        "ms": adam["ms"], "ms_mixed_lr_scales": adam["ms_mixed_lr_scales"],
+        "plain_ms": adam["plain_ms"],
         "bound_ms": adam["bound_ms"], "bound_by": adam["bound_by"],
         "library_ms": adam["library_ms"], "tensors": adam["tensors"],
         "elements": adam["elements"], "cases": adam["cases"],

@@ -26,10 +26,16 @@ the Paddle ``Tensor``/``Parameter`` (a ``torch.Tensor`` subclass),
 ``to_tensor``, places, seeds, ``autograd`` (``grad``, ``no_grad``,
 ``PyLayer``), ``save``/``load`` and ``vision.models.LeNet``, with
 ``nn.functional.softmax`` on the hand-written row-softmax kernel.
+Slice 2b(ii) is the Paddle layer API under every ported layer:
+``nn.Layer`` (a ``torch.nn.Module``) with ``ParamAttr``, the
+initializers (``nn.initializer``) and the regularizers, parameters named
+as the JAX package names them, and the optimizer's per-parameter
+learning rate, regularizer, clip opt-out and decay filter by name; it
+runs BERT-base fine-tuning in eager dygraph.
 """
 
 from . import (autograd, distributed, framework, nn,  # noqa: F401
-               optimizer, serving, text, vision)
+               optimizer, regularizer, serving, text, utils, vision)
 from .autograd import (enable_grad, grad, is_grad_enabled,  # noqa: F401
                        no_grad, set_grad_enabled)
 from .core.device import resolve_device  # noqa: F401
@@ -41,10 +47,12 @@ from .core.generator import get_rng_state, seed, set_rng_state  # noqa: F401
 from .core.place import (CPUPlace, CUDAPlace, device_guard,  # noqa: F401
                          get_device, set_device)
 from .core.tensor import Parameter, Tensor, to_tensor  # noqa: F401
-from .framework import load, save  # noqa: F401
+from .framework import ParamAttr, load, save  # noqa: F401
 
 __all__ = ["autograd", "distributed", "framework", "nn", "optimizer",
-           "serving", "text", "vision", "resolve_device", "to_tensor",
+           "regularizer", "serving", "text", "utils", "vision",
+           "resolve_device",
+           "to_tensor", "ParamAttr",
            "Tensor", "Parameter", "seed", "get_rng_state", "set_rng_state",
            "grad", "no_grad", "enable_grad", "set_grad_enabled",
            "is_grad_enabled", "save", "load", "CPUPlace", "CUDAPlace",

@@ -43,9 +43,14 @@ Paddle's semantics on top of torch's:
   or ``max``/``min`` with another tensor, they keep torch's meaning.
   Only the facade changes: a plain ``torch.Tensor`` keeps torch's.
 
-:class:`Parameter` is a :class:`Tensor` and a ``torch.nn.Parameter``, so
-modules register it like any parameter; :func:`as_paddle_parameters`
-turns a module's ``torch.nn.Parameter``s into it in place.
+:class:`ParamBase` is the parameter every port layer creates
+(``nn.Layer.create_parameter``): a ``torch.nn.Parameter`` with Paddle's
+attributes (``name``, ``trainable``/``stop_gradient``, ``optimize_attr``,
+``regularizer``, ``need_clip``, ``persistable``) and no facade, so ops on
+it stay torch's own and pay no re-wrapping. :class:`Parameter` is a
+:class:`Tensor` and a :class:`ParamBase`, so modules register it like any
+parameter; :func:`as_paddle_parameters` turns a module's parameters into
+it in place, their attributes kept.
 """
 
 from __future__ import annotations
@@ -63,7 +68,7 @@ from . import dtype as dtypes
 from .errors import InvalidArgumentError, PreconditionNotMetError
 from .place import Place, _parse, get_device, place_of
 
-__all__ = ["Tensor", "Parameter", "Shape", "to_tensor",
+__all__ = ["Tensor", "Parameter", "ParamBase", "Shape", "to_tensor",
            "as_paddle_parameters", "leaf_hooks_per_edge"]
 
 _NOWRAP = get_default_nowrap_functions()
@@ -388,26 +393,62 @@ class Tensor(torch.Tensor):
                 _replaced.pop(id(self), None)
 
 
-class Parameter(Tensor, torch.nn.Parameter):
-    """Trainable tensor: ``stop_gradient=False`` (``trainable=True``),
-    persistable. A ``torch.nn.Parameter`` too, so modules register it."""
+_PARAM_ATTRS = ("_param_name", "regularizer", "need_clip", "persistable")
 
-    def __new__(cls, data, dtype=None, name=None, trainable: bool = True):
-        t = data.detach() if isinstance(data, torch.Tensor) else \
-            _as_torch(data, dtype)
-        if dtype is not None:
-            t = t.to(dtypes.convert_dtype(dtype))
-        return torch.Tensor._make_subclass(cls, t, bool(trainable))
 
-    def __init__(self, data, dtype=None, name=None, trainable: bool = True):
+def _copy_param_attrs(src, dst) -> None:
+    """``dst`` takes ``src``'s Paddle attributes (a fresh
+    ``optimize_attr`` dict)."""
+    for a in _PARAM_ATTRS:
+        if a in src.__dict__:
+            setattr(dst, a, src.__dict__[a])
+    dst.optimize_attr = dict(getattr(src, "optimize_attr",
+                                     {"learning_rate": 1.0}))
+
+
+class ParamBase(torch.nn.Parameter):
+    """A ``torch.nn.Parameter`` with the JAX package's Parameter
+    attributes (``paddle1_tpu/core/tensor.py:246-263``): ``name`` (None
+    until a layer registers it as ``f"{full_name}.{attr}"``),
+    ``trainable`` / ``stop_gradient`` (``requires_grad``),
+    ``optimize_attr`` (``{"learning_rate": scale}``), ``regularizer``,
+    ``need_clip`` and ``persistable``. Ops on it are torch's own: it keeps
+    ``torch.nn.Parameter``'s disabled ``__torch_function__``. A deep copy
+    keeps the name, as the JAX package's does."""
+
+    def __new__(cls, data=None, requires_grad: bool = True, name=None):
+        if data is None:
+            data = torch.empty(0)
+        with _plain():
+            t = data.detach()
+        return torch.Tensor._make_subclass(cls, t, bool(requires_grad))
+
+    def __init__(self, data=None, requires_grad: bool = True, name=None):
         self._param_name = name
+        self.optimize_attr = {"learning_rate": 1.0}
+        self.regularizer = None
+        self.need_clip = True
         self.persistable = True
 
     @property
     def name(self) -> Optional[str]:
         """Paddle's parameter name (torch's read-only ``Tensor.name`` is
         shadowed here only)."""
-        return self._param_name
+        return self.__dict__.get("_param_name")
+
+    @name.setter
+    def name(self, value) -> None:
+        self._param_name = value
+
+    @property
+    def stop_gradient(self) -> bool:
+        with _plain():
+            return not self.requires_grad
+
+    @stop_gradient.setter
+    def stop_gradient(self, value) -> None:
+        with _plain():
+            self.requires_grad_(not bool(value))
 
     @property
     def trainable(self) -> bool:
@@ -419,10 +460,37 @@ class Parameter(Tensor, torch.nn.Parameter):
 
     def __deepcopy__(self, memo):
         if id(self) not in memo:
+            with torch.no_grad(), _plain():
+                data = self.detach().clone(
+                    memory_format=torch.preserve_format)
+                new = ParamBase(data, self.requires_grad)
+            _copy_param_attrs(self, new)
+            memo[id(self)] = new
+        return memo[id(self)]
+
+
+class Parameter(Tensor, ParamBase):
+    """Trainable tensor: ``stop_gradient=False`` (``trainable=True``),
+    persistable, with :class:`ParamBase`'s attributes. A
+    ``torch.nn.Parameter`` too, so modules register it."""
+
+    def __new__(cls, data, dtype=None, name=None, trainable: bool = True):
+        t = data.detach() if isinstance(data, torch.Tensor) else \
+            _as_torch(data, dtype)
+        if dtype is not None:
+            t = t.to(dtypes.convert_dtype(dtype))
+        return torch.Tensor._make_subclass(cls, t, bool(trainable))
+
+    def __init__(self, data, dtype=None, name=None, trainable: bool = True):
+        ParamBase.__init__(self, name=name)
+
+    def __deepcopy__(self, memo):
+        if id(self) not in memo:
             with torch.no_grad():
                 data = self.detach().clone(memory_format=torch.preserve_format)
-            memo[id(self)] = type(self)(data, name=self.name,
-                                        trainable=self.trainable)
+            new = type(self)(data, trainable=self.trainable)
+            _copy_param_attrs(self, new)
+            memo[id(self)] = new
         return memo[id(self)]
 
 
@@ -490,12 +558,14 @@ def to_tensor(data, dtype=None, place=None,
 
 def as_paddle_parameters(module: torch.nn.Module) -> torch.nn.Module:
     """Replace every ``torch.nn.Parameter`` of ``module`` (and its
-    submodules) by a :class:`Parameter` over the same storage, in place;
-    returns ``module``. Build optimizers after this call."""
+    submodules) by a :class:`Parameter` over the same storage, in place,
+    keeping its name and Paddle attributes; returns ``module``. Build
+    optimizers after this call."""
     for mod in module.modules():
         for name, p in list(mod._parameters.items()):
             if p is not None and not isinstance(p, Parameter):
-                mod._parameters[name] = Parameter(
-                    p.detach(), trainable=p.requires_grad)
+                new = Parameter(p.detach(), trainable=p.requires_grad)
+                if isinstance(p, ParamBase):
+                    _copy_param_attrs(p, new)
+                mod._parameters[name] = new
     return module
-

@@ -15,7 +15,7 @@ __all__ = ["relu", "leaky_relu", "gelu", "tanh", "softmax", "softmax_",
            "log_softmax"]
 
 
-def relu(x: torch.Tensor) -> torch.Tensor:
+def relu(x: torch.Tensor, name=None) -> torch.Tensor:
     return torch.relu(x)
 
 
@@ -27,13 +27,16 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01,
     return torch.nn.functional.leaky_relu(x, negative_slope)
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """Exact (erf) GELU, as BERT's ``hidden_act="gelu"`` runs it in the
-    JAX package (``jax.nn.gelu(approximate=False)``)."""
-    return torch.nn.functional.gelu(x)
+def gelu(x: torch.Tensor, approximate: bool = False,
+         name=None) -> torch.Tensor:
+    """GELU: exact (erf), as BERT's ``hidden_act="gelu"`` runs it, or
+    with ``approximate`` the tanh form (``jax.nn.gelu(approximate=...)``
+    in the JAX package, ``activation.py:88``)."""
+    return torch.nn.functional.gelu(
+        x, approximate="tanh" if approximate else "none")
 
 
-def tanh(x: torch.Tensor) -> torch.Tensor:
+def tanh(x: torch.Tensor, name=None) -> torch.Tensor:
     return torch.tanh(x)
 
 

@@ -94,14 +94,17 @@ def _as_padding_mask(mask, b: int, nk: int):
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
-                                 training: bool = True,
+                                 training: bool = True, name=None,
+                                 use_flash: bool = True, *,
                                  generator: Optional[torch.Generator] = None
                                  ) -> torch.Tensor:
     """Attention entry (``[B, N, H, D]``): the flash kernels where the
-    JAX routing rules allow them (see the module docstring), else the
-    dense composition with dropout ``dropout_p`` in training."""
+    JAX routing rules allow them (see the module docstring) and
+    ``use_flash`` does not forbid them, else the dense composition with
+    dropout ``dropout_p`` in training."""
     drop = dropout_p if training else 0.0
-    if drop == 0.0 and flag_active("flash_attention", query.device) and \
+    if use_flash and drop == 0.0 and \
+            flag_active("flash_attention", query.device) and \
             fa.supported(query.shape, key.shape, causal=is_causal):
         if attn_mask is None:
             return fa.flash_attention(query, key, value, causal=is_causal)
@@ -113,7 +116,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                          is_causal=is_causal, generator=generator)
 
 
-def paged_attention(query, k_pool, v_pool, table, pos) -> torch.Tensor:
+def paged_attention(query, k_pool, v_pool, table, pos,
+                    name=None) -> torch.Tensor:
     """Decode attention over the block-paged KV pool.
 
     ``query``: [slots, window, heads, dim] — the window just written;

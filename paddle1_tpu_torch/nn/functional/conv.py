@@ -62,7 +62,7 @@ def explicit_pads(pad, sizes, kernel, stride, dilation):
 
 
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
-           data_format="NCHW"):
+           data_format="NCHW", name=None):
     """2-D convolution, Paddle's API: ``x`` NCHW (or NHWC with
     ``data_format="NHWC"``), ``weight`` ``[O, I/groups, kh, kw]``."""
     if data_format not in ("NCHW", "NHWC"):

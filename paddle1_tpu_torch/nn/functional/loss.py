@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ...core.errors import InvalidArgumentError, UnimplementedError
+from ...core.errors import InvalidArgumentError
 
 __all__ = ["cross_entropy", "softmax_with_cross_entropy"]
 
@@ -36,8 +36,8 @@ def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
       ``mean`` divides by the count of the others (at least 1). With a
       per-class ``weight`` ``[classes]``, each loss is scaled by its
       label's weight and ``mean`` divides by the sum of those weights
-      (at least 1e-12), as the reference does; soft labels with a weight
-      raise (the reference drops the weight there).
+      (at least 1e-12), as the reference does; with soft labels the
+      weight is dropped, as the JAX package drops it (``loss.py:45``).
     - ``label_smoothing`` ε mixes either label with the uniform
       distribution: ``(1 - ε) * label + ε / classes``.
 
@@ -51,9 +51,6 @@ def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
         if use_softmax else torch.log(input.clamp(1e-15, 1.0))
     if soft_label or (label.dtype == input.dtype and
                       label.shape == input.shape):
-        if weight is not None:
-            raise UnimplementedError(
-                "cross_entropy: weight with soft labels is not ported")
         soft = label.to(logp.dtype)
         if label_smoothing > 0:
             soft = soft * (1 - label_smoothing) + label_smoothing / n

@@ -32,9 +32,11 @@ __all__ = ["layer_norm", "batch_norm", "fused_batch_norm_act",
 
 
 def layer_norm(x: torch.Tensor, normalized_shape, weight: torch.Tensor,
-               bias: torch.Tensor, epsilon: float = 1e-05) -> torch.Tensor:
-    """Affine LayerNorm over the trailing ``normalized_shape`` axes, which
-    are flattened into one (``weight``/``bias`` likewise). Under
+               bias: torch.Tensor, epsilon: float = 1e-05,
+               name=None) -> torch.Tensor:
+    """LayerNorm over the trailing ``normalized_shape`` axes, which are
+    flattened into one (``weight``/``bias`` likewise; None stands for
+    ones / zeros, the affine-less form). Under
     ``fused_layer_norm`` (``auto`` = CUDA tensors) the kernel's wrapper
     runs under an autograd function whose backward is the plain formula,
     and raises on inputs outside the kernel's contract; otherwise the
@@ -50,6 +52,10 @@ def layer_norm(x: torch.Tensor, normalized_shape, weight: torch.Tensor,
     fn = ln.layer_norm if flag_active("fused_layer_norm", x.device) \
         else ln.layer_norm_ref
     n = math.prod(shape)
+    if weight is None:
+        weight = torch.ones(n, dtype=x.dtype, device=x.device)
+    if bias is None:
+        bias = torch.zeros(n, dtype=x.dtype, device=x.device)
     y = fn(x.reshape(*lead, n), weight.reshape(n), bias.reshape(n), epsilon)
     return y.reshape(x.shape)
 
@@ -289,7 +295,7 @@ def _batch_norm_impl(x, running_mean, running_var, weight, bias, training,
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-05,
-               data_format="NCHW", use_global_stats=None):
+               data_format="NCHW", use_global_stats=None, name=None):
     """Batch norm with the running-statistics update (Paddle's
     ``batch_norm``): training mode normalizes with the batch statistics
     and blends them into ``running_mean``/``running_var``; eval (or
@@ -304,7 +310,7 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
 def fused_batch_norm_act(x, running_mean, running_var, weight, bias,
                          training=False, momentum=0.9, epsilon=1e-05,
                          data_format="NCHW", act="relu", residual=None,
-                         use_global_stats=None):
+                         use_global_stats=None, name=None):
     """``y = act(batch_norm(x) + residual)`` as one op (Paddle's
     ``fused_bn_activation_op`` / ``fused_bn_add_activation_op``); the
     same semantics as :func:`batch_norm` otherwise."""

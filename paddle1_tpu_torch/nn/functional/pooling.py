@@ -32,7 +32,7 @@ def _nchw(x, data_format):
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
-               ceil_mode=False, data_format="NCHW"):
+               ceil_mode=False, data_format="NCHW", name=None):
     """2-D max pooling; ``stride`` defaults to ``kernel_size``."""
     if return_mask:
         raise UnimplementedError(
@@ -55,7 +55,7 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
     return y.permute(0, 2, 3, 1) if channel_last else y
 
 
-def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
     """Adaptive average pooling to ``output_size`` (an int, a pair, or a
     pair with ``None`` for "keep this size"); windows as in Paddle,
     ``[floor(i * in / out), ceil((i + 1) * in / out))``."""

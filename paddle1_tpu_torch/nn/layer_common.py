@@ -6,93 +6,81 @@ Weights keep Paddle's layout — ``Linear.weight`` is
 crosses from the JAX package unchanged (no transposed copy).
 
 Each layer takes the reference's arguments in the reference's positions;
-the port's own (``device``, ``generator``, ``normal_std``) are
-keyword-only after them. ``ParamAttr`` is not ported: a
-``weight_attr``/``bias_attr`` other than None (or ``bias_attr=False``,
-which drops the bias as in the reference) raises."""
+the port's own (``device``, ``generator``) are keyword-only after them.
+``weight_attr``/``bias_attr`` take every form the JAX layer takes: None,
+a ``ParamAttr``, a name or an initializer, and ``bias_attr=False`` drops
+the bias. Weights are drawn on the CPU from ``generator`` and moved to
+``device`` (default ``cuda``)."""
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
-from torch import nn
 
 from ..core.device import resolve_device
 from ..core.errors import UnimplementedError
 from . import functional as F
+from .initializer import Normal, XavierUniform
+from .layer_base import Layer
 
 __all__ = ["Linear", "Embedding", "Dropout"]
 
 
-def check_param_attrs(layer: str, weight_attr, bias_attr) -> bool:
-    """The ported subset of Paddle's ``weight_attr``/``bias_attr``: None
-    (the default parameter) or ``bias_attr`` False (no bias; True is the
-    default too). Returns whether the layer has a bias; a ``ParamAttr``
-    raises."""
-    if weight_attr is not None or bias_attr not in (None, True, False):
-        raise UnimplementedError(
-            f"{layer}: ParamAttr is not ported; weight_attr must be None "
-            "and bias_attr None, True or False")
-    return bias_attr is not False
-
-
-class Linear(nn.Module):
-    """``y = x @ W + b``; W is ``[in_features, out_features]``, initialized
-    Xavier-uniform (or, with ``normal_std``, from N(0, normal_std²) — the
-    JAX package's ``Normal(std)`` initializer), b zeros;
-    ``bias_attr=False`` drops b."""
+class Linear(Layer):
+    """``y = x @ W + b``; W is ``[in_features, out_features]``,
+    Xavier-uniform by default, b zeros."""
 
     def __init__(self, in_features: int, out_features: int,
                  weight_attr=None, bias_attr=None, name=None, *,
-                 device=None, generator: Optional[torch.Generator] = None,
-                 normal_std: Optional[float] = None):
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        bias = check_param_attrs("Linear", weight_attr, bias_attr)
-        dev = resolve_device(device)
-        w = torch.empty(in_features, out_features)
-        if normal_std is None:
-            limit = math.sqrt(6.0 / (in_features + out_features))
-            w.uniform_(-limit, limit, generator=generator)
-        else:
-            w.normal_(0.0, float(normal_std), generator=generator)
-        self.weight = nn.Parameter(w.to(dev))
-        self.bias = nn.Parameter(torch.zeros(out_features, device=dev)) \
-            if bias else None
+        self._in_features = in_features
+        self._out_features = out_features
+        kw = dict(device=resolve_device(device), generator=generator)
+        self.weight = self.create_parameter(
+            [in_features, out_features], attr=weight_attr,
+            default_initializer=XavierUniform(), **kw)
+        self.bias = None if bias_attr is False else self.create_parameter(
+            [out_features], attr=bias_attr, is_bias=True, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.matmul(x, self.weight)
         return y if self.bias is None else y + self.bias
 
+    def extra_repr(self) -> str:
+        return (f"in_features={self._in_features}, "
+                f"out_features={self._out_features}")
 
-class Embedding(nn.Module):
+
+class Embedding(Layer):
     """Lookup table ``[num_embeddings, embedding_dim]``, initialized from
-    a standard normal (the JAX package's default) or, with
-    ``normal_std``, from N(0, normal_std²). ``padding_idx`` (negative
-    from the end) zeroes that row at construction and the output of every
-    id equal to it, as the reference does; ``sparse=True`` (sparse
-    gradients) is not ported and raises."""
+    a standard normal (the JAX package's default). ``padding_idx``
+    (negative from the end) zeroes that row at construction and the
+    output of every id equal to it, as the reference does;
+    ``sparse=True`` (sparse gradients) is not ported and raises
+    (ROADMAP Queue 1 item 8, the recommender slice)."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
                  padding_idx: Optional[int] = None, sparse: bool = False,
                  weight_attr=None, name=None, *, device=None,
-                 generator: Optional[torch.Generator] = None,
-                 normal_std: Optional[float] = None):
-        super().__init__()
+                 generator: Optional[torch.Generator] = None):
         if sparse:
             raise UnimplementedError(
-                "Embedding: sparse gradients (sparse=True) are not ported")
-        check_param_attrs("Embedding", weight_attr, None)
+                "Embedding: sparse gradients (sparse=True) are not ported "
+                "(ROADMAP Queue 1 item 8)")
+        super().__init__()
+        self._num_embeddings = num_embeddings
+        self._embedding_dim = embedding_dim
         self._padding_idx = None if padding_idx is None else \
             padding_idx if padding_idx >= 0 else num_embeddings + padding_idx
-        dev = resolve_device(device)
-        std = 1.0 if normal_std is None else float(normal_std)
-        w = torch.empty(num_embeddings, embedding_dim).normal_(
-            0.0, std, generator=generator)
+        self.weight = self.create_parameter(
+            [num_embeddings, embedding_dim], attr=weight_attr,
+            default_initializer=Normal(0.0, 1.0),
+            device=resolve_device(device), generator=generator)
         if self._padding_idx is not None:
-            w[self._padding_idx] = 0.0
-        self.weight = nn.Parameter(w.to(dev))
+            with torch.no_grad():
+                self.weight[self._padding_idx] = 0.0
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         out = torch.nn.functional.embedding(ids, self.weight)
@@ -100,8 +88,11 @@ class Embedding(nn.Module):
             return out
         return out * (ids != self._padding_idx).unsqueeze(-1).to(out.dtype)
 
+    def extra_repr(self) -> str:
+        return f"{self._num_embeddings}, {self._embedding_dim}"
 
-class Dropout(nn.Module):
+
+class Dropout(Layer):
     """``F.dropout`` with probability ``p`` along ``axis`` in ``mode``
     (``upscale_in_train`` or ``downscale_in_infer``), in training mode
     (masks from the device's default generator); in eval mode

@@ -11,11 +11,12 @@ import math
 from typing import Optional
 
 import torch
-from torch import nn
 
 from ..core.device import resolve_device
 from ..core.errors import InvalidArgumentError, UnimplementedError
 from . import functional as F
+from .initializer import Uniform
+from .layer_base import Layer
 
 __all__ = ["Conv2D", "MaxPool2D", "AdaptiveAvgPool2D"]
 
@@ -26,25 +27,25 @@ def _pair(v):
     return (int(v),) * 2
 
 
-class Conv2D(nn.Module):
+class Conv2D(Layer):
     """2-D convolution. Weight and bias are initialized from
     U(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in = in/groups * kh * kw, as
-    in the JAX package; ``bias_attr=False`` drops the bias."""
+    in the JAX package; ``weight_attr``/``bias_attr`` take every
+    ``ParamAttr`` form and ``bias_attr=False`` drops the bias.
+    ``padding_mode`` other than ``'zeros'`` is not ported and raises."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
                  stride=1, padding=0, dilation=1, groups: int = 1,
                  padding_mode: str = "zeros", weight_attr=None,
-                 bias_attr=None, data_format: str = "NCHW", device=None,
+                 bias_attr=None, data_format: str = "NCHW", *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if in_channels % groups != 0:
             raise InvalidArgumentError(
                 "in_channels must be divisible by groups")
-        if padding_mode != "zeros" or weight_attr is not None or \
-                bias_attr not in (None, False):
+        if padding_mode != "zeros":
             raise UnimplementedError(
-                "Conv2D: only padding_mode='zeros', weight_attr=None and "
-                "bias_attr None/False are ported")
+                "Conv2D: only padding_mode='zeros' is ported")
         self._in_channels = in_channels
         self._out_channels = out_channels
         self._kernel_size = _pair(kernel_size)
@@ -53,19 +54,16 @@ class Conv2D(nn.Module):
         self._dilation = dilation
         self._groups = groups
         self._data_format = data_format
-        dev = resolve_device(device)
         fan_in = (in_channels // groups) * math.prod(self._kernel_size)
         bound = 1.0 / math.sqrt(fan_in)
-        w = torch.empty(out_channels, in_channels // groups,
-                        *self._kernel_size)
-        w.uniform_(-bound, bound, generator=generator)
-        self.weight = nn.Parameter(w.to(dev))
-        if bias_attr is False:
-            self.bias = None
-        else:
-            b = torch.empty(out_channels).uniform_(-bound, bound,
-                                                   generator=generator)
-            self.bias = nn.Parameter(b.to(dev))
+        kw = dict(device=resolve_device(device), generator=generator)
+        self.weight = self.create_parameter(
+            [out_channels, in_channels // groups, *self._kernel_size],
+            attr=weight_attr, default_initializer=Uniform(-bound, bound),
+            **kw)
+        self.bias = None if bias_attr is False else self.create_parameter(
+            [out_channels], attr=bias_attr, is_bias=True,
+            default_initializer=Uniform(-bound, bound), **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv2d(x, self.weight, self.bias, self._stride,
@@ -78,7 +76,7 @@ class Conv2D(nn.Module):
                 f"stride={self._stride}, padding={self._padding}")
 
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(Layer):
     """2-D max pooling; keyword arguments (``ceil_mode``,
     ``data_format``) go to ``F.max_pool2d``."""
 
@@ -98,7 +96,7 @@ class MaxPool2D(nn.Module):
                 f"padding={self.padding}")
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     """Adaptive average pooling to ``output_size``; ``data_format`` goes
     to ``F.adaptive_avg_pool2d``."""
 

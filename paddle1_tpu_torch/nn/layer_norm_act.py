@@ -1,81 +1,81 @@
-"""LayerNorm, batch norm, SyncBatchNorm, ReLU, LeakyReLU, Softmax,
-LogSoftmax and Sequential (port of the subset of
-``paddle1_tpu/nn/layer_norm_act.py`` the serving, BERT, conv-net, eager
-LeNet and YOLOv3 slices run)."""
+"""LayerNorm, batch norm, SyncBatchNorm, ReLU, LeakyReLU, Softmax and
+LogSoftmax (port of the subset of ``paddle1_tpu/nn/layer_norm_act.py``
+the serving, BERT, conv-net, eager LeNet and YOLOv3 slices run), and the
+containers ``Sequential``, ``LayerList``, ``LayerDict`` and
+``ParameterList`` (``nn/layer_base.py``)."""
 
 from __future__ import annotations
 
-from collections import OrderedDict
-
 import torch
-from torch import nn
 
 from ..core.device import resolve_device
-from ..core.errors import UnimplementedError
 from . import functional as F
+from .initializer import Constant
+from .layer_base import (Layer, LayerDict, LayerList,  # noqa: F401
+                         ParameterList, Sequential)
 
 __all__ = ["LayerNorm", "BatchNorm", "BatchNorm2D", "SyncBatchNorm", "ReLU",
-           "LeakyReLU", "Softmax", "LogSoftmax", "Sequential"]
+           "LeakyReLU", "Softmax", "LogSoftmax", "Sequential", "LayerList",
+           "LayerDict", "ParameterList"]
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """LayerNorm over the last ``normalized_shape`` axes with an affine
-    weight (ones) and bias (zeros); epsilon 1e-5 as in Paddle. The
-    affine-less form and ``ParamAttr`` (``weight_attr``/``bias_attr``
-    other than None) are not ported and raise."""
+    weight (ones) and bias (zeros); epsilon 1e-5 as in Paddle.
+    ``weight_attr``/``bias_attr`` take every ``ParamAttr`` form, and
+    ``False`` drops that half of the affine (``layer_norm_act.py:196-211``
+    of the JAX package)."""
 
     def __init__(self, normalized_shape, epsilon: float = 1e-05,
                  weight_attr=None, bias_attr=None, name=None, *,
-                 device=None):
+                 device=None, generator=None):
         super().__init__()
-        if weight_attr is not None or bias_attr is not None:
-            raise UnimplementedError(
-                "LayerNorm: weight_attr/bias_attr other than None (no "
-                "affine, ParamAttr) are not ported")
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self._epsilon = float(epsilon)
-        dev = resolve_device(device)
-        self.weight = nn.Parameter(
-            torch.ones(self._normalized_shape, device=dev))
-        self.bias = nn.Parameter(
-            torch.zeros(self._normalized_shape, device=dev))
+        kw = dict(device=resolve_device(device), generator=generator)
+        self.weight = None if weight_attr is False else \
+            self.create_parameter(self._normalized_shape, attr=weight_attr,
+                                  default_initializer=Constant(1.0), **kw)
+        self.bias = None if bias_attr is False else self.create_parameter(
+            self._normalized_shape, attr=bias_attr, is_bias=True, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x, self._normalized_shape, self.weight,
                             self.bias, self._epsilon)
 
+    def extra_repr(self) -> str:
+        return f"normalized_shape={self._normalized_shape}"
 
-class _BatchNormBase(nn.Module):
+
+class _BatchNormBase(Layer):
     """Batch norm over the channel axis with Paddle's running statistics:
     f32 buffers ``_mean`` (zeros) and ``_variance`` (ones), blended as
     ``m * old + (1 - m) * batch`` with the biased batch variance. The
     affine ``weight`` is ones and ``bias`` zeros; ``weight_attr`` /
-    ``bias_attr`` ``False`` drop them. ``use_global_stats`` is read on
-    every call: True normalizes with the running statistics even in
-    training mode (frozen statistics), None follows ``self.training``."""
+    ``bias_attr`` take every ``ParamAttr`` form, ``False`` drops them.
+    ``use_global_stats`` is read on every call: True normalizes with the
+    running statistics even in training mode (frozen statistics), None
+    follows ``self.training``."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
                  epsilon: float = 1e-05, weight_attr=None, bias_attr=None,
                  data_format: str = "NCHW", use_global_stats=None,
-                 device=None):
+                 name=None, *, device=None, generator=None):
         super().__init__()
-        if weight_attr not in (None, False) or bias_attr not in (None,
-                                                                 False):
-            raise UnimplementedError(
-                "batch norm: only weight_attr/bias_attr None or False are "
-                "ported")
         self._num_features = num_features
         self._momentum = momentum
         self._epsilon = epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
         dev = resolve_device(device)
-        self.weight = None if weight_attr is False else nn.Parameter(
-            torch.ones(num_features, device=dev))
-        self.bias = None if bias_attr is False else nn.Parameter(
-            torch.zeros(num_features, device=dev))
+        kw = dict(device=dev, generator=generator)
+        self.weight = None if weight_attr is False else \
+            self.create_parameter([num_features], attr=weight_attr,
+                                  default_initializer=Constant(1.0), **kw)
+        self.bias = None if bias_attr is False else self.create_parameter(
+            [num_features], attr=bias_attr, is_bias=True, **kw)
         self.register_buffer("_mean", torch.zeros(num_features, device=dev))
         self.register_buffer("_variance",
                              torch.ones(num_features, device=dev))
@@ -114,7 +114,8 @@ class SyncBatchNorm(_BatchNormBase):
     this class names that layer and converts to it."""
 
     @classmethod
-    def convert_sync_batchnorm(cls, layer: nn.Module) -> nn.Module:
+    def convert_sync_batchnorm(cls, layer: torch.nn.Module
+                               ) -> torch.nn.Module:
         """Replace every batch norm in ``layer`` (itself included) by a
         SyncBatchNorm sharing its weight, bias and running statistics;
         returns the converted layer."""
@@ -134,12 +135,15 @@ class SyncBatchNorm(_BatchNormBase):
         return layer
 
 
-class ReLU(nn.Module):
+class ReLU(Layer):
+    def __init__(self, name=None):
+        super().__init__()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(x)
 
 
-class LeakyReLU(nn.Module):
+class LeakyReLU(Layer):
     """``F.leaky_relu`` with ``negative_slope``."""
 
     def __init__(self, negative_slope: float = 0.01, name=None):
@@ -153,7 +157,7 @@ class LeakyReLU(nn.Module):
         return f"negative_slope={self.negative_slope}"
 
 
-class Softmax(nn.Module):
+class Softmax(Layer):
     """``F.softmax`` along ``axis`` (the kernel's route on the last
     axis)."""
 
@@ -173,17 +177,3 @@ class LogSoftmax(Softmax):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.log_softmax(x, axis=self.axis)
-
-
-class Sequential(nn.Sequential):
-    """Layers called in order, named ``"0"``, ``"1"``, ... or by the
-    names of an ``OrderedDict`` or of ``(name, layer)`` pairs."""
-
-    def __init__(self, *layers):
-        if len(layers) == 1 and isinstance(layers[0], OrderedDict):
-            super().__init__(layers[0])
-            return
-        if layers and all(isinstance(l, tuple) for l in layers):
-            super().__init__(OrderedDict(layers))
-            return
-        super().__init__(*layers)

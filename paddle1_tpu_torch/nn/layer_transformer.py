@@ -4,7 +4,10 @@
 ``MultiHeadAttention`` takes the JAX package's attention ``dropout``
 (applied in training mode only) and keeps boolean or integer masks
 boolean, so ``scaled_dot_product_attention`` can prove a padding mask and
-route the flash kernels. ``TransformerEncoderLayer`` has the JAX
+route the flash kernels. ``need_weights`` puts None in the weights slot
+of its result (the fused path has no weights), and ``fuse_qkv`` keeps the
+three projections, as the JAX package does (``layer_transformer.py:218,
+249``). ``TransformerEncoderLayer`` has the JAX
 constructor (dropout 0.1 by default, activation, attn/act dropout,
 pre- or post-norm); the serving ``CausalLM`` builds it with dropout 0.
 
@@ -31,11 +34,11 @@ import copy
 from typing import Optional
 
 import torch
-from torch import nn
 
 from ..core.device import resolve_device
 from ..core.errors import InvalidArgumentError, UnimplementedError
 from . import functional as F
+from .layer_base import Layer, LayerList
 from .layer_common import Dropout, Linear
 from .layer_norm_act import LayerNorm
 
@@ -65,7 +68,7 @@ def _slot_write(cache, new, pos):
     cache[rows, cols] = new.to(cache.dtype)
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     GenCache = collections.namedtuple("GenCache", ["k", "v", "pos"])
     PagedCache = collections.namedtuple("PagedCache",
                                         ["k", "v", "table", "pos"])
@@ -79,11 +82,8 @@ class MultiHeadAttention(nn.Module):
         if embed_dim % num_heads != 0:
             raise InvalidArgumentError(
                 "embed_dim must be divisible by num_heads")
-        if need_weights or fuse_qkv:
-            raise UnimplementedError(
-                "MultiHeadAttention: need_weights and fuse_qkv are not "
-                "ported")
         self.dropout = float(dropout)
+        self.need_weights = bool(need_weights)
         self.embed_dim = embed_dim
         self.kdim = kdim or embed_dim
         self.vdim = vdim or embed_dim
@@ -127,6 +127,15 @@ class MultiHeadAttention(nn.Module):
     def _device(self):
         return self.q_proj.weight.device
 
+    def gen_cache(self, key, value=None, type=None):
+        """The reference's concat ``Cache``/``StaticCache`` for
+        incremental decoding are not ported (ROADMAP Queue 1 item 2, the
+        decoder layers); the serving caches are :meth:`gen_slot_cache`
+        and :meth:`gen_paged_cache`."""
+        raise UnimplementedError(
+            "MultiHeadAttention.gen_cache (Cache/StaticCache) is not ported "
+            "(ROADMAP Queue 1 item 2, with the decoder layers)")
+
     def gen_slot_cache(self, slots, max_seq, dtype=torch.float32):
         """Dense serving decode cache: ``slots`` sequences, each owning a
         ``[max_seq, heads, dim]`` K/V row written at its own cursor."""
@@ -167,10 +176,15 @@ class MultiHeadAttention(nn.Module):
                 training=self.training)
         b, n = out.shape[0], out.shape[1]
         out = self.out_proj(out.reshape(b, n, self.embed_dim))
-        return out if cache is None else (out, cache)
+        outs = [out]
+        if self.need_weights:
+            outs.append(None)   # weights unavailable on the fused path
+        if cache is not None:
+            outs.append(cache)
+        return out if len(outs) == 1 else tuple(outs)
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     """Encoder block with the JAX forward (``layer_transformer.py:256-296``):
     ``x = x + dropout1(attn(norm1?(x)))``, then
     ``x = x + dropout2(linear2(dropout(act(linear1(norm2?(x))))))``, the
@@ -222,6 +236,9 @@ class TransformerEncoderLayer(nn.Module):
             src = self.norm2(src)
         return src if cache is None else (src, cache)
 
+    def gen_cache(self, src):
+        return self.self_attn.gen_cache(src)
+
     def gen_slot_cache(self, slots, max_seq, dtype=torch.float32):
         return self.self_attn.gen_slot_cache(slots, max_seq, dtype)
 
@@ -229,9 +246,11 @@ class TransformerEncoderLayer(nn.Module):
         return self.self_attn.gen_paged_cache(pages, page_size, dtype)
 
 
-class TransformerEncoder(nn.Module):
-    """``num_layers`` deep copies of ``encoder_layer`` (Paddle's
-    construction: every layer starts from the same weights).
+class TransformerEncoder(Layer):
+    """``encoder_layer`` and ``num_layers - 1`` deep copies of it (the
+    JAX package's construction: every layer starts from the same weights,
+    and the copies keep its parameters' names), then ``norm`` (a layer, or
+    None) on the output (``layer_transformer.py:308-316``).
 
     ``enable_recompute = True`` (``ParallelEngine(recompute=True)`` sets
     it) rematerializes per block in training mode: each layer runs under
@@ -240,12 +259,13 @@ class TransformerEncoder(nn.Module):
     package)."""
 
     def __init__(self, encoder_layer: TransformerEncoderLayer,
-                 num_layers: int):
+                 num_layers: int, norm=None):
         super().__init__()
-        self.layers = nn.ModuleList(
+        self.layers = LayerList(
             [encoder_layer] +
             [copy.deepcopy(encoder_layer) for _ in range(num_layers - 1)])
         self.num_layers = num_layers
+        self.norm = norm
         self.enable_recompute = False
 
     def forward(self, src, src_mask=None, cache=None):
@@ -261,6 +281,8 @@ class TransformerEncoder(nn.Module):
             else:
                 output, c = mod(output, src_mask, cache[i])
                 new_caches.append(c)
+        if self.norm is not None:
+            output = self.norm(output)
         return output if cache is None else (output, new_caches)
 
     def gen_slot_cache(self, slots, max_seq, dtype=torch.float32):

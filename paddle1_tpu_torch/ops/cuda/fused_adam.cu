@@ -4,10 +4,15 @@
 // math, per element, in f32:
 //   m1 = beta1 * m1 + (1 - beta1) * g
 //   m2 = beta2 * m2 + (1 - beta2) * g * g
-//   p  = p * (1 - lr * decay) - lr * (m1 / bc1) / (sqrt(m2 / bc2) + eps)
+//   lr_t = lr * scale
+//   p  = p * (1 - lr_t * decay) - lr_t * (m1 / bc1) / (sqrt(m2 / bc2) + eps)
 // p (and g) keep their storage type, m1/m2 are f32, all updated in place.
 // lr, bc1 = 1 - beta1^step and bc2 are read from a device array, so the
-// step count is never baked into a launch; decay is per tensor.
+// step count is never baked into a launch; decay and the learning-rate
+// scale (Paddle's ParamAttr(learning_rate=...)) are per tensor, one
+// (decay, scale) pair of f32 each in one table. A scale of 1 leaves lr
+// as it is (lr * 1 rounds to lr), so the update is then bit for bit the
+// one without scales.
 //
 // Bound on an H100: memory. Each element reads p, g, m1, m2 and writes
 // p, m1, m2: 28 bytes in f32 for ~12 flops. Design: the wrapper passes a
@@ -46,7 +51,7 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) adam_kernel(
-    const long long* __restrict__ table, const float* __restrict__ decay,
+    const long long* __restrict__ table, const float* __restrict__ coef,
     const float* __restrict__ scalars, int n_tensors, long long chunk,
     float beta1, float beta2, float omb1, float omb2, float eps) {
   const long long blk = blockIdx.x;
@@ -62,10 +67,10 @@ __global__ void __launch_bounds__(kThreads) adam_kernel(
   float* m2 = reinterpret_cast<float*>(row[3]);
   const long long start = (blk - row[5]) * chunk;
   const long long end = min(start + chunk, row[4]);
-  const float lr = scalars[0];
+  const float lr = __fmul_rn(scalars[0], coef[2 * lo + 1]);
   const float bc1 = scalars[1];
   const float bc2 = scalars[2];
-  const float shrink = __fadd_rn(1.f, -__fmul_rn(lr, decay[lo]));
+  const float shrink = __fadd_rn(1.f, -__fmul_rn(lr, coef[2 * lo]));
   for (long long i = start + threadIdx.x; i < end; i += kThreads) {
     const float gf = to_f32(g[i]);
     const float a = __fadd_rn(__fmul_rn(beta1, m1[i]), __fmul_rn(omb1, gf));
@@ -84,11 +89,12 @@ __global__ void __launch_bounds__(kThreads) adam_kernel(
 
 extern "C" {
 
-// table: [n_tensors, 6] int64 on the card (see kRow); decay: [n_tensors]
-// f32; scalars: [3] f32 = lr, bc1, bc2; n_chunks = the last row's first
+// table: [n_tensors, 6] int64 on the card (see kRow); coef: [n_tensors, 2]
+// f32 = (decay, learning-rate scale) per tensor; scalars: [3] f32 = lr,
+// bc1, bc2; n_chunks = the last row's first
 // chunk plus its chunk count. dtype of p and g: 0 = float32,
 // 1 = bfloat16. Returns a cudaError_t (0 = success).
-int p1t_fused_adam(const void* table, const void* decay, const void* scalars,
+int p1t_fused_adam(const void* table, const void* coef, const void* scalars,
                    int n_tensors, long long n_chunks, long long chunk,
                    float beta1, float beta2, float omb1, float omb2,
                    float eps, int dtype, void* stream) {
@@ -98,7 +104,7 @@ int p1t_fused_adam(const void* table, const void* decay, const void* scalars,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(n_chunks));
   const long long* t = static_cast<const long long*>(table);
-  const float* d = static_cast<const float*>(decay);
+  const float* d = static_cast<const float*>(coef);
   const float* sc = static_cast<const float*>(scalars);
   if (dtype == 0)
     adam_kernel<float><<<grid, kThreads, 0, s>>>(

@@ -22,7 +22,7 @@ bias corrections ``1 - beta^step`` are computed on the parameters' device
 from a device step counter, so no step count is baked into a launch.
 ``Momentum`` follows ``Momentum._update`` (``optimizer.py:268-275``): the
 JAX package has no kernel for it, so it runs as PyTorch ``_foreach``
-ops, one group per device and dtype.
+ops, one group per device, dtype and learning-rate scale.
 """
 
 from __future__ import annotations
@@ -41,10 +41,22 @@ __all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]
 
 class Optimizer:
     """Base optimizer over ``parameters`` (a tensor listed twice, a tied
-    weight, is kept once). Names default to ``param_<i>``; they key the
-    moments in :meth:`state_dict` and feed ``apply_decay_param_fun``.
-    ``ParallelEngine`` renames them to the model's parameter names
-    (:meth:`rename`)."""
+    weight, is kept once). A parameter's name is its Paddle ``name``
+    (``f"{full_name}.{attr}"`` for a layer's, as in the JAX package)
+    where it has one, else ``param_<i>``, which :meth:`rename` (used by
+    ``ParallelEngine``) may replace. Names feed ``apply_decay_param_fun``
+    and key the moments in :meth:`state_dict` as ``f"{name}__{slot}"``
+    (``paddle1_tpu/optimizer/optimizer.py:211-240``); a name repeated
+    within one optimizer (the JAX package's deep-copied encoder layers
+    share their first layer's names) keys its k-th repeat
+    ``f"{name}_{k}"``, so no moment is lost.
+
+    Each parameter's ``ParamAttr`` fields take part as in
+    ``optimizer.py:140-172``: the rate is ``lr *
+    p.optimize_attr["learning_rate"]`` (which scales AdamW's decoupled
+    decay too), ``p.regularizer(p)`` is added to the gradient after the
+    clip, a parameter with ``need_clip=False`` passes the clip, and one
+    that is not trainable is not updated."""
 
     _slot_names: Tuple[str, ...] = ()
 
@@ -87,9 +99,26 @@ class Optimizer:
     # -- parameters ---------------------------------------------------------
 
     def rename(self, names: Dict[int, str]) -> None:
-        """Name parameters by identity (``{id(param): name}``)."""
+        """Name the parameters that have no Paddle name, by identity
+        (``{id(param): name}``)."""
         self._names = [names.get(id(p), n)
                        for p, n in zip(self._params, self._names)]
+
+    def param_names(self) -> List[str]:
+        """Each parameter's name, in order (see the class)."""
+        return [getattr(p, "name", None) or n
+                for p, n in zip(self._params, self._names)]
+
+    def _state_keys(self) -> List[str]:
+        """The names that key the moments: each parameter's name, its
+        k-th repeat ``f"{name}_{k}"``."""
+        seen: Dict[str, int] = {}
+        keys = []
+        for n in self.param_names():
+            k = seen.get(n, 0)
+            seen[n] = k + 1
+            keys.append(n if k == 0 else f"{n}_{k}")
+        return keys
 
     def _slots_for(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
         s = self._slots.get(id(p))
@@ -119,13 +148,23 @@ class Optimizer:
               grads: Sequence[torch.Tensor],
               lr: Optional[float] = None) -> None:
         """Update ``params`` in place from ``grads`` (one per parameter,
-        any float dtype)."""
+        any float dtype): the clip, then each parameter's regularizer, then
+        the rule at each parameter's rate."""
         if self._grad_clip is not None:
             pairs = self._grad_clip(list(zip(params, grads)))
             params, grads = [p for p, _ in pairs], [g for _, g in pairs]
+        grads = [g if getattr(p, "regularizer", None) is None else
+                 g + p.regularizer(p).to(g.dtype)
+                 for p, g in zip(params, grads)]
         self._step_count += 1
         self._update(list(params), list(grads),
                      self.get_lr() if lr is None else float(lr))
+
+    @staticmethod
+    def _lr_scale(p) -> float:
+        """``ParamAttr(learning_rate=...)``'s factor of one parameter."""
+        attr = getattr(p, "optimize_attr", None)
+        return 1.0 if not attr else float(attr.get("learning_rate", 1.0))
 
     def _update(self, params, grads, lr):
         raise NotImplementedError
@@ -139,6 +178,8 @@ class Optimizer:
             else:
                 p.grad = None
 
+    clear_gradients = clear_grad
+
     # -- state dict ---------------------------------------------------------
 
     def state_dict(self) -> Dict[str, object]:
@@ -149,7 +190,7 @@ class Optimizer:
         step = self._step_count if self._step_t is None else \
             int(self._step_t.item())
         out: Dict[str, object] = {"step": step}
-        for p, name in zip(self._params, self._names):
+        for p, name in zip(self._params, self._state_keys()):
             s = self._slots.get(id(p))
             for slot, t in (s or {}).items():
                 out[f"{name}__{slot}"] = t.detach().clone()
@@ -163,7 +204,7 @@ class Optimizer:
         if isinstance(self._learning_rate, LRScheduler) and \
                 "LR_Scheduler" in state:
             self._learning_rate.set_state_dict(state["LR_Scheduler"])
-        for p, name in zip(self._params, self._names):
+        for p, name in zip(self._params, self._state_keys()):
             for slot in self._slot_names:
                 v = state.get(f"{name}__{slot}")
                 if v is not None:
@@ -188,10 +229,11 @@ class Momentum(Optimizer):
         self._nesterov = bool(use_nesterov)
 
     def _update(self, params, grads, lr):
-        groups: Dict[Tuple[torch.device, torch.dtype], list] = {}
+        groups: Dict[Tuple[torch.device, torch.dtype, float], list] = {}
         for p, g in zip(params, grads):
-            groups.setdefault((p.device, p.dtype), []).append((p, g))
-        for (_, dtype), pgs in groups.items():
+            groups.setdefault((p.device, p.dtype, self._lr_scale(p)),
+                              []).append((p, g))
+        for (_, dtype, scale), pgs in groups.items():
             ps = [p for p, _ in pgs]
             gs = [g.to(dtype) for _, g in pgs]
             if self._weight_decay:
@@ -203,7 +245,7 @@ class Momentum(Optimizer):
                 [v.to(dtype) for v in vs]
             if self._nesterov:
                 step = torch._foreach_add(gs, step, alpha=self._momentum)
-            torch._foreach_add_(ps, step, alpha=-lr)
+            torch._foreach_add_(ps, step, alpha=-lr * scale)
 
 
 class Adam(Optimizer):
@@ -222,7 +264,8 @@ class Adam(Optimizer):
                  name=None):
         if lazy_mode:
             raise UnimplementedError(
-                f"{type(self).__name__}: lazy_mode is not ported")
+                f"{type(self).__name__}: lazy_mode is not ported "
+                "(ROADMAP Queue 1 item 8)")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip)
         self._beta1 = float(beta1)
         self._beta2 = float(beta2)
@@ -245,7 +288,7 @@ class Adam(Optimizer):
         return torch.stack([lr_t, bc1, bc2])
 
     def _update(self, params, grads, lr):
-        names = {id(p): n for p, n in zip(self._params, self._names)}
+        names = {id(p): n for p, n in zip(self._params, self.param_names())}
         groups: Dict[Tuple[torch.device, torch.dtype], list] = {}
         for p, g in zip(params, grads):
             groups.setdefault((p.device, p.dtype), []).append((p, g))
@@ -253,7 +296,7 @@ class Adam(Optimizer):
         for (dev, _), pgs in groups.items():
             if dev not in scalars:
                 scalars[dev] = self._scalars(dev, lr)
-            ps, gs, m1s, m2s, decays = [], [], [], [], []
+            ps, gs, m1s, m2s, decays, scales = [], [], [], [], [], []
             for p, g in pgs:
                 s = self._slots_for(p)
                 g = g.to(p.dtype)
@@ -264,15 +307,17 @@ class Adam(Optimizer):
                 m1s.append(s["moment1"])
                 m2s.append(s["moment2"])
                 decays.append(self._decay(names.get(id(p), "")))
+                scales.append(self._lr_scale(p))
             if flag_active("fused_adam", dev):
                 fadam.fused_adam_(ps, gs, m1s, m2s, scalars[dev], decays,
-                                  self._beta1, self._beta2, self._epsilon)
+                                  self._beta1, self._beta2, self._epsilon,
+                                  scales)
                 continue
             lr_t, bc1, bc2 = scalars[dev][0], scalars[dev][1], scalars[dev][2]
-            for p, g, a, b, d in zip(ps, gs, m1s, m2s, decays):
+            for p, g, a, b, d, sc in zip(ps, gs, m1s, m2s, decays, scales):
                 new_p, new_a, new_b = fadam.fused_adam_ref(
                     p, g, a, b, lr_t, bc1, bc2, d, self._beta1, self._beta2,
-                    self._epsilon)
+                    self._epsilon, sc)
                 p.copy_(new_p)
                 a.copy_(new_a)
                 b.copy_(new_b)
@@ -280,9 +325,11 @@ class Adam(Optimizer):
 
 class AdamW(Adam):
     """Adam with decoupled weight decay: the parameter is scaled by
-    ``1 - lr * weight_decay`` before the Adam step; parameters whose name
-    ``apply_decay_param_fun`` rejects are not decayed. ``lr_ratio``
-    (per-parameter learning-rate scales) is not ported and raises."""
+    ``1 - lr * weight_decay`` before the Adam step (``lr`` the
+    parameter's own rate); parameters whose name ``apply_decay_param_fun``
+    rejects are not decayed, in the eager step and under
+    ``ParallelEngine`` alike. ``lr_ratio`` (a per-parameter rate function)
+    is not ported and raises (ROADMAP Queue 1 item 2)."""
 
     def __init__(self, learning_rate=0.001, beta1: float = 0.9,
                  beta2: float = 0.999, epsilon: float = 1e-8,
@@ -293,7 +340,8 @@ class AdamW(Adam):
                  = None, multi_precision: bool = False,
                  lazy_mode: bool = False, name=None):
         if lr_ratio is not None:
-            raise UnimplementedError("AdamW: lr_ratio is not ported")
+            raise UnimplementedError(
+                "AdamW: lr_ratio is not ported (ROADMAP Queue 1 item 2)")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, lazy_mode, multi_precision)
         self._coeff = float(getattr(weight_decay, "coeff", weight_decay))

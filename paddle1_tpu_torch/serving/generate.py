@@ -58,7 +58,6 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..core import flags as core_flags
 from ..core.device import resolve_device
@@ -66,6 +65,7 @@ from ..core.errors import InvalidArgumentError
 from ..nn import (Embedding, Linear, MultiHeadAttention, TransformerEncoder,
                   TransformerEncoderLayer)
 from ..nn.decode import greedy_logits_array, sample_logits_array
+from ..nn.layer_base import Layer
 from .engine import resolve_buckets
 from .errors import (DeadlineExceeded, KVPoolExhausted, ServerClosed,
                      ServerOverloaded, StreamCancelled)
@@ -80,7 +80,7 @@ __all__ = ["CausalLM", "GenerationEngine", "GenerationServer",
 # reference model
 
 
-class CausalLM(nn.Module):
+class CausalLM(Layer):
     """Small decoder-only transformer LM: token + learned position
     embeddings, a post-norm ``TransformerEncoder`` under a causal mask,
     and a vocabulary head. The generation engine's reference model; any
@@ -329,7 +329,7 @@ class GenerationEngine:
                 "build the model with max_seq >= the engine's")
         model.eval()
         self._model = model
-        self.device = next(model.parameters()).device
+        self.device = next(iter(model.parameters())).device
         self._lock = threading.Lock()
         self.decode_dispatch_count = 0
         self.prefill_dispatch_counts: Dict[int, int] = {}

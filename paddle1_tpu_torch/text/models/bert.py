@@ -2,7 +2,10 @@
 
 Same modules, attribute names and constructor arguments as the JAX
 package, so ``convert.state_from_jax`` carries a ``functional_state()``
-across name for name. Attention goes through
+across name for name, and every model is an ``nn.Layer`` whose
+parameters carry the JAX package's names. The embeddings are built
+through ``ParamAttr(initializer=Normal(std=initializer_range))`` as in
+``paddle1_tpu/text/models/bert.py:44-54``. Attention goes through
 ``F.scaled_dot_product_attention``: the default attention mask is the
 boolean ``ids != pad_token_id`` as ``[B, 1, 1, N]``, which the routing
 proves to be a padding mask and hands to the flash kernels.
@@ -27,10 +30,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
 
 from ...core.device import resolve_device
+from ...framework.param_attr import ParamAttr
 from ...nn import functional as F
+from ...nn.initializer import Normal
+from ...nn.layer_base import Layer
 from ...nn.layer_common import Dropout, Embedding, Linear
 from ...nn.layer_norm_act import LayerNorm
 from ...nn.layer_transformer import (TransformerEncoder,
@@ -43,7 +48,7 @@ __all__ = ["BertEmbeddings", "BertPooler", "BertModel",
            "ernie_1p5b"]
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     """word + position + token_type embeddings → LayerNorm → dropout."""
 
     def __init__(self, vocab_size, hidden_size, hidden_dropout_prob,
@@ -51,8 +56,8 @@ class BertEmbeddings(nn.Module):
                  initializer_range=0.02, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        kw = dict(device=device, generator=generator,
-                  normal_std=initializer_range)
+        attr = ParamAttr(initializer=Normal(std=initializer_range))
+        kw = dict(weight_attr=attr, device=device, generator=generator)
         self.word_embeddings = Embedding(vocab_size, hidden_size, **kw)
         self.position_embeddings = Embedding(max_position_embeddings,
                                              hidden_size, **kw)
@@ -74,7 +79,7 @@ class BertEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(emb))
 
 
-class BertPooler(nn.Module):
+class BertPooler(Layer):
     def __init__(self, hidden_size, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -85,7 +90,7 @@ class BertPooler(nn.Module):
         return F.tanh(self.dense(hidden_states[:, 0]))
 
 
-class BertModel(nn.Module):
+class BertModel(Layer):
     """BERT encoder (the paddlenlp constructor signature). Weights are
     drawn on the CPU from ``generator`` and moved to ``device`` (default
     ``cuda``)."""
@@ -132,12 +137,12 @@ class BertModel(nn.Module):
         return encoded, pooled
 
 
-class BertLMPredictionHead(nn.Module):
+class BertLMPredictionHead(Layer):
     """MLM head: transform + activation + LayerNorm + a decoder tied to
     the word embeddings (``[vocab, hidden]``, used transposed)."""
 
     def __init__(self, hidden_size, vocab_size, activation="gelu",
-                 embedding_weights: Optional[nn.Parameter] = None,
+                 embedding_weights: Optional[torch.nn.Parameter] = None,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
@@ -146,8 +151,8 @@ class BertLMPredictionHead(nn.Module):
         self.activation = getattr(F, activation)
         self.layer_norm = LayerNorm(hidden_size, device=dev)
         self.decoder_weight = embedding_weights
-        self.decoder_bias = nn.Parameter(torch.zeros(vocab_size,
-                                                     device=dev))
+        self.decoder_bias = self.create_parameter([vocab_size], is_bias=True,
+                                                  device=dev)
 
     def forward(self, hidden_states, masked_positions=None):
         if masked_positions is not None:
@@ -160,7 +165,7 @@ class BertLMPredictionHead(nn.Module):
         return logits + self.decoder_bias
 
 
-class BertForPretraining(nn.Module):
+class BertForPretraining(Layer):
     """MLM + NSP pretraining heads over BertModel."""
 
     def __init__(self, bert: BertModel,
@@ -184,7 +189,7 @@ class BertForPretraining(nn.Module):
         return prediction_scores, seq_relationship_score
 
 
-class BertPretrainingCriterion(nn.Module):
+class BertPretrainingCriterion(Layer):
     """MLM + NSP loss: the MLM cross entropy (ignore_index -1) per
     position divided by ``masked_lm_scale`` and averaged over every
     position, plus the mean NSP cross entropy."""
@@ -204,7 +209,7 @@ class BertPretrainingCriterion(nn.Module):
         return mlm + nsp
 
 
-class BertForSequenceClassification(nn.Module):
+class BertForSequenceClassification(Layer):
     """Dropout and a linear classifier over the pooled output."""
 
     def __init__(self, bert: BertModel, num_classes=2, dropout=None, *,

@@ -15,10 +15,10 @@ import functools
 from typing import Optional
 
 import torch
-from torch import nn
 
 from ...core.place import get_device
 from ...core.tensor import as_paddle_parameters
+from ...nn.layer_base import Layer
 from ...nn.layer_common import Linear
 from ...nn.layer_conv_pool import Conv2D, MaxPool2D
 from ...nn.layer_norm_act import ReLU, Sequential
@@ -27,7 +27,7 @@ from ...ops import manip_ops
 __all__ = ["LeNet"]
 
 
-class LeNet(nn.Module):
+class LeNet(Layer):
     def __init__(self, num_classes: int = 10, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()

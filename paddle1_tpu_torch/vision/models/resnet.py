@@ -14,9 +14,9 @@ import functools
 from typing import Optional
 
 import torch
-from torch import nn
 
 from ...core.errors import UnimplementedError
+from ...nn.layer_base import Layer
 from ...nn.layer_common import Linear
 from ...nn.layer_conv_pool import AdaptiveAvgPool2D, Conv2D, MaxPool2D
 from ...nn.layer_norm_act import BatchNorm2D, ReLU, Sequential
@@ -26,7 +26,7 @@ __all__ = ["ResNet", "BasicBlock", "BottleneckBlock", "resnet18",
            "wide_resnet50_2", "wide_resnet101_2"]
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -54,7 +54,7 @@ class BasicBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -87,7 +87,7 @@ class BottleneckBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     """``depth`` in {18, 34, 50, 101, 152}; ``width`` is the bottleneck's
     base width (128 for the wide variants)."""
 

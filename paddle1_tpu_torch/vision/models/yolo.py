@@ -26,11 +26,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
 
 from ...core.errors import UnimplementedError
 from ...nn import functional as F
 from ...nn.functional._layout import channels_last_weights
+from ...nn.layer_base import Layer
 from ...nn.layer_conv_pool import Conv2D
 from ...nn.layer_norm_act import BatchNorm2D, LeakyReLU, Sequential
 from ...ops import manip_ops
@@ -44,7 +44,7 @@ _ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
 _MASKS = [[6, 7, 8], [3, 4, 5], [0, 1, 2]]
 
 
-class ConvBNLeaky(nn.Module):
+class ConvBNLeaky(Layer):
     """A ``k x k`` convolution without bias, a batch norm and a leaky ReLU
     of slope 0.1."""
 
@@ -61,7 +61,7 @@ class ConvBNLeaky(nn.Module):
         return self.act(self.bn(self.conv(x)))
 
 
-class DarkBlock(nn.Module):
+class DarkBlock(Layer):
     """The residual block: ``x + conv3x3(conv1x1(x))`` at half width
     inside."""
 
@@ -76,7 +76,7 @@ class DarkBlock(nn.Module):
         return x + self.conv2(self.conv1(x))
 
 
-class DarkNet53(nn.Module):
+class DarkNet53(Layer):
     """The backbone, emitting C3/C4/C5 (strides 8, 16, 32); ``depths`` are
     the DarkBlocks of its five stages."""
 
@@ -106,7 +106,7 @@ class DarkNet53(nn.Module):
         return c3, c4, c5
 
 
-class YoloDetBlock(nn.Module):
+class YoloDetBlock(Layer):
     """Five alternating 1 x 1 / 3 x 3 ConvBNLeaky (the route) and a 3 x 3
     tip; returns ``(route, tip)``."""
 
@@ -125,7 +125,7 @@ class YoloDetBlock(nn.Module):
         return route, self.tip(route)
 
 
-class YOLOv3(nn.Module):
+class YOLOv3(Layer):
     """YOLOv3 over DarkNet-53 with the COCO anchors: ``forward(x)`` on
     ``[B, 3, H, W]`` returns the three heads ``[p5, p4, p3]``, each
     ``[B, 3 * (5 + num_classes), H / s, W / s]`` for strides 32, 16, 8."""

@@ -592,13 +592,17 @@ def test_save_load_resumes_an_eager_run_bit_for_bit(tmp_path):
     x = tp.to_tensor(rng.standard_normal((8, 1, 28, 28)).astype(np.float32))
     y = tp.to_tensor(rng.integers(0, 10, (8,)).astype(np.int64))
     tp.seed(3)
-    m = TLeNet(device="cpu")
+    # each model in a fresh name space, as in a new process: the Adam
+    # state is keyed by parameter name, as in the JAX package
+    with tp.utils.unique_name.guard():
+        m = TLeNet(device="cpu")
     _, opt = _eager_steps(tp, m, x, y, 2)
     path = str(tmp_path / "ckpt.pd")
     tp.save({"model": m.state_dict(), "opt": opt.state_dict()}, path)
     ref, _ = _eager_steps_with(opt, m, x, y)
     ck = tp.load(path)
-    m2 = TLeNet(device="cpu")
+    with tp.utils.unique_name.guard():
+        m2 = TLeNet(device="cpu")
     m2.load_state_dict(ck["model"])
     opt2 = tp.optimizer.Adam(learning_rate=1e-3, parameters=m2.parameters())
     opt2.set_state_dict(ck["opt"])
