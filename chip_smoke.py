@@ -251,6 +251,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
     dropout 0: three eager steps of phase 21's loop on the kernel path
     within 1e-4 of the plain path (losses and parameters; the key biases
     within 3 x lr, as phase 7).
+23. **The op namespace on the card.** Every case of
+    ``tests/test_torch_op_cases.py`` (each public op of ``ops.math_ops``,
+    ``ops.manip_ops`` and ``ops.linalg_ops`` and the Tensor methods, at
+    the parity tests' small shapes) on CUDA Paddle tensors against the
+    same call on CPU Paddle tensors: values (10x the case's CPU tolerance,
+    at least 1e-5: CUDA's libraries against the CPU's), dtypes, the
+    gradients of differentiable ones, and every output tensor on the card
+    (no op moves to the CPU). Decompositions are held to their
+    reconstructions. ``matmul_int8`` inside ``torch._int_mm``'s rules
+    equals the CPU's int32 product, and outside them raises
+    ``InvalidArgumentError``; the random ops draw on the card with the
+    right shape, dtype and support, repeat under ``paddle.seed`` and under
+    a CUDA ``generator``. Prints one line: ops and cases checked, and
+    every failure.
+24. **BERT-base fine-tuning in Paddle idiom.** Phase 21's model (warm
+    start, full width and depth, f32) after a few steps, evaluated
+    through the op namespace on staged batches of 32 x 128:
+    ``paddle.argmax(logits, axis=-1)``, ``paddle.equal(pred,
+    label).astype("float32").mean()`` per batch and over
+    ``paddle.concat`` of every batch's logits; the counters zeroed just
+    before the eval loop and read just after (25 LayerNorm and 12 flash
+    forward launches a forward). A batch cut by ``x.split(2, 0)`` (two
+    halves of 16, Paddle's reading) gives logits that, joined by
+    ``paddle.concat``, equal the whole batch's within 1e-4. Prints the
+    accuracy, eval ms a batch and the launches.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -2658,7 +2683,7 @@ def lenet_phase(dev):
     dt = float(np.median(facade_ms)) / 1e3
     summary = {
         "train": "lenet_eager", "batch": LENET_BATCH, "dtype": "float32",
-        "params": sum(p.numel() for p in model.parameters()),
+        "params": sum(p.nelement() for p in model.parameters()),
         "steps": steps, "timing": "slope+readback",
         "step_ms_median": dt * 1e3, "step_ms_min": min(slopes) * 1e3,
         "step_ms_max": max(slopes) * 1e3, "samples_per_s": LENET_BATCH / dt,
@@ -3933,6 +3958,272 @@ def finetune_reference_check(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the op namespace on the card
+
+# the card's libraries (libdevice, cuBLAS, cuSOLVER) against the CPU's: ten
+# times each case's CPU tolerance, at least 1e-5
+OPS_TOL_SCALE, OPS_TOL_MIN = 10.0, 1e-5
+CARD = "cuda"      # the device type every output must be on
+
+
+def op_cases():
+    """``tests/test_torch_op_cases.py`` (no JAX), loaded by path."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_op_cases.py")
+    spec = importlib.util.spec_from_file_location("test_torch_op_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod        # its dataclass looks itself up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def op_tensors(paddle, v, grad):
+    if isinstance(v, np.ndarray):
+        return paddle.to_tensor(v, stop_gradient=not grad)
+    if isinstance(v, list) and v and isinstance(v[0], np.ndarray):
+        return [op_tensors(paddle, e, grad) for e in v]
+    return v
+
+
+def op_run(paddle, cases, case, fn, place):
+    """``fn(*args, **kw)`` with the case's arrays made Paddle tensors on
+    ``place``: ``(output, gradients, in-place arguments after)``."""
+    with paddle.device_guard(place):
+        args = [op_tensors(paddle, a, i in case.grad)
+                for i, a in enumerate(case.args)]
+        out = fn(*args, **case.kw)
+        grads = []
+        if case.grad:
+            first = out[0] if isinstance(out, (tuple, list)) else out
+            w = cases.R(tuple(first.shape), 99)
+            (first * paddle.to_tensor(w)).sum().backward()
+            grads = [args[i].grad for i in case.grad]
+        return out, grads, [args[i] for i in case.after]
+
+
+def op_leaves(out):
+    if isinstance(out, (tuple, list)):
+        return [x for o in out for x in op_leaves(o)]
+    return [out]
+
+
+def op_compare(cases, want, got, tol):
+    """``got`` (the card's) against ``want`` (the CPU's): the same
+    structure, every tensor of ``got`` on the card, dtypes and shapes
+    equal, values within ``tol``."""
+    w, g = op_leaves(want), op_leaves(got)
+    check(len(w) == len(g), f"{len(g)} outputs, the CPU gave {len(w)}")
+    for a, b in zip(w, g):
+        if not isinstance(a, torch.Tensor):
+            check(a == b, f"{b!r} vs the CPU's {a!r}")
+            continue
+        check(isinstance(b, torch.Tensor) and b.device.type == CARD,
+              f"an output is not on the card: {getattr(b, 'device', b)}")
+        check(a.dtype == b.dtype and tuple(a.shape) == tuple(b.shape),
+              f"{b.dtype} {tuple(b.shape)} vs the CPU's {a.dtype} "
+              f"{tuple(a.shape)}")
+        x, y = cases.np_of(a), cases.np_of(b)
+        if x.dtype.kind in "fc":
+            np.testing.assert_allclose(y, x, rtol=tol, atol=tol,
+                                       equal_nan=True)
+        else:
+            np.testing.assert_array_equal(y, x)
+
+
+def ops_phase(dev):
+    """Phase 23 (the module docstring): every op case on the card against
+    the CPU, ``matmul_int8`` at ``_int_mm``'s rules, the random ops."""
+    import paddle1_tpu_torch as paddle
+    from paddle1_tpu_torch.core.errors import InvalidArgumentError
+    from paddle1_tpu_torch.ops import linalg_ops, manip_ops, math_ops
+    cases = op_cases()
+    card = f"gpu:{dev.index or 0}"
+    groups = (("math_ops", math_ops, cases.math_cases()),
+              ("manip_ops", manip_ops, cases.manip_cases()),
+              ("linalg_ops", linalg_ops, cases.linalg_cases()),
+              ("Tensor", None, cases.method_cases()))
+    failed, n_cases, names = [], 0, set()
+    t0 = time.perf_counter()
+    for group, mod, group_cases in groups:
+        for case in group_cases:
+            fn = cases.method(case.op) if mod is None else \
+                getattr(mod, case.op)
+            tol = max(case.tol * OPS_TOL_SCALE, OPS_TOL_MIN)
+            n_cases += 1
+            names.add(f"{group}.{case.op}")
+            try:
+                want = op_run(paddle, cases, case, fn, "cpu")
+                got = op_run(paddle, cases, case, fn, card)
+                if case.check is not None:
+                    case.check(want[0], got[0])
+                    op_compare(cases, [t for t in op_leaves(want[0])
+                                       if not isinstance(t, torch.Tensor)],
+                               [t for t in op_leaves(got[0])
+                                if not isinstance(t, torch.Tensor)], tol)
+                    check(all(t.device.type == CARD for t in
+                              op_leaves(got[0])
+                              if isinstance(t, torch.Tensor)),
+                          "an output is not on the card")
+                else:
+                    op_compare(cases, want[0], got[0], tol)
+                op_compare(cases, want[1], got[1], tol)
+                op_compare(cases, want[2], got[2], tol)
+            except Exception as e:   # noqa: BLE001  (every failure listed)
+                failed.append(f"{group}.{case.name()}: {type(e).__name__}: "
+                              f"{str(e).strip()[:300]}")
+    ported = {f"{m.__name__.rsplit('.', 1)[1]}.{n}"
+              for m in (math_ops, manip_ops, linalg_ops) for n in m.__all__}
+    random_names = {f"manip_ops.{r[0]}" for r in cases.RANDOM}
+    uncovered = sorted(ported - names - random_names)
+    if uncovered:
+        failed.append(f"ops without a case on the card: {uncovered}")
+
+    # matmul_int8 at torch._int_mm's rules and outside them
+    rng = np.random.default_rng(SEED + 90)
+    a = rng.integers(-100, 100, (32, 64)).astype(np.int8)
+    b = rng.integers(-100, 100, (64, 16)).astype(np.int8)
+    try:
+        want = math_ops.matmul_int8(paddle.to_tensor(a, place="cpu"),
+                                    paddle.to_tensor(b, place="cpu"))
+        got = math_ops.matmul_int8(paddle.to_tensor(a), paddle.to_tensor(b))
+        check(got.dtype == torch.int32 and got.device.type == CARD and
+              torch.equal(got.cpu(), want.as_subclass(torch.Tensor)),
+              "matmul_int8 inside _int_mm's rules differs from the CPU")
+        for x, y in ((a[:8], b), (a[:, :60], b[:60]), (a, b[:, :12])):
+            try:
+                math_ops.matmul_int8(paddle.to_tensor(x), paddle.to_tensor(y))
+                check(False, f"matmul_int8 {x.shape} x {y.shape} outside "
+                      "_int_mm's rules did not raise")
+            except InvalidArgumentError:
+                pass
+    except Exception as e:   # noqa: BLE001
+        failed.append(f"matmul_int8: {type(e).__name__}: {str(e)[:300]}")
+
+    # the random ops on the card: shape, dtype, support, seeded repeats
+    class Ns:
+        def __getattr__(self, name):
+            return paddle.to_tensor if name == "to_tensor" else \
+                getattr(manip_ops, name)
+    ns = Ns()
+    for name, draw, support, _ in cases.RANDOM:
+        try:
+            paddle.seed(SEED + 91)
+            first = draw(ns)
+            paddle.seed(SEED + 91)
+            again = draw(ns)
+            g1 = torch.Generator(dev).manual_seed(5)
+            g2 = torch.Generator(dev).manual_seed(5)
+            check(first.device.type == CARD and first.numel_() > 0,
+                  f"{name} did not draw on the card")
+            check(torch.equal(first, again), f"{name} does not repeat "
+                  "under paddle.seed")
+            check(torch.equal(draw(ns, generator=g1),
+                              draw(ns, generator=g2)),
+                  f"{name} does not repeat under a generator")
+            v = first.numpy().astype(np.float64)
+            if support is not None:
+                check(v.min() >= support[0] and v.max() <= support[1],
+                      f"{name} outside its support {support}")
+        except Exception as e:   # noqa: BLE001
+            failed.append(f"random {name}: {type(e).__name__}: "
+                          f"{str(e)[:300]}")
+    torch.cuda.synchronize()
+    out = {"op_namespace": {
+        "ops": len(names | random_names), "cases": n_cases,
+        "random_ops": len(cases.RANDOM), "matmul_int8_rules": 3,
+        "seconds": time.perf_counter() - t0, "failed": failed}}
+    log(json.dumps(out))
+    check(not failed, f"the op namespace failed {len(failed)} checks on "
+          f"the card: {failed[:5]}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 24: BERT-base fine-tuning evaluated in Paddle idiom
+
+FT_EVAL_BATCHES, FT_EVAL_TRAIN_STEPS, FT_SPLIT_TOL = 4, 10, 1e-4
+
+
+def finetune_eval_phase(dev):
+    """Phase 24 (the module docstring)."""
+    import paddle1_tpu_torch as paddle
+    paddle.seed(SEED + 100)
+    clf, _, _, _ = ft_warm_start(paddle, seed=SEED + 101)
+    opt, sched, _ = ft_optimizer(paddle, clf)
+    train = ft_batches(paddle, FT_BATCH, seed=SEED + 102)
+    step = ft_step_fn(paddle, clf, opt, sched, train)
+    for _ in range(FT_EVAL_TRAIN_STEPS):
+        step()
+    batches = ft_batches(paddle, FT_BATCH, n=FT_EVAL_BATCHES,
+                         seed=SEED + 103)
+    clf.eval()
+    counters = train_counters()
+    with paddle.no_grad():
+        clf(batches[0][0])                      # warm
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        logits, labels, accs = [], [], []
+        for x, y in batches:
+            out = clf(x)
+            pred = paddle.argmax(out, axis=-1)
+            accs.append(paddle.equal(pred, y).astype("float32").mean())
+            logits.append(out)
+            labels.append(y)
+        every = paddle.concat(logits, axis=0)
+        acc = paddle.equal(paddle.argmax(every, axis=-1),
+                           paddle.concat(labels)).astype("float32").mean()
+        acc_value = float(acc)
+        eval_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        x, _ = batches[0]
+        halves = x.split(2, 0)
+        joined = paddle.concat([clf(h) for h in halves], axis=0)
+        whole = clf(x)
+    torch.cuda.synchronize()
+    check(all(isinstance(t, paddle.Tensor) and t.device.type == CARD
+              for t in (every, acc, joined, whole) + tuple(accs)),
+          "the namespace's outputs are not Paddle tensors on the card")
+    check(every.shape == [FT_BATCH * len(batches), FT_CLASSES] and
+          acc.shape == [] and acc.dtype == torch.float32,
+          f"eval shapes: logits {every.shape}, accuracy {acc.shape} "
+          f"{acc.dtype}")
+    check(len(halves) == 2 and all(h.shape == [FT_BATCH // 2, FT_SEQ]
+                                   for h in halves),
+          f"x.split(2, 0) gave {[h.shape for h in halves]}, want two "
+          f"halves of {FT_BATCH // 2}")
+    split_err = float((joined - whole).abs().max())
+    check(split_err <= FT_SPLIT_TOL, f"the halves' logits differ from the "
+          f"whole batch's by {split_err}")
+    mean_of_batches = float(paddle.concat([a.reshape([1]) for a in accs])
+                            .mean())
+    check(abs(mean_of_batches - acc_value) < 1e-6, f"per-batch accuracies "
+          f"{mean_of_batches} vs over the concat {acc_value}")
+    n = len(batches)
+    want = {"layer_norm": (2 * BERT_LAYERS + 1) * n,
+            "flash_attention": BERT_LAYERS * n,
+            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
+            "fused_adam": 0}
+    for k, v in want.items():
+        check(launches[k] == v, f"fine-tuning eval: {k} launched "
+              f"{launches[k]} times over {n} batches, want {v}")
+    out = {"bert_finetune_eval": {
+        "batches": n, "batch": FT_BATCH, "seq_len": FT_SEQ,
+        "train_steps_before": FT_EVAL_TRAIN_STEPS, "accuracy": acc_value,
+        "batch_accuracies": [float(a) for a in accs],
+        "eval_ms_per_batch": eval_ms, "launches": launches,
+        "split_halves": [h.shape for h in halves],
+        "split_max_abs_err": split_err}}
+    log(json.dumps(out))
+    del clf, opt, train, batches
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -4021,6 +4312,10 @@ def main() -> int:
 
     ft = finetune_phase(dev)
     finetune_reference_check(dev)
+    torch.cuda.empty_cache()
+
+    ops_phase(dev)
+    fte = finetune_eval_phase(dev)["bert_finetune_eval"]["launches"]
 
     src = "paddle1_tpu_torch/ops/cuda/"
     pallas = "paddle1_tpu/ops/pallas/"
@@ -4031,7 +4326,8 @@ def main() -> int:
         err = max(c["max_abs_err"] for c in kernels[name])
         by_path = {"serving": launches[name], "train": tl.get(name, 0),
                    "ernie": ernie["launches"].get(name, 0),
-                   "bert_finetune": ft["launches"].get(name, 0)}
+                   "bert_finetune": ft["launches"].get(name, 0),
+                   "bert_finetune_eval": fte.get(name, 0)}
         line.append({
             "name": name, "route": "cuda", "source": f"{src}{name}.cu",
             "replaces": {"paged_attention": pallas + "paged_attention.py:89",
@@ -4092,7 +4388,8 @@ def main() -> int:
               "tile, dS split bf16 hi + lo; f32: CUDA-core kernel"}
     for name, cu, rep, key, plain_key, lib_key, tc in flash_rows:
         by_path = {"train": tl[name], "ernie": ernie["launches"][name],
-                   "bert_finetune": ft["launches"][name]}
+                   "bert_finetune": ft["launches"][name],
+                   "bert_finetune_eval": fte[name]}
         line.append({
             "name": name, "route": "cuda", "source": src + cu,
             "replaces": rep, "launches": sum(by_path.values()),

@@ -31,8 +31,14 @@ Slice 2b(ii) is the Paddle layer API under every ported layer:
 initializers (``nn.initializer``) and the regularizers, parameters named
 as the JAX package names them, and the optimizer's per-parameter
 learning rate, regularizer, clip opt-out and decay filter by name; it
-runs BERT-base fine-tuning in eager dygraph.
+runs BERT-base fine-tuning in eager dygraph. The op namespace
+(``ops.math_ops``, ``ops.manip_ops``, ``ops.linalg_ops``) is exported
+here as in Paddle (``paddle.matmul``, ``paddle.concat``,
+``paddle.linalg.norm``, ...) and installed as the Paddle ``Tensor``'s
+methods.
 """
+
+import torch as _torch
 
 from . import (autograd, distributed, framework, nn,  # noqa: F401
                optimizer, regularizer, serving, text, utils, vision)
@@ -48,6 +54,9 @@ from .core.place import (CPUPlace, CUDAPlace, device_guard,  # noqa: F401
                          get_device, set_device)
 from .core.tensor import Parameter, Tensor, to_tensor  # noqa: F401
 from .framework import ParamAttr, load, save  # noqa: F401
+from . import ops  # noqa: F401
+from .ops import *  # noqa: F401,F403  (the op namespace; patches Tensor)
+from .ops import linalg  # noqa: F401
 
 __all__ = ["autograd", "distributed", "framework", "nn", "optimizer",
            "regularizer", "serving", "text", "utils", "vision",
@@ -59,4 +68,38 @@ __all__ = ["autograd", "distributed", "framework", "nn", "optimizer",
            "set_device", "get_device", "device_guard", "get_default_dtype",
            "set_default_dtype", "float32", "float64", "float16", "bfloat16",
            "int8", "int16", "int32", "int64", "uint8", "bool_", "complex64",
-           "complex128"]
+           "complex128", "ops", "rank", "is_empty", "reverse", "tolist",
+           "crop_tensor"] + ops.__all__
+
+
+def rank(input):
+    """The tensor's rank as a 0-d int32 tensor."""
+    t = input if isinstance(input, Tensor) else to_tensor(input)
+    return ops.manip_ops._new(_torch.tensor(t.dim(), dtype=_torch.int32,
+                                            device=t.device))
+
+
+def is_empty(x, name=None):
+    """Whether ``x`` has no elements, a 0-d bool tensor."""
+    t = x if isinstance(x, _torch.Tensor) else to_tensor(x)
+    return ops.manip_ops._new(_torch.tensor(t.nelement() == 0,
+                                            device=t.device))
+
+
+def reverse(x, axis, name=None):
+    """``flip`` under its old name."""
+    return ops.manip_ops.flip(x, axis if isinstance(axis, (list, tuple))
+                              else [axis])
+
+
+def tolist(x):
+    return (x if isinstance(x, _torch.Tensor) else to_tensor(x)).tolist()
+
+
+def crop_tensor(x, shape=None, offsets=None, name=None):
+    """The old name of ``crop`` (None or -1 in ``shape``: to the end)."""
+    t = x if isinstance(x, _torch.Tensor) else to_tensor(x)
+    if shape is None:
+        shape = [-1] * t.dim()
+    shape = [-1 if s is None else s for s in shape]
+    return ops.manip_ops.crop(t, shape=shape, offsets=offsets)

@@ -67,7 +67,7 @@ def _check_roots(tensors, grad_tensors):
             raise PreconditionNotMetError(
                 "backward() on a tensor with stop_gradient=True")
         if g is None:
-            if t.numel() != 1:
+            if t.nelement() != 1:
                 raise InvalidArgumentError(
                     "grad must be provided for non-scalar backward root "
                     f"(shape {list(t.shape)})")

@@ -42,6 +42,38 @@ Paddle's semantics on top of torch's:
   Called with torch's ``dim=`` keyword (or ``stable=`` for ``sort``),
   or ``max``/``min`` with another tensor, they keep torch's meaning.
   Only the facade changes: a plain ``torch.Tensor`` keeps torch's.
+- These and the rest of the Paddle methods come from the op namespace
+  (``ops/patch.py``, installed when the package is imported): the
+  operators stay torch's (their meaning is Paddle's), and every name of
+  ``ops.math_ops``/``ops.manip_ops`` becomes a method. Where the name is
+  also a ``torch.Tensor`` method, the call means Paddle's op in user code
+  and torch's method in two cases (the collision rule):
+  1. torch's own Python code calls it. Every torch function on the facade
+     runs under ``_plain()`` (``DisableTorchFunctionSubclass``), and so
+     does torch Python code that dispatches through
+     ``handle_torch_function`` (``torch.split``, ``Tensor.__repr__``,
+     ``F.multi_head_attention_forward``, ...); there
+     ``torch._C._get_torch_function_state()`` is not ``ENABLED``, which
+     the method reads (``ops.patch.in_torch_code``). ``torch.split(x, 3,
+     1)`` calls ``x.split(3, 1)`` positionally and keeps torch's meaning.
+  2. The call only makes sense as torch's: a keyword Paddle's op does
+     not take (``dim=``, ``sorted=``, ``out=``, ``alpha=``), more
+     positional arguments than Paddle's op takes before ``name``
+     (``x.view(2, 3)``, ``x.expand(4, -1)``), an int first argument to
+     ``gather``/``index_select``/``scatter``/``index_add``, or an int
+     first argument to ``transpose``.
+  ``x.split(3, 1)`` is read as Paddle's (3 parts along axis 1): the
+  port's own modules call torch functions with keywords instead.
+  ``numel()`` in user code is Paddle's 0-d int64 tensor on the tensor's
+  device, and torch's int under case 1; the port's own modules call
+  ``nelement()``. ``real``/``imag`` are Paddle's methods in user code
+  and torch's properties under case 1, and ``cpu()``,
+  ``cuda()``, ``contiguous()`` and ``pin_memory()`` torch's methods, which
+  move or lay out the data.
+- Paddle's in-place methods (``add_``, ``scale_``, ``zero_``,
+  ``reshape_``, ...) and ``__setitem__`` write into the tensor where
+  torch allows it, else replace it by the op's output
+  (:func:`update_in_place`), as the reference rebinds.
 
 :class:`ParamBase` is the parameter every port layer creates
 (``nn.Layer.create_parameter``): a ``torch.nn.Parameter`` with Paddle's
@@ -69,7 +101,8 @@ from .errors import InvalidArgumentError, PreconditionNotMetError
 from .place import Place, _parse, get_device, place_of
 
 __all__ = ["Tensor", "Parameter", "ParamBase", "Shape", "to_tensor",
-           "as_paddle_parameters", "leaf_hooks_per_edge"]
+           "as_paddle_parameters", "leaf_hooks_per_edge",
+           "update_in_place"]
 
 _NOWRAP = get_default_nowrap_functions()
 _plain = torch._C.DisableTorchFunctionSubclass
@@ -275,6 +308,15 @@ class Tensor(torch.Tensor):
     def clear_grad(self) -> None:
         self.grad = None
 
+    def retain_grads(self) -> None:
+        """Keep this tensor's gradient in ``.grad`` after backward, an
+        op's output too (torch's ``retain_grad``)."""
+        with _plain():
+            if self.requires_grad and self.grad_fn is not None:
+                self.retain_grad()
+
+    persistable = False
+
     clear_gradient = clear_grad   # legacy alias
 
     # -- Paddle's metadata and methods where torch's differ ----------------------
@@ -290,26 +332,6 @@ class Tensor(torch.Tensor):
             n = _Numel(torch.Tensor.numel(self))
         n._tensor = self
         return n
-
-    def max(self, axis=None, keepdim=False, name=None, **torch_kw):
-        """Paddle's ``max``: the maximum over ``axis`` (an int, a list, or
-        None for all), one Tensor. ``dim=`` or another tensor as ``axis``
-        keep torch's ``Tensor.max``."""
-        return _extremum(self, torch.Tensor.max, torch.Tensor.amax, axis,
-                         keepdim, torch_kw)
-
-    def min(self, axis=None, keepdim=False, name=None, **torch_kw):
-        """Paddle's ``min``; see :meth:`max`."""
-        return _extremum(self, torch.Tensor.min, torch.Tensor.amin, axis,
-                         keepdim, torch_kw)
-
-    def sort(self, axis=-1, descending=False, name=None, **torch_kw):
-        """Paddle's ``sort``: the values sorted along ``axis``, one Tensor.
-        ``dim=`` or ``stable=`` keep torch's ``Tensor.sort`` (values and
-        indices)."""
-        if torch_kw:
-            return torch.Tensor.sort(self, descending=descending, **torch_kw)
-        return torch.Tensor.sort(self, dim=axis, descending=descending)[0]
 
     # -- conversion -----------------------------------------------------------
 
@@ -391,6 +413,43 @@ class Tensor(torch.Tensor):
                 _replaced[id(self)] = self
             else:
                 _replaced.pop(id(self), None)
+
+
+def _in_place_blocked(x: torch.Tensor) -> bool:
+    """Whether torch refuses an in-place write into ``x`` here: under grad
+    mode, a leaf that requires grad or a view of one."""
+    if not torch.is_grad_enabled():
+        return False
+    return any(t is not None and t.requires_grad and t.grad_fn is None
+               for t in (x, x._base))
+
+
+def update_in_place(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Paddle's in-place contract for ``x`` <- ``out``; returns ``x``.
+    Where torch allows an in-place write and ``out`` has ``x``'s shape,
+    dtype and device, ``out`` is copied into ``x``'s storage (views of
+    ``x`` see it, and autograd records the copy). Otherwise a Paddle
+    tensor is replaced by ``out`` (:meth:`Tensor._replace_impl`: the
+    gradient flows through the op that made ``out``), and a plain tensor's
+    data is rebound to ``out``'s. A leaf that requires grad cannot change
+    its shape under grad mode (torch accumulates its gradient in the
+    leaf's own shape): that raises, where the reference rebinds."""
+    with _plain():
+        blocked = _in_place_blocked(x)
+        if not blocked and out.shape == x.shape and \
+                out.dtype == x.dtype and out.device == x.device:
+            x.copy_(out)
+            return x
+        if blocked and out.shape != x.shape:
+            raise PreconditionNotMetError(
+                f"an in-place op would change the shape of a tensor that "
+                f"requires grad from {list(x.shape)} to {list(out.shape)}; "
+                "use the op's out-of-place form")
+        if not isinstance(x, Tensor):
+            x.data = out.detach()
+            return x
+    x._replace_impl(out)
+    return x
 
 
 _PARAM_ATTRS = ("_param_name", "regularizer", "need_clip", "persistable")
@@ -492,25 +551,6 @@ class Parameter(Tensor, ParamBase):
             _copy_param_attrs(self, new)
             memo[id(self)] = new
         return memo[id(self)]
-
-
-def _extremum(x, torch_fn, paddle_fn, axis, keepdim, torch_kw):
-    """``Tensor.max``/``min`` on the facade: torch's ``torch_fn`` when
-    called with torch's keywords or another tensor, else Paddle's:
-    ``paddle_fn`` (``amax``/``amin``) over ``axis`` (None: every axis,
-    an int or a list)."""
-    if torch_kw or isinstance(axis, torch.Tensor):
-        args = () if axis is None else (axis,)
-        if "dim" in torch_kw:
-            torch_kw = dict(torch_kw, keepdim=keepdim)
-        return torch_fn(x, *args, **torch_kw)
-    if axis is None:
-        dims = ()
-    elif isinstance(axis, (list, tuple)):
-        dims = tuple(int(a) for a in axis)
-    else:
-        dims = int(axis)
-    return paddle_fn(x, dims, keepdim)
 
 
 def _as_torch(data, dtype=None) -> torch.Tensor:

@@ -307,10 +307,10 @@ class ParallelEngine:
         offs, n = [], 0
         for t in masters:
             offs.append(n)
-            n += -(-t.numel() // _ALIGN) * _ALIGN
+            n += -(-t.nelement() // _ALIGN) * _ALIGN
         self._flat = torch.zeros(n + 1, dtype=torch.float32,
                                  device=self.device)
-        self._grads = [self._flat[o:o + t.numel()].view(t.shape)
+        self._grads = [self._flat[o:o + t.nelement()].view(t.shape)
                        for o, t in zip(offs, masters)]
 
     # -- data placement -----------------------------------------------------

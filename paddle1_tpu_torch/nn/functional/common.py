@@ -114,7 +114,8 @@ def interpolate(x: torch.Tensor, size=None, scale_factor=None,
         spatial = list(range(1, nd - 1))
     for ax, n_in, n_out in zip(spatial, cur, size):
         if n_in != n_out:
-            x = x.index_select(ax, _nearest_index(n_in, n_out, x.device))
+            x = torch.index_select(
+                x, dim=ax, index=_nearest_index(n_in, n_out, x.device))
     if perm is not None:
         x = x.permute(0, nd - 1, *range(1, nd - 1))
     return x

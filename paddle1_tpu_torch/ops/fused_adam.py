@@ -71,7 +71,7 @@ def _kernel():
 
 def _table(params, grads, m1s, m2s, decays, scales, device):
     key = (device, tuple((p.data_ptr(), g.data_ptr(), a.data_ptr(),
-                          b.data_ptr(), p.numel())
+                          b.data_ptr(), p.nelement())
                          for p, g, a, b in zip(params, grads, m1s, m2s)),
            tuple((float(d), float(s)) for d, s in zip(decays, scales)))
     hit = _tables.get(key)
@@ -130,7 +130,7 @@ def fused_adam_(params: Sequence[torch.Tensor],
         ok = (p.dtype == dtype and g.dtype == dtype and
               a.dtype == torch.float32 and b.dtype == torch.float32 and
               all(t.device == dev and t.is_contiguous() and
-                  t.numel() == p.numel() for t in (p, g, a, b)))
+                  t.nelement() == p.nelement() for t in (p, g, a, b)))
         if not ok:
             raise InvalidArgumentError(
                 f"fused_adam_: every p/g must be contiguous {dtype} and "

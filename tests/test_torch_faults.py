@@ -9,7 +9,10 @@ takes ``axis`` and ``mode``. F3: the Paddle ``Tensor`` facade's ``max``,
 ``min``, ``sort``, ``shape`` and ``size`` mean what the reference's mean.
 F4: ``serving.engine.resolve_buckets`` has the reference's defaults and
 flags. F6: a layer's parameters carry the reference's names, which the
-optimizer's decay filter and state keys read.
+optimizer's decay filter and state keys read. F7-F9: the facade's Tensor
+methods that share a name with a ``torch.Tensor`` method mean Paddle's
+call in user code (``x.split(3, 1)``, ``median``, ``unique``, ``where``,
+and the Paddle calls torch's methods refused).
 
 Inputs and weights come from numpy with a seed; weights cross through
 ``paddle1_tpu_torch.convert.state_from_jax``. Random masks differ by
@@ -593,3 +596,117 @@ def test_serving_batch_flags_are_the_references():
     from paddle1_tpu.core import flags as jflags
     for name in ("serve_max_batch", "serve_buckets"):
         assert tflags.flag(name) == jflags.flag(name)
+
+
+# ---------------------------------------------------------------------------
+# F7-F9: the facade's methods that share a name with torch's mean Paddle's
+# call in user code (each case fails on the port before the op namespace:
+# a different answer, a different type, or an error)
+
+
+def _both(a):
+    return jp.to_tensor(a), tp.to_tensor(a)
+
+
+def test_f7_split_is_paddles_num_or_sections_then_axis(cpu_place):
+    # paddle1_tpu/ops/manip_ops.py:337: x.split(3, 1) on [2, 12] is 3
+    # parts of width 4; torch's reading gave 4 parts of width 3
+    jx, tx = _both(_x((2, 12), 30))
+    want, got = jx.split(3, 1), tx.split(3, 1)
+    assert len(got) == len(want) == 3
+    for a, b in zip(want, got):
+        assert b.shape == a.shape == [2, 4]
+        np.testing.assert_array_equal(b.numpy(), _np(a))
+    sections = tx.split([5, -1, 3], 1)
+    assert [p.shape[1] for p in sections] == [5, 4, 3]
+
+
+F8_CASES = [
+    # math_ops.py:305: one tensor [3], the mean of the two middle values
+    # (torch's x.median(1) gave (values, indices) with the lower one)
+    ("median", lambda t: t.median(1)),
+    ("median-all", lambda t: t.median()),
+    # math_ops.py:480: (values, index); torch read True as ``sorted`` and
+    # gave the values alone
+    ("unique", lambda t: t.unique(True)),
+]
+
+
+@pytest.mark.parametrize("name,call", F8_CASES, ids=[c[0] for c in F8_CASES])
+def test_f8_median_and_unique_are_the_references(cpu_place, name, call):
+    a = _x((3, 4), 31)
+    if name == "unique":
+        a = np.round(a).astype(np.float32)
+    jx, tx = _both(a)
+    want, got = call(jx), call(tx)
+    if isinstance(want, tuple):
+        assert isinstance(got, tuple) and len(got) == len(want)
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(g.numpy(), _np(w))
+    else:
+        assert isinstance(got, tp.Tensor)
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["float", "bool"])
+def test_f8_where_is_condition_where_x_else_y(cpu_place, kind):
+    # math_ops.py:401: cond.where(x, y) is where(cond, x, y); torch's
+    # reading, where(x, cond, y), raised on a float condition and on bool
+    # data picked silently from the wrong tensors
+    rng = np.random.default_rng(32)
+    if kind == "float":
+        c = (rng.random((3, 4)) < 0.5).astype(np.float32)
+        x, y = _x((3, 4), 33), _x((3, 4), 34)
+    else:
+        c, x, y = (rng.random((3, 4)) < 0.5 for _ in range(3))
+    want = _both(c)[0].where(_both(x)[0], _both(y)[0])
+    got = _both(c)[1].where(_both(x)[1], _both(y)[1])
+    np.testing.assert_array_equal(got.numpy(), _np(want))
+
+
+F9_CASES = [
+    ("transpose(perm)", lambda t, m: t.transpose([1, 0, 2]), (2, 3, 4)),
+    ("unsqueeze(list)", lambda t, m: t.unsqueeze([0, 1]), (3, 4)),
+    ("gather(index)", lambda t, m: t.gather(m.to_tensor(
+        np.array([2, 0], np.int32))), (3, 4)),
+    ("gather(index, axis)", lambda t, m: t.gather(m.to_tensor(
+        np.array([3, 1], np.int32)), 1), (3, 4)),
+    ("index_select(index, axis)", lambda t, m: t.index_select(m.to_tensor(
+        np.array([3, 0], np.int32)), 1), (3, 4)),
+    ("scatter(index, updates)", lambda t, m: t.scatter(m.to_tensor(
+        np.array([1, 1], np.int32)), m.to_tensor(np.ones((2, 4),
+                                                         np.float32)),
+        False), (3, 4)),
+    ("dot-2d", lambda t, m: t.dot(t), (3, 4)),
+    ("cumsum()", lambda t, m: t.cumsum(), (3, 4)),
+    ("astype", lambda t, m: t.astype("int32"), (3, 4)),
+]
+
+
+@pytest.mark.parametrize("name,call,shape", F9_CASES,
+                         ids=[c[0] for c in F9_CASES])
+def test_f9_paddle_calls_torch_refused_now_compute(cpu_place, name, call,
+                                                   shape):
+    # manip_ops.py:263 transpose, :316 unsqueeze, :445
+    # gather, :486 scatter, math_ops.py:519 index_select, :76 dot, :318
+    # cumsum, manip_ops.py:247 cast: each raised on the facade (torch's
+    # method and arguments)
+    jx, tx = _both(_x(shape, 35))
+    want, got = call(jx, jp), call(tx, tp)
+    assert isinstance(got, tp.Tensor)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-6, atol=1e-6)
+    assert str(got.dtype).replace("torch.", "") == np.dtype(want.dtype).name
+
+
+def test_f9_numel_is_a_0d_tensor_in_user_code(cpu_place):
+    # manip_ops.py:602: a 0-d int tensor (the reference's int32 is int64
+    # here); the facade returned a Python int. torch's own code, which
+    # calls numel() under its dispatch, still gets its int
+    jx, tx = _both(_x((2, 3, 4), 36))
+    n = tx.numel()
+    assert isinstance(n, tp.Tensor) and n.shape == [] and \
+        n.dtype == torch.int64 and int(n) == int(_np(jx.numel())) == 24
+    assert tx.numel_() == 24 and tx.size == 24
+    assert torch.nn.functional.dropout(tx, 0.0).shape == [2, 3, 4]
+    assert torch.Tensor.numel(tx) == 24 and tx.nelement() == 24

@@ -5,10 +5,15 @@ The serving decode step (``tools/torch_decode_profile.py``: the README
 width, 16 active slots) and the bf16 ResNet-50 training step
 (``tools/torch_train_profile.py --model resnet50``: batch 32 x 224²) are
 host-bound: the device idles most of each step. A change to the layers
-under them shows there first. This runs each tool from each tree's own
-copy (so each imports its own ``paddle1_tpu_torch`` and builds its own
-kernels) in the order A, B, B, A, and prints one JSON object with every
-run's step time and idle share and the per-tree medians.
+under them shows there first. So do the eager steps on the Paddle
+facade (``--model lenet``, batch 64; ``--model bert_finetune``, BERT-base
+f32 at batch 32 x 128), whose host cost the facade's methods add to.
+This runs each tool in the order A, B, B, A, and prints one JSON object
+with every run's step time and idle share and the per-tree medians. The
+first two run from each tree's own copy (so each imports its own
+``paddle1_tpu_torch`` and builds its own kernels); the eager steps run
+this tree's ``tools/torch_train_profile.py`` with ``--root`` set to each
+tree, so both trees run one tool.
 
     python3 tools/torch_host_ab.py --a DIR_A [--b DIR_B] [--rounds 1]
 
@@ -33,11 +38,24 @@ TOOLS = {
                   "--steps", "20", "--profile-steps", "3"],
                  ("step_ms", "device_idle_share_untraced",
                   "kernel_launches_per_step")),
+    "lenet": (["tools/torch_train_profile.py", "--model", "lenet",
+               "--steps", "75", "--profile-steps", "5"],
+              ("step_ms", "device_idle_share_untraced",
+               "facade_calls_per_step")),
+    "bert_finetune": (["tools/torch_train_profile.py", "--model",
+                       "bert_finetune", "--steps", "20", "--profile-steps",
+                       "3"],
+                      ("step_ms", "device_idle_share_untraced",
+                       "facade_calls_per_step")),
 }
+# tools run from this tree against each tree's package (``--root``)
+SHARED = ("lenet", "bert_finetune")
 
 
 def run(tree: str, tool: str) -> dict:
     args, keys = TOOLS[tool]
+    if tool in SHARED:
+        args = [os.path.join(ROOT, args[0])] + args[1:] + ["--root", tree]
     proc = subprocess.run([sys.executable] + args, cwd=tree,
                           capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
@@ -59,6 +77,8 @@ def main() -> int:
     ap.add_argument("--b", default=ROOT, help="tree B (default: this one)")
     ap.add_argument("--rounds", type=int, default=1,
                     help="A, B, B, A sequences per tool")
+    ap.add_argument("--tools", nargs="+", default=list(TOOLS),
+                    choices=list(TOOLS), help="which steps (default: all)")
     args = ap.parse_args()
     trees = {"a": os.path.abspath(args.a), "b": os.path.abspath(args.b)}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -66,7 +86,8 @@ def main() -> int:
                           text=True, timeout=60).stdout.strip()
     result = {"card": card.splitlines()[0] if card else None,
               "trees": trees, "runs": {}, "median": {}}
-    for tool, (_, keys) in TOOLS.items():
+    for tool in args.tools:
+        keys = TOOLS[tool][1]
         runs = []
         for _ in range(args.rounds):
             for which in ("a", "b", "b", "a"):

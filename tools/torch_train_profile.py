@@ -26,7 +26,15 @@ as Paddle tensors, forward, cross entropy, ``backward()``, ``step()``,
 ``clear_grad()``), and also counts the calls that go through the Paddle
 facade's ``Tensor.__torch_function__`` (each re-wraps its results) in
 one step. The facade's host cost in time is ``chip_smoke.py`` phase 15's
-(the same loop on plain torch parameters and inputs, in turns).
+(the same loop on plain torch parameters and inputs, in turns);
+``--model bert_finetune`` ``chip_smoke.py`` phase 21's eager BERT-base
+fine-tuning step (``BertForSequenceClassification`` at full width and
+depth, f32 with TF32 off, AdamW, batch ``--batch`` (default 32) x seq
+``--seq`` (default 128) with ragged padding, two seeded batches staged
+as Paddle tensors; ``loss.backward(); opt.step(); opt.clear_grad()``),
+also counting the facade's calls. ``--root DIR`` imports the package from
+another tree (say the parent, unpacked under ``_archive/``), so two trees
+run the same tool.
 It runs ``--warmup`` steps, then:
 
 * times ``--steps`` steps on the host clock, ending in one loss readback
@@ -45,7 +53,7 @@ It runs ``--warmup`` steps, then:
 Prints one JSON object.
 
     python3 tools/torch_train_profile.py [--model resnet50 [--dp] | lenet |
-        ernie] [--steps 10]
+        ernie | bert_finetune] [--steps 10] [--root DIR]
 """
 
 from __future__ import annotations
@@ -77,6 +85,9 @@ OUR_KERNELS = {
                  "stats_partial_kernel", "finalize_kernel",
                  "normalize_kernel", "train_bwd_kernel", "norm_bwd_kernel"),
     "lenet": ("adam_kernel",),
+    # f32: the CUDA-core flash kernels and the block LayerNorm
+    "bert_finetune": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                      "adam_kernel", "layer_norm"),
     # ERNIE's hidden 2304 is past the warp-per-row widths
     "ernie": ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
               "flash_bwd_dq_tc_kernel", "adam_kernel",
@@ -243,6 +254,43 @@ def _lenet(args, dev):
     return step, {"img": 28, "amp": None}
 
 
+def _bert_finetune(args, dev):
+    import paddle1_tpu_torch as paddle
+    from paddle1_tpu_torch.text.models import (BertForSequenceClassification,
+                                               BertModel)
+    F = paddle.nn.functional
+    paddle.seed(args.seed)
+    clf = BertForSequenceClassification(
+        BertModel(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.0,
+                  generator=torch.Generator().manual_seed(args.seed)),
+        num_classes=2, dropout=0.1)
+    decay = [p.name for n, p in clf.named_parameters()
+             if not any(nd in n for nd in ["bias", "norm"])]
+    opt = paddle.optimizer.AdamW(
+        learning_rate=2e-5, parameters=clf.parameters(), weight_decay=0.01,
+        apply_decay_param_fun=lambda x: x in decay)
+    rng = np.random.default_rng(0)
+    staged = []
+    for _ in range(2):
+        ids = rng.integers(1, 30522, (args.batch, args.seq))
+        lens = rng.integers(args.seq // 4, args.seq + 1, args.batch)
+        ids[np.arange(args.seq)[None, :] >= lens[:, None]] = 0
+        staged.append((paddle.to_tensor(ids.astype(np.int64)),
+                       paddle.to_tensor((ids[:, 0] < 15261).astype(
+                           np.int64))))
+    turn = [0]
+
+    def step():
+        turn[0] += 1
+        x, y = staged[turn[0] % 2]
+        loss = F.cross_entropy(clf(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return step, {"seq": args.seq, "amp": None}
+
+
 def _facade_calls(step):
     """Calls through the Paddle ``Tensor.__torch_function__`` in one step
     and its loss readback."""
@@ -310,12 +358,15 @@ def _kernel_times(prof):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--model", choices=("bert", "resnet50", "lenet",
-                                        "ernie"), default="bert")
+                                        "ernie", "bert_finetune"),
+                    default="bert")
+    ap.add_argument("--root", default=None,
+                    help="import paddle1_tpu_torch from this tree")
     ap.add_argument("--batch", type=int, default=None,
                     help="default: 128 (bert), 32 (resnet50), 64 (lenet), "
                          "4 (ernie)")
     ap.add_argument("--seq", type=int, default=None,
-                    help="default: 128 (bert), 512 (ernie)")
+                    help="default: 128 (bert, bert_finetune), 512 (ernie)")
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--profile-steps", type=int, default=3)
@@ -323,11 +374,13 @@ def main() -> int:
     ap.add_argument("--dp", action="store_true",
                     help="resnet50 on its data-parallel path, world size 1")
     args = ap.parse_args()
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
     if args.dp and args.model != "resnet50":
         ap.error("--dp needs --model resnet50")
     if args.batch is None:
         args.batch = {"bert": 128, "resnet50": 32, "lenet": 64,
-                      "ernie": 4}[args.model]
+                      "ernie": 4, "bert_finetune": 32}[args.model]
     if args.seq is None:
         args.seq = 512 if args.model == "ernie" else 128
     if not torch.cuda.is_available():
@@ -337,11 +390,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False         # f32 stays f32
     dev = torch.device("cuda", torch.cuda.current_device())
     build = {"bert": _bert, "resnet50": _resnet50, "lenet": _lenet,
-             "ernie": _ernie}
+             "ernie": _ernie, "bert_finetune": _bert_finetune}
     step, shape = build[args.model](args, dev)
     for _ in range(args.warmup):
         float(step())
-    calls = _facade_calls(step) if args.model == "lenet" else None
+    calls = _facade_calls(step) if args.model in ("lenet", "bert_finetune") \
+        else None
 
     t0 = time.perf_counter()
     for _ in range(args.steps):
