@@ -2548,13 +2548,13 @@ def softmax_phase(dev):
 # phase 15: eager LeNet (BASELINE config 1, the fifth main path)
 
 
-def lenet_batches(paddle, n=2, seed=0):
-    """``n`` seeded batches of LENET_BATCH x 1 x 28 x 28 images and labels
+def lenet_batches(paddle, n=2, seed=0, batch=LENET_BATCH):
+    """``n`` seeded batches of ``batch`` x 1 x 28 x 28 images and labels
     as Paddle tensors on the current place (benches.py:60-70)."""
     rng = np.random.default_rng(seed)
     return [(paddle.to_tensor(rng.standard_normal(
-        (LENET_BATCH, 1, 28, 28)).astype(np.float32)),
-        paddle.to_tensor(rng.integers(0, 10, (LENET_BATCH,)).astype(
+        (batch, 1, 28, 28)).astype(np.float32)),
+        paddle.to_tensor(rng.integers(0, 10, (batch,)).astype(
             np.int64))) for _ in range(n)]
 
 
@@ -3685,6 +3685,20 @@ def ft_optimizer(paddle, clf, lr=FT_LR, weight_decay=0.01, schedule=True):
     return opt, (rate if schedule else None), decay_params
 
 
+def ft_setup(paddle, batch=FT_BATCH):
+    """Phase 21's fine-tuning run up to its first step (``tools/
+    torch_train_profile.py --model bert_finetune`` builds it here too):
+    the seeded warm start, the optimizer and the staged batches. Returns
+    ``(clf, opt, sched, batches, (missing, unexpected, pre_keys,
+    decay_params))``."""
+    paddle.seed(SEED)
+    clf, missing, unexpected, pre_keys = ft_warm_start(paddle)
+    opt, sched, decay_params = ft_optimizer(paddle, clf)
+    batches = ft_batches(paddle, batch, seed=SEED + 61)
+    return clf, opt, sched, batches, (missing, unexpected, pre_keys,
+                                      decay_params)
+
+
 def ft_step_fn(paddle, clf, opt, sched, batches):
     """One eager fine-tuning step over the staged batches in turn:
     ``loss.backward(); opt.step(); sched.step(); opt.clear_grad()``."""
@@ -3729,9 +3743,9 @@ def finetune_phase(dev):
     import os
     import tempfile
     import paddle1_tpu_torch as paddle
-    paddle.seed(SEED)
     t0 = time.perf_counter()
-    clf, missing, unexpected, pre_keys = ft_warm_start(paddle)
+    clf, opt, sched, batches, (missing, unexpected, pre_keys,
+                               decay_params) = ft_setup(paddle)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     check(missing == ["classifier.weight", "classifier.bias"],
@@ -3753,12 +3767,10 @@ def finetune_phase(dev):
     check(clf.classifier.weight.optimize_attr["learning_rate"] ==
           FT_HEAD_LR, "the head's ParamAttr(learning_rate) was lost")
     n_params = sum(p.numel() for p in clf.parameters())
-    opt, sched, decay_params = ft_optimizer(paddle, clf)
     names = opt.param_names()
     check(names[0] == "embedding_0.weight" and
           not any(n.startswith("param_") for n in names),
           f"the optimizer does not see Paddle names: {names[:3]}")
-    batches = ft_batches(paddle, FT_BATCH, seed=SEED + 61)
     check(isinstance(batches[0][0], paddle.Tensor) and
           batches[0][0].place == paddle.CUDAPlace(dev.index or 0),
           "to_tensor did not stage the batch on the card")

@@ -48,14 +48,21 @@ Paddle's semantics on top of torch's:
   ``ops.math_ops``/``ops.manip_ops`` becomes a method. Where the name is
   also a ``torch.Tensor`` method, the call means Paddle's op in user code
   and torch's method in two cases (the collision rule):
-  1. torch's own Python code calls it. Every torch function on the facade
-     runs under ``_plain()`` (``DisableTorchFunctionSubclass``), and so
-     does torch Python code that dispatches through
-     ``handle_torch_function`` (``torch.split``, ``Tensor.__repr__``,
+  1. torch's own Python code calls it: the method's caller is a module of
+     the ``torch`` package (``parameters_to_vector``'s ``param.view(-1)``,
+     a ``torch.nn`` module's ``forward``, ``Tensor.__repr__``), read from
+     the caller's frame, or the call runs under torch's function dispatch.
+     Every torch function on the facade runs under ``_plain()``
+     (``DisableTorchFunctionSubclass``), and so does torch Python code
+     that dispatches through ``handle_torch_function`` (``torch.split``,
      ``F.multi_head_attention_forward``, ...); there
-     ``torch._C._get_torch_function_state()`` is not ``ENABLED``, which
-     the method reads (``ops.patch.in_torch_code``). ``torch.split(x, 3,
-     1)`` calls ``x.split(3, 1)`` positionally and keeps torch's meaning.
+     ``torch._C._get_torch_function_state()`` is not ``ENABLED``
+     (``ops.patch.in_torch_code``). ``torch.split(x, 3, 1)`` calls
+     ``x.split(3, 1)`` positionally and keeps torch's meaning. Code outside
+     the ``torch`` package is user code, whatever its idiom: a user's
+     ``sum(p.numel() for p in model.parameters())`` on Paddle parameters
+     adds 0-d tensors, as in Paddle, and a user function that torch calls
+     back (a hook, a ``forward`` of the user's own) gets Paddle's meaning.
   2. The call only makes sense as torch's: a keyword Paddle's op does
      not take (``dim=``, ``sorted=``, ``out=``, ``alpha=``), more
      positional arguments than Paddle's op takes before ``name``
@@ -70,9 +77,10 @@ Paddle's semantics on top of torch's:
   and torch's properties under case 1, and ``cpu()``,
   ``cuda()``, ``contiguous()`` and ``pin_memory()`` torch's methods, which
   move or lay out the data.
-- Paddle's in-place methods (``add_``, ``scale_``, ``zero_``,
-  ``reshape_``, ...) and ``__setitem__`` write into the tensor where
-  torch allows it, else replace it by the op's output
+- Paddle's in-place methods (``add_``, ``scale_``, ``clip_``, ``zero_``,
+  ``reshape_``, ...) and ``__setitem__`` run torch's own in-place op
+  where torch allows the write and the result keeps the tensor's shape
+  and dtype, else replace the tensor by the op's output
   (:func:`update_in_place`), as the reference rebinds.
 
 :class:`ParamBase` is the parameter every port layer creates
@@ -93,7 +101,7 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.autograd.graph import get_gradient_edge
+from torch.autograd.graph import get_gradient_edge, increment_version
 from torch.overrides import get_default_nowrap_functions
 
 from . import dtype as dtypes
@@ -401,14 +409,23 @@ class Tensor(torch.Tensor):
         and, where ``other`` carries a graph, ops under grad mode are
         handed ``other`` in its place until this tensor changes, so
         gradients flow through the op that made it, into this tensor's
-        ``.grad`` when it is a leaf. torch allows no in-place write into
-        a leaf that requires grad; the data is rebound instead."""
+        ``.grad`` when it is a leaf; an op's output that takes a constant
+        passes no gradient back. torch allows no in-place write into
+        a leaf that requires grad; the data is rebound instead. A graph
+        recorded before that saved this tensor (not ``other``'s) cannot
+        keep its old value: its backward raises, as after torch's in-place
+        ops."""
         with _plain():
             graph = other.requires_grad
-            # a copy when a stand-in is kept: in-place updates of this
-            # tensor must not reach the values ``other``'s graph saved
+            # a copy when ``other`` has a graph: in-place updates of this
+            # tensor must not reach the values that graph saved
             self.data = other.detach().clone() if graph else other.detach()
-            if graph:
+            # a graph that saved this tensor would read the new data:
+            # its backward raises instead
+            increment_version(self)
+            # an op's output rebound to a constant leaves its graph, as
+            # the reference's takes the constant's (no) node
+            if graph or self.grad_fn is not None:
                 self._replacement = (other, self._version)
                 _replaced[id(self)] = self
             else:
@@ -424,22 +441,36 @@ def _in_place_blocked(x: torch.Tensor) -> bool:
                for t in (x, x._base))
 
 
-def update_in_place(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """Paddle's in-place contract for ``x`` <- ``out``; returns ``x``.
-    Where torch allows an in-place write and ``out`` has ``x``'s shape,
-    dtype and device, ``out`` is copied into ``x``'s storage (views of
-    ``x`` see it, and autograd records the copy). Otherwise a Paddle
-    tensor is replaced by ``out`` (:meth:`Tensor._replace_impl`: the
-    gradient flows through the op that made ``out``), and a plain tensor's
-    data is rebound to ``out``'s. A leaf that requires grad cannot change
-    its shape under grad mode (torch accumulates its gradient in the
-    leaf's own shape): that raises, where the reference rebinds."""
+def _needs_copy(x: torch.Tensor, args) -> bool:
+    """Whether an op on ``x`` and ``args`` may record a graph that saves
+    ``x`` (grad mode on, and ``x`` or a tensor argument requires grad)."""
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        isinstance(a, torch.Tensor) and a.requires_grad for a in args))
+
+
+def update_in_place(x: torch.Tensor, op, *args, native=None):
+    """Paddle's in-place contract, ``x`` <- ``op(x, *args)``; returns
+    ``x``. Where torch allows an in-place write into ``x`` and the caller
+    gives ``native`` (torch's own in-place op, given only where its result
+    keeps ``x``'s shape and dtype), ``native(x, *args)`` runs: views of
+    ``x`` see the change, and autograd records it as torch does, keeping
+    the values that the graph saved (a backward that needs ``x``'s old
+    value, as ``tanh``'s needs its output, raises as in torch). Otherwise
+    ``x`` is rebound to ``op``'s output, as the reference rebinds: a Paddle
+    tensor by :meth:`Tensor._replace_impl` (the gradient flows through
+    ``op``), a plain tensor's data only. Under grad mode ``op`` then reads
+    a copy of ``x``, so that what its graph saves is not what the
+    rebinding replaces. A leaf that requires grad cannot change its shape
+    under grad mode (torch accumulates its gradient in the leaf's own
+    shape): that raises, where the reference rebinds."""
     with _plain():
         blocked = _in_place_blocked(x)
-        if not blocked and out.shape == x.shape and \
-                out.dtype == x.dtype and out.device == x.device:
-            x.copy_(out)
+        if native is not None and not blocked:
+            native(x, *args)
             return x
+        copy = _needs_copy(x, args)
+    out = op(torch.clone(x) if copy else x, *args)
+    with _plain():
         if blocked and out.shape != x.shape:
             raise PreconditionNotMetError(
                 f"an in-place op would change the shape of a tensor that "

@@ -48,17 +48,18 @@ def attention_ref(q, k, v, mask=None, dropout_p: float = 0.0,
     d = q.shape[-1]
     s = scale if scale is not None else 1.0 / float(d) ** 0.5
     ct = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
-    qh, kh, vh = (t.transpose(1, 2).to(ct) for t in (q, k, v))  # [B,H,N,D]
-    logits = torch.matmul(qh, kh.transpose(-1, -2)) * s
+    qh, kh, vh = (torch.transpose(t, 1, 2).to(ct)  # [B,H,N,D]
+                  for t in (q, k, v))
+    logits = torch.matmul(qh, torch.transpose(kh, -1, -2)) * s
     neg = torch.finfo(logits.dtype).min
     if is_causal:
         nq, nk = logits.shape[-2], logits.shape[-1]
-        keep = torch.ones(nq, nk, dtype=torch.bool,
-                          device=logits.device).tril(nk - nq)
-        logits = logits.masked_fill(~keep, neg)
+        keep = torch.tril(torch.ones(nq, nk, dtype=torch.bool,
+                                     device=logits.device), nk - nq)
+        logits = torch.masked_fill(logits, ~keep, neg)
     if mask is not None:
         if mask.dtype == torch.bool:
-            logits = logits.masked_fill(~mask, neg)
+            logits = torch.masked_fill(logits, ~mask, neg)
         else:
             logits = logits + mask
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype).to(ct)
@@ -69,7 +70,7 @@ def attention_ref(q, k, v, mask=None, dropout_p: float = 0.0,
         probs = torch.where(keep.bool(), probs / (1.0 - dropout_p),
                             torch.zeros((), dtype=probs.dtype,
                                         device=probs.device))
-    return torch.matmul(probs, vh).transpose(1, 2)
+    return torch.transpose(torch.matmul(probs, vh), 1, 2)
 
 
 def _as_padding_mask(mask, b: int, nk: int):

@@ -12,9 +12,9 @@ __all__ = ["cross_entropy", "softmax_with_cross_entropy"]
 
 def _reduce(loss, reduction):
     if reduction == "mean":
-        return loss.mean()
+        return torch.mean(loss)
     if reduction == "sum":
-        return loss.sum()
+        return torch.sum(loss)
     return loss
 
 
@@ -54,28 +54,29 @@ def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
         soft = label.to(logp.dtype)
         if label_smoothing > 0:
             soft = soft * (1 - label_smoothing) + label_smoothing / n
-        return _reduce(-(soft * logp).sum(dim=ax), reduction)
+        return _reduce(-torch.sum(soft * logp, dim=ax), reduction)
     y = label.long()
     if y.dim() == input.dim():
-        y = y.squeeze(ax)
+        y = torch.squeeze(y, ax)
     valid = y != ignore_index
-    idx = torch.where(valid, y, torch.zeros_like(y)).unsqueeze(ax)
-    loss = -torch.gather(logp, ax, idx).squeeze(ax)
+    idx = torch.unsqueeze(torch.where(valid, y, torch.zeros_like(y)), ax)
+    loss = -torch.squeeze(torch.gather(logp, ax, idx), ax)
     if label_smoothing > 0:
         loss = (1 - label_smoothing) * loss - \
-            label_smoothing / n * logp.sum(dim=ax)
+            label_smoothing / n * torch.sum(logp, dim=ax)
     loss = torch.where(valid, loss, torch.zeros_like(loss))
     if weight is not None:
-        cw = torch.where(valid, weight.to(loss.dtype)[idx.squeeze(ax)],
+        cw = torch.where(valid,
+                         weight.to(loss.dtype)[torch.squeeze(idx, ax)],
                          torch.zeros_like(loss))
         loss = loss * cw
         if reduction == "mean":
-            return loss.sum() / cw.sum().clamp(min=1e-12)
+            return torch.sum(loss) / torch.sum(cw).clamp(min=1e-12)
     if reduction == "none":
         return loss
     if reduction == "sum":
-        return loss.sum()
-    return loss.sum() / valid.sum().clamp(min=1).to(loss.dtype)
+        return torch.sum(loss)
+    return torch.sum(loss) / torch.sum(valid).clamp(min=1).to(loss.dtype)
 
 
 def softmax_with_cross_entropy(logits: torch.Tensor, label: torch.Tensor,

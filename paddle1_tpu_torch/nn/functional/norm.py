@@ -56,8 +56,9 @@ def layer_norm(x: torch.Tensor, normalized_shape, weight: torch.Tensor,
         weight = torch.ones(n, dtype=x.dtype, device=x.device)
     if bias is None:
         bias = torch.zeros(n, dtype=x.dtype, device=x.device)
-    y = fn(x.reshape(*lead, n), weight.reshape(n), bias.reshape(n), epsilon)
-    return y.reshape(x.shape)
+    y = fn(torch.reshape(x, (*lead, n)), torch.reshape(weight, (n,)),
+           torch.reshape(bias, (n,)), epsilon)
+    return torch.reshape(y, x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +140,7 @@ def _rows(t, c):
     memory. On the card a tensor with no such view is handed on as it is,
     and the wrapper's contract check raises: no hidden copy."""
     if t.is_contiguous() or t.device.type == "cpu":
-        return t.reshape(-1, c)
+        return torch.reshape(t, (-1, c))
     return t
 
 
@@ -178,7 +179,7 @@ def _global_moments(xi, x2, ch_axis, group):
     else:
         axes = tuple(i for i in range(xi.dim()) if i != ch_axis)
         xf = xi.float()
-        s, ss = xf.sum(dim=axes), (xf * xf).sum(dim=axes)
+        s, ss = torch.sum(xf, dim=axes), torch.sum(xf * xf, dim=axes)
         n_local = math.prod(int(xi.shape[i]) for i in axes)
     c, world = int(s.shape[0]), group.nranks
     parts = [s, ss]
@@ -215,7 +216,7 @@ def _batch_norm_impl(x, running_mean, running_var, weight, bias, training,
     def bshape(v):
         shape = [1] * nd
         shape[ch_axis] = -1
-        return v.reshape(shape)
+        return torch.reshape(v, shape)
 
     fused = fused_bn_active(xi.shape, xi.dtype, xi.device)
     if fused and not (has_wb and eff_last):
@@ -242,7 +243,7 @@ def _batch_norm_impl(x, running_mean, running_var, weight, bias, training,
         if fused:
             y2 = fbn.fused_bn_norm(x2, mean, var, weight, bias, epsilon, act,
                                    residual=res2)
-            y = from_internal(y2.reshape(xi.shape))
+            y = from_internal(torch.reshape(y2, xi.shape))
         else:
             y = (xi.float() - bshape(mean)) * torch.rsqrt(bshape(var) +
                                                           epsilon)
@@ -258,7 +259,7 @@ def _batch_norm_impl(x, running_mean, running_var, weight, bias, training,
         if fused:
             y2 = fbn.fused_bn_norm(x2, running_mean, running_var, weight,
                                    bias, epsilon, act, residual=res2)
-            return from_internal(y2.reshape(xi.shape))
+            return from_internal(torch.reshape(y2, xi.shape))
         y = (xi - bshape(running_mean)) * torch.rsqrt(
             bshape(running_var) + epsilon)
         if has_wb:

@@ -98,7 +98,7 @@ class MultiHeadAttention(Layer):
 
     def _split_heads(self, x):
         b, n = x.shape[0], x.shape[1]
-        return x.reshape(b, n, self.num_heads, self.head_dim)
+        return torch.reshape(x, (b, n, self.num_heads, self.head_dim))
 
     def _prepare_qkv(self, query, key, value, cache=None):
         q = self._split_heads(self.q_proj(query))
@@ -175,7 +175,7 @@ class MultiHeadAttention(Layer):
                 q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
                 training=self.training)
         b, n = out.shape[0], out.shape[1]
-        out = self.out_proj(out.reshape(b, n, self.embed_dim))
+        out = self.out_proj(torch.reshape(out, (b, n, self.embed_dim)))
         outs = [out]
         if self.need_weights:
             outs.append(None)   # weights unavailable on the fused path

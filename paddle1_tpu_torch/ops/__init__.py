@@ -18,8 +18,8 @@ from .math_ops import *  # noqa: F401,F403
 from .manip_ops import *  # noqa: F401,F403
 from . import patch as _patch  # noqa: F401,E402  (installs Tensor methods)
 
-_LINALG = ["cholesky", "det", "dist", "eig", "eigh", "inv", "inverse",
-           "lstsq", "lu", "matrix_power", "matrix_rank", "multi_dot", "norm",
-           "pinv", "qr", "slogdet", "solve", "svd", "triangular_solve"]
+# the linear algebra names imported above
+_LINALG = [n for n, v in list(globals().items())
+           if getattr(v, "__module__", None) == linalg.__name__]
 __all__ = sorted(set(math_ops.__all__) | set(manip_ops.__all__) |
                  set(_LINALG)) + ["linalg"]

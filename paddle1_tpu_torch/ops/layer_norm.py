@@ -48,9 +48,9 @@ def layer_norm_ref(x: torch.Tensor, weight: torch.Tensor,
     """Plain version: f32 mean, two-pass variance, rstd, then
     ``y * w + b``, cast to ``x.dtype`` at the edge."""
     xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
+    mean = torch.mean(xf, dim=-1, keepdim=True)
     xc = xf - mean
-    var = (xc * xc).mean(dim=-1, keepdim=True)
+    var = torch.mean(xc * xc, dim=-1, keepdim=True)
     y = xc * torch.rsqrt(var + epsilon)
     y = y * weight.float() + bias.float()
     return y.to(x.dtype)
@@ -90,7 +90,7 @@ def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor,
     if x.device.type != "cuda":
         raise InvalidArgumentError(f"fused_layer_norm: unsupported device "
                                    f"{x.device}")
-    x2 = x.reshape(-1, h).contiguous()
+    x2 = torch.reshape(x, (-1, h)).contiguous()
     w = weight.contiguous()
     b = bias.contiguous()
     y = torch.empty_like(x2)
@@ -106,7 +106,7 @@ def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor,
             f"({build.error_string('layer_norm', rc)}) at "
             f"rows={x2.shape[0]} H={h}")
     fused_layer_norm.launches += 1
-    return y.reshape(x.shape)
+    return torch.reshape(y, x.shape)
 
 
 fused_layer_norm.launches = 0  # kernel launches; reset by chip_smoke.py
@@ -120,16 +120,16 @@ def layer_norm_bwd_ref(x: torch.Tensor, weight: torch.Tensor,
     ``dw = sum(dy * xhat)``, ``db = sum(dy)``; each cast to its input's
     dtype. Returns ``(dx, dw, db)``."""
     xf, dyf = x.float(), dy.float()
-    mean = xf.mean(dim=-1, keepdim=True)
+    mean = torch.mean(xf, dim=-1, keepdim=True)
     xc = xf - mean
-    var = (xc * xc).mean(dim=-1, keepdim=True)
+    var = torch.mean(xc * xc, dim=-1, keepdim=True)
     rstd = torch.rsqrt(var + epsilon)
     xhat = xc * rstd
     dyw = dyf * weight.float()
-    dx = rstd * (dyw - dyw.mean(dim=-1, keepdim=True)
-                 - xhat * (dyw * xhat).mean(dim=-1, keepdim=True))
-    dw = (dyf * xhat).sum(dim=0)
-    db = dyf.sum(dim=0)
+    dx = rstd * (dyw - torch.mean(dyw, dim=-1, keepdim=True)
+                 - xhat * torch.mean(dyw * xhat, dim=-1, keepdim=True))
+    dw = torch.sum(dyf * xhat, dim=0)
+    db = torch.sum(dyf, dim=0)
     return dx.to(x.dtype), dw.to(weight.dtype), db.to(weight.dtype)
 
 
@@ -153,5 +153,6 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     the kernel (CUDA) or the plain version (CPU) forward, the plain
     formula backward."""
     h = int(x.shape[-1])
-    y = _LayerNorm.apply(x.reshape(-1, h), weight, bias, float(epsilon))
-    return y.reshape(x.shape)
+    y = _LayerNorm.apply(torch.reshape(x, (-1, h)), weight, bias,
+                         float(epsilon))
+    return torch.reshape(y, x.shape)

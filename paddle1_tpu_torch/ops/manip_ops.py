@@ -181,8 +181,15 @@ def assign(x, output=None):
     or, with ``output``, ``x`` written into ``output``."""
     out = torch.clone(_t(x)) if isinstance(x, torch.Tensor) else to_tensor(x)
     if output is not None:
-        return update_in_place(output, out)
+        same = out.shape == output.shape and out.dtype == output.dtype \
+            and out.device == output.device
+        return update_in_place(output, _value, out,
+                               native=torch.Tensor.copy_ if same else None)
     return out
+
+
+def _value(_, value):
+    return value
 
 
 # -- random creation ----------------------------------------------------------
@@ -281,7 +288,7 @@ def reshape(x, shape, name=None):
 
 
 def reshape_(x, shape, name=None):
-    return update_in_place(x, reshape(x, shape))
+    return update_in_place(x, reshape, shape)
 
 
 def transpose(x, perm, name=None):
@@ -317,7 +324,7 @@ def flatten(x, start_axis=0, stop_axis=-1, name=None):
 
 
 def flatten_(x, start_axis=0, stop_axis=-1, name=None):
-    return update_in_place(x, flatten(x, start_axis, stop_axis))
+    return update_in_place(x, flatten, start_axis, stop_axis)
 
 
 def squeeze(x, axis=None, name=None):
@@ -486,8 +493,19 @@ def scatter(x, index, updates, overwrite=True, name=None):
                            0, i, u)
 
 
+def _scatter_native(x, index, updates, overwrite):
+    """:func:`scatter`'s result written into ``x`` by torch's in-place
+    ops."""
+    i = torch.reshape(_index(index), (-1,))
+    u = _t(updates).to(x.dtype)
+    torch.Tensor.index_copy_(x, 0, i, u if overwrite else torch.zeros_like(u))
+    if not overwrite:
+        torch.Tensor.index_add_(x, 0, i, u)
+
+
 def scatter_(x, index, updates, overwrite=True, name=None):
-    return update_in_place(x, scatter(x, index, updates, overwrite))
+    return update_in_place(x, scatter, index, updates, overwrite,
+                           native=_scatter_native)
 
 
 def scatter_nd_add(x, index, updates, name=None):

@@ -239,8 +239,8 @@ def increment(x, value=1.0, name=None):
     tensor."""
     if not isinstance(x, torch.Tensor):
         return _t(x) + value
-    out = x + torch.tensor(value, device=x.device).to(x.dtype)
-    return update_in_place(x, out)
+    v = torch.tensor(value, device=x.device).to(x.dtype)
+    return update_in_place(x, torch.add, v, native=torch.Tensor.add_)
 
 
 def is_tensor(x) -> bool:
@@ -254,7 +254,9 @@ def broadcast_shape(x_shape, y_shape):
 
 def tanh_(x, name=None):
     """``tanh`` written into ``x`` (``core.tensor.update_in_place``)."""
-    return update_in_place(x, torch.tanh(x))
+    floating = x.is_floating_point() or x.is_complex()
+    return update_in_place(x, torch.tanh,
+                           native=torch.Tensor.tanh_ if floating else None)
 
 
 def addmm(input, x, y, beta=1.0, alpha=1.0, name=None):

@@ -11,20 +11,24 @@ leaf that requires grad, as the reference does.
 Where a name is also a ``torch.Tensor`` method, the facade's method
 follows the collision rule that ``core/tensor.py``'s docstring states:
 Paddle's op in user code, torch's method when torch's own code calls it
-(:func:`in_torch_code`) or when the call only makes sense as torch's.
+(:func:`_torch_caller`) or when the call only makes sense as torch's.
 The rule costs only where such a method is called; the facade's
-``__torch_function__`` is unchanged.
+``__torch_function__`` is unchanged. The in-place methods run torch's
+own in-place op where torch allows the write and the result keeps the
+tensor's shape and dtype (:func:`_fits`), else rebind the tensor to the
+op's output (``core.tensor.update_in_place``).
 """
 
 from __future__ import annotations
 
 import functools
 import inspect
+import sys
 
 import numpy as np
 import torch
 
-from ..core.tensor import Tensor, _in_place_blocked, to_tensor, \
+from ..core.tensor import Tensor, _in_place_blocked, _plain, to_tensor, \
     update_in_place
 from . import manip_ops as P
 from . import math_ops as M
@@ -43,6 +47,35 @@ def in_torch_code() -> bool:
     torch function dispatched through ``Tensor.__torch_function__``
     (``DisableTorchFunctionSubclass``) or under ``DisableTorchFunction``."""
     return _state() != _ENABLED
+
+
+def _torch_caller() -> bool:
+    """Case 1 of the collision rule, for the facade method that calls
+    this: whether torch's own code called that method, under torch's
+    function dispatch (:func:`in_torch_code`) or from a module of the
+    ``torch`` package (the method's caller's frame, two up from here)."""
+    if _state() != _ENABLED:
+        return True
+    mod = sys._getframe(2).f_globals.get("__name__", "")
+    return mod == "torch" or mod.startswith("torch.")
+
+
+def _fits(x, *operands) -> bool:
+    """Whether torch's in-place op on ``x`` gives the Paddle op's result:
+    each operand None, a Python number or a tensor that broadcasts to
+    ``x``'s shape, with ``x``'s dtype the result's."""
+    with _plain():
+        for o in operands:
+            if o is None:
+                continue
+            if isinstance(o, torch.Tensor):
+                if torch.broadcast_shapes(x.shape, o.shape) != x.shape:
+                    return False
+            elif not isinstance(o, (bool, int, float, np.number)):
+                return False
+            if torch.result_type(x, o) != x.dtype:
+                return False
+    return True
 
 
 def _int_first(args, kwargs) -> bool:
@@ -82,7 +115,7 @@ def _dispatch(name, paddle_fn, torch_fn):
 
     @functools.wraps(paddle_fn)
     def method(self, *args, **kwargs):
-        if _state() != _ENABLED or len(args) > n_pos or \
+        if _torch_caller() or len(args) > n_pos or \
                 (kwargs and not names.issuperset(kwargs)) or \
                 (torch_form is not None and torch_form(args, kwargs)):
             return torch_fn(self, *args, **kwargs)
@@ -95,7 +128,7 @@ def _property(name, paddle_fn, torch_prop):
     """``real``/``imag``: torch's property under torch's own code, else
     Paddle's method (``x.imag()``)."""
     def get(self):
-        if _state() != _ENABLED:
+        if _torch_caller():
             return torch_prop.__get__(self)
         return functools.partial(paddle_fn, self)
     return property(get, doc=f"Paddle's ``{name}()`` (a method); torch's "
@@ -121,18 +154,32 @@ def _install_table() -> None:
 
 
 def _in_place(name, paddle_fn, torch_fn):
-    """Paddle's in-place method ``name``: ``paddle_fn``'s result written
-    into the tensor (:func:`update_in_place`); torch's method under the
-    collision rule."""
+    """Paddle's in-place method ``name``: the tensor takes
+    ``paddle_fn(self, o)``, through ``torch_fn`` where that fits
+    (:func:`update_in_place`); torch's method under the collision rule."""
     def method(self, o, **torch_kw):
-        if torch_kw or _state() != _ENABLED:
+        if torch_kw or _torch_caller():
             return torch_fn(self, o, **torch_kw)
-        return update_in_place(self, paddle_fn(self, o))
+        return update_in_place(self, paddle_fn, o,
+                               native=torch_fn if _fits(self, o) else None)
     method.__name__ = name
     method.__qualname__ = f"Tensor.{name}"
     method.__doc__ = f"Paddle's in-place ``{name}``: ``self`` takes " \
         f"``{paddle_fn.__name__}(self, o)``."
     return method
+
+
+def _scale_native(x, scale, bias, bias_after_scale):
+    """``M.scale``'s result written into ``x`` by torch's in-place ops."""
+    if bias_after_scale:
+        torch.Tensor.add_(torch.Tensor.mul_(x, scale), bias)
+    else:
+        torch.Tensor.mul_(torch.Tensor.add_(x, bias), scale)
+
+
+def _clip_native(x, lo, hi):
+    if lo is not None or hi is not None:
+        torch.Tensor.clamp_(x, lo, hi)
 
 
 def _install_explicit() -> None:
@@ -147,7 +194,7 @@ def _install_explicit() -> None:
     def reshape(self, *shape, **torch_kw):
         """Paddle's ``reshape(shape)`` (a list, a tuple or a 1-D tensor),
         or the shape's ints given one by one."""
-        if torch_kw or _state() != _ENABLED:
+        if torch_kw or _torch_caller():
             return torch.Tensor.reshape(self, *shape, **torch_kw)
         if len(shape) == 1 and not isinstance(shape[0], (int, np.integer)):
             shape = shape[0]
@@ -159,7 +206,7 @@ def _install_explicit() -> None:
         on this tensor's device; torch's int under torch's own code (the
         collision rule, case 1). The port's own modules call
         ``nelement()`` for the int."""
-        if _state() != _ENABLED:
+        if _torch_caller():
             return torch.Tensor.numel(self)
         return P.numel(self)
     T.numel = numel
@@ -175,25 +222,32 @@ def _install_explicit() -> None:
 
     def scale_(self, scale_v=1.0, bias=0.0, bias_after_scale=True):
         return update_in_place(
-            self, M.scale(self, scale_v, bias, bias_after_scale))
+            self, M.scale, scale_v, bias, bias_after_scale,
+            native=_scale_native if _fits(self, scale_v, bias) else None)
     T.scale_ = scale_
 
     def clip_(self, min=None, max=None, **torch_kw):
-        if torch_kw or _state() != _ENABLED:
+        if torch_kw or _torch_caller():
             return torch.Tensor.clip_(self, min, max, **torch_kw)
-        return update_in_place(self, M.clip(self, min, max))
+        lo = min.item() if isinstance(min, torch.Tensor) else min
+        hi = max.item() if isinstance(max, torch.Tensor) else max
+        return update_in_place(self, M.clip, lo, hi,
+                               native=_clip_native if _fits(self, lo, hi)
+                               else None)
     T.clip_ = clip_
 
     def zero_(self):
-        if _state() != _ENABLED or not _in_place_blocked(self):
+        if _torch_caller():
             return torch.Tensor.zero_(self)
-        return update_in_place(self, P.zeros_like(self))
+        return update_in_place(self, P.zeros_like,
+                               native=torch.Tensor.zero_)
     T.zero_ = zero_
 
     def fill_(self, value):
-        if _state() != _ENABLED or not _in_place_blocked(self):
+        if _torch_caller():
             return torch.Tensor.fill_(self, value)
-        return update_in_place(self, P.full_like(self, value))
+        return update_in_place(self, P.full_like, value,
+                               native=torch.Tensor.fill_)
     T.fill_ = fill_
 
     def set_value(self, value):
@@ -218,7 +272,7 @@ def _install_explicit() -> None:
         """torch's item assignment; into a leaf that requires grad (which
         torch refuses) the updated copy replaces the tensor, gradients
         flowing through the assignment, as the reference rebinds."""
-        if _state() != _ENABLED or not _in_place_blocked(self):
+        if _torch_caller() or not _in_place_blocked(self):
             return torch.Tensor.__setitem__(self, idx, value)
         out = torch.clone(self)
         torch.Tensor.__setitem__(out, idx, value)

@@ -136,7 +136,9 @@ def _param_attrs(p):
             getattr(p.regularizer, "coeff", None), p.need_clip)
 
 
-def test_linear_param_attr_matches_the_reference():
+def test_linear_param_attr_matches_the_reference(fresh_names):
+    # both packages name the bias from their layer counters: from zero, so
+    # the names do not depend on the layers earlier tests made
     jw, tw = _attr_pair(name="w", init=0.5, learning_rate=0.5,
                         trainable=False, need_clip=False, l2=0.1)
     jb, tb = _attr_pair(init=-0.25, learning_rate=2.0)

@@ -136,6 +136,87 @@ def test_in_place_method_on_a_leaf_takes_the_gradient():
     assert_same(jg, tg)
 
 
+# in-place methods on a non-leaf activation (``h = x @ W``, which
+# requires grad): torch's own in-place op where it fits, else a rebinding;
+# the gradients reach ``x``, ``W`` and the operand ``w``
+ACTIVATION_IN_PLACE = [
+    ("clip_", lambda m, h, w: h.clip_(-0.1, 0.2)),
+    ("multiply_", lambda m, h, w: h.multiply_(w)),
+    ("multiply_-broadcast", lambda m, h, w: h.multiply_(
+        m.stack([w, w * 2.0]))),
+    ("add_", lambda m, h, w: h.add_(w)),
+    ("subtract_", lambda m, h, w: h.subtract_(w)),
+    ("scale_", lambda m, h, w: h.scale_(3.0, 1.0)),
+    ("scale_-bias-first", lambda m, h, w: h.scale_(2.0, 0.5, False)),
+    ("tanh_", lambda m, h, w: h.tanh_()),
+    ("zero_", lambda m, h, w: h.zero_()),
+    ("fill_", lambda m, h, w: h.fill_(3.0)),
+    ("scatter_", lambda m, h, w: h.scatter_(
+        m.to_tensor(np.array([2, 0], np.int32)), w[:2])),
+    ("reshape_", lambda m, h, w: h.reshape_([4, 3])),
+    ("flatten_", lambda m, h, w: h.flatten_()),
+]
+
+
+def _in_place_grads(mod, call, leaf):
+    x = mod.to_tensor(X, stop_gradient=False)
+    W = mod.to_tensor(R((4, 4), 14), stop_gradient=False)
+    w = mod.to_tensor(Y, stop_gradient=False)
+    h = x if leaf else mod.matmul(x, W)
+    call(mod, h, w)
+    (h * mod.to_tensor(R(tuple(h.shape), 15))).sum().backward()
+    return h, x.grad, W.grad, w.grad
+
+
+def _same_grads(want, got, none_is_zero=False):
+    for what, j, t in zip(("value", "x.grad", "W.grad", "w.grad"), want,
+                          got):
+        if j is None and t is not None and none_is_zero:
+            np.testing.assert_array_equal(t.numpy(), 0.0, err_msg=what)
+        elif j is None:
+            assert t is None, what
+        else:
+            assert_same(j, t, what=what)
+
+
+@pytest.mark.parametrize("name,call", ACTIVATION_IN_PLACE,
+                         ids=[c[0] for c in ACTIVATION_IN_PLACE])
+def test_in_place_method_on_an_activation_takes_the_gradient(name, call):
+    # the one difference: the reference's zero_/fill_ take a constant, so
+    # no gradient reaches x and W (None); torch's zero_/fill_, which the
+    # port runs on an activation, pass a zero gradient back
+    _same_grads(_in_place_grads(jp, call, leaf=False),
+                _in_place_grads(tp, call, leaf=False),
+                none_is_zero=name in ("zero_", "fill_"))
+
+
+LEAF_IN_PLACE = [c for c in ACTIVATION_IN_PLACE if c[0] in (
+    "clip_", "multiply_", "add_", "subtract_", "scale_",
+    "scale_-bias-first")]
+
+
+@pytest.mark.parametrize("name,call", LEAF_IN_PLACE,
+                         ids=[c[0] for c in LEAF_IN_PLACE])
+def test_in_place_method_on_a_leaf_takes_both_gradients(name, call):
+    # torch refuses the write into a leaf that requires grad: the leaf is
+    # rebound, and the op reads a copy, so ``w``'s gradient sees the
+    # leaf's old value
+    _same_grads(_in_place_grads(jp, call, leaf=True),
+                _in_place_grads(tp, call, leaf=True))
+
+
+def test_rebinding_a_tensor_an_earlier_graph_saved_raises_at_backward():
+    # the reference's earlier graph keeps the old value; the port's reads
+    # the tensor itself, so its backward raises rather than use the new
+    # value (as after torch's own in-place ops)
+    x = tp.to_tensor(X, stop_gradient=False)
+    w = tp.to_tensor(Y, stop_gradient=False)
+    y = x * w
+    x.scale_(2.0)
+    with pytest.raises(RuntimeError, match="inplace"):
+        y.sum().backward()
+
+
 def test_setitem_into_a_leaf_that_requires_grad_matches_the_reference():
     w = R((3, 4), 13)
     out = {}
@@ -263,6 +344,28 @@ def test_plain_tensors_and_parameters_keep_torchs_methods():
         p = tp.nn.Linear(3, 4, device="cpu").weight
     assert not isinstance(p, tp.Tensor) and len(p.split(2, 0)) == 2
     assert isinstance(p.numel(), int)
+
+
+def test_torch_utilities_on_paddle_parameters_keep_torchs_meaning():
+    # torch's Python code calls the methods directly, outside torch's
+    # function dispatch: ``parameters_to_vector`` calls ``param.view(-1)``,
+    # ``vector_to_parameters`` ``param.numel()``
+    from torch.nn.utils import parameters_to_vector, vector_to_parameters
+    with tp.utils.unique_name.guard():
+        model = tp.vision.models.LeNet()
+    params = list(model.parameters())
+    assert all(isinstance(p, tp.Parameter) for p in params)
+    vec = parameters_to_vector(params)
+    want = torch.cat([_plain(p).detach().reshape(-1) for p in params])
+    assert torch.equal(_plain(vec).detach(), want)
+    with torch.no_grad():
+        vector_to_parameters(vec * 2.0, params)
+    assert torch.equal(_plain(parameters_to_vector(params)).detach(),
+                       want * 2.0)
+    # user code is Paddle's, whatever its idiom: numel() is a 0-d tensor
+    n = sum(p.numel() for p in params)
+    assert isinstance(n, tp.Tensor) and n.dim() == 0 and \
+        int(n) == want.numel()
 
 
 HELPERS = [

@@ -23,16 +23,19 @@ casts and the gradients' copies (copy kernels);
 ``benches.py:52-88``: ``LeNet()`` + ``Adam(1e-3)``, f32, batch ``--batch``
 (default 64) x 1 x 28 x 28, two seeded batches staged with ``to_tensor``
 as Paddle tensors, forward, cross entropy, ``backward()``, ``step()``,
-``clear_grad()``), and also counts the calls that go through the Paddle
+``clear_grad()``; the smoke's ``lenet_batches`` and ``lenet_step_fn``),
+and also counts the calls that go through the Paddle
 facade's ``Tensor.__torch_function__`` (each re-wraps its results) in
 one step. The facade's host cost in time is ``chip_smoke.py`` phase 15's
 (the same loop on plain torch parameters and inputs, in turns);
 ``--model bert_finetune`` ``chip_smoke.py`` phase 21's eager BERT-base
-fine-tuning step (``BertForSequenceClassification`` at full width and
-depth, f32 with TF32 off, AdamW, batch ``--batch`` (default 32) x seq
-``--seq`` (default 128) with ragged padding, two seeded batches staged
-as Paddle tensors; ``loss.backward(); opt.step(); opt.clear_grad()``),
-also counting the facade's calls. ``--root DIR`` imports the package from
+fine-tuning step, built by the smoke's own helpers (``ft_setup``,
+``ft_step_fn``: ``BertForSequenceClassification`` at full width and
+depth warm-started from a seeded pretraining model, f32 with TF32 off,
+AdamW with the warm-up schedule, batch ``--batch`` (default 32) x seq
+128 with ragged padding, two seeded batches staged as Paddle tensors;
+``loss.backward(); opt.step(); sched.step(); opt.clear_grad()``), also
+counting the facade's calls. ``--root DIR`` imports the package from
 another tree (say the parent, unpacked under ``_archive/``), so two trees
 run the same tool.
 It runs ``--warmup`` steps, then:
@@ -228,67 +231,37 @@ def _resnet50(args, dev):
     return step, {"img": 224, "dp_world_size": 1 if args.dp else None}
 
 
+def _smoke():
+    """This tree's ``chip_smoke.py`` as a module (its helpers build the
+    eager steps, so this tool times the smoke's own step), loaded by path:
+    ``--root`` may put another tree's first on ``sys.path``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _lenet(args, dev):
     import paddle1_tpu_torch as paddle
     from paddle1_tpu_torch.vision.models import LeNet
-    F = paddle.nn.functional
-    paddle.seed(args.seed)
+    smoke = _smoke()
+    paddle.seed(smoke.SEED)
     model = LeNet()
     opt = paddle.optimizer.Adam(learning_rate=1e-3,
                                 parameters=model.parameters())
-    rng = np.random.default_rng(0)
-    staged = [(paddle.to_tensor(rng.standard_normal(
-        (args.batch, 1, 28, 28)).astype(np.float32)),
-        paddle.to_tensor(rng.integers(0, 10, (args.batch,))))
-        for _ in range(2)]
-    turn = [0]
-
-    def step():
-        turn[0] += 1
-        x, y = staged[turn[0] % 2]
-        loss = F.cross_entropy(model(x), y)
-        loss.backward()
-        opt.step()
-        opt.clear_grad()
-        return loss
+    step = smoke.lenet_step_fn(paddle, model, opt, smoke.lenet_batches(
+        paddle, batch=args.batch))
     return step, {"img": 28, "amp": None}
 
 
 def _bert_finetune(args, dev):
     import paddle1_tpu_torch as paddle
-    from paddle1_tpu_torch.text.models import (BertForSequenceClassification,
-                                               BertModel)
-    F = paddle.nn.functional
-    paddle.seed(args.seed)
-    clf = BertForSequenceClassification(
-        BertModel(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.0,
-                  generator=torch.Generator().manual_seed(args.seed)),
-        num_classes=2, dropout=0.1)
-    decay = [p.name for n, p in clf.named_parameters()
-             if not any(nd in n for nd in ["bias", "norm"])]
-    opt = paddle.optimizer.AdamW(
-        learning_rate=2e-5, parameters=clf.parameters(), weight_decay=0.01,
-        apply_decay_param_fun=lambda x: x in decay)
-    rng = np.random.default_rng(0)
-    staged = []
-    for _ in range(2):
-        ids = rng.integers(1, 30522, (args.batch, args.seq))
-        lens = rng.integers(args.seq // 4, args.seq + 1, args.batch)
-        ids[np.arange(args.seq)[None, :] >= lens[:, None]] = 0
-        staged.append((paddle.to_tensor(ids.astype(np.int64)),
-                       paddle.to_tensor((ids[:, 0] < 15261).astype(
-                           np.int64))))
-    turn = [0]
-
-    def step():
-        turn[0] += 1
-        x, y = staged[turn[0] % 2]
-        loss = F.cross_entropy(clf(x), y)
-        loss.backward()
-        opt.step()
-        opt.clear_grad()
-        return loss
-    return step, {"seq": args.seq, "amp": None}
+    smoke = _smoke()
+    clf, opt, sched, batches, _ = smoke.ft_setup(paddle, args.batch)
+    step = smoke.ft_step_fn(paddle, clf, opt, sched, batches)
+    return step, {"seq": smoke.FT_SEQ, "amp": None}
 
 
 def _facade_calls(step):
@@ -366,7 +339,7 @@ def main() -> int:
                     help="default: 128 (bert), 32 (resnet50), 64 (lenet), "
                          "4 (ernie)")
     ap.add_argument("--seq", type=int, default=None,
-                    help="default: 128 (bert, bert_finetune), 512 (ernie)")
+                    help="default: 128 (bert), 512 (ernie)")
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--profile-steps", type=int, default=3)
