@@ -1,8 +1,10 @@
 """Device resolution (the port's counterpart of ``core/place.py``).
 
-Every entry point of the port runs on CUDA unless the caller passes
-``device="cpu"`` explicitly, as the CPU parity tests do. A missing card
-is a typed error, never a quiet fall back to the CPU.
+Every entry point of the port runs on the current place
+(``core/place.py``), which is the card unless the caller asks for the CPU:
+``device="cpu"`` explicitly, as the CPU parity tests do, or
+``set_device("cpu")`` / ``device_guard("cpu")`` before the call. A missing
+card is a typed error, never a quiet fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -15,12 +17,16 @@ __all__ = ["resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` → ``cuda``; ``"cpu"`` (or a CPU ``torch.device``) → CPU;
-    any CUDA spelling → that CUDA device. Raises
+    """``None`` → the current place's device (``get_device()``, the card
+    ``CUDAPlace(0)`` until ``set_device``); ``"cpu"`` (or a CPU
+    ``torch.device``) → CPU; any CUDA spelling → that CUDA device. Raises
     :class:`DeviceUnavailableError` when CUDA is asked for (or defaulted
     to) and this process sees no card."""
+    if device is None:
+        from .place import get_device
+        return get_device().torch_device()
     try:
-        dev = torch.device("cuda" if device is None else device)
+        dev = torch.device(device)
     except RuntimeError as e:
         raise InvalidArgumentError(
             f"device must be 'cuda' or 'cpu', got {device!r}") from e

@@ -2,11 +2,14 @@
 
 ``CPUPlace`` and ``CUDAPlace`` (in place of ``TPUPlace``) name a
 ``torch.device``; ``set_device``/``get_device``/``device_guard`` keep a
-thread's current place, where ``to_tensor`` puts tensors that name no
-place. The current place defaults to ``CUDAPlace(0)``: with no card that
-is a typed error when a tensor is made there (``core/device.py``), never
-a quiet move to the CPU — call ``set_device("cpu")`` or pass
-``place=CPUPlace()`` to run on the CPU.
+thread's current place, where ``to_tensor``, ``Tensor(...)``, the creation
+ops and every layer made without a ``device`` put their tensors. The
+current place defaults to ``CUDAPlace(0)``: with no card that is a typed
+error when a tensor is made there (``core/device.py``), never a quiet move
+to the CPU as the reference's ``get_device`` falls back (a departure by
+design: the port's entry points run on the card unless the caller asks
+for the CPU) — call ``set_device("cpu")`` or pass ``place=CPUPlace()`` to
+run on the CPU.
 """
 
 from __future__ import annotations

@@ -86,8 +86,12 @@ Paddle's semantics on top of torch's:
 :class:`ParamBase` is the parameter every port layer creates
 (``nn.Layer.create_parameter``): a ``torch.nn.Parameter`` with Paddle's
 attributes (``name``, ``trainable``/``stop_gradient``, ``optimize_attr``,
-``regularizer``, ``need_clip``, ``persistable``) and no facade, so ops on
-it stay torch's own and pay no re-wrapping. :class:`Parameter` is a
+``regularizer``, ``need_clip``, ``persistable``) and the facade's methods
+under the same collision rule (``ops/patch.py``: ``w.split(3, 1)``,
+``w.numel()``, ``set_value``, ``numpy()``, ``shape``, ``place``; their
+new tensors are facades), but no facade ``__torch_function__``, so ops
+and operators on it stay torch's own, return plain tensors and pay no
+re-wrapping. :class:`Parameter` is a
 :class:`Tensor` and a :class:`ParamBase`, so modules register it like any
 parameter; :func:`as_paddle_parameters` turns a module's parameters into
 it in place, their attributes kept.
@@ -272,6 +276,34 @@ class _Numel(int):
 
 class Tensor(torch.Tensor):
     """Eager tensor with Paddle's autograd semantics (see the module)."""
+
+    def __new__(cls, data, dtype=None, place=None,
+                stop_gradient: bool = True, name=None):
+        """Paddle's constructor (``paddle1_tpu/core/tensor.py:76``): a new
+        leaf holding a copy of ``data`` with :func:`to_tensor`'s dtypes
+        (``Tensor(3)`` a 0-d int64, ``Tensor(2.5)`` a 0-d float, numpy
+        dtypes kept) on ``place`` (None: the current place). torch's own
+        ways to make a subclass (``_make_subclass``, ``as_subclass``,
+        unpickling) do not come here."""
+        dev = (get_device() if place is None else _parse(place)).\
+            torch_device()
+        t = torch.Tensor._make_subclass(cls, _as_torch(data, dtype).to(dev),
+                                        False)
+        if not stop_gradient:
+            t.stop_gradient = False
+        if name is not None:
+            t.name = name
+        return t
+
+    @property
+    def name(self) -> Optional[str]:
+        """Paddle's tensor name (None unless given; torch's read-only
+        ``Tensor.name`` is shadowed here only)."""
+        return self.__dict__.get("_param_name")
+
+    @name.setter
+    def name(self, value) -> None:
+        self._param_name = value
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
@@ -502,7 +534,8 @@ class ParamBase(torch.nn.Parameter):
     until a layer registers it as ``f"{full_name}.{attr}"``),
     ``trainable`` / ``stop_gradient`` (``requires_grad``),
     ``optimize_attr`` (``{"learning_rate": scale}``), ``regularizer``,
-    ``need_clip`` and ``persistable``. Ops on it are torch's own: it keeps
+    ``need_clip`` and ``persistable``; ``ops/patch.py`` gives it the
+    facade's methods. Ops on it are torch's own: it keeps
     ``torch.nn.Parameter``'s disabled ``__torch_function__``. A deep copy
     keeps the name, as the JAX package's does."""
 

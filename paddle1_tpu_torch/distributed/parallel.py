@@ -29,6 +29,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..core.errors import (InvalidArgumentError, PreconditionNotMetError)
 from ..core.flags import flag
+from ..core.place import set_device
 from . import collective, env
 from .collective import ReduceOp
 
@@ -40,11 +41,14 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def _rank_device(device) -> torch.device:
-    """The rank's device: ``device`` when given, else the card of this
-    rank's local index (raising without a card)."""
+    """The rank's device: ``device`` when given; else the CPU when the
+    current place is the CPU (``set_device("cpu")``); else the card of
+    this rank's local index (raising without a card)."""
     if device is not None:
         return resolve_device(device)
     dev = resolve_device(None)
+    if dev.type == "cpu":
+        return dev
     local = env.get_local_rank()
     n = torch.cuda.device_count()
     if local >= n:
@@ -60,9 +64,12 @@ def init_parallel_env(strategy=None, backend: Optional[str] = None,
     from the launcher's environment, ``env.get_rank()`` /
     ``env.get_world_size()``) and return a :class:`ParallelEnv`.
 
-    * ``device``: this rank's device; default the card of its local rank
-      (``torch.cuda.set_device`` is called on it). ``"cpu"`` runs the rank
-      on the CPU.
+    * ``device``: this rank's device; default the card of its local rank,
+      or the CPU when the current place is the CPU. ``"cpu"`` runs the
+      rank on the CPU. The rank's device becomes the current place
+      (``set_device``, which also calls ``torch.cuda.set_device`` on a
+      card), so layers and tensors made after this call without a device
+      land there, as in the reference.
     * ``backend``: default ``"nccl"`` on a card, ``"gloo"`` on the CPU;
       a name given here is used as it is (gloo also reduces CUDA tensors,
       which lets two ranks share one card).
@@ -77,8 +84,7 @@ def init_parallel_env(strategy=None, backend: Optional[str] = None,
     if dist.is_initialized():
         return ParallelEnv()
     dev = _rank_device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
+    set_device(dev)
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
     rank, nranks = env.get_rank(), env.get_world_size()

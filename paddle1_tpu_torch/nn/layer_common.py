@@ -80,7 +80,7 @@ class Embedding(Layer):
             device=resolve_device(device), generator=generator)
         if self._padding_idx is not None:
             with torch.no_grad():
-                self.weight[self._padding_idx] = 0.0
+                torch.Tensor.__setitem__(self.weight, self._padding_idx, 0.0)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         out = torch.nn.functional.embedding(ids, self.weight)

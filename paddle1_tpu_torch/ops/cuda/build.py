@@ -12,7 +12,11 @@ library. Sources are compiled in parallel, one
 directory serializes builds across processes (the ranks of a job start
 together), so a source is compiled once and the others load it.
 
-A failed build raises :class:`KernelBuildError` carrying nvcc's stderr.
+A failed build raises :class:`KernelBuildError` carrying nvcc's stderr,
+and keeps nvcc's whole output in the build directory
+(``lib<name>-<hash>.failed-<pid>.log``, one file a failed build, never
+overwritten). :func:`load_file` builds a source from outside this
+directory (another tree's kernel, for a benchmark) the same way.
 Nothing here runs at import time: this module imports neither CUDA nor
 a compiler until :func:`load` or :func:`build_all` is called.
 """
@@ -32,8 +36,8 @@ from typing import Dict, List, Optional
 
 from ...core.errors import KernelBuildError
 
-__all__ = ["SOURCES", "build_all", "load", "build_dir", "build_log",
-           "function", "error_string"]
+__all__ = ["SOURCES", "build_all", "load", "load_file", "build_dir",
+           "build_log", "function", "error_string"]
 
 _SRC_DIR = Path(__file__).resolve().parent
 SOURCES = ("layer_norm", "paged_attention", "flash_attention",
@@ -62,8 +66,15 @@ def _nvcc() -> str:
         "PATH) — the port's kernels are built from source at first use")
 
 
+_extra: Dict[str, Path] = {}   # sources outside this directory, by name
+
+
+def _source(name: str) -> Path:
+    return _extra.get(name, _SRC_DIR / f"{name}.cu")
+
+
 def _target(name: str) -> Path:
-    src = (_SRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+    src = _source(name).read_bytes() + b"".join(
         h.read_bytes() for h in sorted(_SRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"lib{name}-{digest[:16]}.so"
@@ -100,7 +111,8 @@ def _compile_locked(todo: List[str], out_dir: Path) -> None:
     procs = []
     for name in todo:
         tmp = out_dir / f".{_target(name).name}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(_SRC_DIR), "-o", str(tmp),
+               str(_source(name))]
         procs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failures = []
@@ -108,8 +120,10 @@ def _compile_locked(todo: List[str], out_dir: Path) -> None:
         out, err = proc.communicate()
         _logs[name] = out + err
         if proc.returncode != 0:
-            failures.append(f"--- {name}.cu (nvcc exit {proc.returncode}) ---"
-                            f"\n{err.strip()}")
+            kept = _target(name).with_suffix(f".failed-{os.getpid()}.log")
+            kept.write_text(" ".join(cmd) + "\n" + _logs[name])
+            failures.append(f"--- {name}.cu (nvcc exit {proc.returncode}; "
+                            f"its output kept in {kept}) ---\n{err.strip()}")
             tmp.unlink(missing_ok=True)
             continue
         _log_path(name).write_text(_logs[name])
@@ -159,10 +173,31 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def load_file(path, name: str) -> ctypes.CDLL:
+    """The loaded library built from the CUDA source ``path`` (outside
+    this directory; it may include this directory's headers), named
+    ``name`` in the build directory; built on first use as the package's
+    own sources are."""
+    path = Path(path).resolve()
+    with _lock:
+        if name in SOURCES or _extra.get(name, path) != path:
+            raise KernelBuildError(f"load_file: name {name!r} is taken")
+        _extra[name] = path
+        lib = _libs.get(name)
+        if lib is None:
+            _compile([name])
+            lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+    return lib
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    return load_file(_extra[name], name) if name in _extra else load(name)
+
+
 def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """``symbol`` of kernel source ``name`` with its ``argtypes`` set and
     an ``int`` (cudaError_t) result."""
-    fn = getattr(load(name), symbol)
+    fn = getattr(_lib(name), symbol)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
@@ -171,6 +206,6 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
 def error_string(name: str, code: int) -> str:
     """CUDA's text for error ``code``, from source ``name``'s
     ``p1t_<name>_error_string``."""
-    fn = getattr(load(name), f"p1t_{name}_error_string")
+    fn = getattr(_lib(name), f"p1t_{name}_error_string")
     fn.restype = ctypes.c_char_p
     return fn(int(code)).decode()

@@ -19,10 +19,15 @@ table. A scale of 1 gives the update without it bit for bit.
 * :func:`fused_adam_ref` — the plain PyTorch version, one tensor.
 * :func:`fused_adam_` — updates a whole list of tensors IN PLACE: one
   launch of ``ops/cuda/fused_adam.cu`` for CUDA tensors (a device table
-  of pointers and sizes, cached while the pointers stay the same), the
-  plain version per tensor for CPU tensors. Unlike the JAX package, which
-  skips tensors under 8192 elements (a TPU tiling detail), every tensor
-  goes through the kernel on the card.
+  of pointers, sizes and partitions, cached while the pointers stay the
+  same), the plain version per tensor for CPU tensors. Unlike the JAX
+  package, which skips tensors under 8192 elements (a TPU tiling detail),
+  every tensor goes through the kernel on the card.
+* :func:`plan_rows`, :func:`chunk_ranges` — the kernel's partition: each
+  tensor's scalar head, 16-byte vector body and scalar tail, and the
+  element ranges of each chunk; :func:`fused_adam_emulation` walks it as
+  the kernel's persistent grid does, on CPU tensors (the counterpart of
+  Pallas' interpret mode for this kernel).
 """
 
 from __future__ import annotations
@@ -34,9 +39,15 @@ import torch
 
 from ..core.errors import InvalidArgumentError, KernelLaunchError
 
-__all__ = ["fused_adam_", "fused_adam_ref", "CHUNK"]
+__all__ = ["fused_adam_", "fused_adam_ref", "fused_adam_emulation",
+           "plan_rows", "chunk_ranges", "CHUNK", "CTAS_PER_SM"]
 
-CHUNK = 16384  # elements per CTA
+# the launch's settings (ops/cuda/fused_adam.cu's header; chosen by
+# tools/torch_adam_bench.py --sweep, PERF.md): elements a chunk (a multiple
+# of 8) and persistent CTAs an SM
+CHUNK = 8192
+CTAS_PER_SM = 4
+VEC_BYTES = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 _tables: dict = {}  # pointer signature -> (table, coefficients, n_chunks)
@@ -57,36 +68,125 @@ def fused_adam_ref(p, g, m1, m2, lr, bc1, bc2, decay, beta1: float,
     return pf.to(p.dtype), a, b
 
 
+ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
+                                      ctypes.c_longlong] +
+            [ctypes.c_float] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
 def _kernel():
     global _fn
     if _fn is None:
         from .cuda import build
-        _fn = build.function(
-            "fused_adam", "p1t_fused_adam",
-            [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
-                                     ctypes.c_longlong] +
-            [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p])
+        _fn = build.function("fused_adam", "p1t_fused_adam", ARGTYPES)
     return _fn
+
+
+def plan_rows(ptrs, item: int, chunk: int = CHUNK):
+    """The kernel's table rows ``[p, g, m1, m2, n, first chunk, head,
+    body]`` for ``ptrs``, a list of ``(p, g, m1, m2, n)`` (addresses and
+    element count) with p and g of ``item`` bytes an element and the
+    moments f32. ``head`` is the count of leading elements before all four
+    streams are 16-byte aligned together (0 and no body when they cannot
+    be), ``body`` the whole vectors of ``16 / item`` elements after it;
+    chunk k of a tensor starts at ``head + k * chunk`` (chunk 0 at 0)."""
+    vec = VEC_BYTES // item
+    rows, first = [], 0
+    for pp, gp, ap, bp, n in ptrs:
+        head = (-pp % VEC_BYTES) // item
+        if all((x + head * size) % VEC_BYTES == 0 for x, size in
+               ((pp, item), (gp, item), (ap, 4), (bp, 4))):
+            head = min(head, n)
+            body = (n - head) // vec * vec
+        else:
+            head = body = 0
+        rows.append([pp, gp, ap, bp, n, first, head, body])
+        first += max(1, -(-(n - head) // chunk))
+    return rows, first
+
+
+def chunk_ranges(row, k: int, last: bool, chunk: int = CHUNK):
+    """Chunk ``k`` of ``row``'s tensor as the kernel cuts it: ``(cs, vs,
+    ve, ce)``, the scalar elements ``[cs, vs)`` and ``[ve, ce)`` and the
+    vector body ``[vs, ve)``; ``last``: whether it is the tensor's last
+    chunk (which runs to its end)."""
+    n, head, body = row[4], row[6], row[7]
+    cs = 0 if k == 0 else head + k * chunk
+    ce = n if last else head + (k + 1) * chunk
+    vs = max(cs, head)
+    ve = max(vs, min(ce, head + body))
+    return cs, vs, ve, ce
 
 
 def _table(params, grads, m1s, m2s, decays, scales, device):
     key = (device, tuple((p.data_ptr(), g.data_ptr(), a.data_ptr(),
                           b.data_ptr(), p.nelement())
                          for p, g, a, b in zip(params, grads, m1s, m2s)),
-           tuple((float(d), float(s)) for d, s in zip(decays, scales)))
+           tuple((float(d), float(s)) for d, s in zip(decays, scales)),
+           params[0].element_size(), CHUNK)
     hit = _tables.get(key)
     if hit is None:
-        rows, first = [], 0
-        for (pp, gp, ap, bp, n) in key[1]:
-            rows.append([pp, gp, ap, bp, n, first])
-            first += -(-n // CHUNK)
+        rows, n_chunks = plan_rows(key[1], key[3], CHUNK)
         table = torch.tensor(rows, dtype=torch.int64).to(device)
         dec = torch.tensor(key[2], dtype=torch.float32).reshape(
             -1, 2).to(device)
         if len(_tables) >= 8:
             _tables.clear()
-        hit = _tables[key] = (table, dec, first)
+        hit = _tables[key] = (table, dec, n_chunks)
     return hit
+
+
+def fused_adam_emulation(params, grads, m1s, m2s, scalars, decays,
+                         beta1: float, beta2: float, eps: float,
+                         scales: Optional[Sequence[float]] = None,
+                         chunk: int = CHUNK, grid: int = 132 * CTAS_PER_SM):
+    """The kernel's partition on CPU tensors, IN PLACE: the table of
+    :func:`plan_rows` from the tensors' own addresses, walked as the
+    persistent grid of ``grid`` CTAs walks it (CTA b takes chunks b, b +
+    grid, ..., finding each chunk's tensor by stepping forward), each
+    chunk's scalar ranges an element at a time and its body a 16-byte
+    vector at a time, each piece through :func:`fused_adam_ref`. Returns
+    ``(hits, vectors)``: per tensor, how often each element was updated
+    (int32, the tensor's shape), and every vector's ``(tensor, start
+    element, byte addresses of p, g, m1, m2)``."""
+    n = len(params)
+    scales = [1.0] * n if scales is None else scales
+    item = params[0].element_size()
+    vec = VEC_BYTES // item
+    rows, n_chunks = plan_rows(
+        [(p.data_ptr(), g.data_ptr(), a.data_ptr(), b.data_ptr(),
+          p.nelement()) for p, g, a, b in zip(params, grads, m1s, m2s)],
+        item, chunk)
+    flat = [[t.view(-1) for t in ts] for ts in zip(params, grads, m1s, m2s)]
+    hits = [torch.zeros(p.nelement(), dtype=torch.int32) for p in params]
+    vectors = []
+    lr, bc1, bc2 = (scalars[i] for i in range(3))
+
+    def run(t, lo, hi):
+        p, g, a, b = (x[lo:hi] for x in flat[t])
+        new_p, new_a, new_b = fused_adam_ref(p, g, a, b, lr, bc1, bc2,
+                                             float(decays[t]), beta1, beta2,
+                                             eps, float(scales[t]))
+        p.copy_(new_p)
+        a.copy_(new_a)
+        b.copy_(new_b)
+        hits[t][lo:hi] += 1
+
+    firsts = [r[5] for r in rows]
+    for blk in range(min(grid, n_chunks)):
+        t = 0
+        for k in range(blk, n_chunks, grid):
+            while t + 1 < n and firsts[t + 1] <= k:
+                t += 1
+            last = k + 1 == (firsts[t + 1] if t + 1 < n else n_chunks)
+            cs, vs, ve, ce = chunk_ranges(rows[t], k - firsts[t], last, chunk)
+            for i in list(range(cs, vs)) + list(range(ve, ce)):
+                run(t, i, i + 1)
+            for j in range(vs, ve, vec):
+                run(t, j, j + vec)
+                vectors.append((t, j, rows[t][0] + j * item,
+                                rows[t][1] + j * item, rows[t][2] + 4 * j,
+                                rows[t][3] + 4 * j))
+    return [h.view(p.shape) for h, p in zip(hits, params)], vectors
 
 
 def fused_adam_(params: Sequence[torch.Tensor],
@@ -150,7 +250,8 @@ def fused_adam_(params: Sequence[torch.Tensor],
         rc = fn(table.data_ptr(), dec.data_ptr(), scalars.data_ptr(), n,
                 n_chunks, CHUNK, float(beta1), float(beta2),
                 float(1.0 - beta1), float(1.0 - beta2), float(eps),
-                _DTYPES[dtype], torch.cuda.current_stream().cuda_stream)
+                _DTYPES[dtype], CTAS_PER_SM,
+                torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         from .cuda import build
         raise KernelLaunchError(

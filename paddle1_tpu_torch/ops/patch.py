@@ -3,10 +3,17 @@
 
 Every name of ``math_ops`` and ``manip_ops`` (but the creation and random
 ops) becomes a method of ``core.tensor.Tensor``, the Paddle facade, and
-of nothing else: ``torch.Tensor`` is never patched, and ``ParamBase``
-keeps torch's methods. The operators stay torch's, whose meaning on a
-facade tensor is already Paddle's; ``__setitem__`` also writes into a
-leaf that requires grad, as the reference does.
+of ``core.tensor.ParamBase``, the parameter every port layer creates, as
+the reference's ``Parameter`` is a ``Tensor`` with all its methods
+(``paddle1_tpu/core/tensor.py:242-263``); ``torch.Tensor`` is never
+patched. The operators stay torch's, whose meaning on a facade tensor is
+already Paddle's; ``__setitem__`` also writes into a leaf that requires
+grad, as the reference does. On a ``ParamBase``, which keeps
+``torch.nn.Parameter``'s disabled ``__torch_function__`` (its ops stay
+torch's own and pay no re-wrapping), a method that runs Paddle's op
+returns its new tensors as facade tensors, as the reference's return
+``Tensor``s; the facade's own ``shape``, ``size``, ``place``, ``numpy``
+and ``clear_grad`` are its too.
 
 Where a name is also a ``torch.Tensor`` method, the facade's method
 follows the collision rule that ``core/tensor.py``'s docstring states:
@@ -28,8 +35,8 @@ import sys
 import numpy as np
 import torch
 
-from ..core.tensor import Tensor, _in_place_blocked, _plain, to_tensor, \
-    update_in_place
+from ..core.tensor import ParamBase, Tensor, _in_place_blocked, _plain, \
+    _wrap, to_tensor, update_in_place
 from . import manip_ops as P
 from . import math_ops as M
 
@@ -58,6 +65,17 @@ def _torch_caller() -> bool:
         return True
     mod = sys._getframe(2).f_globals.get("__name__", "")
     return mod == "torch" or mod.startswith("torch.")
+
+
+def _paddle(ret, self):
+    """A Paddle op's result on ``self``: on a ``ParamBase`` (whose ops
+    return plain tensors) its new tensors as facade tensors, ``self``
+    itself as it is; on a facade tensor ``ret`` as it is."""
+    if isinstance(self, Tensor) or ret is self:
+        return ret
+    if isinstance(ret, (tuple, list)):
+        return type(ret)(_paddle(r, self) for r in ret)
+    return _wrap(ret)
 
 
 def _fits(x, *operands) -> bool:
@@ -119,7 +137,7 @@ def _dispatch(name, paddle_fn, torch_fn):
                 (kwargs and not names.issuperset(kwargs)) or \
                 (torch_form is not None and torch_form(args, kwargs)):
             return torch_fn(self, *args, **kwargs)
-        return paddle_fn(self, *args, **kwargs)
+        return _paddle(paddle_fn(self, *args, **kwargs), self)
     method.__qualname__ = f"Tensor.{name}"
     return method
 
@@ -130,9 +148,22 @@ def _property(name, paddle_fn, torch_prop):
     def get(self):
         if _torch_caller():
             return torch_prop.__get__(self)
-        return functools.partial(paddle_fn, self)
+        return lambda *a, **k: _paddle(paddle_fn(self, *a, **k), self)
     return property(get, doc=f"Paddle's ``{name}()`` (a method); torch's "
                     f"property under torch's own code.")
+
+
+def _param_method(fn):
+    """A Paddle op that torch's Tensor lacks, as a ``ParamBase`` method."""
+    @functools.wraps(fn)
+    def method(self, *args, **kwargs):
+        return _paddle(fn(self, *args, **kwargs), self)
+    return method
+
+
+# the facade's own members that a ParamBase shares
+_FACADE_OWN = ("shape", "size", "place", "numpy", "clear_grad",
+               "clear_gradient", "retain_grads")
 
 
 def _install_table() -> None:
@@ -147,10 +178,16 @@ def _install_table() -> None:
         torch_attr = getattr(torch.Tensor, name, None)
         if torch_attr is None:
             setattr(Tensor, name, fn)
-        elif inspect.isdatadescriptor(torch_attr):
-            setattr(Tensor, name, _property(name, fn, torch_attr))
+            setattr(ParamBase, name, _param_method(fn))
+            continue
+        if inspect.isdatadescriptor(torch_attr):
+            method = _property(name, fn, torch_attr)
         else:
-            setattr(Tensor, name, _dispatch(name, fn, torch_attr))
+            method = _dispatch(name, fn, torch_attr)
+        setattr(Tensor, name, method)
+        setattr(ParamBase, name, method)
+    for name in _FACADE_OWN:
+        setattr(ParamBase, name, vars(Tensor)[name])
 
 
 def _in_place(name, paddle_fn, torch_fn):
@@ -182,12 +219,12 @@ def _clip_native(x, lo, hi):
         torch.Tensor.clamp_(x, lo, hi)
 
 
-def _install_explicit() -> None:
-    T = Tensor
+def _install_explicit(T) -> None:
+    """Paddle's methods written out here, on the class ``T``."""
 
     def astype(self, dtype):
         """The tensor cast to ``dtype`` (a name, numpy or torch dtype)."""
-        return P.cast(self, dtype)
+        return _paddle(P.cast(self, dtype), self)
     T.astype = astype
     T.cast = astype
 
@@ -198,7 +235,7 @@ def _install_explicit() -> None:
             return torch.Tensor.reshape(self, *shape, **torch_kw)
         if len(shape) == 1 and not isinstance(shape[0], (int, np.integer)):
             shape = shape[0]
-        return P.reshape(self, shape)
+        return _paddle(P.reshape(self, shape), self)
     T.reshape = reshape
 
     def numel(self, name=None):
@@ -208,7 +245,7 @@ def _install_explicit() -> None:
         ``nelement()`` for the int."""
         if _torch_caller():
             return torch.Tensor.numel(self)
-        return P.numel(self)
+        return _paddle(P.numel(self), self)
     T.numel = numel
 
     def numel_(self):
@@ -271,17 +308,23 @@ def _install_explicit() -> None:
     def __setitem__(self, idx, value):
         """torch's item assignment; into a leaf that requires grad (which
         torch refuses) the updated copy replaces the tensor, gradients
-        flowing through the assignment, as the reference rebinds."""
+        flowing through the assignment, as the reference rebinds (a
+        ``ParamBase`` takes the copy's data, as ``update_in_place``
+        rebinds a tensor that is not a facade)."""
         if _torch_caller() or not _in_place_blocked(self):
             return torch.Tensor.__setitem__(self, idx, value)
         out = torch.clone(self)
         torch.Tensor.__setitem__(out, idx, value)
-        self._replace_impl(out)
+        if isinstance(self, Tensor):
+            self._replace_impl(out)
+        else:
+            self.data = out.detach()
     T.__setitem__ = __setitem__
 
 
 def _install() -> None:
-    _install_explicit()
+    _install_explicit(Tensor)
+    _install_explicit(ParamBase)
     _install_table()
 
 

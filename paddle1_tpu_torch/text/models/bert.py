@@ -161,7 +161,7 @@ class BertLMPredictionHead(Layer):
             hidden_states = hidden_states.reshape(b * s, h)[
                 masked_positions.reshape(-1).long()]
         x = self.layer_norm(self.activation(self.transform(hidden_states)))
-        logits = torch.matmul(x, self.decoder_weight.t())
+        logits = torch.matmul(x, torch.t(self.decoder_weight))
         return logits + self.decoder_bias
 
 

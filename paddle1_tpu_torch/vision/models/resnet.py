@@ -2,10 +2,11 @@
 same architecture, API and attribute paths, so state names match the
 JAX package's (``layer1.0.conv1.weight``, ``layer1.0.bn1._mean``, ...).
 
-Every layer takes ``device`` (default: the card) and ``generator`` (for
-seeded weights). Under ``conv_nhwc`` (``auto``: CUDA) the activations
-carry channels-last memory from the stem convolution on, so each
-batch norm runs its kernel on a free ``[rows, C]`` view.
+Every layer takes ``device`` (default: the current place, the card until
+``set_device``) and ``generator`` (for seeded weights). Under
+``conv_nhwc`` (``auto``: CUDA) the activations carry channels-last memory
+from the stem convolution on, so each batch norm runs its kernel on a
+free ``[rows, C]`` view.
 """
 
 from __future__ import annotations

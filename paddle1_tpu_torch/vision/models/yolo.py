@@ -5,9 +5,10 @@ same attribute paths, so state names match the JAX package's
 ``head5.bias``, ...) and ``convert.state_from_jax`` loads its
 ``functional_state()`` unchanged.
 
-Every layer takes ``device`` (default: the card) and ``generator`` (for
-seeded weights), keyword-only. Under ``conv_nhwc`` (``auto``: CUDA) the
-activations carry channels-last memory from the stem convolution on:
+Every layer takes ``device`` (default: the current place, the card until
+``set_device``) and ``generator`` (for seeded weights), keyword-only.
+Under ``conv_nhwc`` (``auto``: CUDA) the activations carry channels-last
+memory from the stem convolution on:
 ``F.interpolate`` and ``ops.concat`` hand it on, so each of the 72 batch
 norms runs its kernel on a free ``[rows, C]`` view, and ``YOLOv3`` keeps
 its conv weights in channels-last memory too (``channels_last_weights``).

@@ -382,6 +382,42 @@ def test_fused_adam_outside_the_contract_raises_on_the_card(dev):
                         [0.0], 0.9, 0.999, 1e-8)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_adam_on_unaligned_views_is_bit_for_bit(dev, dtype):
+    """Row 6 over views at element offsets into larger buffers (one common
+    odd offset: a scalar head, then 16-byte vectors; offsets that never
+    align together: all scalar; odd lengths: a scalar tail; several
+    chunks) equals the plain version on the card and the kernel on
+    aligned copies of the same data, bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    layout = [((7,), (0, 0, 0, 0)), ((33, 5), (1, 1, 1, 1)),
+              ((129,), (1, 2, 3, 1)), ((2,), (3, 3, 3, 3)),
+              ((3 * fad.CHUNK + 5,), (5, 5, 5, 5)), ((64, 3), (0, 1, 0, 0))]
+    views = ([], [], [], [])
+    for shape, offs in layout:
+        n = int(np.prod(shape))
+        for j, (lst, off) in enumerate(zip(views, offs)):
+            t = torch.randn(n + off, device=dev, generator=g)
+            t = t.to(dtype) if j < 2 else (t.abs() if j == 3 else t) * 0.01
+            lst.append(t[off:].view(shape))
+    aligned = tuple([t.clone() for t in ts] for ts in views)
+    sc = torch.tensor([1e-3, 1 - 0.9 ** 3, 1 - 0.999 ** 3], device=dev)
+    decays = [(0.01, 0.0)[i % 2] for i in range(len(layout))]
+    scales = [(1.0, 0.5, 2.0)[i % 3] for i in range(len(layout))]
+    want = [fad.fused_adam_ref(p, q, a, b, sc[0], sc[1], sc[2], d, 0.9,
+                               0.999, 1e-8, s)
+            for p, q, a, b, d, s in zip(*views, decays, scales)]
+    before = fad.fused_adam_.launches
+    for ts in (views, aligned):
+        fad.fused_adam_(*ts, sc, decays, 0.9, 0.999, 1e-8, scales)
+    torch.cuda.synchronize()
+    assert fad.fused_adam_.launches == before + 2
+    for i, w in enumerate(want):
+        for j, k in ((0, 0), (2, 1), (3, 2)):
+            assert torch.equal(views[j][i], w[k]), (i, j)
+            assert torch.equal(views[j][i], aligned[j][i]), (i, j)
+
+
 def test_adamw_step_is_one_launch_and_matches_the_plain_update(dev):
     from paddle1_tpu_torch.core.flags import flags_guard
     from paddle1_tpu_torch.optimizer import AdamW

@@ -147,7 +147,7 @@ def job2(tmp_path_factory, r18_case):
         ("collectives", ()), ("data_parallel", ()),
         ("resnet_engine", (str(r18_case["dir"] / "state.npz"),
                            str(r18_case["dir"] / "batch.npz"))),
-        ("unequal_shards", ())])
+        ("unequal_shards", ()), ("place", ())])
     return str(tmp)
 
 
@@ -444,6 +444,8 @@ def test_init_parallel_env_backend_is_nccl_on_the_card_gloo_on_request(
         monkeypatch):
     """The backend follows the device: NCCL for a card (the default),
     gloo only for the CPU or when named; never a fall back."""
+    from paddle1_tpu_torch.core import place as tplace
+    monkeypatch.setattr(tplace._tls, "place", None, raising=False)
     seen = []
     monkeypatch.setattr(torch.distributed, "init_process_group",
                         lambda **kw: seen.append(kw))
@@ -468,6 +470,49 @@ def test_init_parallel_env_backend_is_nccl_on_the_card_gloo_on_request(
     monkeypatch.setenv("PADDLE_TRAINER_ENDPOINTS", "127.0.0.1:6170")
     tdist.init_parallel_env(device="cpu")
     assert seen[-1]["init_method"] == "tcp://127.0.0.1:6170"
+
+
+def test_layers_land_on_each_ranks_place_over_2_gloo_ranks(job2):
+    # F12: on the parent, Linear(4, 6) with no device asked for the card
+    # on every rank whatever init_parallel_env(device=...) chose
+    for r, res in enumerate(_load(job2, "place", 2)):
+        assert str(res["kind"]) == "cpu", r
+        assert bool(res["on_cpu"]) and bool(res["tensor_on_cpu"]), r
+
+
+@pytest.mark.parametrize("local", [0, 1])
+def test_init_parallel_env_makes_the_ranks_card_the_current_place(
+        monkeypatch, local):
+    """F12, found in review: each rank's ``device=None`` layers went to
+    card 0. ``init_parallel_env`` makes the card of the rank's local index
+    the current place, as the reference's does; under a CPU place the
+    rank runs on the CPU."""
+    from paddle1_tpu_torch.core import place as tplace
+    from paddle1_tpu_torch.core.device import resolve_device
+    monkeypatch.setattr(tplace._tls, "place", None, raising=False)
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda **kw: None)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: None)
+    monkeypatch.setenv("PADDLE_TRAINER_ID", str(local))
+    monkeypatch.setenv("PADDLE_TRAINERS_NUM", "2")
+    monkeypatch.setenv("PADDLE_RANK_IN_NODE", str(local))
+    monkeypatch.setenv("LOCAL_RANK", str(local))
+    monkeypatch.setenv("PADDLE_TRAINER_ENDPOINTS",
+                       "127.0.0.1:6170,127.0.0.1:6171")
+    tdist.init_parallel_env()
+    assert tplace.get_device() == tplace.CUDAPlace(local)
+    assert resolve_device(None) == torch.device("cuda", local)
+    tplace._tls.place = tplace.CPUPlace()
+    seen = []
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda **kw: seen.append(kw))
+    tdist.init_parallel_env()
+    assert seen[0]["backend"] == "gloo"
+    assert tplace.get_device() == tplace.CPUPlace()
 
 
 def test_build_mesh_takes_dp_only_and_checks_the_world():

@@ -222,6 +222,19 @@ def unequal_shards_case(out):
     _save(out, "unequal", raised=raised)
 
 
+def place_case(out):
+    """Layers made without a device after ``init_parallel_env`` land on
+    the rank's place, which it made the current place (here the CPU)."""
+    import paddle1_tpu_torch as paddle
+    from paddle1_tpu_torch.nn import Linear
+    with paddle.utils.unique_name.guard():
+        lin = Linear(4, 6)
+    place = paddle.get_device()
+    _save(out, "place", kind=place.kind, index=place.index,
+          on_cpu=all(p.device.type == "cpu" for p in lin.parameters()),
+          tensor_on_cpu=paddle.to_tensor([1.0]).device.type == "cpu")
+
+
 # ---------------------------------------------------------------------------
 # jobs: one spawn per world size
 

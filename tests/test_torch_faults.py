@@ -12,7 +12,12 @@ flags. F6: a layer's parameters carry the reference's names, which the
 optimizer's decay filter and state keys read. F7-F9: the facade's Tensor
 methods that share a name with a ``torch.Tensor`` method mean Paddle's
 call in user code (``x.split(3, 1)``, ``median``, ``unique``, ``where``,
-and the Paddle calls torch's methods refused).
+and the Paddle calls torch's methods refused). F10: ``Tensor(data, dtype,
+place, stop_gradient, name)`` is the reference's constructor. F11: a
+layer's parameters have the reference ``Parameter``'s methods, and torch's
+own code keeps torch's meaning on them. F12: layers made without a device
+follow the current place (``set_device``/``device_guard``), and
+``init_parallel_env`` makes the rank's device the current place.
 
 Inputs and weights come from numpy with a seed; weights cross through
 ``paddle1_tpu_torch.convert.state_from_jax``. Random masks differ by
@@ -712,3 +717,259 @@ def test_f9_numel_is_a_0d_tensor_in_user_code(cpu_place):
     assert tx.numel_() == 24 and tx.size == 24
     assert torch.nn.functional.dropout(tx, 0.0).shape == [2, 3, 4]
     assert torch.Tensor.numel(tx) == 24 and tx.nelement() == 24
+
+
+# ---------------------------------------------------------------------------
+# F10: the facade's constructor (paddle1_tpu/core/tensor.py:76)
+
+F10_DATA = [("int", 3), ("float", 2.5), ("bool", True),
+            ("int-list", [1, 2, 3]), ("float-list", [[1.0, 2.0]]),
+            ("int32-array", np.arange(6, dtype=np.int32).reshape(2, 3)),
+            ("float64-array", np.linspace(0, 1, 4)),
+            ("float32-array", np.ones((2, 2), np.float32))]
+
+
+@pytest.mark.parametrize("name,data", F10_DATA, ids=[c[0] for c in F10_DATA])
+def test_f10_constructor_makes_the_references_tensor(cpu_place, name, data):
+    # on the parent, Tensor(3) was torch's legacy constructor: a float32
+    # [3] of uninitialized memory; Tensor(2.5) raised TypeError
+    want, got = jp.Tensor(data), tp.Tensor(data)
+    assert type(got) is tp.Tensor and got.is_leaf and got.stop_gradient
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), _np(want))
+    kind = np.dtype(want.dtype).kind
+    assert np.dtype(str(got.dtype).replace("torch.", "")).kind == kind
+    if kind in "fb" or name == "int32-array":
+        # ints are int64 in the port, int32 without x64 in the reference,
+        # but an int32 array stays int32 in both
+        assert str(got.dtype).replace("torch.", "") == str(want.dtype)
+
+
+def test_f10_constructor_keywords_are_the_references(cpu_place):
+    x = np.array([1.5, -2.0], np.float32)
+    want = jp.Tensor(x, dtype="float32", place="cpu", stop_gradient=False,
+                     name="w0")
+    got = tp.Tensor(x, "float32", "cpu", False, "w0")
+    assert got.stop_gradient is want.stop_gradient is False
+    assert got.name == want.name == "w0" and got.is_leaf
+    assert got.place == tp.CPUPlace()
+    (got * 2).sum().backward()
+    np.testing.assert_array_equal(got.grad.numpy(), [2.0, 2.0])
+    # a copy of a tensor's data: a new leaf, off the source's graph
+    src = tp.to_tensor(x, stop_gradient=False) * 3
+    new = tp.Tensor(src)
+    assert new.is_leaf and new.stop_gradient and new.grad_fn is None
+    src_data = src.detach()
+    torch.Tensor.add_(new, 1.0)
+    assert torch.equal(src.detach(), src_data)
+    assert tp.Tensor(np.array([1, 2]), dtype="float32").dtype == \
+        torch.float32
+
+
+def test_f10_constructor_follows_the_current_place(monkeypatch):
+    from paddle1_tpu_torch.core import place as tplace
+    from paddle1_tpu_torch.core.errors import DeviceUnavailableError
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tplace._tls, "place", None, raising=False)
+    with pytest.raises(DeviceUnavailableError):
+        tp.Tensor(3)                    # the default place, the card
+    assert tp.Tensor(3, place="cpu").place == tp.CPUPlace()
+    with tp.device_guard("cpu"):
+        assert tp.Tensor(3).place == tp.CPUPlace()
+
+
+def test_f10_torchs_own_ways_to_make_a_facade_still_work(cpu_place,
+                                                         tmp_path):
+    import copy
+    import pickle
+    from paddle1_tpu_torch.core.tensor import _wrap
+    base = torch.arange(6.0).reshape(2, 3)
+    made = [torch.Tensor._make_subclass(tp.Tensor, base, False),
+            base.as_subclass(tp.Tensor), _wrap(base)]
+    for t in made:
+        assert type(t) is tp.Tensor and torch.equal(t, base)
+    x = tp.Tensor(base.numpy(), stop_gradient=False)
+    c = copy.deepcopy(x)
+    assert type(c) is tp.Tensor and torch.equal(c, x) and \
+        c.stop_gradient is False and c.data_ptr() != x.data_ptr()
+    p = pickle.loads(pickle.dumps(tp.Tensor(base.numpy())))
+    assert type(p) is tp.Tensor and torch.equal(p, base)
+    path = str(tmp_path / "x.pdtensor")
+    tp.save({"x": tp.Tensor(base.numpy())}, path)
+    back = tp.load(path)["x"]
+    assert isinstance(back, tp.Tensor) and torch.equal(back, base)
+    # an op's output is a facade too, by torch's own construction
+    assert type(tp.Tensor([1.0]) + 1) is tp.Tensor
+
+
+# ---------------------------------------------------------------------------
+# F11: layer parameters have the reference Parameter's methods
+# (paddle1_tpu/core/tensor.py:242-263); torch's code keeps torch's
+
+
+def _linear_pair(seed):
+    jl = jp.nn.Linear(4, 6)
+    with tp.utils.unique_name.guard():
+        tl = tp.nn.Linear(4, 6, device="cpu")
+    w = np.random.default_rng(seed).standard_normal((4, 6)).astype(
+        np.float32)
+    jl.weight.set_value(w)
+    with torch.no_grad():
+        torch.Tensor.copy_(tl.weight, torch.from_numpy(w))
+    return jl.weight, tl.weight
+
+
+F11_CASES = [
+    ("split(3, 1)", lambda w, m: w.split(3, 1)),
+    ("split([2, -1], 0)", lambda w, m: w.split([1, -1], 0)),
+    ("median(0)", lambda w, m: w.median(0)),
+    ("max(0)", lambda w, m: w.max(0)),
+    ("min()", lambda w, m: w.min()),
+    ("transpose([1, 0])", lambda w, m: w.transpose([1, 0])),
+    ("astype", lambda w, m: w.astype("float64")),
+    ("cast", lambda w, m: w.cast("int32")),
+    ("reshape", lambda w, m: w.reshape([2, 12])),
+    ("round().unique()", lambda w, m: w.round().unique()),
+    ("sum(axis)", lambda w, m: w.sum(axis=1)),
+    ("t()", lambda w, m: w.t()),
+    ("matmul", lambda w, m: w.matmul(w.t())),
+]
+
+
+@pytest.mark.parametrize("name,call", F11_CASES, ids=[c[0] for c in F11_CASES])
+def test_f11_parameter_methods_are_the_references(name, call):
+    # on the parent, a port layer's weight kept torch's methods: split(3,
+    # 1) gave 2 parts [4, 3], median(0)/max(0) (values, indices), and
+    # transpose([1, 0]), astype and cast raised
+    jw, tw = _linear_pair(41)
+    want, got = call(jw, jp), call(tw, tp)
+    want = want if isinstance(want, (list, tuple)) else [want]
+    got = got if isinstance(got, (list, tuple)) else [got]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert isinstance(g, tp.Tensor) and g.shape == w.shape
+        np.testing.assert_allclose(g.detach().numpy(), _np(w), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_f11_parameter_metadata_and_loading_are_the_references():
+    jw, tw = _linear_pair(42)
+    assert tw.shape == jw.shape == [4, 6] and tw.size == jw.size == 24
+    n = tw.numel()
+    assert isinstance(n, tp.Tensor) and n.dim() == 0 and \
+        int(n) == int(_np(jw.numel())) == 24
+    assert tw.place == tp.CPUPlace() and tw.stop_gradient is False
+    # numpy() of a parameter that requires grad: a copy, as the reference
+    np.testing.assert_array_equal(tw.numpy(), _np(jw))
+    new = np.full((4, 6), 0.25, np.float32)
+    jw.set_value(new)
+    assert tw.set_value(new) is tw and isinstance(tw, torch.nn.Parameter)
+    np.testing.assert_array_equal(tw.numpy(), _np(jw))
+    tw.set_value(tp.to_tensor(new * 2, place="cpu"))
+    assert float(tw.detach().sum()) == 12.0 and tw.requires_grad
+    tw.clear_grad()
+    assert tw.grad is None
+    # of the reference Parameter's 255 public attributes only the
+    # pipeline stage and the sharding axes (later slices) are missing
+    missing = [a for a in dir(jw) if not a.startswith("_") and
+               not hasattr(type(tw), a) and not hasattr(tw, a)]
+    assert sorted(missing) == ["pp_stage", "sharding_axes"]
+
+
+def _twin_models(seed):
+    """A port Linear stack, and its copy on plain ``torch.nn.Parameter``s
+    (the same modules, so the same ops in the same order)."""
+    import copy
+    with tp.utils.unique_name.guard():
+        tm = tp.nn.Sequential(tp.nn.Linear(4, 8, device="cpu"),
+                              tp.nn.ReLU(), tp.nn.Linear(8, 3, device="cpu"))
+    pm = copy.deepcopy(tm)
+    for mod in pm.modules():
+        for k, p in list(mod._parameters.items()):
+            mod._parameters[k] = torch.nn.Parameter(p.detach().clone())
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (5, 4)).astype(np.float32))
+    return tm, pm, x
+
+
+def _same(tm, pm):
+    for a, b in zip(tm.parameters(), pm.parameters()):
+        assert type(b) is torch.nn.Parameter
+        assert torch.equal(a.detach(), b.detach())
+
+
+def test_f11_torch_optimizer_and_clip_keep_torchs_meaning():
+    tm, pm, x = _twin_models(43)
+    for model in (tm, pm):
+        opt = torch.optim.AdamW(model.parameters(), lr=0.1)
+        for _ in range(2):
+            model(x).square().sum().backward()
+            torch.nn.utils.clip_grad_norm_(model.parameters(), 0.5)
+            opt.step()
+            opt.zero_grad()
+    _same(tm, pm)
+
+
+def test_f11_functional_call_and_load_state_dict_keep_torchs_meaning():
+    tm, pm, x = _twin_models(44)
+    swapped = {k: torch.zeros_like(v) for k, v in tm.named_parameters()}
+    out = torch.func.functional_call(tm, swapped, (x,))
+    assert torch.equal(out, torch.zeros(5, 3))
+    assert torch.equal(tm(x), pm(x))
+    state = {k: v * 2 for k, v in tm.state_dict().items()}
+    tm.load_state_dict(state)
+    assert all(torch.equal(tm.state_dict()[k], v) for k, v in state.items())
+    assert all(isinstance(p, torch.nn.Parameter) and
+               not isinstance(p, tp.Tensor) for p in tm.parameters())
+
+
+# ---------------------------------------------------------------------------
+# F12: layers follow the current place (paddle1_tpu/core/place.py:107-121)
+
+
+F12_LAYERS = [
+    ("Linear", lambda m, kw: m.nn.Linear(4, 6, **kw)),
+    ("Conv2D", lambda m, kw: m.nn.Conv2D(3, 4, 3, **kw)),
+    ("LayerNorm", lambda m, kw: m.nn.LayerNorm(8, **kw)),
+    ("BatchNorm2D", lambda m, kw: m.nn.BatchNorm2D(4, **kw)),
+    ("Embedding", lambda m, kw: m.nn.Embedding(10, 4, **kw)),
+    ("TransformerEncoderLayer",
+     lambda m, kw: m.nn.TransformerEncoderLayer(16, 2, 32, **kw)),
+    ("BertModel", lambda m, kw: m.text.models.BertModel(
+        vocab_size=16, hidden_size=8, num_hidden_layers=1,
+        num_attention_heads=2, intermediate_size=16, **kw)),
+]
+
+
+@pytest.mark.parametrize("name,make", F12_LAYERS,
+                         ids=[c[0] for c in F12_LAYERS])
+def test_f12_layers_follow_device_guard_cpu(name, make):
+    # on the parent, every layer made without a device asked for the card
+    # (DeviceUnavailableError here) whatever the current place
+    with tp.device_guard("cpu"), tp.utils.unique_name.guard():
+        layer = make(tp, {})
+    assert all(p.device.type == "cpu" for p in layer.parameters())
+    assert all(b.device.type == "cpu" for b in layer.buffers())
+
+
+def test_f12_set_device_cpu_runs_a_layer_like_the_reference(monkeypatch):
+    from paddle1_tpu_torch.core import place as tplace
+    from paddle1_tpu_torch.core.errors import DeviceUnavailableError
+    monkeypatch.setattr(tplace._tls, "place", None, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    jl, x = jp.nn.Linear(4, 6), _x((3, 4), 45)
+    tp.set_device("cpu")
+    with tp.utils.unique_name.guard():
+        tl = tp.nn.Linear(4, 6)
+    tl.load_state_dict(state_from_jax(_state(jl), tl))
+    got = tl(tp.to_tensor(x))
+    np.testing.assert_allclose(got.detach().numpy(),
+                               _np(jl(jp.to_tensor(x))), **TOL)
+    # an explicit device still wins over the current place
+    with pytest.raises(DeviceUnavailableError):
+        tp.nn.Linear(4, 6, device="cuda")
+    # the default place stays the card: with none, a typed error, never a
+    # quiet move to the CPU (a departure from the reference's fall back)
+    tplace._tls.place = None
+    with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
+        tp.nn.Linear(4, 6)

@@ -494,3 +494,98 @@ def test_softmax_flag_keeps_the_jax_name_and_defaults_to_the_card():
     assert tflags.flag_active("fused_softmax", torch.device("cuda", 0))
     assert not tflags.flag_active("fused_softmax", torch.device("cpu"))
     assert "softmax" in build.SOURCES
+
+
+# ---------------------------------------------------------------------------
+# fused AdamW: the kernel's partition (head, 16-byte body, tail; chunks in
+# the persistent grid's order), emulated on CPU tensors
+
+# tensors of odd lengths as views at element offsets (p, g, m1, m2) into
+# larger buffers: all aligned, one common odd offset (a scalar head, then
+# vectors), offsets that never align together (all scalar), a tensor
+# shorter than its head, an empty one, and one of several chunks
+ADAM_VIEWS = [((7,), (0, 0, 0, 0)), ((33, 5), (1, 1, 1, 1)),
+              ((129,), (1, 2, 3, 1)), ((2,), (3, 3, 3, 3)), ((0,), (0,) * 4),
+              ((1000,), (2, 2, 2, 2)), ((3,), (0, 1, 0, 0)),
+              ((4096 + 5,), (5, 5, 5, 5)), ((64, 3), (6, 6, 6, 6))]
+
+
+def _adam_views(dtype, seed):
+    rng = np.random.default_rng(seed)
+    ts = ([], [], [], [])
+    for shape, offs in ADAM_VIEWS:
+        n = int(np.prod(shape))
+        for j, (lst, off) in enumerate(zip(ts, offs)):
+            a = rng.standard_normal(n + off).astype(np.float32)
+            if j == 3:
+                a = np.abs(a) * 0.01
+            elif j == 2:
+                a = a * 0.01
+            buf = torch.from_numpy(a).to(dtype if j < 2 else torch.float32)
+            buf = buf.clone()               # torch's own aligned allocation
+            lst.append(buf[off:].view(shape))
+    return ts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk,grid", [(64, 3), (8, 1), (16384, 528)])
+def test_fused_adam_partition_covers_once_aligned_and_bit_equal(dtype, chunk,
+                                                                grid):
+    from paddle1_tpu_torch.ops import fused_adam as tad
+    ps, gs, m1, m2 = _adam_views(dtype, 17)
+    item = ps[0].element_size()
+    sc = torch.tensor([1e-3, 1 - 0.9 ** 3, 1 - 0.999 ** 3])
+    decays = [(0.01, 0.0)[i % 2] for i in range(len(ps))]
+    scales = [(1.0, 0.5, 2.0)[i % 3] for i in range(len(ps))]
+    want = [tad.fused_adam_ref(p, g, a, b, sc[0], sc[1], sc[2], d, 0.9,
+                               0.999, 1e-8, s)
+            for p, g, a, b, d, s in zip(ps, gs, m1, m2, decays, scales)]
+    hits, vectors = tad.fused_adam_emulation(
+        ps, gs, m1, m2, sc, decays, 0.9, 0.999, 1e-8, scales, chunk=chunk,
+        grid=grid)
+    # every element exactly once
+    assert all(bool((h == 1).all()) for h in hits)
+    # every vector: 16 bytes of p and g, 16-byte aligned in all four
+    assert vectors and all(a % 16 == 0 for v in vectors for a in v[2:])
+    vec = 16 // item
+    with_body = {v[0] for v in vectors}
+    rows, _ = tad.plan_rows([(p.data_ptr(), g.data_ptr(), a.data_ptr(),
+                              b.data_ptr(), p.nelement())
+                             for p, g, a, b in zip(ps, gs, m1, m2)], item,
+                            chunk)
+    for t, row in enumerate(rows):
+        head, body = row[6], row[7]
+        assert body % vec == 0 and head + body <= row[4]
+        assert (t in with_body) == (body > 0)
+    # the tensors whose streams never align together run all scalar
+    assert rows[2][7] == 0 and rows[6][7] == 0
+    # the update bit for bit the plain version's
+    for got, w in zip(zip(ps, m1, m2), want):
+        for a, b in zip(got, w):
+            assert torch.equal(a, b)
+
+
+def test_fused_adam_partition_matches_the_pallas_kernel():
+    """The emulated partition's update against the JAX package's fused
+    Adam (Pallas, interpret mode on the CPU) on an unaligned view."""
+    import jax.numpy as jnp
+    from paddle1_tpu.ops.pallas import fused_adam as jadam
+    from paddle1_tpu_torch.ops import fused_adam as tad
+    ps, gs, m1, m2 = _adam_views(torch.float32, 23)
+    k = 7                                   # [4101] at offset 5 in all four
+    p, g, a, b = (x[k].clone() for x in (ps, gs, m1, m2))
+    lr, b1, b2, eps, step = 1e-3, 0.9, 0.999, 1e-8, 3
+    want = jadam.fused_adam_update(*(jnp.asarray(x.numpy()) for x in
+                                     (p, g, a, b)), lr,
+                                   jnp.asarray(step, jnp.int32), b1, b2, eps,
+                                   0.01)
+    st = torch.tensor(float(step))
+    sc = torch.stack([torch.tensor(lr), 1.0 - torch.pow(b1, st),
+                      1.0 - torch.pow(b2, st)])
+    tad.fused_adam_emulation([ps[k]], [gs[k]], [m1[k]], [m2[k]], sc, [0.01],
+                             b1, b2, eps, chunk=1024, grid=2)
+    # one elementwise update in f32 on either side: the same roundings but
+    # for XLA's fusion of the products
+    for got, exp in zip((ps[k], m1[k], m2[k]), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=1e-6,
+                                   atol=1e-7)

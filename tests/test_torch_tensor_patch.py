@@ -340,10 +340,19 @@ def test_plain_tensors_and_parameters_keep_torchs_methods():
     t = torch.from_numpy(R((2, 12), 22))
     assert len(t.split(3, 1)) == 4 and isinstance(t.median(1), tuple)
     assert isinstance(t.numel(), int)
+    # a layer's parameter has Paddle's methods in user code, as the
+    # reference's Parameter is a Tensor, and torch's under torch's code
     with tp.utils.unique_name.guard():
-        p = tp.nn.Linear(3, 4, device="cpu").weight
-    assert not isinstance(p, tp.Tensor) and len(p.split(2, 0)) == 2
-    assert isinstance(p.numel(), int)
+        p = tp.nn.Linear(4, 3, device="cpu").weight
+    assert not isinstance(p, tp.Tensor)
+    parts = p.split(2, 0)
+    assert len(parts) == 2 and all(isinstance(q, tp.Tensor) and
+                                   tuple(q.shape) == (2, 3) for q in parts)
+    n = p.numel()
+    assert isinstance(n, tp.Tensor) and n.dim() == 0 and int(n) == 12
+    assert len(torch.split(p, 3, 1)) == 1
+    assert len(torch.split(p, 2, 0)) == 2
+    assert torch.nn.utils.parameters_to_vector([p]).shape == (12,)
 
 
 def test_torch_utilities_on_paddle_parameters_keep_torchs_meaning():

@@ -6,8 +6,9 @@ A facade method whose name is also a ``torch.Tensor`` method runs a
 Python dispatcher (``paddle1_tpu_torch/ops/patch.py``, the collision
 rule) before its op. This
 
-* counts, with ``sys.setprofile``, the calls of those methods in one eager
-  step of ``chip_smoke.py`` phase 21's fine-tuning loop
+* counts, with ``sys.setprofile``, the calls of those methods (on facade
+  tensors and on the layers' parameters, which carry the same methods)
+  in one eager step of ``chip_smoke.py`` phase 21's fine-tuning loop
   (``BertForSequenceClassification`` at BERT-base depth, 12 layers, and
   AdamW; the count does not depend on width, so the model is narrow:
   hidden 128, 2 heads of 64, FFN 256, batch 2 x 16) and of phase 15's
@@ -51,17 +52,20 @@ paddle = None     # the package, imported in main() (``--root``)
 
 
 def _method_codes() -> set:
-    """The code objects of the facade methods that share their name with
-    a ``torch.Tensor`` method (the patch builds many from one closure)."""
+    """The code objects of the facade's and the layers' parameters'
+    (``ParamBase``) methods that share their name with a ``torch.Tensor``
+    method (the patch builds many from one closure)."""
+    from paddle1_tpu_torch.core.tensor import ParamBase
     codes = set()
-    for name, attr in vars(paddle.Tensor).items():
-        if not hasattr(torch.Tensor, name):
-            continue
-        fn = attr.fget if isinstance(attr, property) else attr
-        code = getattr(fn, "__code__", None)
-        if code is not None and code.co_filename.endswith(
-                os.path.join("ops", "patch.py")):
-            codes.add(code)
+    for cls in (paddle.Tensor, ParamBase):
+        for name, attr in vars(cls).items():
+            if not hasattr(torch.Tensor, name):
+                continue
+            fn = attr.fget if isinstance(attr, property) else attr
+            code = getattr(fn, "__code__", None)
+            if code is not None and code.co_filename.endswith(
+                    os.path.join("ops", "patch.py")):
+                codes.add(code)
     return codes
 
 

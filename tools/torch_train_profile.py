@@ -197,7 +197,7 @@ def _ernie(args, dev):
         "ids": rng.integers(1, v, (args.batch, args.seq)).astype(np.int32),
         "mlm": rng.integers(0, v, (args.batch, args.seq)).astype(np.int32),
         "nsp": rng.integers(0, 2, (args.batch,)).astype(np.int32)})
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = sum(p.nelement() for p in model.parameters())
     return lambda: eng.step(staged), {"seq_len": args.seq,
                                       "params": n_params}
 
