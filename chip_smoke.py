@@ -137,11 +137,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
 14. **The row-softmax kernel.** The eager slice's kernel against its
     plain version at ``[64, 10]`` (LeNet's prediction), ``[32, 1000]``
     (ResNet-50's head), ``[196608, 128]`` (BERT-base's attention scores
-    at batch 128), ``[2048, 32000]`` (the serving vocabulary) and the
-    ragged ``[1000, 1003]``, in f32 (1e-6 abs), bf16 and f16 (one
-    rounding step), half of one row masked to -inf, repeats bit-identical; its
-    autograd gradient against plain autograd (1e-6, f32); timed in bf16
-    beside its plain version, ``torch.softmax`` and its bound.
+    at batch 128), ``[2048, 32000]`` (the serving vocabulary), the
+    ragged ``[1000, 1003]``, ``[4096, 30522]`` (BERT-base's masked-LM
+    logits at a fine-tuning batch of 32 x 128) and ``[2048, 32769]`` (one
+    element past the kernel's on-chip limit, its two-pass path), in f32
+    (1e-6 abs), bf16 and f16 (one rounding step), half of one row masked
+    to -inf, repeats bit-identical; its autograd gradient against plain
+    autograd (1e-6, f32); timed in bf16 and f32 beside its plain version,
+    ``torch.softmax`` and its bound.
 15. **Eager LeNet (the fifth main path).** BASELINE config 1
     (``benches.py:52-88``): ``LeNet()`` with seeded weights, ``Adam(1e-3)``,
     two seeded batches of 64 x 1 x 28 x 28 staged with ``to_tensor`` as
@@ -353,11 +356,15 @@ RN_F64_FACTOR, RN_GRAD_TOL = 2.0, 1e-3
 DP_RANKS, DP_RANK_TIMEOUT_S = 2, 300
 # row softmax: LeNet's [64, 10], ResNet-50's head [32, 1000], BERT-base's
 # attention scores at batch 128 (128 * 12 * 128 rows of 128), the serving
-# vocabulary [2048, 32000] and a ragged width. f32: the same max, exps and
-# a sum in another order (the wide rows' online sum) agree to SM_TOL; bf16
-# and f16: one rounding step of the output (BF16_REL, F16_REL)
+# vocabulary [2048, 32000], a ragged width, BERT-base's masked-LM logits
+# over its 30,522-word vocabulary at a fine-tuning batch of 32 x 128, and
+# rows one element past the kernel's on-chip limit (ops/softmax.py
+# WIDE_MAX, its two-pass path). f32: the same max, exps and a sum in
+# another order agree to SM_TOL; bf16 and f16: one rounding step of the
+# output (BF16_REL, F16_REL)
 SM_SHAPES = ((64, 10), (32, 1000), (196608, 128), (2048, 32000),
-             (1000, 1003))
+             (1000, 1003), (4096, 30522), (2048, 32769))
+SM_TIMED_DTYPES = (torch.bfloat16, torch.float32)
 SM_TOL, F16_REL = 1e-6, 2.0 ** -10
 # eager LeNet (BASELINE config 1, benches.py:52-88): batch 64, Adam(1e-3),
 # the bench's 20 timed steps; f32 kernel-vs-plain check over 3 steps
@@ -2537,10 +2544,11 @@ def softmax_phase(dev):
     (SM_TOL abs), bf16 and f16 (one rounding step), repeats bit-identical,
     with
     a masked (-inf) half row; the gradient through its autograd Function
-    against plain autograd in f32; then timed in bf16 over enough input
-    sets to leave the L2 cache, beside its plain version, ``torch.softmax``
-    (the library) and its bound: x read once and y written once,
-    ``2·rows·h·itemsize`` bytes, five f32 operations per element."""
+    against plain autograd in f32; then timed in bf16 and f32
+    (SM_TIMED_DTYPES) over enough input sets to leave the L2 cache, beside
+    its plain version, ``torch.softmax`` (the library) and its bound: x
+    read once and y written once, ``2·rows·h·itemsize`` bytes, five f32
+    operations per element."""
     from paddle1_tpu_torch.ops import softmax as psm
     errs, times = [], []
     for rows, h in SM_SHAPES:
@@ -2586,28 +2594,32 @@ def softmax_phase(dev):
     log(f"softmax: f32, bf16 and f16 within tolerance at "
         f"{[list(s) for s in SM_SHAPES]}, repeats bit-identical; autograd "
         f"dx within {grad_err:.3g} of plain autograd")
-    for rows, h in SM_SHAPES:
-        need = 2 * rows * h * 2
-        n_sets = max(1, min(4, -(-200_000_000 // need)))
-        g = torch.Generator(device=dev).manual_seed(SEED + 16)
-        xs = [torch.randn(rows, h, device=dev, generator=g).to(
-            torch.bfloat16) for _ in range(n_sets)]
-        t = {"ms": graph_time_ms([lambda x=x: psm.softmax_fwd(x)
-                                  for x in xs]),
-             "plain_ms": graph_time_ms([lambda x=x: psm.softmax_ref(x)
-                                        for x in xs]),
-             "library_ms": graph_time_ms([
-                 lambda x=x: torch.softmax(x, dim=-1) for x in xs])}
-        b_ms, by = bound(need, 5.0 * rows * h, F32_FLOPS_PER_S)
-        times.append({"shape": [rows, h], "dtype": "bf16", **t,
-                      "library_covers": "torch.softmax (last axis)",
-                      "bound_ms": b_ms, "bound_by": by, "bound_bytes": need,
-                      "input_sets": n_sets})
-        log(f"softmax bf16 [{rows}, {h}]: kernel {t['ms']:.5f} ms, plain "
-            f"{t['plain_ms']:.5f} ms, torch.softmax {t['library_ms']:.5f} "
-            f"ms, bound {b_ms:.5f} ms ({by})")
-        del xs
-        torch.cuda.empty_cache()
+    for dtype in SM_TIMED_DTYPES:
+        name = str(dtype).split(".")[-1]
+        for rows, h in SM_SHAPES:
+            item = torch.tensor([], dtype=dtype).element_size()
+            need = 2 * rows * h * item
+            n_sets = max(1, min(4, -(-200_000_000 // need)))
+            g = torch.Generator(device=dev).manual_seed(SEED + 16)
+            xs = [torch.randn(rows, h, device=dev, generator=g).to(dtype)
+                  for _ in range(n_sets)]
+            t = {"ms": graph_time_ms([lambda x=x: psm.softmax_fwd(x)
+                                      for x in xs]),
+                 "plain_ms": graph_time_ms([lambda x=x: psm.softmax_ref(x)
+                                            for x in xs]),
+                 "library_ms": graph_time_ms([
+                     lambda x=x: torch.softmax(x, dim=-1) for x in xs])}
+            b_ms, by = bound(need, 5.0 * rows * h, F32_FLOPS_PER_S)
+            times.append({"shape": [rows, h], "dtype": name, **t,
+                          "path": psm.plan(rows, h, item).path,
+                          "library_covers": "torch.softmax (last axis)",
+                          "bound_ms": b_ms, "bound_by": by,
+                          "bound_bytes": need, "input_sets": n_sets})
+            log(f"softmax {name} [{rows}, {h}]: kernel {t['ms']:.5f} ms, "
+                f"plain {t['plain_ms']:.5f} ms, torch.softmax "
+                f"{t['library_ms']:.5f} ms, bound {b_ms:.5f} ms ({by})")
+            del xs
+            torch.cuda.empty_cache()
     return errs, times, grad_err
 
 

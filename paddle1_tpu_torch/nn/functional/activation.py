@@ -40,19 +40,31 @@ def tanh(x: torch.Tensor, name=None) -> torch.Tensor:
     return torch.tanh(x)
 
 
+def _float_input(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` cast to ``dtype`` when it is given; else an integer ``x``
+    promoted to float32, as ``jax.nn.softmax`` and ``jax.nn.log_softmax``
+    promote it in the JAX package (bool is refused there, and here)."""
+    if dtype is not None:
+        return x.to(dtypes.convert_dtype(dtype))
+    if not (x.dtype.is_floating_point or x.dtype.is_complex or
+            x.dtype == torch.bool):
+        return x.to(torch.float32)
+    return x
+
+
 def softmax(x: torch.Tensor, axis: int = -1, dtype=None,
             name=None) -> torch.Tensor:
     """Softmax along ``axis``, routed as in the JAX package: cast to
-    ``dtype`` first; then the hand-written kernel (``ops/softmax.py``)
-    when the ``fused_softmax`` flag is active for the tensor's device and
-    ``supported(shape, axis)`` holds (the last axis); otherwise
-    ``torch.softmax``, the counterpart of the reference's
+    ``dtype`` first (an integer ``x`` without ``dtype`` to float32, as
+    ``jax.nn.softmax`` promotes it); then the hand-written kernel
+    (``ops/softmax.py``) when the ``fused_softmax`` flag is active for the
+    tensor's device and ``supported(shape, axis)`` holds (the last axis);
+    otherwise ``torch.softmax``, the counterpart of the reference's
     ``jax.nn.softmax``. The choice is made before any launch, on shape
     and axis alone as in the reference: a CUDA tensor of a dtype the
     kernel lacks (f32, bf16 and f16 are in) raises InvalidArgumentError
     instead of leaving the kernel."""
-    if dtype is not None:
-        x = x.to(dtypes.convert_dtype(dtype))
+    x = _float_input(x, dtype)
     if flag_active("fused_softmax", x.device) and \
             psm.supported(x.shape, axis):
         return psm.fused_softmax(x)
@@ -63,9 +75,9 @@ def softmax_(x: torch.Tensor, axis: int = -1, dtype=None,
              name=None) -> torch.Tensor:
     """:func:`softmax` in place, as the JAX package's ``_inplace``: a
     Paddle tensor is replaced by the result (its value, its dtype when
-    ``dtype`` is given, and its gradient path: ``Tensor._replace_impl``)
-    and returned; a plain torch tensor gets the result out of place, as
-    the reference's raw arrays do."""
+    ``dtype`` is given or ``x`` is an integer, and its gradient path:
+    ``Tensor._replace_impl``) and returned; a plain torch tensor gets the
+    result out of place, as the reference's raw arrays do."""
     y = softmax(x, axis, dtype)
     if isinstance(x, Tensor):
         x._replace_impl(y)
@@ -75,6 +87,6 @@ def softmax_(x: torch.Tensor, axis: int = -1, dtype=None,
 
 def log_softmax(x: torch.Tensor, axis: int = -1, dtype=None,
                 name=None) -> torch.Tensor:
-    if dtype is not None:
-        x = x.to(dtypes.convert_dtype(dtype))
-    return torch.log_softmax(x, dim=axis)
+    """Log-softmax along ``axis`` after :func:`softmax`'s cast (an integer
+    ``x`` becomes float32)."""
+    return torch.log_softmax(_float_input(x, dtype), dim=axis)

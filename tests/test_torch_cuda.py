@@ -44,11 +44,16 @@ versions at ResNet-50's four shapes, at one chunk a tile and at a short
 ragged shape, repeats bit for bit, one kernel each in a profile, 53
 alternating calls replayed in a CUDA graph as they ran eagerly, and that a
 first call inside a capture raises. For the row-softmax kernel
-(the eager slice) they hold it to its plain version on the warp and block
-paths, with and without 16-byte vectors, in f32 and bf16, its contract
-and its launch counter; and that the eager LeNet runs on the card by
-default, on Paddle tensors whose ``.numpy()`` reads the card, with one
-fused Adam launch per step and one softmax launch per prediction.
+(the eager slice) they hold it to its plain version on every path (lane
+groups of 1 to 32 lanes, an element a lane for few short rows, a block a
+row from shared memory up to the on-chip limit, two passes past it), at
+16-byte-aligned and odd start offsets, in f32, bf16 and f16, with masked,
+all -inf and +inf rows, repeats bit for bit and a CUDA-graph replay; its
+contract, refused plans raising, its launch counter, and integer input
+promoted onto the kernel by ``F.softmax``; and that the eager LeNet runs
+on the card by default, on Paddle tensors whose ``.numpy()`` reads the
+card, with one fused Adam launch per step and one softmax launch per
+prediction.
 """
 
 import numpy as np
@@ -1006,6 +1011,147 @@ def test_functional_softmax_on_the_card_launches_the_kernel(dev):
     assert psm.fused_softmax.launches == before + 2
     with pytest.raises(InvalidArgumentError, match="contract"):
         F.softmax(x.double())
+
+
+# every path of the kernel: lane groups of 1 to 32 lanes, a block a row
+# from shared memory (up to the on-chip limit) and the two-pass rows past
+# it, at widths whose rows start off a 16-byte boundary too; 384, 640,
+# 768 and 896 give lane groups of 32 lanes 3, 5, 6 and 7 vectors a lane
+# in f32 (2, 3, 3, 4 in bf16 / f16)
+SM_WIDTHS = [1, 3, 10, 127, 128, 129, 384, 640, 768, 896, 1003, 1024, 1025,
+             30522, 32000, psm.WIDE_MAX, psm.WIDE_MAX + 1]
+
+
+def _sm_view(dev, rows, h, dtype, offset, seed):
+    """A seeded [rows, h] view starting ``offset`` elements into its
+    storage (an odd offset: a data_ptr off a 16-byte boundary)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = (torch.randn(rows * h + offset, device=dev, generator=g) *
+            4).to(dtype)
+    return base[offset:].view(rows, h)
+
+
+def _sm_excess(y, want):
+    """Error beyond the tolerance: 1e-6 abs in f32, one rounding step of
+    the output dtype in bf16 / f16 (chip_smoke.py's SM_TOL, BF16_REL)."""
+    err = (y.float() - want.float()).abs()
+    if y.dtype == torch.float32:
+        return float(err.max()) - 1e-6
+    rel = 2.0 ** -7 if y.dtype == torch.bfloat16 else 2.0 ** -10
+    return float((err - rel * want.float().abs()).max()) - 1e-5
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("h", SM_WIDTHS)
+def test_softmax_every_path_matches_its_plain_version(dev, h, dtype,
+                                                      offset):
+    # enough rows of a short width that its lane group keeps the header's
+    # width (few rows spread over more lanes: the next test)
+    rows = 65536 if h <= 64 else (37 if h > psm.NARROW_MAX else 301)
+    x = _sm_view(dev, rows, h, dtype, offset, h + offset)
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
+    x[2, : h // 2] = -float("inf")                # masked entries give 0
+    before = psm.fused_softmax.launches
+    y = psm.softmax_fwd(x)
+    want = psm.softmax_ref(x)
+    torch.cuda.synchronize()
+    assert psm.fused_softmax.launches == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    assert y.data_ptr() % 16 == x.data_ptr() % 16
+    assert bool(torch.isfinite(y).all())
+    assert _sm_excess(y, want) <= 0
+    if h > 1:
+        assert float(y[2, : h // 2].abs().max()) == 0.0
+    assert torch.equal(psm.softmax_fwd(x), y)     # repeats bit-identical
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows,h", [(64, 10), (5, 3), (64, 64), (64, 65),
+                                    (2, 1000)])
+def test_softmax_few_rows_spread_over_a_warp(dev, rows, h, dtype, offset):
+    """LeNet's prediction and other launches too short to fill the card:
+    a warp a row, an element a lane up to SCALAR_MAX, vectors above."""
+    p = psm.plan(rows, h, torch.tensor([], dtype=dtype).element_size())
+    assert (p.group, p.vec == 1) == (32, h <= psm.SCALAR_MAX)
+    x = _sm_view(dev, rows, h, dtype, offset, rows + h)
+    before = psm.fused_softmax.launches
+    y = psm.softmax_fwd(x)
+    torch.cuda.synchronize()
+    assert psm.fused_softmax.launches == before + 1
+    assert _sm_excess(y, psm.softmax_ref(x)) <= 0
+    assert torch.equal(psm.softmax_fwd(x), y)
+
+
+@pytest.mark.parametrize("h", [10, 128, 1003, 30522, psm.WIDE_MAX + 1])
+def test_softmax_inf_rows_on_every_path(dev, h):
+    """An all -inf row is NaN, a +inf entry makes its row NaN, a row
+    masked but for one entry puts 1 there; the other rows are untouched
+    by their neighbours, as the plain version has them."""
+    x = _sm_view(dev, 9, h, torch.float32, 1, h)
+    x[1] = -float("inf")
+    x[4, h // 2] = float("inf")
+    x[6] = -float("inf")
+    x[6, h - 1] = 2.0
+    y = psm.softmax_fwd(x)
+    want = psm.softmax_ref(x)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(y[1]).all()) and bool(torch.isnan(y[4]).all())
+    assert float(y[6, h - 1]) == 1.0 and float(y[6, : h - 1].abs().sum()) == 0
+    keep = [0, 2, 3, 5, 6, 7, 8]
+    assert _sm_excess(y[keep], want[keep]) <= 0
+
+
+def test_softmax_refused_plans_raise(dev, monkeypatch):
+    """A plan the kernel lacks, and a ring of shared buffers larger than a
+    block can hold, come back as a CUDA error the wrapper raises; the
+    counter does not move and the next call runs."""
+    x = _sm_view(dev, 8, 4096, torch.float32, 0, 3)
+    before = psm.fused_softmax.launches
+    good = psm.plan
+    monkeypatch.setattr(psm, "plan", lambda *a: good(*a)._replace(group=3))
+    with pytest.raises(KernelLaunchError, match="softmax"):
+        psm.softmax_fwd(x[:, :100])
+    monkeypatch.setattr(psm, "plan", lambda *a: good(*a)._replace(
+        nbuf=2, buf_bytes=131072))
+    with pytest.raises(KernelLaunchError, match="softmax"):
+        psm.softmax_fwd(x)
+    monkeypatch.undo()
+    assert psm.fused_softmax.launches == before
+    assert _sm_excess(psm.softmax_fwd(x), psm.softmax_ref(x)) <= 0
+
+
+def test_softmax_replays_in_a_cuda_graph(dev):
+    xs = [_sm_view(dev, 64, h, torch.bfloat16, 1, h) for h in
+          (10, 128, 32000, psm.WIDE_MAX + 1)]
+    eager = [psm.softmax_fwd(x) for x in xs]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        [psm.softmax_fwd(x) for x in xs]
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [psm.softmax_fwd(x) for x in xs]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_functional_softmax_promotes_integers_onto_the_kernel(dev, dtype):
+    x = torch.arange(6, device=dev, dtype=dtype).reshape(2, 3)
+    before = psm.fused_softmax.launches
+    y = F.softmax(x)
+    assert psm.fused_softmax.launches == before + 1
+    assert y.dtype == torch.float32
+    assert _sm_excess(y, psm.softmax_ref(x.float())) <= 0
+    assert F.log_softmax(x).dtype == torch.float32
+    assert psm.fused_softmax.launches == before + 1
 
 
 def test_eager_lenet_runs_on_the_card(dev):

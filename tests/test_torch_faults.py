@@ -973,3 +973,55 @@ def test_f12_set_device_cpu_runs_a_layer_like_the_reference(monkeypatch):
     tplace._tls.place = None
     with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
         tp.nn.Linear(4, 6)
+
+
+# ---------------------------------------------------------------------------
+# F13: softmax and log-softmax of an integer tensor are float32, as
+# jax.nn.softmax / jax.nn.log_softmax promote it in the JAX package
+# (paddle1_tpu/nn/functional/activation.py:178-189); the port raised
+# NotImplementedError ("softmax_lastdim_kernel_impl" not implemented for
+# 'Long'). The JAX package keeps int64 as int32 (no x64 mode).
+
+F13_CALLS = [
+    ("softmax", lambda P, x, a: P.nn.functional.softmax(x, axis=a)),
+    ("log_softmax", lambda P, x, a: P.nn.functional.log_softmax(x, axis=a)),
+    ("softmax_", lambda P, x, a: P.nn.functional.softmax_(x, axis=a)),
+    ("Softmax", lambda P, x, a: P.nn.Softmax(axis=a)(x)),
+    ("LogSoftmax", lambda P, x, a: P.nn.LogSoftmax(axis=a)(x)),
+]
+
+
+@pytest.mark.parametrize("axis", [-1, 0])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("name,call", F13_CALLS,
+                         ids=[c[0] for c in F13_CALLS])
+def test_f13_softmax_of_integers_is_float32_as_the_reference(
+        cpu_place, name, call, dtype, axis):
+    a = np.random.default_rng(13).integers(-6, 7, size=(3, 5)).astype(dtype)
+    jx, tx = _both(a)
+    want, got = call(jp, jx, axis), call(tp, tx, axis)
+    assert str(got.dtype) == "torch.float32" and "float32" in str(want.dtype)
+    np.testing.assert_allclose(got.detach().numpy(), _np(want), atol=1e-6,
+                               rtol=1e-6)
+    if name == "softmax_":        # the tensor itself becomes the result
+        assert got is tx and tx.dtype == torch.float32
+        np.testing.assert_allclose(tx.numpy(), _np(jx), atol=1e-6,
+                                   rtol=1e-6)
+
+
+def test_f13_integers_take_the_kernels_route_and_bool_is_refused(cpu_place):
+    a = np.arange(6).reshape(2, 3)
+    want = _np(jF.softmax(jp.to_tensor(a)))
+    with tflags.flags_guard(fused_softmax="always"):
+        got = tF.softmax(tp.to_tensor(a))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
+    # an explicit dtype still casts first, as before
+    np.testing.assert_allclose(
+        tF.softmax(tp.to_tensor(a), dtype="float32").numpy(), want,
+        atol=1e-6, rtol=1e-6)
+    # bool is not promoted: both packages refuse it
+    with pytest.raises(TypeError):
+        jF.softmax(jp.to_tensor(a > 2))
+    with pytest.raises((RuntimeError, NotImplementedError)):
+        tF.softmax(tp.to_tensor(a > 2))

@@ -496,6 +496,238 @@ def test_softmax_flag_keeps_the_jax_name_and_defaults_to_the_card():
     assert "softmax" in build.SOURCES
 
 
+# the row-softmax kernel's partition (ops/cuda/softmax.cu's header):
+# widths of every path, the on-chip limit and one past it, rows starting
+# on and off a 16-byte boundary, and lane groups of 32 lanes holding every
+# count of vectors a lane (384, 640, 768, 896: 3, 5, 6, 7 in f32)
+SM_WIDTHS = [1, 3, 10, 127, 128, 129, 384, 640, 768, 896, 1003, 1024, 1025,
+             30522, 32000, 32768, 32769]
+# width -> (path, G or threads, vectors a lane or thread) in f32 | bf16,
+# at enough rows that the lane groups keep their header widths
+SM_PLANS = {
+    1: (("narrow", 1, 1), ("narrow", 1, 1)),
+    3: (("narrow", 1, 1), ("narrow", 1, 1)),
+    10: (("narrow", 2, 1), ("narrow", 1, 1)),
+    127: (("narrow", 32, 1), ("narrow", 16, 1)),
+    128: (("narrow", 32, 1), ("narrow", 16, 1)),
+    129: (("narrow", 32, 1), ("narrow", 16, 1)),
+    384: (("narrow", 32, 3), ("narrow", 32, 2)),
+    640: (("narrow", 32, 5), ("narrow", 32, 3)),
+    768: (("narrow", 32, 6), ("narrow", 32, 3)),
+    896: (("narrow", 32, 7), ("narrow", 32, 4)),
+    1003: (("narrow", 32, 8), ("narrow", 32, 4)),
+    1024: (("narrow", 32, 8), ("narrow", 32, 4)),
+    1025: (("wide", 256, 1), ("wide", 128, 1)),
+    30522: (("wide", 960, 8), ("wide", 960, 4)),
+    32000: (("wide", 1024, 8), ("wide", 1024, 4)),
+    32768: (("wide", 1024, 8), ("wide", 1024, 4)),
+    32769: (("two_pass", 512, 1), ("two_pass", 512, 1)),
+}
+_SM_JAX = {}
+
+
+def test_softmax_plan_takes_the_paths_the_header_states():
+    from paddle1_tpu_torch.ops import softmax as tsm
+    assert (tsm.NARROW_MAX, tsm.WIDE_MAX) == (1024, 32768)
+    for h, plans in SM_PLANS.items():
+        for item, want in zip((4, 2), plans):
+            p = tsm.plan(10 ** 6, h, item)
+            width = p.group if p.path == "narrow" else p.threads
+            assert (p.path, width, p.chunks) == want, (h, item, p)
+            if p.path == "narrow":      # at most 32 values a lane
+                assert p.chunks * p.vec <= 32
+            if p.path == "wide":    # two row buffers where two fit
+                assert p.buf_bytes >= h * item and p.buf_bytes % 128 == 0
+                assert p.nbuf == (2 if 2 * p.buf_bytes <= tsm.RING_BYTES
+                                  else 1)
+    # bf16 rows of 32000 (64 KB) get two buffers, f32 ones (128 KB) one
+    assert tsm.plan(2048, 32000, 2).nbuf == 2
+    assert tsm.plan(2048, 32000, 4).nbuf == 1
+    # few rows spread over more lanes: LeNet's prediction, a warp a row
+    # and an element a lane; BERT's attention rows keep their groups
+    assert tsm.plan(64, 10, 4)[:5] == ("narrow", 32, 1, 256, 1)
+    assert tsm.plan(64, 65, 2)[:5] == ("narrow", 32, 1, 256, 8)
+    assert tsm.plan(196608, 128, 2)[:3] == ("narrow", 16, 1)
+
+
+def _sm_kernel_has(p, item):
+    """Whether ops/cuda/softmax.cu instantiates plan ``p`` for ``item``-
+    byte elements: narrow_fn's rule (pieces of 16 bytes at G = 1 .. 32
+    lanes, C > 1 only at 32, C * V <= 32; single elements at 32 lanes,
+    C <= 2; C from narrow_by_c's 1 .. 8), wide_fn's (CH = 1, 2, 4 or 8,
+    CH * V <= 32, threads a multiple of 32 up to 1024 that hold the row's
+    vectors) and the two-pass launch's."""
+    v = 16 // item
+    if p.path == "narrow":
+        if p.group not in (1, 2, 4, 8, 16, 32) or not 1 <= p.chunks <= 8 \
+                or p.threads != 256:
+            return False
+        if p.vec == 1:
+            return p.group == 32 and p.chunks <= 2
+        return p.vec == v and (p.group == 32 or p.chunks == 1) and \
+            p.chunks * v <= 32
+    if p.path == "wide":
+        return (p.chunks in (1, 2, 4, 8) and p.chunks * v <= 32 and
+                p.vec == v and 32 <= p.threads <= 1024 and
+                p.threads % 32 == 0 and p.nbuf in (1, 2))
+    return p.path == "two_pass" and p.threads == 512 and p.vec == v
+
+
+@pytest.mark.parametrize("item", [4, 2])
+def test_softmax_plan_names_only_kernels_the_source_instantiates(item):
+    """Every plan of every width up to the on-chip limit and one past
+    it, at row counts from one to many, is one the kernel has; its lanes
+    (threads) times pieces cover the row's whole vectors, and the wide
+    path's ring fits a block."""
+    from paddle1_tpu_torch.ops import softmax as tsm
+    for rows in (1, 64, 1024, 2048, 4096, 8192, 10 ** 6):
+        for h in range(1, tsm.WIDE_MAX + 2):
+            if rows != 10 ** 6 and h > tsm.NARROW_MAX:
+                break                       # the wide plan ignores rows
+            p = tsm.plan(rows, h, item)
+            assert _sm_kernel_has(p, item), (rows, h, p)
+            units = p.group if p.path == "narrow" else p.threads
+            if p.path != "two_pass":
+                assert units * p.chunks >= h // p.vec, (rows, h, p)
+            if p.path == "wide":
+                assert p.nbuf * p.buf_bytes <= tsm.RING_BYTES
+
+
+def _sm_jax(x, dtype):
+    """The JAX package's fused_softmax on ``x`` (f32 numpy) cast to
+    ``dtype``, in interpret mode, as f32 numpy; once per input."""
+    import jax.numpy as jnp
+    from paddle1_tpu.ops.pallas import softmax as jsm
+    key = (x.shape, x.tobytes(), str(dtype))
+    if key not in _SM_JAX:
+        jd = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+              torch.float16: jnp.float16}[dtype]
+        with jax_flags_guard({"fused_softmax": "always"}):
+            y = jsm.fused_softmax(jnp.asarray(x).astype(jd))
+        _SM_JAX[key] = np.asarray(y.astype(jnp.float32))
+    return _SM_JAX[key]
+
+
+def _sm_within(got, want, dtype):
+    """f32: SM_TOL; bf16 / f16: one rounding step of the output."""
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, **SM_TOL)
+    else:
+        rel = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+        assert float((np.abs(got - want) - rel * np.abs(want)).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("h", SM_WIDTHS)
+def test_softmax_emulation_covers_each_element_once_in_aligned_pieces(
+        h, dtype, offset):
+    from paddle1_tpu_torch.ops import softmax as tsm
+    rows = 8
+    rng = np.random.default_rng(h)
+    x = (rng.standard_normal((rows, h)) * 4).astype(np.float32)
+    x[3, : h // 2] = -np.inf                    # a masked half row
+    base = torch.zeros(rows * h + offset, dtype=dtype)
+    xt = base[offset:].view(rows, h)
+    xt.copy_(torch.from_numpy(x))
+    assert (xt.data_ptr() % 16 != 0) == bool(offset)
+    y, p, hits, vectors, copies = tsm.softmax_emulation(xt)
+    item = xt.element_size()
+    assert p == tsm.plan(rows, h, item)
+    assert p.path == SM_PLANS[h][item == 2][0]
+    assert bool((hits == 1).all())                # every element once
+    assert all(a % 16 == 0 for a in vectors)      # loads of x, stores of y
+    for addr, off, n in copies:                   # the wide path's copies
+        assert addr % 16 == 0 and off % 16 == 0 and n % 16 == 0
+        assert 0 < n <= tsm.BULK_PIECE and off + n <= p.buf_bytes
+    assert (p.path == "wide") == bool(copies)
+    if h >= 16:       # a body in vectors on every row, aligned or not
+        assert len(vectors) >= rows * 2 * ((h * item // 16) - 1)
+    xq = xt.float().numpy()                       # the input as rounded
+    want = tsm.softmax_ref(xt).float().numpy()
+    _sm_within(y.float().numpy(), want, dtype)
+    _sm_within(y.float().numpy(), _sm_jax(xq, dtype), dtype)
+    if h > 1:
+        assert float(np.abs(y[3, : h // 2].float().numpy()).max()) == 0.0
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("h", [1, 3, 10, 127, 128, 129])
+def test_softmax_emulation_of_the_header_lane_groups(monkeypatch, h, dtype,
+                                                     offset):
+    """The lane groups of many rows (1 to 16 lanes, scalar heads and
+    tails of up to 7 elements) on 8 rows: as the kernel takes them when
+    the rows fill the card."""
+    from paddle1_tpu_torch.ops import softmax as tsm
+    monkeypatch.setattr(tsm, "FILL_LANES", 0)
+    base = torch.zeros(8 * h + offset, dtype=dtype)
+    xt = base[offset:].view(8, h)
+    xt.copy_(torch.from_numpy(
+        np.random.default_rng(h).standard_normal((8, h)) * 4))
+    y, p, hits, vectors, _ = tsm.softmax_emulation(xt)
+    want = SM_PLANS[h][xt.element_size() == 2]
+    assert (p.path, p.group, p.chunks) == want
+    assert p.vec == 16 // xt.element_size()
+    assert bool((hits == 1).all()) and all(a % 16 == 0 for a in vectors)
+    _sm_within(y.float().numpy(), tsm.softmax_ref(xt).float().numpy(), dtype)
+    _sm_within(y.float().numpy(), _sm_jax(xt.float().numpy(), dtype), dtype)
+
+
+def test_softmax_emulation_keeps_the_nan_and_inf_rows():
+    """An all -inf row is NaN, a +inf entry makes its row NaN, on each
+    path, as in the plain version."""
+    from paddle1_tpu_torch.ops import softmax as tsm
+    for h in (10, 1003, 30522, 32769):
+        x = torch.randn(3, h, generator=torch.Generator().manual_seed(h))
+        x[0] = -float("inf")
+        x[1, h // 3] = float("inf")
+        y = tsm.softmax_emulation(x)[0]
+        assert bool(torch.isnan(y[:2]).all()), h
+        assert bool(torch.isfinite(y[2]).all())
+        torch.testing.assert_close(y, tsm.softmax_ref(x), equal_nan=True,
+                                   atol=1e-6, rtol=1e-6)
+
+
+def _rn32(q):
+    """The float32 nearest to the rational ``q`` (ties to even)."""
+    from fractions import Fraction
+    f = np.float32(float(q))
+    cands = (np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf)))
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - q),
+                                     int(np.float32(c).view(np.uint32)) & 1))
+
+
+def test_softmax_kernel_quotient_is_the_correctly_rounded_divide():
+    """The kernel's e / s (ops/cuda/softmax.cu ``quotient``: q = e * r
+    with r = 1 / s rounded, then q + (e - s * q) * r, each step one f32
+    rounding) is the f32 quotient, in exact arithmetic, over sums s in [1,
+    40000] and exponentials e in [0, 1]; a subnormal quotient (below
+    2**-126) is within one subnormal step (2**-149) of it."""
+    from fractions import Fraction
+    rng = np.random.default_rng(18)
+    for k in range(3000):
+        s = np.float32(rng.uniform(1, 2) if k % 3 == 0 else
+                       rng.uniform(1, 40000))
+        e = np.float32(np.exp(-rng.uniform(0, 100)) if k % 2 else
+                       rng.uniform(0, 1))
+        fs, fe = Fraction(float(s)), Fraction(float(e))
+        r = _rn32(1 / fs)
+        q = np.float32(e * r)                     # one f32 product
+        rem = _rn32(fe - fs * Fraction(float(q)))
+        got = _rn32(Fraction(float(rem)) * Fraction(float(r)) +
+                    Fraction(float(q)))
+        want = _rn32(fe / fs)
+        if want >= np.float32(2.0 ** -126):
+            assert got == want, (e, s)
+        else:
+            assert abs(Fraction(float(got)) - Fraction(float(want))) <= \
+                Fraction(2) ** -149, (e, s)
+
+
 # ---------------------------------------------------------------------------
 # fused AdamW: the kernel's partition (head, 16-byte body, tail; chunks in
 # the persistent grid's order), emulated on CPU tensors
