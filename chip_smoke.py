@@ -283,6 +283,45 @@ Phases, each fatal on failure (non-zero exit, no result line):
     halves of 16, Paddle's reading) gives logits that, joined by
     ``paddle.concat``, equal the whole batch's within 1e-4. Prints the
     accuracy, eval ms a batch and the launches.
+25. **Rows 3-6 in float16.** The flash forward, dK/dV and dQ passes in
+    float16 (the f16 form of the tensor-core product) against their plain
+    versions at the fine-tuning shape ``[32, 128, 12, 64]`` with its
+    ragged ``[B, Nk]`` keep-mask (also causal) and ERNIE-1.5B's ``[4,
+    512, 18, 128]``: one f16 rounding step beyond FLASH_BF16_ABS on the
+    outputs and on dQ/dK/dV, LSE to 1e-5, the fully padded row zero,
+    repeats bit for bit; timed at both shapes by graph replay beside
+    their plain versions, ``sdpa`` in float16 and their bounds. The fused
+    AdamW kernel on float16 parameters (f32 moments) over BERT-base's
+    110 M parameters, aligned, with mixed scales and on views at odd
+    offsets, against its plain version (Adam's tolerance); timed in
+    alternating rounds of graph replays beside
+    ``torch.optim.AdamW(fused=True, capturable=True)`` on the same
+    float16 parameters, its plain version and its bound.
+26. **BERT-base fine-tuning under AMP O1 (the ninth main path).** Phase
+    21's cell (warm start, batches, optimizer) under
+    ``paddle.amp.auto_cast()``: the step-1 loss within 2e-2 relative of
+    the f32 path's on the same weights, batch and dropout masks; three
+    bf16 steps with the counters zeroed just before and read just after
+    (12 flash forward, dK/dV and dQ launches a step on bf16 q, 25
+    LayerNorm launches a forward in f32, one fused AdamW a step on the
+    f32 parameters), every gradient f32; then steps under
+    ``auto_cast(dtype="float16")`` with ``GradScaler(
+    init_loss_scaling=2**40)``: each overflowing step skipped with every
+    parameter and Adam moment bit-equal to before and the scale halved,
+    until a step applies; three more with the counters zeroed (flash in
+    float16, one AdamW an applied step), losses finite. Each dtype's step
+    timed by slope+readback as phase 21, two more under ``torch.profiler``
+    for the device's busy time and idle share; prints step ms, samples/s
+    and MFU over 989 TFLOP/s beside phase 21's f32 step, and the count of
+    skipped steps.
+27. **O2 (pure low precision).** ``paddle.amp.decorate(clf, opt,
+    level="O2", dtype=...)`` on a fresh warm start, for bfloat16 and for
+    float16 (with ``GradScaler()``): the parameters in the dtype, three
+    steps under ``auto_cast(level="O2")`` with the counters zeroed (flash
+    in the dtype, fused AdamW on the dtype's parameters with f32
+    moments), losses finite; timed as phase 26; a ``save`` -> ``load`` of
+    model, optimizer and ``scaler.state_dict()`` into a fresh decorated
+    classifier repeats the next step bit for bit.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -974,9 +1013,11 @@ def event_time_ms(fn, reps=20):
 
 
 def bf16_excess(got, want):
-    """How far |got - want| exceeds one bf16 rounding step of want."""
+    """How far |got - want| exceeds one rounding step of want in its
+    16-bit type (bf16: 2^-7 relative, f16: 2^-10)."""
+    step = F16_REL if want.dtype == torch.float16 else BF16_REL
     got, want = got.float(), want.float()
-    return float(((got - want).abs() - BF16_REL * want.abs()).max())
+    return float(((got - want).abs() - step * want.abs()).max())
 
 
 def bound(bytes_, flops, flops_per_s):
@@ -996,7 +1037,8 @@ def flash_bounds(q, keep):
     mask_b = keep.numel()
     rows_f32 = b * h * n * 4                      # one f32 per query row
     t = q.numel() * el
-    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    # the tensor cores' dense peak is the same in bf16 and f16
+    peak = BF16_FLOPS_PER_S if el == 2 else F32_FLOPS_PER_S
     return {
         "fwd": bound(4 * t + rows_f32 + mask_b, 4.0 * d * pairs, peak),
         "dkv": bound(6 * t + 2 * rows_f32 + mask_b, 8.0 * d * pairs, peak),
@@ -1028,21 +1070,31 @@ def flash_case(dev, dtype, seed, n_sets=1, shape=BERT_ATTN):
     return sets, keep, torch.ones(b, n, dtype=torch.bool, device=dev)
 
 
-def flash_check(dev):
+FLASH_CASES = ((torch.float32, False, BERT_ATTN),
+               (torch.float32, True, BERT_ATTN),
+               (torch.bfloat16, False, BERT_ATTN),
+               (torch.bfloat16, True, BERT_ATTN),
+               (torch.float32, False, ERNIE_ATTN),
+               (torch.bfloat16, False, ERNIE_ATTN),
+               (torch.float32, False, FT_ATTN))
+# float16 (phase 25): the fine-tuning shape with its ragged keep-mask,
+# causal too, and ERNIE-1.5B's
+FLASH_F16_CASES = ((torch.float16, False, FT_ATTN),
+                   (torch.float16, True, FT_ATTN),
+                   (torch.float16, False, ERNIE_ATTN))
+
+
+def flash_check(dev, cases=FLASH_CASES):
     """Hold the three flash kernels to their plain versions in f32 and
     bf16 (padded tails, one fully padded row; causal in both; both also
-    at ERNIE-1.5B's [4, 512, 18, 128]). The bf16 cases, which run the
-    tensor-core kernels, must repeat bit for bit."""
+    at ERNIE-1.5B's [4, 512, 18, 128]; ``cases`` are (dtype, causal,
+    shape)). The 16-bit cases, which run the tensor-core kernels, must
+    repeat bit for bit and stay within one rounding step of their type
+    beyond FLASH_BF16_ABS."""
     from paddle1_tpu_torch.ops import flash_attention as fa
     from paddle1_tpu_torch.ops import flash_attention_bwd as fb
     errs = {"fwd": [], "dkv": [], "dq": []}
-    for dtype, causal, shape in ((torch.float32, False, BERT_ATTN),
-                                 (torch.float32, True, BERT_ATTN),
-                                 (torch.bfloat16, False, BERT_ATTN),
-                                 (torch.bfloat16, True, BERT_ATTN),
-                                 (torch.float32, False, ERNIE_ATTN),
-                                 (torch.bfloat16, False, ERNIE_ATTN),
-                                 (torch.float32, False, FT_ATTN)):
+    for dtype, causal, shape in cases:
         scale = 1.0 / shape[-1] ** 0.5
         sets, keep, _ = flash_case(dev, dtype, SEED + 3, shape=shape)
         q, k, v, do = sets[0]
@@ -1056,7 +1108,7 @@ def flash_check(dev):
                                       keep)
         torch.cuda.synchronize()
         tag = f"{str(dtype).split('.')[-1]} causal={causal} {list(shape)}"
-        if dtype == torch.bfloat16:
+        if dtype != torch.float32:
             again = (*fa.flash_fwd(q, k, v, scale, causal, keep),
                      *fb.flash_bwd_dkv(q, k, v, do, rl, delta, scale, causal,
                                        keep),
@@ -1088,7 +1140,7 @@ def flash_check(dev):
             else:
                 exc = max(bf16_excess(a, b) for a, b in ps)
                 check(exc <= FLASH_BF16_ABS, f"flash {name} {tag}: exceeds "
-                      f"one bf16 rounding step by {exc}")
+                      f"one rounding step of its type by {exc}")
             errs[name].append({"dtype": str(dtype), "causal": causal,
                                "shape": list(shape), "max_abs_err": err})
             log(f"flash {name} {tag}: max_abs_err={err:.3e}")
@@ -4315,6 +4367,354 @@ def finetune_eval_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 25-27: float16 on rows 3-6, and eager fine-tuning under AMP
+
+# phase 26-27: timed steps a trial (slope+readback, 3 trials), the steps an
+# AMP run takes before its timing, at most AMP_SKIP_MAX skipped f16 steps
+# before one applies, the step-1 loss's relative distance from the f32
+# path's, and float16 O1's first loss scale (2^40 overflows the f16
+# gradients: the scaler must skip and halve until they are finite)
+AMP_STEPS, AMP_CHECK_STEPS, AMP_SKIP_MAX = 12, 3, 60
+AMP_LOSS_RTOL, AMP_F16_INIT_SCALE = 2e-2, 2.0 ** 40
+
+
+def f16_kernels_phase(dev):
+    """Phase 25 (the module docstring): rows 3-6 in float16."""
+    from paddle1_tpu_torch.ops import fused_adam as fad
+    errs = flash_check(dev, FLASH_F16_CASES)
+    timing = {}
+    for name, shape, ragged in (("bert_finetune", FT_ATTN, True),
+                                ("ernie", ERNIE_ATTN, False)):
+        t, b, sh = flash_timing(dev, shape, torch.float16, ragged=ragged)
+        timing[name] = {"shape": sh, "ms": {k: t[k] for k in (
+            "fwd", "dkv", "dq", "fwd_plain", "bwd_plain", "fwd_library",
+            "bwd_library", "fwd_bwd_library", "fwd_bwd_library_eager")},
+            "library_ops": t["library_backend"],
+            "bound_ms": {k: v[0] for k, v in b.items()},
+            "bound_by": {k: v[1] for k, v in b.items()}}
+
+    # row 6 over BERT-base's 110 M parameters in float16 (f32 moments):
+    # aligned, mixed scales, views at odd offsets; then timed beside the
+    # library's fused AdamW on the same float16 parameters
+    g = torch.Generator(device=dev).manual_seed(SEED + 250)
+    shapes = bert_shapes()
+    n_el = sum(int(np.prod(s)) for s in shapes)
+    sc = torch.tensor([LR, 1 - 0.9 ** 3, 1 - 0.999 ** 3], device=dev)
+    mixed = [ADAM_SCALES[i % len(ADAM_SCALES)] for i in range(len(shapes))]
+    mixed_dec = [(0.01, 0.0)[i % 2] for i in range(len(shapes))]
+    decays = [0.01] * len(shapes)
+    adam_errs = []
+    for scales, decs, unaligned in ((None, decays, False),
+                                    (mixed, mixed_dec, False),
+                                    (mixed, mixed_dec, True)):
+        ts = adam_tensors(shapes, torch.float16, g, dev, unaligned)
+        tag = (f"float16 over {len(shapes)} tensors ({n_el} elements), lr "
+               f"scales {sorted(set(scales or [1.0]))}"
+               f"{', views at odd offsets' if unaligned else ''}")
+        adam_errs.append({"dtype": "torch.float16", "max_abs_err":
+                          adam_check(fad, ts, sc, decs, scales, tag),
+                          "lr_scales": sorted(set(scales or [1.0])),
+                          "unaligned_views": unaligned})
+        del ts
+    ps, gs, m1, m2 = adam_tensors(shapes, torch.float16, g, dev)
+    lib_ps = [torch.nn.Parameter(p.detach().clone()) for p in ps]
+    for p, q in zip(lib_ps, gs):
+        p.grad = q
+    lib_opt = torch.optim.AdamW(lib_ps, lr=LR, weight_decay=0.01,
+                                fused=True, capturable=True)
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    t = alternating_ms({"kernel": lambda: fad.fused_adam_(
+        ps, gs, m1, m2, sc, decays, b1, b2, eps), "library": lib_opt.step})
+
+    def plain():
+        for p, q, a, b in zip(ps, gs, m1, m2):
+            np_, na, nb = fad.fused_adam_ref(p, q, a, b, sc[0], sc[1], sc[2],
+                                             0.01, b1, b2, eps)
+            p.copy_(np_)
+            a.copy_(na)
+            b.copy_(nb)
+    plain_ms = graph_time_ms([plain], reps=5)
+    b_ms, by = bound((3 * 2 + 16.0) * n_el, 12.0 * n_el, F32_FLOPS_PER_S)
+    adam = {"ms": t["kernel"]["median_ms"],
+            "ms_spread": t["kernel"]["spread_ms"],
+            "library_ms": t["library"]["median_ms"],
+            "library_ms_spread": t["library"]["spread_ms"],
+            "library_bytes_per_element": 14, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "elements": n_el,
+            "rounds_ms": {k: v["rounds_ms"] for k, v in t.items()},
+            "cases": adam_errs}
+    log(f"fused_adam timing (float16, {n_el} elements, 1 launch; "
+        f"alternating rounds of graph replays): {adam['ms']:.5f} ms (spread "
+        f"{adam['ms_spread']:.5f}; library {adam['library_ms']:.5f}; plain "
+        f"{plain_ms:.5f}; bound {b_ms:.5f} {by})")
+    del ps, gs, m1, m2, lib_ps, lib_opt
+    torch.cuda.empty_cache()
+    out = {"flash_errors": errs, "flash_timing": timing, "fused_adam": adam}
+    log(json.dumps({"f16_kernels": out}))
+    return out
+
+
+class FlashDtypes:
+    """Record the dtype of every flash forward's q while open (through the
+    wrapper's input check, so no launch is counted twice)."""
+
+    def __enter__(self):
+        from paddle1_tpu_torch.ops import flash_attention as fa
+        self.fa, self.orig, self.seen = fa, fa._check, set()
+
+        def spy(name, q, *a):
+            self.seen.add(str(q.dtype).split(".")[-1])
+            return self.orig(name, q, *a)
+        fa._check = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.fa._check = self.orig
+
+
+def amp_step_fn(paddle, clf, opt, batches, level, dtype, scaler=None,
+                grads_f32=False):
+    """One eager step under ``auto_cast(level=level, dtype=dtype)``:
+    ``scaler.scale(loss).backward(); scaler.step(opt)`` (plain
+    ``backward``/``step`` without a scaler), ``opt.clear_grad()``.
+    ``grads_f32``: check that every gradient is float32."""
+    F = paddle.nn.functional
+    turn = [0]
+
+    def step():
+        x, y = batches[turn[0] % len(batches)]
+        turn[0] += 1
+        with paddle.amp.auto_cast(level=level, dtype=dtype):
+            loss = F.cross_entropy(clf(x), y)
+        (loss if scaler is None else scaler.scale(loss)).backward()
+        if grads_f32:
+            check(all(p.grad.dtype == torch.float32
+                      for p in clf.parameters()),
+                  "auto_cast: a float32 parameter's gradient is not float32")
+        if scaler is None:
+            opt.step()
+        else:
+            scaler.step(opt)
+        opt.clear_grad()
+        return loss
+    return step
+
+
+def amp_launches(step, n, flash_dtype, scaler=None, tag=""):
+    """``n`` steps of the main path with the counters zeroed just before
+    and read just after; the flash forwards must run in ``flash_dtype``,
+    the losses be finite, and each launch count be a step's (12 flash
+    forward, dK/dV and dQ launches, 25 LayerNorm launches a forward, one
+    fused AdamW an applied step; a step ``scaler`` skips launches no
+    AdamW). Returns (launches, losses, applied steps)."""
+    counters = train_counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, applied = [], 0
+    with FlashDtypes() as fd:
+        for _ in range(n):
+            losses.append(float(step()))
+            applied += scaler is None or not scaler.last_step_skipped()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(fd.seen == {flash_dtype}, f"{tag}: flash ran on {fd.seen}, want "
+          f"{flash_dtype}")
+    check(all(np.isfinite(losses)), f"{tag}: non-finite losses {losses}")
+    want = {"flash_attention": BERT_LAYERS * n,
+            "flash_attention_bwd_dkv": BERT_LAYERS * n,
+            "flash_attention_bwd_dq": BERT_LAYERS * n, "fused_adam": applied,
+            "layer_norm": (2 * BERT_LAYERS + 1) * n}
+    check(launches == want and applied > 0, f"{tag}: launches {launches} "
+          f"over {n} steps ({applied} applied), want {want}")
+    return launches, losses, applied
+
+
+def amp_timing(step, n_params, tag):
+    """Slope+readback step time (phase 21's protocol), samples/s, MFU
+    (phase 21's FLOPs over the 16-bit dense peak), and two profiled steps'
+    device busy time and the idle share against the untraced step."""
+    slopes, _, _ = timed_steps(step, AMP_STEPS)
+    dt = float(np.median(slopes))
+    prof = device_kernels_per_step(step, 2)
+    busy = prof["device_busy_ms_per_step"]
+    flops = (6 * n_params * FT_BATCH * FT_SEQ +
+             12 * BERT_LAYERS * FT_BATCH * FT_SEQ ** 2 * BERT_HIDDEN)
+    out = {"step_ms_median": dt * 1e3, "step_ms_min": min(slopes) * 1e3,
+           "step_ms_max": max(slopes) * 1e3, "samples_per_s": FT_BATCH / dt,
+           "tokens_per_s": FT_BATCH * FT_SEQ / dt, "flops_per_step": flops,
+           "mfu": flops / dt / BF16_FLOPS_PER_S,
+           "mfu_peak": "bf16/f16 dense 989 TFLOP/s",
+           "device_busy_ms_per_step": busy,
+           "device_idle_share": 1.0 - busy / (dt * 1e3),
+           "kernels_per_step": prof["kernels_per_step"],
+           "top_kernels": prof["top_kernels"][:6]}
+    log(f"{tag}: {out['step_ms_median']:.2f} ms a step "
+        f"({out['samples_per_s']:.1f} samples/s, MFU {out['mfu']:.3f}; "
+        f"busy {busy:.2f} ms, idle {out['device_idle_share']:.3f})")
+    return out
+
+
+def params_and_moments(clf, opt):
+    """Copies of every parameter and Adam moment, in order."""
+    out = [p.detach().clone() for p in clf.parameters()]
+    for p in clf.parameters():
+        out += [t.clone() for t in opt._slots.get(id(p), {}).values()]
+    return out
+
+
+def finetune_amp_phase(dev, ft):
+    """Phase 26 (the module docstring). ``ft``: phase 21's summary."""
+    import paddle1_tpu_torch as paddle
+    clf, opt, _, batches, _ = ft_setup(paddle)
+    n_params = sum(p.nelement() for p in clf.parameters())
+    check({p.dtype for p in clf.parameters()} == {torch.float32},
+          "O1 fine-tuning: the parameters are not float32")
+    # (a) bf16: the step-1 loss against the f32 path's, on the same
+    # weights, batch and dropout masks
+    x, y = batches[0]
+    F = paddle.nn.functional
+    with paddle.no_grad():
+        torch.manual_seed(SEED + 260)
+        f32_loss = float(F.cross_entropy(clf(x), y))
+        torch.manual_seed(SEED + 260)
+        with paddle.amp.auto_cast():
+            amp_loss = float(F.cross_entropy(clf(x), y))
+    rel = abs(amp_loss - f32_loss) / abs(f32_loss)
+    check(rel <= AMP_LOSS_RTOL, f"bf16 O1 step-1 loss {amp_loss} is "
+          f"{rel:.3e} from the f32 path's {f32_loss}")
+    step = amp_step_fn(paddle, clf, opt, batches, "O1", "bfloat16",
+                       grads_f32=True)
+    step()
+    bf16_launches, bf16_losses, _ = amp_launches(
+        step, AMP_CHECK_STEPS, "bfloat16", tag="bf16 O1")
+    bf16 = amp_timing(amp_step_fn(paddle, clf, opt, batches, "O1",
+                                  "bfloat16"), n_params,
+                      "fine-tuning, O1 bfloat16")
+
+    # (b) float16 with GradScaler(2^40): overflowing steps are skipped,
+    # every parameter and moment bit-equal, the scale halving, until the
+    # gradients are finite
+    scaler = paddle.amp.GradScaler(init_loss_scaling=AMP_F16_INIT_SCALE)
+    step = amp_step_fn(paddle, clf, opt, batches, "O1", "float16", scaler,
+                       grads_f32=True)
+    before = params_and_moments(clf, opt)
+    skipped = 0
+    while True:
+        scale = scaler.get_loss_scaling()
+        step()
+        if not scaler.last_step_skipped():
+            break
+        skipped += 1
+        check(scaler.get_loss_scaling() == max(scale / 2, 1.0),
+              f"f16 O1: a skipped step took the scale {scale} to "
+              f"{scaler.get_loss_scaling()}, not half")
+        check(all(torch.equal(a, b) for a, b in zip(
+            before, params_and_moments(clf, opt))),
+            f"f16 O1: skipped step {skipped} changed a parameter or moment")
+        check(skipped <= AMP_SKIP_MAX, f"f16 O1: {skipped} steps skipped")
+    del before
+    check(skipped > 0, "f16 O1: no step overflowed at a scale of 2^40")
+    log(f"f16 O1: {skipped} steps skipped, scale "
+        f"{AMP_F16_INIT_SCALE:g} -> {scaler.get_loss_scaling():g}")
+    f16_launches, f16_losses, f16_applied = amp_launches(
+        step, AMP_CHECK_STEPS, "float16", scaler, "f16 O1")
+    f16 = amp_timing(step, n_params, "fine-tuning, O1 float16")
+    out = {"train": "bert_base_finetune_eager_amp_o1", "batch": FT_BATCH,
+           "seq_len": FT_SEQ, "layers": BERT_LAYERS, "params": n_params,
+           "f32_step1_loss": f32_loss, "bf16_step1_loss": amp_loss,
+           "step1_loss_rel": rel, "bf16": {**bf16, "losses": bf16_losses,
+                                           "launches": bf16_launches},
+           "f16": {**f16, "losses": f16_losses, "launches": f16_launches,
+                   "applied_of_checked": f16_applied,
+                   "skipped_steps": skipped, "init_loss_scaling":
+                   AMP_F16_INIT_SCALE, "loss_scaling":
+                   scaler.get_loss_scaling()},
+           "f32_phase21": {k: ft[k] for k in ("step_ms_median",
+                                              "samples_per_s", "mfu")}}
+    log(json.dumps({"bert_finetune_amp": out}))
+    del clf, opt, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def o2_phase(dev):
+    """Phase 27 (the module docstring): ``decorate(level="O2")``."""
+    import os
+    import tempfile
+    import paddle1_tpu_torch as paddle
+    out = {}
+    for dtype in ("bfloat16", "float16"):
+        clf, opt, _, batches, _ = ft_setup(paddle)
+        clf, opt = paddle.amp.decorate(clf, opt, level="O2", dtype=dtype)
+        dt = getattr(torch, dtype)
+        check({p.dtype for p in clf.parameters()} == {dt},
+              f"O2 {dtype}: the parameters are not {dtype}")
+        scaler = paddle.amp.GradScaler() if dtype == "float16" else None
+        step = amp_step_fn(paddle, clf, opt, batches, "O2", dtype, scaler)
+        skipped = 0
+        while scaler is not None:    # until the scale lets a step apply
+            step()
+            if not scaler.last_step_skipped():
+                break
+            skipped += 1
+            check(skipped <= AMP_SKIP_MAX, f"O2 {dtype}: {skipped} steps "
+                  "skipped")
+        launches, losses, applied = amp_launches(
+            step, AMP_CHECK_STEPS, dtype, scaler, f"O2 {dtype}")
+        check({p.dtype for p in clf.parameters()} == {dt} and all(
+            t.dtype == torch.float32 for s in opt._slots.values()
+            for t in s.values()), f"O2 {dtype}: row 6 did not update "
+            f"{dtype} parameters with float32 moments")
+        timing = amp_timing(step, sum(p.nelement() for p in
+                                      clf.parameters()), f"fine-tuning, O2 "
+                            f"{dtype}")
+        # a save/load resume of model, optimizer and scaler repeats the
+        # next step bit for bit
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "o2.pdckpt")
+            paddle.save({"model": clf.state_dict(), "opt": opt.state_dict(),
+                         "scaler": scaler.state_dict() if scaler else {}},
+                        path)
+            ck = paddle.load(path)
+        fresh = ft_classifier(paddle, BERT_LAYERS, SEED + 270, 0.1)
+        fopt, _, _ = ft_optimizer(paddle, fresh)
+        fresh, fopt = paddle.amp.decorate(fresh, fopt, level="O2",
+                                          dtype=dtype)
+        fmissing, funexpected = fresh.set_state_dict(ck["model"])
+        fopt.set_state_dict(ck["opt"])
+        fscaler = None
+        if scaler is not None:
+            fscaler = paddle.amp.GradScaler()
+            fscaler.load_state_dict(ck["scaler"])
+        del ck
+        check(fmissing == [] and funexpected == [], f"O2 {dtype} resume: "
+              f"missing {fmissing}, unexpected {funexpected}")
+        fresh.train()
+        on, resumed = [], []
+        for model, o, sc_, acc in ((clf, opt, scaler, on),
+                                   (fresh, fopt, fscaler, resumed)):
+            torch.manual_seed(SEED + 271)
+            acc.append(float(amp_step_fn(paddle, model, o, batches[:1], "O2",
+                                         dtype, sc_)()))
+        equal = on == resumed and all(torch.equal(a, b) for a, b in zip(
+            clf.parameters(), fresh.parameters()))
+        check(equal, f"O2 {dtype}: a step after save/load differs from the "
+              f"uninterrupted run: {on} vs {resumed}")
+        out[dtype] = {**timing, "losses": losses, "launches": launches,
+                      "applied_of_checked": applied,
+                      "skipped_before": skipped,
+                      "loss_scaling": scaler.get_loss_scaling()
+                      if scaler else None,
+                      "resume_loss": [on[0], resumed[0]],
+                      "resume_bit_identical": equal}
+        del clf, opt, fresh, fopt, batches
+        torch.cuda.empty_cache()
+    log(json.dumps({"bert_finetune_o2": out}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -4407,6 +4807,16 @@ def main() -> int:
 
     ops_phase(dev)
     fte = finetune_eval_phase(dev)["bert_finetune_eval"]["launches"]
+    torch.cuda.empty_cache()
+
+    f16k = f16_kernels_phase(dev)
+    amp = finetune_amp_phase(dev, ft)
+    o2 = o2_phase(dev)
+    # the launches of the AMP runs (each read over its own zeroed window)
+    amp_paths = {"bert_finetune_amp_bf16": amp["bf16"]["launches"],
+                 "bert_finetune_amp_f16": amp["f16"]["launches"],
+                 "bert_finetune_o2_bf16": o2["bfloat16"]["launches"],
+                 "bert_finetune_o2_f16": o2["float16"]["launches"]}
 
     src = "paddle1_tpu_torch/ops/cuda/"
     pallas = "paddle1_tpu/ops/pallas/"
@@ -4418,7 +4828,8 @@ def main() -> int:
         by_path = {"serving": launches[name], "train": tl.get(name, 0),
                    "ernie": ernie["launches"].get(name, 0),
                    "bert_finetune": ft["launches"].get(name, 0),
-                   "bert_finetune_eval": fte.get(name, 0)}
+                   "bert_finetune_eval": fte.get(name, 0),
+                   **{k: v.get(name, 0) for k, v in amp_paths.items()}}
         line.append({
             "name": name, "route": "cuda", "source": f"{src}{name}.cu",
             "replaces": {"paged_attention": pallas + "paged_attention.py:89",
@@ -4480,7 +4891,9 @@ def main() -> int:
     for name, cu, rep, key, plain_key, lib_key, tc in flash_rows:
         by_path = {"train": tl[name], "ernie": ernie["launches"][name],
                    "bert_finetune": ft["launches"][name],
-                   "bert_finetune_eval": fte[name]}
+                   "bert_finetune_eval": fte[name],
+                   **{k: v[name] for k, v in amp_paths.items()}}
+        f16t = f16k["flash_timing"]
         line.append({
             "name": name, "route": "cuda", "source": src + cu,
             "replaces": rep, "launches": sum(by_path.values()),
@@ -4510,18 +4923,34 @@ def main() -> int:
             "bert_finetune_shape_bound_ms": flash_bf[key][0],
             "bert_finetune_shape_bound_by": flash_bf[key][1],
             "bert_finetune_shape_library_ms": flash_tf[lib_key],
-            "cases": flash_errs[key]})
+            "cases": flash_errs[key],
+            # float16 (phase 25): its errors, and its times at the
+            # fine-tuning shape (ragged padding) and ERNIE-1.5B's
+            "f16_max_abs_err": max(c["max_abs_err"]
+                                   for c in f16k["flash_errors"][key]),
+            "f16_cases": f16k["flash_errors"][key],
+            **{f"f16_{where}_{k}": f16t[where][field][sub] for where in
+               ("bert_finetune", "ernie") for k, field, sub in (
+                   ("ms", "ms", key), ("plain_ms", "ms", plain_key),
+                   ("bound_ms", "bound_ms", key),
+                   ("bound_by", "bound_by", key),
+                   ("library_ms", "ms", lib_key))},
+            "f16_shapes": {w: f16t[w]["shape"] for w in f16t}})
     by_path = {"train": tl["fused_adam"],
                "lenet_train": lenet["launches"]["fused_adam"],
                "ernie": ernie["launches"]["fused_adam"],
-               "bert_finetune": ft["launches"]["fused_adam"]}
+               "bert_finetune": ft["launches"]["fused_adam"],
+               **{k: v["fused_adam"] for k, v in amp_paths.items()}}
     line.append({
         "name": "fused_adam", "route": "cuda", "source": src + "fused_adam.cu",
         "replaces": pallas + "fused_adam.py:39",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": max([c["max_abs_err"] for c in adam["cases"]] +
+                           [c["max_abs_err"] for c in
+                            f16k["fused_adam"]["cases"]] +
                            [adam_e["max_abs_err"],
                             adam_e["max_abs_err_bf16"]]),
+        "f16": f16k["fused_adam"],
         "ms": adam["ms"], "ms_mixed_lr_scales": adam["ms_mixed_lr_scales"],
         "f32": adam["f32"], "bf16": adam["bf16"],
         "plain_ms": adam["plain_ms"],

@@ -35,13 +35,14 @@ runs BERT-base fine-tuning in eager dygraph. The op namespace
 (``ops.math_ops``, ``ops.manip_ops``, ``ops.linalg_ops``) is exported
 here as in Paddle (``paddle.matmul``, ``paddle.concat``,
 ``paddle.linalg.norm``, ...) and installed as the Paddle ``Tensor``'s
-methods.
+methods. ``amp`` is automatic mixed precision (``auto_cast``,
+``GradScaler``, ``decorate``), casting at the named Paddle ops.
 """
 
 import torch as _torch
 
-from . import (autograd, distributed, framework, nn,  # noqa: F401
-               optimizer, regularizer, serving, text, utils, vision)
+from . import (amp, autograd, distributed, framework,  # noqa: F401
+               nn, optimizer, regularizer, serving, text, utils, vision)
 from .autograd import (enable_grad, grad, is_grad_enabled,  # noqa: F401
                        no_grad, set_grad_enabled)
 from .core.device import resolve_device  # noqa: F401
@@ -58,7 +59,7 @@ from . import ops  # noqa: F401
 from .ops import *  # noqa: F401,F403  (the op namespace; patches Tensor)
 from .ops import linalg  # noqa: F401
 
-__all__ = ["autograd", "distributed", "framework", "nn", "optimizer",
+__all__ = ["amp", "autograd", "distributed", "framework", "nn", "optimizer",
            "regularizer", "serving", "text", "utils", "vision",
            "resolve_device",
            "to_tensor", "ParamAttr",

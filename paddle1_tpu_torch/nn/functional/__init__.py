@@ -5,7 +5,7 @@ from .activation import (gelu, leaky_relu, log_softmax,  # noqa: F401
                          relu, softmax, softmax_, tanh)
 from .attention import (attention_ref, paged_attention,  # noqa: F401
                         scaled_dot_product_attention)
-from .common import dropout, interpolate, upsample  # noqa: F401
+from .common import dropout, interpolate, linear, upsample  # noqa: F401
 from .conv import conv2d  # noqa: F401
 from .loss import cross_entropy, softmax_with_cross_entropy  # noqa: F401
 from .norm import batch_norm, fused_batch_norm_act, layer_norm  # noqa: F401

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import cast_point
 from ...core import dtype as dtypes
 from ...core.flags import flag_active
 from ...core.tensor import Tensor
@@ -52,6 +53,7 @@ def _float_input(x: torch.Tensor, dtype) -> torch.Tensor:
     return x
 
 
+@cast_point("softmax")
 def softmax(x: torch.Tensor, axis: int = -1, dtype=None,
             name=None) -> torch.Tensor:
     """Softmax along ``axis``, routed as in the JAX package: cast to
@@ -85,6 +87,7 @@ def softmax_(x: torch.Tensor, axis: int = -1, dtype=None,
     return y
 
 
+@cast_point("log_softmax")
 def log_softmax(x: torch.Tensor, axis: int = -1, dtype=None,
                 name=None) -> torch.Tensor:
     """Log-softmax along ``axis`` after :func:`softmax`'s cast (an integer

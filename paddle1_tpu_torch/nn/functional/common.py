@@ -1,5 +1,5 @@
-"""Common functionals (port of ``dropout``, ``interpolate`` and
-``upsample`` from ``paddle1_tpu/nn/functional/common.py``)."""
+"""Common functionals (port of ``linear``, ``dropout``, ``interpolate``
+and ``upsample`` from ``paddle1_tpu/nn/functional/common.py``)."""
 
 from __future__ import annotations
 
@@ -8,9 +8,19 @@ from typing import Optional
 
 import torch
 
+from ...amp import cast_point
 from ...core.errors import InvalidArgumentError, UnimplementedError
 
-__all__ = ["dropout", "interpolate", "upsample"]
+__all__ = ["linear", "dropout", "interpolate", "upsample"]
+
+
+@cast_point("linear")
+def linear(x: torch.Tensor, weight: torch.Tensor, bias=None,
+           name=None) -> torch.Tensor:
+    """``x @ weight + bias`` with Paddle's ``[in_features, out_features]``
+    weight (``paddle1_tpu/nn/functional/common.py:34-41``)."""
+    y = torch.matmul(x, weight)
+    return y if bias is None else y + bias
 
 _DROPOUT_MODES = ("upscale_in_train", "downscale_in_infer")
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch.nn.functional as tF
 
+from ...amp import cast_point
 from ...core.errors import InvalidArgumentError
 from ._layout import to_channels_last_memory
 
@@ -61,6 +62,7 @@ def explicit_pads(pad, sizes, kernel, stride, dilation):
     return list(pad)
 
 
+@cast_point("conv2d")
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW", name=None):
     """2-D convolution, Paddle's API: ``x`` NCHW (or NHWC with

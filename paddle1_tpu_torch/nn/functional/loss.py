@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import cast_point
 from ...core.errors import InvalidArgumentError
 
 __all__ = ["cross_entropy", "softmax_with_cross_entropy"]
@@ -18,6 +19,7 @@ def _reduce(loss, reduction):
     return loss
 
 
+@cast_point("cross_entropy")
 def cross_entropy(input: torch.Tensor, label: torch.Tensor, weight=None,
                   ignore_index: int = -100, reduction: str = "mean",
                   soft_label: bool = False, axis: int = -1,
@@ -87,7 +89,8 @@ def softmax_with_cross_entropy(logits: torch.Tensor, label: torch.Tensor,
     """Per-position cross entropy with ``axis`` kept as a singleton
     (``reduction="none"``); with ``return_softmax``, also
     ``F.softmax(logits, axis)`` (the kernel's route, see
-    ``activation.softmax``)."""
+    ``activation.softmax``). Under ``auto_cast`` it casts where its two
+    named ops cast, as the JAX package's does."""
     loss = cross_entropy(logits, label, soft_label=soft_label,
                          ignore_index=ignore_index, reduction="none",
                          axis=axis).unsqueeze(axis)

@@ -19,6 +19,7 @@ import threading
 
 import torch
 
+from ...amp import cast_point
 from ...core.errors import InvalidArgumentError
 from ...core.flags import flag_active
 from ...distributed.collective import differentiable_all_reduce
@@ -31,6 +32,7 @@ __all__ = ["layer_norm", "batch_norm", "fused_batch_norm_act",
            "collect_stat_updates", "fused_bn_active"]
 
 
+@cast_point("layer_norm")
 def layer_norm(x: torch.Tensor, normalized_shape, weight: torch.Tensor,
                bias: torch.Tensor, epsilon: float = 1e-05,
                name=None) -> torch.Tensor:
@@ -194,9 +196,44 @@ def _global_moments(xi, x2, ch_axis, group):
     return mean, var
 
 
+def _bn_infer(x, running_mean, running_var, weight, bias, residual, cfg):
+    """A batch norm from given statistics; the statistics are inputs."""
+    return _batch_norm_body(x, running_mean, running_var, weight, bias,
+                            residual, *cfg)
+
+
+def _bn_train(x, weight, bias, residual, stats, cfg):
+    """A training batch norm; the running statistics (``stats``, a pair
+    that no cast reaches) are written, not read."""
+    return _batch_norm_body(x, stats[0], stats[1], weight, bias, residual,
+                            *cfg)
+
+
+# each mode under the JAX package's op name (``norm.py:259,297``), where
+# ``auto_cast`` casts: x, weight, bias and the residual, and the running
+# statistics only where they are read
+_BN_OPS = {(what, stats): cast_point(f"{what}_{mode}")(fn)
+           for what in ("batch_norm", "fused_bn_act")
+           for stats, mode, fn in ((True, "infer", _bn_infer),
+                                   (False, "train", _bn_train))}
+
+
 def _batch_norm_impl(x, running_mean, running_var, weight, bias, training,
                      momentum, epsilon, data_format, use_global_stats, act,
-                     residual):
+                     residual, what):
+    use_stats = (not training) if use_global_stats is None \
+        else use_global_stats
+    cfg = (training, momentum, epsilon, data_format, use_global_stats, act)
+    if use_stats:
+        return _BN_OPS[what, True](x, running_mean, running_var, weight,
+                                   bias, residual, cfg)
+    return _BN_OPS[what, False](x, weight, bias, residual,
+                                (running_mean, running_var), cfg)
+
+
+def _batch_norm_body(x, running_mean, running_var, weight, bias, residual,
+                     training, momentum, epsilon, data_format,
+                     use_global_stats, act):
     channel_last = data_format in ("NHWC", "NLC", "NDHWC")
     # an NCHW batch norm computes on channels-last memory inside the
     # region (_layout.py), which is what gives the kernels their
@@ -305,7 +342,7 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     hand-written kernels (``ops/fused_bn.py``)."""
     return _batch_norm_impl(x, running_mean, running_var, weight, bias,
                             training, momentum, epsilon, data_format,
-                            use_global_stats, "identity", None)
+                            use_global_stats, "identity", None, "batch_norm")
 
 
 def fused_batch_norm_act(x, running_mean, running_var, weight, bias,
@@ -329,4 +366,4 @@ def fused_batch_norm_act(x, running_mean, running_var, weight, bias,
             f"must match x shape {list(x.shape)}")
     return _batch_norm_impl(x, running_mean, running_var, weight, bias,
                             training, momentum, epsilon, data_format,
-                            use_global_stats, act, residual)
+                            use_global_stats, act, residual, "fused_bn_act")

@@ -45,8 +45,7 @@ class Linear(Layer):
             [out_features], attr=bias_attr, is_bias=True, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.weight)
-        return y if self.bias is None else y + self.bias
+        return F.linear(x, self.weight, self.bias)
 
     def extra_repr(self) -> str:
         return (f"in_features={self._in_features}, "

@@ -32,6 +32,13 @@
 // tile and warp: D/16 x 8 MMAs for S, D/8 x 8 for P V, against 16 KB of
 // tile loads: the kernel stays a bytes kernel.
 //
+// f16 (the training path under auto_cast(dtype="float16")): the same
+// kernel with T = __half, the m16n8k16 f16 -> f32 form of the product
+// (f16 products are exact in f32 too) and P split into f16 hi + lo (~2^-22
+// relative); only the edges round, O to f16 at the store, where a value
+// past 65504 becomes inf as in the plain version's cast: nothing is
+// clamped, so an overflow reaches GradScaler.
+//
 // f32 (the reference checks, not the training path): flash_fwd_kernel
 // on the CUDA cores. One CTA of 256 threads (16 x 16) per (batch*head, q
 // tile of BM rows); f32 tiles in shared memory padded to D + 1 floats;
@@ -46,6 +53,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 
 #include "mma_bf16.cuh"
@@ -213,7 +221,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16 and f16 on the tensor cores
 
 constexpr int kTcKeys = 64;  // keys of a tile
 constexpr float kLog2e = 1.4426950408889634f;
@@ -228,11 +236,11 @@ constexpr size_t tc_smem_bytes() {
 
 // MINB: CTAs an SM should hold, a floor on occupancy that caps registers;
 // CAUSAL: compiled in, so the unmasked main path pays no compare
-template <int DP, bool kQRegs, int NW, int MINB, bool CAUSAL>
+template <typename T, int DP, bool kQRegs, int NW, int MINB, bool CAUSAL>
 __global__ void __launch_bounds__(32 * NW, MINB) flash_fwd_tc_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const unsigned char* __restrict__ keep,
-    bf16* __restrict__ out, float* __restrict__ lse, int H, int Nq, int Nk,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const unsigned char* __restrict__ keep,
+    T* __restrict__ out, float* __restrict__ lse, int H, int Nq, int Nk,
     int D, float scale) {
   using namespace p1t_mma;
   constexpr int ROWS = 16 * NW;  // query rows of the CTA
@@ -241,9 +249,9 @@ __global__ void __launch_bounds__(32 * NW, MINB) flash_fwd_tc_kernel(
   constexpr int DT = DP / 8;     // n8 tiles over D
   constexpr int NT = 32 * NW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [ROWS][LD]
-  bf16* Ks = Qs + ROWS * LD;                     // [2][64][LD]
-  bf16* Vs = Ks + 2 * kTcKeys * LD;              // [2][64][LD]
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [ROWS][LD]
+  T* Ks = Qs + ROWS * LD;                     // [2][64][LD]
+  T* Vs = Ks + 2 * kTcKeys * LD;              // [2][64][LD]
   unsigned char* km =
       reinterpret_cast<unsigned char*>(Vs + 2 * kTcKeys * LD);  // [2][64]
 
@@ -256,10 +264,10 @@ __global__ void __launch_bounds__(32 * NW, MINB) flash_fwd_tc_kernel(
   const int h = bh - b * H;
   const int q0 = blockIdx.y * ROWS;
   const long rs = static_cast<long>(H) * D;
-  const bf16* qb = q + (static_cast<long>(b) * Nq * H + h) * D;
-  const bf16* kb = k + (static_cast<long>(b) * Nk * H + h) * D;
-  const bf16* vb = v + (static_cast<long>(b) * Nk * H + h) * D;
-  bf16* ob = out + (static_cast<long>(b) * Nq * H + h) * D;
+  const T* qb = q + (static_cast<long>(b) * Nq * H + h) * D;
+  const T* kb = k + (static_cast<long>(b) * Nk * H + h) * D;
+  const T* vb = v + (static_cast<long>(b) * Nk * H + h) * D;
+  T* ob = out + (static_cast<long>(b) * Nq * H + h) * D;
   const unsigned char* keepb = keep ? keep + static_cast<long>(b) * Nk
                                     : nullptr;
   const int off = Nk - Nq;
@@ -275,7 +283,7 @@ __global__ void __launch_bounds__(32 * NW, MINB) flash_fwd_tc_kernel(
           make_uint4(0u, 0u, 0u, 0u);
     }
   }
-  auto load_rows = [&](bf16* dst, const bf16* src, int rows) {
+  auto load_rows = [&](T* dst, const T* src, int rows) {
     for (int i = tid; i < rows * cpr; i += NT) {
       const int r = i / cpr;
       const int c = i - r * cpr;
@@ -327,8 +335,8 @@ __global__ void __launch_bounds__(32 * NW, MINB) flash_fwd_tc_kernel(
                               (lane >> 4) * 8);
       }
     }
-    const bf16* Kt = Ks + st * kTcKeys * LD;
-    const bf16* Vt = Vs + st * kTcKeys * LD;
+    const T* Kt = Ks + st * kTcKeys * LD;
+    const T* Vt = Vs + st * kTcKeys * LD;
     const unsigned char* kmt = km + st * kTcKeys;
     const int k0 = t * kTcKeys;
 
@@ -352,8 +360,8 @@ __global__ void __launch_bounds__(32 * NW, MINB) flash_fwd_tc_kernel(
         uint32_t bb[4];
         ldsm_x4(bb, Kt + (np * 16 + mr + ((mi >> 1) << 3)) * LD + kk * 16 +
                         ((mi & 1) << 3));
-        mma(s[2 * np], a, bb[0], bb[1]);
-        mma(s[2 * np + 1], a, bb[2], bb[3]);
+        mma<T>(s[2 * np], a, bb[0], bb[1]);
+        mma<T>(s[2 * np + 1], a, bb[2], bb[3]);
       }
     }
 
@@ -406,28 +414,28 @@ __global__ void __launch_bounds__(32 * NW, MINB) flash_fwd_tc_kernel(
 #pragma unroll
     for (int kb2 = 0; kb2 < 4; ++kb2) {
       uint32_t ph[4], pl[4], bb[DP / 16][4];
-      c_to_a(s[2 * kb2], s[2 * kb2 + 1], ph, pl);
+      c_to_a<T>(s[2 * kb2], s[2 * kb2 + 1], ph, pl);
 #pragma unroll
       for (int dp = 0; dp < DP / 16; ++dp)
         ldsm_x4_t(bb[dp], Vt + (kb2 * 16 + mr + ((mi & 1) << 3)) * LD +
                               dp * 16 + ((mi >> 1) << 3));
 #pragma unroll
       for (int dp = 0; dp < DP / 16; ++dp) {
-        mma(acc[2 * dp], ph, bb[dp][0], bb[dp][1]);
-        mma(acc[2 * dp + 1], ph, bb[dp][2], bb[dp][3]);
+        mma<T>(acc[2 * dp], ph, bb[dp][0], bb[dp][1]);
+        mma<T>(acc[2 * dp + 1], ph, bb[dp][2], bb[dp][3]);
       }
 #pragma unroll
       for (int dp = 0; dp < DP / 16; ++dp) {
-        mma(acc[2 * dp], pl, bb[dp][0], bb[dp][1]);
-        mma(acc[2 * dp + 1], pl, bb[dp][2], bb[dp][3]);
+        mma<T>(acc[2 * dp], pl, bb[dp][0], bb[dp][1]);
+        mma<T>(acc[2 * dp + 1], pl, bb[dp][2], bb[dp][3]);
       }
     }
     __syncthreads();  // every warp is done with stage st before its refill
   }
 
-  // epilogue: row sums over the quad, O / l staged in bf16 through the Q
+  // epilogue: row sums over the quad, O / l staged in T through the Q
   // tile (free since the loop's last barrier), 16-byte coalesced stores
-  bf16* Os = Qs;
+  T* Os = Qs;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
@@ -437,8 +445,8 @@ __global__ void __launch_bounds__(32 * NW, MINB) flash_fwd_tc_kernel(
     const int row = wr + g + 8 * r;
 #pragma unroll
     for (int j = 0; j < DT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(Os + row * LD + j * 8 + 2 * t4) =
-          __floats2bfloat162_rn(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+      *reinterpret_cast<uint32_t*>(Os + row * LD + j * 8 + 2 * t4) =
+          pack2<T>(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
     if (t4 == 0)
       lse[static_cast<long>(bh) * Nq + qr[r]] =
           vis ? mrow[r] * scale + logf(lrow[r]) : kSentinel;
@@ -452,13 +460,13 @@ __global__ void __launch_bounds__(32 * NW, MINB) flash_fwd_tc_kernel(
   }
 }
 
-template <int DP, bool kQRegs, int NW, int MINB, bool CAUSAL>
+template <typename T, int DP, bool kQRegs, int NW, int MINB, bool CAUSAL>
 int launch_tc(const void* q, const void* k, const void* v, const void* keep,
               void* out, void* lse, int B, int H, int Nq, int Nk, int D,
               float scale, cudaStream_t stream) {
   if (Nq % (16 * NW) || Nk % kTcKeys || D > DP)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = flash_fwd_tc_kernel<DP, kQRegs, NW, MINB, CAUSAL>;
+  auto kern = flash_fwd_tc_kernel<T, DP, kQRegs, NW, MINB, CAUSAL>;
   constexpr size_t smem = tc_smem_bytes<DP, NW>();
   // allow the bucket's footprint once, outside any graph capture
   static cudaError_t attr = cudaFuncSetAttribute(
@@ -467,24 +475,24 @@ int launch_tc(const void* q, const void* k, const void* v, const void* keep,
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid(B * H, Nq / (16 * NW));
   kern<<<grid, 32 * NW, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const unsigned char*>(keep),
-      static_cast<bf16*>(out), static_cast<float*>(lse), H, Nq, Nk, D,
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const unsigned char*>(keep),
+      static_cast<T*>(out), static_cast<float*>(lse), H, Nq, Nk, D,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool CAUSAL>
+template <typename T, bool CAUSAL>
 int dispatch_tc(const void* q, const void* k, const void* v,
                 const void* keep, void* out, void* lse, int B, int H,
                 int Nq, int Nk, int D, float scale, cudaStream_t s) {
   if (D <= 64)
-    return launch_tc<64, true, 8, 2, CAUSAL>(q, k, v, keep, out, lse, B, H,
+    return launch_tc<T, 64, true, 8, 2, CAUSAL>(q, k, v, keep, out, lse, B, H,
                                              Nq, Nk, D, scale, s);
   if (D <= 128)
-    return launch_tc<128, true, 4, 2, CAUSAL>(q, k, v, keep, out, lse, B, H,
+    return launch_tc<T, 128, true, 4, 2, CAUSAL>(q, k, v, keep, out, lse, B, H,
                                               Nq, Nk, D, scale, s);
-  return launch_tc<256, false, 4, 1, CAUSAL>(q, k, v, keep, out, lse, B, H,
+  return launch_tc<T, 256, false, 4, 1, CAUSAL>(q, k, v, keep, out, lse, B, H,
                                              Nq, Nk, D, scale, s);
 }
 
@@ -544,9 +552,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* keep,
 extern "C" {
 
 // q: [B, Nq, H, D], k/v: [B, Nk, H, D], out like q, all contiguous in
-// `dtype` (0 = float32, 1 = bfloat16); lse: [B, H, Nq] f32; keep: [B, Nk]
-// bytes or NULL (16-byte aligned for bfloat16). Returns a cudaError_t
-// (0 = success).
+// `dtype` (0 = float32, 1 = bfloat16, 2 = float16); lse: [B, H, Nq] f32;
+// keep: [B, Nk] bytes or NULL (16-byte aligned for the 16-bit types).
+// Returns a cudaError_t (0 = success).
 int p1t_flash_fwd(const void* q, const void* k, const void* v,
                   const void* keep, void* out, void* lse, int B, int H,
                   int Nq, int Nk, int D, float scale, int causal, int dtype,
@@ -559,10 +567,15 @@ int p1t_flash_fwd(const void* q, const void* k, const void* v,
     return dispatch<float>(q, k, v, keep, out, lse, B, H, Nq, Nk, D, scale,
                            causal, s);
   if (dtype == 1)
-    return causal ? dispatch_tc<true>(q, k, v, keep, out, lse, B, H, Nq, Nk,
-                                      D, scale, s)
-                  : dispatch_tc<false>(q, k, v, keep, out, lse, B, H, Nq, Nk,
-                                       D, scale, s);
+    return causal ? dispatch_tc<bf16, true>(q, k, v, keep, out, lse, B, H,
+                                            Nq, Nk, D, scale, s)
+                  : dispatch_tc<bf16, false>(q, k, v, keep, out, lse, B, H,
+                                             Nq, Nk, D, scale, s);
+  if (dtype == 2)
+    return causal ? dispatch_tc<__half, true>(q, k, v, keep, out, lse, B, H,
+                                              Nq, Nk, D, scale, s)
+                  : dispatch_tc<__half, false>(q, k, v, keep, out, lse, B, H,
+                                               Nq, Nk, D, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -59,6 +59,12 @@
 // BERT shape: q, k, v, dout in, dq out (5 x 25 MB, 0.038 ms at 3.35 TB/s)
 // against 6*D flops per visible pair: bytes.
 //
+// f16 (the training path under auto_cast(dtype="float16")): both passes
+// with T = __half, the m16n8k16 f16 -> f32 form of the product and P and
+// dS split into f16 hi + lo. dS is not clamped: where it, or a dK/dV/dQ
+// at the store, passes f16's 65504 it becomes inf, which GradScaler sees
+// (an unscaled loss keeps dS far inside the range).
+//
 // f32 (the reference checks, not the training path): the first port's
 // kernels on the CUDA cores. The layout of their tiles is the forward's
 // f32 one: rows padded to D + 1 floats, 256 threads as 16 x 16, each
@@ -70,6 +76,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 
 #include "mma_bf16.cuh"
@@ -242,7 +249,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// the dkv pass in bf16 on the tensor cores
+// the dkv pass in bf16 and f16 on the tensor cores
 
 constexpr int kTcQueries = 64;  // queries of a tile
 constexpr int kTcSub = 32;      // queries of a sub-tile, in registers
@@ -261,14 +268,14 @@ constexpr size_t dkv_tc_smem_bytes() {
 // DP / DSPLIT columns of dK and dV; MINB: CTAs an SM should hold, a floor
 // on occupancy that caps registers; CAUSAL: compiled in, so the unmasked
 // main path pays no compare
-template <int DP, int KEYS, int DSPLIT, int MINB, bool CAUSAL>
+template <typename T, int DP, int KEYS, int DSPLIT, int MINB, bool CAUSAL>
 __global__ void __launch_bounds__(2 * KEYS * DSPLIT, MINB)
     flash_bwd_dkv_tc_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const unsigned char* __restrict__ keep, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int H, int Nq, int Nk, int D, float scale) {
+    const unsigned char* __restrict__ keep, T* __restrict__ dk,
+    T* __restrict__ dv, int H, int Nq, int Nk, int D, float scale) {
   using namespace p1t_mma;
   constexpr int NKB = KEYS / 16;    // key row blocks
   constexpr int LD = DP + 8;        // row pitch, elements
@@ -278,10 +285,10 @@ __global__ void __launch_bounds__(2 * KEYS * DSPLIT, MINB)
   constexpr int ST = kTcSub / 8;    // n8 tiles of a sub-tile's queries
   constexpr int NT = 32 * NKB * DSPLIT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [KEYS][LD] resident
-  bf16* Vs = Ks + KEYS * LD;                     // [KEYS][LD] resident
-  bf16* Qs = Vs + KEYS * LD;                     // [2][64][LD]
-  bf16* Os = Qs + 2 * kTcQueries * LD;           // [2][64][LD] dout
+  T* Ks = reinterpret_cast<T*>(smem_raw);  // [KEYS][LD] resident
+  T* Vs = Ks + KEYS * LD;                     // [KEYS][LD] resident
+  T* Qs = Vs + KEYS * LD;                     // [2][64][LD]
+  T* Os = Qs + 2 * kTcQueries * LD;           // [2][64][LD] dout
   float* ls = reinterpret_cast<float*>(Os + 2 * kTcQueries * LD);  // [2][64]
   float* dl = ls + 2 * kTcQueries;                                 // [2][64]
 
@@ -310,7 +317,7 @@ __global__ void __launch_bounds__(2 * KEYS * DSPLIT, MINB)
           make_uint4(0u, 0u, 0u, 0u);
     }
   }
-  auto load_rows = [&](bf16* dst, const bf16* src, int rows) {
+  auto load_rows = [&](T* dst, const T* src, int rows) {
     for (int i = tid; i < rows * cpr; i += NT) {
       const int r = i / cpr;
       const int c = i - r * cpr;
@@ -361,8 +368,8 @@ __global__ void __launch_bounds__(2 * KEYS * DSPLIT, MINB)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Qt = Qs + st * kTcQueries * LD;
-    const bf16* Ot = Os + st * kTcQueries * LD;
+    const T* Qt = Qs + st * kTcQueries * LD;
+    const T* Ot = Os + st * kTcQueries * LD;
     float* lt = ls + st * kTcQueries;
     const float* dt = dl + st * kTcQueries;
     const int q0 = t * kTcQueries;
@@ -398,10 +405,10 @@ __global__ void __launch_bounds__(2 * KEYS * DSPLIT, MINB)
           uint32_t bq[4], bo[4];
           ldsm_x4(bq, Qt + at);
           ldsm_x4(bo, Ot + at);
-          mma(s[2 * np], ak, bq[0], bq[1]);
-          mma(s[2 * np + 1], ak, bq[2], bq[3]);
-          mma(dp[2 * np], av, bo[0], bo[1]);
-          mma(dp[2 * np + 1], av, bo[2], bo[3]);
+          mma<T>(s[2 * np], ak, bq[0], bq[1]);
+          mma<T>(s[2 * np + 1], ak, bq[2], bq[3]);
+          mma<T>(dp[2 * np], av, bo[0], bo[1]);
+          mma<T>(dp[2 * np + 1], av, bo[2], bo[3]);
         }
       }
       // P^T and dS^T / scale at (key kr[e / 2], query qs0 + 8 j + 2 t4 +
@@ -421,8 +428,8 @@ __global__ void __launch_bounds__(2 * KEYS * DSPLIT, MINB)
 #pragma unroll
       for (int kb2 = 0; kb2 < ST / 2; ++kb2) {
         uint32_t ph[4], pl[4], sh[4], sm[4];
-        c_to_a(s[2 * kb2], s[2 * kb2 + 1], ph, pl);
-        c_to_a(dp[2 * kb2], dp[2 * kb2 + 1], sh, sm);
+        c_to_a<T>(s[2 * kb2], s[2 * kb2 + 1], ph, pl);
+        c_to_a<T>(dp[2 * kb2], dp[2 * kb2 + 1], sh, sm);
         // the hi products of every tile, then the lo ones, so that no
         // product waits on the one before it
 #pragma unroll
@@ -432,36 +439,35 @@ __global__ void __launch_bounds__(2 * KEYS * DSPLIT, MINB)
           uint32_t bo[4], bq[4];
           ldsm_x4_t(bo, Ot + at);
           ldsm_x4_t(bq, Qt + at);
-          mma(gv[2 * cp], ph, bo[0], bo[1]);
-          mma(gv[2 * cp + 1], ph, bo[2], bo[3]);
-          mma(gk[2 * cp], sh, bq[0], bq[1]);
-          mma(gk[2 * cp + 1], sh, bq[2], bq[3]);
-          mma(gv[2 * cp], pl, bo[0], bo[1]);
-          mma(gv[2 * cp + 1], pl, bo[2], bo[3]);
-          mma(gk[2 * cp], sm, bq[0], bq[1]);
-          mma(gk[2 * cp + 1], sm, bq[2], bq[3]);
+          mma<T>(gv[2 * cp], ph, bo[0], bo[1]);
+          mma<T>(gv[2 * cp + 1], ph, bo[2], bo[3]);
+          mma<T>(gk[2 * cp], sh, bq[0], bq[1]);
+          mma<T>(gk[2 * cp + 1], sh, bq[2], bq[3]);
+          mma<T>(gv[2 * cp], pl, bo[0], bo[1]);
+          mma<T>(gv[2 * cp + 1], pl, bo[2], bo[3]);
+          mma<T>(gk[2 * cp], sm, bq[0], bq[1]);
+          mma<T>(gk[2 * cp + 1], sm, bq[2], bq[3]);
         }
       }
     }
     __syncthreads();  // every warp is done with stage st before its refill
   }
 
-  // epilogue: dK and dV staged in bf16 through the Q and dO tiles
+  // epilogue: dK and dV staged in T through the Q and dO tiles
   cp_async_wait<0>();
   __syncthreads();
-  bf16* dKs = Qs;
-  bf16* dVs = Os;
+  T* dKs = Qs;
+  T* dVs = Os;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = kw + g + 8 * r;
 #pragma unroll
     for (int j = 0; j < CT; ++j) {
       const int c = dc0 + j * 8 + 2 * t4;
-      *reinterpret_cast<__nv_bfloat162*>(dKs + row * LD + c) =
-          __floats2bfloat162_rn(gk[j][2 * r] * scale,
-                                gk[j][2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dVs + row * LD + c) =
-          __floats2bfloat162_rn(gv[j][2 * r], gv[j][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dKs + row * LD + c) =
+          pack2<T>(gk[j][2 * r] * scale, gk[j][2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dVs + row * LD + c) =
+          pack2<T>(gv[j][2 * r], gv[j][2 * r + 1]);
     }
   }
   __syncthreads();
@@ -477,7 +483,7 @@ __global__ void __launch_bounds__(2 * KEYS * DSPLIT, MINB)
 }
 
 // ---------------------------------------------------------------------------
-// the dq pass in bf16 on the tensor cores
+// the dq pass in bf16 and f16 on the tensor cores
 
 constexpr int kTcKeys = 64;  // keys of a K/V tile, in registers
 
@@ -491,13 +497,13 @@ constexpr size_t dq_tc_smem_bytes() {
 
 // DSPLIT: warps that share one 16-query row block, each accumulating
 // DP / DSPLIT columns of dQ; MINB and CAUSAL as in the dkv pass
-template <int DP, int ROWS, int DSPLIT, int MINB, bool CAUSAL>
+template <typename T, int DP, int ROWS, int DSPLIT, int MINB, bool CAUSAL>
 __global__ void __launch_bounds__(2 * ROWS * DSPLIT, MINB)
     flash_bwd_dq_tc_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const unsigned char* __restrict__ keep, bf16* __restrict__ dq, int H,
+    const unsigned char* __restrict__ keep, T* __restrict__ dq, int H,
     int Nq, int Nk, int D, float scale) {
   using namespace p1t_mma;
   constexpr int NRB = ROWS / 16;    // query row blocks
@@ -508,10 +514,10 @@ __global__ void __launch_bounds__(2 * ROWS * DSPLIT, MINB)
   constexpr int HT = kTcKeys / 8;   // n8 tiles of a tile's keys
   constexpr int NT = 32 * NRB * DSPLIT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [ROWS][LD] resident
-  bf16* Os = Qs + ROWS * LD;                     // [ROWS][LD] resident dout
-  bf16* Ks = Os + ROWS * LD;                     // [2][64][LD]
-  bf16* Vs = Ks + 2 * kTcKeys * LD;              // [2][64][LD]
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [ROWS][LD] resident
+  T* Os = Qs + ROWS * LD;                     // [ROWS][LD] resident dout
+  T* Ks = Os + ROWS * LD;                     // [2][64][LD]
+  T* Vs = Ks + 2 * kTcKeys * LD;              // [2][64][LD]
   unsigned char* km =
       reinterpret_cast<unsigned char*>(Vs + 2 * kTcKeys * LD);  // [2][64]
 
@@ -542,7 +548,7 @@ __global__ void __launch_bounds__(2 * ROWS * DSPLIT, MINB)
           make_uint4(0u, 0u, 0u, 0u);
     }
   }
-  auto load_rows = [&](bf16* dst, const bf16* src, int rows) {
+  auto load_rows = [&](T* dst, const T* src, int rows) {
     for (int i = tid; i < rows * cpr; i += NT) {
       const int r = i / cpr;
       const int c = i - r * cpr;
@@ -594,8 +600,8 @@ __global__ void __launch_bounds__(2 * ROWS * DSPLIT, MINB)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Kt = Ks + st * kTcKeys * LD;
-    const bf16* Vt = Vs + st * kTcKeys * LD;
+    const T* Kt = Ks + st * kTcKeys * LD;
+    const T* Vt = Vs + st * kTcKeys * LD;
     const unsigned char* kmt = km + st * kTcKeys;
     const int k0 = t * kTcKeys;
 
@@ -621,10 +627,10 @@ __global__ void __launch_bounds__(2 * ROWS * DSPLIT, MINB)
           uint32_t bk[4], bv[4];
           ldsm_x4(bk, Kt + bt);
           ldsm_x4(bv, Vt + bt);
-          mma(s[2 * np], aq, bk[0], bk[1]);
-          mma(s[2 * np + 1], aq, bk[2], bk[3]);
-          mma(dp[2 * np], ao, bv[0], bv[1]);
-          mma(dp[2 * np + 1], ao, bv[2], bv[3]);
+          mma<T>(s[2 * np], aq, bk[0], bk[1]);
+          mma<T>(s[2 * np + 1], aq, bk[2], bk[3]);
+          mma<T>(dp[2 * np], ao, bv[0], bv[1]);
+          mma<T>(dp[2 * np + 1], ao, bv[2], bv[3]);
         }
       }
       // dS / scale = P (dP - delta) at (query qr[e / 2], key k0 + 8 j +
@@ -651,39 +657,37 @@ __global__ void __launch_bounds__(2 * ROWS * DSPLIT, MINB)
 #pragma unroll
       for (int kb2 = 0; kb2 < HT / 2; ++kb2) {
         uint32_t sh[4], sm[4], bk[CT / 2][4];
-        c_to_a(dp[2 * kb2], dp[2 * kb2 + 1], sh, sm);
+        c_to_a<T>(dp[2 * kb2], dp[2 * kb2 + 1], sh, sm);
 #pragma unroll
         for (int cp = 0; cp < CT / 2; ++cp)
           ldsm_x4_t(bk[cp], Kt + (kb2 * 16 + mr + ((mi & 1) << 3)) * LD +
                                 dc0 + cp * 16 + ((mi >> 1) << 3));
 #pragma unroll
         for (int cp = 0; cp < CT / 2; ++cp) {
-          mma(acc[2 * cp], sh, bk[cp][0], bk[cp][1]);
-          mma(acc[2 * cp + 1], sh, bk[cp][2], bk[cp][3]);
+          mma<T>(acc[2 * cp], sh, bk[cp][0], bk[cp][1]);
+          mma<T>(acc[2 * cp + 1], sh, bk[cp][2], bk[cp][3]);
         }
 #pragma unroll
         for (int cp = 0; cp < CT / 2; ++cp) {
-          mma(acc[2 * cp], sm, bk[cp][0], bk[cp][1]);
-          mma(acc[2 * cp + 1], sm, bk[cp][2], bk[cp][3]);
+          mma<T>(acc[2 * cp], sm, bk[cp][0], bk[cp][1]);
+          mma<T>(acc[2 * cp + 1], sm, bk[cp][2], bk[cp][3]);
         }
       }
     }
     __syncthreads();  // every warp is done with stage st before its refill
   }
 
-  // epilogue: dQ times scale, staged in bf16 through the Q tile
+  // epilogue: dQ times scale, staged in T through the Q tile
   cp_async_wait<0>();
   __syncthreads();
-  bf16* dQs = Qs;
+  T* dQs = Qs;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = wr + g + 8 * r;
 #pragma unroll
     for (int j = 0; j < CT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dQs + row * LD + dc0 + j * 8 +
-                                         2 * t4) =
-          __floats2bfloat162_rn(acc[j][2 * r] * scale,
-                                acc[j][2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dQs + row * LD + dc0 + j * 8 + 2 * t4) =
+          pack2<T>(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
   }
   __syncthreads();
   for (int i = tid; i < ROWS * cpr; i += NT) {
@@ -874,38 +878,38 @@ int launch_dq(const Args& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP, int KEYS, int DSPLIT, int MINB, bool CAUSAL>
+template <typename T, int DP, int KEYS, int DSPLIT, int MINB, bool CAUSAL>
 int launch_dkv_tc(const Args& a, cudaStream_t s) {
   if (a.Nq % kTcQueries || a.Nk % KEYS || a.D > DP)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = flash_bwd_dkv_tc_kernel<DP, KEYS, DSPLIT, MINB, CAUSAL>;
+  auto kern = flash_bwd_dkv_tc_kernel<T, DP, KEYS, DSPLIT, MINB, CAUSAL>;
   constexpr size_t smem = dkv_tc_smem_bytes<DP, KEYS>();
   // allow the bucket's footprint once, outside any graph capture
   static cudaError_t attr = allow_smem(kern, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   kern<<<dim3(a.B * a.H, a.Nk / KEYS), 2 * KEYS * DSPLIT, smem, s>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const unsigned char*>(a.keep), static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.H, a.Nq, a.Nk, a.D, a.scale);
+      static_cast<const unsigned char*>(a.keep), static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), a.H, a.Nq, a.Nk, a.D, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP, int ROWS, int DSPLIT, int MINB, bool CAUSAL>
+template <typename T, int DP, int ROWS, int DSPLIT, int MINB, bool CAUSAL>
 int launch_dq_tc(const Args& a, cudaStream_t s) {
   if (a.Nq % ROWS || a.Nk % kTcKeys || a.D > DP)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = flash_bwd_dq_tc_kernel<DP, ROWS, DSPLIT, MINB, CAUSAL>;
+  auto kern = flash_bwd_dq_tc_kernel<T, DP, ROWS, DSPLIT, MINB, CAUSAL>;
   constexpr size_t smem = dq_tc_smem_bytes<DP, ROWS>();
   // allow the bucket's footprint once, outside any graph capture
   static cudaError_t attr = allow_smem(kern, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   kern<<<dim3(a.B * a.H, a.Nq / ROWS), 2 * ROWS * DSPLIT, smem, s>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const unsigned char*>(a.keep), static_cast<bf16*>(a.dq),
+      static_cast<const unsigned char*>(a.keep), static_cast<T*>(a.dq),
       a.H, a.Nq, a.Nk, a.D, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -913,19 +917,28 @@ int launch_dq_tc(const Args& a, cudaStream_t s) {
 // the buckets: at D = 64, 8 warps (128 keys, so each Q/dO tile is fetched
 // once per head at N = 128) with registers capped at 128 for 2 CTAs an SM;
 // at 128, 4 warps; at 256, two warps share a key row block
-template <bool CAUSAL>
+template <typename T, bool CAUSAL>
 int dispatch_dkv_tc(const Args& a, cudaStream_t s) {
-  if (a.D <= 64) return launch_dkv_tc<64, 128, 1, 2, CAUSAL>(a, s);
-  if (a.D <= 128) return launch_dkv_tc<128, 64, 1, 1, CAUSAL>(a, s);
-  return launch_dkv_tc<256, 64, 2, 1, CAUSAL>(a, s);
+  if (a.D <= 64) return launch_dkv_tc<T, 64, 128, 1, 2, CAUSAL>(a, s);
+  if (a.D <= 128) return launch_dkv_tc<T, 128, 64, 1, 1, CAUSAL>(a, s);
+  return launch_dkv_tc<T, 256, 64, 2, 1, CAUSAL>(a, s);
 }
 
 // the same buckets over queries
-template <bool CAUSAL>
+template <typename T, bool CAUSAL>
 int dispatch_dq_tc(const Args& a, cudaStream_t s) {
-  if (a.D <= 64) return launch_dq_tc<64, 128, 1, 2, CAUSAL>(a, s);
-  if (a.D <= 128) return launch_dq_tc<128, 64, 1, 2, CAUSAL>(a, s);
-  return launch_dq_tc<256, 64, 2, 1, CAUSAL>(a, s);
+  if (a.D <= 64) return launch_dq_tc<T, 64, 128, 1, 2, CAUSAL>(a, s);
+  if (a.D <= 128) return launch_dq_tc<T, 128, 64, 1, 2, CAUSAL>(a, s);
+  return launch_dq_tc<T, 256, 64, 2, 1, CAUSAL>(a, s);
+}
+
+template <typename T>
+int run_tc(const Args& a, int which, cudaStream_t s) {
+  if (which == 0)
+    return a.causal ? dispatch_dkv_tc<T, true>(a, s)
+                    : dispatch_dkv_tc<T, false>(a, s);
+  return a.causal ? dispatch_dq_tc<T, true>(a, s)
+                  : dispatch_dq_tc<T, false>(a, s);
 }
 
 int dispatch_dkv_f32(const Args& a, cudaStream_t s) {
@@ -948,12 +961,8 @@ int run(const Args& a, int which, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return which == 0 ? dispatch_dkv_f32(a, s) : dispatch_dq_f32(a, s);
-  if (dtype == 1) {
-    if (which == 0)
-      return a.causal ? dispatch_dkv_tc<true>(a, s)
-                      : dispatch_dkv_tc<false>(a, s);
-    return a.causal ? dispatch_dq_tc<true>(a, s) : dispatch_dq_tc<false>(a, s);
-  }
+  if (dtype == 1) return run_tc<bf16>(a, which, s);
+  if (dtype == 2) return run_tc<__half>(a, which, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -962,8 +971,9 @@ int run(const Args& a, int which, int dtype, void* stream) {
 extern "C" {
 
 // q/dout: [B, Nq, H, D], k/v: [B, Nk, H, D], contiguous in `dtype`
-// (0 = float32, 1 = bfloat16); lse/delta: [B, H, Nq] f32; keep: [B, Nk]
-// bytes or NULL; lse and delta 16-byte aligned for bfloat16; dk/dv like k.
+// (0 = float32, 1 = bfloat16, 2 = float16); lse/delta: [B, H, Nq] f32;
+// keep: [B, Nk] bytes or NULL; lse and delta 16-byte aligned for the 16-bit
+// types; dk/dv like k.
 // Returns a cudaError_t (0 = success).
 int p1t_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,

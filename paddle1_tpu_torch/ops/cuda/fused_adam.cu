@@ -15,14 +15,14 @@
 // one without scales.
 //
 // Bound on an H100: memory. Each element reads p, g, m1, m2 and writes
-// p, m1, m2: 28 bytes in f32 (22 in bf16) for ~12 flops, so the kernel
-// is worth what it keeps in flight and how little it spends between
+// p, m1, m2: 28 bytes in f32 (22 in bf16 and f16) for ~12 flops, so the
+// kernel is worth what it keeps in flight and how little it spends between
 // bytes. Design:
 // * Every stream moves as 16-byte vectors: in f32 a float4 of p, g, m1
-//   and m2; in bf16 8 elements, one 16-byte load of p and of g against
-//   two float4 each of m1 and m2. Each thread loads kUnroll such vectors
-//   of every stream (16 elements) before it computes any, so 4 x 16 x 4
-//   bytes are in flight a thread in f32.
+//   and m2; in bf16 and f16 8 elements, one 16-byte load of p and of g
+//   against two float4 each of m1 and m2. Each thread loads kUnroll such
+//   vectors of every stream (16 elements) before it computes any, so
+//   4 x 16 x 4 bytes are in flight a thread in f32.
 // * A persistent grid of ctas_per_sm CTAs an SM walks the chunks of
 //   `chunk` elements in table order, CTA b taking chunks b, b + grid,
 //   ...; the chunks' tensor indices only grow, so each CTA finds a
@@ -60,7 +60,10 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -87,9 +90,13 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store1(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 
 __device__ __forceinline__ float4 load4(const void* ptr) {
@@ -111,6 +118,14 @@ template <typename T>
 __device__ __forceinline__ void unpack(const float4& raw, float* out) {
   if constexpr (sizeof(T) == 4) {
     out[0] = raw.x; out[1] = raw.y; out[2] = raw.z; out[3] = raw.w;
+  } else if constexpr (std::is_same<T, __half>::value) {
+    const __half2* h = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __half22float2(h[j]);
+      out[2 * j] = f.x;
+      out[2 * j + 1] = f.y;
+    }
   } else {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
@@ -127,6 +142,11 @@ __device__ __forceinline__ float4 pack(const float* in) {
   float4 raw;
   if constexpr (sizeof(T) == 4) {
     raw = make_float4(in[0], in[1], in[2], in[3]);
+  } else if constexpr (std::is_same<T, __half>::value) {
+    __half2* h = reinterpret_cast<__half2*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      h[j] = __floats2half2_rn(in[2 * j], in[2 * j + 1]);
   } else {
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
 #pragma unroll
@@ -249,8 +269,8 @@ extern "C" {
 // f32 = (decay, learning-rate scale) per tensor; scalars: [3] f32 = lr,
 // bc1, bc2; n_chunks = the last row's first chunk plus its chunk count;
 // chunk: elements a chunk, a multiple of 8. dtype of p and g:
-// 0 = float32, 1 = bfloat16. ctas_per_sm: the persistent grid's CTAs an
-// SM. Returns a cudaError_t (0 = success).
+// 0 = float32, 1 = bfloat16, 2 = float16. ctas_per_sm: the persistent
+// grid's CTAs an SM. Returns a cudaError_t (0 = success).
 int p1t_fused_adam(const void* table, const void* coef, const void* scalars,
                    int n_tensors, long long n_chunks, long long chunk,
                    float beta1, float beta2, float omb1, float omb2,
@@ -271,6 +291,9 @@ int p1t_fused_adam(const void* table, const void* coef, const void* scalars,
         t, d, sc, n_tensors, n_chunks, chunk, beta1, beta2, omb1, omb2, eps);
   else if (dtype == 1)
     adam_kernel<__nv_bfloat16, 2><<<grid, kThreads, 0, s>>>(
+        t, d, sc, n_tensors, n_chunks, chunk, beta1, beta2, omb1, omb2, eps);
+  else if (dtype == 2)
+    adam_kernel<__half, 2><<<grid, kThreads, 0, s>>>(
         t, d, sc, n_tensors, n_chunks, chunk, beta1, beta2, omb1, omb2, eps);
   else
     return static_cast<int>(cudaErrorInvalidValue);

@@ -13,9 +13,10 @@ keep-mask. A row that sees no key gives O = 0 and LSE = -1e30.
   sentinel LSE remapped to +inf so such rows get zero gradient).
 * :func:`flash_fwd` — launches ``ops/cuda/flash_attention.cu`` for CUDA
   tensors and runs the plain version only for CPU tensors; no fallback.
-* :func:`flash_fwd_tc_emulation` — the bf16 tensor-core kernel's
+* :func:`flash_fwd_tc_emulation` — the 16-bit tensor-core kernel's
   arithmetic in plain PyTorch (64-key tiles, the online softmax, P split
-  into bf16 hi + lo, f32 accumulation), for the CPU tests only.
+  into hi + lo in the 16-bit type, f32 accumulation), bf16 or f16, for
+  the CPU tests only.
 * :func:`flash_attention` — the differentiable entry
   (``torch.autograd.Function``): forward through :func:`flash_fwd`,
   backward through the kernels of ``flash_attention_bwd`` under the
@@ -37,7 +38,7 @@ __all__ = ["flash_attention", "flash_attention_ref", "flash_bwd_ref",
 
 BLOCK = 128
 _NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 TC_TILE = 64   # keys of a tile (forward, dQ), queries of a tile (dK/dV)
 _fn = None
 
@@ -116,16 +117,18 @@ def flash_bwd_ref(q, k, v, out, lse, dout, scale: float,
     return back(dq, q), back(dk, k), back(dv, v)
 
 
-def split_bf16(x):
-    """``x`` (f32) as bf16 ``hi + lo``, both returned in f32: what the
-    tensor-core kernels feed the product in place of an f32 operand."""
-    hi = x.to(torch.bfloat16).float()
-    return hi, (x - hi).to(torch.bfloat16).float()
+def split16(x, dtype=torch.bfloat16):
+    """``x`` (f32) as ``hi + lo`` in the 16-bit ``dtype``, both returned in
+    f32: what the tensor-core kernels feed the product in place of an f32
+    operand."""
+    hi = x.to(dtype).float()
+    return hi, (x - hi).to(dtype).float()
 
 
-def _heads(*ts):
-    """bf16 operands, as the tensor cores read them, in f32 [B, H, N, D]."""
-    return [t.to(torch.bfloat16).float().transpose(1, 2) for t in ts]
+def _heads(*ts, dtype=torch.bfloat16):
+    """16-bit operands, as the tensor cores read them, in f32
+    [B, H, N, D]."""
+    return [t.to(dtype).float().transpose(1, 2) for t in ts]
 
 
 def _visible(b, nq, k0, nk_tile, nk, causal, padding_mask, device):
@@ -143,16 +146,16 @@ def _visible(b, nq, k0, nk_tile, nk, causal, padding_mask, device):
 
 
 def flash_fwd_tc_emulation(q, k, v, scale: float, causal: bool = False,
-                           padding_mask=None):
-    """The bf16 tensor-core forward's numerics in plain PyTorch (CPU tests
-    only): operands rounded to bf16, S = Q K^T exact products summed in
-    f32, the online softmax over 64-key tiles (the raw-score max, p =
-    exp((s - m) scale)), O += P_hi V + P_lo V in f32. Returns ``(out,
-    lse)`` in f32, before the kernel's store rounds ``out`` to bf16; rows
-    with no visible key give 0 and -1e30."""
+                           padding_mask=None, dtype=torch.bfloat16):
+    """The tensor-core forward's numerics in ``dtype`` (bf16 or f16) in
+    plain PyTorch (CPU tests only): operands rounded to ``dtype``, S = Q K^T
+    exact products summed in f32, the online softmax over 64-key tiles
+    (the raw-score max, p = exp((s - m) scale)), O += P_hi V + P_lo V in
+    f32. Returns ``(out, lse)`` in f32, before the kernel's store rounds
+    ``out`` to ``dtype``; rows with no visible key give 0 and -1e30."""
     b, nq, h, d = q.shape
     nk = k.shape[1]
-    qh, kh, vh = _heads(q, k, v)
+    qh, kh, vh = _heads(q, k, v, dtype=dtype)
     m = torch.full((b, h, nq), float("-inf"), device=q.device)
     l = torch.zeros(b, h, nq, device=q.device)
     acc = torch.zeros(b, h, nq, d, device=q.device)
@@ -167,7 +170,7 @@ def flash_fwd_tc_emulation(q, k, v, scale: float, causal: bool = False,
         alpha = torch.where(m_new == float("-inf"), torch.ones_like(m),
                             torch.exp((m - mu) * scale))
         p = torch.exp((s - mu[..., None]) * scale)
-        hi, lo = split_bf16(p)
+        hi, lo = split16(p, dtype)
         vt = vh[:, :, k0:k0 + TC_TILE]
         acc = acc * alpha[..., None] + (torch.matmul(hi, vt) +
                                         torch.matmul(lo, vt))
@@ -183,7 +186,7 @@ def flash_fwd_tc_emulation(q, k, v, scale: float, causal: bool = False,
 
 
 def _aligned(t):
-    """``t`` contiguous with a 16-byte aligned start (the bf16 kernels copy
+    """``t`` contiguous with a 16-byte aligned start (the 16-bit kernels copy
     rows, the keep-mask, LSE and delta with 16-byte ``cp.async``); a view
     that starts elsewhere is copied."""
     t = t.contiguous()

@@ -16,8 +16,8 @@ computes it outside Pallas. The kernels remap the sentinel LSE to +inf.
 The plain version is ``flash_attention.flash_bwd_ref``; CPU tensors run
 it, CUDA tensors launch the kernels or raise.
 :func:`flash_bwd_dkv_tc_emulation` and :func:`flash_bwd_dq_tc_emulation`
-are the bf16 tensor-core passes' arithmetic in plain PyTorch, for the CPU
-tests only.
+are the 16-bit (bf16, f16) tensor-core passes' arithmetic in plain
+PyTorch, for the CPU tests only.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import torch
 
 from ..core.errors import KernelLaunchError
 from .flash_attention import (_DTYPES, _NEG_INF, TC_TILE, _aligned, _check,
-                              _heads, _visible, flash_bwd_ref, split_bf16,
+                              _heads, _visible, flash_bwd_ref, split16,
                               supported)
 
 __all__ = ["flash_attention_bwd", "flash_bwd_dkv", "flash_bwd_dq",
@@ -114,18 +114,19 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, scale, causal=False,
 
 
 def flash_bwd_dkv_tc_emulation(q, k, v, dout, lse, delta, scale,
-                               causal=False, padding_mask=None):
-    """The bf16 tensor-core dK/dV pass's numerics in plain PyTorch (CPU
-    tests only): operands rounded to bf16; per 64-query tile, S^T and
-    dP^T as exact products summed in f32, P^T = exp(S^T scale - lse)
-    masked (a sentinel LSE gives 0), dS^T / scale = P^T (dP^T - delta),
-    then dV += P^T_hi dO + P^T_lo dO and dK += (dS^T / scale)_hi Q +
-    (dS^T / scale)_lo Q in f32, dK times scale at the end. Returns
-    ``(dk, dv)`` in f32 ``[B, Nk, H, D]``, before the kernel's store rounds
-    them to bf16."""
+                               causal=False, padding_mask=None,
+                               dtype=torch.bfloat16):
+    """The tensor-core dK/dV pass's numerics in ``dtype`` (bf16 or f16) in
+    plain PyTorch (CPU tests only): operands rounded to ``dtype``; per
+    64-query tile, S^T and dP^T as exact products summed in f32, P^T =
+    exp(S^T scale - lse) masked (a sentinel LSE gives 0), dS^T / scale =
+    P^T (dP^T - delta), then dV += P^T_hi dO + P^T_lo dO and dK +=
+    (dS^T / scale)_hi Q + (dS^T / scale)_lo Q in f32, dK times scale at
+    the end. Returns ``(dk, dv)`` in f32 ``[B, Nk, H, D]``, before the
+    kernel's store rounds them to ``dtype``."""
     b, nq, h, d = q.shape
     nk = k.shape[1]
-    qh, kh, vh, doh = _heads(q, k, v, dout)
+    qh, kh, vh, doh = _heads(q, k, v, dout, dtype=dtype)
     lse = torch.where(lse > _NEG_INF * 0.1, lse.float(),
                       torch.full((), float("inf"), device=lse.device))
     dk = torch.zeros(b, h, nk, d, device=q.device)
@@ -140,24 +141,26 @@ def flash_bwd_dkv_tc_emulation(q, k, v, dout, lse, delta, scale,
                          torch.zeros((), device=q.device))
         dst = pt * (dpt - delta[:, :, None, rows].float())
         for acc, left, right in ((dv, pt, doh), (dk, dst, qh)):
-            hi, lo = split_bf16(left)
+            hi, lo = split16(left, dtype)
             acc += torch.matmul(hi, right[:, :, rows]) + \
                 torch.matmul(lo, right[:, :, rows])
     return (dk * scale).transpose(1, 2), dv.transpose(1, 2)
 
 
 def flash_bwd_dq_tc_emulation(q, k, v, dout, lse, delta, scale,
-                              causal=False, padding_mask=None):
-    """The bf16 tensor-core dQ pass's numerics in plain PyTorch (CPU tests
-    only), the mirror of :func:`flash_bwd_dkv_tc_emulation`: operands
-    rounded to bf16; per 64-key tile, S and dP as exact products summed in
-    f32, P = exp(S scale - lse) masked (a sentinel LSE gives 0), dS / scale
-    = P (dP - delta), then dQ += (dS / scale)_hi K + (dS / scale)_lo K in
-    f32, dQ times scale at the end. Returns dq in f32 ``[B, Nq, H, D]``,
-    before the kernel's store rounds it to bf16."""
+                              causal=False, padding_mask=None,
+                              dtype=torch.bfloat16):
+    """The tensor-core dQ pass's numerics in ``dtype`` (bf16 or f16) in
+    plain PyTorch (CPU tests only), the mirror of
+    :func:`flash_bwd_dkv_tc_emulation`: operands rounded to ``dtype``; per
+    64-key tile, S and dP as exact products summed in f32, P = exp(S scale
+    - lse) masked (a sentinel LSE gives 0), dS / scale = P (dP - delta),
+    then dQ += (dS / scale)_hi K + (dS / scale)_lo K in f32, dQ times scale
+    at the end. Returns dq in f32 ``[B, Nq, H, D]``, before the kernel's
+    store rounds it to ``dtype``."""
     b, nq, h, d = q.shape
     nk = k.shape[1]
-    qh, kh, vh, doh = _heads(q, k, v, dout)
+    qh, kh, vh, doh = _heads(q, k, v, dout, dtype=dtype)
     lse = torch.where(lse > _NEG_INF * 0.1, lse.float(),
                       torch.full((), float("inf"), device=lse.device))
     dq = torch.zeros(b, h, nq, d, device=q.device)
@@ -169,7 +172,7 @@ def flash_bwd_dq_tc_emulation(q, k, v, dout, lse, delta, scale,
                        q.device)
         p = torch.where(vis, torch.exp(s * scale - lse[..., None]),
                         torch.zeros((), device=q.device))
-        hi, lo = split_bf16(p * (dp - delta[..., None].float()))
+        hi, lo = split16(p * (dp - delta[..., None].float()), dtype)
         kt = kh[:, :, keys]
         dq += torch.matmul(hi, kt) + torch.matmul(lo, kt)
     return (dq * scale).transpose(1, 2)

@@ -48,7 +48,7 @@ __all__ = ["fused_adam_", "fused_adam_ref", "fused_adam_emulation",
 CHUNK = 8192
 CTAS_PER_SM = 4
 VEC_BYTES = 16
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _fn = None
 _tables: dict = {}  # pointer signature -> (table, coefficients, n_chunks)
 
@@ -199,7 +199,7 @@ def fused_adam_(params: Sequence[torch.Tensor],
     ``grads[i]``. ``scalars``: f32 ``[3]`` = lr, bc1, bc2 on the params'
     device; ``decays[i]`` and ``scales[i]`` (learning-rate factors, None:
     all 1) per tensor. CUDA tensors: one kernel launch for the whole list
-    (all p in one dtype, f32 or bf16; g in p's dtype; m1/m2 f32; all
+    (all p in one dtype, f32, bf16 or f16; g in p's dtype; m1/m2 f32; all
     contiguous). CPU tensors: the plain version per tensor."""
     n = len(params)
     if scales is None:
@@ -225,7 +225,7 @@ def fused_adam_(params: Sequence[torch.Tensor],
     if dtype not in _DTYPES:
         raise InvalidArgumentError(
             f"fused_adam_: parameter dtype {dtype} is outside the kernel's "
-            "contract (float32 or bfloat16)")
+            "contract (float32, bfloat16 or float16)")
     for p, g, a, b in zip(params, grads, m1s, m2s):
         ok = (p.dtype == dtype and g.dtype == dtype and
               a.dtype == torch.float32 and b.dtype == torch.float32 and

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..amp import cast_point
 from ..core.tensor import to_tensor
 
 __all__ = [
@@ -143,6 +144,7 @@ def eigvalsh(x, UPLO="L", name=None):
     return torch.linalg.eigvalsh(_t(x), UPLO=UPLO)
 
 
+@cast_point("norm")
 def norm(x, p=None, axis=None, keepdim=False, name=None):
     """The reference's norms: Frobenius / 2-norm (``p`` None or "fro"),
     max / min of ``|x|`` (inf, -inf), the count of non-zeros (0), else

@@ -22,6 +22,7 @@ import builtins
 import numpy as np
 import torch
 
+from ..amp import BLACK_LIST, WHITE_LIST, cast_point
 from ..core import dtype as dtypes
 from ..core.errors import InvalidArgumentError
 from ..core.tensor import to_tensor, update_in_place
@@ -54,18 +55,24 @@ def _pair(x, y):
     return x, _operand(y, x)
 
 
+def _named(opname, op):
+    """``op`` under its Paddle name; an op that ``auto_cast``'s lists
+    name casts there (``amp.cast_point``)."""
+    op.__name__ = op.__qualname__ = opname
+    return cast_point(opname)(op) if opname in WHITE_LIST | BLACK_LIST \
+        else op
+
+
 def _unary(opname, fn):
     def op(x, name=None):
         return fn(_t(x))
-    op.__name__ = op.__qualname__ = opname
-    return op
+    return _named(opname, op)
 
 
 def _binary(opname, fn):
     def op(x, y, name=None):
         return fn(*_pair(x, y))
-    op.__name__ = op.__qualname__ = opname
-    return op
+    return _named(opname, op)
 
 
 def _float(x: torch.Tensor) -> torch.Tensor:
@@ -205,6 +212,7 @@ def multiplex(inputs, index, name=None):
 
 # -- matmul family ------------------------------------------------------------
 
+@cast_point("matmul")
 def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
     a, b = _pair(x, y)
     if transpose_x and a.dim() >= 2:
@@ -229,6 +237,7 @@ def mm(input, mat2, name=None):
     return matmul(a, b)
 
 
+@cast_point("bmm")
 def bmm(x, y, name=None):
     return torch.matmul(*_pair(x, y))
 
@@ -259,10 +268,12 @@ def tanh_(x, name=None):
                            native=torch.Tensor.tanh_ if floating else None)
 
 
+@cast_point("addmm")
 def addmm(input, x, y, beta=1.0, alpha=1.0, name=None):
     return beta * _t(input) + alpha * torch.matmul(_t(x), _t(y))
 
 
+@cast_point("einsum")
 def einsum(equation, *operands):
     return torch.einsum(equation, *[_t(o) for o in operands])
 
@@ -350,8 +361,7 @@ def _reduce(opname, fn, prep=None):
         if dtype is not None:
             y = y.to(dtypes.convert_dtype(dtype))
         return y
-    op.__name__ = op.__qualname__ = opname
-    return op
+    return _named(opname, op)
 
 
 def _bool(x):

@@ -7,13 +7,15 @@ of ``core.tensor.ParamBase``, the parameter every port layer creates, as
 the reference's ``Parameter`` is a ``Tensor`` with all its methods
 (``paddle1_tpu/core/tensor.py:242-263``); ``torch.Tensor`` is never
 patched. The operators stay torch's, whose meaning on a facade tensor is
-already Paddle's; ``__setitem__`` also writes into a leaf that requires
-grad, as the reference does. On a ``ParamBase``, which keeps
-``torch.nn.Parameter``'s disabled ``__torch_function__`` (its ops stay
-torch's own and pay no re-wrapping), a method that runs Paddle's op
-returns its new tensors as facade tensors, as the reference's return
-``Tensor``s; the facade's own ``shape``, ``size``, ``place``, ``numpy``
-and ``clear_grad`` are its too.
+already Paddle's, but for ``@`` and ``**``, which run the named ops
+``matmul`` and ``pow`` (where ``auto_cast`` casts); ``__setitem__`` also
+writes into a leaf that requires grad, as the reference does. On a
+``ParamBase``, which keeps ``torch.nn.Parameter``'s disabled
+``__torch_function__`` (its ops stay torch's own and pay no
+re-wrapping), a method that runs Paddle's op returns its new tensors as
+facade tensors, as the reference's return ``Tensor``s; the facade's own
+``shape``, ``size``, ``place``, ``numpy`` and ``clear_grad`` are its
+too.
 
 Where a name is also a ``torch.Tensor`` method, the facade's method
 follows the collision rule that ``core/tensor.py``'s docstring states:
@@ -322,10 +324,22 @@ def _install_explicit(T) -> None:
     T.__setitem__ = __setitem__
 
 
+def _install_operators() -> None:
+    """The facade's ``@`` and ``**`` through the named ops ``matmul`` and
+    ``pow``, as ``paddle1_tpu/ops/patch.py:42-48`` sends them, so that
+    ``auto_cast`` casts them there; the other operators stay torch's. A
+    ``ParamBase`` keeps torch's operators (its ops are torch's own)."""
+    Tensor.__matmul__ = lambda s, o: M.matmul(s, o)
+    Tensor.__rmatmul__ = lambda s, o: M.matmul(o, s)
+    Tensor.__pow__ = lambda s, o: M.pow(s, o)
+    Tensor.__rpow__ = lambda s, o: M.pow(o, s)
+
+
 def _install() -> None:
     _install_explicit(Tensor)
     _install_explicit(ParamBase)
     _install_table()
+    _install_operators()
 
 
 _install()

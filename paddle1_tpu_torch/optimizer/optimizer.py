@@ -22,7 +22,16 @@ bias corrections ``1 - beta^step`` are computed on the parameters' device
 from a device step counter, so no step count is baked into a launch.
 ``Momentum`` follows ``Momentum._update`` (``optimizer.py:268-275``): the
 JAX package has no kernel for it, so it runs as PyTorch ``_foreach``
-ops, one group per device, dtype and learning-rate scale.
+ops, one group per device, dtype, learning-rate scale and decay.
+
+``parameters`` may be Paddle's param groups, dicts of ``"params"`` with
+an optional ``"learning_rate"`` and ``"weight_decay"``: they are
+flattened as ``paddle1_tpu/optimizer/optimizer.py:58-72`` flattens them,
+each group's values written into its parameters' ``optimize_attr``. The
+port applies both (the rate as a ``ParamAttr`` rate, the decay in place
+of the optimizer's, on the fused path through its ``(decay, scale)``
+table); the JAX package records the group's ``weight_decay`` and reads
+it nowhere.
 """
 
 from __future__ import annotations
@@ -37,6 +46,34 @@ from ..ops import fused_adam as fadam
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]
+
+
+def _coeff(weight_decay) -> float:
+    """A weight decay as a float: None is 0, a regularizer its
+    ``coeff``."""
+    if weight_decay is None:
+        return 0.0
+    return float(getattr(weight_decay, "coeff", weight_decay))
+
+
+def _flatten_groups(parameters):
+    """``parameters`` as one list: Paddle's param groups (dicts of
+    ``"params"`` and an optional ``"learning_rate"``/``"weight_decay"``)
+    flattened, each group's values written into its parameters'
+    ``optimize_attr`` (``paddle1_tpu/optimizer/optimizer.py:58-72``)."""
+    parameters = list(parameters)
+    if not parameters or not isinstance(parameters[0], dict):
+        return parameters
+    flat = []
+    for group in parameters:
+        for p in group["params"]:
+            if not hasattr(p, "optimize_attr"):
+                p.optimize_attr = {"learning_rate": 1.0}
+            for key in ("learning_rate", "weight_decay"):
+                if key in group:
+                    p.optimize_attr[key] = group[key]
+            flat.append(p)
+    return flat
 
 
 class Optimizer:
@@ -56,18 +93,21 @@ class Optimizer:
     p.optimize_attr["learning_rate"]`` (which scales AdamW's decoupled
     decay too), ``p.regularizer(p)`` is added to the gradient after the
     clip, a parameter with ``need_clip=False`` passes the clip, and one
-    that is not trainable is not updated."""
+    that is not trainable is not updated. ``multi_precision`` is taken
+    as the reference takes it: every slot is f32 whatever the parameter's
+    dtype, which is what it asks for; so is ``name``."""
 
     _slot_names: Tuple[str, ...] = ()
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay: Optional[float] = None,
-                 grad_clip: Optional[Callable] = None):
+                 grad_clip: Optional[Callable] = None, name=None,
+                 multi_precision: bool = False):
         self._params: List[torch.Tensor] = []
         self._names: List[str] = []
         if parameters is not None:
             seen = set()
-            for p in parameters:
+            for p in _flatten_groups(parameters):
                 if id(p) in seen:
                     continue
                 seen.add(id(p))
@@ -76,8 +116,7 @@ class Optimizer:
         self._learning_rate = learning_rate \
             if isinstance(learning_rate, LRScheduler) else \
             float(learning_rate)
-        self._weight_decay = 0.0 if weight_decay is None else \
-            float(getattr(weight_decay, "coeff", weight_decay))
+        self._weight_decay = _coeff(weight_decay)
         self._grad_clip = grad_clip
         self._slots: Dict[int, Dict[str, torch.Tensor]] = {}
         self._step_count = 0
@@ -162,9 +201,18 @@ class Optimizer:
 
     @staticmethod
     def _lr_scale(p) -> float:
-        """``ParamAttr(learning_rate=...)``'s factor of one parameter."""
+        """``ParamAttr(learning_rate=...)``'s factor of one parameter (or
+        its param group's ``learning_rate``)."""
         attr = getattr(p, "optimize_attr", None)
         return 1.0 if not attr else float(attr.get("learning_rate", 1.0))
+
+    def _l2(self, p) -> float:
+        """The L2 coefficient of one parameter: its param group's
+        ``weight_decay`` where it has one, else the optimizer's."""
+        attr = getattr(p, "optimize_attr", None)
+        if attr and "weight_decay" in attr:
+            return _coeff(attr["weight_decay"])
+        return self._weight_decay
 
     def _update(self, params, grads, lr):
         raise NotImplementedError
@@ -216,28 +264,32 @@ class Momentum(Optimizer):
     """Heavy-ball momentum: ``v = momentum * v + g``, then
     ``p -= lr * v`` (or, with ``use_nesterov``, ``p -= lr * (g +
     momentum * v)``); ``weight_decay`` is an L2 term added to the
-    gradient first. The velocity is f32."""
+    gradient first (a param group's own where it has one). The velocity
+    is f32."""
 
     _slot_names = ("velocity",)
 
     def __init__(self, learning_rate=0.001, momentum: float = 0.9,
                  parameters=None, use_nesterov: bool = False,
                  weight_decay: Optional[float] = None,
-                 grad_clip: Optional[Callable] = None):
-        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+                 grad_clip: Optional[Callable] = None,
+                 multi_precision: bool = False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
         self._momentum = float(momentum)
         self._nesterov = bool(use_nesterov)
 
     def _update(self, params, grads, lr):
-        groups: Dict[Tuple[torch.device, torch.dtype, float], list] = {}
+        groups: Dict[Tuple[torch.device, torch.dtype, float, float],
+                     list] = {}
         for p, g in zip(params, grads):
-            groups.setdefault((p.device, p.dtype, self._lr_scale(p)),
-                              []).append((p, g))
-        for (_, dtype, scale), pgs in groups.items():
+            groups.setdefault((p.device, p.dtype, self._lr_scale(p),
+                               self._l2(p)), []).append((p, g))
+        for (_, dtype, scale, wd), pgs in groups.items():
             ps = [p for p, _ in pgs]
             gs = [g.to(dtype) for _, g in pgs]
-            if self._weight_decay:
-                gs = torch._foreach_add(gs, ps, alpha=self._weight_decay)
+            if wd:
+                gs = torch._foreach_add(gs, ps, alpha=wd)
             vs = [self._slots_for(p)["velocity"] for p in ps]
             torch._foreach_mul_(vs, self._momentum)
             torch._foreach_add_(vs, [g.float() for g in gs])
@@ -266,13 +318,15 @@ class Adam(Optimizer):
             raise UnimplementedError(
                 f"{type(self).__name__}: lazy_mode is not ported "
                 "(ROADMAP Queue 1 item 8)")
-        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
         self._beta1 = float(beta1)
         self._beta2 = float(beta2)
         self._epsilon = float(epsilon)
 
-    def _decay(self, name: str) -> float:
-        """The decoupled decay coefficient of one parameter (0 for Adam)."""
+    def _decay(self, name: str, p=None) -> float:
+        """The decoupled decay coefficient of the parameter ``p`` named
+        ``name`` (0 for Adam)."""
         return 0.0
 
     def _scalars(self, device, lr: float) -> torch.Tensor:
@@ -300,13 +354,14 @@ class Adam(Optimizer):
             for p, g in pgs:
                 s = self._slots_for(p)
                 g = g.to(p.dtype)
-                if self._weight_decay:   # L2 into the gradient (Adam)
-                    g = g + self._weight_decay * p
+                wd = self._l2(p)
+                if wd:   # L2 into the gradient (Adam)
+                    g = g + wd * p
                 ps.append(p)
                 gs.append(g.contiguous())
                 m1s.append(s["moment1"])
                 m2s.append(s["moment2"])
-                decays.append(self._decay(names.get(id(p), "")))
+                decays.append(self._decay(names.get(id(p), ""), p))
                 scales.append(self._lr_scale(p))
             if flag_active("fused_adam", dev):
                 fadam.fused_adam_(ps, gs, m1s, m2s, scalars[dev], decays,
@@ -328,8 +383,12 @@ class AdamW(Adam):
     ``1 - lr * weight_decay`` before the Adam step (``lr`` the
     parameter's own rate); parameters whose name ``apply_decay_param_fun``
     rejects are not decayed, in the eager step and under
-    ``ParallelEngine`` alike. ``lr_ratio`` (a per-parameter rate function)
-    is not ported and raises (ROADMAP Queue 1 item 2)."""
+    ``ParallelEngine`` alike; a param group's ``weight_decay`` replaces
+    ``weight_decay`` for its parameters. ``lr_ratio`` (a function of a
+    parameter giving a factor of its rate) is taken and not applied, as
+    the JAX package takes it
+    (``paddle1_tpu/optimizer/optimizer.py:434-443``); Paddle's reference
+    applies it (ROADMAP)."""
 
     def __init__(self, learning_rate=0.001, beta1: float = 0.9,
                  beta2: float = 0.999, epsilon: float = 1e-8,
@@ -339,16 +398,19 @@ class AdamW(Adam):
                  apply_decay_param_fun: Optional[Callable[[str], bool]]
                  = None, multi_precision: bool = False,
                  lazy_mode: bool = False, name=None):
-        if lr_ratio is not None:
-            raise UnimplementedError(
-                "AdamW: lr_ratio is not ported (ROADMAP Queue 1 item 2)")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         None, grad_clip, lazy_mode, multi_precision)
-        self._coeff = float(getattr(weight_decay, "coeff", weight_decay))
+                         None, grad_clip, lazy_mode, multi_precision, name)
+        self._coeff = _coeff(weight_decay)
         self._apply_decay_fn = apply_decay_param_fun
 
-    def _decay(self, name: str) -> float:
+    def _l2(self, p) -> float:
+        return 0.0   # AdamW's decay is decoupled (:meth:`_decay`)
+
+    def _decay(self, name: str, p=None) -> float:
         if self._apply_decay_fn is not None and \
                 not self._apply_decay_fn(name):
             return 0.0
+        attr = getattr(p, "optimize_attr", None)
+        if attr and "weight_decay" in attr:
+            return _coeff(attr["weight_decay"])
         return self._coeff

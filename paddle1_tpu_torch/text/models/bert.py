@@ -34,6 +34,7 @@ import torch
 from ...core.device import resolve_device
 from ...framework.param_attr import ParamAttr
 from ...nn import functional as F
+from ...ops import math_ops
 from ...nn.initializer import Normal
 from ...nn.layer_base import Layer
 from ...nn.layer_common import Dropout, Embedding, Linear
@@ -161,7 +162,7 @@ class BertLMPredictionHead(Layer):
             hidden_states = hidden_states.reshape(b * s, h)[
                 masked_positions.reshape(-1).long()]
         x = self.layer_norm(self.activation(self.transform(hidden_states)))
-        logits = torch.matmul(x, torch.t(self.decoder_weight))
+        logits = math_ops.matmul(x, self.decoder_weight, transpose_y=True)
         return logits + self.decoder_bias
 
 

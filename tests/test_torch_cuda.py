@@ -10,12 +10,15 @@ They hold that on CUDA tensors the functionals always go through the
 kernels' wrappers: inputs outside a kernel's contract raise instead of
 running the plain version, and a bf16 KV pool under f32 queries runs the
 kernel and agrees with the plain version. For the training kernels
-(flash forward, its dK/dV and dQ passes, fused AdamW) they hold the same,
-the bf16 tensor-core forward, dK/dV and dQ passes to their plain versions
-at every D bucket, causal and padded, and that a tiny BERT step on the
-card launches each of them; the LayerNorm kernel to its plain version
-on the warp-per-row and block-per-row paths, with and without 16-byte
-vectors, in f32 and bf16. For the
+(flash forward, its dK/dV and dQ passes, fused AdamW) they hold the
+same, the bf16 and f16 tensor-core forward, dK/dV and dQ passes to their
+plain versions at every D bucket, causal and padded, fused AdamW in f32,
+bf16 and f16 on unaligned views, that a tiny BERT step on the card
+launches each of them, and that eager steps of a tiny BERT classifier
+under ``amp.auto_cast`` (O1, and O2 through ``amp.decorate``; bf16, and
+f16 with ``GradScaler``) launch them in the AMP dtype; the LayerNorm
+kernel to its plain version on the warp-per-row and block-per-row paths,
+with and without 16-byte vectors, in f32 and bf16. For the
 fused batch-norm family (training and given-statistics forward, their
 backward passes) they hold each kernel to its plain version across the
 activation x residual matrix in f32 and bf16, that inputs outside the
@@ -275,7 +278,7 @@ def _qkv(dev, shape=(2, 128, 2, 64), dtype=torch.float32, seed=0):
 
 
 @pytest.mark.parametrize("shape,dtype", [
-    ((2, 128, 2, 64), torch.float16),
+    ((2, 128, 2, 64), torch.float64),
     ((2, 96, 2, 64), torch.float32),     # ragged N
     ((2, 128, 2, 60), torch.float32),    # d % 8
 ])
@@ -314,33 +317,50 @@ def test_sdpa_padding_mask_runs_the_flash_kernels_forward_and_back(dev):
 FLASH_BF16_ABS, FLASH_TOL = 1e-4, 1e-5
 
 
-def _bf16_excess(got, want):
+def _bf16_excess(got, want, step=2.0 ** -7):
     got, want = got.float(), want.float()
-    return float(((got - want).abs() - 2.0 ** -7 * want.abs()).max())
+    return float(((got - want).abs() - step * want.abs()).max())
 
 
-@pytest.mark.parametrize("nq,nk,d,causal", [
+TC_FLASH_CASES = [
     (256, 256, 64, False), (256, 256, 64, True), (128, 256, 64, True),
     (256, 256, 128, False), (128, 256, 128, True), (256, 256, 256, False),
     (128, 256, 256, True), (128, 128, 40, False), (128, 256, 96, True),
-])
+]
+
+
+@pytest.mark.parametrize("nq,nk,d,causal", TC_FLASH_CASES)
 def test_bf16_tensor_core_flash_matches_its_plain_version(dev, nq, nk, d,
                                                           causal):
     """The tensor-core forward, dK/dV and dQ passes at each D bucket (64,
     128, 256; 40 and 96 zero-padded in shared memory), causal and padded,
     one batch row fully padded; all three repeat bit for bit."""
+    _tc_flash_case(dev, nq, nk, d, causal, torch.bfloat16, 2.0 ** -7)
+
+
+@pytest.mark.parametrize("nq,nk,d,causal", TC_FLASH_CASES)
+def test_f16_tensor_core_flash_matches_its_plain_version(dev, nq, nk, d,
+                                                         causal):
+    """The same in float16 (the f16 form of the product): one f16 rounding
+    step of each stored value (2^-10 relative) beyond the bf16 bounds'
+    f32 difference; all three repeat bit for bit."""
+    _tc_flash_case(dev, nq, nk, d, causal, torch.float16, 2.0 ** -10)
+
+
+def _tc_flash_case(dev, nq, nk, d, causal, dtype, step):
     g = torch.Generator(device=dev).manual_seed(nq + nk + d)
     q, do = (torch.randn(3, nq, 2, d, device=dev, generator=g).to(
-        torch.bfloat16) for _ in range(2))
+        dtype) for _ in range(2))
     k, v = (torch.randn(3, nk, 2, d, device=dev, generator=g).to(
-        torch.bfloat16) for _ in range(2))
+        dtype) for _ in range(2))
     keep = torch.ones(3, nk, dtype=torch.bool, device=dev)
     keep[0, nk // 2 + 3:] = False
     keep[1] = False
     scale = d ** -0.5
     out, lse = fa.flash_fwd(q, k, v, scale, causal, keep)
     ro, rl = fa.flash_attention_ref(q, k, v, scale, causal, keep)
-    assert _bf16_excess(out, ro) <= FLASH_BF16_ABS
+    assert out.dtype == dtype
+    assert _bf16_excess(out, ro, step) <= FLASH_BF16_ABS
     live = rl > -1e29
     assert torch.equal(lse > -1e29, live)
     assert float((lse - rl)[live].abs().max()) <= FLASH_TOL
@@ -349,9 +369,9 @@ def test_bf16_tensor_core_flash_matches_its_plain_version(dev, nq, nk, d,
     dk, dv = fb.flash_bwd_dkv(q, k, v, do, rl, delta, scale, causal, keep)
     dq = fb.flash_bwd_dq(q, k, v, do, rl, delta, scale, causal, keep)
     rq, rk, rv = fa.flash_bwd_ref(q, k, v, ro, rl, do, scale, causal, keep)
-    assert _bf16_excess(dk, rk) <= FLASH_BF16_ABS
-    assert _bf16_excess(dv, rv) <= FLASH_BF16_ABS
-    assert _bf16_excess(dq, rq) <= FLASH_BF16_ABS
+    for got, want in ((dk, rk), (dv, rv), (dq, rq)):
+        assert got.dtype == dtype
+        assert _bf16_excess(got, want, step) <= FLASH_BF16_ABS
     assert float(dk[1].abs().max()) == float(dv[1].abs().max()) == 0.0
     assert float(dq[1].abs().max()) == 0.0
     out2, lse2 = fa.flash_fwd(q, k, v, scale, causal, keep)
@@ -376,7 +396,7 @@ def test_bf16_flash_takes_unaligned_views(dev):
 
 
 def test_fused_adam_outside_the_contract_raises_on_the_card(dev):
-    p = torch.zeros(10, device=dev, dtype=torch.float16)
+    p = torch.zeros(10, device=dev, dtype=torch.float64)
     m = torch.zeros(10, device=dev)
     sc = torch.zeros(3, device=dev)
     with pytest.raises(InvalidArgumentError, match="contract"):
@@ -387,7 +407,8 @@ def test_fused_adam_outside_the_contract_raises_on_the_card(dev):
                         [0.0], 0.9, 0.999, 1e-8)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_fused_adam_on_unaligned_views_is_bit_for_bit(dev, dtype):
     """Row 6 over views at element offsets into larger buffers (one common
     odd offset: a scalar head, then 16-byte vectors; offsets that never
@@ -477,6 +498,67 @@ def test_tiny_bert_step_on_the_card_launches_every_kernel(dev):
     # 2 LayerNorms per layer + embeddings + MLM head per forward
     assert got == [6, 6, 6, 3, 3 * 6]
     assert losses[-1] < losses[0] and all(np.isfinite(losses))
+
+
+@pytest.mark.parametrize("amp_dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("level", ["O1", "O2"])
+def test_tiny_bert_eager_steps_under_auto_cast_run_the_kernels(
+        dev, monkeypatch, level, amp_dtype):
+    """Eager steps of a tiny BERT classifier under ``auto_cast`` (f16 with
+    ``GradScaler``): the flash passes launch on ``amp_dtype`` tensors, 2
+    a step each, LayerNorm on f32 (black-listed) 5 a forward, fused AdamW
+    once an applied step; at O1 every gradient is f32 and row 6 updates
+    f32 parameters, at O2 (``decorate``) the parameters and row 6 are in
+    ``amp_dtype``; the losses are finite."""
+    import paddle1_tpu_torch as paddle
+    from paddle1_tpu_torch.text.models import (BertForSequenceClassification,
+                                               BertModel)
+    dt = getattr(torch, amp_dtype)
+    with paddle.utils.unique_name.guard():
+        clf = BertForSequenceClassification(BertModel(
+            vocab_size=512, hidden_size=64, num_hidden_layers=2,
+            num_attention_heads=2, intermediate_size=128,
+            hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+            generator=torch.Generator().manual_seed(0)), dropout=0.0)
+    opt = paddle.optimizer.AdamW(1e-4, parameters=clf.parameters())
+    if level == "O2":
+        clf, opt = paddle.amp.decorate(clf, opt, level="O2", dtype=amp_dtype)
+    scaler = paddle.amp.GradScaler(enable=amp_dtype == "float16",
+                                   init_loss_scaling=2.0 ** 10)
+    rng = np.random.default_rng(1)
+    ids = rng.integers(1, 512, (2, 128))
+    ids[1, 90:] = 0
+    x = paddle.to_tensor(ids)
+    y = paddle.to_tensor(rng.integers(0, 2, 2))
+    seen = []
+    check = fa._check
+
+    def spy(name, q, *a):
+        seen.append(q.dtype)
+        return check(name, q, *a)
+    monkeypatch.setattr(fa, "_check", spy)
+    counts = lambda: (fa.flash_fwd.launches, fb.flash_bwd_dkv.launches,  # noqa
+                      fb.flash_bwd_dq.launches, ln.fused_layer_norm.launches,
+                      fad.fused_adam_.launches)
+    before = counts()
+    losses, applied = [], 0
+    for _ in range(3):
+        with paddle.amp.auto_cast(level=level, dtype=amp_dtype):
+            loss = F.cross_entropy(clf(x), y)
+        scaler.scale(loss).backward()
+        if level == "O1":
+            assert all(p.grad.dtype == torch.float32
+                       for p in clf.parameters())
+        scaler.step(opt)
+        applied += not scaler.last_step_skipped()
+        opt.clear_grad()
+        losses.append(float(loss))
+    got = [a - b for a, b in zip(counts(), before)]
+    assert seen and set(seen) == {dt}
+    assert got == [6, 6, 6, 3 * 5, applied] and applied >= 1
+    want = dt if level == "O2" else torch.float32
+    assert {p.dtype for p in clf.parameters()} == {want}
+    assert all(np.isfinite(losses))
 
 
 # f32: sums over up to 4096 rows in another order; bf16: one rounding

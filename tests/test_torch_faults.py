@@ -302,8 +302,8 @@ def test_adamw_positional_lr_ratio_then_decay_fn():
     # the JAX package's tolerance for its Adam kernel
     np.testing.assert_allclose(w.detach().numpy(), np.asarray(params["w"]),
                                rtol=1e-6, atol=1e-7)
-    with pytest.raises(UnimplementedError):
-        tp.optimizer.AdamW(1e-2, parameters=[w], lr_ratio=lambda p: 0.5)
+    # lr_ratio is taken and left unapplied, as in the JAX package (F16)
+    tp.optimizer.AdamW(1e-2, parameters=[w], lr_ratio=lambda p: 0.5)
     with pytest.raises(UnimplementedError):
         tp.optimizer.AdamW(1e-2, parameters=[w], lazy_mode=True)
 
@@ -1025,3 +1025,131 @@ def test_f13_integers_take_the_kernels_route_and_bool_is_refused(cpu_place):
         jF.softmax(jp.to_tensor(a > 2))
     with pytest.raises((RuntimeError, NotImplementedError)):
         tF.softmax(tp.to_tensor(a > 2))
+
+
+# -- F14-F16: the optimizers' reference signatures and param groups ----------
+
+F14_OPTS = ["Optimizer", "Momentum", "Adam", "AdamW"]
+
+
+@pytest.mark.parametrize("name", F14_OPTS)
+def test_f14_optimizer_parameters_are_the_references_in_order(name):
+    """``inspect.signature`` pins each constructor's parameters, in order,
+    to the JAX package's (``name`` and ``multi_precision`` included)."""
+    want = list(inspect.signature(getattr(jp.optimizer, name).__init__)
+                .parameters)
+    got = list(inspect.signature(getattr(tp.optimizer, name).__init__)
+               .parameters)
+    assert got == want
+
+
+def test_f14_momentum_takes_multi_precision_and_name_positionally():
+    """``Momentum(0.1, 0.9, ps, False, None, None, True, "m")``: the
+    seventh argument is ``multi_precision`` and the eighth ``name``, in
+    both packages; the velocity is f32 for a bf16 parameter, the meaning
+    of ``multi_precision``."""
+    w = torch.nn.Parameter(torch.ones(2, dtype=torch.bfloat16))
+    opt = tp.optimizer.Momentum(0.1, 0.9, [w], False, None, None, True, "m")
+    w.grad = torch.ones(2, dtype=torch.bfloat16)
+    opt.step()
+    assert opt._slots_for(w)["velocity"].dtype == torch.float32
+    assert torch.equal(w.detach(), torch.full((2,), 0.9, dtype=w.dtype))
+    tp.optimizer.Optimizer(0.1, [w], None, None, "o", True)
+
+
+def _f15_layers(fresh):
+    jp.seed(15)
+    jl = jp.nn.Linear(4, 3)
+    tl = tp.nn.Linear(4, 3, device="cpu")
+    tl.load_state_dict(state_from_jax(_state(jl), tl))
+    return jl, tl
+
+
+def _f15_steps(m, layer, opt, xs):
+    for x in xs:
+        xt = jp.to_tensor(x) if m is jp else _t(x)
+        (layer(xt) ** 2).mean().backward()
+        opt.step()
+        opt.clear_grad()
+
+
+F15_OPTS = [("Momentum", dict(momentum=0.9)), ("Adam", {}), ("AdamW", {})]
+
+
+@pytest.mark.parametrize("fused", ["never", "always"])
+@pytest.mark.parametrize("name,kw", F15_OPTS, ids=[o[0] for o in F15_OPTS])
+def test_f15_param_groups_step_like_the_reference(fresh_names, name, kw,
+                                                  fused):
+    """Param groups with a per-group ``learning_rate``: the weight at
+    half the rate, the bias at the optimizer's; three eager steps match
+    the JAX package's within 1e-6 (on the fused route too, whose table
+    carries the group's rate)."""
+    jl, tl = _f15_layers(fresh_names)
+    rng = np.random.default_rng(15)
+    xs = [rng.standard_normal((5, 4)).astype(np.float32) for _ in range(3)]
+    for m, layer in ((jp, jl), (tp, tl)):
+        opt = getattr(m.optimizer, name)(
+            learning_rate=0.01, parameters=[
+                {"params": [layer.weight], "learning_rate": 0.5},
+                {"params": [layer.bias]}], **kw)
+        with tflags.flags_guard(fused_adam=fused):
+            _f15_steps(m, layer, opt, xs)
+    assert tl.weight.optimize_attr["learning_rate"] == 0.5
+    for k, v in _state(jl).items():
+        np.testing.assert_allclose(tl.state_dict()[k].detach().numpy(), v,
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("fused", ["never", "always"])
+@pytest.mark.parametrize("name", ["Momentum", "Adam", "AdamW"])
+def test_f15_a_group_weight_decay_replaces_the_optimizers(fresh_names, name,
+                                                          fused):
+    """A group's ``weight_decay`` reaches ``optimize_attr`` in both
+    packages. The port applies it in place of the optimizer's (as
+    Paddle's reference does): the run equals one whose optimizer has that
+    decay, on the fused route too; the JAX package records it and reads
+    it nowhere, so its run equals one without the group's decay."""
+    rng = np.random.default_rng(16)
+    xs = [rng.standard_normal((5, 4)).astype(np.float32) for _ in range(2)]
+    runs = []
+    for groups in (True, False):
+        jl, tl = _f15_layers(fresh_names)
+        for m, layer in ((jp, jl), (tp, tl)):
+            params = [{"params": [layer.weight, layer.bias],
+                       "weight_decay": 0.3}] if groups else \
+                layer.parameters()
+            wd = 0.0 if groups else (0.3 if m is tp else 0.0)
+            opt = getattr(m.optimizer, name)(
+                learning_rate=0.01, parameters=params, weight_decay=wd)
+            with tflags.flags_guard(fused_adam=fused):
+                _f15_steps(m, layer, opt, xs)
+        if groups:
+            assert tl.weight.optimize_attr["weight_decay"] == 0.3
+            assert jl.weight.optimize_attr["weight_decay"] == 0.3
+        runs.append((_state(jl), {k: v.detach().numpy()
+                                  for k, v in tl.state_dict().items()}))
+    (jg, tg), (jn, tn) = runs
+    for k in jg:
+        np.testing.assert_array_equal(jg[k], jn[k], err_msg=k)
+        np.testing.assert_allclose(tg[k], tn[k], rtol=1e-6, atol=1e-7,
+                                   err_msg=k)
+    assert any(not np.allclose(tg[k], jg[k], atol=1e-6) for k in jg)
+
+
+@pytest.mark.parametrize("fused", ["never", "always"])
+def test_f16_adamw_takes_lr_ratio_and_leaves_it_unapplied(fresh_names,
+                                                           fused):
+    """``AdamW(lr_ratio=...)`` constructs and its steps equal the JAX
+    package's with the same ``lr_ratio``, which neither package applies
+    (the steps also equal a run without it)."""
+    rng = np.random.default_rng(17)
+    xs = [rng.standard_normal((5, 4)).astype(np.float32) for _ in range(3)]
+    jl, tl = _f15_layers(fresh_names)
+    for m, layer in ((jp, jl), (tp, tl)):
+        opt = m.optimizer.AdamW(0.01, parameters=layer.parameters(),
+                                lr_ratio=lambda p: 0.25)
+        with tflags.flags_guard(fused_adam=fused):
+            _f15_steps(m, layer, opt, xs)
+    for k, v in _state(jl).items():
+        np.testing.assert_allclose(tl.state_dict()[k].detach().numpy(), v,
+                                   rtol=1e-6, atol=1e-6, err_msg=k)

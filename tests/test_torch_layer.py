@@ -389,9 +389,7 @@ def test_what_stays_out_raises_naming_its_roadmap_item():
             lambda: tp.nn.MultiHeadAttention(8, 2, device="cpu")
             .gen_cache(torch.zeros(1, 2, 8)),
             lambda: tp.nn.Embedding(10, 4, sparse=True, device="cpu"),
-            lambda: tp.optimizer.AdamW(parameters=[w], lazy_mode=True),
-            lambda: tp.optimizer.AdamW(parameters=[w],
-                                       lr_ratio=lambda p: 0.5)):
+            lambda: tp.optimizer.AdamW(parameters=[w], lazy_mode=True)):
         with pytest.raises(UnimplementedError, match="ROADMAP Queue 1 item"):
             call()
 

@@ -360,7 +360,7 @@ def _route_adam(dtype=torch.float32):
 
 
 @pytest.mark.parametrize("case,route,match", [
-    ("flash f16", lambda: _route_flash(torch.float16), "contract"),
+    ("flash f64", lambda: _route_flash(torch.float64), "contract"),
     ("flash ragged", lambda: _route_flash(shape=(2, 100, 2, 32)),
      "contract"),
     ("flash meta", lambda: _route_flash(), "unsupported device"),
@@ -370,7 +370,7 @@ def _route_adam(dtype=torch.float32):
      "unsupported device"),
     ("dq meta", lambda: _route_flash_bwd("flash_bwd_dq"),
      "unsupported device"),
-    ("adam f16", lambda: _route_adam(torch.float16), "contract"),
+    ("adam f64", lambda: _route_adam(torch.float64), "contract"),
     ("adam meta", lambda: _route_adam(), "unsupported device"),
 ])
 def test_training_kernel_routes_raise_instead_of_the_plain_version(
@@ -759,7 +759,8 @@ def _adam_views(dtype, seed):
     return ts
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("chunk,grid", [(64, 3), (8, 1), (16384, 528)])
 def test_fused_adam_partition_covers_once_aligned_and_bit_equal(dtype, chunk,
                                                                 grid):
