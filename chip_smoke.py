@@ -322,6 +322,47 @@ Phases, each fatal on failure (non-zero exit, no result line):
     moments), losses finite; timed as phase 26; a ``save`` -> ``load`` of
     model, optimizer and ``scaler.state_dict()`` into a fresh decorated
     classifier repeats the next step bit for bit.
+28. **The nn slice on the card.** Every case of
+    ``tests/test_torch_nn_cases.py`` (each name of the JAX package's
+    activation, norm and loss functionals and of its norm, activation and
+    loss layers: the kinks, every reduction, the affine-less batch norms
+    of F18 on rows 8, 9 and 11) on CUDA Paddle tensors against the same
+    call on CPU Paddle tensors at 10x the case's CPU tolerance (at least
+    1e-5): values, dtypes, the gradients of the listed inputs and of a
+    layer's parameters, its buffers after the call, every output on the
+    card; ``rrelu`` and ``gumbel_softmax`` drawn on the card by
+    distribution and repeated under a CUDA ``generator``. Prints one line
+    ``nn_cases`` with every failure.
+29. **MobileNetV2 ImageNet training and eval (the tenth main path).**
+    ``paddle.vision.models.mobilenet_v2()`` (3,504,872 parameters, 52
+    batch norms at 13 widths, seeded weights) at Sandler et al. 2018's
+    batch of 96 x 3 x 224², f32 with TF32 off, two seeded batches staged
+    on the card: ``nn.CrossEntropyLoss()(model(x), y)``,
+    ``loss.backward()``, ``opt.step()``, ``opt.clear_grad()`` with
+    ``optimizer.Momentum(0.045, 0.9, weight_decay=L2Decay(4e-5))`` (the
+    paper's RMSProp is not ported); two warm-up steps, then slope+readback
+    timing with the counters zeroed just before and read just after: 52
+    row-8 and 52 row-11 launches a step; two more under
+    ``torch.profiler`` for the device's busy time, idle share and the
+    batch-norm kernels' share of it; the loss finite and falling. Then
+    ``model.eval()``: a forward with 52 row-9 launches and the top-1
+    through ``F.softmax`` (one row-7 launch at ``[96, 1000]``), timed; a
+    ``save`` -> ``load`` into a fresh model gives the same eval logits bit
+    for bit; three bf16 steps of the same model through
+    ``ParallelEngine(..., amp_dtype="bfloat16")`` (52 + 52 launches
+    each). Rows 8, 9, 11 (and 12) against their plain versions at the 19
+    ``[rows, C]`` shapes the path gives them, f32 and bf16, repeats bit
+    for bit; timed in f32 at four of them beside their plain versions,
+    ``F.batch_norm`` and their bounds. Then the f32 kernel path against
+    the plain path by ResNet-50's checks: at full depth, batch 16 x 224²,
+    the first step's losses within 1e-4 and its gradients no farther
+    from float64 than twice the plain path's (worst and median); cut to
+    the first block of each stage at batch 32 x 64², three eager Momentum
+    steps within 1e-4, and at four seeds the first step's gradients
+    within 1e-3 of the plain path's, both taken on float64's side of each
+    ReLU6 kink (``mobilenet_reference_check``). Prints step ms, images/s,
+    busy ms, idle share, eval forward ms and peak memory beside the
+    card's name and power limit.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -330,6 +371,7 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1655,21 +1697,23 @@ def row_excess(got, want):
         - BN_ABS
 
 
-def bn_check(dev):
-    """Every kernel of the family against its plain version at the four
-    shapes, f32 and bf16, act x residual, the training forward, the
-    training backward and the given-statistics forward also repeated bit
-    for bit; returns the max abs errors."""
+def bn_check(dev, shapes=BN_SHAPES, acts=("identity", "relu"),
+             residuals=(False, True)):
+    """Every kernel of the family against its plain version at ``shapes``
+    (``[rows, C]``; the four of BN_SHAPES), f32 and bf16, ``acts`` x
+    ``residuals``, the training forward, the training backward and the
+    given-statistics forward also repeated bit for bit; returns the max
+    abs errors."""
     from paddle1_tpu_torch.ops import fused_bn as fbn
     from paddle1_tpu_torch.ops import fused_bn_bwd as fbb
     errs = {k: [] for k in bn_counters()}
     eps = 1e-5
-    for rows, c in BN_SHAPES:
+    for rows, c in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             (x, g, b, res, m, v, dy), = bn_inputs(dev, rows, c, dtype,
                                                   SEED + rows + c)
-            for act in ("identity", "relu"):
-                for use_res in (False, True):
+            for act in acts:
+                for use_res in residuals:
                     r = res if use_res else None
                     tag = (f"[{rows}, {c}] {str(dtype).split('.')[-1]} "
                            f"act={act} res={use_res}")
@@ -1736,8 +1780,9 @@ def bn_check(dev):
                     check(torch.equal(fbn._norm_fwd(x, m, v, g, b, r, eps,
                                                     act), yn),
                           f"fused_bn_norm {tag}: a repeat differs")
-            log(f"batch norm kernels [{rows}, {c}]: f32 and bf16 x act x "
-                "residual within tolerance, repeats bit-identical")
+            log(f"batch norm kernels [{rows}, {c}]: f32 and bf16 x {acts} "
+                f"x residual {residuals} within tolerance, repeats "
+                "bit-identical")
             del x, g, b, res, m, v, dy
     return errs
 
@@ -1759,15 +1804,15 @@ def bn_bytes(kind, rows, c, itemsize, reread=None):
             "fused_bn_norm_bwd": (3 * n + ch, 3 * n + ch)}[kind]
 
 
-def bn_reread_rows(rows, c):
+def bn_reread_rows(rows, c, dtype=torch.bfloat16):
     """``{kind: (rows, plan)}`` of the cooperative training kernels (the
-    forward and the backward) at ``[rows, C]`` in bf16 on this card: the
-    rows their plans leave out of shared memory (read again in the last
-    phase) and the plans; a kernel whose module has no plan (an older
-    tree) is left out."""
+    forward and the backward) at ``[rows, C]`` in ``dtype`` (f32 affine
+    for f32 rows, bf16 for bf16) on this card: the rows their plans leave
+    out of shared memory (read again in the last phase) and the plans; a
+    kernel whose module has no plan (an older tree) is left out."""
     from paddle1_tpu_torch.ops import fused_bn as fbn
     from paddle1_tpu_torch.ops import fused_bn_bwd as fbb
-    x = torch.empty(rows, c, dtype=torch.bfloat16, device="cuda")
+    x = torch.empty(rows, c, dtype=dtype, device="cuda")
     out = {}
     for kind, plan in (("fused_bn_train",
                         getattr(fbn, "train_fwd_launch_plan", None)),
@@ -1775,7 +1820,7 @@ def bn_reread_rows(rows, c):
                         getattr(fbb, "train_bwd_launch_plan", None))):
         if plan is None:
             continue
-        p = plan(x, 1)
+        p = plan(x, 1 if dtype == torch.bfloat16 else 0)
         held = sum(min(p.resident, rows - k * p.rows_per_chunk)
                    for k in range(p.chunks))
         out[kind] = (rows - held, p._asdict())
@@ -1786,21 +1831,25 @@ BN_FLOPS = {"fused_bn_train": 7.0, "fused_bn_norm": 4.0,
             "fused_bn_train_bwd": 10.0, "fused_bn_norm_bwd": 7.0}
 
 
-def bn_timing(dev):
-    """Time the four kernels at BN_SHAPES in bf16 (identity, no
-    residual: every batch norm of the main path), over 4 input sets in
-    turn, beside their plain versions, F.batch_norm on the same data as
-    a channels-last [N, C, H, W] tensor, and their bounds; the bytes the
-    design moves from the cooperative kernels' plans (their resident
-    rows), where the imported tree has them."""
+def bn_timing(dev, shapes=BN_SHAPES, images=RN_BATCH,
+              dtype=torch.bfloat16):
+    """Time the four kernels at ``shapes`` (default BN_SHAPES, ResNet-50's)
+    in ``dtype`` (identity, no residual: every batch norm of the main
+    path), over 4 input sets in turn, beside their plain versions,
+    F.batch_norm on the same data as a channels-last [N, C, H, W] tensor
+    of ``images`` square images, and their bounds; the bytes the design
+    moves from the cooperative kernels' plans (their resident rows),
+    where the imported tree has them."""
     from paddle1_tpu_torch.ops import fused_bn as fbn
     from paddle1_tpu_torch.ops import fused_bn_bwd as fbb
     tbf = torch.nn.functional.batch_norm
     out = {k: [] for k in bn_counters()}
     eps = 1e-5
-    for rows, c in BN_SHAPES:
-        plans = bn_reread_rows(rows, c)
-        sets = bn_inputs(dev, rows, c, torch.bfloat16, SEED + 9, n_sets=4)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    dname = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+    for rows, c in shapes:
+        plans = bn_reread_rows(rows, c, dtype)
+        sets = bn_inputs(dev, rows, c, dtype, SEED + 9, n_sets=4)
         fwd = [fbn._train_fwd(s[0], s[1], s[2], None, eps, "identity")
                for s in sets]
         t = {}
@@ -1829,15 +1878,15 @@ def bn_timing(dev):
         t["fused_bn_norm_bwd_plain"] = graph_time_ms([
             lambda s=s: fbb.norm_bwd_ref(s[0], s[1], s[4], s[5], None, s[6],
                                          eps, "identity") for s in sets])
-        # the library: the same rows as [N, C, H, W] channels-last (N = 32
-        # images, H = W), f32 affine and running statistics
-        hw = rows // RN_BATCH
+        # the library: the same rows as [N, C, H, W] channels-last (N =
+        # ``images``, H = W), f32 affine and running statistics
+        hw = rows // images
         side = int(round(hw ** 0.5))
-        check(side * side * RN_BATCH == rows, f"{rows} rows are not "
-              f"{RN_BATCH} square images")
-        lib = [(s[0].view(RN_BATCH, side, side, c).permute(0, 3, 1, 2),
+        check(side * side * images == rows, f"{rows} rows are not "
+              f"{images} square images")
+        lib = [(s[0].view(images, side, side, c).permute(0, 3, 1, 2),
                 s[1].float(), s[2].float(), s[4].clone(), s[5].clone(),
-                s[6].view(RN_BATCH, side, side, c).permute(0, 3, 1, 2))
+                s[6].view(images, side, side, c).permute(0, 3, 1, 2))
                for s in sets]
         check(lib[0][0].is_contiguous(memory_format=torch.channels_last),
               "library input is not channels-last")
@@ -1887,12 +1936,12 @@ def bn_timing(dev):
                                          f"alone ({backend['eval']})")}
         for name in out:
             reread, plan = plans.get(name, (None, None))
-            need, moved = bn_bytes(name, rows, c, 2, reread)
+            need, moved = bn_bytes(name, rows, c, itemsize, reread)
             b_ms, by = bound(need, BN_FLOPS[name] * rows * c,
                              F32_FLOPS_PER_S)
             lk, cover = lib_for[name]
             out[name].append({
-                "shape": [rows, c], "dtype": "bf16", "act": "identity",
+                "shape": [rows, c], "dtype": dname, "act": "identity",
                 "residual": False, "ms": t[name],
                 "plain_ms": t[name + "_plain"], "library_ms": t[lk],
                 "library_covers": cover, "bound_ms": b_ms, "bound_by": by,
@@ -1900,7 +1949,7 @@ def bn_timing(dev):
                 "design_bytes_ms_at_peak": 1e3 * moved / HBM_BYTES_PER_S})
             if plan is not None:
                 out[name][-1]["plan"] = plan
-            log(f"{name} bf16 [{rows}, {c}]: kernel {t[name]:.5f} ms, plain "
+            log(f"{name} {dname} [{rows}, {c}]: kernel {t[name]:.5f} ms, plain "
                 f"{t[name + '_plain']:.5f} ms, library ({cover}) "
                 f"{t[lk]:.5f} ms, bound {b_ms:.5f} ms ({by}; the design "
                 f"moves {moved / need:.2f}x the compulsory bytes)")
@@ -2042,33 +2091,117 @@ def rn_first_grads(model, batch, loss_fn):
     return float(loss.detach()), [g.double() for g in grads]
 
 
-def rn_grad_gaps(model, batch):
+class ActPieces:
+    """Forward hooks on a port model's ReLU and ReLU6 layers, which deep
+    copies of the model share. ``mode`` ``"record"``: keep which side of
+    its kinks (0, and 6 for ReLU6) each input element lies on; ``"replay"``:
+    take each layer's gradient on the recorded sides (its forward value
+    unchanged), and count the elements whose own side differs (``flips``,
+    by layer) and their largest distance to the kink (``far``); None:
+    nothing."""
+
+    def __init__(self, model):
+        from paddle1_tpu_torch.nn import ReLU, ReLU6
+        self.mode, self.sides, self.flips, self.far = None, {}, {}, 0.0
+        self.handles = [
+            m.register_forward_hook(
+                lambda mod, inp, out, n=n, six=isinstance(m, ReLU6):
+                    self._hook(n, six, inp[0], out))
+            for n, m in model.named_modules() if isinstance(m, (ReLU, ReLU6))]
+
+    def _hook(self, name, six, x, out):
+        if self.mode is None:
+            return None
+        xd = x.detach()
+        side = (xd > 0) & (xd < 6) if six else xd > 0
+        if self.mode == "record":
+            self.sides[name] = side
+            return None
+        want = self.sides[name]
+        off = side != want
+        n = int(off.sum())
+        if n:
+            d = xd[off].abs()
+            if six:
+                d = torch.minimum(d, (xd[off] - 6).abs())
+            self.flips[name] = self.flips.get(name, 0) + n
+            self.far = max(self.far, float(d.max()))
+        return out.detach() + (x - xd) * want.to(x.dtype)
+
+    def take(self):
+        """``{"flips", "layers", "far"}`` since the last call (the count,
+        by layer, the largest distance), then reset."""
+        out = {"flips": sum(self.flips.values()), "layers": self.flips,
+               "far": self.far}
+        self.flips, self.far = {}, 0.0
+        return out
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def rn_grad_gaps(model, batch, loss_fn=None, floor=0.0, pieces=False):
     """First-step gradients of ``model`` (f32) on the kernel path, on the
     plain path twice and in float64 (the plain path): per parameter
     ``|g_a - g_b| / |g_f64|``, the worst over the parameters of each
-    pair, and that parameter's name."""
+    pair, and that parameter's name. ``loss_fn`` defaults to
+    :func:`rn_loss_fn`; ``floor``: each denominator at least that share of
+    the largest parameter's ``|g_f64|`` (for parameters whose exact
+    gradient is zero); ``pieces``: the kernel path and the plain path run
+    again with the gradients of the model's ReLU/ReLU6 layers taken on
+    float64's side of each kink (:class:`ActPieces`; ``kernel_same_piece``
+    and ``plain_same_piece``), and ``flips`` counts the elements each
+    path's own forward puts on the other side."""
     import copy
     from paddle1_tpu_torch.core.flags import flags_guard
+    loss_fn = loss_fn or rn_loss_fn
     names = [n for n, _ in model.named_parameters()]
-    runs = {"kernel": rn_first_grads(copy.deepcopy(model), batch,
-                                     rn_loss_fn)}
-    with flags_guard(fused_bn="never", fused_bn_bwd="never"):
-        for k in ("plain", "plain_again"):
-            runs[k] = rn_first_grads(copy.deepcopy(model), batch, rn_loss_fn)
-        with flags_guard(conv_nhwc="never"):
-            exact = {"x": batch["x"].double(), "y": batch["y"]}
-            runs["f64"] = rn_first_grads(copy.deepcopy(model).double(),
-                                         exact, rn_f64_loss_fn)
+    acts = ActPieces(model) if pieces else None
+    plain = dict(fused_bn="never", fused_bn_bwd="never")
+    flips = {}
+    try:
+        runs = {"kernel": rn_first_grads(copy.deepcopy(model), batch,
+                                         loss_fn)}
+        with flags_guard(**plain):
+            for k in ("plain", "plain_again"):
+                runs[k] = rn_first_grads(copy.deepcopy(model), batch,
+                                         loss_fn)
+            with flags_guard(conv_nhwc="never"):
+                exact = {"x": batch["x"].double(), "y": batch["y"]}
+                if acts:
+                    acts.mode = "record"
+                runs["f64"] = rn_first_grads(copy.deepcopy(model).double(),
+                                             exact, rn_f64_loss_fn)
+        if acts:
+            acts.mode = "replay"
+            for k, flags in (("kernel", {}), ("plain", plain)):
+                with flags_guard(**flags):
+                    runs[f"{k}_same_piece"] = rn_first_grads(
+                        copy.deepcopy(model), batch, loss_fn)
+                flips[k] = acts.take()
+    finally:
+        if acts:
+            acts.remove()
     ref = runs["f64"][1]
+    top = max(float(g.norm()) for g in ref)
     gaps = {}
-    for a, b in (("kernel", "plain"), ("kernel", "f64"), ("plain", "f64"),
-                 ("plain", "plain_again")):
-        rel = [float((ga - gb).norm() / gr.norm().clamp_min(1e-30))
+    pairs = [("kernel", "plain"), ("kernel", "f64"), ("plain", "f64"),
+             ("plain", "plain_again")]
+    if acts:
+        pairs += [("kernel_same_piece", "plain_same_piece"),
+                  ("kernel_same_piece", "f64"), ("plain_same_piece", "f64")]
+    for a, b in pairs:
+        rel = [float((ga - gb).norm() /
+                     gr.norm().clamp_min(max(floor * top, 1e-30)))
                for ga, gb, gr in zip(runs[a][1], runs[b][1], ref)]
         i = int(np.argmax(rel))
         gaps[f"{a}_vs_{b}"] = {"max": rel[i], "param": names[i],
                                "median": float(np.median(rel))}
-    return {"losses": {k: v[0] for k, v in runs.items()}, "gaps": gaps}
+    out = {"losses": {k: v[0] for k, v in runs.items()}, "gaps": gaps}
+    if acts:
+        out["flips"] = flips
+    return out
 
 
 def rn_engine_steps(model, batch, steps):
@@ -2082,50 +2215,50 @@ def rn_engine_steps(model, batch, steps):
     return [float(eng.step(batch)) for _ in range(steps)]
 
 
-def resnet_reference_readings(dev, batch, img, blocks=None, steps=0):
-    """ResNet-50 at full width in f32 (``blocks``: the depth cut to the
-    first blocks of each stage), batch ``batch`` x 3 x ``img`` x ``img``,
-    seeded weights and data, cuDNN deterministic:
+def reference_readings(dev, model, data_seed, batch, img, steps_fn,
+                       steps=0, loss_fn=None, floor=0.0, pieces=False,
+                       **about):
+    """``model`` (f32, on ``dev``) at batch ``batch`` x 3 x ``img``², data
+    from ``data_seed``, cuDNN deterministic:
 
     * ``grads``: the first step's gradients on the kernel path, the plain
       path (``fused_bn``/``fused_bn_bwd`` never: the plain batch-norm arm),
-      a repeat of the plain path and float64 (:func:`rn_grad_gaps`);
-    * with ``steps``: that many Momentum steps on the kernel path and on
-      the plain path from identical weights: the losses, and the largest
-      differences of the parameters and of the running statistics after
-      the last step, beside the largest move of a parameter;
-    * the kernel launches of the kernel path's steps and the plain path's."""
+      a repeat of the plain path and float64 (:func:`rn_grad_gaps` with
+      ``loss_fn``, ``floor`` and ``pieces``);
+    * with ``steps``, ``steps_fn(model, data, steps)`` (the losses) on the
+      kernel path and on the plain path from identical weights: the
+      losses, and the largest differences of the parameters and of the
+      running statistics after the last step, beside the largest move of
+      a parameter;
+    * the kernel launches of the kernel path's steps and the plain path's.
+
+    ``about`` goes into the readings as it is."""
     import copy
     from paddle1_tpu_torch.core.flags import flags_guard
-    from paddle1_tpu_torch.vision.models import resnet50
     det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
         True, False
     counters = bn_counters()
     try:
-        m_kernel = resnet50(device=dev,
-                            generator=torch.Generator().manual_seed(SEED + 8))
-        if blocks is not None:
-            for i in range(1, 5):
-                name = f"layer{i}"
-                setattr(m_kernel, name, getattr(m_kernel, name)[:blocks])
+        m_kernel = model
         m_plain = copy.deepcopy(m_kernel)
         init = {k: v.detach().clone()
                 for k, v in m_kernel.state_dict().items()}
-        rng = np.random.default_rng(SEED + 8)
+        rng = np.random.default_rng(data_seed)
         data = {"x": torch.from_numpy(rng.standard_normal(
                     (batch, 3, img, img)).astype(np.float32)).to(dev),
                 "y": torch.from_numpy(rng.integers(
                     0, 1000, (batch,))).to(dev)}
-        out = {"dtype": "float32", "blocks_per_stage": blocks,
+        out = {"dtype": "float32", **about,
                "batch_norms": sum(k.endswith("._mean") for k in init),
                "batch": batch, "img": img, "steps": steps,
-               "grads": rn_grad_gaps(m_kernel, data)}
+               "grads": rn_grad_gaps(m_kernel, data, loss_fn, floor,
+                                     pieces)}
         before = bn_launches(counters)
-        out["losses_kernel"] = rn_engine_steps(m_kernel, data, steps)
+        out["losses_kernel"] = steps_fn(m_kernel, data, steps)
         mid = bn_launches(counters)
         with flags_guard(fused_bn="never", fused_bn_bwd="never"):
-            out["losses_plain"] = rn_engine_steps(m_plain, data, steps)
+            out["losses_plain"] = steps_fn(m_plain, data, steps)
         after = bn_launches(counters)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
@@ -2146,6 +2279,63 @@ def resnet_reference_readings(dev, batch, img, blocks=None, steps=0):
                    max_running_stat_err=max_diff(sk, sp, stats),
                    max_param_move=max_diff(sp, init, params))
     return out
+
+
+def reference_check(name, full, cuts):
+    """The checks of :func:`resnet_reference_check` on readings of
+    :func:`reference_readings`: ``full`` at full depth, ``cuts`` on the
+    depth cut (the first with the steps). Readings with the gradients on
+    float64's ReLU/ReLU6 pieces (``pieces``) hold those to RN_GRAD_TOL,
+    at full depth too; others hold the cut's own gradients to it."""
+    cut = cuts[0]
+    want = {"fused_bn_train": cut["batch_norms"] * REF_STEPS,
+            "fused_bn_norm": 0,
+            "fused_bn_train_bwd": cut["batch_norms"] * REF_STEPS,
+            "fused_bn_norm_bwd": 0}
+    check(cut["launches_kernel"] == want, f"{name}: the kernel path "
+          f"launched {cut['launches_kernel']}, want {want}")
+    for r in [full] + cuts:
+        check(not any(r["launches_plain"].values()),
+              f"{name}: the plain path launched {r['launches_plain']}")
+        check(r["grads"]["gaps"]["plain_vs_plain_again"]["max"] == 0.0,
+              f"{name}: the plain path does not repeat bit for bit")
+    losses = full["grads"]["losses"]
+    check(abs(losses["kernel"] - losses["plain"]) <= REF_TOL,
+          f"{name} full depth: first losses differ: {losses}")
+    gaps = full["grads"]["gaps"]
+    for stat in ("max", "median"):
+        k, p = gaps["kernel_vs_f64"][stat], gaps["plain_vs_f64"][stat]
+        check(k <= RN_F64_FACTOR * p, f"{name} full depth: the kernel "
+              f"path's gradients are {k} ({stat}) from float64, the plain "
+              f"path's {p}")
+    same = "kernel_same_piece_vs_plain_same_piece"
+    held = cuts + ([full] if same in gaps else [])
+    for r in held:
+        key = same if same in r["grads"]["gaps"] else "kernel_vs_plain"
+        gap = r["grads"]["gaps"][key]
+        check(gap["max"] <= RN_GRAD_TOL, f"{name} (img {r['img']}, seed "
+              f"{r['seed']}): first-step gradients differ by {gap['max']} "
+              f"of the float64 gradient at {gap['param']} (> "
+              f"{RN_GRAD_TOL}, {key})")
+    for key in ("max_loss_err", "max_param_err", "max_running_stat_err"):
+        check(cut[key] <= REF_TOL, f"{name} depth cut: {key} {cut[key]} > "
+              f"{REF_TOL}")
+
+
+def resnet_reference_readings(dev, batch, img, blocks=None, steps=0):
+    """:func:`reference_readings` of ResNet-50 at full width (``blocks``:
+    the depth cut to the first blocks of each stage), seeded weights and
+    data, steps through ParallelEngine (:func:`rn_engine_steps`)."""
+    from paddle1_tpu_torch.vision.models import resnet50
+    model = resnet50(device=dev,
+                     generator=torch.Generator().manual_seed(SEED + 8))
+    if blocks is not None:
+        for i in range(1, 5):
+            name = f"layer{i}"
+            setattr(model, name, getattr(model, name)[:blocks])
+    return reference_readings(dev, model, SEED + 8, batch, img,
+                              rn_engine_steps, steps, seed=SEED + 8,
+                              blocks_per_stage=blocks)
 
 
 def resnet_reference_check(dev):
@@ -2170,33 +2360,7 @@ def resnet_reference_check(dev):
     cut = resnet_reference_readings(dev, steps=REF_STEPS, **RN_REF_CUT)
     log(json.dumps({"resnet_reference": {"full_depth": full,
                                          "depth_cut": cut}}))
-    want = {"fused_bn_train": cut["batch_norms"] * REF_STEPS,
-            "fused_bn_norm": 0,
-            "fused_bn_train_bwd": cut["batch_norms"] * REF_STEPS,
-            "fused_bn_norm_bwd": 0}
-    check(cut["launches_kernel"] == want, f"the kernel path launched "
-          f"{cut['launches_kernel']}, want {want}")
-    for r in (full, cut):
-        check(not any(r["launches_plain"].values()),
-              f"the plain path launched {r['launches_plain']}")
-        check(r["grads"]["gaps"]["plain_vs_plain_again"]["max"] == 0.0,
-              "the plain path does not repeat bit for bit")
-    losses = full["grads"]["losses"]
-    check(abs(losses["kernel"] - losses["plain"]) <= REF_TOL,
-          f"full depth: first losses differ: {losses}")
-    gaps = full["grads"]["gaps"]
-    for stat in ("max", "median"):
-        k, p = gaps["kernel_vs_f64"][stat], gaps["plain_vs_f64"][stat]
-        check(k <= RN_F64_FACTOR * p, f"full depth: the kernel path's "
-              f"gradients are {k} ({stat}) from float64, the plain path's "
-              f"{p}")
-    gap = cut["grads"]["gaps"]["kernel_vs_plain"]
-    check(gap["max"] <= RN_GRAD_TOL, f"depth cut: first-step gradients "
-          f"differ by {gap['max']} of the float64 gradient at "
-          f"{gap['param']} (> {RN_GRAD_TOL})")
-    for key in ("max_loss_err", "max_param_err", "max_running_stat_err"):
-        check(cut[key] <= REF_TOL, f"depth cut: {key} {cut[key]} > "
-              f"{REF_TOL}")
+    reference_check("resnet", full, [cut])
     return full, cut
 
 
@@ -2358,12 +2522,13 @@ def device_kernels_per_step(step, n, top=12):
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
     check(events, "the profiler saw no device work in the step")
-    bn, kernels = {}, {}
+    bn, kernels, bn_us = {}, {}, 0.0
     for e in events:
         for name in BN_KERNELS["fused_bn"] + BN_KERNELS["fused_bn_bwd"] + (
                 "finalize_kernel",):
             if name in e.name:
                 bn[name] = bn.get(name, 0) + 1
+                bn_us += e.time_range.elapsed_us()
         us, k = kernels.get(e.name, (0.0, 0))
         kernels[e.name] = (us + e.time_range.elapsed_us(), k + 1)
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
@@ -2372,6 +2537,7 @@ def device_kernels_per_step(step, n, top=12):
                 e.time_range.elapsed_us() for e in events) / 1e3 / n,
             "profiled_step_ms": wall_ms,
             "bn_kernels_per_step": {k: v / n for k, v in bn.items()},
+            "bn_ms_per_step": bn_us / 1e3 / n,
             "top_kernels": [{"name": name[:100], "ms_per_step": us / 1e3 / n,
                              "calls_per_step": k / n}
                             for name, (us, k) in ranked[:top]]}
@@ -4715,6 +4881,432 @@ def o2_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the nn slice's functionals and layers on the card
+
+def nn_cases():
+    """``tests/test_torch_nn_cases.py`` (no JAX), loaded by path after
+    ``tests/test_torch_op_cases.py``, which it imports."""
+    import importlib.util
+    import os
+    op_cases()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_nn_cases.py")
+    spec = importlib.util.spec_from_file_location("test_torch_nn_cases",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def nn_layer_run(paddle, cases, case, place, state=None):
+    """``case``'s layer built under ``place`` (its state ``state`` when
+    given: the CPU layer's before its call), called on the case's arrays:
+    ``(output, gradients of the listed arguments, {name: parameter
+    gradient}, state after the call, state before it)``."""
+    with paddle.device_guard(place):
+        def t(v):
+            return paddle.to_tensor(v) if isinstance(v, np.ndarray) else v
+        with paddle.utils.unique_name.guard():
+            layer = getattr(paddle.nn, case.op)(
+                *[t(a) for a in case.ctor],
+                **{k: t(v) for k, v in case.ctor_kw.items()})
+        if state is not None:
+            layer.load_state_dict(state)
+        layer.train() if case.train else layer.eval()
+        before = {k: v.detach().clone()
+                  for k, v in layer.state_dict().items()}
+        args = [op_tensors(paddle, a, i in case.grad)
+                for i, a in enumerate(case.args)]
+        kw = {k: op_tensors(paddle, v, False) for k, v in case.kw.items()}
+        out = layer(*args, **kw)
+        w = cases.R(tuple(out.shape), 99)
+        (out * paddle.to_tensor(w)).sum().backward()
+        grads = [args[i].grad for i in case.grad]
+        pgrads = {k: p.grad for k, p in layer.named_parameters()}
+        return out, grads, pgrads, layer.state_dict(), before
+
+
+def nn_phase(dev):
+    """Phase 28 (the module docstring): every case of
+    ``tests/test_torch_nn_cases.py`` on the card against the CPU."""
+    import paddle1_tpu_torch as paddle
+    from paddle1_tpu_torch.nn import functional as F
+    from paddle1_tpu_torch.nn import layer_loss, layer_norm_act
+    from paddle1_tpu_torch.nn.functional import activation, loss, norm
+    cases = nn_cases()
+    card = f"gpu:{dev.index or 0}"
+    counters = bn_counters()
+    zero(counters)
+    failed, n_cases, names = [], 0, set()
+    t0 = time.perf_counter()
+    for group, case in cases.all_cases():
+        tol = max(case.tol * OPS_TOL_SCALE, OPS_TOL_MIN)
+        n_cases += 1
+        names.add(case.op)
+        try:
+            if group == "F":
+                fn = getattr(F, case.op)
+                want = op_run(paddle, cases, case, fn, "cpu")
+                got = op_run(paddle, cases, case, fn, card)
+                for w, g in zip(want, got):
+                    op_compare(cases, w, g, tol)
+            else:
+                want = nn_layer_run(paddle, cases, case, "cpu")
+                got = nn_layer_run(paddle, cases, case, card, want[4])
+                op_compare(cases, want[0], got[0], tol)
+                op_compare(cases, want[1], got[1], tol)
+                check(sorted(want[2]) == sorted(got[2]),
+                      "parameters differ")
+                for k, g in want[2].items():
+                    check((g is None) == (got[2][k] is None),
+                          f"{k}: a gradient on one device only")
+                    if g is not None:
+                        op_compare(cases, g, got[2][k], tol)
+                for k, v in want[3].items():
+                    op_compare(cases, v, got[3][k], tol)
+        except Exception as e:   # noqa: BLE001  (every failure listed)
+            failed.append(f"{group}.{case.name()}: {type(e).__name__}: "
+                          f"{str(e).strip()[:300]}")
+    launches = bn_launches(counters)
+    for name, draw in cases.RANDOM:
+        names.add(name)
+        try:
+            g1 = torch.Generator(dev).manual_seed(5)
+            g2 = torch.Generator(dev).manual_seed(5)
+            with paddle.device_guard(card):
+                first = draw(F, paddle.to_tensor, generator=g1)
+                again = draw(F, paddle.to_tensor, generator=g2)
+            check(first.device.type == CARD, f"{name} did not draw on the "
+                  "card")
+            check(torch.equal(first, again), f"{name} does not repeat "
+                  "under a generator")
+            cases.random_check(name, first.detach().cpu().numpy())
+        except Exception as e:   # noqa: BLE001
+            failed.append(f"random {name}: {type(e).__name__}: "
+                          f"{str(e)[:300]}")
+    containers = {"Sequential", "LayerList", "ParameterList", "LayerDict",
+                  "collect_stat_updates", "fused_bn_active"}
+    ported = set()
+    for m in (activation, norm, loss, layer_norm_act, layer_loss):
+        ported |= set(m.__all__)
+    uncovered = sorted(ported - names - containers)
+    if uncovered:
+        failed.append(f"names without a case on the card: {uncovered}")
+    # the batch norms among the cases ran the kernels, the affine-less
+    # ones (F18) included
+    for k in ("fused_bn_train", "fused_bn_norm", "fused_bn_train_bwd"):
+        if not launches[k]:
+            failed.append(f"the batch-norm cases launched no {k}")
+    torch.cuda.synchronize()
+    out = {"nn_cases": {
+        "names": len(names), "cases": n_cases,
+        "random": len(cases.RANDOM), "bn_launches": launches,
+        "seconds": time.perf_counter() - t0, "failed": failed}}
+    log(json.dumps(out))
+    check(not failed, f"the nn slice failed {len(failed)} checks on the "
+          f"card: {failed[:5]}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 29: MobileNetV2 ImageNet training and eval (the tenth main path)
+
+# Sandler et al. 2018: batch 96 at 3 x 224², the optimizer's rate 0.045,
+# weight decay 4e-5 (their RMSProp replaced by Momentum 0.9: the port has
+# no RMSProp yet); 52 batch norms
+MN_BATCH, MN_IMG, MN_LR, MN_MOMENTUM, MN_DECAY, MN_BNS = \
+    96, 224, 0.045, 0.9, 4e-5, 52
+MN_PARAMS, MN_STEPS, MN_BF16_STEPS = 3504872, 8, 3
+# rows 8, 9 and 11 timed at four of its shapes in f32: the stem, the
+# narrowest C at the widest rows, an expansion at 14², the last 1 x 1
+MN_BN_TIMED = ((1204224, 32), (1204224, 16), (18816, 576), (4704, 1280))
+# its f32 kernel-vs-plain check, as ResNet-50's (mobilenet_reference_check):
+# full depth at batch 16 x 224², the depth cut to the first block of each
+# stage at 32 x 64² at MN_REF_SEEDS seeds (the first with three Momentum
+# steps at RN_LR); the classifier's dropout 0 in both paths
+MN_REF_FULL = {"batch": 16, "img": 224}
+MN_REF_CUT = {"batch": 32, "img": 64, "first_blocks": True}
+MN_REF_SEEDS = 4
+# the zero-gradient floor of the gaps: each parameter's error over its
+# float64 gradient, at least this share of the largest's (the projections'
+# batch-norm biases have a zero gradient in exact arithmetic)
+MN_GAP_FLOOR = 1e-3
+
+
+def mn_model(dev, seed, first_blocks=False, dropout=True):
+    """``mobilenet_v2()`` with seeded weights on ``dev``; with
+    ``first_blocks`` the depth cut to the first inverted-residual block of
+    each of its seven stages (22 batch norms)."""
+    from paddle1_tpu_torch.nn import Sequential
+    from paddle1_tpu_torch.vision.models import mobilenet_v2
+    m = mobilenet_v2(device=dev, generator=torch.Generator().manual_seed(
+        seed))
+    if first_blocks:
+        keep, blocks = [m.features[0]], m.features[1:-1]
+        for b in blocks:
+            # a stage's first block changes the width or the stride
+            first = b.stride != 1 or not b.use_res_connect
+            if first:
+                keep.append(b)
+        keep.append(m.features[-1])
+        m.features = Sequential(*keep)
+    if not dropout:
+        m.classifier[0].p = 0.0
+    return m
+
+
+def mn_batches(paddle, n, batch, img, seed):
+    rng = np.random.default_rng(seed)
+    return [(paddle.to_tensor(rng.standard_normal(
+                 (batch, 3, img, img)).astype(np.float32)),
+             paddle.to_tensor(rng.integers(0, 1000, (batch,))))
+            for _ in range(n)]
+
+
+def mn_loop(paddle, model, lr=MN_LR):
+    """The eager training step of the path: ``nn.CrossEntropyLoss()`` of
+    the model's logits, ``loss.backward()``, ``opt.step()``,
+    ``opt.clear_grad()``; Momentum with the L2 decay."""
+    opt = paddle.optimizer.Momentum(
+        lr, MN_MOMENTUM, parameters=model.parameters(),
+        weight_decay=paddle.regularizer.L2Decay(MN_DECAY))
+    crit = paddle.nn.CrossEntropyLoss()
+
+    def step(x, y):
+        loss = crit(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return opt, step
+
+
+def mn_loss_fn(m, b):
+    from paddle1_tpu_torch import nn
+    return nn.CrossEntropyLoss()(m(b["x"]), b["y"])
+
+
+def mn_eager_steps(model, data, steps):
+    """``steps`` eager Momentum steps of the path's loop (:func:`mn_loop`,
+    lr RN_LR) on one batch; returns the losses."""
+    import paddle1_tpu_torch as paddle
+    _, step = mn_loop(paddle, model, RN_LR)
+    return [float(step(data["x"], data["y"])) for _ in range(steps)]
+
+
+def mn_reference_readings(dev, batch, img, first_blocks=False, steps=0,
+                          seed=0):
+    """:func:`reference_readings` of MobileNetV2 (``first_blocks``: the
+    depth cut), seeded weights and data (``seed`` apart from the first),
+    dropout 0, eager steps (:func:`mn_eager_steps`), its ReLU6 gradients
+    also taken on float64's pieces."""
+    model = mn_model(dev, SEED + 120 + seed, first_blocks, dropout=False)
+    return reference_readings(dev, model, SEED + 121 + seed, batch, img,
+                              mn_eager_steps, steps, loss_fn=mn_loss_fn,
+                              floor=MN_GAP_FLOOR, pieces=True,
+                              seed=SEED + 120 + seed,
+                              first_blocks=first_blocks, lr=RN_LR)
+
+
+def mobilenet_reference_check(dev):
+    """The f32 kernel path against the plain path, by ResNet-50's checks
+    (:func:`reference_check`) with one change: the two paths' first-step
+    gradients are compared with the gradients of their ReLU6s taken on
+    float64's side of each kink (``kernel_same_piece_vs_plain_same_piece``
+    within RN_GRAD_TOL), on the depth cut at MN_REF_SEEDS seeds and at
+    full depth. Where a pre-activation lies within an f32 rounding of 0
+    or 6, either f32 path may put it on the other side from float64, and
+    the gradient of every parameter before it moves by about one
+    element's share of the sum: 1e-4 to 8e-3 on this cut by seed, 1e-2 at
+    full depth (PERF.md §6). The paths' own gradients, and the elements
+    each puts on the other side by layer, are printed."""
+    full = mn_reference_readings(dev, **MN_REF_FULL)
+    cuts = [mn_reference_readings(dev, steps=REF_STEPS if i == 0 else 0,
+                                  seed=i, **MN_REF_CUT)
+            for i in range(MN_REF_SEEDS)]
+    log(json.dumps({"mobilenet_v2_reference": {"full_depth": full,
+                                               "depth_cuts": cuts}}))
+    for r in cuts:
+        g = r["grads"]
+        log(f"mobilenet depth cut, seed {r['seed']}: first-step gradients "
+            f"kernel vs plain {g['gaps']['kernel_vs_plain']['max']:.3g}, "
+            f"on float64's pieces "
+            f"{g['gaps']['kernel_same_piece_vs_plain_same_piece']['max']:.3g}"
+            f"; elements off float64's piece: kernel "
+            f"{g['flips']['kernel']['layers']}, plain "
+            f"{g['flips']['plain']['layers']}")
+    reference_check("mobilenet", full, cuts)
+    return full, cuts
+
+
+def mobilenet_phase(dev):
+    """Phase 29 (the module docstring): eager MobileNetV2 training at
+    batch 96 x 224² in f32, eval, save/load, a bf16 engine run, the
+    kernel-vs-plain check."""
+    import tempfile
+    import paddle1_tpu_torch as paddle
+    from paddle1_tpu_torch.distributed import ParallelEngine
+    from paddle1_tpu_torch.nn import BatchNorm2D
+    from paddle1_tpu_torch.nn import functional as F
+    from paddle1_tpu_torch.ops import softmax as psm
+    t0 = time.perf_counter()
+    model = mn_model(dev, SEED + 110)
+    n_params = sum(p.nelement() for p in model.parameters())
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2D)]
+    widths = sorted({b._num_features for b in bns})
+    check(n_params == MN_PARAMS and len(bns) == MN_BNS,
+          f"mobilenet_v2: {n_params} parameters, {len(bns)} batch norms")
+    check(all(t.device.type == CARD for t in model.state_dict().values()),
+          "mobilenet_v2 did not default to the card")
+    opt, step_fn = mn_loop(paddle, model)
+    batches = mn_batches(paddle, 2, MN_BATCH, MN_IMG, SEED + 111)
+    it = [0]
+
+    def step():
+        it[0] += 1
+        return step_fn(*batches[it[0] % 2])
+    torch.cuda.reset_peak_memory_stats()
+    first = [float(step_fn(*batches[0])), float(step_fn(*batches[1]))]
+    setup_s = time.perf_counter() - t0
+    counters = bn_counters()
+    counters["softmax"] = psm.fused_softmax
+    zero(counters)
+    it[0] = 1
+    slopes, _, steps = timed_steps(step, MN_STEPS)
+    torch.cuda.synchronize()
+    train = bn_launches(counters)
+    want = {"fused_bn_train": MN_BNS * steps, "fused_bn_norm": 0,
+            "fused_bn_train_bwd": MN_BNS * steps, "fused_bn_norm_bwd": 0,
+            "softmax": 0}
+    check(train == want, f"mobilenet training launches {train}, want "
+          f"{want} ({steps} steps)")
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_kernels_per_step(step, 2)
+    last = [float(step_fn(*batches[0])), float(step_fn(*batches[1]))]
+    check(all(np.isfinite(first + last)), f"mobilenet: non-finite loss "
+          f"{first} {last}")
+    check(sum(last) < sum(first), f"mobilenet: the loss did not fall over "
+          f"the cycled batches: {first} -> {last}")
+    dt = float(np.median(slopes))
+    busy = prof["device_busy_ms_per_step"]
+
+    # eval: the running statistics on row 9, the top-1 through row 7
+    model.eval()
+    x0 = batches[0][0]
+    with paddle.no_grad():
+        model(x0)                                 # warm
+        torch.cuda.synchronize()
+        zero(counters)
+        ta = time.perf_counter()
+        logits = model(x0)
+        probs = F.softmax(logits)
+        top1 = paddle.argmax(probs, axis=-1)
+        top1_np = top1.numpy()
+        eval_ms = (time.perf_counter() - ta) * 1e3
+    evals = bn_launches(counters)
+    want = {"fused_bn_train": 0, "fused_bn_norm": MN_BNS,
+            "fused_bn_train_bwd": 0, "fused_bn_norm_bwd": 0, "softmax": 1}
+    check(evals == want, f"mobilenet eval launches {evals}, want {want}")
+    check(logits.shape == [MN_BATCH, 1000] and
+          bool(torch.isfinite(logits).all()) and
+          float((probs.sum(-1) - 1).abs().max()) < 1e-5 and
+          np.array_equal(top1_np, torch.argmax(logits, -1).cpu().numpy()),
+          "mobilenet eval: logits, probabilities or top-1 wrong")
+    eval_times = []
+    with paddle.no_grad():
+        for _ in range(5):
+            torch.cuda.synchronize()
+            ta = time.perf_counter()
+            model(x0)
+            torch.cuda.synchronize()
+            eval_times.append((time.perf_counter() - ta) * 1e3)
+    # the [rows, C] each batch norm gets on the path: 19 pairs
+    bn_shapes = sorted(set(bn_input_shapes(model, x0)), reverse=True)
+
+    # save -> load into a fresh model: the eval bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/mobilenet_v2.pdparams"
+        paddle.save(model.state_dict(), path)
+        fresh = mn_model(dev, SEED + 119)
+        missing, unexpected = fresh.set_state_dict(paddle.load(path))
+    fresh.eval()
+    with paddle.no_grad():
+        again = fresh(x0)
+    check(missing == [] and unexpected == [] and torch.equal(again, logits),
+          f"mobilenet: the eval after save/load differs (missing "
+          f"{missing}, unexpected {unexpected})")
+    del fresh, again
+
+    # the same model in bf16 through the engine (rows 8 and 11 in bf16)
+    bmodel = mn_model(dev, SEED + 112)
+    eng = ParallelEngine(
+        bmodel, paddle.optimizer.Momentum(
+            MN_LR, MN_MOMENTUM, parameters=bmodel.parameters(),
+            weight_decay=paddle.regularizer.L2Decay(MN_DECAY)),
+        mn_loss_fn, amp_dtype="bfloat16")
+    staged = [{"x": x, "y": y} for x, y in batches]
+    float(eng.step(staged[0]))
+    zero(counters)
+    tb = time.perf_counter()
+    bf16_losses = [float(eng.step(staged[i % 2]))
+                   for i in range(MN_BF16_STEPS)]
+    bf16_ms = (time.perf_counter() - tb) * 1e3 / MN_BF16_STEPS
+    bf16 = bn_launches(counters)
+    want = {"fused_bn_train": MN_BNS * MN_BF16_STEPS, "fused_bn_norm": 0,
+            "fused_bn_train_bwd": MN_BNS * MN_BF16_STEPS,
+            "fused_bn_norm_bwd": 0, "softmax": 0}
+    check(bf16 == want and all(np.isfinite(bf16_losses)),
+          f"mobilenet bf16 engine: launches {bf16} (want {want}), losses "
+          f"{bf16_losses}")
+    del eng, bmodel, staged
+
+    summary = {
+        "train": "mobilenet_v2_eager", "dtype": "float32", "tf32": False,
+        "batch": MN_BATCH, "img": MN_IMG, "params": n_params,
+        "batch_norms": len(bns), "bn_widths": widths,
+        "optimizer": f"Momentum({MN_LR}, {MN_MOMENTUM}, "
+                     f"weight_decay=L2Decay({MN_DECAY}))",
+        "setup_s": setup_s, "steps": steps, "timing": "slope+readback",
+        "step_ms_median": dt * 1e3, "step_ms_min": min(slopes) * 1e3,
+        "step_ms_max": max(slopes) * 1e3, "images_per_s": MN_BATCH / dt,
+        "loss_first": first, "loss_last": last,
+        "peak_mem_gb": peak / 1e9, "launches_train": train,
+        "launches_per_step": {k: n / steps for k, n in train.items()},
+        "device_busy_ms_per_step": busy,
+        "device_idle_share": 1.0 - busy / (dt * 1e3),
+        "profiler_window_idle_share": 1.0 - busy / prof["profiled_step_ms"],
+        "bn_kernels_ms_per_step": prof["bn_ms_per_step"],
+        "bn_share_of_busy": prof["bn_ms_per_step"] / busy,
+        "eval_ms_first_timed": eval_ms,
+        "eval_forward_ms_median": float(np.median(eval_times)),
+        "launches_eval": evals, "eval_top1_agrees_with_argmax": True,
+        "save_load_eval_bit_identical": True,
+        "bf16_engine": {"steps": MN_BF16_STEPS, "losses": bf16_losses,
+                        "step_ms": bf16_ms, "launches": bf16},
+        "profile": prof}
+    log(json.dumps({"mobilenet_v2": summary}))
+    log(f"mobilenet_v2 f32 batch {MN_BATCH} x {MN_IMG}²: step "
+        f"{dt * 1e3:.2f} ms, {MN_BATCH / dt:.1f} images/s, busy "
+        f"{busy:.2f} ms, idle {summary['device_idle_share']:.3f}, batch "
+        f"norms {summary['bn_share_of_busy']:.3f} of busy, eval forward "
+        f"{summary['eval_forward_ms_median']:.2f} ms, peak "
+        f"{peak / 1e9:.2f} GB ({card_line()})")
+    del model, opt, batches
+    torch.cuda.empty_cache()
+    # rows 8, 9, 11 (and 12) against their plain versions at those shapes
+    errs = bn_check(dev, bn_shapes, acts=("identity",), residuals=(False,))
+    times = bn_timing(dev, MN_BN_TIMED, MN_BATCH, torch.float32)
+    mobilenet_reference_check(dev)
+    torch.cuda.empty_cache()
+    summary["bn_check"] = {"shapes": bn_shapes, "max_abs_err": {
+        k: max(e["max_abs_err"] for e in v) for k, v in errs.items()}}
+    log(json.dumps({"mobilenet_v2_bn_check": summary["bn_check"]}))
+    summary["bn_times_f32"] = times
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -4812,6 +5404,14 @@ def main() -> int:
     f16k = f16_kernels_phase(dev)
     amp = finetune_amp_phase(dev, ft)
     o2 = o2_phase(dev)
+    torch.cuda.empty_cache()
+
+    nn_launches = nn_phase(dev)["nn_cases"]["bn_launches"]
+    mn = mobilenet_phase(dev)
+    mn_paths = {"mobilenet_v2_train": mn["launches_train"],
+                "mobilenet_v2_eval": mn["launches_eval"],
+                "mobilenet_v2_bf16": mn["bf16_engine"]["launches"],
+                "nn_cases": nn_launches}
     # the launches of the AMP runs (each read over its own zeroed window)
     amp_paths = {"bert_finetune_amp_bf16": amp["bf16"]["launches"],
                  "bert_finetune_amp_f16": amp["f16"]["launches"],
@@ -4977,7 +5577,8 @@ def main() -> int:
                    "resnet_eval": rn["launches_eval"][name],
                    "resnet_frozen": rn["launches_frozen"][name],
                    "resnet_dp": dp["launches_train"][name],
-                   "yolov3": yolo["launches"][name]}
+                   "yolov3": yolo["launches"][name],
+                   **{k: v[name] for k, v in mn_paths.items()}}
         main_case = bn_times[name][0]     # the stem's [401408, 64]
         line.append({
             "name": name, "route": "cuda", "source": src + cu,
@@ -4993,6 +5594,9 @@ def main() -> int:
             **layer4(bn_times[name]),
             "registers": {p: bn_regs[f"{cu[:-3]}.{p}"] for p in pieces},
             "timing_cases": bn_times[name], "cases": bn_errs[name]})
+        line[-1].update({
+            "mobilenet_v2_launches_per_step": mn["launches_per_step"][name],
+            "mobilenet_v2_timing_cases": mn["bn_times_f32"][name]})
         if name == "fused_bn_norm":
             line[-1].update({
                 "max_abs_err": max([line[-1]["max_abs_err"]] + [
@@ -5018,10 +5622,12 @@ def main() -> int:
         "timing_cases": mom_times, "cases": mom_errs})
     main_case = sm_times[0]     # LeNet's prediction, [64, 10]
     n_sm = lenet["predict_launches"]["softmax"]
+    n_mn = mn["launches_eval"]["softmax"]
     line.append({
         "name": "softmax", "route": "cuda", "source": src + "softmax.cu",
-        "replaces": pallas + "softmax.py:40", "launches": n_sm,
-        "launches_by_path": {"lenet_predict": n_sm},
+        "replaces": pallas + "softmax.py:40", "launches": n_sm + n_mn,
+        "launches_by_path": {"lenet_predict": n_sm,
+                             "mobilenet_v2_eval": n_mn},
         "max_abs_err": max(c["max_abs_err"] for c in sm_errs),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],

@@ -1,7 +1,13 @@
-"""Normalization functionals (port of ``layer_norm``, ``batch_norm``,
-``fused_batch_norm_act`` and the running-statistics capture from
-``paddle1_tpu/nn/functional/norm.py``, and of ``SyncBatchNorm``'s
+"""Normalization functionals (port of ``paddle1_tpu/nn/functional/norm.py``,
+its whole ``__all__``: ``batch_norm``, ``fused_batch_norm_act``,
+``layer_norm``, ``instance_norm``, ``group_norm``, ``local_response_norm``,
+``normalize`` and the running-statistics capture; and of ``SyncBatchNorm``'s
 cross-replica statistics from ``paddle1_tpu/nn/layer_norm_act.py``).
+
+A batch, instance or group norm takes its affine ``weight`` and ``bias``
+both or neither, as the JAX package does; given one alone it raises
+(the JAX package raises on a weight alone and drops a bias alone: ROADMAP,
+by design).
 
 Under a ``dp`` binding (``distributed.env.spmd_axes(dp=group)``, which
 ``ParallelEngine`` opens around its forward on a mesh) each rank holds
@@ -18,6 +24,7 @@ import math
 import threading
 
 import torch
+import torch.nn.functional as tF
 
 from ...amp import cast_point
 from ...core.errors import InvalidArgumentError
@@ -28,14 +35,14 @@ from ...ops import fused_bn as fbn
 from ...ops import layer_norm as ln
 from ._layout import channels_last_region
 
-__all__ = ["layer_norm", "batch_norm", "fused_batch_norm_act",
-           "collect_stat_updates", "fused_bn_active"]
+__all__ = ["batch_norm", "fused_batch_norm_act", "layer_norm",
+           "instance_norm", "group_norm", "local_response_norm",
+           "normalize", "collect_stat_updates", "fused_bn_active"]
 
 
 @cast_point("layer_norm")
-def layer_norm(x: torch.Tensor, normalized_shape, weight: torch.Tensor,
-               bias: torch.Tensor, epsilon: float = 1e-05,
-               name=None) -> torch.Tensor:
+def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
+               epsilon: float = 1e-05, name=None) -> torch.Tensor:
     """LayerNorm over the trailing ``normalized_shape`` axes, which are
     flattened into one (``weight``/``bias`` likewise; None stands for
     ones / zeros, the affine-less form). Under
@@ -135,6 +142,23 @@ def fused_bn_active(shape, dtype, device) -> bool:
 
 def _apply_act(y, act):
     return torch.relu(y) if act == "relu" else y
+
+
+def _check_affine(op, weight, bias):
+    """``weight`` and ``bias`` come both or neither (module docstring)."""
+    if (weight is None) != (bias is None):
+        given = "weight" if bias is None else "bias"
+        raise InvalidArgumentError(
+            f"{op}: the affine weight and bias go together (both or "
+            f"neither); got only the {given}")
+
+
+def _scale_shift(y, weight, bias, bshape):
+    """``y * weight + bias``, ``bshape`` broadcasting a ``[C]`` vector
+    along the channel axis; ``y`` unchanged without an affine."""
+    if weight is None:
+        return y
+    return y * bshape(weight) + bshape(bias)
 
 
 def _rows(t, c):
@@ -244,7 +268,6 @@ def _batch_norm_body(x, running_mean, running_var, weight, bias, residual,
     eff_last = channel_last or nhwc_internal or x.dim() == 2
     use_stats = (not training) if use_global_stats is None \
         else use_global_stats
-    has_wb = weight is not None
     xi = to_internal(x)
     res = None if residual is None else to_internal(residual)
     nd = xi.dim()
@@ -256,20 +279,24 @@ def _batch_norm_body(x, running_mean, running_var, weight, bias, residual,
         return torch.reshape(v, shape)
 
     fused = fused_bn_active(xi.shape, xi.dtype, xi.device)
-    if fused and not (has_wb and eff_last):
+    if fused and not eff_last:
         if xi.device.type == "cpu":
             fused = False
         else:
             raise InvalidArgumentError(
-                "batch_norm: the fused_bn kernel needs affine weight and "
-                "bias and a channels-last input (data_format NHWC, or "
-                f"NCHW under conv_nhwc); got x {tuple(x.shape)} "
-                f"{data_format}, affine={has_wb} (outside the kernel's "
+                "batch_norm: the fused_bn kernel needs a channels-last "
+                "input (data_format NHWC, or NCHW under conv_nhwc); got x "
+                f"{tuple(x.shape)} {data_format} (outside the kernel's "
                 "contract; set fused_bn=never for the plain composition)")
     if fused:
         c = int(xi.shape[-1])
         x2 = _rows(xi, c)
         res2 = None if res is None else _rows(res, c)
+        if weight is None:
+            # the kernels take gamma and beta: an affine-less norm gets
+            # ones and zeros, constants whose gradients autograd drops
+            weight = torch.ones(c, dtype=torch.float32, device=xi.device)
+            bias = torch.zeros(c, dtype=torch.float32, device=xi.device)
 
     group = None if use_stats else current_spmd_axis("dp")
     if group is not None:
@@ -284,7 +311,7 @@ def _batch_norm_body(x, running_mean, running_var, weight, bias, residual,
         else:
             y = (xi.float() - bshape(mean)) * torch.rsqrt(bshape(var) +
                                                           epsilon)
-            if has_wb:
+            if weight is not None:
                 y = y * bshape(weight.float()) + bshape(bias.float())
             if res is not None:
                 y = y + res.float()
@@ -299,8 +326,7 @@ def _batch_norm_body(x, running_mean, running_var, weight, bias, residual,
             return from_internal(torch.reshape(y2, xi.shape))
         y = (xi - bshape(running_mean)) * torch.rsqrt(
             bshape(running_var) + epsilon)
-        if has_wb:
-            y = y * bshape(weight) + bshape(bias)
+        y = _scale_shift(y, weight, bias, bshape)
         if res is not None:
             y = y + res
         return from_internal(_apply_act(y, act))
@@ -322,8 +348,7 @@ def _batch_norm_body(x, running_mean, running_var, weight, bias, residual,
         xcf = xc.float() if half else xc
         var = ((xcf * xcf).sum(dim=reduce_axes) * inv).to(xi.dtype)
         y = xc * torch.rsqrt(bshape(var) + epsilon)
-        if has_wb:
-            y = y * bshape(weight) + bshape(bias)
+        y = _scale_shift(y, weight, bias, bshape)
         if res is not None:
             y = y + res
         y = from_internal(_apply_act(y, act))
@@ -338,8 +363,10 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     ``batch_norm``): training mode normalizes with the batch statistics
     and blends them into ``running_mean``/``running_var``; eval (or
     ``use_global_stats=True``) normalizes with the running statistics.
-    Under ``fused_bn`` a channels-last affine batch norm runs the
-    hand-written kernels (``ops/fused_bn.py``)."""
+    Under ``fused_bn`` a channels-last batch norm runs the hand-written
+    kernels (``ops/fused_bn.py``), an affine-less one with gamma ones and
+    beta zeros."""
+    _check_affine("batch_norm", weight, bias)
     return _batch_norm_impl(x, running_mean, running_var, weight, bias,
                             training, momentum, epsilon, data_format,
                             use_global_stats, "identity", None, "batch_norm")
@@ -367,3 +394,87 @@ def fused_batch_norm_act(x, running_mean, running_var, weight, bias,
     return _batch_norm_impl(x, running_mean, running_var, weight, bias,
                             training, momentum, epsilon, data_format,
                             use_global_stats, act, residual, "fused_bn_act")
+
+
+def _bcast(v, nd, axis):
+    shape = [1] * nd
+    shape[axis] = -1
+    return torch.reshape(v, shape)
+
+
+@cast_point("instance_norm")
+def instance_norm(x: torch.Tensor, running_mean=None, running_var=None,
+                  weight=None, bias=None, use_input_stats: bool = True,
+                  momentum: float = 0.9, epsilon: float = 1e-05,
+                  data_format: str = "NCHW", name=None) -> torch.Tensor:
+    """Per-sample, per-channel normalization over the spatial axes of a
+    channels-first ``x`` (axes 2 on), with the biased variance, then the
+    affine on axis 1. As in the JAX package the running statistics,
+    ``use_input_stats``, ``momentum`` and ``data_format`` are taken and
+    not read."""
+    _check_affine("instance_norm", weight, bias)
+    axes = tuple(range(2, x.dim()))
+    mean = torch.mean(x, dim=axes, keepdim=True)
+    var = torch.var(x, dim=axes, keepdim=True, unbiased=False)
+    y = (x - mean) * torch.rsqrt(var + epsilon)
+    return _scale_shift(y, weight, bias,
+                        lambda v: _bcast(v, x.dim(), 1))
+
+
+@cast_point("group_norm")
+def group_norm(x: torch.Tensor, num_groups: int, epsilon: float = 1e-05,
+               weight=None, bias=None, data_format: str = "NCHW",
+               name=None) -> torch.Tensor:
+    """Each sample's channels cut into ``num_groups`` groups, each group
+    normalized over its channels and spatial axes (biased variance), then
+    the per-channel affine; channels on axis 1, or last for ``NHWC``,
+    ``NLC`` and ``NDHWC``."""
+    _check_affine("group_norm", weight, bias)
+    channel_last = data_format in ("NHWC", "NLC", "NDHWC")
+    xm = torch.movedim(x, -1, 1) if channel_last else x
+    n, c = int(xm.shape[0]), int(xm.shape[1])
+    if c % num_groups:
+        raise InvalidArgumentError(
+            f"group_norm: {c} channels are not a multiple of num_groups="
+            f"{num_groups}")
+    grouped = torch.reshape(xm, (n, num_groups, c // num_groups,
+                                 *xm.shape[2:]))
+    axes = tuple(range(2, grouped.dim()))
+    mean = torch.mean(grouped, dim=axes, keepdim=True)
+    var = torch.var(grouped, dim=axes, keepdim=True, unbiased=False)
+    y = torch.reshape((grouped - mean) * torch.rsqrt(var + epsilon),
+                      xm.shape)
+    y = _scale_shift(y, weight, bias, lambda v: _bcast(v, xm.dim(), 1))
+    return torch.movedim(y, 1, -1) if channel_last else y
+
+
+@cast_point("local_response_norm")
+def local_response_norm(x: torch.Tensor, size: int, alpha: float = 1e-4,
+                        beta: float = 0.75, k: float = 1.0,
+                        data_format: str = "NCHW",
+                        name=None) -> torch.Tensor:
+    """``x / (k + alpha * s) ** beta``, ``s`` the sum of ``x**2`` over a
+    window of ``size`` channels around each (``size // 2`` before, the rest
+    after, zero past the edges): the JAX package's formula, whose alpha is
+    not divided by ``size``."""
+    ax = 1 if data_format.startswith("NC") else x.dim() - 1
+    sq = torch.movedim(x * x, ax, -1)
+    half = size // 2
+    padded = tF.pad(sq, (half, size - half - 1))
+    c = int(sq.shape[-1])
+    s = padded[..., 0:c]
+    for i in range(1, size):
+        s = s + padded[..., i:i + c]
+    return x / (k + alpha * torch.movedim(s, -1, ax)) ** beta
+
+
+@cast_point("normalize")
+def normalize(x: torch.Tensor, p=2, axis: int = 1, epsilon: float = 1e-12,
+              name=None) -> torch.Tensor:
+    """``x / max(||x||_p, epsilon)`` along ``axis``."""
+    if p == 2:
+        n = torch.sqrt(torch.sum(x * x, dim=axis, keepdim=True))
+    else:
+        n = torch.sum(torch.abs(x) ** p, dim=axis, keepdim=True) ** \
+            (1.0 / p)
+    return x / torch.clamp(n, min=epsilon)

@@ -268,8 +268,9 @@ def _traces(monkeypatch, jclf, tclf, ids, labels, amp_dtype):
 
     def t_rec(name, *args, **kw):
         out = t_run(name, *args, **kw)
-        first = out[0] if isinstance(out, (tuple, list)) else out
-        ttrace.append((name, _dtype(first)))
+        if name in listed:
+            first = out[0] if isinstance(out, (tuple, list)) else out
+            ttrace.append((name, _dtype(first)))
         return out
     monkeypatch.setattr(engine, "_apply_impl", j_rec)
     monkeypatch.setattr(tp.amp, "_run", t_rec)

@@ -56,7 +56,11 @@ contract, refused plans raising, its launch counter, and integer input
 promoted onto the kernel by ``F.softmax``; and that the eager LeNet runs
 on the card by default, on Paddle tensors whose ``.numpy()`` reads the
 card, with one fused Adam launch per step and one softmax launch per
-prediction.
+prediction. They also hold an affine-less batch norm to the plain
+composition on the kernels (F18), rows 8,
+9 and 11 to their plain versions at MobileNetV2's 19 batch-norm shapes,
+and that a tiny MobileNetV2's eager steps and eval launch them once per
+batch norm.
 """
 
 import numpy as np
@@ -793,16 +797,20 @@ def test_fused_bn_outside_the_contract_raises_on_the_card(dev, case):
         fbn.fused_bn_train(x, g, b, 1e-5)
 
 
-@pytest.mark.parametrize("case", ["f16", "channels", "affine_less",
+# an affine-less batch norm takes the kernels since F18 (ones and zeros for
+# gamma and beta); outside the contract it still raises
+@pytest.mark.parametrize("case", ["f16", "channels", "affine_less_channels",
                                   "channels_first"])
 def test_batch_norm_outside_the_kernel_contract_raises_on_the_card(dev,
                                                                    case):
     from paddle1_tpu_torch.core.flags import flags_guard
-    c = 12 if case == "channels" else 16
+    c = 12 if case in ("channels", "affine_less_channels") else 16
     x = torch.randn(4, c, 5, 5, device=dev,
                     dtype=torch.float16 if case == "f16" else torch.float32)
-    w = None if case == "affine_less" else torch.ones(c, device=dev)
-    b = None if case == "affine_less" else torch.zeros(c, device=dev)
+    w = None if case == "affine_less_channels" else \
+        torch.ones(c, device=dev)
+    b = None if case == "affine_less_channels" else \
+        torch.zeros(c, device=dev)
     m, v = torch.zeros(c, device=dev), torch.ones(c, device=dev)
     nhwc = "never" if case == "channels_first" else "auto"
     before = (fbn.fused_bn_train.launches, fbn.fused_bn_norm.launches)
@@ -815,6 +823,131 @@ def test_batch_norm_outside_the_kernel_contract_raises_on_the_card(dev,
     assert y.shape == x.shape
     assert (fbn.fused_bn_train.launches, fbn.fused_bn_norm.launches) == \
         before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_f18_affine_less_batch_norm_runs_the_kernels(dev, dtype):
+    """F18: ``BatchNorm2D(weight_attr=False, bias_attr=False)`` trains,
+    backpropagates and evaluates on the kernels (gamma ones and beta
+    zeros) where it raised, and agrees with the plain composition."""
+    from paddle1_tpu_torch.core.flags import flags_guard
+    from paddle1_tpu_torch.nn import BatchNorm2D, BatchNorm1D
+    c = 24
+    tol = BN_F32 if dtype == torch.float32 else BN_BF16
+    g_ = torch.Generator(device=dev).manual_seed(3)
+    x0 = (torch.randn(8, c, 14, 14, device=dev, generator=g_) * 2 +
+          0.5).to(dtype)
+    dy = torch.randn(8, c, 14, 14, device=dev, generator=g_).to(dtype)
+    runs = {}
+    for flag in ("auto", "never"):
+        # the plain composition in f32 on the same (rounded) inputs: in
+        # bf16 it would round after each of its ops, the kernel once
+        run_dtype = dtype if flag == "auto" else torch.float32
+        bn = BatchNorm2D(c, weight_attr=False, bias_attr=False, device=dev)
+        assert bn.weight is None and bn.bias is None
+        bn.to(dtype=run_dtype)
+        x = x0.detach().to(run_dtype).clone().requires_grad_()
+        before = (fbn.fused_bn_train.launches, fbb.train_bwd.launches,
+                  fbn.fused_bn_norm.launches)
+        with flags_guard(fused_bn=flag, fused_bn_bwd=flag):
+            y = bn(x)
+            (y.float() * dy.float()).sum().backward()
+            bn.eval()
+            with torch.no_grad():
+                ye = bn(x0.to(run_dtype))
+        after = (fbn.fused_bn_train.launches, fbb.train_bwd.launches,
+                 fbn.fused_bn_norm.launches)
+        assert [a - b for a, b in zip(after, before)] == \
+            ([1, 1, 1] if flag == "auto" else [0, 0, 0])
+        runs[flag] = (y, x.grad, ye, bn._mean, bn._variance)
+    for got, want in zip(runs["auto"], runs["never"]):
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    # BatchNorm1D's [N, C, L] goes through the 3-D channels-last permute
+    bn1 = BatchNorm1D(c, weight_attr=False, bias_attr=False, device=dev)
+    x1 = torch.randn(8, c, 50, device=dev)
+    before = fbn.fused_bn_train.launches
+    y1 = bn1(x1)
+    assert fbn.fused_bn_train.launches == before + 1
+    with flags_guard(fused_bn="never"):
+        want = bn1(x1)
+    torch.testing.assert_close(y1, want, **BN_F32)
+
+
+# MobileNetV2's batch-norm shapes at batch 96 x 224² (52 batch norms at 19
+# (rows, C) pairs: C 16-1280, rows 96 * 112² down to 96 * 7²)
+MOBILENET_BN = [(1204224, 32), (1204224, 16), (1204224, 96), (301056, 96),
+                (301056, 24), (301056, 144), (75264, 144), (75264, 32),
+                (75264, 192), (18816, 192), (18816, 64), (18816, 384),
+                (18816, 96), (18816, 576), (4704, 576), (4704, 160),
+                (4704, 960), (4704, 320), (4704, 1280)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c", MOBILENET_BN)
+def test_bn_kernels_at_mobilenet_v2_shapes(dev, dtype, rows, c):
+    """Rows 8, 9 and 11 at every shape MobileNetV2 gives them (channel
+    tiles of 2-32 vectors, partial last tiles at C = 320-1280): each
+    against its plain version, repeats bit for bit."""
+    x, g, b, _, m, v, dy = _bn(dev, rows, c, dtype)
+    tol = BN_F32 if dtype == torch.float32 else BN_BF16
+    close = lambda a, b_: torch.testing.assert_close(  # noqa: E731
+        a.float(), b_.float(), **tol)
+    y, mean, var = fbn._train_fwd(x, g, b, None, 1e-5, "identity")
+    ry, rmean, rvar = fbn.fused_bn_train_ref(x, g, b, 1e-5, "identity")
+    close(y, ry)
+    stat_tol = dict(atol=1e-5 * rows ** 0.5, rtol=1e-4)
+    torch.testing.assert_close(mean, rmean, **stat_tol)
+    torch.testing.assert_close(var, rvar, **stat_tol)
+    got = fbb.train_bwd(x, g, mean, var, y, dy, 1e-5, "identity")
+    want = fbb.train_bwd_ref(x, g, mean, var, y, dy, 1e-5, "identity")
+    close(got[0], want[0])
+    for a, b_ in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b_, **stat_tol)
+    yn = fbn._norm_fwd(x, m, v, g, b, None, 1e-5, "identity")
+    close(yn, fbn.fused_bn_norm_ref(x, m, v, g, b, 1e-5, "identity"))
+    again = fbn._train_fwd(x, g, b, None, 1e-5, "identity")
+    assert all(torch.equal(a, b_) for a, b_ in zip(again, (y, mean, var)))
+    assert all(torch.equal(a, b_) for a, b_ in zip(
+        fbb.train_bwd(x, g, mean, var, y, dy, 1e-5, "identity"), got))
+
+
+def test_mobilenet_v2_eager_steps_launch_every_bn_kernel(dev):
+    """A narrow MobileNetV2 (scale 0.25) at 4 x 3 x 32², eager Momentum
+    steps: one row-8 and one row-11 launch per batch norm a step, one
+    row-9 launch per batch norm an eval forward; the loss finite."""
+    import paddle1_tpu_torch as paddle
+    from paddle1_tpu_torch import nn
+    from paddle1_tpu_torch.optimizer import Momentum
+    from paddle1_tpu_torch.vision.models import mobilenet_v2
+    torch.manual_seed(0)
+    m = mobilenet_v2(scale=0.25, num_classes=10)
+    opt = Momentum(0.045, 0.9, parameters=m.parameters(),
+                   weight_decay=paddle.regularizer.L2Decay(4e-5))
+    crit = nn.CrossEntropyLoss()
+    rng = np.random.default_rng(0)
+    x = paddle.to_tensor(rng.standard_normal((4, 3, 32, 32)).astype(
+        np.float32))
+    y = paddle.to_tensor(rng.integers(0, 10, (4,)))
+    counts = lambda: np.array([fbn.fused_bn_train.launches,  # noqa: E731
+                               fbb.train_bwd.launches,
+                               fbn.fused_bn_norm.launches])
+    c0 = counts()
+    losses = []
+    for _ in range(3):
+        loss = crit(m(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    c1 = counts()
+    m.eval()
+    with paddle.no_grad():
+        out = m(x)
+    c2 = counts()
+    assert list(c1 - c0) == [3 * 52, 3 * 52, 0]
+    assert list(c2 - c1) == [0, 0, 52]
+    assert all(np.isfinite(losses))
+    assert out.shape == [4, 10] and bool(torch.isfinite(out).all())
 
 
 def test_tiny_resnet_steps_launch_every_bn_kernel(dev):

@@ -17,7 +17,13 @@ place, stop_gradient, name)`` is the reference's constructor. F11: a
 layer's parameters have the reference ``Parameter``'s methods, and torch's
 own code keeps torch's meaning on them. F12: layers made without a device
 follow the current place (``set_device``/``device_guard``), and
-``init_parallel_env`` makes the rank's device the current place.
+``init_parallel_env`` makes the rank's device the current place. F17:
+``F.layer_norm``'s ``weight`` and ``bias`` default to None, as in the JAX
+package. F18: an affine-less batch norm takes the kernels' route with ones and
+zeros, and gives the JAX package's outputs and gradients; a weight or a
+bias alone raises (the card's half of F18 is in
+``tests/test_torch_cuda.py``).
+F19: ``F.leaky_relu``'s gradient at 0 is 1, as ``jax.nn.leaky_relu``'s.
 
 Inputs and weights come from numpy with a seed; weights cross through
 ``paddle1_tpu_torch.convert.state_from_jax``. Random masks differ by
@@ -1153,3 +1159,160 @@ def test_f16_adamw_takes_lr_ratio_and_leaves_it_unapplied(fresh_names,
     for k, v in _state(jl).items():
         np.testing.assert_allclose(tl.state_dict()[k].detach().numpy(), v,
                                    rtol=1e-6, atol=1e-6, err_msg=k)
+
+
+# F17: F.layer_norm(x, normalized_shape) with weight and bias defaulted
+
+
+F17_AFFINE = ["both", "weight", "bias", "none"]
+
+
+@pytest.mark.parametrize("affine", F17_AFFINE)
+def test_f17_layer_norm_weight_and_bias_default_to_none(cpu_place, affine):
+    """``layer_norm(x, normalized_shape, weight=None, bias=None, epsilon,
+    name)`` is the JAX signature (``norm.py:352``), and each combination
+    of the halves, passed by keyword or left out, gives the JAX package's
+    values and gradients; a missing half is the JAX call's explicit ones
+    or zeros (the JAX package itself raises on a weight without a bias and
+    drops a bias without a weight: ROADMAP, by design). 1e-5 abs/rel."""
+    jsig = inspect.signature(jF.layer_norm)
+    tsig = inspect.signature(tF.layer_norm)
+    assert [(p.name, p.default) for p in tsig.parameters.values()] == \
+        [(p.name, p.default) for p in jsig.parameters.values()]
+    rng = np.random.default_rng(170)
+    x = rng.standard_normal((2, 3, 8)).astype(np.float32)
+    w = rng.uniform(0.5, 2.0, 8).astype(np.float32)
+    b = rng.standard_normal(8).astype(np.float32)
+    kw = {"both": dict(weight=w, bias=b), "weight": dict(weight=w),
+          "bias": dict(bias=b), "none": {}}[affine]
+    full = {"weight": w if "weight" in kw else np.ones(8, np.float32),
+            "bias": b if "bias" in kw else np.zeros(8, np.float32)}
+
+    def leaf(m, a):
+        t = m.to_tensor(a)
+        t.stop_gradient = False
+        return t
+    jx, tx = leaf(jp, x), leaf(tp, x)
+    jkw = {k: leaf(jp, v) for k, v in full.items()}
+    tkw = {k: leaf(tp, v) for k, v in kw.items()}
+    jy = jF.layer_norm(jx, 8, **(jkw if affine != "none" else {}))
+    ty = tF.layer_norm(tx, 8, **tkw)
+    np.testing.assert_allclose(ty.detach().numpy(), _np(jy), **TOL)
+    wsum = rng.standard_normal(x.shape).astype(np.float32)
+    (jy * jp.to_tensor(wsum)).sum().backward()
+    (ty * tp.to_tensor(wsum)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), _np(jx.grad), **TOL)
+    for k, t in tkw.items():
+        np.testing.assert_allclose(t.grad.numpy(), _np(jkw[k].grad), **TOL,
+                                   err_msg=k)
+
+
+def test_f17_layer_norm_layer_without_affine_halves(cpu_place, fresh_names):
+    """``nn.LayerNorm(..., weight_attr=False, bias_attr=False)`` calls
+    ``F.layer_norm`` with neither half and agrees with the JAX package."""
+    x = np.random.default_rng(171).standard_normal((4, 6)).astype(np.float32)
+    jl = jp.nn.LayerNorm(6, weight_attr=False, bias_attr=False)
+    tl = tp.nn.LayerNorm(6, weight_attr=False, bias_attr=False)
+    np.testing.assert_allclose(tl(tp.to_tensor(x)).numpy(),
+                               _np(jl(jp.to_tensor(x))), **TOL)
+
+
+# F18: affine-less batch norm through the kernels' wrappers
+
+
+@pytest.mark.parametrize("flags", ["kernels", "plain"])
+@pytest.mark.parametrize("layer", ["BatchNorm1D", "BatchNorm2D",
+                                   "BatchNorm3D"])
+def test_f18_affine_less_batch_norm_matches_the_reference(cpu_place,
+                                                         fresh_names, flags,
+                                                         layer):
+    """``BatchNorm*D(C, weight_attr=False, bias_attr=False)``: a training
+    forward, its input gradient, the running statistics, then an eval
+    forward, against the JAX package (1e-5 abs/rel); under ``kernels``
+    (``conv_nhwc``/``fused_bn``/``fused_bn_bwd`` ``always``) through the
+    kernels' wrappers with gamma ones and beta zeros, which on the card
+    launch rows 8, 11 and 9."""
+    shape = {"BatchNorm1D": (4, 8, 6), "BatchNorm2D": (2, 8, 3, 3),
+             "BatchNorm3D": (2, 8, 2, 3, 3)}[layer]
+    rng = np.random.default_rng(180)
+    x = (rng.standard_normal(shape) * 2 + 0.5).astype(np.float32)
+    wsum = rng.standard_normal(shape).astype(np.float32)
+    jl = getattr(jp.nn, layer)(8, weight_attr=False, bias_attr=False)
+    tl = getattr(tp.nn, layer)(8, weight_attr=False, bias_attr=False)
+    assert tl.weight is None and tl.bias is None and \
+        not list(tl.parameters())
+    mode = "always" if flags == "kernels" else "never"
+    jx, tx = jp.to_tensor(x), tp.to_tensor(x)
+    jx.stop_gradient = tx.stop_gradient = False
+    jy = jl(jx)
+    with tflags.flags_guard(conv_nhwc=mode, fused_bn=mode, fused_bn_bwd=mode):
+        ty = tl(tx)
+        (ty * tp.to_tensor(wsum)).sum().backward()
+        tl.eval()
+        te = tl(tp.to_tensor(x))
+    (jy * jp.to_tensor(wsum)).sum().backward()
+    jl.eval()
+    je = jl(jp.to_tensor(x))
+    np.testing.assert_allclose(ty.detach().numpy(), _np(jy), **TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), _np(jx.grad), **TOL)
+    np.testing.assert_allclose(te.detach().numpy(), _np(je), **TOL)
+    for k, v in _state(jl).items():
+        np.testing.assert_allclose(tl.state_dict()[k].numpy(), v, **TOL,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("flags", ["kernels", "plain"])
+@pytest.mark.parametrize("op", ["batch_norm", "instance_norm",
+                                "group_norm"])
+@pytest.mark.parametrize("half", ["weight", "bias"])
+def test_f18_half_affine_norm_raises(cpu_place, flags, op, half):
+    """A batch, instance or group norm given its weight alone or its bias
+    alone raises, under either flag set. The JAX package takes the affine
+    both or neither too: it raises on the weight alone and drops the bias
+    alone (ROADMAP, by design: the port raises there)."""
+    rng = np.random.default_rng(181)
+    x = (rng.standard_normal((2, 8, 3, 3)) * 2 + 0.5).astype(np.float32)
+    v = rng.uniform(0.5, 2.0, 8).astype(np.float32)
+    def call(pkg, x, w, b):
+        F = pkg.nn.functional
+        if op == "batch_norm":
+            return F.batch_norm(x, pkg.to_tensor(np.zeros(8, np.float32)),
+                                pkg.to_tensor(np.ones(8, np.float32)), w, b,
+                                training=True)
+        if op == "instance_norm":
+            return F.instance_norm(x, weight=w, bias=b)
+        return F.group_norm(x, 4, weight=w, bias=b)
+    mode = "always" if flags == "kernels" else "never"
+    tx, p = tp.to_tensor(x), tp.to_tensor(v)
+    args = (p, None) if half == "weight" else (None, p)
+    with tflags.flags_guard(conv_nhwc=mode, fused_bn=mode,
+                            fused_bn_bwd=mode):
+        with pytest.raises(InvalidArgumentError, match=f"only the {half}"):
+            call(tp, tx, *args)
+    jx, jv = jp.to_tensor(x), jp.to_tensor(v)
+    if half == "weight":
+        with pytest.raises(Exception):
+            call(jp, jx, jv, None)
+    else:
+        np.testing.assert_allclose(_np(call(jp, jx, None, jv)),
+                                   _np(call(jp, jx, None, None)), **TOL)
+
+
+# F19: F.leaky_relu's gradient at x == 0
+
+
+@pytest.mark.parametrize("slope", [0.01, 0.2])
+def test_f19_leaky_relu_gradient_at_zero_is_the_reference_s(cpu_place,
+                                                            slope):
+    """``jax.nn.leaky_relu`` is ``where(x >= 0, x, slope * x)``: its
+    gradient at 0 is 1 (torch's is the slope); values and gradients
+    elsewhere unchanged, exact."""
+    x = np.array([0.0, -1.5, 2.0, -0.0], np.float32)
+    jx, tx = jp.to_tensor(x), tp.to_tensor(x)
+    jx.stop_gradient = tx.stop_gradient = False
+    jy, ty = jF.leaky_relu(jx, slope), tF.leaky_relu(tx, slope)
+    np.testing.assert_array_equal(ty.detach().numpy(), _np(jy))
+    (jy * jp.to_tensor(np.arange(1, 5, dtype=np.float32))).sum().backward()
+    (ty * tp.to_tensor(np.arange(1, 5, dtype=np.float32))).sum().backward()
+    np.testing.assert_array_equal(tx.grad.numpy(), _np(jx.grad))
+    np.testing.assert_array_equal(tx.grad.numpy()[[0, 3]], [1.0, 4.0])

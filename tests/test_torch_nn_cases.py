@@ -1,0 +1,503 @@
+"""The nn slice's cases, without JAX: every name of the JAX package's
+``nn/functional/{activation,norm,loss}.py``, ``nn/layer_norm_act.py`` and
+``nn/layer_loss.py`` ``__all__`` lists, on seeded numpy inputs.
+
+A :class:`Case` (``tests/test_torch_op_cases.py``) is one call of an
+``nn.functional`` function; a :class:`LayerCase` builds ``nn.<op>(*ctor,
+**ctor_kw)`` (its numpy arguments made tensors of the package) in training
+or eval mode and calls it. ``tests/test_torch_nn_parity.py`` runs each
+through the JAX package and the port on the CPU (values, dtypes, the
+gradients of the inputs listed in ``grad`` and of every parameter, the
+tensors updated in place); ``chip_smoke.py`` phase 28 runs the port's on
+CUDA tensors against the CPU.
+
+Tolerances, f32 absolute and relative: elementwise ops ``ELEM`` (1e-6),
+reductions and norms ``RED`` (1e-5), the CTC and the spectral norm's
+power iteration ``LINALG`` (1e-4). Gradients at the kinks (``relu6`` at 0
+and 6, ``hardswish`` at +-3, ``hardtanh`` at its bounds, ``hardshrink`` /
+``softshrink`` at +-threshold, ``thresholded_relu`` at its threshold,
+``leaky_relu`` and ``prelu`` at 0) are the JAX package's: one half at a
+bound of ``jnp.clip``.
+
+The batch norms' channel counts are multiples of 8, so on the card they
+run the kernels (rows 8, 9 and 11), the affine-less ones included (F18).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Sequence
+
+import numpy as np
+
+from test_torch_op_cases import ELEM, LINALG, RED, Case, R, np_of  # noqa: F401
+
+REDUCTIONS = ("none", "mean", "sum")
+
+
+@dataclass
+class LayerCase(Case):
+    """``nn.<op>(*ctor, **ctor_kw)`` called on ``args``, in training mode
+    unless ``train`` is False."""
+    ctor: Sequence[Any] = ()
+    ctor_kw: dict = field(default_factory=dict)
+    train: bool = True
+
+
+def _f32(*v):
+    return np.array(v, np.float32)
+
+
+def activation_cases():
+    """``nn/functional/activation.py``'s 33 names."""
+    X, X4 = R((3, 4), 1), R((2, 3, 4, 4), 2)
+    C = []
+    for op in ("relu", "sigmoid", "log_sigmoid", "silu", "swish", "mish",
+               "softsign", "tanh", "tanhshrink", "gelu", "selu", "elu",
+               "celu", "leaky_relu", "softplus", "hardsigmoid", "hardswish",
+               "relu6", "hardtanh", "hardshrink", "softshrink",
+               "thresholded_relu"):
+        C.append(Case(op, [X * 4], grad=[0]))
+    C += [
+        Case("gelu", [X], {"approximate": True}, grad=[0], id="gelu-tanh"),
+        Case("elu", [X], {"alpha": 0.5}, grad=[0], id="elu-alpha"),
+        Case("celu", [X], {"alpha": 1.5}, grad=[0], id="celu-alpha"),
+        Case("selu", [X], {"scale": 1.2, "alpha": 0.8}, grad=[0],
+             id="selu-scale-alpha"),
+        Case("leaky_relu", [X], {"negative_slope": 0.2}, grad=[0],
+             id="leaky_relu-slope"),
+        Case("softplus", [X * 10], grad=[0], id="softplus-past-threshold"),
+        Case("softplus", [X * 4], {"beta": 2.0, "threshold": 5.0}, grad=[0],
+             id="softplus-beta-threshold"),
+        Case("hardsigmoid", [X * 4], {"slope": 0.2, "offset": 0.4},
+             grad=[0], id="hardsigmoid-slope-offset"),
+        Case("hardtanh", [X * 4], {"min": -2.0, "max": 3.0}, grad=[0],
+             id="hardtanh-bounds"),
+        Case("hardshrink", [X], {"threshold": 1.0}, grad=[0],
+             id="hardshrink-threshold"),
+        Case("softshrink", [X], {"threshold": 1.0}, grad=[0],
+             id="softshrink-threshold"),
+        Case("thresholded_relu", [X * 2], {"threshold": 0.5, "value": -1.0},
+             grad=[0], id="thresholded_relu-value"),
+        # the kinks: values at the bounds and thresholds exactly
+        Case("relu6", [_f32(0, 6, -1, 3, 7, 0.5)], grad=[0],
+             id="relu6-kinks"),
+        Case("relu", [_f32(0, -1, 1)], grad=[0], id="relu-kink"),
+        Case("leaky_relu", [_f32(0, -1, 1)], {"negative_slope": 0.2},
+             grad=[0], id="leaky_relu-kink"),
+        Case("hardswish", [_f32(-3, 3, 0, 1, -4, 4)], grad=[0],
+             id="hardswish-kinks"),
+        Case("hardtanh", [_f32(-1, 1, 0.5, 2, -2)], grad=[0],
+             id="hardtanh-kinks"),
+        Case("hardtanh", [_f32(-2, 3, 0.5, 4, -3)],
+             {"min": -2.0, "max": 3.0}, grad=[0], id="hardtanh-kinks-bounds"),
+        Case("hardshrink", [_f32(-0.5, 0.5, 0.2, 1, -1)], grad=[0],
+             id="hardshrink-kinks"),
+        Case("softshrink", [_f32(-0.5, 0.5, 0.2, 1, -1)], grad=[0],
+             id="softshrink-kinks"),
+        Case("thresholded_relu", [_f32(1, 2, 0, 0.5)], grad=[0],
+             id="thresholded_relu-kink"),
+        Case("hardsigmoid", [_f32(-3.0000002, 3.0000002, 0, -4, 4)],
+             grad=[0], id="hardsigmoid-bounds"),
+        Case("elu", [_f32(0, -1, 1)], grad=[0], id="elu-kink"),
+        Case("selu", [_f32(0, -1, 1)], grad=[0], id="selu-kink"),
+        Case("prelu", [X4, _f32(0.25)], grad=[0, 1], id="prelu-one-slope"),
+        Case("prelu", [X4, _f32(0.1, 0.2, 0.3)], grad=[0, 1],
+             id="prelu-per-channel"),
+        Case("prelu", [R((2, 4, 4, 3), 3), _f32(0.1, 0.2, 0.3)],
+             {"data_format": "NHWC"}, grad=[0, 1], id="prelu-nhwc"),
+        Case("prelu", [_f32(0, -1, 2), _f32(0.3)], grad=[0, 1],
+             id="prelu-kink"),
+        Case("rrelu", [X], {"training": False}, grad=[0], id="rrelu-eval"),
+        Case("rrelu", [X], {"lower": 0.2, "upper": 0.4, "training": False},
+             grad=[0], id="rrelu-eval-bounds"),
+        Case("maxout", [R((2, 4, 3, 3), 4), 2], grad=[0]),
+        Case("maxout", [R((2, 3, 6), 5), 3, -1], grad=[0], id="maxout-last"),
+        Case("maxout", [_f32(1, 1, 2, 3).reshape(1, 4, 1), 2], grad=[0],
+             id="maxout-tie"),
+        Case("glu", [R((3, 8), 6)], grad=[0]),
+        Case("glu", [R((4, 3), 7), 0], grad=[0], id="glu-axis0"),
+        Case("softmax", [X], grad=[0]),
+        Case("softmax", [X, 0], grad=[0], id="softmax-axis0"),
+        Case("log_softmax", [X], grad=[0], tol=RED),
+        Case("relu_", [X], after=[0]),
+        Case("elu_", [X], {"alpha": 0.5}, after=[0]),
+        Case("tanh_", [X], after=[0]),
+        Case("softmax_", [X], after=[0]),
+    ]
+    return C
+
+
+def norm_cases():
+    """``nn/functional/norm.py``'s names (``collect_stat_updates`` is a
+    context manager of the compiled trainers; ``test_torch_conv.py``
+    holds it)."""
+    X3 = R((2, 3, 4), 10)
+    X8 = R((2, 8, 3, 3), 11) * 2 + 0.5          # C % 8 == 0: the kernels
+    W8, B8 = R((8,), 12, "p"), R((8,), 13)
+    M8, V8 = R((8,), 14) * 0.1, R((8,), 15, "p")
+    W4, B4 = R((4,), 16, "p"), R((4,), 17)
+    X4 = R((2, 6, 3, 3), 18)
+    W6, B6 = R((6,), 19, "p"), R((6,), 20)
+    C = [
+        Case("layer_norm", [X3, 4, W4, B4], grad=[0, 2, 3], tol=RED),
+        Case("layer_norm", [X3, [4]], grad=[0], tol=RED,
+             id="layer_norm-affine-less"),
+        Case("layer_norm", [X3, [3, 4]], {"epsilon": 1e-3}, grad=[0],
+             tol=RED, id="layer_norm-two-axes"),
+    ]
+    for training in (True, False):
+        tag = "train" if training else "eval"
+        C += [
+            Case("batch_norm", [X8, M8, V8, W8, B8], {"training": training},
+                 grad=[0, 3, 4], tol=RED, after=[1, 2], id=f"batch_norm-{tag}"),
+            Case("batch_norm", [X8, M8, V8], {"training": training},
+                 grad=[0], tol=RED, after=[1, 2],
+                 id=f"batch_norm-{tag}-affine-less"),
+            Case("batch_norm", [X8.transpose(0, 2, 3, 1).copy(), M8, V8, W8,
+                                B8],
+                 {"training": training, "data_format": "NHWC"},
+                 grad=[0, 3, 4], tol=RED, after=[1, 2],
+                 id=f"batch_norm-{tag}-nhwc"),
+            Case("fused_batch_norm_act", [X8, M8, V8, W8, B8, training,
+                                          0.9, 1e-5, "NCHW", "relu",
+                                          R((2, 8, 3, 3), 21)],
+                 grad=[0, 3, 4, 10], tol=RED, after=[1, 2],
+                 id=f"fused_batch_norm_act-{tag}"),
+        ]
+    C += [
+        Case("batch_norm", [R((6, 8), 22), M8, V8, W8, B8],
+             {"training": True, "momentum": 0.5}, grad=[0, 3, 4], tol=RED,
+             after=[1, 2], id="batch_norm-2d"),
+        Case("batch_norm", [X8, M8, V8, W8, B8],
+             {"training": True, "use_global_stats": True}, grad=[0, 3, 4],
+             tol=RED, after=[1, 2], id="batch_norm-global-stats"),
+        Case("instance_norm", [X4], grad=[0], tol=RED),
+        Case("instance_norm", [X4, None, None, W6, B6], grad=[0, 3, 4],
+             tol=RED, id="instance_norm-affine"),
+        Case("instance_norm", [R((2, 3, 5), 23)], {"epsilon": 1e-3},
+             grad=[0], tol=RED, id="instance_norm-1d"),
+        Case("group_norm", [X4, 3], grad=[0], tol=RED),
+        Case("group_norm", [X4, 2, 1e-5, W6, B6], grad=[0, 3, 4], tol=RED,
+             id="group_norm-affine"),
+        Case("group_norm", [X4.transpose(0, 2, 3, 1).copy(), 3, 1e-5, W6,
+                            B6], {"data_format": "NHWC"}, grad=[0, 3, 4],
+             tol=RED, id="group_norm-nhwc"),
+        Case("local_response_norm", [R((2, 7, 3, 3), 24), 3], grad=[0],
+             tol=RED),
+        Case("local_response_norm", [R((2, 7, 3, 3), 25), 4],
+             {"alpha": 1e-2, "beta": 0.5, "k": 2.0}, grad=[0], tol=RED,
+             id="local_response_norm-even-size"),
+        Case("local_response_norm", [R((2, 3, 3, 5), 26), 3],
+             {"data_format": "NHWC"}, grad=[0], tol=RED,
+             id="local_response_norm-nhwc"),
+        Case("normalize", [R((3, 4), 27)], grad=[0], tol=RED),
+        Case("normalize", [R((3, 4), 28)], {"p": 1, "axis": 0}, grad=[0],
+             tol=RED, id="normalize-p1"),
+        Case("normalize", [R((3, 4), 29)], {"p": 3, "axis": -1}, grad=[0],
+             tol=RED, id="normalize-p3"),
+    ]
+    return C
+
+
+def _pm1(shape, seed):
+    return np.where(R(shape, seed) > 0, 1.0, -1.0).astype(np.float32)
+
+
+def _binary(shape, seed):
+    return (R(shape, seed) > 0).astype(np.float32)
+
+
+def _log_softmax(x, axis=-1):
+    z = x - x.max(axis=axis, keepdims=True)
+    return (z - np.log(np.exp(z).sum(axis=axis, keepdims=True))).astype(
+        np.float32)
+
+
+# a custom hsigmoid tree: each row a path of node ids (negative: padding)
+# and its branch bits
+PATH_TABLE = np.array([[0, 1, -1], [0, 2, 3], [1, -1, -1], [3, 2, 0]],
+                      np.int32)
+PATH_CODE = np.array([[1, 0, 0], [0, 1, 1], [1, 0, 0], [0, 0, 1]], np.int32)
+
+
+def loss_cases():
+    """``nn/functional/loss.py``'s 22 names, each reduction."""
+    X, Y = R((4, 5), 30), R((4, 5), 31)
+    U, U2 = R((4, 5), 32, "u"), R((4, 5), 33, "u")
+    LOGP = _log_softmax(R((4, 5), 34))
+    LAB = R((4,), 35, "k")                     # in [0, 5)
+    CW = R((5,), 36, "p")
+    IGN = np.array([1, 4, 1, 0], np.int32)     # two labels at ignore_index 1
+    C = []
+    for red in REDUCTIONS:
+        C += [
+            Case("binary_cross_entropy", [U, U2], {"reduction": red},
+                 grad=[0], tol=RED),
+            Case("binary_cross_entropy_with_logits", [X, U2],
+                 {"reduction": red}, grad=[0], tol=RED),
+            Case("nll_loss", [LOGP, LAB], {"reduction": red}, grad=[0],
+                 tol=RED),
+            Case("nll_loss", [LOGP, IGN], {"reduction": red,
+                                           "ignore_index": 1},
+                 grad=[0], tol=RED, id=f"nll_loss-ignore-{red}"),
+            Case("nll_loss", [LOGP, IGN, CW], {"reduction": red,
+                                               "ignore_index": 1},
+                 grad=[0], tol=RED, id=f"nll_loss-weight-ignore-{red}"),
+            Case("cross_entropy", [X, LAB], {"reduction": red}, grad=[0],
+                 tol=RED),
+            Case("cross_entropy", [X, IGN], {"reduction": red,
+                                             "ignore_index": 1},
+                 grad=[0], tol=RED, id=f"cross_entropy-ignore-{red}"),
+            Case("cross_entropy", [X, IGN, CW], {"reduction": red,
+                                                 "ignore_index": 1},
+                 grad=[0], tol=RED, id=f"cross_entropy-weight-ignore-{red}"),
+            Case("l1_loss", [X, Y], {"reduction": red}, grad=[0, 1],
+                 tol=RED),
+            Case("mse_loss", [X, Y], {"reduction": red}, grad=[0, 1],
+                 tol=RED),
+            Case("smooth_l1_loss", [X, Y], {"reduction": red, "delta": 0.5},
+                 grad=[0, 1], tol=RED),
+            Case("kl_div", [LOGP, U], {"reduction": red}, grad=[0, 1],
+                 tol=RED),
+            Case("margin_ranking_loss", [R((6,), 37), R((6,), 38),
+                                         _pm1((6,), 39)],
+                 {"reduction": red, "margin": 0.1}, grad=[0, 1], tol=RED),
+            Case("hinge_embedding_loss", [X, _pm1((4, 5), 40)],
+                 {"reduction": red, "margin": 0.5}, grad=[0], tol=RED),
+            Case("cosine_embedding_loss", [X, Y, _pm1((4,), 41)],
+                 {"reduction": red, "margin": 0.2}, grad=[0, 1], tol=RED),
+            Case("soft_margin_loss", [X, _pm1((4, 5), 42)],
+                 {"reduction": red}, grad=[0], tol=RED),
+            Case("multi_label_soft_margin_loss", [X, _binary((4, 5), 43)],
+                 {"reduction": red}, grad=[0], tol=RED),
+            Case("triplet_margin_loss", [X, Y, R((4, 5), 44)],
+                 {"reduction": red}, grad=[0, 1, 2], tol=RED),
+            Case("sigmoid_focal_loss", [X, _binary((4, 5), 45)],
+                 {"reduction": red}, grad=[0], tol=RED),
+            Case("ctc_loss", [R((6, 2, 4), 46), np.array(
+                [[1, 2, 3], [3, 1, 0]], np.int32), np.array([6, 5], np.int32),
+                np.array([3, 2], np.int32)], {"reduction": red}, grad=[0],
+                tol=LINALG),
+        ]
+    C += [
+        Case("binary_cross_entropy", [U, U2, R((4, 5), 47, "p")], grad=[0],
+             tol=RED, id="binary_cross_entropy-weight"),
+        Case("binary_cross_entropy_with_logits", [X, U2, R((4, 5), 48, "p"),
+                                                  "mean", R((5,), 49, "p")],
+             grad=[0], tol=RED,
+             id="binary_cross_entropy_with_logits-weights"),
+        Case("nll_loss", [_log_softmax(R((2, 3, 5), 50)), R((2, 3), 51, "k")],
+             grad=[0], tol=RED, id="nll_loss-3d"),
+        Case("cross_entropy", [X, LAB, CW], grad=[0], tol=RED,
+             id="cross_entropy-weight"),
+        Case("cross_entropy", [X, U / U.sum(-1, keepdims=True)],
+             {"soft_label": True}, grad=[0], tol=RED,
+             id="cross_entropy-soft"),
+        Case("softmax_with_cross_entropy", [X, LAB[:, None]], grad=[0],
+             tol=RED),
+        Case("square_error_cost", [X, Y], grad=[0, 1], tol=RED),
+        Case("kl_div", [LOGP, U], {"reduction": "batchmean"}, grad=[0, 1],
+             tol=RED, id="kl_div-batchmean"),
+        Case("log_loss", [R((4, 1), 52, "u"), _binary((4, 1), 53)],
+             grad=[0], tol=RED),
+        Case("multi_label_soft_margin_loss", [X, _binary((4, 5), 54),
+                                              R((4,), 55, "p")],
+             grad=[0], tol=RED, id="multi_label_soft_margin_loss-weight"),
+        Case("triplet_margin_loss", [X, Y, R((4, 5), 56)],
+             {"p": 1.0, "swap": True, "margin": 2.0}, grad=[0, 1, 2],
+             tol=RED, id="triplet_margin_loss-p1-swap"),
+        Case("sigmoid_focal_loss", [X, _binary((4, 5), 57), _f32(3.0)],
+             {"alpha": 0.5, "gamma": 1.5}, grad=[0], tol=RED,
+             id="sigmoid_focal_loss-normalizer"),
+        Case("npair_loss", [X, Y, np.array([0, 1, 0, 2], np.int32)],
+             grad=[0, 1], tol=RED),
+        Case("dice_loss", [np.exp(_log_softmax(R((2, 3, 4), 58))),
+                           R((2, 3, 1), 59, "k") % 4], grad=[0], tol=RED),
+        Case("ctc_loss", [R((2, 6, 4), 60), np.array(
+            [[1, 2, 2], [3, 1, 0]], np.int32), np.array([6, 4], np.int32),
+            np.array([3, 2], np.int32)], {"blank": 0}, grad=[0], tol=LINALG,
+            id="ctc_loss-batch-first"),
+        Case("hsigmoid_loss", [X, np.array([0, 5, 2, 3], np.int32), 6,
+                               R((5, 5), 61), R((5,), 62)],
+             grad=[0, 3, 4], tol=RED),
+        Case("hsigmoid_loss", [X, np.array([0, 5, 2, 3], np.int32), 7,
+                               R((6, 5), 63)],
+             grad=[0, 3], tol=RED, id="hsigmoid_loss-no-bias"),
+        Case("hsigmoid_loss", [X, np.array([0, 1, 2, 3], np.int32), 4,
+                               R((4, 5), 64), R((4,), 65), PATH_TABLE,
+                               PATH_CODE],
+             grad=[0, 3, 4], tol=RED, id="hsigmoid_loss-custom-tree"),
+    ]
+    return C
+
+
+def layer_cases():
+    """``nn/layer_norm_act.py``'s layers (not its containers) and
+    ``nn/layer_loss.py``'s, each called once (norms in training and eval
+    mode); default parameters, or the JAX package's random ones carried
+    across by the parity test."""
+    X, X4 = R((3, 4), 70), R((2, 3, 4, 4), 71)
+    X8 = R((2, 8, 3, 3), 72) * 2 + 0.5
+    L = []
+    for op, ctor in (("ReLU", ()), ("ReLU6", ()), ("Sigmoid", ()),
+                     ("LogSigmoid", ()), ("Tanh", ()), ("Tanhshrink", ()),
+                     ("Softsign", ()), ("Silu", ()), ("Swish", ()),
+                     ("Mish", ()), ("ELU", (0.5,)), ("CELU", (1.5,)),
+                     ("SELU", ()), ("GELU", (True,)), ("LeakyReLU", (0.2,)),
+                     ("Hardshrink", (1.0,)), ("Hardsigmoid", ()),
+                     ("Hardswish", ()), ("Hardtanh", (-2.0, 3.0)),
+                     ("Softshrink", (1.0,)), ("Softplus", (2.0, 5.0)),
+                     ("ThresholdedReLU", (0.5,)), ("Softmax", (0,)),
+                     ("LogSoftmax", ()), ("GLU", ())):
+        L.append(LayerCase(op, [X * 4], grad=[0], ctor=ctor, tol=RED))
+    L += [
+        LayerCase("Maxout", [X4.reshape(2, 4, 3, 4)], grad=[0], ctor=(2,)),
+        LayerCase("PReLU", [X4], grad=[0]),
+        LayerCase("PReLU", [X4], grad=[0], ctor=(3, 0.1),
+                  id="PReLU-per-channel"),
+        LayerCase("RReLU", [X], grad=[0], train=False),
+    ]
+    for train in (True, False):
+        tag = "train" if train else "eval"
+        L += [
+            LayerCase("BatchNorm", [X8], grad=[0], ctor=(8,), train=train,
+                      tol=RED, id=f"BatchNorm-{tag}"),
+            LayerCase("BatchNorm1D", [R((6, 8), 73)], grad=[0], ctor=(8,),
+                      train=train, tol=RED, id=f"BatchNorm1D-{tag}"),
+            LayerCase("BatchNorm1D", [R((2, 8, 5), 74)], grad=[0],
+                      ctor=(8,), train=train, tol=RED,
+                      id=f"BatchNorm1D-ncl-{tag}"),
+            LayerCase("BatchNorm2D", [X8], grad=[0], ctor=(8,), train=train,
+                      tol=RED, id=f"BatchNorm2D-{tag}"),
+            LayerCase("BatchNorm2D", [X8], grad=[0], ctor=(8,),
+                      ctor_kw={"weight_attr": False, "bias_attr": False},
+                      train=train, tol=RED,
+                      id=f"BatchNorm2D-affine-less-{tag}"),
+            LayerCase("BatchNorm3D", [R((2, 8, 2, 3, 3), 75)], grad=[0],
+                      ctor=(8,), train=train, tol=RED,
+                      id=f"BatchNorm3D-{tag}"),
+            LayerCase("SyncBatchNorm", [X8], grad=[0], ctor=(8,),
+                      train=train, tol=RED, id=f"SyncBatchNorm-{tag}"),
+        ]
+    L += [
+        LayerCase("LayerNorm", [R((2, 3, 4), 76)], grad=[0], ctor=(4,),
+                  tol=RED),
+        LayerCase("RMSNorm", [R((2, 3, 4), 77)], grad=[0], ctor=(4,),
+                  tol=RED),
+        LayerCase("GroupNorm", [R((2, 6, 3, 3), 78)], grad=[0], ctor=(3, 6),
+                  tol=RED),
+        LayerCase("GroupNorm", [R((2, 6, 3, 3), 79)], grad=[0], ctor=(2, 6),
+                  ctor_kw={"weight_attr": False, "bias_attr": False},
+                  tol=RED, id="GroupNorm-affine-less"),
+        LayerCase("InstanceNorm1D", [R((2, 3, 5), 80)], grad=[0], ctor=(3,),
+                  tol=RED),
+        LayerCase("InstanceNorm2D", [X4], grad=[0], ctor=(3,), tol=RED),
+        LayerCase("InstanceNorm3D", [R((2, 3, 2, 3, 3), 81)], grad=[0],
+                  ctor=(3,), tol=RED),
+        LayerCase("InstanceNorm2D", [X4], grad=[0], ctor=(3,),
+                  ctor_kw={"weight_attr": False}, tol=RED,
+                  id="InstanceNorm2D-affine-less"),
+        LayerCase("LocalResponseNorm", [R((2, 7, 3, 3), 82)], grad=[0],
+                  ctor=(3,), tol=RED),
+        LayerCase("SpectralNorm", [R((4, 3, 2), 83)], grad=[0],
+                  ctor=((4, 3, 2),), ctor_kw={"power_iters": 3},
+                  tol=LINALG),
+        LayerCase("SpectralNorm", [R((4, 3, 2), 84)], grad=[0],
+                  ctor=((4, 3, 2), 1), tol=LINALG, id="SpectralNorm-dim1"),
+    ]
+    XL, YL = R((4, 5), 85), R((4, 5), 86)
+    LAB = R((4,), 87, "k")
+    IGN = np.array([1, 4, 1, 0], np.int32)
+    U, U2 = R((4, 5), 88, "u"), R((4, 5), 89, "u")
+    L += [
+        LayerCase("CrossEntropyLoss", [XL, LAB], grad=[0], tol=RED),
+        LayerCase("CrossEntropyLoss", [XL, IGN], grad=[0], tol=RED,
+                  ctor=(R((5,), 90, "p"), 1),
+                  id="CrossEntropyLoss-weight-ignore"),
+        LayerCase("CrossEntropyLoss", [XL, IGN], grad=[0], tol=RED,
+                  ctor_kw={"ignore_index": 1, "reduction": "sum",
+                           "label_smoothing": 0.1},
+                  id="CrossEntropyLoss-ignore-smoothing"),
+        LayerCase("NLLLoss", [_log_softmax(XL), IGN], grad=[0], tol=RED,
+                  ctor=(R((5,), 91, "p"), 1), id="NLLLoss-weight-ignore"),
+        LayerCase("NLLLoss", [_log_softmax(XL), LAB], grad=[0], tol=RED),
+        LayerCase("BCELoss", [U, U2], grad=[0], tol=RED),
+        LayerCase("BCEWithLogitsLoss", [XL, U2], grad=[0], tol=RED,
+                  ctor_kw={"pos_weight": R((5,), 92, "p")}),
+        LayerCase("L1Loss", [XL, YL], grad=[0, 1], tol=RED),
+        LayerCase("MSELoss", [XL, YL], grad=[0, 1], tol=RED,
+                  ctor=("sum",)),
+        LayerCase("SmoothL1Loss", [XL, YL], grad=[0, 1], tol=RED,
+                  ctor=("mean", 0.5)),
+        LayerCase("KLDivLoss", [_log_softmax(XL), U], grad=[0, 1],
+                  tol=RED, ctor=("batchmean",)),
+        LayerCase("MarginRankingLoss", [R((6,), 93), R((6,), 94),
+                                        _pm1((6,), 95)],
+                  grad=[0, 1], tol=RED, ctor=(0.1,)),
+        LayerCase("HingeEmbeddingLoss", [XL, _pm1((4, 5), 96)], grad=[0],
+                  tol=RED),
+        LayerCase("CosineEmbeddingLoss", [XL, YL, _pm1((4,), 97)],
+                  grad=[0, 1], tol=RED, ctor=(0.2,)),
+        LayerCase("TripletMarginLoss", [XL, YL, R((4, 5), 98)],
+                  grad=[0, 1, 2], tol=RED, ctor=(1.0, 2.0, 1e-6, True)),
+        LayerCase("SoftMarginLoss", [XL, _pm1((4, 5), 99)], grad=[0],
+                  tol=RED),
+        LayerCase("MultiLabelSoftMarginLoss", [XL, _binary((4, 5), 100)],
+                  grad=[0], tol=RED, ctor=(R((4,), 101, "p"),)),
+        LayerCase("CTCLoss", [R((6, 2, 4), 102), np.array(
+            [[1, 2, 3], [3, 1, 0]], np.int32), np.array([6, 5], np.int32),
+            np.array([3, 2], np.int32)], grad=[0], tol=LINALG),
+        LayerCase("HSigmoidLoss", [XL, np.array([0, 5, 2, 3], np.int32)],
+                  grad=[0], tol=RED, ctor=(5, 6)),
+        LayerCase("HSigmoidLoss", [XL, np.array([0, 1, 2, 3], np.int32),
+                                   PATH_TABLE, PATH_CODE],
+                  grad=[0], tol=RED, ctor=(5, 4),
+                  ctor_kw={"is_custom": True}, id="HSigmoidLoss-custom"),
+    ]
+    return L
+
+
+def all_cases():
+    """``(group, case)`` for every case: ``F`` (``nn.functional``) or
+    ``nn`` (a layer)."""
+    return ([("F", c) for c in activation_cases() + norm_cases() +
+             loss_cases()] + [("nn", c) for c in layer_cases()])
+
+
+# the random activations: ``(name, draw(F, x, **generator), check)``; the
+# draws compared by distribution. rrelu's slopes lie in [lower, upper]
+# with mean (lower + upper) / 2 on the negative inputs; gumbel_softmax's
+# hard samples pick each class as often as softmax(x) says, its soft
+# samples sum to 1.
+N_DRAWS = 20000
+GUMBEL_LOGITS = np.log(np.array([0.1, 0.2, 0.7], np.float32))
+
+
+def _rrelu(F, to_tensor, **g):
+    x = to_tensor(-np.ones(N_DRAWS, np.float32))
+    return F.rrelu(x, 0.1, 0.3, training=True, **g)
+
+
+def _gumbel(F, to_tensor, **g):
+    x = to_tensor(np.tile(GUMBEL_LOGITS, (N_DRAWS, 1)))
+    return F.gumbel_softmax(x, 0.5, hard=True, **g)
+
+
+RANDOM = [("rrelu", _rrelu), ("gumbel_softmax", _gumbel)]
+
+
+def random_check(name, out: np.ndarray):
+    """Raise AssertionError unless ``out`` (a draw of RANDOM's ``name``) has
+    the distribution the JAX package's draws have."""
+    if name == "rrelu":
+        slope = -out
+        assert slope.min() >= 0.1 - 1e-6 and slope.max() <= 0.3 + 1e-6
+        assert abs(slope.mean() - 0.2) < 5e-3, slope.mean()
+        assert abs(slope.var() - 0.04 / 12) < 5e-4, slope.var()
+    else:
+        assert out.shape == (N_DRAWS, 3)
+        np.testing.assert_allclose(out.sum(-1), 1.0, atol=1e-6)
+        # the straight-through sum y_hard + y - y rounds within an ulp of 1
+        assert np.all(np.minimum(np.abs(out), np.abs(out - 1)) < 1e-6)
+        np.testing.assert_allclose(out.mean(0), [0.1, 0.2, 0.7], atol=0.015)
