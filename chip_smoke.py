@@ -363,6 +363,59 @@ Phases, each fatal on failure (non-zero exit, no result line):
     ReLU6 kink (``mobilenet_reference_check``). Prints step ms, images/s,
     busy ms, idle share, eval forward ms and peak memory beside the
     card's name and power limit.
+30. **Transformer-base training (the eleventh main path).** First rows
+    3-5 alone, held to their plain versions and repeated bit for bit at
+    the path's three attention shapes (bf16, ragged keep-masks): the
+    cross-attention (the target's 128 queries against the 256 bucket's
+    sources, ``[16, N, 8, 64]``) and the two buckets' encoder
+    self-attentions (``[32, 128, 8, 64]``, ``[16, 256, 8, 64]``); timed at
+    the cross-attention shape beside their plain versions, ``sdpa``'s
+    forward and backward and their bounds; row 2
+    timed at its f32 ``[4096, 512]``. Then the user script below
+    (``s2s_model``: ``nn.Transformer(512, 8, 6, 6, 2048, dropout=0.1,
+    attn_dropout=0, act_dropout=0)``, post-norm, between one shared
+    ``nn.Embedding(37000, 512, padding_idx=0)`` scaled by sqrt(512) with
+    sinusoidal positions and the tied output projection
+    ``paddle.matmul(h, emb.weight, transpose_y=True)``; 63,082,496
+    seeded parameters) trains eagerly under ``amp.auto_cast()`` (bf16
+    O1; LayerNorm black-listed, so row 2 runs in f32) on two seeded
+    token buckets cycled, 32 x (source 128, target 128) and 16 x (256,
+    128), ragged lengths padded to multiples of 128 (the flash kernels
+    take no ragged tail), with ``F.label_smooth(F.one_hot(y, 37000),
+    epsilon=0.1)`` into ``F.cross_entropy(soft_label=True,
+    reduction="none")`` masked at the pad id, and ``Adam(0.9, 0.98,
+    1e-9)`` on ``lr.NoamDecay(512, 4000)``. Two warm-up steps, then
+    slope+readback timing with the counters zeroed just before and read
+    just after: 12 launches each of rows 3, 4 and 5 (six encoder
+    self-attentions and six cross-attentions; the decoder's causal
+    self-attention is dense) and 1 of row 6 a step, 30 of row 2 a
+    forward; two more under ``torch.profiler``; the f32 eval loss over
+    both batches falls; a ``save`` -> ``load`` into a fresh model and
+    optimizer resumes bit for bit; row 6 is held to its plain version
+    over the path's whole parameter list, gradients and moments, at the
+    schedule's peak rate. Prints step ms, target tokens/s, MFU
+    (``s2s_flops`` over 989 TFLOP/s), busy ms, idle share, kernels a
+    step and peak memory. Then the f32 check (TF32 off) at full width,
+    depth 2 + 2, dropout 0, on 8 x (128, 128) and 4 x (256, 128): the
+    first gradients leaf by leaf, both paths' ReLU gradients on
+    float64's side of each kink, within 1e-3 of float64's (each leaf's
+    largest element and its norm), and three steps on the kernel path
+    within 1e-4 of the plain path (the key biases within the steps'
+    summed rates, as phase 7).
+31. **Beam search.** Phase 30's weights in f32 decode 32 sources of the
+    128 bucket through ``nn.BeamSearchDecoder(cell, 1, 2, beam_size=4)``
+    and ``nn.dynamic_decode(max_step_num=source length + 50)``, the
+    script's cell (``S2SCell``) over the decoder with incremental
+    ``Cache`` self-attention and ``StaticCache`` cross-attention; once
+    with the end token, and once with an end token past the vocabulary,
+    so that every sentence runs to the length limit. Each: the counters
+    show row 3 on the encoder (6 a call) and row 2 on 12 encoder and 18
+    decoder LayerNorms a step; the kernel path's ids equal the plain
+    path's, or the first step where they part is a near tie: the two
+    candidates that swap there lie within LOGIT_TOL (1e-3) of each other
+    on both paths, and the paths' beam scores lay within it before
+    (``beam_divergence``, on the candidates the decoder's own sort
+    ranked); prints ms a decode step, sentences/s and idle share.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -1312,11 +1365,12 @@ def adam_tensors(shapes, dtype, g, dev, unaligned=False):
     return out
 
 
-def adam_check(fad, ts, sc, decs, scales, tag):
+def adam_check(fad, ts, sc, decs, scales, tag, betas=(0.9, 0.999, 1e-8)):
     """Run the kernel once over ``ts`` = (p, g, m1, m2) and hold every
-    output to the plain version; returns the max abs error."""
+    output to the plain version; ``betas``: beta1, beta2, epsilon. Returns
+    the max abs error."""
     ps, gs, m1, m2 = ts
-    b1, b2, eps = 0.9, 0.999, 1e-8
+    b1, b2, eps = betas
     want = [fad.fused_adam_ref(p, q, a, b, sc[0], sc[1], sc[2], d, b1, b2,
                                eps, 1.0 if scales is None else scales[i])
             for i, (p, q, a, b, d) in enumerate(zip(ps, gs, m1, m2, decs))]
@@ -2093,16 +2147,17 @@ def rn_first_grads(model, batch, loss_fn):
 
 class ActPieces:
     """Forward hooks on a port model's ReLU and ReLU6 layers, which deep
-    copies of the model share. ``mode`` ``"record"``: keep which side of
-    its kinks (0, and 6 for ReLU6) each input element lies on; ``"replay"``:
-    take each layer's gradient on the recorded sides (its forward value
-    unchanged), and count the elements whose own side differs (``flips``,
-    by layer) and their largest distance to the kink (``far``); None:
-    nothing."""
+    copies of the model share. ``mode`` ``"record"``: keep, call by call,
+    which side of its kinks (0, and 6 for ReLU6) each input element lies
+    on; ``"replay"``: take each call's gradient on the recorded sides (its
+    forward value unchanged), and count the elements whose own side
+    differs (``flips``, by layer) and their largest distance to the kink
+    (``far``); None: nothing. :meth:`restart` before each replayed run."""
 
     def __init__(self, model):
         from paddle1_tpu_torch.nn import ReLU, ReLU6
         self.mode, self.sides, self.flips, self.far = None, {}, {}, 0.0
+        self.calls = {}
         self.handles = [
             m.register_forward_hook(
                 lambda mod, inp, out, n=n, six=isinstance(m, ReLU6):
@@ -2114,10 +2169,12 @@ class ActPieces:
             return None
         xd = x.detach()
         side = (xd > 0) & (xd < 6) if six else xd > 0
+        i = self.calls.get(name, 0)
+        self.calls[name] = i + 1
         if self.mode == "record":
-            self.sides[name] = side
+            self.sides[name, i] = side
             return None
-        want = self.sides[name]
+        want = self.sides[name, i]
         off = side != want
         n = int(off.sum())
         if n:
@@ -2127,6 +2184,9 @@ class ActPieces:
             self.flips[name] = self.flips.get(name, 0) + n
             self.far = max(self.far, float(d.max()))
         return out.detach() + (x - xd) * want.to(x.dtype)
+
+    def restart(self):
+        self.calls = {}
 
     def take(self):
         """``{"flips", "layers", "far"}`` since the last call (the count,
@@ -2177,6 +2237,7 @@ def rn_grad_gaps(model, batch, loss_fn=None, floor=0.0, pieces=False):
             acts.mode = "replay"
             for k, flags in (("kernel", {}), ("plain", plain)):
                 with flags_guard(**flags):
+                    acts.restart()
                     runs[f"{k}_same_piece"] = rn_first_grads(
                         copy.deepcopy(model), batch, loss_fn)
                 flips[k] = acts.take()
@@ -4933,8 +4994,8 @@ def nn_phase(dev):
     ``tests/test_torch_nn_cases.py`` on the card against the CPU."""
     import paddle1_tpu_torch as paddle
     from paddle1_tpu_torch.nn import functional as F
-    from paddle1_tpu_torch.nn import layer_loss, layer_norm_act
-    from paddle1_tpu_torch.nn.functional import activation, loss, norm
+    from paddle1_tpu_torch.nn import layer_common, layer_loss, layer_norm_act
+    from paddle1_tpu_torch.nn.functional import activation, common, loss, norm
     cases = nn_cases()
     card = f"gpu:{dev.index or 0}"
     counters = bn_counters()
@@ -4989,7 +5050,8 @@ def nn_phase(dev):
     containers = {"Sequential", "LayerList", "ParameterList", "LayerDict",
                   "collect_stat_updates", "fused_bn_active"}
     ported = set()
-    for m in (activation, norm, loss, layer_norm_act, layer_loss):
+    for m in (activation, norm, loss, common, layer_norm_act, layer_loss,
+              layer_common):
         ported |= set(m.__all__)
     uncovered = sorted(ported - names - containers)
     if uncovered:
@@ -5307,6 +5369,859 @@ def mobilenet_phase(dev):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phases 30-31: Transformer-base training and beam search (the eleventh main
+# path). The model is a user script over the Paddle API: the functions
+# below take the package as ``paddle`` and run on the JAX package too
+# (``tests/test_torch_transformer.py`` holds a narrow twin to it).
+
+# Vaswani et al. 2017, "base" (Table 3): d_model 512, 8 heads, 6 + 6
+# layers, feed-forward 2048, dropout 0.1 on the sublayer outputs and the
+# embedding sums (§5.4), label smoothing 0.1, Adam(0.9, 0.98, 1e-9) on the
+# Noam schedule with 4000 warm-up steps (§5.3); one shared ~37000-token
+# BPE vocabulary for the source, the target and the output projection
+# (§3.4, §5.1). Token ids: 0 pad, 1 begin, 2 end.
+TF_VOCAB, TF_D, TF_HEADS, TF_LAYERS, TF_FFN, TF_DROPOUT = \
+    37000, 512, 8, 6, 2048, 0.1
+TF_PAD, TF_BOS, TF_EOS = 0, 1, 2
+TF_SMOOTH, TF_WARMUP, TF_BETA1, TF_BETA2, TF_EPS = 0.1, 4000, 0.9, 0.98, 1e-9
+TF_MAX_LEN = 512
+
+
+def s2s_sinusoid(n, d):
+    """The sinusoidal positions ``[n, d]`` (§3.5): sin on the even
+    features, cos on the odd, wavelengths 2 pi .. 10000 * 2 pi."""
+    pos = np.arange(n, dtype=np.float64)[:, None]
+    ang = pos / np.power(10000.0, np.arange(0, d, 2) / d)[None, :]
+    pe = np.zeros((n, d), np.float32)
+    pe[:, 0::2], pe[:, 1::2] = np.sin(ang), np.cos(ang)
+    return pe
+
+
+def s2s_model(paddle, vocab=TF_VOCAB, d_model=TF_D, nhead=TF_HEADS,
+              enc_layers=TF_LAYERS, dec_layers=TF_LAYERS, ffn=TF_FFN,
+              dropout=TF_DROPOUT):
+    """The translation model of the user script: ``nn.Transformer``
+    (post-norm, attention and activation dropout 0, so the flash kernels
+    can take the encoder's and the cross-attention) between one shared
+    ``nn.Embedding(vocab, d_model, padding_idx=0)``, scaled by
+    sqrt(d_model) and summed with the sinusoidal positions, and the output
+    projection onto the same embedding; dropout ``dropout`` on the
+    embedding sums and the sublayer outputs."""
+    nn = paddle.nn
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.d_model = d_model
+            self.embedding = nn.Embedding(
+                vocab, d_model, padding_idx=TF_PAD,
+                weight_attr=paddle.ParamAttr(
+                    initializer=nn.initializer.Normal(0.0, d_model ** -0.5)))
+            self.transformer = nn.Transformer(
+                d_model, nhead, enc_layers, dec_layers, ffn, dropout=dropout,
+                attn_dropout=0.0, act_dropout=0.0)
+            self.dropout = nn.Dropout(dropout)
+            self.pos = paddle.to_tensor(s2s_sinusoid(TF_MAX_LEN, d_model))
+
+        def embed(self, ids, start=0):
+            n = ids.shape[1]
+            x = self.embedding(ids) * self.d_model ** 0.5 + \
+                self.pos[start:start + n]
+            return self.dropout(x)
+
+        def project(self, h):
+            return paddle.matmul(h, self.embedding.weight, transpose_y=True)
+
+        def forward(self, src, tgt, src_mask=None, tgt_mask=None):
+            memory = self.transformer.encoder(self.embed(src), src_mask)
+            return self.project(self.transformer.decoder(
+                self.embed(tgt), memory, tgt_mask, src_mask))
+
+    return Seq2Seq()
+
+
+def s2s_batch(paddle, model, rng, batch, src_len, tgt_len, vocab=TF_VOCAB):
+    """One seeded token bucket as Paddle tensors on the current place:
+    sources of ragged real length in (src_len / 2, src_len] (row 0 full),
+    padded with 0 to ``src_len``, a multiple of 128 (the flash kernels
+    take no ragged tail, ``ops/flash_attention.py:supported``); targets a
+    fixed token map of each source's first ``min(len, tgt_len - 1)``
+    tokens (a synthetic translation a model can learn), fed as [1, y] and
+    scored as [y, 2], padded to ``tgt_len``. ``src_mask`` is the
+    ``[B, 1, 1, Ns]`` keep-mask, the form the flash kernels take; the
+    target's is the causal ``[Nt, Nt]`` mask."""
+    ls = rng.integers(src_len // 2 + 1, src_len + 1, batch)
+    ls[0] = src_len
+    src = rng.integers(3, vocab, (batch, src_len))
+    src[np.arange(src_len)[None, :] >= ls[:, None]] = TF_PAD
+    lt = np.minimum(ls, tgt_len - 1)
+    y = (src[:, :tgt_len - 1] * 7 + 11) % (vocab - 3) + 3
+    tgt_in = np.full((batch, tgt_len), TF_PAD, np.int64)
+    tgt_out = np.full((batch, tgt_len), TF_PAD, np.int64)
+    for i, n in enumerate(lt):
+        tgt_in[i, 0], tgt_in[i, 1:n + 1] = TF_BOS, y[i, :n]
+        tgt_out[i, :n], tgt_out[i, n] = y[i, :n], TF_EOS
+    return {"src": paddle.to_tensor(src.astype(np.int64)),
+            "tgt_in": paddle.to_tensor(tgt_in),
+            "tgt_out": paddle.to_tensor(tgt_out),
+            "src_mask": paddle.to_tensor((src != TF_PAD)[:, None, None, :]),
+            "tgt_mask": model.transformer.generate_square_subsequent_mask(
+                tgt_len),
+            "tokens": int((tgt_out != TF_PAD).sum())}
+
+
+def s2s_loss(paddle, logits, tgt_out, vocab=TF_VOCAB, epsilon=TF_SMOOTH):
+    """Label-smoothed cross entropy over the real target tokens: the
+    one-hot targets smoothed by ``epsilon``, the per-token soft-label
+    losses masked at the pad id and averaged."""
+    F = paddle.nn.functional
+    soft = F.label_smooth(F.one_hot(tgt_out, vocab), epsilon=epsilon)
+    ce = F.cross_entropy(logits, soft, soft_label=True, reduction="none")
+    keep = (tgt_out != TF_PAD).astype("float32")
+    return (ce.reshape(keep.shape) * keep).sum() / keep.sum()
+
+
+def s2s_optimizer(paddle, model, d_model=TF_D, warmup=TF_WARMUP):
+    """``Adam(0.9, 0.98, 1e-9)`` on ``lr.NoamDecay(d_model, warmup)``."""
+    sched = paddle.optimizer.lr.NoamDecay(d_model=d_model,
+                                          warmup_steps=warmup)
+    opt = paddle.optimizer.Adam(learning_rate=sched, beta1=TF_BETA1,
+                                beta2=TF_BETA2, epsilon=TF_EPS,
+                                parameters=model.parameters())
+    return opt, sched
+
+
+def s2s_step_fn(paddle, model, opt, sched, batches, amp=True,
+                vocab=TF_VOCAB):
+    """One eager training step over the batches in turn, under
+    ``amp.auto_cast()`` (bf16 O1) when ``amp``: ``loss.backward();
+    opt.step(); sched.step(); opt.clear_grad()``."""
+    turn = [0]
+
+    def step():
+        b = batches[turn[0] % len(batches)]
+        turn[0] += 1
+        with paddle.amp.auto_cast(enable=amp):
+            logits = model(b["src"], b["tgt_in"], b["src_mask"],
+                           b["tgt_mask"])
+            loss = s2s_loss(paddle, logits, b["tgt_out"], vocab)
+        loss.backward()
+        opt.step()
+        sched.step()
+        opt.clear_grad()
+        return loss
+    return step
+
+
+class S2SCell:
+    """The decode cell of the user script: token ids ``[B * beam]`` and
+    the decoder's caches ``[(Cache, StaticCache)] * L`` → the next
+    token's logits ``[B * beam, vocab]`` and the grown caches. The
+    position is the self-attention cache's length; the cross-attention
+    reads the memory's projections from the StaticCache."""
+
+    def __init__(self, model, memory, memory_mask):
+        self.model, self.memory, self.memory_mask = model, memory, memory_mask
+
+    def __call__(self, ids, caches):
+        t = caches[0][0].k.shape[1]
+        x = self.model.embed(ids.reshape([-1, 1]), start=t)
+        h, caches = self.model.transformer.decoder(
+            x, self.memory, None, self.memory_mask, caches)
+        return self.model.project(h[:, -1]), caches
+
+
+def s2s_decode(paddle, model, src, src_mask, beam=4, max_step_num=None,
+               beam_decoder=None, end_token=TF_EOS):
+    """Beam search (``beam`` > 1) or greedy decoding (``beam`` = 1 through
+    ``BasicDecoder`` and ``GreedyEmbeddingHelper``) in eval mode under
+    ``no_grad``: the encoder once, then ``dynamic_decode`` with
+    incremental ``Cache`` self-attention and ``StaticCache``
+    cross-attention. Returns the token ids, ``[B, T, beam]`` for beam
+    search (the final beams, best first) or ``[B, T]``. ``beam_decoder``:
+    the beam-search class (``nn.BeamSearchDecoder`` when None);
+    ``end_token``: the id that ends a sentence."""
+    nn = paddle.nn
+    model.eval()
+    with paddle.no_grad():
+        memory = model.transformer.encoder(model.embed(src), src_mask)
+        caches = model.transformer.decoder.gen_cache(memory)
+        if beam == 1:
+            cell = S2SCell(model, memory, src_mask)
+            helper = nn.GreedyEmbeddingHelper(
+                lambda ids: ids,
+                np.full([int(src.shape[0])], TF_BOS, np.int64), end_token)
+            out, _ = nn.dynamic_decode(nn.BasicDecoder(cell, helper),
+                                       inits=caches,
+                                       max_step_num=max_step_num)
+            ids = out.sample_ids
+        else:
+            tile = nn.BeamSearchDecoder.tile_beam_merge_with_batch
+            cell = S2SCell(model, tile(memory, beam), tile(src_mask, beam))
+            dec = (beam_decoder or nn.BeamSearchDecoder)(cell, TF_BOS,
+                                                         end_token, beam)
+            ids, _ = nn.dynamic_decode(dec, inits=caches,
+                                       max_step_num=max_step_num)
+    model.train()
+    return ids
+
+
+def s2s_eval_loss(paddle, model, batches, vocab=TF_VOCAB):
+    """The mean loss over ``batches`` in eval mode (no dropout) and f32,
+    under ``no_grad``; the model goes back to training mode."""
+    model.eval()
+    with paddle.no_grad():
+        losses = [float(s2s_loss(paddle, model(
+            b["src"], b["tgt_in"], b["src_mask"], b["tgt_mask"]),
+            b["tgt_out"], vocab)) for b in batches]
+    model.train()
+    return float(np.mean(losses))
+
+
+# the smoke's cells of the path: two token buckets of about 4096 target
+# tokens each, (batch, padded source, padded target); the f32 check's
+# buckets at depth 2 + 2; beam search over 32 sources of the 128 bucket
+# with the paper's beam 4 and length limit (source length + 50, §6.1)
+TF_BUCKETS = ((32, 128, 128), (16, 256, 128))
+TF_STEPS = 8
+TF_REF_DEPTH, TF_REF_BUCKETS = 2, ((8, 128, 128), (4, 256, 128))
+TF_BEAM, TF_BEAM_BATCH, TF_BEAM_EXTRA = 4, 32, 50
+# Transformer-base's cross-attention, timed alone: the target's 128 queries
+# against the 256 bucket's sources, [16, N, 8, 64] bf16, ragged keep-mask
+TF_CROSS = (16, 128, 256, TF_HEADS, TF_D // TF_HEADS)
+# the path's three attention shapes that reach rows 3-5, each held to the
+# plain versions: the cross-attention and the two buckets' encoder
+# self-attentions
+TF_FLASH_SHAPES = (TF_CROSS, (32, 128, 128) + TF_CROSS[3:],
+                   (16, 256, 256) + TF_CROSS[3:])
+# the f32 check's first gradients, leaf by leaf, each ReLU's gradient on
+# float64's side of its kink: kernel path against plain path within
+# TF_GRAD_TOL of the leaf's largest float64 gradient and of its norm (the
+# key biases, zero in exact arithmetic, over their key weights'), as the
+# ResNet and MobileNet holds take RN_GRAD_TOL
+TF_GRAD_TOL = 1e-3
+# row 6 held at the path's parameter list on the path's gradients and
+# moments, at the peak rate of NoamDecay(512, 4000) (step 4000: 512^-0.5 *
+# 4000^-0.5), so that the update is far above ADAM_ATOL
+TF_ADAM_HOLD_LR = TF_D ** -0.5 * TF_WARMUP ** -0.5
+PLAIN_FLAGS = dict(flash_attention="never", flash_backward="never",
+                   fused_adam="never", fused_layer_norm="never")
+
+
+def s2s_flops(batch, ns, nt, d=TF_D, f=TF_FFN, v=TF_VOCAB, enc=TF_LAYERS,
+              dec=TF_LAYERS):
+    """One training step's matrix-product FLOPs on a padded bucket: three
+    times the forward's (the backward is twice the forward): per encoder
+    layer the four projections and the feed-forward on every source token
+    and QK^T, PV over the source; per decoder layer the self-attention's
+    and the cross-attention's query and output projections and the
+    feed-forward on every target token, the cross-attention's key and
+    value projections on every source token, and both attentions; the
+    output projection onto the vocabulary."""
+    src, tgt = batch * ns, batch * nt
+    fwd = enc * (src * (8 * d * d + 4 * d * f) + 4 * batch * ns * ns * d)
+    fwd += dec * (tgt * (12 * d * d + 4 * d * f) + src * 4 * d * d +
+                  4 * batch * nt * nt * d + 4 * batch * nt * ns * d)
+    return 3 * (fwd + tgt * 2 * d * v)
+
+
+def flash_cross_case(dev, n_sets=4, seed=SEED + 96, shape=TF_CROSS):
+    """``n_sets`` (q, k, v, dout) sets at the cross-attention shape, bf16,
+    and a ragged keep-mask over the sources (lengths in (128, 256])."""
+    b, nq, nk, h, d = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sets = []
+    for _ in range(n_sets):
+        q, do = (torch.randn(b, nq, h, d, device=dev, generator=g).to(
+            torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(b, nk, h, d, device=dev, generator=g).to(
+            torch.bfloat16) for _ in range(2))
+        sets.append((q, k, v, do))
+    lens = np.random.default_rng(seed).integers(nk // 2 + 1, nk + 1, b)
+    keep = torch.from_numpy(np.arange(nk)[None, :] < lens[:, None]).to(dev)
+    return sets, keep
+
+
+def flash_cross_bounds(q, k, keep):
+    """The three kernels' bounds where the queries and the keys differ in
+    length: each input read once and each output written once (q, dout,
+    o, dq ``[B, Nq, H, D]``; k, v, dk, dv ``[B, Nk, H, D]``; an f32 LSE
+    and delta a query row), and the work the kept (query, key) pairs
+    need: 4 D flops a pair forward, 8 D for dK/dV, 6 D for dQ."""
+    b, nq, h, d = q.shape
+    el = q.element_size()
+    tq, tk = q.numel() * el, k.numel() * el
+    rows = b * h * nq * 4
+    pairs = float(keep.sum().item()) * nq * h
+    mask_b = keep.numel()
+    return {
+        "fwd": bound(2 * tq + 2 * tk + rows + mask_b, 4.0 * d * pairs,
+                     BF16_FLOPS_PER_S),
+        "dkv": bound(2 * tq + 4 * tk + 2 * rows + mask_b, 8.0 * d * pairs,
+                     BF16_FLOPS_PER_S),
+        "dq": bound(3 * tq + 2 * tk + 2 * rows + mask_b, 6.0 * d * pairs,
+                    BF16_FLOPS_PER_S)}
+
+
+def flash_hold(dev, shape):
+    """Rows 3-5 at one attention shape of the path (``[B, Nq, Nk, H, D]``,
+    bf16, a ragged keep-mask) held to their plain versions: outputs within
+    one bf16 rounding step beyond FLASH_BF16_ABS, the LSE within
+    FLASH_TOL, a repeat bit for bit. Returns each kernel's case."""
+    from paddle1_tpu_torch.ops import flash_attention as fa
+    from paddle1_tpu_torch.ops import flash_attention_bwd as fb
+    sets, keep = flash_cross_case(dev, 1, shape=shape)
+    scale = 1.0 / shape[-1] ** 0.5
+    q, k, v, do = sets[0]
+    out, lse = fa.flash_fwd(q, k, v, scale, False, keep)
+    ro, rl = fa.flash_attention_ref(q, k, v, scale, False, keep)
+    delta = (do.float() * ro.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = fb.flash_bwd_dkv(q, k, v, do, rl, delta, scale, False, keep)
+    dq = fb.flash_bwd_dq(q, k, v, do, rl, delta, scale, False, keep)
+    rq, rk, rv = fa.flash_bwd_ref(q, k, v, ro, rl, do, scale, False, keep)
+    again = (*fa.flash_fwd(q, k, v, scale, False, keep),
+             *fb.flash_bwd_dkv(q, k, v, do, rl, delta, scale, False, keep),
+             fb.flash_bwd_dq(q, k, v, do, rl, delta, scale, False, keep))
+    where = f"[{list(q.shape)}, {list(k.shape)}]"
+    check(all(torch.equal(a, b) for a, b in zip(again, (out, lse, dk, dv,
+                                                       dq))),
+          f"flash at {where}: a repeat is not bit-identical")
+    lse_err = float((lse - rl).abs().max())
+    check(lse_err <= FLASH_TOL, f"flash fwd at {where}: LSE err {lse_err}")
+    errs = {}
+    for name, ps in (("fwd", [(out, ro)]), ("dkv", [(dk, rk), (dv, rv)]),
+                     ("dq", [(dq, rq)])):
+        exc = max(bf16_excess(a, b) for a, b in ps)
+        check(exc <= FLASH_BF16_ABS, f"flash {name} at {where} exceeds one "
+              f"bf16 rounding step by {exc}")
+        errs[name] = {"dtype": "torch.bfloat16", "causal": False,
+                      "shape": [list(q.shape), list(k.shape)],
+                      "max_abs_err": max(float((a.float() - b.float())
+                                               .abs().max()) for a, b in ps)}
+    return errs
+
+
+def flash_cross_phase(dev):
+    """Rows 3-5 held to their plain versions at the path's three attention
+    shapes (TF_FLASH_SHAPES, :func:`flash_hold`), then timed at the
+    cross-attention shape (TF_CROSS) by graph replay over four input sets
+    beside their plain versions, ``sdpa``'s forward and its backward alone
+    (forward + backward less forward) and their bounds."""
+    from paddle1_tpu_torch.ops import flash_attention as fa
+    from paddle1_tpu_torch.ops import flash_attention_bwd as fb
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    errs = {"fwd": [], "dkv": [], "dq": []}
+    for shape in TF_FLASH_SHAPES:
+        for name, case in flash_hold(dev, shape).items():
+            errs[name].append(case)
+    sets, keep = flash_cross_case(dev)
+    scale = 1.0 / TF_CROSS[-1] ** 0.5
+    q, k = sets[0][:2]
+    fwd = [fa.flash_fwd(s[0], s[1], s[2], scale, False, keep) for s in sets]
+    deltas = [(s[3].float() * f[0].float()).sum(-1).transpose(1, 2)
+              .contiguous() for s, f in zip(sets, fwd)]
+    t = {"fwd": graph_time_ms([lambda s=s: fa.flash_fwd(
+        s[0], s[1], s[2], scale, False, keep) for s in sets]),
+        "fwd_plain": graph_time_ms([lambda s=s: fa.flash_attention_ref(
+            s[0], s[1], s[2], scale, False, keep) for s in sets]),
+        "dkv": graph_time_ms([lambda s=s, f=f, dl=dl: fb.flash_bwd_dkv(
+            s[0], s[1], s[2], s[3], f[1], dl, scale, False, keep)
+            for s, f, dl in zip(sets, fwd, deltas)]),
+        "dq": graph_time_ms([lambda s=s, f=f, dl=dl: fb.flash_bwd_dq(
+            s[0], s[1], s[2], s[3], f[1], dl, scale, False, keep)
+            for s, f, dl in zip(sets, fwd, deltas)]),
+        "bwd_plain": graph_time_ms([lambda s=s, f=f: fa.flash_bwd_ref(
+            s[0], s[1], s[2], f[0], f[1], s[3], scale, False, keep)
+            for s, f in zip(sets, fwd)])}
+    lib = [[x.transpose(1, 2).contiguous() for x in s] for s in sets]
+    m4 = keep[:, None, None, :]
+    t["fwd_library"] = graph_time_ms([lambda s=s: sdpa(
+        s[0], s[1], s[2], attn_mask=m4) for s in lib])
+    leaves = [[x.clone().requires_grad_() for x in s[:3]] for s in lib]
+
+    def lib_fwd_bwd(i):
+        q_, k_, v_ = leaves[i]
+        torch.autograd.grad(sdpa(q_, k_, v_, attn_mask=m4), (q_, k_, v_),
+                            lib[i][3])
+    t["fwd_bwd_library"] = graph_time_ms([lambda i=i: lib_fwd_bwd(i)
+                                          for i in range(len(lib))])
+    t["bwd_library"] = t["fwd_bwd_library"] - t["fwd_library"]
+    bounds = flash_cross_bounds(q, k, keep)
+    out = {"shape": [list(q.shape), list(k.shape), "bf16",
+                     "ragged keep-mask"], "times_ms": t,
+           "bounds_ms": {n: b[0] for n, b in bounds.items()},
+           "bound_by": {n: b[1] for n, b in bounds.items()}, "errors": errs}
+    log(json.dumps({"flash_cross_attention": out}))
+    return out
+
+
+def transformer_phase(dev):
+    """Phase 30 (the module docstring): eager Transformer-base training
+    under ``amp.auto_cast()`` on the two token buckets."""
+    import os
+    import tempfile
+    import paddle1_tpu_torch as paddle
+    t0 = time.perf_counter()
+    paddle.seed(SEED + 90)
+    with paddle.utils.unique_name.guard():
+        model = s2s_model(paddle)
+    tr = model.transformer
+    check(len(tr.encoder.layers) == TF_LAYERS and
+          len(tr.decoder.layers) == TF_LAYERS and
+          tr.encoder.layers[0].self_attn.num_heads == TF_HEADS and
+          tr.decoder.layers[0].linear1.weight.shape == [TF_D, TF_FFN] and
+          not tr.encoder.layers[0].normalize_before and
+          tr.encoder.norm is None and tr.decoder.norm is None,
+          "the model is not Transformer-base (post-norm, 6 + 6 x 512, 8 "
+          "heads, feed-forward 2048)")
+    check(all(p.device.type == "cuda" and p.dtype == torch.float32
+              for p in model.parameters()), "the model is not f32 on the "
+          "card")
+    n_params = sum(p.nelement() for p in model.parameters())
+    rng = np.random.default_rng(SEED + 91)
+    batches = [s2s_batch(paddle, model, rng, *b) for b in TF_BUCKETS]
+    src_lens = [int((b["src"] != TF_PAD).sum(1).max()) for b in batches]
+    tgt_lens = [int((b["tgt_in"] != TF_PAD).sum(1).max()) for b in batches]
+    check(src_lens[1] > 128 and tgt_lens[1] <= 128,
+          f"the 256 bucket's longest source {src_lens[1]} must pass 128 "
+          f"and its longest target {tgt_lens[1]} must not")
+    opt, sched = s2s_optimizer(paddle, model)
+    step = s2s_step_fn(paddle, model, opt, sched, batches)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eval0 = s2s_eval_loss(paddle, model, batches)
+    torch.cuda.reset_peak_memory_stats()
+    loss0 = float(step())
+    step()
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    slopes, last, steps = timed_steps(step, TF_STEPS)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    loss_end = float(last)
+    eval_end = s2s_eval_loss(paddle, model, batches)
+    check(np.isfinite(loss0) and np.isfinite(loss_end),
+          f"transformer: non-finite loss {loss0} / {loss_end}")
+    check(eval_end < eval0, f"transformer: the loss over the batches did "
+          f"not fall: {eval0} -> {eval_end} (training {loss0} -> "
+          f"{loss_end})")
+    want = {"flash_attention": 2 * TF_LAYERS * steps,
+            "flash_attention_bwd_dkv": 2 * TF_LAYERS * steps,
+            "flash_attention_bwd_dq": 2 * TF_LAYERS * steps,
+            "fused_adam": steps, "layer_norm": 5 * TF_LAYERS * steps}
+    for k, n in want.items():
+        check(launches[k] == n, f"transformer: {k} launched {launches[k]} "
+              f"times in {steps} steps, want {n}")
+    peak = torch.cuda.max_memory_allocated()
+    dt = float(np.median(slopes))
+    tokens = float(np.mean([b["tokens"] for b in batches]))
+    flops = float(np.mean([s2s_flops(*b) for b in TF_BUCKETS]))
+    prof = device_kernels_per_step(step, 2)
+    busy = prof["device_busy_ms_per_step"]
+
+    # a save -> load into a fresh model and optimizer resumes bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "transformer.pdckpt")
+        paddle.save({"model": model.state_dict(), "opt": opt.state_dict()},
+                    path)
+        ck = paddle.load(path)
+    with paddle.utils.unique_name.guard():
+        fresh = s2s_model(paddle)
+    fmissing, funexpected = fresh.set_state_dict(ck["model"])
+    fopt, fsched = s2s_optimizer(paddle, fresh)
+    fopt.set_state_dict(ck["opt"])
+    del ck
+    check(fmissing == [] and funexpected == [] and
+          fsched.last_epoch == sched.last_epoch,
+          f"transformer resume: missing {fmissing}, unexpected "
+          f"{funexpected}, schedule at {fsched.last_epoch} vs "
+          f"{sched.last_epoch}")
+
+    def one_step(m, o, s):
+        torch.manual_seed(SEED + 92)
+        return float(s2s_step_fn(paddle, m, o, s, batches[:1])())
+    on, resumed = one_step(model, opt, sched), one_step(fresh, fopt, fsched)
+    resume_equal = on == resumed and all(
+        torch.equal(a, b) for a, b in zip(model.parameters(),
+                                          fresh.parameters()))
+    check(resume_equal, f"transformer: a step after save/load differs from "
+          f"the uninterrupted run: {on} vs {resumed}")
+    del fresh, fopt
+    adam_err = transformer_adam_hold(paddle, model, opt, batches[1])
+    summary = {
+        "train": "transformer_base_eager_amp", "amp": "O1 bfloat16",
+        "params": n_params, "buckets": [list(b) for b in TF_BUCKETS],
+        "longest_source": src_lens, "longest_target": tgt_lens,
+        "real_target_tokens": [b["tokens"] for b in batches],
+        "init_s": init_s, "steps": steps, "timing": "slope+readback",
+        "step_ms_median": dt * 1e3, "step_ms_min": min(slopes) * 1e3,
+        "step_ms_max": max(slopes) * 1e3,
+        "target_tokens_per_s": tokens / dt,
+        "flops_per_step": flops, "mfu": flops / dt / BF16_FLOPS_PER_S,
+        "mfu_peak": "bf16 989 TFLOP/s",
+        "lr_last": sched(), "loss_first": loss0, "loss_last": loss_end,
+        "eval_loss_before": eval0, "eval_loss_after": eval_end,
+        "peak_mem_gb": peak / 1e9, "peak_mem_gib": peak / 2 ** 30,
+        "launches": launches,
+        "launches_per_step": {k: n / steps for k, n in launches.items()},
+        "device_busy_ms_per_step": busy,
+        "device_idle_share": 1.0 - busy / (dt * 1e3),
+        "kernels_per_step": prof["kernels_per_step"],
+        "resume_loss": [on, resumed], "resume_bit_identical": resume_equal,
+        "adam_hold_max_abs_err": adam_err, "profile": prof}
+    log(f"transformer-base: {dt * 1e3:.2f} ms a step, "
+        f"{tokens / dt:.0f} target tokens/s, MFU {flops / dt / 989e12:.4f}, "
+        f"idle {summary['device_idle_share']:.3f} ({card_line()})")
+    log(json.dumps({"transformer_base": summary}))
+    return model, summary
+
+
+def tf_first_grads(paddle, m, bs, vocab=TF_VOCAB):
+    """The gradients of ``m``'s losses on the batches ``bs``, summed (no
+    dropout, no ``auto_cast``): ``(losses, {name: gradient})``; the
+    gradients are then cleared."""
+    losses = []
+    for b in bs:
+        loss = s2s_loss(paddle, m(b["src"], b["tgt_in"], b["src_mask"],
+                                  b["tgt_mask"]), b["tgt_out"], vocab)
+        loss.backward()
+        losses.append(float(loss))
+    missing = [n for n, p in m.named_parameters() if p.grad is None]
+    check(not missing, f"no gradient for {missing}")
+    grads = {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+    for p in m.parameters():
+        p.grad = None
+    return losses, grads
+
+
+def tf_grad_readings(paddle, model, bs):
+    """The first gradients (:func:`tf_first_grads`) of copies of ``model``
+    (f32): on the kernel path, on the plain path twice and in float64 (the
+    plain path on a float64 copy), then on the kernel path and the plain
+    path again with every ReLU's gradient taken on float64's side of its
+    kink (the layers' activation as ``nn.ReLU`` under :class:`ActPieces`;
+    ``*_same_piece``, with ``flips``: the elements each path's own forward
+    puts on the other side). For each pair, per leaf ``max|g_a - g_b| /
+    max|g_f64|`` (``max``) and ``|g_a - g_b| / |g_f64|`` (``norm``; the key
+    biases, zero in exact arithmetic, over their key weights' g_f64), the
+    worst leaf and the median."""
+    import copy
+    from paddle1_tpu_torch.core.flags import flags_guard
+    tr = model.transformer
+    for layer in (*tr.encoder.layers, *tr.decoder.layers):
+        layer.activation = paddle.nn.ReLU()
+    acts = ActPieces(model)
+
+    def run(flags, f64=False):
+        with flags_guard(**flags):
+            m = copy.deepcopy(model)
+            if f64:
+                m = m.double()
+                m.pos = m.pos.double()
+            acts.restart()
+            return tf_first_grads(paddle, m, bs)
+    try:
+        runs = {"kernel": run({}), "plain": run(PLAIN_FLAGS),
+                "plain_again": run(PLAIN_FLAGS)}
+        acts.mode = "record"
+        runs["f64"] = run(PLAIN_FLAGS, True)
+        acts.mode, flips = "replay", {}
+        for k, flags in (("kernel", {}), ("plain", PLAIN_FLAGS)):
+            runs[f"{k}_same_piece"] = run(flags)
+            flips[k] = acts.take()
+    finally:
+        acts.remove()
+    ref = runs["f64"][1]
+
+    def denom(n, norm):
+        g = ref[n[:-len("bias")] + "weight"] if n.endswith("k_proj.bias") \
+            else ref[n]
+        return float(g.norm() if norm else g.abs().max())
+    gaps = {}
+    for a, b in (("kernel", "plain"), ("kernel", "f64"), ("plain", "f64"),
+                 ("plain", "plain_again"),
+                 ("kernel_same_piece", "plain_same_piece"),
+                 ("kernel_same_piece", "f64"), ("plain_same_piece", "f64")):
+        ga, gb = runs[a][1], runs[b][1]
+        for metric, norm in (("max", False), ("norm", True)):
+            rel = {}
+            for n in ref:
+                d = ga[n].double() - gb[n].double()
+                rel[n] = float(d.norm() if norm else d.abs().max()) / \
+                    denom(n, norm)
+            worst = max(rel, key=rel.get)
+            gaps[f"{a}_vs_{b}_{metric}"] = {
+                "max": rel[worst], "param": worst,
+                "median": float(np.median(list(rel.values())))}
+    return {"losses": {k: v[0] for k, v in runs.items()}, "gaps": gaps,
+            "flips": flips}
+
+
+def transformer_reference_check(dev):
+    """Phase 30's f32 check (TF32 off): Transformer-base's width at depth
+    TF_REF_DEPTH + TF_REF_DEPTH, dropout 0, on the TF_REF_BUCKETS, the
+    kernel path against the plain path (every kernel flag ``never``) from
+    the same seeded weights. First the gradients of both buckets' losses
+    (summed), leaf by leaf (:func:`tf_grad_readings`): with every ReLU's
+    gradient on float64's side of its kink, the two paths within
+    TF_GRAD_TOL of the leaf's largest float64 gradient (rows 3-5 reach
+    every attention projection's gradient; the key biases, zero in exact
+    arithmetic, are held against their key weights'), by the largest
+    element and by the norm. Then REF_STEPS Adam + Noam steps: losses and
+    parameters within REF_TOL, the key biases (moved by Adam on rounding
+    noise) within the steps' summed rates. The rates are the warm-up's
+    first (at most 5.3e-7), so the steps hold the path's sequence end to
+    end, not the update; row 6's update is held in
+    :func:`transformer_adam_hold`."""
+    import paddle1_tpu_torch as paddle
+    from paddle1_tpu_torch.core.flags import flags_guard
+
+    def make():
+        paddle.seed(SEED + 93)
+        with paddle.utils.unique_name.guard():
+            return s2s_model(paddle, enc_layers=TF_REF_DEPTH,
+                             dec_layers=TF_REF_DEPTH, dropout=0.0)
+    counters = train_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    rng = np.random.default_rng(SEED + 94)
+    m = make()
+    bs = [s2s_batch(paddle, m, rng, *b) for b in TF_REF_BUCKETS]
+    grads = tf_grad_readings(paddle, m, bs)
+    runs = {}
+    for path, flags in (("kernel", {}), ("plain", PLAIN_FLAGS)):
+        with flags_guard(**flags):
+            m = make()
+            opt, sched = s2s_optimizer(paddle, m)
+            step = s2s_step_fn(paddle, m, opt, sched, bs, amp=False)
+            mark = {k: fn.launches for k, fn in counters.items()}
+            lrs, losses = [], []
+            for _ in range(REF_STEPS):
+                lrs.append(sched())
+                losses.append(float(step()))
+            torch.cuda.synchronize()
+            runs[path] = (m, losses, {k: fn.launches - mark[k]
+                                      for k, fn in counters.items()}, lrs)
+    (mk, lk, nk, lrs), (mp, lp, np_, _) = runs["kernel"], runs["plain"]
+    for k in counters:
+        counters[k].launches = before[k]
+    check(all(n > 0 for n in nk.values()), f"the kernel path skipped a "
+          f"kernel: {nk}")
+    check(all(n == 0 for n in np_.values()), f"the plain path launched a "
+          f"kernel: {np_}")
+    loss_err = max(abs(a - c) for a, c in zip(lk, lp))
+    sk, sp = mk.state_dict(), mp.state_dict()
+    param_err, key_bias_err = 0.0, 0.0
+    for k in sk:
+        e = float((sk[k] - sp[k]).abs().max())
+        if k.endswith("k_proj.bias"):
+            key_bias_err = max(key_bias_err, e)
+        else:
+            param_err = max(param_err, e)
+    out = {"transformer_reference": {
+        "depth": [TF_REF_DEPTH, TF_REF_DEPTH], "dtype": "float32",
+        "tf32": False, "buckets": [list(b) for b in TF_REF_BUCKETS],
+        "grads": grads, "grad_tol": TF_GRAD_TOL,
+        "steps": REF_STEPS, "lrs": lrs, "losses_kernel": lk,
+        "losses_plain": lp, "max_loss_err": loss_err,
+        "max_param_err": param_err, "max_key_bias_err": key_bias_err,
+        "kernel_launches": nk}}
+    log(json.dumps(out))
+    for metric in ("max", "norm"):
+        gap = grads["gaps"][f"kernel_same_piece_vs_plain_same_piece_{metric}"]
+        check(gap["max"] <= TF_GRAD_TOL, f"transformer reference: the "
+              f"first gradients of {gap['param']} differ by {gap['max']} "
+              f"of float64's ({metric})")
+    check(loss_err <= REF_TOL, f"transformer reference: losses differ by "
+          f"{loss_err}: {lk} vs {lp}")
+    check(param_err <= REF_TOL, f"transformer reference: params differ by "
+          f"{param_err}")
+    check(key_bias_err <= sum(lrs), f"transformer reference: key biases "
+          f"differ by {key_bias_err} > {sum(lrs)}")
+    del runs, mk, mp
+    torch.cuda.empty_cache()
+    return out
+
+
+def transformer_adam_hold(paddle, model, opt, batch):
+    """Row 6 at the path's shapes: Transformer-base's whole parameter list
+    (copies of the parameters and of the optimizer's moments after phase
+    30's steps, and the gradients of one more step's loss on ``batch``),
+    one kernel launch against the plain version per tensor
+    (:func:`adam_check`), with the path's betas and epsilon at the
+    schedule's peak rate TF_ADAM_HOLD_LR and bias corrections of the
+    optimizer's next step. Returns the max abs error."""
+    from paddle1_tpu_torch.ops import fused_adam as fad
+    with paddle.amp.auto_cast():
+        s2s_loss(paddle, model(batch["src"], batch["tgt_in"],
+                               batch["src_mask"], batch["tgt_mask"]),
+                 batch["tgt_out"]).backward()
+    # the moments in the parameters' order (names repeat across the
+    # layers' copies; the state's keys tell the repeats apart)
+    state, params = opt.state_dict(), list(model.parameters())
+    m1, m2 = ([v for k, v in state.items() if k.endswith(f"__{slot}")]
+              for slot in ("moment1", "moment2"))
+    check(len(m1) == len(m2) == len(params), f"Adam's state holds "
+          f"{len(m1)} / {len(m2)} moments for {len(params)} parameters")
+    ts = ([p.detach().clone() for p in params],
+          [p.grad.detach().clone() for p in params], m1, m2)
+    opt.clear_grad()
+    t = state["step"] + 1
+    sc = torch.tensor([TF_ADAM_HOLD_LR, 1 - TF_BETA1 ** t, 1 - TF_BETA2 ** t],
+                      device=params[0].device)
+    err = adam_check(fad, ts, sc, [0.0] * len(params), None,
+                     f"Transformer-base ({len(params)} tensors)",
+                     (TF_BETA1, TF_BETA2, TF_EPS))
+    del ts, state
+    return err
+
+
+def traced_beam_decoder(paddle, trace):
+    """``nn.BeamSearchDecoder`` that appends to the list ``trace`` each
+    step's best 2 x beam candidates as the decoder ranked them (its
+    ``candidates``: scores and flat indices over ``beam x vocab``,
+    ``[B, 2 * beam]`` each)."""
+    class Traced(paddle.nn.BeamSearchDecoder):
+        def _beam_search_step(self, *args):
+            out = super()._beam_search_step(*args)
+            trace.append(tuple(t.clone() for t in self.candidates))
+            return out
+    return Traced
+
+
+def beam_divergence(tk, tp, beam, vocab=TF_VOCAB):
+    """Where two traces of one batch's beam search
+    (:func:`traced_beam_decoder`; the kernel path's ``tk``, the plain
+    path's ``tp``) first choose differently: the first step and sentence
+    whose best ``beam`` candidates differ, the first rank there whose
+    candidate differs, the kernel path's candidate and the plain path's
+    (``[parent, token]``), each path's score gap between its own choice
+    and the other's (None where the other's lies outside its best 2 x
+    beam), and how far the paths' beam scores lay apart at the steps
+    before. None where every step both made chose alike."""
+    for t_, ((sk, ik), (sp, ip)) in enumerate(zip(tk, tp)):
+        rows = torch.nonzero((ik[:, :beam] != ip[:, :beam]).any(-1))
+        if len(rows):
+            break
+    else:
+        return None
+    b_ = int(rows[0, 0])
+    sk, ik, sp, ip = sk[b_], ik[b_], sp[b_], ip[b_]
+    j = int(torch.nonzero(ik[:beam] != ip[:beam])[0, 0])
+    a, c = int(ik[j]), int(ip[j])
+
+    def gap(s, i, other):
+        at = torch.nonzero(i == other)
+        return float(s[j] - s[int(at[0, 0])]) if len(at) else None
+    before = max((float((x[0][:, :beam] - y[0][:, :beam]).abs().max())
+                  for x, y in zip(tk[:t_], tp[:t_])), default=0.0)
+    return {"step": t_, "sentence": b_, "rank": j,
+            "kernel_choice": list(divmod(a, vocab)),
+            "plain_choice": list(divmod(c, vocab)),
+            "gap_kernel": gap(sk, ik, c), "gap_plain": gap(sp, ip, a),
+            "score_err_before": before}
+
+
+def transformer_decode_phase(dev, model):
+    """Phase 31 (the module docstring): beam search with phase 30's
+    weights in f32, with the end token (the model's own lengths), and with
+    an end token past the vocabulary, so that every sentence runs to the
+    length limit."""
+    import paddle1_tpu_torch as paddle
+    rng = np.random.default_rng(SEED + 95)
+    b = s2s_batch(paddle, model, rng, TF_BEAM_BATCH, 128, 128)
+    src_len = int((b["src"] != TF_PAD).sum(1).max())
+    max_step = src_len + TF_BEAM_EXTRA
+    s2s_decode(paddle, model, b["src"], b["src_mask"], TF_BEAM,
+               max_step_num=2)   # warm-up
+    out = {"decode": "transformer_base_beam_search", "dtype": "float32",
+           "beam": TF_BEAM, "sentences": TF_BEAM_BATCH,
+           "longest_source": src_len, "max_step_num": max_step}
+    for tag, end in (("end_token", TF_EOS), ("length_limit", TF_VOCAB)):
+        out[tag] = beam_search_run(paddle, model, b, max_step, end)
+        r = out[tag]
+        log(f"beam search ({tag}): {r['ms_per_step']:.3f} ms a step over "
+            f"{r['steps']} steps, {r['sentences_per_s']:.2f} sentences/s, "
+            f"idle {r['device_idle_share']:.3f} ({card_line()})")
+    check(out["length_limit"]["steps"] == max_step + 1,
+          f"beam search at the length limit made "
+          f"{out['length_limit']['steps']} steps, want {max_step + 1}")
+    log(json.dumps({"transformer_beam_search": out}))
+    return out
+
+
+def beam_search_run(paddle, model, b, max_step, end):
+    """One beam search over batch ``b``: timed with the counters zeroed
+    just before and read just after (row 3 on the encoder, row 2 on every
+    LayerNorm), profiled once, then traced on the kernel path and the
+    plain path, whose ids must be equal, or part only at a near tie
+    (:func:`beam_divergence`)."""
+    from paddle1_tpu_torch.core.flags import flags_guard
+    src, mask = b["src"], b["src_mask"]
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = s2s_decode(paddle, model, src, mask, TF_BEAM, max_step_num=max_step,
+                     end_token=end)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    n_steps = int(ids.shape[1])
+    check(list(ids.shape) == [TF_BEAM_BATCH, n_steps, TF_BEAM] and
+          1 <= n_steps <= max_step + 1, f"beam search: ids of shape "
+          f"{list(ids.shape)}")
+    want = {"flash_attention": TF_LAYERS, "flash_attention_bwd_dkv": 0,
+            "flash_attention_bwd_dq": 0, "fused_adam": 0,
+            "layer_norm": 2 * TF_LAYERS + 3 * TF_LAYERS * n_steps}
+    for k, n in want.items():
+        check(launches[k] == n, f"beam search: {k} launched {launches[k]} "
+              f"times over {n_steps} steps, want {n}")
+    prof = device_kernels_per_step(
+        lambda: s2s_decode(paddle, model, src, mask, TF_BEAM,
+                           max_step_num=max_step, end_token=end).sum(), 1)
+    busy = prof["device_busy_ms_per_step"]
+    ids_by_path, traces = {}, {}
+    for path, flags in (("kernel", {}), ("plain", PLAIN_FLAGS)):
+        with flags_guard(**flags):
+            traces[path] = []
+            ids_by_path[path] = s2s_decode(
+                paddle, model, src, mask, TF_BEAM, max_step_num=max_step,
+                beam_decoder=traced_beam_decoder(paddle, traces[path]),
+                end_token=end)
+    ik, ip = ids_by_path["kernel"], ids_by_path["plain"]
+    equal = ik.shape == ip.shape and torch.equal(ik, ip)
+    divergence = beam_divergence(traces["kernel"], traces["plain"], TF_BEAM)
+    check(equal or divergence is not None, "beam search: the paths' ids "
+          "differ but their steps chose alike")
+    if divergence is not None:
+        d = divergence
+        gaps = (d["gap_kernel"], d["gap_plain"])
+        log(f"beam search: the kernel and plain paths part at step "
+            f"{d['step']} of sentence {d['sentence']}, rank {d['rank']}: "
+            f"{d['kernel_choice']} against {d['plain_choice']} ([parent, "
+            f"token]), {gaps[0]} apart on the kernel path, {gaps[1]} on "
+            f"the plain path (the paths' scores {d['score_err_before']:.3e} "
+            f"apart before it)")
+        check(None not in gaps and max(gaps) <= LOGIT_TOL and
+              d["score_err_before"] <= LOGIT_TOL,
+              f"beam search: the paths part where the swapped candidates "
+              f"are not a near tie within {LOGIT_TOL}: {d}")
+    return {"end_token": end, "steps": n_steps, "seconds": dt,
+            "ms_per_step": dt * 1e3 / n_steps,
+            "sentences_per_s": TF_BEAM_BATCH / dt,
+            "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / (dt * 1e3),
+            "kernels_per_decode": prof["kernels_per_step"],
+            "launches": launches,
+            "beams_ending": float((ids == end).any(1).float().mean()),
+            "ids_equal_to_plain": equal, "divergence": divergence,
+            "tolerance": LOGIT_TOL,
+            "top_kernels": prof["top_kernels"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -5408,6 +6323,22 @@ def main() -> int:
 
     nn_launches = nn_phase(dev)["nn_cases"]["bn_launches"]
     mn = mobilenet_phase(dev)
+    torch.cuda.empty_cache()
+
+    flash_cross = flash_cross_phase(dev)
+    ln_tf = train_layer_norm_case(dev, TF_BUCKETS[0][0] * TF_BUCKETS[0][2],
+                                  TF_D, torch.float32)
+    tfm, tf_train = transformer_phase(dev)
+    tf_dec = transformer_decode_phase(dev, tfm)
+    del tfm
+    torch.cuda.empty_cache()
+    transformer_reference_check(dev)
+    torch.cuda.empty_cache()
+    tf_paths = {"transformer": tf_train["launches"],
+                "transformer_beam_search": tf_dec["end_token"]["launches"],
+                "transformer_beam_search_length_limit":
+                    tf_dec["length_limit"]["launches"]}
+
     mn_paths = {"mobilenet_v2_train": mn["launches_train"],
                 "mobilenet_v2_eval": mn["launches_eval"],
                 "mobilenet_v2_bf16": mn["bf16_engine"]["launches"],
@@ -5429,7 +6360,8 @@ def main() -> int:
                    "ernie": ernie["launches"].get(name, 0),
                    "bert_finetune": ft["launches"].get(name, 0),
                    "bert_finetune_eval": fte.get(name, 0),
-                   **{k: v.get(name, 0) for k, v in amp_paths.items()}}
+                   **{k: v.get(name, 0) for k, v in amp_paths.items()},
+                   **{k: v.get(name, 0) for k, v in tf_paths.items()}}
         line.append({
             "name": name, "route": "cuda", "source": f"{src}{name}.cu",
             "replaces": {"paged_attention": pallas + "paged_attention.py:89",
@@ -5462,6 +6394,13 @@ def main() -> int:
         "max_abs_err")})
     line[-1]["bert_finetune_shape"] = ln_ft["shape"]
     line[-1]["launches_per_bert_finetune_forward"] = 2 * BERT_LAYERS + 1
+    # Transformer-base's (f32 [4096, 512] under auto_cast's black list)
+    line[-1].update({f"transformer_shape_{k}": ln_tf[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err")})
+    line[-1]["transformer_shape"] = ln_tf["shape"]
+    line[-1]["launches_per_transformer_forward"] = 5 * TF_LAYERS
+    line[-1]["launches_per_beam_search_step"] = 3 * TF_LAYERS
     flash_rows = (
         ("flash_attention", "flash_attention.cu",
          pallas + "flash_attention.py:59", "fwd", "fwd_plain",
@@ -5492,13 +6431,16 @@ def main() -> int:
         by_path = {"train": tl[name], "ernie": ernie["launches"][name],
                    "bert_finetune": ft["launches"][name],
                    "bert_finetune_eval": fte[name],
-                   **{k: v[name] for k, v in amp_paths.items()}}
+                   **{k: v[name] for k, v in amp_paths.items()},
+                   **{k: v[name] for k, v in tf_paths.items()}}
         f16t = f16k["flash_timing"]
+        ct = flash_cross["times_ms"]
         line.append({
             "name": name, "route": "cuda", "source": src + cu,
             "replaces": rep, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(c["max_abs_err"] for c in flash_errs[key]),
+            "max_abs_err": max(c["max_abs_err"] for c in
+                               flash_errs[key] + flash_cross["errors"][key]),
             "ms": flash_t[key], "plain_ms": flash_t[plain_key],
             "bound_ms": flash_b[key][0], "bound_by": flash_b[key][1],
             "library_ms": flash_t[lib_key], "shape": flash_shape,
@@ -5523,7 +6465,15 @@ def main() -> int:
             "bert_finetune_shape_bound_ms": flash_bf[key][0],
             "bert_finetune_shape_bound_by": flash_bf[key][1],
             "bert_finetune_shape_library_ms": flash_tf[lib_key],
-            "cases": flash_errs[key],
+            "cases": flash_errs[key] + flash_cross["errors"][key],
+            # Transformer-base's cross-attention (phase 30): 128 queries
+            # against 256 keys
+            "cross_attention_shape": flash_cross["shape"],
+            "cross_attention_ms": ct[key],
+            "cross_attention_plain_ms": ct[plain_key],
+            "cross_attention_bound_ms": flash_cross["bounds_ms"][key],
+            "cross_attention_bound_by": flash_cross["bound_by"][key],
+            "cross_attention_library_ms": ct[lib_key],
             # float16 (phase 25): its errors, and its times at the
             # fine-tuning shape (ragged padding) and ERNIE-1.5B's
             "f16_max_abs_err": max(c["max_abs_err"]
@@ -5540,7 +6490,8 @@ def main() -> int:
                "lenet_train": lenet["launches"]["fused_adam"],
                "ernie": ernie["launches"]["fused_adam"],
                "bert_finetune": ft["launches"]["fused_adam"],
-               **{k: v["fused_adam"] for k, v in amp_paths.items()}}
+               **{k: v["fused_adam"] for k, v in amp_paths.items()},
+               "transformer": tf_train["launches"]["fused_adam"]}
     line.append({
         "name": "fused_adam", "route": "cuda", "source": src + "fused_adam.cu",
         "replaces": pallas + "fused_adam.py:39",

@@ -46,6 +46,8 @@ from . import (amp, autograd, distributed, framework,  # noqa: F401
 from .autograd import (enable_grad, grad, is_grad_enabled,  # noqa: F401
                        no_grad, set_grad_enabled)
 from .core.device import resolve_device  # noqa: F401
+from .core.flags import get_flags, set_flags  # noqa: F401
+from .distributed import DataParallel  # noqa: F401
 from .core.dtype import (bfloat16, bool_, complex64,  # noqa: F401
                          complex128, float16, float32, float64,
                          get_default_dtype, int8, int16, int32, int64,
@@ -70,7 +72,10 @@ __all__ = ["amp", "autograd", "distributed", "framework", "nn", "optimizer",
            "set_default_dtype", "float32", "float64", "float16", "bfloat16",
            "int8", "int16", "int32", "int64", "uint8", "bool_", "complex64",
            "complex128", "ops", "rank", "is_empty", "reverse", "tolist",
-           "crop_tensor"] + ops.__all__
+           "crop_tensor", "DataParallel", "set_flags", "get_flags",
+           "in_dynamic_mode", "in_dygraph_mode", "is_compiled_with_cuda",
+           "create_parameter", "set_printoptions", "get_cuda_rng_state",
+           "set_cuda_rng_state", "promote_types"] + ops.__all__
 
 
 def rank(input):
@@ -104,3 +109,58 @@ def crop_tensor(x, shape=None, offsets=None, name=None):
         shape = [-1] * t.dim()
     shape = [-1 if s is None else s for s in shape]
     return ops.manip_ops.crop(t, shape=shape, offsets=offsets)
+
+
+def in_dynamic_mode() -> bool:
+    """The port runs eagerly: always True, as in the JAX package."""
+    return True
+
+
+in_dygraph_mode = in_dynamic_mode
+
+
+def is_compiled_with_cuda() -> bool:
+    """Whether torch was built with CUDA (the reference's question; the
+    JAX package, a TPU build, answers False)."""
+    return _torch.backends.cuda.is_built()
+
+
+def get_cuda_rng_state():
+    """The generators' states (``get_rng_state``), as the JAX package
+    answers for its accelerator."""
+    return get_rng_state()
+
+
+def set_cuda_rng_state(state):
+    return set_rng_state(state)
+
+
+def create_parameter(shape, dtype="float32", name=None, attr=None,
+                     is_bias=False, default_initializer=None, *,
+                     device=None):
+    """A free parameter of ``shape``, made as a layer makes its own
+    (``nn.Layer.create_parameter``) on the current place."""
+    from .framework import ParamAttr as _Attr
+    from .nn.layer_base import Layer
+    if name is not None and attr is None:
+        attr = _Attr(name=name)
+    return Layer().create_parameter(shape, attr=attr, dtype=dtype,
+                                    is_bias=is_bias,
+                                    default_initializer=default_initializer,
+                                    device=device)
+
+
+def set_printoptions(precision=None, threshold=None, edgeitems=None,
+                     sci_mode=None, linewidth=None):
+    """How tensors print (torch's print options, which a Tensor's repr
+    reads)."""
+    kw = {k: v for k, v in dict(precision=precision, threshold=threshold,
+                                edgeitems=edgeitems, sci_mode=sci_mode,
+                                linewidth=linewidth).items() if v is not None}
+    _torch.set_printoptions(**kw)
+
+
+def promote_types(a, b):
+    """The dtype two dtypes (names, numpy or torch dtypes) promote to."""
+    from .core.dtype import convert_dtype
+    return _torch.promote_types(convert_dtype(a), convert_dtype(b))

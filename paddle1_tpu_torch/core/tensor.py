@@ -31,11 +31,17 @@ Paddle's semantics on top of torch's:
   (:meth:`Tensor._replace_impl`), gradients included.
 - ``.place`` is a :class:`~.place.Place`.
 - ``.shape`` is a :class:`Shape`, a tuple that also compares equal to
-  the list the reference returns (``x.shape == [2, 3]``) and has
+  the list the reference returns (``x.shape == [2, 3]``), adds to a list
+  as that list does (``x.shape[:-1] + [h, d]`` is a list) and has
   ``numel()``; ``torch.Size`` cannot be subclassed, and a tuple keeps
   torch's own Python code, which indexes, unpacks and passes shapes on,
   working. ``.size`` is the element count, an int as in the reference,
   whose call ``x.size()`` / ``x.size(dim)`` is torch's method.
+  ``.dtype`` is torch's dtype (``torch.dtype`` cannot be subclassed, and
+  torch's and the port's code pass it on): it equals no string or numpy
+  dtype, where the reference's numpy dtype does (ROADMAP, a departure by
+  design); ``core.dtype.convert_dtype`` and ``x.astype('float32')`` take
+  the names.
 - ``max``, ``min`` (``axis=None, keepdim=False``) and ``sort`` (``axis=-1,
   descending=False``) are Paddle's: they return one Tensor (the reduced
   values, the sorted values), where torch's return ``(values, indices)``.
@@ -242,9 +248,31 @@ class _HookHandle:
 class Shape(tuple):
     """A tensor's shape on the facade: a tuple of ints that compares
     equal to the list of the same ints too (the reference's ``shape`` is
-    a list), with ``torch.Size``'s ``numel()``."""
+    a list), with ``torch.Size``'s ``numel()``. A slice is a ``Shape``,
+    and a sum with a list is the list the reference's sum gives
+    (``x.shape[:-1] + [h, d]``, ``[b] + x.shape[1:]``); a sum with a tuple
+    is a ``Shape``. Item assignment stays a tuple's: it raises (ROADMAP,
+    a departure by design)."""
 
     __slots__ = ()
+
+    def __getitem__(self, idx):
+        got = tuple.__getitem__(self, idx)
+        return Shape(got) if isinstance(idx, slice) else got
+
+    def __add__(self, other):
+        if isinstance(other, list):
+            return list(self) + other
+        if isinstance(other, tuple):
+            return Shape(tuple.__add__(self, other))
+        return NotImplemented
+
+    def __radd__(self, other):
+        if isinstance(other, list):
+            return other + list(self)
+        if isinstance(other, tuple):
+            return Shape(tuple(other) + tuple(self))
+        return NotImplemented
 
     def __eq__(self, other):
         if isinstance(other, list):

@@ -1,22 +1,25 @@
 """Neural-network layers of the port (``paddle1_tpu.nn``): the ``Layer``
 base class and its containers (``Sequential``, ``LayerList``,
 ``LayerDict``, ``ParameterList``), the initializers (``nn.initializer``),
-every normalization and activation layer (``layer_norm_act.py``) and loss
-layer (``layer_loss.py``) of the JAX package; Linear, Embedding, Dropout,
-MultiHeadAttention and the transformer encoder; Conv2D, MaxPool2D,
+every layer of the JAX package's ``layer_common.py``,
+``layer_norm_act.py``, ``layer_loss.py`` and ``layer_transformer.py``
+(``MultiHeadAttention``, the encoder, the decoder and ``Transformer``),
+the seq2seq decoding of ``decode.py`` (``BeamSearchDecoder``,
+``dynamic_decode``, ...), ``ParamAttr``; Conv2D, MaxPool2D,
 AdaptiveAvgPool2D; and the gradient clips (``ClipGradByValue``,
 ``ClipGradByNorm``, ``ClipGradByGlobalNorm``, ``clip_grad_norm_``,
 ``clip_grad_value_``)."""
 
-from . import functional, initializer  # noqa: F401
+from . import decode, functional, initializer  # noqa: F401
+from .decode import *  # noqa: F401,F403
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                    ClipGradByValue, clip_grad_norm_, clip_grad_value_)
 from .layer_base import (HookRemoveHelper, Layer, LayerDict,  # noqa: F401
                          LayerList, ParameterList, Sequential)
-from .layer_common import Dropout, Embedding, Linear  # noqa: F401
+from ..framework.param_attr import ParamAttr  # noqa: F401
+from .layer_common import *  # noqa: F401,F403
 from .layer_conv_pool import (AdaptiveAvgPool2D, Conv2D,  # noqa: F401
                               MaxPool2D)
 from .layer_loss import *  # noqa: F401,F403
 from .layer_norm_act import *  # noqa: F401,F403
-from .layer_transformer import (MultiHeadAttention,  # noqa: F401
-                                TransformerEncoder, TransformerEncoderLayer)
+from .layer_transformer import *  # noqa: F401,F403

@@ -1,5 +1,5 @@
-"""Convolution functional (port of ``conv2d`` from
-``paddle1_tpu/nn/functional/conv.py``).
+"""Convolution functionals (port of ``conv2d``, ``unfold`` and ``fold``
+from ``paddle1_tpu/nn/functional/conv.py``).
 
 The JAX package computes convolutions with XLA's
 ``conv_general_dilated``, outside any Pallas kernel, so the port leaves
@@ -17,7 +17,7 @@ from ...amp import cast_point
 from ...core.errors import InvalidArgumentError
 from ._layout import to_channels_last_memory
 
-__all__ = ["conv2d"]
+__all__ = ["conv2d", "unfold", "fold"]
 
 
 def _tuple(v, n):
@@ -90,3 +90,29 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
         out = tF.conv2d(tF.pad(x, (lft, r, t, b)), weight, bias, stride, 0,
                         dilation, groups)
     return out.permute(0, 2, 3, 1) if channel_last else out
+
+
+@cast_point("unfold")
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """im2col: ``[N, C, H, W]`` → ``[N, C * kh * kw, L]``, the channel
+    axis ordered (C, kh, kw) as the JAX package's patches; any padding
+    spec ``conv2d`` takes (asymmetric pairs, ``"SAME"``/``"VALID"``)."""
+    k, s, d = _tuple(kernel_sizes, 2), _tuple(strides, 2), \
+        _tuple(dilations, 2)
+    (t, b), (lft, r) = explicit_pads(_padding(paddings, 2), x.shape[2:], k,
+                                     s, d)
+    return tF.unfold(tF.pad(x, (lft, r, t, b)), k, d, 0, s)
+
+
+@cast_point("fold")
+def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0, dilations=1,
+         name=None):
+    """col2im, the adjoint of :func:`unfold`: the columns ``[N, C * kh *
+    kw, L]`` summed into ``[N, C, *output_sizes]``."""
+    k, s, d = _tuple(kernel_sizes, 2), _tuple(strides, 2), \
+        _tuple(dilations, 2)
+    oh, ow = _tuple(output_sizes, 2)
+    (t, b), (lft, r) = explicit_pads(_padding(paddings, 2), (oh, ow), k, s,
+                                     d)
+    y = tF.fold(x, (oh + t + b, ow + lft + r), k, d, 0, s)
+    return y[:, :, t:t + oh, lft:lft + ow]

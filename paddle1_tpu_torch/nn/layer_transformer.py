@@ -1,5 +1,6 @@
-"""Transformer layers (port of the serving and training subset of
-``paddle1_tpu/nn/layer_transformer.py``).
+"""Transformer layers (port of ``paddle1_tpu/nn/layer_transformer.py``,
+its whole ``__all__``: ``MultiHeadAttention``, the encoder and decoder
+layers and stacks, and the encoder-decoder ``Transformer``).
 
 ``MultiHeadAttention`` takes the JAX package's attention ``dropout``
 (applied in training mode only) and keeps boolean or integer masks
@@ -11,7 +12,21 @@ three projections, as the JAX package does (``layer_transformer.py:218,
 constructor (dropout 0.1 by default, activation, attn/act dropout,
 pre- or post-norm); the serving ``CausalLM`` builds it with dropout 0.
 
-``MultiHeadAttention`` keeps the JAX package's two serving caches:
+``MultiHeadAttention`` keeps the reference's two incremental-decoding
+caches (``layer_transformer.py:104-176``), the ones the decoder and
+``nn.decode`` carry:
+
+* ``Cache(k, v)`` — the keys and values so far, ``[B, N, heads, dim]``;
+  each call concatenates its new ones along the sequence axis (axis 1)
+  and returns the grown cache. ``gen_cache`` starts it empty, float32 as
+  the JAX package's (under ``auto_cast`` the concatenation promotes the
+  16-bit new rows to float32, as ``jnp.concatenate`` does).
+* ``StaticCache(k, v)`` — the projected keys and values of a fixed
+  memory (the encoder's output), made once by
+  ``gen_cache(memory, memory, type=StaticCache)`` and read by every
+  step's cross-attention in place of projecting the memory again.
+
+and the JAX package's two serving caches:
 
 * ``GenCache(k, v, pos)`` — dense ``[slots, max_seq, heads, dim]`` K/V
   written at a per-slot cursor ``pos`` ([slots] int32).
@@ -25,6 +40,13 @@ them through every step), the port writes new K/V rows into the cache
 tensors IN PLACE and returns the same tensors in the advanced cache:
 no per-step copy of the pools. Shapes never change, so a later PR can
 capture the decode step in a CUDA graph.
+
+Attention routes as in the JAX package (``functional/attention.py``):
+the flash kernels take an encoder's self-attention and the decoder's
+cross-attention where dropout is 0, both lengths are multiples of 128 and
+the mask is absent or a ``[B|1, 1, 1, Nk]`` padding mask; the decoder's
+self-attention under its ``[L, L]`` causal mask, and any step of
+incremental decoding (one query), take the dense composition.
 """
 
 from __future__ import annotations
@@ -33,17 +55,19 @@ import collections
 import copy
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..core.errors import InvalidArgumentError, UnimplementedError
+from ..core.errors import InvalidArgumentError
 from . import functional as F
 from .layer_base import Layer, LayerList
 from .layer_common import Dropout, Linear
 from .layer_norm_act import LayerNorm
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
-           "TransformerEncoder"]
+           "TransformerEncoder", "TransformerDecoderLayer",
+           "TransformerDecoder", "Transformer"]
 
 
 def _paged_rows(table, pos, window, page_size):
@@ -69,6 +93,8 @@ def _slot_write(cache, new, pos):
 
 
 class MultiHeadAttention(Layer):
+    Cache = collections.namedtuple("Cache", ["k", "v"])
+    StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
     GenCache = collections.namedtuple("GenCache", ["k", "v", "pos"])
     PagedCache = collections.namedtuple("PagedCache",
                                         ["k", "v", "table", "pos"])
@@ -102,8 +128,14 @@ class MultiHeadAttention(Layer):
 
     def _prepare_qkv(self, query, key, value, cache=None):
         q = self._split_heads(self.q_proj(query))
+        if isinstance(cache, self.StaticCache):
+            return q, cache.k, cache.v, cache
         k = self._split_heads(self.k_proj(key))
         v = self._split_heads(self.v_proj(value))
+        if isinstance(cache, self.Cache):
+            k = torch.cat([cache.k, k], dim=1)
+            v = torch.cat([cache.v, v], dim=1)
+            return q, k, v, self.Cache(k, v)
         new_tokens = query.shape[1]
         if isinstance(cache, self.PagedCache):
             pg, off = _paged_rows(cache.table, cache.pos, new_tokens,
@@ -120,21 +152,28 @@ class MultiHeadAttention(Layer):
             k, v = cache.k, cache.v
         elif cache is not None:
             raise InvalidArgumentError(
-                f"unsupported cache type {type(cache).__name__}: the port "
-                "serves GenCache and PagedCache")
+                f"unsupported cache type {type(cache).__name__}: "
+                "MultiHeadAttention takes Cache, StaticCache, GenCache and "
+                "PagedCache")
         return q, k, v, cache
 
     def _device(self):
         return self.q_proj.weight.device
 
-    def gen_cache(self, key, value=None, type=None):
-        """The reference's concat ``Cache``/``StaticCache`` for
-        incremental decoding are not ported (ROADMAP Queue 1 item 2, the
-        decoder layers); the serving caches are :meth:`gen_slot_cache`
-        and :meth:`gen_paged_cache`."""
-        raise UnimplementedError(
-            "MultiHeadAttention.gen_cache (Cache/StaticCache) is not ported "
-            "(ROADMAP Queue 1 item 2, with the decoder layers)")
+    def gen_cache(self, key, value=None, type=Cache):
+        """``type=StaticCache``: the projected keys and values of ``key``
+        / ``value`` (``value`` None: ``key``), ``[B, N, heads, dim]``;
+        ``type=Cache`` (the default): an empty float32 cache ``[B, 0,
+        heads, dim]`` for ``key``'s batch."""
+        if type is MultiHeadAttention.StaticCache:
+            k = self._split_heads(self.k_proj(key))
+            v = self._split_heads(self.v_proj(key if value is None
+                                              else value))
+            return self.StaticCache(k, v)
+        shape = (int(key.shape[0]), 0, self.num_heads, self.head_dim)
+        return self.Cache(
+            torch.zeros(shape, dtype=torch.float32, device=self._device()),
+            torch.zeros(shape, dtype=torch.float32, device=self._device()))
 
     def gen_slot_cache(self, slots, max_seq, dtype=torch.float32):
         """Dense serving decode cache: ``slots`` sequences, each owning a
@@ -285,6 +324,10 @@ class TransformerEncoder(Layer):
             output = self.norm(output)
         return output if cache is None else (output, new_caches)
 
+    def gen_cache(self, src):
+        """One empty :attr:`MultiHeadAttention.Cache` a layer."""
+        return [layer.gen_cache(src) for layer in self.layers]
+
     def gen_slot_cache(self, slots, max_seq, dtype=torch.float32):
         return [layer.gen_slot_cache(slots, max_seq, dtype)
                 for layer in self.layers]
@@ -292,3 +335,175 @@ class TransformerEncoder(Layer):
     def gen_paged_cache(self, pages, page_size, dtype=torch.float32):
         return [layer.gen_paged_cache(pages, page_size, dtype)
                 for layer in self.layers]
+
+
+class TransformerDecoderLayer(Layer):
+    """Decoder block with the JAX forward (``layer_transformer.py:
+    463-530``): self-attention under ``tgt_mask``, cross-attention on
+    ``memory`` under ``memory_mask``, then the feed-forward, each a
+    residual with its dropout and norm (before or after, as
+    ``normalize_before`` says). With ``cache`` (``(Cache, StaticCache)``,
+    from :meth:`gen_cache`) the self-attention grows its cache and the
+    cross-attention reads the memory's projections; it returns ``(out,
+    (new Cache, StaticCache))``."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 dropout: float = 0.1, activation: str = "relu",
+                 attn_dropout: Optional[float] = None,
+                 act_dropout: Optional[float] = None,
+                 normalize_before: bool = False, weight_attr=None,
+                 bias_attr=None, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = bool(normalize_before)
+        kw = dict(weight_attr=weight_attr, bias_attr=bias_attr, device=dev,
+                  generator=generator)
+        self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                            **kw)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                             **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, **kw)
+        self.dropout = Dropout(act_dropout)
+        self.linear2 = Linear(dim_feedforward, d_model, **kw)
+        self.norm1 = LayerNorm(d_model, device=dev)
+        self.norm2 = LayerNorm(d_model, device=dev)
+        self.norm3 = LayerNorm(d_model, device=dev)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
+        self.activation = getattr(F, activation)
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm1(tgt)
+        if cache is None:
+            tgt = self.self_attn(tgt, tgt, tgt, tgt_mask)
+        else:
+            tgt, incremental = self.self_attn(tgt, tgt, tgt, tgt_mask,
+                                              cache[0])
+        tgt = residual + self.dropout1(tgt)
+        if not self.normalize_before:
+            tgt = self.norm1(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm2(tgt)
+        if cache is None:
+            tgt = self.cross_attn(tgt, memory, memory, memory_mask)
+        else:
+            tgt, static = self.cross_attn(tgt, memory, memory, memory_mask,
+                                          cache[1])
+        tgt = residual + self.dropout2(tgt)
+        if not self.normalize_before:
+            tgt = self.norm2(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm3(tgt)
+        tgt = self.linear2(self.dropout(self.activation(self.linear1(tgt))))
+        tgt = residual + self.dropout3(tgt)
+        if not self.normalize_before:
+            tgt = self.norm3(tgt)
+        return tgt if cache is None else (tgt, (incremental, static))
+
+    def gen_cache(self, memory):
+        """``(Cache, StaticCache)``: an empty self-attention cache and the
+        cross-attention's projections of ``memory``."""
+        incremental = self.self_attn.gen_cache(
+            memory, type=MultiHeadAttention.Cache)
+        static = self.cross_attn.gen_cache(
+            memory, memory, type=MultiHeadAttention.StaticCache)
+        return incremental, static
+
+
+class TransformerDecoder(Layer):
+    """``decoder_layer`` and ``num_layers - 1`` deep copies of it, then
+    ``norm`` on the output (``layer_transformer.py:532-562``)."""
+
+    def __init__(self, decoder_layer: TransformerDecoderLayer,
+                 num_layers: int, norm=None):
+        super().__init__()
+        self.layers = LayerList(
+            [decoder_layer] +
+            [copy.deepcopy(decoder_layer) for _ in range(num_layers - 1)])
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        output = tgt
+        new_caches = []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, memory, tgt_mask, memory_mask)
+            else:
+                output, c = mod(output, memory, tgt_mask, memory_mask,
+                                cache[i])
+                new_caches.append(c)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, memory, do_zip=False):
+        """One ``(Cache, StaticCache)`` a layer; ``do_zip``: the list of
+        Caches and the list of StaticCaches instead."""
+        cache = [layer.gen_cache(memory) for layer in self.layers]
+        return list(zip(*cache)) if do_zip else cache
+
+
+class Transformer(Layer):
+    """Encoder-decoder transformer (``layer_transformer.py:564-608``; the
+    defaults are Transformer-base): a ``TransformerEncoder`` and a
+    ``TransformerDecoder`` of the given depths, each with a final
+    LayerNorm only when ``normalize_before``; ``custom_encoder`` /
+    ``custom_decoder`` replace them."""
+
+    def __init__(self, d_model: int = 512, nhead: int = 8,
+                 num_encoder_layers: int = 6, num_decoder_layers: int = 6,
+                 dim_feedforward: int = 2048, dropout: float = 0.1,
+                 activation: str = "relu",
+                 attn_dropout: Optional[float] = None,
+                 act_dropout: Optional[float] = None,
+                 normalize_before: bool = False, weight_attr=None,
+                 bias_attr=None, custom_encoder=None, custom_decoder=None, *,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        args = (d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr)
+        kw = dict(device=dev, generator=generator)
+        if custom_encoder is not None:
+            self.encoder = custom_encoder
+        else:
+            norm = LayerNorm(d_model, device=dev) if normalize_before \
+                else None
+            self.encoder = TransformerEncoder(
+                TransformerEncoderLayer(*args, **kw), num_encoder_layers,
+                norm)
+        if custom_decoder is not None:
+            self.decoder = custom_decoder
+        else:
+            norm = LayerNorm(d_model, device=dev) if normalize_before \
+                else None
+            self.decoder = TransformerDecoder(
+                TransformerDecoderLayer(*args, **kw), num_decoder_layers,
+                norm)
+        self.d_model = d_model
+        self.nhead = nhead
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None,
+                memory_mask=None):
+        memory = self.encoder(src, src_mask)
+        return self.decoder(tgt, memory, tgt_mask, memory_mask)
+
+    def generate_square_subsequent_mask(self, length):
+        """The additive causal mask ``[length, length]``: 0 on and below
+        the diagonal, -inf above, float32 on the model's device."""
+        from ..core.tensor import to_tensor
+        params = self.parameters()
+        m = np.triu(np.full((length, length), -np.inf, np.float32), 1)
+        return to_tensor(m, place=params[0].device if params else None)

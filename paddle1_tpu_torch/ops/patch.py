@@ -221,6 +221,49 @@ def _clip_native(x, lo, hi):
         torch.Tensor.clamp_(x, lo, hi)
 
 
+def _negative_step(idx) -> bool:
+    """Whether ``idx`` holds a slice with a negative step, which torch's
+    indexing refuses."""
+    items = idx if isinstance(idx, tuple) else (idx,)
+    return any(isinstance(i, slice) and i.step is not None and i.step < 0
+               for i in items)
+
+
+def _dims_taken(i) -> int:
+    """How many of the tensor's dims the index entry ``i`` consumes."""
+    if i is None or i is Ellipsis or isinstance(i, bool):
+        return 0
+    if isinstance(i, torch.Tensor) and i.dtype == torch.bool:
+        return i.dim()
+    if isinstance(i, np.ndarray) and i.dtype == np.bool_:
+        return i.ndim
+    return 1
+
+
+def flip_index(x, idx):
+    """``x[idx]`` with negative-step slices as ``flip(x, dims)[pos]``:
+    the dims those slices index, and ``idx`` with each of them turned into
+    the positive slice that picks the same elements, in the same order, of
+    the flipped dim (numpy's rules, as the reference indexes)."""
+    items = list(idx) if isinstance(idx, tuple) else [idx]
+    used = sum(_dims_taken(i) for i in items)
+    dims, pos, d = [], [], 0
+    for i in items:
+        if i is Ellipsis:
+            d += x.dim() - used
+        elif isinstance(i, slice) and i.step is not None and i.step < 0:
+            n = int(x.shape[d])
+            r = range(*i.indices(n))
+            pos.append(slice(n - 1 - r[0], n - r[-1], -i.step) if r
+                       else slice(0, 0))
+            dims.append(d)
+            d += 1
+            continue
+        pos.append(i)
+        d += _dims_taken(i)
+    return dims, tuple(pos)
+
+
 def _install_explicit(T) -> None:
     """Paddle's methods written out here, on the class ``T``."""
 
@@ -307,16 +350,36 @@ def _install_explicit(T) -> None:
         return self
     T.get_tensor = get_tensor
 
+    def __getitem__(self, idx):
+        """torch's indexing, and numpy's negative-step slices (``x[::-1]``,
+        ``x[..., ::-1]``) as a flip and a positive slice (F20), gradients
+        included."""
+        if not _negative_step(idx):
+            return torch.Tensor.__getitem__(self, idx)
+        dims, pos = flip_index(self, idx)
+        return torch.Tensor.__getitem__(torch.flip(self, dims), pos)
+    T.__getitem__ = __getitem__
+
     def __setitem__(self, idx, value):
         """torch's item assignment; into a leaf that requires grad (which
         torch refuses) the updated copy replaces the tensor, gradients
         flowing through the assignment, as the reference rebinds (a
         ``ParamBase`` takes the copy's data, as ``update_in_place``
-        rebinds a tensor that is not a facade)."""
-        if _torch_caller() or not _in_place_blocked(self):
+        rebinds a tensor that is not a facade). A negative-step slice
+        writes through a flipped copy that then replaces the values."""
+        if _negative_step(idx):
+            dims, pos = flip_index(self, idx)
+            out = torch.flip(self, dims)
+            torch.Tensor.__setitem__(out, pos, value)
+            out = torch.flip(out, dims)
+            if not _in_place_blocked(self):
+                torch.Tensor.copy_(self, out)
+                return
+        elif _torch_caller() or not _in_place_blocked(self):
             return torch.Tensor.__setitem__(self, idx, value)
-        out = torch.clone(self)
-        torch.Tensor.__setitem__(out, idx, value)
+        else:
+            out = torch.clone(self)
+            torch.Tensor.__setitem__(out, idx, value)
         if isinstance(self, Tensor):
             self._replace_impl(out)
         else:

@@ -60,7 +60,12 @@ prediction. They also hold an affine-less batch norm to the plain
 composition on the kernels (F18), rows 8,
 9 and 11 to their plain versions at MobileNetV2's 19 batch-norm shapes,
 and that a tiny MobileNetV2's eager steps and eval launch them once per
-batch norm.
+batch norm. For the Transformer path they hold rows 3-5 to their plain
+versions at Transformer-base's cross-attention shape (128 queries against
+256 keys, bf16, ragged), and that a narrow ``nn.Transformer`` step under
+``amp.auto_cast`` launches rows 3-5 once per encoder self-attention and
+cross-attention, row 2 once per LayerNorm and row 6 once, and a beam
+search row 3 on the encoder only.
 """
 
 import numpy as np
@@ -1400,3 +1405,82 @@ def test_eager_lenet_runs_on_the_card(dev):
     p = probs.numpy()
     assert isinstance(probs, paddle.Tensor) and p.shape == (16, 10)
     np.testing.assert_allclose(p.sum(-1), 1.0, atol=1e-5)
+
+
+def _flash_bf16_hold(dev, b, nq, nk, seed):
+    """Rows 3-5 on ``[b, nq, 8, 64]`` queries against ``[b, nk, 8, 64]``
+    keys and values, bf16, a ragged keep-mask (lengths in (nk / 2, nk]):
+    within one bf16 rounding step of their plain versions and repeated
+    bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(b, nq, 8, 64, device=dev, generator=g).to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, nk, 8, 64, device=dev, generator=g).to(
+        torch.bfloat16) for _ in range(2))
+    lens = torch.from_numpy(np.random.default_rng(seed).integers(
+        nk // 2 + 1, nk + 1, b))
+    keep = (torch.arange(nk)[None, :] < lens[:, None]).to(dev)
+    scale = 64 ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, scale, False, keep)
+    ro, rl = fa.flash_attention_ref(q, k, v, scale, False, keep)
+    assert _bf16_excess(out, ro) <= FLASH_BF16_ABS
+    assert float((lse - rl).abs().max()) <= FLASH_TOL
+    delta = (do.float() * ro.float()).sum(-1).transpose(1, 2)
+    dk, dv = fb.flash_bwd_dkv(q, k, v, do, rl, delta, scale, False, keep)
+    dq = fb.flash_bwd_dq(q, k, v, do, rl, delta, scale, False, keep)
+    rq, rk, rv = fa.flash_bwd_ref(q, k, v, ro, rl, do, scale, False, keep)
+    for got, want in ((dk, rk), (dv, rv), (dq, rq)):
+        assert _bf16_excess(got, want) <= FLASH_BF16_ABS
+    assert torch.equal(fa.flash_fwd(q, k, v, scale, False, keep)[0], out)
+    assert torch.equal(fb.flash_bwd_dq(q, k, v, do, rl, delta, scale, False,
+                                       keep), dq)
+
+
+def test_cross_attention_flash_at_the_transformer_shape(dev):
+    """Rows 3-5 at Transformer-base's cross-attention: the target's 128
+    queries against a 256-token source, ``[16, N, 8, 64]`` bf16, a ragged
+    keep-mask; within one bf16 rounding step of their plain versions and
+    repeated bit for bit."""
+    _flash_bf16_hold(dev, 16, 128, 256, 21)
+
+
+@pytest.mark.parametrize("b,n", [(32, 128), (16, 256)],
+                         ids=["bucket128", "bucket256"])
+def test_self_attention_flash_at_the_transformer_bucket_shapes(dev, b, n):
+    """Rows 3-5 at Transformer-base's encoder self-attention in each token
+    bucket, ``[b, n, 8, 64]`` bf16 with a ragged keep-mask, as at the
+    cross-attention shape."""
+    _flash_bf16_hold(dev, b, n, n, 22)
+
+
+def test_transformer_steps_and_beam_search_launch_the_kernels(dev):
+    """A narrow ``nn.Transformer`` (2 + 2 layers) through the translation
+    script of ``chip_smoke.py`` under ``amp.auto_cast``: each step
+    launches rows 3, 4 and 5 once per encoder self-attention and
+    cross-attention, row 2 once per LayerNorm and row 6 once; a beam
+    search runs row 3 on the encoder only and row 2 on every decoder
+    LayerNorm of every step."""
+    import chip_smoke as cs
+    import paddle1_tpu_torch as paddle
+    paddle.seed(0)
+    with paddle.utils.unique_name.guard():
+        m = cs.s2s_model(paddle, vocab=300, d_model=64, nhead=2,
+                         enc_layers=2, dec_layers=2, ffn=128)
+    rng = np.random.default_rng(0)
+    batches = [cs.s2s_batch(paddle, m, rng, 4, 256, 128, 300)]
+    opt, sched = cs.s2s_optimizer(paddle, m, 64, 40)
+    step = cs.s2s_step_fn(paddle, m, opt, sched, batches, vocab=300)
+    counts = lambda: (fa.flash_fwd.launches, fb.flash_bwd_dkv.launches,  # noqa: E731
+                      fb.flash_bwd_dq.launches, ln.fused_layer_norm.launches,
+                      fad.fused_adam_.launches)
+    before = counts()
+    losses = [float(step()) for _ in range(3)]
+    got = [a - b for a, b in zip(counts(), before)]
+    assert got == [3 * 4, 3 * 4, 3 * 4, 3 * 10, 3]
+    assert all(np.isfinite(losses))
+    before = counts()
+    ids = cs.s2s_decode(paddle, m, batches[0]["src"],
+                        batches[0]["src_mask"], beam=2, max_step_num=3)
+    n = ids.shape[1]
+    got = [a - b for a, b in zip(counts(), before)]
+    assert got == [2, 0, 0, 4 + 6 * n, 0]

@@ -1316,3 +1316,161 @@ def test_f19_leaky_relu_gradient_at_zero_is_the_reference_s(cpu_place,
     (ty * tp.to_tensor(np.arange(1, 5, dtype=np.float32))).sum().backward()
     np.testing.assert_array_equal(tx.grad.numpy(), _np(jx.grad))
     np.testing.assert_array_equal(tx.grad.numpy()[[0, 3]], [1.0, 4.0])
+
+
+# ---------------------------------------------------------------------------
+# F20: negative-step slices, read and written, as numpy's (the reference's)
+
+F20_INDICES = [np.s_[::-1], np.s_[:, ::-2], np.s_[..., ::-1],
+               np.s_[1, 2:0:-1], np.s_[None, ::-1, 1], np.s_[::-1, [0, 2]],
+               np.s_[5:0:-1], np.s_[0:2:-1]]
+F20_IDS = ["rev", "col-step2", "last-axis-flip", "int-then-rev",
+           "none-rev-int", "rev-then-list", "start-past-end", "empty"]
+
+
+@pytest.mark.parametrize("idx", F20_INDICES, ids=F20_IDS)
+def test_f20_negative_step_slice_reads_like_the_reference(cpu_place, idx):
+    x = _x((3, 4, 5), 200)
+    jx = jp.to_tensor(x, stop_gradient=False)
+    tx = tp.to_tensor(x, stop_gradient=False)
+    jo, to = jx[idx], tx[idx]
+    np.testing.assert_array_equal(_np(to), _np(jo))
+    w = _x(tuple(_np(jo).shape), 201)
+    (jo * jp.to_tensor(w)).sum().backward()
+    (to * tp.to_tensor(w)).sum().backward()
+    np.testing.assert_array_equal(_np(tx.grad), _np(jx.grad))
+
+
+@pytest.mark.parametrize("idx", F20_INDICES, ids=F20_IDS)
+def test_f20_negative_step_slice_assigns_like_the_reference(cpu_place, idx):
+    x = _x((3, 4, 5), 202)
+    shape = np.asarray(x[idx]).shape
+    v = _x(shape, 203)
+    # a constant, a tensor value, and a tensor value with a gradient
+    jx, tx = jp.to_tensor(x), tp.to_tensor(x)
+    jx[idx], tx[idx] = 0.5, 0.5
+    np.testing.assert_array_equal(_np(tx), _np(jx))
+    jx = jp.to_tensor(x, stop_gradient=False)
+    tx = tp.to_tensor(x, stop_gradient=False)
+    jv = jp.to_tensor(v, stop_gradient=False)
+    tv = tp.to_tensor(v, stop_gradient=False)
+    jy, ty = jx * 2.0, tx * 2.0
+    jy[idx], ty[idx] = jv, tv
+    np.testing.assert_array_equal(_np(ty), _np(jy))
+    w = _x((3, 4, 5), 204)
+    (jy * jp.to_tensor(w)).sum().backward()
+    (ty * tp.to_tensor(w)).sum().backward()
+    np.testing.assert_array_equal(_np(tx.grad), _np(jx.grad))
+    np.testing.assert_array_equal(_np(tv.grad), _np(jv.grad))
+
+
+def test_f20_negative_step_on_a_leaf_and_a_parameter(cpu_place,
+                                                     fresh_names):
+    x = _x((4, 3), 205)
+    # a leaf that requires grad is rebound, as the reference rebinds
+    jx = jp.to_tensor(x, stop_gradient=False)
+    tx = tp.to_tensor(x, stop_gradient=False)
+    jx[::-1, 0] = 0.0
+    tx[::-1, 0] = 0.0
+    np.testing.assert_array_equal(_np(tx), _np(jx))
+    jl, tl = jp.nn.Linear(4, 3), tp.nn.Linear(4, 3)
+    _carried(jl, tl)
+    # a parameter's ops are torch's: a plain tensor, as w[1:] gives
+    np.testing.assert_array_equal(tl.weight[::-1].detach().numpy(),
+                                  _np(jl.weight[::-1]))
+    jl.weight[..., ::-2] = 1.0
+    tl.weight[..., ::-2] = 1.0
+    np.testing.assert_array_equal(_np(tl.weight), _np(jl.weight))
+
+
+@pytest.mark.parametrize("idx", [np.s_[1:3], np.s_[[0, 2]], np.s_[:, 1],
+                                 np.s_[..., None]], ids=str)
+def test_f20_positive_and_advanced_indices_keep_torchs_path(cpu_place, idx):
+    x = _x((3, 4), 206)
+    tx = tp.to_tensor(x)
+    np.testing.assert_array_equal(_np(tx[idx]), x[idx])
+    mask = x > 0
+    np.testing.assert_array_equal(_np(tx[tp.to_tensor(mask)]), x[mask])
+
+
+# ---------------------------------------------------------------------------
+# F21: a shape adds to a list as the reference's list does
+
+
+F21_IDIOMS = [
+    ("slice-plus-list", lambda s: s[:-1] + [2, 5]),
+    ("plus-list", lambda s: s + [1]),
+    ("list-plus-slice", lambda s: [6] + s[1:]),
+    ("slice", lambda s: s[1:]),
+    ("step-slice", lambda s: s[::-1]),
+    ("slice-plus-slice", lambda s: s[:1] + s[1:]),
+]
+
+
+@pytest.mark.parametrize("name,idiom", F21_IDIOMS,
+                         ids=[i[0] for i in F21_IDIOMS])
+def test_f21_shape_arithmetic_gives_the_references_list(cpu_place, name,
+                                                        idiom):
+    x = _x((3, 4, 10), 210)
+    want = idiom(jp.to_tensor(x).shape)
+    got = idiom(tp.to_tensor(x).shape)
+    assert isinstance(want, list)
+    assert got == want and list(got) == want
+
+
+def test_f21_shape_idioms_reshape_like_the_reference(cpu_place,
+                                                     fresh_names):
+    x = _x((2, 3, 10), 211)
+    jx, tx = jp.to_tensor(x), tp.to_tensor(x)
+    for fn in (lambda m, t: t.reshape(t.shape[:-1] + [2, 5]),
+               lambda m, t: m.reshape(t, t.shape + [1]),
+               lambda m, t: m.reshape(t, [6] + t.shape[2:])):
+        np.testing.assert_array_equal(_np(fn(tp, tx)), _np(fn(jp, jx)))
+    w = tp.nn.Linear(4, 6).weight
+    assert w.shape[:1] + [2, 3] == [4, 2, 3]
+    # torch's own code still reads a tuple
+    assert tuple(tx.shape) == (2, 3, 10) and isinstance(tx.shape, tuple)
+    assert torch.zeros(tx.shape).shape == (2, 3, 10)
+    assert tx.shape + (1,) == (2, 3, 10, 1)
+
+
+def test_f21_shape_item_assignment_is_a_departure(cpu_place):
+    """By design (ROADMAP Queue 3): a shape is a tuple, so assigning into
+    it raises where the reference's list takes the item."""
+    x = _x((2, 3), 212)
+    js = jp.to_tensor(x).shape
+    js[0] = 5
+    assert js == [5, 3]
+    ts = tp.to_tensor(x).shape
+    with pytest.raises(TypeError):
+        ts[0] = 5
+    ts = list(ts)       # the port's way
+    ts[0] = 5
+    assert ts == js
+
+
+# ---------------------------------------------------------------------------
+# F22: a dtype is torch's; the comparisons the reference's numpy dtype
+# answers are pinned here (ROADMAP Queue 3, a departure by design)
+
+
+def test_f22_dtype_against_strings_and_numpy_is_a_departure(cpu_place):
+    x = _x((2,), 220)
+    jd, td = jp.to_tensor(x).dtype, tp.to_tensor(x).dtype
+    # the reference: a numpy dtype
+    assert jd == "float32" and jd == np.float32
+    assert jd in ("float32", "float16")
+    assert np.zeros(2, dtype=jd).dtype == np.float32
+    # the port: torch's dtype, equal to the port's names and to torch's
+    assert td == tp.float32 == torch.float32
+    assert td != "float32" and td != np.float32
+    assert td not in ("float32", "float16")
+    with pytest.raises(TypeError):
+        np.zeros(2, dtype=td)
+    # the port's spellings of the same tests
+    from paddle1_tpu_torch.core.dtype import convert_dtype
+    assert convert_dtype("float32") == td
+    assert str(td).replace("torch.", "") == "float32"
+    assert tp.to_tensor(x).astype("float32").dtype == td
+    assert np.zeros(2, dtype=tp.to_tensor(x).numpy().dtype).dtype == \
+        np.float32

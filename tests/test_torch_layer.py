@@ -385,9 +385,9 @@ def test_recompute_on_a_rebased_bert(bert_pair):
 def test_what_stays_out_raises_naming_its_roadmap_item():
     from paddle1_tpu_torch.core.errors import UnimplementedError
     w = torch.nn.Parameter(torch.zeros(2))
+    # MultiHeadAttention.gen_cache (Cache/StaticCache) is ported: its
+    # tests are in tests/test_torch_transformer.py
     for call in (
-            lambda: tp.nn.MultiHeadAttention(8, 2, device="cpu")
-            .gen_cache(torch.zeros(1, 2, 8)),
             lambda: tp.nn.Embedding(10, 4, sparse=True, device="cpu"),
             lambda: tp.optimizer.AdamW(parameters=[w], lazy_mode=True)):
         with pytest.raises(UnimplementedError, match="ROADMAP Queue 1 item"):

@@ -1,6 +1,7 @@
 """The nn slice's cases, without JAX: every name of the JAX package's
-``nn/functional/{activation,norm,loss}.py``, ``nn/layer_norm_act.py`` and
-``nn/layer_loss.py`` ``__all__`` lists, on seeded numpy inputs.
+``nn/functional/{activation,norm,loss,common}.py``, ``nn/layer_norm_act.py``,
+``nn/layer_loss.py`` and ``nn/layer_common.py`` ``__all__`` lists (and
+``unfold``/``fold`` of ``nn/functional/conv.py``), on seeded numpy inputs.
 
 A :class:`Case` (``tests/test_torch_op_cases.py``) is one call of an
 ``nn.functional`` function; a :class:`LayerCase` builds ``nn.<op>(*ctor,
@@ -458,11 +459,190 @@ def layer_cases():
     return L
 
 
+def _one_hot(ids, n):
+    return np.eye(n, dtype=np.float32)[ids]
+
+
+def common_cases():
+    """``nn/functional/common.py``'s names, and ``unfold``/``fold`` of
+    ``conv.py``. The random ones run here at ``training=False`` or ``p =
+    0``; their draws are checked by distribution (``RANDOM``)."""
+    X4 = R((2, 3, 4, 5), 140)
+    X3 = R((2, 3, 6), 141)
+    IDS = R((3, 4), 142, "k")
+    W = R((5, 4), 143)
+    C = [
+        Case("linear", [R((3, 4), 144), W.T.copy(), R((5,), 145)],
+             grad=[0, 1, 2], tol=RED),
+        Case("dropout", [X4], {"p": 0.0}, grad=[0], id="dropout-p0"),
+        Case("dropout2d", [X4], {"training": False}, grad=[0]),
+        Case("dropout2d", [X4], {"p": 0.0}, grad=[0], id="dropout2d-p0"),
+        Case("dropout3d", [R((2, 3, 2, 2, 2), 146)], {"training": False},
+             grad=[0]),
+        Case("alpha_dropout", [X4], {"training": False}, grad=[0]),
+        Case("alpha_dropout", [X4], {"p": 0.0}, grad=[0],
+             id="alpha_dropout-p0"),
+        Case("embedding", [IDS, W], grad=[1]),
+        Case("embedding", [IDS, W], {"padding_idx": 2}, grad=[1],
+             id="embedding-padding"),
+        Case("embedding", [IDS, W], {"padding_idx": -1}, grad=[1],
+             id="embedding-negative-padding"),
+        Case("one_hot", [IDS, 5]),
+        Case("one_hot", [np.array([0, 4, 5, -1], np.int32), 5],
+             id="one_hot-out-of-range"),
+        Case("pad", [X4, [1, 2, 0, 1]], {"value": 0.5}, grad=[0]),
+        Case("pad", [X4, [0, 0, 1, 0, 1, 1, 2, 0]], grad=[0],
+             id="pad-every-axis"),
+        Case("pad", [X4, [1, 2, 2, 1]], {"mode": "reflect"}, grad=[0],
+             id="pad-reflect"),
+        Case("pad", [X4, [3, 1, 0, 2]], {"mode": "replicate"}, grad=[0],
+             id="pad-replicate"),
+        Case("pad", [X4, [2, 1, 1, 3]], {"mode": "circular"}, grad=[0],
+             id="pad-circular"),
+        Case("pad", [R((2, 4, 5, 3), 147), [1, 0, 2, 1]],
+             {"data_format": "NHWC", "mode": "reflect"}, grad=[0],
+             id="pad-nhwc"),
+        Case("pad", [X3, [2, 1]], {"data_format": "NCL",
+                                   "mode": "replicate"}, grad=[0],
+             id="pad-ncl"),
+        Case("pad", [R((1, 2, 3, 3, 4), 148), [1, 1, 0, 1, 1, 0]],
+             {"data_format": "NCDHW", "mode": "reflect"}, grad=[0],
+             id="pad-ncdhw"),
+        Case("zeropad2d", [X4, [1, 0, 2, 1]], grad=[0]),
+        Case("cosine_similarity", [R((3, 4), 149), R((3, 4), 150)],
+             grad=[0, 1], tol=RED),
+        Case("cosine_similarity", [R((3, 4), 151), R((3, 4), 152)],
+             {"axis": 0}, grad=[0, 1], tol=RED, id="cosine_similarity-axis0"),
+        Case("label_smooth", [_one_hot(IDS, 5)], grad=[0]),
+        Case("label_smooth", [_one_hot(IDS, 5),
+                              R((1, 5), 153, "u")], {"epsilon": 0.2},
+             grad=[0, 1], id="label_smooth-prior"),
+        Case("pixel_shuffle", [R((2, 8, 3, 3), 154), 2], grad=[0]),
+        Case("pixel_shuffle", [R((2, 3, 3, 8), 155), 2],
+             {"data_format": "NHWC"}, grad=[0], id="pixel_shuffle-nhwc"),
+        Case("pixel_unshuffle", [R((2, 2, 4, 6), 156), 2], grad=[0]),
+        Case("channel_shuffle", [R((2, 6, 2, 2), 157), 3], grad=[0]),
+        Case("interpolate", [X4], {"size": [7, 3], "mode": "bilinear",
+                                   "align_corners": True}, grad=[0],
+             id="interpolate-bilinear-corners"),
+        Case("interpolate", [X4], {"scale_factor": 2, "mode": "bilinear",
+                                   "align_corners": True}, grad=[0],
+             id="interpolate-bilinear-corners-scale"),
+        Case("interpolate", [R((2, 4, 5, 3), 158)],
+             {"size": [6, 2], "mode": "bilinear", "align_corners": True,
+              "data_format": "NHWC"}, grad=[0],
+             id="interpolate-bilinear-corners-nhwc"),
+        Case("interpolate", [X3], {"size": [9], "mode": "linear",
+                                   "align_corners": True,
+                                   "data_format": "NCW"}, grad=[0],
+             id="interpolate-linear-corners"),
+        Case("interpolate", [X4], {"scale_factor": 2}, grad=[0],
+             id="interpolate-nearest"),
+        Case("upsample", [X4], {"size": [5, 8], "mode": "bilinear",
+                                "align_corners": True}, grad=[0]),
+        Case("bilinear", [R((3, 4), 159), R((3, 5), 160), R((2, 4, 5), 161),
+                          R((2,), 162)], grad=[0, 1, 2, 3], tol=RED),
+        Case("bilinear", [R((3, 4), 163), R((3, 5), 164), R((2, 4, 5), 165)],
+             grad=[0, 1, 2], tol=RED, id="bilinear-no-bias"),
+        Case("affine_grid", [R((2, 2, 3), 166), [2, 3, 4, 5]], grad=[0],
+             tol=RED),
+        Case("affine_grid", [R((2, 2, 3), 167), [2, 3, 4, 5]],
+             {"align_corners": False}, grad=[0], tol=RED,
+             id="affine_grid-centres"),
+        Case("grid_sample", [X4, R((2, 3, 2, 2), 168) * 0.7], grad=[0, 1],
+             tol=RED),
+        Case("grid_sample", [X4, R((2, 3, 2, 2), 169) * 0.7],
+             {"align_corners": False, "padding_mode": "border"},
+             grad=[0, 1], tol=RED, id="grid_sample-border-centres"),
+        Case("grid_sample", [X4, R((2, 3, 2, 2), 170) * 0.7],
+             {"mode": "nearest"}, grad=[0], tol=RED,
+             id="grid_sample-nearest"),
+        Case("fold_", [R((2, 12, 12), 171), [4, 5], 2], grad=[0], tol=RED),
+        Case("fold", [R((2, 12, 9), 172), [5, 4], 2, 2, 1], grad=[0],
+             tol=RED, id="fold-stride-padding"),
+        Case("unfold", [X4, 2], grad=[0]),
+        Case("unfold", [X4, [2, 3], 2, [1, 0, 2, 1], 1], grad=[0],
+             id="unfold-stride-asymmetric"),
+        Case("unfold", [X4, 2, 1, 0, 2], grad=[0], id="unfold-dilation"),
+        Case("temporal_shift", [R((4, 8, 2, 2), 173), 2], grad=[0]),
+        Case("temporal_shift", [R((6, 6, 2, 2), 174), 3],
+             {"shift_ratio": 0.5}, grad=[0], id="temporal_shift-half"),
+        Case("diag_embed", [R((2, 3), 175)], grad=[0]),
+        Case("diag_embed", [R((2, 3), 176)], {"offset": 1, "dim1": 0,
+                                              "dim2": 2},
+             grad=[0], id="diag_embed-offset-dims"),
+        Case("diag_embed", [R((4,), 177)], {"offset": -2}, grad=[0],
+             id="diag_embed-below"),
+        Case("gather_tree", [R((4, 2, 3), 178, "k"),
+                             np.random.default_rng(179).integers(
+                                 0, 3, (4, 2, 3)).astype(np.int32)]),
+        Case("sequence_mask", [np.array([2, 0, 4], np.int32)], x64=True),
+        Case("sequence_mask", [np.array([2, 0, 4], np.int32)],
+             {"maxlen": 6, "dtype": "float32"}, id="sequence_mask-maxlen"),
+    ]
+    return C
+
+
+def common_layer_cases():
+    """``nn/layer_common.py``'s layers (``Linear`` and ``Embedding`` with
+    the JAX package's weights carried across)."""
+    X4 = R((2, 3, 4, 5), 180)
+    L = [
+        LayerCase("Identity", [X4], grad=[0], ctor=(3, "unused")),
+        LayerCase("Linear", [R((3, 4), 181)], grad=[0], ctor=(4, 6),
+                  tol=RED),
+        LayerCase("Embedding", [R((3, 4), 182, "k")], ctor=(5, 6),
+                  ctor_kw={"padding_idx": 1}),
+        LayerCase("Dropout", [X4], grad=[0], ctor=(0.3,), train=False),
+        LayerCase("Dropout2D", [X4], grad=[0], ctor=(0.3,), train=False),
+        LayerCase("Dropout3D", [R((2, 3, 2, 2, 2), 183)], grad=[0],
+                  ctor=(0.3,), train=False),
+        LayerCase("AlphaDropout", [X4], grad=[0], ctor=(0.3,), train=False),
+        LayerCase("Flatten", [X4], grad=[0]),
+        LayerCase("Flatten", [X4], grad=[0], ctor=(0, 2), id="Flatten-0-2"),
+        LayerCase("Unflatten", [R((2, 12, 5), 184)], grad=[0],
+                  ctor=(1, [3, 4])),
+        LayerCase("Pad1D", [R((2, 3, 6), 185)], grad=[0], ctor=([1, 2],),
+                  ctor_kw={"mode": "reflect"}),
+        LayerCase("Pad2D", [X4], grad=[0], ctor=([1, 0, 2, 1],),
+                  ctor_kw={"value": 1.5}),
+        LayerCase("Pad3D", [R((1, 2, 3, 3, 4), 186)], grad=[0],
+                  ctor=([1, 1, 0, 1, 1, 0],), ctor_kw={"mode": "replicate"}),
+        LayerCase("ZeroPad2D", [X4], grad=[0], ctor=([2, 1, 0, 1],)),
+        LayerCase("Upsample", [X4], grad=[0], ctor=(None, 2)),
+        LayerCase("Upsample", [X4], grad=[0], ctor=([6, 7], None, "bilinear",
+                                                  True),
+                  id="Upsample-bilinear-corners"),
+        LayerCase("UpsamplingNearest2D", [X4], grad=[0], ctor=([8, 10],)),
+        LayerCase("UpsamplingBilinear2D", [X4], grad=[0], ctor=(None, 2)),
+        LayerCase("Bilinear", [R((3, 4), 187), R((3, 5), 188)],
+                  grad=[0, 1], ctor=(4, 5, 2), tol=RED),
+        LayerCase("CosineSimilarity", [R((3, 4), 189), R((3, 4), 190)],
+                  grad=[0, 1], tol=RED),
+        LayerCase("PairwiseDistance", [R((3, 4), 191), R((3, 4), 192)],
+                  grad=[0, 1], tol=RED),
+        LayerCase("PairwiseDistance", [R((3, 4), 193), R((3, 4), 194)],
+                  grad=[0, 1], ctor=(1.0, 1e-6, True), tol=RED,
+                  id="PairwiseDistance-p1-keepdim"),
+        LayerCase("PixelShuffle", [R((2, 8, 3, 3), 195)], grad=[0],
+                  ctor=(2,)),
+        LayerCase("PixelUnshuffle", [R((2, 2, 4, 6), 196)], grad=[0],
+                  ctor=(2,)),
+        LayerCase("ChannelShuffle", [R((2, 6, 2, 2), 197)], grad=[0],
+                  ctor=(2,)),
+        LayerCase("Fold", [R((2, 12, 12), 198)], grad=[0],
+                  ctor=([4, 5], 2), tol=RED),
+        LayerCase("Unfold", [X4], grad=[0], ctor=(2, 1, 1)),
+    ]
+    return L
+
+
 def all_cases():
     """``(group, case)`` for every case: ``F`` (``nn.functional``) or
     ``nn`` (a layer)."""
     return ([("F", c) for c in activation_cases() + norm_cases() +
-             loss_cases()] + [("nn", c) for c in layer_cases()])
+             loss_cases() + common_cases()] +
+            [("nn", c) for c in layer_cases() + common_layer_cases()])
 
 
 # the random activations: ``(name, draw(F, x, **generator), check)``; the
@@ -484,12 +664,41 @@ def _gumbel(F, to_tensor, **g):
     return F.gumbel_softmax(x, 0.5, hard=True, **g)
 
 
-RANDOM = [("rrelu", _rrelu), ("gumbel_softmax", _gumbel)]
+def _dropout2d(F, to_tensor, **g):
+    x = to_tensor(np.ones((N_DRAWS // 10, 10, 2, 2), np.float32))
+    return F.dropout2d(x, 0.25, **g)
+
+
+def _alpha_dropout(F, to_tensor, **g):
+    x = to_tensor(np.random.default_rng(9).standard_normal(
+        N_DRAWS).astype(np.float32))
+    return F.alpha_dropout(x, 0.2, **g)
+
+
+RANDOM = [("rrelu", _rrelu), ("gumbel_softmax", _gumbel),
+          ("dropout2d", _dropout2d), ("alpha_dropout", _alpha_dropout)]
 
 
 def random_check(name, out: np.ndarray):
     """Raise AssertionError unless ``out`` (a draw of RANDOM's ``name``) has
     the distribution the JAX package's draws have."""
+    if name == "dropout2d":
+        # whole channels kept (scaled by 1 / 0.75) or dropped, a quarter
+        # of them dropped
+        per_channel = out.reshape(out.shape[0], out.shape[1], -1)
+        assert np.all(per_channel.min(-1) == per_channel.max(-1))
+        kept = per_channel[..., 0]
+        assert set(np.unique(kept).tolist()) <= {0.0, np.float32(1 / 0.75)}
+        assert abs((kept == 0).mean() - 0.25) < 0.015, (kept == 0).mean()
+        return
+    if name == "alpha_dropout":
+        # a standard normal input keeps mean 0 and variance 1; the dropped
+        # fifth sit at one value
+        assert abs(out.mean()) < 0.03 and abs(out.var() - 1) < 0.05, \
+            (out.mean(), out.var())
+        vals, counts = np.unique(out, return_counts=True)
+        assert abs(counts.max() / out.size - 0.2) < 0.015
+        return
     if name == "rrelu":
         slope = -out
         assert slope.min() >= 0.1 - 1e-6 and slope.max() <= 0.3 + 1e-6

@@ -21,10 +21,16 @@ rule) before its op. This
   against torch's method called directly on the same tensor
   (``torch.Tensor.<name>(x, ...)``, no dispatcher), in turns, each the
   median of ``--rounds`` windows of ``--reps`` calls;
+* times ``__getitem__`` the same way, on a facade tensor (``x[1:3]``) and
+  on a layer's parameter (``param[0]``), against
+  ``torch.Tensor.__getitem__``: the cost of the Python indexing that
+  turns negative-step slices into a flip;
 * prints one JSON object: ``calls_per_step`` by model and name,
   ``us_per_call`` by timed call (``facade``, ``torch``, ``dispatcher`` =
-  their difference), and ``dispatcher_ms_per_step``: each model's calls
-  times the timed calls' median dispatcher µs.
+  their difference), ``dispatcher_ms_per_step``: each model's calls
+  times the timed calls' median dispatcher µs, and the same for
+  indexing (``index_us_per_call``, ``index_ms_per_step``: each model's
+  ``__getitem__`` calls times the indexing's median).
 
     python3 tools/torch_method_cost.py [--reps 20000] [--rounds 5]
         [--device cpu|cuda] [--root DIR]
@@ -153,10 +159,11 @@ def _window_us(fn, reps) -> float:
     return (time.perf_counter() - t0) * 1e6 / reps
 
 
-def time_calls(reps, rounds) -> dict:
+def time_calls(reps, rounds):
     """µs per call, facade method against torch's, as the BERT step
     calls them (torch's arguments reach torch's method through the
-    dispatcher; Paddle's reach Paddle's op)."""
+    dispatcher; Paddle's reach Paddle's op); then the same for indexing.
+    Returns the two dicts."""
     x = paddle.to_tensor(np.ones((4, 8), np.float32))
     m = paddle.to_tensor(np.zeros((4, 8), bool))
     T = torch.Tensor
@@ -171,6 +178,17 @@ def time_calls(reps, rounds) -> dict:
                             lambda: T.reshape(x, [8, 4])),
         "unsqueeze(1)": (lambda: x.unsqueeze(1), lambda: T.unsqueeze(x, 1)),
     }
+    # indexing: the facade's and the parameters' ``__getitem__`` (which
+    # turns negative-step slices into a flip) against torch's own
+    w = paddle.nn.Linear(8, 4).weight
+    index = {
+        "x[1:3]": (lambda: x[1:3], lambda: T.__getitem__(x, slice(1, 3))),
+        "param[0]": (lambda: w[0], lambda: T.__getitem__(w, 0)),
+    }
+    return _time_pairs(calls, reps, rounds), _time_pairs(index, reps, rounds)
+
+
+def _time_pairs(calls, reps, rounds) -> dict:
     out = {}
     for name, (facade, plain) in calls.items():
         f, p = [], []
@@ -204,8 +222,10 @@ def main() -> int:
             float(step())                  # warm: the optimizer's state
             counts[model] = count_calls(step)
     with paddle.device_guard("cpu"):
-        us = time_calls(args.reps, args.rounds)
+            us, index_us = time_calls(args.reps, args.rounds)
     per_call = float(np.median([v["dispatcher"] for v in us.values()]))
+    per_index = float(np.median([v["dispatcher"] for v in
+                                 index_us.values()]))
     print(json.dumps({
         "count_device": args.device,
         "calls_per_step": {k: dict(v.most_common())
@@ -216,6 +236,9 @@ def main() -> int:
         "dispatcher_us_median": per_call,
         "dispatcher_ms_per_step": {k: sum(v.values()) * per_call / 1e3
                                    for k, v in counts.items()},
+        "index_us_per_call": index_us,
+        "index_ms_per_step": {k: v["__getitem__"] * per_index / 1e3
+                              for k, v in counts.items()},
     }))
     return 0
 
