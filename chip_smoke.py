@@ -324,15 +324,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
     classifier repeats the next step bit for bit.
 28. **The nn slice on the card.** Every case of
     ``tests/test_torch_nn_cases.py`` (each name of the JAX package's
-    activation, norm and loss functionals and of its norm, activation and
-    loss layers: the kinks, every reduction, the affine-less batch norms
-    of F18 on rows 8, 9 and 11) on CUDA Paddle tensors against the same
-    call on CPU Paddle tensors at 10x the case's CPU tolerance (at least
-    1e-5): values, dtypes, the gradients of the listed inputs and of a
-    layer's parameters, its buffers after the call, every output on the
-    card; ``rrelu`` and ``gumbel_softmax`` drawn on the card by
-    distribution and repeated under a CUDA ``generator``. Prints one line
-    ``nn_cases`` with every failure.
+    activation, norm, loss, common, pooling and CRF functionals and of its
+    norm, activation, loss, common, pooling and recurrent layers: the
+    kinks, every reduction, the affine-less batch norms of F18 on rows 8,
+    9 and 11, ``return_mask`` on tied windows, cuDNN's LSTM / GRU / RNN
+    against the CPU's) on CUDA Paddle tensors against the same call on CPU
+    Paddle tensors at 10x the case's CPU tolerance (at least 1e-5):
+    values, dtypes, the gradients of the listed inputs and of a layer's
+    parameters, its buffers after the call, every output on the card;
+    ``rrelu`` and ``gumbel_softmax`` drawn on the card by distribution and
+    repeated under a CUDA ``generator``; and three steps of each optimizer
+    the port added (``SGD``, ``Lars``, ``Ftrl``, ``Adagrad``, ``Adamax``,
+    ``AdaDelta``/``Adadelta``, ``RMSProp``, ``Lamb``: weight decay, a
+    global-norm clip, a ``StepDecay`` schedule) on the card against the
+    CPU at 10x the CPU tests' 1e-5. Prints one line ``nn_cases`` with
+    every failure.
 29. **MobileNetV2 ImageNet training and eval (the tenth main path).**
     ``paddle.vision.models.mobilenet_v2()`` (3,504,872 parameters, 52
     batch norms at 13 widths, seeded weights) at Sandler et al. 2018's
@@ -416,6 +422,54 @@ Phases, each fatal on failure (non-zero exit, no result line):
     on both paths, and the paths' beam scores lay within it before
     (``beam_divergence``, on the candidates the decoder's own sort
     ranked); prints ms a decode step, sentences/s and idle share.
+32. **An attention LSTM seq2seq (the twelfth main path).** First row 7
+    alone at the shapes the path's attention scores take (``ls_sm_shapes``:
+    each seeded batch's f32 ``[rows, 1, S]``, S its longest source, here
+    ``[128, 1, 50]`` in training and ``[320, 1, 48]`` in beam search, and
+    ``[320, 1, 50]`` at the length limit) with ragged pads at -1e9:
+    against its plain version, repeats
+    bit for bit, its autograd gradient; timed beside its plain version,
+    ``torch.softmax`` and its bound. Then the user script below
+    (``ls_model``: Luong et al. 2015's global attention with the "general"
+    score and input feeding at the IWSLT'15 En-Vi widths of PaddleNLP's
+    ``examples/machine_translation/seq2seq``: ``nn.Embedding(17191, 512)``
+    into ``nn.LSTM(512, 512, num_layers=2, dropout=0.2)``;
+    ``nn.Embedding(7709, 512)`` into ``nn.RNN`` over a cell of two
+    ``nn.LSTMCell``s, ``(1024 -> 512)`` and ``(512 -> 512)``, fed the
+    target embedding and the previous attentional state, dropout 0.2 on
+    each cell's output; ``scores = paddle.matmul(paddle.unsqueeze(h, [1]),
+    W_a(enc_out), transpose_y=True)`` with the source pads at -1e9,
+    ``F.softmax`` (row 7), the context ``p @ enc_out``, ``tanh(W_c [ctx;
+    h])``; ``Linear(512, 7709)`` without bias; 26,935,808 seeded
+    parameters) trains eagerly in f32 (TF32 off in matmuls and cuDNN) with
+    ``Adam(1e-3)`` and ``nn.ClipGradByGlobalNorm(5.0)`` on two seeded
+    batches of 128 cycled (ragged lengths 5-50, each target a fixed token
+    map of its source), the loss the example's ``CrossEntropyCriterion``
+    (``F.cross_entropy(reduction="none")`` masked by ``F.sequence_mask``,
+    summed over the steps of the batch mean). Two warm-up steps, then
+    slope+readback timing with the counters zeroed just before and read
+    just after: one row-7 launch per decoder step (the batch's padded
+    target length a step), one row-6 launch a step, no flash or LayerNorm;
+    two more under ``torch.profiler``; the eval loss over both batches
+    falls; a ``save`` -> ``load`` into a fresh model and optimizer resumes
+    bit for bit; row 6 held to its plain version over the path's whole
+    parameter list and timed beside ``torch.optim.Adam(fused=True,
+    capturable=True)``. Prints step ms, target tokens/s, busy ms, idle
+    share, kernels a step and peak memory. Then ``nn.LSTM`` (cuDNN) against
+    two ``nn.RNN(nn.LSTMCell)`` layers over the same weights at ``[128,
+    50, 512]``: outputs, final states and every gradient within 1e-5; and
+    the f32 check at full width and depth, batch 16, dropout 0: three
+    steps on the kernel path (rows 6-7) within 1e-4 of the plain path.
+33. **LSTM beam search.** Phase 32's weights in f32 decode 32 sources
+    through ``nn.BeamSearchDecoder(cell, 0, 1, beam_size=10,
+    embedding_fn=..., output_fn=...)`` and ``nn.dynamic_decode(
+    max_step_num=100, memory=...)``, the encoder's outputs and mask tiled
+    by ``tile_beam_merge_with_batch``; once with the end token and once
+    with an end token past the vocabulary (every sentence to the limit).
+    Each: one row-7 launch a decode step at ``[320, 1, S]`` and no other
+    kernel; the kernel path's ids equal the plain path's, or part at a
+    near tie (``beam_divergence``); prints ms a decode step, sentences/s
+    and idle share.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -4968,6 +5022,8 @@ def nn_layer_run(paddle, cases, case, place, state=None):
     gradient}, state after the call, state before it)``."""
     with paddle.device_guard(place):
         def t(v):
+            if callable(v):      # a layer argument (cases.make)
+                return v(paddle.nn)
             return paddle.to_tensor(v) if isinstance(v, np.ndarray) else v
         with paddle.utils.unique_name.guard():
             layer = getattr(paddle.nn, case.op)(
@@ -4982,20 +5038,92 @@ def nn_layer_run(paddle, cases, case, place, state=None):
                 for i, a in enumerate(case.args)]
         kw = {k: op_tensors(paddle, v, False) for k, v in case.kw.items()}
         out = layer(*args, **kw)
-        w = cases.R(tuple(out.shape), 99)
-        (out * paddle.to_tensor(w)).sum().backward()
+        first = op_leaves(out)[0]     # a recurrent layer's output sequence
+        w = cases.R(tuple(first.shape), 99)
+        (first * paddle.to_tensor(w)).sum().backward()
         grads = [args[i].grad for i in case.grad]
         pgrads = {k: p.grad for k, p in layer.named_parameters()}
         return out, grads, pgrads, layer.state_dict(), before
 
 
+# the optimizers phase 28 steps on the card against the CPU: each name the
+# port added, with its constructor's keywords (weight decay where it takes
+# one), a global-norm clip and a StepDecay schedule
+NN_OPTIMIZERS = (("SGD", {"weight_decay": 0.01}),
+                 ("Lars", {"lars_coeff": 0.01, "weight_decay": 0.01}),
+                 ("Ftrl", {"l1": 0.01, "l2": 0.02, "weight_decay": 0.01}),
+                 ("Adagrad", {"initial_accumulator_value": 0.1,
+                              "weight_decay": 0.01}),
+                 ("Adamax", {"weight_decay": 0.01}),
+                 ("AdaDelta", {"rho": 0.9, "weight_decay": 0.01}),
+                 ("Adadelta", {"epsilon": 1e-5}),
+                 ("RMSProp", {"momentum": 0.9, "centered": True,
+                              "weight_decay": 0.01}),
+                 ("Lamb", {"lamb_weight_decay": 0.05}))
+NN_OPT_TOL = 1e-5    # the CPU tests' (tests/test_torch_optimizers.py)
+
+
+def optimizer_run(paddle, name, kw, place, state=None):
+    """Three steps of ``optimizer.<name>`` (a global-norm clip at 0.5, a
+    StepDecay schedule) over a small net built under ``place`` (its state
+    ``state`` when given), on seeded batches: the parameters after each
+    step, and the net's state before the first."""
+    nn = paddle.nn
+    with paddle.device_guard(place):
+        with paddle.utils.unique_name.guard():
+            net = nn.Sequential(nn.Linear(8, 16), nn.Tanh(),
+                                nn.Linear(16, 4))
+        if state is not None:
+            net.load_state_dict(state)
+        before = {k: v.detach().clone() for k, v in net.state_dict().items()}
+        sched = paddle.optimizer.lr.StepDecay(0.05, step_size=1, gamma=0.5)
+        opt = getattr(paddle.optimizer, name)(
+            learning_rate=sched, parameters=net.parameters(),
+            grad_clip=nn.ClipGradByGlobalNorm(0.5), **kw)
+        out = []
+        for k in range(3):
+            rng = np.random.default_rng(SEED + 150 + k)
+            x = paddle.to_tensor(rng.standard_normal((6, 8)).astype(
+                np.float32))
+            y = paddle.to_tensor(rng.standard_normal((6, 4)).astype(
+                np.float32))
+            d = net(x) - y
+            (d * d).mean().backward()
+            opt.step()
+            sched.step()
+            opt.clear_grad()
+            out.append([p.detach().clone() for p in net.parameters()])
+        return out, before
+
+
+def optimizer_cases_on_card(paddle, card, cases):
+    """Each of NN_OPTIMIZERS three steps on the card against the CPU from
+    the same weights, at OPS_TOL_SCALE x the CPU tolerance: the failures,
+    listed."""
+    failed = []
+    tol = NN_OPT_TOL * OPS_TOL_SCALE
+    for name, kw in NN_OPTIMIZERS:
+        try:
+            want, state = optimizer_run(paddle, name, kw, "cpu")
+            got, _ = optimizer_run(paddle, name, kw, card, state)
+            for step, (w, g) in enumerate(zip(want, got)):
+                op_compare(cases, w, g, tol)
+        except Exception as e:   # noqa: BLE001  (every failure listed)
+            failed.append(f"optimizer.{name}: {type(e).__name__}: "
+                          f"{str(e).strip()[:300]}")
+    return failed
+
+
 def nn_phase(dev):
     """Phase 28 (the module docstring): every case of
-    ``tests/test_torch_nn_cases.py`` on the card against the CPU."""
+    ``tests/test_torch_nn_cases.py`` on the card against the CPU, and
+    three steps of each optimizer of NN_OPTIMIZERS."""
     import paddle1_tpu_torch as paddle
     from paddle1_tpu_torch.nn import functional as F
-    from paddle1_tpu_torch.nn import layer_common, layer_loss, layer_norm_act
-    from paddle1_tpu_torch.nn.functional import activation, common, loss, norm
+    from paddle1_tpu_torch.nn import (layer_common, layer_conv_pool,
+                                      layer_loss, layer_norm_act, layer_rnn)
+    from paddle1_tpu_torch.nn.functional import (activation, common, crf,
+                                                 loss, norm, pooling)
     cases = nn_cases()
     card = f"gpu:{dev.index or 0}"
     counters = bn_counters()
@@ -5047,15 +5175,18 @@ def nn_phase(dev):
         except Exception as e:   # noqa: BLE001
             failed.append(f"random {name}: {type(e).__name__}: "
                           f"{str(e)[:300]}")
+    # RNNCellBase: the cells' abstract base, whose get_initial_states
+    # every cell case runs
     containers = {"Sequential", "LayerList", "ParameterList", "LayerDict",
-                  "collect_stat_updates", "fused_bn_active"}
+                  "collect_stat_updates", "fused_bn_active", "RNNCellBase"}
     ported = set()
-    for m in (activation, norm, loss, common, layer_norm_act, layer_loss,
-              layer_common):
+    for m in (activation, norm, loss, common, pooling, crf, layer_norm_act,
+              layer_loss, layer_common, layer_conv_pool, layer_rnn):
         ported |= set(m.__all__)
     uncovered = sorted(ported - names - containers)
     if uncovered:
         failed.append(f"names without a case on the card: {uncovered}")
+    failed += optimizer_cases_on_card(paddle, card, cases)
     # the batch norms among the cases ran the kernels, the affine-less
     # ones (F18) included
     for k in ("fused_bn_train", "fused_bn_norm", "fused_bn_train_bwd"):
@@ -5065,6 +5196,7 @@ def nn_phase(dev):
     out = {"nn_cases": {
         "names": len(names), "cases": n_cases,
         "random": len(cases.RANDOM), "bn_launches": launches,
+        "optimizers": [n for n, _ in NN_OPTIMIZERS],
         "seconds": time.perf_counter() - t0, "failed": failed}}
     log(json.dumps(out))
     check(not failed, f"the nn slice failed {len(failed)} checks on the "
@@ -6222,6 +6354,714 @@ def beam_search_run(paddle, model, b, max_step, end):
             "top_kernels": prof["top_kernels"]}
 
 
+# ---------------------------------------------------------------------------
+# phases 32-33: an attention LSTM encoder-decoder (the twelfth main path)
+
+# Luong et al. 2015's global attention (the "general" score, input feeding)
+# at the IWSLT'15 English->Vietnamese widths of PaddleNLP's
+# examples/machine_translation/seq2seq: source vocabulary 17191, target
+# vocabulary 7709, embedding = hidden = 512, 2 layers, dropout 0.2, the
+# embeddings and projections uniform in +-0.1 (--init_scale 0.1; the LSTMs
+# keep their own +-1/sqrt(512)), Adam(1e-3) with a global-norm clip at 5.0,
+# batch 128, training sentences of at most 50 tokens. Ids as the
+# example's: 0 begins a sentence, 1 ends it and pads it.
+LS_SRC_VOCAB, LS_TGT_VOCAB, LS_D, LS_LAYERS = 17191, 7709, 512, 2
+LS_DROPOUT, LS_INIT, LS_LR, LS_CLIP = 0.2, 0.1, 1e-3, 5.0
+LS_BOS, LS_EOS = 0, 1
+LS_BATCH, LS_MIN_LEN, LS_MAX_LEN = 128, 5, 50
+LS_PARAMS = 26935808
+LS_STEPS = 8
+# the f32 check's batch (full width and depth, dropout 0)
+LS_REF_BATCH = 16
+# beam search: the example's beam 10 over 32 sources, at most 100 steps
+# (twice the training length limit)
+LS_BEAM, LS_BEAM_BATCH, LS_BEAM_MAX_STEP = 10, 32, 100
+# the seeds of phase 32's two training batches and phase 33's decode batch
+LS_TRAIN_SEED, LS_BEAM_SEED = SEED + 161, SEED + 167
+LS_PLAIN_FLAGS = dict(PLAIN_FLAGS, fused_softmax="never")
+
+
+def ls_model(paddle, src_vocab=LS_SRC_VOCAB, tgt_vocab=LS_TGT_VOCAB,
+             d=LS_D, layers=LS_LAYERS, dropout=LS_DROPOUT,
+             init_scale=LS_INIT):
+    """The translation model of the user script: ``nn.Embedding(src_vocab,
+    d)`` into ``nn.LSTM(d, d, layers, dropout=dropout)``; the decoder
+    ``nn.Embedding(tgt_vocab, d)`` into ``nn.RNN`` over an attention cell
+    (``layers`` ``nn.LSTMCell``s, the first fed the target embedding and
+    the previous attentional state, dropout on each cell's output; Luong's
+    "general" score ``h W_a e_s`` over the encoder's outputs, the padded
+    sources at -1e9, ``F.softmax`` (row 7), the context ``p @ e``, the
+    attentional state ``tanh(W_c [ctx; h])``), then ``Linear(d,
+    tgt_vocab)`` without bias. ``nn.RNN`` passes the cell no keyword
+    arguments, so :meth:`forward` sets the encoder's outputs on the cell
+    (``cell.memory``) for the call; beam search passes them through
+    ``dynamic_decode(..., memory=...)``."""
+    nn, F = paddle.nn, paddle.nn.functional
+
+    def uniform():
+        return paddle.ParamAttr(initializer=nn.initializer.Uniform(
+            -init_scale, init_scale))
+
+    class AttentionCell(nn.RNNCellBase):
+        def __init__(self):
+            super().__init__()
+            self.hidden_size = d
+            self.lstm = nn.LayerList([nn.LSTMCell(2 * d if i == 0 else d, d)
+                                      for i in range(layers)])
+            self.dropout = nn.Dropout(dropout)
+            self.w_a = nn.Linear(d, d, weight_attr=uniform(),
+                                 bias_attr=False)
+            self.w_c = nn.Linear(2 * d, d, weight_attr=uniform(),
+                                 bias_attr=False)
+            self.memory = None
+
+        def forward(self, step_input, states, memory=None):
+            values, keys, bias = memory if memory is not None else \
+                self.memory
+            lstm_states, feed = states
+            x = paddle.concat([step_input, feed], 1)
+            new_states = []
+            for cell, st in zip(self.lstm, lstm_states):
+                h, st = cell(x, st)
+                x = self.dropout(h)
+                new_states.append(st)
+            scores = paddle.matmul(paddle.unsqueeze(x, [1]), keys,
+                                   transpose_y=True)
+            p = F.softmax(scores + bias)
+            ctx = paddle.squeeze(paddle.matmul(p, values), [1])
+            out = paddle.tanh(self.w_c(paddle.concat([ctx, x], 1)))
+            return out, [new_states, out]
+
+    class Seq2SeqAttn(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.src_embedding = nn.Embedding(src_vocab, d,
+                                              weight_attr=uniform())
+            self.encoder = nn.LSTM(d, d, layers, dropout=dropout)
+            self.tgt_embedding = nn.Embedding(tgt_vocab, d,
+                                              weight_attr=uniform())
+            self.decoder = nn.RNN(AttentionCell())
+            self.output = nn.Linear(d, tgt_vocab, weight_attr=uniform(),
+                                    bias_attr=False)
+
+        def encode(self, src):
+            """The encoder's outputs, ``W_a`` of them and the pads' -1e9
+            ``[B, 1, S]`` (the cell's ``memory``), and the decoder's
+            initial states: each layer's final ``(h, c)`` and a zero
+            attentional state."""
+            values, (h, c) = self.encoder(self.src_embedding(src))
+            keep = (src != LS_EOS).astype("float32")
+            bias = paddle.unsqueeze((keep - 1.0) * 1e9, [1])
+            cell = self.decoder.cell
+            states = [[(h[i], c[i]) for i in range(layers)],
+                      cell.get_initial_states(values)]
+            return (values, cell.w_a(values), bias), states
+
+        def forward(self, src, tgt_in):
+            memory, states = self.encode(src)
+            self.decoder.cell.memory = memory
+            try:
+                h, _ = self.decoder(self.tgt_embedding(tgt_in), states)
+            finally:
+                self.decoder.cell.memory = None
+            return self.output(h)
+
+    return Seq2SeqAttn()
+
+
+def ls_batch_arrays(rng, batch, src_vocab=LS_SRC_VOCAB,
+                    tgt_vocab=LS_TGT_VOCAB, min_len=LS_MIN_LEN,
+                    max_len=LS_MAX_LEN):
+    """One seeded batch as numpy arrays: sources of ragged length in
+    [min_len, max_len], padded with the end id to the batch's longest;
+    each target a fixed token map of its source (a synthetic translation a
+    model can learn), fed as [begin, y] and scored as [y, end], padded with
+    the end id. ``sequence_length`` is not passed: both packages' LSTMs
+    ignore it, so the encoder runs over the pads and the attention's -1e9
+    hides them; the loss masks the target's pads by
+    ``F.sequence_mask``."""
+    lens = rng.integers(min_len, max_len + 1, batch)
+    s = int(lens.max())
+    src = rng.integers(2, src_vocab, (batch, s))
+    src[np.arange(s)[None, :] >= lens[:, None]] = LS_EOS
+    y = (src * 7 + 11) % (tgt_vocab - 2) + 2
+    tgt_in = np.full((batch, s + 1), LS_EOS, np.int64)
+    label = np.full((batch, s + 1), LS_EOS, np.int64)
+    for i, n in enumerate(lens):
+        tgt_in[i, 0], tgt_in[i, 1:n + 1] = LS_BOS, y[i, :n]
+        label[i, :n] = y[i, :n]
+    return {"src": src.astype(np.int64), "tgt_in": tgt_in,
+            "label": label[..., None], "tgt_len": (lens + 1).astype(np.int64),
+            "tokens": int((lens + 1).sum()), "src_steps": s,
+            "tgt_steps": s + 1}
+
+
+def ls_tensors(paddle, arrays):
+    """A batch of :func:`ls_batch_arrays` as Paddle tensors on the current
+    place."""
+    return {k: paddle.to_tensor(v) if isinstance(v, np.ndarray) else v
+            for k, v in arrays.items()}
+
+
+def ls_batch(paddle, rng, batch, *sizes):
+    """One seeded batch (:func:`ls_batch_arrays`) as Paddle tensors."""
+    return ls_tensors(paddle, ls_batch_arrays(rng, batch, *sizes))
+
+
+def ls_path_arrays():
+    """The batches phases 32-33 run, from their seeds: the two training
+    batches of LS_BATCH and the decode batch of LS_BEAM_BATCH."""
+    rng = np.random.default_rng(LS_TRAIN_SEED)
+    train = [ls_batch_arrays(rng, LS_BATCH) for _ in range(2)]
+    beam = ls_batch_arrays(np.random.default_rng(LS_BEAM_SEED), LS_BEAM_BATCH)
+    return train, beam
+
+
+def ls_sm_shapes():
+    """Row 7's ``(rows, S)`` on this path, for f32 ``[rows, 1, S]``
+    attention scores: each training batch's ``(LS_BATCH, S)`` and the
+    decode batch's ``(LS_BEAM_BATCH x LS_BEAM, S)``, S the batch's longest
+    source as :func:`ls_path_arrays` builds it, and both row counts at the
+    length limit LS_MAX_LEN."""
+    train, beam = ls_path_arrays()
+    rows = {(LS_BATCH, b["src_steps"]) for b in train}
+    rows.add((LS_BEAM_BATCH * LS_BEAM, beam["src_steps"]))
+    rows |= {(LS_BATCH, LS_MAX_LEN), (LS_BEAM_BATCH * LS_BEAM, LS_MAX_LEN)}
+    return sorted(rows)
+
+
+def ls_loss(paddle, logits, label, tgt_len):
+    """The example's ``CrossEntropyCriterion``: per-token cross entropy,
+    the target's pads masked by ``F.sequence_mask``, summed over the steps
+    of the batch mean (the real target tokens' loss over the batch)."""
+    F = paddle.nn.functional
+    ce = paddle.squeeze(F.cross_entropy(logits, label, reduction="none"),
+                        [2])
+    mask = F.sequence_mask(tgt_len, maxlen=int(label.shape[1]),
+                           dtype="float32")
+    return paddle.sum(paddle.mean(ce * mask, axis=[0]))
+
+
+def ls_optimizer(paddle, model, lr=LS_LR):
+    """``Adam(lr)`` with ``nn.ClipGradByGlobalNorm(5.0)``."""
+    return paddle.optimizer.Adam(
+        learning_rate=lr, parameters=model.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(LS_CLIP))
+
+
+def ls_step_fn(paddle, model, opt, batches):
+    """One eager f32 training step over the batches in turn:
+    ``loss.backward(); opt.step(); opt.clear_grad()``. ``step.trail``
+    lists each step's decoder steps (the batch's padded target length)."""
+    trail = []
+
+    def step():
+        b = batches[len(trail) % len(batches)]
+        trail.append(b["tgt_steps"])
+        loss = ls_loss(paddle, model(b["src"], b["tgt_in"]), b["label"],
+                       b["tgt_len"])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    step.trail = trail
+    return step
+
+
+def ls_decode(paddle, model, src, beam=LS_BEAM, max_step_num=LS_BEAM_MAX_STEP,
+              end_token=LS_EOS, beam_decoder=None):
+    """Beam search (``beam`` > 1, ``nn.BeamSearchDecoder`` over the
+    attention cell with ``embedding_fn`` the target embedding and
+    ``output_fn`` the output projection, the encoder's outputs tiled by
+    ``tile_beam_merge_with_batch``) or greedy decoding (``beam`` = 1,
+    ``BasicDecoder`` and ``GreedyEmbeddingHelper``) through
+    ``nn.dynamic_decode(..., memory=...)`` in eval mode under
+    ``no_grad``. Returns the token ids, ``[B, T, beam]`` (the final
+    beams, best first) or ``[B, T]``. ``beam_decoder``: the beam-search
+    class (``nn.BeamSearchDecoder`` when None)."""
+    nn = paddle.nn
+    model.eval()
+    with paddle.no_grad():
+        memory, states = model.encode(src)
+        cell = model.decoder.cell
+        if beam == 1:
+            helper = nn.GreedyEmbeddingHelper(
+                model.tgt_embedding,
+                paddle.full([int(src.shape[0])], LS_BOS, "int64"), end_token)
+            out, _ = nn.dynamic_decode(
+                nn.BasicDecoder(cell, helper, model.output), inits=states,
+                max_step_num=max_step_num, memory=memory)
+            ids = out.sample_ids
+        else:
+            tile = nn.BeamSearchDecoder.tile_beam_merge_with_batch
+            dec = (beam_decoder or nn.BeamSearchDecoder)(
+                cell, LS_BOS, end_token, beam,
+                embedding_fn=model.tgt_embedding, output_fn=model.output)
+            ids, _ = nn.dynamic_decode(dec, inits=states,
+                                       max_step_num=max_step_num,
+                                       memory=tile(memory, beam))
+    model.train()
+    return ids
+
+
+def ls_eval_loss(paddle, model, batches):
+    """The mean loss over ``batches`` in eval mode (no dropout) under
+    ``no_grad``; the model goes back to training mode."""
+    model.eval()
+    with paddle.no_grad():
+        losses = [float(ls_loss(paddle, model(b["src"], b["tgt_in"]),
+                                b["label"], b["tgt_len"])) for b in batches]
+    model.train()
+    return float(np.mean(losses))
+
+
+def ls_counters():
+    """The launch counters the path reads: rows 6 and 7, and the kernels
+    it must not launch (flash, LayerNorm)."""
+    from paddle1_tpu_torch.ops import softmax as psm
+    return {**train_counters(), "softmax": psm.fused_softmax}
+
+
+def ls_softmax_hold(dev):
+    """Row 7 alone at :func:`ls_sm_shapes`, f32 ``[rows, 1, S]`` scores with a
+    ragged tail of pads at -1e9 (as the attention adds them): against its
+    plain version (SM_TOL), repeats bit-identical, its autograd gradient
+    against plain autograd; timed by graph replay beside its plain
+    version, ``torch.softmax`` and its bound (x read once, y written once,
+    five f32 operations an element)."""
+    from paddle1_tpu_torch.ops import softmax as psm
+    out = []
+    for rows, s in ls_sm_shapes():
+        g = torch.Generator(device=dev).manual_seed(SEED + 170 + rows)
+        xs = []
+        for _ in range(4):
+            x = torch.randn(rows, 1, s, device=dev, generator=g) * 4
+            lens = torch.randint(LS_MIN_LEN, s + 1, (rows,), device=dev,
+                                 generator=g)
+            pad = torch.arange(s, device=dev)[None, :] >= lens[:, None]
+            xs.append(x - 1e9 * pad[:, None, :].float())
+        y = psm.softmax_fwd(xs[0])
+        err = float((y - psm.softmax_ref(xs[0])).abs().max())
+        tag = f"[{rows}, 1, {s}] f32"
+        check(err <= SM_TOL, f"softmax {tag}: err {err} > {SM_TOL}")
+        check(torch.equal(psm.softmax_fwd(xs[0]), y),
+              f"softmax {tag}: a repeat differs")
+        dy = torch.randn(rows, 1, s, device=dev, generator=g)
+        xk = xs[1].clone().requires_grad_(True)
+        psm.fused_softmax(xk).backward(dy)
+        xr = xs[1].clone().requires_grad_(True)
+        torch.softmax(xr, dim=-1).backward(dy)
+        grad_err = float((xk.grad - xr.grad).abs().max())
+        check(grad_err <= SM_TOL, f"softmax {tag}: autograd dx differs by "
+              f"{grad_err}")
+        t = {"ms": graph_time_ms([lambda x=x: psm.softmax_fwd(x)
+                                  for x in xs]),
+             "plain_ms": graph_time_ms([lambda x=x: psm.softmax_ref(x)
+                                        for x in xs]),
+             "library_ms": graph_time_ms([lambda x=x: torch.softmax(x, dim=-1)
+                                          for x in xs])}
+        need = 2 * rows * s * 4
+        b_ms, by = bound(need, 5.0 * rows * s, F32_FLOPS_PER_S)
+        out.append({"shape": [rows, 1, s], "dtype": "float32", **t,
+                    "max_abs_err": err, "autograd_max_abs_err": grad_err,
+                    "path": psm.plan(rows, s, 4).path,
+                    "library_covers": "torch.softmax (last axis)",
+                    "bound_ms": b_ms, "bound_by": by, "bound_bytes": need,
+                    "input_sets": len(xs)})
+        log(f"softmax f32 {tag}: err {err:.3e}, kernel {t['ms']:.5f} ms, "
+            f"plain {t['plain_ms']:.5f} ms, torch.softmax "
+            f"{t['library_ms']:.5f} ms, bound {b_ms:.6f} ms ({by}) "
+            f"({card_line()})")
+    return out
+
+
+def ls_adam_hold(paddle, model, opt, batch):
+    """Row 6 over the path's whole parameter list (copies of the
+    parameters and of Adam's moments after phase 32's steps, and the
+    gradients of one more step's loss on ``batch``), one launch against
+    the plain version per tensor (:func:`adam_check`) at the path's rate
+    and the optimizer's next bias corrections; then timed in five
+    alternating rounds of graph replays beside
+    ``torch.optim.Adam(fused=True, capturable=True)`` on the same
+    tensors, and the plain per-tensor update and its bound."""
+    from paddle1_tpu_torch.ops import fused_adam as fad
+    ls_loss(paddle, model(batch["src"], batch["tgt_in"]), batch["label"],
+            batch["tgt_len"]).backward()
+    state, params = opt.state_dict(), list(model.parameters())
+    m1, m2 = ([v for k, v in state.items() if k.endswith(f"__{slot}")]
+              for slot in ("moment1", "moment2"))
+    check(len(m1) == len(m2) == len(params), f"Adam's state holds "
+          f"{len(m1)} / {len(m2)} moments for {len(params)} parameters")
+    ts = ([p.detach().clone() for p in params],
+          [p.grad.detach().clone() for p in params], m1, m2)
+    opt.clear_grad()
+    t = state["step"] + 1
+    sc = torch.tensor([LS_LR, 1 - 0.9 ** t, 1 - 0.999 ** t],
+                      device=params[0].device)
+    n_el = sum(p.nelement() for p in params)
+    err = adam_check(fad, ts, sc, [0.0] * len(params), None,
+                     f"LSTM seq2seq ({len(params)} tensors, {n_el} "
+                     f"elements)", (0.9, 0.999, 1e-8))
+    ps, gs, _, _ = ts
+    lib_ps = [torch.nn.Parameter(p.detach().clone()) for p in ps]
+    for p, q in zip(lib_ps, gs):
+        p.grad = q
+    lib_opt = torch.optim.Adam(lib_ps, lr=LS_LR, fused=True,
+                               capturable=True)
+    decs = [0.0] * len(ps)
+    times = alternating_ms({
+        "kernel": lambda: fad.fused_adam_(ps, gs, m1, m2, sc, decs, 0.9,
+                                          0.999, 1e-8),
+        "library": lib_opt.step})
+
+    def plain():
+        for p, q, a, b in zip(ps, gs, m1, m2):
+            np_, na, nb = fad.fused_adam_ref(p, q, a, b, sc[0], sc[1], sc[2],
+                                             0.0, 0.9, 0.999, 1e-8)
+            p.copy_(np_)
+            a.copy_(na)
+            b.copy_(nb)
+    plain_ms = graph_time_ms([plain], reps=5)
+    b_ms, by = bound(28.0 * n_el, 12.0 * n_el, F32_FLOPS_PER_S)
+    out = {"tensors": len(ps), "elements": n_el, "max_abs_err": err,
+           "ms": times["kernel"]["median_ms"],
+           "ms_spread": times["kernel"]["spread_ms"],
+           "library_ms": times["library"]["median_ms"],
+           "library_ms_spread": times["library"]["spread_ms"],
+           "library": "torch.optim.Adam(fused=True, capturable=True)",
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by}
+    log(f"fused_adam at the LSTM seq2seq's {len(ps)} tensors ({n_el} "
+        f"elements, f32): kernel {out['ms']:.5f} ms, library "
+        f"{out['library_ms']:.5f} ms, plain {plain_ms:.5f} ms, bound "
+        f"{b_ms:.5f} ms ({by}) ({card_line()})")
+    del ts, ps, gs, lib_ps, lib_opt, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def lstm_seq2seq_phase(dev):
+    """Phase 32 (the module docstring): eager f32 training of the attention
+    LSTM seq2seq on two cycled batches of 128."""
+    import os
+    import tempfile
+    import paddle1_tpu_torch as paddle
+    t0 = time.perf_counter()
+    paddle.seed(SEED + 160)
+    with paddle.utils.unique_name.guard():
+        model = ls_model(paddle)
+    n_params = sum(p.nelement() for p in model.parameters())
+    check(n_params == LS_PARAMS, f"the LSTM seq2seq has {n_params} "
+          f"parameters, want {LS_PARAMS}")
+    check(all(p.device.type == "cuda" and p.dtype == torch.float32
+              for p in model.parameters()), "the model is not f32 on the "
+          "card")
+    batches = [ls_tensors(paddle, a) for a in ls_path_arrays()[0]]
+    check(all((LS_BATCH, b["src_steps"]) in ls_sm_shapes() for b in batches),
+          "lstm seq2seq: a training batch's row-7 shape is not held alone")
+    opt = ls_optimizer(paddle, model)
+    step = ls_step_fn(paddle, model, opt, batches)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eval0 = ls_eval_loss(paddle, model, batches)
+    torch.cuda.reset_peak_memory_stats()
+    loss0 = float(step())
+    step()
+    counters = ls_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    mark = len(step.trail)
+    slopes, last, steps = timed_steps(step, LS_STEPS)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    decoder_steps = sum(step.trail[mark:])
+    loss_end = float(last)
+    eval_end = ls_eval_loss(paddle, model, batches)
+    check(np.isfinite(loss0) and np.isfinite(loss_end),
+          f"lstm seq2seq: non-finite loss {loss0} / {loss_end}")
+    check(eval_end < eval0, f"lstm seq2seq: the loss over the batches did "
+          f"not fall: {eval0} -> {eval_end} (training {loss0} -> "
+          f"{loss_end})")
+    want = {"softmax": decoder_steps, "fused_adam": steps,
+            "flash_attention": 0, "flash_attention_bwd_dkv": 0,
+            "flash_attention_bwd_dq": 0, "layer_norm": 0}
+    for k, n in want.items():
+        check(launches[k] == n, f"lstm seq2seq: {k} launched {launches[k]} "
+              f"times in {steps} steps ({decoder_steps} decoder steps), "
+              f"want {n}")
+    peak = torch.cuda.max_memory_allocated()
+    dt = float(np.median(slopes))
+    tokens = float(np.mean([b["tokens"] for b in batches]))
+    prof = device_kernels_per_step(step, 2)
+    busy = prof["device_busy_ms_per_step"]
+
+    # a save -> load into a fresh model and optimizer resumes bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lstm_seq2seq.pdckpt")
+        paddle.save({"model": model.state_dict(), "opt": opt.state_dict()},
+                    path)
+        ck = paddle.load(path)
+    with paddle.utils.unique_name.guard():
+        fresh = ls_model(paddle)
+    fmissing, funexpected = fresh.set_state_dict(ck["model"])
+    fopt = ls_optimizer(paddle, fresh)
+    fopt.set_state_dict(ck["opt"])
+    del ck
+    check(fmissing == [] and funexpected == [], f"lstm seq2seq resume: "
+          f"missing {fmissing}, unexpected {funexpected}")
+
+    def one_step(m, o):
+        torch.manual_seed(SEED + 162)
+        return float(ls_step_fn(paddle, m, o, batches[:1])())
+    on, resumed = one_step(model, opt), one_step(fresh, fopt)
+    resume_equal = on == resumed and all(
+        torch.equal(a, b) for a, b in zip(model.parameters(),
+                                          fresh.parameters()))
+    check(resume_equal, f"lstm seq2seq: a step after save/load differs "
+          f"from the uninterrupted run: {on} vs {resumed}")
+    del fresh, fopt
+    adam = ls_adam_hold(paddle, model, opt, batches[1])
+    summary = {
+        "train": "lstm_attention_seq2seq_eager_f32", "tf32": False,
+        "params": n_params, "batch": LS_BATCH,
+        "source_steps": [b["src_steps"] for b in batches],
+        "target_steps": [b["tgt_steps"] for b in batches],
+        "real_target_tokens": [b["tokens"] for b in batches],
+        "init_s": init_s, "steps": steps, "timing": "slope+readback",
+        "step_ms_median": dt * 1e3, "step_ms_min": min(slopes) * 1e3,
+        "step_ms_max": max(slopes) * 1e3,
+        "target_tokens_per_s": tokens / dt,
+        "loss_first": loss0, "loss_last": loss_end,
+        "eval_loss_before": eval0, "eval_loss_after": eval_end,
+        "peak_mem_gb": peak / 1e9, "peak_mem_gib": peak / 2 ** 30,
+        "launches": launches, "decoder_steps": decoder_steps,
+        "launches_per_step": {k: n / steps for k, n in launches.items()},
+        "device_busy_ms_per_step": busy,
+        "device_idle_share": 1.0 - busy / (dt * 1e3),
+        "kernels_per_step": prof["kernels_per_step"],
+        "resume_loss": [on, resumed], "resume_bit_identical": resume_equal,
+        "adam": adam, "profile": prof}
+    log(f"lstm seq2seq: {dt * 1e3:.2f} ms a step, {tokens / dt:.0f} target "
+        f"tokens/s, busy {busy:.2f} ms, idle "
+        f"{summary['device_idle_share']:.3f}, "
+        f"{prof['kernels_per_step']:.0f} kernels a step, peak "
+        f"{peak / 1e9:.2f} GB ({card_line()})")
+    log(json.dumps({"lstm_seq2seq": summary}))
+    return model, summary
+
+
+def lstm_cell_equivalence(dev):
+    """``nn.LSTM`` (one ``_VF.lstm`` call a layer: cuDNN) against two
+    ``nn.RNN(nn.LSTMCell)`` layers (one ``_VF.lstm_cell`` a step) over the
+    same weights, at the path's encoder shape (f32 ``[128, 50, 512]``, 2
+    layers, TF32 off): outputs and final states within 1e-5 (abs and
+    rel), the gradients of the input and of every weight within 1e-5 of
+    each one's largest element (cuDNN sums a weight's gradient over all
+    6400 rows in one product, the cells step by step: the orders differ by
+    f32 rounding, 4.0e-5 absolute on a weight gradient whose largest
+    element is 46 on an NVIDIA H100 80GB HBM3)."""
+    import paddle1_tpu_torch as paddle
+    paddle.seed(SEED + 163)
+    with paddle.utils.unique_name.guard():
+        net = paddle.nn.LSTM(LS_D, LS_D, LS_LAYERS)
+        cells = [paddle.nn.RNN(paddle.nn.LSTMCell(LS_D, LS_D))
+                 for _ in range(LS_LAYERS)]
+    for k, rnn in enumerate(cells):
+        rnn.cell.set_state_dict({n: getattr(net, f"{n}_l{k}") for n in (
+            "weight_ih", "weight_hh", "bias_ih", "bias_hh")})
+    g = torch.Generator(device=dev).manual_seed(SEED + 164)
+    x = torch.randn(LS_BATCH, LS_MAX_LEN, LS_D, device=dev, generator=g)
+    w = torch.randn(LS_BATCH, LS_MAX_LEN, LS_D, device=dev, generator=g)
+    xa, xb = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    out_a, (h_a, c_a) = net(xa)
+    y, finals = xb, []
+    for rnn in cells:
+        y, st = rnn(y)
+        finals.append(st)
+    h_b = torch.stack([s[0] for s in finals])
+    c_b = torch.stack([s[1] for s in finals])
+    ((out_a * w).sum() + h_a.sum() + c_a.sum()).backward()
+    ((y * w).sum() + h_b.sum() + c_b.sum()).backward()
+    pairs = [("output", out_a, y), ("h", h_a, h_b), ("c", c_a, c_b),
+             ("grad x", xa.grad, xb.grad)]
+    for k, rnn in enumerate(cells):
+        for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+            pairs.append((f"grad {n}_l{k}", getattr(net, f"{n}_l{k}").grad,
+                          getattr(rnn.cell, n).grad))
+    errs, scales = {}, {}
+    for name, a, b in pairs:
+        errs[name] = float((a - b).abs().max())
+        scales[name] = float(b.abs().max())
+        ok = errs[name] <= 1e-5 * scales[name] if name.startswith("grad") \
+            else bool(torch.isclose(a, b, rtol=1e-5, atol=1e-5).all())
+        check(ok, f"nn.LSTM against nn.RNN(nn.LSTMCell): {name} differs by "
+              f"{errs[name]} (its largest element {scales[name]})")
+    out = {"lstm_cell_equivalence": {
+        "shape": [LS_BATCH, LS_MAX_LEN, LS_D], "layers": LS_LAYERS,
+        "tol": 1e-5, "max_abs_err": errs, "max_abs": scales}}
+    log(json.dumps(out))
+    return out
+
+
+def lstm_reference_check(dev):
+    """Phase 32's f32 check (TF32 off): the path at full width and depth,
+    batch LS_REF_BATCH, dropout 0, REF_STEPS steps on the kernel path
+    (rows 6-7) against the plain path (every kernel flag ``never``) from
+    the same seeded weights: losses and parameters within REF_TOL."""
+    import paddle1_tpu_torch as paddle
+    from paddle1_tpu_torch.core.flags import flags_guard
+    counters = ls_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    rng = np.random.default_rng(SEED + 165)
+    runs = {}
+    for path, flags in (("kernel", {}), ("plain", LS_PLAIN_FLAGS)):
+        with flags_guard(**flags):
+            paddle.seed(SEED + 166)
+            with paddle.utils.unique_name.guard():
+                m = ls_model(paddle, dropout=0.0)
+            if not runs:
+                bs = [ls_batch(paddle, rng, LS_REF_BATCH) for _ in range(2)]
+            step = ls_step_fn(paddle, m, ls_optimizer(paddle, m), bs)
+            mark = {k: fn.launches for k, fn in counters.items()}
+            losses = [float(step()) for _ in range(REF_STEPS)]
+            torch.cuda.synchronize()
+            runs[path] = (m, losses, {k: fn.launches - mark[k]
+                                      for k, fn in counters.items()})
+    (mk, lk, nk), (mp, lp, np_) = runs["kernel"], runs["plain"]
+    for k in counters:
+        counters[k].launches = before[k]
+    check(nk["softmax"] > 0 and nk["fused_adam"] == REF_STEPS,
+          f"the kernel path skipped a kernel: {nk}")
+    check(all(n == 0 for n in np_.values()), f"the plain path launched a "
+          f"kernel: {np_}")
+    loss_err = max(abs(a - c) for a, c in zip(lk, lp))
+    sk, sp = mk.state_dict(), mp.state_dict()
+    param_err = max(float((sk[k] - sp[k]).abs().max()) for k in sk)
+    out = {"lstm_seq2seq_reference": {
+        "batch": LS_REF_BATCH, "dtype": "float32", "tf32": False,
+        "steps": REF_STEPS, "losses_kernel": lk, "losses_plain": lp,
+        "max_loss_err": loss_err, "max_param_err": param_err,
+        "tol": REF_TOL, "kernel_launches": nk}}
+    log(json.dumps(out))
+    check(loss_err <= REF_TOL, f"lstm seq2seq reference: losses differ by "
+          f"{loss_err}: {lk} vs {lp}")
+    check(param_err <= REF_TOL, f"lstm seq2seq reference: params differ "
+          f"by {param_err}")
+    del runs, mk, mp
+    torch.cuda.empty_cache()
+    return out
+
+
+def lstm_decode_phase(dev, model):
+    """Phase 33 (the module docstring): beam search with phase 32's
+    weights in f32, with the end token, and with an end token past the
+    vocabulary, so that every sentence runs to the step limit."""
+    import paddle1_tpu_torch as paddle
+    b = ls_tensors(paddle, ls_path_arrays()[1])
+    ls_decode(paddle, model, b["src"], LS_BEAM, 2)   # warm-up
+    out = {"decode": "lstm_seq2seq_beam_search", "dtype": "float32",
+           "beam": LS_BEAM, "sentences": LS_BEAM_BATCH,
+           "longest_source": b["src_steps"],
+           "max_step_num": LS_BEAM_MAX_STEP}
+    for tag, end in (("end_token", LS_EOS), ("length_limit", LS_TGT_VOCAB)):
+        out[tag] = ls_beam_run(paddle, model, b, end)
+        r = out[tag]
+        log(f"lstm beam search ({tag}): {r['ms_per_step']:.3f} ms a step "
+            f"over {r['steps']} steps, {r['sentences_per_s']:.2f} "
+            f"sentences/s, idle {r['device_idle_share']:.3f} "
+            f"({card_line()})")
+    check(out["length_limit"]["steps"] == LS_BEAM_MAX_STEP + 1,
+          f"beam search at the step limit made "
+          f"{out['length_limit']['steps']} steps, want "
+          f"{LS_BEAM_MAX_STEP + 1}")
+    log(json.dumps({"lstm_beam_search": out}))
+    return out
+
+
+def ls_beam_run(paddle, model, b, end):
+    """One beam search over batch ``b``: timed with the counters zeroed
+    just before and read just after (one row-7 launch a decode step, at
+    ``[B x beam, 1, S]``; nothing else), profiled once, then traced on the
+    kernel path and the plain path, whose ids must be equal, or part only
+    at a near tie (:func:`beam_divergence`)."""
+    from paddle1_tpu_torch.core.flags import flags_guard
+    from paddle1_tpu_torch.ops import softmax as psm
+    src = b["src"]
+    counters = ls_counters()
+    shapes = []
+    real = psm.softmax_fwd
+
+    def recording(x):
+        shapes.append(tuple(x.shape))
+        return real(x)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = ls_decode(paddle, model, src, LS_BEAM, LS_BEAM_MAX_STEP, end)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    n_steps = int(ids.shape[1])
+    check(list(ids.shape) == [LS_BEAM_BATCH, n_steps, LS_BEAM] and
+          1 <= n_steps <= LS_BEAM_MAX_STEP + 1, f"beam search: ids of shape "
+          f"{list(ids.shape)}")
+    want = {k: 0 for k in counters}
+    want["softmax"] = n_steps
+    for k, n in want.items():
+        check(launches[k] == n, f"lstm beam search: {k} launched "
+              f"{launches[k]} times over {n_steps} steps, want {n}")
+    psm.softmax_fwd = recording
+    try:
+        ls_decode(paddle, model, src, LS_BEAM, 1, end)
+    finally:
+        psm.softmax_fwd = real
+    want_shape = (LS_BEAM_BATCH * LS_BEAM, 1, b["src_steps"])
+    check(shapes and all(s == want_shape for s in shapes),
+          f"lstm beam search: row 7 ran at {shapes}, want {want_shape}")
+    check((want_shape[0], want_shape[2]) in ls_sm_shapes(),
+          f"lstm beam search: row 7's shape {want_shape} is not held alone")
+    prof = device_kernels_per_step(
+        lambda: ls_decode(paddle, model, src, LS_BEAM, LS_BEAM_MAX_STEP,
+                          end).sum(), 1)
+    busy = prof["device_busy_ms_per_step"]
+    ids_by_path, traces = {}, {}
+    for path, flags in (("kernel", {}), ("plain", LS_PLAIN_FLAGS)):
+        with flags_guard(**flags):
+            traces[path] = []
+            ids_by_path[path] = ls_decode(
+                paddle, model, src, LS_BEAM, LS_BEAM_MAX_STEP, end,
+                traced_beam_decoder(paddle, traces[path]))
+    ik, ip = ids_by_path["kernel"], ids_by_path["plain"]
+    equal = ik.shape == ip.shape and torch.equal(ik, ip)
+    divergence = beam_divergence(traces["kernel"], traces["plain"], LS_BEAM,
+                                 LS_TGT_VOCAB)
+    check(equal or divergence is not None, "lstm beam search: the paths' "
+          "ids differ but their steps chose alike")
+    if divergence is not None:
+        d = divergence
+        gaps = (d["gap_kernel"], d["gap_plain"])
+        log(f"lstm beam search: the kernel and plain paths part at step "
+            f"{d['step']} of sentence {d['sentence']}, rank {d['rank']}: "
+            f"{d['kernel_choice']} against {d['plain_choice']} ([parent, "
+            f"token]), {gaps[0]} apart on the kernel path, {gaps[1]} on "
+            f"the plain path (the paths' scores {d['score_err_before']:.3e} "
+            f"apart before it)")
+        check(None not in gaps and max(gaps) <= LOGIT_TOL and
+              d["score_err_before"] <= LOGIT_TOL,
+              f"lstm beam search: the paths part where the swapped "
+              f"candidates are not a near tie within {LOGIT_TOL}: {d}")
+    return {"end_token": end, "steps": n_steps, "seconds": dt,
+            "ms_per_step": dt * 1e3 / n_steps,
+            "sentences_per_s": LS_BEAM_BATCH / dt,
+            "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / (dt * 1e3),
+            "kernels_per_decode": prof["kernels_per_step"],
+            "launches": launches, "softmax_shape": list(want_shape),
+            "beams_ending": float((ids == end).any(1).float().mean()),
+            "ids_equal_to_plain": equal, "divergence": divergence,
+            "tolerance": LOGIT_TOL, "top_kernels": prof["top_kernels"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -6338,6 +7178,19 @@ def main() -> int:
                 "transformer_beam_search": tf_dec["end_token"]["launches"],
                 "transformer_beam_search_length_limit":
                     tf_dec["length_limit"]["launches"]}
+
+    ls_sm = ls_softmax_hold(dev)
+    lsm, ls_train = lstm_seq2seq_phase(dev)
+    ls_dec = lstm_decode_phase(dev, lsm)
+    del lsm
+    torch.cuda.empty_cache()
+    lstm_cell_equivalence(dev)
+    lstm_reference_check(dev)
+    torch.cuda.empty_cache()
+    ls_paths = {"lstm_seq2seq_train": ls_train["launches"],
+                "lstm_seq2seq_beam_search": ls_dec["end_token"]["launches"],
+                "lstm_seq2seq_beam_search_length_limit":
+                    ls_dec["length_limit"]["launches"]}
 
     mn_paths = {"mobilenet_v2_train": mn["launches_train"],
                 "mobilenet_v2_eval": mn["launches_eval"],
@@ -6491,7 +7344,8 @@ def main() -> int:
                "ernie": ernie["launches"]["fused_adam"],
                "bert_finetune": ft["launches"]["fused_adam"],
                **{k: v["fused_adam"] for k, v in amp_paths.items()},
-               "transformer": tf_train["launches"]["fused_adam"]}
+               "transformer": tf_train["launches"]["fused_adam"],
+               "lstm_seq2seq_train": ls_train["launches"]["fused_adam"]}
     line.append({
         "name": "fused_adam", "route": "cuda", "source": src + "fused_adam.cu",
         "replaces": pallas + "fused_adam.py:39",
@@ -6500,7 +7354,8 @@ def main() -> int:
                            [c["max_abs_err"] for c in
                             f16k["fused_adam"]["cases"]] +
                            [adam_e["max_abs_err"],
-                            adam_e["max_abs_err_bf16"]]),
+                            adam_e["max_abs_err_bf16"],
+                            ls_train["adam"]["max_abs_err"]]),
         "f16": f16k["fused_adam"],
         "ms": adam["ms"], "ms_mixed_lr_scales": adam["ms_mixed_lr_scales"],
         "f32": adam["f32"], "bf16": adam["bf16"],
@@ -6508,7 +7363,9 @@ def main() -> int:
         "bound_ms": adam["bound_ms"], "bound_by": adam["bound_by"],
         "library_ms": adam["library_ms"], "tensors": adam["tensors"],
         "elements": adam["elements"], "cases": adam["cases"],
-        "ernie_scale": adam_e})
+        "ernie_scale": adam_e,
+        # the LSTM seq2seq's 27 M f32 parameters (phase 32)
+        "lstm_seq2seq_scale": ls_train["adam"]})
     bn_rows = (("fused_bn_train", "fused_bn.cu", "fused_bn.py:90",
                 ("train_fwd_kernel",)),
                ("fused_bn_norm", "fused_bn.cu", "fused_bn.py:245",
@@ -6572,14 +7429,16 @@ def main() -> int:
                       bn_regs["fused_bn.moments_kernel"]},
         "timing_cases": mom_times, "cases": mom_errs})
     main_case = sm_times[0]     # LeNet's prediction, [64, 10]
-    n_sm = lenet["predict_launches"]["softmax"]
-    n_mn = mn["launches_eval"]["softmax"]
+    sm_paths = {"lenet_predict": lenet["predict_launches"]["softmax"],
+                "mobilenet_v2_eval": mn["launches_eval"]["softmax"],
+                **{k: v["softmax"] for k, v in ls_paths.items()}}
     line.append({
         "name": "softmax", "route": "cuda", "source": src + "softmax.cu",
-        "replaces": pallas + "softmax.py:40", "launches": n_sm + n_mn,
-        "launches_by_path": {"lenet_predict": n_sm,
-                             "mobilenet_v2_eval": n_mn},
-        "max_abs_err": max(c["max_abs_err"] for c in sm_errs),
+        "replaces": pallas + "softmax.py:40",
+        "launches": sum(sm_paths.values()), "launches_by_path": sm_paths,
+        "max_abs_err": max(c["max_abs_err"] for c in sm_errs + ls_sm),
+        # the LSTM seq2seq's attention scores (phases 32-33), f32
+        "lstm_seq2seq_cases": ls_sm,
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],

@@ -5,8 +5,9 @@ every layer of the JAX package's ``layer_common.py``,
 ``layer_norm_act.py``, ``layer_loss.py`` and ``layer_transformer.py``
 (``MultiHeadAttention``, the encoder, the decoder and ``Transformer``),
 the seq2seq decoding of ``decode.py`` (``BeamSearchDecoder``,
-``dynamic_decode``, ...), ``ParamAttr``; Conv2D, MaxPool2D,
-AdaptiveAvgPool2D; and the gradient clips (``ClipGradByValue``,
+``dynamic_decode``, ...), ``ParamAttr``; the recurrent layers of
+``layer_rnn.py``; Conv2D and every pooling layer of ``layer_conv_pool.py``;
+and the gradient clips (``ClipGradByValue``,
 ``ClipGradByNorm``, ``ClipGradByGlobalNorm``, ``clip_grad_norm_``,
 ``clip_grad_value_``)."""
 
@@ -18,8 +19,8 @@ from .layer_base import (HookRemoveHelper, Layer, LayerDict,  # noqa: F401
                          LayerList, ParameterList, Sequential)
 from ..framework.param_attr import ParamAttr  # noqa: F401
 from .layer_common import *  # noqa: F401,F403
-from .layer_conv_pool import (AdaptiveAvgPool2D, Conv2D,  # noqa: F401
-                              MaxPool2D)
+from .layer_conv_pool import *  # noqa: F401,F403
 from .layer_loss import *  # noqa: F401,F403
 from .layer_norm_act import *  # noqa: F401,F403
+from .layer_rnn import *  # noqa: F401,F403
 from .layer_transformer import *  # noqa: F401,F403

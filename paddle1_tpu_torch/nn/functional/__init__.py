@@ -1,13 +1,14 @@
 """Functionals of the port (``paddle1_tpu.nn.functional``): every name of
-the JAX package's ``activation``, ``norm``, ``loss`` and ``common``
-modules, and the subset of ``conv``, ``pooling`` and ``attention`` the
-ported paths run."""
+the JAX package's ``activation``, ``norm``, ``loss``, ``common``,
+``pooling`` and ``crf`` modules, and the subset of ``conv`` and
+``attention`` the ported paths run."""
 
 from .activation import *  # noqa: F401,F403
 from .attention import (attention_ref, paged_attention,  # noqa: F401
                         scaled_dot_product_attention)
 from .common import *  # noqa: F401,F403
+from .crf import *  # noqa: F401,F403
 from .conv import conv2d, fold, unfold  # noqa: F401
 from .loss import *  # noqa: F401,F403
 from .norm import *  # noqa: F401,F403
-from .pooling import adaptive_avg_pool2d, max_pool2d  # noqa: F401
+from .pooling import *  # noqa: F401,F403

@@ -1,5 +1,5 @@
-"""Conv2D, MaxPool2D and AdaptiveAvgPool2D (port of the subset of
-``paddle1_tpu/nn/layer_conv_pool.py`` the conv-net slice runs).
+"""Conv2D and every pooling layer (port of ``Conv2D`` and the pooling
+layers of ``paddle1_tpu/nn/layer_conv_pool.py``).
 
 ``Conv2D.weight`` keeps Paddle's layout ``[out, in / groups, kh, kw]``
 (PyTorch's too), so a state dict crosses from the JAX package unchanged.
@@ -18,7 +18,10 @@ from . import functional as F
 from .initializer import Uniform
 from .layer_base import Layer
 
-__all__ = ["Conv2D", "MaxPool2D", "AdaptiveAvgPool2D"]
+__all__ = ["Conv2D", "MaxPool1D", "MaxPool2D", "MaxPool3D", "AvgPool1D",
+           "AvgPool2D", "AvgPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
+           "AdaptiveAvgPool3D", "AdaptiveMaxPool1D", "AdaptiveMaxPool2D",
+           "AdaptiveMaxPool3D", "MaxUnPool2D"]
 
 
 def _pair(v):
@@ -76,9 +79,11 @@ class Conv2D(Layer):
                 f"stride={self._stride}, padding={self._padding}")
 
 
-class MaxPool2D(Layer):
-    """2-D max pooling; keyword arguments (``ceil_mode``,
-    ``data_format``) go to ``F.max_pool2d``."""
+class _PoolNd(Layer):
+    """A pooling layer: ``kernel_size``, ``stride`` and ``padding``, the
+    other keyword arguments (``ceil_mode``, ``exclusive``,
+    ``return_mask``, ``data_format``) passed to the functional as they
+    are (``paddle1_tpu/nn/layer_conv_pool.py:163-174``)."""
 
     def __init__(self, kernel_size, stride=None, padding=0, **kwargs):
         super().__init__()
@@ -87,23 +92,103 @@ class MaxPool2D(Layer):
         self.padding = padding
         self.kwargs = kwargs
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.max_pool2d(x, self.kernel_size, self.stride, self.padding,
-                            **self.kwargs)
-
     def extra_repr(self) -> str:
         return (f"kernel_size={self.kernel_size}, stride={self.stride}, "
                 f"padding={self.padding}")
 
 
-class AdaptiveAvgPool2D(Layer):
-    """Adaptive average pooling to ``output_size``; ``data_format`` goes
-    to ``F.adaptive_avg_pool2d``."""
+class MaxPool1D(_PoolNd):
+    def forward(self, x):
+        return F.max_pool1d(x, self.kernel_size, self.stride, self.padding,
+                            **self.kwargs)
+
+
+class MaxPool2D(_PoolNd):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.max_pool2d(x, self.kernel_size, self.stride, self.padding,
+                            **self.kwargs)
+
+
+class MaxPool3D(_PoolNd):
+    def forward(self, x):
+        return F.max_pool3d(x, self.kernel_size, self.stride, self.padding,
+                            **self.kwargs)
+
+
+class AvgPool1D(_PoolNd):
+    def forward(self, x):
+        return F.avg_pool1d(x, self.kernel_size, self.stride, self.padding,
+                            **self.kwargs)
+
+
+class AvgPool2D(_PoolNd):
+    def forward(self, x):
+        return F.avg_pool2d(x, self.kernel_size, self.stride, self.padding,
+                            **self.kwargs)
+
+
+class AvgPool3D(_PoolNd):
+    def forward(self, x):
+        return F.avg_pool3d(x, self.kernel_size, self.stride, self.padding,
+                            **self.kwargs)
+
+
+class _AdaptivePoolNd(Layer):
+    """An adaptive pooling layer to ``output_size``. As in the JAX
+    package, the 2-D and 3-D average pools pass their keyword arguments
+    (``data_format``) on; the 1-D pools and the max pools take theirs and
+    pass none (``return_mask`` is not read)."""
 
     def __init__(self, output_size, **kwargs):
         super().__init__()
         self.output_size = output_size
         self.kwargs = kwargs
 
+
+class AdaptiveAvgPool1D(_AdaptivePoolNd):
+    def forward(self, x):
+        return F.adaptive_avg_pool1d(x, self.output_size)
+
+
+class AdaptiveAvgPool2D(_AdaptivePoolNd):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.adaptive_avg_pool2d(x, self.output_size, **self.kwargs)
+
+
+class AdaptiveAvgPool3D(_AdaptivePoolNd):
+    def forward(self, x):
+        return F.adaptive_avg_pool3d(x, self.output_size, **self.kwargs)
+
+
+class AdaptiveMaxPool1D(_AdaptivePoolNd):
+    def forward(self, x):
+        return F.adaptive_max_pool1d(x, self.output_size)
+
+
+class AdaptiveMaxPool2D(_AdaptivePoolNd):
+    def forward(self, x):
+        return F.adaptive_max_pool2d(x, self.output_size)
+
+
+class AdaptiveMaxPool3D(_AdaptivePoolNd):
+    def forward(self, x):
+        return F.adaptive_max_pool3d(x, self.output_size)
+
+
+class MaxUnPool2D(Layer):
+    """``F.max_unpool2d`` of ``(x, indices)`` with the layer's
+    arguments."""
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None, name=None):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.data_format = data_format
+        self.output_size = output_size
+
+    def forward(self, x, indices):
+        return F.max_unpool2d(x, indices, self.kernel_size, self.stride,
+                              self.padding, self.data_format,
+                              self.output_size)

@@ -1,5 +1,7 @@
-"""Optimizers (port of ``Optimizer``, ``Momentum``, ``Adam`` and ``AdamW``
-from ``paddle1_tpu/optimizer/optimizer.py``).
+"""Optimizers (port of every optimizer of
+``paddle1_tpu/optimizer/optimizer.py``: ``Optimizer``, ``SGD``, ``Momentum``,
+``Lars``, ``Ftrl``, ``Adagrad``, ``Adam``, ``AdamW``, ``Adamax``,
+``AdaDelta``, ``RMSProp`` and ``Lamb``).
 
 The Paddle constructor (``learning_rate``, ``parameters``,
 ``weight_decay``, ``grad_clip``) over torch parameters. ``learning_rate``
@@ -22,7 +24,17 @@ bias corrections ``1 - beta^step`` are computed on the parameters' device
 from a device step counter, so no step count is baked into a launch.
 ``Momentum`` follows ``Momentum._update`` (``optimizer.py:268-275``): the
 JAX package has no kernel for it, so it runs as PyTorch ``_foreach``
-ops, one group per device, dtype, learning-rate scale and decay.
+ops, one group per device, dtype, learning-rate scale and decay
+(:meth:`Optimizer._groups`). So do the others, each after its
+``_update`` of ``optimizer.py``: their slots are f32 and their
+arithmetic f32 whatever the parameter's dtype, a bf16 parameter written
+back rounded (the JAX package computes theirs in the parameter's dtype,
+which is the same for f32 parameters). :meth:`Optimizer.minimize` is ``backward`` then
+:meth:`~Optimizer.step`; :meth:`~Optimizer.functional_init` and
+:meth:`~Optimizer.functional_update` are the JAX package's pure
+functions over ``{name: tensor}`` dicts (``optimizer.py:192-208``): the
+same rule on copies, with no clip, regularizer or per-parameter rate, as
+there.
 
 ``parameters`` may be Paddle's param groups, dicts of ``"params"`` with
 an optional ``"learning_rate"`` and ``"weight_decay"``: they are
@@ -36,6 +48,7 @@ it nowhere.
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -45,7 +58,8 @@ from ..core.flags import flag_active
 from ..ops import fused_adam as fadam
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "Adam", "AdamW",
+           "Adamax", "AdaDelta", "RMSProp", "Lamb", "Lars", "Ftrl"]
 
 
 def _coeff(weight_decay) -> float:
@@ -159,13 +173,47 @@ class Optimizer:
             keys.append(n if k == 0 else f"{n}_{k}")
         return keys
 
+    def _slot_init(self, slot: str) -> float:
+        """The value a new slot starts from."""
+        return 0.0
+
     def _slots_for(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
         s = self._slots.get(id(p))
         if s is None:
-            s = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for n in self._slot_names}
+            s = {n: torch.full(p.shape, self._slot_init(n),
+                               dtype=torch.float32, device=p.device)
+                 for n in self._slot_names}
             self._slots[id(p)] = s
         return s
+
+    def _groups(self, params, grads, decay=None):
+        """The parameters by device, dtype, learning-rate scale and L2
+        coefficient (and ``decay(p)`` where given): ``(scale, params, f32
+        params, f32 gradients with the L2 term added, decay)`` per group.
+        The f32 parameters are the parameters themselves where they are
+        f32, else copies that :meth:`_write_back` stores."""
+        groups: Dict[tuple, list] = {}
+        for p, g in zip(params, grads):
+            key = (p.device, p.dtype, self._lr_scale(p), self._l2(p),
+                   None if decay is None else decay(p))
+            groups.setdefault(key, []).append((p, g))
+        for (_, dtype, scale, wd, dec), pgs in groups.items():
+            ps = [p for p, _ in pgs]
+            pf = ps if dtype == torch.float32 else [p.float() for p in ps]
+            gs = [g.float() for _, g in pgs]   # read, never written
+            if wd:
+                gs = torch._foreach_add(gs, pf, alpha=wd)
+            yield scale, ps, pf, gs, dec
+
+    @staticmethod
+    def _write_back(ps, pf) -> None:
+        if pf is not ps:
+            for p, q in zip(ps, pf):
+                p.copy_(q)
+
+    def _slot_lists(self, ps, *slots) -> List[List[torch.Tensor]]:
+        """Each named slot of ``ps``, one list a slot."""
+        return [[self._slots_for(p)[n] for p in ps] for n in slots]
 
     # -- steps --------------------------------------------------------------
 
@@ -217,6 +265,50 @@ class Optimizer:
     def _update(self, params, grads, lr):
         raise NotImplementedError
 
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """``loss.backward()`` then :meth:`step`; returns ``(None,
+        [(param, grad)])`` (``optimizer.py:183-188``)."""
+        loss.backward()
+        self.step()
+        return None, [(p, p.grad) for p in self._params]
+
+    # -- functional path ----------------------------------------------------
+
+    def functional_init(self, params: Dict[str, torch.Tensor]):
+        """``({name: {slot: f32 tensor}}, step 0)`` for a dict of tensors,
+        each slot at the value :meth:`step` starts it from (the JAX
+        package starts every slot at 0 here, ``Adagrad``'s
+        ``initial_accumulator_value`` included)."""
+        return ({k: {n: torch.full(v.shape, self._slot_init(n),
+                                   dtype=torch.float32, device=v.device)
+                     for n in self._slot_names} for k, v in params.items()},
+                torch.zeros((), dtype=torch.int32))
+
+    @torch.no_grad()
+    def functional_update(self, params, grads, opt_state, lr):
+        """Pure: ``(params, grads, (slots, step), lr) -> (new params,
+        (new slots, step + 1))``, dicts of tensors by name. The update
+        rule of :meth:`step` on copies (the inputs are not written), with
+        no clip, regularizer or per-parameter rate; the names feed
+        ``apply_decay_param_fun``. It runs on a shallow copy of this
+        optimizer that holds the copies, so this optimizer's own
+        parameters, slots and step are neither read nor written."""
+        slots, step = opt_state
+        step = step + 1
+        new_params = {k: v.detach().clone() for k, v in params.items()}
+        new_slots = {k: {n: t.detach().clone() for n, t in slots[k].items()}
+                     for k in params}
+        run = copy.copy(self)
+        run._params = list(new_params.values())
+        run._names = list(new_params)
+        run._slots = {id(new_params[k]): new_slots[k] for k in params}
+        run._step_count, run._step_t = int(step), None
+        run._update(run._params,
+                    [grads[k].to(v.dtype) for k, v in params.items()],
+                    float(lr))
+        return new_params, (new_slots, step)
+
     def clear_grad(self, set_to_zero: bool = False) -> None:
         for p in self._params:
             if p.grad is None:
@@ -265,7 +357,8 @@ class Momentum(Optimizer):
     ``p -= lr * v`` (or, with ``use_nesterov``, ``p -= lr * (g +
     momentum * v)``); ``weight_decay`` is an L2 term added to the
     gradient first (a param group's own where it has one). The velocity
-    is f32."""
+    and the arithmetic are f32; a bf16 parameter is written back
+    rounded."""
 
     _slot_names = ("velocity",)
 
@@ -280,24 +373,14 @@ class Momentum(Optimizer):
         self._nesterov = bool(use_nesterov)
 
     def _update(self, params, grads, lr):
-        groups: Dict[Tuple[torch.device, torch.dtype, float, float],
-                     list] = {}
-        for p, g in zip(params, grads):
-            groups.setdefault((p.device, p.dtype, self._lr_scale(p),
-                               self._l2(p)), []).append((p, g))
-        for (_, dtype, scale, wd), pgs in groups.items():
-            ps = [p for p, _ in pgs]
-            gs = [g.to(dtype) for _, g in pgs]
-            if wd:
-                gs = torch._foreach_add(gs, ps, alpha=wd)
-            vs = [self._slots_for(p)["velocity"] for p in ps]
+        for scale, ps, pf, gs, _ in self._groups(params, grads):
+            vs, = self._slot_lists(ps, "velocity")
             torch._foreach_mul_(vs, self._momentum)
-            torch._foreach_add_(vs, [g.float() for g in gs])
-            step = vs if dtype == torch.float32 else \
-                [v.to(dtype) for v in vs]
-            if self._nesterov:
-                step = torch._foreach_add(gs, step, alpha=self._momentum)
-            torch._foreach_add_(ps, step, alpha=-lr * scale)
+            torch._foreach_add_(vs, gs)
+            step = torch._foreach_add(gs, vs, alpha=self._momentum) \
+                if self._nesterov else vs
+            torch._foreach_add_(pf, step, alpha=-lr * scale)
+            self._write_back(ps, pf)
 
 
 class Adam(Optimizer):
@@ -414,3 +497,258 @@ class AdamW(Adam):
         if attr and "weight_decay" in attr:
             return _coeff(attr["weight_decay"])
         return self._coeff
+
+
+class SGD(Optimizer):
+    """``p -= lr * g``, ``weight_decay`` an L2 term added to the gradient
+    (``optimizer.py:247-255``)."""
+
+    def _update(self, params, grads, lr):
+        for scale, ps, pf, gs, _ in self._groups(params, grads):
+            torch._foreach_add_(pf, gs, alpha=-lr * scale)
+            self._write_back(ps, pf)
+
+
+class Lars(Momentum):
+    """LARS (``optimizer.py:278-309``): the momentum step at a layer-wise
+    rate ``lars_coeff * |p| / (|g| + lars_weight_decay * |p| + epsilon)``
+    (1 unless ``lars_weight_decay`` and both norms are positive) on ``g +
+    lars_weight_decay * p``, ``weight_decay`` added to ``g`` first.
+    ``exclude_from_weight_decay`` is taken and not read, as in the JAX
+    package."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 lars_coeff=0.001, lars_weight_decay=0.0005, epsilon=1e-9,
+                 weight_decay=None, grad_clip=None,
+                 exclude_from_weight_decay=None, name=None):
+        super().__init__(learning_rate, momentum, parameters,
+                         weight_decay=weight_decay, grad_clip=grad_clip)
+        self._lars_coeff = float(lars_coeff)
+        self._lars_wd = float(lars_weight_decay)
+        self._epsilon = float(epsilon)
+
+    def _update(self, params, grads, lr):
+        for scale, ps, pf, gs, _ in self._groups(params, grads):
+            vs, = self._slot_lists(ps, "velocity")
+            pn = torch.stack(torch._foreach_norm(pf))
+            gn = torch.stack(torch._foreach_norm(gs))
+            adaptive = (pn > 0) & (gn > 0) if self._lars_wd > 0 else \
+                torch.zeros_like(pn, dtype=torch.bool)
+            local = torch.where(
+                adaptive, self._lars_coeff * pn /
+                (gn + self._lars_wd * pn + self._epsilon),
+                torch.ones_like(pn))
+            d = torch._foreach_add(gs, pf, alpha=self._lars_wd)
+            torch._foreach_mul_(d, list(torch.unbind(lr * scale * local)))
+            torch._foreach_mul_(vs, self._momentum)
+            torch._foreach_add_(vs, d)
+            torch._foreach_sub_(pf, vs)
+            self._write_back(ps, pf)
+
+
+class Ftrl(Optimizer):
+    """FTRL-proximal (``optimizer.py:312-344``): the squared-gradient and
+    linear accumulators, L1 shrinkage; ``l1`` and ``l2`` get the
+    reference kernel's 1e-10 added."""
+
+    _slot_names = ("squared", "linear")
+
+    def __init__(self, learning_rate=0.001, l1=0.0, l2=0.0, lr_power=-0.5,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._ftrl_l1 = float(l1) + 1e-10
+        self._ftrl_l2 = float(l2) + 1e-10
+        self._lr_power = float(lr_power)
+
+    def _update(self, params, grads, lr):
+        l1, l2, power = self._ftrl_l1, self._ftrl_l2, self._lr_power
+        for scale, ps, pf, gs, _ in self._groups(params, grads):
+            lr_p = lr * scale
+            sq, lin = self._slot_lists(ps, "squared", "linear")
+            new_sq = torch._foreach_addcmul(sq, gs, gs)
+            if power == -0.5:
+                a, b = torch._foreach_sqrt(new_sq), torch._foreach_sqrt(sq)
+            else:
+                a = torch._foreach_pow(new_sq, -power)
+                b = torch._foreach_pow(sq, -power)
+            sigma = torch._foreach_div(torch._foreach_sub(a, b), lr_p)
+            y = torch._foreach_add(torch._foreach_div(a, lr_p), 2.0 * l2)
+            torch._foreach_add_(lin, gs)
+            torch._foreach_sub_(lin, torch._foreach_mul(sigma, pf))
+            for p, s_, n_, l_, y_ in zip(pf, sq, new_sq, lin, y):
+                x = l1 * torch.sign(l_) - l_
+                p.copy_(torch.where(torch.abs(l_) > l1, x / y_,
+                                    torch.zeros_like(x)))
+                s_.copy_(n_)
+            self._write_back(ps, pf)
+
+
+class Adagrad(Optimizer):
+    """``m += g^2``, ``p -= lr * g / (sqrt(m) + epsilon)``; ``m`` starts
+    at ``initial_accumulator_value`` (``optimizer.py:347-365``)."""
+
+    _slot_names = ("moment",)
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None,
+                 initial_accumulator_value=0.0, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._epsilon = float(epsilon)
+        self._init_acc = float(initial_accumulator_value)
+
+    def _slot_init(self, slot):
+        return self._init_acc
+
+    def _update(self, params, grads, lr):
+        for scale, ps, pf, gs, _ in self._groups(params, grads):
+            ms, = self._slot_lists(ps, "moment")
+            torch._foreach_addcmul_(ms, gs, gs)
+            den = torch._foreach_sqrt(ms)
+            torch._foreach_add_(den, self._epsilon)
+            torch._foreach_addcdiv_(pf, gs, den, value=-lr * scale)
+            self._write_back(ps, pf)
+
+
+class Adamax(Optimizer):
+    """Adam with the infinity norm (``optimizer.py:475-490``): ``u =
+    max(beta2 * u, |g|)``, ``p -= lr / (1 - beta1^t) * m / (u +
+    epsilon)``."""
+
+    _slot_names = ("moment", "inf_norm")
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._beta1, self._beta2 = float(beta1), float(beta2)
+        self._epsilon = float(epsilon)
+
+    def _update(self, params, grads, lr):
+        b1, b2 = self._beta1, self._beta2
+        for scale, ps, pf, gs, _ in self._groups(params, grads):
+            ms, us = self._slot_lists(ps, "moment", "inf_norm")
+            torch._foreach_mul_(ms, b1)
+            torch._foreach_add_(ms, gs, alpha=1 - b1)
+            torch._foreach_mul_(us, b2)
+            torch._foreach_maximum_(us, torch._foreach_abs(gs))
+            den = torch._foreach_add(us, self._epsilon)
+            lr_t = lr * scale / (1 - b1 ** self._step_count)
+            torch._foreach_addcdiv_(pf, ms, den, value=-lr_t)
+            self._write_back(ps, pf)
+
+
+class AdaDelta(Optimizer):
+    """AdaDelta (``optimizer.py:493-510``): ``upd = g * sqrt(E[du^2] +
+    epsilon) / sqrt(E[g^2] + epsilon)``, ``p -= lr * upd``."""
+
+    _slot_names = ("avg_squared_grad", "avg_squared_update")
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._rho, self._epsilon = float(rho), float(epsilon)
+
+    def _update(self, params, grads, lr):
+        rho, eps = self._rho, self._epsilon
+        for scale, ps, pf, gs, _ in self._groups(params, grads):
+            asg, asu = self._slot_lists(ps, "avg_squared_grad",
+                                        "avg_squared_update")
+            torch._foreach_mul_(asg, rho)
+            torch._foreach_addcmul_(asg, gs, gs, value=1 - rho)
+            num = torch._foreach_sqrt(torch._foreach_add(asu, eps))
+            den = torch._foreach_sqrt(torch._foreach_add(asg, eps))
+            upd = torch._foreach_div(torch._foreach_mul(gs, num), den)
+            torch._foreach_mul_(asu, rho)
+            torch._foreach_addcmul_(asu, upd, upd, value=1 - rho)
+            torch._foreach_add_(pf, upd, alpha=-lr * scale)
+            self._write_back(ps, pf)
+
+
+class RMSProp(Optimizer):
+    """RMSProp (``optimizer.py:513-536``): ``E[g^2]`` (and, ``centered``,
+    ``E[g]``), ``mom = momentum * mom + lr * g / sqrt(E[g^2] - E[g]^2 +
+    epsilon)``, ``p -= mom``."""
+
+    _slot_names = ("mean_square", "mean_grad", "momentum")
+
+    def __init__(self, learning_rate=0.01, rho=0.95, epsilon=1e-6,
+                 momentum=0.0, centered=False, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._rho, self._epsilon = float(rho), float(epsilon)
+        self._momentum = float(momentum)
+        self._centered = bool(centered)
+
+    def _update(self, params, grads, lr):
+        rho = self._rho
+        for scale, ps, pf, gs, _ in self._groups(params, grads):
+            ms, mg, mom = self._slot_lists(ps, "mean_square", "mean_grad",
+                                           "momentum")
+            torch._foreach_mul_(ms, rho)
+            torch._foreach_addcmul_(ms, gs, gs, value=1 - rho)
+            if self._centered:
+                torch._foreach_mul_(mg, rho)
+                torch._foreach_add_(mg, gs, alpha=1 - rho)
+                den = torch._foreach_addcmul(ms, mg, mg, value=-1.0)
+            else:
+                den = [m.clone() for m in ms]
+            torch._foreach_add_(den, self._epsilon)
+            torch._foreach_sqrt_(den)
+            torch._foreach_mul_(mom, self._momentum)
+            torch._foreach_addcdiv_(mom, gs, den, value=lr * scale)
+            torch._foreach_sub_(pf, mom)
+            self._write_back(ps, pf)
+
+
+class Lamb(Optimizer):
+    """LAMB (``optimizer.py:539-568``): the Adam direction plus
+    ``lamb_weight_decay * p`` (a param group's ``weight_decay`` in its
+    place), rescaled by the trust ratio ``|p| / |r|`` (1 unless both are
+    positive). ``exclude_from_weight_decay_fn`` is taken and not read, as
+    in the JAX package (ROADMAP, "Notes on the reference")."""
+
+    _slot_names = ("moment1", "moment2")
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip)
+        self._beta1, self._beta2 = float(beta1), float(beta2)
+        self._epsilon = float(epsilon)
+        self._lamb_wd = float(lamb_weight_decay)
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _l2(self, p) -> float:
+        return 0.0   # the decay is LAMB's own (:meth:`_decay`)
+
+    def _decay(self, p) -> float:
+        attr = getattr(p, "optimize_attr", None)
+        if attr and "weight_decay" in attr:
+            return _coeff(attr["weight_decay"])
+        return self._lamb_wd
+
+    def _update(self, params, grads, lr):
+        b1, b2, t = self._beta1, self._beta2, self._step_count
+        for scale, ps, pf, gs, wd in self._groups(params, grads,
+                                                  self._decay):
+            m1, m2 = self._slot_lists(ps, "moment1", "moment2")
+            torch._foreach_mul_(m1, b1)
+            torch._foreach_add_(m1, gs, alpha=1 - b1)
+            torch._foreach_mul_(m2, b2)
+            torch._foreach_addcmul_(m2, gs, gs, value=1 - b2)
+            den = torch._foreach_div(m2, 1 - b2 ** t)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, self._epsilon)
+            r = torch._foreach_div(m1, 1 - b1 ** t)
+            torch._foreach_div_(r, den)
+            torch._foreach_add_(r, pf, alpha=wd)
+            pn = torch.stack(torch._foreach_norm(pf))
+            rn = torch.stack(torch._foreach_norm(r))
+            trust = torch.where((pn > 0) & (rn > 0), pn / rn,
+                                torch.ones_like(pn))
+            torch._foreach_mul_(r, list(torch.unbind(lr * scale * trust)))
+            torch._foreach_sub_(pf, r)
+            self._write_back(ps, pf)

@@ -65,7 +65,12 @@ versions at Transformer-base's cross-attention shape (128 queries against
 256 keys, bf16, ragged), and that a narrow ``nn.Transformer`` step under
 ``amp.auto_cast`` launches rows 3-5 once per encoder self-attention and
 cross-attention, row 2 once per LayerNorm and row 6 once, and a beam
-search row 3 on the encoder only.
+search row 3 on the encoder only. For the attention LSTM seq2seq they hold
+row 7 to its plain version at the path's attention scores (f32 ``[128, 1,
+50]`` and ``[320, 1, 50]``, ragged pads at -1e9), that a narrow model's
+steps launch row 7 once per decoder step and row 6 once a step and a beam
+search row 7 once a decode step, and ``nn.LSTM`` (cuDNN) equal to
+``nn.RNN(nn.LSTMCell)`` over the same weights, forward and gradients.
 """
 
 import numpy as np
@@ -1484,3 +1489,133 @@ def test_transformer_steps_and_beam_search_launch_the_kernels(dev):
     n = ids.shape[1]
     got = [a - b for a, b in zip(counts(), before)]
     assert got == [2, 0, 0, 4 + 6 * n, 0]
+
+
+@pytest.fixture
+def no_tf32():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+# chip_smoke.ls_sm_shapes(): a training step's [128, 1, 50], a beam step's
+# [320, 1, 48] (whole 16-byte vectors) and the limit's [320, 1, 50] (a
+# scalar head and tail); tests/test_torch_seq2seq.py holds the two equal
+LS_SM_SHAPES = [(128, 50), (320, 48), (320, 50)]
+
+
+@pytest.mark.parametrize("rows,s", LS_SM_SHAPES)
+def test_softmax_at_the_lstm_seq2seq_attention_shapes(dev, rows, s):
+    """Row 7 at ``[rows, 1, s]`` f32 with ragged pads at -1e9: within 1e-6
+    of its plain version, bit-equal on a repeat, the pads at 0, and
+    ``F.softmax`` launching it once."""
+    g = torch.Generator(device=dev).manual_seed(rows + s)
+    x = torch.randn(rows, 1, s, device=dev, generator=g) * 4
+    lens = torch.randint(5, s + 1, (rows,), device=dev, generator=g)
+    pad = torch.arange(s, device=dev)[None, :] >= lens[:, None]
+    x = x - 1e9 * pad[:, None, :].float()
+    before = psm.fused_softmax.launches
+    y = F.softmax(x)
+    assert psm.fused_softmax.launches == before + 1
+    assert float((y - psm.softmax_ref(x)).abs().max()) <= 1e-6
+    assert torch.equal(psm.softmax_fwd(x), y)
+    assert float(y[pad[:, None, :]].abs().max()) == 0.0
+
+
+def test_lstm_seq2seq_steps_and_beam_search_launch_rows_6_and_7(dev):
+    """A narrow model of ``chip_smoke.py``'s attention LSTM seq2seq: each
+    training step launches row 7 once per decoder step (the batch's padded
+    target length) and row 6 once; a beam search launches row 7 once a
+    decode step at ``[B x beam, 1, S]`` and nothing else."""
+    import chip_smoke as cs
+    import paddle1_tpu_torch as paddle
+    paddle.seed(0)
+    with paddle.utils.unique_name.guard():
+        m = cs.ls_model(paddle, 300, 200, 64, 2)
+    rng = np.random.default_rng(0)
+    batches = [cs.ls_batch(paddle, rng, 8, 300, 200, 5, 12)
+               for _ in range(2)]
+    step = cs.ls_step_fn(paddle, m, cs.ls_optimizer(paddle, m), batches)
+    counts = lambda: (psm.fused_softmax.launches,  # noqa: E731
+                      fad.fused_adam_.launches, ln.fused_layer_norm.launches,
+                      fa.flash_fwd.launches)
+    before = counts()
+    losses = [float(step()) for _ in range(3)]
+    got = [a - b for a, b in zip(counts(), before)]
+    assert got == [sum(step.trail), 3, 0, 0]
+    assert all(np.isfinite(losses))
+    before = counts()
+    ids = cs.ls_decode(paddle, m, batches[0]["src"], 3, 6)
+    got = [a - b for a, b in zip(counts(), before)]
+    assert got == [int(ids.shape[1]), 0, 0, 0]
+
+
+def test_lstm_equals_rnn_of_lstm_cells_on_the_card(dev, no_tf32):
+    """``nn.LSTM`` (one cuDNN call a layer) against two
+    ``nn.RNN(nn.LSTMCell)`` layers (one fused cell a step) over the same
+    weights: outputs and final states within 1e-5, every gradient within
+    1e-5 of its largest element (cuDNN sums a weight's gradient over every
+    step in one product, the cells step by step)."""
+    import paddle1_tpu_torch as paddle
+    with paddle.device_guard("gpu:0"), paddle.utils.unique_name.guard():
+        net = paddle.nn.LSTM(32, 48, 2)
+        cells = [paddle.nn.RNN(paddle.nn.LSTMCell(32 if k == 0 else 48, 48))
+                 for k in range(2)]
+    for k, rnn in enumerate(cells):
+        rnn.cell.set_state_dict({n: getattr(net, f"{n}_l{k}") for n in (
+            "weight_ih", "weight_hh", "bias_ih", "bias_hh")})
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(6, 9, 32, device=dev, generator=g)
+    w = torch.randn(6, 9, 48, device=dev, generator=g)
+    xa, xb = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    out_a, (h_a, c_a) = net(xa)
+    y, finals = xb, []
+    for rnn in cells:
+        y, st = rnn(y)
+        finals.append(st)
+    h_b = torch.stack([f[0] for f in finals])
+    c_b = torch.stack([f[1] for f in finals])
+    ((out_a * w).sum() + h_a.sum() + c_a.sum()).backward()
+    ((y * w).sum() + h_b.sum() + c_b.sum()).backward()
+    for a, b in ((out_a, y), (h_a, h_b), (c_a, c_b)):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    grads = [(xa.grad, xb.grad)]
+    for k, rnn in enumerate(cells):
+        grads += [(getattr(net, f"{n}_l{k}").grad, getattr(rnn.cell, n).grad)
+                  for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+    for a, b in grads:
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_lstm_weights_take_cudnn_s_layout_without_a_warning(dev):
+    """On the card each layer's weights become views into one buffer in
+    cuDNN's layout where they are made (no copy and no warning at each
+    call), keep their values and ``Parameter`` objects, and take it again
+    after a move."""
+    import warnings
+    import paddle1_tpu_torch as paddle
+    with paddle.device_guard("gpu:0"), paddle.utils.unique_name.guard():
+        net = paddle.nn.GRU(8, 16, 2, "bidirect")
+    params = list(net.parameters())
+    before = [p.detach().clone() for p in params]
+    x = torch.randn(3, 5, 8, device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        out = net(x)[0]
+        assert torch.equal(net(x)[0], out)
+    assert [id(p) for p in net.parameters()] == [id(p) for p in params]
+    for p, b in zip(params, before):
+        assert torch.equal(p, b)
+    layer0 = net._layer_params(0)
+    base = layer0[0].untyped_storage().data_ptr()
+    assert all(p.untyped_storage().data_ptr() == base for p in layer0)
+    net.to("cpu")
+    net.to(dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        torch.testing.assert_close(net(x)[0], out)

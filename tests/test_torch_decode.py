@@ -296,3 +296,55 @@ def test_sample_embedding_helper_draws_from_the_tempered_softmax(
     p /= p.sum()
     freq = np.bincount(ids, minlength=4) / n
     np.testing.assert_allclose(freq, p, atol=0.01)
+
+
+class _GRUFixture:
+    """``tests/test_decode.py``'s fixture in one package: a ``GRUCell`` whose
+    weights are set from a seeded rng, an embedding and an affine output
+    projection from the same rng."""
+
+    EMB, HID, VOCAB, BATCH = 5, 6, 9, 2
+
+    def __init__(self, pkg, seed=0):
+        rng = np.random.default_rng(seed)
+        e, h, v = self.EMB, self.HID, self.VOCAB
+        self.pkg = pkg
+        self.emb_w = rng.standard_normal((v, e)).astype(np.float32)
+        self.proj_w = rng.standard_normal((h, v)).astype(np.float32) * 2.0
+        self.proj_b = rng.standard_normal(v).astype(np.float32)
+        with tp.utils.unique_name.guard():
+            self.cell = pkg.nn.GRUCell(e, h)
+        for name, shape, scale in (("weight_ih", (3 * h, e), 0.5),
+                                   ("weight_hh", (3 * h, h), 0.5),
+                                   ("bias_ih", (3 * h,), 0.1),
+                                   ("bias_hh", (3 * h,), 0.1)):
+            getattr(self.cell, name).set_value(
+                rng.standard_normal(shape).astype(np.float32) * scale)
+        self.h0 = rng.standard_normal((self.BATCH, h)).astype(np.float32)
+
+    def embedding_fn(self, ids):
+        return self.pkg.nn.functional.embedding(
+            ids, self.pkg.to_tensor(self.emb_w))
+
+    def output_fn(self, h):
+        return self.pkg.matmul(h, self.pkg.to_tensor(self.proj_w)) + \
+            self.pkg.to_tensor(self.proj_b)
+
+
+@pytest.mark.parametrize("beam,end", [(3, 1), (4, 2)], ids=["beam3", "beam4"])
+def test_gru_cell_drives_beam_search_as_in_the_reference(beam, end):
+    out = []
+    for pkg in (jp, tp):
+        fx = _GRUFixture(pkg)
+        dec = pkg.nn.BeamSearchDecoder(fx.cell, 0, end, beam,
+                                       embedding_fn=fx.embedding_fn,
+                                       output_fn=fx.output_fn)
+        out.append(pkg.nn.dynamic_decode(dec, inits=pkg.to_tensor(fx.h0),
+                                         max_step_num=7, return_length=True))
+    (jids, jst, jlen), (tids, tst, tlen) = out
+    _same(jids, tids, "ids")
+    _same(jlen, tlen, "lengths")
+    _same(jst.log_probs, tst.log_probs, "log_probs")
+    _same(jst.finished, tst.finished, "finished")
+    _same(jst.cell_states, tst.cell_states, "cell_states")
+    assert list(tids.shape)[::2] == [_GRUFixture.BATCH, beam]

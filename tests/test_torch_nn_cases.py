@@ -1,12 +1,15 @@
 """The nn slice's cases, without JAX: every name of the JAX package's
-``nn/functional/{activation,norm,loss,common}.py``, ``nn/layer_norm_act.py``,
-``nn/layer_loss.py`` and ``nn/layer_common.py`` ``__all__`` lists (and
-``unfold``/``fold`` of ``nn/functional/conv.py``), on seeded numpy inputs.
+``nn/functional/{activation,norm,loss,common,pooling,crf}.py``,
+``nn/layer_norm_act.py``, ``nn/layer_loss.py``, ``nn/layer_common.py`` and
+``nn/layer_rnn.py`` ``__all__`` lists, the pooling layers of
+``nn/layer_conv_pool.py`` and ``Conv2D`` (and ``unfold``/``fold`` of
+``nn/functional/conv.py``), on seeded numpy inputs.
 
 A :class:`Case` (``tests/test_torch_op_cases.py``) is one call of an
 ``nn.functional`` function; a :class:`LayerCase` builds ``nn.<op>(*ctor,
-**ctor_kw)`` (its numpy arguments made tensors of the package) in training
-or eval mode and calls it. ``tests/test_torch_nn_parity.py`` runs each
+**ctor_kw)`` (its numpy arguments made tensors of the package, a
+:func:`make` argument built as a layer of the package) in training or eval
+mode and calls it. ``tests/test_torch_nn_parity.py`` runs each
 through the JAX package and the port on the CPU (values, dtypes, the
 gradients of the inputs listed in ``grad`` and of every parameter, the
 tensors updated in place); ``chip_smoke.py`` phase 28 runs the port's on
@@ -637,12 +640,205 @@ def common_layer_cases():
     return L
 
 
+def _ties(shape, seed):
+    """f32 values from {0, ..., 4}: every pooling window holds ties."""
+    return R(shape, seed, "k").astype(np.float32)
+
+
+def _unpool_indices(n, c, h, w, k, seed):
+    """A max pool's flat indices over ``[h, w]`` for ``k x k`` windows at
+    stride ``k`` (one position drawn in each window)."""
+    rng = np.random.default_rng(seed)
+    oh, ow = h // k, w // k
+    di, dj = (rng.integers(0, k, (n, c, oh, ow)) for _ in range(2))
+    rows = np.arange(oh)[:, None] * k + di
+    cols = np.arange(ow)[None, :] * k + dj
+    return (rows * w + cols).astype(np.int32)
+
+
+def pooling_cases():
+    """``nn/functional/pooling.py``'s 14 names: NCL/NLC, NCHW/NHWC and
+    NCDHW/NDHWC, ``ceil_mode``, ``exclusive``, string and asymmetric
+    paddings, ``return_mask`` on tied windows (no gradient: the JAX
+    package's mask cannot be differentiated through), ``max_unpool2d``."""
+    X1, X2, X3 = R((2, 3, 9), 200), R((2, 3, 7, 6), 201), \
+        R((2, 2, 5, 4, 6), 202)
+    X1L, X2L, X3L = (np.ascontiguousarray(np.moveaxis(x, 1, -1))
+                     for x in (X1, X2, X3))
+    T1, T2, T3 = _ties((2, 3, 8), 203), _ties((2, 3, 6, 4), 204), \
+        _ties((1, 2, 4, 4, 4), 205)
+    C = [
+        Case("avg_pool1d", [X1, 3, 2, 1], grad=[0]),
+        Case("avg_pool1d", [X1, 3, 2, 1, False, True], grad=[0],
+             id="avg_pool1d-inclusive-ceil"),
+        Case("avg_pool1d", [X1L, 4, 2, "SAME"], {"data_format": "NLC"},
+             grad=[0], id="avg_pool1d-nlc-same"),
+        Case("avg_pool2d", [X2, 3, 2, 1], grad=[0]),
+        Case("avg_pool2d", [X2, 3, 2, 1, True], grad=[0],
+             id="avg_pool2d-ceil"),
+        Case("avg_pool2d", [X2, [3, 2], [2, 1], [1, 0, 0, 1]],
+             {"exclusive": False}, grad=[0], id="avg_pool2d-asymmetric"),
+        Case("avg_pool2d", [X2L, 2, None, "SAME"], {"data_format": "NHWC"},
+             grad=[0], id="avg_pool2d-nhwc-same"),
+        Case("avg_pool2d", [X2, 2, 2, "VALID"], {"divisor_override": 3},
+             grad=[0], id="avg_pool2d-divisor-override-ignored"),
+        Case("avg_pool3d", [X3, 2, 2, 1], grad=[0]),
+        Case("avg_pool3d", [X3L, 3, 2, 1, True, False],
+             {"data_format": "NDHWC"}, grad=[0],
+             id="avg_pool3d-ndhwc-ceil-inclusive"),
+        Case("avg_pool3d", [X3, 2], {"divisor_override": 5}, grad=[0],
+             id="avg_pool3d-divisor-override-ignored"),
+        Case("max_pool1d", [X1, 3, 2, 1], grad=[0]),
+        Case("max_pool1d", [X1L, 3, 2, 0, False, True, "NLC"], grad=[0],
+             id="max_pool1d-nlc-ceil"),
+        Case("max_pool1d", [T1, 2, None, 0, True], x64=True,
+             id="max_pool1d-mask-ties"),
+        Case("max_pool2d", [X2, 3, 2, [1, 0, 0, 1]], grad=[0],
+             id="max_pool2d-asymmetric"),
+        Case("max_pool2d", [X2, 3, 2, 0, False, True], grad=[0],
+             id="max_pool2d-ceil"),
+        Case("max_pool2d", [T2, 2, None, 0, True], x64=True,
+             id="max_pool2d-mask-ties"),
+        Case("max_pool2d", [np.ascontiguousarray(np.moveaxis(T2, 1, -1)),
+                            [2, 2], [2, 1], 0, True], {"data_format": "NHWC"},
+             x64=True, id="max_pool2d-mask-nhwc-overlap"),
+        Case("max_pool3d", [X3, 2, 2, 1], grad=[0]),
+        Case("max_pool3d", [X3L, 3, 2, 0, False, True, "NDHWC"], grad=[0],
+             id="max_pool3d-ndhwc-ceil"),
+        Case("max_pool3d", [T3, 2, None, 0, True], x64=True,
+             id="max_pool3d-mask-ties"),
+        Case("adaptive_avg_pool1d", [X1, 4], grad=[0], tol=RED),
+        Case("adaptive_avg_pool1d", [X1, 3], grad=[0], tol=RED,
+             id="adaptive_avg_pool1d-even"),
+        Case("adaptive_avg_pool2d", [X2, [3, 4]], grad=[0], tol=RED),
+        Case("adaptive_avg_pool2d", [X2L, 2, "NHWC"], grad=[0], tol=RED,
+             id="adaptive_avg_pool2d-nhwc"),
+        Case("adaptive_avg_pool3d", [X3, [2, 3, 4]], grad=[0], tol=RED),
+        Case("adaptive_avg_pool3d", [X3L, 1, "NDHWC"], grad=[0], tol=RED,
+             id="adaptive_avg_pool3d-ndhwc"),
+        Case("adaptive_max_pool1d", [X1, 4], grad=[0]),
+        Case("adaptive_max_pool1d", [X1, 3, True], grad=[0],
+             id="adaptive_max_pool1d-mask-none"),
+        Case("adaptive_max_pool2d", [X2, [3, 4]], grad=[0]),
+        Case("adaptive_max_pool2d", [X2, 3, True], grad=[0],
+             id="adaptive_max_pool2d-mask-none"),
+        Case("adaptive_max_pool3d", [X3, [2, 3, 4]], grad=[0]),
+        Case("adaptive_max_pool3d", [X3, 2, True], grad=[0],
+             id="adaptive_max_pool3d-mask-none"),
+        Case("lp_pool2d", [X2, 2, 3, 2, 1], grad=[0], tol=RED),
+        Case("lp_pool2d", [X2L, 3.0, 2, None, 0, True, "NHWC"], grad=[0],
+             tol=RED, id="lp_pool2d-p3-nhwc-ceil"),
+        Case("max_unpool2d", [R((2, 3, 2, 3), 206),
+                              _unpool_indices(2, 3, 4, 6, 2, 207), 2],
+             grad=[0]),
+        Case("max_unpool2d", [R((2, 3, 2, 3), 208),
+                              _unpool_indices(2, 3, 4, 6, 2, 209), 2],
+             {"output_size": [2, 3, 5, 7]}, grad=[0],
+             id="max_unpool2d-output-size"),
+    ]
+    return C
+
+
+def pooling_layer_cases():
+    """The pooling layers of ``nn/layer_conv_pool.py`` and ``Conv2D``."""
+    X1, X2, X3 = R((2, 3, 9), 210), R((2, 3, 7, 6), 211), \
+        R((2, 2, 5, 4, 6), 212)
+    L = [
+        LayerCase("Conv2D", [X2], grad=[0], ctor=(3, 4, 3),
+                  ctor_kw={"padding": 1}, tol=RED),
+        LayerCase("MaxPool1D", [X1], grad=[0], ctor=(3, 2, 1)),
+        LayerCase("MaxPool2D", [X2], grad=[0], ctor=(3, 2, 1),
+                  ctor_kw={"ceil_mode": True}),
+        LayerCase("MaxPool3D", [X3], grad=[0], ctor=(2,)),
+        LayerCase("AvgPool1D", [X1], grad=[0], ctor=(3, 2, 1),
+                  ctor_kw={"exclusive": False}),
+        LayerCase("AvgPool2D", [X2], grad=[0], ctor=(3, 2, 1)),
+        LayerCase("AvgPool3D", [X3], grad=[0], ctor=(2, 2, 1),
+                  ctor_kw={"ceil_mode": True}),
+        LayerCase("AdaptiveAvgPool1D", [X1], grad=[0], ctor=(4,), tol=RED),
+        LayerCase("AdaptiveAvgPool2D", [X2], grad=[0], ctor=([3, 4],),
+                  tol=RED),
+        LayerCase("AdaptiveAvgPool3D", [X3], grad=[0], ctor=(2,), tol=RED),
+        LayerCase("AdaptiveMaxPool1D", [X1], grad=[0], ctor=(4,)),
+        LayerCase("AdaptiveMaxPool2D", [X2], grad=[0], ctor=([3, 4],)),
+        LayerCase("AdaptiveMaxPool3D", [X3], grad=[0], ctor=([2, 3, 4],)),
+        LayerCase("MaxUnPool2D", [R((2, 3, 2, 3), 213),
+                                  _unpool_indices(2, 3, 4, 6, 2, 214)],
+                  grad=[0], ctor=(2,)),
+    ]
+    return L
+
+
+def crf_cases():
+    """``nn/functional/crf.py``'s 2 names: ragged lengths, label marks,
+    tied scores."""
+    rng = np.random.default_rng(220)
+    E, W = R((3, 5, 4), 221), R((6, 4), 222)
+    Y = rng.integers(0, 4, (3, 5)).astype(np.int64)
+    L = np.array([5, 2, 4], np.int64)
+    ET, WT = _ties((3, 5, 4), 223), _ties((6, 4), 224)
+    return [
+        Case("linear_chain_crf", [E, W, Y], grad=[0, 1], tol=RED),
+        Case("linear_chain_crf", [E, W, Y, L], grad=[0, 1], tol=RED,
+             id="linear_chain_crf-ragged"),
+        Case("crf_decoding", [E, W]),
+        Case("crf_decoding", [E, W, Y, L], id="crf_decoding-marks-ragged"),
+        Case("crf_decoding", [ET, WT, None, L], id="crf_decoding-ties"),
+    ]
+
+
+def make(name, *ctor):
+    """A constructor argument that is itself a layer: ``make(nn)`` builds
+    ``nn.<name>(*ctor)`` in the package the case runs in."""
+    return lambda nn: getattr(nn, name)(*ctor)
+
+
+def rnn_layer_cases():
+    """``nn/layer_rnn.py``'s layers (every name but the abstract
+    ``RNNCellBase``, whose ``get_initial_states`` every cell case runs),
+    their outputs and final states compared as one structure; the weights
+    the JAX package's, carried across."""
+    X2, X3 = R((3, 4), 230), R((3, 5, 4), 231)
+    H1, H2 = R((3, 6), 232), R((4, 3, 6), 233)
+    return [
+        LayerCase("SimpleRNNCell", [X2, H1], grad=[0, 1], ctor=(4, 6),
+                  tol=RED),
+        LayerCase("SimpleRNNCell", [X2], grad=[0], ctor=(4, 6, "relu"),
+                  tol=RED, id="SimpleRNNCell-relu"),
+        LayerCase("LSTMCell", [X2], grad=[0], ctor=(4, 6), tol=RED),
+        LayerCase("GRUCell", [X2, H1], grad=[0, 1], ctor=(4, 6), tol=RED),
+        LayerCase("RNN", [X3], grad=[0], ctor=(make("GRUCell", 4, 6),),
+                  tol=RED),
+        LayerCase("RNN", [X3], grad=[0],
+                  ctor=(make("LSTMCell", 4, 6), True, True), tol=RED,
+                  id="RNN-reverse-time-major"),
+        LayerCase("BiRNN", [X3], grad=[0], ctor=(make("LSTMCell", 4, 6),
+                                                 make("LSTMCell", 4, 6)),
+                  tol=RED),
+        LayerCase("LSTM", [X3], grad=[0], ctor=(4, 6, 2, "bidirect"),
+                  tol=RED),
+        LayerCase("LSTM", [X3, [H2[:2], H2[2:]]], grad=[0],
+                  ctor=(4, 6, 2), tol=RED, id="LSTM-states"),
+        LayerCase("GRU", [X3, H2], grad=[0, 1], ctor=(4, 6, 2),
+                  tol=RED),
+        LayerCase("GRU", [X3], grad=[0], ctor=(4, 6, 2, "forward", True,
+                                               0.5), train=False, tol=RED,
+                  id="GRU-time-major-dropout-eval"),
+        LayerCase("SimpleRNN", [X3], grad=[0],
+                  ctor=(4, 6, 2, "bidirectional", False, 0.0, "relu"),
+                  tol=RED),
+        LayerCase("RNNBase", [X3], grad=[0], ctor=(4, 6), tol=RED),
+    ]
+
+
 def all_cases():
     """``(group, case)`` for every case: ``F`` (``nn.functional``) or
     ``nn`` (a layer)."""
     return ([("F", c) for c in activation_cases() + norm_cases() +
-             loss_cases() + common_cases()] +
-            [("nn", c) for c in layer_cases() + common_layer_cases()])
+             loss_cases() + common_cases() + pooling_cases() +
+             crf_cases()] +
+            [("nn", c) for c in layer_cases() + common_layer_cases() +
+             pooling_layer_cases() + rnn_layer_cases()])
 
 
 # the random activations: ``(name, draw(F, x, **generator), check)``; the
