@@ -470,6 +470,50 @@ Phases, each fatal on failure (non-zero exit, no result line):
     kernel; the kernel path's ids equal the plain path's, or part at a
     near tie (``beam_divergence``); prints ms a decode step, sentences/s
     and idle share.
+34. **ResNet-50 ImageNet training fed by the DataLoader (the thirteenth
+    main path).** BASELINE config 2's input pipeline: a seeded
+    ``DatasetFolder`` tree written to a temporary directory (64 class
+    folders, 320 uint8 HWC ``.npy`` images of 256-512 px a side, read with
+    ``loader=np.load``) under PaddleClas's ResNet50 training recipe
+    (``RandomResizedCrop(224)``, ``RandomHorizontalFlip()``,
+    ``Transpose()``, ``Normalize`` with the ImageNet mean and std), through
+    ``io.DataLoader(batch_size=32, shuffle=True, drop_last=True,
+    num_workers=W, use_shared_memory=True)``, W = min(8, cores - 1) worker
+    processes over the shared-memory arena, batches staged on the card
+    through pinned memory on the loader's copy stream. Phase 9's step
+    (``ParallelEngine(resnet50(), Momentum(1e-3, 0.9), amp_dtype=
+    "bfloat16")``, nothing cut) takes two epochs of 10 steps, each timed
+    end to end with the wait in ``next`` included, the first two as
+    warm-up; the counters zeroed just before and read just after: 53
+    row-8 and 53 row-11 launches a step; two more steps under
+    ``torch.profiler``, and ten on one batch staged on the card timed the
+    same way (the loader's share). Then, on the deterministic eval pipeline
+    (``Resize(256)``, ``CenterCrop(224)``): the batches with W workers and
+    with ``num_workers=0`` equal ``np.stack`` of ``ds[i]`` over the epoch
+    seed's indices bit for bit; the state after 4 batches resumes a fresh
+    loader to the same remaining batches; worker 1 killed once through the
+    port's chaos point (``loader_worker_kill``) is replaced and the epoch
+    arrives in order, equal; every worker reports the CPU as its place;
+    an eval forward over the loader launches row 9 53 times. Prints W, the
+    cores, the median step and loader-wait ms, samples/s and the idle share
+    beside phase 9's step.
+35. **Eager LeNet on MNIST through the DataLoader (the fourteenth main
+    path).** BASELINE config 1 as Paddle 2.0's quick start: seeded files
+    in MNIST's layout and size (``train-images-idx3-ubyte.gz`` 60000 x 28
+    x 28, its labels, the 10000-image test pair; each label the argmax of
+    10 seeded projections of its image) through
+    ``vision.datasets.MNIST(..., transform=Normalize(mean=[127.5],
+    std=[127.5], data_format="CHW"))`` and ``io.DataLoader(batch_size=64,
+    shuffle=True)`` (the single-process iterator and its staging thread);
+    phase 15's eager loop for one whole epoch (938 steps, the last of 32),
+    one row-6 launch a step, the mean loss of the last 100 steps below the
+    first 100's; a second pass whose every batch equals the IDX arrays at
+    the sampler's indices; the test set through ``F.softmax(model(x))``,
+    one row-7 launch a batch, and its accuracy. The same loop timed the
+    same way for 100 steps on two batches staged on the card, and fed by
+    one worker process, says where the fed step's time goes. Prints the
+    median step and loader-wait ms, images/s and the idle share beside
+    phase 15's step.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -7062,6 +7106,607 @@ def ls_beam_run(paddle, model, b, end):
             "tolerance": LOGIT_TOL, "top_kernels": prof["top_kernels"]}
 
 
+# ---------------------------------------------------------------------------
+# phases 34-35: the input pipeline (io.DataLoader over vision.datasets and
+# vision.transforms) feeding ResNet-50 (BASELINE config 2) and LeNet on
+# MNIST (BASELINE config 1)
+
+IO_CLASSES, IO_IMAGES, IO_MIN_PX, IO_MAX_PX = 64, 320, 256, 512
+IO_BATCH, IO_EPOCHS, IO_WARMUP, IO_PROFILED = 32, 2, 2, 2
+IO_MEAN, IO_STD = [123.675, 116.28, 103.53], [58.395, 57.12, 57.375]
+IO_RESUME_AT = 4                      # batches consumed before state_dict()
+IO_KILL = "loader_worker_kill@2:1"   # worker 1, its second task
+IO_EVAL_BATCHES = 3
+MNIST_TRAIN, MNIST_TEST, MNIST_BATCH = 60000, 10000, 64
+MNIST_LOSS_WINDOW = 100
+MNIST_PROBE_STEPS = 100               # the staged and one-worker timings
+
+
+def io_workers():
+    """W = min(8, cores - 1): one core stays with the training loop."""
+    import os
+    return max(1, min(8, (os.cpu_count() or 2) - 1))
+
+
+def io_tree(root, classes=IO_CLASSES, images=IO_IMAGES, lo=IO_MIN_PX,
+            hi=IO_MAX_PX, seed=SEED + 200):
+    """A seeded ``DatasetFolder`` tree under ``root``: ``classes`` class
+    folders holding ``images`` uint8 HWC ``.npy`` images in turn, height
+    and width drawn from [lo, hi]. Returns the bytes written."""
+    import os
+    rng = np.random.default_rng(seed)
+    total = 0
+    for c in range(classes):
+        os.makedirs(os.path.join(root, f"n{c:08d}"))
+    for i in range(images):
+        h, w = rng.integers(lo, hi + 1, 2)
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        np.save(os.path.join(root, f"n{i % classes:08d}",
+                             f"img_{i:05d}.npy"), img)
+        total += img.nbytes
+    return total
+
+
+def io_train_transform(paddle, size=RN_IMG):
+    """PaddleClas's ResNet50 ImageNet training recipe."""
+    T = paddle.vision.transforms
+    return T.Compose([T.RandomResizedCrop(size), T.RandomHorizontalFlip(),
+                      T.Transpose(), T.Normalize(mean=IO_MEAN, std=IO_STD,
+                                                 data_format="CHW")])
+
+
+def io_eval_transform(paddle, size=RN_IMG):
+    """The deterministic eval pipeline: Resize(256), CenterCrop(224)."""
+    T = paddle.vision.transforms
+    return T.Compose([T.Resize(size * 8 // 7), T.CenterCrop(size),
+                      T.Transpose(), T.Normalize(mean=IO_MEAN, std=IO_STD,
+                                                 data_format="CHW")])
+
+
+def io_folder(paddle, root, transform):
+    return paddle.vision.datasets.DatasetFolder(
+        root, loader=np.load, extensions=(".npy",), transform=transform)
+
+
+def io_epoch_indices(loader):
+    """The index batches of ``loader``'s live epoch, from the epoch seed in
+    its ``state_dict()`` (the JAX package's order for that seed)."""
+    seed = loader.state_dict()["sampler"]["sampler"]["seed"]
+    order = np.random.RandomState(seed).permutation(len(loader.dataset))
+    b = loader.batch_size
+    return seed, [order[k * b:(k + 1) * b] for k in range(len(loader))]
+
+
+def io_seeded(loader, seed):
+    """``loader`` set to replay the epoch of ``seed`` from its start."""
+    loader.set_state_dict({"version": 1, "epoch": 0, "cursor": 0,
+                           "sampler": {"sampler": {"seed": int(seed)}}})
+    return loader
+
+
+def io_leaves(batch):
+    """A loader batch as a tuple of tensors (a one-field batch comes out
+    of the worker processes as the tensor itself)."""
+    return tuple(batch) if isinstance(batch, (tuple, list)) else (batch,)
+
+
+def io_host(batch):
+    return tuple(t.cpu().numpy() for t in io_leaves(batch))
+
+
+def io_run(loader, on_batch=None, stop=None):
+    """One epoch of ``loader``: each batch checked on the card and copied
+    to the host; ``on_batch(k, loader)`` after batch ``k``; the iterator
+    shut down in the end. Returns (iterator kind, host batches)."""
+    it = iter(loader)
+    out = []
+    try:
+        for k, batch in enumerate(it):
+            check(all(t.device.type == CARD for t in io_leaves(batch)),
+                  f"a loader batch is not on the card: "
+                  f"{[t.device for t in io_leaves(batch)]}")
+            out.append(io_host(batch))
+            if on_batch is not None:
+                on_batch(k, loader)
+            if stop is not None and len(out) == stop:
+                break
+        return type(it).__name__, out
+    finally:
+        it.shutdown()
+
+
+def io_equal(got, want, what):
+    check(len(got) == len(want), f"{what}: {len(got)} batches, want "
+          f"{len(want)}")
+    for k, (g, w) in enumerate(zip(got, want)):
+        for a, b in zip(g, w):
+            check(a.dtype == b.dtype and a.shape == b.shape and
+                  np.array_equal(a, b), f"{what}: batch {k} differs "
+                  f"({a.dtype} {a.shape} against {b.dtype} {b.shape})")
+
+
+class IoProbe:
+    """What a worker sees: its id, whether its place is the CPU, where a
+    ``to_tensor`` lands there, and its pid."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        import os
+        import paddle1_tpu_torch as paddle
+        info = paddle.io.get_worker_info()
+        made = paddle.to_tensor(np.zeros(1, np.float32)).device.type
+        return np.array([-1 if info is None else info.id,
+                         paddle.get_device().kind == "cpu", made == "cpu",
+                         os.getpid()], np.int64)
+
+
+def io_step_times(step, n):
+    """``n`` steps, each timed end to end on the host clock (the wait in
+    ``next`` included, the loss read back): (step ms, wait ms, losses)."""
+    steps, waits, losses = [], [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = step()
+        if out is None:
+            break
+        wait_s, loss = out
+        losses.append(float(loss))
+        steps.append((time.perf_counter() - t0) * 1e3)
+        waits.append(wait_s * 1e3)
+    return steps, waits, losses
+
+
+def io_resnet_phase(dev, rn_step_ms=None, classes=IO_CLASSES,
+                    images=IO_IMAGES, lo=IO_MIN_PX, hi=IO_MAX_PX,
+                    img=RN_IMG, batch=IO_BATCH, workers=None,
+                    make_model=None):
+    """Phase 34: ResNet-50 training fed by the DataLoader with W worker
+    processes over a seeded ``.npy`` ImageFolder tree, then the exact
+    checks on the deterministic eval pipeline."""
+    import os
+    import tempfile
+    import paddle1_tpu_torch as paddle
+    from paddle1_tpu_torch.core import chaos
+    from paddle1_tpu_torch.distributed import ParallelEngine
+    from paddle1_tpu_torch.optimizer import Momentum
+    from paddle1_tpu_torch.vision.models import resnet50
+    W = workers or io_workers()
+    cores = os.cpu_count()
+    log(f"io: {W} loader workers on {cores} cores")
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        tree_bytes = io_tree(root, classes, images, lo, hi)
+        tree_s = time.perf_counter() - t0
+        train_ds = io_folder(paddle, root, io_train_transform(paddle, img))
+        check(len(train_ds) == images and
+              len(train_ds.classes) == classes, f"the tree holds "
+              f"{len(train_ds)} images in {len(train_ds.classes)} classes")
+        loader = paddle.io.DataLoader(train_ds, batch_size=batch,
+                                      shuffle=True, drop_last=True,
+                                      num_workers=W, use_shared_memory=True)
+        gen = torch.Generator().manual_seed(SEED + 201)
+        model = (make_model or (lambda: resnet50(generator=gen)))()
+        eng = ParallelEngine(model, Momentum(learning_rate=RN_LR,
+                                             momentum=0.9,
+                                             parameters=model.parameters()),
+                             rn_loss_fn, amp_dtype="bfloat16")
+        counters = bn_counters()
+        kinds, live, steps, waits, losses = [], [], [], [], []
+        zero(counters)
+        for _ in range(IO_EPOCHS):
+            it = iter(loader)
+            try:
+                kinds.append(type(it).__name__)
+                live.append(sum(p.is_alive() for p in
+                                getattr(it, "_workers", [])))
+
+                def step():
+                    t0 = time.perf_counter()
+                    try:
+                        x, y = next(it)
+                    except StopIteration:
+                        return None
+                    wait = time.perf_counter() - t0
+                    return wait, eng.step({"x": x, "y": y})
+                s, w, l_ = io_step_times(step, len(loader) + 1)
+                steps += s
+                waits += w
+                losses += l_
+            finally:
+                it.shutdown()
+        torch.cuda.synchronize()
+        train = bn_launches(counters)
+        n = len(losses)
+        check(n == IO_EPOCHS * (images // batch), f"{n} fed steps, want "
+              f"{IO_EPOCHS * (images // batch)}")
+        want = {"fused_bn_train": RN_BNS * n, "fused_bn_norm": 0,
+                "fused_bn_train_bwd": RN_BNS * n, "fused_bn_norm_bwd": 0}
+        check(train == want, f"fed training launches {train}, want {want} "
+              f"({n} steps)")
+        check(all(np.isfinite(losses)), f"non-finite fed loss {losses}")
+        check(kinds == ["_MultiProcessIter"] * IO_EPOCHS and
+              live == [W] * IO_EPOCHS, f"the fed epochs ran {kinds} with "
+              f"{live} live workers, want _MultiProcessIter with {W}")
+        # two more steps under torch.profiler, on a fresh epoch's pipeline
+        it, last = iter(loader), []
+        try:
+            def prof_step():
+                x, y = last[:] = next(it)
+                return eng.step({"x": x, "y": y})
+            for _ in range(IO_WARMUP):
+                float(prof_step())
+            prof = device_kernels_per_step(prof_step, IO_PROFILED)
+        finally:
+            it.shutdown()
+        dt = float(np.median(steps[IO_WARMUP:]))
+        busy = prof["device_busy_ms_per_step"]
+        # the same protocol on one batch staged on the card: the loader's
+        # share of the fed step
+        staged_batch = {k: t.as_subclass(torch.Tensor).clone()
+                        for k, t in zip("xy", last)}
+        staged, _, _ = io_step_times(
+            lambda: (0.0, eng.step(staged_batch)), IO_WARMUP + 10)
+        staged_ms = float(np.median(staged[IO_WARMUP:]))
+
+        # the exact checks, on the deterministic eval pipeline
+        eval_ds = io_folder(paddle, root, io_eval_transform(paddle, img))
+        cache = {}
+
+        def want_batches(index_batches):
+            out = []
+            for idx in index_batches:
+                for i in idx:
+                    if i not in cache:
+                        cache[i] = eval_ds[i]
+                out.append((np.stack([cache[i][0] for i in idx]),
+                            np.stack([cache[i][1] for i in idx])))
+            return out
+
+        def eval_loader(workers):
+            return paddle.io.DataLoader(eval_ds, batch_size=batch,
+                                        shuffle=True, drop_last=True,
+                                        num_workers=workers)
+        # (a) with W workers, and the resume state after IO_RESUME_AT
+        ev = eval_loader(W)
+        mid = {}
+
+        def at(k, ldr):
+            if k == 0:
+                mid["seed"], mid["indices"] = io_epoch_indices(ldr)
+            if k + 1 == IO_RESUME_AT:
+                mid["state"] = ldr.state_dict()
+        t1 = time.perf_counter()
+        kind_w, got_w = io_run(ev, at)
+        eval_loader_s = time.perf_counter() - t1
+        check(kind_w == "_MultiProcessIter", f"the eval loader ran {kind_w}")
+        want = want_batches(mid["indices"])
+        io_equal(got_w, want, f"{W}-worker batches against np.stack of "
+                 "ds[i]")
+        kind_0, got_0 = io_run(io_seeded(eval_loader(0), mid["seed"]))
+        check(kind_0 == "_SingleProcessIter", f"num_workers=0 ran {kind_0}")
+        io_equal(got_0, want, "num_workers=0 batches against np.stack of "
+                 "ds[i]")
+        # (c) resume after IO_RESUME_AT batches into a fresh loader
+        check(mid["state"]["cursor"] == IO_RESUME_AT, f"state after "
+              f"{IO_RESUME_AT} batches: {mid['state']}")
+        fresh = eval_loader(W)
+        fresh.set_state_dict(mid["state"])
+        _, rest = io_run(fresh)
+        io_equal(rest, got_w[IO_RESUME_AT:], "the resumed loader's batches")
+        # (d) worker 1 killed once: replaced, the epoch in order
+        chaos.configure(IO_KILL)
+        try:
+            killed = io_seeded(eval_loader(W), mid["seed"])
+            import warnings
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                _, got_k = io_run(killed)
+        finally:
+            chaos.reset()
+        check(killed.worker_restart_count == 1, f"worker restarts "
+              f"{killed.worker_restart_count} after {IO_KILL}, want 1")
+        io_equal(got_k, got_w, "the killed-worker epoch's batches")
+        # (b) the workers' place
+        probe = paddle.io.DataLoader(IoProbe(4 * W), batch_size=1,
+                                     num_workers=W)
+        _, rows = io_run(probe)
+        rows = np.concatenate([r[0] for r in rows])
+        check(sorted(set(rows[:, 0].tolist())) == list(range(W)) and
+              bool(rows[:, 1].all()) and bool(rows[:, 2].all()) and
+              len(set(rows[:, 3].tolist())) == W and
+              os.getpid() not in rows[:, 3].tolist(),
+              f"worker probe: {rows.tolist()}")
+        # (e) an eval forward over the loader: 53 row-9 launches a forward
+        model.eval()
+        zero(counters)
+        n_eval = 0
+        it = iter(eval_loader(W))
+        try:
+            with paddle.no_grad():
+                for _ in range(IO_EVAL_BATCHES):
+                    x, _y = next(it)
+                    logits = model(x)
+                    n_eval += 1
+                    check(tuple(logits.shape) == (batch, 1000) and
+                          bool(torch.isfinite(logits).all()),
+                          "fed eval logits not finite [batch, 1000]")
+        finally:
+            it.shutdown()
+        torch.cuda.synchronize()
+        evals = bn_launches(counters)
+        want = {"fused_bn_train": 0, "fused_bn_norm": RN_BNS * n_eval,
+                "fused_bn_train_bwd": 0, "fused_bn_norm_bwd": 0}
+        check(evals == want, f"fed eval launches {evals}, want {want}")
+    summary = {
+        "train": "resnet50_fed_by_dataloader", "amp": "bfloat16",
+        "batch": batch, "img": img, "classes": classes, "images": images,
+        "tree_bytes": tree_bytes, "tree_write_s": tree_s,
+        "workers": W, "cpu_cores": cores, "iterators": kinds,
+        "live_workers": live, "steps": n, "warmup_steps": IO_WARMUP,
+        "timing": "host clock per step, next() included, loss read back",
+        "step_ms_median": dt, "step_ms_min": min(steps[IO_WARMUP:]),
+        "step_ms_max": max(steps[IO_WARMUP:]),
+        "loader_wait_ms_median": float(np.median(waits[IO_WARMUP:])),
+        "loader_wait_ms_max": max(waits[IO_WARMUP:]),
+        "samples_per_s": batch / dt * 1e3,
+        "phase9_step_ms_median": rn_step_ms,
+        "staged_step_ms_median": staged_ms,
+        "device_busy_ms_per_step": busy,
+        "device_idle_share": 1.0 - busy / dt,
+        "profiler_window_idle_share": 1.0 - busy / prof["profiled_step_ms"],
+        "kernels_per_step": prof["kernels_per_step"],
+        "loss_first": losses[:2], "loss_last": losses[-2:],
+        "launches_train": train,
+        "launches_per_step": {k: v / n for k, v in train.items()},
+        "launches_eval": evals, "eval_forwards": n_eval,
+        "eval_epoch_s_with_workers": eval_loader_s,
+        "checks": ["W-worker and num_workers=0 batches exact",
+                   "resume after 4 batches exact",
+                   f"{IO_KILL}: 1 restart, batches exact",
+                   "every worker on the CPU place"],
+        "profile": prof}
+    log(f"io resnet50: {dt:.1f} ms a fed step (staged, the same timing: "
+        f"{staged_ms:.1f} ms; phase 9: "
+        f"{rn_step_ms if rn_step_ms is None else round(rn_step_ms, 1)} ms), "
+        f"loader wait {summary['loader_wait_ms_median']:.1f} ms, "
+        f"{summary['samples_per_s']:.0f} samples/s, busy {busy:.1f} ms, "
+        f"idle {summary['device_idle_share']:.3f}, {W} workers on {cores} "
+        f"cores ({card_line()})")
+    log(json.dumps({"io_resnet50": summary}))
+    del eng, model
+    return summary
+
+
+def mnist_labels(images, seed=SEED + 210):
+    """Each label a fixed function of its image: the argmax of 10 seeded
+    projections (7 x 7 patterns upsampled to 28 x 28) of the centred
+    image."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.standard_normal((10, 7, 7)).astype(np.float32)
+    proj = np.kron(coarse, np.ones((4, 4), np.float32)).reshape(10, 784).T
+    out = np.empty(len(images), np.uint8)
+    for s in range(0, len(images), 8192):
+        x = images[s:s + 8192].reshape(-1, 784).astype(np.float32)
+        out[s:s + 8192] = np.argmax((x / 255.0 - 0.5) @ proj, 1)
+    return out
+
+
+def write_mnist(root, n, split, seed):
+    """``n`` seeded images and their labels in MNIST's IDX files, gzipped
+    (``train-images-idx3-ubyte.gz`` and its labels, or ``t10k-...``)."""
+    import gzip
+    import os
+    import struct
+    images = np.random.default_rng(seed).integers(0, 256, (n, 28, 28),
+                                                  dtype=np.uint8)
+    labels = mnist_labels(images)
+    img_p = os.path.join(root, f"{split}-images-idx3-ubyte.gz")
+    lab_p = os.path.join(root, f"{split}-labels-idx1-ubyte.gz")
+    with gzip.open(img_p, "wb", compresslevel=1) as f:
+        f.write(struct.pack(">IIII", 2051, n, 28, 28))
+        f.write(images.tobytes())
+    with gzip.open(lab_p, "wb", compresslevel=1) as f:
+        f.write(struct.pack(">II", 2049, n))
+        f.write(labels.tobytes())
+    return img_p, lab_p, images, labels
+
+
+def io_lenet_phase(dev, lenet_step_ms=None, n_train=MNIST_TRAIN,
+                   n_test=MNIST_TEST, batch=MNIST_BATCH):
+    """Phase 35: Paddle 2.0's quick start, eager LeNet on MNIST through
+    ``vision.datasets.MNIST`` and ``io.DataLoader(shuffle=True)`` (the
+    single-process iterator and its staging thread) for one epoch; the
+    batches of a second pass exact; the test set through ``F.softmax``."""
+    import tempfile
+    import paddle1_tpu_torch as paddle
+    from paddle1_tpu_torch.ops import fused_adam as fad
+    from paddle1_tpu_torch.ops import softmax as psm
+    from paddle1_tpu_torch.vision.models import LeNet
+    F = paddle.nn.functional
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        img_p, lab_p, images, labels = write_mnist(root, n_train, "train",
+                                                   SEED + 211)
+        timg_p, tlab_p, _, tlabels = write_mnist(root, n_test, "t10k",
+                                                 SEED + 212)
+        write_s = time.perf_counter() - t0
+        T = paddle.vision.transforms
+        norm = T.Normalize(mean=[127.5], std=[127.5], data_format="CHW")
+        t0 = time.perf_counter()
+        train = paddle.vision.datasets.MNIST(img_p, lab_p, mode="train",
+                                             transform=norm)
+        test = paddle.vision.datasets.MNIST(timg_p, tlab_p, mode="test",
+                                            transform=norm)
+        parse_s = time.perf_counter() - t0
+    check(len(train) == n_train and len(test) == n_test, "MNIST sizes "
+          f"{len(train)}, {len(test)}")
+    loader = paddle.io.DataLoader(train, batch_size=batch, shuffle=True)
+    paddle.seed(SEED)
+    model = LeNet()
+    opt = paddle.optimizer.Adam(learning_rate=1e-3,
+                                parameters=model.parameters())
+    counters = {"fused_adam": fad.fused_adam_, "softmax": psm.fused_softmax}
+    for fn in counters.values():
+        fn.launches = 0
+    def fed_step(it):
+        def step():
+            t0 = time.perf_counter()
+            try:
+                x, y = next(it)
+            except StopIteration:
+                return None
+            wait = time.perf_counter() - t0
+            loss = F.cross_entropy(model(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return wait, loss
+        return step
+    it = iter(loader)
+    kind = type(it).__name__
+    t0 = time.perf_counter()
+    try:
+        steps, waits, losses = io_step_times(fed_step(it), len(loader) + 1)
+    finally:
+        it.shutdown()
+    epoch_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    n = len(losses)
+    check(kind == "_SingleProcessIter", f"the MNIST loader ran {kind}")
+    check(n == -(-n_train // batch), f"{n} steps in the epoch, want "
+          f"{-(-n_train // batch)}")
+    check(launches == {"fused_adam": n, "softmax": 0}, f"{n} fed steps "
+          f"launched {launches}, want {n} fused Adam and no softmax")
+    check(all(np.isfinite(losses)), "non-finite fed LeNet loss")
+    w = min(MNIST_LOSS_WINDOW, n // 2)
+    first, last = float(np.mean(losses[:w])), float(np.mean(losses[-w:]))
+    check(last < first, f"the mean loss of the last {w} steps {last} is "
+          f"not below the first {w}'s {first}")
+    # two more steps under torch.profiler
+    it = iter(loader)
+    try:
+        def prof_step():
+            x, y = next(it)
+            loss = F.cross_entropy(model(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        for _ in range(IO_WARMUP):
+            float(prof_step())
+        prof = device_kernels_per_step(prof_step, IO_PROFILED)
+    finally:
+        it.shutdown()
+    dt = float(np.median(steps[IO_WARMUP:]))
+    busy = prof["device_busy_ms_per_step"]
+    # where the fed step's time goes: the same timing on two batches
+    # staged on the card (no loader), and fed by one worker process (the
+    # parent's thread does no sample work, so it holds the GIL alone)
+    head = iter(paddle.io.DataLoader(train, batch_size=batch))
+    try:
+        staged_batches = [tuple(t.clone() for t in next(head))
+                          for _ in range(2)]
+    finally:
+        head.shutdown()
+    turn = [0]
+
+    def staged_step():
+        x, y = staged_batches[turn[0] % 2]
+        turn[0] += 1
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return 0.0, loss
+    staged, _, _ = io_step_times(staged_step, IO_WARMUP + MNIST_PROBE_STEPS)
+    it = iter(paddle.io.DataLoader(train, batch_size=batch, shuffle=True,
+                                   num_workers=1))
+    try:
+        worker_kind = type(it).__name__
+        worker_fed, worker_waits, _ = io_step_times(
+            fed_step(it), IO_WARMUP + MNIST_PROBE_STEPS)
+    finally:
+        it.shutdown()
+    # a second pass: every batch equals the IDX arrays at its indices
+    it = iter(loader)
+    try:
+        seed = loader.state_dict()["sampler"]["sampler"]["seed"]
+        order = np.random.RandomState(seed).permutation(n_train)
+        k = 0
+        for x, y in it:
+            idx = order[k * batch:(k + 1) * batch]
+            want_x = (images[idx][:, None].astype(np.float32) -
+                      np.float32(127.5)) / np.float32(127.5)
+            check(x.device.type == CARD and y.device.type == CARD,
+                  "an MNIST batch is not on the card")
+            check(np.array_equal(x.cpu().numpy(), want_x) and
+                  np.array_equal(y.cpu().numpy(),
+                                 labels[idx][:, None].astype(np.int64)),
+                  f"MNIST batch {k} differs from the IDX arrays")
+            k += 1
+    finally:
+        it.shutdown()
+    check(k == n, f"the second pass gave {k} batches, want {n}")
+    # the test set: one row-7 launch a batch
+    for fn in counters.values():
+        fn.launches = 0
+    correct, batches = 0, 0
+    with paddle.no_grad():
+        for x, y in paddle.io.DataLoader(test, batch_size=batch):
+            probs = F.softmax(model(x))
+            correct += int((probs.argmax(-1) == y[:, 0]).sum())
+            batches += 1
+    torch.cuda.synchronize()
+    test_launches = {k: fn.launches for k, fn in counters.items()}
+    check(test_launches == {"fused_adam": 0, "softmax": batches},
+          f"the test pass launched {test_launches}, want {batches} softmax")
+    acc = correct / n_test
+    summary = {
+        "train": "lenet_mnist_fed_by_dataloader", "batch": batch,
+        "images": n_train, "test_images": n_test, "iterator": kind,
+        "files_write_s": write_s, "parse_s": parse_s,
+        "steps": n, "warmup_steps": IO_WARMUP,
+        "timing": "host clock per step, next() included, loss read back",
+        "step_ms_median": dt, "step_ms_min": min(steps[IO_WARMUP:]),
+        "step_ms_max": max(steps[IO_WARMUP:]),
+        "loader_wait_ms_median": float(np.median(waits[IO_WARMUP:])),
+        "loader_wait_ms_max": max(waits[IO_WARMUP:]),
+        "epoch_s": epoch_s, "images_per_s": batch / dt * 1e3,
+        "phase15_step_ms_median": lenet_step_ms,
+        "staged_step_ms_median": float(np.median(staged[IO_WARMUP:])),
+        "one_worker": {"iterator": worker_kind, "steps": MNIST_PROBE_STEPS,
+                       "step_ms_median": float(np.median(
+                           worker_fed[IO_WARMUP:])),
+                       "loader_wait_ms_median": float(np.median(
+                           worker_waits[IO_WARMUP:]))},
+        "device_busy_ms_per_step": busy,
+        "device_idle_share": 1.0 - busy / dt,
+        "profiler_window_idle_share": 1.0 - busy / prof["profiled_step_ms"],
+        "kernels_per_step": prof["kernels_per_step"],
+        "loss_first_mean": first, "loss_last_mean": last,
+        "loss_window": w, "launches": launches,
+        "test_batches": batches, "test_launches": test_launches,
+        "test_accuracy": acc, "label_counts": np.bincount(
+            labels, minlength=10).tolist(),
+        "profile": prof}
+    log(f"io lenet: {dt:.3f} ms a fed step (staged, the same timing: "
+        f"{summary['staged_step_ms_median']:.3f} ms; one worker process: "
+        f"{summary['one_worker']['step_ms_median']:.3f} ms; phase 15: "
+        f"{lenet_step_ms} ms), "
+        f"loader wait {summary['loader_wait_ms_median']:.3f} ms, "
+        f"{summary['images_per_s']:.0f} images/s, idle "
+        f"{summary['device_idle_share']:.3f}, loss {first:.4f} -> "
+        f"{last:.4f}, test accuracy {acc:.4f} ({card_line()})")
+    log(json.dumps({"io_lenet": summary}))
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -7191,6 +7836,11 @@ def main() -> int:
                 "lstm_seq2seq_beam_search": ls_dec["end_token"]["launches"],
                 "lstm_seq2seq_beam_search_length_limit":
                     ls_dec["length_limit"]["launches"]}
+
+    io_rn = io_resnet_phase(dev, rn["step_ms_median"])
+    torch.cuda.empty_cache()
+    io_ln = io_lenet_phase(dev, lenet["step_ms_median"])
+    torch.cuda.empty_cache()
 
     mn_paths = {"mobilenet_v2_train": mn["launches_train"],
                 "mobilenet_v2_eval": mn["launches_eval"],
@@ -7345,7 +7995,8 @@ def main() -> int:
                "bert_finetune": ft["launches"]["fused_adam"],
                **{k: v["fused_adam"] for k, v in amp_paths.items()},
                "transformer": tf_train["launches"]["fused_adam"],
-               "lstm_seq2seq_train": ls_train["launches"]["fused_adam"]}
+               "lstm_seq2seq_train": ls_train["launches"]["fused_adam"],
+               "lenet_mnist_io": io_ln["launches"]["fused_adam"]}
     line.append({
         "name": "fused_adam", "route": "cuda", "source": src + "fused_adam.cu",
         "replaces": pallas + "fused_adam.py:39",
@@ -7386,7 +8037,9 @@ def main() -> int:
                    "resnet_frozen": rn["launches_frozen"][name],
                    "resnet_dp": dp["launches_train"][name],
                    "yolov3": yolo["launches"][name],
-                   **{k: v[name] for k, v in mn_paths.items()}}
+                   **{k: v[name] for k, v in mn_paths.items()},
+                   "resnet_io_train": io_rn["launches_train"][name],
+                   "resnet_io_eval": io_rn["launches_eval"][name]}
         main_case = bn_times[name][0]     # the stem's [401408, 64]
         line.append({
             "name": name, "route": "cuda", "source": src + cu,
@@ -7431,7 +8084,8 @@ def main() -> int:
     main_case = sm_times[0]     # LeNet's prediction, [64, 10]
     sm_paths = {"lenet_predict": lenet["predict_launches"]["softmax"],
                 "mobilenet_v2_eval": mn["launches_eval"]["softmax"],
-                **{k: v["softmax"] for k, v in ls_paths.items()}}
+                **{k: v["softmax"] for k, v in ls_paths.items()},
+                "lenet_mnist_io_test": io_ln["test_launches"]["softmax"]}
     line.append({
         "name": "softmax", "route": "cuda", "source": src + "softmax.cu",
         "replaces": pallas + "softmax.py:40",

@@ -36,13 +36,17 @@ runs BERT-base fine-tuning in eager dygraph. The op namespace
 here as in Paddle (``paddle.matmul``, ``paddle.concat``,
 ``paddle.linalg.norm``, ...) and installed as the Paddle ``Tensor``'s
 methods. ``amp`` is automatic mixed precision (``auto_cast``,
-``GradScaler``, ``decorate``), casting at the named Paddle ops.
+``GradScaler``, ``decorate``), casting at the named Paddle ops. ``io``
+is the input pipeline (datasets, samplers and the ``DataLoader`` with
+its worker processes, batches staged onto the card through pinned memory
+on a copy stream), with ``vision.transforms`` and ``vision.datasets``.
 """
 
 import torch as _torch
 
 from . import (amp, autograd, distributed, framework,  # noqa: F401
-               nn, optimizer, regularizer, serving, text, utils, vision)
+               io, nn, optimizer, regularizer, serving, text, utils,
+               vision)
 from .autograd import (enable_grad, grad, is_grad_enabled,  # noqa: F401
                        no_grad, set_grad_enabled)
 from .core.device import resolve_device  # noqa: F401
@@ -61,7 +65,8 @@ from . import ops  # noqa: F401
 from .ops import *  # noqa: F401,F403  (the op namespace; patches Tensor)
 from .ops import linalg  # noqa: F401
 
-__all__ = ["amp", "autograd", "distributed", "framework", "nn", "optimizer",
+__all__ = ["amp", "autograd", "distributed", "framework", "io", "nn",
+           "optimizer",
            "regularizer", "serving", "text", "utils", "vision",
            "resolve_device",
            "to_tensor", "ParamAttr",

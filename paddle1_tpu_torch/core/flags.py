@@ -275,6 +275,79 @@ def _define_builtin_flags() -> None:
                 "Prefix-registry entries for prompt-page sharing under "
                 "serve_gen_paged (0 disables sharing).",
                 validator=lambda v: v >= 0)
+    # fault injection and the input pipeline's resilience (io.DataLoader;
+    # JAX package: core/flags.py ft_chaos, loader_*), with the JAX
+    # package's names, defaults and help
+    define_flag("ft_chaos", "",
+                "Deterministic failure-injection spec armed by "
+                "core.chaos.configure_from_flags (e.g. "
+                "'nan_batch@3,ckpt_fail@2,preempt@7'; worker-level "
+                "points take an optional rank qualifier: "
+                "'worker_kill@5:1' = rank 1's 5th health beat). Empty "
+                "disables. Each armed occurrence fires exactly once, so "
+                "retried/replayed operations come back clean, and "
+                "worker points fire in incarnation 0 only, so a "
+                "supervisor-restarted rank replays clean.")
+    define_flag("loader_bad_sample", "raise",
+                "What the input pipeline does when one sample fetch "
+                "fails (dataset __getitem__ raises, a reader item "
+                "won't convert, or an armed corrupt_sample chaos "
+                "point): raise (fail the epoch — today's semantics, "
+                "the default), skip (drop the sample, count it), "
+                "quarantine (drop + append {index, error, worker} to "
+                "the loader's quarantine log and, when "
+                "loader_quarantine_file is set, to that JSONL file).",
+                validator=lambda v: v in ("raise", "skip", "quarantine"))
+    define_flag("loader_max_worker_restarts", 2,
+                "Per-worker re-spawn budget when a DataLoader worker "
+                "process dies (OOM-kill, segfault) or is restarted by "
+                "the input-stall watchdog; a worker exceeding it fails "
+                "the epoch with the legacy sticky RuntimeError (or "
+                "DataLoaderStalled for a stall).",
+                validator=lambda v: v >= 0)
+    define_flag("loader_stall_timeout_s", 0.0,
+                "Input-stall watchdog: if no batch arrives within this "
+                "many seconds the loader dumps worker liveness + the "
+                "pending task map, then restarts the stalled worker "
+                "(multi-process path, within the restart budget) or "
+                "raises DataLoaderStalled. 0 disables (the default — "
+                "a legitimately slow first batch must not be killed). "
+                "While waiting, the loader calls health.beat() so the "
+                "Supervisor doesn't mistake a slow loader for a hung "
+                "trainer.",
+                validator=lambda v: v >= 0)
+    define_flag("loader_chaos_stall_s", 1.0,
+                "How long the loader_stall chaos point wedges one "
+                "batch/task (must exceed the loader_stall_timeout_s "
+                "under test for the watchdog to trip).",
+                validator=lambda v: v >= 0)
+    define_flag("loader_quarantine_file", "",
+                "Optional JSONL file the quarantine policy appends "
+                "{index, error, worker} records to (the in-memory "
+                "loader.quarantine list is always kept). Empty "
+                "disables the file sink.")
+    # what the copies of core/locks.py, obs/registry.py and obs/events.py
+    # read (JAX package: the same flags)
+    define_flag("debug_lock_sanitizer", False,
+                "Runtime lock-order sanitizer (core/locks.py): hot-"
+                "class locks built through core.locks.make_lock become "
+                "order-recording wrappers — acquiring two locks in "
+                "opposite orders anywhere in the process raises typed "
+                "LockOrderError at the second site, and a marked "
+                "blocking call (wire recv, future wait) while holding "
+                "one raises BlockingUnderLockError. Off (the default) "
+                "is structurally free: make_lock returns a plain "
+                "threading.Lock.")
+    define_flag("obs_metrics", False,
+                "Per-step instrumentation into the process "
+                "MetricsRegistry (obs.registry.metrics_on). Off by "
+                "default; rare lifecycle counters (restarts, stalls, "
+                "quarantines) record regardless.")
+    define_flag("obs_events_file", "",
+                "Structured JSONL lifecycle journal (restart, stall, "
+                "quarantine): one JSON object per line, shared "
+                "append-safely by every process of a job (propagated "
+                "to workers via env). Empty disables.")
 
 
 _define_builtin_flags()

@@ -355,8 +355,11 @@ class ParallelEngine:
 
     def _feed(self, batch):
         def place(a):
-            t = a if isinstance(a, torch.Tensor) else \
-                torch.from_numpy(np.asarray(a))
+            # a Paddle Tensor (what io.DataLoader yields) enters the step
+            # as the plain tensor it views, as numpy leaves do: a facade
+            # leaf would make every op of the step re-wrap its result
+            t = a.as_subclass(torch.Tensor) if isinstance(a, torch.Tensor) \
+                else torch.from_numpy(np.asarray(a))
             t = t.to(self.device, non_blocking=True)
             if self.amp_dtype is not None and t.is_floating_point():
                 t = t.to(self.amp_dtype)

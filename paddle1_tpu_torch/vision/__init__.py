@@ -1,4 +1,6 @@
-"""Vision models and detection ops of the port (``paddle1_tpu.vision``
-subset)."""
+"""Vision models, detection ops, datasets and transforms of the port
+(``paddle1_tpu.vision``)."""
 
-from . import models, ops  # noqa: F401
+from . import datasets, models, ops, transforms  # noqa: F401
+
+__all__ = ["datasets", "models", "ops", "transforms"]

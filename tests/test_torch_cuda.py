@@ -71,6 +71,13 @@ row 7 to its plain version at the path's attention scores (f32 ``[128, 1,
 steps launch row 7 once per decoder step and row 6 once a step and a beam
 search row 7 once a decode step, and ``nn.LSTM`` (cuDNN) equal to
 ``nn.RNN(nn.LSTMCell)`` over the same weights, forward and gradients.
+For the input pipeline they hold that ``io.DataLoader`` batches staged on
+the card through pinned memory on the loader's copy stream equal their
+host arrays over 50 batches while a matmul loop keeps the compute stream
+busy, read at once and again after the loop (a missing ``wait_event``
+reads a copy not yet landed; a missing ``record_stream`` lets the next
+batch's copy reuse memory the compute stream has yet to read), with the
+producer thread and with worker processes.
 """
 
 import numpy as np
@@ -1619,3 +1626,49 @@ def test_lstm_weights_take_cudnn_s_layout_without_a_warning(dev):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         torch.testing.assert_close(net(x)[0], out)
+
+
+class _Blocks:
+    """Sample ``i``: a ``[256, 256]`` f32 block of small integers (its
+    float64 sum exact) and ``[i]``."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        cols = np.arange(256, dtype=np.float32) % 7
+        return (np.full((256, 256), i % 97, np.float32) + cols[None, :],
+                np.array([i], np.int64))
+
+
+@pytest.mark.parametrize("workers", [0, 2], ids=["thread", "processes"])
+def test_loader_batches_on_the_copy_stream_equal_their_host_arrays(
+        dev, workers):
+    import paddle1_tpu_torch as paddle
+    ds, bs, n = _Blocks(400), 8, 50
+    a = torch.randn(2048, 2048, device=dev)
+    heads, sums = [], []
+    with paddle.device_guard("gpu:0"):
+        it = iter(paddle.io.DataLoader(ds, batch_size=bs,
+                                       num_workers=workers,
+                                       prefetch_factor=4))
+        try:
+            for x, y in it:
+                assert x.device == dev and y.device == dev
+                x = x.as_subclass(torch.Tensor)
+                heads.append(x.clone())          # read at once
+                for _ in range(4):               # the compute stream busy
+                    a = torch.tanh(a @ a)
+                sums.append(x.sum(dtype=torch.float64) + 0 * a[0, 0])
+                del x, y                         # read again after it
+        finally:
+            it.shutdown()
+    torch.cuda.synchronize()
+    assert len(heads) == n
+    for k in range(n):
+        want = np.stack([ds[i][0] for i in range(k * bs, (k + 1) * bs)])
+        assert np.array_equal(heads[k].cpu().numpy(), want), k
+        assert float(sums[k]) == float(want.astype(np.float64).sum()), k
