@@ -514,6 +514,43 @@ Phases, each fatal on failure (non-zero exit, no result line):
     one worker process, says where the fed step's time goes. Prints the
     median step and loader-wait ms, images/s and the idle share beside
     phase 15's step.
+36. **Generation in float16.** Phase 3's ten staggered requests served by
+    the README's ``CausalLM`` (phase 3's seeded weights) in two arms:
+    ``cache_dtype="float16"`` under the f32 model (row 1 with f32 queries
+    over f16 pools) and ``lm.astype("float16")`` over an f16 pool (rows 1
+    and 2 in f16), each with phase 3's gates and launch counts; the
+    longest greedy stream re-run alone and its logits held to the plain
+    forward of the same model (no kernel, no cache) within four f16
+    rounding steps of the largest logit (``F16_LOGIT_REL``). Prints step
+    ms, tokens/s, and a full-batch decode step's busy ms and idle share.
+37. **The decode economics.** At the same width, each against phase 3's
+    streams of the same requests, bit for bit, greedy and sampled:
+    ``spec_tokens=4`` through the server with the n-gram speculator (its
+    acceptance printed), and the engine driven by a
+    ``DraftModelSpeculator`` proposing the stream's own continuation
+    (every draft taken: row 1 launched 12 times per W = 5 window, one
+    window per five tokens); ``int8=True`` served, its logits within 1e-3
+    of a plain forward on the dequantized weights, the weight bytes ratio
+    printed; ``resume_tokens`` at token 10 continuing the stream;
+    ``preempt=True`` on a 40-page pool with priorities and
+    ``gen_page_pressure`` chaos (parked and re-admitted streams equal,
+    ``kv_pages_owed == 0``, ``unaccounted == 0``); ``gen_slot_wedge``
+    failing only its stream.
+38. **The batch Server over ResNet-50.** ``Server`` over
+    ``resnet50()`` in eval, f32, channels-last, phase 9's seeded weights,
+    buckets (1, 2, 4, 8, 16, 32), ``max_batch=32``,
+    ``batch_timeout_ms=5``: 256 single-image requests from 4 client
+    threads. Each output bit-equal to its row of the same padded bucket's
+    direct forward and within 1e-4 of its own bucket-1 forward; 53 row-9
+    launches per dispatched batch; ``unaccounted == 0``. Prints QPS
+    batched and sequential, p50/p99 latency and the mean batch occupancy
+    (Paddle Serving's ResNet50 example's online classification).
+
+Phase 2 also holds rows 1 and 2 in float16: row 1 with f16 and f32
+queries over f16 pools at W = 1 and W = 5, row 2 at ``[16, 512]`` and
+BERT's ``[16384, 768]``, each within one f16 rounding step (``F16_REL``)
+plus the f32 tolerance, timed beside the plain version, the bound and
+(row 2) ``F.layer_norm`` in f16.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -866,8 +903,8 @@ def paged_bound_ms(q, kp, base, w):
                                        else "operations")
 
 
-def ln_bound_ms(rows, h):
-    t_bytes = (2 * rows * h * 4 + 2 * h * 4) / HBM_BYTES_PER_S
+def ln_bound_ms(rows, h, itemsize=4):
+    t_bytes = (2 * rows * h * itemsize + 2 * h * itemsize) / HBM_BYTES_PER_S
     t_ops = 8.0 * rows * h / F32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -993,7 +1030,92 @@ def kernel_phase(dev):
                                "excess_over_rounding": excess}
         log(f"{name} bf16: max_abs_err={out[name + '_bf16']['max_abs_err']:.3e}"
             f" (within one bf16 rounding step)")
+    out.update(f16_rows_phase(dev))
     return out
+
+
+def f16_rows_phase(dev):
+    """Phase 2's float16 cases: row 1 with f16 queries over f16 pools (an
+    f16 model) and f32 queries over f16 pools (an f16 cache under an f32
+    model), each at W = 1 (a decode step) and W = 5 (a window of 4
+    drafts); row 2 at the decode step's [16, 512] and BERT's
+    [16384, 768]. Each within one f16 rounding step plus the f32
+    tolerance of its plain version, repeated bit for bit, and timed
+    beside the plain version, its bound and (row 2) F.layer_norm in
+    f16."""
+    from paddle1_tpu_torch.ops import layer_norm as ln
+    from paddle1_tpu_torch.ops import paged_attention as pa
+    rng = np.random.default_rng(SEED + 360)
+    f16 = torch.float16
+    paged = []
+    for w in (1, 5):
+        for q_dtype in (f16, torch.float32):
+            q, pools, table, base = paged_case(rng, dev, w, n_pools=LAYERS)
+            q = q.to(q_dtype)
+            pools = [(kp.to(f16), vp.to(f16)) for kp, vp in pools]
+            tag = f"f16 W={w} q={str(q_dtype).split('.')[-1]} kv=float16"
+            check(pa.supported(q.shape, pools[0][0].shape, q_dtype, f16),
+                  f"paged_attention {tag}: outside supported()")
+            kp, vp = pools[0]
+            got = pa.paged_attention(q, kp, vp, table, base)
+            want = pa.paged_attention_ref(q, kp, vp, table, base)
+            torch.cuda.synchronize()
+            check(got.dtype == q_dtype and bool(torch.isfinite(got).all()),
+                  f"paged_attention {tag}: dtype {got.dtype} or non-finite")
+            check(torch.equal(pa.paged_attention(q, kp, vp, table, base),
+                              got), f"paged_attention {tag}: a repeat "
+                  "differs")
+            # one rounding step of an f16 output (bf16_excess takes
+            # F16_REL for f16), none for an f32 one
+            excess = (bf16_excess(got, want) if q_dtype == f16
+                      else float((got - want).abs().max()))
+            check(excess <= PA_TOL, f"paged_attention {tag}: {excess} past "
+                  "one f16 rounding step + PA_TOL")
+            err = float((got.float() - want.float()).abs().max())
+            ms = graph_time_ms([lambda kp=kp, vp=vp: pa.paged_attention(
+                q, kp, vp, table, base) for kp, vp in pools])
+            plain = graph_time_ms([lambda kp=kp, vp=vp: pa.paged_attention_ref(
+                q, kp, vp, table, base) for kp, vp in pools])
+            bound, by = paged_bound_ms(q, kp, base, w)
+            paged.append(dict(
+                shape=f"q{list(q.shape)} pool{list(kp.shape)} "
+                      f"table{list(table.shape)}", window=w,
+                q_dtype=str(q_dtype), kv_dtype=str(f16), max_abs_err=err,
+                excess_over_rounding=excess, ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=None))
+            log(f"paged_attention {tag}: max_abs_err={err:.3e} "
+                f"kernel={ms:.5f}ms plain={plain:.5f}ms bound={bound:.5f}ms "
+                f"({by})")
+            del pools
+    norms = []
+    for rows, h in ((SLOTS, D_MODEL), (BATCH * SEQ, BERT_HIDDEN)):
+        x = torch.from_numpy((rng.standard_normal((rows, h)) * 2 + 0.3)
+                             .astype(np.float32)).to(dev, f16)
+        w_, b_ = (torch.from_numpy(rng.standard_normal(h).astype(
+            np.float32)).to(dev, f16) for _ in range(2))
+        got = ln.fused_layer_norm(x, w_, b_)
+        want = ln.layer_norm_ref(x, w_, b_)
+        torch.cuda.synchronize()
+        tag = f"layer_norm f16 rows={rows} H={h}"
+        check(got.dtype == f16 and torch.equal(
+            ln.fused_layer_norm(x, w_, b_), got), f"{tag}: dtype or repeat")
+        excess = bf16_excess(got, want)
+        check(excess <= LN_TOL, f"{tag}: {excess} past one f16 rounding step"
+              " + LN_TOL")
+        err = float((got.float() - want.float()).abs().max())
+        ms = graph_time_ms([lambda: ln.fused_layer_norm(x, w_, b_)] * 24)
+        plain = graph_time_ms([lambda: ln.layer_norm_ref(x, w_, b_)] * 24)
+        lib = graph_time_ms([lambda: torch.nn.functional.layer_norm(
+            x, (h,), w_, b_, 1e-5)] * 24)
+        bound, by = ln_bound_ms(rows, h, itemsize=2)
+        norms.append(dict(shape=f"x[{rows}, {h}] float16", max_abs_err=err,
+                          excess_over_rounding=excess, ms=ms,
+                          plain_ms=plain, bound_ms=bound, bound_by=by,
+                          library_ms=lib))
+        log(f"{tag}: max_abs_err={err:.3e} kernel={ms:.5f}ms "
+            f"plain={plain:.5f}ms library={lib:.5f}ms bound={bound:.5f}ms "
+            f"({by})")
+    return {"paged_attention_f16": paged, "layer_norm_f16": norms}
 
 
 # ---------------------------------------------------------------------------
@@ -7707,6 +7829,508 @@ def io_lenet_phase(dev, lenet_step_ms=None, n_train=MNIST_TRAIN,
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phases 36-38: generation economics and the batch Server
+
+# phase 36's teacher-forced logits against the plain forward: four f16
+# rounding steps of the largest logit. In the f16-cache arm only K and V
+# round to f16 (2^-11 relative each) and the rest stays f32; in the f16
+# model every matrix product and LayerNorm rounds its output once, and
+# the logits themselves are f16, so the kernel path and the plain path
+# (other kernels, other summation orders) may land one to a few units in
+# the last place of the largest logit apart
+F16_LOGIT_REL = 2.0 ** -8
+# phase 37's int8 logits against a plain forward on the dequantized
+# weights: the same f32 arithmetic, the kernels' summation orders
+INT8_LOGIT_TOL = 1e-3
+SPEC_K, RESUME_AT = 4, 10
+# phase 37's preemption pool: 40 pages of 16 rows for 16 slots (the dense
+# equivalent is 16 * 32 + 1), priorities 0-2, the pool squatted by chaos
+# at the fifth scheduler tick
+PREEMPT_PAGES, PREEMPT_CHAOS = 40, "gen_page_pressure@5"
+WEDGE_CHAOS = "gen_slot_wedge@6:1"
+# phase 38: ResNet-50 eval behind the batch Server (Paddle Serving's
+# ResNet50 example's online classification), f32, channels-last
+RS_BUCKETS, RS_MAX_BATCH, RS_TIMEOUT_MS = (1, 2, 4, 8, 16, 32), 32, 5.0
+RS_REQUESTS, RS_CLIENTS, RS_TOL = 256, 4, 1e-4
+
+
+def gen_counters():
+    from paddle1_tpu_torch.ops import layer_norm as ln
+    from paddle1_tpu_torch.ops import paged_attention as pa
+    return {"paged_attention": pa.paged_attention,
+            "layer_norm": ln.fused_layer_norm}
+
+
+def gen_model(dtype=None):
+    """The README's CausalLM with phase 3's seeded weights, on the card
+    (in ``dtype`` when given)."""
+    from paddle1_tpu_torch.serving import CausalLM
+    lm = CausalLM(VOCAB, d_model=D_MODEL, nhead=HEADS, dim_feedforward=FFN,
+                  num_layers=LAYERS, max_seq=MAX_SEQ,
+                  generator=torch.Generator().manual_seed(SEED))
+    return lm if dtype is None else lm.astype(dtype)
+
+
+def gen_engine(lm, **kw):
+    from paddle1_tpu_torch.serving import GenerationEngine
+    return GenerationEngine(lm, slots=SLOTS, max_seq=MAX_SEQ, eos_id=2,
+                            paged=True, page_size=PAGE, **kw)
+
+
+def gen_serve(eng, reqs, tag, preempt=False):
+    """Phase 3's staggered serving of ``reqs`` through a fresh server on
+    ``eng``, the counters zeroed just before and read just after, with
+    phase 3's gates: nothing unaccounted or owed, every stream complete,
+    paged attention once per layer a decode step, LayerNorm twice per
+    layer a step and a prefill."""
+    from paddle1_tpu_torch.serving import GenerationServer
+    counters = gen_counters()
+    srv = GenerationServer(eng, queue_depth=64, warmup=True,
+                           preempt=preempt).start()
+    torch.cuda.synchronize()
+    steps0 = eng.decode_dispatch_count
+    prefills0 = sum(eng.prefill_dispatch_counts.values())
+    zero(counters)
+    t0 = time.perf_counter()
+    streams, outs = serve(srv, reqs)
+    rep = srv.drain(timeout=300)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bn_launches(counters)
+    check(rep["fatal"] is None, f"{tag}: generation loop died: "
+          f"{rep['fatal']}")
+    for key in ("unaccounted", "kv_pages_owed", "tokens_owed"):
+        check(rep[key] == 0, f"{tag}: {key}={rep[key]}")
+    check(rep["completed"] == len(reqs), f"{tag}: completed "
+          f"{rep['completed']} of {len(reqs)}")
+    for st, out, (_, kw) in zip(streams, outs, reqs):
+        check(st.finish_reason in ("eos", "length"),
+              f"{tag}: stream finished {st.finish_reason}")
+        check(1 <= len(out) <= kw["max_new_tokens"] and
+              all(0 <= t < VOCAB for t in out), f"{tag}: bad stream")
+    steps = rep["decode_dispatches"] - steps0
+    prefills = sum(rep["prefill_dispatch_counts"].values()) - prefills0
+    check(launches["paged_attention"] == LAYERS * steps,
+          f"{tag}: paged_attention launched {launches['paged_attention']} "
+          f"times, want {LAYERS} per decode step x {steps}")
+    check(launches["layer_norm"] == 2 * LAYERS * (steps + prefills),
+          f"{tag}: layer_norm launched {launches['layer_norm']} times, want "
+          f"{2 * LAYERS} per step x {steps + prefills}")
+    snap = srv.metrics.snapshot()
+    h, c = snap["histograms"], snap["counters"]
+    summary = {
+        "arm": tag, "requests": len(reqs),
+        "tokens_generated": rep["tokens_generated"], "decode_steps": steps,
+        "prefills": prefills, "wall_s": wall,
+        "tokens_per_s": rep["tokens_generated"] / wall,
+        "decode_step_ms_p50": h["decode_step_ms"]["p50"],
+        "decode_step_ms_p99": h["decode_step_ms"]["p99"],
+        "prefill_ms_mean": h["prefill_ms"]["mean"],
+        "launches": launches, "unaccounted": rep["unaccounted"],
+        "kv_pages_owed": rep["kv_pages_owed"]}
+    if c.get("gen_spec_proposed_total"):
+        summary["spec_proposed"] = c["gen_spec_proposed_total"]
+        summary["spec_accepted"] = c.get("gen_spec_accepted_total", 0)
+        summary["spec_accept_ratio"] = (summary["spec_accepted"]
+                                        / summary["spec_proposed"])
+    for k in ("gen_preemptions_total", "gen_preempt_readmits_total",
+              "gen_admission_deferrals_total"):
+        if c.get(k):
+            summary[k] = c[k]
+    return streams, outs, summary
+
+
+def decode_profile(eng, n=8, drafts=None):
+    """Every slot busy with a 64-token greedy prompt, then ``n`` decode
+    steps timed on the host clock (synchronised) and ``n`` more under
+    torch.profiler: ms a step, the device's busy ms a step and its idle
+    share against the untraced step. ``drafts(s)`` gives slot s's
+    proposals under speculation."""
+    rng = np.random.default_rng(SEED + 370)
+    for s in range(eng.slots):
+        eng.prefill(s, rng.integers(3, VOCAB, 64).astype(np.int32), 0.0, 0,
+                    0)
+    active = np.ones(eng.slots, bool)
+    k = eng.spec_tokens
+    d = np.zeros((eng.slots, k), np.int64)
+    nd = np.zeros(eng.slots, np.int64)
+
+    def step():
+        eng.decode(active, d, nd)
+        return torch.zeros((), device=eng.device)
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n
+    prof = device_kernels_per_step(step, n, top=6)
+    for s in range(eng.slots):
+        eng.release(s)
+    busy = prof["device_busy_ms_per_step"]
+    return {"step_ms": step_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / step_ms,
+            "kernels_per_step": prof["kernels_per_step"],
+            "top_kernels": prof["top_kernels"]}
+
+
+def plain_forward_logits(lm, seq, dev, params=None):
+    """The model's plain forward on the card (no cache, dense causal
+    attention, no hand-written kernel), on ``params`` when given."""
+    from paddle1_tpu_torch.core.flags import flags_guard
+    counters = gen_counters()
+    before = bn_launches(counters)
+    ids = torch.tensor([seq], device=dev)
+    with flags_guard(fused_layer_norm="never", pallas_paged_attention="never",
+                     flash_attention="never"), torch.inference_mode():
+        lg = (lm(ids) if params is None
+              else torch.func.functional_call(lm, params, (ids,)))
+    check(bn_launches(counters) == before,
+          "the plain forward launched a kernel")
+    return lg[0].float()
+
+
+def engine_logits(eng, prompt, n):
+    """Teacher-free greedy run of ``prompt`` alone in slot 0 through the
+    kernel path: its tokens and each step's f32 logits."""
+    toks = [eng.prefill(0, np.asarray(prompt, np.int32), 0.0, 0, 0)]
+    lgs = [eng.last_prefill_logits.clone()]
+    active = np.zeros([eng.slots], bool)
+    active[0] = True
+    while len(toks) < n:
+        t, _ = eng.decode(active)
+        toks.append(int(t[0, 0]))
+        lgs.append(eng.last_logits[0].clone())
+    eng.release(0)
+    return toks, torch.stack(lgs)
+
+
+def gen_f16_phase(dev, reqs):
+    """Phase 36: phase 3's requests served by the README's CausalLM in
+    two f16 arms, each with phase 3's gates and launch counts; the
+    longest greedy stream re-run alone and its logits held to the plain
+    forward of the same model within F16_LOGIT_REL of the largest."""
+    out = {}
+    for tag, model_dtype, kw in (
+            ("f16_cache", None, dict(cache_dtype="float16")),
+            ("f16_model", "float16", dict(cache_dtype="float16"))):
+        lm = gen_model(model_dtype)
+        eng = gen_engine(lm, **kw)
+        check(all(k.dtype == torch.float16 for k, _ in eng._kv),
+              f"{tag}: the pools are not float16")
+        _, outs, summary = gen_serve(eng, reqs, f"gen_{tag}")
+        greedy = [i for i, (_, k) in enumerate(reqs)
+                  if not k.get("temperature")]
+        pick = max(greedy, key=lambda i: len(outs[i]))
+        prompt = reqs[pick][0]
+        toks, got = engine_logits(eng, prompt, len(outs[pick]))
+        check(toks == outs[pick], f"{tag}: greedy request alone differs "
+              "from the served stream")
+        ref = plain_forward_logits(lm, list(prompt) + toks[:-1],
+                                   dev)[len(prompt) - 1:]
+        err = float((got - ref).abs().max())
+        bound = F16_LOGIT_REL * float(ref.abs().max())
+        check(err <= bound, f"{tag}: teacher-forced logits differ by {err} "
+              f"> {bound}")
+        summary.update(teacher_forced_err=err, teacher_forced_bound=bound,
+                       teacher_forced_steps=len(toks),
+                       profile=decode_profile(eng))
+        out[tag] = summary
+        log(json.dumps({"gen_" + tag: summary}))
+        del eng, lm
+        torch.cuda.empty_cache()
+    return out
+
+
+def spec_draft_run(eng, prompt, kw, want):
+    """Drive ``eng`` (spec_tokens = SPEC_K) by hand with a
+    DraftModelSpeculator whose drafts are ``want``'s own continuation:
+    every draft is accepted, so a window yields SPEC_K + 1 tokens. Returns
+    the tokens and the number of windows."""
+    from paddle1_tpu_torch.serving import DraftModelSpeculator
+    n0 = len(prompt)
+    sp = DraftModelSpeculator(prompt, SPEC_K, lambda h, k: want[
+        len(h) - n0:len(h) - n0 + k])
+    got = [eng.prefill(0, np.asarray(prompt, np.int32),
+                       kw.get("temperature", 0.0), kw.get("top_k", 0),
+                       kw.get("seed", 0))]
+    sp.observe(got[0])
+    active = np.zeros([eng.slots], bool)
+    active[0] = True
+    windows = 0
+    while len(got) < len(want):
+        d = sp.propose()
+        drafts = np.zeros([eng.slots, SPEC_K], np.int64)
+        nd = np.zeros([eng.slots], np.int64)
+        drafts[0, :d.size] = d
+        nd[0] = d.size
+        toks, flags = eng.decode(active, drafts, nd)
+        windows += 1
+        for t in toks[0][flags[0]]:
+            sp.observe(int(t))
+            got.append(int(t))
+    eng.release(0)
+    return got[:len(want)], windows
+
+
+def decode_economics_phase(dev, reqs, ref_outs):
+    """Phase 37: speculation, int8 weights, resume replay, KV-pressure
+    preemption and slot-wedge chaos at the README width, each against
+    phase 3's streams of the same requests (``ref_outs``)."""
+    from paddle1_tpu_torch.core import chaos
+    from paddle1_tpu_torch.quantization import (QuantTensor,
+                                                dequantize_weights)
+    from paddle1_tpu_torch.serving import GenerationServer, SlotWedged
+    from paddle1_tpu_torch.ops import paged_attention as pa
+    out = {}
+    lm = gen_model()
+
+    # speculation through the server: n-gram drafts, streams bit-equal
+    eng = gen_engine(lm, spec_tokens=SPEC_K)
+    _, outs, summary = gen_serve(eng, reqs, "gen_spec")
+    for i, (got, want) in enumerate(zip(outs, ref_outs)):
+        check(got == want, f"speculative stream {i} differs from the "
+              f"non-speculative one: {got[:12]}... != {want[:12]}...")
+    summary["profile"] = decode_profile(eng)
+    # a draft model proposing the stream's own continuation: every draft
+    # taken, one window of W = 5 per five tokens, row 1 once per layer
+    drafted = {}
+    for name, i in (("greedy", 0), ("sampled", 1)):
+        pa.paged_attention.launches = 0
+        got, windows = spec_draft_run(eng, reqs[i][0], reqs[i][1],
+                                      ref_outs[i])
+        torch.cuda.synchronize()
+        check(got == ref_outs[i], f"draft-model run ({name}) differs from "
+              "the non-speculative stream")
+        want_w = -(-(len(ref_outs[i]) - 1) // (SPEC_K + 1))
+        check(windows == want_w, f"draft-model run ({name}): {windows} "
+              f"windows, want {want_w}")
+        check(pa.paged_attention.launches == LAYERS * windows,
+              f"draft-model run ({name}): paged_attention launched "
+              f"{pa.paged_attention.launches} times, want {LAYERS} x "
+              f"{windows}")
+        drafted[name] = {"tokens": len(got), "windows": windows,
+                         "paged_attention_launches": LAYERS * windows,
+                         "dispatch_share": windows / (len(got) - 1)}
+    summary["draft_model_runs"] = drafted
+    out["spec"] = summary
+    log(json.dumps({"gen_spec": summary}))
+    del eng
+
+    # int8 weights: logits against a plain forward on the dequantized
+    # weights, the stored bytes against f32
+    eng = gen_engine(lm, int8=True)
+    _, outs, summary = gen_serve(eng, reqs, "gen_int8")
+    greedy = [i for i, (_, k) in enumerate(reqs) if not k.get("temperature")]
+    pick = max(greedy, key=lambda i: len(outs[i]))
+    prompt = reqs[pick][0]
+    toks, got = engine_logits(eng, prompt, len(outs[pick]))
+    check(toks == outs[pick], "int8: greedy request alone differs from the "
+          "served stream")
+    deq = dequantize_weights(eng._params)
+    ref = plain_forward_logits(lm, list(prompt) + toks[:-1], dev,
+                               params=deq)[len(prompt) - 1:]
+    err = float((got - ref).abs().max())
+    check(err <= INT8_LOGIT_TOL, f"int8 logits differ from the dequantized "
+          f"forward by {err} > {INT8_LOGIT_TOL}")
+    quant = [v for v in eng._params.values() if isinstance(v, QuantTensor)]
+    q_bytes = sum(v.q.numel() + 4 * v.scale.numel() for v in quant)
+    f_bytes = sum(4 * v.q.numel() for v in quant)
+    rest = sum(v.numel() * v.element_size() for v in eng._params.values()
+               if not isinstance(v, QuantTensor))
+    summary.update(
+        logit_err_vs_dequantized=err, quantized_weights=len(quant),
+        weight_bytes_int8=q_bytes, weight_bytes_f32=f_bytes,
+        weight_bytes_ratio=q_bytes / f_bytes,
+        all_params_bytes_ratio=(q_bytes + rest) / (f_bytes + rest),
+        profile=decode_profile(eng))
+    out["int8"] = summary
+    log(json.dumps({"gen_int8": summary}))
+    del eng, deq
+
+    # resume at token RESUME_AT: the continuation equals the stream
+    eng = gen_engine(lm)
+    srv = GenerationServer(eng, queue_depth=64).start()
+    resumed = []
+    for i in (0, 1, 3):   # greedy, sampled, sampled
+        prompt, kw = reqs[i]
+        kw = dict(kw, seed=kw.get("seed", 0))
+        got = srv.submit(prompt, resume_tokens=ref_outs[i][:RESUME_AT],
+                         **kw).result(timeout=300)
+        check(got == ref_outs[i][RESUME_AT:], f"resumed stream {i} differs "
+              "from the uninterrupted one")
+        resumed.append({"request": i, "sampled": bool(kw.get("temperature")),
+                        "tokens": len(got)})
+    rep = srv.drain(timeout=300)
+    check(rep["unaccounted"] == 0 and rep["kv_pages_owed"] == 0,
+          f"resume drain report {rep}")
+    out["resume"] = {"at": RESUME_AT, "streams": resumed}
+    log(json.dumps({"gen_resume": out["resume"]}))
+
+    # preemption: a pool too small for every slot, priorities, squatted
+    chaos.reset()
+    chaos.configure(PREEMPT_CHAOS)
+    try:
+        eng = gen_engine(lm, pages=PREEMPT_PAGES, prefix_cache=0)
+        preqs = [(p, dict(kw, priority=i % 3))
+                 for i, (p, kw) in enumerate(reqs)]
+        _, outs, summary = gen_serve(eng, preqs, "gen_preempt",
+                                     preempt=True)
+    finally:
+        chaos.reset()
+    for i, (got, want) in enumerate(zip(outs, ref_outs)):
+        check(got == want, f"preempted stream {i} differs from its "
+              "unpreempted run")
+    check(summary.get("gen_preemptions_total", 0) >= 1 and
+          summary.get("gen_preempt_readmits_total", 0) >= 1,
+          f"preemption never parked and re-admitted a stream: {summary}")
+    summary.update(pages=PREEMPT_PAGES, chaos=PREEMPT_CHAOS)
+    out["preempt"] = summary
+    log(json.dumps({"gen_preempt": summary}))
+
+    # chaos: a wedged slot fails only its own stream
+    chaos.configure(WEDGE_CHAOS)
+    try:
+        eng = gen_engine(lm)
+        srv = GenerationServer(eng, queue_depth=64).start()
+        streams = [srv.submit(p, **kw) for p, kw in reqs[:3]]
+        results = []
+        for st in streams:
+            try:
+                results.append(st.result(timeout=300))
+            except SlotWedged:
+                results.append(None)
+        rep = srv.drain(timeout=300)
+    finally:
+        chaos.reset()
+    check(results[1] is None and 0 < len(streams[1].tokens),
+          "gen_slot_wedge did not fail slot 1's stream mid-stream")
+    check(results[0] == ref_outs[0] and results[2] == ref_outs[2],
+          "a wedged slot changed its cohabitants' streams")
+    check(rep["errors"] == 1 and rep["unaccounted"] == 0 and
+          rep["kv_pages_owed"] == 0, f"wedge drain report {rep}")
+    out["chaos"] = {"spec": WEDGE_CHAOS, "wedged_tokens":
+                    len(streams[1].tokens), "errors": rep["errors"]}
+    log(json.dumps({"gen_chaos": out["chaos"]}))
+    del eng, lm
+    torch.cuda.empty_cache()
+    return out
+
+
+def resnet_server_phase(dev):
+    """Phase 38: the batch Server over resnet50() in eval, f32,
+    channels-last, phase 9's seeded weights: RS_REQUESTS single-image
+    requests from RS_CLIENTS client threads at buckets RS_BUCKETS."""
+    import threading
+    from paddle1_tpu_torch.serving import InferenceEngine, Server
+    from paddle1_tpu_torch.vision.models import resnet50
+    model = resnet50(generator=torch.Generator().manual_seed(SEED))
+    model.eval()
+    eng = InferenceEngine(model, buckets=RS_BUCKETS,
+                          input_specs=[((3, RN_IMG, RN_IMG), "float32")])
+    check(eng.warm_up() == len(RS_BUCKETS), "warm-up missed a bucket")
+    rng = np.random.default_rng(SEED + 380)
+    images = [rng.standard_normal((1, 3, RN_IMG, RN_IMG)).astype(np.float32)
+              for _ in range(RS_REQUESTS)]
+    srv = Server(eng, max_batch=RS_MAX_BATCH, batch_timeout_ms=RS_TIMEOUT_MS,
+                 queue_depth=RS_REQUESTS + RS_MAX_BATCH).start()
+    counters = bn_counters()
+    zero(counters)
+    futs, lat = [None] * RS_REQUESTS, [0.0] * RS_REQUESTS
+
+    def client(c):
+        mine = range(c, RS_REQUESTS, RS_CLIENTS)
+        t = {}
+        for i in mine:
+            t[i] = time.perf_counter()
+            futs[i] = srv.submit(images[i])
+        for i in mine:
+            futs[i].result(timeout=300)
+            lat[i] = (time.perf_counter() - t[i]) * 1e3
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(RS_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    rep = srv.drain(timeout=300)
+    torch.cuda.synchronize()
+    launches = bn_launches(counters)
+    snap = srv.metrics.snapshot()
+    check(rep["fatal"] is None and rep["unaccounted"] == 0 and
+          rep["completed"] == RS_REQUESTS, f"server drain report {rep}")
+    check(launches["fused_bn_norm"] == RN_BNS * rep["batches"] and
+          launches["fused_bn_train"] == 0, f"launches {launches}, want "
+          f"{RN_BNS} fused_bn_norm per batch x {rep['batches']}")
+    dispatches = dict(eng.dispatch_counts)
+    outs = [f.result() for f in futs]
+    # each output against its row of the same padded bucket's direct
+    # forward (bit for bit), then against its own bucket-1 forward
+    batches = {}
+    for i, f in enumerate(futs):
+        batches.setdefault(id(f._batch), []).append((f._lo, i))
+    with torch.inference_mode():
+        for rows in batches.values():
+            rows.sort()
+            x = np.concatenate([images[i] for _, i in rows])
+            padded, n, bucket = eng.pad_to_bucket([x])
+            direct = model(torch.from_numpy(padded[0]).to(dev)).cpu().numpy()
+            for lo, i in rows:
+                check(np.array_equal(outs[i], direct[lo:lo + 1]),
+                      f"request {i}: differs from row {lo} of its bucket-"
+                      f"{bucket} forward")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    seq = [eng.infer([im])[0] for im in images]
+    seq_wall = time.perf_counter() - t1
+    err = max(float(np.abs(a - b).max()) for a, b in zip(outs, seq))
+    check(err <= RS_TOL, f"batched outputs differ from bucket-1 forwards by "
+          f"{err} > {RS_TOL}")
+    check(all(np.isfinite(o).all() for o in outs), "non-finite logits")
+    # one full bucket's forward: host-clock ms against the device's busy
+    x32 = torch.from_numpy(np.concatenate(images[:RS_MAX_BATCH])).to(dev)
+
+    def forward():
+        with torch.inference_mode():
+            return model(x32).sum()
+    forward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for _ in range(4):
+        forward()
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t2) * 1e3 / 4
+    busy = device_kernels_per_step(forward, 2, top=6)[
+        "device_busy_ms_per_step"]
+    sizes = snap["histograms"]["batch_occupancy"]
+    summary = {
+        "model": "resnet50", "dtype": "float32", "layout": "channels_last",
+        "requests": RS_REQUESTS, "clients": RS_CLIENTS,
+        "buckets": list(RS_BUCKETS), "max_batch": RS_MAX_BATCH,
+        "batch_timeout_ms": RS_TIMEOUT_MS, "batches": rep["batches"],
+        "dispatch_counts": dispatches,
+        "qps_batched": RS_REQUESTS / wall, "qps_sequential":
+            RS_REQUESTS / seq_wall,
+        "latency_ms_p50": float(np.percentile(lat, 50)),
+        "latency_ms_p99": float(np.percentile(lat, 99)),
+        "batch_occupancy_mean": sizes["mean"],
+        "max_abs_err_vs_bucket1": err, "bucket32_forward_ms": fwd_ms,
+        "bucket32_device_busy_ms": busy,
+        "bucket32_device_idle_share": 1.0 - busy / fwd_ms,
+        "launches": launches,
+        "launches_per_batch": launches["fused_bn_norm"] / rep["batches"],
+        "unaccounted": rep["unaccounted"]}
+    log(json.dumps({"resnet_server": summary}))
+    del srv, eng, model
+    torch.cuda.empty_cache()
+    return summary
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -7842,6 +8466,17 @@ def main() -> int:
     io_ln = io_lenet_phase(dev, lenet["step_ms_median"])
     torch.cuda.empty_cache()
 
+    t36 = time.perf_counter()
+    gen16 = gen_f16_phase(dev, reqs)
+    econ = decode_economics_phase(dev, reqs, outs)
+    rs = resnet_server_phase(dev)
+    log(json.dumps({"phases_36_38_s": time.perf_counter() - t36}))
+    gen_paths = {"gen_f16_cache": gen16["f16_cache"]["launches"],
+                 "gen_f16_model": gen16["f16_model"]["launches"],
+                 "gen_spec": econ["spec"]["launches"],
+                 "gen_int8": econ["int8"]["launches"],
+                 "gen_preempt": econ["preempt"]["launches"]}
+
     mn_paths = {"mobilenet_v2_train": mn["launches_train"],
                 "mobilenet_v2_eval": mn["launches_eval"],
                 "mobilenet_v2_bf16": mn["bf16_engine"]["launches"],
@@ -7864,7 +8499,8 @@ def main() -> int:
                    "bert_finetune": ft["launches"].get(name, 0),
                    "bert_finetune_eval": fte.get(name, 0),
                    **{k: v.get(name, 0) for k, v in amp_paths.items()},
-                   **{k: v.get(name, 0) for k, v in tf_paths.items()}}
+                   **{k: v.get(name, 0) for k, v in tf_paths.items()},
+                   **{k: v[name] for k, v in gen_paths.items()}}
         line.append({
             "name": name, "route": "cuda", "source": f"{src}{name}.cu",
             "replaces": {"paged_attention": pallas + "paged_attention.py:89",
@@ -7878,7 +8514,18 @@ def main() -> int:
             "launches_per_decode_step": {"paged_attention": LAYERS,
                                          "layer_norm": 2 * LAYERS}[name],
             "decode_steps": steps, "cases": kernels[name],
-            "bf16_check": kernels[name + "_bf16"]})
+            "bf16_check": kernels[name + "_bf16"],
+            # float16 (phase 2's f16 cases; phase 36's f16 arms)
+            "f16_cases": kernels[name + "_f16"],
+            "f16_max_abs_err": max(c["max_abs_err"]
+                                   for c in kernels[name + "_f16"])})
+    # row 1 at the speculative window W = 1 + SPEC_K (phase 37)
+    line[0]["spec_window"] = {
+        "window": 1 + SPEC_K,
+        "launches_per_window": LAYERS,
+        "draft_model_runs": econ["spec"]["draft_model_runs"],
+        "f16_w5_cases": [c for c in kernels["paged_attention_f16"]
+                         if c["window"] == 1 + SPEC_K]}
     # the training path's shape (BERT-base, bf16 [16384, 768])
     line[-1].update({f"train_shape_{k}": ln_train[k] for k in (
         "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")})
@@ -8039,7 +8686,8 @@ def main() -> int:
                    "yolov3": yolo["launches"][name],
                    **{k: v[name] for k, v in mn_paths.items()},
                    "resnet_io_train": io_rn["launches_train"][name],
-                   "resnet_io_eval": io_rn["launches_eval"][name]}
+                   "resnet_io_eval": io_rn["launches_eval"][name],
+                   "resnet_server": rs["launches"][name]}
         main_case = bn_times[name][0]     # the stem's [401408, 64]
         line.append({
             "name": name, "route": "cuda", "source": src + cu,

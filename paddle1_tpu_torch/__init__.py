@@ -40,13 +40,16 @@ methods. ``amp`` is automatic mixed precision (``auto_cast``,
 is the input pipeline (datasets, samplers and the ``DataLoader`` with
 its worker processes, batches staged onto the card through pinned memory
 on a copy stream), with ``vision.transforms`` and ``vision.datasets``.
+``serving`` also decodes speculatively, with int8 weights
+(``quantization``), float16 caches and models, resume replay and
+KV-pressure preemption, and serves batch models through ``Server``.
 """
 
 import torch as _torch
 
 from . import (amp, autograd, distributed, framework,  # noqa: F401
-               io, nn, optimizer, regularizer, serving, text, utils,
-               vision)
+               io, nn, optimizer, quantization, regularizer, serving,
+               text, utils, vision)
 from .autograd import (enable_grad, grad, is_grad_enabled,  # noqa: F401
                        no_grad, set_grad_enabled)
 from .core.device import resolve_device  # noqa: F401

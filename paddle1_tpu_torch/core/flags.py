@@ -275,6 +275,71 @@ def _define_builtin_flags() -> None:
                 "Prefix-registry entries for prompt-page sharing under "
                 "serve_gen_paged (0 disables sharing).",
                 validator=lambda v: v >= 0)
+    # the decode economics and KV-pressure degradation (JAX package:
+    # core/flags.py serve_gen_spec_tokens .. serve_gen_pressure_ceiling)
+    define_flag("serve_gen_spec_tokens", 0,
+                "Speculative-decoding draft length k: each decode step "
+                "verifies k speculator-proposed tokens plus samples one "
+                "correction, so one step can produce up to k+1 tokens. "
+                "Acceptance is by equality against the engine's own "
+                "per-(seed, token index) sample schedule, so output "
+                "(greedy AND sampled) is bit-identical to "
+                "non-speculative decode. 0 = off. Each slot reserves k "
+                "scratch rows of seq capacity.",
+                validator=lambda v: v >= 0)
+    define_flag("serve_gen_spec_ngram", 3,
+                "N-gram order of the prompt-lookup speculator: drafts "
+                "are the tokens that followed the most recent earlier "
+                "occurrence of the last n tokens (falling back to "
+                "shorter grams).",
+                validator=lambda v: v >= 1)
+    define_flag("serve_gen_int8", False,
+                "Per-output-channel int8 weight storage for the decode "
+                "matmuls (quantization.quantize_weights_int8): Linear "
+                "weights stay int8 + f32 scales on the device and "
+                "dequantize inside each step. Lossy (not bit-parity "
+                "with f32 decode).")
+    define_flag("serve_gen_preempt", False,
+                "KV-pressure graceful degradation in the generation "
+                "scheduler: a decode-time page fault preempts the "
+                "lowest-priority / longest-deadline cohabiting stream "
+                "(its pages are released the same tick, the request is "
+                "parked, then re-admitted via the bit-identical replay "
+                "path) instead of failing the faulting stream with "
+                "KVPoolExhausted; the prefix cache always sheds LRU "
+                "entries before any live stream is touched. Off (the "
+                "default) keeps the fail-typed behavior.")
+    define_flag("serve_gen_pressure_ceiling", 0.95,
+                "Occupancy fraction of the KV page pool above which "
+                "scheduler admission defers new prefills (the queue "
+                "holds them) under serve_gen_preempt, keeping headroom "
+                "so admitted streams' decode growth preempts or parks "
+                "instead of ever seeing KVPoolExhausted.",
+                validator=lambda v: 0 < v <= 1)
+    define_flag("debug_kv_refcount", False,
+                "KV page-accounting invariant checker: after every "
+                "scheduler tick the PagePool verifies sum-of-refcounts "
+                "== refs held by live slots + prefix registry (+ chaos "
+                "holds), raising typed KVPageAccountingError at the tick "
+                "that corrupted accounting. Off (the default) is free.")
+    # the batch Server (serving/server.py, serving/batcher.py; JAX
+    # package: core/flags.py serve_batch_timeout_ms, serve_chaos_slow_s,
+    # jit_retrace_warn)
+    define_flag("serve_batch_timeout_ms", 5.0,
+                "How long the Batcher holds an incomplete micro-batch "
+                "open for more requests before dispatching it anyway. "
+                "The latency/occupancy tradeoff dial: 0 dispatches "
+                "immediately (lowest latency, occupancy 1/bucket).",
+                validator=lambda v: v >= 0)
+    define_flag("serve_chaos_slow_s", 0.25,
+                "How long the serve_slow_step chaos point stalls one "
+                "micro-batch dispatch, and gen_slow_step one decode "
+                "step (tests drive the deadline paths with it).",
+                validator=lambda v: v >= 0)
+    define_flag("jit_retrace_warn", True,
+                "Warn (once per InferenceEngine) when a request arrives "
+                "with a new non-batch signature: every distinct inner "
+                "shape is another warm-up per bucket.")
     # fault injection and the input pipeline's resilience (io.DataLoader;
     # JAX package: core/flags.py ft_chaos, loader_*), with the JAX
     # package's names, defaults and help

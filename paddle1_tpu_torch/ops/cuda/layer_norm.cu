@@ -3,7 +3,7 @@
 // Replaces paddle1_tpu/ops/pallas/layer_norm.py::_ln_fwd_kernel.
 // Same numerics contract: f32 mean, then the two-pass variance
 // var = mean((x - mean)^2) (not E[x^2] - E[x]^2), y = (x - mean) * rstd,
-// then y * w + b, cast to the storage type at the edge.
+// then y * w + b, cast to the storage type (f32, bf16 or f16) at the edge.
 //
 // Bound on an H100: memory. Each row is read and written once
 // (2 * rows * H * itemsize bytes) against ~8 flops per element, far below
@@ -13,7 +13,8 @@
 // Rows up to kWarpRow = 1024 wide (every width the serving and training
 // paths run): one warp per row, the row held in registers (at most 32
 // values a lane), read once and written once, with 16-byte loads and
-// stores where the pointers and H allow (H % 8 in bf16, H % 4 in f32),
+// stores where the pointers and H allow (H % 8 in bf16 and f16, H % 4 in
+// f32),
 // else with scalar ones. Mean and variance come from the registers by
 // warp shuffles: no shared memory, no barrier. A CTA holds 4 warps, and
 // a grid of at most as many CTAs as the card holds at once walks the
@@ -30,11 +31,13 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int kWarps = 4;        // rows in flight per CTA, one a warp
 constexpr int kWarpRow = 1024;   // widest row a warp holds in registers
@@ -43,6 +46,7 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(f16 v) { return __half2float(v); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
@@ -50,6 +54,10 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ f16 from_f32<f16>(float v) {
+  return __float2half_rn(v);
 }
 
 // VEC values moved by one load or store (16 bytes at VEC = 16 / sizeof(T))
@@ -311,11 +319,12 @@ int launch(const void* x, const void* w, const void* b, void* y, int rows,
 extern "C" {
 
 // x, y: [rows, h] row-major, w, b: [h], all contiguous in `dtype`
-// (0 = float32, 1 = bfloat16). Returns a cudaError_t (0 = success).
+// (0 = float32, 1 = bfloat16, 2 = float16). Returns a cudaError_t (0 = success).
 int p1t_layer_norm_fwd(const void* x, const void* w, const void* b, void* y,
                        int rows, int h, float eps, int dtype, void* stream) {
   if (dtype == 0) return launch<float>(x, w, b, y, rows, h, eps, stream);
   if (dtype == 1) return launch<bf16>(x, w, b, y, rows, h, eps, stream);
+  if (dtype == 2) return launch<f16>(x, w, b, y, rows, h, eps, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

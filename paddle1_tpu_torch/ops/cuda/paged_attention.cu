@@ -6,8 +6,10 @@
 // (page ids; parked rows point at page 0); base [S] int32 (slot length
 // before this window). Query row i of slot s sees key positions
 // <= base[s] + i. Output [S, W, H, D] in q's type; a row that sees no key
-// gives 0. The pools may have another type than q (a bf16 cache under an
-// f32 model): q, K and V are each widened to f32, as in the Pallas body,
+// gives 0. q and the pools are each f32, bf16 or f16, in any pairing (a
+// bf16 or f16 cache under an f32 model, an f16 model over an f16 pool):
+// q, K and V are each widened to f32, and the scores, the softmax and the
+// merge stay in f32 with one cast at the output, as in the Pallas body,
 // which also applies the scale to q before the dot product. A page id
 // outside [0, P) reads page 0 (the engine never writes one).
 //
@@ -28,7 +30,7 @@
 //   2. copies its pages' K and V rows of its head (256 B each in f32, a
 //      head's row strided by H * D) into shared memory with cp.async,
 //      16 B a thread, every copy of the split in flight at once; bf16
-//      stays bf16 there and is widened in registers;
+//      and f16 stay 16-bit there and are widened in registers;
 //   3. scores: a group of lanes per (row, key) splits D, 4 dims a
 //      shared-memory load, and reduces with shuffles, the group as wide
 //      as keeps all 128 threads busy (2 lanes a key at W = 1 and 64 keys,
@@ -51,6 +53,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math_constants.h>
 
 #include <climits>
@@ -67,9 +70,13 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -167,7 +174,7 @@ __device__ __forceinline__ void copy_split(const T* __restrict__ kp,
 }
 
 // V consecutive elements of shared memory widened to f32: one 16-byte
-// (f32) or 8-byte (bf16) load when V == 4
+// (f32) or 8-byte (bf16, f16) load when V == 4
 __device__ __forceinline__ void loadv(const float* p, float (&o)[4]) {
   const float4 f = *reinterpret_cast<const float4*>(p);
   o[0] = f.x; o[1] = f.y; o[2] = f.z; o[3] = f.w;
@@ -179,6 +186,12 @@ __device__ __forceinline__ void loadv(const __nv_bfloat16* p,
       *reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 c = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  o[0] = a.x; o[1] = a.y; o[2] = c.x; o[3] = c.y;
+}
+__device__ __forceinline__ void loadv(const __half* p, float (&o)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 c = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
   o[0] = a.x; o[1] = a.y; o[2] = c.x; o[3] = c.y;
 }
 template <typename T>
@@ -447,7 +460,7 @@ int launch(const void* q, const void* kp, const void* vp, const int* table,
 extern "C" {
 
 // q_dtype (q and out) and kv_dtype (both pools): 0 = float32,
-// 1 = bfloat16. part_acc: f32 [S * H, ceil(mpps / split), W, D];
+// 1 = bfloat16, 2 = float16, in any pairing. part_acc: f32 [S * H, ceil(mpps / split), W, D];
 // part_ml: f32 [S * H, ceil(mpps / split), 2, W]; counters: int32
 // [S * H], all 0 before the first launch (the kernel leaves them 0).
 // Returns a cudaError_t (0 = success).
@@ -465,8 +478,13 @@ int p1t_paged_attention(const void* q, const void* kp, const void* vp,
                          w_rows, heads, d, ps, mpps, pages, scale, stream)
   if (q_dtype == 0 && kv_dtype == 0) P1T_PAGED(float, float);
   if (q_dtype == 0 && kv_dtype == 1) P1T_PAGED(float, __nv_bfloat16);
+  if (q_dtype == 0 && kv_dtype == 2) P1T_PAGED(float, __half);
   if (q_dtype == 1 && kv_dtype == 0) P1T_PAGED(__nv_bfloat16, float);
   if (q_dtype == 1 && kv_dtype == 1) P1T_PAGED(__nv_bfloat16, __nv_bfloat16);
+  if (q_dtype == 1 && kv_dtype == 2) P1T_PAGED(__nv_bfloat16, __half);
+  if (q_dtype == 2 && kv_dtype == 0) P1T_PAGED(__half, float);
+  if (q_dtype == 2 && kv_dtype == 1) P1T_PAGED(__half, __nv_bfloat16);
+  if (q_dtype == 2 && kv_dtype == 2) P1T_PAGED(__half, __half);
 #undef P1T_PAGED
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -25,7 +25,7 @@ from ..core.errors import InvalidArgumentError, KernelLaunchError
 __all__ = ["fused_layer_norm", "layer_norm", "layer_norm_bwd_ref",
            "layer_norm_ref", "supported"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _fn = None
 
 

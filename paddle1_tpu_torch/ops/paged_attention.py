@@ -20,9 +20,10 @@ pages. Query row ``i`` of slot ``s`` attends key positions
   arithmetic in plain PyTorch, for the CPU tests that hold it to the JAX
   kernel; nothing else calls it.
 
-The pools may be stored in another dtype than q (a bf16 cache under an
-f32 model); q, K and V are each read as f32 and the output takes q's
-dtype, as in the Pallas body.
+q and the pools are each f32, bf16 or f16, in any pairing (a bf16 or f16
+cache under an f32 model, an f16 model over an f16 pool); q, K and V are
+each read as f32, the scores and the softmax stay f32, and the output
+takes q's dtype, as in the Pallas body.
 
 A row with no visible key gives 0 from the kernel and a uniform average
 from the plain version; ``base >= 0`` keeps key 0 visible to every live
@@ -43,7 +44,7 @@ __all__ = ["paged_attention", "paged_attention_ref",
            "SPLIT_PAGES"]
 
 _NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 SPLIT_PAGES = 4       # pages one CTA walks (paged_attention.cu kSplitPages)
 _fn = None

@@ -18,7 +18,10 @@ launches each of them, and that eager steps of a tiny BERT classifier
 under ``amp.auto_cast`` (O1, and O2 through ``amp.decorate``; bf16, and
 f16 with ``GradScaler``) launch them in the AMP dtype; the LayerNorm
 kernel to its plain version on the warp-per-row and block-per-row paths,
-with and without 16-byte vectors, in f32 and bf16. For the
+with and without 16-byte vectors, in f32, bf16 and f16; paged attention
+in f16 (f16 or f32 queries over f16 pools, windows of 1 and 5) and the
+generation engine's per-(seed, token) generators on the card
+(speculative == plain == ``eager_generate``). For the
 fused batch-norm family (training and given-statistics forward, their
 backward passes) they hold each kernel to its plain version across the
 activation x residual matrix in f32 and bf16, that inputs outside the
@@ -125,15 +128,15 @@ def _paged(dev, w=1, h=2, d=16, ps=8, mpps=4, q_dtype=torch.float32,
 
 
 def test_layer_norm_outside_the_contract_raises_on_the_card(dev):
-    x = torch.randn(4, 64, device=dev, dtype=torch.float16)
-    w = torch.ones(64, device=dev, dtype=torch.float16)
+    x = torch.randn(4, 64, device=dev, dtype=torch.float64)
+    w = torch.ones(64, device=dev, dtype=torch.float64)
     with pytest.raises(InvalidArgumentError, match="contract"):
         F.layer_norm(x, 64, w, torch.zeros_like(w))
 
 
 @pytest.mark.parametrize("kw", [
-    dict(q_dtype=torch.float16, kv_dtype=torch.float16),
-    dict(kv_dtype=torch.float16),
+    dict(q_dtype=torch.float64, kv_dtype=torch.float64),
+    dict(kv_dtype=torch.float64),
     dict(w=600, h=2, d=64, ps=16),   # past one CTA's shared memory
 ])
 def test_paged_attention_outside_the_contract_raises_on_the_card(dev, kw):
@@ -150,6 +153,32 @@ def test_f32_query_over_bf16_pools_runs_the_kernel(dev):
     want = pa.paged_attention_ref(q, kp, vp, table, pos - 2)
     assert got.dtype == torch.float32
     assert float((got - want).abs().max()) <= PA_TOL
+
+
+# float16 rows 1-2 against their plain versions: one f16 rounding step
+# of the value (2^-10, one unit in the last place at the bottom of a
+# binade: both sides round their own f32 result) plus the f32 tolerance
+F16_REL = 2.0 ** -10
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float16, torch.float16), (torch.float32, torch.float16),
+    (torch.bfloat16, torch.float16), (torch.float16, torch.float32),
+    (torch.float16, torch.bfloat16)])
+@pytest.mark.parametrize("w", [1, 5])
+def test_f16_paged_attention_runs_the_kernel(dev, q_dtype, kv_dtype, w):
+    q, kp, vp, table, pos = _paged(dev, w=w, d=64, ps=16, q_dtype=q_dtype,
+                                   kv_dtype=kv_dtype)
+    assert pa.supported(q.shape, kp.shape, q_dtype, kv_dtype)
+    before = pa.paged_attention.launches
+    got = F.paged_attention(q, kp, vp, table, pos)
+    assert pa.paged_attention.launches == before + 1
+    want = pa.paged_attention_ref(q, kp, vp, table, pos - w)
+    assert got.dtype == q_dtype
+    step = {torch.float16: F16_REL, torch.bfloat16: 2.0 ** -7}.get(
+        q_dtype, 0.0)
+    assert _bf16_excess(got, want, step) <= PA_TOL
+    assert torch.equal(F.paged_attention(q, kp, vp, table, pos), got)
 
 
 def _serving_paged(dev, bases, kv_dtype=torch.float32, w=1, seed=0):
@@ -176,7 +205,8 @@ PAGED_BASES = {
 }
 
 
-@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16,
+                                      torch.float16])
 @pytest.mark.parametrize("kind", list(PAGED_BASES))
 def test_paged_attention_splits_match_and_repeat(dev, kind, kv_dtype):
     q, kp, vp, table, base = _serving_paged(dev, PAGED_BASES[kind],
@@ -254,7 +284,8 @@ def test_layer_norm_on_the_card_runs_the_kernel(dev):
 LN_TOL = 1e-5
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("h", [64, 100, 512, 768, 1000, 1024, 1025, 4096])
 def test_layer_norm_kernel_matches_its_plain_version(dev, dtype, h):
     """The warp-per-row path (H <= 1024, 16-byte vectors when H allows,
@@ -273,11 +304,14 @@ def test_layer_norm_kernel_matches_its_plain_version(dev, dtype, h):
         assert got.dtype == dtype and got.shape == x.shape
         if dtype == torch.float32:
             assert float((got - want).abs().max()) <= LN_TOL, rows
+        elif dtype == torch.float16:
+            assert _bf16_excess(got, want, F16_REL) <= LN_TOL, rows
         else:
             assert _bf16_excess(got, want) <= 1e-5, rows
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_layer_norm_kernel_takes_an_unaligned_view(dev, dtype):
     """A view whose start is off 16 bytes takes the scalar loads."""
     h = 768
@@ -288,8 +322,38 @@ def test_layer_norm_kernel_takes_an_unaligned_view(dev, dtype):
     want = ln.layer_norm_ref(x, w, b)
     if dtype == torch.float32:
         assert float((got - want).abs().max()) <= LN_TOL
+    elif dtype == torch.float16:
+        assert _bf16_excess(got, want, F16_REL) <= LN_TOL
     else:
         assert _bf16_excess(got, want) <= 1e-5
+
+
+def test_sampling_schedule_speculative_equals_plain_on_the_card(dev):
+    """The per-(seed, token index) CUDA generators: a speculative engine
+    (drafts that are the stream's own continuation, so most are taken)
+    and a plain one draw the same sampled tokens on the card, and the
+    reference eager loop draws them too."""
+    from paddle1_tpu_torch.serving import (CausalLM, GenerationEngine,
+                                           eager_generate)
+    lm = CausalLM(64, d_model=64, nhead=4, num_layers=2, max_seq=64,
+                  device=dev, generator=torch.Generator().manual_seed(0))
+    prompt = np.asarray([3, 9, 4, 7, 1], np.int32)
+    kw = dict(temperature=0.9, top_k=16, seed=21)
+    want = eager_generate(lm, prompt, 12, **kw)
+    for k in (0, 3):
+        eng = GenerationEngine(lm, slots=2, max_seq=64, paged=True,
+                               page_size=16, spec_tokens=k)
+        got = [eng.prefill(1, prompt, kw["temperature"], kw["top_k"],
+                           kw["seed"])]
+        active = np.asarray([False, True])
+        while len(got) < 12:
+            d = np.asarray(want[len(got):len(got) + k], np.int64)
+            drafts = np.zeros((2, k), np.int64)
+            drafts[1, :d.size] = d
+            toks, flags = eng.decode(active, drafts,
+                                     np.asarray([0, d.size]))
+            got += [int(t) for t in toks[1][flags[1]]]
+        assert got[:12] == want, k
 
 
 def _qkv(dev, shape=(2, 128, 2, 64), dtype=torch.float32, seed=0):

@@ -24,6 +24,8 @@ zeros, and gives the JAX package's outputs and gradients; a weight or a
 bias alone raises (the card's half of F18 is in
 ``tests/test_torch_cuda.py``).
 F19: ``F.leaky_relu``'s gradient at 0 is 1, as ``jax.nn.leaky_relu``'s.
+F23: ``GenerationEngine``'s ``cache_dtype`` (and ``CausalLM``'s cache
+cache constructors) take the JAX package's dtype strings, ``"float16"`` included.
 
 Inputs and weights come from numpy with a seed; weights cross through
 ``paddle1_tpu_torch.convert.state_from_jax``. Random masks differ by
@@ -1474,3 +1476,66 @@ def test_f22_dtype_against_strings_and_numpy_is_a_departure(cpu_place):
     assert tp.to_tensor(x).astype("float32").dtype == td
     assert np.zeros(2, dtype=tp.to_tensor(x).numpy().dtype).dtype == \
         np.float32
+
+
+# ---------------------------------------------------------------------------
+# F23: cache_dtype takes the JAX package's dtype strings (the reference
+# spells it "float32"; the port raised on any string)
+
+
+@pytest.fixture(scope="module")
+def f23_lm_pair():
+    from paddle1_tpu.serving import CausalLM as JCausalLM
+    from paddle1_tpu_torch.serving import CausalLM
+    jp.seed(23)
+    jl = JCausalLM(48, d_model=32, nhead=2, dim_feedforward=64,
+                   num_layers=2, max_seq=48)
+    tl = CausalLM(48, d_model=32, nhead=2, dim_feedforward=64,
+                  num_layers=2, max_seq=48, device="cpu")
+    state = {k: np.asarray(v) for k, v in jl.functional_state().items()}
+    tl.load_state_dict(state_from_jax(state, tl))
+    return jl, tl
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_f23_float16_cache_serves_the_references_greedy_tokens(
+        f23_lm_pair, paged):
+    from paddle1_tpu.serving import GenerationEngine as JEngine
+    from paddle1_tpu.serving import GenerationServer as JServer
+    from paddle1_tpu_torch.serving import GenerationEngine, GenerationServer
+    jl, tl = f23_lm_pair
+    prompts = [[1, 5, 3], [2, 2, 9, 4, 4, 7], [7, 1, 4, 9, 6], [3, 3]]
+    kw = dict(slots=4, max_seq=48, prefill_buckets=(8, 16), paged=paged,
+              page_size=8, cache_dtype="float16")
+    jsrv = JServer(JEngine(jl, **kw), token_budget=12).start()
+    want = [s.result(timeout=120) for s in
+            [jsrv.submit(p, max_new_tokens=10) for p in prompts]]
+    jsrv.drain()
+    eng = GenerationEngine(tl, **kw)
+    assert all(k.dtype == v.dtype == torch.float16 for k, v in eng._kv)
+    srv = GenerationServer(eng, token_budget=12).start()
+    got = [s.result(timeout=120) for s in
+           [srv.submit(p, max_new_tokens=10) for p in prompts]]
+    rep = srv.drain()
+    assert got == want
+    assert rep["unaccounted"] == 0 and rep["tokens_owed"] == 0
+
+
+@pytest.mark.parametrize("spelling,dtype", [
+    ("float32", torch.float32), ("bfloat16", torch.bfloat16),
+    ("float16", torch.float16), (torch.float16, torch.float16)])
+def test_f23_cache_constructors_take_the_references_strings(f23_lm_pair,
+                                                        spelling, dtype):
+    _, tl = f23_lm_pair
+    for c in (tl.gen_slot_cache(2, 8, spelling)[0],
+              tl.gen_paged_cache(3, 4, spelling)[0]):
+        assert c.k.dtype == c.v.dtype == dtype
+    assert tl.gen_slot_cache(2, 8)[0].k.dtype == torch.float32
+
+
+def test_f23_other_cache_dtypes_raise_typed(f23_lm_pair):
+    from paddle1_tpu_torch.serving import GenerationEngine
+    _, tl = f23_lm_pair
+    for bad in ("int8", "float64", "floaty"):
+        with pytest.raises(InvalidArgumentError):
+            GenerationEngine(tl, slots=2, max_seq=16, cache_dtype=bad)

@@ -393,3 +393,116 @@ def test_concurrent_clients_keep_accounting(lm_pair):
     assert rep["completed"] + rep["cancelled"] == 32
     assert rep["unaccounted"] == 0 and rep["tokens_owed"] == 0
     assert rep["kv_pages_owed"] == 0
+
+
+# ---------------------------------------------------------------------------
+# chaos points, the health drain, eager_generate and a float16 model
+# (mirrors tests/test_generate.py::TestSlotWedgeChaos and
+# ::test_wall_deadline_midstream_via_slow_step_chaos)
+
+
+@pytest.fixture
+def chaos_reset():
+    from paddle1_tpu_torch.core import chaos, health
+    chaos.reset()
+    health.reset()
+    yield chaos
+    chaos.reset()
+    health.reset()
+
+
+def test_slot_wedge_fails_only_that_stream_and_releases_slot(
+        lm_pair, chaos_reset):
+    from paddle1_tpu_torch.serving import SlotWedged
+    _, tl = lm_pair
+    eng = _engine(tl, paged=False)
+    srv = _serve(eng)
+    ref = srv.submit(PROMPTS[0], max_new_tokens=12).result(timeout=120)
+    srv.drain()
+    chaos_reset.configure("gen_slot_wedge@4:1")
+    srv = _serve(eng)
+    a = srv.submit(PROMPTS[0], max_new_tokens=12)      # slot 0
+    b = srv.submit(PROMPTS[3], max_new_tokens=12)      # slot 1: wedged
+    got_a = a.result(timeout=120)
+    with pytest.raises(SlotWedged):
+        b.result(timeout=120)
+    assert 0 < len(b.tokens) < 12  # typed MID-stream, tokens kept
+    # the wedged slot was released: a follow-up request completes
+    c = srv.submit([4, 4], max_new_tokens=3).result(timeout=120)
+    rep = srv.drain()
+    # the cohabitant is bit-identical to the uncontended run
+    assert got_a == ref
+    assert len(c) == 3
+    assert rep["errors"] == 1 and rep["unaccounted"] == 0
+    assert rep["tokens_owed"] == 0
+
+
+def test_wall_deadline_midstream_via_slow_step_chaos(lm_pair, chaos_reset):
+    from paddle1_tpu_torch.core.flags import flags_guard
+    _, tl = lm_pair
+    chaos_reset.configure("gen_slow_step@2")
+    with flags_guard(serve_chaos_slow_s=0.4):
+        srv = _serve(_engine(tl), token_budget=20)
+        st = srv.submit([1, 2], max_new_tokens=20, deadline_ms=150)
+        with pytest.raises(DeadlineExceeded, match="mid-stream"):
+            st.result(timeout=120)
+        rep = srv.drain()
+    assert st.finish_reason == "deadline"
+    assert rep["deadline_failed"] == 1 and rep["unaccounted"] == 0
+    assert rep["kv_pages_owed"] == 0
+
+
+def test_wait_drains_on_a_health_drain_request(lm_pair, chaos_reset):
+    import threading
+    from paddle1_tpu_torch.core import health
+    _, tl = lm_pair
+    srv = _serve(_engine(tl))
+    st = srv.submit(PROMPTS[0], max_new_tokens=4)
+    threading.Timer(0.2, health.request_drain).start()
+    rep = srv.wait(poll_s=0.02, timeout=60)
+    assert st.done() and rep["drained"]
+    assert rep["completed"] == 1 and rep["unaccounted"] == 0
+    with pytest.raises(ServerClosed):
+        srv.submit(PROMPTS[0])
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_eager_generate_follows_the_engine(lm_pair, temperature):
+    from paddle1_tpu.serving.generate import \
+        eager_generate as j_eager_generate
+    from paddle1_tpu_torch.serving import eager_generate
+    jl, tl = lm_pair
+    kw = dict(temperature=temperature, top_k=5, seed=3)
+    got = eager_generate(tl, PROMPTS[1], 9, **kw)
+    srv = _serve(_engine(tl))
+    assert srv.generate(PROMPTS[1], max_new_tokens=9, **kw) == got
+    srv.drain()
+    if not temperature:   # greedy: the JAX package's tokens too
+        assert got == j_eager_generate(jl, PROMPTS[1], 9, **kw)
+
+
+def test_float16_model_over_a_float16_pool(lm_pair):
+    """``astype("float16")`` in both packages: the port's engine serves
+    the f16 model over an f16 pool (on the card: rows 1 and 2 in f16),
+    and its prefill logits agree with the JAX package's f16 forward
+    within f16 rounding (each matmul rounds its output: 0.05 absolute at
+    these logits of magnitude <= 4)."""
+    import copy
+    jl, tl = lm_pair
+    jl16 = copy.deepcopy(jl).astype("float16")
+    tl16 = copy.deepcopy(tl).astype("float16")
+    assert tl16.head.weight.dtype == torch.float16
+    eng = _engine(tl16, cache_dtype="float16")
+    assert all(k.dtype == torch.float16 for k, _ in eng._kv)
+    srv = _serve(eng)
+    outs = [srv.submit(p, max_new_tokens=6).result(timeout=120)
+            for p in PROMPTS]
+    rep = srv.drain()
+    assert rep["unaccounted"] == 0 and rep["kv_pages_owed"] == 0
+    assert all(len(o) == 6 and all(0 <= t < VOCAB for t in o) for o in outs)
+    eng.prefill(0, np.asarray(PROMPTS[1], np.int32), 0.0, 0, 0)
+    got = eng.last_prefill_logits.numpy()
+    want = np.asarray(jl16(paddle.to_tensor(np.asarray(
+        PROMPTS[1], np.int64)[None])).numpy(), np.float32)[0, -1]
+    eng.release(0)
+    np.testing.assert_allclose(got, want, atol=0.05, rtol=0)

@@ -174,8 +174,10 @@ def test_paged_attention_gate_is_the_shared_memory_budget():
     # too much shared memory for one CTA
     assert not tpa.supported((1, 64, 1, 256), (4, 256, 1, 256))
     assert not tpa.supported((16, 1, 8, 64), (513, 16, 4, 64))  # heads
+    # f32, bf16 and f16 in any pairing; nothing else
     assert not tpa.supported((16, 1, 8, 64), (513, 16, 8, 64),
-                             torch.float16)
+                             torch.float64)
+    assert tpa.supported((16, 5, 8, 64), (513, 16, 8, 64), torch.float16)
 
 
 def test_functional_layer_norm_over_trailing_axes_matches_jax():
@@ -205,8 +207,9 @@ def test_paged_attention_f32_query_over_bf16_pools_matches_pallas():
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, **PA_TOL)
     assert tpa.supported(q.shape, kp.shape, torch.float32, torch.bfloat16)
+    assert tpa.supported(q.shape, kp.shape, torch.float32, torch.float16)
     assert not tpa.supported(q.shape, kp.shape, torch.float32,
-                             torch.float16)
+                             torch.float64)
 
 
 def _meta(shape, dtype=torch.float32):
@@ -230,12 +233,21 @@ def _route_paged(q_shape, kp_shape, dtype=torch.float32, kv_dtype=None):
 
 
 @pytest.mark.parametrize("case,route,match", [
+    # float16 is inside both kernels' contracts: on a meta tensor the
+    # wrapper still refuses the device instead of running the plain version
     ("layer_norm f16", lambda: _route_layer_norm(torch.float16),
-     "contract"),
+     "unsupported device"),
     ("paged f16", lambda: _route_paged((2, 1, 2, 16), (9, 8, 2, 16),
-                                       torch.float16), "contract"),
+                                       torch.float16), "unsupported device"),
     ("paged f16 pools", lambda: _route_paged((2, 1, 2, 16), (9, 8, 2, 16),
                                              torch.float32, torch.float16),
+     "unsupported device"),
+    ("layer_norm f64", lambda: _route_layer_norm(torch.float64),
+     "contract"),
+    ("paged f64", lambda: _route_paged((2, 1, 2, 16), (9, 8, 2, 16),
+                                       torch.float64), "contract"),
+    ("paged f64 pools", lambda: _route_paged((2, 1, 2, 16), (9, 8, 2, 16),
+                                             torch.float32, torch.float64),
      "contract"),
     ("paged window past smem", lambda: _route_paged((2, 600, 8, 64),
                                                     (9, 16, 8, 64)),
@@ -274,7 +286,7 @@ def test_flag_active_resolves_against_the_device():
     with pytest.raises(InvalidArgumentError):
         tflags.set_flags({"fused_layer_norm": "sometimes"})
     with pytest.raises(InvalidArgumentError):
-        tflags.flag("serve_gen_spec_tokens")  # not part of this slice
+        tflags.flag("serve_gen_replicas")  # the fleets: not ported yet
 
 
 def test_flag_env_override(monkeypatch):
@@ -294,7 +306,12 @@ def test_serving_flags_keep_the_jax_names_and_defaults():
                  "serve_gen_kv_page_size", "serve_gen_kv_pages",
                  "serve_gen_prefix_cache", "serve_queue_depth",
                  "serve_deadline_ms", "pallas_paged_attention",
-                 "fused_layer_norm"):
+                 "fused_layer_norm", "serve_gen_spec_tokens",
+                 "serve_gen_spec_ngram", "serve_gen_int8",
+                 "serve_gen_preempt", "serve_gen_pressure_ceiling",
+                 "serve_max_batch", "serve_buckets",
+                 "serve_batch_timeout_ms", "serve_chaos_slow_s",
+                 "debug_kv_refcount", "jit_retrace_warn"):
         assert tflags._registry[name].default == \
             jflags._registry[name].default, name
 
