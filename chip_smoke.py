@@ -546,6 +546,48 @@ Phases, each fatal on failure (non-zero exit, no result line):
     batched and sequential, p50/p99 latency and the mean batch occupancy
     (Paddle Serving's ResNet50 example's online classification).
 
+39. **Rows 8-12 in float16 (F24).** The training forward, the
+    given-statistics forward, the local moments and both backward
+    kernels on f16 rows over f16 and over f32 affine parameters, at
+    ResNet-50's four shapes and YOLOv3's stem at 8 x 608² (``[2957312,
+    32]``), identity and relu + residual: each against its plain version
+    (f32 inside, one cast at the edge) within one f16 rounding step
+    (``F16_REL``) plus ``BN_ABS``, the statistics, gamma/beta sums and
+    moments at the f32 tolerance, repeats bit for bit; a float64 input
+    raises. Timed (graph replay) in f16 beside the plain version, the
+    bytes bound at itemsize 2 and ``F.batch_norm``'s f16 forward and
+    backward (``torch.batch_norm_stats`` for the moments).
+40. **ResNet-50 in float16.** Phase 9's configuration under
+    ``ParallelEngine(amp_dtype="float16")``: three steps on one batch,
+    finite and falling, 53 launches each of rows 8 and 11 a step, the
+    step timed; an f16 eval forward of an f16 copy (53 row-9 launches);
+    two steps on ``build_mesh(dp=1)`` over NCCL (53 launches each of
+    rows 10 and 12 a step, in f16); and the f16 kernel path against the
+    plain path at phase 9's depth cut (one bottleneck a stage, 32 x 64²),
+    three steps from identical weights (``RN_F16_*`` tolerances).
+41. **YOLOv3 training** at PaddleDetection's
+    ``yolov3_darknet53_270e_coco.yml`` settings: ``yolov3(80)`` and
+    ``yolov3_loss`` (``ignore_thresh`` 0.7, strides 32/16/8) through
+    ``ParallelEngine(amp_dtype="bfloat16")`` with ``Momentum(1e-3, 0.9,
+    L2Decay(5e-4))`` at batch 8 x 608² (one size of the 320-608
+    multi-scale set), seeded synthetic images with 1-50 boxes each:
+    ``YT_STEPS`` steps, the loss falling, 72 launches each of rows 8 and
+    11 a step; step ms, images/s, device busy and idle, the batch norms'
+    share of busy time, peak memory. Then the f32 kernel path against
+    the plain path on a backbone cut to ``DarkNet53(depths=(1, 1, 1, 1,
+    1))`` at ``YOLO_REF_BATCH`` x 608²: three steps, each from the plain
+    path's state, both paths' leaky ReLUs taking their gradients on the
+    pieces of a float64 forward of that state (``ActPieces``: one kink
+    flip moves a first-step gradient by 1 %), the loss, parameters,
+    running statistics and velocities within ``YT_REF_TOL``.
+42. **VGG16-BN eval** (8 x 224², f32, batch norms calibrated, gamma and
+    beta off 1 and 0): 13 row-9
+    launches and none on the plain path, the logits within 1e-4 of the
+    plain path's (of their max abs value), the warm forward timed by the
+    slope protocol. Phases 23 and 28 run the new op and nn cases (the
+    sequence ops, ``vision.ops``, the N-d and transposed convolutions
+    and their layers, ``interpolate``'s resize modes) on the card.
+
 Phase 2 also holds rows 1 and 2 in float16: row 1 with f16 and f32
 queries over f16 pools at W = 1 and W = 5, row 2 at ``[16, 512]`` and
 BERT's ``[16384, 768]``, each within one f16 rounding step (``F16_REL``)
@@ -2080,8 +2122,8 @@ def bn_bytes(kind, rows, c, itemsize, reread=None):
 
 def bn_reread_rows(rows, c, dtype=torch.bfloat16):
     """``{kind: (rows, plan)}`` of the cooperative training kernels (the
-    forward and the backward) at ``[rows, C]`` in ``dtype`` (f32 affine
-    for f32 rows, bf16 for bf16) on this card: the rows their plans leave
+    forward and the backward) at ``[rows, C]`` in ``dtype`` (affine
+    parameters of the same dtype) on this card: the rows their plans leave
     out of shared memory (read again in the last phase) and the plans; a
     kernel whose module has no plan (an older tree) is left out."""
     from paddle1_tpu_torch.ops import fused_bn as fbn
@@ -2094,7 +2136,7 @@ def bn_reread_rows(rows, c, dtype=torch.bfloat16):
                         getattr(fbb, "train_bwd_launch_plan", None))):
         if plan is None:
             continue
-        p = plan(x, 1 if dtype == torch.bfloat16 else 0)
+        p = plan(x, {torch.bfloat16: 1, torch.float16: 2}.get(dtype, 0))
         held = sum(min(p.resident, rows - k * p.rows_per_chunk)
                    for k in range(p.chunks))
         out[kind] = (rows - held, p._asdict())
@@ -2120,7 +2162,8 @@ def bn_timing(dev, shapes=BN_SHAPES, images=RN_BATCH,
     out = {k: [] for k in bn_counters()}
     eps = 1e-5
     itemsize = torch.empty((), dtype=dtype).element_size()
-    dname = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+    dname = {torch.bfloat16: "bf16", torch.float32: "f32",
+             torch.float16: "f16"}[dtype]
     for rows, c in shapes:
         plans = bn_reread_rows(rows, c, dtype)
         sets = bn_inputs(dev, rows, c, dtype, SEED + 9, n_sets=4)
@@ -2366,25 +2409,29 @@ def rn_first_grads(model, batch, loss_fn):
 
 
 class ActPieces:
-    """Forward hooks on a port model's ReLU and ReLU6 layers, which deep
-    copies of the model share. ``mode`` ``"record"``: keep, call by call,
-    which side of its kinks (0, and 6 for ReLU6) each input element lies
-    on; ``"replay"``: take each call's gradient on the recorded sides (its
-    forward value unchanged), and count the elements whose own side
-    differs (``flips``, by layer) and their largest distance to the kink
+    """Forward hooks on a port model's ReLU, ReLU6 and LeakyReLU layers,
+    which deep copies of the model share. ``mode`` ``"record"``: keep,
+    call by call, which side of its kinks (0, and 6 for ReLU6) each input
+    element lies on; ``"replay"``: take each call's gradient on the
+    recorded sides (its forward value unchanged; a leaky ReLU's slope on
+    the negative side), and count the elements whose own side differs
+    (``flips``, by layer) and their largest distance to the kink
     (``far``); None: nothing. :meth:`restart` before each replayed run."""
 
     def __init__(self, model):
-        from paddle1_tpu_torch.nn import ReLU, ReLU6
+        from paddle1_tpu_torch.nn import LeakyReLU, ReLU, ReLU6
         self.mode, self.sides, self.flips, self.far = None, {}, {}, 0.0
         self.calls = {}
         self.handles = [
             m.register_forward_hook(
-                lambda mod, inp, out, n=n, six=isinstance(m, ReLU6):
-                    self._hook(n, six, inp[0], out))
-            for n, m in model.named_modules() if isinstance(m, (ReLU, ReLU6))]
+                lambda mod, inp, out, n=n, six=isinstance(m, ReLU6),
+                slope=getattr(m, "negative_slope", 0.0) if isinstance(
+                    m, LeakyReLU) else 0.0:
+                    self._hook(n, six, inp[0], out, slope))
+            for n, m in model.named_modules()
+            if isinstance(m, (ReLU, ReLU6, LeakyReLU))]
 
-    def _hook(self, name, six, x, out):
+    def _hook(self, name, six, x, out, slope=0.0):
         if self.mode is None:
             return None
         xd = x.detach()
@@ -2403,6 +2450,10 @@ class ActPieces:
                 d = torch.minimum(d, (xd[off] - 6).abs())
             self.flips[name] = self.flips.get(name, 0) + n
             self.far = max(self.far, float(d.max()))
+        if slope:
+            return out.detach() + (x - xd) * torch.where(
+                want, torch.ones((), dtype=x.dtype, device=x.device),
+                torch.full((), slope, dtype=x.dtype, device=x.device))
         return out.detach() + (x - xd) * want.to(x.dtype)
 
     def restart(self):
@@ -2485,14 +2536,14 @@ def rn_grad_gaps(model, batch, loss_fn=None, floor=0.0, pieces=False):
     return out
 
 
-def rn_engine_steps(model, batch, steps):
+def rn_engine_steps(model, batch, steps, amp=None):
     """``steps`` Momentum steps of ``model`` through ParallelEngine (f32,
-    no amp); returns the losses."""
+    or under ``amp_dtype=amp``); returns the losses."""
     from paddle1_tpu_torch.distributed import ParallelEngine
     from paddle1_tpu_torch.optimizer import Momentum
     eng = ParallelEngine(model, Momentum(learning_rate=RN_LR, momentum=0.9,
                                          parameters=model.parameters()),
-                         rn_loss_fn)
+                         rn_loss_fn, amp_dtype=amp)
     return [float(eng.step(batch)) for _ in range(steps)]
 
 
@@ -2688,41 +2739,7 @@ def moments_phase(dev):
                                             for a, w in ((s, rs),
                                                          (ss, rss)))})
             del x, s, ss, rs, rss, again
-        xs = [t[0] for t in bn_inputs(dev, rows, c, torch.bfloat16,
-                                      SEED + 12, n_sets=4)]
-        hw = rows // RN_BATCH
-        side = int(round(hw ** 0.5))
-        check(side * side * RN_BATCH == rows, f"{rows} rows are not "
-              f"{RN_BATCH} square images")
-        lib = [x.view(RN_BATCH, side, side, c).permute(0, 3, 1, 2)
-               for x in xs]
-        check(lib[0].is_contiguous(memory_format=torch.channels_last),
-              "library input is not channels-last")
-        mean, invstd = torch.batch_norm_stats(lib[0], eps)
-        s, ss = fbn._moments_fwd(xs[0])
-        var = ss / rows - (s / rows) ** 2
-        check(torch.allclose(mean.float(), s / rows, rtol=1e-3, atol=1e-3)
-              and torch.allclose(invstd.float(), torch.rsqrt(var + eps),
-                                 rtol=1e-3, atol=1e-3),
-              "torch.batch_norm_stats computes other moments")
-        t = {"ms": graph_time_ms([lambda x=x: fbn._moments_fwd(x)
-                                  for x in xs]),
-             "plain_ms": graph_time_ms([lambda x=x: fbn.local_moments_ref(x)
-                                        for x in xs]),
-             "library_ms": graph_time_ms([
-                 lambda x=x: torch.batch_norm_stats(x, eps) for x in lib])}
-        need = rows * c * 2 + 2 * c * 4
-        b_ms, by = bound(need, 3.0 * rows * c, F32_FLOPS_PER_S)
-        times.append({"shape": [rows, c], "dtype": "bf16", **t,
-                      "library_covers": "torch.batch_norm_stats (mean, "
-                                        "invstd) on channels-last NCHW",
-                      "bound_ms": b_ms, "bound_by": by,
-                      "bound_bytes": need})
-        log(f"local_moments bf16 [{rows}, {c}]: kernel {t['ms']:.5f} ms, "
-            f"plain {t['plain_ms']:.5f} ms, torch.batch_norm_stats "
-            f"{t['library_ms']:.5f} ms, bound {b_ms:.5f} ms ({by})")
-        del xs, lib
-        torch.cuda.empty_cache()
+        times += moments_timing(dev, ((rows, c),), RN_BATCH, torch.bfloat16)
     dp_pattern_replay(dev)
     log("local_moments: f32 and bf16 within tolerance at "
         f"{[list(s) for s in BN_SHAPES]}, repeats bit-identical, the "
@@ -4628,13 +4645,17 @@ def ops_phase(dev):
     the CPU, ``matmul_int8`` at ``_int_mm``'s rules, the random ops."""
     import paddle1_tpu_torch as paddle
     from paddle1_tpu_torch.core.errors import InvalidArgumentError
-    from paddle1_tpu_torch.ops import linalg_ops, manip_ops, math_ops
+    from paddle1_tpu_torch.ops import (linalg_ops, manip_ops, math_ops,
+                                       sequence_ops)
+    from paddle1_tpu_torch.vision import ops as vision_ops
     cases = op_cases()
     card = f"gpu:{dev.index or 0}"
     groups = (("math_ops", math_ops, cases.math_cases()),
               ("manip_ops", manip_ops, cases.manip_cases()),
               ("linalg_ops", linalg_ops, cases.linalg_cases()),
-              ("Tensor", None, cases.method_cases()))
+              ("Tensor", None, cases.method_cases()),
+              ("sequence_ops", sequence_ops, cases.sequence_cases()),
+              ("vision_ops", vision_ops, cases.vision_cases()))
     failed, n_cases, names = [], 0, set()
     t0 = time.perf_counter()
     for group, mod, group_cases in groups:
@@ -4665,7 +4686,8 @@ def ops_phase(dev):
                 failed.append(f"{group}.{case.name()}: {type(e).__name__}: "
                               f"{str(e).strip()[:300]}")
     ported = {f"{m.__name__.rsplit('.', 1)[1]}.{n}"
-              for m in (math_ops, manip_ops, linalg_ops) for n in m.__all__}
+              for m in (math_ops, manip_ops, linalg_ops, sequence_ops)
+              for n in m.__all__}
     random_names = {f"manip_ops.{r[0]}" for r in cases.RANDOM}
     uncovered = sorted(ported - names - random_names)
     if uncovered:
@@ -5288,8 +5310,8 @@ def nn_phase(dev):
     from paddle1_tpu_torch.nn import functional as F
     from paddle1_tpu_torch.nn import (layer_common, layer_conv_pool,
                                       layer_loss, layer_norm_act, layer_rnn)
-    from paddle1_tpu_torch.nn.functional import (activation, common, crf,
-                                                 loss, norm, pooling)
+    from paddle1_tpu_torch.nn.functional import (activation, common, conv,
+                                                 crf, loss, norm, pooling)
     cases = nn_cases()
     card = f"gpu:{dev.index or 0}"
     counters = bn_counters()
@@ -5346,8 +5368,9 @@ def nn_phase(dev):
     containers = {"Sequential", "LayerList", "ParameterList", "LayerDict",
                   "collect_stat_updates", "fused_bn_active", "RNNCellBase"}
     ported = set()
-    for m in (activation, norm, loss, common, pooling, crf, layer_norm_act,
-              layer_loss, layer_common, layer_conv_pool, layer_rnn):
+    for m in (activation, norm, loss, common, pooling, conv, crf,
+              layer_norm_act, layer_loss, layer_common, layer_conv_pool,
+              layer_rnn):
         ported |= set(m.__all__)
     uncovered = sorted(ported - names - containers)
     if uncovered:
@@ -8331,6 +8354,682 @@ def resnet_server_phase(dev):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 39: rows 8-12 in float16 (F24)
+
+# ResNet-50's four shapes and YOLOv3's stem at 8 x 608² (phase 41's path)
+YOLO_TRAIN_STEM = (2957312, 32)
+BN_F16_SHAPES = BN_SHAPES + (YOLO_TRAIN_STEM,)
+
+
+def f16_row_excess(got, want):
+    """How far |got - want| exceeds one f16 rounding step of the value
+    (``F16_REL``: each side rounds its own f32 result) plus BN_ABS."""
+    got_f, want_f = got.float(), want.float()
+    return float(((got_f - want_f).abs() - F16_REL * want_f.abs()).max()) \
+        - BN_ABS
+
+
+def bn_f16_check(dev, shapes=BN_F16_SHAPES):
+    """Rows 8-12 on f16 rows over f16 and over f32 affine parameters
+    against their plain versions (phase 39): ``{kernel: [case errors]}``,
+    the moments under ``fused_bn_moments``."""
+    from paddle1_tpu_torch.core.errors import InvalidArgumentError
+    from paddle1_tpu_torch.ops import fused_bn as fbn
+    from paddle1_tpu_torch.ops import fused_bn_bwd as fbb
+    errs = {k: [] for k in list(bn_counters()) + ["fused_bn_moments"]}
+    eps = 1e-5
+    for rows, c in shapes:
+        (x, g16, b16, res, m, v, dy), = bn_inputs(
+            dev, rows, c, torch.float16, SEED + 39 + rows + c)
+        for pdtype in (torch.float16, torch.float32):
+            g, b = g16.to(pdtype), b16.to(pdtype)
+            for act, use_res in (("identity", False), ("relu", True)):
+                r = res if use_res else None
+                tag = (f"f16 [{rows}, {c}] params {str(pdtype)[6:]} "
+                       f"act={act} res={use_res}")
+                y, mean, var = fbn._train_fwd(x, g, b, r, eps, act)
+                ry, rm, rv = fbn.fused_bn_train_ref(x, g, b, eps, act, r)
+                tb = fbb.train_bwd(x, g, mean, var, y, dy, eps, act,
+                                   use_res)
+                rtb = fbb.train_bwd_ref(x, g, mean, var, y, dy, eps, act,
+                                        use_res)
+                yn = fbn._norm_fwd(x, m, v, g, b, r, eps, act)
+                ryn = fbn.fused_bn_norm_ref(x, m, v, g, b, eps, act, r)
+                nb = fbb.norm_bwd(x, g, m, v, yn, dy, eps, act, use_res)
+                rnb = fbb.norm_bwd_ref(x, g, m, v, yn, dy, eps, act,
+                                       use_res)
+                torch.cuda.synchronize()
+                checks = {
+                    "fused_bn_train": ([(y, ry)], [(mean, rm), (var, rv)]),
+                    "fused_bn_norm": ([(yn, ryn)], []),
+                    "fused_bn_train_bwd": (
+                        [(tb[0], rtb[0])] + ([(tb[3], rtb[3])]
+                                             if use_res else []),
+                        [(tb[1], rtb[1]), (tb[2], rtb[2])]),
+                    "fused_bn_norm_bwd": (
+                        [(nb[0], rnb[0])] + ([(nb[3], rnb[3])]
+                                             if use_res else []),
+                        [(nb[1], rnb[1]), (nb[2], rnb[2])])}
+                for name, (row_pairs, stat_pairs) in checks.items():
+                    for a, w in row_pairs:
+                        check(a.dtype == torch.float16 and
+                              bool(torch.isfinite(a).all()),
+                              f"{name} {tag}: non-finite output or dtype "
+                              f"{a.dtype}")
+                    exc = max(f16_row_excess(a, w) for a, w in row_pairs)
+                    check(exc <= 0.0, f"{name} {tag}: rows differ from the "
+                          f"plain version by {exc} beyond the tolerance")
+                    for a, w in stat_pairs:
+                        sx = stat_excess(a, w, rows)
+                        check(sx <= 0.0, f"{name} {tag}: statistics differ "
+                              f"by {sx} beyond the tolerance")
+                    errs[name].append({
+                        "shape": [rows, c], "dtype": "float16",
+                        "param_dtype": str(pdtype)[6:], "act": act,
+                        "residual": use_res,
+                        "max_abs_err": max(
+                            float((a.float() - w.float()).abs().max())
+                            for a, w in row_pairs + stat_pairs)})
+                again = fbn._train_fwd(x, g, b, r, eps, act)
+                check(all(torch.equal(a, w) for a, w in
+                          zip(again, (y, mean, var))),
+                      f"fused_bn_train {tag}: a repeat differs")
+                again = fbb.train_bwd(x, g, mean, var, y, dy, eps, act,
+                                      use_res)
+                check(all(torch.equal(a, w) for a, w in zip(again, tb)),
+                      f"fused_bn_train_bwd {tag}: a repeat differs")
+                del y, tb, yn, nb, ry, rtb, ryn, rnb, again
+        s, ss = fbn._moments_fwd(x)
+        rs, rss = fbn.local_moments_ref(x)
+        torch.cuda.synchronize()
+        for a, w in ((s, rs), (ss, rss)):
+            check(a.dtype == torch.float32, "local_moments f16: sums are "
+                  f"{a.dtype}")
+            sx = stat_excess(a, w, rows)
+            check(sx <= 0.0, f"local_moments f16 [{rows}, {c}]: sums differ "
+                  f"by {sx} beyond the tolerance")
+        again = fbn._moments_fwd(x)
+        check(torch.equal(again[0], s) and torch.equal(again[1], ss),
+              f"local_moments f16 [{rows}, {c}]: a repeat differs")
+        errs["fused_bn_moments"].append({
+            "shape": [rows, c], "dtype": "float16",
+            "max_abs_err": max(float((a - w).abs().max())
+                               for a, w in ((s, rs), (ss, rss)))})
+        log(f"batch norm kernels f16 [{rows}, {c}]: over f16 and f32 "
+            "params, identity and relu + residual, within one f16 step "
+            "of their plain versions, repeats bit-identical")
+        del x, g16, b16, res, m, v, dy, s, ss, rs, rss
+        torch.cuda.empty_cache()
+    x = torch.zeros(64, 16, dtype=torch.float64, device=dev)
+    ones = torch.ones(16, device=dev)
+    for call in (lambda: fbn.fused_bn_train(x, ones, ones, 1e-5),
+                 lambda: fbn.local_moments(x)):
+        try:
+            call()
+            check(False, "a float64 batch norm did not raise")
+        except InvalidArgumentError:
+            pass
+    return errs
+
+
+def moments_timing(dev, shapes, images, dtype):
+    """The moments kernel timed (graph replay over 4 input sets) beside
+    its plain version, ``torch.batch_norm_stats`` on the same rows as
+    channels-last [N, C, H, W] (``images`` square images; its mean and
+    invstd checked against the kernel's sums) and its bound: one read of
+    x, two f32 [C] written, 3 flops an element at the f32 rate."""
+    from paddle1_tpu_torch.ops import fused_bn as fbn
+    out = []
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    dname = {torch.bfloat16: "bf16", torch.float32: "f32",
+             torch.float16: "f16"}[dtype]
+    eps = 1e-5
+    for rows, c in shapes:
+        xs = [t[0] for t in bn_inputs(dev, rows, c, dtype, SEED + 12,
+                                      n_sets=4)]
+        side = int(round((rows // images) ** 0.5))
+        check(side * side * images == rows, f"{rows} rows are not "
+              f"{images} square images")
+        lib = [x.view(images, side, side, c).permute(0, 3, 1, 2)
+               for x in xs]
+        check(lib[0].is_contiguous(memory_format=torch.channels_last),
+              "library input is not channels-last")
+        mean, invstd = torch.batch_norm_stats(lib[0], eps)
+        s, ss = fbn._moments_fwd(xs[0])
+        var = ss / rows - (s / rows) ** 2
+        check(torch.allclose(mean.float(), s / rows, rtol=1e-3, atol=1e-3)
+              and torch.allclose(invstd.float(), torch.rsqrt(var + eps),
+                                 rtol=1e-3, atol=1e-3),
+              "torch.batch_norm_stats computes other moments")
+        t = {"ms": graph_time_ms([lambda x=x: fbn._moments_fwd(x)
+                                  for x in xs]),
+             "plain_ms": graph_time_ms([lambda x=x: fbn.local_moments_ref(x)
+                                        for x in xs]),
+             "library_ms": graph_time_ms([
+                 lambda x=x: torch.batch_norm_stats(x, eps) for x in lib])}
+        need = rows * c * itemsize + 2 * c * 4
+        b_ms, by = bound(need, 3.0 * rows * c, F32_FLOPS_PER_S)
+        out.append({"shape": [rows, c], "dtype": dname, **t,
+                    "library_covers": "torch.batch_norm_stats (mean, "
+                                      "invstd) on channels-last NCHW",
+                    "bound_ms": b_ms, "bound_by": by, "bound_bytes": need})
+        log(f"local_moments {dname} [{rows}, {c}]: kernel "
+            f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
+            f"torch.batch_norm_stats {t['library_ms']:.5f} ms, bound "
+            f"{b_ms:.5f} ms ({by})")
+        del xs, lib
+        torch.cuda.empty_cache()
+    return out
+
+
+def bn_f16_phase(dev):
+    """Phase 39 (the module docstring): the f16 checks, then the f16
+    times at ResNet-50's shapes (32 images) and YOLOv3's stem (8)."""
+    t0 = time.perf_counter()
+    errs = bn_f16_check(dev)
+    times = bn_timing(dev, BN_SHAPES, RN_BATCH, torch.float16)
+    stem = bn_timing(dev, (YOLO_TRAIN_STEM,), YT_BATCH, torch.float16)
+    for k in times:
+        times[k] += stem[k]
+    times["fused_bn_moments"] = moments_timing(
+        dev, BN_SHAPES, RN_BATCH, torch.float16) + moments_timing(
+        dev, (YOLO_TRAIN_STEM,), YT_BATCH, torch.float16)
+    log(json.dumps({"bn_f16": {"seconds": time.perf_counter() - t0,
+                               "cases": sum(len(v) for v in errs.values())}}))
+    return errs, times
+
+
+# ---------------------------------------------------------------------------
+# phase 40: ResNet-50 in float16
+
+# the f16 kernel path against the f16 plain path at phase 9's depth cut,
+# three steps from identical weights, both held to the f32 plain path of
+# the same steps. The two f16 paths round the activations at other places
+# (the kernels once per batch norm at the edge, the plain composition
+# after each of its ops, about 2^-11 relative each), ReLU inputs rounded
+# to f16 land on the other side of the kink far more often than in f32,
+# and the batch-norm biases' gradients cancel to a fraction of their
+# terms: a bias's f16 update differs between the two paths by up to 16 %
+# of its norm (CPU rehearsal at 16 x 64²). So, as phase 10's full-depth
+# f32 check does against float64: the first losses within RN_F16_LOSS_REL
+# of each other (relative), and the kernel path's updates no farther from
+# the f32 path's than RN_F64_FACTOR times the f16 plain path's (the worst
+# parameter and the median, each the L2 norm of the difference over the
+# f32 update's, that denominator at least 1e-2 of the largest), the same
+# of the running statistics
+RN_F16_LOSS_REL = 1e-2
+
+
+def resnet_f16_reference_check(dev):
+    """The f16 kernel path against the f16 plain path (``fused_bn`` and
+    ``fused_bn_bwd`` never) at phase 9's depth cut (one bottleneck a
+    stage, 32 x 64²), REF_STEPS steps from identical weights, both held to
+    the f32 plain path (RN_F16_LOSS_REL's note)."""
+    import copy
+    from paddle1_tpu_torch.core.flags import flags_guard
+    from paddle1_tpu_torch.vision.models import resnet50
+    model = resnet50(device=dev,
+                     generator=torch.Generator().manual_seed(SEED + 40))
+    for i in range(1, 5):
+        setattr(model, f"layer{i}",
+                getattr(model, f"layer{i}")[:RN_REF_CUT["blocks"]])
+    plain, f32 = copy.deepcopy(model), copy.deepcopy(model)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(SEED + 40)
+    b, img = RN_REF_CUT["batch"], RN_REF_CUT["img"]
+    data = {"x": torch.from_numpy(rng.standard_normal(
+                (b, 3, img, img)).astype(np.float32)).to(dev),
+            "y": torch.from_numpy(rng.integers(0, 1000, (b,))).to(dev)}
+    counters = bn_counters()
+    zero(counters)
+    lk = rn_engine_steps(model, data, REF_STEPS, amp="float16")
+    launches = bn_launches(counters)
+    with flags_guard(fused_bn="never", fused_bn_bwd="never"):
+        lp = rn_engine_steps(plain, data, REF_STEPS, amp="float16")
+        l32 = rn_engine_steps(f32, data, REF_STEPS)
+    check(bn_launches(counters) == launches, "the plain paths launched "
+          "batch-norm kernels")
+    want = {"fused_bn_train": 17 * REF_STEPS, "fused_bn_norm": 0,
+            "fused_bn_train_bwd": 17 * REF_STEPS, "fused_bn_norm_bwd": 0}
+    check(launches == want, f"f16 depth cut: kernel launches {launches}, "
+          f"want {want}")
+    sk, sp, s32 = (m.state_dict() for m in (model, plain, f32))
+    stats = [k for k in sk if k.endswith(("_mean", "_variance"))]
+    params = [k for k in sk if k not in stats]
+
+    def gaps(a, ref):
+        """Per key ``|a_k - ref_k| / max(|ref_k|, 1e-2 max |ref|)``, L2
+        norms: the worst (and its key) and the median."""
+        top = max(float(ref[k].double().norm()) for k in ref)
+        rel = {k: float((a[k].double() - ref[k].double()).norm()) /
+               max(float(ref[k].double().norm()), 1e-2 * top) for k in ref}
+        worst = max(rel, key=rel.get)
+        return {"max": rel[worst], "key": worst,
+                "median": float(np.median(list(rel.values())))}
+    upd = {n: {k: st[k] - init[k] for k in params}
+           for n, st in (("kernel", sk), ("plain", sp), ("f32", s32))}
+    st = {n: {k: d[k] for k in stats}
+          for n, d in (("kernel", sk), ("plain", sp), ("f32", s32))}
+    readings = {
+        "update_kernel_vs_f32": gaps(upd["kernel"], upd["f32"]),
+        "update_plain_vs_f32": gaps(upd["plain"], upd["f32"]),
+        "update_kernel_vs_plain": gaps(upd["kernel"], upd["plain"]),
+        "stat_kernel_vs_f32": gaps(st["kernel"], st["f32"]),
+        "stat_plain_vs_f32": gaps(st["plain"], st["f32"])}
+    loss_rel = abs(lk[0] - lp[0]) / abs(lp[0])
+    out = {"losses_kernel": lk, "losses_plain": lp, "losses_f32": l32,
+           "first_loss_rel_err": loss_rel, **readings,
+           "tolerances": {"first_loss_rel": RN_F16_LOSS_REL,
+                          "factor_over_plain": RN_F64_FACTOR}}
+    log(json.dumps({"resnet_f16_reference": out}))
+    check(all(np.isfinite(lk + lp)), f"non-finite f16 losses {lk} {lp}")
+    check(loss_rel <= RN_F16_LOSS_REL, f"f16 depth cut: first losses {lk[0]} "
+          f"vs {lp[0]}")
+    for what in ("update", "stat"):
+        k, p = readings[f"{what}_kernel_vs_f32"], \
+            readings[f"{what}_plain_vs_f32"]
+        for stat in ("max", "median"):
+            check(k[stat] <= RN_F64_FACTOR * p[stat], f"f16 depth cut: the "
+                  f"kernel path's {what}s are {k[stat]} ({stat}) from the "
+                  f"f32 path's, the plain path's {p[stat]}")
+    del model, plain, f32
+    torch.cuda.empty_cache()
+    return out
+
+
+def resnet_f16_phase(dev):
+    """Phase 40 (the module docstring)."""
+    import copy
+    from paddle1_tpu_torch import distributed as pdist
+    from paddle1_tpu_torch.optimizer import Momentum
+    from paddle1_tpu_torch.vision.models import resnet50
+    t0 = time.perf_counter()
+    model = resnet50(generator=torch.Generator().manual_seed(SEED))
+    eng = pdist.ParallelEngine(
+        model, Momentum(learning_rate=RN_LR, momentum=0.9,
+                        parameters=model.parameters()),
+        rn_loss_fn, amp_dtype="float16")
+    rng = np.random.default_rng(0)
+    batch = {"x": torch.from_numpy(rng.standard_normal(
+                 (RN_BATCH, 3, RN_IMG, RN_IMG)).astype(np.float32)).to(dev),
+             "y": torch.from_numpy(rng.integers(
+                 0, 1000, (RN_BATCH,)).astype(np.int64)).to(dev)}
+    counters = bn_counters()
+    zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(eng.step(batch)) for _ in range(3)]
+    train = bn_launches(counters)
+    want = {"fused_bn_train": 3 * RN_BNS, "fused_bn_norm": 0,
+            "fused_bn_train_bwd": 3 * RN_BNS, "fused_bn_norm_bwd": 0}
+    check(train == want, f"f16 training launches {train}, want {want}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"f16 ResNet-50 losses not finite and falling: {losses}")
+    slopes, _, steps = timed_steps(lambda: eng.step(batch), 8)
+    dt = float(np.median(slopes))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    device = device_kernels_per_step(lambda: eng.step(batch), 2)
+    del eng
+    # an f16 copy in eval: every batch norm on row 9 in f16, its running
+    # statistics calibrated on the batch first (momentum 0, one training
+    # forward under no_grad): the init's mean 0 and variance 1 let the
+    # activations grow past f16's range over 53 batch norms
+    m16 = copy.deepcopy(model).to(dtype=torch.float16)
+    for bn in m16.modules():
+        if hasattr(bn, "_momentum"):
+            bn._momentum = 0.0
+    with torch.no_grad():
+        m16(batch["x"].half())
+    m16.eval()
+    zero(counters)
+    with torch.no_grad():
+        logits = m16(batch["x"].half())
+    torch.cuda.synchronize()
+    evals = bn_launches(counters)
+    want = {"fused_bn_train": 0, "fused_bn_norm": RN_BNS,
+            "fused_bn_train_bwd": 0, "fused_bn_norm_bwd": 0}
+    check(evals == want, f"f16 eval launches {evals}, want {want}")
+    check(logits.dtype == torch.float16 and
+          bool(torch.isfinite(logits).all()), "f16 eval logits not finite")
+    del m16, logits
+    # rows 10 and 12 in f16: two steps on a one-rank mesh over NCCL
+    pdist.init_parallel_env()
+    try:
+        dpc = dp_counters()
+        model_dp = resnet50(generator=torch.Generator().manual_seed(SEED))
+        eng = pdist.ParallelEngine(
+            model_dp, Momentum(learning_rate=RN_LR, momentum=0.9,
+                               parameters=model_dp.parameters()),
+            rn_loss_fn, mesh=pdist.build_mesh(dp=1), amp_dtype="float16")
+        staged = eng.shard_batch(batch)
+        zero(dpc)
+        dp_losses = [float(eng.step(staged)) for _ in range(2)]
+        torch.cuda.synchronize()
+        dp_launches = bn_launches(dpc)
+    finally:
+        pdist.destroy_process_group()
+    want = {"fused_bn_moments": 2 * RN_BNS, "fused_bn_train": 0,
+            "fused_bn_norm": 2 * RN_BNS, "fused_bn_train_bwd": 0,
+            "fused_bn_norm_bwd": 2 * RN_BNS}
+    check(dp_launches == want, f"f16 dp launches {dp_launches}, want {want}")
+    check(all(np.isfinite(dp_losses)), f"non-finite f16 dp loss {dp_losses}")
+    del eng, model_dp, staged, model
+    torch.cuda.empty_cache()
+    ref = resnet_f16_reference_check(dev)
+    summary = {
+        "train": "resnet50", "amp": "float16", "batch": RN_BATCH,
+        "img": RN_IMG, "losses": losses, "launches_train": train,
+        "launches_per_step": {k: n / 3 for k, n in train.items()},
+        "steps_timed": steps, "timing": "slope+readback",
+        "step_ms_median": dt * 1e3, "step_ms_min": min(slopes) * 1e3,
+        "step_ms_max": max(slopes) * 1e3, "samples_per_s": RN_BATCH / dt,
+        "device_busy_ms_per_step": device["device_busy_ms_per_step"],
+        "idle_share": 1.0 - device["device_busy_ms_per_step"] / (dt * 1e3),
+        "bn_ms_per_step": device["bn_ms_per_step"],
+        "peak_mem_gb": peak, "launches_eval": evals,
+        "dp_losses": dp_losses, "launches_dp": dp_launches,
+        "reference": ref, "seconds": time.perf_counter() - t0}
+    log(json.dumps({"resnet50_f16": summary}))
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 41: YOLOv3 training (PaddleDetection's
+# configs/yolov3/yolov3_darknet53_270e_coco.yml: yolov3 80 classes,
+# ignore_thresh 0.7, Momentum(1e-3, 0.9, L2Decay(5e-4)), batch 8 at the
+# largest 608² of its 320-608 multi-scale set); seeded synthetic images
+# with 1-50 boxes each (no COCO in the repository)
+
+YT_BATCH, YT_IMG, YT_STEPS, YT_MAX_BOXES = 8, 608, 12, 50
+YT_LR, YT_MOMENTUM, YT_DECAY, YT_IGNORE = 1e-3, 0.9, 5e-4, 0.7
+# the f32 kernel-vs-plain check: backbone cut to one DarkBlock a stage, at
+# YOLO_REF_BATCH x 608², REF_STEPS steps, each from the plain path's state
+YT_REF_CUT, YT_REF_TOL = (1, 1, 1, 1, 1), 1e-4
+
+
+def yt_batches(dev, n, batch=YT_BATCH, img=YT_IMG, seed=SEED + 41):
+    """``n`` seeded batches on the card: images N(0, 1), and 1-50 boxes an
+    image over the 80 classes (centre-size, normalized; -1 labels and zero
+    boxes pad to YT_MAX_BOXES), mixup scores 1."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        count = rng.integers(1, YT_MAX_BOXES + 1, batch)
+        box = np.zeros((batch, YT_MAX_BOXES, 4), np.float32)
+        lab = np.full((batch, YT_MAX_BOXES), -1, np.int32)
+        for i, k in enumerate(count):
+            box[i, :k, :2] = rng.uniform(0.05, 0.95, (k, 2))
+            box[i, :k, 2:] = rng.uniform(0.02, 0.5, (k, 2))
+            lab[i, :k] = rng.integers(0, YOLO_CLASSES, k)
+        out.append({
+            "x": torch.from_numpy(rng.standard_normal(
+                (batch, 3, img, img)).astype(np.float32)).to(dev),
+            "gt_box": torch.from_numpy(box).to(dev),
+            "gt_label": torch.from_numpy(lab).to(dev),
+            "gt_score": torch.ones(batch, YT_MAX_BOXES, device=dev)})
+    return out
+
+
+def yt_loss_fn(m, b):
+    from paddle1_tpu_torch.vision.models import yolov3_loss
+    return yolov3_loss(m(b["x"]), b["gt_box"], b["gt_label"],
+                       num_classes=YOLO_CLASSES, ignore_thresh=YT_IGNORE,
+                       downsample_ratios=(32, 16, 8),
+                       gt_scores=b["gt_score"])
+
+
+def yt_engine(model, amp="bfloat16"):
+    from paddle1_tpu_torch.distributed import ParallelEngine
+    from paddle1_tpu_torch.optimizer import Momentum
+    from paddle1_tpu_torch.regularizer import L2Decay
+    opt = Momentum(learning_rate=YT_LR, momentum=YT_MOMENTUM,
+                   parameters=model.parameters(),
+                   weight_decay=L2Decay(YT_DECAY))
+    return ParallelEngine(model, opt, yt_loss_fn, amp_dtype=amp), opt
+
+
+def yolo_train_phase(dev):
+    """Phase 41's training run (the module docstring)."""
+    from paddle1_tpu_torch.vision.models import yolov3
+    t0 = time.perf_counter()
+    model = yolov3(num_classes=YOLO_CLASSES,
+                   generator=torch.Generator().manual_seed(SEED + 41))
+    check(sum(k.endswith("._mean") for k in model.state_dict()) == YOLO_BNS,
+          "yolov3 does not have 72 batch norms")
+    model.train()
+    eng, _ = yt_engine(model)
+    data = yt_batches(dev, 2)
+    counters = bn_counters()
+    torch.cuda.reset_peak_memory_stats()
+    zero(counters)
+    losses = [float(eng.step(data[i % 2])) for i in range(YT_STEPS)]
+    launches = bn_launches(counters)
+    want = {"fused_bn_train": YOLO_BNS * YT_STEPS, "fused_bn_norm": 0,
+            "fused_bn_train_bwd": YOLO_BNS * YT_STEPS,
+            "fused_bn_norm_bwd": 0}
+    check(launches == want, f"YOLOv3 training launches {launches}, want "
+          f"{want} ({YT_STEPS} steps)")
+    check(all(np.isfinite(losses)), f"non-finite YOLOv3 loss {losses}")
+    check(sum(losses[-2:]) < sum(losses[:2]), f"YOLOv3 loss did not fall "
+          f"over {YT_STEPS} steps: {losses}")
+    setup_s = time.perf_counter() - t0
+    it = [0]
+
+    def step():
+        it[0] += 1
+        return eng.step(data[it[0] % 2])
+    slopes, _, steps = timed_steps(step, 8)
+    dt = float(np.median(slopes))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    device = device_kernels_per_step(step, 2)
+    busy = device["device_busy_ms_per_step"]
+    summary = {
+        "train": "yolov3", "amp": "bfloat16", "batch": YT_BATCH,
+        "img": YT_IMG, "classes": YOLO_CLASSES,
+        "boxes_per_image": [1, YT_MAX_BOXES], "batch_norms": YOLO_BNS,
+        "params": sum(p.nelement() for p in model.parameters()),
+        "losses": losses, "launches": launches,
+        "launches_per_step": {k: n / YT_STEPS for k, n in launches.items()},
+        "steps_timed": steps, "timing": "slope+readback",
+        "step_ms_median": dt * 1e3, "step_ms_min": min(slopes) * 1e3,
+        "step_ms_max": max(slopes) * 1e3, "images_per_s": YT_BATCH / dt,
+        "device_busy_ms_per_step": busy,
+        "idle_share": 1.0 - busy / (dt * 1e3),
+        "bn_ms_per_step": device["bn_ms_per_step"],
+        "bn_share_of_busy": device["bn_ms_per_step"] / busy,
+        "kernels_per_step": device["kernels_per_step"],
+        "bn_kernels_per_step": device["bn_kernels_per_step"],
+        "top_kernels": device["top_kernels"], "peak_mem_gb": peak,
+        "setup_s": setup_s}
+    log(json.dumps({"yolov3_train": summary}))
+    del eng, model, data
+    torch.cuda.empty_cache()
+    return summary
+
+
+def yolo_train_reference_check(dev):
+    """Phase 41's f32 kernel path against the plain path (the module
+    docstring): per step, the loss (relative), every parameter and running
+    statistic (absolute and relative) within YT_REF_TOL, and every
+    velocity as the L2 norm of its error over the plain path's (at least
+    1e-2 of the largest) within YT_REF_TOL. Both paths take the leaky
+    ReLUs' gradients on a float64 forward's pieces: on their own pieces
+    (each f32 forward puts some of the 1e-5-close inputs on the other
+    side) the first step's gradients part by up to 1 % of a weight's
+    norm (CPU rehearsal), and on the plain f32 path's pieces by 9e-4."""
+    import copy
+    from paddle1_tpu_torch.core.flags import flags_guard
+    from paddle1_tpu_torch.vision.models import DarkNet53, yolov3
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    gen = torch.Generator().manual_seed(SEED + 42)
+    kernel = yolov3(num_classes=YOLO_CLASSES, generator=gen)
+    kernel.backbone = DarkNet53(depths=YT_REF_CUT, generator=gen)
+    kernel.train()
+    acts = ActPieces(kernel)
+    plain = copy.deepcopy(kernel)     # shares the hooks
+    ek, ok_ = yt_engine(kernel, amp=None)
+    ep, op_ = yt_engine(plain, amp=None)
+    data = yt_batches(dev, REF_STEPS, batch=YOLO_REF_BATCH, seed=SEED + 43)
+    counters = bn_counters()
+    pk, pp = dict(kernel.named_parameters()), dict(plain.named_parameters())
+    readings = []
+    try:
+        for i in range(REF_STEPS):
+            # the kernel path starts each step from the plain path's state
+            kernel.load_state_dict(plain.state_dict())
+            for k, q in pp.items():
+                ok_._slots_for(pk[k])["velocity"].copy_(
+                    op_._slots_for(q)["velocity"])
+            # the pieces: a float64 forward of the same state and batch
+            exact = copy.deepcopy(plain).double()    # shares the hooks
+            with flags_guard(fused_bn="never", fused_bn_bwd="never",
+                             conv_nhwc="never"), torch.no_grad():
+                acts.mode = "record"
+                acts.restart()
+                exact(data[i]["x"].double())
+            del exact
+            acts.mode = "replay"
+            with flags_guard(fused_bn="never", fused_bn_bwd="never"):
+                acts.restart()
+                before = bn_launches(counters)
+                lp = float(ep.step(data[i]))
+                check(bn_launches(counters) == before, "the plain path "
+                      "launched batch-norm kernels")
+            flips_plain = acts.take()
+            acts.restart()
+            zero(counters)
+            lk = float(ek.step(data[i]))
+            launches = bn_launches(counters)
+            flips = acts.take()
+            acts.mode = None
+            sk, sp = kernel.state_dict(), plain.state_dict()
+            excess = {k: float(((sk[k].double() - sp[k].double()).abs() -
+                                YT_REF_TOL * sp[k].double().abs()).max())
+                      for k in sk}
+            vk = {k: ok_._slots_for(pk[k])["velocity"] for k in pk}
+            vp = {k: op_._slots_for(pp[k])["velocity"] for k in pp}
+            top = max(float(v.norm()) for v in vp.values())
+            vel = {k: float((vk[k] - vp[k]).norm()) /
+                   max(float(vp[k].norm()), 1e-2 * top) for k in vp}
+            wx, wv = max(excess, key=excess.get), max(vel, key=vel.get)
+            readings.append({"loss_kernel": lk, "loss_plain": lp,
+                             "loss_rel_err": abs(lk - lp) / abs(lp),
+                             "state_excess": excess[wx], "worst_state": wx,
+                             "velocity_rel_err": vel[wv],
+                             "worst_velocity": wv,
+                             "launches": launches, "flips": flips,
+                             "flips_plain": flips_plain})
+    finally:
+        acts.remove()
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = det
+    out = {"batch": YOLO_REF_BATCH, "img": YT_IMG, "depths": YT_REF_CUT,
+           "batch_norms": sum(k.endswith("._mean")
+                              for k in kernel.state_dict()),
+           "tol": YT_REF_TOL, "steps": readings}
+    log(json.dumps({"yolov3_train_reference": out}))
+    n_bn = out["batch_norms"]
+    for i, r in enumerate(readings):
+        check(r["launches"]["fused_bn_train"] == n_bn and
+              r["launches"]["fused_bn_train_bwd"] == n_bn,
+              f"YOLOv3 reference step {i + 1}: launches {r['launches']}")
+        check(np.isfinite(r["loss_kernel"]) and
+              r["loss_rel_err"] <= YT_REF_TOL,
+              f"YOLOv3 reference step {i + 1}: losses {r['loss_kernel']} "
+              f"vs {r['loss_plain']}")
+        check(r["state_excess"] <= YT_REF_TOL, f"YOLOv3 reference step "
+              f"{i + 1}: a parameter or statistic differs by "
+              f"{r['state_excess']} beyond {YT_REF_TOL}")
+        check(r["velocity_rel_err"] <= YT_REF_TOL, f"YOLOv3 reference step "
+              f"{i + 1}: velocities differ by {r['velocity_rel_err']}")
+        far = max(r["flips"]["far"], r["flips_plain"]["far"])
+        check(far <= 1e-3, f"YOLOv3 reference step {i + 1}: a leaky ReLU "
+              f"input {far} from its kink changed side")
+    del ek, ep, kernel, plain, data
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 42: VGG16-BN eval
+
+VGG_BATCH, VGG_IMG, VGG_BNS, VGG_TOL, VGG_STEPS = 8, 224, 13, 1e-4, 8
+
+
+def vgg_phase(dev):
+    """Phase 42 (the module docstring): ``vgg16(batch_norm=True)`` with
+    seeded weights, its batch norms' gamma and beta moved off 1 and 0 and
+    their statistics calibrated on one seeded batch (momentum 0, one
+    training-mode forward under no_grad), in eval; the kernel path's
+    logits against the plain path's."""
+    import copy
+    from paddle1_tpu_torch.core.flags import flags_guard
+    from paddle1_tpu_torch.nn import BatchNorm2D
+    from paddle1_tpu_torch.vision.models import vgg16
+    model = vgg16(batch_norm=True,
+                  generator=torch.Generator().manual_seed(SEED + 44))
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2D)]
+    check(len(bns) == VGG_BNS, f"vgg16_bn has {len(bns)} batch norms")
+    # gamma and beta off their init (at 1 and 0 the kernel's fused
+    # multiply-add and the plain path's two roundings agree bit for bit)
+    gen = torch.Generator().manual_seed(SEED + 45)
+    with torch.no_grad():
+        for bn in bns:
+            c = bn.weight.shape[0]
+            bn.weight.copy_(1.0 + 0.1 * torch.randn(c, generator=gen))
+            bn.bias.copy_(0.1 * torch.randn(c, generator=gen))
+            bn._momentum = 0.0
+    rng = np.random.default_rng(SEED + 44)
+    calib, x = (torch.from_numpy(rng.standard_normal(
+        (VGG_BATCH, 3, VGG_IMG, VGG_IMG)).astype(np.float32)).to(dev)
+        for _ in range(2))
+    with torch.no_grad():
+        model(calib)
+    model.eval()
+    plain = copy.deepcopy(model)
+    counters = bn_counters()
+    zero(counters)
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        with torch.no_grad():
+            logits = model(x)
+            torch.cuda.synchronize()
+            launches = bn_launches(counters)
+            with flags_guard(fused_bn="never"):
+                want = plain(x)
+            torch.cuda.synchronize()
+            plain_launches = bn_launches(counters)
+            # the warm eval forward, by the slope protocol (the first
+            # forward above paid cuDNN's plans and the kernel's build)
+            slopes, _, _ = timed_steps(lambda: model(x)[0, 0], VGG_STEPS)
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = det
+    check(launches == {"fused_bn_train": 0, "fused_bn_norm": VGG_BNS,
+                       "fused_bn_train_bwd": 0, "fused_bn_norm_bwd": 0},
+          f"VGG16-BN eval launches {launches}")
+    check(plain_launches == launches,
+          f"VGG16-BN plain path launched batch-norm kernels: "
+          f"{plain_launches} after {launches}")
+    ms = float(np.median(slopes)) * 1e3
+    err = float((logits - want).abs().max() / want.abs().max())
+    out = {"eval": "vgg16_bn", "batch": VGG_BATCH, "img": VGG_IMG,
+           "dtype": "float32", "launches": launches, "forward_ms": ms,
+           "forward_ms_slopes": [t * 1e3 for t in slopes],
+           "logit_err_over_max_abs": err, "tol": VGG_TOL}
+    log(json.dumps({"vgg16_bn_eval": out}))
+    check(tuple(logits.shape) == (VGG_BATCH, 1000) and
+          bool(torch.isfinite(logits).all()), "VGG16-BN logits not finite")
+    check(err <= VGG_TOL, f"VGG16-BN: kernel path against plain path {err}")
+    del model, plain, logits, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -8471,6 +9170,12 @@ def main() -> int:
     econ = decode_economics_phase(dev, reqs, outs)
     rs = resnet_server_phase(dev)
     log(json.dumps({"phases_36_38_s": time.perf_counter() - t36}))
+    bn16_errs, bn16_times = bn_f16_phase(dev)
+    torch.cuda.empty_cache()
+    rn16 = resnet_f16_phase(dev)
+    yt = yolo_train_phase(dev)
+    yt_ref = yolo_train_reference_check(dev)
+    vgg = vgg_phase(dev)
     gen_paths = {"gen_f16_cache": gen16["f16_cache"]["launches"],
                  "gen_f16_model": gen16["f16_model"]["launches"],
                  "gen_spec": econ["spec"]["launches"],
@@ -8687,8 +9392,16 @@ def main() -> int:
                    **{k: v[name] for k, v in mn_paths.items()},
                    "resnet_io_train": io_rn["launches_train"][name],
                    "resnet_io_eval": io_rn["launches_eval"][name],
-                   "resnet_server": rs["launches"][name]}
+                   "resnet_server": rs["launches"][name],
+                   "resnet_f16_train": rn16["launches_train"][name],
+                   "resnet_f16_eval": rn16["launches_eval"][name],
+                   "resnet_f16_dp": rn16["launches_dp"][name],
+                   "yolov3_train": yt["launches"][name],
+                   "yolov3_train_reference": sum(
+                       r["launches"][name] for r in yt_ref["steps"]),
+                   "vgg16_bn_eval": vgg["launches"][name]}
         main_case = bn_times[name][0]     # the stem's [401408, 64]
+        f16_main = bn16_times[name][0]    # the stem's, in f16
         line.append({
             "name": name, "route": "cuda", "source": src + cu,
             "replaces": pallas + rep, "launches": sum(by_path.values()),
@@ -8705,7 +9418,19 @@ def main() -> int:
             "timing_cases": bn_times[name], "cases": bn_errs[name]})
         line[-1].update({
             "mobilenet_v2_launches_per_step": mn["launches_per_step"][name],
-            "mobilenet_v2_timing_cases": mn["bn_times_f32"][name]})
+            "mobilenet_v2_timing_cases": mn["bn_times_f32"][name],
+            # float16 (phase 39): f16 rows over f16 and f32 parameters
+            "f16_max_abs_err": max(c["max_abs_err"]
+                                   for c in bn16_errs[name]),
+            "f16_cases": bn16_errs[name],
+            **{f"f16_{k}": f16_main[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "f16_shape": f16_main["shape"],
+            "f16_timing_cases": bn16_times[name],
+            "yolov3_train_launches_per_step":
+                yt["launches_per_step"].get(name, 0),
+            "yolov3_train_shapes": [list(YOLO_TRAIN_STEM), "... 72 at "
+                                    f"{YT_BATCH} x {YT_IMG}²"]})
         if name == "fused_bn_norm":
             line[-1].update({
                 "max_abs_err": max([line[-1]["max_abs_err"]] + [
@@ -8715,11 +9440,20 @@ def main() -> int:
                 "yolov3_timing_cases": yolo_bn_times,
                 "yolov3_cases": yolo_bn_errs})
     main_case = mom_times[0]     # the stem's [401408, 64]
-    n_mom = dp["launches_train"]["fused_bn_moments"]
+    mom_paths = {"resnet_dp": dp["launches_train"]["fused_bn_moments"],
+                 "resnet_f16_dp": rn16["launches_dp"]["fused_bn_moments"]}
+    f16_main = bn16_times["fused_bn_moments"][0]
     line.append({
         "name": "fused_bn_moments", "route": "cuda",
         "source": src + "fused_bn.cu", "replaces": pallas + "fused_bn.py:357",
-        "launches": n_mom, "launches_by_path": {"resnet_dp": n_mom},
+        "launches": sum(mom_paths.values()), "launches_by_path": mom_paths,
+        "f16_max_abs_err": max(c["max_abs_err"] for c in
+                               bn16_errs["fused_bn_moments"]),
+        "f16_cases": bn16_errs["fused_bn_moments"],
+        **{f"f16_{k}": f16_main[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "f16_shape": f16_main["shape"],
+        "f16_timing_cases": bn16_times["fused_bn_moments"],
         "max_abs_err": max(c["max_abs_err"] for c in mom_errs),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],

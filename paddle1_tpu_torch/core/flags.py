@@ -180,8 +180,8 @@ def _define_builtin_flags() -> None:
                 "plain version on CPU tensors), never (plain "
                 "composition). On the card it needs a channels-last "
                 "input (NHWC data_format or the conv_nhwc region), "
-                "affine weight and bias, f32 or bf16 and C % 8 == 0, and "
-                "raises otherwise.",
+                "affine weight and bias, f32, bf16 or f16 and C % 8 == 0, "
+                "and raises otherwise.",
                 validator=_tri)
     define_flag("fused_bn_bwd", "auto",
                 "Hand-written CUDA fused batch norm backward (dx, dgamma, "

@@ -14,12 +14,14 @@ misses.
   in ``model.named_parameters()``; autograd sums both gradient paths into
   the one leaf, so the tied weight gets ONE update, as the JAX engine's
   dedupe gives (``parallel_engine.py:439-449``).
-* ``amp_dtype="bfloat16"`` is the JAX package's pure-bf16 mode
-  (``parallel_engine.py:221-235``), not ``torch.autocast``: each step
-  casts the floating parameters and float feeds to bf16, runs forward and
-  backward in bf16 through ``torch.func.functional_call``, casts the loss
-  to f32, and the optimizer updates the f32 masters (the model's own
-  parameters) from the gradients cast to f32.
+* ``amp_dtype="bfloat16"`` (or ``"float16"``) is the JAX package's
+  pure-16-bit mode (``parallel_engine.py:221-235``), not
+  ``torch.autocast``: each step casts the floating parameters and float
+  feeds to that dtype, runs forward and backward in it through
+  ``torch.func.functional_call``, casts the loss to f32, and the
+  optimizer updates the f32 masters (the model's own parameters) from the
+  gradients cast to f32. As in the JAX engine, float16 gets no loss
+  scaler here.
 * Gradients land in persistent buffers in the masters' dtype, allocated
   once (on a mesh: views of one flat buffer), so the fused optimizer's
   table of pointers is built once.
@@ -27,7 +29,7 @@ misses.
   the step like the parameters, as the JAX engine threads its whole
   state through the step (``parallel_engine.py:425-431``): under
   ``amp_dtype`` they are cast with the parameters, so a given-statistics
-  forward normalizes with bf16-rounded running statistics; they are
+  forward normalizes with 16-bit-rounded running statistics; they are
   differentiated and handed to the optimizer with the parameters (so
   frozen statistics, ``use_global_stats=True``, move with their
   gradient, as the JAX engine's ``functional_update`` moves them). Batch
@@ -114,7 +116,7 @@ from .topology import Mesh, build_mesh
 
 __all__ = ["ParallelEngine", "ShardedBatch", "snapshot_", "keep_where_"]
 
-_AMP = {"bfloat16": torch.bfloat16}
+_AMP = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 _ALIGN = 64          # elements: each gradient view starts 256 B aligned
 
 

@@ -6,7 +6,7 @@ every layer of the JAX package's ``layer_common.py``,
 (``MultiHeadAttention``, the encoder, the decoder and ``Transformer``),
 the seq2seq decoding of ``decode.py`` (``BeamSearchDecoder``,
 ``dynamic_decode``, ...), ``ParamAttr``; the recurrent layers of
-``layer_rnn.py``; Conv2D and every pooling layer of ``layer_conv_pool.py``;
+``layer_rnn.py``; every conv and pooling layer of ``layer_conv_pool.py``;
 and the gradient clips (``ClipGradByValue``,
 ``ClipGradByNorm``, ``ClipGradByGlobalNorm``, ``clip_grad_norm_``,
 ``clip_grad_value_``)."""

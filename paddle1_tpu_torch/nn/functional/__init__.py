@@ -1,6 +1,6 @@
 """Functionals of the port (``paddle1_tpu.nn.functional``): every name of
 the JAX package's ``activation``, ``norm``, ``loss``, ``common``,
-``pooling`` and ``crf`` modules, and the subset of ``conv`` and
+``pooling``, ``conv`` and ``crf`` modules, and the subset of
 ``attention`` the ported paths run."""
 
 from .activation import *  # noqa: F401,F403
@@ -8,7 +8,7 @@ from .attention import (attention_ref, paged_attention,  # noqa: F401
                         scaled_dot_product_attention)
 from .common import *  # noqa: F401,F403
 from .crf import *  # noqa: F401,F403
-from .conv import conv2d, fold, unfold  # noqa: F401
+from .conv import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
 from .norm import *  # noqa: F401,F403
 from .pooling import *  # noqa: F401,F403

@@ -113,20 +113,25 @@ def interpolate(x: torch.Tensor, size=None, scale_factor=None,
       resizing, as in the reference. The gather runs in x's memory order,
       so a channels-first tensor with channels-last memory (the
       ``conv_nhwc`` region) gives one with channels-last memory.
-    * ``"linear"``/``"bilinear"``/``"trilinear"`` with ``align_corners``:
-      one axis after another, output ``i`` blends inputs ``floor(p)`` and
-      ``floor(p) + 1`` at ``p = i * (n_in - 1) / (n_out - 1)``
-      (``_resize_align_corners``, ``common.py:274-292``).
-
-    The linear modes without ``align_corners`` (the reference's
-    antialiased ``jax.image.resize``) and ``bicubic``/``area`` raise
-    (ROADMAP Queue 1 item 4)."""
-    corners = mode in ("linear", "bilinear", "trilinear") and align_corners
-    if mode != "nearest" and not corners:
-        raise UnimplementedError(
-            f"interpolate: mode={mode!r} with align_corners="
-            f"{align_corners} is not ported (only 'nearest', and the "
-            "linear modes with align_corners=True)")
+    * ``"linear"``/``"bilinear"``/``"trilinear"``/``"bicubic"``/
+      ``"area"`` with ``align_corners``: one axis after another, output
+      ``i`` blends inputs ``floor(p)`` and ``floor(p) + 1`` at ``p = i *
+      (n_in - 1) / (n_out - 1)`` (``_resize_align_corners``,
+      ``common.py:274-292``, which is linear whatever the mode).
+    * the same modes without ``align_corners``: the reference's
+      ``jax.image.resize`` (``common.py:256-270``), half-pixel centres,
+      the triangle kernel for the linear modes and ``"area"`` (mapped to
+      linear, as there), Keys' cubic kernel (a = -0.5) for ``"bicubic"``,
+      and, where an axis shrinks, the kernel widened by the shrink factor
+      (antialiasing), so the output is not ``torch.nn.functional.
+      interpolate``'s. Each resized axis is one product with its weight
+      matrix (:func:`_resize_weights`, ``jax.image``'s
+      ``compute_weight_mat`` in f32)."""
+    if mode not in _RESIZE_KERNELS and mode != "nearest":
+        raise InvalidArgumentError(
+            f"interpolate: mode must be one of 'nearest', "
+            f"{', '.join(repr(m) for m in _RESIZE_KERNELS)}; got {mode!r}")
+    corners = mode != "nearest" and align_corners
     channel_last = data_format in ("NHWC", "NWC", "NDHWC")
     nd = x.dim()
     if nd < 3:
@@ -156,6 +161,14 @@ def interpolate(x: torch.Tensor, size=None, scale_factor=None,
             if n_in != n_out:
                 x = _linear_corners(x, ax, n_in, n_out)
         return x
+    if mode != "nearest":
+        kernel = _RESIZE_KERNELS[mode]
+        for ax, n_in, n_out in zip(spatial, cur, size):
+            if n_in != n_out:
+                w = _resize_weights(n_in, n_out, kernel, x.device)
+                x = torch.movedim(torch.tensordot(x, w.to(x.dtype),
+                                                  dims=([ax], [0])), -1, ax)
+        return x
     # gather along the spatial axes of the tensor as it lies in memory: a
     # channels-first tensor with channels-last strides is gathered through
     # its channels-last view (index_select returns contiguous memory)
@@ -172,6 +185,50 @@ def interpolate(x: torch.Tensor, size=None, scale_factor=None,
     if perm is not None:
         x = x.permute(0, nd - 1, *range(1, nd - 1))
     return x
+
+
+def _triangle(t: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - t.abs(), min=0.0)
+
+
+def _keys_cubic(t: torch.Tensor) -> torch.Tensor:
+    t = t.abs()
+    out = ((1.5 * t - 2.5) * t) * t + 1.0
+    out = torch.where(t >= 1.0, ((-0.5 * t + 2.5) * t - 4.0) * t + 2.0, out)
+    return torch.where(t >= 2.0, torch.zeros_like(t), out)
+
+
+# the reference's modes onto jax.image.resize's kernels (common.py:256-258)
+_RESIZE_KERNELS = {"linear": _triangle, "bilinear": _triangle,
+                   "trilinear": _triangle, "area": _triangle,
+                   "bicubic": _keys_cubic}
+_F32_EPS = float(np.finfo(np.float32).eps)
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_weights(n_in: int, n_out: int, kernel, device) -> torch.Tensor:
+    """The ``[n_in, n_out]`` f32 weights of one resized axis, as
+    ``jax.image``'s ``compute_weight_mat`` computes them (no translation,
+    antialiasing on): sample ``j`` at ``(j + 0.5) / scale - 0.5``, the
+    kernel over input distances divided by ``max(1 / scale, 1)``, each
+    column normalised to sum 1 (0 where its sum is below 1000 f32
+    epsilons), and columns whose sample lies outside the input zero.
+    Built on the host and kept per sizes, kernel and device, so a resize
+    after the first launches only its contractions. Read-only:
+    ``tensordot`` never writes its operands."""
+    f32 = torch.float32
+    scale = torch.tensor(n_out / n_in, dtype=f32)
+    inv = 1.0 / scale
+    kernel_scale = torch.clamp(inv, min=1.0)
+    sample = (torch.arange(n_out, dtype=f32) + 0.5) * inv - 0.5
+    dist = (sample[None, :] - torch.arange(n_in, dtype=f32)[:, None]).abs()
+    w = kernel(dist / kernel_scale)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * _F32_EPS,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
 
 
 def _linear_corners(x, ax, n_in, n_out):

@@ -3,8 +3,8 @@ its hand-written CUDA kernels, each beside its plain PyTorch version.
 
 ``math_ops``, ``manip_ops`` and ``linalg_ops`` (also as ``linalg``) are
 Paddle's tensor ops on torch functions; importing this package installs
-them as methods of the Paddle ``Tensor`` (``patch.py``). The LoD
-sequence ops (``sequence_ops``) are not ported yet. Importing this
+them as methods of the Paddle ``Tensor`` (``patch.py``); the LoD
+sequence ops (``sequence_ops``) are exported here too. Importing this
 package builds and loads nothing: a kernel is compiled
 (``ops/cuda/build.py``) the first time a CUDA tensor reaches it."""
 
@@ -16,10 +16,12 @@ from .linalg_ops import (cholesky, det, dist, eig, eigh, inv,  # noqa: F401
                          triangular_solve)
 from .math_ops import *  # noqa: F401,F403
 from .manip_ops import *  # noqa: F401,F403
+from . import sequence_ops  # noqa: F401
+from .sequence_ops import *  # noqa: F401,F403
 from . import patch as _patch  # noqa: F401,E402  (installs Tensor methods)
 
 # the linear algebra names imported above
 _LINALG = [n for n, v in list(globals().items())
            if getattr(v, "__module__", None) == linalg.__name__]
 __all__ = sorted(set(math_ops.__all__) | set(manip_ops.__all__) |
-                 set(_LINALG)) + ["linalg"]
+                 set(sequence_ops.__all__) | set(_LINALG)) + ["linalg"]

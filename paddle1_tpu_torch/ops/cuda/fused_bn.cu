@@ -57,7 +57,7 @@
 // finish_tile) sum the partial rows in the fixed order, so no second
 // launch. One read of x: the compulsory traffic.
 //
-// Loads are 16 B (8 bf16) or 32 B (8 f32) per thread, neighbouring
+// Loads are 16 B (8 bf16 or f16) or 32 B (8 f32) per thread, neighbouring
 // threads on neighbouring channels; rows are strided across the block's
 // warps. Built by paddle1_tpu_torch/ops/cuda/build.py with nvcc for
 // sm_90a into a shared library with a plain C interface (ctypes).
@@ -520,8 +520,8 @@ int moments(const void* x, float* s, float* ss, float* ps, float* pss,
 
 extern "C" {
 
-// dtype (x, res, y) and pdtype (gamma, beta): 0 = float32, 1 = bfloat16.
-// res may be null. mean/var: f32 [C] outputs; ps/pss: f32
+// dtype (x, res, y) and pdtype (gamma, beta): 0 = float32, 1 = bfloat16,
+// 2 = float16 (with_dtype), in any pairing. res may be null. mean/var: f32 [C] outputs; ps/pss: f32
 // [sub_chunks, C] scratch. The training call is one cooperative launch of
 // tiles x chunks CTAs, each summing its rows_per_chunk rows as sub-chunks
 // of sub_rows rows and keeping its last `resident` rows of x in
@@ -540,32 +540,28 @@ int p1t_fused_bn_train_fwd(const void* x, const void* g, const void* b,
   auto v = static_cast<float*>(var);
   auto a = static_cast<float*>(ps);
   auto q = static_cast<float*>(pss);
-#define P1T_TRAIN(T, P)                                                    \
-  return train_fwd<T, P>(x, g, b, res, y, m, v, a, q, rows, c, tx, chunks, \
-                         rows_per_chunk, sub_rows, sub_chunks, resident,    \
-                         smem_bytes, eps, relu, s)
-  if (dtype == 0 && pdtype == 0) P1T_TRAIN(float, float);
-  if (dtype == 0 && pdtype == 1) P1T_TRAIN(float, __nv_bfloat16);
-  if (dtype == 1 && pdtype == 0) P1T_TRAIN(__nv_bfloat16, float);
-  if (dtype == 1 && pdtype == 1) P1T_TRAIN(__nv_bfloat16, __nv_bfloat16);
-#undef P1T_TRAIN
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_dtype(dtype, [&](auto t) {
+    return with_dtype(pdtype, [&](auto p) {
+      using T = typename decltype(t)::type;
+      using P = typename decltype(p)::type;
+      return train_fwd<T, P>(x, g, b, res, y, m, v, a, q, rows, c, tx, chunks,
+                             rows_per_chunk, sub_rows, sub_chunks, resident,
+                             smem_bytes, eps, relu, s);
+    });
+  });
 }
 
 // CTAs of the training kernel with smem_bytes of dynamic shared memory
 // that one SM holds at once (see train_fwd_occupancy).
 int p1t_fused_bn_train_fwd_occupancy(int dtype, int pdtype, int smem_bytes,
                                      int* blocks) {
-  if (dtype == 0 && pdtype == 0)
-    return train_fwd_occupancy<float, float>(smem_bytes, blocks);
-  if (dtype == 0 && pdtype == 1)
-    return train_fwd_occupancy<float, __nv_bfloat16>(smem_bytes, blocks);
-  if (dtype == 1 && pdtype == 0)
-    return train_fwd_occupancy<__nv_bfloat16, float>(smem_bytes, blocks);
-  if (dtype == 1 && pdtype == 1)
-    return train_fwd_occupancy<__nv_bfloat16, __nv_bfloat16>(smem_bytes,
+  return with_dtype(dtype, [&](auto t) {
+    return with_dtype(pdtype, [&](auto p) {
+      return train_fwd_occupancy<typename decltype(t)::type,
+                                 typename decltype(p)::type>(smem_bytes,
                                                              blocks);
-  return static_cast<int>(cudaErrorInvalidValue);
+    });
+  });
 }
 
 // The current card's SM count, shared memory per SM, the opt-in maximum
@@ -599,14 +595,12 @@ int p1t_fused_bn_norm_fwd(const void* x, const void* mean, const void* var,
   auto s = static_cast<cudaStream_t>(stream);
   auto m = static_cast<const float*>(mean);
   auto v = static_cast<const float*>(var);
-#define P1T_NORM(T, P) \
-  return norm_fwd<T, P>(x, m, v, g, b, res, y, rows, c, tx, grid_y, eps, relu, s)
-  if (dtype == 0 && pdtype == 0) P1T_NORM(float, float);
-  if (dtype == 0 && pdtype == 1) P1T_NORM(float, __nv_bfloat16);
-  if (dtype == 1 && pdtype == 0) P1T_NORM(__nv_bfloat16, float);
-  if (dtype == 1 && pdtype == 1) P1T_NORM(__nv_bfloat16, __nv_bfloat16);
-#undef P1T_NORM
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_dtype(dtype, [&](auto t) {
+    return with_dtype(pdtype, [&](auto p) {
+      return norm_fwd<typename decltype(t)::type, typename decltype(p)::type>(
+          x, m, v, g, b, res, y, rows, c, tx, grid_y, eps, relu, s);
+    });
+  });
 }
 
 // Per-channel f32 sum and sum of squares of x [rows, C]: s/ss f32 [C]
@@ -623,27 +617,24 @@ int p1t_fused_bn_moments(const void* x, void* s, void* ss, void* ps,
   auto pa = static_cast<float*>(ps);
   auto pb = static_cast<float*>(pss);
   auto ct = static_cast<int*>(counters);
-  if (dtype == 0)
-    return moments<float>(x, a, b, pa, pb, ct, rows, c, tx, chunks,
-                          rows_per_chunk, st);
-  if (dtype == 1)
-    return moments<__nv_bfloat16>(x, a, b, pa, pb, ct, rows, c, tx, chunks,
-                                  rows_per_chunk, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_dtype(dtype, [&](auto t) {
+    return moments<typename decltype(t)::type>(x, a, b, pa, pb, ct, rows, c,
+                                               tx, chunks, rows_per_chunk, st);
+  });
 }
 
 // CTAs of the normalize kernel (256 threads) that one SM holds at once,
 // for the launch plan's one-wave grid. Returns a cudaError_t.
 int p1t_fused_bn_norm_occupancy(int dtype, int pdtype, int* blocks) {
-#define P1T_OCC(T, P)                                                  \
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor( \
-      blocks, normalize_kernel<T, P>, kThreads, 0))
-  if (dtype == 0 && pdtype == 0) P1T_OCC(float, float);
-  if (dtype == 0 && pdtype == 1) P1T_OCC(float, __nv_bfloat16);
-  if (dtype == 1 && pdtype == 0) P1T_OCC(__nv_bfloat16, float);
-  if (dtype == 1 && pdtype == 1) P1T_OCC(__nv_bfloat16, __nv_bfloat16);
-#undef P1T_OCC
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_dtype(dtype, [&](auto t) {
+    return with_dtype(pdtype, [&](auto p) {
+      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks,
+          normalize_kernel<typename decltype(t)::type,
+                           typename decltype(p)::type>,
+          kThreads, 0));
+    });
+  });
 }
 
 const char* p1t_fused_bn_error_string(int code) {

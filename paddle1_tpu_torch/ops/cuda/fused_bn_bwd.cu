@@ -444,7 +444,7 @@ int norm_bwd(const void* x, const void* g, const float* mean,
 extern "C" {
 
 // dtype (x, y, dy, dx, dres) and pdtype (gamma): 0 = float32,
-// 1 = bfloat16. mean/var: f32 [C]; dg/db: f32 [C] outputs; psg/psb: f32
+// 1 = bfloat16, 2 = float16 (with_dtype), in any pairing. mean/var: f32 [C]; dg/db: f32 [C] outputs; psg/psb: f32
 // [chunks, C] scratch. y may be null when relu == 0, dres when no
 // residual gradient is wanted. The training call is one cooperative
 // launch of tiles x chunks CTAs, each keeping its first `resident` rows
@@ -464,32 +464,26 @@ int p1t_fused_bn_bwd_train(const void* x, const void* g, const void* mean,
   auto b = static_cast<float*>(db);
   auto pa = static_cast<float*>(psg);
   auto pb = static_cast<float*>(psb);
-#define P1T_TRAIN(T, P)                                                     \
-  return train_bwd<T, P>(x, g, m, v, y, dy, dx, dres, a, b, pa, pb, rows, c, \
-                         tx, chunks, rows_per_chunk, resident, smem_bytes,   \
-                         eps, relu, s)
-  if (dtype == 0 && pdtype == 0) P1T_TRAIN(float, float);
-  if (dtype == 0 && pdtype == 1) P1T_TRAIN(float, __nv_bfloat16);
-  if (dtype == 1 && pdtype == 0) P1T_TRAIN(__nv_bfloat16, float);
-  if (dtype == 1 && pdtype == 1) P1T_TRAIN(__nv_bfloat16, __nv_bfloat16);
-#undef P1T_TRAIN
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_dtype(dtype, [&](auto t) {
+    return with_dtype(pdtype, [&](auto p) {
+      return train_bwd<typename decltype(t)::type, typename decltype(p)::type>(
+          x, g, m, v, y, dy, dx, dres, a, b, pa, pb, rows, c, tx, chunks,
+          rows_per_chunk, resident, smem_bytes, eps, relu, s);
+    });
+  });
 }
 
 // CTAs of the training kernel with smem_bytes of dynamic shared memory
 // that one SM holds at once (see train_bwd_occupancy).
 int p1t_fused_bn_bwd_train_occupancy(int dtype, int pdtype, int smem_bytes,
                                      int* blocks) {
-  if (dtype == 0 && pdtype == 0)
-    return train_bwd_occupancy<float, float>(smem_bytes, blocks);
-  if (dtype == 0 && pdtype == 1)
-    return train_bwd_occupancy<float, __nv_bfloat16>(smem_bytes, blocks);
-  if (dtype == 1 && pdtype == 0)
-    return train_bwd_occupancy<__nv_bfloat16, float>(smem_bytes, blocks);
-  if (dtype == 1 && pdtype == 1)
-    return train_bwd_occupancy<__nv_bfloat16, __nv_bfloat16>(smem_bytes,
+  return with_dtype(dtype, [&](auto t) {
+    return with_dtype(pdtype, [&](auto p) {
+      return train_bwd_occupancy<typename decltype(t)::type,
+                                 typename decltype(p)::type>(smem_bytes,
                                                              blocks);
-  return static_cast<int>(cudaErrorInvalidValue);
+    });
+  });
 }
 
 // Given statistics, one launch: as above, with counters: int32
@@ -509,29 +503,27 @@ int p1t_fused_bn_bwd_norm(const void* x, const void* g, const void* mean,
   auto pa = static_cast<float*>(psg);
   auto pb = static_cast<float*>(psb);
   auto ct = static_cast<int*>(counters);
-#define P1T_NORM(T, P)                                                    \
-  return norm_bwd<T, P>(x, g, m, v, y, dy, dx, dres, a, b, pa, pb, ct,    \
-                        rows, c, tx, chunks, rows_per_chunk, eps, relu, s)
-  if (dtype == 0 && pdtype == 0) P1T_NORM(float, float);
-  if (dtype == 0 && pdtype == 1) P1T_NORM(float, __nv_bfloat16);
-  if (dtype == 1 && pdtype == 0) P1T_NORM(__nv_bfloat16, float);
-  if (dtype == 1 && pdtype == 1) P1T_NORM(__nv_bfloat16, __nv_bfloat16);
-#undef P1T_NORM
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_dtype(dtype, [&](auto t) {
+    return with_dtype(pdtype, [&](auto p) {
+      return norm_bwd<typename decltype(t)::type, typename decltype(p)::type>(
+          x, g, m, v, y, dy, dx, dres, a, b, pa, pb, ct, rows, c, tx, chunks,
+          rows_per_chunk, eps, relu, s);
+    });
+  });
 }
 
 // CTAs of the given-statistics kernel (256 threads) that one SM holds at
 // once, for the launch plan's one-wave grid. Returns a cudaError_t.
 int p1t_fused_bn_bwd_norm_occupancy(int dtype, int pdtype, int* blocks) {
-#define P1T_OCC(T, P)                                                  \
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor( \
-      blocks, norm_bwd_kernel<T, P>, kThreads, 0))
-  if (dtype == 0 && pdtype == 0) P1T_OCC(float, float);
-  if (dtype == 0 && pdtype == 1) P1T_OCC(float, __nv_bfloat16);
-  if (dtype == 1 && pdtype == 0) P1T_OCC(__nv_bfloat16, float);
-  if (dtype == 1 && pdtype == 1) P1T_OCC(__nv_bfloat16, __nv_bfloat16);
-#undef P1T_OCC
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_dtype(dtype, [&](auto t) {
+    return with_dtype(pdtype, [&](auto p) {
+      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks,
+          norm_bwd_kernel<typename decltype(t)::type,
+                          typename decltype(p)::type>,
+          kThreads, 0));
+    });
+  });
 }
 
 const char* p1t_fused_bn_bwd_error_string(int code) {

@@ -3,7 +3,7 @@
 // and the deterministic two-stage reduction over rows.
 //
 // Layout: x is channels-last [rows, C], C % 8 == 0. A thread owns one
-// vector of 8 channels (16 B of bf16, 32 B of f32) and walks rows with a
+// vector of 8 channels (16 B of bf16 or f16, 32 B of f32) and walks rows with a
 // stride; a block is TX vectors wide (blockDim.x) and TY rows tall
 // (blockDim.y), TX * TY <= 256. A reduction over rows runs in two stages
 // with no float atomics, so repeats are bit-identical:
@@ -18,6 +18,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 namespace p1t_bn {
 
@@ -28,6 +29,23 @@ constexpr int kTileMax = 32 * kVec;  // channels of the widest tile (TX = 32)
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+// The storage types of the family's C interface, by dtype code: 0 =
+// float32, 1 = bfloat16, 2 = float16. with_dtype(code, f) calls f with a
+// Type<T> of the code's type, or returns cudaErrorInvalidValue.
+template <typename T>
+struct Type {
+  using type = T;
+};
+
+template <typename F>
+int with_dtype(int code, F&& f) {
+  if (code == 0) return f(Type<float>{});
+  if (code == 1) return f(Type<__nv_bfloat16>{});
+  if (code == 2) return f(Type<__half>{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 __device__ __forceinline__ void load8(const float* p, float (&v)[kVec]) {
@@ -49,6 +67,17 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p,
   }
 }
 
+__device__ __forceinline__ void load8(const __half* p, float (&v)[kVec]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
 __device__ __forceinline__ void store8(float* p, const float (&v)[kVec]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
@@ -63,7 +92,16 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p,
   *reinterpret_cast<uint4*>(p) = u;
 }
 
-// Eight channels as they lie in memory (16 B of bf16, 32 B of f32), for
+// f16 rounds once, here: every sum and product before it is f32
+__device__ __forceinline__ void store8(__half* p, const float (&v)[kVec]) {
+  uint4 u;
+  __half2* h = reinterpret_cast<__half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// Eight channels as they lie in memory (16 B of bf16 or f16, 32 B of f32), for
 // loads issued ahead of their use: a thread keeps several rows in flight
 // as raw vectors and widens each to f32 only when it computes it.
 template <typename T>
@@ -114,6 +152,17 @@ __device__ __forceinline__ void widen(const Raw8<__nv_bfloat16>& r,
   }
 }
 
+__device__ __forceinline__ void widen(const Raw8<__half>& r,
+                                      float (&v)[kVec]) {
+  const __half2* h = reinterpret_cast<const __half2*>(r.w);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
 // Stage 1 tail: every thread holds its own sums a[8] for channels
 // [v * 8, v * 8 + 8); the block writes their column sums over threadIdx.y
 // (in order 0..TY-1) to partial row `row` (default: blockIdx.y),
@@ -141,7 +190,7 @@ __device__ __forceinline__ void column_sums(float* buf,
 }
 
 // Rows a thread keeps in flight where it streams from global memory: 64
-// bytes of each tensor (four bf16 or two f32 vectors), loaded before any
+// bytes of each tensor (four bf16 or f16 vectors, or two f32 vectors), loaded before any
 // is used.
 template <typename T>
 struct RowsInFlight {

@@ -24,7 +24,10 @@ kernel or raises (no fallback); a CPU tensor runs the plain version
 (:func:`fused_bn_train_ref`, :func:`fused_bn_norm_ref`), which computes
 what the kernel computes: f32 sums, ``var = max(E[x^2] - mean^2, 0)``
 with the exact count as a host constant, f32 statistics, the cast at the
-edge.
+edge. Row tensors are f32, bf16 or f16, the affine parameters any of the
+three (the Pallas kernels take any 16-bit storage type); every sum,
+product and the normalization stay f32 up to the one cast at the store,
+so f16's 65504 range bounds only what is stored.
 
 The training forward is one cooperative launch of a persistent grid
 (:func:`train_fwd_plan`): every CTA holds its chunk of rows of x in
@@ -62,7 +65,7 @@ __all__ = ["ACTS", "supported", "fused_bn_train", "fused_bn_norm",
            "tile_finalize_emulation"]
 
 ACTS = ("identity", "relu")
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _THREADS = 256          # fused_bn_common.cuh kThreads
 _VEC = 8                # channels per thread
 _ALIGN = 16             # bytes: one vector load
@@ -81,7 +84,7 @@ def _check_act(act: str) -> None:
 def supported(shape, dtype=None) -> bool:
     """Channels-last ``[..., C]`` with at least 2 dims, at least one row,
     ``C % 8 == 0`` (one 8-channel vector per thread) and, when given, a
-    dtype the kernels store (f32, bf16). The TPU's row-block gate
+    dtype the kernels store (f32, bf16 or f16). The TPU's row-block gate
     (``_common.block_rows``, its VMEM ladder) does not apply: rows are a
     strided loop on the GPU."""
     if len(shape) < 2:
@@ -377,7 +380,7 @@ def train_fwd_launch_plan(x2, pdtype: int) -> TrainPlan:
 
 def check_rows(name, x2, *others):
     """The kernels' contract on the row tensors: ``x2`` a 2-D ``[rows, C]``
-    CUDA tensor in f32/bf16 with ``C % 8 == 0``, contiguous and 16-byte
+    CUDA tensor in f32, bf16 or f16 with ``C % 8 == 0``, contiguous and 16-byte
     aligned; each of ``others`` (None skipped) the same shape, dtype and
     device, contiguous and aligned. Never copies: an input outside the
     contract raises."""
@@ -385,7 +388,7 @@ def check_rows(name, x2, *others):
         raise InvalidArgumentError(
             f"{name}: x {tuple(x2.shape)} {x2.dtype} is outside the "
             "kernel's contract (see supported(): [rows, C], C % 8 == 0, "
-            "f32 or bf16)")
+            "f32, bf16 or f16)")
     for t in (x2,) + others:
         if t is None:
             continue
@@ -406,14 +409,14 @@ def check_rows(name, x2, *others):
 
 def check_channels(name, c, device, *vs):
     """``gamma``/``beta``: ``[C]`` contiguous vectors of ONE dtype in
-    f32/bf16 on ``device``; returns that dtype's code."""
+    f32, bf16 or f16 on ``device``; returns that dtype's code."""
     dt = vs[0].dtype
     for v in vs:
         if tuple(v.shape) != (c,) or v.dtype != dt or dt not in _DTYPES \
                 or v.device != device or not v.is_contiguous():
             raise InvalidArgumentError(
                 f"{name}: gamma/beta must be contiguous [{c}] vectors of "
-                f"one dtype (f32 or bf16) on {device}, got "
+                f"one dtype (f32, bf16 or f16) on {device}, got "
                 f"{tuple(v.shape)} {v.dtype} on {v.device} (outside the "
                 "kernel's contract)")
     return _DTYPES[dt]

@@ -18,14 +18,19 @@ reference (the kernel's activation is identity or relu).
 
 :meth:`YOLOv3.postprocess` decodes the heads with ``vision.ops.yolo_box``
 where they lie, copies the decoded boxes and scores to the host once, and
-runs ``multiclass_nms`` there in numpy, image by image. ``yolov3_loss``
-(training) is not ported yet.
+runs ``multiclass_nms`` there in numpy, image by image.
+
+:func:`yolov3_loss` is the training loss, the JAX package's vectorized
+form of the reference's ``yolov3_loss_op`` in torch ops with autograd:
+the targets are built for every ground-truth box at once by scatters (no
+host loop over boxes), and the gradient reaches the head outputs only.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ...core.errors import UnimplementedError
@@ -38,7 +43,7 @@ from ...ops import manip_ops
 from .. import ops as V
 
 __all__ = ["ConvBNLeaky", "DarkBlock", "DarkNet53", "YoloDetBlock",
-           "YOLOv3", "yolov3"]
+           "YOLOv3", "yolov3", "yolov3_loss"]
 
 _ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
             156, 198, 373, 326]
@@ -199,3 +204,164 @@ def yolov3(pretrained: bool = False, num_classes: int = 80, **kwargs):
             "load_state_dict (convert.state_from_jax for the JAX "
             "package's)")
     return YOLOv3(num_classes=num_classes, **kwargs)
+
+
+def _bce(logit, target, weight):
+    """Weighted binary cross-entropy with logits, summed, in the JAX
+    package's form ``max(z, 0) - z t + log1p(exp(-|z|))``."""
+    return torch.sum(weight * (torch.clamp(logit, min=0) - logit * target +
+                               torch.log1p(torch.exp(-logit.abs()))))
+
+
+def _as_f32(v, device):
+    if isinstance(v, torch.Tensor):
+        return v.detach().to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(v, np.float32), device=device)
+
+
+def _level_loss(pred, gtb, gtl, gts, valid, mask, ds, anchors, num_classes,
+                ignore_thresh, label_pos, label_neg, sxy):
+    """One head's loss (``yolo.py:200-324`` of the JAX package)."""
+    dev = pred.device
+    na = len(mask)
+    b, _, h, w = pred.shape
+    pred = pred.float().reshape(b, na, 5 + num_classes, h, w)
+    tx, ty, tw, th = pred[:, :, 0], pred[:, :, 1], pred[:, :, 2], \
+        pred[:, :, 3]
+    tobj, tcls = pred[:, :, 4], pred[:, :, 5:]
+    sub = anchors[mask]                                   # [na, 2]
+    with torch.no_grad():
+        gx, gy = gtb[:, :, 0] * w, gtb[:, :, 1] * h      # [B, G]
+        gw, gh = gtb[:, :, 2], gtb[:, :, 3]
+        ci = gx.to(torch.int64).clamp(0, w - 1)
+        cj = gy.to(torch.int64).clamp(0, h - 1)
+        # best anchor per box by wh-IoU against ALL anchors; the boxes
+        # whose best is one of this level's
+        gwh = torch.stack([gw * (w * ds), gh * (h * ds)], -1)[..., None, :]
+        inter = torch.minimum(gwh, anchors[None, None]).prod(-1)
+        union = gwh.prod(-1) + anchors.prod(-1)[None, None] - inter
+        best = torch.argmax(inter / union.clamp(min=1e-10), dim=-1)
+        mask_t = torch.as_tensor(mask, device=dev)
+        sel = valid[..., None] & (best[..., None] == mask_t)  # [B, G, na]
+        # ignore_thresh: the best IoU of each decoded box against any box
+        gxn = torch.arange(w, dtype=torch.float32, device=dev)
+        gyn = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+        sx = sxy * torch.sigmoid(tx) - 0.5 * (sxy - 1.0)
+        sy = sxy * torch.sigmoid(ty) - 0.5 * (sxy - 1.0)
+        pcx, pcy = (sx + gxn) / w, (sy + gyn) / h
+        pw_ = torch.exp(tw.clamp(-10, 10)) * sub[:, 0, None, None] / (w * ds)
+        ph_ = torch.exp(th.clamp(-10, 10)) * sub[:, 1, None, None] / (h * ds)
+        pb = torch.stack([pcx - pw_ / 2, pcy - ph_ / 2, pcx + pw_ / 2,
+                          pcy + ph_ / 2], -1).reshape(b, -1, 4)
+        gt_xyxy = torch.stack([gtb[:, :, 0] - gw / 2, gtb[:, :, 1] - gh / 2,
+                               gtb[:, :, 0] + gw / 2, gtb[:, :, 1] + gh / 2],
+                              -1)
+        lt = torch.maximum(pb[:, :, None, :2], gt_xyxy[:, None, :, :2])
+        rb = torch.minimum(pb[:, :, None, 2:], gt_xyxy[:, None, :, 2:])
+        whi = (rb - lt).clamp(min=0)
+        inter_p = whi[..., 0] * whi[..., 1]
+        area_p = ((pb[:, :, 2] - pb[:, :, 0]) *
+                  (pb[:, :, 3] - pb[:, :, 1]))[:, :, None]
+        iou = inter_p / (area_p + (gw * gh)[:, None, :] -
+                         inter_p).clamp(min=1e-10)
+        iou = torch.where(valid[:, None, :], iou, torch.zeros_like(iou))
+        best_iou = iou.amax(dim=2).reshape(b, na, h, w) if iou.shape[2] \
+            else torch.zeros(b, na, h, w, device=dev)
+
+        # dense targets: every (image, box, anchor) writes its cell, the
+        # unselected ones with weight 0 (.max of 0 and .add of 0 change
+        # nothing, as in the JAX package's scatters)
+        cells = b * na * h * w
+        cell = ((torch.arange(b, device=dev)[:, None, None] * na +
+                 torch.arange(na, device=dev)[None, None, :]) * h +
+                cj[..., None]) * w + ci[..., None]         # [B, G, na]
+        cell = cell.reshape(-1)
+        selw = sel.float()
+        selws = selw * gts[..., None]
+        zeros = torch.zeros(cells, device=dev)
+
+        def put_max(v):
+            return zeros.scatter_reduce(0, cell, v.reshape(-1), "amax")
+
+        def put_add(v):
+            return zeros.index_add(0, cell, v.reshape(-1))
+        obj_t = put_max(selw)
+        fx = ((gx - torch.floor(gx) + 0.5 * (sxy - 1.0)) / sxy).clamp(0, 1)
+        fy = ((gy - torch.floor(gy) + 0.5 * (sxy - 1.0)) / sxy).clamp(0, 1)
+        txt = put_add(selw * fx[..., None])
+        tyt = put_add(selw * fy[..., None])
+        twt = put_add(selw * torch.log(
+            (gw[..., None] * w * ds / sub[:, 0]).clamp(min=1e-9)))
+        tht = put_add(selw * torch.log(
+            (gh[..., None] * h * ds / sub[:, 1]).clamp(min=1e-9)))
+        box_w = put_max(selws)
+        onehot = torch.nn.functional.one_hot(gtl.clamp(min=0),
+                                             num_classes).float()
+        smooth = onehot * label_pos + (1.0 - onehot) * label_neg
+        # cls target [B, na, C, H, W]: cell (b, a, j, i) -> b, a, c, j, i
+        hw = h * w
+        ccell = ((cell // hw)[:, None] * num_classes +
+                 torch.arange(num_classes, device=dev)) * hw + \
+            (cell % hw)[:, None]
+        cls_v = selw[..., None] * smooth[:, :, None, :]   # [B, G, na, C]
+        cls_t = torch.zeros(cells * num_classes, device=dev).scatter_reduce(
+            0, ccell.reshape(-1), cls_v.reshape(-1), "amax")
+        shape = (b, na, h, w)
+        obj_t, txt, tyt, twt, tht, box_w = (
+            t.reshape(shape) for t in (obj_t, txt, tyt, twt, tht, box_w))
+        cls_t = cls_t.reshape(b, na, num_classes, h, w)
+        obj_w = torch.where(obj_t > 0, box_w.clamp(min=1e-8),
+                            (best_iou < ignore_thresh).float())
+    loss_xy = _bce(tx, txt, box_w) + _bce(ty, tyt, box_w)
+    loss_wh = torch.sum(box_w * ((tw - twt) ** 2 + (th - tht) ** 2)) * 0.5
+    loss_obj = _bce(tobj, obj_t, obj_w)
+    loss_cls = _bce(tcls, cls_t, box_w[:, :, None].expand_as(cls_t))
+    return loss_xy + loss_wh + loss_obj + loss_cls
+
+
+def yolov3_loss(outputs, gt_boxes, gt_labels, anchors=None,
+                anchor_masks=None, num_classes=80, ignore_thresh=0.7,
+                downsample_ratios=(32, 16, 8), gt_scores=None,
+                use_label_smooth=False, scale_x_y=1.0):
+    """YOLOv3 training loss (the reference's ``yolov3_loss_op``, as the
+    JAX package vectorizes it, ``yolo.py:181``).
+
+    ``outputs``: the heads ``[B, na * (5 + C), H, W]`` in the order of
+    ``anchor_masks`` and ``downsample_ratios``; ``gt_boxes``: ``[B, G,
+    4]`` centre-size boxes normalized to [0, 1]; ``gt_labels``: ``[B,
+    G]`` ints, -1 (or a zero width) for padding; ``gt_scores``: ``[B,
+    G]`` weights of each box's terms (mixup), default ones;
+    ``use_label_smooth``: class targets ``1 - s`` and ``s`` with ``s =
+    min(1 / C, 1 / 40)``; ``scale_x_y``: centres decoded as ``s *
+    sigmoid(t) - (s - 1) / 2``. Each box goes to the cell holding its
+    centre and its best anchor by wh-IoU over all anchors, on the level
+    whose mask holds that anchor; a cell that is not positive is a
+    negative only where no decoded box of it overlaps a box by
+    ``ignore_thresh`` or more. Returns the sum of the xy, wh, objectness
+    and class terms over the levels, over the batch size (a 0-d f32
+    tensor). The heads are read in f32 whatever their dtype; the targets
+    are built without gradient."""
+    dev = outputs[0].device
+    anchors = torch.as_tensor(np.asarray(anchors or _ANCHORS, np.float32)
+                              .reshape(-1, 2), device=dev)
+    anchor_masks = anchor_masks or _MASKS
+    if use_label_smooth:
+        sw = min(1.0 / num_classes, 1.0 / 40)
+        label_pos, label_neg = 1.0 - sw, sw
+    else:
+        label_pos, label_neg = 1.0, 0.0
+    gtb = _as_f32(gt_boxes, dev)
+    if isinstance(gt_labels, torch.Tensor):
+        gtl = gt_labels.detach().to(device=dev, dtype=torch.int64)
+    else:
+        gtl = torch.as_tensor(np.asarray(gt_labels, np.int64), device=dev)
+    gts = torch.ones(gtl.shape, device=dev) if gt_scores is None else \
+        _as_f32(gt_scores, dev)
+    valid = (gtl >= 0) & (gtb[:, :, 2] > 0)
+    total = 0.0
+    for pred, mask, ds in zip(outputs, anchor_masks, downsample_ratios):
+        total = total + _level_loss(
+            pred, gtb, gtl, gts, valid, list(mask), ds, anchors,
+            num_classes, ignore_thresh, label_pos, label_neg,
+            float(scale_x_y))
+    return total / outputs[0].shape[0]

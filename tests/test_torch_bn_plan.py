@@ -279,3 +279,57 @@ def test_norm_bwd_plan_at_resnet50s_stem_on_an_h100():
     1521, layer 4's 66 of 24 rows 33 of 48."""
     assert fbb.norm_bwd_plan(401408, 64, 132, 2) == (8, 264, 1521)
     assert fbb.norm_bwd_plan(1568, 2048, 132, 2) == (32, 33, 48)
+
+
+# YOLOv3's 72 training batch norms at 8 x 608² (its 13 distinct shapes:
+# C = 32-1024, 2,957,312 rows at the stem down to 2,888 at stride 32)
+YOLO_TRAIN_BN = [(2957312, 32), (739328, 32), (739328, 64), (184832, 64),
+                 (184832, 128), (46208, 128), (46208, 256), (11552, 128),
+                 (11552, 256), (11552, 512), (2888, 256), (2888, 512),
+                 (2888, 1024)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("rows,c", YOLO_TRAIN_BN)
+def test_every_plan_takes_yolov3_training_shapes_on_an_h100(rows, c,
+                                                            itemsize):
+    """The cooperative training plans, forward and backward, the
+    given-statistics plan and the reduction passes' plans at each shape:
+    every row in one chunk, the grid co-resident, the resident rows in the
+    budget, and every count the kernels keep in 32-bit ints (rows of a
+    chunk, of a sub-chunk, resident rows, chunks, grid rows) inside
+    int32; element offsets are 64-bit in the kernels."""
+    sms, blocks, budget = CARDS[0]
+    int32 = 2 ** 31
+    for p in (fbn.train_fwd_plan(rows, c, itemsize, sms, blocks, budget),
+              fbb.train_bwd_plan(rows, c, itemsize, sms, blocks, budget)):
+        assert p.chunks * p.rows_per_chunk >= rows > \
+            (p.chunks - 1) * p.rows_per_chunk
+        assert p.tiles * p.chunks <= sms * blocks and p.chunks <= 65535
+        assert 0 <= p.resident <= p.rows_per_chunk
+        assert p.smem_bytes <= budget
+        assert max(p.rows_per_chunk, p.sub_rows, p.sub_chunks,
+                   p.resident * p.tx * 8) < int32
+    fwd = fbn.train_fwd_plan(rows, c, itemsize, sms, blocks, budget)
+    assert fwd.rows_per_chunk % fwd.sub_rows == 0
+    subs = fwd.rows_per_chunk // fwd.sub_rows
+    assert (fwd.chunks - 1) * subs < fwd.sub_chunks <= fwd.chunks * subs
+    tx, grid_y = fbn.norm_plan(rows, c, sms, blocks)
+    _, ty, tiles = fbn.block_width(c)
+    assert tiles * grid_y <= max(tiles, sms * blocks) and grid_y <= 65535
+    for tx_, chunks, rpc in (fbn.stats_plan(rows, c, sms),
+                             fbb.norm_bwd_plan(rows, c, sms, blocks)):
+        assert 1 <= chunks <= 65535 and (chunks - 1) * rpc < rows <= \
+            chunks * rpc
+
+
+def test_yolov3_stem_is_partly_resident_and_stride_32_whole_on_an_h100():
+    """In bf16 the stem's chunks (2.96 M rows, 7.4x ResNet-50's stem) are
+    only partly held in shared memory; the stride-32 shapes whole."""
+    h100 = CARDS[0]
+    for plan in (fbn.train_fwd_plan, fbb.train_bwd_plan):
+        stem = plan(2957312, 32, 2, *h100)
+        assert 0 < stem.resident < stem.rows_per_chunk, stem
+        for c in (256, 512, 1024):
+            p = plan(2888, c, 2, *h100)
+            assert p.resident == p.rows_per_chunk, (c, p)

@@ -145,7 +145,7 @@ def test_supported_and_act_contract():
     assert tbn.supported((4, 16)) and tbn.supported((2, 3, 5, 8),
                                                     torch.bfloat16)
     assert not tbn.supported((16,)) and not tbn.supported((4, 12))
-    assert not tbn.supported((4, 16), torch.float16)
+    assert not tbn.supported((4, 16), torch.float64)
     assert not tbn.supported((0, 16))
     from paddle1_tpu_torch.core.errors import InvalidArgumentError
     with pytest.raises(InvalidArgumentError, match="activation"):

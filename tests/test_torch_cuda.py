@@ -24,7 +24,9 @@ generation engine's per-(seed, token) generators on the card
 (speculative == plain == ``eager_generate``). For the
 fused batch-norm family (training and given-statistics forward, their
 backward passes) they hold each kernel to its plain version across the
-activation x residual matrix in f32 and bf16, that inputs outside the
+activation x residual matrix in f32 and bf16 (and, since F24, in f16
+over f16 or f32 parameters, at fresh and 16-byte-offset views, with an
+f16 ResNet-18 engine step on the kernels), that inputs outside the
 contract raise, and that tiny ResNet-18 train, eval and frozen-statistics
 steps launch the kernels once per batch norm; and that the training
 backward (one cooperative launch holding its rows in shared memory) and
@@ -869,7 +871,7 @@ def test_fused_bn_outside_the_contract_raises_on_the_card(dev, case):
     if case == "channels":
         x, g, b = x[:, :12].contiguous(), g[:12], b[:12]
     elif case == "dtype":
-        x = x.half()
+        x = x.double()       # f16 is inside the contract since F24
     elif case == "strided":
         x = torch.randn(16, 64, device=dev).t()      # [64, 16], not packed
     else:
@@ -879,15 +881,16 @@ def test_fused_bn_outside_the_contract_raises_on_the_card(dev, case):
 
 
 # an affine-less batch norm takes the kernels since F18 (ones and zeros for
-# gamma and beta); outside the contract it still raises
-@pytest.mark.parametrize("case", ["f16", "channels", "affine_less_channels",
+# gamma and beta); outside the contract it still raises (f16 is inside it
+# since F24, float64 is not)
+@pytest.mark.parametrize("case", ["f64", "channels", "affine_less_channels",
                                   "channels_first"])
 def test_batch_norm_outside_the_kernel_contract_raises_on_the_card(dev,
                                                                    case):
     from paddle1_tpu_torch.core.flags import flags_guard
     c = 12 if case in ("channels", "affine_less_channels") else 16
     x = torch.randn(4, c, 5, 5, device=dev,
-                    dtype=torch.float16 if case == "f16" else torch.float32)
+                    dtype=torch.float64 if case == "f64" else torch.float32)
     w = None if case == "affine_less_channels" else \
         torch.ones(c, device=dev)
     b = None if case == "affine_less_channels" else \
@@ -904,6 +907,113 @@ def test_batch_norm_outside_the_kernel_contract_raises_on_the_card(dev,
     assert y.shape == x.shape
     assert (fbn.fused_bn_train.launches, fbn.fused_bn_norm.launches) == \
         before
+
+
+# float16 rows 8-12 (F24) against their plain versions: one f16 rounding
+# step of the value (F16_REL) plus the f32 tolerance on rows; the
+# statistics, the gamma/beta sums and the moments in f32 as for f32 data.
+# ResNet-50's layer 2 and layer 4 shapes (whole chunks resident), YOLOv3's
+# stride-8 shape, and the stem's width at a row count only partly resident
+BN_F16_SHAPES = [(25088, 512), (1568, 2048), (46208, 256), (200000, 64)]
+
+
+def _f16_rows_close(got, want):
+    assert _bf16_excess(got, want, F16_REL + BN_F32["rtol"]) <= \
+        BN_F32["atol"]
+
+
+def _at_offset(t, elems):
+    """``t`` copied into a view that starts ``elems`` elements into a
+    larger buffer (16-byte aligned for 8 f16 elements, not 256-byte)."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    v = buf[elems:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.parametrize("pdtype", [torch.float16, torch.float32],
+                         ids=["f16-params", "f32-params"])
+@pytest.mark.parametrize("act,use_res", [("identity", False),
+                                         ("relu", True)])
+@pytest.mark.parametrize("rows,c", BN_F16_SHAPES)
+@pytest.mark.parametrize("view", ["fresh", "offset"])
+def test_f16_bn_kernels_match_their_plain_versions(dev, pdtype, act,
+                                                   use_res, rows, c, view):
+    x, g, b, res, m, v, dy = _bn(dev, rows, c, torch.float16)
+    g, b = g.to(pdtype), b.to(pdtype)
+    if view == "offset":
+        x, res, dy = (_at_offset(t, 8) for t in (x, res, dy))
+        assert x.data_ptr() % 256 and x.data_ptr() % 16 == 0
+    r = res if use_res else None
+    stat_tol = dict(atol=1e-5 * rows ** 0.5, rtol=1e-4)
+    before = (fbn.fused_bn_train.launches, fbn.fused_bn_norm.launches,
+              fbn.local_moments.launches, fbb.train_bwd.launches,
+              fbb.norm_bwd.launches)
+    y, mean, var = fbn._train_fwd(x, g, b, r, 1e-5, act)
+    ry, rmean, rvar = fbn.fused_bn_train_ref(x, g, b, 1e-5, act, r)
+    assert y.dtype == torch.float16
+    _f16_rows_close(y, ry)
+    torch.testing.assert_close(mean, rmean, **stat_tol)
+    torch.testing.assert_close(var, rvar, **stat_tol)
+    got = fbb.train_bwd(x, g, mean, var, y, dy, 1e-5, act, use_res)
+    want = fbb.train_bwd_ref(x, g, mean, var, y, dy, 1e-5, act, use_res)
+    _f16_rows_close(got[0], want[0])
+    for a, w in zip(got[1:3], want[1:3]):
+        torch.testing.assert_close(a, w, **_sum_tol(rows))
+    if use_res:
+        assert torch.equal(got[3], want[3])       # the masked dy
+    yn = fbn._norm_fwd(x, m, v, g, b, r, 1e-5, act)
+    _f16_rows_close(yn, fbn.fused_bn_norm_ref(x, m, v, g, b, 1e-5, act, r))
+    got = fbb.norm_bwd(x, g, m, v, yn, dy, 1e-5, act, use_res)
+    want = fbb.norm_bwd_ref(x, g, m, v, yn, dy, 1e-5, act, use_res)
+    _f16_rows_close(got[0], want[0])
+    for a, w in zip(got[1:3], want[1:3]):
+        torch.testing.assert_close(a, w, **_sum_tol(rows))
+    s, ss = fbn._moments_fwd(x)
+    rs, rss = fbn.local_moments_ref(x)
+    torch.testing.assert_close(s, rs, **_sum_tol(rows))
+    torch.testing.assert_close(ss, rss, **_sum_tol(rows))
+    assert (fbn.fused_bn_train.launches, fbn.fused_bn_norm.launches,
+            fbn.local_moments.launches, fbb.train_bwd.launches,
+            fbb.norm_bwd.launches) == tuple(n + 1 for n in before)
+    # the reductions are deterministic: repeats are bit-identical
+    again = fbn._train_fwd(x, g, b, r, 1e-5, act)
+    assert all(torch.equal(a, w) for a, w in zip(again, (y, mean, var)))
+    assert torch.equal(fbn._moments_fwd(x)[0], s)
+
+
+def test_f16_bn_kernels_at_a_misaligned_view_raise(dev):
+    x, g, b, _, _, _, _ = _bn(dev, 64, 16, torch.float16)
+    x = _at_offset(x, 1)          # 2 bytes off a 16-byte boundary
+    for call in (lambda: fbn.fused_bn_train(x, g, b, 1e-5),
+                 lambda: fbn.local_moments(x)):
+        with pytest.raises(InvalidArgumentError, match="contract"):
+            call()
+
+
+def test_f16_engine_resnet_step_launches_the_bn_kernels(dev):
+    """F24 on the card: a tiny ResNet-18 under ``ParallelEngine(
+    amp_dtype="float16")`` runs every batch norm on rows 8 and 11 in f16
+    (20 batch norms a step), losses finite."""
+    from paddle1_tpu_torch.distributed import ParallelEngine
+    from paddle1_tpu_torch.optimizer import Momentum
+    from paddle1_tpu_torch.vision.models import resnet18
+    torch.manual_seed(0)
+    m = resnet18(num_classes=10, device=dev)
+    eng = ParallelEngine(m, Momentum(learning_rate=1e-3, momentum=0.9,
+                                     parameters=m.parameters()),
+                         lambda mm, bb: F.cross_entropy(mm(bb["x"]),
+                                                        bb["y"]),
+                         amp_dtype="float16")
+    rng = np.random.default_rng(0)
+    batch = {"x": rng.standard_normal((4, 3, 32, 32)).astype(np.float32),
+             "y": rng.integers(0, 10, (4,)).astype(np.int64)}
+    before = (fbn.fused_bn_train.launches, fbb.train_bwd.launches)
+    losses = [float(eng.step(batch)) for _ in range(2)]
+    assert (fbn.fused_bn_train.launches - before[0],
+            fbb.train_bwd.launches - before[1]) == (40, 40)
+    assert all(np.isfinite(losses))
+    assert {p.dtype for p in m.parameters()} == {torch.float32}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1216,7 +1326,7 @@ def test_local_moments_outside_the_contract_raises_on_the_card(dev, case):
     if case == "channels":
         x = x[:, :12].contiguous()
     elif case == "dtype":
-        x = x.half()
+        x = x.double()       # f16 is inside the contract since F24
     else:
         x = torch.randn(16, 64, device=dev).t()
     with pytest.raises(InvalidArgumentError, match="contract"):

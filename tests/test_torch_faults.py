@@ -26,6 +26,8 @@ bias alone raises (the card's half of F18 is in
 F19: ``F.leaky_relu``'s gradient at 0 is 1, as ``jax.nn.leaky_relu``'s.
 F23: ``GenerationEngine``'s ``cache_dtype`` (and ``CausalLM``'s cache
 cache constructors) take the JAX package's dtype strings, ``"float16"`` included.
+F24: ``ParallelEngine(amp_dtype="float16")`` is the JAX engine's pure-f16
+mode, and the batch norms under it take the kernels' route in f16.
 
 Inputs and weights come from numpy with a seed; weights cross through
 ``paddle1_tpu_torch.convert.state_from_jax``. Random masks differ by
@@ -1539,3 +1541,127 @@ def test_f23_other_cache_dtypes_raise_typed(f23_lm_pair):
     for bad in ("int8", "float64", "floaty"):
         with pytest.raises(InvalidArgumentError):
             GenerationEngine(tl, slots=2, max_seq=16, cache_dtype=bad)
+
+
+# ---------------------------------------------------------------------------
+# F24: the engine's pure-float16 mode
+
+
+def _f24_pair():
+    """Conv2D(3, 8, 3) + BatchNorm2D(8) + a Linear head, both packages,
+    one state."""
+    from paddle1_tpu.nn import Linear as JLin
+    from paddle1_tpu.nn.layer_conv_pool import Conv2D as JConv
+    from paddle1_tpu.nn.layer_norm_act import BatchNorm2D as JBN
+    from paddle1_tpu.nn.layer_norm_act import Sequential as JSeq
+
+    class JNet(JSeq):
+        def forward(self, x):
+            return self[2](self[1](self[0](x)).mean(axis=[2, 3]))
+
+    class TNet(tp.nn.Sequential):
+        def forward(self, x):
+            return self[2](self[1](self[0](x)).mean(dim=(2, 3)))
+    jp.seed(24)
+    jn = JNet(JConv(3, 8, 3), JBN(8), JLin(8, 4))
+    with tp.utils.unique_name.guard():
+        tn = TNet(tp.nn.Conv2D(3, 8, 3, device="cpu"),
+                  tp.nn.BatchNorm2D(8, device="cpu"),
+                  tp.nn.Linear(8, 4, device="cpu"))
+    _carried(jn, tn)
+    return jn, tn
+
+
+def _f24_batch(seed):
+    rng = np.random.default_rng(seed)
+    return {"x": rng.standard_normal((4, 3, 10, 10)).astype(np.float32),
+            "y": rng.integers(0, 4, (4,)).astype(np.int64)}
+
+
+F24_STEPS = 3
+F24_KERNELS = dict(conv_nhwc="always", fused_bn="always",
+                   fused_bn_bwd="always")
+F24_PLAIN = dict(conv_nhwc="never", fused_bn="never", fused_bn_bwd="never")
+
+
+@pytest.fixture(scope="module")
+def f24_jax_run():
+    from paddle1_tpu.core.tensor import Tensor as JTensor
+    from paddle1_tpu.distributed import ParallelEngine as JEngine
+    from paddle1_tpu.distributed import build_mesh
+    import jax
+    jn, tn = _f24_pair()
+    jn.train()
+    jeng = JEngine(jn, jp.optimizer.Momentum(
+        learning_rate=0.1, momentum=0.9, parameters=jn.parameters()),
+        lambda m, b: jF.cross_entropy(m(JTensor(b["x"])), JTensor(b["y"])),
+        mesh=build_mesh(dp=1, devices=[jax.devices()[0]]),
+        amp_dtype="float16")
+    losses = [float(jeng.step(_f24_batch(s))) for s in range(F24_STEPS)]
+    return tn.state_dict(), losses, {k: np.asarray(v)
+                                     for k, v in jeng.params.items()}
+
+
+@pytest.mark.parametrize("flags", [F24_PLAIN, F24_KERNELS],
+                         ids=["plain", "kernel"])
+def test_f24_float16_engine_trains_like_the_reference(f24_jax_run, flags):
+    """Three Momentum steps under ``amp_dtype="float16"`` in both engines
+    (no loss scaler in either). Losses and every parameter and running
+    statistic within one f16 step (2^-10, relative, or absolute near 0):
+    each package rounds its f16 forward and backward at other places
+    (the JAX package's f16 conv sums in another order), and the f32
+    masters take those f16 gradients times lr = 0.1."""
+    state0, jlosses, jparams = f24_jax_run
+    _, tn = _f24_pair()
+    tn.load_state_dict(state0)
+    tn.train()
+    eng = tp.distributed.ParallelEngine(
+        tn, tp.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                  parameters=tn.parameters()),
+        lambda m, b: tF.cross_entropy(m(b["x"]), b["y"]),
+        amp_dtype="float16")
+    assert eng.amp_dtype == torch.float16
+    with tflags.flags_guard(**flags):
+        losses = [float(eng.step(_f24_batch(s))) for s in range(F24_STEPS)]
+    assert all(np.isfinite(losses))
+    step = 2.0 ** -10
+    np.testing.assert_allclose(losses, jlosses, atol=step, rtol=step)
+    state = tn.state_dict()
+    assert set(state) == set(jparams)
+    for name, t in state.items():
+        assert t.dtype == torch.float32, name      # masters stay f32
+        np.testing.assert_allclose(t.numpy(), jparams[name], err_msg=name,
+                                   atol=step, rtol=step)
+
+
+def test_f24_float16_batch_norm_takes_the_kernels_route(monkeypatch):
+    """Under the f16 engine a training batch norm hands the kernels'
+    wrapper f16 rows and f16 gamma/beta: f16 is inside the kernels'
+    contract, as the Pallas kernels' 16-bit gate has it."""
+    from paddle1_tpu_torch.ops import fused_bn as tbn
+    _, tn = _f24_pair()
+    tn.train()
+    seen = []
+    orig = tbn.fused_bn_train
+    monkeypatch.setattr(tbn, "fused_bn_train", lambda x2, g, b, *a, **k: (
+        seen.append((x2.dtype, g.dtype)), orig(x2, g, b, *a, **k))[1])
+    eng = tp.distributed.ParallelEngine(
+        tn, tp.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                  parameters=tn.parameters()),
+        lambda m, b: tF.cross_entropy(m(b["x"]), b["y"]),
+        amp_dtype="float16")
+    with tflags.flags_guard(**F24_KERNELS):
+        assert np.isfinite(float(eng.step(_f24_batch(0))))
+    assert seen == [(torch.float16, torch.float16)]
+    assert tbn.supported((4, 8), torch.float16)
+    assert not tbn.supported((4, 8), torch.float64)
+
+
+def test_f24_other_amp_dtypes_raise_typed():
+    _, tn = _f24_pair()
+    for bad in ("float64", "int8", "half"):
+        with pytest.raises(InvalidArgumentError):
+            tp.distributed.ParallelEngine(
+                tn, tp.optimizer.Momentum(learning_rate=0.1,
+                                          parameters=tn.parameters()),
+                lambda m, b: m(b["x"]).sum(), amp_dtype=bad)

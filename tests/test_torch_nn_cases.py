@@ -541,6 +541,34 @@ def common_cases():
              id="interpolate-linear-corners"),
         Case("interpolate", [X4], {"scale_factor": 2}, grad=[0],
              id="interpolate-nearest"),
+        # the antialiased jax.image.resize modes, up and down, integer and
+        # not (sums of up to a few products: RED)
+        Case("interpolate", [X4], {"size": [7, 3], "mode": "bilinear"},
+             grad=[0], tol=RED, id="interpolate-bilinear"),
+        Case("interpolate", [X4], {"scale_factor": 2, "mode": "bicubic"},
+             grad=[0], tol=RED, id="interpolate-bicubic-up"),
+        Case("interpolate", [R((2, 3, 9, 11), 159)],
+             {"size": [4, 5], "mode": "bicubic"}, grad=[0], tol=RED,
+             id="interpolate-bicubic-down"),
+        Case("interpolate", [R((2, 3, 9, 11), 160)],
+             {"scale_factor": 0.5, "mode": "bilinear"}, grad=[0], tol=RED,
+             id="interpolate-bilinear-down"),
+        Case("interpolate", [R((2, 3, 9, 11), 161)],
+             {"size": [3, 4], "mode": "area"}, grad=[0], tol=RED,
+             id="interpolate-area"),
+        Case("interpolate", [X3], {"size": [10], "mode": "linear",
+                                   "data_format": "NCW"}, grad=[0], tol=RED,
+             id="interpolate-linear"),
+        Case("interpolate", [R((2, 2, 5, 4, 6), 162)],
+             {"size": [3, 7, 4], "mode": "trilinear"}, grad=[0], tol=RED,
+             id="interpolate-trilinear"),
+        Case("interpolate", [R((2, 5, 4, 3), 163)],
+             {"scale_factor": 1.5, "mode": "bicubic",
+              "data_format": "NHWC"}, grad=[0], tol=RED,
+             id="interpolate-bicubic-nhwc"),
+        Case("interpolate", [X4], {"size": [6, 8], "mode": "bicubic",
+                                   "align_corners": True}, grad=[0],
+             id="interpolate-bicubic-corners"),
         Case("upsample", [X4], {"size": [5, 8], "mode": "bilinear",
                                 "align_corners": True}, grad=[0]),
         Case("bilinear", [R((3, 4), 159), R((3, 5), 160), R((2, 4, 5), 161),
@@ -769,6 +797,96 @@ def pooling_layer_cases():
     return L
 
 
+def conv_cases():
+    """``nn/functional/conv.py``'s convolutions (``unfold``/``fold`` are
+    in :func:`common_cases`): strides, padding specs, dilation, groups,
+    ``output_padding`` and both data formats (f32 sums of up to 72
+    products: RED)."""
+    X1, X2, X3 = R((2, 4, 9), 250), R((2, 4, 7, 6), 251), \
+        R((2, 4, 5, 6, 4), 252)
+    W1, W2, W3 = R((6, 2, 3), 253), R((6, 2, 3, 3), 254), \
+        R((6, 2, 3, 3, 2), 255)
+    T1, T2, T3 = R((4, 3, 3), 256), R((4, 3, 3, 3), 257), \
+        R((4, 3, 2, 3, 3), 258)
+    B = R((6,), 259)
+    last = lambda x: np.ascontiguousarray(np.moveaxis(x, 1, -1))  # noqa
+    return [
+        Case("conv1d", [X1, W1, B], {"stride": 2, "padding": 1,
+                                     "groups": 2}, grad=[0, 1, 2], tol=RED),
+        Case("conv1d", [last(X1), W1], {"padding": "SAME", "dilation": 2,
+                                        "groups": 2, "data_format": "NLC"},
+             grad=[0, 1], tol=RED, id="conv1d-nlc-same"),
+        Case("conv2d", [X2, W2, B], {"padding": [1, 0, 2, 1], "groups": 2},
+             grad=[0, 1, 2], tol=RED, id="conv2d-asymmetric"),
+        Case("conv2d", [last(X2), W2, B], {"stride": 2, "padding": "VALID",
+                                           "groups": 2,
+                                           "data_format": "NHWC"},
+             grad=[0, 1, 2], tol=RED, id="conv2d-nhwc-valid"),
+        Case("conv3d", [X3, W3, B], {"stride": [1, 2, 1], "padding": 1,
+                                     "dilation": [2, 1, 1], "groups": 2},
+             grad=[0, 1, 2], tol=RED),
+        Case("conv3d", [last(X3), W3], {"padding": "SAME", "groups": 2,
+                                        "data_format": "NDHWC"},
+             grad=[0, 1], tol=RED, id="conv3d-ndhwc-same"),
+        Case("conv1d_transpose", [X1, T1, B], {"stride": 2, "padding": 1,
+                                               "output_padding": 1,
+                                               "groups": 2},
+             grad=[0, 1, 2], tol=RED),
+        Case("conv1d_transpose", [last(X1), T1], {
+            "stride": 3, "padding": [2, 0], "output_padding": 2,
+            "dilation": 2, "groups": 2, "data_format": "NLC"},
+             grad=[0, 1], tol=RED, id="conv1d_transpose-nlc-asymmetric"),
+        Case("conv2d_transpose", [X2, T2, B], {"stride": 2, "padding": 1,
+                                               "output_padding": 1,
+                                               "groups": 2},
+             grad=[0, 1, 2], tol=RED),
+        Case("conv2d_transpose", [X2, T2, B], {"stride": 2,
+                                               "padding": "SAME",
+                                               "groups": 2},
+             grad=[0, 1, 2], tol=RED, id="conv2d_transpose-same"),
+        Case("conv2d_transpose", [last(X2), T2], {
+            "stride": [2, 1], "padding": "VALID", "dilation": [1, 2],
+            "groups": 2, "data_format": "NHWC"}, grad=[0, 1], tol=RED,
+             id="conv2d_transpose-nhwc-valid"),
+        Case("conv3d_transpose", [X3, T3, B], {"stride": 2, "padding": 1,
+                                               "output_padding": 1,
+                                               "groups": 2},
+             grad=[0, 1, 2], tol=RED),
+        Case("conv3d_transpose", [last(X3), T3, B], {
+            "stride": [1, 2, 2], "padding": [1, 0, 0], "groups": 2,
+            "data_format": "NDHWC"}, grad=[0, 1, 2], tol=RED,
+             id="conv3d_transpose-ndhwc"),
+    ]
+
+
+def conv_layer_cases():
+    """``nn/layer_conv_pool.py``'s convolution layers (``Conv2D`` is in
+    :func:`pooling_layer_cases`); their weights the JAX package's,
+    carried across."""
+    X1, X2, X3 = R((2, 4, 9), 260), R((2, 4, 7, 6), 261), \
+        R((2, 4, 5, 6, 4), 262)
+    return [
+        LayerCase("Conv1D", [X1], grad=[0], ctor=(4, 6, 3),
+                  ctor_kw={"stride": 2, "padding": 1, "groups": 2},
+                  tol=RED),
+        LayerCase("Conv3D", [X3], grad=[0], ctor=(4, 6, [3, 3, 2]),
+                  ctor_kw={"padding": "SAME", "dilation": 2}, tol=RED),
+        LayerCase("Conv1DTranspose", [X1], grad=[0], ctor=(4, 6, 3, 2, 1,
+                                                            1, 2),
+                  tol=RED),
+        LayerCase("Conv2DTranspose", [X2], grad=[0], ctor=(4, 6, 3),
+                  ctor_kw={"stride": 2, "padding": 1, "output_padding": 1,
+                           "groups": 2}, tol=RED),
+        LayerCase("Conv2DTranspose", [np.ascontiguousarray(
+            np.moveaxis(X2, 1, -1))], grad=[0], ctor=(4, 6, [2, 3]),
+                  ctor_kw={"stride": 2, "data_format": "NHWC",
+                           "bias_attr": False}, tol=RED,
+                  id="Conv2DTranspose-nhwc-no-bias"),
+        LayerCase("Conv3DTranspose", [X3], grad=[0], ctor=(4, 6, 2),
+                  ctor_kw={"stride": 2, "dilation": [1, 2, 1]}, tol=RED),
+    ]
+
+
 def crf_cases():
     """``nn/functional/crf.py``'s 2 names: ragged lengths, label marks,
     tied scores."""
@@ -836,9 +954,10 @@ def all_cases():
     ``nn`` (a layer)."""
     return ([("F", c) for c in activation_cases() + norm_cases() +
              loss_cases() + common_cases() + pooling_cases() +
-             crf_cases()] +
+             conv_cases() + crf_cases()] +
             [("nn", c) for c in layer_cases() + common_layer_cases() +
-             pooling_layer_cases() + rnn_layer_cases()])
+             pooling_layer_cases() + conv_layer_cases() +
+             rnn_layer_cases()])
 
 
 # the random activations: ``(name, draw(F, x, **generator), check)``; the

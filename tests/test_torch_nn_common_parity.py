@@ -20,7 +20,7 @@ import torch
 import paddle1_tpu as jp
 import paddle1_tpu_torch as tp
 from paddle1_tpu.nn import functional as jF
-from paddle1_tpu_torch.core.errors import UnimplementedError
+from paddle1_tpu_torch.core.errors import InvalidArgumentError, UnimplementedError
 from paddle1_tpu_torch.nn import functional as tF
 
 from test_torch_nn_cases import common_cases, common_layer_cases
@@ -114,9 +114,20 @@ def test_embedding_sparse_raises_naming_the_roadmap_item():
 @pytest.mark.parametrize("mode,corners", [("bilinear", False),
                                           ("bicubic", True), ("area", False)])
 def test_interpolate_unported_modes_raise(mode, corners):
-    with pytest.raises(UnimplementedError):
-        tF.interpolate(tp.to_tensor(R((1, 1, 2, 2), 303)), size=[3, 3],
-                       mode=mode, align_corners=corners)
+    """A mode neither package knows raises, here a misspelling of each
+    mode that once raised as unported. Those modes run now: the port's
+    result has the asked shape, and ``test_torch_conv_nd`` holds every
+    mode to the JAX package's resize."""
+    x = tp.to_tensor(R((1, 1, 2, 2), 303))
+    with pytest.raises(InvalidArgumentError):
+        tF.interpolate(x, size=[3, 3], mode=mode + "x",
+                       align_corners=corners)
+    with pytest.raises(KeyError):
+        jp.nn.functional.interpolate(jp.to_tensor(R((1, 1, 2, 2), 303)),
+                                     size=[3, 3], mode=mode + "x",
+                                     align_corners=corners)
+    got = tF.interpolate(x, size=[3, 3], mode=mode, align_corners=corners)
+    assert tuple(got.shape) == (1, 1, 3, 3)
 
 
 def test_top_level_names_whose_modules_exist():

@@ -624,6 +624,138 @@ def method_cases():
 
 
 
+def sequence_cases():
+    """``ops/sequence_ops.py``'s 18 ops (``tests/test_torch_sequence_ops.py``)
+    on ragged rows, an empty row among them."""
+    D3 = R((3, 5, 4), 30)
+    L = np.array([5, 2, 0], np.int32)
+    L1 = np.array([3, 1, 4], np.int32)
+    FLAT = R((8, 4), 31)
+    IDS = np.array([[3, 1, 4, 1, 5], [9, 2, 6, 5, 3], [5, 8, 9, 7, 9]],
+                   np.int64)
+    W = R((3 * 4, 6), 32)
+    return [
+        Case("sequence_mask", [L], {"maxlen": 6}, x64=True),
+        Case("sequence_mask", [L1], {"dtype": "float32"},
+             id="sequence_mask-float"),
+        Case("sequence_pad", [FLAT, np.float32(-1.0), L1], grad=[0],
+             x64=True),
+        Case("sequence_pad", [FLAT, np.float32(0.5), L1], {"maxlen": 6},
+             grad=[0], x64=True, id="sequence_pad-maxlen"),
+        Case("sequence_unpad", [D3, L], grad=[0]),
+        Case("sequence_pool", [D3, L], grad=[0], tol=RED),
+        Case("sequence_pool", [D3, L, "average"], grad=[0], tol=RED,
+             id="sequence_pool-average"),
+        Case("sequence_pool", [D3, L, "sqrt"], grad=[0], tol=RED,
+             id="sequence_pool-sqrt"),
+        Case("sequence_pool", [D3, L1, "max"], grad=[0],
+             id="sequence_pool-max"),
+        Case("sequence_pool", [IDS, L1, "max"], x64=True,
+             id="sequence_pool-max-int"),
+        Case("sequence_pool", [D3, L, "last"], grad=[0],
+             id="sequence_pool-last"),
+        Case("sequence_first_step", [D3, L], grad=[0]),
+        Case("sequence_last_step", [D3, L1], grad=[0]),
+        Case("sequence_softmax", [D3, L1], grad=[0], tol=RED),
+        Case("sequence_expand", [R((3, 2), 33), L1], grad=[0]),
+        Case("sequence_expand_as", [R((3, 2), 34), L], grad=[0]),
+        Case("sequence_reverse", [D3, L], grad=[0]),
+        Case("sequence_concat", [[FLAT, R((6, 4), 35)],
+                                 [L1, np.array([2, 0, 4], np.int32)]],
+             x64=True),
+        Case("sequence_conv", [D3, L1, W, 3], grad=[0, 2], tol=RED),
+        Case("sequence_conv", [D3, L1, W, 3, -2, R((6,), 36)],
+             grad=[0, 2, 5], tol=RED, id="sequence_conv-start-bias"),
+        Case("sequence_enumerate", [IDS, L1, 3], {"pad_value": -1},
+             x64=True),
+        Case("sequence_erase", [IDS, L1, [1, 9]], x64=True),
+        Case("sequence_reshape", [R((3, 4, 6), 37),
+                                  np.array([4, 2, 0], np.int32), 3],
+             grad=[0]),
+        Case("sequence_scatter", [R((3, 6), 38),
+                                  np.array([[0, 2, 2], [5, 1, 0],
+                                            [3, 3, 4]], np.int64),
+                                  R((3, 3), 39), L1], grad=[0, 2]),
+        Case("sequence_slice", [D3, np.array([1, 0, 2], np.int64),
+                                np.array([3, 2, 0], np.int64)], grad=[0],
+             x64=True),
+        Case("sequence_topk_avg_pooling", [D3, L1, [1, 2, 6]], grad=[0],
+             tol=RED),
+    ]
+
+
+def _boxes(n, seed, scale=10.0):
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, scale * 0.6, (n, 2))
+    wh = rng.uniform(scale * 0.05, scale * 0.4, (n, 2))
+    return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+
+def vision_cases():
+    """``vision/ops.py``'s names (``tests/test_torch_vision_ops.py``)
+    beyond the inference four, and ``yolo_loss``; ``DeformConv2D`` is a
+    layer, tested there."""
+    PRI, TGT = _boxes(5, 40), _boxes(4, 41)
+    VAR = R((5, 4), 42, "u") * 0.3
+    OFF = R((4, 5, 4), 43) * 0.2
+    BX, SC = _boxes(30, 44), R((3, 30), 45, "u")
+    FEAT, ROIS = R((2, 3, 12, 10), 46), _boxes(5, 47, 9.0)
+    NUMS = np.array([2, 3], np.int32)
+    X, OFFS = R((2, 4, 7, 6), 48), R((2, 36, 4, 3), 49) * 1.3
+    W, B = R((6, 2, 3, 3), 50), R((6,), 51)
+    MASK = R((2, 18, 4, 3), 52, "u")
+    HEAD = R((2, 3 * 9, 4, 4), 53) * 1.5
+    GT = np.concatenate([R((2, 5, 2), 54, "u"), R((2, 5, 2), 55, "u") * 0.5],
+                        -1)
+    LAB = np.array([[0, 3, 1, 2, -1], [3, 3, 0, -1, -1]], np.int32)
+    ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119]
+    return [
+        Case("box_coder", [PRI, VAR, TGT], grad=[2], tol=RED),
+        Case("box_coder", [PRI, None, TGT], {"box_normalized": False},
+             grad=[2], tol=RED, id="box_coder-unnormalized"),
+        Case("box_coder", [PRI, VAR, OFF],
+             {"code_type": "decode_center_size"}, grad=[2], tol=RED,
+             id="box_coder-decode"),
+        Case("box_coder", [PRI[:4], R((4,), 56, "u"), OFF],
+             {"code_type": "decode_center_size", "axis": 1}, grad=[2],
+             tol=RED, id="box_coder-decode-axis1"),
+        Case("matrix_nms", [BX, SC], {"score_threshold": 0.1,
+                                      "post_threshold": 0.05,
+                                      "nms_top_k": 40, "keep_top_k": 20},
+             tol=RED),
+        Case("matrix_nms", [BX, SC], {"use_gaussian": True,
+                                      "score_threshold": 0.1},
+             tol=RED, id="matrix_nms-gaussian"),
+        Case("roi_align", [FEAT, ROIS, NUMS],
+             {"output_size": 3, "spatial_scale": 0.9,
+              "sampling_ratio": 2}, grad=[0, 1], tol=RED),
+        Case("roi_align", [FEAT, ROIS], {"output_size": (2, 4),
+                                         "aligned": False},
+             grad=[0], tol=RED, id="roi_align-unaligned"),
+        Case("roi_pool", [FEAT, ROIS, NUMS], {"output_size": 3}, grad=[0],
+             tol=RED),
+        Case("prior_box", [np.zeros((1, 4, 5, 6), np.float32),
+                           np.zeros((1, 3, 40, 48), np.float32),
+                           [8.0, 16.0]],
+             {"max_sizes": [12.0, 20.0], "aspect_ratios": [2.0, 3.0],
+              "flip": True, "clip": True}, tol=RED),
+        Case("generate_anchors", [16, (32, 64)], tol=RED),
+        Case("distribute_fpn_proposals", [_boxes(20, 57, 300.0), 2, 5, 4,
+                                          224], x64=True),
+        Case("deform_conv2d", [X, OFFS, W, B],
+             {"stride": 2, "padding": 1, "deformable_groups": 2,
+              "groups": 2}, grad=[0, 1, 2, 3], tol=RED),
+        Case("deform_conv2d", [X, OFFS, W, None, 2, 1, 1, 2, 2, MASK],
+             grad=[0, 1, 2, 9], tol=RED, id="deform_conv2d-v2"),
+        Case("yolo_loss", [HEAD, GT, LAB, ANCHORS, [3, 4, 5], 4, 0.7, 16],
+             grad=[0], tol=RED),
+        Case("yolo_loss", [HEAD, GT, LAB, ANCHORS, [3, 4, 5], 4, 0.5, 16,
+                           R((2, 5), 58, "u")],
+             {"use_label_smooth": False, "scale_x_y": 1.1}, grad=[0],
+             tol=RED, id="yolo_loss-scores-scale"),
+    ]
+
+
 # the random ops: ``(name, draw(namespace, **generator), support, (mean,
 # variance))``; ``namespace`` has the package's ops and ``to_tensor``
 N = 20000

@@ -148,8 +148,13 @@ def test_interpolate_half_pixel_rule_where_torch_nearest_differs():
     got = tF.interpolate(_t(x), size=[1, 3], mode="nearest").numpy()
     np.testing.assert_array_equal(got, want)
     assert want.ravel().tolist() == [1.0, 5.0, 8.0]
-    with pytest.raises(UnimplementedError):
-        tF.interpolate(_t(x), size=[1, 3], mode="bilinear")
+    # bilinear without align_corners is the reference's antialiased
+    # jax.image.resize, not torch's bilinear
+    want = _np(jF.interpolate(to_tensor(x), size=[1, 3], mode="bilinear"))
+    got = tF.interpolate(_t(x), size=[1, 3], mode="bilinear").numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert not np.allclose(got, torch.nn.functional.interpolate(
+        _t(x), size=[1, 3], mode="bilinear").numpy())
 
 
 def test_interpolate_and_concat_keep_channels_last_memory():
