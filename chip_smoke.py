@@ -587,6 +587,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
     slope protocol. Phases 23 and 28 run the new op and nn cases (the
     sequence ops, ``vision.ops``, the N-d and transposed convolutions
     and their layers, ``interpolate``'s resize modes) on the card.
+43. **Collectives on NCCL** over the visible cards, one rank a card (on
+    one card: world size 1, point-to-point skipped): every collective of
+    ``distributed.collective`` and the Megatron pairs on card tensors,
+    each against host arithmetic, then ``benches.py``'s all-reduce
+    bus-bandwidth sweep (nccl-tests conventions, ``BUSBW_MB``), marked
+    single-card where there is one.
+44. **ERNIE-1.5B through fleet** (BASELINE config 4 by the user's entry
+    points): ``fleet.init(is_collective=True, strategy)`` with ZeRO stage
+    2 and ``amp``, ``apply_megatron_sharding``, ``fleet.parallel_engine``
+    at full width and depth over NCCL, 4 x 512 a rank: timed by
+    ``timed_steps``, phase 19's launch counts (24/24/24/1 of rows 3-6 a
+    step, 50 of row 2 a forward), the loss finite and falling, peak
+    memory, the optimizer slots held (1/n of the whole at sharding n),
+    the collectives a step.
+45. **The sharded and model-parallel engine across ranks:** two ranks
+    (gloo on one card; NCCL one a card where there are two), ERNIE-1.5B at
+    full width cut to depth 2, f32, global batch 4 x 512, at
+    ``(sharding=2, zero 2)``, ``(sharding=2, zero 3)`` and ``(mp=2)``:
+    three ``AdamW(1e-5)`` steps each within ``REF_TOL`` of the
+    world-size-1 engine on the
+    whole batch (losses and every parameter, the shards gathered), every
+    rank launching rows 2-6 at its local shapes, each rank's slots half of
+    the whole at sharding 2. Gloo takes CUDA tensors in every collective
+    the engine calls (``tools/torch_hybrid_phases.py --gloo-probe``).
 
 Phase 2 also holds rows 1 and 2 in float16: row 1 with f16 and f32
 queries over f16 pools at W = 1 and W = 5, row 2 at ``[16, 512]`` and
@@ -9030,6 +9054,569 @@ def vgg_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 43-45: slice 4b(i)-(ii): the collectives on NCCL, config 4
+# through fleet, and the sharded and model-parallel engine across ranks
+
+# the all-reduce sweep's payloads (MB of f32 a rank) and timed calls
+BUSBW_MB, BUSBW_REPS = (1, 4, 16, 64, 256), 20
+# phase 45: ERNIE-1.5B at full width cut to HY_DEPTH layers, f32, the
+# global batch HY_BATCH x ERNIE_SEQ, REF_STEPS AdamW steps at config 4's
+# lr on each mesh against the world-size-1 engine on the whole batch. The
+# losses within REF_TOL; the first step's gradient (every shard gathered)
+# within HY_GRAD_TOL of world size 1's, each leaf's gap over its norm (a
+# wrong scale, sign or shard shows there: Adam's update hardly sees the
+# gradient's scale); the parameters after the steps within HY_MOVE_TOL,
+# each leaf's gap over its own movement at world size 1, ||p - p_ref|| /
+# ||p_ref - p_0|| (Adam turns the f32 rounding of a gradient element near
+# zero into a step of about lr, so an absolute limit below REF_STEPS x lr
+# cannot tell a sound run from one that moves a shard wrongly). A leaf
+# whose reference gradient is zero to rounding (its RMS below HY_ZERO_GRAD
+# of the whole gradient's: the attention key biases, which the softmax
+# cannot see) is held apart, its gap within 2 x REF_STEPS x lr only. The
+# limits sit between the readings of sound runs and of planted faults
+# (hy_plant) on one H100: sound, gradient 5.8e-6 and movement 1.8e-4 at
+# most; planted, 0.030 and 0.086 at least (PERF.md, PR 26).
+HY_DEPTH, HY_BATCH, HY_RANKS, HY_TIMEOUT_S = 2, 4, 2, 600
+HY_LR, HY_GRAD_TOL, HY_MOVE_TOL, HY_ZERO_GRAD = ERNIE_LR, 1e-3, 5e-3, 1e-4
+HY_MESHES = (("sharding2_zero2", {"sharding": 2}, {"zero_stage": 2}),
+             ("sharding2_zero3", {"sharding": 2}, {"zero_stage": 3}),
+             ("mp2", {"mp": 2}, {}))
+# planted faults (tools/torch_hybrid_phases.py --plant) and the mesh each
+# is planted in: phase 45's check must fail every one
+HY_PLANTS = {"zero_shard": "sharding2_zero2",
+             "unaveraged": "sharding2_zero2", "drop_f": "mp2"}
+
+
+class CollectiveCount:
+    """Counts the ``torch.distributed`` collectives the port calls inside
+    the block, by kind: all-reduce, reduce-scatter, all-gather (into one
+    tensor or a list) and broadcast."""
+
+    KINDS = {"all_reduce": "all_reduce",
+             "reduce_scatter_tensor": "reduce_scatter",
+             "reduce_scatter_single": "reduce_scatter",
+             "all_gather_into_tensor": "all_gather",
+             "all_gather_single": "all_gather",
+             "all_gather": "all_gather", "broadcast": "broadcast"}
+
+    def __enter__(self):
+        import torch.distributed as tdist
+        self._orig = {k: getattr(tdist, k) for k in self.KINDS
+                      if hasattr(tdist, k)}
+        self.n = {k: 0 for k in set(self.KINDS.values())}
+        for name, fn in self._orig.items():
+            def counted(*a, _fn=fn, _kind=self.KINDS[name], **kw):
+                self.n[_kind] += 1
+                return _fn(*a, **kw)
+            setattr(tdist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as tdist
+        for name, fn in self._orig.items():
+            setattr(tdist, name, fn)
+        return False
+
+
+def collective_checks(dev):
+    """Every collective of the port on card tensors of this rank, each
+    against its value computed on the host: rank r holds ``arange(8) +
+    10 r``. Point-to-point runs where there is a peer. Returns the names
+    checked."""
+    from paddle1_tpu_torch import distributed as pdist
+    from paddle1_tpu_torch.distributed import collective as C
+    r, n = pdist.get_rank(), pdist.get_world_size()
+    base = [torch.arange(8, dtype=torch.float32) + 10.0 * j
+            for j in range(n)]
+    mine = base[r].to(dev)
+    total = torch.stack(base).sum(0)
+    done = []
+
+    def same(got, want, name):
+        check(got.device.type == "cuda", f"{name}: result left the card")
+        check(torch.equal(got.cpu(), want.cpu()),
+              f"{name}: {got.cpu().tolist()} != {want.cpu().tolist()}")
+        done.append(name)
+    for op, want in (("SUM", total), ("MAX", base[-1]), ("MIN", base[0])):
+        same(pdist.all_reduce(mine.clone(), getattr(pdist.ReduceOp, op)),
+             want, f"all_reduce_{op}")
+    same(pdist.broadcast(mine.clone(), src=n - 1), base[-1], "broadcast")
+    same(pdist.all_gather(None, mine), torch.stack(base), "all_gather")
+    objs = []
+    pdist.all_gather_object(objs, r)
+    check(objs == list(range(n)), f"all_gather_object gave {objs}")
+    done.append("all_gather_object")
+    full = torch.arange(2 * n, dtype=torch.float32, device=dev) + r
+    want = (torch.arange(2 * n, dtype=torch.float32) * n +
+            sum(range(n)))[2 * r:2 * r + 2]
+    same(pdist.reduce_scatter(torch.zeros(2, device=dev), full), want,
+         "reduce_scatter")
+    same(C.all_gather_into(torch.zeros(2 * n, device=dev),
+                           torch.full((2,), float(r), device=dev)),
+         torch.arange(n, dtype=torch.float32).repeat_interleave(2),
+         "all_gather_into")
+    parts = [b.to(dev) + 100 for b in base] if r == 0 else None
+    same(pdist.scatter(torch.zeros(8, device=dev), parts, src=0),
+         base[r] + 100, "scatter")
+    same(pdist.alltoall([mine + j for j in range(n)]),
+         torch.stack([b + r for b in base]), "alltoall")
+    world = pdist.get_group()
+    x = mine.clone().requires_grad_()
+    (C._c_identity(x, world) * (r + 1)).sum().backward()
+    same(x.grad, torch.full((8,), n * (n + 1) / 2), "c_identity")
+    x = mine.clone().requires_grad_()
+    y = C._mp_allreduce(x, world)
+    (y * (r + 1)).sum().backward()
+    same(y.detach(), total if n > 1 else base[r], "mp_allreduce")
+    same(x.grad, torch.full((8,), r + 1.0), "mp_allreduce_grad")
+    if n > 1:
+        # a ring: even ranks send first, odd ranks receive first (NCCL
+        # sets up a pair's communicator at its first transfer, and a ring
+        # of sends alone would wait on itself)
+        nxt, prv = (r + 1) % n, (r - 1) % n
+        buf = torch.zeros(8, device=dev)
+        if r % 2:
+            work = [pdist.irecv(buf, src=prv), pdist.isend(mine, dst=nxt)]
+        else:
+            work = [pdist.isend(mine, dst=nxt), pdist.irecv(buf, src=prv)]
+        for w in work:
+            w.wait()
+        same(buf, base[prv], "isend_irecv")
+    return done
+
+
+def busbw_sweep(dev):
+    """``benches.py``'s all-reduce bus-bandwidth sweep (nccl-tests
+    conventions: algbw = a rank's payload / time, busbw = algbw x 2(n-1)/n,
+    the ring's wire traffic) over the world group, each payload's calls
+    timed between CUDA events, in place, SUM, f32."""
+    from paddle1_tpu_torch import distributed as pdist
+    n = pdist.get_world_size()
+    out = []
+    for mb in BUSBW_MB:
+        x = torch.ones(mb * (1 << 20) // 4, dtype=torch.float32, device=dev)
+        for _ in range(3):
+            pdist.all_reduce(x)
+        torch.cuda.synchronize()
+        pdist.barrier()
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        start.record()
+        for _ in range(BUSBW_REPS):
+            pdist.all_reduce(x)
+        end.record()
+        torch.cuda.synchronize()
+        dt = start.elapsed_time(end) / 1e3 / BUSBW_REPS
+        algbw = x.nelement() * 4 / dt
+        out.append({"payload_mb": mb, "time_us": dt * 1e6,
+                    "algbw_gbps": algbw / 1e9,
+                    "busbw_gbps": algbw * 2 * (n - 1) / n / 1e9})
+        del x
+    return out
+
+
+def nccl_rank_worker(out_dir, init_file):
+    """One rank of phase 43 on its own card (``distributed.spawn``)."""
+    import os
+    from paddle1_tpu_torch import distributed as pdist
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    dev = torch.device("cuda", rank)
+    pdist.init_parallel_env(device=dev, init_method=f"file://{init_file}")
+    try:
+        res = {"checked": collective_checks(dev), "sweep": busbw_sweep(dev),
+               "backend": torch.distributed.get_backend()}
+        torch.save(res, os.path.join(out_dir, f"nccl{rank}.pt"))
+    finally:
+        pdist.destroy_process_group()
+
+
+def collectives_phase(dev):
+    """Phase 43: every collective on NCCL over the visible cards, one rank
+    a card (on one card: world size 1, point-to-point skipped), held to
+    host arithmetic, and the all-reduce bus-bandwidth sweep, marked
+    single-card where there is one."""
+    import os
+    import tempfile
+    from paddle1_tpu_torch import distributed as pdist
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    if n == 1:
+        pdist.init_parallel_env()
+        try:
+            backend = torch.distributed.get_backend()
+            checked = collective_checks(dev)
+            sweep = busbw_sweep(dev)
+        finally:
+            pdist.destroy_process_group()
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            pdist.spawn(nccl_rank_worker, args=(tmp, os.path.join(
+                tmp, "store")), nprocs=n, timeout=HY_TIMEOUT_S)
+            got = torch.load(os.path.join(tmp, "nccl0.pt"))
+        backend, checked, sweep = got["backend"], got["checked"], \
+            got["sweep"]
+    check(backend == "nccl", f"phase 43 ran {backend}")
+    out = {"collectives_nccl": {
+        "ranks": n, "backend": backend, "checked": checked,
+        "point_to_point": "checked" if n > 1 else
+        "skipped: one card, no peer",
+        "allreduce_busbw": sweep,
+        "blocked": "single-card: busbw is 0 by definition at one rank; "
+                   "time_us is NCCL's one-rank all-reduce" if n == 1 else
+                   None,
+        "card": card_line(), "seconds": time.perf_counter() - t0}}
+    log(json.dumps(out))
+    return out["collectives_nccl"]
+
+
+def ernie_fleet_phase(dev):
+    """Phase 44: BASELINE config 4 through the user's entry points:
+    ``fleet.init(is_collective=True, strategy)`` with ZeRO stage 2 and
+    ``amp`` (bf16), ``apply_megatron_sharding``, then
+    ``fleet.parallel_engine(ErnieForPretraining(ernie_1p5b()),
+    AdamW(1e-4), loss_fn)`` at full width and depth over NCCL, one rank a
+    visible card (here the world the smoke runs in), batch 4 x 512 a
+    rank: timed by ``timed_steps``, the launch counts of phase 19, the
+    loss finite and falling, peak memory, the optimizer slots held (1/n
+    of the whole at sharding n) and the collectives a step."""
+    from paddle1_tpu_torch import distributed as pdist
+    from paddle1_tpu_torch.distributed import fleet, topology
+    from paddle1_tpu_torch.optimizer import AdamW
+    from paddle1_tpu_torch.text.models import (BertPretrainingCriterion,
+                                               apply_megatron_sharding)
+    t0 = time.perf_counter()
+    strategy = fleet.DistributedStrategy()
+    strategy.sharding = True
+    strategy.sharding_configs = {"stage": 2}
+    strategy.amp = True
+    fleet.init(is_collective=True, strategy=strategy)
+    try:
+        world = pdist.get_world_size()
+        model = apply_megatron_sharding(ernie_model())
+        n_params = sum(p.nelement() for p in model.parameters())
+        eng = fleet.parallel_engine(
+            model, AdamW(learning_rate=ERNIE_LR,
+                         parameters=model.parameters()),
+            ernie_loss_fn(BertPretrainingCriterion(ERNIE_VOCAB)))
+        shards = eng.mesh.shape["sharding"]
+        check(eng.zero_stage == 2 and eng.amp_dtype == torch.bfloat16 and
+              shards == world and torch.distributed.get_backend() == "nccl",
+              f"fleet compiled zero {eng.zero_stage}, amp {eng.amp_dtype}, "
+              f"mesh {eng.mesh.shape} on {world} ranks")
+        staged = eng.shard_batch(ernie_batch(ERNIE_BATCH * world,
+                                             ERNIE_SEQ, seed=44))
+        torch.cuda.reset_peak_memory_stats()
+        loss0 = float(eng.step(staged))
+        setup_s = time.perf_counter() - t0
+        counters = train_counters()
+        zero(counters)
+        with CollectiveCount() as calls:
+            slopes, last, steps = timed_steps(lambda: eng.step(staged), 8)
+            torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        loss_end = float(last)
+        check(np.isfinite(loss0) and np.isfinite(loss_end) and
+              loss_end < loss0, f"ERNIE through fleet: loss {loss0} -> "
+              f"{loss_end}")
+        want = {"flash_attention": ERNIE_LAYERS * steps,
+                "flash_attention_bwd_dkv": ERNIE_LAYERS * steps,
+                "flash_attention_bwd_dq": ERNIE_LAYERS * steps,
+                "fused_adam": steps,
+                "layer_norm": (2 * ERNIE_LAYERS + 2) * steps}
+        for k, v in want.items():
+            check(launches[k] == v, f"ERNIE through fleet: {k} launched "
+                  f"{launches[k]} times in {steps} steps, want {v}")
+        peak = torch.cuda.max_memory_allocated()
+        held = eng.slot_bytes()
+        whole = 2 * 4 * n_params
+        check(held * shards >= whole and
+              held <= whole / shards + 2 * 4 * 64 * (len(eng.params) +
+                                                       shards),
+              f"ERNIE through fleet: {held} slot bytes at sharding "
+              f"{shards}, the whole is {whole}")
+    finally:
+        pdist.destroy_process_group()
+        topology.set_hybrid_communicate_group(None)
+    dt = float(np.median(slopes))
+    flops = (6 * n_params * ERNIE_BATCH * ERNIE_SEQ +
+             12 * ERNIE_LAYERS * ERNIE_BATCH * ERNIE_SEQ ** 2 * ERNIE_HIDDEN)
+    summary = {
+        "train": "ernie_1p5b_pretraining_fleet", "card": card_line(),
+        "ranks": world, "backend": "nccl", "mesh": eng.mesh.shape,
+        "zero_stage": 2, "amp": "bfloat16", "batch_per_rank": ERNIE_BATCH,
+        "seq_len": ERNIE_SEQ, "layers": ERNIE_LAYERS, "params": n_params,
+        "setup_s": setup_s, "steps": steps, "timing": "slope+readback",
+        "step_ms_median": dt * 1e3, "step_ms_min": min(slopes) * 1e3,
+        "step_ms_max": max(slopes) * 1e3,
+        "tokens_per_s_per_rank": ERNIE_BATCH * ERNIE_SEQ / dt,
+        "mfu": flops / dt / BF16_FLOPS_PER_S,
+        "loss_first": loss0, "loss_last": loss_end,
+        "peak_mem_gb": peak / 1e9, "slot_bytes_held": held,
+        "slot_bytes_whole": whole, "launches": launches,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "collectives_per_step": {k: v / steps for k, v in calls.n.items()}}
+    log(json.dumps({"ernie_fleet": summary}))
+    del eng, model, staged
+    torch.cuda.empty_cache()
+    return summary
+
+
+def hy_model(seed=SEED + 45):
+    from paddle1_tpu_torch.text.models import apply_megatron_sharding
+    return apply_megatron_sharding(ernie_model(depth=HY_DEPTH, seed=seed))
+
+
+def hy_engine(model, **kw):
+    from paddle1_tpu_torch.distributed import ParallelEngine
+    from paddle1_tpu_torch.optimizer import AdamW
+    from paddle1_tpu_torch.text.models import BertPretrainingCriterion
+    return ParallelEngine(model, AdamW(learning_rate=HY_LR,
+                                       parameters=model.parameters()),
+                          ernie_loss_fn(BertPretrainingCriterion(
+                              ERNIE_VOCAB)), **kw)
+
+
+def hy_plant(eng, fault):
+    """Plant ``fault`` in an engine on a mesh, to show that phase 45's
+    check fails it: ``zero_shard`` zeroes sharding rank 1's gradient shard
+    after the reduce-scatter, ``unaveraged`` leaves the reduce-scatter's
+    sum undivided by the data ranks, ``drop_f`` drops Megatron's f (the
+    gradient's all-reduce over mp) from the first query projection."""
+    from paddle1_tpu_torch.nn import functional as F
+    if fault in ("zero_shard", "unaveraged"):
+        reduce, z = eng._reduce_zero, eng._zero
+
+        def planted(loss):
+            out = reduce(loss)
+            if fault == "unaveraged":
+                z["gshard"].mul_(float(eng.mesh.data_group.nranks))
+            elif z["group"].rank == 1:
+                z["gshard"].zero_()
+            return out
+        eng._reduce_zero = planted
+    elif fault == "drop_f":
+        q = next(m for n, m in eng.model.named_modules()
+                 if n.endswith("q_proj"))
+        q.forward = lambda x: F.linear(x, q.weight, q.bias)
+    else:
+        raise ValueError(f"no planted fault {fault!r}")
+
+
+@torch.no_grad()
+def hy_gaps(state, grads, init, ref_state, ref_grads, lr):
+    """Phase 45's readings of one run against world size 1, by leaf (the
+    keys of ``ref_grads``): the first step's gradient gap over the
+    reference gradient's norm, and the parameters' gap after the steps
+    over their movement at world size 1, for every leaf whose reference
+    gradient is not zero to rounding, with the largest absolute parameter
+    gap (for the record); for those held apart the largest absolute
+    parameter gap in units of lr."""
+    rms = (sum(float(g.double().square().sum()) for g in ref_grads.values())
+           / sum(g.nelement() for g in ref_grads.values())) ** 0.5
+    grad_gap, move_gap, abs_gap, flat_gap = {}, {}, {}, {}
+    for k, g in ref_grads.items():
+        g, p = g.double(), state[k].double() - ref_state[k].double()
+        if float(g.square().mean().sqrt()) < HY_ZERO_GRAD * rms:
+            flat_gap[k] = float(p.abs().max()) / lr
+            continue
+        grad_gap[k] = float((grads[k].double() - g).norm() / g.norm())
+        abs_gap[k] = float(p.abs().max())
+        move_gap[k] = float(p.norm() / (ref_state[k].double() -
+                                        init[k].double()).norm())
+    return {"grad_gap": grad_gap, "move_gap": move_gap,
+            "abs_param_gap": abs_gap, "flat_gap_in_lr": flat_gap}
+
+
+def hybrid_rank_worker(out_dir, init_file, backend, one_card, runs):
+    """One rank of phase 45 (``distributed.spawn``): each run of ``runs``
+    (``(name, degrees, engine kwargs, planted fault or None)``) in turn,
+    REF_STEPS f32 steps of the depth-cut ERNIE on the global batch, the
+    first step's gradient gathered; rank 0 reads the gaps to world size 1
+    (``hy_gaps``, the reference in ``out_dir``). Saves the losses, the
+    gaps, the launches, the slots held, peak memory and the collectives a
+    step."""
+    import gc
+    import os
+    from paddle1_tpu_torch import distributed as pdist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    dev = torch.device(CARD, 0 if one_card else rank)
+    pdist.init_parallel_env(backend=backend, device=dev,
+                            init_method=f"file://{init_file}")
+    try:
+        batch = ernie_batch(HY_BATCH, ERNIE_SEQ, seed=SEED + 45)
+        ref = torch.load(os.path.join(out_dir, "ref.pt"), mmap=True) \
+            if rank == 0 else None
+        out = {"backend": torch.distributed.get_backend()}
+        for name, degrees, kw, fault in runs:
+            model = hy_model()
+            eng = hy_engine(model, mesh=pdist.build_mesh(**degrees), **kw)
+            if fault is not None:
+                hy_plant(eng, fault)
+            counters = train_counters()
+            zero(counters)
+            torch.cuda.reset_peak_memory_stats(dev)
+            with CollectiveCount() as first:
+                losses = [float(eng.step(batch))]
+            peak = torch.cuda.max_memory_allocated(dev)
+            grads = {k: v.cpu() for k, v in eng.full_grad_dict().items()}
+            torch.cuda.reset_peak_memory_stats(dev)
+            with CollectiveCount() as rest:
+                for _ in range(REF_STEPS - 1):
+                    losses.append(float(eng.step(batch)))
+            peak = max(peak, torch.cuda.max_memory_allocated(dev))
+            launches = {k: fn.launches for k, fn in counters.items()}
+            state = {k: v.cpu() for k, v in eng.full_state_dict().items()}
+            out[name] = {
+                "fault": fault, "losses": losses, "launches": launches,
+                "slot_bytes": eng.slot_bytes(),
+                "params_local": sum(p.nelement() for p in eng.params),
+                "peak_mem_gb": peak / 1e9,
+                "collectives_per_step": {
+                    k: (first.n[k] + rest.n[k]) / REF_STEPS
+                    for k in first.n},
+                "gaps": (hy_gaps(state, grads, ref["init"], ref["state"],
+                                 ref["grads"], HY_LR)
+                         if rank == 0 else None)}
+            del eng, model, state, grads
+            gc.collect()           # a planted fault closes over its engine
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        pdist.destroy_process_group()
+
+
+def hy_verdict(name, res, ref_losses):
+    """What phase 45's accuracy check finds wrong in one run (the gaps of
+    rank 0, the losses of every rank): a list of messages, empty when the
+    run holds."""
+    g = res[0]["gaps"]
+    bad = []
+    loss_err = max(abs(a - b) for r in res
+                   for a, b in zip(r["losses"], ref_losses))
+    if loss_err > REF_TOL:
+        bad.append(f"{name}: losses {loss_err} from world size 1")
+    for key, tol, what in (("grad_gap", HY_GRAD_TOL, "first-step gradient"),
+                           ("move_gap", HY_MOVE_TOL, "parameter gap over "
+                            "the movement"),
+                           ("flat_gap_in_lr", 2 * REF_STEPS,
+                            "gap (in lr) of a leaf without a gradient")):
+        worst = max(g[key].items(), key=lambda kv: kv[1], default=(None, 0))
+        if not worst[1] <= tol:        # NaN fails too
+            bad.append(f"{name}: {what} {worst[1]} > {tol} at {worst[0]}")
+    return bad
+
+
+def hybrid_rank_check(dev, plants=()):
+    """Phase 45: HY_RANKS ranks (gloo on one card, NCCL one a card where
+    there are HY_RANKS cards) at ERNIE-1.5B's full width cut to HY_DEPTH
+    layers, f32, on each of HY_MESHES — ZeRO stage 2 and stage 3 at
+    sharding 2, tensor parallel at mp 2 — REF_STEPS steps against the
+    world-size-1 engine on the whole batch (``hy_verdict``: the losses, the
+    first step's gradient and the parameters' movement, the shards
+    gathered), every rank launching rows 2-6 at its local shapes (flash at
+    18 / mp heads, row 6 over its ZeRO shard), each rank's slots 1/2 of the
+    whole at sharding 2. Each fault of ``plants`` (HY_PLANTS) then runs
+    planted in its mesh, and the check must fail it. Every run's readings
+    are logged before any check."""
+    import os
+    import tempfile
+    from paddle1_tpu_torch import distributed as pdist
+    t0 = time.perf_counter()
+    model = hy_model()
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    eng = hy_engine(model)
+    batch = ernie_batch(HY_BATCH, ERNIE_SEQ, seed=SEED + 45)
+    ref_losses = [float(eng.step(batch))]
+    ref_grads = {k: v.cpu() for k, v in eng.full_grad_dict().items()}
+    ref_losses += [float(eng.step(batch)) for _ in range(REF_STEPS - 1)]
+    ref = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    n_params = sum(p.nelement() for p in model.parameters())
+    del eng, model
+    torch.cuda.empty_cache()
+    nccl = torch.cuda.device_count() >= HY_RANKS
+    backend = "nccl" if nccl else "gloo"
+    meshes = {name: (degrees, kw) for name, degrees, kw in HY_MESHES}
+    runs = [(name, degrees, kw, None) for name, degrees, kw in HY_MESHES] + \
+        [(f"{HY_PLANTS[f]}_planted_{f}", *meshes[HY_PLANTS[f]], f)
+         for f in plants]
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"init": init, "state": ref, "grads": ref_grads},
+                   os.path.join(tmp, "ref.pt"))
+        del init
+        pdist.spawn(hybrid_rank_worker, args=(
+            tmp, os.path.join(tmp, "store"), backend, not nccl, runs),
+            nprocs=HY_RANKS, timeout=HY_TIMEOUT_S)
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+               for r in range(HY_RANKS)]
+    per_step = {"flash_attention": HY_DEPTH, "flash_attention_bwd_dkv":
+                HY_DEPTH, "flash_attention_bwd_dq": HY_DEPTH,
+                "fused_adam": 1, "layer_norm": 2 * HY_DEPTH + 2}
+    whole = 2 * 4 * n_params
+    out = {"card": card_line(), "ranks": HY_RANKS, "backend": backend,
+           "one_card": not nccl, "depth": HY_DEPTH, "batch": HY_BATCH,
+           "seq": ERNIE_SEQ, "dtype": "float32", "steps": REF_STEPS,
+           "lr": HY_LR, "tol": {"loss": REF_TOL, "grad_gap": HY_GRAD_TOL,
+                                "move_gap": HY_MOVE_TOL,
+                                "flat_gap_in_lr": 2 * REF_STEPS,
+                                "zero_grad_rms": HY_ZERO_GRAD},
+           "losses_world_size_1": ref_losses, "slot_bytes_whole": whole}
+    failures = [] if got[0]["backend"] == backend else \
+        [f"phase 45 ran {got[0]['backend']}"]
+    for name, degrees, kw, fault in runs:
+        res = [g[name] for g in got]
+        gaps = res[0]["gaps"]
+        verdict = hy_verdict(name, res, ref_losses)
+
+        def worst(key, k=4):
+            return sorted(gaps[key].items(), key=lambda kv: -kv[1])[:k]
+        out[name] = {
+            "mesh": degrees, **kw, "fault": fault,
+            "losses": [r["losses"] for r in res],
+            "max_loss_err": max(abs(a - b) for r in res
+                                for a, b in zip(r["losses"], ref_losses)),
+            "max_grad_gap": worst("grad_gap", 1)[0][1],
+            "max_move_gap": worst("move_gap", 1)[0][1],
+            "max_abs_param_gap": worst("abs_param_gap", 1)[0][1],
+            "worst_grad_gap": worst("grad_gap"),
+            "worst_move_gap": worst("move_gap"),
+            "flat_gap_in_lr": gaps["flat_gap_in_lr"],
+            "verdict": verdict or "holds",
+            "launches": [r["launches"] for r in res],
+            "slot_bytes": [r["slot_bytes"] for r in res],
+            "params_local": [r["params_local"] for r in res],
+            "peak_mem_gb": [r["peak_mem_gb"] for r in res],
+            "collectives_per_step": [r["collectives_per_step"]
+                                     for r in res]}
+        log(json.dumps({"hybrid_rank_check_" + name: out[name]}))
+        if fault is not None:
+            if not verdict:
+                failures.append(f"{name}: the planted fault {fault} passed "
+                                "the check")
+            continue
+        failures += verdict
+        for r in res:
+            for k, v in per_step.items():
+                if r["launches"][k] != v * REF_STEPS:
+                    failures.append(f"{name}: a rank launched {k} "
+                                    f"{r['launches'][k]} times, want "
+                                    f"{v * REF_STEPS}")
+        shards = degrees.get("sharding", 1)
+        if shards > 1 and not (
+                sum(r["slot_bytes"] for r in res) == whole and
+                all(r["slot_bytes"] <= whole / shards +
+                    2 * 4 * 64 * (len(ref) + shards) for r in res)):
+            failures.append(f"{name}: slots {[r['slot_bytes'] for r in res]}"
+                            f" of {whole}")
+    out["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"hybrid_rank_check": {
+        k: v for k, v in out.items() if k not in meshes and
+        "_planted_" not in k}}))
+    check(not failures, "; ".join(failures))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -9176,6 +9763,13 @@ def main() -> int:
     yt = yolo_train_phase(dev)
     yt_ref = yolo_train_reference_check(dev)
     vgg = vgg_phase(dev)
+    torch.cuda.empty_cache()
+
+    t43 = time.perf_counter()
+    collectives_phase(dev)
+    fleet_e = ernie_fleet_phase(dev)
+    hybrid_rank_check(dev)
+    log(json.dumps({"phases_43_45_s": time.perf_counter() - t43}))
     gen_paths = {"gen_f16_cache": gen16["f16_cache"]["launches"],
                  "gen_f16_model": gen16["f16_model"]["launches"],
                  "gen_spec": econ["spec"]["launches"],
@@ -9201,6 +9795,7 @@ def main() -> int:
         err = max(c["max_abs_err"] for c in kernels[name])
         by_path = {"serving": launches[name], "train": tl.get(name, 0),
                    "ernie": ernie["launches"].get(name, 0),
+                   "ernie_fleet": fleet_e["launches"].get(name, 0),
                    "bert_finetune": ft["launches"].get(name, 0),
                    "bert_finetune_eval": fte.get(name, 0),
                    **{k: v.get(name, 0) for k, v in amp_paths.items()},
@@ -9284,6 +9879,7 @@ def main() -> int:
               "tile, dS split bf16 hi + lo; f32: CUDA-core kernel"}
     for name, cu, rep, key, plain_key, lib_key, tc in flash_rows:
         by_path = {"train": tl[name], "ernie": ernie["launches"][name],
+                   "ernie_fleet": fleet_e["launches"][name],
                    "bert_finetune": ft["launches"][name],
                    "bert_finetune_eval": fte[name],
                    **{k: v[name] for k, v in amp_paths.items()},
@@ -9344,6 +9940,7 @@ def main() -> int:
     by_path = {"train": tl["fused_adam"],
                "lenet_train": lenet["launches"]["fused_adam"],
                "ernie": ernie["launches"]["fused_adam"],
+               "ernie_fleet": fleet_e["launches"]["fused_adam"],
                "bert_finetune": ft["launches"]["fused_adam"],
                **{k: v["fused_adam"] for k, v in amp_paths.items()},
                "transformer": tf_train["launches"]["fused_adam"],

@@ -43,6 +43,8 @@ on a copy stream), with ``vision.transforms`` and ``vision.datasets``.
 ``serving`` also decodes speculatively, with int8 weights
 (``quantization``), float16 caches and models, resume replay and
 KV-pressure preemption, and serves batch models through ``Server``.
+``distributed`` runs hybrid meshes (``build_mesh``: data, ZeRO-sharded
+and tensor-parallel ranks, the Megatron layers, ``fleet``, the launcher).
 """
 
 import torch as _torch
@@ -60,8 +62,9 @@ from .core.dtype import (bfloat16, bool_, complex64,  # noqa: F401
                          get_default_dtype, int8, int16, int32, int64,
                          set_default_dtype, uint8)
 from .core.generator import get_rng_state, seed, set_rng_state  # noqa: F401
-from .core.place import (CPUPlace, CUDAPlace, device_guard,  # noqa: F401
-                         get_device, set_device)
+from .core.place import (CPUPlace, CUDAPlace, Place,  # noqa: F401
+                         TPUPlace, device_count, device_guard, get_device,
+                         is_compiled_with_tpu, set_device)
 from .core.tensor import Parameter, Tensor, to_tensor  # noqa: F401
 from .framework import ParamAttr, load, save  # noqa: F401
 from . import ops  # noqa: F401
@@ -83,7 +86,88 @@ __all__ = ["amp", "autograd", "distributed", "framework", "io", "nn",
            "crop_tensor", "DataParallel", "set_flags", "get_flags",
            "in_dynamic_mode", "in_dygraph_mode", "is_compiled_with_cuda",
            "create_parameter", "set_printoptions", "get_cuda_rng_state",
-           "set_cuda_rng_state", "promote_types"] + ops.__all__
+           "set_cuda_rng_state", "promote_types", "bool", "VarBase",
+           "batch", "Place", "TPUPlace", "CUDAPinnedPlace", "NPUPlace",
+           "XPUPlace", "is_compiled_with_xpu", "is_compiled_with_npu",
+           "get_cudnn_version", "device_count", "is_compiled_with_tpu",
+           "enable_dygraph", "disable_dygraph", "disable_static"] + \
+    ops.__all__
+
+bool = bool_          # the dtype's Paddle spelling (``paddle.bool``)
+VarBase = Tensor      # the dygraph-era tensor name
+
+
+class CUDAPinnedPlace:
+    """The reference's host-pinned place. The JAX package keeps it as a
+    name for host memory; so does the port (``io.DataLoader`` pins its
+    batches itself)."""
+
+    def __repr__(self):
+        return "CUDAPinnedPlace (compat: host memory)"
+
+
+class NPUPlace:
+    def __init__(self, *a):
+        raise RuntimeError("NPU is not a target of this CUDA build; "
+                           "devices are CPUPlace / CUDAPlace")
+
+
+class XPUPlace:
+    def __init__(self, *a):
+        raise RuntimeError("XPU is not a target of this CUDA build; "
+                           "devices are CPUPlace / CUDAPlace")
+
+
+def batch(reader_fn, batch_size, drop_last=False):
+    """The classic reader batcher (``paddle.batch(train(), 64)``): a
+    reader that yields lists of ``batch_size`` samples, the last one
+    shorter unless ``drop_last``."""
+    def impl():
+        buf = []
+        for s in reader_fn():
+            buf.append(s)
+            if len(buf) == batch_size:
+                yield buf
+                buf = []
+        if buf and not drop_last:
+            yield buf
+    return impl
+
+
+def is_compiled_with_xpu() -> bool:
+    return False
+
+
+def is_compiled_with_npu() -> bool:
+    return False
+
+
+def get_cudnn_version():
+    """cuDNN's version as an int (``8902`` for 8.9.2), None where torch has
+    none. The JAX package, a TPU build, always answers None; the port runs
+    cuDNN on the card (a departure by design, ROADMAP Queue 3)."""
+    return _torch.backends.cudnn.version() \
+        if _torch.backends.cudnn.is_available() else None
+
+
+def enable_dygraph(place=None):
+    """Eager is the only mode: nothing to enable."""
+    return None
+
+
+def disable_static(place=None):
+    """Eager is the only mode: nothing to disable."""
+    return None
+
+
+def disable_dygraph():
+    """Raises, as the JAX package's does: static graphs are not a mode of
+    this build (``enable_static``/``static`` are ROADMAP Queue 1 item
+    10)."""
+    raise RuntimeError(
+        "static graph mode is not a mode of this build (ROADMAP Queue 1 "
+        "item 10); keep the default eager mode instead of globally "
+        "disabling dygraph")
 
 
 def rank(input):

@@ -213,6 +213,11 @@ def _define_builtin_flags() -> None:
                 "or waits on a collective they never make, fails after "
                 "this many seconds instead of hanging the job.",
                 validator=lambda v: v > 0)
+    define_flag("hierarchical_allreduce", False,
+                "Default for DistributedStrategy."
+                "use_hierarchical_allreduce: prefer the two-level "
+                "collectives (collective.hierarchical_all_reduce: "
+                "within a host, then across hosts).")
     # the batch-size bucket policy of resolve_buckets (serving/engine.py;
     # JAX package: core/flags.py serve_max_batch, serve_buckets)
     define_flag("serve_max_batch", 16,

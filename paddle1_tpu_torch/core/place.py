@@ -23,8 +23,9 @@ import torch
 from .device import resolve_device
 from .errors import InvalidArgumentError
 
-__all__ = ["Place", "CPUPlace", "CUDAPlace", "set_device", "get_device",
-           "device_guard", "place_of"]
+__all__ = ["Place", "CPUPlace", "CUDAPlace", "TPUPlace", "set_device",
+           "get_device", "device_guard", "place_of", "device_count",
+           "is_compiled_with_tpu"]
 
 
 class Place:
@@ -66,6 +67,9 @@ class CUDAPlace(Place):
     def torch_device(self) -> torch.device:
         return resolve_device(f"cuda:{self.index}")
 
+
+# the JAX package's accelerator place; the port's accelerator is the card
+TPUPlace = CUDAPlace
 
 _tls = threading.local()
 
@@ -128,3 +132,15 @@ def place_of(t: torch.Tensor) -> Place:
     """The place a tensor lies on."""
     return CPUPlace() if t.device.type == "cpu" else \
         CUDAPlace(t.device.index or 0)
+
+
+def is_compiled_with_tpu() -> bool:
+    """Whether the accelerator this build targets is there: the JAX
+    package probes for a non-CPU JAX backend, the port for a CUDA card."""
+    return torch.cuda.is_available()
+
+
+def device_count() -> int:
+    """The devices of the default backend, as ``jax.device_count()``
+    answers: the cards, or 1 (the CPU) without one."""
+    return torch.cuda.device_count() or 1

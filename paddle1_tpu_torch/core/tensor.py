@@ -543,7 +543,8 @@ def update_in_place(x: torch.Tensor, op, *args, native=None):
     return x
 
 
-_PARAM_ATTRS = ("_param_name", "regularizer", "need_clip", "persistable")
+_PARAM_ATTRS = ("_param_name", "regularizer", "need_clip", "persistable",
+                "sharding_axes")
 
 
 def _copy_param_attrs(src, dst) -> None:
@@ -562,7 +563,7 @@ class ParamBase(torch.nn.Parameter):
     until a layer registers it as ``f"{full_name}.{attr}"``),
     ``trainable`` / ``stop_gradient`` (``requires_grad``),
     ``optimize_attr`` (``{"learning_rate": scale}``), ``regularizer``,
-    ``need_clip`` and ``persistable``; ``ops/patch.py`` gives it the
+    ``need_clip``, ``persistable`` and ``sharding_axes``; ``ops/patch.py`` gives it the
     facade's methods. Ops on it are torch's own: it keeps
     ``torch.nn.Parameter``'s disabled ``__torch_function__``. A deep copy
     keeps the name, as the JAX package's does."""
@@ -580,6 +581,10 @@ class ParamBase(torch.nn.Parameter):
         self.regularizer = None
         self.need_clip = True
         self.persistable = True
+        # per-dimension mesh-axis names, e.g. (None, "mp") for a
+        # column-parallel weight (``text.models.apply_megatron_sharding``);
+        # ``distributed.ParallelEngine`` cuts the tensor to its shard
+        self.sharding_axes = None
 
     @property
     def name(self) -> Optional[str]:

@@ -1,18 +1,45 @@
-"""Distributed training of the port (``paddle1_tpu.distributed`` subset):
-the process-group environment, the collectives over
-``torch.distributed``, ``DataParallel``, ``spawn``, the data-parallel
-``build_mesh``, ``ParallelEngine`` (one device, or data-parallel over
-a mesh) and ``fleet.utils.recompute``."""
+"""Distributed training of the port (``paddle1_tpu.distributed``'s
+collective side): the process-group environment, every collective of
+``collective.py`` over ``torch.distributed``, the hybrid topology
+(``build_mesh``, ``HybridCommunicateGroup``), ``DataParallel``,
+``spawn`` and the launcher, ``ParallelEngine``/``make_train_step`` at any
+mesh with ``pp == 1`` and ``sp == 1`` (data, ZeRO 1-3 and tensor
+parallelism), ``meta_parallel`` and ``fleet``.
 
+Pipeline and sequence parallelism (``pipeline``, ``sequence_parallel``)
+are ROADMAP Queue 1 item 5(iii)-(iv); ``checkpoint``, ``resilience`` and
+``supervisor`` item 6; the parameter server and the embedding services
+item 8."""
+
+from . import env  # noqa: F401
 from . import fleet  # noqa: F401
+from . import meta_parallel  # noqa: F401
+from . import sharding_specs  # noqa: F401
 from .collective import (Group, ReduceOp, all_gather,  # noqa: F401
-                         all_reduce, barrier, broadcast,
+                         all_gather_object, all_reduce, all_to_all,
+                         alltoall, barrier, broadcast,
                          destroy_process_group, differentiable_all_reduce,
                          get_group, get_rank, get_world_size,
-                         is_initialized, new_group, reduce)
+                         hierarchical_all_reduce, irecv, is_initialized,
+                         isend, new_group, recv, reduce, reduce_scatter,
+                         scatter, send, split, wait)
 from .env import current_spmd_axis, spmd_axes  # noqa: F401
 from .parallel import (DataParallel, ParallelEnv,  # noqa: F401
                        init_parallel_env)
-from .parallel_engine import ParallelEngine  # noqa: F401
+from .parallel_engine import ParallelEngine, make_train_step  # noqa: F401
 from .spawn import spawn  # noqa: F401
-from .topology import Mesh, build_mesh  # noqa: F401
+from .topology import (CommunicateTopology,  # noqa: F401
+                       HybridCommunicateGroup, Mesh, MeshDescriptor,
+                       ReshardError, build_mesh, ensure_reshardable,
+                       get_hybrid_communicate_group, mesh_descriptor,
+                       plan_resize, set_hybrid_communicate_group)
+
+
+def __getattr__(name):
+    # ``launch`` resolves lazily, so that ``python -m
+    # paddle1_tpu_torch.distributed.launch`` does not trip runpy's
+    # already-imported warning
+    if name == "launch":
+        import importlib
+        return importlib.import_module(".launch", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,8 +1,12 @@
 """Collective communication API (port of
-``paddle1_tpu/distributed/collective.py``: ``ReduceOp``, ``Group``,
-``new_group``, ``get_group``, ``is_initialized``,
+``paddle1_tpu/distributed/collective.py``, its whole ``__all__``:
+``ReduceOp``, ``Group``, ``new_group``, ``get_group``, ``is_initialized``,
 ``destroy_process_group``, ``all_reduce``, ``broadcast``, ``all_gather``,
-``reduce``, ``barrier``, ``get_rank``, ``get_world_size``).
+``all_gather_object``, ``reduce``, ``reduce_scatter``, ``scatter``,
+``alltoall``/``all_to_all``, ``send``/``recv``, ``isend``/``irecv``,
+``wait``, ``barrier``, ``get_rank``, ``get_world_size``, ``split``,
+``hierarchical_all_reduce`` and the Megatron pairs ``_c_identity``,
+``_mp_allreduce``, ``_c_concat``, ``_c_split``).
 
 The JAX package runs one process for all devices, and a collective is a
 named-axis operation inside an SPMD trace. The port runs one process per
@@ -22,13 +26,26 @@ reference's:
 
 :func:`differentiable_all_reduce` is the SUM all-reduce as an autograd
 function whose backward all-reduces the cotangent with SUM, the
-"psum <-> psum" rule of the reference.
+"psum <-> psum" rule of the reference. The Megatron pairs are autograd
+functions over the model-parallel group (the ``mp`` binding of
+``env.spmd_axes``, else the hybrid group's, else the identity):
+``_c_identity`` is the identity forward and a SUM all-reduce backward
+(Megatron's f), ``_mp_allreduce`` the SUM all-reduce forward and the
+identity backward (g), ``_c_concat`` gathers the last dimension forward
+and takes this rank's slice backward, ``_c_split`` the converse.
+
+Gloo takes CUDA tensors in every collective here (probed on the H100's
+torch by ``tools/torch_hybrid_phases.py --gloo-probe``: all-reduce,
+broadcast, all-gather, reduce-scatter, the single-tensor all-gather,
+all-to-all and scatter), so two ranks can share one card over gloo, as
+``chip_smoke.py``'s cross-rank checks run them; NCCL takes one rank a
+card. Nothing is staged through host memory.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -39,7 +56,12 @@ from . import env
 __all__ = ["ReduceOp", "Group", "new_group", "get_group",
            "destroy_process_group", "is_initialized", "all_reduce",
            "all_gather", "reduce", "broadcast", "barrier", "get_rank",
-           "get_world_size", "differentiable_all_reduce"]
+           "get_world_size", "differentiable_all_reduce",
+           "all_gather_object", "reduce_scatter", "scatter", "alltoall",
+           "all_to_all", "send", "recv", "isend", "irecv", "wait", "split",
+           "hierarchical_all_reduce", "all_gather_into", "_c_identity",
+           "_mp_allreduce",
+           "_c_concat", "_c_split"]
 
 
 class ReduceOp:
@@ -58,16 +80,20 @@ _TORCH_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM,
 
 class Group:
     """A communicator group: this process's rank in it (-1 when not a
-    member), its size, its id, the global ranks it holds, and its
-    ``torch.distributed`` process group (None where none exists)."""
+    member), its size, its id, the global ranks it holds, the mesh axis
+    it spans (``axis``, as the JAX package's; None for a free rank list)
+    and its ``torch.distributed`` process group (None where none
+    exists)."""
 
     def __init__(self, rank: int, nranks: int, gid: int = 0,
-                 ranks: Optional[List[int]] = None, process_group=None):
+                 ranks: Optional[List[int]] = None, process_group=None,
+                 axis: Optional[str] = None):
         self.rank = rank
         self.nranks = nranks
         self.id = gid
         self.ranks = ranks if ranks is not None else list(range(nranks))
         self.process_group = process_group
+        self.axis = axis
 
     @property
     def world_size(self) -> int:
@@ -78,7 +104,7 @@ class Group:
 
     def __repr__(self):
         return (f"Group(rank={self.rank}, nranks={self.nranks}, "
-                f"id={self.id})")
+                f"id={self.id}, axis={self.axis!r})")
 
 
 _group_lock = threading.Lock()
@@ -107,15 +133,21 @@ def destroy_process_group(group: Optional[Group] = None) -> None:
                 dist.destroy_process_group()
             return
         _group_map.pop(group.id, None)
-    if group.process_group is not None and dist.is_initialized():
+    if group.process_group is not None and dist.is_initialized() and \
+            group.process_group is not dist.group.WORLD:
         dist.destroy_process_group(group.process_group)
 
 
 def new_group(ranks: Optional[Sequence[int]] = None,
-              backend: Optional[str] = None) -> Group:
-    """A group over ``ranks`` (default: every rank). With a process group
-    initialized this is a collective call: every rank of the default
-    group makes it, members or not."""
+              backend: Optional[str] = None,
+              axis: Optional[str] = None) -> Group:
+    """A group over ``ranks`` (default: every rank), spanning the mesh
+    axis ``axis`` where given. With a process group initialized, a group
+    of every rank runs on the default process group, one of fewer ranks
+    but more than one is a new process group (a collective call: every
+    rank of the default group makes it, members or not), and one of a
+    single rank in a larger world has none (its collectives are the
+    identity)."""
     with _group_lock:
         gid = _next_gid[0]
         _next_gid[0] += 1
@@ -125,10 +157,14 @@ def new_group(ranks: Optional[Sequence[int]] = None,
     grank = ranks.index(me) if me in ranks else -1
     pg = None
     if dist.is_initialized():
-        pg = dist.new_group(ranks=ranks, backend=backend)
-        if grank < 0:
-            pg = None
-    g = Group(grank, len(ranks), gid=gid, ranks=ranks, process_group=pg)
+        if ranks == list(range(dist.get_world_size())):
+            pg = dist.group.WORLD
+        elif len(ranks) > 1:
+            pg = dist.new_group(ranks=ranks, backend=backend)
+            if grank < 0:
+                pg = None
+    g = Group(grank, len(ranks), gid=gid, ranks=ranks, process_group=pg,
+              axis=axis)
     with _group_lock:
         _group_map[gid] = g
     return g
@@ -273,3 +309,387 @@ def differentiable_all_reduce(x: torch.Tensor,
     if g is None:
         return x
     return _AllReduceSum.apply(x, g)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the collectives
+
+
+def _reduce_scatter_fn():
+    """torch's single-tensor reduce-scatter (renamed
+    ``reduce_scatter_single`` in newer torch, ``reduce_scatter_tensor``
+    before)."""
+    return getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+
+
+def _all_gather_fn():
+    """torch's single-tensor all-gather (``all_gather_single``, else
+    ``all_gather_into_tensor``)."""
+    return getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+
+
+def _reduce_op(op: int):
+    if op == ReduceOp.AVG:
+        return dist.ReduceOp.SUM
+    if op not in _TORCH_OPS:
+        raise InvalidArgumentError(f"unknown ReduceOp {op!r}")
+    return _TORCH_OPS[op]
+
+
+def all_gather_object(object_list: list, obj: Any,
+                      group: Optional[Group] = None) -> None:
+    """Every rank's picklable ``obj``, in group-rank order, appended to
+    ``object_list``."""
+    g = _active(group)
+    if g is None:
+        object_list.append(obj)
+        return
+    out = [None] * g.nranks
+    dist.all_gather_object(out, obj, group=g.process_group)
+    object_list.extend(out)
+
+
+def reduce_scatter(tensor: torch.Tensor, tensor_or_tensor_list,
+                   op: int = ReduceOp.SUM, group: Optional[Group] = None,
+                   sync_op: bool = True) -> torch.Tensor:
+    """Reduce over the group and keep this rank's chunk, written into
+    ``tensor`` (returned). The input is ``[n * chunk, ...]`` or a list of
+    n chunks; chunk i goes to group rank i. ``AVG`` divides the SUM by
+    the group's size."""
+    src = torch.cat(list(tensor_or_tensor_list)) \
+        if isinstance(tensor_or_tensor_list, (list, tuple)) \
+        else tensor_or_tensor_list
+    g = _active(group)
+    if g is None:
+        return tensor.copy_(src.reshape(tensor.shape))
+    if src.shape[0] != g.nranks * tensor.shape[0]:
+        raise InvalidArgumentError(
+            f"reduce_scatter: input of {src.shape[0]} rows is not "
+            f"{g.nranks} x the output's {tensor.shape[0]}")
+    out = tensor if tensor.is_contiguous() else tensor.contiguous()
+    _reduce_scatter_fn()(out, src.contiguous(), _reduce_op(op),
+                         group=g.process_group)
+    if out is not tensor:
+        tensor.copy_(out)
+    if op == ReduceOp.AVG:
+        tensor.div_(g.nranks)
+    return tensor
+
+
+def all_gather_into(out: torch.Tensor, shard: torch.Tensor,
+                    group: Optional[Group] = None) -> torch.Tensor:
+    """Every rank's ``shard`` concatenated along dim 0 into ``out``
+    (``[n * rows, ...]``), in group-rank order: one collective, the
+    inverse of :func:`reduce_scatter` (the ZeRO engine gathers its
+    parameters with it)."""
+    g = _active(group)
+    if g is None:
+        if out.data_ptr() != shard.data_ptr():
+            out.copy_(shard.reshape(out.shape))
+        return out
+    _all_gather_fn()(out, shard.contiguous(), group=g.process_group)
+    return out
+
+
+def scatter(tensor: torch.Tensor,
+            tensor_list: Optional[List[torch.Tensor]] = None,
+            src: int = 0, group: Optional[Group] = None,
+            sync_op: bool = True) -> torch.Tensor:
+    """Group rank ``src``'s ``tensor_list[i]`` into group rank i's
+    ``tensor`` (returned). Only ``src`` needs the list; without a group
+    the first entry is the result (the JAX package's eager form)."""
+    g = _active(group)
+    if g is None:
+        if tensor_list:
+            tensor.copy_(tensor_list[0])
+        return tensor
+    if not 0 <= src < g.nranks:
+        raise InvalidArgumentError(f"scatter src {src} is not a rank of {g}")
+    parts = None
+    if g.rank == src:
+        if not tensor_list or len(tensor_list) != g.nranks:
+            raise InvalidArgumentError(
+                f"scatter: src needs {g.nranks} tensors, got "
+                f"{0 if not tensor_list else len(tensor_list)}")
+        parts = [t.contiguous() for t in tensor_list]
+    out = tensor if tensor.is_contiguous() else tensor.contiguous()
+    dist.scatter(out, parts, src=g.ranks[src], group=g.process_group)
+    if out is not tensor:
+        tensor.copy_(out)
+    return tensor
+
+
+def alltoall(in_tensor_list, out_tensor_list: Optional[list] = None,
+             group: Optional[Group] = None, sync_op: bool = True):
+    """All-to-all: ``in_tensor_list[j]`` (a list of n tensors, or a tensor
+    whose leading dimension is n) goes to group rank j; returns what every
+    rank sent this one, stacked ``[n, ...]`` in group-rank order, and
+    appends its parts to ``out_tensor_list`` when given."""
+    ins = list(in_tensor_list) if isinstance(in_tensor_list, (list, tuple)) \
+        else list(torch.unbind(in_tensor_list, 0))
+    g = _active(group)
+    if g is None:
+        outs = ins
+    else:
+        if len(ins) != g.nranks:
+            raise InvalidArgumentError(
+                f"alltoall: {len(ins)} inputs for a group of {g.nranks}")
+        ins = [t.contiguous() for t in ins]
+        outs = [torch.empty_like(t) for t in ins]
+        dist.all_to_all(outs, ins, group=g.process_group)
+    if out_tensor_list is not None:
+        out_tensor_list.extend(outs)
+    return torch.stack(outs)
+
+
+all_to_all = alltoall
+
+
+def _p2p_group(group, peer: int, what: str) -> Group:
+    g = _active(group)
+    if g is None:
+        raise PreconditionNotMetError(
+            f"{what} needs a peer: a process group of more than one rank "
+            "(distributed.init_parallel_env)")
+    if not 0 <= peer < g.nranks or peer == g.rank:
+        raise InvalidArgumentError(f"{what}: peer {peer} is not another "
+                                   f"rank of {g}")
+    return g
+
+
+def send(tensor: torch.Tensor, dst: int = 0, group: Optional[Group] = None,
+         sync_op: bool = True) -> None:
+    """Send ``tensor`` to group rank ``dst`` (blocking)."""
+    g = _p2p_group(group, dst, "send")
+    dist.send(tensor.contiguous(), dst=g.ranks[dst], group=g.process_group)
+
+
+def recv(tensor: torch.Tensor, src: int = 0, group: Optional[Group] = None,
+         sync_op: bool = True) -> torch.Tensor:
+    """Receive into ``tensor`` (returned) from group rank ``src``."""
+    g = _p2p_group(group, src, "recv")
+    buf = tensor if tensor.is_contiguous() else tensor.contiguous()
+    dist.recv(buf, src=g.ranks[src], group=g.process_group)
+    return tensor if buf is tensor else tensor.copy_(buf)
+
+
+class _Work:
+    """A started point-to-point transfer: ``wait()`` blocks until it is
+    done (and, for a receive into a strided tensor, copies it there)."""
+
+    def __init__(self, work, finish=None):
+        self._work, self._finish = work, finish
+
+    def wait(self):
+        self._work.wait()
+        if self._finish is not None:
+            self._finish()
+            self._finish = None
+        return True
+
+    def is_completed(self) -> bool:
+        return self._work.is_completed()
+
+
+def isend(tensor: torch.Tensor, dst: int = 0,
+          group: Optional[Group] = None) -> _Work:
+    """Start sending ``tensor`` to group rank ``dst``."""
+    g = _p2p_group(group, dst, "isend")
+    return _Work(dist.isend(tensor.contiguous(), dst=g.ranks[dst],
+                            group=g.process_group))
+
+
+def irecv(tensor: torch.Tensor, src: int = 0,
+          group: Optional[Group] = None) -> _Work:
+    """Start receiving into ``tensor`` from group rank ``src``; the data
+    is there after ``wait()``."""
+    g = _p2p_group(group, src, "irecv")
+    if not tensor.is_contiguous():
+        buf = tensor.contiguous()
+        return _Work(dist.irecv(buf, src=g.ranks[src],
+                                group=g.process_group),
+                     lambda: tensor.copy_(buf))
+    return _Work(dist.irecv(tensor, src=g.ranks[src],
+                            group=g.process_group))
+
+
+def wait(tensor: torch.Tensor, group: Optional[Group] = None,
+         use_calc_stream: bool = True) -> None:
+    """Stream ordering (the reference's ``c_wait_comm``): the port's
+    collectives are ordered with the card's compute by torch itself, so
+    there is nothing to wait for, as in the JAX package."""
+    return None
+
+
+# ---------------------------------------------------------------------------
+# the Megatron pairs (reference collective.py:732-813)
+
+
+def _mp_group(group) -> Optional[Group]:
+    """The model-parallel group a Megatron pair runs over, or None (the
+    identity): ``group``, else the ``mp`` binding of ``env.spmd_axes``,
+    else the hybrid group's, when it has more than one rank."""
+    if group is None:
+        group = env.current_spmd_axis("mp")
+    if group is None:
+        from .topology import get_hybrid_communicate_group
+        hcg = get_hybrid_communicate_group()
+        group = hcg.get_model_parallel_group() if hcg is not None else None
+    if group is None or group.nranks == 1:
+        return None
+    return _active(group)
+
+
+def _sum(x: torch.Tensor, g: Group) -> torch.Tensor:
+    y = x.contiguous().clone()
+    dist.all_reduce(y, dist.ReduceOp.SUM, group=g.process_group)
+    return y
+
+
+def _gather_last(x: torch.Tensor, g: Group) -> torch.Tensor:
+    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+             for _ in range(g.nranks)]
+    dist.all_gather(parts, x.contiguous(), group=g.process_group)
+    return torch.cat(parts, dim=-1)
+
+
+def _slice_last(x: torch.Tensor, g: Group) -> torch.Tensor:
+    n = x.shape[-1]
+    if n % g.nranks:
+        raise InvalidArgumentError(
+            f"c_split: last dim {n} not divisible by the model-parallel "
+            f"group's {g.nranks} ranks")
+    k = n // g.nranks
+    return x[..., g.rank * k:(g.rank + 1) * k].contiguous()
+
+
+class _Identity(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _sum(dy, ctx.g), None
+
+
+class _AllReduceFwd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        return _sum(x, g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _Concat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return _gather_last(x, g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _slice_last(dy, ctx.g), None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return _slice_last(x, g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _gather_last(dy, ctx.g), None
+
+
+def _c_identity(tensor: torch.Tensor, group: Optional[Group] = None,
+                skip_c_identity_dynamic: bool = False) -> torch.Tensor:
+    """Megatron's f: the identity forward, the SUM all-reduce of the
+    gradient over the model-parallel group backward."""
+    g = _mp_group(group)
+    return tensor if g is None else _Identity.apply(tensor, g)
+
+
+def _mp_allreduce(tensor: torch.Tensor,
+                  group: Optional[Group] = None) -> torch.Tensor:
+    """Megatron's g: the SUM all-reduce forward, the identity backward."""
+    g = _mp_group(group)
+    return tensor if g is None else _AllReduceFwd.apply(tensor, g)
+
+
+def _c_concat(tensor: torch.Tensor,
+              group: Optional[Group] = None) -> torch.Tensor:
+    """Gather the last dimension over the model-parallel group (a
+    column-parallel output); backward takes this rank's slice."""
+    g = _mp_group(group)
+    return tensor if g is None else _Concat.apply(tensor, g)
+
+
+def _c_split(tensor: torch.Tensor,
+             group: Optional[Group] = None) -> torch.Tensor:
+    """This rank's slice of the last dimension (a row-parallel input);
+    backward gathers the gradient."""
+    g = _mp_group(group)
+    return tensor if g is None else _Split.apply(tensor, g)
+
+
+def split(x, num_or_sections, axis=0, group=None):
+    """``paddle.distributed.split``: only the even split of the last
+    dimension over the model-parallel group (``_c_split``), as in the JAX
+    package; anything else raises rather than mis-slicing."""
+    ndim = x.dim()
+    if axis not in (-1, ndim - 1):
+        raise InvalidArgumentError(
+            "distributed.split only splits the last dim over mp "
+            "(c_split); for other layouts use meta_parallel's "
+            "ColumnParallelLinear/RowParallelLinear")
+    n = group.nranks if group is not None else (
+        (_mp_group(None) or Group(0, 1)).nranks)
+    if isinstance(num_or_sections, int) and num_or_sections not in (n, -1):
+        raise InvalidArgumentError(
+            f"split num_or_sections={num_or_sections} must equal the "
+            f"group size {n}")
+    return _c_split(x, group)
+
+
+def _axis_group(g):
+    """A group given as a ``Group`` or as an axis name of the hybrid
+    group's mesh."""
+    if isinstance(g, Group) or g is None:
+        return g
+    from .topology import get_hybrid_communicate_group
+    hcg = get_hybrid_communicate_group()
+    if hcg is None:
+        raise PreconditionNotMetError(
+            f"axis {g!r} names no group: build the hybrid group first "
+            "(fleet.init or topology.HybridCommunicateGroup)")
+    return hcg.mesh.groups[hcg.axis_name(g)]
+
+
+def hierarchical_all_reduce(x: torch.Tensor, intra_axis, inter_axis
+                            ) -> torch.Tensor:
+    """Two-level SUM all-reduce (the reference's hierarchical_allreduce):
+    reduce-scatter over ``intra_axis`` so each rank owns 1/n of ``x``,
+    all-reduce the shards over ``inter_axis``, all-gather back over
+    ``intra_axis``; where dim 0 does not divide over the intra group, the
+    flat all-reduce over both. The axes are groups, or axis names of the
+    hybrid group's mesh. Returns a new tensor."""
+    intra, inter = _axis_group(intra_axis), _axis_group(inter_axis)
+    gi = _active(intra) if intra is not None else None
+    n = gi.nranks if gi is not None else 1
+    if x.dim() >= 1 and x.shape[0] % n == 0 and n > 1:
+        shard = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                            dtype=x.dtype, device=x.device)
+        reduce_scatter(shard, x.contiguous(), ReduceOp.SUM, intra)
+        all_reduce(shard, ReduceOp.SUM, inter)
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        return all_gather_into(out, shard, intra)
+    y = x.detach().clone()
+    all_reduce(y, ReduceOp.SUM, intra)
+    return all_reduce(y, ReduceOp.SUM, inter)

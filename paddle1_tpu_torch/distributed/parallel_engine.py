@@ -1,6 +1,6 @@
-"""Training engine (port of ``ParallelEngine`` from
-``paddle1_tpu/distributed/parallel_engine.py``): one device, or
-data-parallel over a ``dp`` mesh.
+"""Training engine (port of ``ParallelEngine`` and ``make_train_step``
+from ``paddle1_tpu/distributed/parallel_engine.py``): one device, or a
+hybrid mesh of data, ZeRO-sharded and tensor-parallel ranks.
 
 ``ParallelEngine(model, optimizer, loss_fn, ...).step(batch)`` runs one
 optimizer step: forward and backward of ``loss_fn(model, batch)``, then
@@ -67,40 +67,77 @@ ahead of the host: a step waits (without a readback) for the one
 ``inflight_window`` back. An ``LRScheduler`` given to the optimizer is
 stepped once per optimizer step.
 
-With ``mesh=build_mesh(dp=n)`` (or ``degrees={"dp": n}``) each of the n
-ranks (processes, after ``init_parallel_env``) runs the step on its equal
-shard of the global batch, and the step computes what the JAX engine's
-computes on the batch sharded over its mesh
-(``parallel_engine.py:597-670, 768-809``):
+With ``mesh=build_mesh(...)`` (or ``degrees={...}``) each rank
+(a process, after ``init_parallel_env``) runs the step on its part of the
+global batch and holds its part of the model, and the step computes what
+the JAX engine's computes on the same mesh, where GSPMD places every
+collective (``parallel_engine.py:597-670, 768-809``). Here the engine
+places them itself, explicitly, at every mesh with ``pp == 1`` and
+``sp == 1``:
 
-* at construction rank 0 broadcasts the parameters and floating buffers;
-* :meth:`shard_batch` cuts a global batch into this rank's shard (a batch
-  that does not divide over the ranks raises, as ``benches.py:106-108``;
-  under ``grad_accum`` the cut is along the micro-batch axis);
-* the forward runs under the ``dp`` binding (``env.spmd_axes``), so every
-  training-mode batch norm normalizes with the global batch's statistics
-  (``nn/functional/norm.py``): one differentiable all-reduce per batch
-  norm each way. This holds at world size 1 too;
-* after the backward the gradients and the loss are averaged over the
-  ranks in ONE all-reduce of a flat f32 buffer (the persistent gradient
-  buffers are views into it), before the optimizer: every rank applies
-  the same update, and the step returns the global-batch mean loss;
+* at construction global rank 0 broadcasts the parameters and floating
+  buffers (a tensor-parallel layer's shards: the first data rank of each
+  model-parallel rank);
+* :meth:`shard_batch` cuts a global batch into this rank's part over the
+  data ranks (``dp`` x ``sharding``, as the JAX ``shard_batch`` cuts over
+  ``("dp", "sharding")``; the ``mp`` ranks of a data rank see the same
+  rows). A batch that does not divide raises (``benches.py:106-108``);
+  under ``grad_accum`` the cut is along the micro-batch axis;
+* ``mp > 1``: every tensor ``text.models.apply_megatron_sharding``
+  tagged is cut to this rank's model-parallel shard, and the layers that
+  hold them run with Megatron's f/g pairs
+  (``meta_parallel.shard_tagged_layers``: column-, row- and
+  vocabulary-parallel ``Linear``/``Embedding``, BERT's tied decoder
+  gathering its logits); attention runs on this rank's heads;
+* the forward runs under the data group's ``dp`` binding
+  (``env.spmd_axes``), so every training-mode batch norm normalizes with
+  the global batch's statistics (one differentiable all-reduce per batch
+  norm each way). This holds at world size 1 too;
+* the gradients land in one flat f32 buffer (the persistent gradient
+  buffers are views into it) and are averaged over the data ranks. At
+  ``sharding == 1`` (every ZeRO stage is then the identity) or
+  ``zero_stage=0`` (the ``sharding`` axis then only carries data) that is
+  ONE all-reduce that carries the loss too, and every rank applies the
+  same update;
+* ``sharding = n > 1`` with ``zero_stage`` 1-3: the flat buffer (padded
+  to a multiple of n) is cut into n contiguous shards and sharding rank r
+  owns shard r: its optimizer slots (1/n of them, the cut running
+  through tensors: each piece of a tensor keeps its tensor's name, decay
+  and rate, so row 6's table holds partial tensors), and the update.
+  Stage 1 all-reduces the gradients over the data ranks; stages 2-3
+  all-reduce them over ``dp`` and reduce-scatter them over ``sharding``
+  into a buffer of the rank's shard. The optimizer (row 6 on the card)
+  runs over the rank's shard, and the parameters, views of one flat f32
+  buffer, are all-gathered over ``sharding``. Stage 3 keeps only the
+  shard at rest: the flat parameter buffer is released after each step
+  and gathered again, whole, before the next forward, for all of the
+  forward and backward (:meth:`sync_model` gathers it for use outside the
+  engine). What ZeRO saves is the slots only: every stage keeps the whole
+  flat f32 gradient buffer through the backward (stages 2-3 a shard's
+  buffer besides), and stage 3's peak is the whole parameter buffer
+  gathered plus its shard, above stage 2's (no per-bucket reduce-scatter
+  and no per-layer gather yet: ROADMAP.md Queue 1 item 5(v));
+* ``clip_global_norm`` and ``check_finite`` read the whole gradient: the
+  sums over shards are all-reduced over ``sharding`` and ``mp``, a tensor
+  replicated over ``mp`` counted once;
 * the running statistics blend the global statistics, the same on every
   rank.
 
-``zero_stage`` (0-3) is accepted: the sharding degree is 1 (``build_mesh``
-raises above it), and at degree 1 every stage is the identity, as in the
-JAX engine on one device. ``donate`` is accepted and changes nothing: the
-port updates parameters and slots in place. ``batch_spec`` other than
-None, ``pp_microbatches`` (pipelining) and ``save_checkpoint``/
-``load_checkpoint`` are later slices (ROADMAP.md Queue 1 items 5 and 6)
-and raise.
+A ZeRO shard's optimizer is a shallow copy of ``optimizer`` over the
+pieces (``shard_optimizer``); ``optimizer`` keeps the learning rate and
+its schedule. An optimizer ``grad_clip`` under ZeRO or ``mp`` raises: use
+``clip_global_norm``. ``donate`` is accepted and changes nothing: the
+port updates parameters and slots in place. ``pp > 1``, ``sp > 1``,
+``batch_spec`` other than None and ``pp_microbatches`` (pipeline and
+sequence parallelism, ROADMAP.md Queue 1 items 5(iii)-(iv)) and
+``save_checkpoint``/``load_checkpoint`` (item 6) raise.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -114,7 +151,8 @@ from ..nn.functional.norm import collect_stat_updates
 from . import collective, env
 from .topology import Mesh, build_mesh
 
-__all__ = ["ParallelEngine", "ShardedBatch", "snapshot_", "keep_where_"]
+__all__ = ["ParallelEngine", "ShardedBatch", "snapshot_", "keep_where_",
+           "make_train_step"]
 
 _AMP = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 _ALIGN = 64          # elements: each gradient view starts 256 B aligned
@@ -143,12 +181,53 @@ class _LossModule(nn.Module):
         return self.loss_fn(self.m, batch)
 
 
+def _axes(t) -> tuple:
+    """A tensor's ``sharding_axes`` as a tuple (empty where it has none)."""
+    return tuple(getattr(t, "sharding_axes", None) or ())
+
+
 def _map(fn, batch):
     if isinstance(batch, dict):
         return {k: fn(v) for k, v in batch.items()}
     if isinstance(batch, (list, tuple)):
         return type(batch)(fn(v) for v in batch)
     return fn(batch)
+
+
+def _micro_batches(feed, n: int) -> list:
+    """The ``n`` micro-batches of a feed whose leaves are ``[n, ...]``
+    (the feed itself at ``n == 1``)."""
+    return [feed] if n == 1 else \
+        [_map(lambda a, i=i: a[i], feed) for i in range(n)]
+
+
+def _blend(old: torch.Tensor, stats, m: float) -> torch.Tensor:
+    """A running statistic after the step: ``m * cur + (1 - m) * stat``
+    from its value before the step, once per micro-batch in order."""
+    cur = old
+    for stat in stats:
+        cur = m * cur + (1 - m) * stat
+    return cur
+
+
+def _global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The L2 norm over every gradient, in f32."""
+    return torch.linalg.vector_norm(
+        torch.stack(torch._foreach_norm(list(grads), 2)).float())
+
+
+def _clip_scale(norm: torch.Tensor, c: float) -> torch.Tensor:
+    """``clip_global_norm``'s factor ``min(1, c / (||g|| + 1e-6))``."""
+    return torch.clamp(c / (norm + 1e-6), max=1.0)
+
+
+def _all_finite(loss: torch.Tensor,
+                grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Device bool: the loss and every gradient are finite (a sum of |g|
+    is finite exactly when each term is, short of overflowing f32's
+    3.4e38)."""
+    return torch.isfinite(loss) & torch.isfinite(
+        torch.stack(torch._foreach_norm(list(grads), 1))).all()
 
 
 def _signature(batch) -> tuple:
@@ -215,12 +294,22 @@ class ParallelEngine:
         if batch_spec is not None:
             raise UnimplementedError(
                 "ParallelEngine: batch_spec is not ported; the port cuts "
-                "the batch's leading axis over dp (ROADMAP.md Queue 1 "
-                "item 5)")
+                "the batch's leading axis over the data ranks (ROADMAP.md "
+                "Queue 1 item 5(iii))")
         if pp_microbatches is not None:
             raise UnimplementedError(
                 "ParallelEngine: pipeline parallelism (pp_microbatches) is "
-                "ROADMAP.md Queue 1 item 5")
+                "ROADMAP.md Queue 1 item 5(iii)")
+        if mesh is None and degrees is not None:
+            mesh = build_mesh(**degrees)
+        if mesh is not None and mesh.shape["pp"] > 1:
+            raise UnimplementedError(
+                "ParallelEngine: pipeline parallelism (pp > 1) is "
+                "ROADMAP.md Queue 1 item 5(iii)")
+        if mesh is not None and mesh.shape["sp"] > 1:
+            raise UnimplementedError(
+                "ParallelEngine: sequence parallelism (sp > 1) is "
+                "ROADMAP.md Queue 1 item 5(iv)")
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
@@ -267,15 +356,18 @@ class ParallelEngine:
         self.trace_count = 0
         self._seen_sigs: Dict[str, set] = {}
         self._backup: Optional[List[torch.Tensor]] = None
-        if mesh is None and degrees is not None:
-            mesh = build_mesh(**degrees)
         self.mesh = mesh
         self._flat = None
+        self._zero = None        # the ZeRO shard's state (sharding > 1)
+        self._mp = None          # the model-parallel group (mp > 1)
+        self._opt = optimizer    # the optimizer that runs the update
         if mesh is not None:
-            self._init_dp()
+            self._init_mesh()
         else:
             self._grads = [torch.zeros_like(t)
                            for t in self._train + self.buffers]
+            self._opt_params = self._train + self.buffers
+            self._opt_grads = self._grads
 
     @staticmethod
     def _flip_recompute(model: nn.Module) -> None:
@@ -291,29 +383,133 @@ class ParallelEngine:
                 "(TransformerEncoder); wrap your own blocks with "
                 "fleet.utils.recompute for per-segment remat")
 
-    def _init_dp(self):
-        """Rank 0's parameters and floating buffers everywhere; the
-        gradient buffers are views into one flat f32 buffer whose last
-        element carries the loss (the only gradient storage: no second
-        copy)."""
-        group = self.mesh.group
+    def _init_mesh(self):
+        """Rank 0's parameters and floating buffers everywhere, the
+        tensor-parallel cut (``mp > 1``), and the flat f32 gradient buffer
+        (the persistent gradient buffers are views into it; its last
+        element carries the loss at ``sharding == 1``); at ``sharding >
+        1`` the ZeRO shard (:meth:`_init_zero`)."""
+        m = self.mesh
         with torch.no_grad():
+            world = collective.get_group(0)
             for t in self.params + self.buffers:
-                collective.broadcast(t.data, 0, group)
+                if not getattr(t, "_mp_local", False):
+                    collective.broadcast(t.data, 0, world)
+            if m.shape["mp"] > 1:
+                from .meta_parallel.mp_layers import shard_tagged_layers
+                self._mp = m.groups["mp"]
+                shard_tagged_layers(self.model, self._mp)
+            for t in self.params:
+                if getattr(t, "_mp_local", False):
+                    collective.broadcast(t.data, 0, m.data_group)
         masters = self._train + self.buffers
         bad = [t.dtype for t in masters if t.dtype != torch.float32]
         if bad:
             raise InvalidArgumentError(
-                "ParallelEngine: the dp path averages gradients in one f32 "
+                "ParallelEngine: the mesh path reduces gradients in one f32 "
                 f"buffer; the masters must be f32, got {sorted(set(bad))}")
+        if (self._mp is not None or (m.shape["sharding"] > 1 and
+                                     self.zero_stage >= 1)) and \
+                self.optimizer._grad_clip is not None:
+            raise InvalidArgumentError(
+                "ParallelEngine: an optimizer grad_clip sees one shard "
+                "under ZeRO or model parallelism; pass clip_global_norm= "
+                "to the engine, which reads the whole gradient")
+        # count a tensor replicated over mp once in the global norm
+        self._mp_weight = [1.0 if self._mp is None or self._mp.rank == 0
+                           or "mp" in _axes(t) else 0.0 for t in masters]
         offs, n = [], 0
         for t in masters:
             offs.append(n)
             n += -(-t.nelement() // _ALIGN) * _ALIGN
+        shards = m.shape["sharding"] if self.zero_stage >= 1 else 1
+        if shards > 1:
+            n = -(-n // (shards * _ALIGN)) * shards * _ALIGN
         self._flat = torch.zeros(n + 1, dtype=torch.float32,
                                  device=self.device)
+        self._offs = offs
         self._grads = [self._flat[o:o + t.nelement()].view(t.shape)
                        for o, t in zip(offs, masters)]
+        self._opt_params, self._opt_grads = masters, self._grads
+        self._opt_weight = self._mp_weight
+        if shards > 1:
+            self._init_zero(masters, offs, n)
+
+    def _init_zero(self, masters, offs, n):
+        """ZeRO over the ``sharding`` group: the masters become views of
+        one flat f32 parameter buffer laid out as the gradient buffer;
+        sharding rank r owns elements ``[r * S, (r + 1) * S)``, and the
+        update runs over the pieces of the masters there (1-D views that
+        keep their tensor's rate, decay and regularizer, named after it)
+        with a shallow copy of the optimizer holding their slots."""
+        g = self.mesh.groups["sharding"]
+        size = n // g.nranks
+        lo, hi = g.rank * size, (g.rank + 1) * size
+        pflat = torch.zeros(n, dtype=torch.float32, device=self.device)
+        with torch.no_grad():
+            for o, t in zip(offs, masters):
+                view = pflat[o:o + t.nelement()].view(t.shape)
+                view.copy_(t.data)
+                t.data = view
+        stage3 = self.zero_stage >= 3
+        pbase = pflat[lo:hi].clone() if stage3 else pflat[lo:hi]
+        gbase = self._flat[lo:hi] if self.zero_stage == 1 else \
+            torch.zeros(size, dtype=torch.float32, device=self.device)
+        names = dict(zip(map(id, self.optimizer._params),
+                         self.optimizer.param_names()))
+        own = dict(zip(map(id, self.params), self.names))
+        own.update(zip(map(id, self.buffers), self.buffer_names))
+        pieces, gpieces, pnames, weights = [], [], [], []
+        for o, t, w in zip(offs, masters, self._mp_weight):
+            a, b = max(o, lo), min(o + t.nelement(), hi)
+            if a >= b:
+                continue
+            piece = pbase[a - lo:b - lo]
+            for attr in ("optimize_attr", "regularizer", "need_clip"):
+                if hasattr(t, attr):
+                    setattr(piece, attr, getattr(t, attr))
+            pieces.append(piece)
+            gpieces.append(gbase[a - lo:b - lo])
+            pnames.append(names.get(id(t)) or own[id(t)])
+            weights.append(w)
+        opt = copy.copy(self.optimizer)
+        opt._params, opt._names = pieces, pnames
+        opt._slots, opt._step_t = {}, None
+        self._opt = opt
+        self._opt_params, self._opt_grads = pieces, gpieces
+        self._opt_weight = weights
+        self._zero = {"group": g, "lo": lo, "hi": hi, "n": n,
+                      "pflat": pflat, "pshard": pbase, "gshard": gbase,
+                      "gathered": True}
+        if stage3:
+            self._release_params()
+
+    @property
+    def shard_optimizer(self):
+        """The optimizer that updates this rank's ZeRO shard (``optimizer``
+        itself at ``sharding == 1``); it holds the slots."""
+        return self._opt
+
+    def _gather_params(self) -> None:
+        """ZeRO: every rank's parameter shard into the flat parameter
+        buffer (stage 3 first re-allocates the buffer it released)."""
+        z = self._zero
+        if z["gathered"]:
+            return
+        pflat = z["pflat"]
+        store = pflat.untyped_storage()
+        if store.nbytes() == 0:
+            store.resize_(z["n"] * pflat.element_size())
+        # stages 1-2 own their shard inside the buffer: gather a copy
+        shard = z["pshard"] if self.zero_stage >= 3 else z["pshard"].clone()
+        collective.all_gather_into(pflat, shard, z["group"])
+        z["gathered"] = True
+
+    def _release_params(self) -> None:
+        """ZeRO stage 3: keep only the shard at rest."""
+        z = self._zero
+        z["pflat"].untyped_storage().resize_(0)
+        z["gathered"] = False
 
     # -- data placement -----------------------------------------------------
 
@@ -338,7 +534,7 @@ class ParallelEngine:
             _map(check, batch)
         if self.mesh is None:
             return ShardedBatch(self._feed(batch))
-        n, r = self.mesh.group.nranks, self.mesh.group.rank
+        n, r = self.mesh.data_group.nranks, self.mesh.data_group.rank
         axis = 1 if self.grad_accum > 1 else 0
 
         def cut(a):
@@ -477,15 +673,17 @@ class ParallelEngine:
     def _run(self, feed, lr: float) -> torch.Tensor:
         """One step on a fed batch: the loss (f32, 0-d), or ``[loss,
         notfinite]`` under ``check_finite``."""
+        if self._zero is not None:
+            self._gather_params()
         leaves = self._leaves()
         diff = [leaves[k] for k in self._diff_keys]
-        micro = [feed] if self.grad_accum == 1 else \
-            [_map(lambda a, i=i: a[i], feed) for i in range(self.grad_accum)]
         losses, stat_runs = [], []
-        for i, mb in enumerate(micro):
+        for i, mb in enumerate(_micro_batches(feed, self.grad_accum)):
             with torch.enable_grad():
                 bind = contextlib.nullcontext() if self.mesh is None else \
-                    env.spmd_axes(dp=self.mesh.group)
+                    env.spmd_axes(dp=self.mesh.data_group) \
+                    if self._mp is None else \
+                    env.spmd_axes(dp=self.mesh.data_group, mp=self._mp)
                 with collect_stat_updates() as stats, bind:
                     loss = torch.func.functional_call(self._wrapper, leaves,
                                                       (mb,))
@@ -509,56 +707,130 @@ class ParallelEngine:
                 loss = torch.stack(losses).mean()
             else:
                 loss = losses[0]
-            if self._flat is not None:
+            if self._zero is not None:
+                loss = self._reduce_zero(loss)
+            elif self._flat is not None:
                 self._flat[-1:].copy_(loss.reshape(1))
                 collective.all_reduce(self._flat, collective.ReduceOp.AVG,
-                                      self.mesh.group)
+                                      self.mesh.data_group)
                 loss = self._flat[-1].clone()
             finite = self._finite(loss) if self.check_finite else None
             if self.clip_global_norm is not None:
                 self._clip(self.clip_global_norm)
             blends = self._stat_blends(leaves, stat_runs)
+            del leaves, diff
             if finite is not None:
                 state = self._keep_state()
                 if self._backup is None:
                     self._backup = [torch.empty_like(t) for t in state]
                 snapshot_(self._backup, state)
-        self.optimizer.apply(self._train + self.buffers, self._grads, lr)
+        self._opt.apply(self._opt_params, self._opt_grads, lr)
         with torch.no_grad():
-            for buf, old, seq, m in blends:
-                cur = old
-                for stat in seq:
-                    cur = m * cur + (1 - m) * stat
-                buf.copy_(cur.to(buf.dtype))
+            if self._zero is not None:
+                self._zero_finish(blends, finite, state if finite is not None
+                                  else None)
+            else:
+                for buf, old, seq, m in blends:
+                    buf.copy_(_blend(old, seq, m).to(buf.dtype))
+                if finite is not None:
+                    keep_where_(state, self._backup, finite)
             if finite is None:
                 return loss
-            keep_where_(state, self._backup, finite)
-            step_t = getattr(self.optimizer, "_step_t", None)
+            step_t = getattr(self._opt, "_step_t", None)
             if step_t is not None:     # the device step count stays too
                 step_t.sub_((~finite).float())
             return torch.stack([loss, (~finite).float()])
 
+    def _zero_finish(self, blends, finite, state) -> None:
+        """ZeRO after the update of this rank's shard: the keep-select of
+        a non-finite step on the shard, the parameters gathered (stages
+        1-2; stage 3 only where running statistics must blend), the
+        blends (kept back too on a non-finite step), and at stage 3 the
+        flat parameter buffer released."""
+        z = self._zero
+        if finite is not None:
+            keep_where_(state, self._backup, finite)
+        if self.zero_stage < 3 or blends:
+            z["gathered"] = False
+            self._gather_params()
+        for buf, old, seq, m in blends:
+            cur = _blend(old, seq, m)
+            if finite is not None:
+                cur = torch.where(finite, cur, old)
+            buf.copy_(cur.to(buf.dtype))
+        if self.zero_stage >= 3:
+            if blends:
+                z["pshard"].copy_(z["pflat"][z["lo"]:z["hi"]])
+            self._release_params()
+
+    def _reduce_zero(self, loss: torch.Tensor) -> torch.Tensor:
+        """ZeRO: the mean gradient over the data ranks, this rank's shard
+        of it in ``_opt_grads`` (stage 1: one all-reduce of the flat
+        buffer over the data ranks; stages 2-3: over ``dp``, then a
+        reduce-scatter over ``sharding``), and the mean loss."""
+        z, m = self._zero, self.mesh
+        flat = self._flat[:z["n"]]
+        lbuf = loss.reshape(1).clone()
+        collective.all_reduce(lbuf, collective.ReduceOp.AVG, m.data_group)
+        if self.zero_stage == 1:
+            collective.all_reduce(flat, collective.ReduceOp.AVG,
+                                  m.data_group)
+        else:
+            if m.shape["dp"] > 1:
+                collective.all_reduce(flat, collective.ReduceOp.SUM,
+                                      m.groups["dp"])
+            collective.reduce_scatter(z["gshard"], flat,
+                                      collective.ReduceOp.SUM, z["group"])
+            z["gshard"].div_(float(m.data_group.nranks))
+        return lbuf[0]
+
+    def _dist_groups(self) -> List[collective.Group]:
+        """The groups a sum over the whole gradient reduces over: the
+        ZeRO shards and the model-parallel ranks."""
+        out = []
+        if self._zero is not None:
+            out.append(self._zero["group"])
+        if self._mp is not None:
+            out.append(self._mp)
+        return out
+
     def _finite(self, loss: torch.Tensor) -> torch.Tensor:
-        """Device bool: the loss and every gradient are finite (a sum of
-        |g| is finite exactly when each term is, short of overflowing
-        f32's 3.4e38)."""
-        norms = torch._foreach_norm(self._grads, 1)
-        return torch.isfinite(loss) & torch.isfinite(torch.stack(norms)).all()
+        """Device bool: the loss and every gradient are finite
+        (:func:`_all_finite`), over every shard under ZeRO or mp."""
+        groups = self._dist_groups()
+        if not groups:
+            return _all_finite(loss, self._opt_grads)
+        norms = torch._foreach_norm(self._opt_grads, 1)
+        bad = (~torch.isfinite(torch.stack(norms))).any().float().reshape(1)
+        for g in groups:
+            collective.all_reduce(bad, collective.ReduceOp.MAX, g)
+        return torch.isfinite(loss) & (bad[0] == 0)
 
     def _clip(self, c: float) -> None:
-        """Scale every gradient by ``min(1, c / (||g|| + 1e-6))``."""
-        norms = torch._foreach_norm(self._grads, 2)
-        gn = torch.linalg.vector_norm(torch.stack(norms).float())
-        scale = torch.clamp(c / (gn + 1e-6), max=1.0)
-        torch._foreach_mul_(self._grads, scale)
+        """Scale every gradient by ``min(1, c / (||g|| + 1e-6))``, the norm
+        over the whole model (each ZeRO and mp shard once, a tensor
+        replicated over mp once)."""
+        groups = self._dist_groups()
+        if not groups:
+            gn = _global_norm(self._opt_grads)
+        else:
+            norms = torch._foreach_norm(self._opt_grads, 2)
+            w = torch.tensor(self._opt_weight, dtype=torch.float32,
+                             device=self.device)
+            sq = (torch.stack(norms).float() ** 2 * w).sum().reshape(1)
+            for g in groups:
+                collective.all_reduce(sq, collective.ReduceOp.SUM, g)
+            gn = torch.sqrt(sq[0])
+        torch._foreach_mul_(self._opt_grads, _clip_scale(gn, c))
 
     def _keep_state(self) -> List[torch.Tensor]:
         """What a skipped step must leave as it was: the parameters and
-        floating buffers the optimizer updates and their slots."""
-        opt = self.optimizer
-        masters = self._train + self.buffers
-        return masters + [opt._slots_for(t)[n] for t in masters
-                          for n in opt._slot_names]
+        floating buffers the optimizer updates (this rank's pieces under
+        ZeRO) and their slots."""
+        opt = self._opt
+        return list(self._opt_params) + [
+            opt._slots_for(t)[n] for t in self._opt_params
+            for n in opt._slot_names]
 
     def _stat_blends(self, leaves, stat_runs):
         """``(buffer, its value before the step, [batch statistic of each
@@ -601,8 +873,64 @@ class ParallelEngine:
 
     def sync_model(self) -> None:
         """The model's parameters are the engine's (updated in place), so
-        this only drains the dispatched steps."""
+        this drains the dispatched steps; under ZeRO stage 3 it also
+        gathers the parameters, which stay whole until the next step."""
         self.drain()
+        if self._zero is not None:
+            self._gather_params()
+
+    def slot_bytes(self) -> int:
+        """Bytes of optimizer slots this rank holds (1/n of the whole, and
+        the padding, at ZeRO sharding n)."""
+        return sum(t.nelement() * t.element_size()
+                   for s in self._opt._slots.values() for t in s.values())
+
+    @torch.no_grad()
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state with every model-parallel shard gathered to
+        its whole tensor (a collective call over the ``mp`` group, on
+        every rank): what ``state_dict()`` gives on one rank."""
+        self.sync_model()
+        out = {}
+        for k, t in self.model.state_dict(keep_vars=True).items():
+            axes = _axes(t)
+            if self._mp is not None and "mp" in axes:
+                parts = []
+                collective.all_gather(parts, t.detach().contiguous(),
+                                      self._mp)
+                out[k] = torch.cat(parts, dim=axes.index("mp"))
+            else:
+                out[k] = t.detach().clone()
+        return out
+
+    @torch.no_grad()
+    def full_grad_dict(self) -> Dict[str, torch.Tensor]:
+        """The gradient the last step applied (the mean over the data
+        ranks, after the clip), keyed by parameter and floating-buffer
+        name, every ZeRO and model-parallel shard gathered to its whole
+        tensor (collective calls, on every rank): what it is on one
+        rank."""
+        self.drain()
+        grads = self._grads
+        z = self._zero
+        if z is not None:
+            whole = torch.empty(z["n"], dtype=torch.float32,
+                                device=self.device)
+            collective.all_gather_into(whole, z["gshard"], z["group"])
+            grads = [whole[o:o + g.nelement()].view(g.shape)
+                     for o, g in zip(self._offs, self._grads)]
+        masters = self._train + self.buffers
+        names = dict(zip(map(id, self.params), self.names))
+        names.update(zip(map(id, self.buffers), self.buffer_names))
+        out = {}
+        for t, g in zip(masters, grads):
+            axes = _axes(t)
+            if self._mp is not None and "mp" in axes:
+                parts = []
+                collective.all_gather(parts, g.contiguous(), self._mp)
+                g = torch.cat(parts, dim=axes.index("mp"))
+            out[names[id(t)]] = g.clone()
+        return out
 
     def save_checkpoint(self, path: str) -> str:
         raise UnimplementedError(
@@ -613,3 +941,114 @@ class ParallelEngine:
         raise UnimplementedError(
             "ParallelEngine.load_checkpoint: sharded checkpoints "
             "(distributed/checkpoint.py) are ROADMAP.md Queue 1 item 6")
+
+
+def make_train_step(layer: nn.Module, optimizer, loss_fn: Callable,
+                    grad_accum: int = 1,
+                    clip_global_norm: Optional[float] = None,
+                    amp_dtype: Optional[str] = None,
+                    recompute: bool = False,
+                    grad_shardings=None,
+                    check_finite: bool = False):
+    """The pure train step of the JAX package's ``make_train_step``:
+    ``train_step(params, opt_state, batch, key, lr) -> (loss, new params,
+    new opt_state)`` over ``{name: tensor}`` dicts of the layer's
+    parameters and floating buffers (``opt_state`` from
+    ``optimizer.functional_init``); the inputs are not written. ``key``
+    seeds the step's random ops (an int or None: the default generators
+    as they stand). Under ``grad_accum`` the batch leaves are ``[n,
+    ...]``; ``check_finite`` returns ``[loss, notfinite]`` and keeps the
+    inputs on a non-finite step; running statistics blend as in
+    :class:`ParallelEngine`. ``grad_shardings`` (GSPMD layout pins) has
+    no meaning here: the engine cuts its shards itself, and it raises."""
+    if grad_shardings is not None:
+        raise UnimplementedError(
+            "make_train_step: grad_shardings pins GSPMD layouts; the port's "
+            "ParallelEngine cuts its ZeRO shards itself")
+    if amp_dtype is not None and amp_dtype not in _AMP:
+        raise InvalidArgumentError(
+            f"amp_dtype must be None or one of {sorted(_AMP)}, got "
+            f"{amp_dtype!r}")
+    cdt = _AMP.get(amp_dtype)
+    wrapper = _LossModule(layer, loss_fn)
+    if recompute:
+        ParallelEngine._flip_recompute(layer)
+
+    def leaf(v):
+        t = v.detach()
+        if cdt is not None and t.is_floating_point():
+            t = t.to(cdt)
+        return t.requires_grad_(t.is_floating_point())
+
+    def train_step(params, opt_state, batch, key, lr):
+        names = [k for k, v in params.items() if v.is_floating_point()]
+        fork = contextlib.nullcontext() if key is None else \
+            torch.random.fork_rng(devices=[
+                v.device for v in params.values() if v.is_cuda][:1])
+        grads = {k: torch.zeros_like(params[k], dtype=torch.float32)
+                 for k in names}
+        losses, stats_by_name, momenta = [], {}, {}
+        with fork:
+            if key is not None:
+                torch.manual_seed(int(key))
+            for mb in _micro_batches(batch, grad_accum):
+                if cdt is not None:
+                    mb = _map(lambda a: a.to(cdt) if isinstance(
+                        a, torch.Tensor) and a.is_floating_point() else a,
+                        mb)
+                leaves = {"m." + k: leaf(v) for k, v in params.items()}
+                with torch.enable_grad():
+                    with collect_stat_updates() as stats:
+                        loss = torch.func.functional_call(wrapper, leaves,
+                                                          (mb,))
+                    loss = loss.float()
+                    diff = [leaves["m." + k] for k in names]
+                    gs = torch.autograd.grad(loss, diff, allow_unused=True)
+                for k, g in zip(names, gs):
+                    if g is not None:
+                        grads[k].add_(g.float())
+                losses.append(loss.detach())
+                by_leaf = {id(leaves["m." + k]): k for k in params}
+                for u in stats:
+                    for old, stat in ((u.old_mean, u.mean),
+                                      (u.old_var, u.var)):
+                        k = by_leaf.get(id(old))
+                        if k is not None:
+                            momenta[k] = float(u.momentum)
+                            stats_by_name.setdefault(k, []).append(
+                                stat.detach().float())
+        with torch.no_grad():
+            if grad_accum > 1:
+                grads = {k: g / grad_accum for k, g in grads.items()}
+                loss = torch.stack(losses).mean()
+            else:
+                loss = losses[0]
+            finite = _all_finite(loss, grads.values()) if check_finite \
+                else None
+            if clip_global_norm is not None:
+                scale = _clip_scale(_global_norm(grads.values()),
+                                    clip_global_norm)
+                grads = {k: g * scale for k, g in grads.items()}
+            fparams = {k: params[k] for k in names}
+            new_params, new_state = optimizer.functional_update(
+                fparams, grads, opt_state, lr)
+            for k, v in params.items():
+                if k not in new_params:
+                    new_params[k] = v
+            for k, seq in stats_by_name.items():
+                new_params[k] = _blend(params[k].float(), seq,
+                                       momenta[k]).to(params[k].dtype)
+            if finite is not None:
+                new_params = {k: torch.where(finite, v, params[k])
+                              for k, v in new_params.items()}
+                slots, step = new_state
+                old_slots, old_step = opt_state
+                new_state = ({k: {n: torch.where(finite, t, old_slots[k][n])
+                                  for n, t in d.items()}
+                              for k, d in slots.items()},
+                             torch.where(finite.cpu(), step, old_step))
+                return torch.stack([loss, (~finite).float()]), new_params, \
+                    new_state
+            return loss, new_params, new_state
+
+    return train_step

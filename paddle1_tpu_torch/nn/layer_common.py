@@ -88,8 +88,8 @@ class Embedding(Layer):
             with torch.no_grad():
                 torch.Tensor.__setitem__(self.weight, self._padding_idx, 0.0)
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.weight, padding_idx=self._padding_idx)
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
 
     def extra_repr(self) -> str:
         return f"{self._num_embeddings}, {self._embedding_dim}"

@@ -123,8 +123,11 @@ class MultiHeadAttention(Layer):
         self.out_proj = Linear(embed_dim, embed_dim, **kw)
 
     def _split_heads(self, x):
+        # heads of head_dim: all of them, or this rank's under model
+        # parallelism (distributed.meta_parallel.shard_tagged_layers cuts
+        # the projections to whole heads)
         b, n = x.shape[0], x.shape[1]
-        return torch.reshape(x, (b, n, self.num_heads, self.head_dim))
+        return torch.reshape(x, (b, n, -1, self.head_dim))
 
     def _prepare_qkv(self, query, key, value, cache=None):
         q = self._split_heads(self.q_proj(query))
@@ -214,7 +217,7 @@ class MultiHeadAttention(Layer):
                 q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
                 training=self.training)
         b, n = out.shape[0], out.shape[1]
-        out = self.out_proj(torch.reshape(out, (b, n, self.embed_dim)))
+        out = self.out_proj(torch.reshape(out, (b, n, -1)))
         outs = [out]
         if self.need_weights:
             outs.append(None)   # weights unavailable on the fused path

@@ -3,5 +3,5 @@
 from .bert import (BertEmbeddings, BertForPretraining,  # noqa: F401
                    BertForSequenceClassification, BertLMPredictionHead,
                    BertModel, BertPooler, BertPretrainingCriterion,
-                   ErnieForPretraining, ErnieModel, bert_base, bert_large,
-                   ernie_1p5b)
+                   ErnieForPretraining, ErnieModel, apply_megatron_sharding,
+                   bert_base, bert_large, ernie_1p5b)

@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 from ...core.device import resolve_device
+from ...distributed.collective import _c_concat, _c_identity
 from ...framework.param_attr import ParamAttr
 from ...nn import functional as F
 from ...ops import math_ops
@@ -46,7 +47,7 @@ __all__ = ["BertEmbeddings", "BertPooler", "BertModel",
            "BertLMPredictionHead", "BertForPretraining",
            "BertPretrainingCriterion", "BertForSequenceClassification",
            "ErnieModel", "ErnieForPretraining", "bert_base", "bert_large",
-           "ernie_1p5b"]
+           "ernie_1p5b", "apply_megatron_sharding"]
 
 
 class BertEmbeddings(Layer):
@@ -155,14 +156,24 @@ class BertLMPredictionHead(Layer):
         self.decoder_bias = self.create_parameter([vocab_size], is_bias=True,
                                                   device=dev)
 
-    def forward(self, hidden_states, masked_positions=None):
+    def forward(self, hidden_states, masked_positions=None, *,
+                mp_group=None):
+        """``mp_group``: the model-parallel group when the tied decoder is
+        this rank's vocabulary shard (``distributed.meta_parallel.
+        shard_tagged_layers`` binds it): Megatron's f before the decoder,
+        this rank's logit columns gathered over the group, then the whole
+        bias."""
         if masked_positions is not None:
             # gather the masked token positions: [B, S, H] → [M, H]
             b, s, h = hidden_states.shape
             hidden_states = hidden_states.reshape(b * s, h)[
                 masked_positions.reshape(-1).long()]
         x = self.layer_norm(self.activation(self.transform(hidden_states)))
+        if mp_group is not None:
+            x = _c_identity(x, mp_group)
         logits = math_ops.matmul(x, self.decoder_weight, transpose_y=True)
+        if mp_group is not None:
+            logits = _c_concat(logits, mp_group)
         return logits + self.decoder_bias
 
 
@@ -257,3 +268,29 @@ def ernie_1p5b(**kw) -> BertModel:
     kw.setdefault("num_attention_heads", 18)
     kw.setdefault("intermediate_size", 9216)
     return ErnieModel(**kw)
+
+
+def apply_megatron_sharding(model: Layer, mp_axis: str = "mp") -> Layer:
+    """Tag the transformer's parameters with Megatron's tensor-parallel
+    axes (``sharding_axes``, the JAX package's ``bert.py:242-264``):
+    column-parallel (the output dimension, biases too) for the q/k/v
+    projections and the FFN's up-projection, row-parallel (the input
+    dimension; the bias stays whole) for the attention output and the
+    FFN's down-projection, and the vocabulary for the word embedding and
+    the MLM decoder tied to it. Metadata only: ``ParallelEngine`` on a
+    mesh with ``mp > 1`` cuts each tagged tensor to its rank's shard and
+    runs the layers with the Megatron pairs
+    (``distributed.meta_parallel.shard_tagged_layers``)."""
+    for name, p in model.named_parameters():
+        axes = [None] * p.dim()
+        if "word_embeddings" in name and p.dim() == 2:
+            axes[0] = mp_axis
+        elif any(k in name for k in ("q_proj", "k_proj", "v_proj",
+                                     "linear1")):
+            axes[-1] = mp_axis          # [in, out] → shard out
+        elif any(k in name for k in ("out_proj", "linear2")):
+            if p.dim() == 2:
+                axes[0] = mp_axis       # [in, out] → shard in
+        p.sharding_axes = tuple(axes) if any(a is not None
+                                             for a in axes) else None
+    return model

@@ -38,7 +38,7 @@ from ..nn.layer_base import Layer
 __all__ = ["iou", "box_coder", "yolo_box", "nms", "multiclass_nms",
            "matrix_nms", "roi_align", "roi_pool", "prior_box",
            "generate_anchors", "distribute_fpn_proposals", "deform_conv2d",
-           "DeformConv2D", "yolo_loss"]
+           "DeformConv2D", "yolo_loss", "read_file", "decode_jpeg"]
 
 
 def _pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -590,3 +590,27 @@ def yolo_loss(x, gt_box, gt_label, anchors, anchor_mask, class_num,
                        gt_scores=gt_score,
                        use_label_smooth=use_label_smooth,
                        scale_x_y=scale_x_y)
+
+
+def read_file(filename, name=None):
+    """The file's bytes as a 1-D uint8 tensor on the current place (the
+    JAX package's ``fluid/misc_tail.py:164-174`` for a path; its
+    ``PyReader`` branch waits for ROADMAP Queue 1 item 10's readers)."""
+    with open(filename, "rb") as f:
+        data = f.read()
+    return to_tensor(np.frombuffer(data, np.uint8).copy())
+
+
+def decode_jpeg(x, mode="unchanged", name=None):
+    """Decode a JPEG byte tensor to ``[C, H, W]`` uint8 on the current
+    place, on the host by the baseline numpy decoder (``core/jpeg.py``,
+    sequential DCT as the JAX package decodes). ``mode="gray"`` turns RGB
+    into one channel with the JAX package's ``0.299 R + 0.587 G + 0.114
+    B``, truncated to uint8."""
+    from ..core.jpeg import decode_jpeg_bytes
+    data = np.ascontiguousarray(_host(x), np.uint8).tobytes()
+    img = decode_jpeg_bytes(data)  # [H, W, C] uint8
+    if mode == "gray" and img.shape[-1] == 3:
+        img = (0.299 * img[..., 0] + 0.587 * img[..., 1]
+               + 0.114 * img[..., 2]).astype(np.uint8)[..., None]
+    return to_tensor(np.ascontiguousarray(img.transpose(2, 0, 1)))

@@ -147,7 +147,7 @@ def job2(tmp_path_factory, r18_case):
         ("collectives", ()), ("data_parallel", ()),
         ("resnet_engine", (str(r18_case["dir"] / "state.npz"),
                            str(r18_case["dir"] / "batch.npz"))),
-        ("unequal_shards", ()), ("place", ())])
+        ("unequal_shards", ()), ("place", ()), ("mesh", ())])
     return str(tmp)
 
 
@@ -515,14 +515,26 @@ def test_init_parallel_env_makes_the_ranks_card_the_current_place(
     assert tplace.get_device() == tplace.CPUPlace()
 
 
-def test_build_mesh_takes_dp_only_and_checks_the_world():
+def test_build_mesh_takes_dp_only_and_checks_the_world(job2):
+    """Every degree needs its ranks: one rank refuses any degree of 2; on
+    two ranks each axis builds (mp and sharding included), and the engine
+    refuses pp and sp only, naming their ROADMAP items."""
     mesh = tdist.build_mesh(dp=1)
     assert mesh.shape["dp"] == 1 and mesh.group.nranks == 1
-    for kw in (dict(mp=2), dict(pp=2), dict(sharding=2), dict(sp=2)):
-        with pytest.raises(InvalidArgumentError, match="4b"):
+    for kw in (dict(dp=2), dict(mp=2), dict(pp=2), dict(sharding=2),
+               dict(sp=2)):
+        (axis, _), = kw.items()
+        with pytest.raises(InvalidArgumentError, match=f"{axis}=2 needs 2"):
             tdist.build_mesh(**kw)
-    with pytest.raises(InvalidArgumentError, match="dp=2"):
-        tdist.build_mesh(dp=2)
+    for r, got in enumerate(_load(job2, "mesh", 2)):
+        for axis, item in (("dp", None), ("mp", None), ("sharding", None),
+                           ("pp", "5(iii)"), ("sp", "5(iv)")):
+            assert int(got[axis + "_coord"]) == r
+            assert got[axis + "_group"].tolist() == [0, 1]
+            data = [0, 1] if axis in ("dp", "sharding") else [r]
+            assert got[axis + "_data"].tolist() == data
+            engine = str(got[axis + "_engine"])
+            assert (item in engine) if item else engine == "", axis
 
 
 def test_collectives_are_the_identity_on_one_rank_without_a_group():

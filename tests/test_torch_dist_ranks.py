@@ -222,6 +222,26 @@ def unequal_shards_case(out):
     _save(out, "unequal", raised=raised)
 
 
+def mesh_case(out):
+    """Meshes of two ranks on every axis: this rank's coordinates and the
+    ranks of its group along the axis; the engine refuses pp and sp."""
+    from paddle1_tpu_torch.core.errors import UnimplementedError
+    from paddle1_tpu_torch.optimizer import SGD
+    res = {}
+    for axis in ("dp", "mp", "sharding", "pp", "sp"):
+        m = dist.build_mesh(**{axis: 2})
+        res[axis + "_coord"] = m.coords[axis]
+        res[axis + "_group"] = m.groups[axis].ranks
+        res[axis + "_data"] = m.data_group.ranks
+        try:
+            dist.ParallelEngine(mlp(), SGD(learning_rate=0.1),
+                                lambda mod, b: mod(b).sum(), mesh=m)
+            res[axis + "_engine"] = ""
+        except UnimplementedError as e:
+            res[axis + "_engine"] = str(e)
+    _save(out, "mesh", **res)
+
+
 def place_case(out):
     """Layers made without a device after ``init_parallel_env`` land on
     the rank's place, which it made the current place (here the CPU)."""

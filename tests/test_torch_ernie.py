@@ -35,8 +35,8 @@ def test_ernie_names_are_exported_like_the_jax_package():
     for name in ("ErnieModel", "ErnieForPretraining", "ernie_1p5b",
                  "BertForSequenceClassification"):
         assert hasattr(tmodels, name) and name in tbert.__all__
-    assert set(jbert.__all__) - set(tbert.__all__) == \
-        {"apply_megatron_sharding"}
+    # apply_megatron_sharding came with slice 4b(ii): every name exported
+    assert set(jbert.__all__) - set(tbert.__all__) == set()
     assert tmodels.ErnieModel is tmodels.BertModel
     assert tmodels.ErnieForPretraining is tmodels.BertForPretraining
 

@@ -28,6 +28,7 @@ F23: ``GenerationEngine``'s ``cache_dtype`` (and ``CausalLM``'s cache
 cache constructors) take the JAX package's dtype strings, ``"float16"`` included.
 F24: ``ParallelEngine(amp_dtype="float16")`` is the JAX engine's pure-f16
 mode, and the batch norms under it take the kernels' route in f16.
+F25: ``nn.Embedding.forward`` takes the reference's ``x`` by keyword.
 
 Inputs and weights come from numpy with a seed; weights cross through
 ``paddle1_tpu_torch.convert.state_from_jax``. Random masks differ by
@@ -880,10 +881,11 @@ def test_f11_parameter_metadata_and_loading_are_the_references():
     tw.clear_grad()
     assert tw.grad is None
     # of the reference Parameter's 255 public attributes only the
-    # pipeline stage and the sharding axes (later slices) are missing
+    # pipeline stage (a later slice) is missing
     missing = [a for a in dir(jw) if not a.startswith("_") and
                not hasattr(type(tw), a) and not hasattr(tw, a)]
-    assert sorted(missing) == ["pp_stage", "sharding_axes"]
+    assert sorted(missing) == ["pp_stage"]
+    assert tw.sharding_axes is None is jw.sharding_axes
 
 
 def _twin_models(seed):
@@ -1665,3 +1667,24 @@ def test_f24_other_amp_dtypes_raise_typed():
                 tn, tp.optimizer.Momentum(learning_rate=0.1,
                                           parameters=tn.parameters()),
                 lambda m, b: m(b["x"]).sum(), amp_dtype=bad)
+
+
+# ---------------------------------------------------------------------------
+# F25: nn.Embedding.forward(x), as paddle1_tpu/nn/layer_common.py:125
+
+
+def test_f25_embedding_forward_takes_x_by_keyword():
+    ids = np.array([[1, 2], [3, 0]], np.int64)
+    jp.seed(25)
+    jemb = jp.nn.Embedding(5, 3)
+    want = np.asarray(jemb(x=to_tensor(ids)).numpy())
+    assert want.shape == (2, 2, 3)
+    with tp.utils.unique_name.guard():
+        temb = tp.nn.Embedding(5, 3, device="cpu")
+    temb.load_state_dict(state_from_jax(
+        {k: np.asarray(v) for k, v in jemb.functional_state().items()},
+        temb))
+    got = temb(x=_t(ids))
+    np.testing.assert_array_equal(got.detach().numpy(), want)
+    assert list(inspect.signature(tp.nn.Embedding.forward).parameters) == \
+        list(inspect.signature(jp.nn.Embedding.forward).parameters)

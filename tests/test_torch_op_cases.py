@@ -691,10 +691,38 @@ def _boxes(n, seed, scale=10.0):
     return np.concatenate([xy, xy + wh], 1).astype(np.float32)
 
 
+def _jpeg_bytes(channels, seed, quality=90):
+    """A seeded image (smooth, so the codec's rounding is exercised on
+    structure) as baseline JPEG bytes from the port's encoder, uint8."""
+    from paddle1_tpu_torch.core.jpeg import encode_jpeg_bytes
+    rng = np.random.default_rng(seed)
+    h, w = 21, 34
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([(yy * 9 + xx * 5 + c * 40) % 256 for c in
+                    range(channels)], -1) + rng.integers(0, 30, (h, w, 1))
+    return np.frombuffer(encode_jpeg_bytes(np.clip(img, 0, 255).astype(
+        np.uint8), quality=quality), np.uint8).copy()
+
+
+def _jpeg_file(data):
+    """``data`` written once a process to a file under the temporary
+    directory (``read_file``'s case reads it)."""
+    import os
+    import tempfile
+    path = os.path.join(tempfile.gettempdir(),
+                        f"paddle1_tpu_torch_case_{os.getpid()}.jpg")
+    if not os.path.exists(path):
+        with open(path, "wb") as f:
+            f.write(data.tobytes())
+    return path
+
+
 def vision_cases():
     """``vision/ops.py``'s names (``tests/test_torch_vision_ops.py``)
     beyond the inference four, and ``yolo_loss``; ``DeformConv2D`` is a
-    layer, tested there."""
+    layer, tested there. The JPEG pair decodes bytes the port's encoder
+    wrote (the JAX package's encoder, copied)."""
+    RGB, GRAY = _jpeg_bytes(3, 60), _jpeg_bytes(1, 61, quality=75)
     PRI, TGT = _boxes(5, 40), _boxes(4, 41)
     VAR = R((5, 4), 42, "u") * 0.3
     OFF = R((4, 5, 4), 43) * 0.2
@@ -753,6 +781,10 @@ def vision_cases():
                            R((2, 5), 58, "u")],
              {"use_label_smooth": False, "scale_x_y": 1.1}, grad=[0],
              tol=RED, id="yolo_loss-scores-scale"),
+        Case("read_file", [_jpeg_file(RGB)]),
+        Case("decode_jpeg", [RGB]),
+        Case("decode_jpeg", [RGB], {"mode": "gray"}, id="decode_jpeg-gray"),
+        Case("decode_jpeg", [GRAY], id="decode_jpeg-one-channel"),
     ]
 
 

@@ -2,7 +2,8 @@
 CPU: every case of ``vision_cases`` (``tests/test_torch_op_cases.py``:
 ``box_coder``, ``matrix_nms``, ``roi_align``, ``roi_pool``,
 ``prior_box``, ``generate_anchors``, ``distribute_fpn_proposals``,
-``deform_conv2d``, ``yolo_loss``) through both packages on the same
+``deform_conv2d``, ``yolo_loss``, ``read_file``, ``decode_jpeg``) through
+both packages on the same
 seeded numpy inputs (values, dtypes, gradients of the listed inputs),
 ``DeformConv2D`` with the JAX package's weights carried across, the
 inventory with the reference's positional signatures, where host input
@@ -34,7 +35,7 @@ def cpu_place():
 
 
 CASES = vision_cases()
-WAITING = {"read_file", "decode_jpeg"}     # with core/jpeg.py
+WAITING = set()     # the JPEG pair came with core/jpeg.py
 
 
 @pytest.mark.parametrize("case", CASES, ids=ids(CASES))
