@@ -1432,6 +1432,10 @@ BERT_ATTN = (BATCH, SEQ, BERT_HEADS, BERT_HIDDEN // BERT_HEADS)
 # 18 heads of 128 (hidden 2304)
 ERNIE_ATTN = (ERNIE_BATCH, ERNIE_SEQ, ERNIE_HEADS,
               ERNIE_HIDDEN // ERNIE_HEADS)
+# ERNIE-1.5B at pp 2 (phase 46): one microbatch a stage step
+ERNIE_MICRO_ATTN = (1,) + ERNIE_ATTN[1:]
+# Ulysses (phase 47): ERNIE's attention with the heads cut over 2 ranks
+ULYSSES_ATTN = ERNIE_ATTN[:2] + (ERNIE_HEADS // 2, ERNIE_ATTN[3])
 # BERT-base fine-tuning (phase 21): f32, batch 32, seq 128, ragged padding
 FT_ATTN = (FT_BATCH, FT_SEQ, BERT_HEADS, BERT_HIDDEN // BERT_HEADS)
 
@@ -1439,14 +1443,15 @@ FT_ATTN = (FT_BATCH, FT_SEQ, BERT_HEADS, BERT_HIDDEN // BERT_HEADS)
 def flash_case(dev, dtype, seed, n_sets=1, shape=BERT_ATTN):
     """``n_sets`` independent (q, k, v, dout) sets at ``shape`` (the
     BERT-base attention shape by default), a keep-mask with ragged tails
-    and batch row 0 fully padded, and the all-keep mask the main path's
-    batch gives."""
+    and batch row 0 fully padded (where the batch has more than one row),
+    and the all-keep mask the main path's batch gives."""
     b, n = shape[:2]
     g = torch.Generator(device=dev).manual_seed(seed)
     sets = [[torch.randn(*shape, device=dev, generator=g).to(dtype)
              for _ in range(4)] for _ in range(n_sets)]
     lens = np.random.default_rng(seed).integers(32, n + 1, b)
-    lens[0] = 0
+    if b > 1:
+        lens[0] = 0
     keep = torch.from_numpy(np.arange(n)[None, :] < lens[:, None]).to(dev)
     return sets, keep, torch.ones(b, n, dtype=torch.bool, device=dev)
 
@@ -1457,7 +1462,11 @@ FLASH_CASES = ((torch.float32, False, BERT_ATTN),
                (torch.bfloat16, True, BERT_ATTN),
                (torch.float32, False, ERNIE_ATTN),
                (torch.bfloat16, False, ERNIE_ATTN),
-               (torch.float32, False, FT_ATTN))
+               (torch.float32, False, FT_ATTN),
+               (torch.bfloat16, False, ERNIE_MICRO_ATTN),
+               (torch.float32, False, ERNIE_MICRO_ATTN),
+               (torch.bfloat16, False, ULYSSES_ATTN),
+               (torch.float32, False, ULYSSES_ATTN))
 # float16 (phase 25): the fine-tuning shape with its ragged keep-mask,
 # causal too, and ERNIE-1.5B's
 FLASH_F16_CASES = ((torch.float16, False, FT_ATTN),
@@ -1468,8 +1477,9 @@ FLASH_F16_CASES = ((torch.float16, False, FT_ATTN),
 def flash_check(dev, cases=FLASH_CASES):
     """Hold the three flash kernels to their plain versions in f32 and
     bf16 (padded tails, one fully padded row; causal in both; both also
-    at ERNIE-1.5B's [4, 512, 18, 128]; ``cases`` are (dtype, causal,
-    shape)). The 16-bit cases, which run the tensor-core kernels, must
+    at ERNIE-1.5B's [4, 512, 18, 128], at its pipeline microbatch's
+    [1, 512, 18, 128] and at Ulysses' [4, 512, 9, 128]; ``cases`` are
+    (dtype, causal, shape)). The 16-bit cases, which run the tensor-core kernels, must
     repeat bit for bit and stay within one rounding step of their type
     beyond FLASH_BF16_ABS."""
     from paddle1_tpu_torch.ops import flash_attention as fa
@@ -1500,12 +1510,15 @@ def flash_check(dev, cases=FLASH_CASES):
                   f"flash {tag}: a repeat is not bit-identical")
         check(out.dtype == dtype and bool(torch.isfinite(out).all()),
               f"flash fwd {tag}: non-finite output or wrong dtype")
-        check(float(out[0].abs().max()) == 0.0 and
-              float(rl[0].max()) <= -1e29 and float(lse[0].max()) <= -1e29,
-              f"flash fwd {tag}: the fully padded row is not O=0, LSE=-1e30")
-        for g_ in (dq, dk, dv):
-            check(float(g_[0].abs().max()) == 0.0,
-                  f"flash bwd {tag}: the fully padded row has gradient")
+        if shape[0] > 1:
+            check(float(out[0].abs().max()) == 0.0 and
+                  float(rl[0].max()) <= -1e29 and
+                  float(lse[0].max()) <= -1e29,
+                  f"flash fwd {tag}: the fully padded row is not O=0, "
+                  "LSE=-1e30")
+            for g_ in (dq, dk, dv):
+                check(float(g_[0].abs().max()) == 0.0,
+                      f"flash bwd {tag}: the fully padded row has gradient")
         live = rl > -1e29
         lse_err = float((lse - rl)[live].abs().max())
         check(lse_err <= FLASH_TOL, f"flash fwd {tag}: LSE err {lse_err}")
@@ -1770,8 +1783,8 @@ def train_layer_norm_case(dev, rows=BATCH * SEQ, h=BERT_HIDDEN,
                           dtype=torch.bfloat16):
     """The LayerNorm kernel at a training path's shape: BERT-base's bf16
     ``[BATCH * SEQ, 768]`` by default; ERNIE-1.5B's ``[2048, 2304]``
-    (past the warp-per-row widths: the block-per-row kernel) in bf16 and
-    f32. f32 is held to LN_TOL, bf16 to one rounding step."""
+    (past the warp-per-row widths: the block-per-row kernel) and its
+    pipeline microbatch's ``[512, 2304]``, in bf16 and f32. f32 is held to LN_TOL, bf16 to one rounding step."""
     from paddle1_tpu_torch.ops import layer_norm as ln
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
     xs = [torch.randn(rows, h, device=dev, generator=g).to(dtype)
@@ -9091,14 +9104,16 @@ HY_PLANTS = {"zero_shard": "sharding2_zero2",
 class CollectiveCount:
     """Counts the ``torch.distributed`` collectives the port calls inside
     the block, by kind: all-reduce, reduce-scatter, all-gather (into one
-    tensor or a list) and broadcast."""
+    tensor or a list), broadcast and the one-tensor all-to-all (the
+    pipeline's and the sequence ring's shifts, Ulysses' exchanges)."""
 
     KINDS = {"all_reduce": "all_reduce",
              "reduce_scatter_tensor": "reduce_scatter",
              "reduce_scatter_single": "reduce_scatter",
              "all_gather_into_tensor": "all_gather",
              "all_gather_single": "all_gather",
-             "all_gather": "all_gather", "broadcast": "broadcast"}
+             "all_gather": "all_gather", "broadcast": "broadcast",
+             "all_to_all_single": "all_to_all"}
 
     def __enter__(self):
         import torch.distributed as tdist
@@ -9617,6 +9632,564 @@ def hybrid_rank_check(dev, plants=()):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phases 46-47: slice 4b(iii)-(iv): pipeline and sequence parallelism
+
+# phase 46: config 4 through fleet at pp_degree PP_DEGREE: ERNIE-1.5B at
+# full width and depth, bf16, pipeline_configs accumulate_steps PP_MICRO
+# of micro_batch_size 1 on the batch ERNIE_BATCH x ERNIE_SEQ, PP_DEGREE
+# ranks (gloo on one card; NCCL one a card where there are as many). Then
+# the f32 cross-rank check at ERNIE's width cut to PP_DEPTH layers on each
+# of PP_MESHES against world size 1, by phase 45's measures (hy_gaps,
+# hy_verdict: the losses of every rank, the first step's gradient, the
+# parameters' movement), and every rank's replicated tensors (embeddings
+# and heads) within HY_MOVE_TOL of rank 0's, over their movement at world
+# size 1 (pp_rep_gaps). Each fault of PP_PLANTS, planted in the pp2 mesh,
+# must fail that check.
+PP_DEGREE, PP_MICRO, PP_DEPTH, PP_TIMEOUT_S = 2, 4, 4, 600
+PP_MESHES = (("pp2", {"pp": 2}, {"pp_microbatches": 4}),
+             ("pp2_dp2", {"pp": 2, "dp": 2}, {"pp_microbatches": 2}))
+# the gradient handed back across the cut zeroed; the micro-batches handed
+# forward a tick late (the later stage runs micro-batch m on m - 1's
+# activation); the input's gradient not broadcast from stage 0 (the later
+# stages' replicated embeddings then miss the lookup's part)
+PP_PLANTS = ("cut_grad", "handoff_order", "input_grad_bcast")
+# phase 47: ring and Ulysses attention over SP_RANKS ranks at ERNIE's
+# attention shape, the sequence cut to ERNIE_SEQ / SP_RANKS a rank, f32
+# and bf16, causal and not, forward and backward of sum(out * w) against
+# attention_ref over the whole sequence on one rank (f32, from the same
+# rounded inputs): in f32 within SP_TOL (output) and SP_GRAD_TOL
+# (gradients) abs, the CPU tests' limits; in bf16 each tensor's error norm
+# within SP_BF16_REL of its norm (a bf16 rounding step is 2^-8 of a
+# value). Each call timed SP_REPS times (host clock between barriers: the
+# ranks share the card).
+SP_RANKS, SP_REPS = 2, 5
+SP_TOL, SP_GRAD_TOL, SP_BF16_REL = 2e-5, 5e-4, 2.0 ** -6
+
+
+class PlantedHandoff:
+    """``distributed.pipeline``'s collectives with one fault of PP_PLANTS,
+    inside ``with PlantedHandoff(fault):`` (phase 46's check must fail
+    each)."""
+
+    def __init__(self, fault):
+        from paddle1_tpu_torch.distributed import collective
+        if fault not in PP_PLANTS:
+            raise ValueError(f"no planted fault {fault!r}")
+        self._real, self.fault, self._held = collective, fault, None
+
+    def __enter__(self):
+        from paddle1_tpu_torch.distributed import pipeline
+        pipeline.collective = self
+        return self
+
+    def __exit__(self, *exc):
+        from paddle1_tpu_torch.distributed import pipeline
+        pipeline.collective = self._real
+        return False
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+    def shift(self, send, recv, offset=1, group=None):
+        out = self._real.shift(send, recv, offset, group)
+        if recv is None or recv.nelement() == 0:
+            return out
+        if self.fault == "cut_grad" and offset == -1:
+            recv.zero_()
+        elif self.fault == "handoff_order" and offset == 1:
+            late, self._held = self._held, recv.clone()
+            if late is not None:
+                recv.copy_(late)
+        return out
+
+    def broadcast_bytes(self, tensor, src=0, group=None):
+        if self.fault == "input_grad_bcast" and src == 0:
+            return tensor
+        return self._real.broadcast_bytes(tensor, src, group)
+
+
+def pp_model(depth=PP_DEPTH):
+    return ernie_model(depth=depth, seed=SEED + 46)
+
+
+def pp_replicated(key: str) -> bool:
+    """A tensor every pp rank holds (not an encoder block's)."""
+    return ".encoder.layers." not in key
+
+
+@torch.no_grad()
+def pp_rep_norms(state, dev):
+    """||p_r - p_0|| of each replicated tensor of ``state`` (this rank's
+    whole state) against global rank 0's, broadcast over the world (a
+    collective call, every rank, in key order)."""
+    from paddle1_tpu_torch import distributed as pdist
+    out = {}
+    for k in sorted(k for k in state if pp_replicated(k)):
+        mine = state[k].to(dev).contiguous()
+        r0 = pdist.broadcast(mine.clone(), 0)
+        out[k] = float((mine.double() - r0.double()).norm())
+    return out
+
+
+def pp_rep_gaps(rank_norms, init, ref_state):
+    """Each rank's largest replicated-tensor gap to rank 0 over the
+    tensor's movement at world size 1 (``rank_norms``: one
+    ``pp_rep_norms`` a rank)."""
+    out = []
+    for norms in rank_norms:
+        worst = (None, 0.0)
+        for k, v in norms.items():
+            move = float((ref_state[k].double() - init[k].double()).norm())
+            gap = v / max(move, 1e-30)
+            if not gap <= worst[1]:
+                worst = (k, gap)
+        out.append(worst)
+    return out
+
+
+def ernie_pp_job(dev, out_dir):
+    """Phase 46's run on this rank: ``fleet.init`` with ``pp_degree``
+    PP_DEGREE, ``amp`` and ``pipeline_configs``, ``ErnieForPretraining(
+    ernie_1p5b())`` through ``fleet.parallel_engine`` (this rank keeps
+    its stage's blocks), the staged batch, one step, then
+    ``timed_steps``: step ms, the loss, peak memory, the parameters held,
+    the launches of rows 2-6 and the collectives a step."""
+    from paddle1_tpu_torch.distributed import fleet, topology
+    from paddle1_tpu_torch.optimizer import AdamW
+    from paddle1_tpu_torch.text.models import BertPretrainingCriterion
+    t0 = time.perf_counter()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"pp_degree": PP_DEGREE, "dp_degree": 1,
+                               "mp_degree": 1}
+    strategy.pipeline_configs = {"accumulate_steps": PP_MICRO,
+                                 "micro_batch_size": 1}
+    strategy.amp = True
+    fleet.init(is_collective=True, strategy=strategy)
+    try:
+        model = ernie_model()
+        n_whole = sum(p.nelement() for p in model.parameters())
+        eng = fleet.parallel_engine(
+            model, AdamW(learning_rate=ERNIE_LR,
+                         parameters=model.parameters()),
+            ernie_loss_fn(BertPretrainingCriterion(ERNIE_VOCAB)))
+        del model
+        torch.cuda.empty_cache()
+        encs = [m for m in eng.model.modules()
+                if getattr(m, "pipeline_group", None) is not None]
+        setup = {"pp": eng.mesh.shape["pp"], "amp": str(eng.amp_dtype),
+                 "micro": [m.pipeline_microbatches for m in encs]}
+        staged = eng.shard_batch(ernie_batch(ERNIE_BATCH, ERNIE_SEQ,
+                                             seed=46))
+        torch.cuda.reset_peak_memory_stats(dev)
+        loss0 = float(eng.step(staged))
+        setup_s = time.perf_counter() - t0
+        counters = train_counters()
+        zero(counters)
+        with CollectiveCount() as calls:
+            slopes, last, steps = timed_steps(lambda: eng.step(staged), 8)
+            torch.cuda.synchronize()
+        return {"setup": setup, "setup_s": setup_s, "loss_first": loss0,
+                "loss_last": float(last), "slopes": slopes, "steps": steps,
+                "launches": {k: fn.launches for k, fn in counters.items()},
+                "collectives": dict(calls.n),
+                "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "params_local": sum(p.nelement() for p in eng.params),
+                "params_whole": n_whole, "slot_bytes": eng.slot_bytes()}
+    finally:
+        topology.set_hybrid_communicate_group(None)
+
+
+def pp_check_job(dev, out_dir, runs):
+    """Phase 46's cross-rank check on this rank: each run of ``runs``
+    (``(name, degrees, engine kwargs, planted fault or None)``), REF_STEPS
+    f32 steps of the depth-cut ERNIE (``pp_model``) on the global batch,
+    the first step's gradient and the state gathered; rank 0 reads the
+    gaps to world size 1 (``hy_gaps``, the reference in ``out_dir``) and
+    every rank's replicated-tensor gaps to it (``pp_rep_norms``)."""
+    import contextlib
+    import copy
+    import gc
+    import os
+    from paddle1_tpu_torch import distributed as pdist
+    rank = pdist.get_rank()
+    batch = ernie_batch(HY_BATCH, ERNIE_SEQ, seed=SEED + 46)
+    ref = None
+    if rank == 0:       # the gaps are read on the card
+        raw = torch.load(os.path.join(out_dir, "pp_ref.pt"), mmap=True)
+        ref = {part: {k: v.to(dev) for k, v in raw[part].items()}
+               for part in ("init", "state", "grads")}
+        del raw
+    out = {"backend": torch.distributed.get_backend()}
+    first_model = pp_model()
+    for name, degrees, kw, fault in runs:
+        t = [time.perf_counter()]
+
+        def lap():
+            t.append(time.perf_counter())
+            return t[-1] - t[-2]
+        model = copy.deepcopy(first_model)
+        eng = hy_engine(model, mesh=pdist.build_mesh(**degrees), **kw)
+        del model
+        secs = {"engine": lap()}
+        counters = train_counters()
+        zero(counters)
+        torch.cuda.reset_peak_memory_stats(dev)
+        plant = PlantedHandoff(fault) if fault is not None else \
+            contextlib.nullcontext()
+        with plant:
+            with CollectiveCount() as first:
+                losses = [float(eng.step(batch))]
+            secs["first_step"] = lap()
+            grads = eng.full_grad_dict()
+            secs["grads"] = lap()
+            with CollectiveCount() as rest:
+                for _ in range(REF_STEPS - 1):
+                    losses.append(float(eng.step(batch)))
+            secs["steps"] = lap()
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        state = eng.full_state_dict()
+        secs["state"] = lap()
+        norms = pp_rep_norms(state, dev)
+        every = []
+        pdist.all_gather_object(every, norms)
+        secs["rep_norms"] = lap()
+        out[name] = {
+            "fault": fault, "losses": losses, "launches": launches,
+            "params_local": sum(p.nelement() for p in eng.params),
+            "peak_mem_gb": peak / 1e9,
+            "collectives_per_step": {
+                k: (first.n[k] + rest.n[k]) / REF_STEPS for k in first.n},
+            "gaps": (hy_gaps(state, grads, ref["init"], ref["state"],
+                             ref["grads"], HY_LR) if rank == 0 else None),
+            "rep_gaps": (pp_rep_gaps(every, ref["init"], ref["state"])
+                         if rank == 0 else None)}
+        secs["gaps"] = lap()
+        out[name]["seconds"] = {**secs, "run": t[-1] - t[0]}
+        del eng, state, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def pp_verdict(name, res, ref_losses):
+    """What phase 46's check finds wrong in one run: ``hy_verdict``, and
+    a rank whose replicated tensors left rank 0's."""
+    bad = hy_verdict(name, res, ref_losses)
+    for r, (k, gap) in enumerate(res[0]["rep_gaps"]):
+        if not gap <= HY_MOVE_TOL:
+            bad.append(f"{name}: rank {r}'s replicated {k} {gap} from rank "
+                       f"0's over its movement > {HY_MOVE_TOL}")
+    return bad
+
+
+def sp_time_ms(fn):
+    """Median host ms of ``fn`` over SP_REPS calls, each between a
+    synchronize and a barrier of every rank (after one call untimed)."""
+    from paddle1_tpu_torch import distributed as pdist
+    ts = []
+    for i in range(SP_REPS + 1):
+        torch.cuda.synchronize()
+        pdist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i:
+            ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def seq_job(dev, out_dir):
+    """Phase 47 on this rank: ring and Ulysses attention over the world
+    at ERNIE's attention shape cut over the ranks (see SP_*), against
+    attention_ref on the whole sequence on this rank; the errors, the
+    launches of rows 3-5 and the times of each call."""
+    from paddle1_tpu_torch import distributed as pdist
+    from paddle1_tpu_torch.distributed import (ring_attention,
+                                               ulysses_attention)
+    from paddle1_tpu_torch.nn.functional.attention import attention_ref
+    g = pdist.get_group()
+    b, n, h, d = ERNIE_ATTN
+    nl = n // g.nranks
+    cut = slice(g.rank * nl, (g.rank + 1) * nl)
+    gen = torch.Generator().manual_seed(SEED + 47)
+    q, k, v, w = (torch.randn(b, n, h, d, generator=gen) for _ in range(4))
+    w = w.to(dev)
+    counters = train_counters()
+    out = {"shape": [b, n, h, d], "local": [b, nl, h, d], "cases": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        full = [t.to(dev, dtype).float().requires_grad_() for t in (q, k, v)]
+        for causal in (False, True):
+            ref = attention_ref(*full, is_causal=causal)
+            (ref * w).sum().backward()
+            want = [ref[:, cut].detach()] + [t.grad[:, cut] for t in full]
+            for t in full:
+                t.grad = None
+            for name, fn in (("ring", ring_attention),
+                             ("ulysses", ulysses_attention)):
+                mine = [t[:, cut].detach().clone().requires_grad_()
+                        for t in full]
+                local = [t.detach().to(dtype).requires_grad_()
+                         for t in mine]
+                zero(counters)
+                o = fn(*local, "sp", causal=causal, group=g)
+                (o.float() * w[:, cut]).sum().backward()
+                launches = {kk: fn_.launches for kk, fn_ in counters.items()
+                            if kk.startswith("flash")}
+                got = [o.detach()] + [t.grad for t in local]
+                errs = [float((a.float() - bb).abs().max())
+                        for a, bb in zip(got, want)]
+                rels = [float((a.float() - bb).norm() / bb.norm())
+                        for a, bb in zip(got, want)]
+
+                def fwd(fn=fn, local=local, causal=causal):
+                    with torch.no_grad():
+                        fn(*local, "sp", causal=causal, group=g)
+
+                def fwd_bwd(fn=fn, local=local, causal=causal):
+                    oo = fn(*local, "sp", causal=causal, group=g)
+                    (oo.float() * w[:, cut]).sum().backward()
+                out["cases"].append({
+                    "fn": name, "dtype": str(dtype).replace("torch.", ""),
+                    "causal": causal, "out_max_abs_err": errs[0],
+                    "grad_max_abs_err": max(errs[1:]), "rel_err": rels,
+                    "launches": launches, "fwd_ms": sp_time_ms(fwd),
+                    "fwd_bwd_ms": sp_time_ms(fwd_bwd)})
+        del full, ref, want
+    # the one-rank paths beside them: attention_ref and the flash kernel
+    # over the whole sequence
+    one = [t.to(dev, torch.bfloat16).requires_grad_() for t in (q, k, v)]
+
+    def dense():
+        (attention_ref(*one) * w).sum().backward()
+
+    def flash():
+        from paddle1_tpu_torch.ops import flash_attention as fa
+        (fa.flash_attention(*one).float() * w).sum().backward()
+    out["one_rank_bf16_fwd_bwd_ms"] = {"attention_ref": sp_time_ms(dense),
+                                       "flash": sp_time_ms(flash)}
+    return out
+
+
+def pp_rank_worker(out_dir, init_file, backend, one_card, jobs):
+    """One rank of phases 46-47 (``distributed.spawn``): each job of
+    ``jobs`` (``(name, args)``: ``ernie_pp_job``, ``pp_check_job``,
+    ``seq_job``) in turn, its result saved to
+    ``out_dir/<name>_rank<r>.pt``."""
+    import os
+    from paddle1_tpu_torch import distributed as pdist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    dev = torch.device(CARD, 0 if one_card else rank)
+    pdist.init_parallel_env(backend=backend, device=dev,
+                            init_method=f"file://{init_file}")
+    try:
+        for name, args in jobs:
+            t0 = time.perf_counter()
+            res = globals()[name](dev, out_dir, *args)
+            res["job_seconds"] = time.perf_counter() - t0
+            torch.save(res, os.path.join(out_dir, f"{name}_rank{rank}.pt"))
+            torch.cuda.empty_cache()
+    finally:
+        pdist.destroy_process_group()
+
+
+def pp_spawn(tmp, ranks, jobs):
+    """``jobs`` on ``ranks`` ranks (gloo on one card, NCCL one a card
+    where there are as many); every rank's result of each job."""
+    import os
+    from paddle1_tpu_torch import distributed as pdist
+    nccl = torch.cuda.device_count() >= ranks
+    pdist.spawn(pp_rank_worker, args=(
+        tmp, os.path.join(tmp, f"store{ranks}"), "nccl" if nccl else "gloo",
+        not nccl, jobs), nprocs=ranks, timeout=PP_TIMEOUT_S)
+    return {name: [torch.load(os.path.join(tmp, f"{name}_rank{r}.pt"))
+                   for r in range(ranks)] for name, _ in jobs}
+
+
+def pipeline_phases(dev, ws1):
+    """Phases 46-47 (see PP_* and SP_*). ``ws1``: phase 44's summary (the
+    world-size-1 step, peak and parameters). Returns both phases'
+    summaries."""
+    import os
+    import tempfile
+    t0 = time.perf_counter()
+    model = pp_model()
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    eng = hy_engine(model)
+    batch = ernie_batch(HY_BATCH, ERNIE_SEQ, seed=SEED + 46)
+    ref_losses = [float(eng.step(batch))]
+    ref_grads = {k: v.cpu() for k, v in eng.full_grad_dict().items()}
+    ref_losses += [float(eng.step(batch)) for _ in range(REF_STEPS - 1)]
+    ref = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del eng, model
+    torch.cuda.empty_cache()
+    meshes = {name: (degrees, kw) for name, degrees, kw in PP_MESHES}
+    pp2 = [("pp2", *meshes["pp2"], None)] + \
+        [(f"pp2_planted_{f}", *meshes["pp2"], f) for f in PP_PLANTS]
+    dp2 = [("pp2_dp2", *meshes["pp2_dp2"], None)]
+    seconds = {"reference": time.perf_counter() - t0}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"init": init, "state": ref, "grads": ref_grads},
+                   os.path.join(tmp, "pp_ref.pt"))
+        del init
+        t1 = time.perf_counter()
+        got = pp_spawn(tmp, PP_DEGREE, [("ernie_pp_job", ()),
+                                        ("pp_check_job", (pp2,)),
+                                        ("seq_job", ())])
+        t2 = time.perf_counter()
+        got4 = pp_spawn(tmp, 4, [("pp_check_job", (dp2,))])
+        seconds.update(spawn2=t2 - t1, spawn4=time.perf_counter() - t2)
+    for g in (got, got4):
+        for job, res in g.items():
+            seconds[f"{job}_{len(res)}"] = res[0]["job_seconds"]
+    checks = {**{k: [r[k] for r in got["pp_check_job"]]
+                 for k, *_ in pp2},
+              **{k: [r[k] for r in got4["pp_check_job"]] for k, *_ in dp2}}
+    failures = [f"phase 46 ran {r['backend']} on {n} ranks"
+                for n, g in ((PP_DEGREE, got), (4, got4))
+                for r in g["pp_check_job"]
+                if r["backend"] != ("nccl" if torch.cuda.device_count() >= n
+                                    else "gloo")]
+    # config 4 at pp 2
+    runs = got["ernie_pp_job"]
+    r0 = runs[0]
+    dt = float(np.median(r0["slopes"]))
+    n_params, steps = r0["params_whole"], r0["steps"]
+    flops = (6 * n_params * ERNIE_BATCH * ERNIE_SEQ +
+             12 * ERNIE_LAYERS * ERNIE_BATCH * ERNIE_SEQ ** 2 * ERNIE_HIDDEN)
+    stage = ERNIE_LAYERS // PP_DEGREE
+    per_step = {"flash_attention": stage * PP_MICRO,
+                "flash_attention_bwd_dkv": stage * PP_MICRO,
+                "flash_attention_bwd_dq": stage * PP_MICRO,
+                "fused_adam": 1, "layer_norm": 2 * stage * PP_MICRO + 2}
+    pp46 = {
+        "train": "ernie_1p5b_pretraining_fleet_pp", "card": card_line(),
+        "ranks": PP_DEGREE, "backend": got["pp_check_job"][0]["backend"],
+        "setup": [r["setup"] for r in runs], "amp": "bfloat16",
+        "batch": ERNIE_BATCH, "micro_batches": PP_MICRO, "seq_len": ERNIE_SEQ,
+        "layers": ERNIE_LAYERS, "params": n_params,
+        "setup_s": r0["setup_s"], "steps": steps,
+        "timing": "slope+readback, rank 0",
+        "step_ms_median": dt * 1e3, "step_ms_min": min(r0["slopes"]) * 1e3,
+        "step_ms_max": max(r0["slopes"]) * 1e3,
+        "tokens_per_s": ERNIE_BATCH * ERNIE_SEQ / dt,
+        "mfu": flops / dt / BF16_FLOPS_PER_S,
+        "loss_first": [r["loss_first"] for r in runs],
+        "loss_last": [r["loss_last"] for r in runs],
+        "peak_mem_gb": [r["peak_mem_gb"] for r in runs],
+        "peak_mem_gb_world_size_1": ws1["peak_mem_gb"],
+        "params_local": [r["params_local"] for r in runs],
+        "slot_bytes": [r["slot_bytes"] for r in runs],
+        "launches": [r["launches"] for r in runs],
+        "launches_per_step": [{k: v / steps for k, v in r["launches"].items()}
+                              for r in runs],
+        "collectives_per_step": [{k: v / steps for k, v in
+                                  r["collectives"].items()} for r in runs]}
+    log(json.dumps({"ernie_fleet_pp": pp46}))
+    for r in runs:
+        if not (np.isfinite(r["loss_first"]) and np.isfinite(r["loss_last"])
+                and r["loss_last"] < r["loss_first"]):
+            failures.append(f"ERNIE at pp 2: loss {r['loss_first']} -> "
+                            f"{r['loss_last']}")
+        if r["loss_first"] != r0["loss_first"]:
+            failures.append("ERNIE at pp 2: the ranks' losses differ")
+        for k, v in per_step.items():
+            if r["launches"][k] != v * steps:
+                failures.append(f"ERNIE at pp 2: {k} launched "
+                                f"{r['launches'][k]} times in {steps} "
+                                f"steps, want {v * steps}")
+        if not (r["params_local"] < ws1["params"] and
+                r["peak_mem_gb"] < ws1["peak_mem_gb"]):
+            failures.append(f"ERNIE at pp 2: a rank holds "
+                            f"{r['params_local']} parameters at "
+                            f"{r['peak_mem_gb']} GB peak, world size 1 "
+                            f"{ws1['params']} at {ws1['peak_mem_gb']}")
+    if any(s["micro"] != [PP_MICRO] or s["pp"] != PP_DEGREE
+           for s in pp46["setup"]):
+        failures.append(f"fleet compiled {pp46['setup']}")
+    # the cross-rank check
+    check_out = {"card": card_line(), "depth": PP_DEPTH, "batch": HY_BATCH,
+                 "seq": ERNIE_SEQ, "dtype": "float32", "steps": REF_STEPS,
+                 "lr": HY_LR, "losses_world_size_1": ref_losses}
+    for name, degrees, kw, fault in pp2 + dp2:
+        res = checks[name]
+        verdict = pp_verdict(name, res, ref_losses)
+        gaps = res[0]["gaps"]
+        micro = kw["pp_microbatches"]
+        check_out[name] = {
+            "mesh": degrees, **kw, "fault": fault,
+            "losses": [r["losses"] for r in res],
+            "max_grad_gap": max(gaps["grad_gap"].values()),
+            "max_move_gap": max(gaps["move_gap"].values()),
+            "flat_gap_in_lr": gaps["flat_gap_in_lr"],
+            "rep_gaps": res[0]["rep_gaps"],
+            "verdict": verdict or "holds",
+            "launches": [r["launches"] for r in res],
+            "params_local": [r["params_local"] for r in res],
+            "peak_mem_gb": [r["peak_mem_gb"] for r in res],
+            "collectives_per_step": [r["collectives_per_step"]
+                                     for r in res],
+            "seconds": res[0]["seconds"]}
+        log(json.dumps({"pp_rank_check_" + name: check_out[name]}))
+        if fault is not None:
+            if not verdict:
+                failures.append(f"{name}: the planted fault {fault} passed "
+                                "the check")
+            continue
+        failures += verdict
+        blocks = PP_DEPTH // PP_DEGREE
+        want = {"flash_attention": blocks * micro,
+                "flash_attention_bwd_dkv": blocks * micro,
+                "flash_attention_bwd_dq": blocks * micro, "fused_adam": 1,
+                "layer_norm": 2 * blocks * micro + 2}
+        for r in res:
+            for k, v in want.items():
+                if r["launches"][k] != v * REF_STEPS:
+                    failures.append(f"{name}: a rank launched {k} "
+                                    f"{r['launches'][k]} times, want "
+                                    f"{v * REF_STEPS}")
+    # phase 47
+    seq = got["seq_job"]
+    cases = seq[0]["cases"]
+    for r in seq:
+        for c in r["cases"]:
+            tag = f"{c['fn']} {c['dtype']} causal={c['causal']}"
+            if c["dtype"] == "float32":
+                ok = c["out_max_abs_err"] <= SP_TOL and \
+                    c["grad_max_abs_err"] <= SP_GRAD_TOL
+            else:
+                ok = max(c["rel_err"]) <= SP_BF16_REL
+            if not ok:
+                failures.append(f"phase 47 {tag}: errors {c}")
+            want = 1 if c["fn"] == "ulysses" else 0
+            if any(v != want for v in c["launches"].values()):
+                failures.append(f"phase 47 {tag}: launches "
+                                f"{c['launches']}, want {want} each")
+    sp47 = {"card": card_line(), "ranks": SP_RANKS,
+            "shape": seq[0]["shape"], "local": seq[0]["local"],
+            "ulysses_kernel_shape": [ERNIE_BATCH, ERNIE_SEQ,
+                                     ERNIE_HEADS // SP_RANKS,
+                                     ERNIE_HIDDEN // ERNIE_HEADS],
+            "tol": {"f32_out": SP_TOL, "f32_grad": SP_GRAD_TOL,
+                    "bf16_rel": SP_BF16_REL},
+            "cases": cases, "one_rank_bf16_fwd_bwd_ms":
+                seq[0]["one_rank_bf16_fwd_bwd_ms"],
+            "launches": {k: sum(c["launches"].get(k, 0) for r in seq
+                                for c in r["cases"])
+                         for k in cases[0]["launches"]}}
+    log(json.dumps({"sequence_parallel": sp47}))
+    seconds["total"] = time.perf_counter() - t0
+    check_out["seconds"] = seconds
+    log(json.dumps({"pp_rank_check": {
+        k: v for k, v in check_out.items() if k not in checks}}))
+    check(not failures, "; ".join(failures))
+    return pp46, sp47
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -9641,6 +10214,14 @@ def main() -> int:
                 log(f"ptxas {name}: {line.strip()}")
     tc_report = tensor_core_report(build, libs)
     bn_regs = bn_register_report(build)
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        """Seconds since the last lap, under ``name`` (the breakdown the
+        smoke prints before its kernels line)."""
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
 
     kernels = kernel_phase(dev)
     lm, eng, reqs, outs, launches, steps = serving_phase(dev)
@@ -9657,6 +10238,7 @@ def main() -> int:
     del lm, state
     torch.cuda.empty_cache()
 
+    lap("phases_1_3")
     flash_errs = flash_check(dev)
     flash_t, flash_b, flash_shape = flash_timing(dev)
     flash_te, flash_be, flash_shape_e = flash_timing(dev, ERNIE_ATTN)
@@ -9664,8 +10246,9 @@ def main() -> int:
         dev, FT_ATTN, torch.float32, ragged=True)
     adam = adam_phase(dev)
     ln_train = train_layer_norm_case(dev)
-    ln_ernie = [train_layer_norm_case(dev, ERNIE_BATCH * ERNIE_SEQ,
-                                      ERNIE_HIDDEN, dt)
+    # ERNIE-1.5B's whole batch, and one microbatch a stage step (phase 46)
+    ln_ernie = [train_layer_norm_case(dev, rows, ERNIE_HIDDEN, dt)
+                for rows in (ERNIE_BATCH * ERNIE_SEQ, ERNIE_SEQ)
                 for dt in (torch.bfloat16, torch.float32)]
     ln_ft = train_layer_norm_case(dev, FT_BATCH * FT_SEQ, BERT_HIDDEN,
                                   torch.float32)
@@ -9676,6 +10259,7 @@ def main() -> int:
     train_reference_check(dev)
     torch.cuda.empty_cache()
 
+    lap("phases_4_8")
     bn_errs = bn_check(dev)
     bn_times = bn_timing(dev)
     rn = resnet_phase(dev)
@@ -9683,43 +10267,52 @@ def main() -> int:
     resnet_reference_check(dev)
     torch.cuda.empty_cache()
 
+    lap("phases_9_11")
     mom_errs, mom_times = moments_phase(dev)
     dp = resnet_dp_phase(dev, rn)
     torch.cuda.empty_cache()
     cross_rank_check(dev)
 
+    lap("phases_12_13")
     sm_errs, sm_times, sm_grad_err = softmax_phase(dev)
     lenet = lenet_phase(dev)
     lenet_reference_check(dev)
     torch.cuda.empty_cache()
 
+    lap("phases_14_15")
     yolo_bn_errs, yolo_bn_times = yolo_bn_phase(dev)
     yolo = yolo_phase(dev)
     yolo_reference_check(dev)
     torch.cuda.empty_cache()
 
+    lap("phases_16_18")
     adam_e = adam_ernie_phase(dev)
     ernie = ernie_phase(dev)
     ernie_reference_check(dev)
     torch.cuda.empty_cache()
 
+    lap("phases_19_20")
     ft = finetune_phase(dev)
     finetune_reference_check(dev)
     torch.cuda.empty_cache()
 
+    lap("phases_21_22")
     ops_phase(dev)
     fte = finetune_eval_phase(dev)["bert_finetune_eval"]["launches"]
     torch.cuda.empty_cache()
 
+    lap("phases_23_24")
     f16k = f16_kernels_phase(dev)
     amp = finetune_amp_phase(dev, ft)
     o2 = o2_phase(dev)
     torch.cuda.empty_cache()
 
+    lap("phases_25_27")
     nn_launches = nn_phase(dev)["nn_cases"]["bn_launches"]
     mn = mobilenet_phase(dev)
     torch.cuda.empty_cache()
 
+    lap("phases_28_29")
     flash_cross = flash_cross_phase(dev)
     ln_tf = train_layer_norm_case(dev, TF_BUCKETS[0][0] * TF_BUCKETS[0][2],
                                   TF_D, torch.float32)
@@ -9734,6 +10327,7 @@ def main() -> int:
                 "transformer_beam_search_length_limit":
                     tf_dec["length_limit"]["launches"]}
 
+    lap("phases_30_31")
     ls_sm = ls_softmax_hold(dev)
     lsm, ls_train = lstm_seq2seq_phase(dev)
     ls_dec = lstm_decode_phase(dev, lsm)
@@ -9747,16 +10341,19 @@ def main() -> int:
                 "lstm_seq2seq_beam_search_length_limit":
                     ls_dec["length_limit"]["launches"]}
 
+    lap("phases_32_33")
     io_rn = io_resnet_phase(dev, rn["step_ms_median"])
     torch.cuda.empty_cache()
     io_ln = io_lenet_phase(dev, lenet["step_ms_median"])
     torch.cuda.empty_cache()
 
+    lap("phases_34_35")
     t36 = time.perf_counter()
     gen16 = gen_f16_phase(dev, reqs)
     econ = decode_economics_phase(dev, reqs, outs)
     rs = resnet_server_phase(dev)
     log(json.dumps({"phases_36_38_s": time.perf_counter() - t36}))
+    lap("phases_36_38")
     bn16_errs, bn16_times = bn_f16_phase(dev)
     torch.cuda.empty_cache()
     rn16 = resnet_f16_phase(dev)
@@ -9765,11 +10362,18 @@ def main() -> int:
     vgg = vgg_phase(dev)
     torch.cuda.empty_cache()
 
+    lap("phases_39_42")
     t43 = time.perf_counter()
     collectives_phase(dev)
     fleet_e = ernie_fleet_phase(dev)
     hybrid_rank_check(dev)
     log(json.dumps({"phases_43_45_s": time.perf_counter() - t43}))
+    lap("phases_43_45")
+    t46 = time.perf_counter()
+    pp46, sp47 = pipeline_phases(dev, fleet_e)
+    log(json.dumps({"phases_46_47_s": time.perf_counter() - t46}))
+    lap("phases_46_47")
+    log(json.dumps({"phase_seconds": laps}))
     gen_paths = {"gen_f16_cache": gen16["f16_cache"]["launches"],
                  "gen_f16_model": gen16["f16_model"]["launches"],
                  "gen_spec": econ["spec"]["launches"],
@@ -9796,6 +10400,8 @@ def main() -> int:
         by_path = {"serving": launches[name], "train": tl.get(name, 0),
                    "ernie": ernie["launches"].get(name, 0),
                    "ernie_fleet": fleet_e["launches"].get(name, 0),
+                   "ernie_fleet_pp": sum(r.get(name, 0)
+                                         for r in pp46["launches"]),
                    "bert_finetune": ft["launches"].get(name, 0),
                    "bert_finetune_eval": fte.get(name, 0),
                    **{k: v.get(name, 0) for k, v in amp_paths.items()},
@@ -9880,6 +10486,8 @@ def main() -> int:
     for name, cu, rep, key, plain_key, lib_key, tc in flash_rows:
         by_path = {"train": tl[name], "ernie": ernie["launches"][name],
                    "ernie_fleet": fleet_e["launches"][name],
+                   "ernie_fleet_pp": sum(r[name] for r in pp46["launches"]),
+                   "ulysses_attention": sp47["launches"][name],
                    "bert_finetune": ft["launches"][name],
                    "bert_finetune_eval": fte[name],
                    **{k: v[name] for k, v in amp_paths.items()},
@@ -9941,6 +10549,8 @@ def main() -> int:
                "lenet_train": lenet["launches"]["fused_adam"],
                "ernie": ernie["launches"]["fused_adam"],
                "ernie_fleet": fleet_e["launches"]["fused_adam"],
+               "ernie_fleet_pp": sum(r["fused_adam"]
+                                     for r in pp46["launches"]),
                "bert_finetune": ft["launches"]["fused_adam"],
                **{k: v["fused_adam"] for k, v in amp_paths.items()},
                "transformer": tf_train["launches"]["fused_adam"],

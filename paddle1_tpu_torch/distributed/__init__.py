@@ -3,17 +3,19 @@ collective side): the process-group environment, every collective of
 ``collective.py`` over ``torch.distributed``, the hybrid topology
 (``build_mesh``, ``HybridCommunicateGroup``), ``DataParallel``,
 ``spawn`` and the launcher, ``ParallelEngine``/``make_train_step`` at any
-mesh with ``pp == 1`` and ``sp == 1`` (data, ZeRO 1-3 and tensor
-parallelism), ``meta_parallel`` and ``fleet``.
+mesh (data, ZeRO 1-3, tensor and pipeline parallelism; ``sp`` ranks
+replicate the batch), ``pipeline`` (``pipeline_apply``,
+``stack_stage_params``), ``sequence_parallel`` (``ring_attention``,
+``ulysses_attention``), ``meta_parallel`` and ``fleet``.
 
-Pipeline and sequence parallelism (``pipeline``, ``sequence_parallel``)
-are ROADMAP Queue 1 item 5(iii)-(iv); ``checkpoint``, ``resilience`` and
-``supervisor`` item 6; the parameter server and the embedding services
-item 8."""
+``checkpoint``, ``resilience`` and ``supervisor`` are ROADMAP Queue 1
+item 6; the parameter server and the embedding services item 8."""
 
 from . import env  # noqa: F401
 from . import fleet  # noqa: F401
 from . import meta_parallel  # noqa: F401
+from . import pipeline  # noqa: F401
+from . import sequence_parallel  # noqa: F401
 from . import sharding_specs  # noqa: F401
 from .collective import (Group, ReduceOp, all_gather,  # noqa: F401
                          all_gather_object, all_reduce, all_to_all,
@@ -27,6 +29,9 @@ from .env import current_spmd_axis, spmd_axes  # noqa: F401
 from .parallel import (DataParallel, ParallelEnv,  # noqa: F401
                        init_parallel_env)
 from .parallel_engine import ParallelEngine, make_train_step  # noqa: F401
+from .pipeline import pipeline_apply, stack_stage_params  # noqa: F401
+from .sequence_parallel import (ring_attention,  # noqa: F401
+                                ulysses_attention)
 from .spawn import spawn  # noqa: F401
 from .topology import (CommunicateTopology,  # noqa: F401
                        HybridCommunicateGroup, Mesh, MeshDescriptor,

@@ -37,9 +37,16 @@ and takes this rank's slice backward, ``_c_split`` the converse.
 Gloo takes CUDA tensors in every collective here (probed on the H100's
 torch by ``tools/torch_hybrid_phases.py --gloo-probe``: all-reduce,
 broadcast, all-gather, reduce-scatter, the single-tensor all-gather,
-all-to-all and scatter), so two ranks can share one card over gloo, as
-``chip_smoke.py``'s cross-rank checks run them; NCCL takes one rank a
-card. Nothing is staged through host memory.
+all-to-all, also with uneven splits, and scatter), so two ranks can
+share one card over gloo, as ``chip_smoke.py``'s cross-rank checks run
+them; NCCL takes one rank a card. Nothing is staged through host memory.
+Gloo does not move CUDA tensors point to point: its TCP transport is
+handed the device pointer (the probe: ``send``/``recv`` and
+``batch_isend_irecv`` fail with ``writev ... Bad address``,
+``isend``/``irecv`` abort the process), so :func:`send`, :func:`recv`,
+:func:`isend` and :func:`irecv` of a device tensor over gloo raise
+``UnavailableError`` before any transfer, and the pipeline's and the
+sequence ring's handoffs are :func:`shift`, a collective.
 """
 
 from __future__ import annotations
@@ -50,7 +57,8 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from ..core.errors import (InvalidArgumentError, PreconditionNotMetError)
+from ..core.errors import (InvalidArgumentError, PreconditionNotMetError,
+                           UnavailableError)
 from . import env
 
 __all__ = ["ReduceOp", "Group", "new_group", "get_group",
@@ -59,7 +67,8 @@ __all__ = ["ReduceOp", "Group", "new_group", "get_group",
            "get_world_size", "differentiable_all_reduce",
            "all_gather_object", "reduce_scatter", "scatter", "alltoall",
            "all_to_all", "send", "recv", "isend", "irecv", "wait", "split",
-           "hierarchical_all_reduce", "all_gather_into", "_c_identity",
+           "hierarchical_all_reduce", "all_gather_into", "shift", "exchange",
+           "broadcast_bytes", "axis_group", "_c_identity",
            "_mp_allreduce",
            "_c_concat", "_c_split"]
 
@@ -447,7 +456,80 @@ def alltoall(in_tensor_list, out_tensor_list: Optional[list] = None,
 all_to_all = alltoall
 
 
-def _p2p_group(group, peer: int, what: str) -> Group:
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's storage as a flat uint8 view (no copy)."""
+    return t.reshape(-1).view(torch.uint8)
+
+
+def _all_to_all_bytes(out: torch.Tensor, inp: torch.Tensor, g: Group,
+                      out_splits=None, in_splits=None) -> None:
+    """``dist.all_to_all_single`` over the bytes of ``out`` and ``inp``
+    (both contiguous): any dtype moves, and gloo takes it on CUDA tensors
+    where it refuses point-to-point transfers of them
+    (``tools/torch_hybrid_phases.py --gloo-probe``). Splits count bytes;
+    None cuts both evenly over the group."""
+    dist.all_to_all_single(_as_bytes(out), _as_bytes(inp), out_splits,
+                           in_splits, group=g.process_group)
+
+
+def exchange(x: torch.Tensor, group: Optional[Group] = None
+             ) -> torch.Tensor:
+    """Row i of ``x`` (``[n, ...]``, n the group's size) to group rank i;
+    row j of the result is what rank j sent this rank (one all-to-all
+    over the bytes). Without a process group (one rank) it returns
+    ``x``."""
+    g = _active(group)
+    if g is None:
+        return x
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    _all_to_all_bytes(out, x, g)
+    return out
+
+
+def shift(send: Optional[torch.Tensor], recv: torch.Tensor,
+          offset: int = 1, group: Optional[Group] = None) -> torch.Tensor:
+    """One step of a permutation by ``offset`` over the group (the JAX
+    ``lax.ppermute`` of ``i -> i + offset``): group rank r's ``send``
+    goes to rank ``(r + offset) % n`` and ``recv`` (filled and returned)
+    receives from rank ``(r - offset) % n``. A rank passes None where it
+    sends nothing this time; every rank of the group calls
+    it (with an empty ``recv`` where it receives nothing). It is one
+    all-to-all over the tensors' bytes whose splits move nothing else
+    (:func:`_all_to_all_bytes`). Without a process group (one rank)
+    ``recv`` takes ``send``."""
+    g = _active(group)
+    if g is None:
+        if send is not None:
+            recv.copy_(send)
+        return recv
+    n, r = g.nranks, g.rank
+    out_splits, in_splits = [0] * n, [0] * n
+    src = recv.new_empty(0, dtype=torch.uint8)
+    if send is not None:
+        src = send.contiguous()
+        in_splits[(r + offset) % n] = src.numel() * src.element_size()
+    buf = recv if recv.is_contiguous() else recv.contiguous()
+    out_splits[(r - offset) % n] = buf.numel() * buf.element_size()
+    _all_to_all_bytes(buf, src, g, out_splits, in_splits)
+    if buf is not recv:
+        recv.copy_(buf)
+    return recv
+
+
+def broadcast_bytes(tensor: torch.Tensor, src: int = 0,
+                    group: Optional[Group] = None) -> torch.Tensor:
+    """:func:`broadcast` over the tensor's bytes (any dtype, every
+    backend); ``tensor`` must be contiguous. Returns it."""
+    if not tensor.is_contiguous():
+        raise InvalidArgumentError("broadcast_bytes needs a contiguous "
+                                   "tensor")
+    broadcast(_as_bytes(tensor), src, group)
+    return tensor
+
+
+def _p2p_group(group, peer: int, what: str,
+               tensor: torch.Tensor) -> Group:
     g = _active(group)
     if g is None:
         raise PreconditionNotMetError(
@@ -456,20 +538,26 @@ def _p2p_group(group, peer: int, what: str) -> Group:
     if not 0 <= peer < g.nranks or peer == g.rank:
         raise InvalidArgumentError(f"{what}: peer {peer} is not another "
                                    f"rank of {g}")
+    if tensor.device.type != "cpu" and g.process_group.name() == "gloo":
+        raise UnavailableError(
+            f"{what}: gloo moves only CPU tensors point to point (its TCP "
+            f"transport would be handed the {tensor.device.type} tensor's "
+            "device pointer); use NCCL, a CPU tensor, or a collective "
+            "such as distributed.collective.shift")
     return g
 
 
 def send(tensor: torch.Tensor, dst: int = 0, group: Optional[Group] = None,
          sync_op: bool = True) -> None:
     """Send ``tensor`` to group rank ``dst`` (blocking)."""
-    g = _p2p_group(group, dst, "send")
+    g = _p2p_group(group, dst, "send", tensor)
     dist.send(tensor.contiguous(), dst=g.ranks[dst], group=g.process_group)
 
 
 def recv(tensor: torch.Tensor, src: int = 0, group: Optional[Group] = None,
          sync_op: bool = True) -> torch.Tensor:
     """Receive into ``tensor`` (returned) from group rank ``src``."""
-    g = _p2p_group(group, src, "recv")
+    g = _p2p_group(group, src, "recv", tensor)
     buf = tensor if tensor.is_contiguous() else tensor.contiguous()
     dist.recv(buf, src=g.ranks[src], group=g.process_group)
     return tensor if buf is tensor else tensor.copy_(buf)
@@ -496,7 +584,7 @@ class _Work:
 def isend(tensor: torch.Tensor, dst: int = 0,
           group: Optional[Group] = None) -> _Work:
     """Start sending ``tensor`` to group rank ``dst``."""
-    g = _p2p_group(group, dst, "isend")
+    g = _p2p_group(group, dst, "isend", tensor)
     return _Work(dist.isend(tensor.contiguous(), dst=g.ranks[dst],
                             group=g.process_group))
 
@@ -505,7 +593,7 @@ def irecv(tensor: torch.Tensor, src: int = 0,
           group: Optional[Group] = None) -> _Work:
     """Start receiving into ``tensor`` from group rank ``src``; the data
     is there after ``wait()``."""
-    g = _p2p_group(group, src, "irecv")
+    g = _p2p_group(group, src, "irecv", tensor)
     if not tensor.is_contiguous():
         buf = tensor.contiguous()
         return _Work(dist.irecv(buf, src=g.ranks[src],
@@ -656,6 +744,24 @@ def split(x, num_or_sections, axis=0, group=None):
             f"split num_or_sections={num_or_sections} must equal the "
             f"group size {n}")
     return _c_split(x, group)
+
+
+def axis_group(axis_name: str, group: Optional[Group] = None
+               ) -> Optional[Group]:
+    """The group a named-axis function runs over: ``group`` where given,
+    else the group bound to ``axis_name`` by ``env.spmd_axes``, else the
+    hybrid group's along that axis (``sep`` names ``sp``), else None (a
+    single rank: the identity)."""
+    if group is not None:
+        return group
+    g = env.current_spmd_axis(axis_name)
+    if g is not None:
+        return g
+    from .topology import get_hybrid_communicate_group
+    hcg = get_hybrid_communicate_group()
+    if hcg is None:
+        return None
+    return hcg.mesh.groups.get(hcg.axis_name(axis_name))
 
 
 def _axis_group(g):

@@ -11,14 +11,14 @@ collective side):
 
 The parameter-server trainers (``MultiTrainer``, ``ProcessMultiTrainer``,
 the workers and descriptors), ``data_generator``, the file datasets and
-``UtilBase``/``fleet_util`` are ROADMAP Queue 1 items 8 and 10; the
-pipeline layers are item 5(iii).
+``UtilBase``/``fleet_util`` are ROADMAP Queue 1 items 8 and 10.
 """
 
 from . import utils  # noqa: F401
 from ..meta_parallel import (ColumnParallelLinear,  # noqa: F401
-                             ParallelCrossEntropy, RowParallelLinear,
-                             VocabParallelEmbedding)
+                             LayerDesc, ParallelCrossEntropy, PipelineLayer,
+                             RowParallelLinear, SegmentLayers,
+                             SharedLayerDesc, VocabParallelEmbedding)
 from ..topology import (CommunicateTopology,  # noqa: F401
                         HybridCommunicateGroup)
 from .fleet_base import Fleet, fleet  # noqa: F401
@@ -54,4 +54,5 @@ __all__ = ["DistributedStrategy", "PaddleCloudRoleMaker",
            "UserDefinedRoleMaker", "Role", "Fleet", "fleet", "init",
            "distributed_model", "distributed_optimizer", "minimize",
            "recompute", "ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding", "ParallelCrossEntropy"]
+           "VocabParallelEmbedding", "ParallelCrossEntropy", "LayerDesc",
+           "SharedLayerDesc", "PipelineLayer", "SegmentLayers"]

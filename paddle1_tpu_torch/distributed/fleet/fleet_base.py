@@ -144,16 +144,16 @@ class Fleet:
 
     def distributed_model(self, model):
         """Wrap ``model`` for eager training on the mesh (reference
-        fleet_base.py:765): ``ModelParallel`` where ``mp > 1`` (the tagged
-        layers cut to this rank's shard), else ``DataParallel`` over the
-        data ranks; pipelines (``pp > 1``) are ROADMAP Queue 1 item
-        5(iii)."""
+        fleet_base.py:765): ``PipelineParallel`` where ``pp > 1`` (a
+        ``PipelineLayer``, its stages run by the 1F1B schedule in this
+        process), ``ModelParallel`` where ``mp > 1`` (the tagged layers
+        cut to this rank's shard), else ``DataParallel`` over the data
+        ranks."""
         self._ensure_init()
         hcg = self._hcg
         if hcg.get_pipe_parallel_world_size() > 1:
-            raise UnimplementedError(
-                "fleet.distributed_model: pipeline parallelism is ROADMAP "
-                "Queue 1 item 5(iii)")
+            from ..meta_parallel.pipeline_parallel import PipelineParallel
+            return PipelineParallel(model, hcg, self._strategy)
         if hcg.get_model_parallel_world_size() > 1:
             from ..meta_parallel.model_parallel import ModelParallel
             return ModelParallel(model, hcg, self._strategy)

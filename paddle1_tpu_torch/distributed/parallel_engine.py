@@ -72,17 +72,35 @@ With ``mesh=build_mesh(...)`` (or ``degrees={...}``) each rank
 global batch and holds its part of the model, and the step computes what
 the JAX engine's computes on the same mesh, where GSPMD places every
 collective (``parallel_engine.py:597-670, 768-809``). Here the engine
-places them itself, explicitly, at every mesh with ``pp == 1`` and
-``sp == 1``:
+places them itself, explicitly, at every mesh:
 
 * at construction global rank 0 broadcasts the parameters and floating
   buffers (a tensor-parallel layer's shards: the first data rank of each
   model-parallel rank);
 * :meth:`shard_batch` cuts a global batch into this rank's part over the
   data ranks (``dp`` x ``sharding``, as the JAX ``shard_batch`` cuts over
-  ``("dp", "sharding")``; the ``mp`` ranks of a data rank see the same
-  rows). A batch that does not divide raises (``benches.py:106-108``);
-  under ``grad_accum`` the cut is along the micro-batch axis;
+  ``("dp", "sharding")``; the ``mp``, ``pp`` and ``sp`` ranks of a data
+  rank see the same rows), or over the data axes ``batch_spec``'s first
+  entry names (the JAX form; a spec that cuts a later axis, the sequence
+  over ``sp``, raises: ROADMAP.md Queue 1 item 5(iv-b)). A batch that
+  does not divide raises (``benches.py:106-108``); under ``grad_accum``
+  the cut is along the micro-batch axis;
+* ``pp > 1``: every ``TransformerEncoder`` is tagged with the ``pp``
+  group and ``pp_microbatches`` (default pp; ``parallel_engine.py:
+  412-437``), and each rank keeps only its stage's ``num_layers // pp``
+  blocks (their parameters, gradients and slots; the other blocks'
+  places hold ``BlockElsewhere``), after rank 0's whole model was
+  broadcast. Inside the step (the ``pp`` binding of ``env.spmd_axes``)
+  the encoder runs its blocks as a pipeline over the ``pp`` ranks
+  (``distributed/pipeline.py``: GPipe's ticks, the JAX scan's numbers);
+  the embeddings and heads stay on every rank, and run there on the same
+  inputs, so their gradients are the same on every rank and are not
+  reduced over ``pp`` (the input's gradient is broadcast from stage 0).
+  Dropout inside a block draws from its stage rank's generator;
+* ``sp > 1``: the batch is replicated over the ``sp`` ranks (the JAX
+  engine's cut, ``parallel_engine.py:636-638``), so each computes world
+  size 1's step; ``sequence_parallel``'s attention functions cut the
+  sequence when a model calls them;
 * ``mp > 1``: every tensor ``text.models.apply_megatron_sharding``
   tagged is cut to this rank's model-parallel shard, and the layers that
   hold them run with Megatron's f/g pairs
@@ -118,8 +136,8 @@ places them itself, explicitly, at every mesh with ``pp == 1`` and
   gathered plus its shard, above stage 2's (no per-bucket reduce-scatter
   and no per-layer gather yet: ROADMAP.md Queue 1 item 5(v));
 * ``clip_global_norm`` and ``check_finite`` read the whole gradient: the
-  sums over shards are all-reduced over ``sharding`` and ``mp``, a tensor
-  replicated over ``mp`` counted once;
+  sums over shards are all-reduced over ``sharding``, ``mp`` and ``pp``,
+  a tensor replicated over ``mp`` or the stages counted once;
 * the running statistics blend the global statistics, the same on every
   rank.
 
@@ -127,10 +145,10 @@ A ZeRO shard's optimizer is a shallow copy of ``optimizer`` over the
 pieces (``shard_optimizer``); ``optimizer`` keeps the learning rate and
 its schedule. An optimizer ``grad_clip`` under ZeRO or ``mp`` raises: use
 ``clip_global_norm``. ``donate`` is accepted and changes nothing: the
-port updates parameters and slots in place. ``pp > 1``, ``sp > 1``,
-``batch_spec`` other than None and ``pp_microbatches`` (pipeline and
-sequence parallelism, ROADMAP.md Queue 1 items 5(iii)-(iv)) and
-``save_checkpoint``/``load_checkpoint`` (item 6) raise.
+port updates parameters and slots in place. :meth:`full_state_dict`,
+:meth:`full_grad_dict` and :meth:`sync_model` gather the shards and the
+stages. ``save_checkpoint``/``load_checkpoint`` (ROADMAP.md Queue 1
+item 6) raise.
 """
 
 from __future__ import annotations
@@ -210,6 +228,56 @@ def _blend(old: torch.Tensor, stats, m: float) -> torch.Tensor:
     return cur
 
 
+_DATA_AXES = ("dp", "sharding")
+
+
+def _spec_names(entry) -> tuple:
+    if entry is None:
+        return ()
+    if isinstance(entry, str):
+        return (entry,)
+    if isinstance(entry, (tuple, list)) and \
+            all(isinstance(a, str) for a in entry):
+        return tuple(entry)
+    raise InvalidArgumentError(
+        f"batch_spec entry {entry!r} must be None, a mesh axis name or a "
+        "tuple of names")
+
+
+def _batch_cut_axes(spec, mesh) -> tuple:
+    """The mesh axes a batch leaf's leading axis is cut over, outermost
+    first: ``batch_spec``'s first entry (the JAX form: one entry a
+    dimension, each None, an axis name or a tuple of names), by default
+    ``("dp", "sharding")``, the JAX engine's (``parallel_engine.py:
+    636-638``; replicated over ``mp``, ``pp`` and ``sp``). A spec that
+    cuts a later axis (the sequence over ``sp``, which GSPMD partitions
+    for the JAX engine) or cuts the batch over another axis raises
+    ``UnimplementedError``."""
+    if spec is None:
+        return _DATA_AXES
+    entries = list(spec) if isinstance(spec, (tuple, list)) else [spec]
+    parsed = [_spec_names(e) for e in entries]
+    for a in (a for names in parsed for a in names):
+        if a not in Mesh.axis_names:
+            raise InvalidArgumentError(
+                f"batch_spec {spec!r}: {a!r} is not a mesh axis "
+                f"{Mesh.axis_names}")
+    if any(parsed[1:]):
+        raise UnimplementedError(
+            f"ParallelEngine: batch_spec {spec!r} cuts an axis after the "
+            "batch's (the sequence over sp, which GSPMD partitions for the "
+            "JAX engine); the port cuts the leading axis over its data "
+            "axes only: ROADMAP.md Queue 1 item 5(iv-b)")
+    lead = parsed[0] if parsed else ()
+    other = [a for a in lead if a not in _DATA_AXES]
+    if other or len(set(lead)) != len(lead):
+        raise UnimplementedError(
+            f"ParallelEngine: batch_spec {spec!r} cuts the batch over "
+            f"{list(lead)}; the port cuts it over the data axes dp and "
+            "sharding, each once (ROADMAP.md Queue 1 item 5(iv-b))")
+    return lead
+
+
 def _global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     """The L2 norm over every gradient, in f32."""
     return torch.linalg.vector_norm(
@@ -260,7 +328,7 @@ def keep_where_(state: Sequence[torch.Tensor],
 
 
 class ParallelEngine:
-    """One-device (or data-parallel) trainer. ``optimizer`` is one of this
+    """One-device or hybrid-parallel trainer. ``optimizer`` is one of this
     package's optimizers over the model's parameters (or built with
     ``parameters=None``, then it adopts them); ``loss_fn(model, batch)``
     returns a scalar tensor. ``batch``: a dict, list or tuple of numpy
@@ -291,26 +359,12 @@ class ParallelEngine:
         if int(grad_accum) != grad_accum or grad_accum < 1:
             raise InvalidArgumentError(
                 f"grad_accum must be an int >= 1, got {grad_accum!r}")
-        if batch_spec is not None:
-            raise UnimplementedError(
-                "ParallelEngine: batch_spec is not ported; the port cuts "
-                "the batch's leading axis over the data ranks (ROADMAP.md "
-                "Queue 1 item 5(iii))")
-        if pp_microbatches is not None:
-            raise UnimplementedError(
-                "ParallelEngine: pipeline parallelism (pp_microbatches) is "
-                "ROADMAP.md Queue 1 item 5(iii)")
         if mesh is None and degrees is not None:
             mesh = build_mesh(**degrees)
-        if mesh is not None and mesh.shape["pp"] > 1:
-            raise UnimplementedError(
-                "ParallelEngine: pipeline parallelism (pp > 1) is "
-                "ROADMAP.md Queue 1 item 5(iii)")
-        if mesh is not None and mesh.shape["sp"] > 1:
-            raise UnimplementedError(
-                "ParallelEngine: sequence parallelism (sp > 1) is "
-                "ROADMAP.md Queue 1 item 5(iv)")
+        self.batch_spec = batch_spec
+        self._cut_axes = _batch_cut_axes(batch_spec, mesh)
         self.model = model
+        self.mesh = mesh
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.amp_dtype = _AMP.get(amp_dtype)
@@ -324,6 +378,12 @@ class ParallelEngine:
         self._inflight: collections.deque = collections.deque()
         if recompute:
             self._flip_recompute(model)
+        self._pp = None          # the pipeline group (pp > 1)
+        self._tag_pipeline(pp_microbatches)
+        if mesh is not None:
+            self._broadcast_model()
+            if self._pp is not None:
+                self._cut_stages()
         named = list(model.named_parameters())   # a tied weight once
         if not named:
             raise InvalidArgumentError("ParallelEngine: model has no "
@@ -356,7 +416,6 @@ class ParallelEngine:
         self.trace_count = 0
         self._seen_sigs: Dict[str, set] = {}
         self._backup: Optional[List[torch.Tensor]] = None
-        self.mesh = mesh
         self._flat = None
         self._zero = None        # the ZeRO shard's state (sharding > 1)
         self._mp = None          # the model-parallel group (mp > 1)
@@ -383,18 +442,123 @@ class ParallelEngine:
                 "(TransformerEncoder); wrap your own blocks with "
                 "fleet.utils.recompute for per-segment remat")
 
+    @torch.no_grad()
+    def _broadcast_model(self) -> None:
+        """Global rank 0's parameters and floating buffers on every rank
+        (a tensor-parallel layer's shards follow in :meth:`_init_mesh`),
+        before any rank drops another stage's blocks."""
+        world = collective.get_group(0)
+        for t in list(self.model.parameters()) + [
+                b for b in self.model.buffers() if b.is_floating_point()]:
+            if not getattr(t, "_mp_local", False):
+                collective.broadcast(t.data, 0, world)
+
+    def _tag_pipeline(self, pp_microbatches: Optional[int]) -> None:
+        """Tag every ``TransformerEncoder`` with the ``pp`` group and the
+        micro-batch count (default: pp) at ``pp > 1``, else clear the tags
+        a previous engine left (``parallel_engine.py:412-437``)."""
+        from ..nn.layer_transformer import TransformerEncoder
+        pp = self.mesh.shape["pp"] if self.mesh is not None else 1
+        encs = [m for m in self.model.modules()
+                if isinstance(m, TransformerEncoder)]
+        if pp > 1 and not encs:
+            raise InvalidArgumentError(
+                "pp degree > 1 needs a pipelined body (TransformerEncoder) "
+                "in the model; for arbitrary heterogeneous stage graphs use "
+                "distributed.meta_parallel.PipelineParallel (eager 1F1B "
+                "schedule)")
+        self._pp = self.mesh.groups["pp"] if pp > 1 else None
+        for e in encs:
+            e.pipeline_group = self._pp
+            e.pipeline_microbatches = (pp_microbatches or pp) if pp > 1 \
+                else None
+
+    def _cut_stages(self) -> None:
+        """``pp > 1``: this rank keeps its stage's blocks of every tagged
+        encoder (``num_layers // pp`` of them) and puts a
+        :class:`BlockElsewhere` in each other block's place, so only its
+        own blocks take parameters, gradients and optimizer slots; the
+        embeddings and heads stay on every rank. Records where each
+        block's tensors live, for :meth:`full_state_dict`."""
+        from ..nn.layer_transformer import TransformerEncoder
+        g = self._pp
+        self._state_keys = list(self.model.state_dict(keep_vars=True))
+        self._grad_keys = [
+            n for n, p in self.model.named_parameters()
+            if p.requires_grad and p.is_floating_point()] + [
+            n for n, b in self.model.named_buffers() if b.is_floating_point()]
+        self._whole_keys = list(dict.fromkeys(self._state_keys +
+                                              self._grad_keys))
+        self._block_of: Dict[str, tuple] = {}
+        self._stage_ids = set()
+        self._encoders = []
+        for name, e in self.model.named_modules():
+            if not isinstance(e, TransformerEncoder):
+                continue
+            if e.num_layers % g.nranks:
+                raise InvalidArgumentError(
+                    f"pipelined encoder: {e.num_layers} blocks not "
+                    f"divisible into {g.nranks} stages")
+            bps = e.num_layers // g.nranks
+            prefix = f"{name}.layers." if name else "layers."
+            for k in self._whole_keys:
+                if not k.startswith(prefix):
+                    continue
+                i, sub = k[len(prefix):].split(".", 1)
+                i = int(i)
+                own = g.rank * bps + i % bps
+                self._block_of[k] = (i // bps, f"{prefix}{own}.{sub}")
+            blocks = list(e.layers)
+            mine = blocks[g.rank * bps:(g.rank + 1) * bps]
+            self._stage_ids.update(id(t) for b in mine
+                                   for t in (*b.parameters(), *b.buffers()))
+            self._encoders.append((e, bps, mine))
+        self._drop_stages()
+        kept = {id(p) for p in self.model.parameters()}
+        opt = self.optimizer
+        if opt._params:
+            pairs = [(p, n) for p, n in zip(opt._params, opt._names)
+                     if id(p) in kept]
+            opt._params = [p for p, _ in pairs]
+            opt._names = [n for _, n in pairs]
+
+    def _drop_stages(self) -> None:
+        """Put a :class:`BlockElsewhere` in the place of every block
+        another stage holds (again after :meth:`sync_model` gathered
+        them)."""
+        from ..nn.layer_transformer import BlockElsewhere
+        g = self._pp
+        for e, bps, _ in self._encoders:
+            for i in range(e.num_layers):
+                if i // bps != g.rank:
+                    e.layers[i] = BlockElsewhere(i // bps)
+        self._stages_whole = False
+
+    def _stage_gather(self, local: Dict[str, torch.Tensor],
+                      keys: Sequence[str]) -> Dict[str, torch.Tensor]:
+        """``keys``' tensors on every rank: this rank's (``local``), and
+        each block another stage holds broadcast from that stage over
+        ``pp`` (a collective call, on every rank, in ``keys``' order)."""
+        out = {}
+        for k in keys:
+            where = self._block_of.get(k)
+            if where is None:
+                out[k] = local[k]
+                continue
+            stage, own = where
+            t = local[k].contiguous() if stage == self._pp.rank else \
+                torch.empty_like(local[own],
+                                 memory_format=torch.contiguous_format)
+            out[k] = collective.broadcast_bytes(t, stage, self._pp)
+        return out
+
     def _init_mesh(self):
-        """Rank 0's parameters and floating buffers everywhere, the
-        tensor-parallel cut (``mp > 1``), and the flat f32 gradient buffer
-        (the persistent gradient buffers are views into it; its last
-        element carries the loss at ``sharding == 1``); at ``sharding >
-        1`` the ZeRO shard (:meth:`_init_zero`)."""
+        """The tensor-parallel cut (``mp > 1``), and the flat f32 gradient
+        buffer (the persistent gradient buffers are views into it; its
+        last element carries the loss at ``sharding == 1``); at
+        ``sharding > 1`` the ZeRO shard (:meth:`_init_zero`)."""
         m = self.mesh
         with torch.no_grad():
-            world = collective.get_group(0)
-            for t in self.params + self.buffers:
-                if not getattr(t, "_mp_local", False):
-                    collective.broadcast(t.data, 0, world)
             if m.shape["mp"] > 1:
                 from .meta_parallel.mp_layers import shard_tagged_layers
                 self._mp = m.groups["mp"]
@@ -415,9 +579,14 @@ class ParallelEngine:
                 "ParallelEngine: an optimizer grad_clip sees one shard "
                 "under ZeRO or model parallelism; pass clip_global_norm= "
                 "to the engine, which reads the whole gradient")
-        # count a tensor replicated over mp once in the global norm
-        self._mp_weight = [1.0 if self._mp is None or self._mp.rank == 0
-                           or "mp" in _axes(t) else 0.0 for t in masters]
+        # weight 1 on the one rank that counts a tensor in the global
+        # norm, else 0: a tensor replicated over mp, or over the pp stages
+        # (all but a stage's blocks' parameters and buffers), counts once
+        self._norm_weight = [
+            1.0 if (self._mp is None or self._mp.rank == 0 or
+                    "mp" in _axes(t)) and
+            (self._pp is None or self._pp.rank == 0 or
+             id(t) in self._stage_ids) else 0.0 for t in masters]
         offs, n = [], 0
         for t in masters:
             offs.append(n)
@@ -431,7 +600,7 @@ class ParallelEngine:
         self._grads = [self._flat[o:o + t.nelement()].view(t.shape)
                        for o, t in zip(offs, masters)]
         self._opt_params, self._opt_grads = masters, self._grads
-        self._opt_weight = self._mp_weight
+        self._opt_weight = self._norm_weight
         if shards > 1:
             self._init_zero(masters, offs, n)
 
@@ -460,7 +629,7 @@ class ParallelEngine:
         own = dict(zip(map(id, self.params), self.names))
         own.update(zip(map(id, self.buffers), self.buffer_names))
         pieces, gpieces, pnames, weights = [], [], [], []
-        for o, t, w in zip(offs, masters, self._mp_weight):
+        for o, t, w in zip(offs, masters, self._norm_weight):
             a, b = max(o, lo), min(o + t.nelement(), hi)
             if a >= b:
                 continue
@@ -534,7 +703,10 @@ class ParallelEngine:
             _map(check, batch)
         if self.mesh is None:
             return ShardedBatch(self._feed(batch))
-        n, r = self.mesh.data_group.nranks, self.mesh.data_group.rank
+        n, r = 1, 0
+        for a in self._cut_axes:
+            n = n * self.mesh.shape[a]
+            r = r * self.mesh.shape[a] + self.mesh.coords[a]
         axis = 1 if self.grad_accum > 1 else 0
 
         def cut(a):
@@ -675,15 +847,20 @@ class ParallelEngine:
         notfinite]`` under ``check_finite``."""
         if self._zero is not None:
             self._gather_params()
+        if self._pp is not None and self._stages_whole:
+            self._drop_stages()
         leaves = self._leaves()
         diff = [leaves[k] for k in self._diff_keys]
         losses, stat_runs = [], []
+        axes = {} if self.mesh is None else {"dp": self.mesh.data_group}
+        if self._mp is not None:
+            axes["mp"] = self._mp
+        if self._pp is not None:
+            axes["pp"] = self._pp
         for i, mb in enumerate(_micro_batches(feed, self.grad_accum)):
             with torch.enable_grad():
-                bind = contextlib.nullcontext() if self.mesh is None else \
-                    env.spmd_axes(dp=self.mesh.data_group) \
-                    if self._mp is None else \
-                    env.spmd_axes(dp=self.mesh.data_group, mp=self._mp)
+                bind = env.spmd_axes(**axes) if axes else \
+                    contextlib.nullcontext()
                 with collect_stat_updates() as stats, bind:
                     loss = torch.func.functional_call(self._wrapper, leaves,
                                                       (mb,))
@@ -786,17 +963,20 @@ class ParallelEngine:
 
     def _dist_groups(self) -> List[collective.Group]:
         """The groups a sum over the whole gradient reduces over: the
-        ZeRO shards and the model-parallel ranks."""
+        ZeRO shards, the model-parallel ranks and the pipeline stages."""
         out = []
         if self._zero is not None:
             out.append(self._zero["group"])
         if self._mp is not None:
             out.append(self._mp)
+        if self._pp is not None:
+            out.append(self._pp)
         return out
 
     def _finite(self, loss: torch.Tensor) -> torch.Tensor:
         """Device bool: the loss and every gradient are finite
-        (:func:`_all_finite`), over every shard under ZeRO or mp."""
+        (:func:`_all_finite`), over every shard under ZeRO or mp and every
+        stage under pp."""
         groups = self._dist_groups()
         if not groups:
             return _all_finite(loss, self._opt_grads)
@@ -808,8 +988,8 @@ class ParallelEngine:
 
     def _clip(self, c: float) -> None:
         """Scale every gradient by ``min(1, c / (||g|| + 1e-6))``, the norm
-        over the whole model (each ZeRO and mp shard once, a tensor
-        replicated over mp once)."""
+        over the whole model (each ZeRO and mp shard and each stage's
+        blocks once, a tensor replicated over mp or the stages once)."""
         groups = self._dist_groups()
         if not groups:
             gn = _global_norm(self._opt_grads)
@@ -871,13 +1051,34 @@ class ParallelEngine:
         return {"hits": self.dispatch_count - self.trace_count,
                 "misses": self.trace_count}
 
-    def sync_model(self) -> None:
-        """The model's parameters are the engine's (updated in place), so
-        this drains the dispatched steps; under ZeRO stage 3 it also
-        gathers the parameters, which stay whole until the next step."""
+    def _sync_local(self) -> None:
+        """Drain the dispatched steps; under ZeRO stage 3 gather the
+        parameters, which stay whole until the next step."""
         self.drain()
         if self._zero is not None:
             self._gather_params()
+
+    def sync_model(self) -> None:
+        """The model's parameters are the engine's (updated in place), so
+        this drains the dispatched steps; under ZeRO stage 3 it also
+        gathers the parameters, and at ``pp > 1`` every block another
+        stage holds into the model (a collective call, on every rank):
+        both stay until the next step."""
+        self._sync_local()
+        if self._pp is None:
+            return
+        with torch.no_grad():
+            whole = self._stage_gather(
+                self.model.state_dict(keep_vars=True), self._state_keys)
+            for e, bps, mine in self._encoders:
+                for i in range(e.num_layers):
+                    if i // bps != self._pp.rank:
+                        e.layers[i] = copy.deepcopy(mine[i % bps])
+            for k, t in self.model.state_dict(keep_vars=True).items():
+                where = self._block_of.get(k)
+                if where is not None and where[0] != self._pp.rank:
+                    t.data.copy_(whole[k])
+        self._stages_whole = True
 
     def slot_bytes(self) -> int:
         """Bytes of optimizer slots this rank holds (1/n of the whole, and
@@ -888,9 +1089,10 @@ class ParallelEngine:
     @torch.no_grad()
     def full_state_dict(self) -> Dict[str, torch.Tensor]:
         """The model's state with every model-parallel shard gathered to
-        its whole tensor (a collective call over the ``mp`` group, on
-        every rank): what ``state_dict()`` gives on one rank."""
-        self.sync_model()
+        its whole tensor (collective calls over the ``mp`` group, on
+        every rank), and at ``pp > 1`` every stage's blocks: what
+        ``state_dict()`` gives on one rank."""
+        self._sync_local()
         out = {}
         for k, t in self.model.state_dict(keep_vars=True).items():
             axes = _axes(t)
@@ -901,6 +1103,8 @@ class ParallelEngine:
                 out[k] = torch.cat(parts, dim=axes.index("mp"))
             else:
                 out[k] = t.detach().clone()
+        if self._pp is not None:
+            out = self._stage_gather(out, self._state_keys)
         return out
 
     @torch.no_grad()
@@ -908,8 +1112,8 @@ class ParallelEngine:
         """The gradient the last step applied (the mean over the data
         ranks, after the clip), keyed by parameter and floating-buffer
         name, every ZeRO and model-parallel shard gathered to its whole
-        tensor (collective calls, on every rank): what it is on one
-        rank."""
+        tensor and at ``pp > 1`` every stage's blocks (collective calls,
+        on every rank): what it is on one rank."""
         self.drain()
         grads = self._grads
         z = self._zero
@@ -930,6 +1134,8 @@ class ParallelEngine:
                 collective.all_gather(parts, g.contiguous(), self._mp)
                 g = torch.cat(parts, dim=axes.index("mp"))
             out[names[id(t)]] = g.clone()
+        if self._pp is not None:
+            out = self._stage_gather(out, self._grad_keys)
         return out
 
     def save_checkpoint(self, path: str) -> str:

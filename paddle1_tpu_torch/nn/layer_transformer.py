@@ -298,7 +298,15 @@ class TransformerEncoder(Layer):
     it) rematerializes per block in training mode: each layer runs under
     ``fleet.utils.recompute``, so only the block inputs stay alive for
     the backward (``layer_transformer.py:334-344`` of the JAX
-    package)."""
+    package).
+
+    ``ParallelEngine`` at ``pp > 1`` tags the encoder with its ``pp``
+    group (``pipeline_group``) and micro-batch count
+    (``pipeline_microbatches``), and holds on each rank only that stage's
+    blocks (the others are :class:`BlockElsewhere` placeholders). Inside
+    the engine's step (its ``pp`` binding of ``env.spmd_axes``) the
+    forward runs the block stack as a pipeline over the ``pp`` ranks
+    (:meth:`_forward_pipelined`; ``layer_transformer.py:370-455``)."""
 
     def __init__(self, encoder_layer: TransformerEncoderLayer,
                  num_layers: int, norm=None):
@@ -309,8 +317,16 @@ class TransformerEncoder(Layer):
         self.num_layers = num_layers
         self.norm = norm
         self.enable_recompute = False
+        self.pipeline_group = None
+        self.pipeline_microbatches = None
 
     def forward(self, src, src_mask=None, cache=None):
+        g = self.pipeline_group
+        if g is not None and cache is None:
+            from ..distributed import env
+            if env.current_spmd_axis("pp") is g:
+                out = self._forward_pipelined(src, src_mask)
+                return self.norm(out) if self.norm is not None else out
         output = src
         new_caches = []
         remat = self.enable_recompute and self.training
@@ -327,6 +343,50 @@ class TransformerEncoder(Layer):
             output = self.norm(output)
         return output if cache is None else (output, new_caches)
 
+    def _forward_pipelined(self, src, src_mask=None):
+        """The block stack as a pipeline over the ``pp`` ranks: the batch
+        cut into ``pipeline_microbatches`` micro-batches (a per-example
+        mask cut with them, a broadcastable one given to each), and this
+        rank's ``num_layers // pp`` blocks as its stage
+        (``distributed.pipeline.run_pipeline``). Raises where the blocks
+        or the batch do not divide (``layer_transformer.py:395-409``)."""
+        from ..distributed.pipeline import run_pipeline
+        g = self.pipeline_group
+        n_stages = g.nranks
+        n_micro = int(self.pipeline_microbatches or n_stages)
+        if self.num_layers % n_stages:
+            raise InvalidArgumentError(
+                f"pipelined encoder: {self.num_layers} blocks not "
+                f"divisible into {n_stages} stages")
+        bps = self.num_layers // n_stages
+        b = src.shape[0]
+        if b % n_micro:
+            raise InvalidArgumentError(
+                f"pipelined encoder: batch {b} not divisible by "
+                f"{n_micro} microbatches")
+        mb = b // n_micro
+        micro_x = src.reshape((n_micro, mb) + tuple(src.shape[1:]))
+        micro_mask = None
+        if src_mask is not None:
+            if src_mask.dim() >= 1 and src_mask.shape[0] == b:
+                micro_mask = src_mask.reshape(
+                    (n_micro, mb) + tuple(src_mask.shape[1:]))
+            else:
+                micro_mask = src_mask[None].expand(
+                    (n_micro,) + tuple(src_mask.shape))
+        stage = _PipelineStage(
+            [self.layers[i] for i in range(g.rank * bps,
+                                           (g.rank + 1) * bps)],
+            self.enable_recompute and self.training)
+        names, params = zip(*stage.named_parameters())
+
+        def stage_fn(tree, x, mask=None):
+            return torch.func.functional_call(stage, tree, (x, mask))
+        out = run_pipeline(stage_fn, list(params), micro_x, micro_mask,
+                           group=g,
+                           unflatten=lambda vals: dict(zip(names, vals)))
+        return out.reshape((b,) + tuple(out.shape[2:]))
+
     def gen_cache(self, src):
         """One empty :attr:`MultiHeadAttention.Cache` a layer."""
         return [layer.gen_cache(src) for layer in self.layers]
@@ -338,6 +398,41 @@ class TransformerEncoder(Layer):
     def gen_paged_cache(self, pages, page_size, dtype=torch.float32):
         return [layer.gen_paged_cache(pages, page_size, dtype)
                 for layer in self.layers]
+
+
+class _PipelineStage(torch.nn.Module):
+    """A rank's blocks of a pipelined encoder, run in order (each under
+    ``fleet.utils.recompute`` with ``remat``): the stage function's
+    module, which ``functional_call`` binds to the step's tensors."""
+
+    def __init__(self, blocks, remat: bool):
+        super().__init__()
+        self.blocks = torch.nn.ModuleList(blocks)
+        self.remat = remat
+
+    def forward(self, x, mask=None):
+        for blk in self.blocks:
+            if self.remat:
+                from ..distributed.fleet.utils.recompute import recompute
+                x = recompute(blk, x, mask)
+            else:
+                x = blk(x, mask)
+        return x
+
+
+class BlockElsewhere(torch.nn.Module):
+    """The place of a pipelined encoder's block that another ``pp`` rank
+    holds (``ParallelEngine`` at ``pp > 1``): it has no tensors, and
+    running it raises."""
+
+    def __init__(self, stage: int):
+        super().__init__()
+        self.stage = stage
+
+    def forward(self, *args, **kwargs):
+        raise InvalidArgumentError(
+            f"this encoder block is held by pp stage {self.stage}; "
+            "ParallelEngine.sync_model() gathers the stages")
 
 
 class TransformerDecoderLayer(Layer):

@@ -518,7 +518,8 @@ def test_init_parallel_env_makes_the_ranks_card_the_current_place(
 def test_build_mesh_takes_dp_only_and_checks_the_world(job2):
     """Every degree needs its ranks: one rank refuses any degree of 2; on
     two ranks each axis builds (mp and sharding included), and the engine
-    refuses pp and sp only, naming their ROADMAP items."""
+    refuses only pp for a model without a pipelined body (the JAX
+    engine's refusal; pipeline and sequence parallelism are ported)."""
     mesh = tdist.build_mesh(dp=1)
     assert mesh.shape["dp"] == 1 and mesh.group.nranks == 1
     for kw in (dict(dp=2), dict(mp=2), dict(pp=2), dict(sharding=2),
@@ -528,7 +529,7 @@ def test_build_mesh_takes_dp_only_and_checks_the_world(job2):
             tdist.build_mesh(**kw)
     for r, got in enumerate(_load(job2, "mesh", 2)):
         for axis, item in (("dp", None), ("mp", None), ("sharding", None),
-                           ("pp", "5(iii)"), ("sp", "5(iv)")):
+                           ("pp", "pipelined body"), ("sp", None)):
             assert int(got[axis + "_coord"]) == r
             assert got[axis + "_group"].tolist() == [0, 1]
             data = [0, 1] if axis in ("dp", "sharding") else [r]

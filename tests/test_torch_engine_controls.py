@@ -356,10 +356,12 @@ def test_unported_options_and_checkpoints_raise(jax_model):
         teng.save_checkpoint("/nonexistent")
     with pytest.raises(UnimplementedError, match="Queue 1 item 6"):
         teng.load_checkpoint("/nonexistent")
-    with pytest.raises(UnimplementedError, match="item 5"):
-        _tengine(jax_model, pp_microbatches=2)
-    with pytest.raises(UnimplementedError, match="batch_spec"):
-        _tengine(jax_model, batch_spec=("dp",))
+    # pipeline and sequence parallelism are ported: without pp the
+    # micro-batch count changes nothing (the JAX engine's rule), and a
+    # batch_spec cuts the batch axis; cutting the sequence is item 5(iv-b)
+    _tengine(jax_model, pp_microbatches=2, batch_spec=("dp",))
+    with pytest.raises(UnimplementedError, match=r"item 5\(iv-b\)"):
+        _tengine(jax_model, batch_spec=(None, "sp"))
     with pytest.raises(InvalidArgumentError, match="grad_accum"):
         _tengine(jax_model, grad_accum=0)
 

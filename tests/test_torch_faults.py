@@ -29,6 +29,8 @@ cache constructors) take the JAX package's dtype strings, ``"float16"`` included
 F24: ``ParallelEngine(amp_dtype="float16")`` is the JAX engine's pure-f16
 mode, and the batch norms under it take the kernels' route in f16.
 F25: ``nn.Embedding.forward`` takes the reference's ``x`` by keyword.
+F26: point-to-point transfers of a device tensor over gloo raise typed
+(gloo's TCP transport would be handed the device pointer).
 
 Inputs and weights come from numpy with a seed; weights cross through
 ``paddle1_tpu_torch.convert.state_from_jax``. Random masks differ by
@@ -1688,3 +1690,24 @@ def test_f25_embedding_forward_takes_x_by_keyword():
     np.testing.assert_array_equal(got.detach().numpy(), want)
     assert list(inspect.signature(tp.nn.Embedding.forward).parameters) == \
         list(inspect.signature(jp.nn.Embedding.forward).parameters)
+
+
+def test_f26_gloo_refuses_point_to_point_of_device_tensors():
+    """On the card gloo hands its TCP transport a CUDA tensor's device
+    pointer (``send``/``recv`` fail with ``writev ... Bad address``,
+    ``isend``/``irecv`` abort the process:
+    ``tools/torch_hybrid_phases.py --gloo-probe``); the port refuses a
+    tensor off the CPU over gloo before any transfer, typed. A meta tensor
+    stands in for a card's here."""
+    import datetime
+    import torch.distributed as dist
+    from paddle1_tpu_torch.core.errors import UnavailableError
+    from paddle1_tpu_torch.distributed import collective as C
+    pg = dist.ProcessGroupGloo(dist.HashStore(), 0, 1,
+                               datetime.timedelta(seconds=30))
+    g = C.Group(0, 2, ranks=[0, 1], process_group=pg)
+    t = torch.empty(4, device="meta")
+    for fn, peer in ((C.send, "dst"), (C.recv, "src"), (C.isend, "dst"),
+                     (C.irecv, "src")):
+        with pytest.raises(UnavailableError, match="gloo moves only CPU"):
+            fn(t, **{peer: 1}, group=g)

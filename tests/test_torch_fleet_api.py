@@ -446,9 +446,6 @@ def test_distributed_and_fleet_lack_only_the_names_of_later_items():
     import paddle1_tpu.distributed as jd
     import paddle1_tpu.distributed.fleet as jf
     later = {
-        # item 5(iii)-(iv): pipeline and sequence parallelism
-        "pipeline", "pipeline_apply", "stack_stage_params",
-        "sequence_parallel", "ring_attention", "ulysses_attention",
         # item 6: checkpoint, resilience
         "checkpoint", "CheckpointManager", "save_sharded", "load_sharded",
         "resilience", "ResilientTrainer", "ResilienceReport",
@@ -466,8 +463,6 @@ def test_distributed_and_fleet_lack_only_the_names_of_later_items():
     missing = {n for n in jd.__all__ if not hasattr(tdist, n)}
     assert missing == later
     fleet_later = {
-        # item 5(iii): the pipeline layers
-        "LayerDesc", "SharedLayerDesc", "PipelineLayer", "SegmentLayers",
         # items 8 and 10: the trainers, data generators, file datasets
         # and the PS utility
         "fleet_util", "UtilBase", "DataGenerator", "MultiSlotDataGenerator",

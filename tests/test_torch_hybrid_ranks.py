@@ -164,7 +164,7 @@ def topology_case(out):
         dist.all_reduce(t, group=m.groups["mp"] if kw.get("mp")
                         else m.data_group)
         res[f"{tag}_sum"] = t
-    from paddle1_tpu_torch.core.errors import UnimplementedError
+    from paddle1_tpu_torch.core.errors import EnforceNotMet
     raised = []
     for kw in (dict(pp=2, dp=2), dict(sp=2, dp=2)):
         try:
@@ -172,7 +172,7 @@ def topology_case(out):
                                 lambda m, b: m(b).sum(),
                                 mesh=dist.build_mesh(**kw))
             raised.append("")
-        except UnimplementedError as e:
+        except EnforceNotMet as e:
             raised.append(str(e))
     res["engine_raises"] = np.array(raised)
     _save(out, "topology", **res)

@@ -42,6 +42,11 @@ import chip_smoke as cs  # noqa: E402
 
 PROBE_OPS = ("all_reduce", "broadcast", "all_gather", "reduce_scatter",
              "all_gather_into", "all_to_all", "scatter")
+# point-to-point and the one-step shift (an all-to-all whose splits move
+# each rank's tensor to the next rank only): each in a pair of ranks of
+# its own, since a transport handed a device pointer may end its process
+P2P_OPS = ("send_recv", "isend_irecv", "batch_isend_irecv",
+           "all_to_all_shift")
 
 
 def _probe_one(op, rank, dev):
@@ -64,6 +69,80 @@ def _probe_one(op, rank, dev):
         dist.scatter(torch.empty_like(x),
                      [x.clone(), x.clone()] if rank == 0 else None, src=0)
     torch.cuda.synchronize(dev)
+
+
+def _probe_p2p(op, rank, dev):
+    """One point-to-point transfer (or the shift) of ``op`` between two
+    ranks on CUDA tensors, unstaged; returns whether rank 1 (rank 0 for
+    the shift too) received the peer's values."""
+    import torch.distributed as dist
+    x = torch.arange(4, dtype=torch.float32, device=dev) + 10 * rank
+    got = torch.zeros(4, device=dev)
+    peer = 1 - rank
+    if op == "send_recv":
+        # one point-to-point pair: rank 0's send is rank 1's recv
+        if rank == 0:
+            dist.send(x, 1)  # noqa: rank-divergent-collective — the pair's send
+        else:
+            dist.recv(got, 0)  # noqa: rank-divergent-collective — its recv
+    elif op == "isend_irecv":
+        w = dist.isend(x, 1) if rank == 0 else dist.irecv(got, 0)
+        w.wait()
+    elif op == "batch_isend_irecv":
+        ops = [dist.P2POp(dist.isend, x, peer),
+               dist.P2POp(dist.irecv, got, peer)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+    elif op == "all_to_all_shift":
+        # rank j's tensor to rank j + 1 (two ranks: a swap), the splits
+        # sending nothing to any other rank
+        splits = [0, 4] if rank == 0 else [4, 0]
+        dist.all_to_all_single(got, x, splits, splits)
+    torch.cuda.synchronize(dev)
+    want = torch.arange(4, dtype=torch.float32) + 10 * peer
+    one_way = op in ("send_recv", "isend_irecv")
+    return (one_way and rank == 0) or bool(torch.equal(got.cpu(), want))
+
+
+def p2p_worker(out_dir, init_file, op):
+    """A rank of one point-to-point probe."""
+    from paddle1_tpu_torch import distributed as pdist
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    dev = torch.device("cuda", 0)
+    pdist.init_parallel_env(backend="gloo", device=dev,
+                            init_method=f"file://{init_file}")
+    try:
+        try:
+            res = ("runs on CUDA tensors" if _probe_p2p(op, rank, dev)
+                   else "runs, wrong values")
+        except Exception as e:   # noqa: BLE001 (the answer sought)
+            res = f"{type(e).__name__}: {str(e).strip()[:160]}"
+        with open(os.path.join(out_dir, f"p2p{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        pdist.destroy_process_group()
+
+
+def p2p_probe():
+    """Each of P2P_OPS in a gloo pair of its own on the card."""
+    from paddle1_tpu_torch import distributed as pdist
+    res = {}
+    for op in P2P_OPS:
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                pdist.spawn(p2p_worker, args=(tmp, os.path.join(
+                    tmp, "store"), op), nprocs=2, timeout=120)
+                got = []
+                for r in range(2):
+                    with open(os.path.join(tmp, f"p2p{r}.json")) as f:
+                        got.append(json.load(f))
+                res[op] = got[1] if got[0] == "runs on CUDA tensors" \
+                    else got[0]
+            except Exception as e:   # noqa: BLE001 (a rank died)
+                res[op] = f"a rank failed: {type(e).__name__}: " \
+                    f"{str(e).strip()[:160]}"
+    cs.log(json.dumps({"gloo_cuda_p2p_probe": res}))
+    return res
 
 
 def probe_worker(out_dir, init_file):
@@ -97,13 +176,14 @@ def gloo_probe():
         with open(os.path.join(tmp, "probe0.json")) as f:
             res = json.load(f)
     cs.log(json.dumps({"gloo_cuda_probe": res}))
+    res.update(p2p_probe())
     return res
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results to this file")
-    ap.add_argument("--phases", nargs="+", type=int, default=[43, 44, 45],
+    ap.add_argument("--phases", nargs="*", type=int, default=[43, 44, 45],
                     choices=[43, 44, 45])
     ap.add_argument("--gloo-probe", action="store_true")
     ap.add_argument("--plant", nargs="+", default=[],
