@@ -9997,15 +9997,16 @@ def pp_rank_worker(out_dir, init_file, backend, one_card, jobs):
         pdist.destroy_process_group()
 
 
-def pp_spawn(tmp, ranks, jobs):
+def pp_spawn(tmp, ranks, jobs, timeout=PP_TIMEOUT_S):
     """``jobs`` on ``ranks`` ranks (gloo on one card, NCCL one a card
-    where there are as many); every rank's result of each job."""
+    where there are as many), killed after ``timeout`` s; every rank's
+    result of each job."""
     import os
     from paddle1_tpu_torch import distributed as pdist
     nccl = torch.cuda.device_count() >= ranks
     pdist.spawn(pp_rank_worker, args=(
         tmp, os.path.join(tmp, f"store{ranks}"), "nccl" if nccl else "gloo",
-        not nccl, jobs), nprocs=ranks, timeout=PP_TIMEOUT_S)
+        not nccl, jobs), nprocs=ranks, timeout=timeout)
     return {name: [torch.load(os.path.join(tmp, f"{name}_rank{r}.pt"))
                    for r in range(ranks)] for name, _ in jobs}
 
@@ -10188,6 +10189,639 @@ def pipeline_phases(dev, ws1):
         k: v for k, v in check_out.items() if k not in checks}}))
     check(not failures, "; ".join(failures))
     return pp46, sp47
+
+
+# ---------------------------------------------------------------------------
+# phases 48-50: item 5(iv-b)-(v), the sequence cut inside the engine and
+# ZeRO's memory scaling, and item 6's sharded checkpoint
+
+# phase 48: config 4 through fleet at sharding_degree ZS_RANKS, bf16, 4 x
+# 512 a rank, at ZeRO stages 1, 2 and 3 (gloo ranks on one card, NCCL one
+# a card where there are as many), each stage from the same seeded
+# weights: the peak a rank must fall with the stage, stage 3's below phase
+# 44's world-size-1 peak, and the stages' losses agree within ZS_LOSS_TOL
+# (the same sums in another order at most). ZS_STEPS steps a stage, the
+# first a warm-up, the rest timed by the host clock (gloo moves the 6.55 GB
+# of gradients and parameters of a step through host memory: a step takes
+# seconds, and a slope over many steps too long).
+ZS_RANKS, ZS_STAGES, ZS_STEPS, ZS_TIMEOUT_S = 2, (1, 2, 3), 2, 900
+ZS_LOSS_TOL = 1e-3
+# phase 49: the sequence cut, batch_spec SQ_SPEC. The f32 check at ERNIE's
+# width cut to SQ_DEPTH layers on SQ_MESHES against world size 1 on the
+# whole batch (ragged padding, dropout 0), by phase 45's measures and
+# phase 46's replicated-tensor gaps; each fault of SQ_PLANTS, planted in its
+# mesh, must fail it. Then config 4 at full width and depth through fleet
+# at sep_degree SQ_RANKS, bf16, 4 x 512, SQ_STEPS steps.
+SQ_RANKS, SQ_DEPTH, SQ_STEPS = 2, 4, 2
+SQ_SPEC = (("dp", "sharding"), "sp")
+SQ_MESHES = (("sp2", {"sp": 2}, {}), ("sp2_dp2", {"sp": 2, "dp": 2}, {}))
+# the blocks' gradients not summed over sp; the input's gradient not
+# all-gathered (each rank's embeddings miss the other slices); the key mask
+# cut with the sequence (each rank's own slice tiled) instead of whole;
+# one ZeRO unit's reduce-scatter written a 64-element step off its offset.
+# Each with the mesh it is planted in.
+SQ_PLANTS = {"sp_sum": "sp2", "input_grad": "sp2", "mask_cut": "sp2",
+             "unit_offset": "sh2_z2"}
+SQ_PLANT_MESHES = {"sh2_z2": ({"sharding": 2}, {"zero_stage": 2})}
+# phase 50: depth CK_DEPTH, f32, sharding 2 at ZeRO 3 on two ranks:
+# CK_STEPS steps, save, CK_STEPS more; a fresh engine restored takes the
+# same CK_STEPS: the losses and the state bit for bit; then world size 1
+# restores the same checkpoint, bit for bit.
+CK_DEPTH, CK_STEPS = 2, 2
+
+
+def sq_batch(batch, seq, seed, accum=None):
+    """``ernie_batch`` with ragged padding: row i's last ``1 + i * seq //
+    (3 * batch)`` ids are the pad id 0, which the model masks."""
+    out = ernie_batch(batch, seq, seed=seed, accum=accum)
+    ids = out["ids"].reshape(-1, batch, seq)
+    for i in range(batch):
+        ids[:, i, seq - 1 - (i * seq) // (3 * batch):] = 0
+    return out
+
+
+class PlantedSeq:
+    """One fault of SQ_PLANTS planted in ``eng`` for the enclosed code
+    (``with PlantedSeq(eng, fault):``): phase 49's check must fail each."""
+
+    def __init__(self, eng, fault):
+        if fault not in SQ_PLANTS:
+            raise ValueError(f"no planted fault {fault!r}")
+        self.eng, self.fault, self._undo = eng, fault, []
+
+    def __enter__(self):
+        from paddle1_tpu_torch.distributed import sequence_parallel as sqp
+        eng, fault = self.eng, self.fault
+        if fault == "sp_sum":
+            eng._sum_seq = lambda grad: None
+        elif fault == "unit_offset":
+            real = eng._scatter_unit
+
+            def shifted(u, g):
+                real(u, g)
+                if u is eng._zero["units"][1]:
+                    u.gshard.copy_(u.gshard.roll(64))
+            eng._scatter_unit = shifted
+        elif fault == "input_grad":
+            self._swap(sqp, "_seq_slice", _slice_without_gather)
+        else:
+            from paddle1_tpu_torch.nn import layer_transformer as lt
+            mha = lt.MultiHeadAttention
+            real = mha.forward
+
+            def cut_mask(layer, query, key=None, value=None,
+                         attn_mask=None, cache=None):
+                group = getattr(lt._cut, "group", None)
+                if attn_mask is not None and group is not None:
+                    n, nl = group.nranks, query.shape[1]
+                    mine = attn_mask[..., group.rank * nl:
+                                     (group.rank + 1) * nl]
+                    attn_mask = mine.repeat(
+                        *([1] * (attn_mask.dim() - 1)), n)
+                return real(layer, query, key, value, attn_mask, cache)
+            self._swap(mha, "forward", cut_mask)
+        return self
+
+    def _swap(self, mod, name, fn):
+        self._undo.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._undo:
+            setattr(mod, name, fn)
+        return False
+
+
+class _SliceNoGather(torch.autograd.Function):
+    """The planted slice: its backward puts this rank's cotangent in place
+    and zeros elsewhere, where the real one all-gathers the slices'."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.n = group, x.shape[1]
+        k = x.shape[1] // group.nranks
+        return x[:, group.rank * k:(group.rank + 1) * k].contiguous()
+
+    @staticmethod
+    def backward(ctx, dy):
+        full = dy.new_zeros((dy.shape[0], ctx.n) + tuple(dy.shape[2:]))
+        k, r = dy.shape[1], ctx.group.rank
+        full[:, r * k:(r + 1) * k] = dy
+        return full, None
+
+
+def _slice_without_gather(x, group):
+    return _SliceNoGather.apply(x, group)
+
+
+def zero_state_bytes(eng):
+    """A ZeRO engine's state at rest on this rank (``_zero``'s units):
+    parameter, gradient and slot bytes, the largest bytes gathered whole
+    at any moment of a step (stage 3's counter; stages 1-2 hold the whole
+    parameters) and stage 3's bound on it, the root unit and two of the
+    largest blocks at the gathered leaves' element size (a block is
+    gathered for its forward while the one before it is freed)."""
+    z = eng._zero
+    units = z["units"]
+    whole = sum(u.n for u in units) * 4
+    stage3 = eng.zero_stage >= 3
+    root = sum(u.n for u in units if not u.block)
+    block = max((u.n for u in units if u.block), default=0)
+    esize = max((u.raw if u.cflat is None else u.craw).element_size()
+                for u in units)
+    return {"params": sum(u.size for u in units) * 4 if stage3 else whole,
+            "grads": whole if eng.zero_stage == 1 else
+            sum(u.size for u in units) * 4,
+            "slots": eng.slot_bytes(),
+            "max_gathered": z["max_gathered"] if stage3 else whole,
+            "max_gathered_bound": esize * (root + 2 * block),
+            "max_unit_gathered": z["max_unit_gathered"] if stage3 else
+            max(u.n for u in units) * 4,
+            "max_grad_buffer": z["max_grad_buffer"] * 4,
+            "units": len(units), "largest_unit": max(u.n for u in units),
+            "whole_grad_buffer": eng._flat is not None}
+
+
+def host_steps_ms(step_fn, n):
+    """The host ms and the loss of each of ``n`` steps, each ending in a
+    readback."""
+    ms, losses = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(float(step_fn()))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, losses
+
+
+def ernie_flops(tokens, layers=ERNIE_LAYERS, n_params=None):
+    return 6 * n_params * tokens + 12 * layers * tokens * ERNIE_SEQ * \
+        ERNIE_HIDDEN
+
+
+# config 4's model in this rank's process, built once for phases 48-49
+_RANK_MODEL = {}
+
+
+def rank_ernie_model():
+    """Config 4's model (``ernie_model()``) at its seeded initial
+    weights: built on the first call in this process, reset to them on
+    each later one (the last engine's parameters, whole, take them)."""
+    if not _RANK_MODEL:
+        m = ernie_model()
+        _RANK_MODEL.update(model=m, init={
+            k: v.detach().cpu().clone() for k, v in m.state_dict().items()})
+    else:
+        _RANK_MODEL["model"].load_state_dict(_RANK_MODEL["init"])
+    return _RANK_MODEL["model"]
+
+
+def zs_job(dev, out_dir):
+    """Phase 48 on this rank: config 4 through fleet at sharding_degree
+    ZS_RANKS, bf16, at each ZeRO stage of ZS_STAGES in turn, each from the
+    same initial weights: peak memory, the state at rest, the largest bytes
+    gathered, the losses, step ms, launches and collectives a step."""
+    import gc
+    from paddle1_tpu_torch.distributed import fleet, topology
+    from paddle1_tpu_torch.optimizer import AdamW
+    from paddle1_tpu_torch.text.models import BertPretrainingCriterion
+    model = rank_ernie_model()
+    n_params = sum(p.nelement() for p in model.parameters())
+    batch = ernie_batch(ERNIE_BATCH * ZS_RANKS, ERNIE_SEQ, seed=48)
+    out = {"params": n_params}
+    for stage in ZS_STAGES:
+        t0 = time.perf_counter()
+        model = rank_ernie_model()
+        strategy = fleet.DistributedStrategy()
+        strategy.sharding = True
+        strategy.sharding_configs = {"stage": stage}
+        strategy.hybrid_configs = {"sharding_degree": ZS_RANKS}
+        strategy.amp = True
+        fleet.init(is_collective=True, strategy=strategy)
+        try:
+            eng = fleet.parallel_engine(
+                model, AdamW(learning_rate=ERNIE_LR,
+                             parameters=model.parameters()),
+                ernie_loss_fn(BertPretrainingCriterion(ERNIE_VOCAB)))
+            gc.collect()
+            torch.cuda.empty_cache()
+            staged = eng.shard_batch(batch)
+            setup_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats(dev)
+            counters = train_counters()
+            zero(counters)
+            with CollectiveCount() as calls:
+                losses = [float(eng.step(staged))]
+                ms, more = host_steps_ms(lambda: eng.step(staged),
+                                         ZS_STEPS - 1)
+            torch.cuda.synchronize(dev)
+            out[stage] = {
+                "setup_s": setup_s, "mesh": eng.mesh.shape,
+                "zero_stage": eng.zero_stage, "amp": str(eng.amp_dtype),
+                "losses": losses + more,
+                "step_ms": ms, "peak_mem_gb":
+                    torch.cuda.max_memory_allocated(dev) / 1e9,
+                "state": zero_state_bytes(eng),
+                "launches": {k: fn.launches for k, fn in counters.items()},
+                "collectives_per_step": {k: v / ZS_STEPS
+                                         for k, v in calls.n.items()}}
+            eng.sync_model()       # the model's parameters whole again
+        finally:
+            topology.set_hybrid_communicate_group(None)
+        del eng, staged
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def sq_ernie_job(dev, out_dir):
+    """Phase 49's config-4 run on this rank: fleet at sep_degree SQ_RANKS,
+    bf16, the sequence cut over sp (``fleet.parallel_engine(...,
+    batch_spec=...)``), 4 x 512 with ragged padding: SQ_STEPS steps (the
+    first a warm-up), peak memory, launches and collectives a step."""
+    from paddle1_tpu_torch.distributed import fleet, topology
+    from paddle1_tpu_torch.distributed.sharding_specs import \
+        data_partition_spec
+    from paddle1_tpu_torch.optimizer import AdamW
+    from paddle1_tpu_torch.text.models import BertPretrainingCriterion
+    t0 = time.perf_counter()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"sep_degree": SQ_RANKS}
+    strategy.amp = True
+    fleet.init(is_collective=True, strategy=strategy)
+    try:
+        model = rank_ernie_model()
+        n_params = sum(p.nelement() for p in model.parameters())
+        eng = fleet.parallel_engine(
+            model, AdamW(learning_rate=ERNIE_LR,
+                         parameters=model.parameters()),
+            ernie_loss_fn(BertPretrainingCriterion(ERNIE_VOCAB)),
+            batch_spec=data_partition_spec(("dp", "sharding"),
+                                           seq_axis="sp"))
+        staged = eng.shard_batch(sq_batch(ERNIE_BATCH, ERNIE_SEQ, seed=49))
+        setup = {"mesh": eng.mesh.shape, "amp": str(eng.amp_dtype),
+                 "cut": eng._sp is not None}
+        torch.cuda.reset_peak_memory_stats(dev)
+        loss0 = float(eng.step(staged))
+        setup_s = time.perf_counter() - t0
+        counters = train_counters()
+        zero(counters)
+        with CollectiveCount() as calls:
+            ms, losses = host_steps_ms(lambda: eng.step(staged),
+                                       SQ_STEPS - 1)
+        torch.cuda.synchronize(dev)
+        return {"setup": setup, "setup_s": setup_s, "params": n_params,
+                "loss_first": loss0, "loss_last": losses[-1],
+                "step_ms": ms, "steps": SQ_STEPS - 1,
+                "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "launches": {k: fn.launches for k, fn in counters.items()},
+                "collectives_per_step": {k: v / (SQ_STEPS - 1)
+                                         for k, v in calls.n.items()}}
+    finally:
+        topology.set_hybrid_communicate_group(None)
+
+
+def sq_model(depth=SQ_DEPTH):
+    return ernie_model(depth=depth, seed=SEED + 49)
+
+
+def sq_check_job(dev, out_dir, runs):
+    """Phase 49's cross-rank check on this rank: each run of ``runs``
+    (``(name, degrees, engine kwargs, planted fault or None)``), REF_STEPS
+    f32 steps of the depth-cut ERNIE on the global batch with the sequence
+    cut over sp, the first step's gradient and the state gathered; rank 0
+    reads the gaps to world size 1 (``hy_gaps``, the reference in
+    ``out_dir``) and every rank's replicated-tensor gaps to it."""
+    import contextlib
+    import copy
+    import gc
+    import os
+    from paddle1_tpu_torch import distributed as pdist
+    rank = pdist.get_rank()
+    batch = sq_batch(HY_BATCH, ERNIE_SEQ, seed=SEED + 49)
+    ref = None
+    if rank == 0:
+        raw = torch.load(os.path.join(out_dir, "sq_ref.pt"), mmap=True)
+        ref = {part: {k: v.to(dev) for k, v in raw[part].items()}
+               for part in ("init", "state", "grads")}
+        del raw
+    out = {"backend": torch.distributed.get_backend()}
+    first_model = sq_model()
+    for name, degrees, kw, fault in runs:
+        t0 = time.perf_counter()
+        model = copy.deepcopy(first_model)
+        eng = hy_engine(model, mesh=pdist.build_mesh(**degrees),
+                        batch_spec=SQ_SPEC, **kw)
+        del model
+        counters = train_counters()
+        zero(counters)
+        torch.cuda.reset_peak_memory_stats(dev)
+        plant = PlantedSeq(eng, fault) if fault is not None else \
+            contextlib.nullcontext()
+        with plant:
+            with CollectiveCount() as first:
+                losses = [float(eng.step(batch))]
+            grads = eng.full_grad_dict()
+            with CollectiveCount() as rest:
+                for _ in range(REF_STEPS - 1):
+                    losses.append(float(eng.step(batch)))
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        state = eng.full_state_dict()
+        norms = pp_rep_norms(state, dev)
+        every = []
+        pdist.all_gather_object(every, norms)
+        out[name] = {
+            "fault": fault, "losses": losses, "launches": launches,
+            "peak_mem_gb": peak / 1e9,
+            "collectives_per_step": {
+                k: (first.n[k] + rest.n[k]) / REF_STEPS for k in first.n},
+            "gaps": (hy_gaps(state, grads, ref["init"], ref["state"],
+                             ref["grads"], HY_LR) if rank == 0 else None),
+            "rep_gaps": (pp_rep_gaps(every, ref["init"], ref["state"])
+                         if rank == 0 else None),
+            "seconds": time.perf_counter() - t0}
+        del eng, state, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def ck_model(seed=SEED + 50):
+    return ernie_model(depth=CK_DEPTH, seed=seed)
+
+
+def ck_job(dev, out_dir):
+    """Phase 50 on this rank: CK_STEPS f32 steps at sharding ZS_RANKS, ZeRO
+    3, a save, CK_STEPS more; a fresh engine (other weights) restored takes
+    the same steps. Returns both runs' losses, whether the states agree bit
+    for bit, and the save's and restore's seconds and bytes; rank 0 keeps
+    the state at the save for world size 1's restore."""
+    import os
+    from paddle1_tpu_torch import distributed as pdist
+    rank = pdist.get_rank()
+    path = os.path.join(out_dir, "ck")
+    batch = ernie_batch(HY_BATCH, ERNIE_SEQ, seed=SEED + 50)
+    mesh = pdist.build_mesh(sharding=ZS_RANKS)
+    eng = hy_engine(ck_model(), mesh=mesh, zero_stage=3)
+    for _ in range(CK_STEPS):
+        eng.step(batch)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    eng.save_checkpoint(path)
+    save_s = time.perf_counter() - t0
+    at_save = eng.full_state_dict()
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in at_save.items()},
+                   os.path.join(out_dir, "ck_state.pt"))
+    del at_save
+    want = [float(eng.step(batch)) for _ in range(CK_STEPS)]
+    whole = eng.full_state_dict()
+    del eng
+    torch.cuda.empty_cache()
+    again = hy_engine(ck_model(seed=SEED + 51), mesh=mesh, zero_stage=3)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    again.load_checkpoint(path)
+    torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t0
+    got = [float(again.step(batch)) for _ in range(CK_STEPS)]
+    resumed = again.full_state_dict()
+    return {"losses": want, "resumed_losses": got,
+            "state_bit_equal": all(torch.equal(whole[k], resumed[k])
+                                   for k in whole) and
+            set(whole) == set(resumed),
+            "save_s": save_s, "load_s": load_s,
+            "bytes": os.path.getsize(os.path.join(path,
+                                                  f"shard-{rank:05d}.pt"))}
+
+
+def zero_seq_phases(dev, ws1):
+    """Phases 48-50 (see ZS_*, SQ_*, CK_*). ``ws1``: phase 44's summary
+    (the world-size-1 step and peak). Returns the three summaries."""
+    import os
+    import tempfile
+    from paddle1_tpu_torch import distributed as pdist
+    t0 = time.perf_counter()
+    model = sq_model()
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    eng = hy_engine(model)
+    batch = sq_batch(HY_BATCH, ERNIE_SEQ, seed=SEED + 49)
+    ref_losses = [float(eng.step(batch))]
+    ref_grads = {k: v.cpu() for k, v in eng.full_grad_dict().items()}
+    ref_losses += [float(eng.step(batch)) for _ in range(REF_STEPS - 1)]
+    ref = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del eng, model
+    torch.cuda.empty_cache()
+    meshes = {name: (degrees, kw) for name, degrees, kw in SQ_MESHES}
+    meshes.update(SQ_PLANT_MESHES)
+    runs = [(name, *meshes[name], None) for name, *_ in SQ_MESHES] + \
+        [(f"{m}_planted_{f}", *meshes[m], f) for f, m in SQ_PLANTS.items()]
+    runs2 = [r for r in runs if int(np.prod(list(r[1].values()))) == 2]
+    runs4 = [r for r in runs if int(np.prod(list(r[1].values()))) == 4]
+    seconds = {"reference": time.perf_counter() - t0}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"init": init, "state": ref, "grads": ref_grads},
+                   os.path.join(tmp, "sq_ref.pt"))
+        del init
+        t1 = time.perf_counter()
+        got = pp_spawn(tmp, ZS_RANKS, [("zs_job", ()), ("sq_ernie_job", ()),
+                                       ("sq_check_job", (runs2,)),
+                                       ("ck_job", ())], ZS_TIMEOUT_S)
+        t2 = time.perf_counter()
+        got4 = pp_spawn(tmp, 4, [("sq_check_job", (runs4,))])
+        t3 = time.perf_counter()
+        # world size 1 restores phase 50's checkpoint
+        one = hy_engine(ck_model(seed=SEED + 52))
+        one.load_checkpoint(os.path.join(tmp, "ck"))
+        at_save = torch.load(os.path.join(tmp, "ck_state.pt"))
+        mine = one.full_state_dict()
+        ws1_equal = set(mine) == set(at_save) and all(
+            torch.equal(mine[k].cpu(), at_save[k]) for k in at_save)
+        del one, mine, at_save
+        torch.cuda.empty_cache()
+        seconds.update(spawn2=t2 - t1, spawn4=t3 - t2,
+                       ws1_restore=time.perf_counter() - t3)
+    for g in (got, got4):
+        for job, res in g.items():
+            seconds[f"{job}_{len(res)}"] = res[0]["job_seconds"]
+    failures = [f"phases 48-50 ran {r['backend']} on {n} ranks"
+                for n, g in ((ZS_RANKS, got), (4, got4))
+                for r in g["sq_check_job"]
+                if r["backend"] != ("nccl" if torch.cuda.device_count() >= n
+                                    else "gloo")]
+    per_step = {"flash_attention": ERNIE_LAYERS,
+                "flash_attention_bwd_dkv": ERNIE_LAYERS,
+                "flash_attention_bwd_dq": ERNIE_LAYERS, "fused_adam": 1,
+                "layer_norm": 2 * ERNIE_LAYERS + 2}
+    # phase 48
+    zs = got["zs_job"]
+    n_params = zs[0]["params"]
+    zs48 = {"card": card_line(), "ranks": ZS_RANKS, "backend":
+            got["sq_check_job"][0]["backend"], "amp": "bfloat16",
+            "batch_per_rank": ERNIE_BATCH, "seq_len": ERNIE_SEQ,
+            "layers": ERNIE_LAYERS, "params": n_params,
+            "peak_mem_gb_world_size_1": ws1["peak_mem_gb"],
+            "timing": "host clock a step, readback each, rank 0"}
+    for stage in ZS_STAGES:
+        rs = [r[stage] for r in zs]
+        dt = float(np.median(rs[0]["step_ms"])) / 1e3
+        steps = ZS_STEPS
+        zs48[f"zero{stage}"] = {
+            "mesh": rs[0]["mesh"], "setup_s": [r["setup_s"] for r in rs],
+            "losses": [r["losses"] for r in rs],
+            "step_ms": [r["step_ms"] for r in rs],
+            "step_ms_median": dt * 1e3,
+            "tokens_per_s_per_rank": ERNIE_BATCH * ERNIE_SEQ / dt,
+            "mfu": ernie_flops(ERNIE_BATCH * ERNIE_SEQ, n_params=n_params) /
+            dt / BF16_FLOPS_PER_S,
+            "peak_mem_gb": [r["peak_mem_gb"] for r in rs],
+            "state_bytes": [r["state"] for r in rs],
+            "launches": [r["launches"] for r in rs],
+            "launches_per_step": [{k: v / steps for k, v in
+                                   r["launches"].items()} for r in rs],
+            "collectives_per_step": [r["collectives_per_step"] for r in rs]}
+        for r in rs:
+            if not (r["zero_stage"] == stage and
+                    r["mesh"]["sharding"] == ZS_RANKS and
+                    r["amp"] == "torch.bfloat16"):
+                failures.append(f"phase 48: fleet compiled {r['mesh']}, "
+                                f"zero {r['zero_stage']}, {r['amp']}")
+            ls = r["losses"]
+            if not (np.all(np.isfinite(ls)) and ls == rs[0]["losses"]):
+                failures.append(f"phase 48 zero {stage}: losses {ls}, rank "
+                                f"0's {rs[0]['losses']}")
+            for k, v in per_step.items():
+                if r["launches"][k] != v * steps:
+                    failures.append(f"phase 48 zero {stage}: {k} launched "
+                                    f"{r['launches'][k]} times in {steps} "
+                                    f"steps, want {v * steps}")
+            st = r["state"]
+            if stage >= 2 and (st["whole_grad_buffer"] or
+                               st["max_grad_buffer"] >
+                               4 * st["largest_unit"]):
+                failures.append(f"phase 48 zero {stage}: a whole-model "
+                                f"gradient buffer ({st})")
+            if stage == 3 and st["max_gathered"] > st["max_gathered_bound"]:
+                failures.append(f"phase 48 zero 3: {st['max_gathered']} "
+                                "bytes gathered at once, above the root "
+                                "unit and two blocks' "
+                                f"{st['max_gathered_bound']}")
+    gap = max(abs(a - b) for st in ZS_STAGES
+              for a, b in zip(zs[0][st]["losses"], zs[0][1]["losses"]))
+    zs48["max_loss_gap_between_stages"] = gap
+    if not gap <= ZS_LOSS_TOL:
+        failures.append(f"phase 48: the stages' losses differ by {gap} "
+                        f"> {ZS_LOSS_TOL}")
+    log(json.dumps({"zero_memory_scaling": zs48}))
+    for r in range(ZS_RANKS):
+        peaks = [zs[r][s]["peak_mem_gb"] for s in ZS_STAGES]
+        if not (peaks[2] < peaks[1] < peaks[0] and
+                peaks[2] < ws1["peak_mem_gb"]):
+            failures.append(f"phase 48: rank {r}'s peaks {peaks} GB at ZeRO "
+                            f"1/2/3 do not fall (world size 1: "
+                            f"{ws1['peak_mem_gb']})")
+    # phase 49: config 4 at sep_degree 2
+    runs = got["sq_ernie_job"]
+    r0 = runs[0]
+    dt = float(np.median(r0["step_ms"])) / 1e3
+    sq49 = {"train": "ernie_1p5b_pretraining_fleet_sp", "card": card_line(),
+            "ranks": SQ_RANKS, "setup": [r["setup"] for r in runs],
+            "amp": "bfloat16", "batch": ERNIE_BATCH, "seq_len": ERNIE_SEQ,
+            "seq_per_rank": ERNIE_SEQ // SQ_RANKS, "layers": ERNIE_LAYERS,
+            "params": r0["params"], "setup_s": r0["setup_s"],
+            "timing": "host clock a step, readback each, rank 0",
+            "step_ms": [r["step_ms"] for r in runs],
+            "step_ms_median": dt * 1e3,
+            "tokens_per_s": ERNIE_BATCH * ERNIE_SEQ / dt,
+            "mfu": ernie_flops(ERNIE_BATCH * ERNIE_SEQ,
+                               n_params=r0["params"]) / dt / BF16_FLOPS_PER_S,
+            "loss_first": [r["loss_first"] for r in runs],
+            "loss_last": [r["loss_last"] for r in runs],
+            "peak_mem_gb": [r["peak_mem_gb"] for r in runs],
+            "launches": [r["launches"] for r in runs],
+            "launches_per_step": [{k: v / r["steps"] for k, v in
+                                   r["launches"].items()} for r in runs],
+            "collectives_per_step": [r["collectives_per_step"]
+                                     for r in runs],
+            "ulysses_kernel_shape": list(ULYSSES_ATTN)}
+    log(json.dumps({"ernie_fleet_sp": sq49}))
+    for r in runs:
+        if not (r["setup"]["cut"] and r["setup"]["mesh"]["sp"] == SQ_RANKS):
+            failures.append(f"phase 49: fleet compiled {r['setup']}")
+        if not (np.isfinite(r["loss_first"]) and np.isfinite(r["loss_last"])
+                and r["loss_last"] == r0["loss_last"] and
+                r["loss_first"] == r0["loss_first"]):
+            failures.append(f"phase 49: losses {r['loss_first']} -> "
+                            f"{r['loss_last']}, rank 0's {r0['loss_first']} "
+                            f"-> {r0['loss_last']}")
+        for k, v in per_step.items():
+            if r["launches"][k] != v * r["steps"]:
+                failures.append(f"phase 49: {k} launched {r['launches'][k]}"
+                                f" times in {r['steps']} steps, want "
+                                f"{v * r['steps']}")
+    # phase 49: the cross-rank check
+    checks = {**{k: [r[k] for r in got["sq_check_job"]] for k, *_ in runs2},
+              **{k: [r[k] for r in got4["sq_check_job"]] for k, *_ in runs4}}
+    check_out = {"card": card_line(), "depth": SQ_DEPTH, "batch": HY_BATCH,
+                 "seq": ERNIE_SEQ, "dtype": "float32", "steps": REF_STEPS,
+                 "lr": HY_LR, "losses_world_size_1": ref_losses}
+    blocks = SQ_DEPTH
+    want = {"flash_attention": blocks, "flash_attention_bwd_dkv": blocks,
+            "flash_attention_bwd_dq": blocks, "fused_adam": 1,
+            "layer_norm": 2 * blocks + 2}
+    for name, degrees, kw, fault in runs2 + runs4:
+        res = checks[name]
+        verdict = pp_verdict(name, res, ref_losses)
+        gaps = res[0]["gaps"]
+        check_out[name] = {
+            "mesh": degrees, **kw, "fault": fault,
+            "losses": [r["losses"] for r in res],
+            "max_grad_gap": max(gaps["grad_gap"].values()),
+            "max_move_gap": max(gaps["move_gap"].values()),
+            "flat_gap_in_lr": gaps["flat_gap_in_lr"],
+            "rep_gaps": res[0]["rep_gaps"], "verdict": verdict or "holds",
+            "launches": [r["launches"] for r in res],
+            "peak_mem_gb": [r["peak_mem_gb"] for r in res],
+            "collectives_per_step": [r["collectives_per_step"]
+                                     for r in res],
+            "seconds": [r["seconds"] for r in res]}
+        log(json.dumps({"sq_rank_check_" + name: check_out[name]}))
+        if fault is not None:
+            if not verdict:
+                failures.append(f"{name}: the planted fault {fault} passed "
+                                "the check")
+            continue
+        failures += verdict
+        for r in res:
+            for k, v in want.items():
+                if r["launches"][k] != v * REF_STEPS:
+                    failures.append(f"{name}: a rank launched {k} "
+                                    f"{r['launches'][k]} times, want "
+                                    f"{v * REF_STEPS}")
+    # phase 50
+    ck = got["ck_job"]
+    ck50 = {"card": card_line(), "ranks": ZS_RANKS, "depth": CK_DEPTH,
+            "dtype": "float32", "zero_stage": 3, "steps": CK_STEPS,
+            "losses": [r["losses"] for r in ck],
+            "resumed_losses": [r["resumed_losses"] for r in ck],
+            "state_bit_equal": [r["state_bit_equal"] for r in ck],
+            "world_size_1_restore_bit_equal": ws1_equal,
+            "save_s": [r["save_s"] for r in ck],
+            "load_s": [r["load_s"] for r in ck],
+            "bytes_per_rank": [r["bytes"] for r in ck]}
+    log(json.dumps({"sharded_checkpoint": ck50}))
+    for r in ck:
+        if r["losses"] != r["resumed_losses"] or not r["state_bit_equal"]:
+            failures.append(f"phase 50: the resumed run {r['resumed_losses']}"
+                            f" is not the uninterrupted {r['losses']} bit for "
+                            "bit")
+    if not ws1_equal:
+        failures.append("phase 50: world size 1's restore differs from the "
+                        "state at the save")
+    seconds["total"] = time.perf_counter() - t0
+    log(json.dumps({"zero_seq_phases_seconds": seconds}))
+    check(not failures, "; ".join(failures))
+    return zs48, sq49, ck50
 
 
 def main() -> int:
@@ -10373,6 +11007,20 @@ def main() -> int:
     pp46, sp47 = pipeline_phases(dev, fleet_e)
     log(json.dumps({"phases_46_47_s": time.perf_counter() - t46}))
     lap("phases_46_47")
+    t48 = time.perf_counter()
+    zs48, sq49, ck50 = zero_seq_phases(dev, fleet_e)
+    # rows 2-5 at the sequence cut's shapes: row 2 on a rank's slice in the
+    # blocks, rows 3-5 at Ulysses' heads with the ragged keep-mask
+    ln_sp = [train_layer_norm_case(dev, ERNIE_BATCH * ERNIE_SEQ // SQ_RANKS,
+                                   ERNIE_HIDDEN, dt)
+             for dt in (torch.bfloat16, torch.float32)]
+    kernels["layer_norm"] += ln_sp
+    flash_tu, flash_bu, flash_shape_u = flash_timing(dev, ULYSSES_ATTN,
+                                                     ragged=True)
+    log(json.dumps({"phases_48_50_s": time.perf_counter() - t48}))
+    lap("phases_48_50")
+    zs_launches = [r for st in ZS_STAGES
+                   for r in zs48[f"zero{st}"]["launches"]]
     log(json.dumps({"phase_seconds": laps}))
     gen_paths = {"gen_f16_cache": gen16["f16_cache"]["launches"],
                  "gen_f16_model": gen16["f16_model"]["launches"],
@@ -10402,6 +11050,10 @@ def main() -> int:
                    "ernie_fleet": fleet_e["launches"].get(name, 0),
                    "ernie_fleet_pp": sum(r.get(name, 0)
                                          for r in pp46["launches"]),
+                   "ernie_fleet_zero": sum(r.get(name, 0)
+                                           for r in zs_launches),
+                   "ernie_fleet_sp": sum(r.get(name, 0)
+                                         for r in sq49["launches"]),
                    "bert_finetune": ft["launches"].get(name, 0),
                    "bert_finetune_eval": fte.get(name, 0),
                    **{k: v.get(name, 0) for k, v in amp_paths.items()},
@@ -10443,6 +11095,13 @@ def main() -> int:
         "max_abs_err")})
     line[-1]["ernie_shape"] = ln_ernie[0]["shape"]
     line[-1]["ernie_f32_case"] = ln_ernie[1]
+    # a sequence-cut rank's slice in the blocks (bf16 [1024, 2304]; f32 in
+    # ernie_sp_f32_case)
+    line[-1].update({f"ernie_sp_shape_{k}": ln_sp[0][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err")})
+    line[-1]["ernie_sp_shape"] = ln_sp[0]["shape"]
+    line[-1]["ernie_sp_f32_case"] = ln_sp[1]
     line[-1]["launches_per_ernie_forward"] = 2 * ERNIE_LAYERS + 2
     # the fine-tuning path's (f32 [4096, 768])
     line[-1].update({f"bert_finetune_shape_{k}": ln_ft[k] for k in (
@@ -10487,6 +11146,8 @@ def main() -> int:
         by_path = {"train": tl[name], "ernie": ernie["launches"][name],
                    "ernie_fleet": fleet_e["launches"][name],
                    "ernie_fleet_pp": sum(r[name] for r in pp46["launches"]),
+                   "ernie_fleet_zero": sum(r[name] for r in zs_launches),
+                   "ernie_fleet_sp": sum(r[name] for r in sq49["launches"]),
                    "ulysses_attention": sp47["launches"][name],
                    "bert_finetune": ft["launches"][name],
                    "bert_finetune_eval": fte[name],
@@ -10518,6 +11179,12 @@ def main() -> int:
             "ernie_shape_bound_by": flash_be[key][1],
             "ernie_shape_library_ms": flash_te[lib_key],
             "ernie_shape_library_ops": flash_te["library_backend"],
+            # the sequence cut's Ulysses heads (phase 49), ragged keep-mask
+            "ulysses_shape": flash_shape_u, "ulysses_shape_ms": flash_tu[key],
+            "ulysses_shape_plain_ms": flash_tu[plain_key],
+            "ulysses_shape_bound_ms": flash_bu[key][0],
+            "ulysses_shape_bound_by": flash_bu[key][1],
+            "ulysses_shape_library_ms": flash_tu[lib_key],
             "bert_finetune_shape": flash_shape_f,
             "bert_finetune_shape_ms": flash_tf[key],
             "bert_finetune_shape_plain_ms": flash_tf[plain_key],
@@ -10551,6 +11218,9 @@ def main() -> int:
                "ernie_fleet": fleet_e["launches"]["fused_adam"],
                "ernie_fleet_pp": sum(r["fused_adam"]
                                      for r in pp46["launches"]),
+               "ernie_fleet_zero": sum(r["fused_adam"] for r in zs_launches),
+               "ernie_fleet_sp": sum(r["fused_adam"]
+                                     for r in sq49["launches"]),
                "bert_finetune": ft["launches"]["fused_adam"],
                **{k: v["fused_adam"] for k, v in amp_paths.items()},
                "transformer": tf_train["launches"]["fused_adam"],

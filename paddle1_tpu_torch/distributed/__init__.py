@@ -4,19 +4,24 @@ collective side): the process-group environment, every collective of
 (``build_mesh``, ``HybridCommunicateGroup``), ``DataParallel``,
 ``spawn`` and the launcher, ``ParallelEngine``/``make_train_step`` at any
 mesh (data, ZeRO 1-3, tensor and pipeline parallelism; ``sp`` ranks
-replicate the batch), ``pipeline`` (``pipeline_apply``,
+replicate the batch or cut the sequence), ``pipeline`` (``pipeline_apply``,
 ``stack_stage_params``), ``sequence_parallel`` (``ring_attention``,
 ``ulysses_attention``), ``meta_parallel`` and ``fleet``.
 
-``checkpoint``, ``resilience`` and ``supervisor`` are ROADMAP Queue 1
-item 6; the parameter server and the embedding services item 8."""
+``checkpoint`` (``save_sharded``, ``load_sharded``,
+``CheckpointManager``) saves and restores sharded state, one file a
+rank. ``resilience`` and ``supervisor`` are ROADMAP Queue 1 item 6; the
+parameter server and the embedding services item 8."""
 
+from . import checkpoint  # noqa: F401
 from . import env  # noqa: F401
 from . import fleet  # noqa: F401
 from . import meta_parallel  # noqa: F401
 from . import pipeline  # noqa: F401
 from . import sequence_parallel  # noqa: F401
 from . import sharding_specs  # noqa: F401
+from .checkpoint import (CheckpointManager, load_sharded,  # noqa: F401
+                         save_sharded)
 from .collective import (Group, ReduceOp, all_gather,  # noqa: F401
                          all_gather_object, all_reduce, all_to_all,
                          alltoall, barrier, broadcast,

@@ -185,14 +185,21 @@ class Fleet:
                         **overrides):
         """The strategy compiled into a ``ParallelEngine`` (the JAX
         package's fleet.minimize for compiled training):
-        ``compile_strategy``'s settings, ``overrides`` on top, on ``mesh``,
-        else on fleet's mesh where the compiled degrees are its degrees,
-        else on a mesh of the compiled degrees (a collective call)."""
+        ``compile_strategy``'s settings, ``overrides`` on top (a
+        ``batch_spec`` that cuts the sequence over ``sp`` among them), on
+        ``mesh``, else on fleet's mesh where the compiled degrees are its
+        degrees, else on a mesh of the compiled degrees (a collective
+        call). ``hybrid_configs["sep_degree"]`` is the ``sp`` degree: the
+        other axes are compiled over the world's ranks divided by it."""
         self._ensure_init()
         from .meta_optimizers import compile_strategy
-        cfg = compile_strategy(self._strategy)
+        sp = max(int(self._strategy.hybrid_configs.get("sep_degree", 1)), 1)
+        cfg = compile_strategy(self._strategy,
+                               collective.get_world_size() // sp)
         cfg.update(overrides)
         degrees = cfg.pop("degrees", None)
+        if degrees is not None and sp > 1:
+            degrees = {**degrees, "sp": sp}
         if mesh is None:
             have = self._hcg.mesh
             same = degrees is None or all(

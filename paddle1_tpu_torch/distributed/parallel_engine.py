@@ -81,10 +81,27 @@ places them itself, explicitly, at every mesh:
   data ranks (``dp`` x ``sharding``, as the JAX ``shard_batch`` cuts over
   ``("dp", "sharding")``; the ``mp``, ``pp`` and ``sp`` ranks of a data
   rank see the same rows), or over the data axes ``batch_spec``'s first
-  entry names (the JAX form; a spec that cuts a later axis, the sequence
-  over ``sp``, raises: ROADMAP.md Queue 1 item 5(iv-b)). A batch that
-  does not divide raises (``benches.py:106-108``); under ``grad_accum``
-  the cut is along the micro-batch axis;
+  entry names (the JAX form). A batch that does not divide raises
+  (``benches.py:106-108``); under ``grad_accum`` the cut is along the
+  micro-batch axis;
+* a ``batch_spec`` whose second entry is ``sp``
+  (``data_partition_spec(("dp", "sharding"), seq_axis="sp")``) cuts the
+  sequence over the ``sp`` ranks, as GSPMD partitions it for the JAX
+  engine (``parallel_engine.py:610-665``), and the step computes world
+  size 1's. The host does not cut the sequence: every ``sp`` rank gets
+  the whole rows (the embeddings, the pooler, the masked-position gather
+  and the heads need them), and a leaf of two or more axes whose second
+  does not divide over ``sp`` raises, where ``jax.device_put`` raises.
+  Inside the step (the ``sp`` binding of ``env.spmd_axes``) every
+  ``TransformerEncoder`` runs its blocks on this rank's contiguous slice
+  of the sequence, self-attention as Ulysses over the ``sp`` ranks on the
+  flash kernels with the whole key-padding mask, and gathers the output
+  before the final norm and the heads (``nn/layer_transformer.py``). The
+  blocks' gradients are summed over ``sp`` (each rank saw its slice); the
+  embeddings', pooler's and heads' are not, being equal on every ``sp``
+  rank. At ``pp > 1`` such a spec raises (ROADMAP.md Queue 1 item
+  5(iv-c)). A spec that cuts another later axis, or the batch over an
+  axis that is not a data axis, raises;
 * ``pp > 1``: every ``TransformerEncoder`` is tagged with the ``pp``
   group and ``pp_microbatches`` (default pp; ``parallel_engine.py:
   412-437``), and each rank keeps only its stage's ``num_layers // pp``
@@ -97,10 +114,11 @@ places them itself, explicitly, at every mesh:
   inputs, so their gradients are the same on every rank and are not
   reduced over ``pp`` (the input's gradient is broadcast from stage 0).
   Dropout inside a block draws from its stage rank's generator;
-* ``sp > 1``: the batch is replicated over the ``sp`` ranks (the JAX
-  engine's cut, ``parallel_engine.py:636-638``), so each computes world
-  size 1's step; ``sequence_parallel``'s attention functions cut the
-  sequence when a model calls them;
+* ``sp > 1`` with the batch replicated over ``sp`` (no sequence entry in
+  ``batch_spec``; the JAX engine's cut, ``parallel_engine.py:636-638``):
+  each ``sp`` rank computes world size 1's step, and
+  ``sequence_parallel``'s attention functions cut the sequence when a
+  model calls them;
 * ``mp > 1``: every tensor ``text.models.apply_megatron_sharding``
   tagged is cut to this rank's model-parallel shard, and the layers that
   hold them run with Megatron's f/g pairs
@@ -111,30 +129,40 @@ places them itself, explicitly, at every mesh:
   (``env.spmd_axes``), so every training-mode batch norm normalizes with
   the global batch's statistics (one differentiable all-reduce per batch
   norm each way). This holds at world size 1 too;
-* the gradients land in one flat f32 buffer (the persistent gradient
-  buffers are views into it) and are averaged over the data ranks. At
-  ``sharding == 1`` (every ZeRO stage is then the identity) or
-  ``zero_stage=0`` (the ``sharding`` axis then only carries data) that is
-  ONE all-reduce that carries the loss too, and every rank applies the
-  same update;
-* ``sharding = n > 1`` with ``zero_stage`` 1-3: the flat buffer (padded
-  to a multiple of n) is cut into n contiguous shards and sharding rank r
-  owns shard r: its optimizer slots (1/n of them, the cut running
-  through tensors: each piece of a tensor keeps its tensor's name, decay
-  and rate, so row 6's table holds partial tensors), and the update.
-  Stage 1 all-reduces the gradients over the data ranks; stages 2-3
-  all-reduce them over ``dp`` and reduce-scatter them over ``sharding``
-  into a buffer of the rank's shard. The optimizer (row 6 on the card)
-  runs over the rank's shard, and the parameters, views of one flat f32
-  buffer, are all-gathered over ``sharding``. Stage 3 keeps only the
-  shard at rest: the flat parameter buffer is released after each step
-  and gathered again, whole, before the next forward, for all of the
-  forward and backward (:meth:`sync_model` gathers it for use outside the
-  engine). What ZeRO saves is the slots only: every stage keeps the whole
-  flat f32 gradient buffer through the backward (stages 2-3 a shard's
-  buffer besides), and stage 3's peak is the whole parameter buffer
-  gathered plus its shard, above stage 2's (no per-bucket reduce-scatter
-  and no per-layer gather yet: ROADMAP.md Queue 1 item 5(v));
+* the trained tensors fall into **units**: each ``TransformerEncoderLayer``
+  is one (at ``pp > 1`` a stage's blocks together are one, since the
+  pipeline binds them all at once through ``functional_call``), and every
+  tensor outside the blocks (embeddings with the tied decoder, pooler,
+  heads, final norms) forms the root unit;
+* at ``sharding == 1`` (every ZeRO stage is then the identity) or
+  ``zero_stage=0`` (the ``sharding`` axis then only carries data) the
+  gradients land in one flat f32 buffer laid out unit by unit (the
+  persistent gradient buffers are views into it) and are averaged over
+  the data ranks in ONE all-reduce that carries the loss too; every rank
+  applies the same update;
+* ``sharding = n > 1`` with ``zero_stage`` 1-3: each unit's masters are
+  views of one flat f32 buffer padded to a multiple of n x 64 elements,
+  and sharding rank r owns the r-th contiguous cut of EACH unit: its
+  optimizer slots (1/n of them, the cut running through tensors: each
+  piece of a tensor keeps its tensor's name, decay, rate and
+  regularizer, so row 6's one launch a step holds partial tensors) and
+  its update. The backward hands each unit's gradient over as soon as it
+  is complete (a hook on every leaf after its gradient accumulated; the
+  root unit, whose tied embedding takes the MLM decoder's gradient too,
+  completes last). Stage 1 keeps the whole gradient and all-reduces it a
+  unit at a time over the data ranks; stages 2-3 all-reduce the unit's
+  gradient over ``dp``, reduce-scatter it over ``sharding`` into the
+  rank's shard (each micro-batch adding into it under ``grad_accum``)
+  and free it, so no whole-model gradient exists. After the update
+  (row 6 over the rank's pieces) stages 1-2 all-gather each unit's
+  parameters. Stage 3 keeps only the shards at rest: the root unit is
+  gathered for the step, a block's unit before its forward (freed after
+  it) and again before its backward (a hook on the block's output; freed
+  when its gradient is complete), into the same storage, so what autograd
+  saved sees the gathered values; under ``amp_dtype`` the 16-bit leaves
+  are gathered, a unit at a time, after the cast. :meth:`sync_model`,
+  :meth:`full_state_dict` and :meth:`full_grad_dict` gather the whole
+  model for use outside the step;
 * ``clip_global_norm`` and ``check_finite`` read the whole gradient: the
   sums over shards are all-reduced over ``sharding``, ``mp`` and ``pp``,
   a tensor replicated over ``mp`` or the stages counted once;
@@ -147,8 +175,11 @@ its schedule. An optimizer ``grad_clip`` under ZeRO or ``mp`` raises: use
 ``clip_global_norm``. ``donate`` is accepted and changes nothing: the
 port updates parameters and slots in place. :meth:`full_state_dict`,
 :meth:`full_grad_dict` and :meth:`sync_model` gather the shards and the
-stages. ``save_checkpoint``/``load_checkpoint`` (ROADMAP.md Queue 1
-item 6) raise.
+stages. :meth:`save_checkpoint` writes each rank's shards of the masters and of
+the slots (``distributed/checkpoint.py``: one file a rank and an index
+of every piece by tensor name and element range), and
+:meth:`load_checkpoint` restores into the engine's current mesh, ZeRO
+degree and stage included, then :meth:`sync_model`.
 """
 
 from __future__ import annotations
@@ -156,6 +187,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import functools
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -245,16 +277,18 @@ def _spec_names(entry) -> tuple:
 
 
 def _batch_cut_axes(spec, mesh) -> tuple:
-    """The mesh axes a batch leaf's leading axis is cut over, outermost
-    first: ``batch_spec``'s first entry (the JAX form: one entry a
-    dimension, each None, an axis name or a tuple of names), by default
-    ``("dp", "sharding")``, the JAX engine's (``parallel_engine.py:
-    636-638``; replicated over ``mp``, ``pp`` and ``sp``). A spec that
-    cuts a later axis (the sequence over ``sp``, which GSPMD partitions
-    for the JAX engine) or cuts the batch over another axis raises
-    ``UnimplementedError``."""
+    """``(lead, seq)``: the mesh axes a batch leaf's leading axis is cut
+    over, outermost first, and whether the second axis (the sequence) is
+    cut over ``sp``. ``batch_spec`` is the JAX form (one entry a
+    dimension, each None, an axis name or a tuple of names); by default
+    the batch is cut over ``("dp", "sharding")``, the JAX engine's
+    (``parallel_engine.py:636-638``; replicated over ``mp``, ``pp`` and
+    ``sp``). A spec that cuts a later axis other than the sequence over
+    ``sp``, or cuts the batch over an axis that is not a data axis, raises
+    ``UnimplementedError``; one that cuts the sequence at ``pp > 1``
+    (ROADMAP.md Queue 1 item 5(iv-c)) too."""
     if spec is None:
-        return _DATA_AXES
+        return _DATA_AXES, False
     entries = list(spec) if isinstance(spec, (tuple, list)) else [spec]
     parsed = [_spec_names(e) for e in entries]
     for a in (a for names in parsed for a in names):
@@ -262,20 +296,27 @@ def _batch_cut_axes(spec, mesh) -> tuple:
             raise InvalidArgumentError(
                 f"batch_spec {spec!r}: {a!r} is not a mesh axis "
                 f"{Mesh.axis_names}")
-    if any(parsed[1:]):
+    seq = parsed[1] if len(parsed) > 1 else ()
+    if seq not in ((), ("sp",)) or any(parsed[2:]):
         raise UnimplementedError(
-            f"ParallelEngine: batch_spec {spec!r} cuts an axis after the "
-            "batch's (the sequence over sp, which GSPMD partitions for the "
-            "JAX engine); the port cuts the leading axis over its data "
-            "axes only: ROADMAP.md Queue 1 item 5(iv-b)")
+            f"ParallelEngine: batch_spec {spec!r} cuts a later axis than "
+            "the sequence's, or the sequence over another axis than sp; "
+            "the port cuts the batch over the data axes and the sequence "
+            "over sp")
     lead = parsed[0] if parsed else ()
     other = [a for a in lead if a not in _DATA_AXES]
     if other or len(set(lead)) != len(lead):
         raise UnimplementedError(
             f"ParallelEngine: batch_spec {spec!r} cuts the batch over "
             f"{list(lead)}; the port cuts it over the data axes dp and "
-            "sharding, each once (ROADMAP.md Queue 1 item 5(iv-b))")
-    return lead
+            "sharding, each once, and the sequence over sp")
+    if seq and mesh is not None and mesh.shape["pp"] > 1 and \
+            mesh.shape["sp"] > 1:
+        raise UnimplementedError(
+            f"ParallelEngine: batch_spec {spec!r} cuts the sequence over "
+            "sp at pp > 1; the pipelined encoder does not cut the "
+            "sequence yet (ROADMAP.md Queue 1 item 5(iv-c))")
+    return lead, bool(seq)
 
 
 def _global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -327,6 +368,30 @@ def keep_where_(state: Sequence[torch.Tensor],
         torch.where(finite, t, b, out=t)
 
 
+class _Unit:
+    """One ZeRO unit of a rank (:meth:`ParallelEngine._init_zero`): the
+    block module (None for the root unit and a pp stage's blocks), the
+    masters' indices, whether it holds encoder blocks, their offsets in
+    the unit's flat buffer of ``n`` elements, this rank's cut ``[lo,
+    hi)`` of ``size`` elements, the
+    buffers (parameters ``pflat`` and its write alias ``raw``, the shard
+    ``pshard``, under stage-3 ``amp_dtype`` the 16-bit ``cflat``/``craw``
+    and the leaves' views ``cviews``; the gradient ``gflat`` at stage 1 and
+    the shard ``gshard``), and the backward's bookkeeping (the gradient
+    being assembled, the leaves still to come, which have come)."""
+
+    def __init__(self, module, idx, block, offs, n, shards, rank):
+        self.module, self.idx, self.block = module, idx, block
+        self.offs, self.n = offs, n
+        self.size = n // shards
+        self.lo, self.hi = rank * self.size, (rank + 1) * self.size
+        self.pflat = self.raw = self.pshard = None
+        self.cflat = self.craw = self.cviews = None
+        self.gflat = self.gshard = self.gbuf = None
+        self.pending, self.seen = 0, []
+        self.gathered = False
+
+
 class ParallelEngine:
     """One-device or hybrid-parallel trainer. ``optimizer`` is one of this
     package's optimizers over the model's parameters (or built with
@@ -362,7 +427,10 @@ class ParallelEngine:
         if mesh is None and degrees is not None:
             mesh = build_mesh(**degrees)
         self.batch_spec = batch_spec
-        self._cut_axes = _batch_cut_axes(batch_spec, mesh)
+        self._cut_axes, seq_cut = _batch_cut_axes(batch_spec, mesh)
+        # the sequence group (a batch_spec that cuts the sequence over sp)
+        self._sp = mesh.groups["sp"] if seq_cut and mesh is not None and \
+            mesh.shape["sp"] > 1 else None
         self.model = model
         self.mesh = mesh
         self.optimizer = optimizer
@@ -553,10 +621,11 @@ class ParallelEngine:
         return out
 
     def _init_mesh(self):
-        """The tensor-parallel cut (``mp > 1``), and the flat f32 gradient
-        buffer (the persistent gradient buffers are views into it; its
-        last element carries the loss at ``sharding == 1``); at
-        ``sharding > 1`` the ZeRO shard (:meth:`_init_zero`)."""
+        """The tensor-parallel cut (``mp > 1``) and the units; at
+        ``sharding == 1`` or ``zero_stage=0`` the flat f32 gradient buffer
+        laid out unit by unit (the persistent gradient buffers are views
+        into it; its last element carries the loss), at ``sharding > 1``
+        the ZeRO shards (:meth:`_init_zero`)."""
         m = self.mesh
         with torch.no_grad():
             if m.shape["mp"] > 1:
@@ -566,7 +635,7 @@ class ParallelEngine:
             for t in self.params:
                 if getattr(t, "_mp_local", False):
                     collective.broadcast(t.data, 0, m.data_group)
-        masters = self._train + self.buffers
+        masters = self._masters = self._train + self.buffers
         bad = [t.dtype for t in masters if t.dtype != torch.float32]
         if bad:
             raise InvalidArgumentError(
@@ -587,13 +656,24 @@ class ParallelEngine:
                     "mp" in _axes(t)) and
             (self._pp is None or self._pp.rank == 0 or
              id(t) in self._stage_ids) else 0.0 for t in masters]
-        offs, n = [], 0
-        for t in masters:
-            offs.append(n)
-            n += -(-t.nelement() // _ALIGN) * _ALIGN
+        units = self._unit_lists(masters)
         shards = m.shape["sharding"] if self.zero_stage >= 1 else 1
         if shards > 1:
-            n = -(-n // (shards * _ALIGN)) * shards * _ALIGN
+            self._init_zero(masters, units)
+            return
+        offs, n = [0] * len(masters), 0
+        self._block_lo = None
+        for _, idx, block in units:
+            if block and self._block_lo is None:
+                self._block_lo = n
+            for i in idx:
+                offs[i] = n
+                n += -(-masters[i].nelement() // _ALIGN) * _ALIGN
+        # the blocks' part of the flat buffer (the units lay the blocks out
+        # last): what a sequence cut sums over sp
+        self._block_hi = n
+        if self._block_lo is None:
+            self._block_lo = n
         self._flat = torch.zeros(n + 1, dtype=torch.float32,
                                  device=self.device)
         self._offs = offs
@@ -601,57 +681,128 @@ class ParallelEngine:
                        for o, t in zip(offs, masters)]
         self._opt_params, self._opt_grads = masters, self._grads
         self._opt_weight = self._norm_weight
-        if shards > 1:
-            self._init_zero(masters, offs, n)
 
-    def _init_zero(self, masters, offs, n):
-        """ZeRO over the ``sharding`` group: the masters become views of
-        one flat f32 parameter buffer laid out as the gradient buffer;
-        sharding rank r owns elements ``[r * S, (r + 1) * S)``, and the
-        update runs over the pieces of the masters there (1-D views that
-        keep their tensor's rate, decay and regularizer, named after it)
-        with a shallow copy of the optimizer holding their slots."""
+    def _unit_lists(self, masters) -> List[tuple]:
+        """``(block module or None, [master index, ...], whether it holds
+        encoder blocks)`` for each unit:
+        the root unit (every master outside the encoder blocks) first,
+        then each ``TransformerEncoderLayer`` in module order, or at ``pp
+        > 1`` this stage's blocks as one unit (the pipeline binds them
+        together through ``functional_call``). Empty units are left
+        out."""
+        from ..nn.layer_transformer import TransformerEncoderLayer
+        pos = {id(t): i for i, t in enumerate(masters)}
+        taken, blocks = set(), []
+        for mod in self.model.modules():
+            if not isinstance(mod, TransformerEncoderLayer):
+                continue
+            idx = sorted({pos[id(t)] for t in (*mod.parameters(),
+                                               *mod.buffers())
+                          if id(t) in pos} - taken)
+            if idx:
+                taken.update(idx)
+                blocks.append((mod, idx, True))
+        if self._pp is not None and blocks:
+            blocks = [(None, sorted(taken), True)]
+        root = [i for i in range(len(masters)) if i not in taken]
+        return [u for u in [(None, root, False)] + blocks if u[1]]
+
+    def _init_zero(self, masters, units):
+        """ZeRO over the ``sharding`` group: each unit's masters become
+        views of the unit's flat f32 parameter buffer (its tensors each
+        aligned to 64 elements, its length padded to a multiple of n x
+        64); sharding rank r owns elements ``[r * S, (r + 1) * S)`` of each
+        unit, and the update runs over the pieces of the masters there
+        (1-D views that keep their tensor's rate, decay and regularizer,
+        named after it) with a shallow copy of the optimizer holding their
+        slots. Stage 1 keeps the whole gradient (one buffer, unit by unit);
+        stages 2-3 keep the gradient shards only. Stage 3 releases every
+        unit's parameters at rest."""
         g = self.mesh.groups["sharding"]
-        size = n // g.nranks
-        lo, hi = g.rank * size, (g.rank + 1) * size
-        pflat = torch.zeros(n, dtype=torch.float32, device=self.device)
-        with torch.no_grad():
-            for o, t in zip(offs, masters):
-                view = pflat[o:o + t.nelement()].view(t.shape)
-                view.copy_(t.data)
-                t.data = view
         stage3 = self.zero_stage >= 3
-        pbase = pflat[lo:hi].clone() if stage3 else pflat[lo:hi]
-        gbase = self._flat[lo:hi] if self.zero_stage == 1 else \
-            torch.zeros(size, dtype=torch.float32, device=self.device)
+        amp = self.amp_dtype if stage3 else None
+        zunits = []
+        with torch.no_grad():
+            for mod, idx, block in units:
+                offs, n = [], 0
+                for i in idx:
+                    offs.append(n)
+                    n += -(-masters[i].nelement() // _ALIGN) * _ALIGN
+                n = -(-n // (g.nranks * _ALIGN)) * g.nranks * _ALIGN
+                u = _Unit(mod, idx, block, offs, n, g.nranks, g.rank)
+                u.pflat = torch.zeros(n, dtype=torch.float32,
+                                      device=self.device)
+                for i, o in zip(idx, offs):
+                    t = masters[i]
+                    view = u.pflat[o:o + t.nelement()].view(t.shape)
+                    view.copy_(t.data)
+                    t.data = view
+                # writes go through .data, whose version counter is its
+                # own: a stage-3 re-gather under a tensor autograd saved
+                # must not count as an in-place change of it
+                u.raw = u.pflat.data
+                u.pshard = u.pflat[u.lo:u.hi].clone() if stage3 else \
+                    u.pflat[u.lo:u.hi]
+                if amp is not None:
+                    u.cflat = torch.empty(n, dtype=amp, device=self.device)
+                    u.craw = u.cflat.data
+                    u.cviews = [u.cflat[o:o + masters[i].nelement()]
+                                .view(masters[i].shape)
+                                for i, o in zip(idx, offs)]
+                zunits.append(u)
+        unit_of = {}
+        for k, u in enumerate(zunits):
+            for j, i in enumerate(u.idx):
+                unit_of[i] = (k, j)
+        if self.zero_stage == 1:
+            whole = torch.zeros(sum(u.n for u in zunits), dtype=torch.float32,
+                                device=self.device)
+            gshard, o = None, 0
+            for u in zunits:
+                u.gflat = whole[o:o + u.n]
+                u.gshard = u.gflat[u.lo:u.hi]
+                o += u.n
+        else:
+            gshard = torch.zeros(sum(u.size for u in zunits),
+                                 dtype=torch.float32, device=self.device)
+            o = 0
+            for u in zunits:
+                u.gshard = gshard[o:o + u.size]
+                o += u.size
         names = dict(zip(map(id, self.optimizer._params),
                          self.optimizer.param_names()))
         own = dict(zip(map(id, self.params), self.names))
         own.update(zip(map(id, self.buffers), self.buffer_names))
-        pieces, gpieces, pnames, weights = [], [], [], []
-        for o, t, w in zip(offs, masters, self._norm_weight):
-            a, b = max(o, lo), min(o + t.nelement(), hi)
-            if a >= b:
-                continue
-            piece = pbase[a - lo:b - lo]
-            for attr in ("optimize_attr", "regularizer", "need_clip"):
-                if hasattr(t, attr):
-                    setattr(piece, attr, getattr(t, attr))
-            pieces.append(piece)
-            gpieces.append(gbase[a - lo:b - lo])
-            pnames.append(names.get(id(t)) or own[id(t)])
-            weights.append(w)
+        pieces, gpieces, pnames, weights, where = [], [], [], [], []
+        for u in zunits:
+            for i, o in zip(u.idx, u.offs):
+                t = masters[i]
+                a, b = max(o, u.lo), min(o + t.nelement(), u.hi)
+                if a >= b:
+                    continue
+                piece = u.pshard[a - u.lo:b - u.lo]
+                for attr in ("optimize_attr", "regularizer", "need_clip"):
+                    if hasattr(t, attr):
+                        setattr(piece, attr, getattr(t, attr))
+                pieces.append(piece)
+                gpieces.append(u.gshard[a - u.lo:b - u.lo])
+                pnames.append(names.get(id(t)) or own[id(t)])
+                weights.append(self._norm_weight[i])
+                where.append((i, a - o))
         opt = copy.copy(self.optimizer)
         opt._params, opt._names = pieces, pnames
         opt._slots, opt._step_t = {}, None
         self._opt = opt
         self._opt_params, self._opt_grads = pieces, gpieces
         self._opt_weight = weights
-        self._zero = {"group": g, "lo": lo, "hi": hi, "n": n,
-                      "pflat": pflat, "pshard": pbase, "gshard": gbase,
-                      "gathered": True}
+        self._zero = {"group": g, "units": zunits, "unit_of": unit_of,
+                      "gshard": gshard, "pieces_at": where, "micro": 0,
+                      "phase": None, "whole": not stage3,
+                      "gathered_now": 0, "max_gathered": 0,
+                      "max_unit_gathered": 0, "max_grad_buffer": 0}
         if stage3:
-            self._release_params()
+            for u in zunits:
+                u.raw.untyped_storage().resize_(0)
 
     @property
     def shard_optimizer(self):
@@ -660,25 +811,57 @@ class ParallelEngine:
         return self._opt
 
     def _gather_params(self) -> None:
-        """ZeRO: every rank's parameter shard into the flat parameter
-        buffer (stage 3 first re-allocates the buffer it released)."""
+        """ZeRO: every unit's f32 parameters whole from the shards, for use
+        outside the step (stages 1-2 after the update; stage 3 for
+        :meth:`sync_model` and the state dicts, until the next step)."""
         z = self._zero
-        if z["gathered"]:
+        if z["whole"]:
             return
-        pflat = z["pflat"]
-        store = pflat.untyped_storage()
-        if store.nbytes() == 0:
-            store.resize_(z["n"] * pflat.element_size())
-        # stages 1-2 own their shard inside the buffer: gather a copy
-        shard = z["pshard"] if self.zero_stage >= 3 else z["pshard"].clone()
-        collective.all_gather_into(pflat, shard, z["group"])
-        z["gathered"] = True
+        for u in z["units"]:
+            store = u.raw.untyped_storage()
+            if store.nbytes() == 0:
+                store.resize_(u.n * u.raw.element_size())
+            # stages 1-2 own their shard inside the buffer: gather a copy
+            shard = u.pshard if self.zero_stage >= 3 else u.pshard.clone()
+            collective.all_gather_into(u.raw, shard, z["group"])
+        z["whole"] = True
 
     def _release_params(self) -> None:
-        """ZeRO stage 3: keep only the shard at rest."""
+        """ZeRO stage 3: keep only the shards (every unit's gathered
+        parameters released)."""
         z = self._zero
-        z["pflat"].untyped_storage().resize_(0)
-        z["gathered"] = False
+        for u in z["units"]:
+            self._release_unit(u)
+            u.raw.untyped_storage().resize_(0)
+        z["whole"] = False
+
+    def _gather_unit(self, u) -> None:
+        """ZeRO stage 3: one unit's step leaves whole (the 16-bit copy
+        under ``amp_dtype``, cast before the gather), into the storage its
+        leaves view."""
+        if u.gathered:
+            return
+        z = self._zero
+        raw, shard = (u.raw, u.pshard) if u.cflat is None else \
+            (u.craw, u.pshard.to(self.amp_dtype))
+        store = raw.untyped_storage()
+        if store.nbytes() == 0:
+            store.resize_(u.n * raw.element_size())
+        collective.all_gather_into(raw, shard, z["group"])
+        u.gathered = True
+        z["gathered_now"] += u.n * raw.element_size()
+        z["max_gathered"] = max(z["max_gathered"], z["gathered_now"])
+        z["max_unit_gathered"] = max(z["max_unit_gathered"],
+                                     u.n * raw.element_size())
+
+    def _release_unit(self, u) -> None:
+        """ZeRO stage 3: free one unit's step leaves."""
+        if not u.gathered:
+            return
+        raw = u.raw if u.cflat is None else u.craw
+        raw.untyped_storage().resize_(0)
+        u.gathered = False
+        self._zero["gathered_now"] -= u.n * raw.element_size()
 
     # -- data placement -----------------------------------------------------
 
@@ -708,10 +891,16 @@ class ParallelEngine:
             n = n * self.mesh.shape[a]
             r = r * self.mesh.shape[a] + self.mesh.coords[a]
         axis = 1 if self.grad_accum > 1 else 0
+        n_sp = self.mesh.shape["sp"] if self._sp is not None else 1
 
         def cut(a):
             if not isinstance(a, torch.Tensor):
                 a = np.asarray(a)
+            if a.ndim > axis + 1 and a.shape[axis + 1] % n_sp:
+                raise InvalidArgumentError(
+                    f"ParallelEngine: a batch leaf of shape {tuple(a.shape)}"
+                    f": its sequence axis of {a.shape[axis + 1]} does not "
+                    f"divide over sp={n_sp}")
             if a.ndim <= axis:
                 return a
             if a.shape[axis] % n:
@@ -741,11 +930,17 @@ class ParallelEngine:
         (amp) of every parameter and floating buffer, requiring grad
         where the master is trained and on every buffer."""
         train = {id(p) for p in self._train}
+        cast = {}     # ZeRO stage 3 under amp: the units' 16-bit views
+        if self._zero is not None:
+            for u in self._zero["units"]:
+                for i, v in zip(u.idx, u.cviews or ()):
+                    cast[id(self._masters[i])] = v
         out = {}
         for n, p in zip(self.names + self.buffer_names,
                         self.params + self.buffers):
-            leaf = p.detach()
-            if self.amp_dtype is not None and leaf.is_floating_point():
+            leaf = p.detach() if id(p) not in cast else cast[id(p)].detach()
+            if self.amp_dtype is not None and leaf.is_floating_point() and \
+                    id(p) not in cast:
                 leaf = leaf.to(self.amp_dtype)
             if id(p) in train or id(p) not in self._param_ids:
                 leaf.requires_grad_(True)
@@ -845,8 +1040,8 @@ class ParallelEngine:
     def _run(self, feed, lr: float) -> torch.Tensor:
         """One step on a fed batch: the loss (f32, 0-d), or ``[loss,
         notfinite]`` under ``check_finite``."""
-        if self._zero is not None:
-            self._gather_params()
+        if self._zero is not None and self.zero_stage >= 3:
+            self._zero_begin()
         if self._pp is not None and self._stages_whole:
             self._drop_stages()
         leaves = self._leaves()
@@ -857,36 +1052,53 @@ class ParallelEngine:
             axes["mp"] = self._mp
         if self._pp is not None:
             axes["pp"] = self._pp
+        if self._sp is not None:
+            axes["sp"] = self._sp
+        zero = self._zero
+        if zero is not None:
+            for i, leaf in enumerate(diff):
+                leaf.register_post_accumulate_grad_hook(
+                    functools.partial(self._leaf_grad, i))
         for i, mb in enumerate(_micro_batches(feed, self.grad_accum)):
-            with torch.enable_grad():
+            with torch.enable_grad(), self._unit_hooks():
                 bind = env.spmd_axes(**axes) if axes else \
                     contextlib.nullcontext()
+                if zero is not None:
+                    zero["phase"] = "forward"
                 with collect_stat_updates() as stats, bind:
                     loss = torch.func.functional_call(self._wrapper, leaves,
                                                       (mb,))
                 loss = loss.float()
-                grads = torch.autograd.grad(loss, diff, allow_unused=True)
-            with torch.no_grad():
-                for buf, g in zip(self._grads, grads):
-                    if g is None:
-                        if i == 0:
-                            buf.zero_()
-                    elif i == 0:
-                        buf.copy_(g)
-                    else:
-                        buf.add_(g)
-            del grads
+                if zero is not None:
+                    self._zero_backward(loss, diff, i)
+                else:
+                    grads = torch.autograd.grad(loss, diff,
+                                                allow_unused=True)
+            if zero is None:
+                with torch.no_grad():
+                    for buf, g in zip(self._grads, grads):
+                        if g is None:
+                            if i == 0:
+                                buf.zero_()
+                        elif i == 0:
+                            buf.copy_(g)
+                        else:
+                            buf.add_(g)
+                del grads
             losses.append(loss.detach())
             stat_runs.append(stats)
         with torch.no_grad():
             if self.grad_accum > 1:
-                torch._foreach_div_(self._grads, float(self.grad_accum))
+                if zero is None:
+                    torch._foreach_div_(self._grads, float(self.grad_accum))
                 loss = torch.stack(losses).mean()
             else:
                 loss = losses[0]
-            if self._zero is not None:
+            if zero is not None:
                 loss = self._reduce_zero(loss)
             elif self._flat is not None:
+                if self._block_lo < self._block_hi:
+                    self._sum_seq(self._flat[self._block_lo:self._block_hi])
                 self._flat[-1:].copy_(loss.reshape(1))
                 collective.all_reduce(self._flat, collective.ReduceOp.AVG,
                                       self.mesh.data_group)
@@ -918,47 +1130,203 @@ class ParallelEngine:
                 step_t.sub_((~finite).float())
             return torch.stack([loss, (~finite).float()])
 
+    def _sum_seq(self, grad: torch.Tensor) -> None:
+        """Sum the blocks' gradient over the ``sp`` ranks of a sequence
+        cut, each of which saw its slice of the sequence (a no-op
+        without one)."""
+        if self._sp is not None:
+            collective.all_reduce(grad, collective.ReduceOp.SUM, self._sp)
+
+    # -- ZeRO: units through the step ---------------------------------------
+
+    def _zero_begin(self) -> None:
+        """ZeRO stage 3 before the forward: what :meth:`sync_model`
+        gathered is released, and the units that stay whole through the
+        step (the root unit, a pp stage's blocks) are gathered."""
+        z = self._zero
+        if z["whole"]:
+            self._release_params()
+        for u in z["units"]:
+            if u.module is None:
+                self._gather_unit(u)
+
+    @contextlib.contextmanager
+    def _unit_hooks(self):
+        """ZeRO stage 3, around one micro-batch's forward and backward:
+        each block unit gathered before its forward and released after it
+        (not in a recomputation inside the backward), and gathered again
+        when its output's gradient arrives, before its backward."""
+        z = self._zero
+        if z is None or self.zero_stage < 3:
+            yield
+            return
+        handles = []
+
+        def pre(u, mod, args):
+            self._gather_unit(u)
+
+        def post(u, mod, args, out):
+            if z["phase"] != "forward":
+                return
+            self._release_unit(u)
+            y = out[0] if isinstance(out, tuple) else out
+            if isinstance(y, torch.Tensor) and y.requires_grad:
+                y.register_hook(lambda g, u=u: self._gather_unit(u))
+        for u in z["units"]:
+            if u.module is not None:
+                handles.append(u.module.register_forward_pre_hook(
+                    functools.partial(pre, u)))
+                handles.append(u.module.register_forward_hook(
+                    functools.partial(post, u)))
+        try:
+            yield
+        finally:
+            for h in handles:
+                h.remove()
+
+    def _zero_backward(self, loss: torch.Tensor, diff, micro: int) -> None:
+        """One micro-batch's backward under ZeRO: each leaf's gradient goes
+        into its unit's as it accumulates (:meth:`_leaf_grad`), and a unit
+        is reduced as soon as all of its leaves have come
+        (:meth:`_unit_done`); afterwards, in unit order, each unit some of
+        whose leaves took no gradient (zero) is completed."""
+        z = self._zero
+        z["micro"] = micro
+        for u in z["units"]:
+            u.pending, u.seen, u.gbuf = len(u.idx), [False] * len(u.idx), None
+        z["phase"] = "backward"
+        try:
+            torch.autograd.backward(loss, inputs=diff)
+        finally:
+            z["phase"] = None
+        with torch.no_grad():
+            for u in z["units"]:
+                if not u.pending:
+                    continue
+                buf = self._unit_grad(u)
+                if self.zero_stage == 1 and micro == 0:
+                    for j, seen in enumerate(u.seen):
+                        if not seen:
+                            t = self._masters[u.idx[j]]
+                            buf[u.offs[j]:u.offs[j] + t.nelement()].zero_()
+                u.pending = 0
+                self._unit_done(u)
+
+    def _unit_grad(self, u) -> torch.Tensor:
+        """The unit's gradient being assembled: the whole gradient's part
+        at stage 1, else a buffer of the unit's size (zeros) made on the
+        unit's first leaf of the micro-batch."""
+        if u.gflat is not None:
+            return u.gflat
+        if u.gbuf is None:
+            u.gbuf = torch.zeros(u.n, dtype=torch.float32,
+                                 device=self.device)
+            z = self._zero
+            z["max_grad_buffer"] = max(z["max_grad_buffer"], u.n)
+        return u.gbuf
+
+    @torch.no_grad()
+    def _leaf_grad(self, i: int, leaf: torch.Tensor) -> None:
+        """A leaf's gradient has accumulated (autograd's hook, once per
+        backward): it goes into its unit's gradient (added at stage 1 after
+        the first micro-batch), the leaf's copy is freed, and the unit is
+        reduced when it was the last of the unit's leaves."""
+        z = self._zero
+        k, j = z["unit_of"][i]
+        u = z["units"][k]
+        g = leaf.grad
+        view = self._unit_grad(u)[u.offs[j]:u.offs[j] + g.nelement()]
+        if u.gflat is not None and z["micro"] > 0:
+            view.add_(g.reshape(-1))
+        else:
+            view.copy_(g.reshape(-1))
+        leaf.grad = None
+        u.seen[j] = True
+        u.pending -= 1
+        if u.pending == 0:
+            self._unit_done(u)
+
+    def _unit_done(self, u) -> None:
+        """A unit's gradient of one micro-batch is complete. Stage 1: on the
+        last micro-batch, one all-reduce over the data ranks (after the
+        sum over ``sp`` for a block's). Stages 2-3: the sum over ``sp``
+        (a block's), an all-reduce over ``dp``, a reduce-scatter over
+        ``sharding`` into this rank's shard (:meth:`_scatter_unit`), and
+        the unit's gradient freed; stage 3 then releases a block's
+        parameters."""
+        z, m = self._zero, self.mesh
+        if u.gflat is not None:
+            if z["micro"] == self.grad_accum - 1:
+                if u.block:
+                    self._sum_seq(u.gflat)
+                collective.all_reduce(u.gflat, collective.ReduceOp.SUM,
+                                      m.data_group)
+            return
+        g, u.gbuf = u.gbuf, None
+        if g is None:
+            g = torch.zeros(u.n, dtype=torch.float32, device=self.device)
+        if u.block:
+            self._sum_seq(g)
+        if m.shape["dp"] > 1:
+            collective.all_reduce(g, collective.ReduceOp.SUM, m.groups["dp"])
+        self._scatter_unit(u, g)
+        del g
+        if u.module is not None and self.zero_stage >= 3:
+            self._release_unit(u)
+
+    def _scatter_unit(self, u, g: torch.Tensor) -> None:
+        """Reduce-scatter a unit's gradient over ``sharding`` into this
+        rank's shard of it, written there on the first micro-batch and
+        added after."""
+        z = self._zero
+        if z["micro"] == 0:
+            collective.reduce_scatter(u.gshard, g, collective.ReduceOp.SUM,
+                                      z["group"])
+        else:
+            part = torch.empty_like(u.gshard)
+            collective.reduce_scatter(part, g, collective.ReduceOp.SUM,
+                                      z["group"])
+            u.gshard.add_(part)
+
     def _zero_finish(self, blends, finite, state) -> None:
         """ZeRO after the update of this rank's shard: the keep-select of
-        a non-finite step on the shard, the parameters gathered (stages
-        1-2; stage 3 only where running statistics must blend), the
-        blends (kept back too on a non-finite step), and at stage 3 the
-        flat parameter buffer released."""
+        a non-finite step on the shard, the parameters gathered unit by unit
+        (stages 1-2; stage 3 only where running statistics must blend), the
+        blends (kept back too on a non-finite step), and at stage 3 every
+        unit released."""
         z = self._zero
         if finite is not None:
             keep_where_(state, self._backup, finite)
+        if self.zero_stage >= 3:
+            for u in z["units"]:
+                self._release_unit(u)
         if self.zero_stage < 3 or blends:
-            z["gathered"] = False
+            z["whole"] = False
             self._gather_params()
         for buf, old, seq, m in blends:
             cur = _blend(old, seq, m)
             if finite is not None:
                 cur = torch.where(finite, cur, old)
             buf.copy_(cur.to(buf.dtype))
-        if self.zero_stage >= 3:
-            if blends:
-                z["pshard"].copy_(z["pflat"][z["lo"]:z["hi"]])
+        if self.zero_stage >= 3 and blends:
+            for u in z["units"]:
+                u.pshard.copy_(u.pflat[u.lo:u.hi])
             self._release_params()
 
     def _reduce_zero(self, loss: torch.Tensor) -> torch.Tensor:
-        """ZeRO: the mean gradient over the data ranks, this rank's shard
-        of it in ``_opt_grads`` (stage 1: one all-reduce of the flat
-        buffer over the data ranks; stages 2-3: over ``dp``, then a
-        reduce-scatter over ``sharding``), and the mean loss."""
-        z, m = self._zero, self.mesh
-        flat = self._flat[:z["n"]]
+        """ZeRO after the backward of every micro-batch: the gradient
+        (each unit already reduced as it completed) divided into the mean
+        over the data ranks and the micro-batches, and the mean loss over
+        the data ranks (its own all-reduce)."""
+        m = self.mesh
         lbuf = loss.reshape(1).clone()
         collective.all_reduce(lbuf, collective.ReduceOp.AVG, m.data_group)
-        if self.zero_stage == 1:
-            collective.all_reduce(flat, collective.ReduceOp.AVG,
-                                  m.data_group)
+        scale = float(m.data_group.nranks * self.grad_accum)
+        if self._zero["gshard"] is not None:
+            self._zero["gshard"].div_(scale)
         else:
-            if m.shape["dp"] > 1:
-                collective.all_reduce(flat, collective.ReduceOp.SUM,
-                                      m.groups["dp"])
-            collective.reduce_scatter(z["gshard"], flat,
-                                      collective.ReduceOp.SUM, z["group"])
-            z["gshard"].div_(float(m.data_group.nranks))
+            for u in self._zero["units"]:
+                u.gflat.div_(scale)
         return lbuf[0]
 
     def _dist_groups(self) -> List[collective.Group]:
@@ -1115,15 +1483,19 @@ class ParallelEngine:
         tensor and at ``pp > 1`` every stage's blocks (collective calls,
         on every rank): what it is on one rank."""
         self.drain()
-        grads = self._grads
-        z = self._zero
-        if z is not None:
-            whole = torch.empty(z["n"], dtype=torch.float32,
-                                device=self.device)
-            collective.all_gather_into(whole, z["gshard"], z["group"])
-            grads = [whole[o:o + g.nelement()].view(g.shape)
-                     for o, g in zip(self._offs, self._grads)]
         masters = self._train + self.buffers
+        z = self._zero
+        if z is None:
+            grads = self._grads
+        else:
+            grads = [None] * len(masters)
+            for u in z["units"]:
+                whole = torch.empty(u.n, dtype=torch.float32,
+                                    device=self.device)
+                collective.all_gather_into(whole, u.gshard, z["group"])
+                for i, o in zip(u.idx, u.offs):
+                    t = masters[i]
+                    grads[i] = whole[o:o + t.nelement()].view(t.shape)
         names = dict(zip(map(id, self.params), self.names))
         names.update(zip(map(id, self.buffers), self.buffer_names))
         out = {}
@@ -1138,15 +1510,98 @@ class ParallelEngine:
             out = self._stage_gather(out, self._grad_keys)
         return out
 
+    def _checkpoint_tree(self, saving: bool) -> Dict[str, Any]:
+        """The engine's state as a tree of ``checkpoint.Piece`` leaves:
+        ``{"params": {name: piece}, "opt_state":
+        ({name: {slot: piece}}, step)}``, each master's piece this rank
+        owns (its ZeRO shard's part, else the whole tensor; a
+        model-parallel shard's name carries ``#mp<rank>``) and the
+        parameters the optimizer does not train, whole. ``saving``: only
+        what this rank writes (one rank of each replica: data rank 0
+        without ZeRO, ``sp`` rank 0, and for a tensor replicated over
+        ``mp`` or the ``pp`` stages, rank 0 of that axis)."""
+        from .checkpoint import Piece
+        from .topology import mesh_descriptor
+        m = self.mesh
+        md = mesh_descriptor(m) if m is not None else None
+        coords = m.coords if m is not None else {}
+        data_replica = coords.get("dp", 0) > 0 or coords.get("sp", 0) > 0 \
+            or (self._zero is None and coords.get("sharding", 0) > 0)
+        masters = self._train + self.buffers
+        names = dict(zip(map(id, self.params), self.names))
+        names.update(zip(map(id, self.buffers), self.buffer_names))
+
+        def key(t):
+            n = names[id(t)]
+            return f"{n}#mp{self._mp.rank}" if self._mp is not None and \
+                getattr(t, "_mp_local", False) else n
+
+        def writes(t):
+            if not saving:
+                return True
+            if data_replica:
+                return False
+            if self._mp is not None and self._mp.rank > 0 and \
+                    not getattr(t, "_mp_local", False):
+                return False
+            return self._pp is None or self._pp.rank == 0 or \
+                id(t) in self._stage_ids
+
+        params, slots = {}, {}
+        opt = self._opt
+        if self._zero is not None:
+            for piece, (i, start) in zip(self._opt_params,
+                                         self._zero["pieces_at"]):
+                t = masters[i]
+                if not writes(t):
+                    continue
+                k = key(t)
+                params[k] = Piece(piece, start, t.shape, md)
+                slots[k] = {n: Piece(v, start, t.shape, md)
+                            for n, v in opt._slots_for(piece).items()}
+        else:
+            for t in masters:
+                if writes(t):
+                    params[key(t)] = Piece(t.data, 0, t.shape, md)
+                    slots[key(t)] = {n: Piece(v, 0, t.shape, md) for n, v
+                                     in opt._slots_for(t).items()}
+        trained = {id(t) for t in masters}
+        for t in self.params:
+            if id(t) not in trained and writes(t):
+                params[key(t)] = Piece(t.data, 0, t.shape, md)
+        step = opt._step_count if opt._step_t is None else \
+            int(opt._step_t.item())
+        return {"params": params,
+                "opt_state": (slots, torch.tensor(step, dtype=torch.int64))}
+
     def save_checkpoint(self, path: str) -> str:
-        raise UnimplementedError(
-            "ParallelEngine.save_checkpoint: sharded checkpoints "
-            "(distributed/checkpoint.py) are ROADMAP.md Queue 1 item 6")
+        """Drain, then save the masters' shards, the shard optimizer's
+        slots and its step, each rank what it owns
+        (``checkpoint.save_sharded``; a collective call, every rank).
+        Returns the path."""
+        self.drain()
+        from . import checkpoint as dckpt
+        return dckpt.save_sharded(path, self._checkpoint_tree(True))
 
     def load_checkpoint(self, path: str) -> None:
-        raise UnimplementedError(
-            "ParallelEngine.load_checkpoint: sharded checkpoints "
-            "(distributed/checkpoint.py) are ROADMAP.md Queue 1 item 6")
+        """Restore into the engine's current mesh, ZeRO degree and stage
+        (each rank reads the runs its pieces cover; a checkpoint of
+        another ``dp`` x ``sharding`` restores, one of another ``mp``,
+        ``pp`` or ``sp`` degree raises ``ReshardError``), then
+        :meth:`sync_model`."""
+        self.drain()
+        from . import checkpoint as dckpt
+        tree = self._checkpoint_tree(False)
+        got = dckpt.load_sharded(path, tree)
+        opt = self._opt
+        opt._step_count, opt._step_t = int(got["opt_state"][1]), None
+        z = self._zero
+        if z is not None:
+            if self.zero_stage >= 3:
+                self._release_params()
+            else:
+                z["whole"] = False
+        self.sync_model()
 
 
 def make_train_step(layer: nn.Module, optimizer, loss_fn: Callable,

@@ -29,6 +29,26 @@ names ``sp``); without one the sequence is whole on this rank.
 Both exchanges are all-to-alls over the tensors' bytes, which gloo takes
 on CUDA tensors (gloo refuses point-to-point transfers of them:
 ``tools/torch_hybrid_phases.py --gloo-probe``).
+
+The sequence cut inside ``ParallelEngine`` (a ``batch_spec`` that cuts
+the sequence over ``sp``) uses three helpers beside them, over the
+group that the engine binds to ``sp``:
+
+* :func:`_seq_slice` — this rank's contiguous slice of the sequence
+  (axis 1); its backward all-gathers the slices' cotangents, so the
+  input's gradient is whole and equal on every rank;
+* :func:`_seq_gather` — the slices gathered whole; its backward keeps
+  this rank's slice of the cotangent (the heads after it are replicated,
+  so their cotangent is the same on every rank: a sum would scale it by
+  the group's size);
+* :func:`_ulysses_heads` — Ulysses' first exchange for self-attention
+  with the whole ``[B, 1, 1, S]`` key-padding keep-mask (or any mask over
+  the whole sequence): after it each rank holds the whole sequence for
+  ``H / n`` heads, so the mask applies as on one rank, through the same
+  routing as one rank's attention (``F.scaled_dot_product_attention``:
+  the flash kernels, rows 3-5, where they apply), and
+  :func:`_heads_to_seq` moves the output back. The public
+  :func:`ulysses_attention` keeps the JAX signature, which has no mask.
 """
 
 from __future__ import annotations
@@ -126,34 +146,44 @@ def ring_attention(q, k, v, axis_name: str, causal: bool = False,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def _seq_to_heads(x, g):
+    """``[B, Nl, H, D]`` cut over the sequence -> ``[B, n * Nl, H / n, D]``
+    cut over the heads: row j of the exchange is heads group j, row i
+    received is sequence piece i."""
+    b, nl, h, d = x.shape
+    n = g.nranks
+    x = x.reshape(b, nl, n, h // n, d).permute(2, 0, 1, 3, 4)
+    x = _Exchange.apply(x, g)
+    return x.permute(1, 0, 2, 3, 4).reshape(b, n * nl, h // n, d)
+
+
+def _heads_to_seq(x, g):
+    """The inverse of :func:`_seq_to_heads`: ``[B, N, H / n, D]`` ->
+    ``[B, N / n, H, D]``."""
+    b, nn_, hl, d = x.shape
+    n = g.nranks
+    nl = nn_ // n
+    x = x.reshape(b, n, nl, hl, d).permute(1, 0, 2, 3, 4)
+    x = _Exchange.apply(x, g)
+    return x.permute(1, 2, 0, 3, 4).reshape(b, nl, hl * n, d)
+
+
+def _check_heads(h: int, g) -> None:
+    if h % g.nranks:
+        raise InvalidArgumentError(
+            f"ulysses: num_heads {h} not divisible by sp={g.nranks}")
+
+
 def ulysses_attention(q, k, v, axis_name: str, causal: bool = False,
                       scale: Optional[float] = None, *, group=None):
     """Attention over a sequence cut across the group's ranks, the cut
     moved to the heads for the local attention (see the module
     docstring): ``[B, N_local, H, D]`` in and out on each rank."""
     g = _group(axis_name, group)
-    n = 1 if g is None else g.nranks
-    b, nl, h, d = q.shape
-    if h % n:
-        raise InvalidArgumentError(
-            f"ulysses: num_heads {h} not divisible by sp={n}")
-
-    def seq2head(x):
-        # [B, Nl, H, D] -> row j: heads group j -> [n, B, Nl, H/n, D];
-        # row i received: sequence piece i -> [B, n * Nl, H/n, D]
-        x = x.reshape(b, nl, n, h // n, d).permute(2, 0, 1, 3, 4)
-        x = _Exchange.apply(x, g)
-        return x.permute(1, 0, 2, 3, 4).reshape(b, n * nl, h // n, d)
-
-    def head2seq(x):
-        # [B, N, H/n, D] -> row i: sequence piece i; row j received:
-        # heads group j -> [B, Nl, H, D]
-        x = x.reshape(b, n, nl, h // n, d).permute(1, 0, 2, 3, 4)
-        x = _Exchange.apply(x, g)
-        return x.permute(1, 2, 0, 3, 4).reshape(b, nl, h, d)
-
     if g is not None:
-        q, k, v = seq2head(q), seq2head(k), seq2head(v)
+        _check_heads(q.shape[2], g)
+        q, k, v = _seq_to_heads(q, g), _seq_to_heads(k, g), \
+            _seq_to_heads(v, g)
     from ..nn.functional.attention import attention_ref
     from ..ops import flash_attention as fa
     if flag_active("flash_attention", q.device) and \
@@ -161,4 +191,69 @@ def ulysses_attention(q, k, v, axis_name: str, causal: bool = False,
         out = fa.flash_attention(q, k, v, causal=causal, scale=scale)
     else:
         out = attention_ref(q, k, v, is_causal=causal, scale=scale)
-    return head2seq(out) if g is not None else out
+    return _heads_to_seq(out, g) if g is not None else out
+
+
+def _ulysses_heads(q, k, v, group):
+    """Ulysses' first exchange for self-attention on this rank's ``[B,
+    S / n, H, D]`` slice: ``q``, ``k``, ``v`` as ``[B, S, H / n, D]``, on
+    which one rank's attention runs with a mask over the WHOLE sequence
+    (``MultiHeadAttention.forward``; :func:`_heads_to_seq` moves the output
+    back). ``H % n`` raises."""
+    _check_heads(q.shape[2], group)
+    return tuple(_seq_to_heads(t, group) for t in (q, k, v))
+
+
+def _gather_seq(x, g):
+    """Every rank's ``[B, k, ...]`` slice concatenated along axis 1 in
+    group-rank order (one all-gather over the bytes)."""
+    xt = x.transpose(0, 1).contiguous()
+    out = torch.empty((g.nranks * xt.shape[0],) + tuple(xt.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    collective.all_gather_into(collective._as_bytes(out),
+                               collective._as_bytes(xt), g)
+    return out.transpose(0, 1)
+
+
+def _own_slice(x, g):
+    k = x.shape[1] // g.nranks
+    return x[:, g.rank * k:(g.rank + 1) * k]
+
+
+class _SliceSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _own_slice(x, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _gather_seq(dy, ctx.group), None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather_seq(x, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _own_slice(dy, ctx.group).contiguous(), None
+
+
+def _seq_slice(x, group):
+    """This rank's contiguous slice of ``x``'s sequence (axis 1) over
+    ``group``; the backward all-gathers the cotangent (see the module
+    docstring). A sequence that does not divide raises."""
+    if x.shape[1] % group.nranks:
+        raise InvalidArgumentError(
+            f"sequence cut: a sequence of {x.shape[1]} does not divide "
+            f"over sp={group.nranks}")
+    return _SliceSeq.apply(x, group)
+
+
+def _seq_gather(x, group):
+    """The slices of ``group``'s ranks gathered along axis 1; the backward
+    keeps this rank's slice of the cotangent."""
+    return _GatherSeq.apply(x, group)

@@ -52,7 +52,9 @@ incremental decoding (one query), take the dense composition.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
+import threading
 from typing import Optional
 
 import numpy as np
@@ -68,6 +70,21 @@ from .layer_norm_act import LayerNorm
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "TransformerDecoderLayer",
            "TransformerDecoder", "Transformer"]
+
+
+# the sequence group while a block runs on its slice of a cut sequence
+# (TransformerEncoder under ParallelEngine's sp binding; per thread)
+_cut = threading.local()
+
+
+@contextlib.contextmanager
+def _sequence_cut(group):
+    prev = getattr(_cut, "group", None)
+    _cut.group = group
+    try:
+        yield
+    finally:
+        _cut.group = prev
 
 
 def _paged_rows(table, pos, window, page_size):
@@ -205,17 +222,27 @@ class MultiHeadAttention(Layer):
         key = query if key is None else key
         value = key if value is None else value
         q, k, v, cache = self._prepare_qkv(query, key, value, cache)
+        if attn_mask is not None and not attn_mask.is_floating_point():
+            attn_mask = attn_mask.to(torch.bool)   # int keep-mask
+        seq_group = getattr(_cut, "group", None)
+        if cache is not None or key is not query or value is not query:
+            seq_group = None   # only self-attention is cut
+        if seq_group is not None:
+            # self-attention on a slice of a cut sequence: Ulysses over
+            # the sequence group, the mask over the whole sequence
+            from ..distributed import sequence_parallel as sqp
+            q, k, v = sqp._ulysses_heads(q, k, v, seq_group)
         if isinstance(cache, self.PagedCache):
             # masking is positional (keys <= cursor); attn_mask is
             # ignored by contract — the paged engine passes None
             out = F.paged_attention(q, cache.k, cache.v, cache.table,
                                     cache.pos)
         else:
-            if attn_mask is not None and not attn_mask.is_floating_point():
-                attn_mask = attn_mask.to(torch.bool)   # int keep-mask
             out = F.scaled_dot_product_attention(
                 q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
                 training=self.training)
+        if seq_group is not None:
+            out = sqp._heads_to_seq(out, seq_group)
         b, n = out.shape[0], out.shape[1]
         out = self.out_proj(torch.reshape(out, (b, n, -1)))
         outs = [out]
@@ -306,7 +333,18 @@ class TransformerEncoder(Layer):
     blocks (the others are :class:`BlockElsewhere` placeholders). Inside
     the engine's step (its ``pp`` binding of ``env.spmd_axes``) the
     forward runs the block stack as a pipeline over the ``pp`` ranks
-    (:meth:`_forward_pipelined`; ``layer_transformer.py:370-455``)."""
+    (:meth:`_forward_pipelined`; ``layer_transformer.py:370-455``).
+
+    Under a binding of ``sp`` to a group of n > 1 ranks (``ParallelEngine``
+    with a ``batch_spec`` that cuts the sequence over ``sp``) the forward
+    takes this rank's contiguous slice of the sequence at entry (its
+    backward all-gathers the slices' cotangents), runs every block on
+    ``[B, S / n, H]`` with self-attention as Ulysses over the group and the
+    mask over the whole sequence (:func:`sequence_parallel._ulysses_heads`;
+    under ``enable_recompute`` the recomputation runs the same way), and
+    gathers the output whole before ``norm`` (its backward keeps this
+    rank's slice of the cotangent). The heads after it, replicated, see the
+    whole sequence as on one rank."""
 
     def __init__(self, encoder_layer: TransformerEncoderLayer,
                  num_layers: int, norm=None):
@@ -322,10 +360,14 @@ class TransformerEncoder(Layer):
 
     def forward(self, src, src_mask=None, cache=None):
         g = self.pipeline_group
-        if g is not None and cache is None:
+        if cache is None:
             from ..distributed import env
-            if env.current_spmd_axis("pp") is g:
+            if g is not None and env.current_spmd_axis("pp") is g:
                 out = self._forward_pipelined(src, src_mask)
+                return self.norm(out) if self.norm is not None else out
+            sp = env.current_spmd_axis("sp")
+            if sp is not None and sp.nranks > 1:
+                out = self._forward_cut(src, src_mask, sp)
                 return self.norm(out) if self.norm is not None else out
         output = src
         new_caches = []
@@ -342,6 +384,21 @@ class TransformerEncoder(Layer):
         if self.norm is not None:
             output = self.norm(output)
         return output if cache is None else (output, new_caches)
+
+    def _forward_cut(self, src, src_mask, group):
+        """The block stack on this rank's slice of the sequence over
+        ``group`` (see the class), gathered whole at the end."""
+        from ..distributed import sequence_parallel as sqp
+        x = sqp._seq_slice(src, group)
+        remat = self.enable_recompute and self.training
+        for mod in self.layers:
+            blk = _CutBlock(mod, group)
+            if remat:
+                from ..distributed.fleet.utils.recompute import recompute
+                x = recompute(blk, x, src_mask)
+            else:
+                x = blk(x, src_mask)
+        return sqp._seq_gather(x, group)
 
     def _forward_pipelined(self, src, src_mask=None):
         """The block stack as a pipeline over the ``pp`` ranks: the batch
@@ -418,6 +475,21 @@ class _PipelineStage(torch.nn.Module):
             else:
                 x = blk(x, mask)
         return x
+
+
+class _CutBlock(torch.nn.Module):
+    """A block run on a slice of a sequence cut over ``group``: its
+    self-attention is Ulysses over the group (``_sequence_cut``), in the
+    forward and in a recomputation inside the backward alike."""
+
+    def __init__(self, block, group):
+        super().__init__()
+        self.block = block
+        self.group = group
+
+    def forward(self, x, mask=None):
+        with _sequence_cut(self.group):
+            return self.block(x, mask)
 
 
 class BlockElsewhere(torch.nn.Module):

@@ -350,18 +350,23 @@ def test_zero_stage_on_a_one_card_mesh_is_the_identity(jax_model):
         _tengine(jax_model, zero_stage=4)
 
 
-def test_unported_options_and_checkpoints_raise(jax_model):
+def test_unported_options_and_checkpoints_raise(jax_model, tmp_path):
+    """What stays unported raises. Checkpoints are ported (ROADMAP item
+    6's first part): a save and a load into a fresh engine give the same
+    next step. So are pipeline and sequence parallelism: without pp the
+    micro-batch count changes nothing (the JAX engine's rule), a
+    batch_spec cuts the batch axis, and one that cuts the sequence over
+    sp is the identity without an sp axis (item 5(iv-b))."""
+    b = _batch()
     teng = _tengine(jax_model, donate=True)
-    with pytest.raises(UnimplementedError, match="Queue 1 item 6"):
-        teng.save_checkpoint("/nonexistent")
-    with pytest.raises(UnimplementedError, match="Queue 1 item 6"):
-        teng.load_checkpoint("/nonexistent")
-    # pipeline and sequence parallelism are ported: without pp the
-    # micro-batch count changes nothing (the JAX engine's rule), and a
-    # batch_spec cuts the batch axis; cutting the sequence is item 5(iv-b)
+    teng.step(b)
+    path = teng.save_checkpoint(str(tmp_path / "ck"))
+    again = _tengine(jax_model)
+    again.load_checkpoint(path)
+    assert float(again.step(b)) == float(teng.step(b))
     _tengine(jax_model, pp_microbatches=2, batch_spec=("dp",))
-    with pytest.raises(UnimplementedError, match=r"item 5\(iv-b\)"):
-        _tengine(jax_model, batch_spec=(None, "sp"))
+    assert float(_tengine(jax_model, batch_spec=(None, "sp")).step(b)) == \
+        float(_tengine(jax_model).step(b))
     with pytest.raises(InvalidArgumentError, match="grad_accum"):
         _tengine(jax_model, grad_accum=0)
 

@@ -446,8 +446,7 @@ def test_distributed_and_fleet_lack_only_the_names_of_later_items():
     import paddle1_tpu.distributed as jd
     import paddle1_tpu.distributed.fleet as jf
     later = {
-        # item 6: checkpoint, resilience
-        "checkpoint", "CheckpointManager", "save_sharded", "load_sharded",
+        # item 6: resilience
         "resilience", "ResilientTrainer", "ResilienceReport",
         "BadStepError",
         # item 8: the parameter server, the embedding services and their
